@@ -11,7 +11,13 @@ Phases, each fatal on failure:
    parallel) and prints the build time and ``ptxas`` report;
 3. kernels vs plain — each kernel against its plain PyTorch version on
    the card, at the serving slice's shapes and at edge cases (max abs
-   error against the fp32 tolerance, 1e-4: the summation order differs);
+   error against the fp32 tolerance, 1e-4: the summation order differs),
+   then the flash forward with ``lse`` and the dQ and dK/dV backward
+   kernels at the MT training sites ([32, 8, 200, 64] fixture batches:
+   encoder self-attention, causal decoder self-attention, cross-attention)
+   and at edge cases (strided fused-projection views, a strided dO, fully
+   masked rows, masked keys whose dK/dV must be exactly zero, lengths that
+   are not tile multiples), each within 1e-4 relative;
 4. serving — the reference MT model at full width (d_model 512, ffn 1024,
    8 heads of 64, 1 layer, max_len 200, ~8,000-word vocabularies, random
    weights from a seed in the JAX package's Flax layout, through the
@@ -21,9 +27,20 @@ Phases, each fatal on failure:
    that both kernels ran on this path, and the token agreement of the fp32
    engine with the one-shot greedy decoder on the CPU (plain versions)
    and of the int8 engine with the fp32 engine (each >= 0.99);
-5. times — requests/s, generated tokens/s, peak device memory, and each
+5. training — ``recipes.translation.train_translator`` on the card at the
+   reference recipe's full width (dropout 0.1, Adam 1e-3, batch 32, one
+   epoch over the 400 fixture pairs in ``assets/fixtures``: 12 steps), then
+   ``evaluate`` and BLEU over the 80 validation pairs. Checks finite,
+   falling loss and that the dQ and dK/dV kernels ran exactly 3 sites x
+   steps x layers times. Then a parity run: dropout 0, random weights in
+   the Flax layout bridged in, 4 steps on the card and the same 4 on the
+   CPU (plain versions): per-step losses within 1e-3 relative, step-0
+   gradients within 1e-4 relative;
+6. times — requests/s, generated tokens/s, peak device memory, and each
    kernel's time (CUDA events) beside its bound, its plain version's time
-   and one library call's.
+   and one library call's, at the serving shapes and at the three training
+   sites; the train step's time, steps/s, target tokens/s, peak memory and
+   the device idle share of one profiled window of steps.
 
 The line before the last is ``nvidia-smi``'s name and power limit; before
 it, one JSON line with every kernel's numbers. The last line is
@@ -34,9 +51,11 @@ prints no result.
 from __future__ import annotations
 
 import json
+import logging
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -60,12 +79,26 @@ N_UNIQUE = 48  # the rest repeat earlier prompts, so the prefix cache hits
 
 REPLACES = {
     "flash_attention_fwd": "machine_learning_apache_spark_tpu/ops/pallas_attention.py:40",
+    "flash_attention_bwd_dq": "machine_learning_apache_spark_tpu/ops/pallas_attention.py:270",
+    "flash_attention_bwd_dkv": "machine_learning_apache_spark_tpu/ops/pallas_attention.py:336",
     "ragged_paged_attention": "machine_learning_apache_spark_tpu/ops/pallas_attention.py:638",
 }
 SOURCES = {
     "flash_attention_fwd": "machine_learning_apache_spark_tpu_torch/csrc/flash_attention_fwd.cu",
+    "flash_attention_bwd_dq": "machine_learning_apache_spark_tpu_torch/csrc/flash_attention_bwd.cu",
+    "flash_attention_bwd_dkv": "machine_learning_apache_spark_tpu_torch/csrc/flash_attention_bwd.cu",
     "ragged_paged_attention": "machine_learning_apache_spark_tpu_torch/csrc/ragged_paged_attention.cu",
 }
+SERVING_KERNELS = ("flash_attention_fwd", "ragged_paged_attention")
+
+# The training slice: the reference recipe (recipes/translation.py
+# defaults) on the fixture corpus, and the parity run's length.
+FIXTURES = Path(__file__).resolve().parent / "assets" / "fixtures"
+TRAIN = dict(data_root=str(FIXTURES), compute_bleu=True, log_every=1)
+PARITY_STEPS = 4
+PARITY_RTOL = 1e-3  # card vs CPU losses: summation order, through Adam
+GRAD_RTOL = 1e-4  # step-0 gradients, card vs CPU
+TIMED_STEPS = 20
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): HBM rate, and the
 # fp32 rate outside the tensor cores, which is what both kernels use.
@@ -204,6 +237,154 @@ def check_kernels(torch, hop, dev) -> dict:
     return errs
 
 
+# -- phase 3b: the training kernels vs plain -----------------------------------
+
+
+def fixture_data():
+    """The recipe's fixture corpus through the port's pipelines: the two
+    pipelines and the train dataset (ids, max_len 200)."""
+    from machine_learning_apache_spark_tpu_torch.data.datasets import load_multi30k
+    from machine_learning_apache_spark_tpu_torch.data.loader import ArrayDataset
+    from machine_learning_apache_spark_tpu_torch.data.text import translation_pipelines
+
+    pairs = load_multi30k(str(FIXTURES), "train")
+    src_pipe, trg_pipe = translation_pipelines(pairs, max_len=200)
+    train_ds = ArrayDataset(
+        src_pipe([s for s, _ in pairs]), trg_pipe([t for _, t in pairs])
+    )
+    return src_pipe, trg_pipe, train_ds
+
+
+def train_batches(train_ds, n: int):
+    """The first ``n`` batches of the recipe's train loader (batch 32,
+    shuffled from seed 0, drop_last), as host arrays."""
+    from machine_learning_apache_spark_tpu_torch.data.loader import DataLoader
+
+    batches = []
+    for b in DataLoader(train_ds, 32, shuffle=True, seed=SEED):
+        batches.append(b)
+        if len(batches) == n:
+            break
+    return batches
+
+
+def training_sites(torch, rng, dev, src, trg_in, heads=8, head_dim=64) -> dict:
+    """q, k, v and dO of the three attention sites of one training step at
+    the model's width, as the model hands them to the kernels: head-split
+    views of the fused ``qkv``/``kv`` projections (and of the cross
+    query's), dO the strided view that the backward of
+    ``out.transpose(1, 2).reshape(b, s, d)`` gives; ``kv_valid`` from the
+    fixture batch's tokens."""
+    b, s_src = src.shape
+    s_trg = trg_in.shape[1]
+    width = heads * head_dim
+
+    def randn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+
+    def split(x, s):
+        return x.view(b, s, heads, head_dim).transpose(1, 2)
+
+    enc, dec = randn(b, s_src, 3 * width), randn(b, s_trg, 3 * width)
+    xq, mem = randn(b, s_trg, width), randn(b, s_src, 2 * width)
+    src_valid = torch.from_numpy(src != 0).to(dev)
+    trg_valid = torch.from_numpy(trg_in != 0).to(dev)
+    return {
+        "encoder self": dict(
+            q=split(enc[..., :width], s_src), k=split(enc[..., width:2 * width], s_src),
+            v=split(enc[..., 2 * width:], s_src), g=split(randn(b, s_src, width), s_src),
+            causal=False, kv_valid=src_valid,
+        ),
+        "decoder self": dict(
+            q=split(dec[..., :width], s_trg), k=split(dec[..., width:2 * width], s_trg),
+            v=split(dec[..., 2 * width:], s_trg), g=split(randn(b, s_trg, width), s_trg),
+            causal=True, kv_valid=trg_valid,
+        ),
+        "cross": dict(
+            q=split(xq, s_trg), k=split(mem[..., :width], s_src),
+            v=split(mem[..., width:], s_src), g=split(randn(b, s_trg, width), s_trg),
+            causal=False, kv_valid=src_valid,
+        ),
+    }
+
+
+def _edge_case(torch, rng, dev, b, h, sq, sk, d, *, causal, valid_frac, empty_batch=None):
+    def randn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+
+    valid = None
+    if valid_frac is not None:
+        mask = rng.random((b, sk)) < valid_frac
+        mask[:, 0] = True
+        if empty_batch is not None:
+            mask[empty_batch] = False  # every row of this batch sees no key
+        valid = torch.from_numpy(mask).to(dev)
+    return dict(
+        q=randn(b, h, sq, d), k=randn(b, h, sk, d), v=randn(b, h, sk, d),
+        g=randn(b, sq, h, d).transpose(1, 2), causal=causal, kv_valid=valid,
+    )
+
+
+def _rel(got, want) -> float:
+    return ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
+
+
+def check_training_kernels(torch, hop, sites: dict, dev) -> dict:
+    """The forward with ``lse``, dQ and dK/dV against their plain versions
+    on the same inputs, at the training sites and at edge cases. Returns
+    each kernel's largest absolute and relative error."""
+    rng = np.random.default_rng(SEED + 3)
+    cases = list(sites.items()) + [
+        ("edge: fully masked batch row, Sk=45, d=128",
+         _edge_case(torch, rng, dev, 3, 2, 37, 45, 128, causal=False, valid_frac=0.5, empty_batch=1)),
+        ("edge: causal Sq>Sk 40x30 (rows see nothing), d=16",
+         _edge_case(torch, rng, dev, 2, 4, 40, 30, 16, causal=True, valid_frac=None)),
+        ("edge: causal Sq<Sk 24x70, masked keys, d=64",
+         _edge_case(torch, rng, dev, 2, 8, 24, 70, 64, causal=True, valid_frac=0.7)),
+        ("edge: d=40, 33x65, no mask",
+         _edge_case(torch, rng, dev, 2, 3, 33, 65, 40, causal=False, valid_frac=None)),
+    ]
+    worst = {n: [0.0, 0.0] for n in ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")}
+
+    def record(name, label, got, want):
+        err, rel = (got - want).abs().max().item(), _rel(got, want)
+        log(f"  {name:24s} {label:46s} max_abs_err {err:.3e}, rel {rel:.3e} (tol {TOL:.0e} relative)")
+        if not rel <= TOL or bool(torch.isnan(got).any().item()):
+            fail(f"{name} disagrees with its plain version on {label}")
+        worst[name][0] = max(worst[name][0], err)
+        worst[name][1] = max(worst[name][1], rel)
+
+    for label, c in cases:
+        q, k, v, g = c["q"], c["k"], c["v"], c["g"]
+        kw = dict(causal=c["causal"], kv_valid=c["kv_valid"])
+        out, lse = hop.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+        want_out, want_lse = hop.flash_attention_lse_plain(q, k, v, **kw)
+        finite = want_lse > hop.NEG_INF / 2
+        if not torch.equal(lse > hop.NEG_INF / 2, finite):
+            fail(f"flash_attention_fwd: lse marks other rows as empty than its plain version ({label})")
+        record("flash_attention_fwd", label + " (out)", out, want_out)
+        if bool(finite.any().item()):
+            record("flash_attention_fwd", label + " (lse)", lse[finite], want_lse[finite])
+        delta = (g * out).sum(-1)
+        dq = hop.flash_attention_bwd_dq(q, k, v, g, lse, delta, **kw)
+        dk, dv = hop.flash_attention_bwd_dkv(q, k, v, g, lse, delta, **kw)
+        want = hop.flash_attention_backward_plain(q, k, v, out, lse, g, **kw)
+        torch.cuda.synchronize()
+        record("flash_attention_bwd_dq", label, dq, want[0])
+        record("flash_attention_bwd_dkv", label + " (dk)", dk, want[1])
+        record("flash_attention_bwd_dkv", label + " (dv)", dv, want[2])
+        if c["kv_valid"] is not None:
+            masked = ~c["kv_valid"][:, None, :, None].expand_as(dk)
+            if bool(masked.any().item()) and (dk[masked].abs().max().item() != 0.0 or dv[masked].abs().max().item() != 0.0):
+                fail(f"flash_attention_bwd_dkv: masked keys must get exactly zero dK/dV ({label})")
+        if not bool(finite.all().item()):
+            empty = ~finite
+            if out[empty].abs().max().item() != 0.0 or dq[empty].abs().max().item() != 0.0:
+                fail(f"rows that see no key must give zero output and zero dQ ({label})")
+    log("  masked keys: dK/dV exactly 0; rows that see no key: output, dQ exactly 0, lse NEG_INF")
+    return {n: dict(max_abs_err=a, max_rel_err=r) for n, (a, r) in worst.items()}
+
+
 # -- phase 4: serving -----------------------------------------------------------
 
 
@@ -301,8 +482,8 @@ def serve_once(torch, hop, translator, prompts, kv_dtype: str) -> dict:
         fail(f"{kv_dtype} engine completed {metrics['completed']} of {len(prompts)}")
     if stats["active_rows"] != 0 or stats["self_pages_in_use"] != 0:
         fail(f"{kv_dtype} engine pools not back at baseline: {stats}")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in SERVING_KERNELS:
+        if launches[name] <= 0:
             fail(f"{kv_dtype} engine never launched {name}")
     return dict(
         outs=outs, wall=wall, launches=launches, stats=stats,
@@ -451,6 +632,265 @@ def time_kernels(torch, hop, dev, prompt_lens: list[int]) -> dict:
     return out
 
 
+# -- phase 5: training -----------------------------------------------------------
+
+
+class _Lines(logging.Handler):
+    """Keeps the messages of one logger."""
+
+    def __init__(self):
+        super().__init__()
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def train_slice(torch, hop) -> dict:
+    """The reference recipe on the card through ``train_translator``:
+    one epoch with dropout, then ``evaluate`` and BLEU. Checks the loss
+    and that the backward kernels ran 3 sites x steps x layers times."""
+    from machine_learning_apache_spark_tpu_torch.recipes.translation import (
+        TranslationRecipe,
+        train_translator,
+    )
+
+    lines = _Lines()
+    logger = logging.getLogger("machine_learning_apache_spark_tpu_torch.train.loop")
+    logger.addHandler(lines)
+    try:
+        hop.reset_launches()
+        t0 = time.perf_counter()
+        out = train_translator(_return_state=True, **TRAIN)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(hop.LAUNCHES)
+    finally:
+        logger.removeHandler(lines)
+    state = out["state"]
+    steps, layers = state.step, TranslationRecipe().num_layers
+    step_losses = [
+        float(m.split("| loss: ")[1].split(" ")[0])
+        for m in lines.messages if m.startswith("epoch 0 step ")
+    ]
+    log(f"  recipe: {TranslationRecipe().__dict__ | TRAIN}")
+    log(f"  {steps} steps, {layers} layer(s); logged running-mean losses {step_losses}")
+    log(f"  history {out['history']}; test_loss {out['test_loss']:.6f} over "
+        f"{out['eval_samples']} pairs; BLEU {out['bleu']:.6f}; train_seconds "
+        f"{out['train_seconds']:.3f}; recipe call {wall:.2f} s (eval and BLEU decode included)")
+    log(f"  launches over the recipe call: {launches}")
+    if len(step_losses) != steps or not all(np.isfinite(step_losses)):
+        fail(f"training losses not all finite or not logged per step: {step_losses}")
+    if not step_losses[-1] < step_losses[0]:
+        fail(f"the loss did not fall: last logged {step_losses[-1]} vs first step {step_losses[0]}")
+    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        if launches[name] != 3 * steps * layers:
+            fail(f"{name} launched {launches[name]} times, not 3 x {steps} steps x {layers} layer(s)")
+    if launches["flash_attention_fwd"] < 3 * steps * layers:
+        fail("the flash forward did not run at every training site")
+    if not (np.isfinite(out["test_loss"]) and 0.0 <= out["bleu"] <= 1.0):
+        fail(f"eval gave test_loss {out['test_loss']} and BLEU {out['bleu']}")
+    if out["eval_samples"] != 80:
+        fail(f"eval scored {out['eval_samples']} of 80 validation pairs")
+    return dict(out=out, state=state, launches=launches, steps=steps, layers=layers,
+                step_losses=step_losses)
+
+
+def parity_run(torch, hop, src_pipe, trg_pipe, train_ds) -> dict:
+    """Dropout 0, random weights in the Flax layout bridged in: the same
+    ``PARITY_STEPS`` Adam steps on the card (kernels) and on the CPU
+    (plain versions), and the step-0 gradients of both."""
+    from machine_learning_apache_spark_tpu_torch.models import Transformer, TransformerConfig
+    from machine_learning_apache_spark_tpu_torch.recipes.translation import make_translation_loss
+    from machine_learning_apache_spark_tpu_torch.train.loop import make_train_step, to_device
+    from machine_learning_apache_spark_tpu_torch.train.state import TrainState, make_optimizer
+    from machine_learning_apache_spark_tpu_torch.weights import load_flax_params, random_flax_params
+
+    cfg = TransformerConfig(
+        src_vocab_size=len(src_pipe.vocab), trg_vocab_size=len(trg_pipe.vocab),
+        **MODEL,
+    )
+    params = random_flax_params(cfg, SEED)
+    batches = train_batches(train_ds, PARITY_STEPS)
+    loss_fn = make_translation_loss(cfg.pad_id)
+    step = make_train_step(loss_fn)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        device = torch.device(dev)
+        model = load_flax_params(Transformer(cfg), params).to(device)
+        loss, _ = loss_fn(model, to_device(batches[0], device), None)
+        loss.backward()
+        grads = torch.cat([p.grad.detach().flatten().cpu() for p in model.parameters()])
+        model.zero_grad(set_to_none=True)
+        state = TrainState.create(model=model, tx=make_optimizer("adam", 1e-3))
+        t0 = time.perf_counter()
+        losses = [step(state, to_device(b, device), None)[1] for b in batches]
+        losses = [x.item() for x in losses]
+        runs[dev] = dict(losses=losses, grads=grads, seconds=time.perf_counter() - t0)
+    card, cpu = np.array(runs["cuda"]["losses"]), np.array(runs["cpu"]["losses"])
+    rel = np.abs(card - cpu) / np.abs(cpu)
+    g_rel = ((runs["cuda"]["grads"] - runs["cpu"]["grads"]).abs().max()
+             / runs["cpu"]["grads"].abs().max()).item()
+    log(f"  parity, {PARITY_STEPS} Adam steps, dropout 0, random Flax-layout weights (seed {SEED}):")
+    log(f"    card losses {card.tolist()}")
+    log(f"    CPU  losses {cpu.tolist()} (plain versions, {runs['cpu']['seconds']:.1f} s)")
+    log(f"    per-step relative difference {rel.tolist()} (gate <= {PARITY_RTOL:.0e})")
+    log(f"    step-0 gradients: max |card - CPU| / max |CPU| = {g_rel:.3e} over all "
+        f"parameters (gate <= {GRAD_RTOL:.0e})")
+    if not np.isfinite(card).all() or not (rel <= PARITY_RTOL).all():
+        fail("card and CPU training losses disagree")
+    if not g_rel <= GRAD_RTOL:
+        fail("card and CPU step-0 gradients disagree")
+    return dict(card=card.tolist(), cpu=cpu.tolist(), rel=rel.tolist(), grad_rel=g_rel)
+
+
+# -- phase 6: training times -----------------------------------------------------
+
+
+def time_train_steps(torch, state, train_ds, card: str) -> dict:
+    """The recipe's train step (dropout 0.1) on the trained state, over
+    device-resident fixture batches: ms per step from CUDA events, steps/s,
+    non-pad target tokens/s, peak memory; then one profiled window of
+    steps for the device idle share."""
+    from machine_learning_apache_spark_tpu_torch.recipes.translation import make_translation_loss
+    from machine_learning_apache_spark_tpu_torch.train.loop import make_train_step, to_device
+
+    dev = next(state.model.parameters()).device
+    batches = [to_device(b, dev) for b in train_batches(train_ds, 12)]
+    pad = state.model.cfg.pad_id
+    tokens = [int((b[1][:, 1:] != pad).sum().item()) for b in batches]
+    step = make_train_step(make_translation_loss(pad))
+    gen = torch.Generator(device=dev)
+
+    def run(n, offset=0):
+        for i in range(n):
+            gen.manual_seed(offset + i)
+            step(state, batches[(offset + i) % len(batches)], gen)
+
+    run(3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    run(TIMED_STEPS, 3)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / TIMED_STEPS
+    peak = torch.cuda.max_memory_allocated()
+    n_tok = sum(tokens[(3 + i) % len(batches)] for i in range(TIMED_STEPS)) / TIMED_STEPS
+    window = {}
+
+    def profiled():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(10, 100)
+        torch.cuda.synchronize()
+        window["wall"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    rows = profile_device(torch, profiled)
+    outer = time.perf_counter() - t0
+    out = dict(ms=ms, steps_per_s=1e3 / ms, tokens_per_s=n_tok * 1e3 / ms,
+               tokens_per_step=n_tok, peak=peak, rows=rows, wall=window["wall"], outer=outer)
+    log(f"  train step (batch 32, [32, 200] src, [32, 199] decoder input, dropout 0.1): "
+        f"{ms:.3f} ms/step (CUDA events over {TIMED_STEPS} steps), {out['steps_per_s']:.2f} steps/s, "
+        f"{out['tokens_per_s']:.1f} non-pad target tokens/s ({n_tok:.1f} per step), "
+        f"peak max_memory_allocated {peak / 2**20:.1f} MiB [{card}]")
+    if rows:
+        busy = sum(r[2] for r in rows) / 1e6
+        out["busy"] = busy
+        out["idle"] = 1 - busy / window["wall"]
+        log(f"  profiled window of 10 train steps: wall {window['wall']:.4f} s, device busy "
+            f"{busy:.4f} s, device idle share {out['idle']:.4f} (profiler start and stop "
+            f"outside it, {outer - window['wall']:.4f} s) [{card}]")
+        for name, calls, us in rows[:12]:
+            log(f"    {us / 1e3:10.3f} ms  {calls:6d} calls  {name[:90]}")
+    else:
+        log("  profiled train window: device time not measured (the profiler saw no device work)")
+    return out
+
+
+def _pairs(valid, sq: int, causal: bool) -> int:
+    """(query, key) pairs the masks leave visible, summed over the batch:
+    each valid key j is seen by every row under causality from j - (Sk -
+    Sq) on, by all Sq rows otherwise."""
+    b, sk = valid.shape
+    if not causal:
+        return int(sq * valid.sum())
+    first_row = np.maximum(np.arange(sk) - (sk - sq), 0)
+    seen_by = np.maximum(sq - first_row, 0)
+    return int((valid * seen_by[None, :]).sum())
+
+
+def time_training_kernels(torch, hop, sites: dict) -> dict:
+    """Each training kernel at each site: CUDA-event ms and profiler device
+    time for the kernel, its plain version and a library yardstick, and its
+    bound from the site's inputs (K/V of valid keys only)."""
+    import torch.nn.functional as F
+
+    out = {}
+    for site, c in sites.items():
+        q, k, v, g = c["q"], c["k"], c["v"], c["g"]
+        causal, valid = c["causal"], c["kv_valid"]
+        kw = dict(causal=causal, kv_valid=valid)
+        b, h, sq, d = q.shape
+        sk = k.shape[2]
+        mask = valid[:, None, None, :]
+        if causal:
+            mask = mask & torch.ones(sq, sk, dtype=torch.bool, device=q.device).tril(sk - sq)
+        o, lse = hop.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+        delta = (g * o).sum(-1)
+        lq, lk, lv = (t.detach().requires_grad_() for t in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=mask)
+        valid_np = valid.cpu().numpy()
+        n_valid, pairs = int(valid_np.sum()), _pairs(valid_np, sq, causal)
+        rows, kv = 4 * b * h * sq * d, 4 * h * d * n_valid  # one [B,H,Sq,d] tensor; K or V of valid keys
+        stats = 4 * b * h * sq  # one [B,H,Sq] fp32 tensor (lse or delta)
+        work = {
+            "flash_attention_fwd": dict(
+                kernel=lambda: hop.flash_attention_fwd(q, k, v, return_lse=True, **kw),
+                plain=lambda: hop.flash_attention_lse_plain(q, k, v, **kw),
+                library=lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
+                library_name="F.scaled_dot_product_attention, bool mask",
+                nbytes=2 * rows + 2 * kv + stats + b * sk, flops=4.0 * d * h * pairs,
+            ),
+            "flash_attention_bwd_dq": dict(
+                kernel=lambda: hop.flash_attention_bwd_dq(q, k, v, g, lse, delta, **kw),
+                plain=lambda: hop.flash_attention_bwd_dq_plain(q, k, v, g, lse, delta, **kw),
+                library=lambda: torch.autograd.grad(lib_out, (lq,), g, retain_graph=True),
+                library_name="SDPA backward, dQ only (autograd.grad, retained graph)",
+                nbytes=3 * rows + 2 * kv + 2 * stats + b * sk, flops=6.0 * d * h * pairs,
+            ),
+            "flash_attention_bwd_dkv": dict(
+                kernel=lambda: hop.flash_attention_bwd_dkv(q, k, v, g, lse, delta, **kw),
+                plain=lambda: hop.flash_attention_bwd_dkv_plain(q, k, v, g, lse, delta, **kw),
+                library=lambda: torch.autograd.grad(lib_out, (lk, lv), g, retain_graph=True),
+                library_name="SDPA backward, dK and dV (autograd.grad, retained graph)",
+                nbytes=2 * rows + 2 * kv + 2 * stats + b * sk + 2 * 4 * b * h * sk * d,
+                flops=8.0 * d * h * pairs,
+            ),
+        }
+        for name, w in work.items():
+            bnd, by = bound_ms(w["nbytes"], w["flops"])
+            r = dict(
+                site=site,
+                shape=f"q [{b},{h},{sq},{d}], k/v [{b},{h},{sk},{d}] fp32 views of fused projections, "
+                      f"{'causal + ' if causal else ''}kv_valid {n_valid}/{b * sk} keys, {pairs} visible pairs per head",
+                ms=cuda_time_ms(torch, w["kernel"], n=50, warmup=5),
+                plain_ms=cuda_time_ms(torch, w["plain"], n=20, warmup=3),
+                library_ms=cuda_time_ms(torch, w["library"], n=50, warmup=5),
+                library_name=w["library_name"],
+                bound_ms=bnd, bound_by=by, nbytes=w["nbytes"], flops=w["flops"],
+                device_ms={
+                    "kernel": device_ms_per_call(torch, w["kernel"], n=20),
+                    "plain": device_ms_per_call(torch, w["plain"], n=10),
+                    "library": device_ms_per_call(torch, w["library"], n=20),
+                },
+            )
+            out.setdefault(name, {})[site] = r
+    return out
+
+
 # -- main -----------------------------------------------------------------------
 
 
@@ -478,15 +918,30 @@ def main() -> int:
     log("== phase 2: build")
     t0 = time.perf_counter()
     built = LIBRARY.kernels()
-    log(f"  built {len(built)} kernels in {time.perf_counter() - t0:.2f} s (wall, parallel nvcc)")
+    log(f"  built {len(built)} kernels from {len({kb.source for kb in built.values()})} "
+        f"sources in {time.perf_counter() - t0:.2f} s (wall, parallel nvcc)")
+    reported = set()
     for name, kb in built.items():
-        log(f"  {name}: nvcc {kb.seconds:.2f} s -> {kb.library}")
+        log(f"  {name}: csrc/{kb.source}.cu, nvcc {kb.seconds:.2f} s -> {kb.library}")
+        if kb.source in reported:
+            continue
+        reported.add(kb.source)
         for line in kb.compiler_output.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if "Compiling entry" in line or "registers" in line or "spill" in line or "smem" in line:
                 log(f"    {line.strip()}")
 
     log("== phase 3: kernels vs plain (on the card)")
     errs = check_kernels(torch, hop, dev)
+    src_pipe_t, trg_pipe_t, train_ds = fixture_data()
+    src0, trg0 = train_batches(train_ds, 1)[0]
+
+    def make_sites():
+        return training_sites(torch, np.random.default_rng(SEED + 4), dev, src0, trg0[:, :-1])
+
+    # Made anew for the timings of phase 6: held here they would sit in
+    # device memory through the serving and training peaks.
+    train_errs = check_training_kernels(torch, hop, make_sites(), dev)
+    torch.cuda.empty_cache()
 
     log("== phase 4: serving slice at full width")
     src_words, src_corpus = make_vocab_texts("s")
@@ -527,7 +982,11 @@ def main() -> int:
     if n_tokens == 0:
         fail("the engine generated no tokens")
 
-    log("== phase 5: times")
+    log("== phase 5: training slice at full width")
+    trained = train_slice(torch, hop)
+    parity = parity_run(torch, hop, src_pipe_t, trg_pipe_t, train_ds)
+
+    log("== phase 6: times")
     for kv, run in runs.items():
         log(f"  {kv:7s} engine: {len(prompts) / run['wall']:.2f} requests/s, "
             f"{run['tokens'] / run['wall']:.1f} generated tokens/s "
@@ -564,26 +1023,57 @@ def main() -> int:
     else:
         log("  profiled fp32 serving run: device time not measured (the profiler saw no device work)")
     times = time_kernels(torch, hop, dev, prompt_lens)
-    kernels = []
     for name, t in times.items():
         log(f"  {name}: {t['shape']}: kernel {t['ms']:.5f} ms, bound {t['bound_ms']:.5f} ms "
             f"({t['bound_by']}), plain {t['plain_ms']:.5f} ms, library {t['library_ms']:.5f} ms [{card}]")
         dm = {k: ("not measured" if v is None else f"{v:.5f} ms") for k, v in t["device_ms"].items()}
         log(f"    device time per call (profiler): kernel {dm['kernel']}, plain {dm['plain']}, "
             f"library {dm['library']}")
-        kernels.append({
+    train_times = time_train_steps(torch, trained["state"], train_ds, card)
+    site_times = time_training_kernels(torch, hop, make_sites())
+    for name, by_site in site_times.items():
+        for site, t in by_site.items():
+            dm = {k: ("not measured" if v is None else f"{v * 1e3:.2f} us") for k, v in t["device_ms"].items()}
+            log(f"  {name} @ {site}: {t['shape']}")
+            log(f"    kernel {t['ms']:.5f} ms (device {dm['kernel']}), bound {t['bound_ms']:.5f} ms "
+                f"({t['bound_by']}: {t['nbytes']} B, {t['flops']:.4g} flop), plain {t['plain_ms']:.5f} ms "
+                f"(device {dm['plain']}), library {t['library_ms']:.5f} ms (device {dm['library']}; "
+                f"{t['library_name']}) [{card}]")
+
+    serve_launches = {n: sum(run["launches"][n] for run in runs.values()) for n in hop.LAUNCHES}
+    kernels = []
+    for name in ("flash_attention_fwd", "ragged_paged_attention",
+                 "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        # Serving-shape numbers for the serving kernels; the encoder
+        # self-attention site for the backward kernels; every training
+        # site under "training_sites".
+        main_t = times.get(name) or site_times[name]["encoder self"]
+        err = errs.get(name, 0.0)
+        if name in train_errs:
+            err = max(err, train_errs[name]["max_abs_err"])
+        entry = {
             "name": name,
             "route": "cuda",
             "source": SOURCES[name],
             "replaces": REPLACES[name],
-            "launches": sum(run["launches"][name] for run in runs.values()),
-            "max_abs_err": errs[name],
-            "ms": t["ms"],
-            "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"],
-        })
+            "launches": serve_launches[name] + trained["launches"][name],
+            "launches_by_path": {"serving": serve_launches[name], "training": trained["launches"][name]},
+            "max_abs_err": err,
+            "ms": main_t["ms"],
+            "plain_ms": main_t["plain_ms"],
+            "bound_ms": main_t["bound_ms"],
+            "bound_by": main_t["bound_by"],
+            "library_ms": main_t["library_ms"],
+        }
+        if name in train_errs:
+            entry["max_rel_err"] = train_errs[name]["max_rel_err"]
+        if name in site_times:
+            entry["training_sites"] = {
+                site: {k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms")}
+                for site, t in site_times[name].items()
+            }
+        kernels.append(entry)
+    log(f"  training: {json.dumps({k: v for k, v in train_times.items() if k != 'rows'})}")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,4 +1,5 @@
-"""Text pipeline and bucketing rule the serving slice needs."""
+"""Text pipeline and bucketing rule (serving), datasets, sampler and
+loader (training)."""
 
 from machine_learning_apache_spark_tpu_torch.data.text import (
     EOS_ID,

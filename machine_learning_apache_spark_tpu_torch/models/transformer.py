@@ -14,6 +14,12 @@ True = attendable, ``where`` before the softmax), and the same paged
 serving entry points. Attention runs through ``ops.attention``: the
 Hopper kernels for CUDA tensors, their plain versions on the CPU.
 
+Dropout draws its random bits from an explicit ``torch.Generator``
+passed down as ``dropout_rng`` (Flax's ``rngs={"dropout": rng}``); with
+none it is the identity (Flax's ``deterministic=True``), so eval, serving
+and parity runs need no mode switch. The training step owns the
+generator (``train.loop``). The bits differ from JAX's by design.
+
 Where Flax *sows* intermediate values into a mutable collection, these
 methods return them: ``prefill_paged`` returns each layer's memory K/V,
 ``decode_step_paged`` each layer's new self-attention K/V.
@@ -77,6 +83,31 @@ def _layer_norm(cfg: TransformerConfig) -> nn.LayerNorm:
     return nn.LayerNorm(cfg.d_model, eps=LN_EPS, dtype=cfg.dtype)
 
 
+class Dropout(nn.Module):
+    """Flax's ``nn.Dropout`` with its bits from an explicit generator.
+
+    ``forward(x, rng)``: with ``rng`` None or ``rate`` 0 it returns ``x``
+    (Flax's ``deterministic=True``); with ``rate`` 1, zeros; otherwise it
+    keeps each element where ``torch.rand(..., generator=rng) < 1 - rate``
+    and scales the kept ones by ``1 / (1 - rate)``. ``rng`` must live on
+    ``x``'s device. Never touches the global RNG."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(
+        self, x: torch.Tensor, rng: torch.Generator | None = None
+    ) -> torch.Tensor:
+        if rng is None or self.rate == 0.0:
+            return x
+        keep = 1.0 - self.rate
+        if keep == 0.0:
+            return torch.zeros_like(x)
+        draw = torch.rand(x.shape, generator=rng, device=x.device, dtype=x.dtype)
+        return torch.where(draw < keep, x / keep, 0.0)
+
+
 class SentenceEmbedding(nn.Module):
     """Token embedding + sinusoidal positional encoding + dropout (C16,
     ``transformer.py:44-62``), with the PE table kept on the module's
@@ -86,7 +117,7 @@ class SentenceEmbedding(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.embed = nn.Embedding(vocab_size, cfg.d_model, dtype=cfg.dtype)
-        self.dropout = nn.Dropout(cfg.dropout)
+        self.dropout = Dropout(cfg.dropout)
         self.register_buffer(
             "pe", torch.empty(cfg.max_len, cfg.d_model, dtype=cfg.dtype),
             persistent=False,
@@ -96,7 +127,11 @@ class SentenceEmbedding(nn.Module):
         self.pe.copy_(sinusoidal_encoding(self.cfg.max_len, self.cfg.d_model))
 
     def forward(
-        self, tokens: torch.Tensor, *, positions: torch.Tensor | None = None
+        self,
+        tokens: torch.Tensor,
+        *,
+        positions: torch.Tensor | None = None,
+        dropout_rng: torch.Generator | None = None,
     ) -> torch.Tensor:
         x = self.embed(tokens)
         length = tokens.shape[-1]
@@ -114,7 +149,7 @@ class SentenceEmbedding(nn.Module):
             pe = table[positions.clamp(0, table.shape[0] - 1)]
         else:
             pe = table[:length]
-        return self.dropout(x + pe)
+        return self.dropout(x + pe, dropout_rng)
 
 
 class MultiHeadAttention(nn.Module):
@@ -200,10 +235,12 @@ class FeedForward(nn.Module):
         super().__init__()
         self.up = _linear(cfg.d_model, cfg.ffn_hidden, cfg)
         self.down = _linear(cfg.ffn_hidden, cfg.d_model, cfg)
-        self.dropout = nn.Dropout(cfg.dropout)
+        self.dropout = Dropout(cfg.dropout)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.down(self.dropout(torch.relu(self.up(x))))
+    def forward(
+        self, x: torch.Tensor, dropout_rng: torch.Generator | None = None
+    ) -> torch.Tensor:
+        return self.down(self.dropout(torch.relu(self.up(x)), dropout_rng))
 
 
 class EncoderLayer(nn.Module):
@@ -215,12 +252,13 @@ class EncoderLayer(nn.Module):
         self.ln1 = _layer_norm(cfg)
         self.ffn = FeedForward(cfg)
         self.ln2 = _layer_norm(cfg)
-        self.dropout = nn.Dropout(cfg.dropout)
+        self.dropout = Dropout(cfg.dropout)
 
-    def forward(self, x, mask=None, kv_valid=None):
+    def forward(self, x, mask=None, kv_valid=None, dropout_rng=None):
         attn = self.self_attn(x, mask=mask, kv_valid=kv_valid)
-        x = self.ln1(x + self.dropout(attn))
-        return self.ln2(x + self.dropout(self.ffn(x)))
+        x = self.ln1(x + self.dropout(attn, dropout_rng))
+        ffn = self.ffn(x, dropout_rng)
+        return self.ln2(x + self.dropout(ffn, dropout_rng))
 
 
 class Encoder(nn.Module):
@@ -233,10 +271,13 @@ class Encoder(nn.Module):
             EncoderLayer(cfg) for _ in range(cfg.num_layers)
         )
 
-    def forward(self, src_tokens, src_mask=None, src_valid=None, *, positions=None):
-        x = self.embed(src_tokens, positions=positions)
+    def forward(
+        self, src_tokens, src_mask=None, src_valid=None, *, positions=None,
+        dropout_rng=None,
+    ):
+        x = self.embed(src_tokens, positions=positions, dropout_rng=dropout_rng)
         for layer in self.layers:
-            x = layer(x, src_mask, src_valid)
+            x = layer(x, src_mask, src_valid, dropout_rng)
         return x
 
 
@@ -252,21 +293,22 @@ class DecoderLayer(nn.Module):
         self.ln2 = _layer_norm(cfg)
         self.ffn = FeedForward(cfg)
         self.ln3 = _layer_norm(cfg)
-        self.dropout = nn.Dropout(cfg.dropout)
+        self.dropout = Dropout(cfg.dropout)
 
     def forward(
         self, y, memory, self_mask=None, cross_mask=None, trg_valid=None,
-        memory_valid=None, self_causal: bool = False,
+        memory_valid=None, self_causal: bool = False, dropout_rng=None,
     ):
         attn = self.self_attn(
             y, mask=self_mask, causal=self_causal, kv_valid=trg_valid
         )
-        y = self.ln1(y + self.dropout(attn))
+        y = self.ln1(y + self.dropout(attn, dropout_rng))
         cross = self.cross_attn(
             y, memory, mask=cross_mask, kv_valid=memory_valid
         )
-        y = self.ln2(y + self.dropout(cross))
-        return self.ln3(y + self.dropout(self.ffn(y)))
+        y = self.ln2(y + self.dropout(cross, dropout_rng))
+        ffn = self.ffn(y, dropout_rng)
+        return self.ln3(y + self.dropout(ffn, dropout_rng))
 
     def forward_paged(self, y, paged_self: dict, paged_mem: dict):
         attn, k_new, v_new = self.self_attn.forward_paged(y, paged_self)
@@ -287,13 +329,13 @@ class Decoder(nn.Module):
     def forward(
         self, trg_tokens, memory, self_mask=None, cross_mask=None,
         trg_valid=None, memory_valid=None, *, self_causal: bool = False,
-        positions=None,
+        positions=None, dropout_rng=None,
     ):
-        y = self.embed(trg_tokens, positions=positions)
+        y = self.embed(trg_tokens, positions=positions, dropout_rng=dropout_rng)
         for layer in self.layers:
             y = layer(
                 y, memory, self_mask, cross_mask, trg_valid, memory_valid,
-                self_causal,
+                self_causal, dropout_rng,
             )
         return y
 
@@ -311,7 +353,10 @@ class Transformer(nn.Module):
     ``forward(src_tokens, trg_tokens)`` builds the three masks from the pad
     id — src self-attn padding, trg causal∧padding, cross (trg queries over
     src keys) — as structured masks; explicit dense masks may be passed to
-    override. The model is built on the CPU; move it with ``.to(device)``.
+    override. ``dropout_rng`` (a ``torch.Generator`` on the model's
+    device) turns dropout on, as Flax's ``rngs={"dropout": ...}`` with
+    ``deterministic=False`` does. The model is built on the CPU; move it
+    with ``.to(device)``.
     """
 
     def __init__(
@@ -363,17 +408,20 @@ class Transformer(nn.Module):
         *,
         src_positions: torch.Tensor | None = None,
         trg_positions: torch.Tensor | None = None,
+        dropout_rng: torch.Generator | None = None,
     ) -> torch.Tensor:
         pad = self.cfg.pad_id
         src_valid = (src_tokens != pad) if src_mask is None else None
         trg_valid = (trg_tokens != pad) if trg_mask is None else None
         memory_valid = (src_tokens != pad) if cross_mask is None else None
         memory = self.encoder(
-            src_tokens, src_mask, src_valid, positions=src_positions
+            src_tokens, src_mask, src_valid, positions=src_positions,
+            dropout_rng=dropout_rng,
         )
         y = self.decoder(
             trg_tokens, memory, trg_mask, cross_mask, trg_valid, memory_valid,
             self_causal=trg_mask is None, positions=trg_positions,
+            dropout_rng=dropout_rng,
         )
         return self.logits(y)
 

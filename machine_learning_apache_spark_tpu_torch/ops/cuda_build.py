@@ -43,15 +43,25 @@ _INT = ctypes.c_int
 _I64 = ctypes.c_longlong
 _F32 = ctypes.c_float
 
-#: The C entry point of each source: (function name, argtypes). Pointers
-#: and the stream are ``c_void_p`` so ctypes never truncates them.
+#: Each kernel's C entry point: (source stem under ``csrc/``, function
+#: name, argtypes). One source may hold several entry points. Pointers and
+#: the stream are ``c_void_p`` so ctypes never truncates them.
+_FLASH_BWD_TAIL = [_INT] * 6 + [_F32] + [_I64] * 12 + [_VOID]
 ENTRY_POINTS = {
     "flash_attention_fwd": (
-        "flash_attention_fwd",
-        [_VOID] * 5 + [_INT] * 6 + [_F32] + [_I64] * 9 + [_VOID],
+        "flash_attention_fwd", "flash_attention_fwd",
+        [_VOID] * 6 + [_INT] * 6 + [_F32] + [_I64] * 9 + [_VOID],
+    ),
+    "flash_attention_bwd_dq": (
+        "flash_attention_bwd", "flash_attention_bwd_dq",
+        [_VOID] * 8 + _FLASH_BWD_TAIL,
+    ),
+    "flash_attention_bwd_dkv": (
+        "flash_attention_bwd", "flash_attention_bwd_dkv",
+        [_VOID] * 9 + _FLASH_BWD_TAIL,
     ),
     "ragged_paged_attention": (
-        "ragged_paged_attention",
+        "ragged_paged_attention", "ragged_paged_attention",
         [_VOID, _I64, _VOID, _VOID, _VOID, _VOID, _INT, _VOID, _INT, _VOID,
          _VOID, _VOID, _I64, _VOID, _INT, _INT, _INT, _INT, _F32, _VOID],
     ),
@@ -60,9 +70,10 @@ ENTRY_POINTS = {
 
 @dataclass(frozen=True)
 class BuiltKernel:
-    """One loaded library: its C entry point plus what its build said."""
+    """One kernel's C entry point plus what its source's build said."""
 
     name: str
+    source: str  # the stem under csrc/
     fn: object  # the ctypes function
     library: str
     seconds: float  # 0.0 when an earlier build was reused
@@ -115,8 +126,8 @@ class KernelLibrary:
     def _build_all(self) -> dict[str, BuiltKernel]:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         pending = {}
-        done = {}
-        for name in ENTRY_POINTS:
+        done = {}  # source stem -> (library, seconds, compiler output)
+        for name in sorted({stem for stem, _, _ in ENTRY_POINTS.values()}):
             src = CSRC_DIR / f"{name}.cu"
             lib = BUILD_DIR / f"{name}-{_digest(src)}.so"
             if lib.exists():
@@ -148,13 +159,14 @@ class KernelLibrary:
             done[name] = (lib, seconds, text)
         if failures:
             raise RuntimeError("\n".join(failures))
+        libs = {stem: ctypes.CDLL(str(lib)) for stem, (lib, _, _) in done.items()}
         out = {}
-        for name, (lib, seconds, text) in done.items():
-            fn_name, argtypes = ENTRY_POINTS[name]
-            fn = getattr(ctypes.CDLL(str(lib)), fn_name)
+        for name, (stem, fn_name, argtypes) in ENTRY_POINTS.items():
+            lib, seconds, text = done[stem]
+            fn = getattr(libs[stem], fn_name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-            out[name] = BuiltKernel(name, fn, str(lib), seconds, text)
+            out[name] = BuiltKernel(name, stem, fn, str(lib), seconds, text)
         return out
 
 

@@ -1,20 +1,27 @@
-"""The serving slice's attention kernels for Hopper, beside their plain
-PyTorch versions.
+"""The port's attention kernels for Hopper, beside their plain PyTorch
+versions.
 
-Two CUDA C++ kernels (``csrc/``), each replacing a Pallas TPU kernel of
+Four CUDA C++ kernels (``csrc/``), each replacing a Pallas TPU kernel of
 ``machine_learning_apache_spark_tpu/ops/pallas_attention.py``:
 
-- ``flash_attention`` → ``csrc/flash_attention_fwd.cu``, replacing
-  ``_flash_kernel`` (the forward, without the ``lse`` output that only
-  the backward needs);
+- the flash forward → ``csrc/flash_attention_fwd.cu``, replacing
+  ``_flash_kernel``, with its optional ``lse`` output (what the backward
+  recomputes probabilities from);
+- the flash-2 backward → ``csrc/flash_attention_bwd.cu``: a dQ kernel
+  replacing ``_flash_bwd_dq_kernel`` and a dK/dV kernel replacing
+  ``_flash_bwd_dkv_kernel``;
 - ``ragged_paged_attention`` → ``csrc/ragged_paged_attention.cu``,
-  replacing ``_ragged_paged_kernel``.
+  replacing ``_ragged_paged_kernel`` (forward only, as in the JAX
+  package).
 
-Each source's header says what bounds it on the card and how its design
-answers that. Each wrapper takes the plain version only for tensors on
-the CPU; for a CUDA tensor it launches the kernel or raises — there is no
-fallback. ``LAUNCHES`` counts kernel launches (plain calls are not
-counted), so a run can show that its main path went through the kernels.
+``flash_attention`` is differentiable: ``FlashAttention`` is the
+``torch.autograd.Function`` that mirrors the JAX package's
+``_flash_vjp_nomask``/``_flash_vjp_masked``. Each source's header says
+what bounds it on the card and how its design answers that. Each wrapper
+takes the plain version only for tensors on the CPU; for a CUDA tensor it
+launches the kernel or raises — there is no fallback. ``LAUNCHES`` counts
+kernel launches (plain calls are not counted), so a run can show that its
+main path went through the kernels.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from machine_learning_apache_spark_tpu_torch.ops.cuda_build import LIBRARY
 
@@ -29,7 +37,14 @@ NEG_INF = -1e30
 MAX_HEAD_DIM = 128
 
 #: Kernel launches per kernel name since the last ``reset_launches()``.
-LAUNCHES = {"flash_attention_fwd": 0, "ragged_paged_attention": 0}
+#: ``flash_attention_fwd`` counts both forward variants (with and without
+#: ``lse``).
+LAUNCHES = {
+    "flash_attention_fwd": 0,
+    "flash_attention_bwd_dq": 0,
+    "flash_attention_bwd_dkv": 0,
+    "ragged_paged_attention": 0,
+}
 
 
 def reset_launches() -> None:
@@ -68,7 +83,63 @@ def _launch(name: str, dev: torch.device, *args) -> None:
     LAUNCHES[name] += 1
 
 
-# -- flash attention forward ---------------------------------------------------
+# -- flash attention: shapes and plain versions ----------------------------------
+
+
+def _check_flash_shapes(query, key, value, kv_valid) -> None:
+    b, h, _, d = query.shape
+    kv_len = key.shape[2]
+    if key.shape != (b, h, kv_len, d) or value.shape != key.shape:
+        raise ValueError(
+            f"shape mismatch: query {tuple(query.shape)}, key "
+            f"{tuple(key.shape)}, value {tuple(value.shape)}"
+        )
+    if kv_valid is not None and kv_valid.shape != (b, kv_len):
+        raise ValueError(
+            f"kv_valid must be [batch={b}, kv_len={kv_len}], got "
+            f"{tuple(kv_valid.shape)}"
+        )
+
+
+def _structural_mask(q_len, kv_len, causal, kv_valid, device) -> torch.Tensor:
+    """``[1 or B, 1, Sq, Sk]`` bool: bottom-right causal and ``kv_valid``."""
+    mask = torch.ones((q_len, kv_len), dtype=torch.bool, device=device)
+    if causal:
+        mask = torch.tril(mask, diagonal=kv_len - q_len)
+    mask = mask[None, None]
+    if kv_valid is not None:
+        mask = mask & kv_valid[:, None, None, :]
+    return mask
+
+
+def _scores(query, key) -> torch.Tensor:
+    return torch.matmul(query, key.transpose(-1, -2)) * (1.0 / math.sqrt(query.shape[-1]))
+
+
+def flash_attention_lse_plain(
+    query: torch.Tensor,
+    key: torch.Tensor,
+    value: torch.Tensor,
+    *,
+    causal: bool = False,
+    kv_valid: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch form of the flash forward: the same masks, the same
+    explicit-zero probabilities, zeros for rows that see no key. Returns
+    ``(out, lse)``: ``lse`` ``[B, H, Sq]`` is ``m + log(l)`` of each row's
+    softmax, ``NEG_INF`` on rows that see no key (``_flash_kernel``'s
+    ``lse`` output). Any float dtype (float64 for ``gradcheck``)."""
+    mask = _structural_mask(
+        query.shape[2], key.shape[2], causal, kv_valid, query.device
+    )
+    s = torch.where(mask, _scores(query, key), NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(mask, torch.exp(s - m), 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    safe_l = torch.where(l == 0.0, 1.0, l)
+    out = torch.matmul(p, value) / safe_l
+    lse = torch.where(l == 0.0, NEG_INF, m + torch.log(safe_l))[..., 0]
+    return out, lse
 
 
 def flash_attention_plain(
@@ -79,22 +150,252 @@ def flash_attention_plain(
     causal: bool = False,
     kv_valid: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Plain PyTorch form of the flash forward: the same masks, the same
-    explicit-zero probabilities, zeros for rows that see no key."""
-    q_len, kv_len = query.shape[2], key.shape[2]
+    """The plain flash forward's output alone."""
+    return flash_attention_lse_plain(
+        query, key, value, causal=causal, kv_valid=kv_valid
+    )[0]
+
+
+def _backward_terms(query, key, value, d_out, lse, delta, causal, kv_valid):
+    """``(p, ds)`` of the flash-2 backward (``pallas_attention.py``
+    ``:304-329``, ``:369-396``): P recomputed from ``lse``, masked where
+    the forward masked and where ``lse`` is not finite (rows that see no
+    key), and an explicit zero in ``ds`` wherever P is masked."""
+    mask = _structural_mask(
+        query.shape[2], key.shape[2], causal, kv_valid, query.device
+    ) & (lse > NEG_INF * 0.5)[..., None]
+    p = torch.where(mask, torch.exp(_scores(query, key) - lse[..., None]), 0.0)
+    dp = torch.matmul(d_out, value.transpose(-1, -2))
+    ds = torch.where(mask, p * (dp - delta[..., None]), 0.0)
+    return p, ds
+
+
+def flash_attention_bwd_dq_plain(
+    query, key, value, d_out, lse, delta, *, causal=False, kv_valid=None
+) -> torch.Tensor:
+    """dQ = dS·K·scale — the plain form of the dQ kernel."""
+    _, ds = _backward_terms(query, key, value, d_out, lse, delta, causal, kv_valid)
+    return torch.matmul(ds, key) * (1.0 / math.sqrt(query.shape[-1]))
+
+
+def flash_attention_bwd_dkv_plain(
+    query, key, value, d_out, lse, delta, *, causal=False, kv_valid=None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """dK = dSᵀ·Q·scale, dV = Pᵀ·dO — the plain form of the dK/dV kernel."""
+    p, ds = _backward_terms(query, key, value, d_out, lse, delta, causal, kv_valid)
     scale = 1.0 / math.sqrt(query.shape[-1])
-    s = torch.matmul(query, key.transpose(-1, -2)) * scale
-    mask = torch.ones((q_len, kv_len), dtype=torch.bool, device=query.device)
-    if causal:
-        mask = torch.tril(mask, diagonal=kv_len - q_len)
-    mask = mask[None, None]
+    return (
+        torch.matmul(ds.transpose(-1, -2), query) * scale,
+        torch.matmul(p.transpose(-1, -2), d_out),
+    )
+
+
+def flash_attention_backward_plain(
+    query, key, value, out, lse, d_out, *, causal=False, kv_valid=None
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain flash-2 backward: ``(dq, dk, dv)`` from the forward's ``out``
+    and ``lse``, with ``delta = rowsum(dO∘O)``."""
+    delta = _delta(out, d_out)
+    p, ds = _backward_terms(query, key, value, d_out, lse, delta, causal, kv_valid)
+    scale = 1.0 / math.sqrt(query.shape[-1])
+    return (
+        torch.matmul(ds, key) * scale,
+        torch.matmul(ds.transpose(-1, -2), query) * scale,
+        torch.matmul(p.transpose(-1, -2), d_out),
+    )
+
+
+def _delta(out: torch.Tensor, d_out: torch.Tensor) -> torch.Tensor:
+    """``rowsum(dO∘O)`` ``[B, H, Sq]``, in fp32 for fp32 inputs. The JAX
+    package computes it outside any kernel (``pallas_attention.py:431``);
+    so does the port — a torch reduction."""
+    return (d_out * out).sum(dim=-1)
+
+
+# -- flash attention: kernels ------------------------------------------------------
+
+
+def _check_flash_cuda(name, tensors, kv_valid) -> tuple[torch.device, torch.Tensor | None]:
+    """Device, dtype and layout checks shared by the three flash kernels;
+    returns the device and ``kv_valid`` as contiguous bytes (or None)."""
+    dev = _check_cuda(name, *tensors, kv_valid)
+    for t in tensors:
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: inputs must be float32, got {t.dtype}")
+    valid = None
     if kv_valid is not None:
-        mask = mask & kv_valid[:, None, None, :]
-    s = torch.where(mask, s, NEG_INF)
-    m = s.amax(dim=-1, keepdim=True)
-    p = torch.where(mask, torch.exp(s - m), 0.0)
-    l = p.sum(dim=-1, keepdim=True)
-    return torch.matmul(p, value) / torch.where(l == 0.0, 1.0, l)
+        if kv_valid.dtype != torch.bool:
+            raise TypeError(f"kv_valid must be bool, got {kv_valid.dtype}")
+        valid = kv_valid.contiguous()
+    return dev, valid
+
+
+def _strides(*tensors) -> list[int]:
+    """The batch, head and position strides of ``[B, H, S, d]`` tensors
+    whose head dim has stride 1 (raises otherwise)."""
+    out = []
+    for t in tensors:
+        if t.stride(3) != 1:
+            raise ValueError("flash attention: every input's head dim must be contiguous")
+        out.extend(t.stride()[:3])
+    return out
+
+
+def flash_attention_fwd(
+    query, key, value, *, causal=False, kv_valid=None, return_lse=False
+):
+    """The flash forward kernel's wrapper: ``out`` ``[B, H, Sq, d]``, or
+    ``(out, lse)`` with ``lse`` ``[B, H, Sq]`` fp32, both contiguous. No
+    autograd: ``flash_attention`` is the differentiable entry point."""
+    _check_flash_shapes(query, key, value, kv_valid)
+    if query.device.type == "cpu":
+        out, lse = flash_attention_lse_plain(
+            query, key, value, causal=causal, kv_valid=kv_valid
+        )
+        return (out, lse) if return_lse else out
+    b, h, q_len, d = query.shape
+    kv_len = key.shape[2]
+    dev, valid = _check_flash_cuda("flash_attention", (query, key, value), kv_valid)
+    _check_head_dim(d)
+    strides = _strides(query, key, value)
+    out = torch.empty((b, h, q_len, d), dtype=torch.float32, device=dev)
+    lse = (
+        torch.empty((b, h, q_len), dtype=torch.float32, device=dev)
+        if return_lse else None
+    )
+    _launch(
+        "flash_attention_fwd", dev,
+        query.data_ptr(), key.data_ptr(), value.data_ptr(),
+        None if valid is None else valid.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(),
+        b, h, q_len, kv_len, d, int(causal), 1.0 / math.sqrt(d), *strides,
+    )
+    return (out, lse) if return_lse else out
+
+
+def _bwd_cuda(name, query, key, value, d_out, lse, delta, kv_valid):
+    b, h, q_len, d = query.shape
+    if d_out.shape != query.shape:
+        raise ValueError(f"{name}: d_out {tuple(d_out.shape)} must match query {tuple(query.shape)}")
+    if lse.shape != (b, h, q_len) or delta.shape != lse.shape:
+        raise ValueError(f"{name}: lse and delta must be [{b}, {h}, {q_len}]")
+    dev, valid = _check_flash_cuda(name, (query, key, value, d_out, lse, delta), kv_valid)
+    _check_head_dim(d)
+    return dev, valid, _strides(query, key, value, d_out), lse.contiguous(), delta.contiguous()
+
+
+def flash_attention_bwd_dq(
+    query, key, value, d_out, lse, delta, *, causal=False, kv_valid=None
+) -> torch.Tensor:
+    """dQ of flash attention ``[B, H, Sq, d]``, contiguous, from the
+    forward's ``lse`` and ``delta = rowsum(dO∘O)`` (both ``[B, H, Sq]``
+    fp32). q/k/v/d_out may be strided views with a contiguous head dim."""
+    _check_flash_shapes(query, key, value, kv_valid)
+    if query.device.type == "cpu":
+        return flash_attention_bwd_dq_plain(
+            query, key, value, d_out, lse, delta, causal=causal, kv_valid=kv_valid
+        )
+    dev, valid, strides, lse, delta = _bwd_cuda(
+        "flash_attention_bwd_dq", query, key, value, d_out, lse, delta, kv_valid
+    )
+    b, h, q_len, d = query.shape
+    dq = torch.empty((b, h, q_len, d), dtype=torch.float32, device=dev)
+    _launch(
+        "flash_attention_bwd_dq", dev,
+        query.data_ptr(), key.data_ptr(), value.data_ptr(), d_out.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(),
+        None if valid is None else valid.data_ptr(), dq.data_ptr(),
+        b, h, q_len, key.shape[2], d, int(causal), 1.0 / math.sqrt(d), *strides,
+    )
+    return dq
+
+
+def flash_attention_bwd_dkv(
+    query, key, value, d_out, lse, delta, *, causal=False, kv_valid=None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(dK, dV)`` of flash attention, each ``[B, H, Sk, d]`` contiguous;
+    same inputs as ``flash_attention_bwd_dq``. A key that no row sees
+    gets exactly zero."""
+    _check_flash_shapes(query, key, value, kv_valid)
+    if query.device.type == "cpu":
+        return flash_attention_bwd_dkv_plain(
+            query, key, value, d_out, lse, delta, causal=causal, kv_valid=kv_valid
+        )
+    dev, valid, strides, lse, delta = _bwd_cuda(
+        "flash_attention_bwd_dkv", query, key, value, d_out, lse, delta, kv_valid
+    )
+    b, h, q_len, d = query.shape
+    kv_len = key.shape[2]
+    dk = torch.empty((b, h, kv_len, d), dtype=torch.float32, device=dev)
+    dv = torch.empty_like(dk)
+    _launch(
+        "flash_attention_bwd_dkv", dev,
+        query.data_ptr(), key.data_ptr(), value.data_ptr(), d_out.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(),
+        None if valid is None else valid.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        b, h, q_len, kv_len, d, int(causal), 1.0 / math.sqrt(d), *strides,
+    )
+    return dk, dv
+
+
+def flash_attention_backward(
+    query, key, value, out, lse, d_out, *, causal=False, kv_valid=None
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)``: the plain backward for CPU tensors; on the card,
+    ``delta`` by a torch reduction, then the dQ and dK/dV kernels.
+
+    There is no dense fallback on the card. The JAX package recomputes the
+    backward densely below ``PALLAS_BWD_MIN_SCORES`` (256·1024 scores),
+    a TPU launch-cost heuristic: the MT model's training sites (200×200 =
+    40,000 scores) never reach its Pallas backward. Here the dense
+    recompute would be the plain version, which no CUDA tensor takes, so
+    every length on the card runs the two kernels."""
+    if query.device.type == "cpu":
+        return flash_attention_backward_plain(
+            query, key, value, out, lse, d_out, causal=causal, kv_valid=kv_valid
+        )
+    delta = _delta(out, d_out)
+    dq = flash_attention_bwd_dq(
+        query, key, value, d_out, lse, delta, causal=causal, kv_valid=kv_valid
+    )
+    dk, dv = flash_attention_bwd_dkv(
+        query, key, value, d_out, lse, delta, causal=causal, kv_valid=kv_valid
+    )
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with the flash-2 backward, mirroring
+    ``_flash_vjp_nomask``/``_flash_vjp_masked`` (``pallas_attention.py``
+    ``:205-267``). When a gradient is wanted the forward also writes
+    ``lse`` and saves ``q, k, v, out, lse`` (the strided q/k/v views as
+    they came: autograd maps the contiguous dq/dk/dv back through the
+    model's ``chunk``/``view``/``transpose``); otherwise it runs the
+    forward without ``lse`` and saves nothing. ``kv_valid`` takes no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, query, key, value, kv_valid, causal, with_lse):
+        if not with_lse:
+            return flash_attention_fwd(
+                query, key, value, causal=causal, kv_valid=kv_valid
+            )
+        out, lse = flash_attention_fwd(
+            query, key, value, causal=causal, kv_valid=kv_valid, return_lse=True
+        )
+        ctx.save_for_backward(query, key, value, out, lse, kv_valid)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, d_out):
+        query, key, value, out, lse, kv_valid = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(
+            query, key, value, out, lse, d_out,
+            causal=ctx.causal, kv_valid=kv_valid,
+        )
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(
@@ -109,47 +410,16 @@ def flash_attention(
     ``causal`` (bottom-right aligned when ``Sq != Sk``) and ``kv_valid``
     (``[B, Sk]`` bool, per-key validity). Query and key lengths may
     differ. Rows that see no key give zeros. Returns a contiguous
-    ``[B, H, Sq, d]`` tensor.
+    ``[B, H, Sq, d]`` tensor, differentiable in q, k and v through
+    ``FlashAttention``.
 
     The head dim must have stride 1; the other strides are free, so the
     head-split views of a fused projection go in without a copy."""
-    b, h, q_len, d = query.shape
-    kv_len = key.shape[2]
-    if key.shape != (b, h, kv_len, d) or value.shape != key.shape:
-        raise ValueError(
-            f"shape mismatch: query {tuple(query.shape)}, key "
-            f"{tuple(key.shape)}, value {tuple(value.shape)}"
-        )
-    if kv_valid is not None and kv_valid.shape != (b, kv_len):
-        raise ValueError(
-            f"kv_valid must be [batch={b}, kv_len={kv_len}], got "
-            f"{tuple(kv_valid.shape)}"
-        )
-    if query.device.type == "cpu":
-        return flash_attention_plain(
-            query, key, value, causal=causal, kv_valid=kv_valid
-        )
-    dev = _check_cuda("flash_attention", query, key, value, kv_valid)
-    for name, t in (("query", query), ("key", key), ("value", value)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"flash_attention: {name} must be float32, got {t.dtype}")
-        if t.stride(3) != 1:
-            raise ValueError(f"flash_attention: {name}'s head dim must be contiguous")
-    _check_head_dim(d)
-    valid = None
-    if kv_valid is not None:
-        if kv_valid.dtype != torch.bool:
-            raise TypeError(f"kv_valid must be bool, got {kv_valid.dtype}")
-        valid = kv_valid.contiguous()
-    out = torch.empty((b, h, q_len, d), dtype=torch.float32, device=dev)
-    _launch(
-        "flash_attention_fwd", dev,
-        query.data_ptr(), key.data_ptr(), value.data_ptr(),
-        None if valid is None else valid.data_ptr(), out.data_ptr(),
-        b, h, q_len, kv_len, d, int(causal), 1.0 / math.sqrt(d),
-        *query.stride()[:3], *key.stride()[:3], *value.stride()[:3],
+    _check_flash_shapes(query, key, value, kv_valid)
+    with_lse = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (query, key, value)
     )
-    return out
+    return FlashAttention.apply(query, key, value, kv_valid, causal, with_lse)
 
 
 # -- ragged paged attention --------------------------------------------------
@@ -228,6 +498,16 @@ def ragged_paged_attention(
     ``< num_pages`` (checking them here would cost a device sync per
     call; the paged runtime builds them so)."""
     rows, heads, head_dim = query.shape
+    if torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad
+        for t in (query, k_pages, v_pages, k_scale, v_scale, cur_k, cur_v)
+    ):
+        # The kernel has no backward (nor has the Pallas one); a result
+        # without a grad_fn would silently cut the graph.
+        raise RuntimeError(
+            "ragged_paged_attention has no backward: call it under "
+            "torch.no_grad() (serving does) or on tensors that need no grad"
+        )
     if (k_scale is None) != (v_scale is None):
         raise ValueError("k_scale and v_scale must be given together")
     if (cur_k is None) != (cur_v is None):

@@ -1,0 +1,116 @@
+"""Shared recipe plumbing — the port of
+``machine_learning_apache_spark_tpu/recipes/_common.py`` for one process on
+one device: no mesh and no distributed sampler.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+from typing import Any, Callable
+
+import torch
+
+from machine_learning_apache_spark_tpu_torch.data.loader import (
+    ArrayDataset,
+    DataLoader,
+)
+from machine_learning_apache_spark_tpu_torch.train.metrics import MetricsLogger
+
+
+def default_compute_dtype(override: str | None = None) -> torch.dtype:
+    """The compute dtype: float32, the only one the port's kernels take in
+    this slice (the JAX package picks bfloat16 on a TPU; bf16 kernels are
+    ROADMAP queue B work). An explicit ``"float32"`` is accepted."""
+    if override in (None, "float32"):
+        return torch.float32
+    raise NotImplementedError(
+        f"compute dtype {override!r} is not ported yet: the kernels take "
+        "float32 only (bf16 inputs are ROADMAP queue B)"
+    )
+
+
+def with_overrides(recipe, overrides: dict):
+    """``dataclasses.replace`` with the no-override fast path — the shared
+    ``train_x(recipe, **overrides)`` config idiom."""
+    return dataclasses.replace(recipe, **overrides) if overrides else recipe
+
+
+def make_loaders(
+    train_ds: ArrayDataset | None,
+    test_ds: ArrayDataset | None,
+    *,
+    batch_size: int,
+    seed: int = 0,
+    collate: Callable[[tuple], Any] | None = None,
+) -> tuple[DataLoader | None, DataLoader | None]:
+    """The JAX package's loader rules for one process without a mesh: the
+    batch is clamped to what the split can fill once; ``drop_last=True`` on
+    the shuffled train loader (one static shape), ``drop_last=False`` on
+    the test loader so eval scores every row (``train.loop.evaluate``)."""
+
+    def _clamped(n_rows: int, want: int) -> int:
+        return min(want, max(n_rows, 1))
+
+    train_loader = None
+    if train_ds is not None:
+        train_loader = DataLoader(
+            train_ds,
+            _clamped(len(train_ds), batch_size),
+            shuffle=True,
+            drop_last=True,
+            seed=seed,
+            collate=collate,
+            # Assemble ahead on a background thread while the card trains.
+            prefetch=2,
+        )
+    test_loader = None
+    if test_ds is not None:
+        test_loader = DataLoader(
+            test_ds,
+            _clamped(len(test_ds), batch_size),
+            drop_last=False,
+            seed=seed,
+            collate=collate,
+        )
+    return train_loader, test_loader
+
+
+@contextlib.contextmanager
+def checkpointing(checkpoint_dir: str | None, state, *, resume: bool = True):
+    """Yields ``(manager_or_None, state, resumed_step_or_None)`` as the JAX
+    package's does; checkpointing itself is not ported, so a directory
+    raises."""
+    if checkpoint_dir:
+        raise NotImplementedError(
+            "checkpoint_dir: checkpoint/resume is not ported yet (ROADMAP "
+            "queue A1, train/checkpoint.py)"
+        )
+    yield None, state, None
+
+
+def summarize(
+    fit_result, eval_metrics: dict | None, *, metrics_path: str | None = None,
+    **extra,
+) -> dict:
+    """The printable/picklable end-of-run contract — the reference's metric
+    vocabulary (train wall time, losses, eval metrics). ``metrics_path``
+    appends one ``{"kind": "eval", ...}`` JSON line."""
+    out = {
+        "train_seconds": fit_result.train_seconds,
+        "final_loss": fit_result.final_loss,
+        "epochs": len(fit_result.history),
+        "history": fit_result.history,
+        "world_processes": 1,
+        "devices": 1,
+    }
+    if eval_metrics:
+        out.update(eval_metrics)
+    out.update(extra)
+    if metrics_path and eval_metrics:
+        scalars = {
+            k: v for k, v in extra.items() if isinstance(v, (int, float, str))
+        }
+        with MetricsLogger(metrics_path) as sink:
+            sink.write({"kind": "eval", **eval_metrics, **scalars})
+    return out

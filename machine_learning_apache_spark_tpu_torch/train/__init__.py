@@ -1,0 +1,32 @@
+"""Training on one device: losses, metrics, the optimizer chain and the
+loop (the port of the JAX package's ``train/``)."""
+
+from machine_learning_apache_spark_tpu_torch.train.loop import (
+    FitResult,
+    evaluate,
+    fit,
+    make_eval_step,
+    make_train_step,
+)
+from machine_learning_apache_spark_tpu_torch.train.losses import (
+    cross_entropy,
+    masked_token_cross_entropy,
+)
+from machine_learning_apache_spark_tpu_torch.train.state import (
+    TrainState,
+    make_optimizer,
+    make_schedule,
+)
+
+__all__ = [
+    "FitResult",
+    "TrainState",
+    "cross_entropy",
+    "evaluate",
+    "fit",
+    "make_eval_step",
+    "make_optimizer",
+    "make_schedule",
+    "make_train_step",
+    "masked_token_cross_entropy",
+]

@@ -78,7 +78,13 @@ def register(
 
 # -- the contract ------------------------------------------------------------
 
-# launcher (read for the rank label in logs and telemetry)
+# launcher (read for the rank label in logs and telemetry, and by the
+# training slice's DistributedSampler for its default rank and world)
+register(
+    "MLSPARK_NUM_PROCESSES", type="int", default=1, subsystem="launcher",
+    description="Gang world size as this worker sees it (WORLD_SIZE "
+    "analogue; shrinks under elastic resume).",
+)
 register(
     "MLSPARK_PROCESS_ID", type="int", default=0, subsystem="launcher",
     description="This worker's gang rank (RANK analogue); also the rank "

@@ -17,6 +17,10 @@ and fills the matching torch modules, name for name:
 Every leaf of the tree must land on a parameter and every parameter must
 be filled: a mismatch raises, naming the keys.
 
+``export_flax_params(model)`` is the inverse: the model's parameters as
+such a tree, so trained weights can be compared with (or handed to) the
+JAX model.
+
 ``random_flax_params(cfg, seed)`` makes such a tree with numpy from a seed
 — random weights in Flax's layout, for runs that have no trained
 checkpoint.
@@ -85,6 +89,32 @@ def load_flax_params(model: nn.Module, params) -> nn.Module:
             f"unused {unused}"
         )
     return model
+
+
+@torch.no_grad()
+def export_flax_params(model: nn.Module) -> dict:
+    """The model's parameters as a Flax tree of numpy float arrays (nested
+    dicts under Flax's key names) — the inverse of ``load_flax_params``."""
+    tree: dict = {}
+
+    def put(path: str, value: torch.Tensor) -> None:
+        *parents, leaf = path.split("/")
+        node = tree
+        for key in parents:
+            node = node.setdefault(key, {})
+        node[leaf] = value.detach().cpu().numpy().copy()
+
+    for name, mod in model.named_modules():
+        base = _flax_path(name)
+        if isinstance(mod, nn.Linear):
+            put(f"{base}/kernel", mod.weight.T)
+            put(f"{base}/bias", mod.bias)
+        elif isinstance(mod, nn.LayerNorm):
+            put(f"{base}/scale", mod.weight)
+            put(f"{base}/bias", mod.bias)
+        elif isinstance(mod, nn.Embedding):
+            put(f"{base}/embedding", mod.weight)
+    return tree
 
 
 def random_flax_params(cfg, seed: int) -> dict:

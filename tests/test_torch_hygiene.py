@@ -75,7 +75,10 @@ def test_forbidden_rule(module, forbidden):
 
 def test_kernel_sources_ship_with_the_package():
     sources = sorted(p.name for p in (PORT_DIR / "csrc").glob("*.cu"))
-    assert sources == ["flash_attention_fwd.cu", "ragged_paged_attention.cu"]
+    assert sources == [
+        "flash_attention_bwd.cu", "flash_attention_fwd.cu",
+        "ragged_paged_attention.cu",
+    ]
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):
