@@ -8,16 +8,21 @@ Phases, each fatal on failure:
 1. device — a CUDA card must be present; prints its name, the device
    count and ``nvidia-smi``'s name and power limit;
 2. build — builds every kernel of the path from ``csrc/`` (``nvcc``, in
-   parallel) and prints the build time and ``ptxas`` report;
+   parallel) and prints the build time and ``ptxas`` report; reads each
+   library's SASS (``cuobjdump``) and checks that the tensor-core kernels
+   (flash forward, dK/dV) issue TF32 ``HMMA`` and ``cp.async``
+   (``LDGSTS``) instructions;
 3. kernels vs plain — each kernel against its plain PyTorch version on
-   the card, at the serving slice's shapes and at edge cases (max abs
+   the card, at the serving slice's shapes (the prefill's fused-qkv views
+   at d = 8, 40, 64, 128, and a one-row query) and at edge cases (max abs
    error against the fp32 tolerance, 1e-4: the summation order differs),
    then the flash forward with ``lse`` and the dQ and dK/dV backward
    kernels at the MT training sites ([32, 8, 200, 64] fixture batches:
    encoder self-attention, causal decoder self-attention, cross-attention)
    and at edge cases (strided fused-projection views, a strided dO, fully
-   masked rows, masked keys whose dK/dV must be exactly zero, lengths that
-   are not tile multiples), each within 1e-4 relative;
+   masked rows, masked keys whose dK/dV must be exactly zero, whole
+   masked key blocks, lengths that are not tile multiples; every warps per
+   block the wrappers may pick), each within 1e-4 relative;
 4. serving — the reference MT model at full width (d_model 512, ffn 1024,
    8 heads of 64, 1 layer, max_len 200, ~8,000-word vocabularies, random
    weights from a seed in the JAX package's Flax layout, through the
@@ -35,12 +40,15 @@ Phases, each fatal on failure:
    steps x layers times. Then a parity run: dropout 0, random weights in
    the Flax layout bridged in, 4 steps on the card and the same 4 on the
    CPU (plain versions): per-step losses within 1e-3 relative, step-0
-   gradients within 1e-4 relative;
+   gradients within 1e-4 relative on one branch of the model's ReLUs (a
+   ReLU input the two devices put on opposite sides of 0 must lie within
+   1e-5 of it, relative, and then takes the card's branch on the CPU);
 6. times — requests/s, generated tokens/s, peak device memory, and each
    kernel's time (CUDA events) beside its bound, its plain version's time
    and one library call's, at the serving shapes and at the three training
-   sites; the train step's time, steps/s, target tokens/s, peak memory and
-   the device idle share of one profiled window of steps.
+   sites, and the tensor-core kernels at each warps-per-block choice; the
+   train step's time, steps/s, target tokens/s, peak memory and the device
+   idle share of one profiled window of steps.
 
 The line before the last is ``nvidia-smi``'s name and power limit; before
 it, one JSON line with every kernel's numbers. The last line is
@@ -98,12 +106,20 @@ TRAIN = dict(data_root=str(FIXTURES), compute_bleu=True, log_every=1)
 PARITY_STEPS = 4
 PARITY_RTOL = 1e-3  # card vs CPU losses: summation order, through Adam
 GRAD_RTOL = 1e-4  # step-0 gradients, card vs CPU
+KINK_RTOL = 1e-5  # a ReLU input within this of 0 (relative) may cross it: fp32 noise
 TIMED_STEPS = 20
 
-# Published peaks of one H100 SXM (NVIDIA data sheet): HBM rate, and the
-# fp32 rate outside the tensor cores, which is what both kernels use.
+# Published peaks of one H100 SXM (NVIDIA data sheet): the HBM rate; the
+# fp32 rate outside the tensor cores, which the dQ and ragged kernels use;
+# and the effective rate of the tensor-core kernels (flash forward,
+# dK/dV), whose 3xTF32 products take three TF32 passes at 495 TFLOP/s.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+TF32X3_FLOPS_PER_S = 495e12 / 3
+TENSOR_CORE_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dkv")
+# The tensor-core kernels' (warps per block, splits) launch choices,
+# checked and timed beside the wrappers' picks.
+LAUNCH_CHOICES = ((1, 1), (2, 1), (4, 1), (2, 2), (4, 2))
 
 
 def log(msg: str) -> None:
@@ -125,11 +141,62 @@ def card_line() -> str:
     return out[0].strip()
 
 
+# -- phase 2: build ---------------------------------------------------------------
+
+
+def sass_opcodes(library: str) -> dict[str, dict[str, int]]:
+    """Per kernel function of a built library, how often each tensor-core
+    (``HMMA...``) and ``cp.async`` (``LDGSTS...``) opcode occurs in its
+    SASS, read with the toolkit's ``cuobjdump``."""
+    from machine_learning_apache_spark_tpu_torch.ops.cuda_build import find_nvcc
+
+    cuobjdump = Path(find_nvcc()).with_name("cuobjdump")
+    text = subprocess.run(
+        [str(cuobjdump), "-sass", library], capture_output=True, text=True,
+        check=True, timeout=300,
+    ).stdout
+    found: dict[str, dict[str, int]] = {}
+    fn = None
+    for line in text.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            found[fn] = {}
+        elif fn is not None:
+            for word in line.replace(";", " ").split():
+                if word.startswith(("HMMA", "LDGSTS")):
+                    found[fn][word] = found[fn].get(word, 0) + 1
+    return found
+
+
+def check_tensor_core_sass(built: dict) -> dict:
+    """Every instantiation of the flash forward and of the dK/dV kernel
+    must issue TF32 HMMA and LDGSTS (cp.async) instructions."""
+    libs = sorted({kb.library for kb in built.values()})
+    report = {}
+    for lib in libs:
+        for fn, ops in sass_opcodes(lib).items():
+            short = next((k for k in ("flash_fwd_kernel", "flash_bwd_dkv_kernel",
+                                      "flash_bwd_dq_kernel", "ragged_paged_kernel")
+                          if k in fn), fn)
+            log(f"  SASS {short} ({fn[:60]}): {ops or 'no HMMA/LDGSTS'}")
+            report.setdefault(short, []).append(ops)
+    for short in ("flash_fwd_kernel", "flash_bwd_dkv_kernel"):
+        insts = report.get(short, [])
+        if len(insts) < 2:
+            fail(f"expected the d_pad 64 and 128 instantiations of {short} in the SASS, found {len(insts)}")
+        for ops in insts:
+            if not any(op.startswith("HMMA") and "TF32" in op for op in ops):
+                fail(f"{short}: no TF32 HMMA instruction in its SASS")
+            if not any(op.startswith("LDGSTS") for op in ops):
+                fail(f"{short}: no LDGSTS (cp.async) instruction in its SASS")
+    return report
+
+
 # -- phase 3: kernels vs plain -------------------------------------------------
 
 
 def _flash_case(torch, rng, b, h, sq, sk, d, *, causal, valid_frac, dev,
-                strided=False, empty_batch=None):
+                strided=False, empty_batch=None, n_valid=None):
     def t(*shape):
         return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
 
@@ -143,6 +210,8 @@ def _flash_case(torch, rng, b, h, sq, sk, d, *, causal, valid_frac, dev,
     else:
         q, k, v = t(b, h, sq, d), t(b, h, sk, d), t(b, h, sk, d)
     kv_valid = None
+    if n_valid is not None:  # a padded prompt: its first n_valid keys
+        kv_valid = torch.from_numpy(np.arange(sk)[None, :] < np.full((b, 1), n_valid)).to(dev)
     if valid_frac is not None:
         valid = rng.random((b, sk)) < valid_frac
         valid[:, 0] = True
@@ -166,16 +235,30 @@ def check_kernels(torch, hop, dev) -> dict:
         ("d=40, no mask", dict(b=2, h=3, sq=33, sk=65, d=40, causal=False, valid_frac=None)),
         ("greedy decode 64x65x8, causal+kv_valid", dict(b=64, h=8, sq=65, sk=65, d=64, causal=True, valid_frac=0.9, strided=True)),
     ]
+    # The serving prefill as the model hands it over: head-split views of
+    # a fused qkv, a 64-key chunk with 45 valid keys; and a one-row query
+    # against it; at every head dim the kernels build for.
+    for d in (8, 40, 64, 128):
+        for sq in (64, 1):
+            flash_cases.append((
+                f"prefill fused qkv {sq}x64, 45/64 valid, d={d}",
+                dict(b=1, h=8, sq=sq, sk=64, d=d, causal=False, valid_frac=None, strided=True, n_valid=45),
+            ))
     worst = 0.0
     for label, kw in flash_cases:
         causal = kw.pop("causal")
         q, k, v, kv_valid = _flash_case(torch, rng, causal=causal, dev=dev, **kw)
         got = hop.flash_attention(q, k, v, causal=causal, kv_valid=kv_valid)
         want = hop.flash_attention_plain(q, k, v, causal=causal, kv_valid=kv_valid)
+        # every warps-per-block the wrapper may pick, on the same inputs
+        others = [hop.flash_attention_fwd(q, k, v, causal=causal, kv_valid=kv_valid, warps=w, splits=c)
+                  for w, c in LAUNCH_CHOICES]
         torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        nan = bool(torch.isnan(got).any().item())
-        log(f"  flash_attention_fwd  {label:48s} max_abs_err {err:.3e} (tol {TOL:.0e})")
+        err = max((x - want).abs().max().item() for x in [got, *others])
+        nan = any(bool(torch.isnan(x).any().item()) for x in [got, *others])
+        log(f"  flash_attention_fwd  {label:48s} max_abs_err {err:.3e} (tol {TOL:.0e}; "
+            f"(warps, splits) {hop.flash_fwd_launch_params(*q.shape[:3], k.shape[2], q.shape[3])[:2]} "
+            f"and each of {LAUNCH_CHOICES})")
         if nan or not err <= TOL:
             fail(f"flash_attention_fwd disagrees with its plain version on {label}")
         if kw.get("empty_batch") is not None:
@@ -308,11 +391,14 @@ def training_sites(torch, rng, dev, src, trg_in, heads=8, head_dim=64) -> dict:
     }
 
 
-def _edge_case(torch, rng, dev, b, h, sq, sk, d, *, causal, valid_frac, empty_batch=None):
+def _edge_case(torch, rng, dev, b, h, sq, sk, d, *, causal, valid_frac, empty_batch=None,
+               n_valid=None):
     def randn(*shape):
         return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
 
     valid = None
+    if n_valid is not None:  # the first n_valid keys of each batch row
+        valid = torch.from_numpy(np.arange(sk)[None, :] < np.full((b, 1), n_valid)).to(dev)
     if valid_frac is not None:
         mask = rng.random((b, sk)) < valid_frac
         mask[:, 0] = True
@@ -343,6 +429,10 @@ def check_training_kernels(torch, hop, sites: dict, dev) -> dict:
          _edge_case(torch, rng, dev, 2, 8, 24, 70, 64, causal=True, valid_frac=0.7)),
         ("edge: d=40, 33x65, no mask",
          _edge_case(torch, rng, dev, 2, 3, 33, 65, 40, causal=False, valid_frac=None)),
+        ("edge: keys 10-199 masked (dead 64-key blocks), d=64",
+         _edge_case(torch, rng, dev, 2, 8, 77, 200, 64, causal=False, valid_frac=None, n_valid=10)),
+        ("edge: d=8, causal 50x50, masked keys",
+         _edge_case(torch, rng, dev, 2, 4, 50, 50, 8, causal=True, valid_frac=0.6)),
     ]
     worst = {n: [0.0, 0.0] for n in ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")}
 
@@ -373,6 +463,26 @@ def check_training_kernels(torch, hop, sites: dict, dev) -> dict:
         record("flash_attention_bwd_dq", label, dq, want[0])
         record("flash_attention_bwd_dkv", label + " (dk)", dk, want[1])
         record("flash_attention_bwd_dkv", label + " (dv)", dv, want[2])
+        again = hop.flash_attention_bwd_dkv(q, k, v, g, lse, delta, **kw)
+        if not (torch.equal(again[0], dk) and torch.equal(again[1], dv)):
+            fail(f"flash_attention_bwd_dkv: a second run gave other bits ({label})")
+        if label.startswith("edge"):  # every launch choice, same inputs
+            for fw, fc in LAUNCH_CHOICES:
+                o_w, lse_w = hop.flash_attention_fwd(q, k, v, return_lse=True, warps=fw, splits=fc, **kw)
+                torch.cuda.synchronize()
+                record("flash_attention_fwd", f"{label} (out, {fw}x{fc})", o_w, want_out)
+                if not torch.equal(lse_w > hop.NEG_INF / 2, finite):
+                    fail(f"flash_attention_fwd: lse marks other rows as empty at {fw}x{fc} ({label})")
+            for w, sc in LAUNCH_CHOICES:
+                dk_w, dv_w = hop.flash_attention_bwd_dkv(q, k, v, g, lse, delta, warps=w, splits=sc, **kw)
+                torch.cuda.synchronize()
+                record("flash_attention_bwd_dkv", f"{label} (dk, {w}x{sc})", dk_w, want[1])
+                record("flash_attention_bwd_dkv", f"{label} (dv, {w}x{sc})", dv_w, want[2])
+                if c["kv_valid"] is not None:
+                    masked = ~c["kv_valid"][:, None, :, None].expand_as(dk_w)
+                    if bool(masked.any().item()) and (dk_w[masked].abs().max().item() != 0.0
+                                                      or dv_w[masked].abs().max().item() != 0.0):
+                        fail(f"flash_attention_bwd_dkv: masked keys must get exactly zero dK/dV ({w}x{sc}, {label})")
         if c["kv_valid"] is not None:
             masked = ~c["kv_valid"][:, None, :, None].expand_as(dk)
             if bool(masked.any().item()) and (dk[masked].abs().max().item() != 0.0 or dv[masked].abs().max().item() != 0.0):
@@ -543,9 +653,10 @@ def device_ms_per_call(torch, fn, n: int = 50) -> float | None:
     return sum(r[2] for r in rows) / 1e3 / n if rows else None
 
 
-def bound_ms(bytes_moved: float, flops: float) -> tuple[float, str]:
+def bound_ms(name: str, bytes_moved: float, flops: float) -> tuple[float, str]:
+    rate = TF32X3_FLOPS_PER_S if name in TENSOR_CORE_KERNELS else FP32_FLOPS_PER_S
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    t_ops = flops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -578,10 +689,13 @@ def time_kernels(torch, hop, dev, prompt_lens: list[int]) -> dict:
     # keys (masked keys do not touch the output); kv_valid read once.
     nbytes = 4 * b * h * d * (2 * s + 2 * n_valid) + b * s
     flops = 4.0 * b * h * s * n_valid * d  # QK^T and PV over the valid keys
-    bnd, by = bound_ms(nbytes, flops)
+    bnd, by = bound_ms("flash_attention_fwd", nbytes, flops)
     out["flash_attention_fwd"] = dict(
         ms=t_kernel, plain_ms=t_plain, library_ms=t_lib, bound_ms=bnd, bound_by=by,
-        device_ms=dev_ms,
+        device_ms=dev_ms, warps=hop.flash_fwd_launch_params(b, h, s, s, d)[:2],
+        warps_sweep={f"{w}x{c}": device_ms_per_call(
+            torch, lambda w=w, c=c: hop.flash_attention_fwd(q, k, v, kv_valid=valid, warps=w, splits=c))
+            for w, c in LAUNCH_CHOICES},
         shape=f"q,k,v [{b},{h},{s},{d}] fp32 views of a fused qkv, kv_valid {n_valid}/{s}",
     )
 
@@ -623,7 +737,7 @@ def time_kernels(torch, hop, dev, prompt_lens: list[int]) -> dict:
               + 2 * 4 * n_pos * D  # K and V of every cached position
               + 4 * n_pages_read + 4 * R)  # table entries walked, lengths
     flops = 4.0 * n_pos * D
-    bnd, by = bound_ms(nbytes, flops)
+    bnd, by = bound_ms("ragged_paged_attention", nbytes, flops)
     out["ragged_paged_attention"] = dict(
         ms=t_kernel, plain_ms=t_plain, library_ms=t_lib, bound_ms=bnd, bound_by=by,
         device_ms=dev_ms,
@@ -696,10 +810,55 @@ def train_slice(torch, hop) -> dict:
                 step_losses=step_losses)
 
 
+def step0_grads(torch, model, batch, loss_fn, signs=None):
+    """One forward and backward: the gradients (name, flat CPU tensor) and
+    each feed-forward block's ReLU input (``ffn.up``'s output). With
+    ``signs`` (per block, where that input was > 0 on the other device),
+    an input on the other side of 0 takes the other device's ReLU branch:
+    its value is mirrored across 0 and its gradient passes as on that
+    branch."""
+    from machine_learning_apache_spark_tpu_torch.models.transformer import FeedForward
+
+    pre, hooks = {}, []
+
+    def hook(name):
+        def fn(_module, _inputs, out):
+            pre[name] = out.detach().cpu()
+            if signs is None:
+                return None
+            mirrored = torch.where((out > 0) == signs[name].to(out.device), out, -out)
+            return out + (mirrored - out).detach()
+        return fn
+
+    for name, mod in model.named_modules():
+        if isinstance(mod, FeedForward):
+            hooks.append(mod.up.register_forward_hook(hook(name)))
+    try:
+        loss, _ = loss_fn(model, batch, None)
+        loss.backward()
+    finally:
+        for h in hooks:
+            h.remove()
+    named = [(n, p.grad.detach().flatten().cpu()) for n, p in model.named_parameters()]
+    model.zero_grad(set_to_none=True)
+    return named, pre
+
+
 def parity_run(torch, hop, src_pipe, trg_pipe, train_ds) -> dict:
     """Dropout 0, random weights in the Flax layout bridged in: the same
     ``PARITY_STEPS`` Adam steps on the card (kernels) and on the CPU
-    (plain versions), and the step-0 gradients of both."""
+    (plain versions), and the step-0 gradients of both.
+
+    The step-0 gradients are compared on one branch of the model's ReLUs.
+    An fp32-level difference anywhere upstream can move a ReLU input that
+    sits within fp32 noise of 0 to the other side, and the gradient then
+    differs by that token's whole contribution (at seed 0, batch 0 one
+    decoder input of 6.9e-7, median 0.69, gives 4.1e-4 of the largest
+    gradient; the plain versions on the card cross it too). So an input
+    the two devices put on opposite sides must lie within ``KINK_RTOL`` of
+    0, relative to its block's largest input, or the run fails; the CPU's
+    gradient is then taken on the card's branch there. The raw difference
+    and the number of such inputs are printed beside the gated one."""
     from machine_learning_apache_spark_tpu_torch.models import Transformer, TransformerConfig
     from machine_learning_apache_spark_tpu_torch.recipes.translation import make_translation_loss
     from machine_learning_apache_spark_tpu_torch.train.loop import make_train_step, to_device
@@ -718,30 +877,56 @@ def parity_run(torch, hop, src_pipe, trg_pipe, train_ds) -> dict:
     for dev in ("cuda", "cpu"):
         device = torch.device(dev)
         model = load_flax_params(Transformer(cfg), params).to(device)
-        loss, _ = loss_fn(model, to_device(batches[0], device), None)
-        loss.backward()
-        grads = torch.cat([p.grad.detach().flatten().cpu() for p in model.parameters()])
-        model.zero_grad(set_to_none=True)
+        named, pre = step0_grads(torch, model, to_device(batches[0], device), loss_fn)
         state = TrainState.create(model=model, tx=make_optimizer("adam", 1e-3))
         t0 = time.perf_counter()
         losses = [step(state, to_device(b, device), None)[1] for b in batches]
         losses = [x.item() for x in losses]
-        runs[dev] = dict(losses=losses, grads=grads, seconds=time.perf_counter() - t0)
+        runs[dev] = dict(losses=losses, named=named, pre=pre, seconds=time.perf_counter() - t0)
     card, cpu = np.array(runs["cuda"]["losses"]), np.array(runs["cpu"]["losses"])
     rel = np.abs(card - cpu) / np.abs(cpu)
-    g_rel = ((runs["cuda"]["grads"] - runs["cpu"]["grads"]).abs().max()
-             / runs["cpu"]["grads"].abs().max()).item()
+
+    signs = {name: x > 0 for name, x in runs["cuda"]["pre"].items()}
+    crossed, widest = 0, 0.0
+    for name, x in runs["cpu"]["pre"].items():
+        other = (x > 0) != signs[name]
+        crossed += int(other.sum())
+        if bool(other.any()):
+            widest = max(widest, (x[other].abs().max() / x.abs().max()).item())
+    if widest > KINK_RTOL:
+        fail(f"card and CPU put a ReLU input {widest:.2e} (relative) from 0 on opposite sides")
+    cpu_named = runs["cpu"]["named"]
+    if crossed:
+        model = load_flax_params(Transformer(cfg), params)
+        cpu_named, _ = step0_grads(torch, model, to_device(batches[0], torch.device("cpu")), loss_fn, signs)
+    card_g = torch.cat([g for _, g in runs["cuda"]["named"]])
+    raw_g = torch.cat([g for _, g in runs["cpu"]["named"]])
+    cpu_g = torch.cat([g for _, g in cpu_named])
+    g_rel = ((card_g - cpu_g).abs().max() / cpu_g.abs().max()).item()
+    raw_rel = ((card_g - raw_g).abs().max() / raw_g.abs().max()).item()
     log(f"  parity, {PARITY_STEPS} Adam steps, dropout 0, random Flax-layout weights (seed {SEED}):")
     log(f"    card losses {card.tolist()}")
     log(f"    CPU  losses {cpu.tolist()} (plain versions, {runs['cpu']['seconds']:.1f} s)")
     log(f"    per-step relative difference {rel.tolist()} (gate <= {PARITY_RTOL:.0e})")
+    log(f"    ReLU inputs on opposite sides of 0: {crossed}, the widest {widest:.2e} of its "
+        f"block's largest (bound {KINK_RTOL:.0e}); step-0 gradients before taking the card's "
+        f"branch there: {raw_rel:.3e}")
     log(f"    step-0 gradients: max |card - CPU| / max |CPU| = {g_rel:.3e} over all "
-        f"parameters (gate <= {GRAD_RTOL:.0e})")
+        f"parameters, on one ReLU branch (gate <= {GRAD_RTOL:.0e})")
+    g_max = cpu_g.abs().max()
+    worst = sorted(
+        ((((a - b).abs().max() / g_max).item(), (b.abs().max() / g_max).item(), n)
+         for (n, a), (_, b) in zip(runs["cuda"]["named"], cpu_named)),
+        reverse=True,
+    )[:4]
+    log("    largest per parameter (|card - CPU| / max |CPU|, own max |CPU| / max |CPU|): "
+        + "; ".join(f"{n} {e:.2e} ({m:.2e})" for e, m, n in worst))
     if not np.isfinite(card).all() or not (rel <= PARITY_RTOL).all():
         fail("card and CPU training losses disagree")
     if not g_rel <= GRAD_RTOL:
         fail("card and CPU step-0 gradients disagree")
-    return dict(card=card.tolist(), cpu=cpu.tolist(), rel=rel.tolist(), grad_rel=g_rel)
+    return dict(card=card.tolist(), cpu=cpu.tolist(), rel=rel.tolist(), grad_rel=g_rel,
+                raw_grad_rel=raw_rel, relu_crossed=crossed)
 
 
 # -- phase 6: training times -----------------------------------------------------
@@ -870,8 +1055,20 @@ def time_training_kernels(torch, hop, sites: dict) -> dict:
                 flops=8.0 * d * h * pairs,
             ),
         }
+        sweep = {
+            "flash_attention_fwd": (
+                hop.flash_fwd_launch_params(b, h, sq, sk, d)[:2],
+                {f"{w}x{c}": (lambda w=w, c=c: hop.flash_attention_fwd(
+                    q, k, v, return_lse=True, warps=w, splits=c, **kw)) for w, c in LAUNCH_CHOICES},
+            ),
+            "flash_attention_bwd_dkv": (
+                hop.dkv_launch_params(b, h, sq, sk, d)[:2],
+                {f"{w}x{c}": (lambda w=w, c=c: hop.flash_attention_bwd_dkv(
+                    q, k, v, g, lse, delta, warps=w, splits=c, **kw)) for w, c in LAUNCH_CHOICES},
+            ),
+        }
         for name, w in work.items():
-            bnd, by = bound_ms(w["nbytes"], w["flops"])
+            bnd, by = bound_ms(name, w["nbytes"], w["flops"])
             r = dict(
                 site=site,
                 shape=f"q [{b},{h},{sq},{d}], k/v [{b},{h},{sk},{d}] fp32 views of fused projections, "
@@ -887,6 +1084,9 @@ def time_training_kernels(torch, hop, sites: dict) -> dict:
                     "library": device_ms_per_call(torch, w["library"], n=20),
                 },
             )
+            if name in sweep:
+                r["warps"], calls = sweep[name]
+                r["warps_sweep"] = {n: device_ms_per_call(torch, fn, n=20) for n, fn in calls.items()}
             out.setdefault(name, {})[site] = r
     return out
 
@@ -929,6 +1129,7 @@ def main() -> int:
         for line in kb.compiler_output.splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line or "smem" in line:
                 log(f"    {line.strip()}")
+    check_tensor_core_sass(built)
 
     log("== phase 3: kernels vs plain (on the card)")
     errs = check_kernels(torch, hop, dev)
@@ -1029,6 +1230,9 @@ def main() -> int:
         dm = {k: ("not measured" if v is None else f"{v:.5f} ms") for k, v in t["device_ms"].items()}
         log(f"    device time per call (profiler): kernel {dm['kernel']}, plain {dm['plain']}, "
             f"library {dm['library']}")
+        if "warps_sweep" in t:
+            log(f"    (warps, splits): {t['warps']} chosen; device ms per call at each warps x splits: "
+                + ", ".join(f"{w}: {'not measured' if x is None else f'{x:.5f}'}" for w, x in t["warps_sweep"].items()))
     train_times = time_train_steps(torch, trained["state"], train_ds, card)
     site_times = time_training_kernels(torch, hop, make_sites())
     for name, by_site in site_times.items():
@@ -1039,6 +1243,10 @@ def main() -> int:
                 f"({t['bound_by']}: {t['nbytes']} B, {t['flops']:.4g} flop), plain {t['plain_ms']:.5f} ms "
                 f"(device {dm['plain']}), library {t['library_ms']:.5f} ms (device {dm['library']}; "
                 f"{t['library_name']}) [{card}]")
+            if "warps_sweep" in t:
+                log(f"    launch: {t['warps']} chosen; device us per call at each: "
+                    + ", ".join(f"{w}: {'not measured' if x is None else f'{x * 1e3:.2f}'}"
+                                for w, x in t["warps_sweep"].items()))
 
     serve_launches = {n: sum(run["launches"][n] for run in runs.values()) for n in hop.LAUNCHES}
     kernels = []
@@ -1064,12 +1272,14 @@ def main() -> int:
             "bound_ms": main_t["bound_ms"],
             "bound_by": main_t["bound_by"],
             "library_ms": main_t["library_ms"],
+            "device_ms": main_t["device_ms"],
         }
         if name in train_errs:
             entry["max_rel_err"] = train_errs[name]["max_rel_err"]
         if name in site_times:
             entry["training_sites"] = {
-                site: {k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms")}
+                site: {k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
+                                         "warps", "warps_sweep") if k in t}
                 for site, t in site_times[name].items()
             }
         kernels.append(entry)

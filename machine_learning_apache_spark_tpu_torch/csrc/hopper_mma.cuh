@@ -1,0 +1,138 @@
+// Building blocks shared by the tensor-core attention kernels
+// (flash_attention_fwd.cu, flash_attention_bwd.cu's dK/dV kernel), sm_90a.
+//
+// - 3xTF32 products on mma.sync.m16n8k8: every fp32 operand x is split
+//   into hi = tf32(x) and lo = tf32(x - hi), and a product accumulates
+//   lo*hi + hi*lo + hi*hi in fp32 (CUTLASS's OpMultiplyAddFastF32). The
+//   dropped lo*lo term is ~2^-22 relative, so the result keeps fp32's
+//   accuracy; one TF32 pass keeps ~3 decimal digits, which the port's 1e-4
+//   kernel-vs-plain gates and its card-vs-CPU gradient gate do not admit.
+// - The tensor core's fp32 accumulation does not round to nearest (it
+//   truncates), so an accumulator carried through every k-step and every
+//   pass drifts: on an H100 that left the kernels ~10x further from fp32
+//   than an FMA loop, and the card-vs-CPU step-0 gradients at 4e-4. So
+//   each k-step's three passes go into a fresh zero fragment, which is
+//   then added to the running sum by an ordinary fp32 add.
+// - cp.async copies into shared memory (16-byte .cg, 4-byte .ca), with a
+//   zero fill when the source row lies outside the tensor.
+//
+// Fragment layouts of m16n8k8 (PTX ISA, "Matrix Fragments for mma.m16n8k8"
+// with .tf32), with g = lane / 4 and t = lane % 4:
+//   A (16 x 8, row-major):  a0 (g, t)  a1 (g + 8, t)  a2 (g, t + 4)
+//                           a3 (g + 8, t + 4)
+//   B (8 x 8, k x n):       b0 (t, g)  b1 (t + 4, g)
+//   C (16 x 8):             c0 (g, 2t) c1 (g, 2t + 1) c2 (g + 8, 2t)
+//                           c3 (g + 8, 2t + 1)
+// A C fragment becomes the A operand of the next product without a
+// shuffle when the k index is permuted: k = t stands for column 2t and
+// k = t + 4 for column 2t + 1 of the 8-wide tile, so (a0, a1, a2, a3) =
+// (c0, c2, c1, c3), and the B operand's rows are read in the same order:
+// b0 from row 2t, b1 from row 2t + 1. A sum over k does not depend on
+// its order of terms, only on which terms pair up, so this is exact.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace hopper {
+
+constexpr unsigned kFull = 0xffffffffu;
+
+struct FragA {
+  uint32_t hi[4], lo[4];
+};
+
+struct FragB {
+  uint32_t hi[2], lo[2];
+};
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ FragA frag_a(float a0, float a1, float a2,
+                                        float a3) {
+  FragA f;
+  split_tf32(a0, f.hi[0], f.lo[0]);
+  split_tf32(a1, f.hi[1], f.lo[1]);
+  split_tf32(a2, f.hi[2], f.lo[2]);
+  split_tf32(a3, f.hi[3], f.lo[3]);
+  return f;
+}
+
+__device__ __forceinline__ FragB frag_b(float b0, float b1) {
+  FragB f;
+  split_tf32(b0, f.hi[0], f.lo[0]);
+  split_tf32(b1, f.hi[1], f.lo[1]);
+  return f;
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a * b in 3xTF32, the small terms first, summed in a fresh fragment
+// and added to c in fp32 (round to nearest).
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const FragA& a,
+                                           const FragB& b) {
+  float p[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_tf32(p, a.lo, b.hi);
+  mma_tf32(p, a.hi, b.lo);
+  mma_tf32(p, a.hi, b.hi);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) c[i] += p[i];
+}
+
+// 16 bytes global -> shared, bypassing L1; zeros when !in (the source
+// address must still be a valid one).
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool in) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+
+// 4 bytes global -> shared (for per-row statistics, which need not be
+// 16-byte aligned); zero when !in.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool in) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(in ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N committed groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Above 48 KB a block's dynamic shared memory must be asked for.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+}  // namespace hopper

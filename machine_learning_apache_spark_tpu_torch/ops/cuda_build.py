@@ -5,8 +5,9 @@ library with a plain C interface and loaded with ``ctypes`` — seconds per
 source, where a build against PyTorch's headers takes minutes. The build
 happens at first use, into ``build/torch_kernels/`` beside the package,
 with every source's ``nvcc`` started at once. A library is named by the
-hash of its source and flags, so an edited source rebuilds and an
-unchanged one is loaded as it is.
+hash of its source, the shared headers (``csrc/*.cuh``) and the flags,
+so an edited source or header rebuilds and an unchanged one is loaded as
+it is.
 
 ``nvcc`` is found through ``CUDA_HOME`` (as PyTorch resolves it: the
 ``CUDA_HOME``/``CUDA_PATH`` variables, then ``PATH``, then the toolkit's
@@ -46,11 +47,14 @@ _F32 = ctypes.c_float
 #: Each kernel's C entry point: (source stem under ``csrc/``, function
 #: name, argtypes). One source may hold several entry points. Pointers and
 #: the stream are ``c_void_p`` so ctypes never truncates them.
+#: The tensor-core kernels take three launch parameters after ``scale``:
+#: warps per block, splits (the forward's key splits, dK/dV's query
+#: splits) and the padded head dim.
 _FLASH_BWD_TAIL = [_INT] * 6 + [_F32] + [_I64] * 12 + [_VOID]
 ENTRY_POINTS = {
     "flash_attention_fwd": (
         "flash_attention_fwd", "flash_attention_fwd",
-        [_VOID] * 6 + [_INT] * 6 + [_F32] + [_I64] * 9 + [_VOID],
+        [_VOID] * 6 + [_INT] * 6 + [_F32] + [_INT] * 3 + [_I64] * 9 + [_VOID],
     ),
     "flash_attention_bwd_dq": (
         "flash_attention_bwd", "flash_attention_bwd_dq",
@@ -58,7 +62,7 @@ ENTRY_POINTS = {
     ),
     "flash_attention_bwd_dkv": (
         "flash_attention_bwd", "flash_attention_bwd_dkv",
-        [_VOID] * 9 + _FLASH_BWD_TAIL,
+        [_VOID] * 9 + [_INT] * 6 + [_F32] + [_INT] * 3 + [_I64] * 12 + [_VOID],
     ),
     "ragged_paged_attention": (
         "ragged_paged_attention", "ragged_paged_attention",
@@ -102,6 +106,8 @@ def find_nvcc() -> str:
 
 def _digest(source: Path) -> str:
     h = hashlib.sha256(source.read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):  # shared by the sources
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
 

@@ -17,7 +17,13 @@ Four CUDA C++ kernels (``csrc/``), each replacing a Pallas TPU kernel of
 ``flash_attention`` is differentiable: ``FlashAttention`` is the
 ``torch.autograd.Function`` that mirrors the JAX package's
 ``_flash_vjp_nomask``/``_flash_vjp_masked``. Each source's header says
-what bounds it on the card and how its design answers that. Each wrapper
+what bounds it on the card and how its design answers that. The flash
+forward and the dK/dV kernel run on the tensor cores (``mma.sync`` in
+3xTF32, ``cp.async`` tiles): their wrappers pass the launch parameters
+``flash_fwd_launch_params`` and ``dkv_launch_params`` pick (warps per
+block, splits, padded head dim) and
+check the 16-byte row layout their copies need
+(``check_kernel_layout``). Each wrapper
 takes the plain version only for tensors on the CPU; for a CUDA tensor it
 launches the kernel or raises — there is no fallback. ``LAUNCHES`` counts
 kernel launches (plain calls are not counted), so a run can show that its
@@ -35,6 +41,18 @@ from machine_learning_apache_spark_tpu_torch.ops.cuda_build import LIBRARY
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 128
+
+#: Warps per block the tensor-core kernels (flash forward, dK/dV) are
+#: built for; each warp owns 16 rows (forward: query rows, dK/dV: keys).
+KERNEL_WARPS = (1, 2, 4)
+#: Splits: warps that share out one 16-row group's walk (the forward's
+#: key tiles, dK/dV's query tiles).
+KERNEL_SPLITS = (1, 2)
+#: Padded head dims they are instantiated for; columns past ``d`` are
+#: never read.
+KERNEL_D_PADS = (64, 128)
+#: Blocks that fill the card: the H100's 132 SMs.
+FILL_BLOCKS = 132
 
 #: Kernel launches per kernel name since the last ``reset_launches()``.
 #: ``flash_attention_fwd`` counts both forward variants (with and without
@@ -230,6 +248,93 @@ def _check_flash_cuda(name, tensors, kv_valid) -> tuple[torch.device, torch.Tens
     return dev, valid
 
 
+def _d_pad(head_dim: int) -> int:
+    _check_head_dim(head_dim)
+    return next(p for p in KERNEL_D_PADS if head_dim <= p)
+
+
+def flash_fwd_launch_params(
+    batch: int, heads: int, q_len: int, kv_len: int, head_dim: int,
+    warps: int | None = None, splits: int | None = None,
+) -> tuple[int, int, int]:
+    """``(warps per block, key splits, padded head dim)`` of the flash
+    forward kernel. A block has ``warps // splits`` row groups of 16 query
+    rows; the ``splits`` warps of a group share out its key tiles. Unless
+    given: the most row groups (so the most rows sharing each staged K/V
+    tile) that the rows fill and that still leave ``FILL_BLOCKS`` blocks in
+    the grid, with one split; where even one row group per block leaves the
+    card part empty (the serving prefill: 8 heads of 64 rows), two splits
+    when there are two 32-key tiles or more, so a block walks them side by
+    side, and as many row groups as the rows fill up to four warps (the
+    prefill: 16 blocks of two row groups by two splits)."""
+    d_pad = _d_pad(head_dim)
+    if warps is None and splits is None:
+        for rows in (4, 2, 1):
+            if 16 * (rows - 1) < q_len and batch * heads * -(-q_len // (16 * rows)) >= FILL_BLOCKS:
+                return rows, 1, d_pad
+        splits = 2 if kv_len > 32 else 1
+        rows = next(r for r in (4, 2, 1) if r * splits in KERNEL_WARPS and 16 * (r - 1) < q_len)
+        return rows * splits, splits, d_pad
+    return _check_launch(warps, splits) + (d_pad,)
+
+
+def dkv_launch_params(
+    batch: int, heads: int, q_len: int, kv_len: int, head_dim: int,
+    warps: int | None = None, splits: int | None = None,
+) -> tuple[int, int, int]:
+    """``(warps per block, query splits, padded head dim)`` of the dK/dV
+    kernel. A block has ``warps // splits`` key groups of 16 keys; the
+    ``splits`` warps of a group share out the 32-row query tiles. Unless
+    given: two splits when the walk has two query tiles or more (it is one
+    block's serial chain), and as many key groups as the keys fill up to
+    four warps (the training sites: blocks of 2 x 16 keys by 2 splits)."""
+    d_pad = _d_pad(head_dim)
+    if warps is None and splits is None:
+        splits = 2 if q_len > 32 else 1
+        groups = next(r for r in (4, 2, 1) if r * splits in KERNEL_WARPS and 16 * (r - 1) < kv_len)
+        return groups * splits, splits, d_pad
+    return _check_launch(warps, splits) + (d_pad,)
+
+
+def _check_launch(warps: int | None, splits: int | None) -> tuple[int, int]:
+    splits = 1 if splits is None else splits
+    warps = splits if warps is None else warps
+    if splits not in KERNEL_SPLITS or warps not in KERNEL_WARPS or warps % splits:
+        raise ValueError(
+            f"warps must be one of {KERNEL_WARPS} and a multiple of splits "
+            f"(one of {KERNEL_SPLITS}), got warps={warps}, splits={splits}"
+        )
+    return warps, splits
+
+
+def kernel_layout_ok(t: torch.Tensor) -> bool:
+    """Whether a ``[B, H, S, d]`` tensor meets ``check_kernel_layout``."""
+    return (
+        t.stride(3) == 1
+        and t.data_ptr() % 16 == 0
+        and all(t.stride(i) % 4 == 0 for i in range(3) if t.shape[i] > 1)
+    )
+
+
+def check_kernel_layout(name: str, *tensors: torch.Tensor) -> None:
+    """The tensor-core kernels copy rows into shared memory 16 bytes at a
+    time (``cp.async``): every ``[B, H, S, d]`` input must have a
+    contiguous head dim, a 16-byte aligned start, and batch, head and
+    position strides that are multiples of 4 elements (strides of
+    size-1 dims are never used). Raises ``ValueError`` otherwise. The
+    model's head-split views of fused projections pass, since ``d`` is a
+    multiple of 8."""
+    for t in tensors:
+        if t.stride(3) != 1:
+            raise ValueError(f"{name}: every input's head dim must be contiguous")
+        if not kernel_layout_ok(t):
+            raise ValueError(
+                f"{name}: every row must start on 16 bytes (data_ptr % 16 = "
+                f"{t.data_ptr() % 16}, strides {tuple(t.stride())}); the "
+                f"kernel copies rows with 16-byte cp.async"
+            )
+
+
 def _strides(*tensors) -> list[int]:
     """The batch, head and position strides of ``[B, H, S, d]`` tensors
     whose head dim has stride 1 (raises otherwise)."""
@@ -242,11 +347,13 @@ def _strides(*tensors) -> list[int]:
 
 
 def flash_attention_fwd(
-    query, key, value, *, causal=False, kv_valid=None, return_lse=False
+    query, key, value, *, causal=False, kv_valid=None, return_lse=False,
+    warps=None, splits=None,
 ):
     """The flash forward kernel's wrapper: ``out`` ``[B, H, Sq, d]``, or
     ``(out, lse)`` with ``lse`` ``[B, H, Sq]`` fp32, both contiguous. No
-    autograd: ``flash_attention`` is the differentiable entry point."""
+    autograd: ``flash_attention`` is the differentiable entry point.
+    ``warps``/``splits`` override ``flash_fwd_launch_params``' choice."""
     _check_flash_shapes(query, key, value, kv_valid)
     if query.device.type == "cpu":
         out, lse = flash_attention_lse_plain(
@@ -256,7 +363,8 @@ def flash_attention_fwd(
     b, h, q_len, d = query.shape
     kv_len = key.shape[2]
     dev, valid = _check_flash_cuda("flash_attention", (query, key, value), kv_valid)
-    _check_head_dim(d)
+    n_warps, n_splits, d_pad = flash_fwd_launch_params(b, h, q_len, kv_len, d, warps, splits)
+    check_kernel_layout("flash_attention", query, key, value)
     strides = _strides(query, key, value)
     out = torch.empty((b, h, q_len, d), dtype=torch.float32, device=dev)
     lse = (
@@ -268,7 +376,8 @@ def flash_attention_fwd(
         query.data_ptr(), key.data_ptr(), value.data_ptr(),
         None if valid is None else valid.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(),
-        b, h, q_len, kv_len, d, int(causal), 1.0 / math.sqrt(d), *strides,
+        b, h, q_len, kv_len, d, int(causal), 1.0 / math.sqrt(d),
+        n_warps, n_splits, d_pad, *strides,
     )
     return (out, lse) if return_lse else out
 
@@ -311,11 +420,13 @@ def flash_attention_bwd_dq(
 
 
 def flash_attention_bwd_dkv(
-    query, key, value, d_out, lse, delta, *, causal=False, kv_valid=None
+    query, key, value, d_out, lse, delta, *, causal=False, kv_valid=None,
+    warps=None, splits=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """``(dK, dV)`` of flash attention, each ``[B, H, Sk, d]`` contiguous;
-    same inputs as ``flash_attention_bwd_dq``. A key that no row sees
-    gets exactly zero."""
+    same inputs as ``flash_attention_bwd_dq``, with rows 16-byte aligned
+    (``check_kernel_layout``). A key that no row sees gets exactly zero.
+    ``warps``/``splits`` override ``dkv_launch_params``' choice."""
     _check_flash_shapes(query, key, value, kv_valid)
     if query.device.type == "cpu":
         return flash_attention_bwd_dkv_plain(
@@ -326,6 +437,8 @@ def flash_attention_bwd_dkv(
     )
     b, h, q_len, d = query.shape
     kv_len = key.shape[2]
+    n_warps, n_splits, d_pad = dkv_launch_params(b, h, q_len, kv_len, d, warps, splits)
+    check_kernel_layout("flash_attention_bwd_dkv", query, key, value, d_out)
     dk = torch.empty((b, h, kv_len, d), dtype=torch.float32, device=dev)
     dv = torch.empty_like(dk)
     _launch(
@@ -333,7 +446,8 @@ def flash_attention_bwd_dkv(
         query.data_ptr(), key.data_ptr(), value.data_ptr(), d_out.data_ptr(),
         lse.data_ptr(), delta.data_ptr(),
         None if valid is None else valid.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        b, h, q_len, kv_len, d, int(causal), 1.0 / math.sqrt(d), *strides,
+        b, h, q_len, kv_len, d, int(causal), 1.0 / math.sqrt(d),
+        n_warps, n_splits, d_pad, *strides,
     )
     return dk, dv
 
@@ -391,6 +505,10 @@ class FlashAttention(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, d_out):
         query, key, value, out, lse, kv_valid = ctx.saved_tensors
+        if d_out.device.type == "cuda" and not kernel_layout_ok(d_out):
+            # Autograd picks dO's layout (an expanded ``sum()`` gradient
+            # has stride 0): give the kernels rows they can copy.
+            d_out = d_out.clone(memory_format=torch.contiguous_format)
         dq, dk, dv = flash_attention_backward(
             query, key, value, out, lse, d_out,
             causal=ctx.causal, kv_valid=kv_valid,

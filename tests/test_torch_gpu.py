@@ -53,6 +53,96 @@ def test_flash_kernel_matches_plain(cuda, b, h, sq, sk, d, causal, valid_frac):
     torch.testing.assert_close(got, want, atol=TOL, rtol=0)
 
 
+@pytest.mark.parametrize("sq", [64, 1], ids=["prefill", "one-row"])
+@pytest.mark.parametrize("d", [8, 40, 64, 128])
+def test_flash_kernel_at_the_serving_prefill(cuda, d, sq):
+    """The serving prefill as the model hands it over: head-split views of
+    a fused qkv projection, a 64-key chunk with 45 valid keys; and a
+    one-row query against the same keys."""
+    rng = np.random.default_rng(25)
+    h = 8
+    q = _randn(rng, 1, sq, 3 * h * d).to(cuda)[..., : h * d].view(1, sq, h, d).transpose(1, 2)
+    kv = _randn(rng, 1, 64, 2 * h * d).to(cuda)
+    k = kv[..., : h * d].view(1, 64, h, d).transpose(1, 2)
+    v = kv[..., h * d:].view(1, 64, h, d).transpose(1, 2)
+    valid = (torch.arange(64) < 45)[None].to(cuda)
+    hop.reset_launches()
+    got = hop.flash_attention(q, k, v, kv_valid=valid)
+    assert hop.LAUNCHES["flash_attention_fwd"] == 1
+    want = hop.flash_attention_plain(q, k, v, kv_valid=valid)
+    torch.testing.assert_close(got, want, atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize(
+    "warps,splits", [(1, 1), (2, 2), (4, 2)], ids=["w1", "w2-split2", "w4-split2"]
+)
+@pytest.mark.parametrize("d", [64, 128], ids=["d_pad64", "d_pad128"])
+def test_tensor_core_kernels_at_every_launch_param(cuda, d, warps, splits):
+    """Forward (with lse) and dK/dV at each warps per block and splits, and
+    each padded head dim, on strided views with masked keys under causality
+    (keys past the first two tiles, query rows past the first two tiles)."""
+    rng = np.random.default_rng(26)
+    q, k, v, g, valid = _bwd_inputs(rng, cuda, 2, 4, 100, 140, d, 0.7, strided=True)
+    kw = dict(causal=True, kv_valid=valid)
+    out, lse = hop.flash_attention_fwd(q, k, v, return_lse=True, warps=warps, splits=splits, **kw)
+    want_out, want_lse = hop.flash_attention_lse_plain(q, k, v, **kw)
+    torch.testing.assert_close(out, want_out, atol=TOL, rtol=0)
+    finite = want_lse > hop.NEG_INF / 2
+    assert torch.equal(lse > hop.NEG_INF / 2, finite)
+    assert _max_rel(lse[finite], want_lse[finite]) < TOL
+    delta = (g * out).sum(-1)
+    dk, dv = hop.flash_attention_bwd_dkv(q, k, v, g, lse, delta, warps=warps, splits=splits, **kw)
+    want_dk, want_dv = hop.flash_attention_bwd_dkv_plain(q, k, v, g, lse, delta, **kw)
+    assert _max_rel(dk, want_dk) < TOL
+    assert _max_rel(dv, want_dv) < TOL
+
+
+@pytest.mark.parametrize("warps,splits", [(1, 1), (4, 1), (4, 2)], ids=["w1", "w4", "w4-split2"])
+def test_dkv_kernel_zeroes_whole_masked_key_blocks(cuda, warps, splits):
+    """Only the first 10 of 200 keys are valid, so every block of 16 or 64
+    keys past them is dead: exactly zero dK/dV there, the live keys within
+    1e-4 relative, and a second run gives the same bits."""
+    rng = np.random.default_rng(27)
+    q, k, v, g, _ = _bwd_inputs(rng, cuda, 2, 8, 77, 200, 64, None, strided=True)
+    valid = (torch.arange(200) < 10)[None].expand(2, 200).to(cuda)
+    out, lse = hop.flash_attention_fwd(q, k, v, kv_valid=valid, return_lse=True)
+    delta = (g * out).sum(-1)
+    runs = [hop.flash_attention_bwd_dkv(q, k, v, g, lse, delta, kv_valid=valid, warps=warps, splits=splits)
+            for _ in range(2)]
+    dk, dv = runs[0]
+    assert torch.equal(runs[1][0], dk) and torch.equal(runs[1][1], dv)
+    assert dk[:, :, 10:].abs().max().item() == 0.0
+    assert dv[:, :, 10:].abs().max().item() == 0.0
+    want_dk, want_dv = hop.flash_attention_bwd_dkv_plain(q, k, v, g, lse, delta, kv_valid=valid)
+    assert _max_rel(dk, want_dk) < TOL
+    assert _max_rel(dv, want_dv) < TOL
+
+
+def test_tensor_core_kernels_refuse_rows_off_16_bytes(cuda):
+    flat = torch.zeros(2 * 4 * 10 * 64 + 1, device=cuda)
+    q = flat[1:].view(2, 4, 10, 64)
+    k = v = torch.zeros(2, 4, 10, 64, device=cuda)
+    with pytest.raises(ValueError, match="16 bytes"):
+        hop.flash_attention_fwd(q, k, v)
+    lse = torch.zeros(2, 4, 10, device=cuda)
+    with pytest.raises(ValueError, match="16 bytes"):
+        hop.flash_attention_bwd_dkv(k, k, v, q, lse, lse)
+
+
+def test_backward_takes_an_expanded_sum_gradient(cuda):
+    """``out.sum().backward()`` gives the backward a stride-0 dO; the
+    Function copies it into rows the kernels can read."""
+    rng = np.random.default_rng(28)
+    x = [_randn(rng, 2, 4, 33, 64) for _ in range(3)]
+    grads = []
+    for dev in ("cpu", cuda):
+        leaves = [t.to(dev, copy=True).requires_grad_() for t in x]
+        hop.flash_attention(*leaves, causal=True).sum().backward()
+        grads.append([t.grad.cpu() for t in leaves])
+    for got, ref in zip(*grads[::-1]):
+        assert _max_rel(got, ref) < TOL
+
+
 # The backward's cases: the MT training sites at a reduced batch, and the
 # edges (Sq != Sk both ways under causality, fully masked rows, masked
 # keys, lengths that are not tile multiples, other head dims).
