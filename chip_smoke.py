@@ -40,9 +40,7 @@ Phases, each fatal on failure:
    steps x layers times. Then a parity run: dropout 0, random weights in
    the Flax layout bridged in, 4 steps on the card and the same 4 on the
    CPU (plain versions): per-step losses within 1e-3 relative, step-0
-   gradients within 1e-4 relative on one branch of the model's ReLUs (a
-   ReLU input the two devices put on opposite sides of 0 must lie within
-   1e-5 of it, relative, and then takes the card's branch on the CPU);
+   gradients within 1e-4 relative;
 6. times — requests/s, generated tokens/s, peak device memory, and each
    kernel's time (CUDA events) beside its bound, its plain version's time
    and one library call's, at the serving shapes and at the three training
@@ -106,7 +104,6 @@ TRAIN = dict(data_root=str(FIXTURES), compute_bleu=True, log_every=1)
 PARITY_STEPS = 4
 PARITY_RTOL = 1e-3  # card vs CPU losses: summation order, through Adam
 GRAD_RTOL = 1e-4  # step-0 gradients, card vs CPU
-KINK_RTOL = 1e-5  # a ReLU input within this of 0 (relative) may cross it: fp32 noise
 TIMED_STEPS = 20
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): the HBM rate; the
@@ -256,8 +253,9 @@ def check_kernels(torch, hop, dev) -> dict:
         torch.cuda.synchronize()
         err = max((x - want).abs().max().item() for x in [got, *others])
         nan = any(bool(torch.isnan(x).any().item()) for x in [got, *others])
+        choice = hop.flash_fwd_launch_params(*q.shape[:3], k.shape[2], q.shape[3], hop.device_sm_count(dev))
         log(f"  flash_attention_fwd  {label:48s} max_abs_err {err:.3e} (tol {TOL:.0e}; "
-            f"(warps, splits) {hop.flash_fwd_launch_params(*q.shape[:3], k.shape[2], q.shape[3])[:2]} "
+            f"(warps, splits) {choice[:2]} "
             f"and each of {LAUNCH_CHOICES})")
         if nan or not err <= TOL:
             fail(f"flash_attention_fwd disagrees with its plain version on {label}")
@@ -692,7 +690,7 @@ def time_kernels(torch, hop, dev, prompt_lens: list[int]) -> dict:
     bnd, by = bound_ms("flash_attention_fwd", nbytes, flops)
     out["flash_attention_fwd"] = dict(
         ms=t_kernel, plain_ms=t_plain, library_ms=t_lib, bound_ms=bnd, bound_by=by,
-        device_ms=dev_ms, warps=hop.flash_fwd_launch_params(b, h, s, s, d)[:2],
+        device_ms=dev_ms, warps=hop.flash_fwd_launch_params(b, h, s, s, d, hop.device_sm_count(dev))[:2],
         warps_sweep={f"{w}x{c}": device_ms_per_call(
             torch, lambda w=w, c=c: hop.flash_attention_fwd(q, k, v, kv_valid=valid, warps=w, splits=c))
             for w, c in LAUNCH_CHOICES},
@@ -810,55 +808,19 @@ def train_slice(torch, hop) -> dict:
                 step_losses=step_losses)
 
 
-def step0_grads(torch, model, batch, loss_fn, signs=None):
-    """One forward and backward: the gradients (name, flat CPU tensor) and
-    each feed-forward block's ReLU input (``ffn.up``'s output). With
-    ``signs`` (per block, where that input was > 0 on the other device),
-    an input on the other side of 0 takes the other device's ReLU branch:
-    its value is mirrored across 0 and its gradient passes as on that
-    branch."""
-    from machine_learning_apache_spark_tpu_torch.models.transformer import FeedForward
-
-    pre, hooks = {}, []
-
-    def hook(name):
-        def fn(_module, _inputs, out):
-            pre[name] = out.detach().cpu()
-            if signs is None:
-                return None
-            mirrored = torch.where((out > 0) == signs[name].to(out.device), out, -out)
-            return out + (mirrored - out).detach()
-        return fn
-
-    for name, mod in model.named_modules():
-        if isinstance(mod, FeedForward):
-            hooks.append(mod.up.register_forward_hook(hook(name)))
-    try:
-        loss, _ = loss_fn(model, batch, None)
-        loss.backward()
-    finally:
-        for h in hooks:
-            h.remove()
+def step0_grads(model, batch, loss_fn):
+    """One forward and backward: the gradients as (name, flat CPU tensor)."""
+    loss, _ = loss_fn(model, batch, None)
+    loss.backward()
     named = [(n, p.grad.detach().flatten().cpu()) for n, p in model.named_parameters()]
     model.zero_grad(set_to_none=True)
-    return named, pre
+    return named
 
 
 def parity_run(torch, hop, src_pipe, trg_pipe, train_ds) -> dict:
     """Dropout 0, random weights in the Flax layout bridged in: the same
     ``PARITY_STEPS`` Adam steps on the card (kernels) and on the CPU
-    (plain versions), and the step-0 gradients of both.
-
-    The step-0 gradients are compared on one branch of the model's ReLUs.
-    An fp32-level difference anywhere upstream can move a ReLU input that
-    sits within fp32 noise of 0 to the other side, and the gradient then
-    differs by that token's whole contribution (at seed 0, batch 0 one
-    decoder input of 6.9e-7, median 0.69, gives 4.1e-4 of the largest
-    gradient; the plain versions on the card cross it too). So an input
-    the two devices put on opposite sides must lie within ``KINK_RTOL`` of
-    0, relative to its block's largest input, or the run fails; the CPU's
-    gradient is then taken on the card's branch there. The raw difference
-    and the number of such inputs are printed beside the gated one."""
+    (plain versions), and the step-0 gradients of both."""
     from machine_learning_apache_spark_tpu_torch.models import Transformer, TransformerConfig
     from machine_learning_apache_spark_tpu_torch.recipes.translation import make_translation_loss
     from machine_learning_apache_spark_tpu_torch.train.loop import make_train_step, to_device
@@ -877,46 +839,27 @@ def parity_run(torch, hop, src_pipe, trg_pipe, train_ds) -> dict:
     for dev in ("cuda", "cpu"):
         device = torch.device(dev)
         model = load_flax_params(Transformer(cfg), params).to(device)
-        named, pre = step0_grads(torch, model, to_device(batches[0], device), loss_fn)
+        named = step0_grads(model, to_device(batches[0], device), loss_fn)
         state = TrainState.create(model=model, tx=make_optimizer("adam", 1e-3))
         t0 = time.perf_counter()
         losses = [step(state, to_device(b, device), None)[1] for b in batches]
         losses = [x.item() for x in losses]
-        runs[dev] = dict(losses=losses, named=named, pre=pre, seconds=time.perf_counter() - t0)
+        runs[dev] = dict(losses=losses, named=named, seconds=time.perf_counter() - t0)
     card, cpu = np.array(runs["cuda"]["losses"]), np.array(runs["cpu"]["losses"])
     rel = np.abs(card - cpu) / np.abs(cpu)
-
-    signs = {name: x > 0 for name, x in runs["cuda"]["pre"].items()}
-    crossed, widest = 0, 0.0
-    for name, x in runs["cpu"]["pre"].items():
-        other = (x > 0) != signs[name]
-        crossed += int(other.sum())
-        if bool(other.any()):
-            widest = max(widest, (x[other].abs().max() / x.abs().max()).item())
-    if widest > KINK_RTOL:
-        fail(f"card and CPU put a ReLU input {widest:.2e} (relative) from 0 on opposite sides")
-    cpu_named = runs["cpu"]["named"]
-    if crossed:
-        model = load_flax_params(Transformer(cfg), params)
-        cpu_named, _ = step0_grads(torch, model, to_device(batches[0], torch.device("cpu")), loss_fn, signs)
     card_g = torch.cat([g for _, g in runs["cuda"]["named"]])
-    raw_g = torch.cat([g for _, g in runs["cpu"]["named"]])
-    cpu_g = torch.cat([g for _, g in cpu_named])
+    cpu_g = torch.cat([g for _, g in runs["cpu"]["named"]])
     g_rel = ((card_g - cpu_g).abs().max() / cpu_g.abs().max()).item()
-    raw_rel = ((card_g - raw_g).abs().max() / raw_g.abs().max()).item()
     log(f"  parity, {PARITY_STEPS} Adam steps, dropout 0, random Flax-layout weights (seed {SEED}):")
     log(f"    card losses {card.tolist()}")
     log(f"    CPU  losses {cpu.tolist()} (plain versions, {runs['cpu']['seconds']:.1f} s)")
     log(f"    per-step relative difference {rel.tolist()} (gate <= {PARITY_RTOL:.0e})")
-    log(f"    ReLU inputs on opposite sides of 0: {crossed}, the widest {widest:.2e} of its "
-        f"block's largest (bound {KINK_RTOL:.0e}); step-0 gradients before taking the card's "
-        f"branch there: {raw_rel:.3e}")
     log(f"    step-0 gradients: max |card - CPU| / max |CPU| = {g_rel:.3e} over all "
-        f"parameters, on one ReLU branch (gate <= {GRAD_RTOL:.0e})")
+        f"parameters (gate <= {GRAD_RTOL:.0e})")
     g_max = cpu_g.abs().max()
     worst = sorted(
         ((((a - b).abs().max() / g_max).item(), (b.abs().max() / g_max).item(), n)
-         for (n, a), (_, b) in zip(runs["cuda"]["named"], cpu_named)),
+         for (n, a), (_, b) in zip(runs["cuda"]["named"], runs["cpu"]["named"])),
         reverse=True,
     )[:4]
     log("    largest per parameter (|card - CPU| / max |CPU|, own max |CPU| / max |CPU|): "
@@ -925,8 +868,7 @@ def parity_run(torch, hop, src_pipe, trg_pipe, train_ds) -> dict:
         fail("card and CPU training losses disagree")
     if not g_rel <= GRAD_RTOL:
         fail("card and CPU step-0 gradients disagree")
-    return dict(card=card.tolist(), cpu=cpu.tolist(), rel=rel.tolist(), grad_rel=g_rel,
-                raw_grad_rel=raw_rel, relu_crossed=crossed)
+    return dict(card=card.tolist(), cpu=cpu.tolist(), rel=rel.tolist(), grad_rel=g_rel)
 
 
 # -- phase 6: training times -----------------------------------------------------
@@ -1057,7 +999,7 @@ def time_training_kernels(torch, hop, sites: dict) -> dict:
         }
         sweep = {
             "flash_attention_fwd": (
-                hop.flash_fwd_launch_params(b, h, sq, sk, d)[:2],
+                hop.flash_fwd_launch_params(b, h, sq, sk, d, hop.device_sm_count(q.device))[:2],
                 {f"{w}x{c}": (lambda w=w, c=c: hop.flash_attention_fwd(
                     q, k, v, return_lse=True, warps=w, splits=c, **kw)) for w, c in LAUNCH_CHOICES},
             ),

@@ -51,8 +51,6 @@ KERNEL_SPLITS = (1, 2)
 #: Padded head dims they are instantiated for; columns past ``d`` are
 #: never read.
 KERNEL_D_PADS = (64, 128)
-#: Blocks that fill the card: the H100's 132 SMs.
-FILL_BLOCKS = 132
 
 #: Kernel launches per kernel name since the last ``reset_launches()``.
 #: ``flash_attention_fwd`` counts both forward variants (with and without
@@ -248,21 +246,26 @@ def _check_flash_cuda(name, tensors, kv_valid) -> tuple[torch.device, torch.Tens
     return dev, valid
 
 
+def device_sm_count(dev: torch.device) -> int:
+    """The number of SMs on a CUDA device (132 on an H100 SXM)."""
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
 def _d_pad(head_dim: int) -> int:
     _check_head_dim(head_dim)
     return next(p for p in KERNEL_D_PADS if head_dim <= p)
 
 
 def flash_fwd_launch_params(
-    batch: int, heads: int, q_len: int, kv_len: int, head_dim: int,
+    batch: int, heads: int, q_len: int, kv_len: int, head_dim: int, sm_count: int,
     warps: int | None = None, splits: int | None = None,
 ) -> tuple[int, int, int]:
     """``(warps per block, key splits, padded head dim)`` of the flash
-    forward kernel. A block has ``warps // splits`` row groups of 16 query
-    rows; the ``splits`` warps of a group share out its key tiles. Unless
-    given: the most row groups (so the most rows sharing each staged K/V
-    tile) that the rows fill and that still leave ``FILL_BLOCKS`` blocks in
-    the grid, with one split; where even one row group per block leaves the
+    forward kernel on a card with ``sm_count`` SMs. A block has
+    ``warps // splits`` row groups of 16 query rows; the ``splits`` warps
+    of a group share out its key tiles. Unless given: the most row groups
+    (so the most rows sharing each staged K/V tile) that the rows fill and
+    that still leave a block for every SM, with one split; where even one row group per block leaves the
     card part empty (the serving prefill: 8 heads of 64 rows), two splits
     when there are two 32-key tiles or more, so a block walks them side by
     side, and as many row groups as the rows fill up to four warps (the
@@ -270,7 +273,7 @@ def flash_fwd_launch_params(
     d_pad = _d_pad(head_dim)
     if warps is None and splits is None:
         for rows in (4, 2, 1):
-            if 16 * (rows - 1) < q_len and batch * heads * -(-q_len // (16 * rows)) >= FILL_BLOCKS:
+            if 16 * (rows - 1) < q_len and batch * heads * -(-q_len // (16 * rows)) >= sm_count:
                 return rows, 1, d_pad
         splits = 2 if kv_len > 32 else 1
         rows = next(r for r in (4, 2, 1) if r * splits in KERNEL_WARPS and 16 * (r - 1) < q_len)
@@ -363,7 +366,9 @@ def flash_attention_fwd(
     b, h, q_len, d = query.shape
     kv_len = key.shape[2]
     dev, valid = _check_flash_cuda("flash_attention", (query, key, value), kv_valid)
-    n_warps, n_splits, d_pad = flash_fwd_launch_params(b, h, q_len, kv_len, d, warps, splits)
+    n_warps, n_splits, d_pad = flash_fwd_launch_params(
+        b, h, q_len, kv_len, d, device_sm_count(dev), warps, splits
+    )
     check_kernel_layout("flash_attention", query, key, value)
     strides = _strides(query, key, value)
     out = torch.empty((b, h, q_len, d), dtype=torch.float32, device=dev)

@@ -25,6 +25,8 @@ from machine_learning_apache_spark_tpu_torch.ops import hopper_attention as hop
 
 # -- launch parameters -----------------------------------------------------------
 
+H100_SMS = 132
+
 
 @pytest.mark.parametrize(
     "batch,heads,q_len,kv_len,head_dim,want",
@@ -43,7 +45,7 @@ from machine_learning_apache_spark_tpu_torch.ops import hopper_attention as hop
     ],
 )
 def test_flash_fwd_launch_params(batch, heads, q_len, kv_len, head_dim, want):
-    assert hop.flash_fwd_launch_params(batch, heads, q_len, kv_len, head_dim) == want
+    assert hop.flash_fwd_launch_params(batch, heads, q_len, kv_len, head_dim, H100_SMS) == want
 
 
 @pytest.mark.parametrize(
@@ -60,11 +62,15 @@ def test_dkv_launch_params(batch, heads, q_len, kv_len, head_dim, want):
     assert hop.dkv_launch_params(batch, heads, q_len, kv_len, head_dim) == want
 
 
+def _fwd_params(*args, **kw):
+    return hop.flash_fwd_launch_params(*args, H100_SMS, **kw)
+
+
 def test_launch_params_take_explicit_choices():
     for w in hop.KERNEL_WARPS:
         assert hop.dkv_launch_params(1, 8, 64, 64, 40, warps=w) == (w, 1, 64)
-        assert hop.flash_fwd_launch_params(1, 8, 64, 64, 40, warps=w) == (w, 1, 64)
-    for params in (hop.flash_fwd_launch_params, hop.dkv_launch_params):
+        assert _fwd_params(1, 8, 64, 64, 40, warps=w) == (w, 1, 64)
+    for params in (_fwd_params, hop.dkv_launch_params):
         assert params(1, 8, 64, 64, 64, splits=2) == (2, 2, 64)
         assert params(1, 8, 64, 64, 64, warps=4, splits=2) == (4, 2, 64)
         for bad in (dict(warps=3), dict(splits=4), dict(warps=1, splits=2), dict(warps=3, splits=1)):
@@ -74,7 +80,7 @@ def test_launch_params_take_explicit_choices():
 
 @pytest.mark.parametrize("head_dim", [0, 4, 12, 136])
 def test_launch_params_reject_head_dims_without_a_build(head_dim):
-    for params in (hop.flash_fwd_launch_params, hop.dkv_launch_params):
+    for params in (_fwd_params, hop.dkv_launch_params):
         with pytest.raises(ValueError, match="multiple of 8"):
             params(1, 8, 64, 64, head_dim)
 

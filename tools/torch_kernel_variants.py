@@ -6,7 +6,7 @@
 Builds patched copies of the port's flash forward and dK/dV sources
 (``machine_learning_apache_spark_tpu_torch/csrc``) into
 ``build/kernel_variants/<variant>/`` and times each, through the port's own
-wrappers and launch parameters, with the profiler's device time per call:
+launch parameters, with the profiler's device time per call:
 the forward at the serving prefill (``[1, 8, 64, 64]`` views of a fused
 qkv, 45/64 keys valid) and at the MT encoder training site
 (``[32, 8, 200, 64]``, fixture batch 0, with ``lse``), and dK/dV at that
@@ -20,13 +20,17 @@ site. The variants take one piece of work out at a time:
 - ``noPV``: no P·V (dV, dK) products;
 - ``noloop``: no tile math at all (the start, loads and writes only).
 
-A variant's results are wrong by design; only its time is read. Needs a
-card and ``nvcc``, like ``chip_smoke.py``, whose helpers it uses.
+A variant's results are wrong by design; only its time is read. Each
+variant's entry points are called directly, with the arguments the
+wrappers in ``ops/hopper_attention.py`` pass. A patch that no longer
+matches its source stops the run and names it. Needs a card and ``nvcc``,
+like ``chip_smoke.py``, whose helpers it uses.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 import shutil
 import subprocess
 import sys
@@ -58,16 +62,6 @@ VARIANTS = {
                "flash_attention_bwd.cu": [("    if (work) {", "    if (work && kd < 0) {")]},
 }
 SOURCES = ("flash_attention_fwd", "flash_attention_bwd")
-
-
-class _Library:
-    """Stands in for ``cuda_build.LIBRARY``: the variant's entry points."""
-
-    def __init__(self, fns):
-        self.fns = fns
-
-    def get(self, name):
-        return self.fns[name]
 
 
 def build(out_dir: Path) -> dict:
@@ -107,8 +101,40 @@ def build(out_dir: Path) -> dict:
             fn = getattr(ctypes.CDLL(str(out_dir / name / f"{stem}.so")), fn_name)
             fn.argtypes, fn.restype = argtypes, ctypes.c_int
             fns[entry] = fn
-        libs[name] = _Library(fns)
+        libs[name] = fns
     return libs
+
+
+def _strides(*tensors) -> list[int]:
+    return [st for t in tensors for st in t.stride()[:3]]
+
+
+def launch_fwd(torch, hop, fn, q, k, v, valid, with_lse: bool):
+    """The flash forward wrapper's launch (non-causal), on ``fn``."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    warps, splits, d_pad = hop.flash_fwd_launch_params(b, h, sq, sk, d, hop.device_sm_count(q.device))
+    out = torch.empty((b, h, sq, d), dtype=torch.float32, device=q.device)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if with_lse else None
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(), out.data_ptr(),
+             None if lse is None else lse.data_ptr(), b, h, sq, sk, d, 0, 1.0 / math.sqrt(d),
+             warps, splits, d_pad, *_strides(q, k, v), torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"flash forward variant failed with CUDA error {err}")
+
+
+def launch_dkv(torch, hop, fn, q, k, v, g, lse, delta, valid):
+    """The dK/dV wrapper's launch (non-causal), on ``fn``."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    warps, splits, d_pad = hop.dkv_launch_params(b, h, sq, sk, d)
+    dk = torch.empty((b, h, sk, d), dtype=torch.float32, device=q.device)
+    dv = torch.empty_like(dk)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+             valid.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, sq, sk, d, 0, 1.0 / math.sqrt(d),
+             warps, splits, d_pad, *_strides(q, k, v, g), torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"dK/dV variant failed with CUDA error {err}")
 
 
 def main() -> int:
@@ -130,28 +156,26 @@ def main() -> int:
     _, _, train_ds = cs.fixture_data()
     src0, trg0 = cs.train_batches(train_ds, 1)[0]
     site = cs.training_sites(torch, np.random.default_rng(cs.SEED + 4), dev, src0, trg0[:, :-1])["encoder self"]
-    q, k, v, g, valid = site["q"], site["k"], site["v"], site["g"], site["kv_valid"]
+    q, k, v, g, valid = site["q"], site["k"], site["v"], site["g"], site["kv_valid"].contiguous()
     out, lse = hop.flash_attention_fwd(q, k, v, kv_valid=valid, return_lse=True)
     delta = (g * out).sum(-1)
-    calls = {
-        "prefill forward": lambda: hop.flash_attention_fwd(pq, pk, pv, kv_valid=pvalid),
-        "encoder forward+lse": lambda: hop.flash_attention_fwd(q, k, v, kv_valid=valid, return_lse=True),
-        "encoder dK/dV": lambda: hop.flash_attention_bwd_dkv(q, k, v, g, lse, delta, kv_valid=valid),
-    }
+    sms = hop.device_sm_count(dev)
     print(f"device us per call [{cs.card_line()}]; launch (warps, splits): prefill "
-          f"{hop.flash_fwd_launch_params(b, h, s, s, d)[:2]}, encoder forward "
-          f"{hop.flash_fwd_launch_params(*q.shape[:3], k.shape[2], d)[:2]}, dK/dV "
+          f"{hop.flash_fwd_launch_params(b, h, s, s, d, sms)[:2]}, encoder forward "
+          f"{hop.flash_fwd_launch_params(*q.shape[:3], k.shape[2], d, sms)[:2]}, dK/dV "
           f"{hop.dkv_launch_params(*q.shape[:3], k.shape[2], d)[:2]}")
-    print(f"{'variant':8s} " + " | ".join(f"{label:>20s}" for label in calls))
-    kept = hop.LIBRARY
-    try:
-        for name, lib in libs.items():
-            hop.LIBRARY = lib
-            times = [cs.device_ms_per_call(torch, fn, n=30) for fn in calls.values()]
-            print(f"{name:8s} " + " | ".join(
-                f"{'not measured' if t is None else f'{t * 1e3:.2f}':>20s}" for t in times), flush=True)
-    finally:
-        hop.LIBRARY = kept
+    labels = ("prefill forward", "encoder forward+lse", "encoder dK/dV")
+    print(f"{'variant':8s} " + " | ".join(f"{label:>20s}" for label in labels))
+    for name, fns in libs.items():
+        fwd, dkv = fns["flash_attention_fwd"], fns["flash_attention_bwd_dkv"]
+        calls = (
+            lambda: launch_fwd(torch, hop, fwd, pq, pk, pv, pvalid, False),
+            lambda: launch_fwd(torch, hop, fwd, q, k, v, valid, True),
+            lambda: launch_dkv(torch, hop, dkv, q, k, v, g, lse, delta, valid),
+        )
+        times = [cs.device_ms_per_call(torch, fn, n=30) for fn in calls]
+        print(f"{name:8s} " + " | ".join(
+            f"{'not measured' if t is None else f'{t * 1e3:.2f}':>20s}" for t in times), flush=True)
     return 0
 
 
