@@ -10,19 +10,24 @@ Phases, each fatal on failure:
 2. build — builds every kernel of the path from ``csrc/`` (``nvcc``, in
    parallel) and prints the build time and ``ptxas`` report; reads each
    library's SASS (``cuobjdump``) and checks that the tensor-core kernels
-   (flash forward, dK/dV) issue TF32 ``HMMA`` and ``cp.async``
-   (``LDGSTS``) instructions;
+   (flash forward, dQ, dK/dV) issue TF32 ``HMMA`` and ``cp.async``
+   (``LDGSTS``) instructions, and the ragged kernel ``LDGSTS``;
 3. kernels vs plain — each kernel against its plain PyTorch version on
    the card, at the serving slice's shapes (the prefill's fused-qkv views
-   at d = 8, 40, 64, 128, and a one-row query) and at edge cases (max abs
-   error against the fp32 tolerance, 1e-4: the summation order differs),
-   then the flash forward with ``lse`` and the dQ and dK/dV backward
-   kernels at the MT training sites ([32, 8, 200, 64] fixture batches:
-   encoder self-attention, causal decoder self-attention, cross-attention)
-   and at edge cases (strided fused-projection views, a strided dO, fully
-   masked rows, masked keys whose dK/dV must be exactly zero, whole
-   masked key blocks, lengths that are not tile multiples; every warps per
-   block the wrappers may pick), each within 1e-4 relative;
+   at d = 8, 40, 64, 128, and a one-row query; the ragged decode over fp32
+   and int8 pages, with and without cur, contiguous and strided q, rows of
+   length 0, 1, 15, 16, 17 and full, one row alone, rows longer than one
+   chunk per warp, at every splits choice, two runs
+   bit for bit) and at edge cases (max abs error against the fp32
+   tolerance, 1e-4: the summation order differs), then the flash forward
+   with ``lse`` and the dQ and dK/dV backward kernels at the MT training
+   sites ([32, 8, 200, 64] fixture batches: encoder self-attention, causal
+   decoder self-attention, cross-attention) and at edge cases (strided
+   fused-projection views, a strided dO, fully masked rows, all keys
+   masked, one query row, masked keys whose dK/dV must be exactly zero,
+   whole masked key blocks, lengths that are not tile multiples; every
+   warps per block the wrappers may pick; dQ and dK/dV twice, bit for
+   bit), each within 1e-4 relative;
 4. serving — the reference MT model at full width (d_model 512, ffn 1024,
    8 heads of 64, 1 layer, max_len 200, ~8,000-word vocabularies, random
    weights from a seed in the JAX package's Flax layout, through the
@@ -43,10 +48,17 @@ Phases, each fatal on failure:
    gradients within 1e-4 relative;
 6. times — requests/s, generated tokens/s, peak device memory, and each
    kernel's time (CUDA events) beside its bound, its plain version's time
-   and one library call's, at the serving shapes and at the three training
-   sites, and the tensor-core kernels at each warps-per-block choice; the
-   train step's time, steps/s, target tokens/s, peak memory and the device
-   idle share of one profiled window of steps.
+   and one library call's, at the serving shapes (the ragged kernel at the
+   decode's cross-attention over fp32 and int8 pages and its
+   self-attention with cur over fp32 and int8 pages), at the three
+   training sites (and at one sequence of the encoder site, fixture keys
+   and all keys valid, where the rules pick dQ's and the forward's key
+   split) and at the eval/BLEU decode's forward sites, and each kernel at
+   each of its launch choices; the recipe's evaluate and BLEU decode once
+   more under the profiler, for the forward's launches, device time and
+   bound over the whole decode; the train step's time, steps/s,
+   target tokens/s, peak memory and the device idle share of one profiled
+   window of steps.
 
 The line before the last is ``nvidia-smi``'s name and power limit; before
 it, one JSON line with every kernel's numbers. The last line is
@@ -107,13 +119,13 @@ GRAD_RTOL = 1e-4  # step-0 gradients, card vs CPU
 TIMED_STEPS = 20
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): the HBM rate; the
-# fp32 rate outside the tensor cores, which the dQ and ragged kernels use;
-# and the effective rate of the tensor-core kernels (flash forward,
+# fp32 rate outside the tensor cores, which the ragged kernel uses; and
+# the effective rate of the tensor-core kernels (flash forward, dQ,
 # dK/dV), whose 3xTF32 products take three TF32 passes at 495 TFLOP/s.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 TF32X3_FLOPS_PER_S = 495e12 / 3
-TENSOR_CORE_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dkv")
+TENSOR_CORE_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 # The tensor-core kernels' (warps per block, splits) launch choices,
 # checked and timed beside the wrappers' picks.
 LAUNCH_CHOICES = ((1, 1), (2, 1), (4, 1), (2, 2), (4, 2))
@@ -166,8 +178,9 @@ def sass_opcodes(library: str) -> dict[str, dict[str, int]]:
 
 
 def check_tensor_core_sass(built: dict) -> dict:
-    """Every instantiation of the flash forward and of the dK/dV kernel
-    must issue TF32 HMMA and LDGSTS (cp.async) instructions."""
+    """Every instantiation of the flash forward, dQ and dK/dV kernels must
+    issue TF32 HMMA and LDGSTS (cp.async) instructions; every
+    instantiation of the ragged kernel LDGSTS."""
     libs = sorted({kb.library for kb in built.values()})
     report = {}
     for lib in libs:
@@ -177,12 +190,13 @@ def check_tensor_core_sass(built: dict) -> dict:
                           if k in fn), fn)
             log(f"  SASS {short} ({fn[:60]}): {ops or 'no HMMA/LDGSTS'}")
             report.setdefault(short, []).append(ops)
-    for short in ("flash_fwd_kernel", "flash_bwd_dkv_kernel"):
+    for short, n_inst, hmma in (("flash_fwd_kernel", 2, True), ("flash_bwd_dq_kernel", 2, True),
+                                ("flash_bwd_dkv_kernel", 2, True), ("ragged_paged_kernel", 4, False)):
         insts = report.get(short, [])
-        if len(insts) < 2:
-            fail(f"expected the d_pad 64 and 128 instantiations of {short} in the SASS, found {len(insts)}")
+        if len(insts) < n_inst:
+            fail(f"expected {n_inst} instantiations of {short} in the SASS, found {len(insts)}")
         for ops in insts:
-            if not any(op.startswith("HMMA") and "TF32" in op for op in ops):
+            if hmma and not any(op.startswith("HMMA") and "TF32" in op for op in ops):
                 fail(f"{short}: no TF32 HMMA instruction in its SASS")
             if not any(op.startswith("LDGSTS") for op in ops):
                 fail(f"{short}: no LDGSTS (cp.async) instruction in its SASS")
@@ -265,8 +279,19 @@ def check_kernels(torch, hop, dev) -> dict:
         worst = max(worst, err)
     errs["flash_attention_fwd"] = worst
 
+    # The ragged decode at the serving slice's shapes (32 rows x 8 heads of
+    # 64, pages of 16, four per row, lengths 0, 1, 15, 16, 17 and full
+    # among random ones), then rows of up to 208 positions (13 pages: a
+    # warp walks several chunks, two in flight), then one row alone; each
+    # at the wrapper's launch choice and at every splits choice.
     worst = 0.0
-    R, H, dh, page, P = 32, 8, 64, 16, 4
+    for geometry, R, P in (("serving decode", 32, 4), ("rows of 13 pages", 8, 13)):
+        worst = max(worst, _check_ragged(torch, hop, rng, dev, geometry, R, P))
+    errs["ragged_paged_attention"] = worst
+    return errs
+
+
+def _check_ragged(torch, hop, rng, dev, geometry, R, P, H=8, dh=64, page=16) -> float:
     D = H * dh
     num_pages = 1 + R * P
     lengths = rng.integers(1, P * page + 1, R).astype(np.int32)
@@ -293,6 +318,7 @@ def check_kernels(torch, hop, dev) -> dict:
     q_rows = qkv[:, :D].reshape(R, H, dh)  # strided rows, as the model passes them
     cur_k, cur_v = qkv[:, D:2 * D], qkv[:, 2 * D:]
     tbl, lens = to(table), to(lengths)
+    worst = 0.0
     for store in ("float32", "int8"):
         kp, vp = pages_f32 if store == "float32" else pages_i8
         ks, vs = (None, None) if store == "float32" else scales
@@ -300,22 +326,35 @@ def check_kernels(torch, hop, dev) -> dict:
             for qname, qq in (("contiguous q", to(query)), ("strided q", q_rows)):
                 ck, cv = (cur_k, cur_v) if with_cur else (None, None)
                 kw = dict(k_scale=ks, v_scale=vs, cur_k=ck, cur_v=cv)
-                got = hop.ragged_paged_attention(qq, kp, vp, tbl, lens, **kw)
                 want = hop.ragged_paged_attention_plain(qq, kp, vp, tbl, lens, **kw)
+                got = hop.ragged_paged_attention(qq, kp, vp, tbl, lens, **kw)
+                again = hop.ragged_paged_attention(qq, kp, vp, tbl, lens, **kw)
+                others = [hop.ragged_paged_attention(qq, kp, vp, tbl, lens, splits=sp, **kw)
+                          for sp in hop.RAGGED_SPLITS]
+                # one row alone: the full-length row 5
+                one = hop.ragged_paged_attention(
+                    qq[5:6], kp, vp, tbl[5:6], lens[5:6], k_scale=ks, v_scale=vs,
+                    cur_k=None if ck is None else ck[5:6], cur_v=None if cv is None else cv[5:6])
                 torch.cuda.synchronize()
-                err = (got - want).abs().max().item()
-                label = f"{store} pages, cur={with_cur}, {qname}"
-                log(f"  ragged_paged_attention {label:46s} max_abs_err {err:.3e} (tol {TOL:.0e})")
+                err = max((x - want).abs().max().item() for x in [got, *others])
+                err = max(err, (one - want[5:6]).abs().max().item())
+                choice = hop.ragged_launch_params(dh, P * page, store == "int8")
+                label = f"{geometry}, {store} pages, cur={with_cur}, {qname}"
+                log(f"  ragged_paged_attention {label:62s} max_abs_err {err:.3e} (tol {TOL:.0e}; "
+                    f"(splits, stages) {choice} and splits {hop.RAGGED_SPLITS})")
                 if not err <= TOL:
                     fail(f"ragged_paged_attention disagrees with its plain version ({label})")
-                if not with_cur and got[0].abs().max().item() != 0.0:
-                    fail("ragged_paged_attention: a length-0 row without cur must be zeros")
-                # (with cur the two rows' own K/V differ, so only without)
-                if not with_cur and qname == "contiguous q" and not torch.equal(got[R - 1], got[R - 2]):
-                    fail("ragged_paged_attention: rows sharing prefix pages differ")
+                if not torch.equal(got, again):
+                    fail(f"ragged_paged_attention: a second run gave other bits ({label})")
+                for x in [got, *others]:
+                    if not with_cur and x[0].abs().max().item() != 0.0:
+                        fail("ragged_paged_attention: a length-0 row without cur must be zeros")
+                    # (with cur, or strided q, the two rows' own inputs differ)
+                    if not with_cur and qname == "contiguous q" and not torch.equal(x[R - 1], x[R - 2]):
+                        fail("ragged_paged_attention: rows sharing prefix pages differ")
                 worst = max(worst, err)
-    errs["ragged_paged_attention"] = worst
-    return errs
+    return worst
+
 
 
 # -- phase 3b: the training kernels vs plain -----------------------------------
@@ -389,6 +428,17 @@ def training_sites(torch, rng, dev, src, trg_in, heads=8, head_dim=64) -> dict:
     }
 
 
+def one_sequence_sites(torch, encoder: dict) -> dict:
+    """Where the rules pick dQ's and the forward's key split (the rows
+    leave the card part empty): one sequence of the encoder site, with the
+    fixture's keys (one live key tile) and with all 200 keys valid."""
+    one = {k: (x[:1] if torch.is_tensor(x) else x) for k, x in encoder.items()}
+    return {
+        "encoder self, one sequence": one,
+        "one sequence, all keys valid": one | {"kv_valid": torch.ones_like(one["kv_valid"])},
+    }
+
+
 def _edge_case(torch, rng, dev, b, h, sq, sk, d, *, causal, valid_frac, empty_batch=None,
                n_valid=None):
     def randn(*shape):
@@ -410,6 +460,8 @@ def _edge_case(torch, rng, dev, b, h, sq, sk, d, *, causal, valid_frac, empty_ba
 
 
 def _rel(got, want) -> float:
+    if want.numel() == 0:
+        return 0.0
     return ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
 
 
@@ -431,6 +483,10 @@ def check_training_kernels(torch, hop, sites: dict, dev) -> dict:
          _edge_case(torch, rng, dev, 2, 8, 77, 200, 64, causal=False, valid_frac=None, n_valid=10)),
         ("edge: d=8, causal 50x50, masked keys",
          _edge_case(torch, rng, dev, 2, 4, 50, 50, 8, causal=True, valid_frac=0.6)),
+        ("edge: all keys masked, 33x70, d=64",
+         _edge_case(torch, rng, dev, 2, 4, 33, 70, 64, causal=False, valid_frac=None, n_valid=0)),
+        ("edge: one query row, 1x65, masked keys, d=64",
+         _edge_case(torch, rng, dev, 2, 8, 1, 65, 64, causal=False, valid_frac=0.8)),
     ]
     worst = {n: [0.0, 0.0] for n in ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")}
 
@@ -464,6 +520,8 @@ def check_training_kernels(torch, hop, sites: dict, dev) -> dict:
         again = hop.flash_attention_bwd_dkv(q, k, v, g, lse, delta, **kw)
         if not (torch.equal(again[0], dk) and torch.equal(again[1], dv)):
             fail(f"flash_attention_bwd_dkv: a second run gave other bits ({label})")
+        if not torch.equal(hop.flash_attention_bwd_dq(q, k, v, g, lse, delta, **kw), dq):
+            fail(f"flash_attention_bwd_dq: a second run gave other bits ({label})")
         if label.startswith("edge"):  # every launch choice, same inputs
             for fw, fc in LAUNCH_CHOICES:
                 o_w, lse_w = hop.flash_attention_fwd(q, k, v, return_lse=True, warps=fw, splits=fc, **kw)
@@ -472,6 +530,11 @@ def check_training_kernels(torch, hop, sites: dict, dev) -> dict:
                 if not torch.equal(lse_w > hop.NEG_INF / 2, finite):
                     fail(f"flash_attention_fwd: lse marks other rows as empty at {fw}x{fc} ({label})")
             for w, sc in LAUNCH_CHOICES:
+                dq_w = hop.flash_attention_bwd_dq(q, k, v, g, lse, delta, warps=w, splits=sc, **kw)
+                torch.cuda.synchronize()
+                record("flash_attention_bwd_dq", f"{label} ({w}x{sc})", dq_w, want[0])
+                if not bool(finite.all().item()) and dq_w[~finite].abs().max().item() != 0.0:
+                    fail(f"flash_attention_bwd_dq: rows that see no key must get zero dQ ({w}x{sc}, {label})")
                 dk_w, dv_w = hop.flash_attention_bwd_dkv(q, k, v, g, lse, delta, warps=w, splits=sc, **kw)
                 torch.cuda.synchronize()
                 record("flash_attention_bwd_dkv", f"{label} (dk, {w}x{sc})", dk_w, want[1])
@@ -659,8 +722,8 @@ def bound_ms(name: str, bytes_moved: float, flops: float) -> tuple[float, str]:
 
 
 def time_kernels(torch, hop, dev, prompt_lens: list[int]) -> dict:
-    """Each kernel at the serving slice's shape: kernel, plain version,
-    one library call, and the bound."""
+    """Each serving kernel at the serving slice's sites: kernel, plain
+    version, one library call, and the bound; kernel -> site -> times."""
     import torch.nn.functional as F
 
     rng = np.random.default_rng(SEED + 2)
@@ -688,59 +751,129 @@ def time_kernels(torch, hop, dev, prompt_lens: list[int]) -> dict:
     nbytes = 4 * b * h * d * (2 * s + 2 * n_valid) + b * s
     flops = 4.0 * b * h * s * n_valid * d  # QK^T and PV over the valid keys
     bnd, by = bound_ms("flash_attention_fwd", nbytes, flops)
-    out["flash_attention_fwd"] = dict(
+    out["flash_attention_fwd"] = {"prefill": dict(
         ms=t_kernel, plain_ms=t_plain, library_ms=t_lib, bound_ms=bnd, bound_by=by,
+        library_name="F.scaled_dot_product_attention, bool mask", nbytes=nbytes, flops=flops,
         device_ms=dev_ms, warps=hop.flash_fwd_launch_params(b, h, s, s, d, hop.device_sm_count(dev))[:2],
         warps_sweep={f"{w}x{c}": device_ms_per_call(
             torch, lambda w=w, c=c: hop.flash_attention_fwd(q, k, v, kv_valid=valid, warps=w, splits=c))
             for w, c in LAUNCH_CHOICES},
         shape=f"q,k,v [{b},{h},{s},{d}] fp32 views of a fused qkv, kv_valid {n_valid}/{s}",
-    )
+    )}
+    out["ragged_paged_attention"] = time_ragged(torch, hop, dev, ragged_sites(torch, rng, dev, prompt_lens))
+    return out
 
-    # Ragged: the decode cross-attention of a full batch: 32 rows over the
-    # fp32 memory store, lengths = the prompts' token counts, page 16.
+
+def ragged_sites(torch, rng, dev, prompt_lens: list[int]) -> dict:
+    """The decode step's two ragged calls over a full batch (32 rows, 8
+    heads of 64, pages of 16, 4 per row), each over fp32 and over int8
+    pages: cross-attention over the memory store (lengths = the prompts'
+    token counts; the int8 engine's quantised store) and self-attention
+    over the decode carry with this step's own K/V as cur (lengths = the
+    rows' decode cursors, 1-64; int8 as ``quantize_self=True`` stores it).
+    q and cur are strided slices of fused projections, as the model passes
+    them. Returns site -> (args, kwargs) of ``ragged_paged_attention``."""
     R, H, dh, page = SERVE["max_active"], 8, 64, SERVE["page_size"]
     P = SERVE["boundaries"][-1] // page
     D = H * dh
-    lens_np = np.asarray(prompt_lens[:R], np.int32)
-    num_pages = 1 + 2 * R * P
-    table_np = np.zeros((R, P), np.int32)
-    pid = 1
-    for r in range(R):
-        used = -(-int(lens_np[r]) // page)
-        table_np[r, :used] = np.arange(pid, pid + used)
-        pid += used
-    kp, vp = (torch.from_numpy(rng.standard_normal((num_pages, page, D)).astype(np.float32)).to(dev) for _ in range(2))
-    query = torch.from_numpy(rng.standard_normal((R, H, dh)).astype(np.float32)).to(dev)
-    tbl, lens = torch.from_numpy(table_np).to(dev), torch.from_numpy(lens_np).to(dev)
-    t_kernel = cuda_time_ms(torch, lambda: hop.ragged_paged_attention(query, kp, vp, tbl, lens))
-    t_plain = cuda_time_ms(torch, lambda: hop.ragged_paged_attention_plain(query, kp, vp, tbl, lens))
-    tbl_long = tbl.long()
-    key_mask = (torch.arange(P * page, device=dev)[None, :] < lens[:, None])[:, None, None, :]
 
-    def library():
-        kk = kp[tbl_long].reshape(R, P * page, H, dh).transpose(1, 2)
-        vv = vp[tbl_long].reshape(R, P * page, H, dh).transpose(1, 2)
-        return F.scaled_dot_product_attention(query[:, :, None, :], kk, vv, attn_mask=key_mask)
+    def to(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
 
-    t_lib = cuda_time_ms(torch, library)
-    dev_ms = {
-        "kernel": device_ms_per_call(torch, lambda: hop.ragged_paged_attention(query, kp, vp, tbl, lens)),
-        "plain": device_ms_per_call(torch, lambda: hop.ragged_paged_attention_plain(query, kp, vp, tbl, lens)),
-        "library": device_ms_per_call(torch, library),
-    }
-    n_pos = int(lens_np.sum())
-    n_pages_read = int(sum(-(-int(x) // page) for x in lens_np))
-    nbytes = (4 * R * D * 2  # query read, out written
-              + 2 * 4 * n_pos * D  # K and V of every cached position
-              + 4 * n_pages_read + 4 * R)  # table entries walked, lengths
-    flops = 4.0 * n_pos * D
-    bnd, by = bound_ms("ragged_paged_attention", nbytes, flops)
-    out["ragged_paged_attention"] = dict(
-        ms=t_kernel, plain_ms=t_plain, library_ms=t_lib, bound_ms=bnd, bound_by=by,
-        device_ms=dev_ms,
-        shape=f"{R} rows x {H} heads x {dh}, fp32 pages of {page}, {n_pos} cached positions",
-    )
+    def table_for(lens):
+        table = np.zeros((R, P), np.int32)
+        pid = 1
+        for r in range(R):
+            used = -(-int(lens[r]) // page)
+            table[r, :used] = np.arange(pid, pid + used)
+            pid += used
+        return table
+
+    num_pages = 1 + R * P
+    f32 = [to(rng.standard_normal((num_pages, page, D)).astype(np.float32)) for _ in range(2)]
+    i8 = [to(rng.integers(-127, 128, (num_pages, page, D)).astype(np.int8)) for _ in range(2)]
+    scales = [to((rng.random((num_pages, page)) * 0.02 + 1e-3).astype(np.float32)) for _ in range(2)]
+    qkv = to(rng.standard_normal((R, 3 * D)).astype(np.float32))
+    q_self, cur_k, cur_v = qkv[:, :D].reshape(R, H, dh), qkv[:, D:2 * D], qkv[:, 2 * D:]
+    q_cross = to(rng.standard_normal((R, H, dh)).astype(np.float32))
+    cross_lens = np.asarray(prompt_lens[:R], np.int32)
+    self_lens = rng.integers(1, P * page + 1, R).astype(np.int32)
+    sites = {}
+    for name, q, lens, cur in (("cross", q_cross, cross_lens, None), ("self + cur", q_self, self_lens, (cur_k, cur_v))):
+        tbl, ln = to(table_for(lens)), to(lens)
+        for store, pages, sc in (("fp32", f32, (None, None)), ("int8", i8, scales)):
+            kw = dict(k_scale=sc[0], v_scale=sc[1])
+            if cur is not None:
+                kw.update(cur_k=cur[0], cur_v=cur[1])
+            sites[f"{name}, {store} pages"] = ((q, pages[0], pages[1], tbl, ln), kw)
+    return sites
+
+
+def time_ragged(torch, hop, dev, sites: dict) -> dict:
+    """The ragged kernel at each decode site: CUDA-event ms and profiler
+    device time for the kernel, its plain version and gather + SDPA, its
+    bound from the site's lengths, and the device time of each launch
+    choice."""
+    import torch.nn.functional as F
+
+    out = {}
+    for site, (args, kw) in sites.items():
+        query, kp, vp, tbl, lens = args
+        R, H, dh = query.shape
+        P, page = tbl.shape[1], kp.shape[1]
+        D = H * dh
+        quant = kp.dtype == torch.int8
+        tbl_long = tbl.long()
+        key_mask = (torch.arange(P * page, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+        cur = kw.get("cur_k") is not None
+        if cur:
+            key_mask = torch.cat([key_mask, torch.ones_like(key_mask[..., :1])], dim=-1)
+
+        def library(kp=kp, vp=vp, kw=kw, tbl_long=tbl_long, key_mask=key_mask, query=query, cur=cur):
+            kk, vv = kp[tbl_long], vp[tbl_long]
+            if quant:
+                kk = kk.float() * kw["k_scale"][tbl_long][..., None]
+                vv = vv.float() * kw["v_scale"][tbl_long][..., None]
+            kk = kk.reshape(R, P * page, H, dh).transpose(1, 2)
+            vv = vv.reshape(R, P * page, H, dh).transpose(1, 2)
+            if cur:
+                kk = torch.cat([kk, kw["cur_k"].reshape(R, H, 1, dh)], dim=2)
+                vv = torch.cat([vv, kw["cur_v"].reshape(R, H, 1, dh)], dim=2)
+            return F.scaled_dot_product_attention(query[:, :, None, :], kk, vv, attn_mask=key_mask)
+
+        def kernel(args=args, kw=kw):
+            return hop.ragged_paged_attention(*args, **kw)
+
+        def plain(args=args, kw=kw):
+            return hop.ragged_paged_attention_plain(*args, **kw)
+
+        lens_np = lens.cpu().numpy()
+        n_pos = int(lens_np.sum())
+        n_pages_read = int(sum(-(-int(x) // page) for x in lens_np))
+        elem = 1 if quant else 4
+        nbytes = (4 * R * D * 2  # query read, out written
+                  + 2 * elem * n_pos * D  # K and V of every cached position
+                  + (2 * 4 * n_pos if quant else 0)  # their scales
+                  + (2 * 4 * R * D if cur else 0)  # cur_k, cur_v
+                  + 4 * n_pages_read + 4 * R)  # table entries walked, lengths
+        flops = 4.0 * (n_pos + (R if cur else 0)) * D
+        bnd, by = bound_ms("ragged_paged_attention", nbytes, flops)
+        out[site] = dict(
+            ms=cuda_time_ms(torch, kernel), plain_ms=cuda_time_ms(torch, plain),
+            library_ms=cuda_time_ms(torch, library), library_name="gather + SDPA",
+            bound_ms=bnd, bound_by=by, nbytes=nbytes, flops=flops,
+            device_ms={
+                "kernel": device_ms_per_call(torch, kernel),
+                "plain": device_ms_per_call(torch, plain),
+                "library": device_ms_per_call(torch, library),
+            },
+            warps=hop.ragged_launch_params(dh, P * page, quant),
+            warps_sweep={f"splits {sp}": device_ms_per_call(
+                torch, lambda sp=sp: hop.ragged_paged_attention(*args, splits=sp, **kw))
+                for sp in hop.RAGGED_SPLITS},
+            shape=f"{R} rows x {H} heads x {dh}, {'int8' if quant else 'fp32'} pages of {page}, "
+                  f"{n_pos} cached positions{', + cur' if cur else ''}",
+        )
     return out
 
 
@@ -1003,6 +1136,11 @@ def time_training_kernels(torch, hop, sites: dict) -> dict:
                 {f"{w}x{c}": (lambda w=w, c=c: hop.flash_attention_fwd(
                     q, k, v, return_lse=True, warps=w, splits=c, **kw)) for w, c in LAUNCH_CHOICES},
             ),
+            "flash_attention_bwd_dq": (
+                hop.dq_launch_params(b, h, sq, sk, d, hop.device_sm_count(q.device))[:2],
+                {f"{w}x{c}": (lambda w=w, c=c: hop.flash_attention_bwd_dq(
+                    q, k, v, g, lse, delta, warps=w, splits=c, **kw)) for w, c in LAUNCH_CHOICES},
+            ),
             "flash_attention_bwd_dkv": (
                 hop.dkv_launch_params(b, h, sq, sk, d)[:2],
                 {f"{w}x{c}": (lambda w=w, c=c: hop.flash_attention_bwd_dkv(
@@ -1031,6 +1169,147 @@ def time_training_kernels(torch, hop, sites: dict) -> dict:
                 r["warps_sweep"] = {n: device_ms_per_call(torch, fn, n=20) for n, fn in calls.items()}
             out.setdefault(name, {})[site] = r
     return out
+
+
+def _fwd_bound(q_shape, sk: int, causal: bool, valid_np) -> tuple[float, str]:
+    """The forward's bound (no ``lse``) for one launch: q read and out
+    written, K and V of the valid keys, kv_valid; the visible pairs."""
+    b, h, sq, d = q_shape
+    n_valid = int(valid_np.sum()) if valid_np is not None else b * sk
+    pairs = _pairs(valid_np if valid_np is not None else np.ones((b, sk), bool), sq, causal)
+    nbytes = 2 * 4 * b * h * sq * d + 2 * 4 * h * d * n_valid + (b * sk if valid_np is not None else 0)
+    return bound_ms("flash_attention_fwd", nbytes, 4.0 * d * h * pairs)
+
+
+def time_bleu_forward(torch, hop, dev, src_pipe) -> dict:
+    """The forward without ``lse`` at sites of the eval/BLEU decode: the
+    recipe's BLEU decode runs ``greedy_translate`` over the 80 validation
+    pairs in batches of 32, 32 and 16: per batch one encoder pass, then
+    for each of 199 steps one full-width decoder pass ([B, 200] tokens,
+    the first t + 1 valid) with a causal self-attention and a
+    cross-attention. Times the first batch's encoder and cross-attention
+    and its self-attention at steps 0, 99 and 198 (every row still
+    unfinished: the most keys)."""
+    from machine_learning_apache_spark_tpu_torch.data.datasets import load_multi30k
+
+    pairs = load_multi30k(str(FIXTURES), "valid")
+    src = np.asarray(src_pipe([s for s, _ in pairs[:32]]))
+    width = src.shape[1]
+    rng = np.random.default_rng(SEED + 5)
+    sites = {}
+    for t in (0, 99, 198):
+        ys = np.zeros((src.shape[0], width), np.int64)
+        ys[:, : t + 1] = 1
+        c = training_sites(torch, rng, dev, src, ys)
+        if t == 0:
+            sites["encoder"] = c["encoder self"]
+            sites["cross"] = c["cross"]
+        sites[f"decoder self, step {t}"] = c["decoder self"]
+    out = {}
+    for name, c in sites.items():
+        q, k, v = c["q"], c["k"], c["v"]
+        kw = dict(causal=c["causal"], kv_valid=c["kv_valid"])
+        valid_np = c["kv_valid"].cpu().numpy()
+        bnd, by = _fwd_bound(tuple(q.shape), k.shape[2], c["causal"], valid_np)
+        out[name] = dict(
+            ms=cuda_time_ms(torch, lambda: hop.flash_attention_fwd(q, k, v, **kw), n=50, warmup=5),
+            device_ms=device_ms_per_call(torch, lambda: hop.flash_attention_fwd(q, k, v, **kw), n=20),
+            bound_ms=bnd, bound_by=by,
+            shape=f"q [{', '.join(map(str, q.shape))}], k/v [{', '.join(map(str, k.shape))}], "
+                  f"{'causal + ' if c['causal'] else ''}kv_valid {int(valid_np.sum())} keys",
+        )
+    return out
+
+
+def profile_eval_decode(torch, hop, state) -> dict:
+    """``train_translator``'s evaluate and BLEU decode once more, on the
+    trained state and with the recipe's own loader and calls (the 80
+    validation pairs in batches of 32, 32 and 16: the test-loss pass, then
+    ``greedy_translate`` per batch), under the profiler. Returns the flash
+    forward's launches and device time summed over the whole call (the
+    profiler's ``flash_fwd_kernel`` rows), and its bound summed over the
+    launches, each from its own inputs (a shim around the wrapper records
+    every launch's shapes, causality and valid keys)."""
+    from machine_learning_apache_spark_tpu_torch.data.datasets import load_multi30k
+    from machine_learning_apache_spark_tpu_torch.data.loader import ArrayDataset
+    from machine_learning_apache_spark_tpu_torch.data.text import EOS_ID, SOS_ID, translation_pipelines
+    from machine_learning_apache_spark_tpu_torch.models.transformer import greedy_translate
+    from machine_learning_apache_spark_tpu_torch.recipes._common import make_loaders
+    from machine_learning_apache_spark_tpu_torch.recipes.translation import (
+        TranslationRecipe,
+        make_translation_loss,
+    )
+    from machine_learning_apache_spark_tpu_torch.train.loop import evaluate, to_device
+    from machine_learning_apache_spark_tpu_torch.train.metrics import corpus_bleu, strip_special_ids
+
+    r = TranslationRecipe()
+    src_pipe, trg_pipe = translation_pipelines(load_multi30k(str(FIXTURES), "train"), max_len=r.max_len)
+    val_pairs = load_multi30k(str(FIXTURES), "valid")
+    val_ds = ArrayDataset(src_pipe([s for s, _ in val_pairs]), trg_pipe([t for _, t in val_pairs]))
+    _, val_loader = make_loaders(None, val_ds, batch_size=r.batch_size, seed=r.seed)
+    model, pad = state.model, state.model.cfg.pad_id
+    dev = next(model.parameters()).device
+    gen = min(val_ds[:1][1].shape[1], r.max_len) - 1
+    result = {}
+
+    def run():
+        evaluate(state, make_translation_loss(pad, train=False), val_loader, emit=lambda _: None)
+        cands, refs = [], []
+        kw = dict(pad_id=pad, sos_id=SOS_ID, eos_id=EOS_ID)
+        for src_b, trg_b in val_loader:
+            (src,) = to_device((src_b,), dev)
+            ids = greedy_translate(model, src, max_new_tokens=gen, sos_id=SOS_ID, eos_id=EOS_ID)
+            cands.extend(strip_special_ids(ids, **kw))
+            refs.extend(strip_special_ids(trg_b, **kw))
+        result["bleu"] = corpus_bleu(cands, refs)
+
+    launches = []
+    real = hop.flash_attention_fwd
+
+    def recording(query, key, value, **kw):
+        valid = kw.get("kv_valid")
+        launches.append((tuple(query.shape), key.shape[2], bool(kw.get("causal")),
+                         None if valid is None else valid.clone()))
+        return real(query, key, value, **kw)
+
+    before = hop.LAUNCHES["flash_attention_fwd"]
+    hop.flash_attention_fwd = recording
+    try:
+        rows = profile_device(torch, run)
+    finally:
+        hop.flash_attention_fwd = real
+    counted = hop.LAUNCHES["flash_attention_fwd"] - before
+    fwd_rows = [row for row in rows if "flash_fwd_kernel" in row[0]]
+    bounds = [_fwd_bound(shape, sk, causal, None if valid is None else valid.cpu().numpy())[0]
+              for shape, sk, causal, valid in launches]
+    return dict(
+        launches=counted, recorded=len(launches),
+        profiled_launches=sum(row[1] for row in fwd_rows) if fwd_rows else None,
+        device_ms=sum(row[2] for row in fwd_rows) / 1e3 if fwd_rows else None,
+        bound_ms=float(sum(bounds)), bleu=result["bleu"],
+    )
+
+
+def log_site_times(name: str, site: str, t: dict, card: str) -> None:
+    dm = {k: ("not measured" if v is None else f"{v * 1e3:.2f} us") for k, v in t["device_ms"].items()}
+    log(f"  {name} @ {site}: {t['shape']}")
+    log(f"    kernel {t['ms']:.5f} ms (device {dm['kernel']}), bound {t['bound_ms']:.5f} ms "
+        f"({t['bound_by']}: {t['nbytes']} B, {t['flops']:.4g} flop), plain {t['plain_ms']:.5f} ms "
+        f"(device {dm['plain']}), library {t['library_ms']:.5f} ms (device {dm['library']}; "
+        f"{t['library_name']}) [{card}]")
+    if "warps_sweep" in t:
+        log(f"    launch: {t['warps']} chosen; device us per call at each: "
+            + ", ".join(f"{w}: {'not measured' if x is None else f'{x * 1e3:.2f}'}"
+                        for w, x in t["warps_sweep"].items()))
+
+
+# The site whose numbers head each kernel's entry of the JSON line.
+MAIN_SITE = {
+    "flash_attention_fwd": "prefill",
+    "ragged_paged_attention": "cross, fp32 pages",
+    "flash_attention_bwd_dq": "encoder self",
+    "flash_attention_bwd_dkv": "encoder self",
+}
 
 
 # -- main -----------------------------------------------------------------------
@@ -1165,30 +1444,33 @@ def main() -> int:
             log(f"    {us / 1e3:10.3f} ms  {calls:6d} calls  {name[:90]}")
     else:
         log("  profiled fp32 serving run: device time not measured (the profiler saw no device work)")
+    # The eval/BLEU decode's forward launches of the recipe run: all of its
+    # forward launches but the training steps' (one per site and layer).
+    eval_launches = trained["launches"]["flash_attention_fwd"] - 3 * trained["steps"] * trained["layers"]
+    eval_decode = profile_eval_decode(torch, hop, trained["state"])
+    dm = eval_decode["device_ms"]
+    log(f"  eval/BLEU decode, profiled once more on the trained state: flash_attention_fwd "
+        f"{eval_decode['launches']} launches (recipe run {eval_launches}; profiler "
+        f"{eval_decode['profiled_launches']}), device "
+        f"{'not measured' if dm is None else f'{dm:.4f} ms'}, bound {eval_decode['bound_ms']:.4f} ms "
+        f"(summed over its launches); BLEU {eval_decode['bleu']:.6f} (recipe run "
+        f"{trained['out']['bleu']:.6f}) [{card}]")
+    if eval_decode["launches"] != eval_launches or eval_decode["recorded"] != eval_launches:
+        fail(f"the profiled eval/BLEU decode launched the forward {eval_decode['launches']} times "
+             f"({eval_decode['recorded']} recorded), the recipe run's {eval_launches}")
     times = time_kernels(torch, hop, dev, prompt_lens)
-    for name, t in times.items():
-        log(f"  {name}: {t['shape']}: kernel {t['ms']:.5f} ms, bound {t['bound_ms']:.5f} ms "
-            f"({t['bound_by']}), plain {t['plain_ms']:.5f} ms, library {t['library_ms']:.5f} ms [{card}]")
-        dm = {k: ("not measured" if v is None else f"{v:.5f} ms") for k, v in t["device_ms"].items()}
-        log(f"    device time per call (profiler): kernel {dm['kernel']}, plain {dm['plain']}, "
-            f"library {dm['library']}")
-        if "warps_sweep" in t:
-            log(f"    (warps, splits): {t['warps']} chosen; device ms per call at each warps x splits: "
-                + ", ".join(f"{w}: {'not measured' if x is None else f'{x:.5f}'}" for w, x in t["warps_sweep"].items()))
     train_times = time_train_steps(torch, trained["state"], train_ds, card)
-    site_times = time_training_kernels(torch, hop, make_sites())
-    for name, by_site in site_times.items():
+    timed_sites = make_sites()
+    timed_sites |= one_sequence_sites(torch, timed_sites["encoder self"])
+    site_times = time_training_kernels(torch, hop, timed_sites)
+    bleu_sites = time_bleu_forward(torch, hop, dev, src_pipe_t)
+    for name, by_site in [*times.items(), *site_times.items()]:
         for site, t in by_site.items():
-            dm = {k: ("not measured" if v is None else f"{v * 1e3:.2f} us") for k, v in t["device_ms"].items()}
-            log(f"  {name} @ {site}: {t['shape']}")
-            log(f"    kernel {t['ms']:.5f} ms (device {dm['kernel']}), bound {t['bound_ms']:.5f} ms "
-                f"({t['bound_by']}: {t['nbytes']} B, {t['flops']:.4g} flop), plain {t['plain_ms']:.5f} ms "
-                f"(device {dm['plain']}), library {t['library_ms']:.5f} ms (device {dm['library']}; "
-                f"{t['library_name']}) [{card}]")
-            if "warps_sweep" in t:
-                log(f"    launch: {t['warps']} chosen; device us per call at each: "
-                    + ", ".join(f"{w}: {'not measured' if x is None else f'{x * 1e3:.2f}'}"
-                                for w, x in t["warps_sweep"].items()))
+            log_site_times(name, site, t, card)
+    for site, t in bleu_sites.items():
+        dm = "not measured" if t["device_ms"] is None else f"{t['device_ms'] * 1e3:.2f} us"
+        log(f"  flash_attention_fwd (no lse) @ eval/BLEU decode {site}: {t['shape']}: "
+            f"kernel {t['ms']:.5f} ms (device {dm}), bound {t['bound_ms']:.5f} ms ({t['bound_by']}) [{card}]")
 
     serve_launches = {n: sum(run["launches"][n] for run in runs.values()) for n in hop.LAUNCHES}
     kernels = []
@@ -1197,7 +1479,7 @@ def main() -> int:
         # Serving-shape numbers for the serving kernels; the encoder
         # self-attention site for the backward kernels; every training
         # site under "training_sites".
-        main_t = times.get(name) or site_times[name]["encoder self"]
+        main_t = (times.get(name) or site_times[name])[MAIN_SITE[name]]
         err = errs.get(name, 0.0)
         if name in train_errs:
             err = max(err, train_errs[name]["max_abs_err"])
@@ -1218,12 +1500,14 @@ def main() -> int:
         }
         if name in train_errs:
             entry["max_rel_err"] = train_errs[name]["max_rel_err"]
-        if name in site_times:
-            entry["training_sites"] = {
-                site: {k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
-                                         "warps", "warps_sweep") if k in t}
-                for site, t in site_times[name].items()
-            }
+        keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms", "warps", "warps_sweep")
+        for label, by_site in (("serving_sites", times.get(name)), ("training_sites", site_times.get(name))):
+            if by_site:
+                entry[label] = {site: {k: t[k] for k in keys if k in t} for site, t in by_site.items()}
+        if name == "flash_attention_fwd":
+            entry["eval_bleu_decode"] = dict(
+                launches=eval_launches, device_ms=eval_decode["device_ms"],
+                bound_ms=eval_decode["bound_ms"], sites=bleu_sites)
         kernels.append(entry)
     log(f"  training: {json.dumps({k: v for k, v in train_times.items() if k != 'rows'})}")
     log(f"  total {time.perf_counter() - t_start:.1f} s")

@@ -28,16 +28,27 @@
 // rate of 495/3 TFLOP/s). What they take beyond that is latency: the
 // length of each block's serial chain and the loads that wait on it.
 //
-// dQ (unchanged since it was first written): one block per (batch*head,
-// tile of 16 query rows); four warps of four rows each. The block walks
-// the keys in tiles of 32 (one key per lane), staging K and V in shared
-// memory; dq accumulates in fp32 registers (lane owns head-dim columns
-// lane, lane+32, ...), each row's dot products a dependent chain of
-// shared-memory loads on the fp32 CUDA cores. Under causality key tiles
-// above the tile's bottom row are never loaded, and a tile whose keys are
-// all masked by kv_valid is skipped whole. The streamed tile's rows sit in
-// shared memory with a one-float pad (lane j reading row j is free of bank
-// conflicts). Any head_dim that is a multiple of 8 up to 128 works.
+// dQ, on the tensor cores (it walks the forward's tiles):
+// - One block of W warps (W = 1, 2 or 4) per (batch*head, 16*G query
+//   rows), W = G x C: each of G row groups owns one m16 tile of 16 rows,
+//   and its C warps (C = 1 or 2, the key splits) share out the 32-key
+//   tiles; the splits of a row group add their dQ in shared memory at the
+//   end, in a fixed order. The wrapper picks G and C as the forward's
+//   (dq_launch_params): at the training sites four row groups, one split.
+// - Per key tile, mma.sync m16n8k8 in 3xTF32 (hopper_mma.cuh): S = Q K^T
+//   and dP = dO V^T as accumulator fragments; P = exp(S * scale - lse)
+//   and dS = P (dP - delta) on the fragments under the masks; then
+//   dQ += dS K with dS's accumulator as the A operand (the k-order
+//   permutation, no shuffles). dQ stays in registers for the whole walk
+//   and is multiplied by `scale` once, at the end.
+// - The start is one round trip, as the forward's: Q, dO, lse, delta and
+//   the first step's K/V tiles are requested by cp.async together, while
+//   the block reads the validity of its keys into a bitmap; key tiles
+//   whose keys are all masked are never loaded, later live tiles are
+//   double-buffered, and the causal walk stops at the block's last
+//   visible key. Within a tile, an 8-key group that no row of the warp
+//   sees takes none of the three products: at the training sites (5-29
+//   valid keys at the front of each row) that is about half of them.
 //
 // dK/dV, on the tensor cores:
 // - One block of W warps (W = 1, 2 or 4) per (batch*head, 16*G keys),
@@ -67,9 +78,10 @@
 // - Instantiated for a padded head dim of 64 or 128; loops stop at the
 //   real d (a multiple of 8). The wrapper checks 16-byte row alignment.
 // Why mma.sync and not wgmma/TMA: wgmma's 64-row M tile would make a
-// warpgroup own 64 keys, most of them masked at these sites, and the work
-// is latency-bound, not bound by the tensor-core rate; TMA pays off over
-// long tile streams, and a block here walks at most seven tiles.
+// warpgroup own 64 keys (dK/dV), most of them masked at these sites, or
+// 64 query rows (dQ) against one or two live key tiles, and the work is
+// latency-bound, not bound by the tensor-core rate; TMA pays off over long
+// tile streams, and a block here walks at most seven tiles.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -79,35 +91,36 @@
 namespace {
 
 constexpr int kMaxHeadDim = 128;
-constexpr int kWarps = 4;
-constexpr int kRowsPerWarp = 4;
-constexpr int kBlockRows = kWarps * kRowsPerWarp;  // rows a block owns
-constexpr int kTile = 32;                           // streamed rows per tile
-constexpr int kDimPerLane = kMaxHeadDim / 32;
 constexpr float kNegInf = -1e30f;
-constexpr unsigned kFull = 0xffffffffu;
 
 struct Strides {
   long long b, h, s;  // elements; the head-dim stride is 1
 };
 
-// Dynamic shared memory of the dQ kernel: the block's own two row sets
-// [kBlockRows][d] each, the streamed tile's two row sets [kTile][d + 1]
-// each, and kTile floats for the key validity bytes (a size that also
-// held the first dK/dV kernel's lse and delta, kept as it was).
-size_t smem_bytes(int head_dim) {
-  return sizeof(float) *
-         (2 * kBlockRows * head_dim + 2 * kTile * (head_dim + 1) + 2 * kTile);
+using hopper::FragA;
+using hopper::allow_smem;
+
+// -- dQ: tensor-core tiles ----------------------------------------------------
+
+constexpr int kDqMaxWarps = 4;
+constexpr int kBlockK = 32;  // keys per K/V tile
+
+// Dynamic shared memory of the dQ kernel: the block's Q and dO rows
+// [16G][D_PAD + 4] each and their lse and delta [16G]; K and V tiles
+// [2 buffers][C splits][K, V][kBlockK][D_PAD + 4]; one validity word per
+// key tile and the list of live tiles past the first step
+// (ops/hopper_attention.dq_smem_bytes mirrors this).
+size_t dq_smem_bytes(int warps, int splits, int d_pad, int kv_len) {
+  const int stride = d_pad + 4;
+  const int rows = 16 * (warps / splits);
+  const int tiles = (kv_len + kBlockK - 1) / kBlockK;
+  return sizeof(float) * (2 * rows * stride + 2 * rows +
+                          2 * splits * 2 * kBlockK * stride) +
+         2 * sizeof(uint32_t) * tiles;
 }
 
-__device__ __forceinline__ float dot(const float* a, const float* b, int d) {
-  float s = 0.f;
-#pragma unroll 8
-  for (int c = 0; c < d; ++c) s += a[c] * b[c];
-  return s;
-}
-
-__global__ void __launch_bounds__(kWarps * 32)
+template <int D_PAD>
+__global__ void __launch_bounds__(kDqMaxWarps * 32)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v,
                     const float* __restrict__ d_out,
@@ -116,121 +129,291 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const uint8_t* __restrict__ kv_valid,
                     float* __restrict__ dq, Strides qs, Strides ks,
                     Strides vs, Strides dos, int heads, int q_len, int kv_len,
-                    int head_dim, int causal, float scale) {
-  extern __shared__ float smem[];
-  const int d = head_dim;
-  const int dp1 = d + 1;
-  float* q_s = smem;                   // [kBlockRows][d]
-  float* do_s = q_s + kBlockRows * d;  // [kBlockRows][d]
-  float* k_s = do_s + kBlockRows * d;  // [kTile][d + 1]
-  float* v_s = k_s + kTile * dp1;      // [kTile][d + 1]
-  uint8_t* valid_s = reinterpret_cast<uint8_t*>(v_s + kTile * dp1);
+                    int head_dim, int causal, float scale, int splits) {
+  constexpr int S = D_PAD + 4;     // shared row stride, 4 mod 32 words
+  constexpr int KD = D_PAD / 8;    // 8-wide head-dim steps
+  constexpr int NK = kBlockK / 8;  // 8-key groups per tile
+  constexpr int TILE = kBlockK * S;
+  extern __shared__ __align__(16) float smem[];
+  const int warps = blockDim.x >> 5;
+  const int row_warps = warps / splits;
+  const int rows = 16 * row_warps;
+  float* q_s = smem;                  // [rows][S]
+  float* do_s = q_s + rows * S;       // [rows][S]
+  float* lse_s = do_s + rows * S;     // [rows]
+  float* delta_s = lse_s + rows;      // [rows]
+  float* kv_s = delta_s + rows;       // [2][splits][2][kBlockK][S]
+  const int tiles_alloc = (kv_len + kBlockK - 1) / kBlockK;
+  uint32_t* bits_s = reinterpret_cast<uint32_t*>(kv_s + 4 * splits * TILE);
+  int* live_s = reinterpret_cast<int*>(bits_s + tiles_alloc);
+  __shared__ int n_live_s;
 
   const int bh = blockIdx.y;
   const int b = bh / heads;
   const int h = bh - b * heads;
-  const int q0 = blockIdx.x * kBlockRows;
+  const int q0 = blockIdx.x * rows;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int causal_offset = kv_len - q_len;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int rw = warp % row_warps;    // this warp's 16-row group
+  const int sp = warp / row_warps;    // and its share of the key tiles
+  const int offset = kv_len - q_len;  // causal diagonal: k <= q + offset
+  const int d = head_dim;
+  const int chunks = d >> 2;          // 16-byte chunks per row
+  const int kd = d >> 3;              // 8-wide steps in use
 
   const float* qb = q + b * qs.b + h * qs.h;
   const float* kb = k + b * ks.b + h * ks.h;
   const float* vb = v + b * vs.b + h * vs.h;
   const float* dob = d_out + b * dos.b + h * dos.h;
+  const float* lseb = lse + static_cast<long long>(bh) * q_len;
+  const float* deltab = delta + static_cast<long long>(bh) * q_len;
 
-  for (int i = threadIdx.x; i < kBlockRows * d; i += blockDim.x) {
-    const int r = i / d;
-    const int c = i - r * d;
-    const int qi = q0 + r;
-    const bool in = qi < q_len;
-    q_s[i] = in ? qb[qi * qs.s + c] : 0.f;
-    do_s[i] = in ? dob[qi * dos.s + c] : 0.f;
-  }
-
-  float lse_r[kRowsPerWarp], delta_r[kRowsPerWarp];
-  float acc[kRowsPerWarp][kDimPerLane];
-  bool live[kRowsPerWarp];
-#pragma unroll
-  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-    const int qi = q0 + warp * kRowsPerWarp + rr;
-    const long long row = static_cast<long long>(bh) * q_len + qi;
-    const bool in = qi < q_len;
-    lse_r[rr] = in ? lse[row] : kNegInf;
-    delta_r[rr] = in ? delta[row] : 0.f;
-    live[rr] = in && lse_r[rr] > 0.5f * kNegInf;  // the finite-lse guard
-#pragma unroll
-    for (int i = 0; i < kDimPerLane; ++i) acc[rr][i] = 0.f;
-  }
-
+  // Under causality the block's bottom row sees keys up to
+  // q_last + offset: later key tiles are never read.
   int k_end = kv_len;
-  if (causal) {
-    const int q_last = min(q0 + kBlockRows, q_len) - 1;
-    k_end = min(kv_len, q_last + causal_offset + 1);
-  }
+  if (causal) k_end = min(kv_len, min(q0 + rows, q_len) + offset);
+  const int n_tiles = k_end > 0 ? (k_end + kBlockK - 1) / kBlockK : 0;
 
-  for (int k0 = 0; k0 < k_end; k0 += kTile) {
-    __syncthreads();  // the previous tile (and the own rows) are settled
-    int ok = 0;
-    if (threadIdx.x < kTile) {
-      const int kj = k0 + threadIdx.x;
-      ok = kj < kv_len;
-      if (ok && kv_valid != nullptr) {
-        ok = kv_valid[static_cast<long long>(b) * kv_len + kj] != 0;
-      }
-      valid_s[threadIdx.x] = ok ? 1 : 0;
-    }
-    // A tile whose keys are all masked adds exact zeros to dq: skip it.
-    if (!__syncthreads_or(ok)) continue;
-    for (int i = threadIdx.x; i < kTile * d; i += blockDim.x) {
-      const int j = i / d;
-      const int c = i - j * d;
+  // Tile `tile` into slot `c` of buffer `buf` (rows past kv_len zeroed).
+  auto load_kv = [&](int tile, int buf, int c) {
+    const int k0 = tile * kBlockK;
+    float* kd_s = kv_s + ((buf * splits + c) * 2) * TILE;
+    float* vd_s = kd_s + TILE;
+    for (int i = threadIdx.x; i < kBlockK * chunks; i += blockDim.x) {
+      const int j = i / chunks;
+      const int col = (i - j * chunks) << 2;
       const int kj = k0 + j;
       const bool in = kj < kv_len;
-      k_s[j * dp1 + c] = in ? kb[kj * ks.s + c] : 0.f;
-      v_s[j * dp1 + c] = in ? vb[kj * vs.s + c] : 0.f;
+      const long long row = in ? kj : 0;
+      hopper::cp_async16(kd_s + j * S + col, kb + row * ks.s + col, in);
+      hopper::cp_async16(vd_s + j * S + col, vb + row * vs.s + col, in);
+    }
+  };
+
+  // One round trip to begin with: the block's Q and dO rows, their lse
+  // and delta, and the first step's key tiles 0 .. splits-1 go out before
+  // the keys' validity is known (a tile that turns out dead is a no-op).
+  for (int i = threadIdx.x; i < rows * chunks; i += blockDim.x) {
+    const int r = i / chunks;
+    const int col = (i - r * chunks) << 2;
+    const int qi = q0 + r;
+    const bool in = qi < q_len;
+    const long long row = in ? qi : 0;
+    hopper::cp_async16(q_s + r * S + col, qb + row * qs.s + col, in);
+    hopper::cp_async16(do_s + r * S + col, dob + row * dos.s + col, in);
+  }
+  if (threadIdx.x < rows) {
+    const int qi = q0 + threadIdx.x;
+    const bool in = qi < q_len;
+    const int row = in ? qi : 0;
+    hopper::cp_async4(lse_s + threadIdx.x, lseb + row, in);
+    hopper::cp_async4(delta_s + threadIdx.x, deltab + row, in);
+  }
+  for (int c = 0; c < splits && c < n_tiles; ++c) load_kv(c, 0, c);
+  hopper::cp_async_commit();
+
+  // One word per key tile, bit j = key k0 + j is in range and valid.
+  for (int tile = warp; tile < n_tiles; tile += warps) {
+    const int kj = tile * kBlockK + lane;
+    bool ok = kj < kv_len;
+    if (ok && kv_valid != nullptr) {
+      ok = kv_valid[static_cast<long long>(b) * kv_len + kj] != 0;
+    }
+    const unsigned word = __ballot_sync(hopper::kFull, ok);
+    if (lane == 0) bits_s[tile] = word;
+  }
+  __syncthreads();
+  // The live tiles past the first step, in order; a tile whose keys are
+  // all masked adds exact zeros to dQ and is never loaded.
+  if (warp == 0) {
+    int n = 0;
+    for (int base = splits; base < n_tiles; base += 32) {
+      const int tile = base + lane;
+      const bool live = tile < n_tiles && bits_s[tile] != 0u;
+      const unsigned m = __ballot_sync(hopper::kFull, live);
+      if (live) live_s[n + __popc(m & ((1u << lane) - 1u))] = tile;
+      n += __popc(m);
+    }
+    if (lane == 0) n_live_s = n;
+  }
+  __syncthreads();
+  const int n_live = n_live_s;
+  const int n_walk = n_tiles > 0 ? 1 + (n_live + splits - 1) / splits : 0;
+  auto step_tile = [&](int step, int c) {
+    if (step == 0) return c < n_tiles ? c : -1;
+    const int i = (step - 1) * splits + c;
+    return i < n_live ? live_s[i] : -1;
+  };
+
+  // This warp's rows, and this thread's two of them (g and g + 8).
+  const int r0 = q0 + 16 * rw;
+  const bool warp_live = r0 < q_len;
+  const int warp_last = min(r0 + 15, q_len - 1);
+
+  float dq_acc[KD][4];
+#pragma unroll
+  for (int n = 0; n < KD; ++n) {
+    dq_acc[n][0] = dq_acc[n][1] = dq_acc[n][2] = dq_acc[n][3] = 0.f;
+  }
+
+  int buf = 0;
+  for (int step = 0; step < n_walk; ++step) {
+    if (step + 1 < n_walk) {
+      for (int c = 0; c < splits; ++c) {
+        const int tile = step_tile(step + 1, c);
+        if (tile >= 0) load_kv(tile, buf ^ 1, c);
+      }
+      hopper::cp_async_commit();
+      hopper::cp_async_wait<1>();
+    } else {
+      hopper::cp_async_wait<0>();
+    }
+    __syncthreads();  // this step's tiles (and the own rows) are in place
+
+    const int tile = step_tile(step, sp);
+    const int k0 = tile * kBlockK;
+    const bool dq_work = tile >= 0 && warp_live && bits_s[tile] != 0u &&
+                         (!causal || k0 <= warp_last + offset);
+    if (dq_work) {
+      const float* kt = kv_s + ((buf * splits + sp) * 2) * TILE;
+      const float* vt = kt + TILE;
+      const unsigned word = bits_s[tile];
+      const float* qr = q_s + (16 * rw + g) * S + t;
+      const float* dr = do_s + (16 * rw + g) * S + t;
+      // The tile's 8-key groups that some row of this warp sees; the
+      // others take no products (their p and dS are exact zeros).
+      unsigned live8 = 0;
+#pragma unroll
+      for (int n = 0; n < NK; ++n) {
+        if (((word >> (8 * n)) & 0xffu) && (!causal || k0 + 8 * n <= warp_last + offset)) {
+          live8 |= 1u << n;
+        }
+      }
+
+      // S = Q K^T and dP = dO V^T over this tile: NK n-tiles of 8 keys.
+      float s_acc[NK][4], dp_acc[NK][4];
+#pragma unroll
+      for (int n = 0; n < NK; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s_acc[n][e] = dp_acc[n][e] = 0.f;
+      }
+#pragma unroll
+      for (int s = 0; s < KD; ++s) {
+        if (s < kd) {
+          const int c = 8 * s;
+          const FragA qa = hopper::frag_a(qr[c], qr[8 * S + c], qr[c + 4], qr[8 * S + c + 4]);
+          const FragA da = hopper::frag_a(dr[c], dr[8 * S + c], dr[c + 4], dr[8 * S + c + 4]);
+#pragma unroll
+          for (int n = 0; n < NK; ++n) {
+            if ((live8 >> n) & 1u) {
+              const float* kr = kt + (8 * n + g) * S + c + t;
+              const float* vr = vt + (8 * n + g) * S + c + t;
+              hopper::mma_3xtf32(s_acc[n], qa, hopper::frag_b(kr[0], kr[4]));
+              hopper::mma_3xtf32(dp_acc[n], da, hopper::frag_b(vr[0], vr[4]));
+            }
+          }
+        }
+      }
+
+      // P = exp(S * scale - lse) and dS = P (dP - delta), with the
+      // forward's masks and the finite-lse guard; explicit zeros
+      // elsewhere. Element e of n-tile n is row r0 + g + 8 (e >> 1), key
+      // k0 + 8n + 2t + (e & 1).
+#pragma unroll
+      for (int n = 0; n < NK; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = 8 * n + 2 * t + (e & 1);
+          const int ri = 16 * rw + g + 8 * (e >> 1);
+          const int row = q0 + ri;
+          const float l_ = lse_s[ri];
+          bool ok = ((word >> j) & 1u) && row < q_len && l_ > 0.5f * kNegInf;
+          if (causal) ok = ok && (k0 + j <= row + offset);
+          const float p = ok ? expf(s_acc[n][e] * scale - l_) : 0.f;
+          dp_acc[n][e] = ok ? p * (dp_acc[n][e] - delta_s[ri]) : 0.f;
+        }
+      }
+
+      // dQ += dS K: k-steps of 8 keys (dS's accumulator is the A operand
+      // in the permuted k-order: K rows 2t and 2t + 1), n-tiles of 8
+      // head-dim columns.
+#pragma unroll
+      for (int j = 0; j < NK; ++j) {
+        if (!((live8 >> j) & 1u)) continue;
+        const FragA sa = hopper::frag_a(dp_acc[j][0], dp_acc[j][2], dp_acc[j][1], dp_acc[j][3]);
+        const float* kr = kt + (8 * j + 2 * t) * S + g;
+#pragma unroll
+        for (int n = 0; n < KD; ++n) {
+          if (n < kd) {
+            hopper::mma_3xtf32(dq_acc[n], sa, hopper::frag_b(kr[8 * n], kr[8 * n + S]));
+          }
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with `buf` before it refills
+    buf ^= 1;
+  }
+  hopper::cp_async_wait<0>();  // no copy outlives the block
+
+  // The key splits of one row group add into its first warp, in split
+  // order, through the (now idle) tile buffers.
+  if (splits > 1) {
+    constexpr int STATE = 4 * KD;  // dq_acc per lane
+    if (sp > 0 && warp_live) {
+      float* st = kv_s + ((sp - 1) * row_warps + rw) * 32 * STATE + lane;
+#pragma unroll
+      for (int n = 0; n < KD; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[(4 * n + e) * 32] = dq_acc[n][e];
+      }
     }
     __syncthreads();
-
-    const int kj = k0 + lane;
+    if (sp > 0) return;
+    if (warp_live) {
+      for (int c = 1; c < splits; ++c) {
+        const float* sc = kv_s + ((c - 1) * row_warps + rw) * 32 * STATE + lane;
 #pragma unroll
-    for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-      if (!live[rr]) continue;  // warp-uniform
-      const int r = warp * kRowsPerWarp + rr;
-      const int qi = q0 + r;
-      bool mask = valid_s[lane] != 0;
-      if (causal) mask = mask && (kj <= qi + causal_offset);
-      const float s = dot(q_s + r * d, k_s + lane * dp1, d);
-      const float dp = dot(do_s + r * d, v_s + lane * dp1, d);
-      const float p = mask ? expf(s * scale - lse_r[rr]) : 0.f;
-      const float ds = mask ? p * (dp - delta_r[rr]) : 0.f;
-      for (int j = 0; j < kTile; ++j) {
-        const float dsj = __shfl_sync(kFull, ds, j);
+        for (int n = 0; n < KD; ++n) {
 #pragma unroll
-        for (int i = 0; i < kDimPerLane; ++i) {
-          const int c = lane + 32 * i;
-          if (c < d) acc[rr][i] += dsj * k_s[j * dp1 + c];
+          for (int e = 0; e < 4; ++e) dq_acc[n][e] += sc[(4 * n + e) * 32];
         }
       }
     }
   }
 
+  if (!warp_live) return;
 #pragma unroll
-  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-    const int qi = q0 + warp * kRowsPerWarp + rr;
-    if (qi < q_len) {
-      float* o = dq + (static_cast<long long>(bh) * q_len + qi) * d;
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + g + 8 * i;
+    if (row >= q_len) continue;
+    float* o = dq + (static_cast<long long>(bh) * q_len + row) * d + 2 * t;
 #pragma unroll
-      for (int i = 0; i < kDimPerLane; ++i) {
-        const int c = lane + 32 * i;
-        if (c < d) o[c] = acc[rr][i] * scale;
+    for (int n = 0; n < KD; ++n) {
+      if (n < kd) {
+        *reinterpret_cast<float2*>(o + 8 * n) =
+            make_float2(dq_acc[n][2 * i] * scale, dq_acc[n][2 * i + 1] * scale);
       }
     }
   }
 }
 
-using hopper::FragA;
-using hopper::allow_smem;
+template <int D_PAD>
+cudaError_t launch_dq(const dim3& grid, int warps, int splits, size_t bytes,
+                      cudaStream_t stream, const float* q, const float* k,
+                      const float* v, const float* d_out, const float* lse,
+                      const float* delta, const uint8_t* kv_valid, float* dq,
+                      Strides qs, Strides ks, Strides vs, Strides dos,
+                      int heads, int q_len, int kv_len, int head_dim,
+                      int causal, float scale) {
+  cudaError_t err = allow_smem(flash_bwd_dq_kernel<D_PAD>, bytes);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq_kernel<D_PAD><<<grid, 32 * warps, bytes, stream>>>(
+      q, k, v, d_out, lse, delta, kv_valid, dq, qs, ks, vs, dos, heads,
+      q_len, kv_len, head_dim, causal, scale, splits);
+  return cudaGetLastError();
+}
 
 // -- dK/dV: tensor-core tiles -------------------------------------------------
 
@@ -546,37 +729,54 @@ cudaError_t launch_dkv(const dim3& grid, int warps, int splits, size_t bytes,
 }  // namespace
 
 // Plain C entry points (loaded with ctypes). q/k/v/d_out are [B, H, S, d]
-// fp32 with the head dim contiguous and the other strides given in
-// elements; lse and delta are contiguous [B, H, Sq] fp32; kv_valid is
-// [B, Sk] bytes (0 = masked) or null; dq/dk/dv are contiguous [B, H, S, d]
-// fp32 tensors. Each launches on `stream` and returns cudaGetLastError()
-// (or the attribute call's error) — nonzero means the launch was refused.
+// fp32 with the head dim contiguous, every row start 16-byte aligned, and
+// the other strides given in elements; lse and delta are contiguous
+// [B, H, Sq] fp32; kv_valid is [B, Sk] bytes (0 = masked) or null;
+// dq/dk/dv are contiguous [B, H, S, d] fp32 tensors. Both take `warps`
+// (1, 2 or 4), `splits` (1 or 2, dividing warps: dQ's key splits, dK/dV's
+// query splits) and `d_pad` (64 or 128, with d a multiple of 8 and
+// d <= d_pad); anything else is refused with cudaErrorInvalidValue. Each
+// launches on `stream` and returns cudaGetLastError() (or the attribute
+// call's error) — nonzero means the launch was refused.
 extern "C" int flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* d_out,
     const void* lse, const void* delta, const void* kv_valid, void* dq,
     int batch, int heads, int q_len, int kv_len, int head_dim, int causal,
-    float scale, long long q_sb, long long q_sh, long long q_ss,
-    long long k_sb, long long k_sh, long long k_ss, long long v_sb,
-    long long v_sh, long long v_ss, long long do_sb, long long do_sh,
-    long long do_ss, void* stream) {
-  if (head_dim < 1 || head_dim > kMaxHeadDim) {
+    float scale, int warps, int splits, int d_pad, long long q_sb,
+    long long q_sh, long long q_ss, long long k_sb, long long k_sh,
+    long long k_ss, long long v_sb, long long v_sh, long long v_ss,
+    long long do_sb, long long do_sh, long long do_ss, void* stream) {
+  if (head_dim < 8 || head_dim % 8 != 0 || head_dim > d_pad ||
+      (d_pad != 64 && d_pad != 128) ||
+      (warps != 1 && warps != 2 && warps != 4) ||
+      (splits != 1 && splits != 2) || warps % splits != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (batch == 0 || heads == 0 || q_len == 0) return 0;
-  const size_t bytes = smem_bytes(head_dim);
-  cudaError_t err = allow_smem(flash_bwd_dq_kernel, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((q_len + kBlockRows - 1) / kBlockRows, batch * heads);
-  flash_bwd_dq_kernel<<<grid, kWarps * 32, bytes,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(d_out),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<const uint8_t*>(kv_valid), static_cast<float*>(dq),
-      Strides{q_sb, q_sh, q_ss}, Strides{k_sb, k_sh, k_ss},
-      Strides{v_sb, v_sh, v_ss}, Strides{do_sb, do_sh, do_ss}, heads, q_len,
-      kv_len, head_dim, causal, scale);
-  return static_cast<int>(cudaGetLastError());
+  const size_t bytes = dq_smem_bytes(warps, splits, d_pad, kv_len);
+  if (bytes > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  const int rows = 16 * (warps / splits);
+  const dim3 grid((q_len + rows - 1) / rows, batch * heads);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto qp = static_cast<const float*>(q);
+  const auto kp = static_cast<const float*>(k);
+  const auto vp = static_cast<const float*>(v);
+  const auto dop = static_cast<const float*>(d_out);
+  const auto lp = static_cast<const float*>(lse);
+  const auto dp = static_cast<const float*>(delta);
+  const auto valid = static_cast<const uint8_t*>(kv_valid);
+  const auto dqp = static_cast<float*>(dq);
+  const Strides qs{q_sb, q_sh, q_ss}, ks{k_sb, k_sh, k_ss},
+      vs{v_sb, v_sh, v_ss}, dos{do_sb, do_sh, do_ss};
+  const cudaError_t err =
+      d_pad == 64
+          ? launch_dq<64>(grid, warps, splits, bytes, s, qp, kp, vp, dop, lp,
+                          dp, valid, dqp, qs, ks, vs, dos, heads, q_len,
+                          kv_len, head_dim, causal, scale)
+          : launch_dq<128>(grid, warps, splits, bytes, s, qp, kp, vp, dop, lp,
+                           dp, valid, dqp, qs, ks, vs, dos, heads, q_len,
+                           kv_len, head_dim, causal, scale);
+  return static_cast<int>(err);
 }
 
 extern "C" int flash_attention_bwd_dkv(

@@ -1,5 +1,6 @@
-// Building blocks shared by the tensor-core attention kernels
-// (flash_attention_fwd.cu, flash_attention_bwd.cu's dK/dV kernel), sm_90a.
+// Building blocks shared by the attention kernels, sm_90a: the tensor-core
+// products of flash_attention_fwd.cu and flash_attention_bwd.cu (dQ and
+// dK/dV), and the cp.async helpers that ragged_paged_attention.cu uses too.
 //
 // - 3xTF32 products on mma.sync.m16n8k8: every fp32 operand x is split
 //   into hi = tf32(x) and lo = tf32(x - hi), and a product accumulates
@@ -98,7 +99,7 @@ __device__ __forceinline__ void mma_3xtf32(float (&c)[4], const FragA& a,
 
 // 16 bytes global -> shared, bypassing L1; zeros when !in (the source
 // address must still be a valid one).
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool in) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
@@ -106,9 +107,9 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src,
                : "memory");
 }
 
-// 4 bytes global -> shared (for per-row statistics, which need not be
-// 16-byte aligned); zero when !in.
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+// 4 bytes global -> shared (for per-row statistics and per-slot scales,
+// which need not be 16-byte aligned); zero when !in.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
                                           bool in) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),

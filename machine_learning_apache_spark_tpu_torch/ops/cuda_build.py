@@ -47,27 +47,29 @@ _F32 = ctypes.c_float
 #: Each kernel's C entry point: (source stem under ``csrc/``, function
 #: name, argtypes). One source may hold several entry points. Pointers and
 #: the stream are ``c_void_p`` so ctypes never truncates them.
-#: The tensor-core kernels take three launch parameters after ``scale``:
-#: warps per block, splits (the forward's key splits, dK/dV's query
-#: splits) and the padded head dim.
-_FLASH_BWD_TAIL = [_INT] * 6 + [_F32] + [_I64] * 12 + [_VOID]
+#: Every kernel takes its launch parameters after ``scale``. The flash
+#: kernels: warps per block, splits (the forward's and dQ's key splits,
+#: dK/dV's query splits) and the padded head dim; the ragged kernel:
+#: splits per (row, head) and stages.
+_FLASH_TAIL = [_INT] * 6 + [_F32] + [_INT] * 3
 ENTRY_POINTS = {
     "flash_attention_fwd": (
         "flash_attention_fwd", "flash_attention_fwd",
-        [_VOID] * 6 + [_INT] * 6 + [_F32] + [_INT] * 3 + [_I64] * 9 + [_VOID],
+        [_VOID] * 6 + _FLASH_TAIL + [_I64] * 9 + [_VOID],
     ),
     "flash_attention_bwd_dq": (
         "flash_attention_bwd", "flash_attention_bwd_dq",
-        [_VOID] * 8 + _FLASH_BWD_TAIL,
+        [_VOID] * 8 + _FLASH_TAIL + [_I64] * 12 + [_VOID],
     ),
     "flash_attention_bwd_dkv": (
         "flash_attention_bwd", "flash_attention_bwd_dkv",
-        [_VOID] * 9 + [_INT] * 6 + [_F32] + [_INT] * 3 + [_I64] * 12 + [_VOID],
+        [_VOID] * 9 + _FLASH_TAIL + [_I64] * 12 + [_VOID],
     ),
     "ragged_paged_attention": (
         "ragged_paged_attention", "ragged_paged_attention",
         [_VOID, _I64, _VOID, _VOID, _VOID, _VOID, _INT, _VOID, _INT, _VOID,
-         _VOID, _VOID, _I64, _VOID, _INT, _INT, _INT, _INT, _F32, _VOID],
+         _VOID, _VOID, _I64, _VOID, _INT, _INT, _INT, _INT, _F32,
+         _INT, _INT, _VOID],
     ),
 }
 

@@ -17,17 +17,18 @@ Four CUDA C++ kernels (``csrc/``), each replacing a Pallas TPU kernel of
 ``flash_attention`` is differentiable: ``FlashAttention`` is the
 ``torch.autograd.Function`` that mirrors the JAX package's
 ``_flash_vjp_nomask``/``_flash_vjp_masked``. Each source's header says
-what bounds it on the card and how its design answers that. The flash
-forward and the dK/dV kernel run on the tensor cores (``mma.sync`` in
-3xTF32, ``cp.async`` tiles): their wrappers pass the launch parameters
-``flash_fwd_launch_params`` and ``dkv_launch_params`` pick (warps per
-block, splits, padded head dim) and
-check the 16-byte row layout their copies need
-(``check_kernel_layout``). Each wrapper
-takes the plain version only for tensors on the CPU; for a CUDA tensor it
-launches the kernel or raises — there is no fallback. ``LAUNCHES`` counts
-kernel launches (plain calls are not counted), so a run can show that its
-main path went through the kernels.
+what bounds it on the card and how its design answers that. The three
+flash kernels (forward, dQ, dK/dV) run on the tensor cores (``mma.sync``
+in 3xTF32, ``cp.async`` tiles): their wrappers pass the launch parameters
+that ``flash_fwd_launch_params``, ``dq_launch_params`` and
+``dkv_launch_params`` pick (warps per block, splits, padded head dim) and
+check the 16-byte row layout their copies need (``check_kernel_layout``).
+The ragged decode kernel stays on the CUDA cores (one query per row and
+head), its positions split between warps and staged by ``cp.async``; its
+wrapper passes what ``ragged_launch_params`` picks (splits, stages). Each
+wrapper takes the plain version only for tensors on the CPU; for a CUDA
+tensor it launches the kernel or raises — there is no fallback. ``LAUNCHES`` counts kernel launches (plain calls are not
+counted), so a run can show that its main path went through the kernels.
 """
 
 from __future__ import annotations
@@ -42,15 +43,22 @@ from machine_learning_apache_spark_tpu_torch.ops.cuda_build import LIBRARY
 NEG_INF = -1e30
 MAX_HEAD_DIM = 128
 
-#: Warps per block the tensor-core kernels (flash forward, dK/dV) are
-#: built for; each warp owns 16 rows (forward: query rows, dK/dV: keys).
+#: Warps per block the tensor-core kernels (flash forward, dQ, dK/dV) are
+#: built for; each warp owns 16 rows (forward and dQ: query rows, dK/dV:
+#: keys).
 KERNEL_WARPS = (1, 2, 4)
 #: Splits: warps that share out one 16-row group's walk (the forward's
-#: key tiles, dK/dV's query tiles).
+#: and dQ's key tiles, dK/dV's query tiles).
 KERNEL_SPLITS = (1, 2)
 #: Padded head dims they are instantiated for; columns past ``d`` are
 #: never read.
 KERNEL_D_PADS = (64, 128)
+#: The ragged kernel: warps that share out one (row, head)'s positions,
+#: 32 at a time; a block covers one (row, head).
+RAGGED_SPLITS = (1, 2, 4)
+RAGGED_CHUNK = 32
+#: Dynamic shared memory a block may ask for on an H100 (227 KB).
+SMEM_LIMIT = 227 * 1024
 
 #: Kernel launches per kernel name since the last ``reset_launches()``.
 #: ``flash_attention_fwd`` counts both forward variants (with and without
@@ -281,6 +289,69 @@ def flash_fwd_launch_params(
     return _check_launch(warps, splits) + (d_pad,)
 
 
+#: ``(warps per block, key splits, padded head dim)`` of the dQ kernel.
+#: It walks the forward's tiles (16-row groups against 32-key tiles), so
+#: it takes the forward's rule: at the training sites four row groups per
+#: block and one split (1,024 blocks); where the rows leave the card part
+#: empty (one sequence of 200), two warps share out a group's key tiles.
+dq_launch_params = flash_fwd_launch_params
+
+
+def dq_smem_bytes(warps: int, splits: int, d_pad: int, kv_len: int) -> int:
+    """Dynamic shared memory of one dQ block (``dq_smem_bytes`` in
+    ``csrc/flash_attention_bwd.cu``): Q and dO rows, their lse and delta,
+    two buffers of K/V tiles per split, the key-validity words and the
+    live-tile list."""
+    stride = d_pad + 4
+    rows = 16 * (warps // splits)
+    tiles = -(-kv_len // 32)
+    return 4 * (2 * rows * stride + 2 * rows + 2 * splits * 2 * 32 * stride) + 8 * tiles
+
+
+def ragged_smem_bytes(head_dim: int, quant: bool, splits: int, stages: int) -> int:
+    """Dynamic shared memory of one ragged block (``warp_bytes`` in
+    ``csrc/ragged_paged_attention.cu``, times the splits): per warp,
+    ``stages`` chunks of 32 K and V head slices (fp32 rows padded by four
+    floats, int8 rows by 16 bytes) with their scales and slots, then its q
+    row, the chunk's p and its merge state."""
+    def r16(x):
+        return (x + 15) & ~15
+
+    row = r16(head_dim) + 16 if quant else 4 * (head_dim + 4)
+    stage = 2 * RAGGED_CHUNK * row + 3 * RAGGED_CHUNK * 4
+    per_warp = stages * stage + r16(4 * head_dim) + 4 * RAGGED_CHUNK + r16(4 * (head_dim + 2))
+    return splits * per_warp
+
+
+def ragged_launch_params(
+    head_dim: int, capacity: int, quant: bool, splits: int | None = None,
+) -> tuple[int, int]:
+    """``(splits, stages)`` of the ragged decode kernel for block tables
+    that cover ``capacity`` = pages per row × page size positions. A block
+    covers one (row, head); its positions go 32 at a time (one per lane)
+    to its ``splits`` warps; a warp that may walk more than one chunk
+    keeps two in flight (``stages`` 2). Unless given: as many splits as
+    the longest row has chunks, up to four (the serving decode: 64
+    positions, two splits, one chunk each), and fewer where the shared
+    memory would not fit (fp32 pages at a head dim of 128)."""
+    _check_head_dim(head_dim)
+    chunks = max(1, -(-capacity // RAGGED_CHUNK))
+    if splits is None:
+        splits = next((s for s in RAGGED_SPLITS if s >= chunks), RAGGED_SPLITS[-1])
+        while ragged_smem_bytes(head_dim, quant, splits, 2 if chunks > splits else 1) > SMEM_LIMIT:
+            splits //= 2
+    elif splits not in RAGGED_SPLITS:
+        raise ValueError(f"splits must be one of {RAGGED_SPLITS}, got {splits}")
+    stages = 2 if chunks > splits else 1
+    need = ragged_smem_bytes(head_dim, quant, splits, stages)
+    if need > SMEM_LIMIT:
+        raise ValueError(
+            f"splits={splits} needs {need} bytes of shared memory at head_dim={head_dim}, "
+            f"more than {SMEM_LIMIT}"
+        )
+    return splits, stages
+
+
 def dkv_launch_params(
     batch: int, heads: int, q_len: int, kv_len: int, head_dim: int,
     warps: int | None = None, splits: int | None = None,
@@ -399,11 +470,14 @@ def _bwd_cuda(name, query, key, value, d_out, lse, delta, kv_valid):
 
 
 def flash_attention_bwd_dq(
-    query, key, value, d_out, lse, delta, *, causal=False, kv_valid=None
+    query, key, value, d_out, lse, delta, *, causal=False, kv_valid=None,
+    warps=None, splits=None,
 ) -> torch.Tensor:
     """dQ of flash attention ``[B, H, Sq, d]``, contiguous, from the
     forward's ``lse`` and ``delta = rowsum(dO∘O)`` (both ``[B, H, Sq]``
-    fp32). q/k/v/d_out may be strided views with a contiguous head dim."""
+    fp32). q/k/v/d_out may be strided views with a contiguous head dim and
+    rows 16-byte aligned (``check_kernel_layout``). ``warps``/``splits``
+    override ``dq_launch_params``' choice."""
     _check_flash_shapes(query, key, value, kv_valid)
     if query.device.type == "cpu":
         return flash_attention_bwd_dq_plain(
@@ -413,13 +487,19 @@ def flash_attention_bwd_dq(
         "flash_attention_bwd_dq", query, key, value, d_out, lse, delta, kv_valid
     )
     b, h, q_len, d = query.shape
+    kv_len = key.shape[2]
+    n_warps, n_splits, d_pad = dq_launch_params(
+        b, h, q_len, kv_len, d, device_sm_count(dev), warps, splits
+    )
+    check_kernel_layout("flash_attention_bwd_dq", query, key, value, d_out)
     dq = torch.empty((b, h, q_len, d), dtype=torch.float32, device=dev)
     _launch(
         "flash_attention_bwd_dq", dev,
         query.data_ptr(), key.data_ptr(), value.data_ptr(), d_out.data_ptr(),
         lse.data_ptr(), delta.data_ptr(),
         None if valid is None else valid.data_ptr(), dq.data_ptr(),
-        b, h, q_len, key.shape[2], d, int(causal), 1.0 / math.sqrt(d), *strides,
+        b, h, q_len, kv_len, d, int(causal), 1.0 / math.sqrt(d),
+        n_warps, n_splits, d_pad, *strides,
     )
     return dq
 
@@ -604,6 +684,7 @@ def ragged_paged_attention(
     v_scale: torch.Tensor | None = None,
     cur_k: torch.Tensor | None = None,
     cur_v: torch.Tensor | None = None,
+    splits: int | None = None,
 ) -> torch.Tensor:
     """One decode step of attention over a paged KV store, ragged across
     rows (the contract of ``ops.attention.ragged_paged_attention``).
@@ -614,7 +695,9 @@ def ragged_paged_attention(
     ``cur_k``/``cur_v`` ``[R, H*dh]`` fp32. Returns a contiguous ``[R, H,
     dh]`` fp32 tensor. Query rows and cur rows may be strided views (a
     slice of a fused projection); within a row the data must be
-    contiguous.
+    contiguous, and on the card query rows and the page stores must start
+    on 16 bytes (the kernel stages them with 16-byte ``cp.async``).
+    ``splits`` overrides ``ragged_launch_params``' choice.
 
     The kernel trusts the tables as the Pallas kernel does: every
     ``lengths[r] <= P * page`` and every table entry it walks
@@ -668,6 +751,14 @@ def ragged_paged_attention(
         raise TypeError("block_table and lengths must be int32")
     if quant and (k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32):
         raise TypeError("k_scale and v_scale must be float32")
+    if query.data_ptr() % 16 or (rows > 1 and query.stride(0) % 4):
+        raise ValueError(
+            f"ragged_paged_attention: query rows must start on 16 bytes (data_ptr % 16 = "
+            f"{query.data_ptr() % 16}, row stride {query.stride(0)}); the kernel "
+            f"copies them with 16-byte cp.async"
+        )
+    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+        raise ValueError("ragged_paged_attention: the page stores must start on 16 bytes")
     cur_stride = 0
     if cur_k is not None:
         if cur_k.dtype != torch.float32 or cur_v.dtype != torch.float32:
@@ -675,6 +766,10 @@ def ragged_paged_attention(
         if cur_k.stride(1) != 1 or cur_v.stride() != cur_k.stride():
             raise ValueError("cur_k and cur_v rows must be contiguous, same strides")
         cur_stride = cur_k.stride(0)
+    pages_per_row, page_size = block_table.shape[1], k_pages.shape[1]
+    n_splits, stages = ragged_launch_params(
+        head_dim, pages_per_row * page_size, quant, splits
+    )
     out = torch.empty((rows, heads, head_dim), dtype=torch.float32, device=dev)
     _launch(
         "ragged_paged_attention", dev,
@@ -682,11 +777,11 @@ def ragged_paged_attention(
         k_pages.data_ptr(), v_pages.data_ptr(),
         k_scale.data_ptr() if quant else None,
         v_scale.data_ptr() if quant else None,
-        int(quant), block_table.data_ptr(), block_table.shape[1],
+        int(quant), block_table.data_ptr(), pages_per_row,
         lengths.data_ptr(),
         None if cur_k is None else cur_k.data_ptr(),
         None if cur_v is None else cur_v.data_ptr(),
         cur_stride, out.data_ptr(), rows, heads, head_dim,
-        k_pages.shape[1], 1.0 / math.sqrt(head_dim),
+        page_size, 1.0 / math.sqrt(head_dim), n_splits, stages,
     )
     return out

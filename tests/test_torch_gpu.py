@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from machine_learning_apache_spark_tpu_torch.ops import hopper_attention as hop
+from torch_ragged_cases import serving_decode, split_qkv
 
 pytestmark = pytest.mark.gpu
 
@@ -127,6 +128,24 @@ def test_tensor_core_kernels_refuse_rows_off_16_bytes(cuda):
     lse = torch.zeros(2, 4, 10, device=cuda)
     with pytest.raises(ValueError, match="16 bytes"):
         hop.flash_attention_bwd_dkv(k, k, v, q, lse, lse)
+    with pytest.raises(ValueError, match="16 bytes"):
+        hop.flash_attention_bwd_dq(k, k, v, q, lse, lse)
+    with pytest.raises(ValueError, match="16 bytes"):
+        hop.flash_attention_bwd_dq(q, k, v, k, lse, lse)
+
+
+def test_ragged_kernel_refuses_query_rows_off_16_bytes(cuda):
+    rows, heads, dh = 4, 2, 64
+    flat = torch.zeros(rows * heads * dh + 1, device=cuda)
+    pages = torch.zeros(5, 8, heads * dh, device=cuda)
+    table = torch.zeros(rows, 2, dtype=torch.int32, device=cuda)
+    lengths = torch.ones(rows, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="16 bytes"):
+        hop.ragged_paged_attention(flat[1:].view(rows, heads, dh), pages, pages, table, lengths)
+    # rows 130 floats apart: every other row starts 8 bytes off 16
+    odd = torch.zeros(rows, 130, device=cuda)[:, :heads * dh].view(rows, heads, dh)
+    with pytest.raises(ValueError, match="16 bytes"):
+        hop.ragged_paged_attention(odd, pages, pages, table, lengths)
 
 
 def test_backward_takes_an_expanded_sum_gradient(cuda):
@@ -179,6 +198,29 @@ def _bwd_inputs(rng, cuda, b, h, sq, sk, d, valid_frac, *, strided):
 
 def _max_rel(got, want):
     return ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
+
+
+@pytest.mark.parametrize(
+    "warps,splits", [(1, 1), (2, 1), (4, 1), (2, 2), (4, 2)], ids=lambda x: str(x)
+)
+@pytest.mark.parametrize("b,h,sq,sk,d,causal,valid_frac", BWD_CASES)
+def test_dq_kernel_at_every_launch_param(cuda, b, h, sq, sk, d, causal, valid_frac, warps, splits):
+    """dQ at each warps per block and splits, on strided views: within 1e-4
+    relative of the plain version, rows that see no key exactly zero, and
+    a second run the same bits."""
+    rng = np.random.default_rng(33)
+    q, k, v, g, valid = _bwd_inputs(rng, cuda, b, h, sq, sk, d, valid_frac, strided=True)
+    kw = dict(causal=causal, kv_valid=valid)
+    out, lse = hop.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+    delta = (g * out).sum(-1)
+    runs = [hop.flash_attention_bwd_dq(q, k, v, g, lse, delta, warps=warps, splits=splits, **kw)
+            for _ in range(2)]
+    assert torch.equal(runs[0], runs[1])
+    want = hop.flash_attention_bwd_dq_plain(q, k, v, g, lse, delta, **kw)
+    assert _max_rel(runs[0], want) < TOL
+    empty = ~(lse > hop.NEG_INF / 2)
+    if bool(empty.any().item()):
+        assert runs[0][empty].abs().max().item() == 0.0
 
 
 @pytest.mark.parametrize("strided", [False, True], ids=["contiguous", "strided"])
@@ -275,6 +317,60 @@ def test_ragged_kernel_matches_plain(cuda, int8, with_cur):
     torch.testing.assert_close(got, want, atol=TOL, rtol=0)
     if not with_cur:
         assert got[0].abs().max().item() == 0.0  # length 0, no cur: zeros
+
+
+def _serving_decode(rng, cuda, int8, **shape):
+    """The shared serving decode step on the card: q, cur_k and cur_v are
+    strided slices of one fused projection, as the model passes them."""
+    qkv, k_pages, v_pages, table, lengths, scales = serving_decode(rng, int8, **shape)
+    q, cur_k, cur_v = split_qkv(torch.from_numpy(qkv).to(cuda), shape.get("heads", 8))
+    args = [q, *(torch.from_numpy(x).to(cuda) for x in (k_pages, v_pages, table, lengths))]
+    return args, {n: torch.from_numpy(x).to(cuda) for n, x in scales.items()}, cur_k, cur_v
+
+
+@pytest.mark.parametrize("splits", hop.RAGGED_SPLITS)
+@pytest.mark.parametrize("int8", [False, True], ids=["fp32", "int8"])
+@pytest.mark.parametrize("with_cur", [False, True], ids=["no_cur", "cur"])
+def test_ragged_kernel_at_every_launch_choice(cuda, with_cur, int8, splits):
+    """Every split choice at the serving decode's shapes, the
+    edge lengths among the rows: within 1e-4 of the plain version, a
+    length-0 row without cur exactly zero, rows sharing prefix pages
+    identical, and a second run the same bits."""
+    rng = np.random.default_rng(29)
+    args, kw, cur_k, cur_v = _serving_decode(rng, cuda, int8)
+    if with_cur:
+        kw.update(cur_k=cur_k, cur_v=cur_v)
+    choice = dict(splits=splits)
+    hop.reset_launches()
+    got = hop.ragged_paged_attention(*args, **kw, **choice)
+    again = hop.ragged_paged_attention(*args, **kw, **choice)
+    assert hop.LAUNCHES["ragged_paged_attention"] == 2
+    want = hop.ragged_paged_attention_plain(*args, **kw)
+    torch.testing.assert_close(got, want, atol=TOL, rtol=0)
+    assert torch.equal(got, again)
+    if not with_cur:
+        assert got[0].abs().max().item() == 0.0
+        assert torch.equal(got[-1], got[-2])
+
+
+@pytest.mark.parametrize("splits", hop.RAGGED_SPLITS)
+@pytest.mark.parametrize("int8", [False, True], ids=["fp32", "int8"])
+def test_ragged_kernel_over_long_rows(cuda, int8, splits):
+    """Rows of up to 208 positions (13 pages of 16): a warp walks several
+    chunks with two in flight; one row alone; d = 40 and 128."""
+    rng = np.random.default_rng(30)
+    for rows, dh in ((8, 64), (1, 64), (3, 40), (3, 128)):
+        args, kw, cur_k, cur_v = _serving_decode(rng, cuda, int8, rows=max(rows, 7), dh=dh,
+                                                 pages_per_row=13)
+        args = [a[:rows] if i in (0, 3, 4) else a for i, a in enumerate(args)]
+        kw.update(cur_k=cur_k[:rows], cur_v=cur_v[:rows])
+        if hop.ragged_smem_bytes(dh, int8, splits, 2) > hop.SMEM_LIMIT:
+            with pytest.raises(ValueError, match="shared memory"):
+                hop.ragged_paged_attention(*args, **kw, splits=splits)
+            continue
+        got = hop.ragged_paged_attention(*args, **kw, splits=splits)
+        want = hop.ragged_paged_attention_plain(*args, **kw)
+        torch.testing.assert_close(got, want, atol=TOL, rtol=0)
 
 
 def test_paged_engine_on_the_card_matches_the_cpu(cuda):

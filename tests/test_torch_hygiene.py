@@ -1,8 +1,9 @@
 """Boundaries of the PyTorch/CUDA port.
 
 The port imports torch and numpy, never JAX or the JAX package: an AST
-scan of every module (and of ``chip_smoke.py`` and the card-only tests)
-checks the import
+scan of every module (and of ``chip_smoke.py``, the card-only tests with
+their helper ``tests/torch_*.py`` and the card's timing tools
+``tools/torch_*.py``) checks the import
 statements themselves — ``sys.modules`` would not do, since the test
 process has JAX loaded already. Entry points run on the card unless the
 caller asks for the CPU, and raise when there is no card.
@@ -42,10 +43,12 @@ def _imports(path: Path):
 
 
 def _scanned_files():
-    # The card-only tests run where there is no JAX, so they are held to
-    # the same rule as the package and the smoke.
+    # The card-only tests, their helper and the card's timing tools run
+    # where there is no JAX, so they are held to the same rule as the package and the smoke.
     return sorted(PORT_DIR.rglob("*.py")) + [
         REPO / "chip_smoke.py", REPO / "tests" / "test_torch_gpu.py",
+        *sorted((REPO / "tests").glob("torch_*.py")),
+        *sorted((REPO / "tools").glob("torch_*.py")),
     ]
 
 

@@ -1,16 +1,19 @@
-"""What the tensor-core attention kernels take, checked on the CPU.
+"""What the attention kernels take, checked on the CPU.
 
-The flash forward and the dK/dV kernel (``csrc/flash_attention_fwd.cu``,
-``csrc/flash_attention_bwd.cu``) run only on the card. What surrounds
+The flash forward, dQ and dK/dV kernels (``csrc/flash_attention_fwd.cu``,
+``csrc/flash_attention_bwd.cu``) and the ragged decode kernel
+(``csrc/ragged_paged_attention.cu``) run only on the card. What surrounds
 them is Python and is pinned here: the launch parameters the wrappers
-pass (warps per block, padded head dim), the 16-byte row layout their
-``cp.async`` copies need, the build's hash over the shared header, and
-the arithmetic of their 3xTF32 products. A numpy model of the tensor
-core (``mma.sync`` m16n8k8 on TF32 operands: exact products, truncated
-to fp32 once per mma) runs the plain forward at the MT training sites'
-shapes, and shows why the kernels take three passes (three stay within
-1e-6 of fp32, one falls outside the port's 1e-4 gates) and why each
-k-step's passes start from a fresh fragment (a running sum carried
+pass (warps per block, splits, padded head dim; the ragged kernel's
+splits and stages), that every choice's shared memory
+fits a block, the 16-byte row layout their ``cp.async`` copies need, the
+build's hash over the shared header, the arithmetic of the 3xTF32
+products, and the ragged kernel's split-and-merge. A numpy model of the
+tensor core (``mma.sync`` m16n8k8 on TF32 operands: exact products,
+truncated to fp32 once per mma) runs the plain forward at the MT training
+sites' shapes, and shows why the kernels take three passes (three stay
+within 1e-6 of fp32, one falls outside the port's 1e-4 gates) and why
+each k-step's passes start from a fresh fragment (a running sum carried
 through the truncating accumulator drifts several times further from
 the exact sum than fp32's own).
 """
@@ -21,6 +24,7 @@ import torch
 
 from machine_learning_apache_spark_tpu_torch.ops import cuda_build
 from machine_learning_apache_spark_tpu_torch.ops import hopper_attention as hop
+from torch_ragged_cases import serving_decode, split_qkv
 
 
 # -- launch parameters -----------------------------------------------------------
@@ -62,15 +66,38 @@ def test_dkv_launch_params(batch, heads, q_len, kv_len, head_dim, want):
     assert hop.dkv_launch_params(batch, heads, q_len, kv_len, head_dim) == want
 
 
+@pytest.mark.parametrize(
+    "batch,heads,q_len,kv_len,head_dim,want",
+    [
+        (32, 8, 200, 200, 64, (4, 1, 64)),  # encoder self-attention: 1,024 blocks of 4 row groups
+        (32, 8, 199, 199, 64, (4, 1, 64)),  # decoder self-attention
+        (32, 8, 199, 200, 64, (4, 1, 64)),  # cross-attention
+        (2, 8, 77, 200, 64, (4, 2, 64)),    # a small batch leaves the card part empty: 2 splits
+        (1, 8, 200, 200, 64, (4, 2, 64)),   # one training sequence: 2 splits
+        (2, 4, 40, 30, 16, (2, 1, 64)),     # one key tile: nothing to split; 40 rows fill 2 groups
+        (3, 2, 17, 45, 128, (4, 2, 128)),
+        (2, 3, 33, 65, 40, (4, 2, 64)),
+        (1, 8, 1, 64, 64, (2, 2, 64)),      # one query row
+    ],
+)
+def test_dq_launch_params(batch, heads, q_len, kv_len, head_dim, want):
+    assert hop.dq_launch_params(batch, heads, q_len, kv_len, head_dim, H100_SMS) == want
+
+
 def _fwd_params(*args, **kw):
     return hop.flash_fwd_launch_params(*args, H100_SMS, **kw)
+
+
+def _dq_params(*args, **kw):
+    return hop.dq_launch_params(*args, H100_SMS, **kw)
 
 
 def test_launch_params_take_explicit_choices():
     for w in hop.KERNEL_WARPS:
         assert hop.dkv_launch_params(1, 8, 64, 64, 40, warps=w) == (w, 1, 64)
         assert _fwd_params(1, 8, 64, 64, 40, warps=w) == (w, 1, 64)
-    for params in (_fwd_params, hop.dkv_launch_params):
+        assert _dq_params(1, 8, 64, 64, 40, warps=w) == (w, 1, 64)
+    for params in (_fwd_params, _dq_params, hop.dkv_launch_params):
         assert params(1, 8, 64, 64, 64, splits=2) == (2, 2, 64)
         assert params(1, 8, 64, 64, 64, warps=4, splits=2) == (4, 2, 64)
         for bad in (dict(warps=3), dict(splits=4), dict(warps=1, splits=2), dict(warps=3, splits=1)):
@@ -80,9 +107,96 @@ def test_launch_params_take_explicit_choices():
 
 @pytest.mark.parametrize("head_dim", [0, 4, 12, 136])
 def test_launch_params_reject_head_dims_without_a_build(head_dim):
-    for params in (_fwd_params, hop.dkv_launch_params):
+    for params in (_fwd_params, _dq_params, hop.dkv_launch_params):
         with pytest.raises(ValueError, match="multiple of 8"):
             params(1, 8, 64, 64, head_dim)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        hop.ragged_launch_params(head_dim, 64, False)
+
+
+# The ragged kernel's launch: (head_dim, capacity = pages per row x page
+# size, int8 pages) -> (splits, stages); a block covers one (row, head).
+@pytest.mark.parametrize(
+    "head_dim,capacity,quant,want",
+    [
+        (64, 64, False, (2, 1)),    # serving decode, fp32 pages: two chunks, one per warp
+        (64, 64, True, (2, 1)),     # the same over int8 pages
+        (64, 40, False, (2, 1)),    # 40 positions: two chunks
+        (64, 32, False, (1, 1)),    # one chunk: nothing to split
+        (64, 16, True, (1, 1)),
+        (64, 65, False, (4, 1)),    # three chunks: four warps, one chunk each
+        (64, 96, True, (4, 1)),
+        (64, 208, False, (4, 2)),   # 7 chunks over 4 warps: two in flight
+        (128, 208, False, (2, 2)),  # d=128 fp32, two stages: 4 warps would not fit
+        (128, 208, True, (4, 2)),   # int8 rows are a quarter of the size
+        (8, 24, True, (1, 1)),
+        (72, 2048, True, (4, 2)),
+    ],
+)
+def test_ragged_launch_params(head_dim, capacity, quant, want):
+    assert hop.ragged_launch_params(head_dim, capacity, quant) == want
+
+
+def test_ragged_launch_params_take_explicit_choices():
+    for s in hop.RAGGED_SPLITS:
+        assert hop.ragged_launch_params(64, 64, False, splits=s) == (s, 2 if s < 2 else 1)
+        assert hop.ragged_launch_params(64, 208, True, splits=s) == (s, 2)
+    for bad in (3, 8):
+        with pytest.raises(ValueError, match="splits must be one of"):
+            hop.ragged_launch_params(64, 64, False, splits=bad)
+    with pytest.raises(ValueError, match="shared memory"):
+        hop.ragged_launch_params(128, 208, False, splits=4)
+
+
+# -- shared memory -----------------------------------------------------------------
+
+H100_SMEM = 227 * 1024  # a block's dynamic shared memory on an H100 (hopper-kernels guide)
+
+# The shapes the port runs (serving prefill and decode, the MT training
+# sites, the eval decode) and the edge shapes the smoke and the gpu tests use.
+FLASH_SHAPES = [
+    (1, 8, 64, 64, 64), (1, 8, 1, 64, 64), (32, 8, 200, 200, 64), (32, 8, 199, 199, 64),
+    (32, 8, 199, 200, 64), (2, 8, 77, 200, 64), (2, 4, 40, 30, 16), (3, 2, 17, 45, 128),
+    (2, 3, 33, 65, 40), (2, 4, 100, 140, 128), (2, 4, 50, 50, 8), (1, 8, 2000, 2000, 128),
+]
+# (head_dim, capacity)
+RAGGED_SHAPES = [
+    (64, 64), (64, 96), (64, 40), (64, 208), (128, 208), (8, 24), (128, 64), (72, 2048),
+]
+
+
+@pytest.mark.parametrize("shape", FLASH_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_every_dq_choice_fits_a_block(shape):
+    b, h, sq, sk, d = shape
+    d_pad = next(p for p in hop.KERNEL_D_PADS if d <= p)
+    picked = hop.dq_launch_params(b, h, sq, sk, d, H100_SMS)
+    for w, c in [picked[:2], *((w, c) for w in hop.KERNEL_WARPS for c in hop.KERNEL_SPLITS if w % c == 0)]:
+        assert hop.dq_smem_bytes(w, c, d_pad, sk) <= H100_SMEM, (w, c)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["fp32", "int8"])
+@pytest.mark.parametrize("shape", RAGGED_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_every_ragged_choice_fits_a_block(shape, quant):
+    """What ``ragged_launch_params`` picks fits; an explicit choice that
+    would not is refused in Python, before the kernel could refuse it."""
+    d, cap = shape
+    s, st = hop.ragged_launch_params(d, cap, quant)
+    assert hop.ragged_smem_bytes(d, quant, s, st) <= H100_SMEM
+    for s in hop.RAGGED_SPLITS:
+        stages = 2 if -(-cap // 32) > s else 1
+        if hop.ragged_smem_bytes(d, quant, s, stages) <= H100_SMEM:
+            assert hop.ragged_launch_params(d, cap, quant, s) == (s, stages)
+        else:
+            with pytest.raises(ValueError, match="shared memory"):
+                hop.ragged_launch_params(d, cap, quant, s)
+
+
+def test_ragged_smem_at_the_serving_decode():
+    # per warp: one stage of 32 K and 32 V rows of 68 floats, 3 x 32 words
+    # of scales and slots, q (64 floats), p (32), state (66 -> 68 floats)
+    assert hop.ragged_smem_bytes(64, False, 1, 1) == 2 * 32 * 272 + 384 + 256 + 128 + 272
+    assert hop.ragged_smem_bytes(64, True, 1, 1) == 2 * 32 * 80 + 384 + 256 + 128 + 272
+    assert hop.dq_smem_bytes(4, 1, 64, 200) == 4 * (2 * 64 * 68 + 128 + 2 * 2 * 32 * 68) + 8 * 7
 
 
 # -- 16-byte row layout --------------------------------------------------------
@@ -172,15 +286,19 @@ def test_build_hash_covers_the_shared_header(tmp_path, monkeypatch):
 
 
 def test_entry_points_take_the_launch_parameters():
-    """After ``scale`` the forward and dK/dV take (warps, splits, d_pad) as
-    ints; dQ, which keeps its CUDA-core design, none."""
+    """After ``scale`` the forward, dQ and dK/dV take (warps, splits,
+    d_pad) as ints, then the strides; the ragged kernel takes (splits,
+    stages), then the stream."""
     f32 = cuda_build._F32
     for name, extra in (("flash_attention_fwd", 3), ("flash_attention_bwd_dkv", 3),
-                        ("flash_attention_bwd_dq", 0)):
+                        ("flash_attention_bwd_dq", 3)):
         argtypes = cuda_build.ENTRY_POINTS[name][2]
         i = argtypes.index(f32)
         assert argtypes[i + 1:i + 1 + extra] == [cuda_build._INT] * extra
         assert argtypes[i + 1 + extra] is cuda_build._I64
+    argtypes = cuda_build.ENTRY_POINTS["ragged_paged_attention"][2]
+    i = argtypes.index(f32)
+    assert argtypes[i + 1:] == [cuda_build._INT] * 2 + [cuda_build._VOID]
 
 
 # -- 3xTF32 ----------------------------------------------------------------------
@@ -329,3 +447,107 @@ def test_fresh_fragments_keep_the_truncating_accumulator_at_fp32_error(k):
     chained = err(tc_matmul(a, b, 3, fresh=False))
     assert fresh <= 1.5 * err(fma)
     assert chained > 3 * fresh
+
+
+# -- the ragged kernel's split-and-merge -------------------------------------------
+
+
+def ragged_split_model(q, k_pages, v_pages, table, lengths, splits, *,
+                       k_scale=None, v_scale=None, cur_k=None, cur_v=None):
+    """The ragged kernel's order of arithmetic in numpy float32: a row's
+    positions in chunks of 32, chunk c to split c % splits; each split an
+    online softmax (m, l, acc) over its chunks; the splits merged in split
+    order (rescaled to the common max and added); cur folded in last. int8
+    slots are dequantised before the products. (Within a chunk the dot
+    products and the P·V sums are numpy's, not the kernel's partial sums.)"""
+    f32 = np.float32
+    rows, heads, dh = q.shape
+    page = k_pages.shape[1]
+    cap = table.shape[1] * page
+    scale = f32(1.0 / np.sqrt(dh))
+    pos = np.arange(cap)
+    slots = table[:, pos // page] * page + pos % page  # [R, cap]
+    k = k_pages.reshape(-1, heads, dh)[slots].astype(f32)  # [R, cap, H, dh]
+    v = v_pages.reshape(-1, heads, dh)[slots].astype(f32)
+    if k_scale is not None:
+        k = k * k_scale.reshape(-1)[slots][..., None, None]
+        v = v * v_scale.reshape(-1)[slots][..., None, None]
+    m = np.full((splits, rows, heads), -1e30, f32)
+    l = np.zeros((splits, rows, heads), f32)
+    acc = np.zeros((splits, rows, heads, dh), f32)
+    for c in range(-(-cap // 32)):
+        w = c % splits
+        sl = slice(32 * c, 32 * c + 32)
+        valid = (pos[sl][None, :] < lengths[:, None])[:, None, :]  # [R, 1, 32]
+        s = np.einsum("rhd,rjhd->rhj", q, k[:, sl]) * scale
+        s = np.where(valid, s, f32(-1e30))
+        m_new = np.maximum(m[w], s.max(-1))
+        p = np.where(valid, np.exp(s - m_new[..., None]), f32(0))
+        alpha = np.exp(m[w] - m_new)
+        l[w] = l[w] * alpha + p.sum(-1)
+        acc[w] = acc[w] * alpha[..., None] + np.einsum("rhj,rjhd->rhd", p, v[:, sl])
+        m[w] = m_new
+    mm, ll, aa = m[0], l[0], acc[0]
+    for w in range(1, splits):
+        mn = np.maximum(mm, m[w])
+        a, b = np.exp(mm - mn), np.exp(m[w] - mn)
+        ll = ll * a + l[w] * b
+        aa = aa * a[..., None] + acc[w] * b[..., None]
+        mm = mn
+    if cur_k is not None:
+        ck, cv = cur_k.reshape(rows, heads, dh), cur_v.reshape(rows, heads, dh)
+        s = (q * ck).sum(-1) * scale
+        mn = np.maximum(mm, s)
+        p, alpha = np.exp(s - mn), np.exp(mm - mn)
+        ll = ll * alpha + p
+        aa = aa * alpha[..., None] + p[..., None] * cv
+    return aa / np.where(ll == 0, f32(1), ll)[..., None]
+
+
+def _decode_case(rng, quant, **shape):
+    """The shared serving decode step, q split off its fused projection."""
+    qkv, k_pages, v_pages, table, lengths, kw = serving_decode(rng, quant, **shape)
+    q, cur_k, cur_v = split_qkv(qkv, shape.get("heads", 8))
+    return np.ascontiguousarray(q), k_pages, v_pages, table, lengths, kw, cur_k, cur_v
+
+
+# The kernel's merge reorders fp32 sums (per-split maxima and sums, then a
+# rescale), so it is held to the fp32 rounding of a softmax over at most
+# 65 positions with outputs of order one: 2e-6 absolute, 50x below the
+# kernel-vs-plain gate (1e-4) that chip_smoke.py applies on the card.
+MERGE_TOL = 2e-6
+
+
+@pytest.mark.parametrize("with_cur", [False, True], ids=["no_cur", "cur"])
+@pytest.mark.parametrize("quant", [False, True], ids=["fp32", "int8"])
+def test_ragged_split_merge_matches_one_pass(quant, with_cur):
+    rng = np.random.default_rng(31)
+    q, k_pages, v_pages, table, lengths, kw, cur_k, cur_v = _decode_case(rng, quant)
+    if with_cur:
+        kw["cur_k"], kw["cur_v"] = np.ascontiguousarray(cur_k), np.ascontiguousarray(cur_v)
+    want = hop.ragged_paged_attention_plain(
+        *(torch.from_numpy(x) for x in (q, k_pages, v_pages, table, lengths)),
+        **{n: torch.from_numpy(x) for n, x in kw.items()},
+    ).numpy()
+    one = ragged_split_model(q, k_pages, v_pages, table, lengths, 1, **kw)
+    for splits in (1, 2, 4):
+        got = ragged_split_model(q, k_pages, v_pages, table, lengths, splits, **kw)
+        assert np.abs(got - one).max() <= MERGE_TOL, splits
+        assert np.abs(got - want).max() <= MERGE_TOL, splits
+        if not with_cur:  # (with cur the two rows' own K/V differ)
+            assert np.abs(got[0]).max() == 0.0  # length 0, no cur: zeros
+            np.testing.assert_array_equal(got[-1], got[-2])  # shared prefix pages
+
+
+def test_ragged_split_merge_over_long_rows():
+    """Rows of up to 208 positions (seven chunks): four splits walk two
+    chunks each (the kernel's two-stage case) and merge to one pass."""
+    rng = np.random.default_rng(32)
+    q, k_pages, v_pages, table, lengths, _, _, _ = _decode_case(rng, False, rows=8, pages_per_row=13)
+    one = ragged_split_model(q, k_pages, v_pages, table, lengths, 1)
+    want = hop.ragged_paged_attention_plain(
+        *(torch.from_numpy(x) for x in (q, k_pages, v_pages, table, lengths))).numpy()
+    for splits in (2, 4):
+        got = ragged_split_model(q, k_pages, v_pages, table, lengths, splits)
+        assert np.abs(got - one).max() <= MERGE_TOL
+        assert np.abs(got - want).max() <= MERGE_TOL
