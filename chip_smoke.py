@@ -27,38 +27,53 @@ Phases, each fatal on failure:
    masked, one query row, masked keys whose dK/dV must be exactly zero,
    whole masked key blocks, lengths that are not tile multiples; every
    warps per block the wrappers may pick; dQ and dK/dV twice, bit for
-   bit), each within 1e-4 relative;
+   bit), each within 1e-4 relative; then the forward (no ``lse``) at the
+   KV-cache decoders' one-query-row sites as the model passes them (the
+   eval/BLEU decode's self-attention over a 200-position cache at steps
+   0, 31, 32, 33, 99 and 198, with and without pads inside the written
+   prefix, its cross-attention and its priming call; the beam engine's
+   16-row grid over a reordered cache and over the memory), at every
+   launch choice, within 1e-4 relative, two runs the same bits;
 4. serving — the reference MT model at full width (d_model 512, ffn 1024,
    8 heads of 64, 1 layer, max_len 200, ~8,000-word vocabularies, random
    weights from a seed in the JAX package's Flax layout, through the
-   weight bridge) served by ``Translator.serve`` (paged, greedy): 64
-   concurrent requests, some repeated, once with fp32 pages and once with
-   int8 pages. Checks that every request completes, that the pools drain,
-   that both kernels ran on this path, and the token agreement of the fp32
-   engine with the one-shot greedy decoder on the CPU (plain versions)
-   and of the int8 engine with the fp32 engine (each >= 0.99);
+   weight bridge) served by ``Translator.serve``: 64 concurrent requests,
+   some repeated, by the paged engine with fp32 pages and with int8
+   pages and by the padded engine (fp32, 32 rows a batch); the first 16
+   by a beam engine (4 beams, 4 prompts a batch). Checks that every
+   request completes, that the pools drain, that each engine's kernels
+   ran, and the token agreement (each >= 0.99) of the paged fp32 engine
+   with the one-shot greedy decoder on the CPU (plain versions), of the
+   int8 engine and of the padded engine with the paged fp32 engine, of
+   the one-shot ``Translator`` (KV-cache greedy) with the uncached
+   ``greedy_translate`` on the card, and of the beam engine with
+   ``beam_translate`` on the CPU; then that sampling from one CUDA
+   generator seed repeats and that sampling at temperature 0 is greedy;
 5. training — ``recipes.translation.train_translator`` on the card at the
    reference recipe's full width (dropout 0.1, Adam 1e-3, batch 32, one
    epoch over the 400 fixture pairs in ``assets/fixtures``: 12 steps), then
-   ``evaluate`` and BLEU over the 80 validation pairs. Checks finite,
-   falling loss and that the dQ and dK/dV kernels ran exactly 3 sites x
-   steps x layers times. Then a parity run: dropout 0, random weights in
-   the Flax layout bridged in, 4 steps on the card and the same 4 on the
-   CPU (plain versions): per-step losses within 1e-3 relative, step-0
-   gradients within 1e-4 relative;
-6. times — requests/s, generated tokens/s, peak device memory, and each
-   kernel's time (CUDA events) beside its bound, its plain version's time
-   and one library call's, at the serving shapes (the ragged kernel at the
+   ``evaluate`` and BLEU (the KV-cache greedy decoder) over the 80
+   validation pairs. Checks finite, falling loss and that the dQ and dK/dV
+   kernels ran exactly 3 sites x steps x layers times; decodes the
+   validation pairs once more on the card and on the CPU (token agreement
+   >= 0.99, both BLEU figures). Then a parity run: dropout 0, random
+   weights in the Flax layout bridged in, 4 steps on the card and the
+   same 4 on the CPU (plain versions): per-step losses within 1e-3
+   relative, step-0 gradients within 1e-4 relative;
+6. times — requests/s, generated tokens/s and peak device memory of each
+   engine (paged fp32 and int8, padded, beam), and each kernel's time
+   (CUDA events) beside its bound, its plain version's time and one
+   library call's, at the serving shapes (the ragged kernel at the
    decode's cross-attention over fp32 and int8 pages and its
    self-attention with cur over fp32 and int8 pages), at the three
    training sites (and at one sequence of the encoder site, fixture keys
    and all keys valid, where the rules pick dQ's and the forward's key
-   split) and at the eval/BLEU decode's forward sites, and each kernel at
-   each of its launch choices; the recipe's evaluate and BLEU decode once
-   more under the profiler, for the forward's launches, device time and
-   bound over the whole decode; the train step's time, steps/s,
-   target tokens/s, peak memory and the device idle share of one profiled
-   window of steps.
+   split) and at the KV-cache decoders' one-query-row sites, and each
+   kernel at each of its launch choices; the recipe's evaluate and BLEU
+   decode once more under the profiler, for the forward's launches (which
+   must equal the recipe run's), device time and bound over the whole
+   decode; the train step's time, steps/s, target tokens/s, peak memory
+   and the device idle share of one profiled window of steps.
 
 The line before the last is ``nvidia-smi``'s name and power limit; before
 it, one JSON line with every kernel's numbers. The last line is
@@ -94,6 +109,16 @@ SERVE = dict(
 )
 N_REQUESTS = 64
 N_UNIQUE = 48  # the rest repeat earlier prompts, so the prefix cache hits
+# The padded engine at the paged engine's concurrency, and a beam engine
+# (4 prompts x 4 beams = 16 rows a batch) over the first N_BEAM prompts.
+SERVE_PADDED = dict(
+    kv_mode="padded", max_batch=32, boundaries=(32, 64), max_new_tokens=64,
+)
+SERVE_BEAM = dict(
+    method="beam", beam_size=4, max_batch=4, boundaries=(32, 64),
+    max_new_tokens=64,
+)
+N_BEAM = 16
 
 REPLACES = {
     "flash_attention_fwd": "machine_learning_apache_spark_tpu/ops/pallas_attention.py:40",
@@ -556,6 +581,119 @@ def check_training_kernels(torch, hop, sites: dict, dev) -> dict:
     return {n: dict(max_abs_err=a, max_rel_err=r) for n, (a, r) in worst.items()}
 
 
+# -- phase 3c: the forward at the KV-cache decoders' sites (one query row) ------
+
+
+def bleu_val_valid() -> np.ndarray:
+    """Key validity of the eval/BLEU decode's first batch of sources (the
+    first 32 validation pairs through the recipe's pipelines, width 200)."""
+    from machine_learning_apache_spark_tpu_torch.data.datasets import load_multi30k
+
+    src_pipe, _, _ = fixture_data()
+    pairs = load_multi30k(str(FIXTURES), "valid")
+    return np.asarray(src_pipe([s for s, _ in pairs[:32]])) != 0
+
+
+def _decode_site(torch, rng, dev, rows, sk, kv_valid, *, step_qkv=False, reorder=False, h=8, dh=64):
+    """q, k, v of one decode-step attention call as the model passes them:
+    q a head-split view of the step's fused qkv ``[rows, 1, 3 h dh]``; K/V
+    head-split views of cache buffers ``[rows, sk, h dh]`` (the self
+    cache or the memory K/V; with ``reorder``, buffers whose rows beam
+    search has gathered by ``index_select``), or, with ``step_qkv``, of
+    the step's own qkv (the priming call's self-attention: one key, no
+    mask)."""
+    d = h * dh
+
+    def randn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+
+    def heads(t, n):
+        return t.view(rows, n, h, dh).transpose(1, 2)
+
+    qkv = randn(rows, 1, 3 * d)
+    q = heads(qkv[..., :d], 1)
+    if step_qkv:
+        k, v = heads(qkv[..., d:2 * d], 1), heads(qkv[..., 2 * d:], 1)
+    else:
+        order = torch.from_numpy(rng.permutation(rows)).to(dev)
+        bufs = [randn(1, rows, sk, d)[0] for _ in range(2)]
+        if reorder:
+            bufs = [b.index_select(0, order) for b in bufs]
+        k, v = (heads(b, sk) for b in bufs)
+    valid = None if kv_valid is None else torch.from_numpy(np.ascontiguousarray(kv_valid)).to(dev)
+    return dict(q=q, k=k, v=v, kv_valid=valid)
+
+
+def _prefix_valid(rng, rows, gen_len, t, pads: bool) -> np.ndarray:
+    """The self cache's validity at step ``t``: the written prefix (t + 1
+    positions); with ``pads``, half the rows finished at a random earlier
+    step, so the positions after their eos hold pad (invalid)."""
+    valid = np.broadcast_to(np.arange(gen_len) < t + 1, (rows, gen_len)).copy()
+    if pads and t >= 2:
+        for r in range(0, rows, 2):
+            eos_at = int(rng.integers(1, t))
+            valid[r, eos_at + 1:] = False
+    return valid
+
+
+def decode_sites(torch, dev, bleu_src_valid: np.ndarray) -> dict:
+    """The forward's one-query-row sites of the KV-cache decoders. The
+    eval/BLEU decode (32 rows, 8 heads of 64, the cache sized to gen_len
+    200): the self-attention at steps 0, 31, 32, 33 (a 32-key tile
+    boundary), 99 and 198 (gen_len - 2, the last step), with and without
+    pads inside the prefix, the cross-attention over the batch's sources,
+    and the priming call (one key, no mask). The beam engine's grid (4
+    prompts x 4 beams = 16 rows, gen_len 65, a 64-wide bucket): the
+    self-attention at step 40 over a reordered cache and the
+    cross-attention."""
+    rng = np.random.default_rng(SEED + 6)
+    rows, gen_len = bleu_src_valid.shape[0], 200
+    sites = {}
+    for t in (0, 31, 32, 33, 99, 198):
+        for pads in ((False, True) if t else (False,)):
+            label = f"BLEU self, step {t}" + (", pads in the prefix" if pads else "")
+            sites[label] = _decode_site(torch, rng, dev, rows, gen_len,
+                                        _prefix_valid(rng, rows, gen_len, t, pads))
+    sites["BLEU cross"] = _decode_site(torch, rng, dev, rows, bleu_src_valid.shape[1], bleu_src_valid)
+    sites["BLEU priming self"] = _decode_site(torch, rng, dev, rows, 1, None, step_qkv=True)
+    sites["beam self, step 40"] = _decode_site(
+        torch, rng, dev, 16, 65, _prefix_valid(rng, 16, 65, 40, True), reorder=True)
+    lens = rng.integers(6, 62, 16)
+    sites["beam cross"] = _decode_site(torch, rng, dev, 16, 64, np.arange(64)[None, :] < lens[:, None])
+    return sites
+
+
+def check_decode_forward(torch, hop, sites: dict, dev) -> float:
+    """The forward (no ``lse``) at every one-query-row site against its
+    plain version, at the wrapper's launch choice and at every other, each
+    within 1e-4 relative; two runs the same bits. Returns the largest
+    relative error."""
+    worst = 0.0
+    for label, c in sites.items():
+        q, k, v, valid = c["q"], c["k"], c["v"], c["kv_valid"]
+        for t in (q, k, v):
+            if not hop.kernel_layout_ok(t):
+                fail(f"decode site {label}: a view the kernel cannot read without a copy")
+        want = hop.flash_attention_plain(q, k, v, kv_valid=valid)
+        got = hop.flash_attention_fwd(q, k, v, kv_valid=valid)
+        again = hop.flash_attention_fwd(q, k, v, kv_valid=valid)
+        others = [hop.flash_attention_fwd(q, k, v, kv_valid=valid, warps=w, splits=c_)
+                  for w, c_ in LAUNCH_CHOICES]
+        torch.cuda.synchronize()
+        rel = max(_rel(x, want) for x in [got, *others])
+        choice = hop.flash_fwd_launch_params(*q.shape[:3], k.shape[2], q.shape[3], hop.device_sm_count(dev))
+        n_valid = "all" if valid is None else int(valid.sum().item())
+        log(f"  flash_attention_fwd  {label:36s} q {list(q.shape)} k {list(k.shape)} valid {n_valid}: "
+            f"max_rel_err {rel:.3e} (tol {TOL:.0e} relative; (warps, splits) {choice[:2]} "
+            f"and each of {LAUNCH_CHOICES})")
+        if not rel <= TOL or any(bool(torch.isnan(x).any().item()) for x in [got, *others]):
+            fail(f"flash_attention_fwd disagrees with its plain version at decode site {label}")
+        if not torch.equal(got, again):
+            fail(f"flash_attention_fwd: a second run gave other bits at decode site {label}")
+        worst = max(worst, rel)
+    return worst
+
+
 # -- phase 4: serving -----------------------------------------------------------
 
 
@@ -630,9 +768,12 @@ def agreement(a: list[str], b: list[str]) -> tuple[float, list[str]]:
     return (same / total if total else 1.0), notes
 
 
-def serve_once(torch, hop, translator, prompts, kv_dtype: str) -> dict:
-    """One engine over all prompts; returns outputs, counts and times."""
-    eng = translator.serve(kv_dtype=kv_dtype, **SERVE)
+def serve_once(torch, hop, translator, prompts, label: str, **engine_kw) -> dict:
+    """One engine over all prompts; returns outputs, counts and times.
+    Checks that every request completes, that the pools drain, and that
+    each kernel of the engine's path launched (paged: the flash forward
+    and the ragged decode; padded and beam: the flash forward)."""
+    eng = translator.serve(**engine_kw)
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -643,24 +784,54 @@ def serve_once(torch, hop, translator, prompts, kv_dtype: str) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(hop.LAUNCHES)
-        stats = eng.runtime.stats()
+        paged = eng.runtime is not None
+        stats = eng.runtime.stats() if paged else {}
+        rows_in_use = eng.pool.in_use
         metrics = eng.metrics.summary()
         eng.metrics.check_conservation(in_flight=0)
         peak = torch.cuda.max_memory_allocated()
     finally:
         eng.stop()
     if metrics["completed"] != len(prompts):
-        fail(f"{kv_dtype} engine completed {metrics['completed']} of {len(prompts)}")
-    if stats["active_rows"] != 0 or stats["self_pages_in_use"] != 0:
-        fail(f"{kv_dtype} engine pools not back at baseline: {stats}")
-    for name in SERVING_KERNELS:
+        fail(f"{label} engine completed {metrics['completed']} of {len(prompts)}")
+    if rows_in_use or stats.get("active_rows") or stats.get("self_pages_in_use"):
+        fail(f"{label} engine pools not back at baseline: rows {rows_in_use}, {stats}")
+    for name in SERVING_KERNELS if paged else ("flash_attention_fwd",):
         if launches[name] <= 0:
-            fail(f"{kv_dtype} engine never launched {name}")
+            fail(f"{label} engine never launched {name}")
     return dict(
         outs=outs, wall=wall, launches=launches, stats=stats,
-        tokens=metrics["tokens_out"], peak=peak,
-        hits=stats["prefix_cache"]["hits"],
+        tokens=metrics["tokens_out"], peak=peak, kv_mode=eng.kv_mode,
+        hits=stats["prefix_cache"]["hits"] if paged else None,
     )
+
+
+def one_shot(torch, hop, label: str, decode) -> tuple[list[str], dict]:
+    """``decode()`` (a one-shot decoder on the card) with the launch
+    counts set to 0 just before and read just after; it must have
+    launched the flash forward."""
+    torch.cuda.synchronize()
+    hop.reset_launches()
+    outs = decode()
+    torch.cuda.synchronize()
+    launches = dict(hop.LAUNCHES)
+    if launches["flash_attention_fwd"] <= 0:
+        fail(f"{label} never launched flash_attention_fwd")
+    return outs, launches
+
+
+def uncached_greedy(torch, translator, prompts) -> list[str]:
+    """The uncached ``greedy_translate`` over the prompts, as text: the
+    decoder the one-shot ``Translator`` used before the KV cache."""
+    from machine_learning_apache_spark_tpu_torch.data.text import EOS_ID, SOS_ID
+    from machine_learning_apache_spark_tpu_torch.models import greedy_translate
+    from machine_learning_apache_spark_tpu_torch.train.metrics import strip_special_ids
+
+    src = torch.as_tensor(translator.src_pipe(prompts), dtype=torch.long, device=translator.device)
+    ys = greedy_translate(translator.model, src, max_new_tokens=SERVE["max_new_tokens"],
+                          sos_id=SOS_ID, eos_id=EOS_ID)
+    rows = strip_special_ids(ys, pad_id=translator.model.cfg.pad_id, sos_id=SOS_ID, eos_id=EOS_ID)
+    return [" ".join(translator.trg_pipe.vocab.lookup_tokens(r)) for r in rows]
 
 
 # -- phase 5: times ---------------------------------------------------------------
@@ -1171,97 +1342,151 @@ def time_training_kernels(torch, hop, sites: dict) -> dict:
     return out
 
 
-def _fwd_bound(q_shape, sk: int, causal: bool, valid_np) -> tuple[float, str]:
-    """The forward's bound (no ``lse``) for one launch: q read and out
-    written, K and V of the valid keys, kv_valid; the visible pairs."""
+def _fwd_work(q_shape, sk: int, causal: bool, valid_np) -> tuple[int, float]:
+    """Bytes and operations of one forward launch (no ``lse``): q read and
+    out written, K and V of the valid keys, kv_valid; QKᵀ and P·V over the
+    visible pairs."""
     b, h, sq, d = q_shape
     n_valid = int(valid_np.sum()) if valid_np is not None else b * sk
     pairs = _pairs(valid_np if valid_np is not None else np.ones((b, sk), bool), sq, causal)
     nbytes = 2 * 4 * b * h * sq * d + 2 * 4 * h * d * n_valid + (b * sk if valid_np is not None else 0)
-    return bound_ms("flash_attention_fwd", nbytes, 4.0 * d * h * pairs)
+    return nbytes, 4.0 * d * h * pairs
 
 
-def time_bleu_forward(torch, hop, dev, src_pipe) -> dict:
-    """The forward without ``lse`` at sites of the eval/BLEU decode: the
-    recipe's BLEU decode runs ``greedy_translate`` over the 80 validation
-    pairs in batches of 32, 32 and 16: per batch one encoder pass, then
-    for each of 199 steps one full-width decoder pass ([B, 200] tokens,
-    the first t + 1 valid) with a causal self-attention and a
-    cross-attention. Times the first batch's encoder and cross-attention
-    and its self-attention at steps 0, 99 and 198 (every row still
-    unfinished: the most keys)."""
-    from machine_learning_apache_spark_tpu_torch.data.datasets import load_multi30k
+def _fwd_bound(q_shape, sk: int, causal: bool, valid_np) -> tuple[float, str]:
+    return bound_ms("flash_attention_fwd", *_fwd_work(q_shape, sk, causal, valid_np))
 
-    pairs = load_multi30k(str(FIXTURES), "valid")
-    src = np.asarray(src_pipe([s for s, _ in pairs[:32]]))
-    width = src.shape[1]
-    rng = np.random.default_rng(SEED + 5)
-    sites = {}
-    for t in (0, 99, 198):
-        ys = np.zeros((src.shape[0], width), np.int64)
-        ys[:, : t + 1] = 1
-        c = training_sites(torch, rng, dev, src, ys)
-        if t == 0:
-            sites["encoder"] = c["encoder self"]
-            sites["cross"] = c["cross"]
-        sites[f"decoder self, step {t}"] = c["decoder self"]
+
+#: The one-query-row sites timed in phase 6 (all are checked in phase 3).
+TIMED_DECODE_SITES = (
+    "BLEU self, step 0", "BLEU self, step 99", "BLEU self, step 198",
+    "BLEU self, step 99, pads in the prefix", "BLEU cross", "BLEU priming self",
+    "beam self, step 40", "beam cross",
+)
+
+
+def time_decode_forward(torch, hop, sites: dict) -> dict:
+    """The forward without ``lse`` at the KV-cache decoders' one-query-row
+    sites: CUDA-event ms and profiler device time for the kernel, its
+    plain version and SDPA with a bool mask, the bound from the site's
+    inputs, and the device time at each launch choice."""
+    import torch.nn.functional as F
+
     out = {}
-    for name, c in sites.items():
-        q, k, v = c["q"], c["k"], c["v"]
-        kw = dict(causal=c["causal"], kv_valid=c["kv_valid"])
-        valid_np = c["kv_valid"].cpu().numpy()
-        bnd, by = _fwd_bound(tuple(q.shape), k.shape[2], c["causal"], valid_np)
-        out[name] = dict(
-            ms=cuda_time_ms(torch, lambda: hop.flash_attention_fwd(q, k, v, **kw), n=50, warmup=5),
-            device_ms=device_ms_per_call(torch, lambda: hop.flash_attention_fwd(q, k, v, **kw), n=20),
-            bound_ms=bnd, bound_by=by,
-            shape=f"q [{', '.join(map(str, q.shape))}], k/v [{', '.join(map(str, k.shape))}], "
-                  f"{'causal + ' if c['causal'] else ''}kv_valid {int(valid_np.sum())} keys",
+    for label in TIMED_DECODE_SITES:
+        c = sites[label]
+        q, k, v, valid = c["q"], c["k"], c["v"], c["kv_valid"]
+        b, h, sq, d = q.shape
+        sk = k.shape[2]
+        mask = None if valid is None else valid[:, None, None, :]
+        valid_np = None if valid is None else valid.cpu().numpy()
+        nbytes, flops = _fwd_work(tuple(q.shape), sk, False, valid_np)
+        bnd, by = bound_ms("flash_attention_fwd", nbytes, flops)
+        work = dict(
+            kernel=lambda: hop.flash_attention_fwd(q, k, v, kv_valid=valid),
+            plain=lambda: hop.flash_attention_plain(q, k, v, kv_valid=valid),
+            library=lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
+        )
+        out[label] = dict(
+            shape=f"q [{b},{h},{sq},{d}], k/v [{b},{h},{sk},{d}] fp32 views of the step's qkv "
+                  f"and the cache, kv_valid {'none' if valid_np is None else int(valid_np.sum())} keys",
+            ms=cuda_time_ms(torch, work["kernel"], n=100, warmup=10),
+            plain_ms=cuda_time_ms(torch, work["plain"], n=50, warmup=5),
+            library_ms=cuda_time_ms(torch, work["library"], n=100, warmup=10),
+            library_name="F.scaled_dot_product_attention, bool mask",
+            bound_ms=bnd, bound_by=by, nbytes=nbytes, flops=flops,
+            device_ms={name: device_ms_per_call(torch, fn, n=50) for name, fn in work.items()},
+            warps=hop.flash_fwd_launch_params(b, h, sq, sk, d, hop.device_sm_count(q.device))[:2],
+            warps_sweep={f"{w}x{c_}": device_ms_per_call(
+                torch, lambda w=w, c_=c_: hop.flash_attention_fwd(q, k, v, kv_valid=valid, warps=w, splits=c_),
+                n=50) for w, c_ in LAUNCH_CHOICES},
         )
     return out
 
 
-def profile_eval_decode(torch, hop, state) -> dict:
-    """``train_translator``'s evaluate and BLEU decode once more, on the
-    trained state and with the recipe's own loader and calls (the 80
-    validation pairs in batches of 32, 32 and 16: the test-loss pass, then
-    ``greedy_translate`` per batch), under the profiler. Returns the flash
-    forward's launches and device time summed over the whole call (the
-    profiler's ``flash_fwd_kernel`` rows), and its bound summed over the
-    launches, each from its own inputs (a shim around the wrapper records
-    every launch's shapes, causality and valid keys)."""
+def eval_loader():
+    """The recipe's validation loader (the 80 fixture pairs in batches of
+    32, 32 and 16) and its BLEU decode's length, as ``train_translator``
+    builds them."""
     from machine_learning_apache_spark_tpu_torch.data.datasets import load_multi30k
     from machine_learning_apache_spark_tpu_torch.data.loader import ArrayDataset
-    from machine_learning_apache_spark_tpu_torch.data.text import EOS_ID, SOS_ID, translation_pipelines
-    from machine_learning_apache_spark_tpu_torch.models.transformer import greedy_translate
     from machine_learning_apache_spark_tpu_torch.recipes._common import make_loaders
-    from machine_learning_apache_spark_tpu_torch.recipes.translation import (
-        TranslationRecipe,
-        make_translation_loss,
-    )
-    from machine_learning_apache_spark_tpu_torch.train.loop import evaluate, to_device
-    from machine_learning_apache_spark_tpu_torch.train.metrics import corpus_bleu, strip_special_ids
+    from machine_learning_apache_spark_tpu_torch.recipes.translation import TranslationRecipe
 
     r = TranslationRecipe()
-    src_pipe, trg_pipe = translation_pipelines(load_multi30k(str(FIXTURES), "train"), max_len=r.max_len)
+    src_pipe, trg_pipe, _ = fixture_data()
     val_pairs = load_multi30k(str(FIXTURES), "valid")
     val_ds = ArrayDataset(src_pipe([s for s, _ in val_pairs]), trg_pipe([t for _, t in val_pairs]))
     _, val_loader = make_loaders(None, val_ds, batch_size=r.batch_size, seed=r.seed)
-    model, pad = state.model, state.model.cfg.pad_id
+    return val_loader, min(val_ds[:1][1].shape[1], r.max_len) - 1
+
+
+def bleu_decode(model, val_loader, gen: int) -> tuple[list[list[int]], float]:
+    """The recipe's BLEU decode on the model's device:
+    ``greedy_translate_cached`` over the eval loader's batches. Returns
+    the candidates' ids (specials stripped) and the corpus BLEU."""
+    from machine_learning_apache_spark_tpu_torch.data.text import EOS_ID, SOS_ID
+    from machine_learning_apache_spark_tpu_torch.models import greedy_translate_cached
+    from machine_learning_apache_spark_tpu_torch.train.loop import to_device
+    from machine_learning_apache_spark_tpu_torch.train.metrics import corpus_bleu, strip_special_ids
+
     dev = next(model.parameters()).device
-    gen = min(val_ds[:1][1].shape[1], r.max_len) - 1
+    kw = dict(pad_id=model.cfg.pad_id, sos_id=SOS_ID, eos_id=EOS_ID)
+    cands, refs = [], []
+    for src_b, trg_b in val_loader:
+        (src,) = to_device((src_b,), dev)
+        ids = greedy_translate_cached(model, src, max_new_tokens=gen, sos_id=SOS_ID, eos_id=EOS_ID)
+        cands.extend(strip_special_ids(ids, **kw))
+        refs.extend(strip_special_ids(trg_b, **kw))
+    return cands, corpus_bleu(cands, refs)
+
+
+def eval_decode_parity(torch, trained: dict) -> dict:
+    """The recipe's BLEU decode of the trained model once more on the card
+    and on the CPU (a copy of the model, plain versions): the token
+    agreement of the two and both BLEU figures."""
+    import copy
+
+    val_loader, gen = eval_loader()
+    model = trained["state"].model
+    t0 = time.perf_counter()
+    card_ids, card_bleu = bleu_decode(model, val_loader, gen)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_ids, cpu_bleu = bleu_decode(copy.deepcopy(model).cpu(), val_loader, gen)
+    cpu_s = time.perf_counter() - t0
+    share, notes = agreement([" ".join(map(str, r)) for r in card_ids],
+                             [" ".join(map(str, r)) for r in cpu_ids])
+    log(f"  eval/BLEU decode (greedy_translate_cached, {len(card_ids)} pairs, {gen} steps): "
+        f"card vs CPU token agreement {share:.6f} (gate >= {AGREEMENT_MIN}); BLEU card "
+        f"{card_bleu:.6f}, CPU {cpu_bleu:.6f}, recipe run {trained['out']['bleu']:.6f}; "
+        f"{card_s:.2f} s on the card, {cpu_s:.2f} s on the CPU")
+    for n in notes:
+        log(f"    mismatch: {n}")
+    if share < AGREEMENT_MIN:
+        fail(f"the eval decode agrees card vs CPU at {share:.4f} < {AGREEMENT_MIN}")
+    return dict(agreement=share, bleu_card=card_bleu, bleu_cpu=cpu_bleu)
+
+
+def profile_eval_decode(torch, hop, state) -> dict:
+    """``train_translator``'s evaluate and BLEU decode once more, on the
+    trained state and with the recipe's own loader and calls (the test-loss
+    pass, then ``greedy_translate_cached`` per batch), under the profiler.
+    Returns the flash forward's launches and device time summed over the
+    whole call (the profiler's ``flash_fwd_kernel`` rows), and its bound
+    summed over the launches, each from its own inputs (a shim around the
+    wrapper records every launch's shapes and valid keys)."""
+    from machine_learning_apache_spark_tpu_torch.recipes.translation import make_translation_loss
+    from machine_learning_apache_spark_tpu_torch.train.loop import evaluate
+
+    val_loader, gen = eval_loader()
     result = {}
 
     def run():
-        evaluate(state, make_translation_loss(pad, train=False), val_loader, emit=lambda _: None)
-        cands, refs = [], []
-        kw = dict(pad_id=pad, sos_id=SOS_ID, eos_id=EOS_ID)
-        for src_b, trg_b in val_loader:
-            (src,) = to_device((src_b,), dev)
-            ids = greedy_translate(model, src, max_new_tokens=gen, sos_id=SOS_ID, eos_id=EOS_ID)
-            cands.extend(strip_special_ids(ids, **kw))
-            refs.extend(strip_special_ids(trg_b, **kw))
-        result["bleu"] = corpus_bleu(cands, refs)
+        evaluate(state, make_translation_loss(state.model.cfg.pad_id, train=False), val_loader,
+                 emit=lambda _: None)
+        result["bleu"] = bleu_decode(state.model, val_loader, gen)[1]
 
     launches = []
     real = hop.flash_attention_fwd
@@ -1363,6 +1588,8 @@ def main() -> int:
     # Made anew for the timings of phase 6: held here they would sit in
     # device memory through the serving and training peaks.
     train_errs = check_training_kernels(torch, hop, make_sites(), dev)
+    bleu_valid = bleu_val_valid()
+    decode_err = check_decode_forward(torch, hop, decode_sites(torch, dev, bleu_valid), dev)
     torch.cuda.empty_cache()
 
     log("== phase 4: serving slice at full width")
@@ -1377,21 +1604,53 @@ def main() -> int:
         f"{min(prompt_lens)}-{max(prompt_lens)} ids; model {MODEL}")
     params = model_params(src_pipe, trg_pipe)
     translator = build_translator(None, params, src_pipe, trg_pipe)
-    runs = {kv: serve_once(torch, hop, translator, prompts, kv) for kv in ("float32", "int8")}
-    for kv, run in runs.items():
-        log(f"  {kv:7s} engine: {len(prompts)} completed in {run['wall']:.3f} s, "
-            f"prefix-cache hits {run['hits']}, launches {run['launches']}, "
-            f"pools {{active_rows: {run['stats']['active_rows']}, "
-            f"self_pages_in_use: {run['stats']['self_pages_in_use']}}}")
+    runs = {kv: serve_once(torch, hop, translator, prompts, f"paged {kv}", kv_dtype=kv, **SERVE)
+            for kv in ("float32", "int8")}
+    runs["padded"] = serve_once(torch, hop, translator, prompts, "padded fp32", **SERVE_PADDED)
+    beam_prompts = prompts[:N_BEAM]
+    runs["beam"] = serve_once(torch, hop, translator, beam_prompts, "beam", **SERVE_BEAM)
+    for label, run in runs.items():
+        pools = (f"pools {{active_rows: {run['stats']['active_rows']}, self_pages_in_use: "
+                 f"{run['stats']['self_pages_in_use']}}}, prefix-cache hits {run['hits']}"
+                 if run["kv_mode"] == "paged" else "KV slots all free")
+        log(f"  {label:7s} engine ({run['kv_mode']}): {len(run['outs'])} completed in "
+            f"{run['wall']:.3f} s, launches {run['launches']}, {pools}")
+
+    mnt = SERVE["max_new_tokens"]
+    one_shot_launches = {}
+    cached, one_shot_launches["Translator greedy (cached)"] = one_shot(
+        torch, hop, "the one-shot Translator", lambda: translator(prompts, max_new_tokens=mnt))
+    uncached, one_shot_launches["greedy_translate (uncached)"] = one_shot(
+        torch, hop, "greedy_translate", lambda: uncached_greedy(torch, translator, prompts))
+    samples = []
+    for _ in range(2):
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        out, one_shot_launches["Translator sample"] = one_shot(
+            torch, hop, "the sampling Translator", lambda: translator(
+                prompts, method="sample", rng=gen, top_p=0.9, max_new_tokens=mnt))
+        samples.append(out)
+    sample_t0 = translator(prompts, method="sample", rng=torch.Generator(device=dev).manual_seed(SEED),
+                           temperature=0.0, max_new_tokens=mnt)
+    log(f"  one-shot decoders on the card, launches: {one_shot_launches}")
+    if samples[0] != samples[1]:
+        fail("two sampling runs from one CUDA generator seed gave different outputs")
+    if sample_t0 != cached:
+        fail("sampling at temperature 0 differs from greedy decoding")
+    log(f"  sampling (top_p 0.9): two runs from one CUDA generator seed identical; "
+        f"temperature 0 identical to greedy; agreement with greedy {agreement(samples[0], cached)[0]:.6f}")
 
     t0 = time.perf_counter()
-    oracle = build_translator("cpu", params, src_pipe, trg_pipe)(
-        prompts, max_new_tokens=SERVE["max_new_tokens"]
-    )
-    log(f"  one-shot greedy on the CPU (plain versions): {time.perf_counter() - t0:.1f} s")
+    oracle_t = build_translator("cpu", params, src_pipe, trg_pipe)
+    oracle = oracle_t(prompts, max_new_tokens=mnt)
+    beam_oracle = oracle_t(beam_prompts, method="beam", beam_size=SERVE_BEAM["beam_size"],
+                           max_new_tokens=mnt)
+    log(f"  one-shot greedy and beam on the CPU (plain versions): {time.perf_counter() - t0:.1f} s")
     checks = [
-        ("fp32 engine vs one-shot greedy on the CPU", runs["float32"]["outs"], oracle),
-        ("int8 engine vs fp32 engine", runs["int8"]["outs"], runs["float32"]["outs"]),
+        ("paged fp32 engine vs one-shot greedy on the CPU", runs["float32"]["outs"], oracle),
+        ("paged int8 engine vs paged fp32 engine", runs["int8"]["outs"], runs["float32"]["outs"]),
+        ("padded fp32 engine vs paged fp32 engine", runs["padded"]["outs"], runs["float32"]["outs"]),
+        ("one-shot Translator (cached) vs uncached greedy_translate, both on the card", cached, uncached),
+        ("beam engine (beam 4) vs beam_translate on the CPU", runs["beam"]["outs"], beam_oracle),
     ]
     for label, got, want in checks:
         share, notes = agreement(got, want)
@@ -1406,13 +1665,14 @@ def main() -> int:
 
     log("== phase 5: training slice at full width")
     trained = train_slice(torch, hop)
+    eval_parity = eval_decode_parity(torch, trained)
     parity = parity_run(torch, hop, src_pipe_t, trg_pipe_t, train_ds)
 
     log("== phase 6: times")
-    for kv, run in runs.items():
-        log(f"  {kv:7s} engine: {len(prompts) / run['wall']:.2f} requests/s, "
+    for label, run in runs.items():
+        log(f"  {label:7s} engine ({run['kv_mode']}): {len(run['outs']) / run['wall']:.2f} requests/s, "
             f"{run['tokens'] / run['wall']:.1f} generated tokens/s "
-            f"({run['tokens']} tokens), peak max_memory_allocated "
+            f"({len(run['outs'])} requests, {run['tokens']} tokens), peak max_memory_allocated "
             f"{run['peak'] / 2**20:.1f} MiB [{card}]")
     # Where a serving run's time goes: the fp32 engine once more, with the
     # profiler recording device activity. Busy time and wall time come
@@ -1463,16 +1723,22 @@ def main() -> int:
     timed_sites = make_sites()
     timed_sites |= one_sequence_sites(torch, timed_sites["encoder self"])
     site_times = time_training_kernels(torch, hop, timed_sites)
-    bleu_sites = time_bleu_forward(torch, hop, dev, src_pipe_t)
-    for name, by_site in [*times.items(), *site_times.items()]:
+    decode_times = time_decode_forward(torch, hop, decode_sites(torch, dev, bleu_valid))
+    for name, by_site in [*times.items(), *site_times.items(), ("flash_attention_fwd", decode_times)]:
         for site, t in by_site.items():
             log_site_times(name, site, t, card)
-    for site, t in bleu_sites.items():
-        dm = "not measured" if t["device_ms"] is None else f"{t['device_ms'] * 1e3:.2f} us"
-        log(f"  flash_attention_fwd (no lse) @ eval/BLEU decode {site}: {t['shape']}: "
-            f"kernel {t['ms']:.5f} ms (device {dm}), bound {t['bound_ms']:.5f} ms ({t['bound_by']}) [{card}]")
 
-    serve_launches = {n: sum(run["launches"][n] for run in runs.values()) for n in hop.LAUNCHES}
+    # Launches per path, each read from its own run (counts set to 0 just
+    # before it): the paged engines (fp32 and int8), the padded and beam
+    # engines, the one-shot decoders, the training recipe.
+    paths = {
+        "paged serving": [runs["float32"]["launches"], runs["int8"]["launches"]],
+        "padded serving": [runs["padded"]["launches"]],
+        "beam serving": [runs["beam"]["launches"]],
+        "one-shot decoders": list(one_shot_launches.values()),
+        "training": [trained["launches"]],
+    }
+    path_launches = {p: {n: sum(x[n] for x in xs) for n in hop.LAUNCHES} for p, xs in paths.items()}
     kernels = []
     for name in ("flash_attention_fwd", "ragged_paged_attention",
                  "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
@@ -1488,8 +1754,8 @@ def main() -> int:
             "route": "cuda",
             "source": SOURCES[name],
             "replaces": REPLACES[name],
-            "launches": serve_launches[name] + trained["launches"][name],
-            "launches_by_path": {"serving": serve_launches[name], "training": trained["launches"][name]},
+            "launches": sum(x[name] for x in path_launches.values()),
+            "launches_by_path": {p: x[name] for p, x in path_launches.items()},
             "max_abs_err": err,
             "ms": main_t["ms"],
             "plain_ms": main_t["plain_ms"],
@@ -1500,14 +1766,19 @@ def main() -> int:
         }
         if name in train_errs:
             entry["max_rel_err"] = train_errs[name]["max_rel_err"]
+        if name == "flash_attention_fwd":  # the decode sites are held relative
+            entry["max_rel_err"] = max(entry["max_rel_err"], decode_err)
         keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms", "warps", "warps_sweep")
         for label, by_site in (("serving_sites", times.get(name)), ("training_sites", site_times.get(name))):
             if by_site:
                 entry[label] = {site: {k: t[k] for k in keys if k in t} for site, t in by_site.items()}
         if name == "flash_attention_fwd":
             entry["eval_bleu_decode"] = dict(
-                launches=eval_launches, device_ms=eval_decode["device_ms"],
-                bound_ms=eval_decode["bound_ms"], sites=bleu_sites)
+                decoder="greedy_translate_cached", launches=eval_launches,
+                device_ms=eval_decode["device_ms"], bound_ms=eval_decode["bound_ms"],
+                card_vs_cpu_agreement=eval_parity["agreement"])
+            entry["decode_sites"] = {site: {k: t[k] for k in keys if k in t}
+                                     for site, t in decode_times.items()}
         kernels.append(entry)
     log(f"  training: {json.dumps({k: v for k, v in train_times.items() if k != 'rows'})}")
     log(f"  total {time.perf_counter() - t_start:.1f} s")

@@ -22,7 +22,9 @@ generator (``train.loop``). The bits differ from JAX's by design.
 
 Where Flax *sows* intermediate values into a mutable collection, these
 methods return them: ``prefill_paged`` returns each layer's memory K/V,
-``decode_step_paged`` each layer's new self-attention K/V.
+``decode_step_paged`` each layer's new self-attention K/V. Flax's mutable
+``cache`` collection (the KV-cache decoder's state) is an explicit
+``DecodeCache`` that ``decode_step`` takes and returns.
 
 Parameters are made with an explicit ``torch.Generator`` (Flax's
 initialiser families: LeCun-normal kernels, zero biases, N(0, 0.02)
@@ -39,6 +41,7 @@ import torch
 from torch import nn
 
 from machine_learning_apache_spark_tpu_torch.ops.attention import (
+    NEG_INF,
     dot_product_attention,
     ragged_paged_attention,
 )
@@ -108,6 +111,42 @@ class Dropout(nn.Module):
         return torch.where(draw < keep, x / keep, 0.0)
 
 
+@dataclasses.dataclass
+class DecodeCache:
+    """The KV-cache decoder's state: what the JAX package keeps in Flax's
+    mutable ``cache`` collection, as one object that ``decode_step``
+    takes and returns.
+
+    ``key``/``value`` ``[layers, B, gen_len, d]``: each decoder layer's
+    self-attention K/V, written one position per step at ``index`` (the
+    shared write index); ``mem_key``/``mem_value`` ``[layers, B, S_src,
+    d]``: each layer's cross-attention K/V over the encoder memory,
+    projected once, on the priming call. ``decode_step`` writes the
+    buffers in place and returns the cache with ``index`` advanced.
+    """
+
+    key: torch.Tensor
+    value: torch.Tensor
+    mem_key: torch.Tensor
+    mem_value: torch.Tensor
+    index: int = 0
+
+    @property
+    def gen_len(self) -> int:
+        return self.key.shape[2]
+
+    def reorder(self, rows: torch.Tensor) -> "DecodeCache":
+        """The cache with its self-attention rows gathered by ``rows``
+        (beam search's reorder). The memory K/V stay as they are: a
+        sentence's beams share them, and a reorder only moves rows
+        between beams of one sentence."""
+        return dataclasses.replace(
+            self,
+            key=self.key.index_select(1, rows),
+            value=self.value.index_select(1, rows),
+        )
+
+
 class SentenceEmbedding(nn.Module):
     """Token embedding + sinusoidal positional encoding + dropout (C16,
     ``transformer.py:44-62``), with the PE table kept on the module's
@@ -131,6 +170,7 @@ class SentenceEmbedding(nn.Module):
         tokens: torch.Tensor,
         *,
         positions: torch.Tensor | None = None,
+        position_offset: int = 0,
         dropout_rng: torch.Generator | None = None,
     ) -> torch.Tensor:
         x = self.embed(tokens)
@@ -148,7 +188,11 @@ class SentenceEmbedding(nn.Module):
             # the same way (only frozen, finished rows can reach the end).
             pe = table[positions.clamp(0, table.shape[0] - 1)]
         else:
-            pe = table[:length]
+            # ``position_offset`` shifts the window for incremental
+            # decoding (token t gets row t), clamped into the table as
+            # JAX's dynamic_slice clamps its start.
+            start = min(max(position_offset, 0), table.shape[0] - length)
+            pe = table[start : start + length]
         return self.dropout(x + pe, dropout_rng)
 
 
@@ -201,6 +245,39 @@ class MultiHeadAttention(nn.Module):
             mask, causal=causal, kv_valid=kv_valid,
         )
         return self.out(out.transpose(1, 2).reshape(b, s_q, d))
+
+    def forward_decode(
+        self,
+        x: torch.Tensor,
+        cache: DecodeCache,
+        layer: int,
+        kv_valid: torch.Tensor | None,
+        *,
+        prime: bool,
+    ) -> torch.Tensor:
+        """One position per row (``x`` ``[B, 1, d]``) against the decode
+        cache: the ``decode=True`` branches of the JAX package's
+        ``MultiHeadAttention``. Cross-attention attends the cached memory
+        K/V under ``kv_valid`` (the source validity). Self-attention on
+        the priming call (``prime``, ``kv_valid`` None) attends only its
+        own K/V and writes nothing; on later calls it writes its K/V at
+        ``cache.index`` and attends the whole buffer under ``kv_valid``
+        (the written prefix and the target validity), never causal."""
+        b = x.shape[0]
+        if self.cross:
+            q = self.q(x)
+            k, v = cache.mem_key[layer], cache.mem_value[layer]
+        else:
+            q, k, v = self.qkv(x).chunk(3, dim=-1)
+            if not prime:
+                cache.key[layer, :, cache.index] = k[:, 0]
+                cache.value[layer, :, cache.index] = v[:, 0]
+                k, v = cache.key[layer], cache.value[layer]
+        out = dot_product_attention(
+            self._split_heads(q), self._split_heads(k), self._split_heads(v),
+            kv_valid=kv_valid,
+        )
+        return self.out(out.transpose(1, 2).reshape(b, 1, self.cfg.d_model))
 
     def forward_paged(self, x: torch.Tensor, paged: dict):
         """Paged ragged decode: ``x`` is one position per request row
@@ -310,6 +387,15 @@ class DecoderLayer(nn.Module):
         ffn = self.ffn(y, dropout_rng)
         return self.ln3(y + self.dropout(ffn, dropout_rng))
 
+    def forward_decode(self, y, cache, layer, self_valid, memory_valid, *, prime):
+        attn = self.self_attn.forward_decode(y, cache, layer, self_valid, prime=prime)
+        y = self.ln1(y + self.dropout(attn))
+        cross = self.cross_attn.forward_decode(
+            y, cache, layer, memory_valid, prime=prime
+        )
+        y = self.ln2(y + self.dropout(cross))
+        return self.ln3(y + self.dropout(self.ffn(y)))
+
     def forward_paged(self, y, paged_self: dict, paged_mem: dict):
         attn, k_new, v_new = self.self_attn.forward_paged(y, paged_self)
         y = self.ln1(y + self.dropout(attn))
@@ -336,6 +422,18 @@ class Decoder(nn.Module):
             y = layer(
                 y, memory, self_mask, cross_mask, trg_valid, memory_valid,
                 self_causal, dropout_rng,
+            )
+        return y
+
+    def forward_decode(
+        self, token, cache, self_valid, memory_valid, position: int, *, prime: bool
+    ):
+        """One incremental step of the stack over the decode cache:
+        ``token`` ``[B, 1]`` embedded at PE row ``position``."""
+        y = self.embed(token, position_offset=position)
+        for i, layer in enumerate(self.layers):
+            y = layer.forward_decode(
+                y, cache, i, self_valid, memory_valid, prime=prime
             )
         return y
 
@@ -439,6 +537,50 @@ class Transformer(nn.Module):
         """One decoder pass → vocab logits, for the generation loop."""
         return self.logits(self.decode(trg_tokens, memory, src_valid))
 
+    def decode_step(
+        self,
+        token: torch.Tensor,
+        memory: torch.Tensor,
+        src_valid: torch.Tensor,
+        position: int,
+        trg_valid: torch.Tensor | None = None,
+        cache: DecodeCache | None = None,
+    ) -> tuple[torch.Tensor, DecodeCache]:
+        """One incremental step of the KV-cache decoder (the JAX
+        package's ``Transformer.decode_step``): ``token`` ``[B, 1]`` at
+        generation position ``position``; returns ``(logits [B, 1, V],
+        cache)``. O(1) projection work per token: the self-attention K/V
+        of earlier tokens and the memory's cross-attention K/V come from
+        the cache.
+
+        With ``cache`` None this is the priming call: it projects every
+        layer's cross-attention K/V over ``memory`` once, makes zeroed
+        self-attention buffers of ``trg_valid.shape[1]`` positions
+        (``cfg.max_len`` without ``trg_valid``) and writes nothing into
+        them; its self-attention sees only its own K/V. Later calls write
+        this step's K/V at ``cache.index``, attend the written prefix with
+        ``trg_valid`` ``[B, gen_len]`` (False where the token is pad)
+        masking it further, and return the cache with ``index`` + 1."""
+        prime = cache is None
+        if prime:
+            gen_len = self.cfg.max_len if trg_valid is None else trg_valid.shape[1]
+            mem_key, mem_value = self._memory_kv(memory)
+            buf = memory.new_zeros((mem_key.shape[0], memory.shape[0], gen_len, self.cfg.d_model))
+            cache = DecodeCache(buf, buf.clone(), mem_key, mem_value)
+            self_valid = None  # the priming call attends its own K/V alone
+        else:
+            prefix = torch.arange(cache.gen_len, device=token.device) < cache.index + 1
+            self_valid = (
+                prefix.expand(token.shape[0], -1) if trg_valid is None
+                else prefix & trg_valid
+            )
+        y = self.decoder.forward_decode(
+            token, cache, self_valid, src_valid, position, prime=prime
+        )
+        if not prime:
+            cache = dataclasses.replace(cache, index=cache.index + 1)
+        return self.logits(y), cache
+
     def prefill_paged(self, src_tokens: torch.Tensor):
         """Paged-serving prefill: encode the prompt and project every
         decoder layer's cross-attention K/V over the memory. Returns
@@ -450,10 +592,13 @@ class Transformer(nn.Module):
         is live, so its compiled program drops the rest. The port computes
         only the live part: the memory projections."""
         memory = self.encode(src_tokens)
+        return (memory, *self._memory_kv(memory))
+
+    def _memory_kv(self, memory: torch.Tensor):
+        """Every decoder layer's cross-attention K/V over ``memory``,
+        stacked: ``[layers, B, S_src, d]`` each."""
         kv = [layer.cross_attn.project_memory(memory) for layer in self.decoder.layers]
-        k_mem = torch.stack([k for k, _ in kv])
-        v_mem = torch.stack([v for _, v in kv])
-        return memory, k_mem, v_mem
+        return torch.stack([k for k, _ in kv]), torch.stack([v for _, v in kv])
 
     def decode_step_paged(
         self, token, self_pages, mem_pages, self_table, self_len,
@@ -526,3 +671,253 @@ def greedy_translate(
         finished = finished | (nxt == eos_id)
         ys[:, t + 1] = nxt
     return ys
+
+
+def _validate_max_new_tokens(max_new_tokens: int | None, cfg: TransformerConfig) -> int:
+    if max_new_tokens is None:
+        return cfg.max_len - 1
+    if not 1 <= max_new_tokens <= cfg.max_len - 1:
+        raise ValueError(
+            f"max_new_tokens must be in [1, {cfg.max_len - 1}], got "
+            f"{max_new_tokens}"
+        )
+    return max_new_tokens
+
+
+def _prime_decode_cache(model, memory, src_valid, gen_len, sos_id) -> DecodeCache:
+    """The cached decoders' priming call: zeroed self-attention buffers of
+    ``gen_len`` positions and the memory's cross-attention K/V, projected
+    once. Its logits are discarded; it writes nothing into the self cache,
+    so the first real step recomputes ``sos`` with the same semantics."""
+    rows = memory.shape[0]
+    token = torch.full((rows, 1), sos_id, dtype=torch.long, device=memory.device)
+    valid = torch.ones((rows, gen_len), dtype=torch.bool, device=memory.device)
+    return model.decode_step(token, memory, src_valid, 0, valid)[1]
+
+
+@torch.no_grad()
+def _cached_decode(
+    model: Transformer,
+    src_tokens: torch.Tensor,
+    select_next,
+    *,
+    max_new_tokens: int | None,
+    sos_id: int,
+    eos_id: int,
+) -> torch.Tensor:
+    """The KV-cache decode loop shared by the greedy and sampling
+    decoders: encode once, prime the cache, then one-token decoder steps;
+    ``select_next(logits [B, V], t) -> [B]`` is the only policy
+    difference. The cache holds ``max_new_tokens + 1`` positions (the
+    JAX package sizes its decode model's ``max_len`` so), and every step
+    attends that many keys, the unwritten ones masked."""
+    cfg = model.cfg
+    pad = cfg.pad_id
+    max_new_tokens = _validate_max_new_tokens(max_new_tokens, cfg)
+    b = src_tokens.shape[0]
+    src_valid = src_tokens != pad
+    memory = model.encode(src_tokens)
+    gen_len = max_new_tokens + 1
+    cache = _prime_decode_cache(model, memory, src_valid, gen_len, sos_id)
+    ys = torch.full((b, gen_len), pad, dtype=torch.long, device=src_tokens.device)
+    ys[:, 0] = sos_id
+    finished = torch.zeros(b, dtype=torch.bool, device=ys.device)
+    for t in range(max_new_tokens):
+        # Pad tokens in the prefix stay unattendable, as in greedy_translate.
+        logits, cache = model.decode_step(
+            ys[:, t : t + 1], memory, src_valid, t, ys != pad, cache
+        )
+        nxt = select_next(logits[:, 0, :], t)
+        nxt = torch.where(finished, pad, nxt)
+        finished = finished | (nxt == eos_id)
+        ys[:, t + 1] = nxt
+    return ys
+
+
+def greedy_translate_cached(
+    model: Transformer,
+    src_tokens: torch.Tensor,
+    *,
+    max_new_tokens: int | None = None,
+    sos_id: int = 1,
+    eos_id: int = 2,
+) -> torch.Tensor:
+    """KV-cache greedy decoding: ``_cached_decode`` with an argmax policy.
+    Same output contract as ``greedy_translate`` (``[B, max_new_tokens +
+    1]`` int64, ``sos``-led, padded after ``eos``); ``max_new_tokens``
+    must lie in ``[1, cfg.max_len - 1]``."""
+    return _cached_decode(
+        model, src_tokens, lambda logits, t: torch.argmax(logits, dim=-1),
+        max_new_tokens=max_new_tokens, sos_id=sos_id, eos_id=eos_id,
+    )
+
+
+def _top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``jax.lax.top_k`` over the last dim: the ``k`` largest values,
+    descending, the lower index first among equal values. ``torch.topk``
+    does not promise that order on ties; a stable descending sort does."""
+    values, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return values[..., :k], idx[..., :k]
+
+
+@torch.no_grad()
+def beam_translate(
+    model: Transformer,
+    src_tokens: torch.Tensor,
+    *,
+    beam_size: int = 4,
+    max_new_tokens: int | None = None,
+    length_penalty: float = 0.6,
+    sos_id: int = 1,
+    eos_id: int = 2,
+) -> torch.Tensor:
+    """KV-cache beam search (the JAX package's ``beam_translate``).
+
+    Beams are flat-batched: row ``b * K + j`` is beam ``j`` of sentence
+    ``b``, and all rows share one decode cache, reordered each step by
+    ``index_select`` on its rows (the memory K/V are not gathered). Step
+    0 searches beam 0 only; finished beams extend with ``pad`` at zero
+    cost; a hypothesis is scored with the GNMT length penalty
+    ``((5 + L) / 6) ** length_penalty`` and banked the step it finishes,
+    so top-k can never evict the best finished one. ``beam_size=1`` is
+    greedy decoding. Returns ``[B, max_new_tokens + 1]`` int64 ids, the
+    ``greedy_translate`` contract."""
+    cfg = model.cfg
+    pad = cfg.pad_id
+    max_new_tokens = _validate_max_new_tokens(max_new_tokens, cfg)
+    if beam_size < 1:
+        raise ValueError(f"beam_size must be >= 1, got {beam_size}")
+    b, k = src_tokens.shape[0], beam_size
+    gen_len = max_new_tokens + 1
+    vocab = cfg.trg_vocab_size
+    dev = src_tokens.device
+
+    src_valid = src_tokens != pad
+    memory = model.encode(src_tokens).repeat_interleave(k, dim=0)
+    src_valid_t = src_valid.repeat_interleave(k, dim=0)
+    cache = _prime_decode_cache(model, memory, src_valid_t, gen_len, sos_id)
+
+    ys = torch.full((b, k, gen_len), pad, dtype=torch.long, device=dev)
+    ys[:, :, 0] = sos_id
+    scores = torch.zeros((b, k), dtype=torch.float32, device=dev)
+    finished = torch.zeros((b, k), dtype=torch.bool, device=dev)
+    lengths = torch.zeros((b, k), dtype=torch.long, device=dev)  # incl. eos
+    best_score = torch.full((b,), NEG_INF, dtype=torch.float32, device=dev)
+    best_ys = torch.full((b, gen_len), pad, dtype=torch.long, device=dev)
+    pad_only = torch.full((vocab,), NEG_INF, dtype=torch.float32, device=dev)
+    pad_only[pad] = 0.0
+    later_beams = torch.arange(k, device=dev)[None, :, None] > 0
+    sentence = torch.arange(b, device=dev)
+
+    def penalize(score, length):
+        return score / ((5.0 + length.float()) / 6.0) ** length_penalty
+
+    for t in range(max_new_tokens):
+        logits, cache = model.decode_step(
+            ys[:, :, t].reshape(b * k, 1), memory, src_valid_t, t,
+            (ys != pad).reshape(b * k, gen_len), cache,
+        )
+        logp = torch.log_softmax(logits[:, 0, :].float(), dim=-1).reshape(b, k, vocab)
+        logp = torch.where(finished[:, :, None], pad_only, logp)
+        total = scores[:, :, None] + logp
+        if t == 0:  # every beam is a copy of sos: search beam 0 only
+            total = torch.where(later_beams, NEG_INF, total)
+        scores, flat_idx = _top_k(total.reshape(b, k * vocab), k)
+        beam_idx = flat_idx // vocab  # [b, k]: each new beam's parent
+        token = flat_idx % vocab
+        was_finished = finished.gather(1, beam_idx)
+        ys = ys.gather(1, beam_idx[:, :, None].expand(-1, -1, gen_len))
+        ys[:, :, t + 1] = token
+        lengths = lengths.gather(1, beam_idx) + (~was_finished).long()
+        newly_finished = ~was_finished & (token == eos_id)
+        finished = was_finished | (token == eos_id)
+        # Bank the best newly finished hypothesis before top-k can evict it.
+        cand = torch.where(newly_finished, penalize(scores, lengths), NEG_INF)
+        cand_beam = torch.argmax(cand, dim=1)
+        cand_score = cand[sentence, cand_beam]
+        better = cand_score > best_score
+        best_score = torch.where(better, cand_score, best_score)
+        best_ys = torch.where(better[:, None], ys[sentence, cand_beam], best_ys)
+        cache = cache.reorder((sentence[:, None] * k + beam_idx).reshape(-1))
+
+    # The banked best finished hypothesis wins where one exists; otherwise
+    # the best live beam by penalized score.
+    live_ys = ys[sentence, torch.argmax(penalize(scores, lengths), dim=1)]
+    use_banked = best_score > NEG_INF * 0.5
+    return torch.where(use_banked[:, None], best_ys, live_ys)
+
+
+def _filter_logits(
+    logits: torch.Tensor, temperature: float, top_k: int | None, top_p: float | None
+) -> torch.Tensor:
+    """Sampling filters over ``[B, V]`` logits: temperature, then top-k,
+    then nucleus (top-p); what they drop becomes ``NEG_INF``."""
+    logits = logits.float() / max(temperature, 1e-6)
+    if top_k is not None:
+        if top_k < 1:
+            raise ValueError(f"top_k must be >= 1, got {top_k}")
+        # top_k >= vocab keeps everything, like the temperature-only case.
+        kth = torch.topk(logits, min(top_k, logits.shape[-1]), dim=-1).values[..., -1:]
+        logits = torch.where(logits < kth, NEG_INF, logits)
+    if top_p is not None:
+        if not 0.0 < top_p <= 1.0:
+            raise ValueError(f"top_p must be in (0, 1], got {top_p}")
+        sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+        probs = torch.softmax(sorted_logits, dim=-1)
+        # The smallest prefix whose mass reaches top_p (the first token
+        # always stays: its exclusive cumulative mass is 0 < top_p).
+        exclusive_cum = torch.cumsum(probs, dim=-1) - probs
+        cutoff = torch.where(exclusive_cum < top_p, sorted_logits, torch.inf).amin(
+            dim=-1, keepdim=True
+        )
+        logits = torch.where(logits < cutoff, NEG_INF, logits)
+    return logits
+
+
+def sample_translate(
+    model: Transformer,
+    src_tokens: torch.Tensor,
+    rng: torch.Generator,
+    *,
+    max_new_tokens: int | None = None,
+    temperature: float = 1.0,
+    top_k: int | None = None,
+    top_p: float | None = None,
+    sos_id: int = 1,
+    eos_id: int = 2,
+) -> torch.Tensor:
+    """Stochastic decoding with temperature / top-k / nucleus filtering:
+    ``_cached_decode`` with a filtered-categorical policy;
+    ``temperature <= 0`` is argmax. ``rng`` is a ``torch.Generator`` on
+    ``src_tokens``' device (the global RNG is never drawn from); one seed
+    gives one output. The categorical draw is Gumbel-max, ``argmax(logits
+    - log(-log(u)))`` with ``u`` uniform from ``rng``: the JAX package's
+    ``jax.random.categorical`` draws the same distribution from other
+    bits. Same output contract as the greedy decoders."""
+    if top_k is not None and top_k < 1:
+        raise ValueError(f"top_k must be >= 1, got {top_k}")
+    if top_p is not None and not 0.0 < top_p <= 1.0:
+        raise ValueError(f"top_p must be in (0, 1], got {top_p}")
+    if not isinstance(rng, torch.Generator):
+        raise TypeError(f"rng must be a torch.Generator, got {type(rng).__name__}")
+    if rng.device.type != src_tokens.device.type:
+        raise ValueError(
+            f"rng is a generator on {rng.device}, the tokens are on "
+            f"{src_tokens.device}: pass torch.Generator(device) on the "
+            "tokens' device"
+        )
+    if temperature <= 0.0:
+        def select(logits, t):
+            return torch.argmax(logits, dim=-1)
+    else:
+        tiny = torch.finfo(torch.float32).tiny
+
+        def select(logits, t):
+            filtered = _filter_logits(logits, temperature, top_k, top_p)
+            u = torch.rand(filtered.shape, generator=rng, device=filtered.device)
+            return torch.argmax(filtered - torch.log(-torch.log(u.clamp_(min=tiny))), dim=-1)
+
+    return _cached_decode(
+        model, src_tokens, select,
+        max_new_tokens=max_new_tokens, sos_id=sos_id, eos_id=eos_id,
+    )

@@ -39,7 +39,7 @@ from machine_learning_apache_spark_tpu_torch.inference import Translator
 from machine_learning_apache_spark_tpu_torch.models.transformer import (
     Transformer,
     TransformerConfig,
-    greedy_translate,
+    greedy_translate_cached,
 )
 from machine_learning_apache_spark_tpu_torch.recipes._common import (
     checkpointing,
@@ -253,17 +253,16 @@ def train_translator(
         )
     extra: dict = {}
     if r.compute_bleu:
-        # The JAX recipe decodes with greedy_translate_cached, pinned
-        # token-identical to greedy_translate (tests/test_generate.py:163);
-        # the cached decoder is ROADMAP queue A2 work, so the port decodes
-        # with its greedy_translate over the eval loader's batches.
+        # The KV-cache greedy decoder over the eval loader's batches (its
+        # ragged tail included). The target width is the pipeline's fixed
+        # length, so every batch decodes the same number of steps.
         gen = min(val_ds[:1][1].shape[1], r.max_len) - 1
         kw = dict(pad_id=cfg.pad_id, sos_id=SOS_ID, eos_id=EOS_ID)
         cands: list[list[int]] = []
         refs: list[list[int]] = []
         for src_b, trg_b in val_loader:
             (src,) = to_device((src_b,), dev)
-            ids = greedy_translate(
+            ids = greedy_translate_cached(
                 model, src, max_new_tokens=gen, sos_id=SOS_ID, eos_id=EOS_ID
             )
             cands.extend(strip_special_ids(ids, **kw))

@@ -1,17 +1,25 @@
 """Serving engine — the decode loop behind ``Translator.serve()``.
 
-The port of ``machine_learning_apache_spark_tpu/serving/engine.py``, paged
-greedy path: caller threads tokenize and ``submit()`` into the admission
-queue; one background worker admits FIFO requests into free cache rows
-(chunk-budgeted prefill, prefix-cache hits for repeated prompts), runs
-``steps_per_launch`` ragged decode steps over every occupied row, and
-retires rows as they finish. A raised launch or admission quarantines the
-active set only; everything still queued keeps flowing.
+The port of ``machine_learning_apache_spark_tpu/serving/engine.py``.
+Caller threads tokenize and ``submit()`` into the admission queue; one
+background worker decodes in one of two KV disciplines (``kv_mode``):
 
-Not ported yet (ROADMAP): ``kv_mode="padded"`` and ``method="beam"`` raise
-``NotImplementedError``; the telemetry HTTP server, status and health
-providers, flight-recorder dumps and fault-injection sites are absent.
-Eager PyTorch keeps no program cache, so ``compile_count()`` and
+- **paged** (default, greedy): the worker admits FIFO requests into free
+  cache rows (chunk-budgeted prefill, prefix-cache hits for repeated
+  prompts), runs ``steps_per_launch`` ragged decode steps over every
+  occupied row, and retires rows as they finish;
+- **padded** (and every ``method="beam"`` engine): the worker takes
+  shape-bucketed batches, pads each to the bucket's ``[max_batch,
+  boundary]`` (filler rows replicate row 0), takes a KV slot per member
+  and runs the KV-cache decoder (``greedy_translate_cached`` or
+  ``beam_translate``) over the rectangle.
+
+A raised launch, admission or batch quarantines its own requests only;
+everything still queued keeps flowing.
+
+Not ported yet (ROADMAP): the telemetry HTTP server, status and health
+providers, flight-recorder dumps and fault-injection sites. Eager PyTorch
+keeps no program cache, so ``compile_count()`` and
 ``recompiles_after_warmup`` report ``None`` — the JAX contract's "probe
 not exposed" case.
 """
@@ -23,11 +31,18 @@ import threading
 import time
 from typing import Sequence
 
+import numpy as np
 import torch
 
 from machine_learning_apache_spark_tpu_torch import telemetry
 from machine_learning_apache_spark_tpu_torch.data.text import EOS_ID, SOS_ID
+from machine_learning_apache_spark_tpu_torch.models import (
+    beam_translate,
+    greedy_translate_cached,
+)
 from machine_learning_apache_spark_tpu_torch.serving.batcher import (
+    Batch,
+    Batcher,
     TokenBudgetBatcher,
 )
 from machine_learning_apache_spark_tpu_torch.serving.kv_slots import KVSlotPool
@@ -45,13 +60,11 @@ from machine_learning_apache_spark_tpu_torch.serving.queue import (
 from machine_learning_apache_spark_tpu_torch.telemetry import (
     tracectx as _tracectx,
 )
+from machine_learning_apache_spark_tpu_torch.train.metrics import strip_special_ids
 from machine_learning_apache_spark_tpu_torch.utils import env as envcfg
 from machine_learning_apache_spark_tpu_torch.utils.logging import get_logger
 
 log = get_logger(__name__)
-
-#: The ROADMAP item that ports what this engine does not run yet.
-_LEFT_OUT = "ROADMAP.md, queue A: 'Serving, rest of the engine'"
 
 
 class EngineStopped(RuntimeError):
@@ -68,21 +81,27 @@ class InternalError(RuntimeError):
 
 
 class ServingEngine:
-    """Continuous-batching paged server over a ``Translator``-shaped bundle
+    """Continuous-batching server over a ``Translator``-shaped bundle
     (``model``, ``src_pipe``, ``trg_pipe``, ``device``).
 
     >>> with translator.serve(max_active=32, boundaries=(32, 64)) as eng:
     ...     futs = [eng.submit(s) for s in texts]
     ...     outs = [f.result(timeout=30) for f in futs]
 
-    Knobs: ``boundaries`` bound prompt length (the largest sizes the
-    memory pages), ``max_queue_depth`` the backpressure point,
+    ``kv_mode`` (default ``"paged"``, env ``MLSPARK_SERVE_KV_MODE``) picks
+    the KV discipline; ``method="beam"`` (``beam_size``,
+    ``length_penalty``) always runs padded. Knobs: ``boundaries`` bound
+    prompt length (the largest sizes the memory pages; padded: one bucket
+    each), ``max_queue_depth`` the backpressure point, ``max_batch`` the
+    padded batch shape, ``max_wait_s`` the padded co-batching patience,
+    ``num_slots`` the padded KV slots (default ``2 * max_batch``). Paged:
     ``max_active`` the concurrent rows (default ``max_batch``),
     ``page_size``/``num_pages`` the KV granularity/budget,
     ``prefill_chunk``+``prefill_budget`` the chunked-prefill pacing,
     ``steps_per_launch`` decode steps per launch, ``prefix_cache_size``
     the shared-prefix entries, and ``kv_dtype`` (``"float32"`` /
-    ``"int8"`` pages with per-page scales, env ``MLSPARK_SERVE_KV_DTYPE``).
+    ``"int8"`` pages with per-page scales, env ``MLSPARK_SERVE_KV_DTYPE``;
+    padded and beam engines reject int8).
     """
 
     def __init__(
@@ -91,10 +110,14 @@ class ServingEngine:
         *,
         boundaries: Sequence[int] = (16, 32, 64),
         max_batch: int = 8,
+        max_wait_s: float = 0.02,
         max_queue_depth: int = 64,
+        num_slots: int | None = None,
         max_new_tokens: int | None = None,
         default_deadline_s: float | None = None,
         method: str = "greedy",
+        beam_size: int = 4,
+        length_penalty: float = 0.6,
         kv_mode: str | None = None,
         kv_dtype: str | None = None,
         quantize_self: bool = False,
@@ -115,29 +138,35 @@ class ServingEngine:
                 f"max_len {cfg.max_len}; positions past max_len have no "
                 "encoding"
             )
-        if method == "beam":
-            raise NotImplementedError(
-                f"method='beam' is not ported yet ({_LEFT_OUT})"
-            )
-        if method != "greedy":
+        if method not in ("greedy", "beam"):
             raise ValueError(f"method must be 'greedy' or 'beam', got {method!r}")
         if kv_mode is None:
             kv_mode = envcfg.get_str("MLSPARK_SERVE_KV_MODE")
-        if kv_mode == "padded":
-            raise NotImplementedError(
-                f"kv_mode='padded' is not ported yet ({_LEFT_OUT})"
-            )
-        if kv_mode != "paged":
+        if kv_mode not in ("padded", "paged"):
             raise ValueError(
                 f"kv_mode must be 'padded' or 'paged', got {kv_mode!r} "
                 "(check MLSPARK_SERVE_KV_MODE)"
             )
+        if method == "beam" and kv_mode == "paged":
+            # Beam hypotheses share and reorder their rows' KV; the paged
+            # store has no story for that, so beam engines run padded.
+            log.info("beam method: routing kv_mode paged -> padded")
+            kv_mode = "padded"
         if kv_dtype is None:
             kv_dtype = envcfg.get_str("MLSPARK_SERVE_KV_DTYPE")
         if kv_dtype not in ("float32", "int8"):
             raise ValueError(
                 f"kv_dtype must be 'float32' or 'int8', got {kv_dtype!r} "
                 "(check MLSPARK_SERVE_KV_DTYPE)"
+            )
+        if kv_dtype == "int8" and kv_mode != "paged":
+            # The decode cache of the padded path has no scale plane.
+            raise ValueError(
+                "kv_dtype='int8' requires the paged KV store; this engine "
+                f"resolved kv_mode={kv_mode!r}"
+                + (" via method='beam'" if method == "beam" else "")
+                + " — use kv_mode='paged' with greedy decoding, or drop "
+                "the int8 request (check MLSPARK_SERVE_KV_DTYPE)"
             )
         self.kv_dtype = kv_dtype
         self.quantize_self = bool(quantize_self)
@@ -149,6 +178,8 @@ class ServingEngine:
             cfg.max_len - 1 if max_new_tokens is None else max_new_tokens
         )
         self.method = method
+        self.beam_size = beam_size
+        self.length_penalty = length_penalty
         self.kv_mode = kv_mode
         self.clock = clock
         self.metrics = ServingMetrics(clock=clock)
@@ -157,6 +188,18 @@ class ServingEngine:
             clock=clock, on_expire=self.metrics.on_expire,
             on_slo=self.metrics.on_slo,
         )
+        self._stop = threading.Event()
+        self._worker: threading.Thread | None = None
+        if kv_mode == "padded":
+            self.max_active = max_batch
+            self.runtime = None
+            self.batcher = Batcher(
+                self.queue, boundaries=boundaries, max_batch=max_batch,
+                max_wait_s=max_wait_s,
+            )
+            # 2x max_batch by default: one batch decoding plus one forming.
+            self.pool = KVSlotPool(num_slots or 2 * max_batch)
+            return
         self.max_active = max_active or max_batch
         if prefill_chunk is None:
             prefill_chunk = max(page_size, boundaries[0] // page_size * page_size)
@@ -187,8 +230,27 @@ class ServingEngine:
         # The row pool: one slot = one cache row of the launch.
         self.pool = KVSlotPool(self.max_active)
         self.paged_batcher = TokenBudgetBatcher(self.queue, chunk=prefill_chunk)
-        self._stop = threading.Event()
-        self._worker: threading.Thread | None = None
+
+    def _decode(self, src: torch.Tensor) -> torch.Tensor:
+        """The padded path's decoder over one ``[max_batch, boundary]``
+        rectangle: ``beam_translate`` or ``greedy_translate_cached``."""
+        kw = dict(max_new_tokens=self.max_new_tokens, sos_id=SOS_ID, eos_id=EOS_ID)
+        if self.method == "beam":
+            return beam_translate(
+                self.translator.model, src, beam_size=self.beam_size,
+                length_penalty=self.length_penalty, **kw,
+            )
+        return greedy_translate_cached(self.translator.model, src, **kw)
+
+    @contextlib.contextmanager
+    def _on_device(self):
+        """Decoding context: the engine's card current (if any), no
+        autograd."""
+        with (
+            torch.cuda.device(self.device)
+            if self.device.type == "cuda" else contextlib.nullcontext()
+        ), torch.no_grad():
+            yield
 
     # -- lifecycle -----------------------------------------------------------
     def start(self, *, warmup: bool = True) -> "ServingEngine":
@@ -227,17 +289,36 @@ class ServingEngine:
         self.stop()
 
     def warmup(self) -> int:
-        """Run every prefill width and one launch once, so no request pays
-        a kernel build or a library's start-up. Returns how many distinct
-        shapes ran."""
-        with torch.profiler.record_function("serve_warmup_paged"):
-            n = self.runtime.warmup()
+        """Run every shape a live request could need once, so no request
+        pays a kernel build or a library's start-up — padded: one decode
+        per bucket; paged: every prefill width and one launch. Returns how
+        many distinct shapes ran."""
+        if self.kv_mode == "paged":
+            with torch.profiler.record_function("serve_warmup_paged"):
+                n = self.runtime.warmup()
+            log.info(
+                "warmup ran %d paged shapes (%d prefill widths + 1 launch; "
+                "max_active=%d, page_size=%d, device=%s)",
+                n, n - 1, self.max_active, self.runtime.page_size, self.device,
+            )
+            return n
+        row = [SOS_ID, EOS_ID]
+        with self._on_device():
+            for b in self.boundaries:
+                src = torch.full(
+                    (self.max_batch, b), self._pad_id, dtype=torch.long,
+                    device=self.device,
+                )
+                src[:, : len(row)] = torch.tensor(row)
+                with torch.profiler.record_function(f"serve_warmup_b{b}"):
+                    self._decode(src).cpu()
         log.info(
-            "warmup ran %d paged shapes (%d prefill widths + 1 launch; "
-            "max_active=%d, page_size=%d, device=%s)",
-            n, n - 1, self.max_active, self.runtime.page_size, self.device,
+            "warmup ran %d bucket shapes (max_batch=%d, buckets=%s, "
+            "method=%s, device=%s)",
+            len(self.boundaries), self.max_batch, list(self.boundaries),
+            self.method, self.device,
         )
-        return n
+        return len(self.boundaries)
 
     def compile_count(self) -> int | None:
         """``None``: eager PyTorch keeps no program cache to count."""
@@ -249,6 +330,10 @@ class ServingEngine:
         return None
 
     # -- request path --------------------------------------------------------
+    @property
+    def _pad_id(self) -> int:
+        return self.translator.model.cfg.pad_id
+
     def submit(
         self,
         text: str,
@@ -289,20 +374,30 @@ class ServingEngine:
         launch that raises is quarantined inside the loop; if the loop
         itself dies it is restarted here (``loop_restarts`` counts it).
         The worker runs on the engine's device, and without autograd."""
-        dev_ctx = (
-            torch.cuda.device(self.device)
-            if self.device.type == "cuda" else contextlib.nullcontext()
-        )
-        with dev_ctx, torch.no_grad():
+        with self._on_device():
             while not self._stop.is_set():
                 try:
-                    self._paged_loop()
+                    self._decode_loop()
                 except Exception:  # noqa: BLE001 — a dead loop, not a dead engine
                     if self._stop.is_set():
                         break
                     log.exception("decode loop died; restarting")
                     self.metrics.on_loop_restart()
 
+    def _decode_loop(self) -> None:
+        if self.kv_mode == "paged":
+            self._paged_loop()
+            return
+        while not self._stop.is_set():
+            batch = self.batcher.next_batch(timeout=0.05)
+            if batch is None:
+                continue
+            try:
+                self._run_batch(batch)
+            except Exception as e:  # noqa: BLE001 — a batch must never kill the loop
+                self._quarantine(batch, e)
+
+    # -- the paged decode loop ----------------------------------------------
     def _paged_loop(self) -> None:
         while not self._stop.is_set():
             try:
@@ -497,3 +592,131 @@ class ServingEngine:
         if n:
             self.metrics.on_failure(n)
             log.info("engine stop failed %d in-flight paged rows", n)
+
+    # -- the padded decode path ------------------------------------------------
+    def _quarantine(self, batch: Batch, exc: Exception) -> None:
+        """Contain one failed batch: free its KV slots, fail its (and only
+        its) requests with ``InternalError``, and count it."""
+        log.info("quarantining batch of %d: %r", len(batch.requests), exc)
+        telemetry.annotate(
+            "serving.quarantine", mode="padded", boundary=batch.boundary,
+            requests=len(batch.requests), error=type(exc).__name__,
+        )
+        n = 0
+        for r in batch.requests:
+            self.pool.release_owner(r.id)
+            if not r.future.done():
+                r.trace.mark(
+                    "failed", self.clock(), reason="quarantine",
+                    error=type(exc).__name__,
+                )
+                err = InternalError(
+                    f"decode batch failed internally ({type(exc).__name__}); "
+                    "only this batch's requests are affected"
+                )
+                err.__cause__ = exc
+                r.future.set_exception(err)
+                n += 1
+                self.metrics.on_trace(r)
+        self.metrics.on_quarantine(n)
+        self.metrics.on_failure(n)
+
+    def _take_slots(self, batch: Batch) -> list[ServeRequest]:
+        """All-or-nothing slot acquisition for the batch's live members,
+        shedding any member whose deadline passes while waiting."""
+        members = list(batch.requests)
+        while members and not self._stop.is_set():
+            now = self.clock()
+            live = [r for r in members if not r.expired(now)]
+            for r in members:
+                if r not in live:
+                    self.metrics.on_expire()
+                    self.metrics.on_slo(r.tier, True)
+                    r.trace.mark("expire", now, where="slot_wait")
+                    r.future.set_exception(
+                        DeadlineExceeded(f"request {r.id} expired awaiting a KV slot")
+                    )
+            members = live
+            if not members:
+                break
+            if self.pool.acquire_many([r.id for r in members], timeout=0.05):
+                return members
+        n_failed = 0
+        for r in members:  # engine stopping
+            if not r.future.done():
+                r.trace.mark("failed", self.clock(), reason="engine_stop")
+                r.future.set_exception(EngineStopped("engine stopping"))
+                n_failed += 1
+        if n_failed:
+            self.metrics.on_failure(n_failed)  # terminal — conservation
+        return []
+
+    def _run_batch(self, batch: Batch) -> None:
+        with telemetry.span(
+            "serving.batch", mode="padded", boundary=batch.boundary,
+            size=len(batch.requests),
+            requests=[r.trace.trace_id for r in batch.requests],
+        ):
+            self._run_batch_inner(batch)
+
+    def _run_batch_inner(self, batch: Batch) -> None:
+        members = self._take_slots(batch)
+        if not members:
+            return
+        batch_start = self.clock()
+        for r in members:
+            r.trace.mark(
+                "admit", batch_start, kind="padded", prefill_tokens=batch.boundary,
+            )
+        src = np.full((self.max_batch, batch.boundary), self._pad_id, np.int64)
+        for i, r in enumerate(members):
+            row = r.ids[: batch.boundary]
+            src[i, : len(row)] = row
+        # Filler rows replicate row 0: real tokens keep every attention row
+        # well-formed, and rows past len(members) are discarded.
+        src[len(members):] = src[0]
+        with torch.profiler.record_function(f"serve_decode_b{batch.boundary}"):
+            out = self._decode(torch.from_numpy(src).to(self.device)).cpu()
+        decode_done = self.clock()
+        rows = strip_special_ids(
+            out[: len(members)], pad_id=self._pad_id, sos_id=SOS_ID, eos_id=EOS_ID,
+        )
+        vocab = self.translator.trg_pipe.vocab
+        new_tokens = 0
+        real_decode = 0
+        for r, row in zip(members, rows):
+            r.decode_done_time = decode_done
+            r.trace.note_launch()
+            r.trace.mark("first_token", decode_done)
+            new_tokens += len(row) + 1  # emitted ids + the eos/stop token
+            real_decode += min(len(row) + 1, self.max_new_tokens)
+            # The slot frees at EOS: the row is done either way (eos
+            # emitted, or the max_new_tokens budget exhausted).
+            self.pool.release_owner(r.id)
+            r.trace.mark("complete", decode_done, tokens=len(row))
+            r.future.set_result(" ".join(vocab.lookup_tokens(row)))
+            done = self.clock()
+            self.metrics.on_complete(
+                queue_wait=batch_start - r.submit_time,
+                ttft=decode_done - r.submit_time,
+                total=done - r.submit_time,
+            )
+            self.metrics.on_trace(r)
+            self.metrics.on_slo(r.tier, r.deadline is not None and done > r.deadline)
+        # Padding-waste ledger: the rectangle this batch computed (every
+        # row, filler included, at the full boundary and budget) against
+        # the tokens that were real.
+        self.metrics.on_token_slots(
+            real=sum(min(len(r.ids), batch.boundary) for r in members) + real_decode,
+            padded=self.max_batch * (batch.boundary + self.max_new_tokens),
+        )
+        decode_s = decode_done - batch_start
+        self.queue.note_serviced(len(members), decode_s)
+        self.metrics.on_batch(
+            n_requests=len(members),
+            max_batch=self.max_batch,
+            decode_s=decode_s,
+            new_tokens=new_tokens,
+            queue_depth=self.queue.depth,
+            slot_occupancy=self.pool.occupancy,
+        )

@@ -96,7 +96,7 @@ register(
     "MLSPARK_SERVE_KV_MODE", type="str", default="paged", subsystem="serving",
     description="KV-cache discipline for ServingEngine when kv_mode= is "
     "not passed: `paged` (ragged paged attention, the default) or "
-    "`padded` (the per-bucket rectangle path; not ported yet, raises).",
+    "`padded` (the per-bucket rectangle path; beam engines always take it).",
     choices=("padded", "paged"),
 )
 

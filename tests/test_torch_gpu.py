@@ -416,6 +416,125 @@ def test_paged_engine_on_the_card_matches_the_cpu(cuda):
     assert hop.LAUNCHES["ragged_paged_attention"] > 0
 
 
+def _decode_site(rng, cuda, rows, sk, valid, *, h=8, dh=64):
+    """One decode-step attention call as the model makes it: q a head
+    view of the step's fused qkv, K/V head views of cache buffers
+    ``[rows, sk, h dh]`` (strided, rows 256 bytes apart)."""
+    d = h * dh
+    q = _randn(rng, rows, 1, 3 * d).to(cuda)[..., :d].view(rows, 1, h, dh).transpose(1, 2)
+    k, v = (_randn(rng, rows, sk, d).to(cuda).view(rows, sk, h, dh).transpose(1, 2) for _ in range(2))
+    return q, k, v, None if valid is None else torch.from_numpy(valid).to(cuda)
+
+
+DECODE_STEPS = [0, 31, 32, 33, 99, 198]
+
+
+@pytest.mark.parametrize("pads", [False, True], ids=["prefix", "pads-in-prefix"])
+@pytest.mark.parametrize("t", DECODE_STEPS)
+def test_flash_kernel_at_the_cached_decode_self_site(cuda, t, pads):
+    """One query row per (row, head) against a 200-position self cache
+    whose first t + 1 positions are written (t = 31, 32, 33 straddle a
+    32-key tile; 198 is the last step of a 199-token decode); with pads,
+    half the rows finished earlier and their positions after eos are
+    masked. Every launch choice, and two runs the same bits."""
+    rng = np.random.default_rng(40 + t)
+    valid = np.broadcast_to(np.arange(200) < t + 1, (32, 200)).copy()
+    if pads and t >= 2:
+        valid[::2, int(rng.integers(1, t)) + 1:] = False
+    q, k, v, kv_valid = _decode_site(rng, cuda, 32, 200, valid)
+    want = hop.flash_attention_plain(q, k, v, kv_valid=kv_valid)
+    hop.reset_launches()
+    got = hop.flash_attention(q, k, v, kv_valid=kv_valid)
+    assert hop.LAUNCHES["flash_attention_fwd"] == 1
+    torch.testing.assert_close(got, want, atol=TOL, rtol=0)
+    assert torch.equal(got, hop.flash_attention(q, k, v, kv_valid=kv_valid))
+    for warps, splits in [(1, 1), (2, 1), (4, 1), (2, 2), (4, 2)]:
+        torch.testing.assert_close(
+            hop.flash_attention_fwd(q, k, v, kv_valid=kv_valid, warps=warps, splits=splits),
+            want, atol=TOL, rtol=0,
+        )
+
+
+@pytest.mark.parametrize(
+    "rows,sk,with_valid",
+    [(32, 200, True), (32, 1, False), (16, 64, True), (16, 65, True)],
+    ids=["bleu-cross", "priming", "beam-cross", "beam-self"],
+)
+def test_flash_kernel_at_the_other_decode_sites(cuda, rows, sk, with_valid):
+    """The cross-attention over the sources, the priming call (one key, no
+    mask) and the beam grid (16 rows: two key splits on 132 SMs)."""
+    rng = np.random.default_rng(50 + rows + sk)
+    valid = None
+    if with_valid:
+        valid = np.arange(sk)[None, :] < rng.integers(1, sk + 1, (rows, 1))
+    q, k, v, kv_valid = _decode_site(rng, cuda, rows, sk, valid)
+    want = hop.flash_attention_plain(q, k, v, kv_valid=kv_valid)
+    got = hop.flash_attention(q, k, v, kv_valid=kv_valid)
+    torch.testing.assert_close(got, want, atol=TOL, rtol=0)
+    assert torch.equal(got, hop.flash_attention(q, k, v, kv_valid=kv_valid))
+    for warps, splits in [(1, 1), (2, 1), (4, 1), (2, 2), (4, 2)]:
+        torch.testing.assert_close(
+            hop.flash_attention_fwd(q, k, v, kv_valid=kv_valid, warps=warps, splits=splits),
+            want, atol=TOL, rtol=0,
+        )
+
+
+def test_cached_decoders_on_the_card_launch_the_kernel(cuda):
+    """``greedy_translate_cached`` on the card launches the flash forward
+    for the encoder, the priming call and every step (self and cross per
+    layer), gives the plain path's tokens, and repeats bit for bit; beam
+    search on the card gives the CPU's tokens."""
+    from machine_learning_apache_spark_tpu_torch.models import (
+        Transformer,
+        TransformerConfig,
+        beam_translate,
+        greedy_translate_cached,
+    )
+
+    cfg = TransformerConfig(
+        src_vocab_size=50, trg_vocab_size=47, d_model=128, ffn_hidden=256,
+        num_heads=2, num_layers=2, max_len=24, dropout=0.0,
+    )
+    model = Transformer(cfg, generator=torch.Generator().manual_seed(5))
+    rng = np.random.default_rng(23)
+    src = torch.from_numpy(rng.integers(4, 50, (6, 12)))
+    src[3, 7:] = 0
+    want = greedy_translate_cached(model, src, max_new_tokens=20)
+    want_beam = beam_translate(model, src, beam_size=3, max_new_tokens=20)
+    model = model.to(cuda)
+    hop.reset_launches()
+    got = greedy_translate_cached(model, src.to(cuda), max_new_tokens=20)
+    torch.cuda.synchronize()
+    layers = cfg.num_layers
+    assert hop.LAUNCHES["flash_attention_fwd"] == layers + 2 * layers * (1 + 20)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(got, greedy_translate_cached(model, src.to(cuda), max_new_tokens=20))
+    got_beam = beam_translate(model, src.to(cuda), beam_size=3, max_new_tokens=20)
+    assert torch.equal(got_beam.cpu(), want_beam)
+
+
+def test_sampling_on_the_card_needs_a_card_generator(cuda):
+    from machine_learning_apache_spark_tpu_torch.models import (
+        Transformer,
+        TransformerConfig,
+        sample_translate,
+    )
+
+    cfg = TransformerConfig(
+        src_vocab_size=30, trg_vocab_size=30, d_model=64, ffn_hidden=64,
+        num_heads=1, num_layers=1, max_len=12, dropout=0.0,
+    )
+    model = Transformer(cfg).to(cuda)
+    src = torch.randint(4, 30, (3, 8), generator=torch.Generator().manual_seed(0)).to(cuda)
+    with pytest.raises(ValueError, match="generator on cpu"):
+        sample_translate(model, src, torch.Generator().manual_seed(0), max_new_tokens=5)
+    runs = [
+        sample_translate(model, src, torch.Generator(device=cuda).manual_seed(9), top_k=5, max_new_tokens=5)
+        for _ in range(2)
+    ]
+    assert torch.equal(runs[0], runs[1])
+
+
 def test_full_width_train_steps_on_the_card_match_the_cpu(cuda):
     """Three Adam steps of the reference MT model at full width (d_model
     512, ffn 1024, 8 heads of 64, max_len 200) on fixture batches, from the

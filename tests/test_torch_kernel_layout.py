@@ -41,7 +41,9 @@ H100_SMS = 132
         (1, 8, 64, 30, 64, (4, 1, 64)),     # one key tile: nothing to split
         (32, 8, 200, 200, 64, (4, 1, 64)),  # training sites: 1,024 four-warp blocks
         (32, 8, 199, 199, 64, (4, 1, 64)),  # decoder self-attention
-        (64, 8, 1, 65, 64, (1, 1, 64)),     # one-row decode step: one warp fills it
+        (64, 8, 1, 65, 64, (2, 2, 64)),     # one-row decode step: 2 splits walk its key tiles
+        (32, 8, 1, 200, 64, (2, 2, 64)),    # the eval decode's self cache: 7 tiles, 2 splits
+        (32, 8, 1, 1, 64, (1, 1, 64)),      # the priming call: one key, nothing to split
         (64, 8, 24, 70, 64, (2, 1, 64)),    # 24 rows fill two row groups, not four
         (2, 4, 40, 30, 8, (2, 1, 64)),      # small head dims take the 64 build; 40 rows fill 2 groups
         (3, 2, 17, 45, 72, (4, 2, 128)),

@@ -5,8 +5,10 @@ metrics) mirror the JAX package's ``tests/test_serving.py`` against the
 port's copies. The paged engine (``device="cpu"``: plain versions of the
 kernels) must give tokens identical to the JAX package's paged engine
 with the same bridged weights, for fp32 and int8 pages, and to the port's
-one-shot ``greedy_translate``; its pools and prefix-cache refcounts must
-return to baseline after a drain and after a mid-decode deadline expiry.
+one-shot ``Translator``; its pools and prefix-cache refcounts must return
+to baseline after a drain and after a mid-decode deadline expiry. The
+padded engine and the beam engine must give the tokens of the JAX
+engines in the same mode, and the padded engine those of the paged one.
 """
 
 import threading
@@ -275,21 +277,76 @@ def test_paged_engine_tokens_identical_to_jax_engine(translators, kv_dtype):
         assert got == tt(texts, max_new_tokens=8)  # the one-shot oracle
 
 
-def test_engine_rejects_what_is_not_ported(translators, monkeypatch):
+def test_engine_rejects_what_the_jax_engine_rejects(translators, monkeypatch):
+    """The JAX engine's construction-time rejections: int8 pages need the
+    paged store (a padded or beam engine says how its mode resolved), an
+    unknown KV dtype or method; and a sampling call needs its rng."""
     _, tt, _ = translators
     base = {k: v for k, v in ENGINE.items() if k != "kv_mode"}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt.serve(kv_mode="padded", start=False, **base)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt.serve(method="beam", start=False, **base)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt(["a b"], method="beam")
+    with pytest.raises(ValueError, match="requires the paged KV store"):
+        tt.serve(kv_mode="padded", kv_dtype="int8", start=False, **base)
+    with pytest.raises(ValueError, match="via method='beam'"):
+        tt.serve(method="beam", kv_dtype="int8", start=False, **base)
     with pytest.raises(ValueError, match="kv_dtype"):
         tt.serve(kv_dtype="int4", start=False, **base)
+    with pytest.raises(ValueError, match="method"):
+        tt.serve(method="sample", start=False, **base)
+    with pytest.raises(ValueError, match="explicit rng"):
+        tt(["a b"], method="sample")
     monkeypatch.setenv("MLSPARK_SERVE_KV_DTYPE", "int8")
     eng = tt.serve(start=False, **base)
     assert eng.kv_mode == "paged" and eng.kv_dtype == "int8"
     assert eng.runtime.kv_mem.dtype.itemsize == 1
+
+
+def test_kv_mode_env_flips_the_default(translators, monkeypatch):
+    _, tt, _ = translators
+    base = {k: v for k, v in ENGINE.items() if k != "kv_mode"}
+    monkeypatch.setenv("MLSPARK_SERVE_KV_MODE", "padded")
+    eng = tt.serve(start=False, **base)
+    assert eng.kv_mode == "padded" and eng.runtime is None
+    assert eng.pool.free == 2 * base["max_batch"]  # one batch decoding, one forming
+    eng = tt.serve(kv_mode="paged", start=False, **base)  # the argument wins
+    assert eng.kv_mode == "paged" and eng.runtime is not None
+    eng = tt.serve(method="beam", kv_mode="paged", start=False, **base)
+    assert eng.kv_mode == "padded"  # beam always runs padded
+
+
+PADDED_MODES = {
+    "padded": dict(kv_mode="padded"),
+    "beam2": dict(method="beam", beam_size=2),
+}
+
+
+@pytest.mark.parametrize("mode", list(PADDED_MODES))
+def test_padded_engines_tokens_identical_to_jax_engine(translators, mode):
+    """The padded greedy engine and the beam engine against the JAX
+    engines in the same mode; the padded engine also against the paged
+    engine and the one-shot ``Translator``. Slots drain and the ledger
+    conserves."""
+    jt, tt, texts = translators
+    texts = texts[:12]
+    kw = {**ENGINE, **PADDED_MODES[mode], "max_wait_s": 0.01}
+    with jt.serve(**kw) as eng:
+        want = [f.result(timeout=120) for f in [eng.submit(s) for s in texts]]
+        want_real = eng.metrics.real_tokens
+    with tt.serve(**kw) as eng:
+        assert eng.kv_mode == "padded" and eng.runtime is None
+        got = [f.result(timeout=120) for f in [eng.submit(s) for s in texts]]
+        assert eng.metrics.completed == len(texts) and eng.pool.in_use == 0
+        assert eng.recompiles_after_warmup is None  # eager: no program cache
+        eng.metrics.check_conservation(in_flight=0)
+        real, padded = eng.metrics.real_tokens, eng.metrics.padded_tokens
+    assert got == want
+    # The real-token ledger counts each request once, however the batches
+    # formed; the padded one counts the rectangles that ran.
+    assert real == want_real and 0 < real < padded
+    if mode == "padded":
+        with tt.serve(**ENGINE) as eng:
+            paged = [f.result(timeout=120) for f in [eng.submit(s) for s in texts]]
+        assert got == paged == tt(texts, max_new_tokens=8)
+    else:
+        assert got == tt(texts, method="beam", beam_size=2, max_new_tokens=8)
 
 
 def _prefix_refcounts(runtime):

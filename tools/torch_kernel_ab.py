@@ -13,7 +13,8 @@ time per call: the forward at the serving prefill; the ragged decode at
 its cross-attention and self-attention sites over fp32 and int8 pages;
 the forward with ``lse``, dQ and dK/dV at the three MT training sites
 and at one sequence of the encoder site (fixture keys, all keys valid);
-and the forward at the eval/BLEU decode's sites. The inputs are made by
+and the forward at the KV-cache decoders' one-query-row sites (with each
+tree's own launch choice). The inputs are made by
 this tree's ``chip_smoke.py`` helpers from the same seeds for every run,
 and the wrappers are called only with arguments that trees since the
 first port slice take, so an older tree runs as it is. Prints each run's
@@ -77,7 +78,7 @@ def worker(tree: Path) -> dict:
         kw = {k: v for k, v in kw.items() if v is not None}
         record(f"ragged @ {site}", lambda args=args, kw=kw: hop.ragged_paged_attention(*args, **kw))
 
-    src_pipe, _, train_ds = cs.fixture_data()
+    _, _, train_ds = cs.fixture_data()
     src0, trg0 = cs.train_batches(train_ds, 1)[0]
     sites = cs.training_sites(torch, np.random.default_rng(cs.SEED + 4), dev, src0, trg0[:, :-1])
     sites |= cs.one_sequence_sites(torch, sites["encoder self"])
@@ -94,8 +95,9 @@ def worker(tree: Path) -> dict:
         record(f"dK/dV @ {site}",
                lambda q=q, k=k, v=v, g=g, lse=lse, delta=delta, kw=kw:
                hop.flash_attention_bwd_dkv(q, k, v, g, lse, delta, **kw))
-    for site, t in cs.time_bleu_forward(torch, hop, dev, src_pipe).items():
-        times[f"forward @ eval/BLEU {site}"] = t["device_ms"]
+    for site, c in cs.decode_sites(torch, dev, cs.bleu_val_valid()).items():
+        record(f"forward @ decode {site}",
+               lambda c=c: hop.flash_attention_fwd(c["q"], c["k"], c["v"], kv_valid=c["kv_valid"]))
     return dict(tree=str(tree), card=cs.card_line(), device_ms=times)
 
 
