@@ -48,7 +48,16 @@ Phases, each fatal on failure:
    the one-shot ``Translator`` (KV-cache greedy) with the uncached
    ``greedy_translate`` on the card, and of the beam engine with
    ``beam_translate`` on the CPU; then that sampling from one CUDA
-   generator seed repeats and that sampling at temperature 0 is greedy;
+   generator seed repeats and that sampling at temperature 0 is greedy.
+   Every engine captures its programs as CUDA graphs at warmup (paged:
+   one prefill per chunk width and the 4-step launch; padded and beam:
+   the whole decode of each bucket): each must hold the JAX engine's
+   program count, read ``recompiles_after_warmup == 0`` after its run,
+   and launch each kernel exactly as often as eager execution of the
+   same replays would (every capture's recorded launches equal its eager
+   warm run's). Then one paged launch (fp32 and int8 pages) and one
+   bucket decode (padded and beam), replayed, must equal an eager call of
+   the same function on cloned stores and inputs bit for bit;
 5. training — ``recipes.translation.train_translator`` on the card at the
    reference recipe's full width (dropout 0.1, Adam 1e-3, batch 32, one
    epoch over the 400 fixture pairs in ``assets/fixtures``: 12 steps), then
@@ -61,7 +70,11 @@ Phases, each fatal on failure:
    same 4 on the CPU (plain versions): per-step losses within 1e-3
    relative, step-0 gradients within 1e-4 relative;
 6. times — requests/s, generated tokens/s and peak device memory of each
-   engine (paged fp32 and int8, padded, beam), and each kernel's time
+   engine (paged fp32 and int8, padded, beam); each engine's requests/s
+   and device idle share over one profiled window; the host time of the
+   paged engines' decode thread per launch, split by activity (staging,
+   replay, read-back, the Python fold of the emits, the engine's
+   bookkeeping, admission and prefill, the loop's waits); each kernel's time
    (CUDA events) beside its bound, its plain version's time and one
    library call's, at the serving shapes (the ragged kernel at the
    decode's cross-attention over fp32 and int8 pages and its
@@ -768,15 +781,54 @@ def agreement(a: list[str], b: list[str]) -> tuple[float, list[str]]:
     return (same / total if total else 1.0), notes
 
 
+def expected_programs(eng, engine_kw: dict) -> int:
+    """The JAX engine's program count for this configuration: paged, one
+    prefill per chunk width and the launch; padded and beam, one decoder
+    per bucket."""
+    if eng.runtime is not None:
+        return eng.runtime.max_chunks + 1
+    return len(engine_kw["boundaries"])
+
+
+def check_programs(label: str, eng, engine_kw: dict, before: list, launches: dict) -> dict:
+    """The compile-at-warmup contract over one run: the engine holds the
+    JAX engine's program count and built none after warmup; every capture
+    recorded the launches its eager warm run made; and the run's launches
+    equal what eager execution of the same calls gives (each program's
+    replays in the run times its eager launches). Returns each program's
+    replays in the run."""
+    n, recompiles = eng.compile_count(), eng.recompiles_after_warmup
+    if n != expected_programs(eng, engine_kw):
+        fail(f"{label} engine holds {n} programs, the JAX engine {expected_programs(eng, engine_kw)}")
+    if recompiles != 0:
+        fail(f"{label} engine: recompiles_after_warmup {recompiles}")
+    after = eng.programs().stats()
+    eager = dict.fromkeys(launches, 0)
+    replays = {}
+    for b, a in zip(before, after):
+        if a["launches"] != a["eager_launches"]:
+            fail(f"{label} engine: program {a['name']} {a['signature']} recorded "
+                 f"{a['launches']} in its capture, {a['eager_launches']} eagerly")
+        runs = a["replays"] - b["replays"]
+        replays[f"{a['name']} {a['signature'][0][0]}"] = runs
+        for k, m in a["eager_launches"].items():
+            eager[k] += runs * m
+    if launches != eager:
+        fail(f"{label} engine launched {launches}, eager execution of its replays {eager}")
+    return replays
+
+
 def serve_once(torch, hop, translator, prompts, label: str, **engine_kw) -> dict:
     """One engine over all prompts; returns outputs, counts and times.
-    Checks that every request completes, that the pools drain, and that
-    each kernel of the engine's path launched (paged: the flash forward
-    and the ragged decode; padded and beam: the flash forward)."""
+    Checks that every request completes, that the pools drain, that each
+    kernel of the engine's path launched (paged: the flash forward and the
+    ragged decode; padded and beam: the flash forward), and the
+    compile-at-warmup contract (``check_programs``)."""
     eng = translator.serve(**engine_kw)
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        before = eng.programs().stats()
         hop.reset_launches()
         t0 = time.perf_counter()
         futs = [eng.submit(p) for p in prompts]
@@ -790,6 +842,8 @@ def serve_once(torch, hop, translator, prompts, label: str, **engine_kw) -> dict
         metrics = eng.metrics.summary()
         eng.metrics.check_conservation(in_flight=0)
         peak = torch.cuda.max_memory_allocated()
+        replays = check_programs(label, eng, engine_kw, before, launches)
+        programs = eng.compile_count()
     finally:
         eng.stop()
     if metrics["completed"] != len(prompts):
@@ -803,7 +857,72 @@ def serve_once(torch, hop, translator, prompts, label: str, **engine_kw) -> dict
         outs=outs, wall=wall, launches=launches, stats=stats,
         tokens=metrics["tokens_out"], peak=peak, kv_mode=eng.kv_mode,
         hits=stats["prefix_cache"]["hits"] if paged else None,
+        programs=programs, replays=replays,
     )
+
+
+def replay_vs_eager(torch, hop, translator, prompts) -> None:
+    """One paged launch (fp32 and int8 pages, rows of real prompts two
+    launches in) and one bucket decode (padded and beam, a rectangle of
+    real prompts) replayed from the programs captured at warmup, against
+    an eager call of the same function on cloned stores and inputs: the
+    outputs and the stores bit for bit, and the replay's launches equal
+    to the eager call's."""
+    from machine_learning_apache_spark_tpu_torch.serving import ServeRequest
+
+    dev = translator.device
+
+    def compare(label, replay, eager):
+        hop.reset_launches()
+        want = eager()
+        torch.cuda.synchronize()
+        eager_n = dict(hop.LAUNCHES)
+        hop.reset_launches()
+        got = replay()
+        torch.cuda.synchronize()
+        if dict(hop.LAUNCHES) != eager_n:
+            fail(f"{label}: the replay launched {dict(hop.LAUNCHES)}, the eager call {eager_n}")
+        for g, w in zip(got, want):
+            if not torch.equal(g, w):
+                diff = (g.double() - w.double()).abs().max().item()
+                fail(f"{label}: replay and eager call differ (max abs {diff:.3e})")
+        log(f"  {label}: replay == eager call bit for bit over {len(got)} tensors, "
+            f"launches {eager_n}")
+
+    for kv in ("float32", "int8"):
+        eng = translator.serve(start=False, kv_dtype=kv, **SERVE)
+        eng.warmup()
+        rt = eng.runtime
+        for row, p in enumerate(prompts[: rt.max_active]):
+            if rt.admit(ServeRequest(p, translator.src_pipe.ragged([p])[0], 0.0), row) is None:
+                fail(f"paged {kv}: no pages for prompt {row}")
+        for _ in range(2):
+            rt.grow()
+            rt.launch()
+        rt.grow()
+        inputs = [t.to(dev) for t in rt._stage()]
+        stores = [None if t is None else t.clone() for t in rt.stores()]
+
+        def eager(stores=stores, inputs=inputs, rt=rt):
+            return [rt._decode(stores, *inputs), *(t for t in stores if t is not None)]
+
+        def replay(rt=rt):
+            return [rt._replay(rt._stage()), *(t for t in rt.stores() if t is not None)]
+
+        compare(f"paged {kv} launch", replay, eager)
+    pad = translator.model.cfg.pad_id
+    for label, kw, n in (("padded", SERVE_PADDED, None), ("beam", SERVE_BEAM, N_BEAM)):
+        eng = translator.serve(start=False, **kw)
+        eng.warmup()
+        b = kw["boundaries"][-1]
+        src = np.full((eng.max_batch, b), pad, np.int64)
+        for i, p in enumerate(prompts[:n][: eng.max_batch]):
+            ids = translator.src_pipe.ragged([p])[0][:b]
+            src[i, : len(ids)] = ids
+        host = torch.from_numpy(src)
+        compare(f"{label} bucket {b} decode",
+                lambda eng=eng, host=host: [eng._decode(host).clone()],
+                lambda eng=eng, host=host: [eng._decode_body(host.to(dev))])
 
 
 def one_shot(torch, hop, label: str, decode) -> tuple[list[str], dict]:
@@ -883,6 +1002,103 @@ def device_ms_per_call(torch, fn, n: int = 50) -> float | None:
 
     rows = profile_device(torch, many)
     return sum(r[2] for r in rows) / 1e3 / n if rows else None
+
+
+def serve_window(torch, eng, prompts) -> float:
+    """Submit every prompt at once and wait for all: the window's wall
+    seconds, from a synchronised card to a synchronised card."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for f in [eng.submit(p) for p in prompts]:
+        f.result(timeout=600)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def profiled_window(torch, eng, prompts, window=serve_window) -> dict:
+    """One serving window under the profiler (device activity only):
+    wall, device busy seconds and idle share, the profiler's rows, and the
+    outer time with its start and stop. ``busy`` is None when the profiler
+    saw no device work."""
+    out = {}
+
+    def run():
+        out["wall"] = window(torch, eng, prompts)
+
+    t0 = time.perf_counter()
+    rows = profile_device(torch, run)
+    out["outer"] = time.perf_counter() - t0
+    out["rows"] = rows
+    out["busy"] = sum(r[2] for r in rows) / 1e6 if rows else None
+    out["idle_share"] = None if out["busy"] is None else 1 - out["busy"] / out["wall"]
+    return out
+
+
+#: The paged engine's decode-thread activities that ``host_split`` times:
+#: (label, engine or runtime, method). A method a tree lacks is left out.
+HOST_ACTIVITIES = (
+    ("admission", "engine", "_paged_admit"),
+    ("take", "batcher", "take"),
+    ("prefill", "runtime", "_prefill"),
+    ("step", "engine", "_paged_step"),
+    ("launch", "runtime", "launch"),
+    ("launch_device", "runtime", "_launch_device"),
+    ("stage", "runtime", "_stage"),
+    ("replay", "runtime", "_replay"),
+    ("read_back", "runtime", "_read_back"),
+)
+
+
+def host_split(torch, translator, engine_kw: dict, prompts, window=serve_window) -> dict:
+    """Host time of a paged engine's decode thread over one window, by
+    activity, in ms per launch: a fresh engine is warmed up, each method
+    of ``HOST_ACTIVITIES`` is wrapped on the instance with a clock, and
+    the engine starts and serves the window. Derived: the
+    Python ``fold`` of the emits (launch - launch_device), the engine's
+    ``step_bookkeeping`` around the launch (page growth, the deadline
+    sweep, retirement, metrics: step - launch), its
+    ``admission_bookkeeping`` (admission - prefill - take, where ``take``
+    also waits for requests while no row is active) and ``loop_other``
+    (wall - step - prefill - admission_bookkeeping: the waits for
+    requests, expiry sweeps and thread hand-offs)."""
+    eng = translator.serve(start=False, **engine_kw)
+    eng.warmup()
+    totals, calls, wrapped = {}, {}, []
+    for label, owner, name in HOST_ACTIVITIES:
+        obj = {"engine": eng, "runtime": eng.runtime, "batcher": eng.paged_batcher}[owner]
+        fn = getattr(obj, name, None)
+        if fn is None:
+            continue
+        totals[label], calls[label] = 0.0, 0
+
+        def timed(*a, _fn=fn, _label=label, **k):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*a, **k)
+            finally:
+                totals[_label] += time.perf_counter() - t0
+                calls[_label] += 1
+
+        setattr(obj, name, timed)
+        wrapped.append((obj, name))
+    try:
+        with eng.start(warmup=False):
+            wall = window(torch, eng, prompts)
+    finally:
+        for obj, name in wrapped:
+            delattr(obj, name)
+    n = max(calls["launch"], 1)
+    t = dict(totals)
+    t["fold"] = t["launch"] - t["launch_device"]
+    t["step_bookkeeping"] = t["step"] - t["launch"]
+    t["admission_bookkeeping"] = t["admission"] - t["prefill"] - t["take"]
+    t["loop_other"] = wall - t["step"] - t["prefill"] - t["admission_bookkeeping"]
+    order = ("stage", "replay", "read_back", "launch_device", "fold", "launch", "step_bookkeeping",
+             "step", "prefill", "admission_bookkeeping", "loop_other")
+    return dict(
+        wall=wall, launches=calls["launch"], prefills=calls["prefill"],
+        per_launch_ms={k: (t[k] * 1e3 / n if k in t else None) for k in order},
+    )
 
 
 def bound_ms(name: str, bytes_moved: float, flops: float) -> tuple[float, str]:
@@ -1615,6 +1831,9 @@ def main() -> int:
                  if run["kv_mode"] == "paged" else "KV slots all free")
         log(f"  {label:7s} engine ({run['kv_mode']}): {len(run['outs'])} completed in "
             f"{run['wall']:.3f} s, launches {run['launches']}, {pools}")
+        log(f"          {run['programs']} programs captured at warmup, recompiles_after_warmup 0, "
+            f"launches == eager execution of the replays {run['replays']}")
+    replay_vs_eager(torch, hop, translator, prompts)
 
     mnt = SERVE["max_new_tokens"]
     one_shot_launches = {}
@@ -1674,36 +1893,36 @@ def main() -> int:
             f"{run['tokens'] / run['wall']:.1f} generated tokens/s "
             f"({len(run['outs'])} requests, {run['tokens']} tokens), peak max_memory_allocated "
             f"{run['peak'] / 2**20:.1f} MiB [{card}]")
-    # Where a serving run's time goes: the fp32 engine once more, with the
-    # profiler recording device activity. Busy time and wall time come
-    # from one window, submit to drain, timed inside the profiler so that
-    # its start and stop stay outside.
-    eng = translator.serve(kv_dtype="float32", **SERVE)
-    window = {}
-
-    def serve_all():
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for f in [eng.submit(p) for p in prompts]:
-            f.result(timeout=600)
-        torch.cuda.synchronize()
-        window["wall"] = time.perf_counter() - t0
-
-    try:
-        t0 = time.perf_counter()
-        rows = profile_device(torch, serve_all)
-        outer = time.perf_counter() - t0
-    finally:
-        eng.stop()
-    if rows:
-        busy, wall = sum(r[2] for r in rows) / 1e6, window["wall"]
-        log(f"  profiled fp32 serving run: submit-to-drain wall {wall:.4f} s, device busy "
-            f"{busy:.4f} s, device idle share {1 - busy / wall:.4f} (one window; "
-            f"profiler start and stop outside it, {outer - wall:.4f} s) [{card}]")
-        for name, calls, us in rows[:10]:
-            log(f"    {us / 1e3:10.3f} ms  {calls:6d} calls  {name[:90]}")
-    else:
-        log("  profiled fp32 serving run: device time not measured (the profiler saw no device work)")
+    # Where a serving run's time goes: each engine once more, its programs
+    # captured at warmup, with the profiler recording device activity.
+    # Busy time and wall time come from one window, submit to drain, timed
+    # inside the profiler so that its start and stop stay outside. Then
+    # the paged fp32 engine's decode thread, split by host activity.
+    windows = (("paged fp32", dict(kv_dtype="float32", **SERVE), prompts),
+               ("paged int8", dict(kv_dtype="int8", **SERVE), prompts),
+               ("padded", SERVE_PADDED, prompts), ("beam", SERVE_BEAM, beam_prompts))
+    for label, kw, window_prompts in windows:
+        eng = translator.serve(**kw)
+        try:
+            prof = profiled_window(torch, eng, window_prompts)
+        finally:
+            eng.stop()
+        split = host_split(torch, translator, kw, window_prompts) if eng.runtime is not None else None
+        if prof["busy"] is None:
+            log(f"  profiled {label} serving run: device time not measured (the profiler saw no device work)")
+        else:
+            log(f"  profiled {label} serving run (CUDA graphs): {len(window_prompts) / prof['wall']:.2f} "
+                f"requests/s, submit-to-drain wall {prof['wall']:.4f} s, device busy "
+                f"{prof['busy']:.4f} s, device idle share {prof['idle_share']:.4f} (one window; "
+                f"profiler start and stop outside it, {prof['outer'] - prof['wall']:.4f} s) [{card}]")
+        if label == "paged fp32":
+            for name, calls, us in prof["rows"][:10]:
+                log(f"    {us / 1e3:10.3f} ms  {calls:6d} calls  {name[:90]}")
+        if split is not None:
+            log(f"  host time of the {label} decode thread per launch ({split['launches']} launches, "
+                f"window wall {split['wall']:.4f} s), ms: "
+                + ", ".join(f"{k} {v:.4f}" for k, v in split["per_launch_ms"].items() if v is not None)
+                + f" [{card}]")
     # The eval/BLEU decode's forward launches of the recipe run: all of its
     # forward launches but the training steps' (one per site and layer).
     eval_launches = trained["launches"]["flash_attention_fwd"] - 3 * trained["steps"] * trained["layers"]

@@ -36,6 +36,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <map>
+#include <mutex>
+#include <utility>
+
 namespace hopper {
 
 constexpr unsigned kFull = 0xffffffffu;
@@ -127,13 +131,30 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Above 48 KB a block's dynamic shared memory must be asked for.
+// Above 48 KB a block's dynamic shared memory must be asked for, once per
+// kernel and device: a size already granted is not asked for again. So a
+// launch recorded into a CUDA graph makes no attribute call while the graph
+// is captured, as long as an eager run at the same size came first (the
+// program cache's warm run).
+inline cudaError_t allow_smem_bytes(const void* kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  static std::mutex lock;
+  static std::map<std::pair<int, const void*>, size_t> granted;
+  std::lock_guard<std::mutex> guard(lock);
+  size_t& have = granted[{device, kernel}];
+  if (bytes <= have) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err == cudaSuccess) have = bytes;
+  return err;
+}
+
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
+  return allow_smem_bytes(reinterpret_cast<const void*>(kernel), bytes);
 }
 
 }  // namespace hopper

@@ -804,8 +804,9 @@ def beam_translate(
     lengths = torch.zeros((b, k), dtype=torch.long, device=dev)  # incl. eos
     best_score = torch.full((b,), NEG_INF, dtype=torch.float32, device=dev)
     best_ys = torch.full((b, gen_len), pad, dtype=torch.long, device=dev)
-    pad_only = torch.full((vocab,), NEG_INF, dtype=torch.float32, device=dev)
-    pad_only[pad] = 0.0
+    # Built without a host-to-device copy, so the serving engine can
+    # capture the whole search as one CUDA graph.
+    pad_only = torch.where(torch.arange(vocab, device=dev) == pad, 0.0, NEG_INF)
     later_beams = torch.arange(k, device=dev)[None, :, None] > 0
     sentence = torch.arange(b, device=dev)
 

@@ -29,11 +29,17 @@ wrapper passes what ``ragged_launch_params`` picks (splits, stages). Each
 wrapper takes the plain version only for tensors on the CPU; for a CUDA
 tensor it launches the kernel or raises — there is no fallback. ``LAUNCHES`` counts kernel launches (plain calls are not
 counted), so a run can show that its main path went through the kernels.
+A launch made while a CUDA graph is being captured runs only when the
+graph is replayed: ``recorded_launches(counted=False)`` keeps it out of
+``LAUNCHES`` and hands it to the capturer, which adds it back on every
+replay (``utils/graph_cache.py``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -71,9 +77,34 @@ LAUNCHES = {
 }
 
 
+_RECORDING = threading.local()
+
+
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def add_launches(counts: dict) -> None:
+    """Adds ``counts`` (kernel name -> launches) to ``LAUNCHES``: what a
+    replayed CUDA graph launched."""
+    for name, n in counts.items():
+        LAUNCHES[name] += n
+
+
+@contextlib.contextmanager
+def recorded_launches(*, counted: bool):
+    """Records the kernel launches this thread makes inside the block in
+    the dict it yields (kernel name -> launches). With ``counted=False``
+    they are left out of ``LAUNCHES``: a graph capture, whose kernels run
+    only when the graph is replayed."""
+    record = dict.fromkeys(LAUNCHES, 0)
+    outer = getattr(_RECORDING, "state", None)
+    _RECORDING.state = (record, counted)
+    try:
+        yield record
+    finally:
+        _RECORDING.state = outer
 
 
 def _check_head_dim(head_dim: int) -> None:
@@ -104,7 +135,11 @@ def _launch(name: str, dev: torch.device, *args) -> None:
         err = fn(*args, stream)
     if err:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
-    LAUNCHES[name] += 1
+    state = getattr(_RECORDING, "state", None)
+    if state is not None:
+        state[0][name] += 1
+    if state is None or state[1]:
+        LAUNCHES[name] += 1
 
 
 # -- flash attention: shapes and plain versions ----------------------------------

@@ -17,11 +17,21 @@ background worker decodes in one of two KV disciplines (``kv_mode``):
 A raised launch, admission or batch quarantines its own requests only;
 everything still queued keeps flowing.
 
+Compile at warmup, as the JAX engine does: ``warmup()`` (run by
+``start()``) builds every program a live request can need — paged: one
+prefill per chunk width and the K-step launch (the runtime's
+``programs()``); padded and beam: one program per bucket, the whole
+``greedy_translate_cached`` or ``beam_translate`` over ``[max_batch,
+boundary]`` (encoder, priming call, every step and every beam reorder).
+On the card each program is a CUDA graph captured then and replayed
+after (``utils/graph_cache.py``); on the CPU it runs eagerly and is
+counted alike. ``compile_count()`` is the number of programs (paged:
+``max_chunks + 1``; padded and beam: ``len(boundaries)``, the JAX
+engine's figures) and ``recompiles_after_warmup`` how many were added
+after warmup — 0 in a healthy steady state.
+
 Not ported yet (ROADMAP): the telemetry HTTP server, status and health
-providers, flight-recorder dumps and fault-injection sites. Eager PyTorch
-keeps no program cache, so ``compile_count()`` and
-``recompiles_after_warmup`` report ``None`` — the JAX contract's "probe
-not exposed" case.
+providers, flight-recorder dumps and fault-injection sites.
 """
 
 from __future__ import annotations
@@ -62,6 +72,7 @@ from machine_learning_apache_spark_tpu_torch.telemetry import (
 )
 from machine_learning_apache_spark_tpu_torch.train.metrics import strip_special_ids
 from machine_learning_apache_spark_tpu_torch.utils import env as envcfg
+from machine_learning_apache_spark_tpu_torch.utils.graph_cache import ProgramCache
 from machine_learning_apache_spark_tpu_torch.utils.logging import get_logger
 
 log = get_logger(__name__)
@@ -190,9 +201,12 @@ class ServingEngine:
         )
         self._stop = threading.Event()
         self._worker: threading.Thread | None = None
+        self._compiles_at_warmup: int | None = None
         if kv_mode == "padded":
             self.max_active = max_batch
             self.runtime = None
+            # One program per bucket: the whole decode over the rectangle.
+            self._programs = ProgramCache(self.device)
             self.batcher = Batcher(
                 self.queue, boundaries=boundaries, max_batch=max_batch,
                 max_wait_s=max_wait_s,
@@ -230,10 +244,18 @@ class ServingEngine:
         # The row pool: one slot = one cache row of the launch.
         self.pool = KVSlotPool(self.max_active)
         self.paged_batcher = TokenBudgetBatcher(self.queue, chunk=prefill_chunk)
+        self._programs = self.runtime.programs()
 
     def _decode(self, src: torch.Tensor) -> torch.Tensor:
-        """The padded path's decoder over one ``[max_batch, boundary]``
-        rectangle: ``beam_translate`` or ``greedy_translate_cached``."""
+        """The padded path's program for one ``[max_batch, boundary]``
+        rectangle of int64 ids (on the host): the bucket's decoder
+        output, ``[max_batch, max_new_tokens + 1]`` on the device, valid
+        until the next call."""
+        return self._programs("decode", self._decode_body, src)
+
+    def _decode_body(self, src: torch.Tensor) -> torch.Tensor:
+        """``beam_translate`` or ``greedy_translate_cached`` over the
+        rectangle ``src``, on the device."""
         kw = dict(max_new_tokens=self.max_new_tokens, sos_id=SOS_ID, eos_id=EOS_ID)
         if self.method == "beam":
             return beam_translate(
@@ -289,15 +311,16 @@ class ServingEngine:
         self.stop()
 
     def warmup(self) -> int:
-        """Run every shape a live request could need once, so no request
-        pays a kernel build or a library's start-up — padded: one decode
-        per bucket; paged: every prefill width and one launch. Returns how
-        many distinct shapes ran."""
+        """Build every program a live request could need — padded: one
+        decoder per bucket; paged: every prefill width and the launch —
+        so no request pays a capture, a kernel build or a library's
+        start-up. Returns the program count."""
         if self.kv_mode == "paged":
-            with torch.profiler.record_function("serve_warmup_paged"):
+            with self._on_device(), torch.profiler.record_function("serve_warmup_paged"):
                 n = self.runtime.warmup()
+            self._compiles_at_warmup = self.compile_count()
             log.info(
-                "warmup ran %d paged shapes (%d prefill widths + 1 launch; "
+                "warmup built %d paged programs (%d prefill widths + 1 launch; "
                 "max_active=%d, page_size=%d, device=%s)",
                 n, n - 1, self.max_active, self.runtime.page_size, self.device,
             )
@@ -305,29 +328,35 @@ class ServingEngine:
         row = [SOS_ID, EOS_ID]
         with self._on_device():
             for b in self.boundaries:
-                src = torch.full(
-                    (self.max_batch, b), self._pad_id, dtype=torch.long,
-                    device=self.device,
-                )
-                src[:, : len(row)] = torch.tensor(row)
+                src = np.full((self.max_batch, b), self._pad_id, np.int64)
+                src[:, : len(row)] = row
                 with torch.profiler.record_function(f"serve_warmup_b{b}"):
-                    self._decode(src).cpu()
+                    self._decode(torch.from_numpy(src)).cpu()
+        self._compiles_at_warmup = self.compile_count()
         log.info(
-            "warmup ran %d bucket shapes (max_batch=%d, buckets=%s, "
+            "warmup built %d bucket programs (max_batch=%d, buckets=%s, "
             "method=%s, device=%s)",
             len(self.boundaries), self.max_batch, list(self.boundaries),
             self.method, self.device,
         )
         return len(self.boundaries)
 
-    def compile_count(self) -> int | None:
-        """``None``: eager PyTorch keeps no program cache to count."""
-        return None
+    def programs(self) -> ProgramCache:
+        """The engine's programs: the paged runtime's prefill widths and
+        launch, or the padded engine's bucket decoders."""
+        return self._programs
+
+    def compile_count(self) -> int:
+        """How many programs the engine holds (``programs().size()``)."""
+        return self._programs.size()
 
     @property
     def recompiles_after_warmup(self) -> int | None:
-        """``None``, for the same reason as ``compile_count``."""
-        return None
+        """Programs built since ``warmup()`` — 0 in a healthy steady
+        state; None before warmup."""
+        if self._compiles_at_warmup is None:
+            return None
+        return self.compile_count() - self._compiles_at_warmup
 
     # -- request path --------------------------------------------------------
     @property
@@ -676,7 +705,7 @@ class ServingEngine:
         # well-formed, and rows past len(members) are discarded.
         src[len(members):] = src[0]
         with torch.profiler.record_function(f"serve_decode_b{batch.boundary}"):
-            out = self._decode(torch.from_numpy(src).to(self.device)).cpu()
+            out = self._decode(torch.from_numpy(src)).cpu()
         decode_done = self.clock()
         rows = strip_special_ids(
             out[: len(members)], pad_id=self._pad_id, sos_id=SOS_ID, eos_id=EOS_ID,

@@ -29,10 +29,22 @@ Two kinds of work run over the stores:
 
 Where JAX threads the stores through donated jitted programs, the port
 updates ``kv_self``/``kv_mem`` and their scale planes **in place**
-(``index_put_``), so no store is ever copied. Host state (block tables,
-cursors, row↔request maps) is plain numpy, mutated only by the engine's
-decode thread; a launch copies it to the device once and synchronises
-once, when the emitted tokens come back.
+(``index_put_``), so no store is ever copied. The stores are made once
+and zeroed in place (after warmup and on a quarantine ``reset()``), so
+their addresses never change.
+
+Programs: as the JAX runtime compiles one prefill per chunk width and one
+launch, this runtime keeps them in a ``ProgramCache``
+(``utils/graph_cache.py``): on the card each is a CUDA graph, captured at
+``warmup()`` and replayed after that — the prefill with the prompt and its
+page table (``[width / page]``) as inputs, the launch with the six host
+arrays below. ``programs()`` is the counterpart of the JAX runtime's
+``jit_fns()``.
+
+Host state (block tables, cursors, row↔request maps) is plain numpy,
+mutated only by the engine's decode thread. A launch stages it into
+pinned host buffers, copies them into the launch graph's inputs, replays
+the graph and synchronises once, when the emitted tokens come back.
 
 Decode discipline (kept token-identical with the JAX runtime): each step
 scatters the new K/V at the row's *old* cursor (finished rows write the
@@ -55,6 +67,7 @@ from machine_learning_apache_spark_tpu_torch.serving.kv_pages import (
     PrefixCache,
 )
 from machine_learning_apache_spark_tpu_torch.utils.device import resolve_device
+from machine_learning_apache_spark_tpu_torch.utils.graph_cache import ProgramCache
 from machine_learning_apache_spark_tpu_torch.utils.logging import get_logger
 
 log = get_logger(__name__)
@@ -179,7 +192,7 @@ class PagedDecodeRuntime:
         # the payload: slot (p, s) dequantizes as pages[p, s] * scale[p, s].
         self._self_scale_shape = (cfg.num_layers, 2, self.num_self_pages, page_size)
         self._mem_scale_shape = (cfg.num_layers, 2, num_pages, page_size)
-        self._zero_stores()
+        self._make_stores()
 
         d = cfg.d_model
         self.mem_page_bytes = cfg.num_layers * 2 * page_size * (
@@ -195,8 +208,17 @@ class PagedDecodeRuntime:
         self.prefix_cache = PrefixCache(self.mem_pool, prefix_cache_size)
         self.prefix_cache_size = prefix_cache_size
         self._reset_host_state()
+        self._programs = ProgramCache(self.device)
+        # Pinned host buffers the launch's inputs are staged in (the
+        # graph's copies read them asynchronously; a launch rewrites them
+        # only after the previous launch's read-back synchronised).
+        pin = self.device.type == "cuda"
+        self._staging = [
+            torch.empty(a.shape, dtype=torch.from_numpy(a).dtype, pin_memory=pin)
+            for a in self._host_inputs()
+        ]
 
-    def _zero_stores(self) -> None:
+    def _make_stores(self) -> None:
         dev = self.device
         self.kv_self = torch.zeros(self._self_shape, dtype=self._self_store_dtype, device=dev)
         self.kv_mem = torch.zeros(self._mem_shape, dtype=self._mem_store_dtype, device=dev)
@@ -208,6 +230,23 @@ class PagedDecodeRuntime:
             torch.zeros(self._mem_scale_shape, dtype=torch.float32, device=dev)
             if self._mem_quant else None
         )
+
+    def _zero_stores(self) -> None:
+        """Zero the stores in place: the captured programs hold their
+        addresses."""
+        for t in self.stores():
+            if t is not None:
+                t.zero_()
+
+    def stores(self) -> tuple:
+        """``(kv_self, kv_mem, self_scale, mem_scale)``; a scale plane is
+        None where its store is fp32."""
+        return self.kv_self, self.kv_mem, self.self_scale, self.mem_scale
+
+    def programs(self) -> ProgramCache:
+        """The runtime's programs: one prefill per chunk width and the
+        launch (the JAX runtime's ``jit_fns()``)."""
+        return self._programs
 
     def _reset_host_state(self) -> None:
         R, Ps, Pm = self.max_active, self.self_pages, self.mem_pages
@@ -222,21 +261,32 @@ class PagedDecodeRuntime:
         self._emitted: list[list[int]] = [[] for _ in range(R)]
         self._awaiting_first = np.zeros(R, bool)
 
-    def _to_device(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(a).to(self.device)
+    def _host_inputs(self) -> tuple:
+        """The host state a launch reads, in ``_decode``'s order."""
+        return (
+            self._token, self._cursor, self._finished, self._self_tbl,
+            self._mem_tbl, self._mem_len,
+        )
 
     # -- device work ---------------------------------------------------------
-    @torch.no_grad()
     def _prefill(self, src: np.ndarray, pages: np.ndarray) -> None:
         """Project one chunk-padded prompt ``src`` ``[1, width]`` and write
-        its memory K/V into ``pages`` of the mem store, in place."""
+        its memory K/V into ``pages`` of the mem store, in place: the
+        width's program."""
+        self._programs(
+            "prefill", self._prefill_body, torch.from_numpy(src),
+            torch.from_numpy(pages),
+        )
+
+    @torch.no_grad()
+    def _prefill_body(self, src: torch.Tensor, pages: torch.Tensor) -> None:
         cfg = self.model.cfg
         width = src.shape[1]
         n_pages = width // self.page_size
-        _, k, v = self.model.prefill_paged(self._to_device(src).long())
+        _, k, v = self.model.prefill_paged(src.long())
         kv = torch.stack([k[:, 0], v[:, 0]], dim=1)  # [L, 2, width, d]
         kv = kv.reshape(cfg.num_layers, 2, n_pages, self.page_size, cfg.d_model)
-        tbl = self._to_device(pages).long()
+        tbl = pages.long()
         if not self._mem_quant:
             self.kv_mem[:, :, tbl] = kv.to(self.kv_mem.dtype)
             return
@@ -248,18 +298,20 @@ class PagedDecodeRuntime:
         self.mem_scale[:, :, tbl] = s[..., None].expand(-1, -1, -1, self.page_size)
 
     @torch.no_grad()
-    def _decode(self, token, cursor, finished, self_tbl, mem_tbl, mem_len):
-        """``steps_per_launch`` greedy steps over every row; updates the
-        self store in place and returns ``(token, cursor, finished,
-        emits [T, R])`` as device tensors."""
+    def _decode(self, stores, token, cursor, finished, self_tbl, mem_tbl, mem_len):
+        """``steps_per_launch`` greedy steps over every row of ``stores``
+        (``stores()``'s tuple); updates the self store in place and returns
+        one int32 device tensor ``[T + 3, R]``: the emits of the T steps,
+        then the new token, cursor and finished rows."""
+        kv_self, kv_mem, self_scale, mem_scale = stores
         page, Ps = self.page_size, self.self_pages
         eos, pad, mnt = self.eos_id, self.pad_id, self.max_new_tokens
         emits = []
         for _ in range(self.steps_per_launch):
             logits, k_new, v_new = self.model.decode_step_paged(
-                token[:, None].long(), self.kv_self, self.kv_mem,
+                token[:, None].long(), kv_self, kv_mem,
                 self_tbl, cursor, mem_tbl, mem_len, cursor[:, None].long(),
-                self.self_scale, self.mem_scale,
+                self_scale, mem_scale,
             )
             knv = torch.stack([k_new, v_new], dim=1)  # [L, 2, R, d]
             # Scatter at the old cursor; finished rows write the null page
@@ -272,23 +324,26 @@ class PagedDecodeRuntime:
                 # Per-slot scales: each step writes one slot per row, so
                 # the int8 already on the page keeps its own scales.
                 q, s = _quantize(knv, knv.abs().amax(dim=-1))  # s: [L, 2, R]
-                self.kv_self[:, :, pids, offs, :] = q
-                self.self_scale[:, :, pids, offs] = s
+                kv_self[:, :, pids, offs, :] = q
+                self_scale[:, :, pids, offs] = s
             else:
-                self.kv_self[:, :, pids, offs, :] = knv.to(self.kv_self.dtype)
+                kv_self[:, :, pids, offs, :] = knv.to(kv_self.dtype)
             emit = torch.argmax(logits[:, 0, :], dim=-1).to(torch.int32)
             emit = torch.where(finished, pad, emit)
             cursor = cursor + (~finished).to(torch.int32)
             finished = finished | (emit == eos) | (emit == pad) | (cursor >= mnt)
             token = emit
             emits.append(emit)
-        return token, cursor, finished, torch.stack(emits)
+        return torch.cat([torch.stack(emits), token[None], cursor[None], finished[None].int()])
+
+    def _launch_body(self, *inputs) -> torch.Tensor:
+        return self._decode(self.stores(), *inputs)
 
     def warmup(self) -> int:
-        """Run every prefill width and one launch against the null page
-        (no rows active), so the first request pays no kernel build or
-        library start-up; then zero the stores. Returns how many distinct
-        shapes were run (prefill widths + the launch)."""
+        """Capture every prefill width and the launch (run against the
+        null page, no rows active), so no request pays a capture, a kernel
+        build or a library's start-up; then zero the stores. Returns the
+        program count (prefill widths + the launch)."""
         seed = np.array([self.sos_id, self.eos_id], np.int32)
         for c in range(1, self.max_chunks + 1):
             width = c * self.prefill_chunk
@@ -299,7 +354,7 @@ class PagedDecodeRuntime:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self._zero_stores()
-        return self.max_chunks + 1
+        return self._programs.size()
 
     # -- admission -----------------------------------------------------------
     def _acquire_mem_pages(self, n: int, owner) -> list[int] | None:
@@ -392,20 +447,32 @@ class PagedDecodeRuntime:
     def active_count(self) -> int:
         return sum(r is not None for r in self._req_of_row)
 
-    def _launch_device(self) -> np.ndarray:
-        """One launch over the current host state: tables to the device
-        once, the decode loop, then one synchronising copy back."""
-        token, cursor, finished, emits = self._decode(
-            self._to_device(self._token), self._to_device(self._cursor),
-            self._to_device(self._finished), self._to_device(self._self_tbl),
-            self._to_device(self._mem_tbl), self._to_device(self._mem_len),
-        )
-        out = torch.cat([emits, token[None], cursor[None], finished[None].int()]).cpu().numpy()
+    def _stage(self) -> list[torch.Tensor]:
+        """The host state, copied into the pinned staging buffers."""
+        for buf, a in zip(self._staging, self._host_inputs()):
+            np.copyto(buf.numpy(), a)
+        return self._staging
+
+    def _replay(self, inputs) -> torch.Tensor:
+        """The launch's program over staged inputs (device work queued,
+        not waited for)."""
+        return self._programs("launch", self._launch_body, *inputs)
+
+    def _read_back(self, out: torch.Tensor) -> np.ndarray:
+        """The launch's one synchronising copy back; folds the new token,
+        cursor and finished rows into the host state and returns the
+        emits ``[T, R]``."""
+        out = out.cpu().numpy()
         T = self.steps_per_launch
         self._token = out[T].astype(np.int32)
         self._cursor = out[T + 1].astype(np.int32)
         self._finished = out[T + 2].astype(bool)
         return out[:T]
+
+    def _launch_device(self) -> np.ndarray:
+        """One launch over the current host state: staged, replayed, read
+        back once."""
+        return self._read_back(self._replay(self._stage()))
 
     def launch(self) -> LaunchResult:
         """Run one multi-step decode over every row and fold the emitted
@@ -478,7 +545,9 @@ class PagedDecodeRuntime:
     def reset(self) -> list:
         """Quarantine path: the store's contents are suspect, so drop
         everything — returns the requests that were active (the caller
-        fails them)."""
+        fails them). The stores are zeroed in place and the programs kept,
+        as the JAX engine keeps its compiled programs across a
+        quarantine."""
         active = self.active_requests()
         self.self_pool = KVPagePool(
             self.num_self_pages, page_bytes=self.self_page_bytes

@@ -597,3 +597,153 @@ def test_full_width_train_steps_on_the_card_match_the_cpu(cuda):
     assert hop.LAUNCHES["flash_attention_bwd_dq"] == 3 * len(batches)
     assert hop.LAUNCHES["flash_attention_bwd_dkv"] == 3 * len(batches)
     assert hop.LAUNCHES["flash_attention_fwd"] == 3 * len(batches)
+
+
+# -- the engines' programs: CUDA graphs captured at warmup ----------------------
+
+
+def _card_translator(cuda):
+    """A tiny model on the card, its pipelines, and 16 prompts of 2-11
+    words (random weights, the pad logit pushed down as in
+    ``chip_smoke.py``)."""
+    from machine_learning_apache_spark_tpu_torch.data.text import TextPipeline
+    from machine_learning_apache_spark_tpu_torch.inference import Translator
+    from machine_learning_apache_spark_tpu_torch.models import (
+        Transformer,
+        TransformerConfig,
+    )
+    from machine_learning_apache_spark_tpu_torch.weights import (
+        load_flax_params,
+        random_flax_params,
+    )
+
+    rng = np.random.default_rng(26)
+    words = [f"w{i}" for i in range(40)]
+    texts = [" ".join(rng.choice(words, int(n))) for n in rng.integers(2, 12, 16)]
+    pipe = TextPipeline.fit(texts, max_seq_len=15)
+    cfg = TransformerConfig(
+        src_vocab_size=len(pipe.vocab.itos), trg_vocab_size=len(pipe.vocab.itos),
+        d_model=64, ffn_hidden=128, num_heads=4, num_layers=2, max_len=24,
+        dropout=0.0,
+    )
+    params = random_flax_params(cfg, seed=7)
+    params["lm_head"]["bias"][0] = -30.0
+    model = load_flax_params(Transformer(cfg), params)
+    return Translator(model, pipe, pipe, device=cuda), texts
+
+
+CARD_ENGINE = dict(boundaries=(8, 16), max_active=4, max_batch=4, page_size=4, max_new_tokens=10)
+
+
+def _replay_and_eager(replay, eager):
+    """The outputs of one eager call and one replay, with each one's
+    launches."""
+    hop.reset_launches()
+    want = eager()
+    torch.cuda.synchronize()
+    eager_n = dict(hop.LAUNCHES)
+    hop.reset_launches()
+    got = replay()
+    torch.cuda.synchronize()
+    return got, want, dict(hop.LAUNCHES), eager_n
+
+
+@pytest.mark.parametrize("kv_dtype", ["float32", "int8"])
+def test_replayed_paged_launch_equals_an_eager_call(cuda, kv_dtype):
+    """The launch's graph, replayed over rows of real prompts, against an
+    eager call of the same function on cloned stores and inputs: the
+    emits and the stores bit for bit, the launches equal; N replays add N
+    times one eager call's launches."""
+    from machine_learning_apache_spark_tpu_torch.serving import ServeRequest
+
+    t, texts = _card_translator(cuda)
+    eng = t.serve(start=False, kv_dtype=kv_dtype, quantize_self=kv_dtype == "int8", **CARD_ENGINE)
+    assert eng.warmup() == eng.compile_count() == eng.runtime.max_chunks + 1
+    rt = eng.runtime
+    for row, s in enumerate(texts[: rt.max_active]):
+        assert rt.admit(ServeRequest(s, t.src_pipe.ragged([s])[0], 0.0), row) is not None
+    rt.grow()
+    rt.launch()
+    rt.grow()
+    inputs = [x.to(cuda) for x in rt._stage()]
+    stores = [None if x is None else x.clone() for x in rt.stores()]
+    got, want, got_n, eager_n = _replay_and_eager(
+        lambda: [rt._replay(rt._stage()).clone(), *(x for x in rt.stores() if x is not None)],
+        lambda: [rt._decode(stores, *inputs), *(x for x in stores if x is not None)],
+    )
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert got_n == eager_n and eager_n["ragged_paged_attention"] == 2 * 2 * rt.steps_per_launch
+    hop.reset_launches()
+    for _ in range(3):
+        rt._replay(rt._stage())
+    torch.cuda.synchronize()
+    assert hop.LAUNCHES == {k: 3 * n for k, n in eager_n.items()}
+    assert eng.recompiles_after_warmup == 0
+
+
+@pytest.mark.parametrize("mode", [dict(kv_mode="padded"), dict(method="beam", beam_size=2)],
+                         ids=["padded", "beam"])
+def test_replayed_bucket_decode_equals_an_eager_call(cuda, mode):
+    """A bucket's whole decode (encoder, priming call, every step and
+    beam reorder) as one graph, replayed on a rectangle of real prompts,
+    against an eager call of the decoder: the same bits and launches."""
+    t, texts = _card_translator(cuda)
+    eng = t.serve(start=False, **CARD_ENGINE, **mode)
+    assert eng.warmup() == eng.compile_count() == 2
+    src = np.zeros((eng.max_batch, 16), np.int64)
+    for i, s in enumerate(texts[: eng.max_batch]):
+        ids = t.src_pipe.ragged([s])[0]
+        src[i, : len(ids)] = ids
+    host = torch.from_numpy(src)
+    got, want, got_n, eager_n = _replay_and_eager(
+        lambda: eng._decode(host).clone(), lambda: eng._decode_body(host.to(cuda)),
+    )
+    assert torch.equal(got, want)
+    layers = t.model.cfg.num_layers
+    assert got_n == eager_n and eager_n["flash_attention_fwd"] == layers + 2 * layers * (1 + 10)
+    assert eng.recompiles_after_warmup == 0
+
+
+def test_serving_after_a_reset_replays_the_same_programs(cuda):
+    """The quarantine path (``runtime.reset()``) keeps the stores'
+    addresses and the programs: the same prompts give the same tokens
+    afterwards, with nothing captured again; and both equal the CPU's."""
+    t, texts = _card_translator(cuda)
+    eng = t.serve(**CARD_ENGINE)
+    rt = eng.runtime
+    ptrs = [x.data_ptr() for x in rt.stores() if x is not None]
+    with eng:
+        first = [f.result(timeout=120) for f in [eng.submit(s) for s in texts]]
+    assert rt.reset() == []
+    assert [x.data_ptr() for x in rt.stores() if x is not None] == ptrs
+    with eng.start(warmup=False):
+        again = [f.result(timeout=120) for f in [eng.submit(s) for s in texts]]
+        assert eng.recompiles_after_warmup == 0
+        assert eng.compile_count() == rt.max_chunks + 1
+    assert again == first
+    t.model.to("cpu")
+    from machine_learning_apache_spark_tpu_torch.inference import Translator
+
+    cpu = Translator(t.model, t.src_pipe, t.trg_pipe, device="cpu")
+    assert first == cpu(texts, max_new_tokens=CARD_ENGINE["max_new_tokens"])
+
+
+def test_a_second_engine_on_the_card_captures_its_own_programs(cuda):
+    """Two engines over one model on one card, serving in turns: each
+    holds its own programs (its own graphs and memory pool) and neither
+    adds any; both give the same tokens."""
+    t, texts = _card_translator(cuda)
+    a, b = t.serve(**CARD_ENGINE), t.serve(**CARD_ENGINE)
+    try:
+        assert a.programs() is not b.programs()
+        outs = []
+        for eng in (a, b, a):
+            outs.append([f.result(timeout=120) for f in [eng.submit(s) for s in texts]])
+        for eng in (a, b):
+            assert eng.compile_count() == eng.runtime.max_chunks + 1
+            assert eng.recompiles_after_warmup == 0
+    finally:
+        a.stop()
+        b.stop()
+    assert outs[0] == outs[1] == outs[2]
