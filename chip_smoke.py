@@ -57,7 +57,11 @@ Phases, each fatal on failure:
    same replays would (every capture's recorded launches equal its eager
    warm run's). Then one paged launch (fp32 and int8 pages) and one
    bucket decode (padded and beam), replayed, must equal an eager call of
-   the same function on cloned stores and inputs bit for bit;
+   the same function on cloned stores and inputs bit for bit. The one-shot
+   ``Translator`` keeps one CUDA graph per call shape: greedy and beam at
+   32 and 16 rows, a second call captures nothing and its ids equal an
+   eager call of the decoder bit for bit, with the same launches; then
+   ``Translator.save`` -> ``load`` on the card gives the same tokens;
 5. training — ``recipes.translation.train_translator`` on the card at the
    reference recipe's full width (dropout 0.1, Adam 1e-3, batch 32, one
    epoch over the 400 fixture pairs in ``assets/fixtures``: 12 steps), then
@@ -68,7 +72,17 @@ Phases, each fatal on failure:
    >= 0.99, both BLEU figures). Then a parity run: dropout 0, random
    weights in the Flax layout bridged in, 4 steps on the card and the
    same 4 on the CPU (plain versions): per-step losses within 1e-3
-   relative, step-0 gradients within 1e-4 relative;
+   relative, step-0 gradients within 1e-4 relative. Then the recipe's
+   fixture epoch twice (dropout 0.1) at 1, 4 and 5 steps per call (one
+   CUDA graph per group; 5 leaves a tail of 2 single steps): every
+   parameter and step loss bit for bit against 1 step per call, one
+   program per (K, accumulation phase) and none new in the second epoch,
+   a replay's launches equal to its eager first call's (3 sites x K of
+   each training kernel). Then 2 epochs with ``checkpoint_dir`` and a
+   resumed run of 2 more, at 4 steps per call, equal bit for bit to 4
+   epochs in one run; with the newest payload torn the newest valid step
+   is the one before, and the ``latest`` pointer names a complete step
+   throughout;
 6. times — requests/s, generated tokens/s and peak device memory of each
    engine (paged fp32 and int8, padded, beam); each engine's requests/s
    and device idle share over one profiled window; the host time of the
@@ -85,8 +99,13 @@ Phases, each fatal on failure:
    kernel at each of its launch choices; the recipe's evaluate and BLEU
    decode once more under the profiler, for the forward's launches (which
    must equal the recipe run's), device time and bound over the whole
-   decode; the train step's time, steps/s, target tokens/s, peak memory
-   and the device idle share of one profiled window of steps.
+   decode; the BLEU decode of one epoch eager and through the recipe's
+   programs (capturing, then replaying): wall and device time, the same
+   ids and launches; the train step at 1 and 4 steps per call, in one
+   process: ms per step, steps/s, target tokens/s, peak memory, the
+   device idle share of one profiled window of steps and the memory the
+   4-step program holds. (The one-shot ``Translator``'s latency, eager
+   and replayed, and the memory its programs hold are taken in phase 4.)
 
 The line before the last is ``nvidia-smi``'s name and power limit; before
 it, one JSON line with every kernel's numbers. The last line is
@@ -167,6 +186,14 @@ TENSOR_CORE_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_a
 # The tensor-core kernels' (warps per block, splits) launch choices,
 # checked and timed beside the wrappers' picks.
 LAUNCH_CHOICES = ((1, 1), (2, 1), (4, 1), (2, 2), (4, 2))
+
+
+def scratch_dir() -> Path:
+    """Where the smoke writes checkpoints and a saved translator: the
+    checkout's ``build/`` (ignored by git)."""
+    d = Path(__file__).resolve().parent / "build"
+    d.mkdir(exist_ok=True)
+    return d
 
 
 def log(msg: str) -> None:
@@ -1391,69 +1418,339 @@ def parity_run(torch, hop, src_pipe, trg_pipe, train_ds) -> dict:
     return dict(card=card.tolist(), cpu=cpu.tolist(), rel=rel.tolist(), grad_rel=g_rel)
 
 
+# -- phase 5: steps per program, checkpoint and resume -----------------------------
+
+MULTI_K = (4, 5)  # 12 fixture steps an epoch: 3 groups; 2 groups and a tail of 2
+MULTI_EPOCHS = 2
+RESUME_K = 4
+TRAIN_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+
+
+def recipe_run(torch, hop, **kw) -> dict:
+    """``train_translator`` on the fixture at the reference recipe's width
+    (dropout 0.1), with the launch counts set to 0 just before and read
+    just after."""
+    from machine_learning_apache_spark_tpu_torch.recipes.translation import train_translator
+
+    torch.cuda.synchronize()
+    hop.reset_launches()
+    t0 = time.perf_counter()
+    out = train_translator(data_root=str(FIXTURES), log_every=0, _return_state=True, **kw)
+    torch.cuda.synchronize()
+    out["wall"] = time.perf_counter() - t0
+    out["launches"] = dict(hop.LAUNCHES)
+    return out
+
+
+def same_training(torch, a: dict, b: dict, b_losses=None) -> tuple[bool, int]:
+    """Whether two runs' parameters are equal bit for bit, and how many
+    step losses differ (``b_losses`` in place of ``b``'s own)."""
+    params = all(torch.equal(x, y) for x, y in zip(a["state"].params, b["state"].params))
+    want = b["fit_result"].step_losses if b_losses is None else b_losses
+    got = a["fit_result"].step_losses
+    return params, sum(x != y for x, y in zip(got, want)) + abs(len(got) - len(want))
+
+
+def multistep_slice(torch, hop) -> dict:
+    """The recipe's fixture epoch with dropout, twice, at 1 step per call
+    and at each K of ``MULTI_K`` (one CUDA graph per group): parameters
+    and every step's loss bit for bit against K = 1; one program per (K,
+    accumulation phase), every group of the second epoch a replay; a
+    replay's launches equal its eager first call's, 3 sites x K of each
+    training kernel; the run's launches equal K = 1's."""
+    runs = {k: recipe_run(torch, hop, epochs=MULTI_EPOCHS, steps_per_call=k) for k in (1, *MULTI_K)}
+    base = runs[1]
+    steps = base["state"].step
+    layers = base["state"].model.cfg.num_layers
+    log(f"  steps_per_call 1: {steps} steps over {MULTI_EPOCHS} epochs, {base['wall']:.2f} s "
+        f"(evaluate included), launches {base['launches']}")
+    for k in MULTI_K:
+        run = runs[k]
+        params_equal, loss_diffs = same_training(torch, run, base)
+        programs = run["fit_result"].programs
+        groups = steps // MULTI_EPOCHS // k * MULTI_EPOCHS
+        log(f"  steps_per_call {k}: parameters equal to steps_per_call 1 bit for bit: {params_equal}; "
+            f"step losses differing: {loss_diffs} of {steps}; {run['wall']:.2f} s; programs "
+            + "; ".join(f"{p['signature'][0][0]} phase {p['signature'][-1]}: {p['calls']} calls, "
+                        f"{p['replays']} replays, launches per replay {p['launches']}, eager first "
+                        f"call {p['eager_launches']}" for p in programs))
+        if not params_equal or loss_diffs:
+            fail(f"steps_per_call={k} did not train bit for bit like steps_per_call=1")
+        if len(programs) != 1:
+            fail(f"steps_per_call={k} made {len(programs)} programs, not 1 per (K, phase)")
+        p = programs[0]
+        if p["calls"] != groups or p["replays"] != groups - 1:
+            fail(f"steps_per_call={k}: {p['calls']} calls and {p['replays']} replays of its program, "
+                 f"not {groups} and {groups - 1}: a later epoch captured anew")
+        for name in TRAIN_KERNELS:
+            if not p["launches"].get(name) == p["eager_launches"].get(name) == 3 * k * layers:
+                fail(f"steps_per_call={k}: {name} launched {p['launches'].get(name)} times a replay, "
+                     f"{p['eager_launches'].get(name)} in the eager first call, not 3 x {k} x {layers}")
+        if run["launches"] != base["launches"]:
+            fail(f"steps_per_call={k} launched {run['launches']}, steps_per_call=1 {base['launches']}")
+    return dict(runs=runs, steps=steps)
+
+
+def check_pointer(d: str, label: str) -> int:
+    """The ``latest`` pointer names a complete step: its payload directory
+    and its sidecar exist. Returns the step."""
+    from machine_learning_apache_spark_tpu_torch.train import checkpoint as ck
+
+    pointed = ck.pointed_step_of(d)
+    durable = sorted(ck.durable_steps_of(d))
+    sidecars = sorted(ck.sidecar_steps_of(d))
+    log(f"  {label}: pointer -> {pointed}, complete steps {durable}, sidecars {sidecars}")
+    if pointed is None or pointed not in durable or pointed not in sidecars:
+        fail(f"{label}: the pointer names {pointed}, not a complete step")
+    return pointed
+
+
+def resume_slice(torch, hop) -> dict:
+    """Two epochs at ``RESUME_K`` steps per call with ``checkpoint_dir``,
+    then a second run over the directory (resume) for two more: equal bit
+    for bit to four epochs in one run. Then the newest payload torn: the
+    newest valid step is the one before it, and the pointer still names a
+    complete step."""
+    import os
+    import tempfile
+
+    from machine_learning_apache_spark_tpu_torch.train import checkpoint as ck
+
+    whole = recipe_run(torch, hop, epochs=4, steps_per_call=RESUME_K)
+    with tempfile.TemporaryDirectory(dir=scratch_dir()) as d:
+        first = recipe_run(torch, hop, epochs=2, steps_per_call=RESUME_K, checkpoint_dir=d)
+        check_pointer(d, "after 2 epochs")
+        second = recipe_run(torch, hop, epochs=2, steps_per_call=RESUME_K, checkpoint_dir=d)
+        newest = check_pointer(d, "after the resumed run")
+        params_equal, loss_diffs = same_training(
+            torch, second, whole, whole["fit_result"].step_losses[len(first["fit_result"].step_losses):])
+        log(f"  2 epochs + resume for 2 (steps_per_call {RESUME_K}): resumed_from_step "
+            f"{second.get('resumed_from_step')}; parameters equal to 4 epochs in one run: {params_equal}; "
+            f"step losses differing: {loss_diffs}; runs {first['wall']:.2f} + {second['wall']:.2f} s "
+            f"vs {whole['wall']:.2f} s")
+        if second.get("resumed_from_step") != first["state"].step:
+            fail(f"the second run resumed from {second.get('resumed_from_step')}, not {first['state'].step}")
+        if not params_equal or loss_diffs:
+            fail("the resumed run did not train bit for bit like the uninterrupted one")
+        with open(os.path.join(d, str(newest), ck.PAYLOAD), "r+b") as f:
+            f.truncate(64)
+        os.makedirs(os.path.join(d, f"{newest + 12}.tmp-0"))  # a writer killed mid-save
+        restored = ck.CheckpointManager(d).restore_latest_valid(second["state"])
+        step = None if restored is None else restored[1]
+        pointed = check_pointer(d, "newest payload torn, a step half written")
+        log(f"  restore_latest_valid with step {newest}'s payload torn: step {step}")
+        if step != newest - 12 or pointed != newest:
+            fail(f"a torn newest payload restored step {step}, not {newest - 12}")
+    return dict(resumed_from=second.get("resumed_from_step"), fallback=step, whole=whole)
+
+
+def translator_programs(torch, hop, translator, prompts, card) -> dict:
+    """The one-shot ``Translator``: greedy and beam at 32 and 16 rows.
+    The first call of a shape runs eagerly and captures; a second replays
+    and captures nothing, and its ids equal an eager call of the decoder on
+    the card bit for bit, with the same launches. Then each call's
+    latency, eager and replayed (median of 5, tokenizing to ids on the
+    host), and the device memory the programs hold. Then ``save`` and
+    ``load`` on the card: token-identical greedy and beam outputs."""
+    import statistics
+    import tempfile
+
+    from machine_learning_apache_spark_tpu_torch.data.text import EOS_ID, SOS_ID
+    from machine_learning_apache_spark_tpu_torch.inference import Translator
+    from machine_learning_apache_spark_tpu_torch.models import beam_translate, greedy_translate_cached
+
+    mnt, beam = SERVE["max_new_tokens"], SERVE_BEAM["beam_size"]
+    dec = dict(max_new_tokens=mnt, sos_id=SOS_ID, eos_id=EOS_ID)
+    programs = translator.programs()
+    out = {}
+
+    def eager_ids(texts, method):
+        src = torch.as_tensor(translator.src_pipe(texts), dtype=torch.long, device=translator.device)
+        if method == "greedy":
+            return greedy_translate_cached(translator.model, src, **dec).cpu()
+        return beam_translate(translator.model, src, beam_size=beam, length_penalty=0.6, **dec).cpu()
+
+    def median_ms(fn):
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    for method in ("greedy", "beam"):
+        for rows in (32, 16):
+            texts = prompts[:rows]
+            kw = dict(method=method, max_new_tokens=mnt, beam_size=beam)
+            size = programs.size()
+            first, *held = held_memory(torch, lambda: translator.translate_ids(texts, **kw))
+            if programs.size() != size + 1:
+                fail(f"the first {method} call at {rows} rows made {programs.size() - size} programs, not 1")
+            hop.reset_launches()
+            replay = translator.translate_ids(texts, **kw)
+            torch.cuda.synchronize()
+            replay_n = dict(hop.LAUNCHES)
+            hop.reset_launches()
+            eager = eager_ids(texts, method)
+            eager_n = dict(hop.LAUNCHES)
+            if programs.size() != size + 1:
+                fail(f"a second {method} call at {rows} rows captured again")
+            if not (torch.equal(replay, eager) and torch.equal(first, eager)) or replay_n != eager_n:
+                fail(f"the replayed {method} decode at {rows} rows differs from an eager call "
+                     f"(launches {replay_n} vs {eager_n})")
+            t = dict(eager_ms=median_ms(lambda: eager_ids(texts, method)),
+                     graph_ms=median_ms(lambda: translator.translate_ids(texts, **kw)),
+                     held_mib=held[0] / 2**20, reserved_mib=held[1] / 2**20, launches=replay_n)
+            out[f"{method} {rows}"] = t
+            log(f"  Translator {method} at {rows} rows ({mnt} new tokens{', beam ' + str(beam) if method == 'beam' else ''}): "
+                f"replay ids == eager ids bit for bit, launches {replay_n}; latency eager "
+                f"{t['eager_ms']:.3f} ms, graph {t['graph_ms']:.3f} ms (median of 5, ids on the host); "
+                f"the program holds {t['held_mib']:.1f} MiB allocated, {t['reserved_mib']:.1f} MiB "
+                f"reserved [{card}]")
+    with tempfile.TemporaryDirectory(dir=scratch_dir()) as d:
+        translator.save(d)
+        loaded = Translator.load(d)
+        for method in ("greedy", "beam"):
+            kw = dict(method=method, max_new_tokens=mnt, beam_size=beam)
+            a, b = translator(prompts[:16], **kw), loaded(prompts[:16], **kw)
+            if a != b:
+                fail(f"Translator.save -> load changed the {method} outputs")
+        log(f"  Translator.save -> Translator.load on the card: greedy and beam outputs token-identical "
+            f"over 16 prompts; {len(loaded.src_pipe.vocab.itos)} / {len(loaded.trg_pipe.vocab.itos)} vocab")
+    return out
+
+
 # -- phase 6: training times -----------------------------------------------------
 
 
-def time_train_steps(torch, state, train_ds, card: str) -> dict:
+def held_memory(torch, fn):
+    """``fn()`` (which captures programs) and the device memory it left
+    held, in bytes: allocated, and reserved with the allocator's free
+    cache emptied before and after — the programs' pools cannot be given
+    back, so the reserved difference is what the graphs hold."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    out = fn()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return out, torch.cuda.memory_allocated() - before[0], torch.cuda.memory_reserved() - before[1]
+
+
+def profiled_call(torch, fn) -> dict:
+    """``fn()`` once under the profiler: its wall seconds (synchronised,
+    timed inside the profiler), device busy seconds (None when the
+    profiler saw no device work) and result."""
+    out = {}
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out["result"] = fn()
+        torch.cuda.synchronize()
+        out["wall"] = time.perf_counter() - t0
+
+    out["rows"] = profile_device(torch, run)
+    out["busy"] = sum(r[2] for r in out["rows"]) / 1e6 if out["rows"] else None
+    return out
+
+
+def time_bleu_decode(torch, hop, state, card) -> dict:
+    """The recipe's BLEU decode of one epoch (the 80 validation pairs in
+    batches of 32, 32 and 16) on the trained state, eager (the decoder
+    called from Python) and through the recipe's programs (the first
+    epoch runs eagerly and captures each batch shape, a later one
+    replays): wall and device time per epoch. All three give the same
+    ids, with the same forward launches."""
+    from machine_learning_apache_spark_tpu_torch.recipes.translation import bleu_decode as recipe_bleu
+    from machine_learning_apache_spark_tpu_torch.utils.graph_cache import ProgramCache
+
+    val_loader, gen = eval_loader()
+    model = state.model
+    programs = ProgramCache(next(model.parameters()).device, eager_first_call=True)
+    runs = {}
+    for label, fn in (("eager", lambda: bleu_decode(model, val_loader, gen)),
+                      ("graphs, first epoch (capturing)", lambda: recipe_bleu(model, val_loader, gen, programs)),
+                      ("graphs, later epoch (replaying)", lambda: recipe_bleu(model, val_loader, gen, programs))):
+        hop.reset_launches()
+        run = profiled_call(torch, fn)
+        run["launches"] = hop.LAUNCHES["flash_attention_fwd"]
+        runs[label] = run
+        busy = "not measured" if run["busy"] is None else f"{run['busy'] * 1e3:.3f} ms"
+        log(f"  BLEU decode per epoch, {label}: wall {run['wall'] * 1e3:.3f} ms, device busy {busy}, "
+            f"forward launches {run['launches']} [{card}]")
+    ids = [r["result"][0] for r in runs.values()]
+    if not ids[0] == ids[1] == ids[2]:
+        fail("the graphed BLEU decode gave other ids than the eager one")
+    launches = {r["launches"] for r in runs.values()}
+    if len(launches) != 1:
+        fail(f"the BLEU decode's forward launches differ between eager and graphed runs: {launches}")
+    if programs.size() != 2:
+        fail(f"the BLEU decode made {programs.size()} programs, not 2 (32 and 16 rows)")
+    return {k: dict(wall=v["wall"], busy=v["busy"], launches=v["launches"]) for k, v in runs.items()}
+
+
+def time_train_dispatch(torch, state, train_ds, card) -> dict:
     """The recipe's train step (dropout 0.1) on the trained state, over
-    device-resident fixture batches: ms per step from CUDA events, steps/s,
-    non-pad target tokens/s, peak memory; then one profiled window of
-    steps for the device idle share."""
+    device-resident fixture batches, one step per call and ``RESUME_K``
+    steps per call (a replayed CUDA graph), in one process and on one
+    ``StepDispatch`` as ``fit`` runs them: ms per step from CUDA events
+    over ``TIMED_STEPS`` steps, steps/s, non-pad target tokens/s, peak
+    memory, the device idle share of one profiled window of 12 steps, and
+    the memory the K-step program holds."""
     from machine_learning_apache_spark_tpu_torch.recipes.translation import make_translation_loss
-    from machine_learning_apache_spark_tpu_torch.train.loop import make_train_step, to_device
+    from machine_learning_apache_spark_tpu_torch.train.loop import StepDispatch, to_device
 
     dev = next(state.model.parameters()).device
     batches = [to_device(b, dev) for b in train_batches(train_ds, 12)]
     pad = state.model.cfg.pad_id
     tokens = [int((b[1][:, 1:] != pad).sum().item()) for b in batches]
-    step = make_train_step(make_translation_loss(pad))
-    gen = torch.Generator(device=dev)
+    dispatch = StepDispatch(state, make_translation_loss(pad), torch.Generator(device=dev).manual_seed(SEED))
+    out = {}
+    for k in (1, RESUME_K):
+        def run(n, offset=0, k=k):
+            for i in range(0, n, k):
+                group = [batches[(offset + i + j) % len(batches)] for j in range(k)]
+                if k == 1:
+                    dispatch.single(group[0])
+                else:
+                    dispatch.group(group)
 
-    def run(n, offset=0):
-        for i in range(n):
-            gen.manual_seed(offset + i)
-            step(state, batches[(offset + i) % len(batches)], gen)
-
-    run(3)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    run(TIMED_STEPS, 3)
-    end.record()
-    torch.cuda.synchronize()
-    ms = start.elapsed_time(end) / TIMED_STEPS
-    peak = torch.cuda.max_memory_allocated()
-    n_tok = sum(tokens[(3 + i) % len(batches)] for i in range(TIMED_STEPS)) / TIMED_STEPS
-    window = {}
-
-    def profiled():
+        # k > 1: the first group runs eagerly and captures, the second replays.
+        _, *held = held_memory(torch, lambda: run(2 * k))
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        run(TIMED_STEPS, 3)
+        end.record()
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        run(10, 100)
-        torch.cuda.synchronize()
-        window["wall"] = time.perf_counter() - t0
-
-    t0 = time.perf_counter()
-    rows = profile_device(torch, profiled)
-    outer = time.perf_counter() - t0
-    out = dict(ms=ms, steps_per_s=1e3 / ms, tokens_per_s=n_tok * 1e3 / ms,
-               tokens_per_step=n_tok, peak=peak, rows=rows, wall=window["wall"], outer=outer)
-    log(f"  train step (batch 32, [32, 200] src, [32, 199] decoder input, dropout 0.1): "
-        f"{ms:.3f} ms/step (CUDA events over {TIMED_STEPS} steps), {out['steps_per_s']:.2f} steps/s, "
-        f"{out['tokens_per_s']:.1f} non-pad target tokens/s ({n_tok:.1f} per step), "
-        f"peak max_memory_allocated {peak / 2**20:.1f} MiB [{card}]")
-    if rows:
-        busy = sum(r[2] for r in rows) / 1e6
-        out["busy"] = busy
-        out["idle"] = 1 - busy / window["wall"]
-        log(f"  profiled window of 10 train steps: wall {window['wall']:.4f} s, device busy "
-            f"{busy:.4f} s, device idle share {out['idle']:.4f} (profiler start and stop "
-            f"outside it, {outer - window['wall']:.4f} s) [{card}]")
-        for name, calls, us in rows[:12]:
+        ms = start.elapsed_time(end) / TIMED_STEPS
+        n_tok = sum(tokens[(3 + i) % len(batches)] for i in range(TIMED_STEPS)) / TIMED_STEPS
+        window = profiled_call(torch, lambda: run(12, 100))
+        t = dict(ms=ms, steps_per_s=1e3 / ms, tokens_per_s=n_tok * 1e3 / ms, tokens_per_step=n_tok,
+                 peak=torch.cuda.max_memory_allocated(), peak_above=torch.cuda.max_memory_allocated() - base,
+                 peak_reserved=torch.cuda.max_memory_reserved(), held=held[0], held_reserved=held[1],
+                 wall=window["wall"], busy=window["busy"],
+                 idle=None if window["busy"] is None else 1 - window["busy"] / window["wall"])
+        out[k] = t
+        idle = "not measured" if t["idle"] is None else f"{t['idle']:.4f}"
+        log(f"  train step, {k} step(s) per call (batch 32, [32, 200] src, [32, 199] decoder input, "
+            f"dropout 0.1): {ms:.3f} ms/step (CUDA events over {TIMED_STEPS} steps), "
+            f"{t['steps_per_s']:.2f} steps/s, {t['tokens_per_s']:.1f} non-pad target tokens/s "
+            f"({n_tok:.1f} per step), peak max_memory_allocated {t['peak'] / 2**20:.1f} MiB "
+            f"({t['peak_above'] / 2**20:.1f} above the state and everything else alive; a replay's "
+            f"work is in its pool, which the allocator does not count), peak reserved "
+            f"{t['peak_reserved'] / 2**20:.1f} MiB; "
+            f"profiled window of 12 steps: wall {t['wall']:.4f} s, device idle share {idle}"
+            + (f"; the {k}-step program holds {held[0] / 2**20:.1f} MiB allocated, "
+               f"{held[1] / 2**20:.1f} MiB reserved" if k > 1 else "") + f" [{card}]")
+        for name, calls, us in window["rows"][:12]:
             log(f"    {us / 1e3:10.3f} ms  {calls:6d} calls  {name[:90]}")
-    else:
-        log("  profiled train window: device time not measured (the profiler saw no device work)")
+    if len(dispatch.programs.stats()) != 1:
+        fail(f"the timed dispatch made {len(dispatch.programs.stats())} programs, not 1")
     return out
 
 
@@ -1881,11 +2178,14 @@ def main() -> int:
     n_tokens = sum(len(o.split()) for o in runs["float32"]["outs"])
     if n_tokens == 0:
         fail("the engine generated no tokens")
+    one_shot_graphs = translator_programs(torch, hop, translator, prompts, card)
 
     log("== phase 5: training slice at full width")
     trained = train_slice(torch, hop)
     eval_parity = eval_decode_parity(torch, trained)
     parity = parity_run(torch, hop, src_pipe_t, trg_pipe_t, train_ds)
+    multi = multistep_slice(torch, hop)
+    resumed = resume_slice(torch, hop)
 
     log("== phase 6: times")
     for label, run in runs.items():
@@ -1938,7 +2238,8 @@ def main() -> int:
         fail(f"the profiled eval/BLEU decode launched the forward {eval_decode['launches']} times "
              f"({eval_decode['recorded']} recorded), the recipe run's {eval_launches}")
     times = time_kernels(torch, hop, dev, prompt_lens)
-    train_times = time_train_steps(torch, trained["state"], train_ds, card)
+    train_times = time_train_dispatch(torch, trained["state"], train_ds, card)
+    bleu_times = time_bleu_decode(torch, hop, trained["state"], card)
     timed_sites = make_sites()
     timed_sites |= one_sequence_sites(torch, timed_sites["encoder self"])
     site_times = time_training_kernels(torch, hop, timed_sites)
@@ -1955,7 +2256,10 @@ def main() -> int:
         "padded serving": [runs["padded"]["launches"]],
         "beam serving": [runs["beam"]["launches"]],
         "one-shot decoders": list(one_shot_launches.values()),
+        "one-shot programs (replays)": [t["launches"] for t in one_shot_graphs.values()],
         "training": [trained["launches"]],
+        f"training, {MULTI_K} steps per call": [multi["runs"][k]["launches"] for k in MULTI_K],
+        f"training, {RESUME_K} steps per call, resumed": [resumed["whole"]["launches"]],
     }
     path_launches = {p: {n: sum(x[n] for x in xs) for n in hop.LAUNCHES} for p, xs in paths.items()}
     kernels = []
@@ -1999,7 +2303,9 @@ def main() -> int:
             entry["decode_sites"] = {site: {k: t[k] for k in keys if k in t}
                                      for site, t in decode_times.items()}
         kernels.append(entry)
-    log(f"  training: {json.dumps({k: v for k, v in train_times.items() if k != 'rows'})}")
+    log(f"  training, steps per call -> numbers: {json.dumps(train_times)}")
+    log(f"  BLEU decode per epoch: {json.dumps(bleu_times)}")
+    log(f"  one-shot Translator programs: {json.dumps(one_shot_graphs)}")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -2,19 +2,24 @@
 
 A ``Translator`` bundles a model with the pipelines that tokenize its
 input and detokenize its output, translates raw strings with any of the
-three KV-cache decoders (greedy, beam, sampling), and serves concurrent
-callers through the serving engine (``serve()``). It runs on the card
-unless ``device="cpu"`` is passed; with no card and no explicit device it
-raises.
-
-Not ported yet (ROADMAP): ``save``/``load``.
+three KV-cache decoders (greedy, beam, sampling), serves concurrent
+callers through the serving engine (``serve()``), and round-trips through
+``save``/``load`` so a trained model is a directory, not a process
+lifetime. It runs on the card unless ``device="cpu"`` is passed; with no
+card and no explicit device it raises.
 
 >>> t = Translator(model, src_pipe, trg_pipe)        # on the card
 >>> t(["a sentence to translate"])                   # → ["ein satz ..."]
+>>> t.save("/models/en_de"); t2 = Translator.load("/models/en_de")
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
+import os
+import shutil
+import threading
 from typing import Sequence
 
 import torch
@@ -23,15 +28,86 @@ from machine_learning_apache_spark_tpu_torch.data.text import (
     EOS_ID,
     SOS_ID,
     TextPipeline,
+    Vocab,
+    get_tokenizer,
 )
 from machine_learning_apache_spark_tpu_torch.models import (
     Transformer,
+    TransformerConfig,
     beam_translate,
     greedy_translate_cached,
     sample_translate,
 )
+from machine_learning_apache_spark_tpu_torch.train.checkpoint import (
+    load_params,
+    save_params,
+)
 from machine_learning_apache_spark_tpu_torch.train.metrics import strip_special_ids
 from machine_learning_apache_spark_tpu_torch.utils.device import resolve_device
+from machine_learning_apache_spark_tpu_torch.utils.graph_cache import ProgramCache
+
+#: ``TransformerConfig`` fields of the JAX package that the port's config
+#: lacks, at their defaults (what ``translator.json`` records for a port
+#: model), with the ROADMAP item that ports them. A saved config that sets
+#: one otherwise cannot load here.
+UNPORTED_CONFIG = {
+    "remat": (False, "A2 (remat)"),
+    "moe_experts": (0, "A2 (MoE)"),
+    "moe_capacity_factor": (1.25, "A2 (MoE)"),
+    "moe_aux_weight": (1e-2, "A2 (MoE)"),
+}
+
+
+def _check_registered_tokenizer(pipe: TextPipeline) -> None:
+    """The recorded tokenizer name must resolve from the registry on a
+    fresh process — and to the SAME callable this pipeline used (a custom
+    function whose ``__name__`` shadows a registry key would be silently
+    swapped for the built-in on load, tokenizing differently)."""
+    name = pipe.spec["tokenizer"]
+    try:
+        resolved = get_tokenizer(name)
+    except Exception as e:
+        raise ValueError(
+            f"tokenizer {name!r} is not a registered name; save requires "
+            "pipelines built with a registry tokenizer so load() can "
+            "rebuild them — register custom callables via "
+            "data.text.register_tokenizer(name, fn) before building the "
+            "pipeline"
+        ) from e
+    if resolved is not pipe.tokenizer:
+        raise ValueError(
+            f"tokenizer {name!r} resolves to a different callable than "
+            "this pipeline uses; register the custom tokenizer under its "
+            "own name (data.text.register_tokenizer) before saving"
+        )
+
+
+def _overwrite_params(path: str, model: torch.nn.Module) -> None:
+    """Clear a stale params tree, then save."""
+    if os.path.exists(path):
+        shutil.rmtree(path)
+    save_params(path, model)
+
+
+def config_to_json(cfg: TransformerConfig) -> dict:
+    """The JAX package's ``translator.json`` ``config``: every field of its
+    ``TransformerConfig``, ``dtype`` by name."""
+    out = dataclasses.asdict(cfg)
+    out["dtype"] = str(cfg.dtype).removeprefix("torch.")
+    out.update({k: default for k, (default, _) in UNPORTED_CONFIG.items()})
+    return out
+
+
+def config_from_json(saved: dict) -> TransformerConfig:
+    cfg = dict(saved)
+    for name, (default, item) in UNPORTED_CONFIG.items():
+        if cfg.pop(name, default) != default:
+            raise NotImplementedError(
+                f"translator config {name}={saved[name]!r} is not ported yet "
+                f"(ROADMAP queue {item})"
+            )
+    cfg["dtype"] = getattr(torch, cfg["dtype"])
+    return TransformerConfig(**cfg)
 
 
 class Translator:
@@ -50,8 +126,27 @@ class Translator:
         self.model = model.to(self.device).eval()
         self.src_pipe = src_pipe
         self.trg_pipe = trg_pipe
+        # The one-shot greedy and beam decoders, one program per call
+        # shape (a CUDA graph on the card, its first call the real one);
+        # the lock keeps concurrent callers off one program's buffers.
+        self._programs = ProgramCache(self.device, eager_first_call=True)
+        self._lock = threading.Lock()
 
-    def __call__(
+    def programs(self) -> ProgramCache:
+        """The one-shot decoders' programs: one per (method, batch,
+        source length, ``max_new_tokens``, beam size, length penalty)."""
+        return self._programs
+
+    def __call__(self, texts: Sequence[str], **kwargs) -> list[str]:
+        """Translate ``texts`` (``translate_ids``' arguments) to text."""
+        rows = strip_special_ids(
+            self.translate_ids(texts, **kwargs), pad_id=self.model.cfg.pad_id,
+            sos_id=SOS_ID, eos_id=EOS_ID,
+        )
+        vocab = self.trg_pipe.vocab
+        return [" ".join(vocab.lookup_tokens(row)) for row in rows]
+
+    def translate_ids(
         self,
         texts: Sequence[str],
         *,
@@ -63,12 +158,16 @@ class Translator:
         top_k: int | None = None,
         top_p: float | None = None,
         rng: torch.Generator | None = None,
-    ) -> list[str]:
-        """Translate ``texts``: ``method="greedy"`` (KV-cache),
-        ``"beam"`` (``beam_size``, ``length_penalty``) or ``"sample"``
+    ) -> torch.Tensor:
+        """The decoder's ids for ``texts`` (``[B, max_new_tokens + 1]``
+        int64, on the host): ``method="greedy"`` (KV-cache), ``"beam"``
+        (``beam_size``, ``length_penalty``) or ``"sample"``
         (``temperature``, ``top_k``, ``top_p``, and ``rng``, a
         ``torch.Generator`` on the translator's device: required, so
-        that repeated calls do not return the same "samples")."""
+        that repeated calls do not return the same "samples"). Greedy and
+        beam run as one program per call shape, keyed as a JAX retrace
+        would be; sampling draws from the caller's generator and runs
+        eagerly."""
         if method not in ("greedy", "beam", "sample"):
             raise ValueError(
                 f"method must be 'greedy', 'beam', or 'sample', got {method!r}"
@@ -78,28 +177,31 @@ class Translator:
                 "method='sample' requires an explicit rng (e.g. "
                 "rng=torch.Generator(translator.device).manual_seed(seed))"
             )
-        src = torch.as_tensor(
-            self.src_pipe(list(texts)), dtype=torch.long, device=self.device
-        )
+        src = torch.as_tensor(self.src_pipe(list(texts)), dtype=torch.long)
+        if method == "sample":
+            return sample_translate(
+                self.model, src.to(self.device), rng,
+                temperature=temperature, top_k=top_k, top_p=top_p,
+                max_new_tokens=max_new_tokens, sos_id=SOS_ID, eos_id=EOS_ID,
+            ).cpu()
+        if method == "greedy":  # the beam knobs do not change its program
+            beam_size, length_penalty = None, None
+        with self._lock:
+            ys = self._programs(
+                method, self._decode, src, method, max_new_tokens,
+                beam_size, length_penalty,
+            )
+            # Read back before the next call overwrites the outputs.
+            return ys.cpu()
+
+    def _decode(self, src, method, max_new_tokens, beam_size, length_penalty):
+        """The greedy or beam decoder over ``src`` (a program's body)."""
         kw = dict(max_new_tokens=max_new_tokens, sos_id=SOS_ID, eos_id=EOS_ID)
         if method == "greedy":
-            ys = greedy_translate_cached(self.model, src, **kw)
-        elif method == "beam":
-            ys = beam_translate(
-                self.model, src,
-                beam_size=beam_size, length_penalty=length_penalty, **kw,
-            )
-        else:
-            ys = sample_translate(
-                self.model, src, rng,
-                temperature=temperature, top_k=top_k, top_p=top_p, **kw,
-            )
-        rows = strip_special_ids(
-            ys, pad_id=self.model.cfg.pad_id,
-            sos_id=SOS_ID, eos_id=EOS_ID,
+            return greedy_translate_cached(self.model, src, **kw)
+        return beam_translate(
+            self.model, src, beam_size=beam_size, length_penalty=length_penalty, **kw,
         )
-        vocab = self.trg_pipe.vocab
-        return [" ".join(vocab.lookup_tokens(row)) for row in rows]
 
     def serve(self, *, start: bool = True, **engine_kwargs):
         """Continuous-batching server over this translator. By default
@@ -124,3 +226,61 @@ class Translator:
 
         engine = ServingEngine(self, **engine_kwargs)
         return engine.start() if start else engine
+
+    # -- persistence ----------------------------------------------------------
+    def save(self, directory: str) -> None:
+        """One directory = one deployable model: ``params/`` (the port's
+        own format, ``train.checkpoint.save_params``) and
+        ``translator.json`` (the JAX package's schema: the config, both
+        vocabularies' itos and both pipelines' specs)."""
+        directory = os.path.abspath(directory)
+        os.makedirs(directory, exist_ok=True)
+        # Fail at save time, not at load time with the model already
+        # persisted unrecoverably.
+        for pipe in (self.src_pipe, self.trg_pipe):
+            _check_registered_tokenizer(pipe)
+        meta = {
+            "config": config_to_json(self.model.cfg),
+            "src_vocab": self.src_pipe.vocab.itos,
+            "trg_vocab": self.trg_pipe.vocab.itos,
+            "src_pipe": self.src_pipe.spec,
+            "trg_pipe": self.trg_pipe.spec,
+        }
+        # Params first, metadata last — a failed save can leave an old
+        # params tree behind, but never a NEW translator.json pointing at
+        # OLD params.
+        _overwrite_params(os.path.join(directory, "params"), self.model)
+        with open(os.path.join(directory, "translator.json"), "w") as fh:
+            json.dump(meta, fh)
+
+    @classmethod
+    def load(
+        cls, directory: str, *, device: str | torch.device | None = None
+    ) -> "Translator":
+        """The translator ``save`` wrote, on ``device`` (as ``__init__``)."""
+        directory = os.path.abspath(directory)
+        with open(os.path.join(directory, "translator.json")) as fh:
+            meta = json.load(fh)
+        model = load_params(
+            os.path.join(directory, "params"),
+            Transformer(config_from_json(meta["config"])),
+        )
+
+        def pipe(vocab_tokens, spec):
+            # itos is the full ordered token list (specials included) —
+            # rebuild verbatim with an empty specials prefix.
+            return TextPipeline(
+                Vocab(vocab_tokens, specials=()),
+                spec["tokenizer"],
+                max_seq_len=spec["max_seq_len"],
+                fixed_len=spec["fixed_len"],
+                add_sos=spec["add_sos"],
+                add_eos=spec["add_eos"],
+            )
+
+        return cls(
+            model,
+            pipe(meta["src_vocab"], meta["src_pipe"]),
+            pipe(meta["trg_vocab"], meta["trg_pipe"]),
+            device=device,
+        )

@@ -26,6 +26,11 @@ methods return them: ``prefill_paged`` returns each layer's memory K/V,
 ``cache`` collection (the KV-cache decoder's state) is an explicit
 ``DecodeCache`` that ``decode_step`` takes and returns.
 
+The token embeddings' gradient is summed in an order fixed by the ids
+(``EmbeddingLookup``): torch's ``embedding`` backward on the card gives
+run-to-run different last bits when a token id repeats thousands of
+times in a batch (the pads), and a training run must repeat bit for bit.
+
 Parameters are made with an explicit ``torch.Generator`` (Flax's
 initialiser families: LeCun-normal kernels, zero biases, N(0, 0.02)
 embeddings, unit LayerNorm scales); modules are built on the meta device
@@ -84,6 +89,66 @@ def _linear(n_in: int, n_out: int, cfg: TransformerConfig) -> nn.Linear:
 
 def _layer_norm(cfg: TransformerConfig) -> nn.LayerNorm:
     return nn.LayerNorm(cfg.d_model, eps=LN_EPS, dtype=cfg.dtype)
+
+
+class EmbeddingLookup(torch.autograd.Function):
+    """``weight[tokens]`` whose weight gradient is summed in an order fixed
+    by the ids alone, with no atomics and no host sync, so it repeats bit
+    for bit and a CUDA graph can hold it.
+
+    The backward sorts the ids (stably) and cuts the sorted rows into
+    chunks of ``CHUNK``. In each chunk one batched matmul with a 0/1
+    lower-triangular same-id mask gives every row the running sum of its
+    id's rows so far; a second, over the chunks' last rows, carries each
+    id's sum across the chunks it spans. An id's gradient is the running
+    sum at its last sorted row."""
+
+    CHUNK = 64
+
+    @staticmethod
+    def forward(ctx, weight, tokens):
+        ctx.save_for_backward(tokens)
+        ctx.rows = weight.shape[0]
+        return torch.nn.functional.embedding(tokens, weight)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (tokens,) = ctx.saved_tensors
+        rows, chunk = ctx.rows, EmbeddingLookup.CHUNK
+        ids = tokens.reshape(-1)
+        n, dev = ids.shape[0], ids.device
+        grad = grad.reshape(n, -1)
+        width = grad.shape[1]
+        order = torch.argsort(ids.int(), stable=True)
+        # Sorted ids padded to whole chunks with an id past the vocabulary.
+        size = -(-n // chunk) * chunk
+        sorted_ids = torch.full((size,), rows, dtype=ids.dtype, device=dev)
+        sorted_ids[:n] = ids[order]
+        rows_in = grad.new_zeros(size, width)
+        rows_in[:n] = grad[order]
+        chunk_ids = sorted_ids.view(-1, chunk)
+        tri = torch.ones(chunk, chunk, dtype=torch.bool, device=dev).tril()
+        running = torch.bmm(
+            ((chunk_ids[:, :, None] == chunk_ids[:, None, :]) & tri).to(grad.dtype),
+            rows_in.view(-1, chunk, width),
+        )
+        # Each chunk's last row, summed over the chunks that end with its id.
+        end_ids = chunk_ids[:, -1]
+        spans = torch.ones(len(end_ids), len(end_ids), dtype=torch.bool, device=dev).tril()
+        carried = ((end_ids[:, None] == end_ids[None, :]) & spans).to(grad.dtype) @ running[:, -1]
+        # A row whose id runs on from the previous chunk adds its carry.
+        prev_ids = torch.cat([end_ids.new_full((1,), -1), end_ids[:-1]])
+        prev_sums = torch.cat([carried.new_zeros(1, width), carried[:-1]])
+        running = running + torch.where(
+            (chunk_ids == prev_ids[:, None])[:, :, None], prev_sums[:, None, :], 0.0
+        )
+        counts = torch.zeros(rows, dtype=torch.long, device=dev)
+        counts.scatter_add_(0, ids, torch.ones_like(ids))
+        last = (torch.cumsum(counts, 0) - 1).clamp(min=0)
+        weight_grad = torch.where(
+            (counts > 0)[:, None], running.view(size, width)[last], 0.0
+        )
+        return weight_grad, None
 
 
 class Dropout(nn.Module):
@@ -173,7 +238,7 @@ class SentenceEmbedding(nn.Module):
         position_offset: int = 0,
         dropout_rng: torch.Generator | None = None,
     ) -> torch.Tensor:
-        x = self.embed(tokens)
+        x = EmbeddingLookup.apply(self.embed.weight, tokens)
         length = tokens.shape[-1]
         # The table covers max(max_len, L), as in the JAX package, so a
         # static sequence longer than max_len still has encodings.

@@ -625,6 +625,10 @@ class FlashAttention(torch.autograd.Function):
         )
         ctx.save_for_backward(query, key, value, out, lse, kv_valid)
         ctx.causal = causal
+        # The backward runs on autograd's device thread, which does not see
+        # this thread's launch recording: it takes the forward's, so a
+        # backward inside a graph capture is recorded with it.
+        ctx.recording = getattr(_RECORDING, "state", None)
         return out
 
     @staticmethod
@@ -635,10 +639,15 @@ class FlashAttention(torch.autograd.Function):
             # Autograd picks dO's layout (an expanded ``sum()`` gradient
             # has stride 0): give the kernels rows they can copy.
             d_out = d_out.clone(memory_format=torch.contiguous_format)
-        dq, dk, dv = flash_attention_backward(
-            query, key, value, out, lse, d_out,
-            causal=ctx.causal, kv_valid=kv_valid,
-        )
+        outer = getattr(_RECORDING, "state", None)
+        _RECORDING.state = ctx.recording
+        try:
+            dq, dk, dv = flash_attention_backward(
+                query, key, value, out, lse, d_out,
+                causal=ctx.causal, kv_valid=kv_valid,
+            )
+        finally:
+            _RECORDING.state = outer
         return dq, dk, dv, None, None, None
 
 

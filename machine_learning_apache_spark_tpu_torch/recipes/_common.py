@@ -16,6 +16,9 @@ from machine_learning_apache_spark_tpu_torch.data.loader import (
     DataLoader,
 )
 from machine_learning_apache_spark_tpu_torch.train.metrics import MetricsLogger
+from machine_learning_apache_spark_tpu_torch.utils.logging import get_logger
+
+log = get_logger(__name__)
 
 
 def default_compute_dtype(override: str | None = None) -> torch.dtype:
@@ -77,16 +80,56 @@ def make_loaders(
 
 
 @contextlib.contextmanager
-def checkpointing(checkpoint_dir: str | None, state, *, resume: bool = True):
-    """Yields ``(manager_or_None, state, resumed_step_or_None)`` as the JAX
-    package's does; checkpointing itself is not ported, so a directory
-    raises."""
-    if checkpoint_dir:
-        raise NotImplementedError(
-            "checkpoint_dir: checkpoint/resume is not ported yet (ROADMAP "
-            "queue A1, train/checkpoint.py)"
-        )
-    yield None, state, None
+def checkpointing(
+    checkpoint_dir: str | None,
+    state,
+    *,
+    resume: bool = True,
+    max_to_keep: int = 3,
+):
+    """Context-managed recipe checkpointing: yields
+    ``(manager_or_None, state, resumed_step_or_None)`` and closes the
+    manager on exit — the shared shape of every recipe's
+    open → fit(checkpointer=...) → close sequence."""
+    mgr, state, resumed = open_checkpointing(
+        checkpoint_dir, state, resume=resume, max_to_keep=max_to_keep
+    )
+    try:
+        yield mgr, state, resumed
+    finally:
+        if mgr is not None:
+            mgr.close()
+
+
+def open_checkpointing(
+    checkpoint_dir: str | None,
+    state,
+    *,
+    resume: bool = True,
+    max_to_keep: int = 3,
+):
+    """Recipe-surface checkpoint/resume.
+
+    Returns ``(manager_or_None, state, resumed_step_or_None)``: when
+    ``checkpoint_dir`` holds prior checkpoints and ``resume`` is True, the
+    freshly created ``state`` is the restore template (same model and
+    optimizer code) and takes the newest valid step's values in place.
+    Callers pass the manager to ``fit(checkpointer=...)`` and must
+    ``close()`` it when done — or use ``checkpointing``, which does."""
+    if not checkpoint_dir:
+        return None, state, None
+    from machine_learning_apache_spark_tpu_torch.train.checkpoint import (
+        CheckpointManager,
+    )
+
+    mgr = CheckpointManager(checkpoint_dir, max_to_keep=max_to_keep)
+    resumed = None
+    if resume:
+        restored = mgr.restore_latest_valid(state)
+        if restored is not None:
+            state, resumed, _ = restored
+            log.info("resuming from checkpoint step %d", resumed)
+    return mgr, state, resumed
 
 
 def summarize(

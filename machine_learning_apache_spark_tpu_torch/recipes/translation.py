@@ -14,9 +14,15 @@ tokenization happens once up front.
 (``utils.device.resolve_device``: no card and no explicit CPU raises).
 Attention goes through the Hopper kernels there — the flash forward with
 its ``lse`` and the two flash-2 backward kernels — and through their plain
-versions on the CPU. The recipe fields of the JAX package that this slice
-does not port raise ``NotImplementedError`` when set away from their
-defaults; ``use_mesh`` is accepted (one card: nothing to shard).
+versions on the CPU. ``steps_per_call=K`` runs K training steps per call
+(one CUDA graph on the card, ``train.loop.StepDispatch``). With
+``checkpoint_dir`` every ``checkpoint_every`` epochs and the last are
+saved; a later run over the same directory (``resume``, the default)
+restores the newest valid step, trains ``epochs`` more numbered on from
+the saved one, and reports ``resumed_from_step``. The recipe fields of
+the JAX package that this slice does not port raise
+``NotImplementedError`` when set away from their defaults; ``use_mesh``
+is accepted (one card: nothing to shard).
 """
 
 from __future__ import annotations
@@ -65,6 +71,7 @@ from machine_learning_apache_spark_tpu_torch.train.state import (
     make_optimizer,
 )
 from machine_learning_apache_spark_tpu_torch.utils.device import resolve_device
+from machine_learning_apache_spark_tpu_torch.utils.graph_cache import ProgramCache
 from machine_learning_apache_spark_tpu_torch.utils.logging import get_logger
 
 
@@ -138,12 +145,16 @@ UNPORTED = {
     "bucket_by_length": "A1 (bucketed loaders)",
     "bucket_boundaries": "A1 (bucketed loaders)",
     "pack_sequences": "A1 (packed loaders)",
-    "steps_per_call": "A1 (make_multi_step)",
-    "checkpoint_dir": "A1 (train/checkpoint.py)",
 }
 
 
 def _reject_unported(r: TranslationRecipe) -> None:
+    if r.bucket_by_length and r.steps_per_call > 1:
+        raise ValueError(
+            "steps_per_call > 1 is incompatible with bucket_by_length: a "
+            "K-step program stacks K batches into one static shape, but "
+            "buckets emit per-bucket widths"
+        )
     defaults = TranslationRecipe()
     for f in fields(TranslationRecipe):
         if f.name in UNPORTED and getattr(r, f.name) != getattr(defaults, f.name):
@@ -165,6 +176,30 @@ def make_translation_loss(pad_id: int, *, train: bool = True):
         return masked_token_cross_entropy(logits, trg[:, 1:], pad_id), {}
 
     return loss_fn
+
+
+def bleu_decode(
+    model: Transformer, loader, max_new_tokens: int, programs: ProgramCache
+) -> tuple[list[list[int]], float]:
+    """The recipe's BLEU decode: the KV-cache greedy decoder over the
+    eval loader's batches (its ragged tail included), one program of
+    ``programs`` per batch shape — a CUDA graph on the card, its first
+    call the real one. Returns the candidates' ids (specials stripped)
+    and the corpus BLEU against the loader's targets."""
+    def decode(src):
+        return greedy_translate_cached(
+            model, src, max_new_tokens=max_new_tokens, sos_id=SOS_ID, eos_id=EOS_ID
+        )
+
+    kw = dict(pad_id=model.cfg.pad_id, sos_id=SOS_ID, eos_id=EOS_ID)
+    cands: list[list[int]] = []
+    refs: list[list[int]] = []
+    for src_b, trg_b in loader:
+        (src,) = to_device((src_b,), torch.device("cpu"))
+        # Read back before the next call overwrites the outputs.
+        cands.extend(strip_special_ids(programs("bleu_decode", decode, src), **kw))
+        refs.extend(strip_special_ids(trg_b, **kw))
+    return cands, corpus_bleu(cands, refs)
 
 
 def train_translator(
@@ -237,37 +272,58 @@ def train_translator(
             accumulate_steps=r.grad_accum,
         ),
     )
-    with checkpointing(r.checkpoint_dir, state, resume=r.resume) as (_, state, _):
+    with checkpointing(
+        r.checkpoint_dir, state, resume=r.resume
+    ) as (ckpt, state, resumed):
+        epochs = r.epochs
+        if resumed is not None:
+            if r.schedule in ("cosine", "warmup_cosine"):
+                # The restored update count sits at the prior run's total;
+                # a horizon sized for a fresh run would train the whole
+                # resumed run at the decayed floor. Extend it by the
+                # restored updates (the step counter counts microbatches),
+                # as the JAX recipe does.
+                prior_updates = resumed // max(r.grad_accum, 1)
+                state.tx = make_optimizer(
+                    "adam",
+                    r.learning_rate,
+                    schedule=r.schedule,
+                    warmup_steps=r.warmup_steps,
+                    total_steps=prior_updates + total_updates,
+                    grad_clip=r.grad_clip,
+                    accumulate_steps=r.grad_accum,
+                )
+            # r.epochs more epochs, numbered on from the checkpoint's: fit's
+            # resume reads the same step's sidecar and continues its loader
+            # order and dropout stream, so a run cut at an epoch boundary
+            # and resumed trains as the uninterrupted run would.
+            epochs += int(ckpt.read_meta(resumed).get("epoch", -1)) + 1
         result = fit(
             state,
             make_translation_loss(cfg.pad_id),
             train_loader,
-            epochs=r.epochs,
+            epochs=epochs,
             rng=torch.Generator().manual_seed(r.seed),
             log_every=r.log_every,
+            checkpointer=ckpt,
+            checkpoint_every=r.checkpoint_every,
             metrics_file=r.metrics_path,
+            steps_per_call=r.steps_per_call,
             prefetch_to_device=r.prefetch_to_device,
+            resume=resumed is not None,
         )
         metrics = evaluate(
             result.state, make_translation_loss(cfg.pad_id, train=False), val_loader
         )
     extra: dict = {}
+    if resumed is not None:
+        extra["resumed_from_step"] = resumed
     if r.compute_bleu:
-        # The KV-cache greedy decoder over the eval loader's batches (its
-        # ragged tail included). The target width is the pipeline's fixed
-        # length, so every batch decodes the same number of steps.
+        # The target width is the pipeline's fixed length, so every batch
+        # decodes the same number of steps.
         gen = min(val_ds[:1][1].shape[1], r.max_len) - 1
-        kw = dict(pad_id=cfg.pad_id, sos_id=SOS_ID, eos_id=EOS_ID)
-        cands: list[list[int]] = []
-        refs: list[list[int]] = []
-        for src_b, trg_b in val_loader:
-            (src,) = to_device((src_b,), dev)
-            ids = greedy_translate_cached(
-                model, src, max_new_tokens=gen, sos_id=SOS_ID, eos_id=EOS_ID
-            )
-            cands.extend(strip_special_ids(ids, **kw))
-            refs.extend(strip_special_ids(trg_b, **kw))
-        extra["bleu"] = corpus_bleu(cands, refs)
+        programs = ProgramCache(dev, eager_first_call=True)
+        extra["bleu"] = bleu_decode(model, val_loader, gen, programs)[1]
     out = summarize(
         result,
         metrics,
@@ -277,7 +333,12 @@ def train_translator(
         **extra,
     )
     if _return_state:
+        # Test and inspection hooks: the state, the fit's record (step
+        # losses, its programs) and the BLEU decode's programs.
         out["state"] = result.state
+        out["fit_result"] = result
+        if r.compute_bleu:
+            out["bleu_programs"] = programs.stats()
     if _return_translator:
         out["translator"] = Translator(model, src_pipe, trg_pipe, device=dev)
     return out

@@ -1,11 +1,17 @@
-"""Training on one device: losses, metrics, the optimizer chain and the
-loop (the port of the JAX package's ``train/``)."""
+"""Training on one device: losses, metrics, the optimizer chain, the loop
+and checkpoints (the port of the JAX package's ``train/``)."""
 
+from machine_learning_apache_spark_tpu_torch.train.checkpoint import (
+    CheckpointManager,
+    load_params,
+    save_params,
+)
 from machine_learning_apache_spark_tpu_torch.train.loop import (
     FitResult,
     evaluate,
     fit,
     make_eval_step,
+    make_multi_step,
     make_train_step,
 )
 from machine_learning_apache_spark_tpu_torch.train.losses import (
@@ -19,14 +25,18 @@ from machine_learning_apache_spark_tpu_torch.train.state import (
 )
 
 __all__ = [
+    "CheckpointManager",
     "FitResult",
     "TrainState",
     "cross_entropy",
     "evaluate",
     "fit",
+    "load_params",
     "make_eval_step",
+    "make_multi_step",
     "make_optimizer",
     "make_schedule",
     "make_train_step",
     "masked_token_cross_entropy",
+    "save_params",
 ]

@@ -4,23 +4,32 @@
 Every reference script re-implements the same loop inline (SURVEY.md §1 L7):
 epochs × batches of {forward → loss → zero_grad → backward → step}, then an
 eval pass, with wall-clock prints. Here the loop body is ``make_train_step``
-and the Python loop only feeds batches and accumulates metrics.
+(or ``make_multi_step`` for K steps at once) and the Python loop only feeds
+batches and accumulates metrics.
 
 The loss contract is the JAX package's with the module in place of the
 parameter tree: ``loss_fn(model, batch, rng) -> (scalar_loss, aux_dict)``,
-where ``rng`` is the step's dropout ``torch.Generator`` (None in eval).
-``fit`` owns a host generator seeded from its ``rng`` and draws one seed
-from it per step for the step's device generator — the counterpart of
-``rng, step_rng = split(rng)``. Losses stay on the device between log
+where ``rng`` is the dropout ``torch.Generator`` on the model's device
+(None in eval). ``fit`` seeds one such generator per run from its host
+``rng`` and every step draws on from it, so a run's dropout bits depend
+on the seed and the step, not on how the steps were dispatched; its state
+rides the checkpoint sidecar. Losses stay on the device between log
 points, as in the JAX loop: no per-step host sync.
 
-Single device only: the mesh, ZeRO, multi-step dispatch, checkpointing,
-the profiler window and the replica sync check raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+``steps_per_call=K`` runs K steps as one program (``StepDispatch``): on
+the card one CUDA graph per accumulation phase, captured at its first
+group and replayed after, bit for bit the same training as K single
+steps. Checkpointing (``train.checkpoint.CheckpointManager``) saves at
+epoch ends and ``resume=True`` continues from the newest valid step.
+
+Single device only: the mesh, ZeRO, the profiler window, elastic resume
+and the replica sync check raise ``NotImplementedError`` naming the
+ROADMAP item that ports them.
 """
 
 from __future__ import annotations
 
+import base64
 from dataclasses import dataclass, field
 from typing import Any, Callable, Iterable
 
@@ -35,6 +44,7 @@ from machine_learning_apache_spark_tpu_torch.train.metrics import (
     MetricsLogger,
 )
 from machine_learning_apache_spark_tpu_torch.train.state import TrainState
+from machine_learning_apache_spark_tpu_torch.utils.graph_cache import ProgramCache
 from machine_learning_apache_spark_tpu_torch.utils.logging import get_logger
 from machine_learning_apache_spark_tpu_torch.utils.timing import Timer
 
@@ -60,6 +70,39 @@ def make_train_step(loss_fn: LossFn):
     return step
 
 
+def make_multi_step(loss_fn: LossFn):
+    """K train steps as one function of device tensors — what one CUDA
+    graph holds (the JAX package scans them inside one XLA program).
+
+    ``multi_step(state, batches, rng, lrs, phase)``: ``batches`` is a
+    tuple of ``[K, ...]`` tensors (step ``i`` takes ``b[i]`` of each),
+    ``lrs`` the K scheduled learning rates (``TrainState.scheduled_lrs``:
+    a float32 device tensor on the card, float64 on the CPU) and
+    ``phase`` the accumulation phase at the first step. Each step runs
+    ``TrainState.update_on_device``, which touches no host counter: the
+    caller advances them by K after the call. Returns ``(losses [K], aux
+    {name: [K]})``. Every step draws its dropout from ``rng`` as a single
+    step would, so K steps train bit for bit like K single steps."""
+
+    def multi_step(state: TrainState, batches, rng, lrs: torch.Tensor, phase: int):
+        on_card = state.lr_tensor is not None
+        losses, auxes = [], []
+        for i in range(batches[0].shape[0]):
+            loss, aux = loss_fn(state.model, tuple(b[i] for b in batches), rng)
+            loss.backward()
+            state.update_on_device(
+                (phase + i) % state.tx.accumulate_steps,
+                lrs[i] if on_card else float(lrs[i]),
+            )
+            losses.append(loss.detach())
+            auxes.append({k: v.detach() for k, v in aux.items()})
+        return torch.stack(losses), {
+            k: torch.stack([a[k] for a in auxes]) for k in auxes[0]
+        }
+
+    return multi_step
+
+
 def make_eval_step(loss_fn: LossFn):
     @torch.no_grad()
     def step(state: TrainState, batch, rng: torch.Generator | None):
@@ -73,8 +116,14 @@ class FitResult:
     state: TrainState
     train_seconds: float
     history: list[dict] = field(default_factory=list)
-    # Step the run resumed from; always None here (resume is not ported).
+    # Step the run auto-resumed from (fit(resume=True) found a valid
+    # checkpoint); None for a fresh run.
     resumed_step: int | None = None
+    # Every step's training loss, in order (read at the log points).
+    step_losses: list[float] = field(default_factory=list)
+    # The run's programs (``ProgramCache.stats()``): one per group size
+    # and accumulation phase; empty when every step ran singly.
+    programs: list[dict] = field(default_factory=list)
 
     @property
     def final_loss(self) -> float:
@@ -89,15 +138,91 @@ def to_device(batch, device: torch.device):
     """A host batch (tuple of numpy arrays) → tensors on ``device``; token
     ids become int64. For the card the host arrays are pinned first: a copy
     from pageable memory would wait for the stream, serialising the host
-    with every step."""
+    with every step. Tensors already on ``device`` pass through."""
     out = []
     for a in batch:
-        t = torch.as_tensor(np.asarray(a))
-        if device.type == "cuda":
-            t = t.pin_memory()
-        t = t.to(device, non_blocking=True)
+        if isinstance(a, torch.Tensor) and a.device == device:
+            t = a
+        else:
+            t = torch.as_tensor(np.asarray(a))
+            if device.type == "cuda":
+                t = t.pin_memory()
+            t = t.to(device, non_blocking=True)
         out.append(t if torch.is_floating_point(t) else t.long())
     return tuple(out)
+
+
+def stack_batches(batches, device: torch.device) -> tuple[torch.Tensor, ...]:
+    """K batches → one ``[K, ...]`` tensor per field, token ids as int64:
+    on the device if the batches already are, else on the host (pinned
+    for the card, where a program copies them into its inputs)."""
+    fields = []
+    for j in range(len(batches[0])):
+        column = [b[j] for b in batches]
+        on_device = all(isinstance(c, torch.Tensor) and c.device == device for c in column)
+        t = torch.stack(column) if on_device else torch.from_numpy(
+            np.stack([np.asarray(c) for c in column])
+        )
+        if not torch.is_floating_point(t):
+            t = t.long()
+        if not on_device and device.type == "cuda":
+            t = t.pin_memory()
+        fields.append(t)
+    return tuple(fields)
+
+
+class StepDispatch:
+    """How one ``fit`` runs its steps on ``state``: ``single(batch)`` one
+    step eagerly (``make_train_step``); ``group(batches)`` K steps as one
+    program of ``make_multi_step`` in ``programs``, a ``ProgramCache`` whose
+    first call of each (K, accumulation phase) is the real call and whose
+    later calls replay (CUDA graphs on the card, with ``rng`` registered;
+    eager on the CPU). Both return ``(losses [n], aux {name: [n]})`` on
+    the device, the caller's to keep, and advance the state's counters.
+    A state whose tensors are replaced (``TrainState.load_state_dict``)
+    needs a new dispatch: the programs hold the old ones."""
+
+    def __init__(self, state: TrainState, loss_fn: LossFn, rng: torch.Generator):
+        self.state = state
+        self.rng = rng
+        self.device = _device_of(state)
+        self.programs = ProgramCache(
+            self.device, eager_first_call=True,
+            generators=(rng,) if self.device.type == "cuda" else (),
+        )
+        self._step = make_train_step(loss_fn)
+        self._multi = make_multi_step(loss_fn)
+
+    def _program(self, *args):
+        *fields, lrs, phase = args
+        return self._multi(self.state, tuple(fields), self.rng, lrs, phase)
+
+    def single(self, batch):
+        _, loss, aux = self._step(self.state, to_device(batch, self.device), self.rng)
+        return loss[None], {k: v[None] for k, v in aux.items()}
+
+    def group(self, batches):
+        k = len(batches)
+        lrs = torch.from_numpy(self.state.scheduled_lrs(k))
+        if self.device.type == "cuda":
+            lrs = lrs.float().pin_memory()
+        losses, aux = self.programs(
+            "train_steps", self._program,
+            *stack_batches(batches, self.device), lrs, self.state.mini_step,
+        )
+        self.state.advance(k)
+        # A replay's outputs are overwritten by the next one.
+        return losses.clone(), {n: v.clone() for n, v in aux.items()}
+
+
+def _gen_to_meta(gen: torch.Generator) -> str:
+    """A generator's state as text for the checkpoint sidecar."""
+    return base64.b64encode(gen.get_state().numpy().tobytes()).decode("ascii")
+
+
+def _gen_from_meta(gen: torch.Generator, text: str) -> torch.Generator:
+    state = np.frombuffer(base64.b64decode(text), dtype=np.uint8).copy()
+    return gen.set_state(torch.from_numpy(state))
 
 
 def _unported(**given) -> None:
@@ -110,9 +235,6 @@ def _unported(**given) -> None:
         "dp_comms_dtype": ("A4 (distributed)", given["dp_comms_dtype"] is not None),
         "dp_overlap": ("A4 (distributed)", given["dp_overlap"] is not None),
         "sync_check_every": ("A4 (distributed)", given["sync_check_every"] != 0),
-        "steps_per_call": ("A1 (make_multi_step)", given["steps_per_call"] != 1),
-        "checkpointer": ("A1 (train/checkpoint.py)", given["checkpointer"] is not None),
-        "resume": ("A1 (train/checkpoint.py)", given["resume"]),
         "elastic": ("A4 (train/reshard.py)", given["elastic"] is not None),
         "profile_dir": ("A1 (profiler window)", given["profile_dir"] is not None),
     }
@@ -157,9 +279,30 @@ def fit(
     ``train_loader`` (or ``data=``) yields host batches of numpy arrays; if
     it has ``set_epoch``, it is called per epoch. Batches go to the model's
     device. ``rng`` is a CPU ``torch.Generator`` (default: seeded 0); one
-    seed is drawn from it per step for that step's dropout generator on
-    the device. ``metrics_file`` appends one JSON line per epoch and a
-    final run record. The wall time blocks on the device before it stops.
+    seed drawn from it seeds the run's dropout generator on the device,
+    from which every step draws on. ``metrics_file`` appends one JSON
+    line per epoch and a final run record. The wall time blocks on the
+    device before it stops.
+
+    ``steps_per_call=K`` runs K batches per call as one program
+    (``StepDispatch.group``; on the card a CUDA graph per accumulation
+    phase, captured at its first group), the same steps in the same
+    order with the same dropout bits and learning rates: the trained
+    parameters and every step's loss equal ``steps_per_call=1``'s bit for
+    bit. A ragged trailing group at an epoch's end runs as single steps,
+    so any loader length works (K larger than an epoch: every batch
+    does).
+
+    ``checkpointer`` (a ``train.checkpoint.CheckpointManager``) saves the
+    state every ``checkpoint_every`` epochs and after the last, without
+    waiting for the write (``wait=False``); the sidecar holds the epoch,
+    both generators' states and the epoch's metrics. ``resume=True``
+    (with a ``checkpointer``) restores the newest valid checkpoint before
+    training (its parameters copied into the state's own tensors) and
+    continues from the epoch after the saved one with the saved
+    generators, so a resumed run trains bit for bit like an uninterrupted
+    one; no checkpoint on disk is a fresh run. ``FitResult.resumed_step``
+    records which happened.
 
     ``prefetch_to_device`` is accepted and, as in the JAX package without a
     mesh, has nothing to do. The state is updated in place and returned in
@@ -167,9 +310,7 @@ def fit(
     _unported(
         mesh=mesh, zero1=zero1, dp_mode=dp_mode, dp_bucket_bytes=dp_bucket_bytes,
         dp_comms_dtype=dp_comms_dtype, dp_overlap=dp_overlap,
-        sync_check_every=sync_check_every, steps_per_call=steps_per_call,
-        checkpointer=checkpointer, resume=resume, elastic=elastic,
-        profile_dir=profile_dir,
+        sync_check_every=sync_check_every, elastic=elastic, profile_dir=profile_dir,
     )
     if data is not None:
         if train_loader is not None:
@@ -177,23 +318,57 @@ def fit(
         train_loader = data
     if train_loader is None:
         raise ValueError("fit needs a train_loader (or data=...)")
+    if steps_per_call < 1:
+        raise ValueError(f"steps_per_call must be >= 1, got {steps_per_call}")
     emit = emit or log.info
     rng = rng if rng is not None else torch.Generator().manual_seed(0)
     device = _device_of(state)
-    step_fn = make_train_step(loss_fn)
+    step_rng = torch.Generator(device=device)
+
+    resumed_step: int | None = None
+    resume_meta: dict = {}
+    start_epoch = 0
+    if resume and checkpointer is not None:
+        restored = checkpointer.restore_latest_valid(state)
+        if restored is not None:
+            state, resumed_step, resume_meta = restored
+            if "rng" in resume_meta:
+                rng = _gen_from_meta(torch.Generator(), resume_meta["rng"])
+            start_epoch = int(resume_meta.get("epoch", -1)) + 1
+            emit(
+                f"resuming from checkpoint step {resumed_step} "
+                f"(starting epoch {start_epoch})"
+            )
+    if "dropout_rng" in resume_meta:
+        _gen_from_meta(step_rng, resume_meta["dropout_rng"])
+    else:
+        step_rng.manual_seed(int(torch.randint(_SEED_RANGE, (), generator=rng)))
+
+    dispatch = StepDispatch(state, loss_fn, step_rng)
     sink = MetricsLogger(metrics_file) if metrics_file else None
     total_timer = Timer("train").start()
     span_timer = Timer("span").start()
+    step_losses: list[float] = []
     try:
-        with telemetry.span("train.fit", epochs=epochs, steps_per_call=1, resumed_step=None):
+        with telemetry.span(
+            "train.fit", epochs=epochs, steps_per_call=steps_per_call,
+            resumed_step=resumed_step,
+        ):
             history = _run_epochs(
-                state, step_fn, train_loader, epochs, rng, device, log_every,
-                emit, span_timer, sink,
+                dispatch, train_loader, epochs, rng, log_every, emit, span_timer,
+                sink, checkpointer, checkpoint_every, steps_per_call, start_epoch,
+                resumed_step or 0, step_losses,
             )
+        if not history and resume_meta.get("metrics"):
+            # An already-complete resume: report the last epoch's metrics
+            # from its sidecar.
+            history = [dict(resume_meta["metrics"])]
         # Block on the device so the wall time includes its work.
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         seconds = total_timer.stop()
+        if checkpointer is not None:
+            checkpointer.wait()  # durability barrier, outside the timed span
         if sink is not None:
             sink.write({
                 "kind": "run",
@@ -205,34 +380,52 @@ def fit(
         if sink is not None:
             sink.close()
     emit(f"Training Time: {seconds:.3f} sec")
-    return FitResult(state=state, train_seconds=seconds, history=history)
+    return FitResult(
+        state=state, train_seconds=seconds, history=history,
+        resumed_step=resumed_step, step_losses=step_losses,
+        programs=dispatch.programs.stats(),
+    )
 
 
-def _drain_into(metrics: MetricBundle, pending: list, loss_name: str) -> None:
-    """Move pending ``(loss, aux, n)`` device values to the host in one
-    copy per metric and fold them into ``metrics``."""
+def _drain_into(metrics: MetricBundle, pending: list, loss_name: str,
+                step_losses: list | None = None) -> None:
+    """Move pending ``(values [m], aux {name: [m]}, n)`` device values to
+    the host in one copy per metric and fold each value into ``metrics``
+    on its own, with weight ``n``: a training entry holds one loss per
+    step (``n`` 1), so the epoch's mean is the same bits whether its
+    steps ran one at a time or K per program; an eval entry holds one
+    batch's mean over its ``n`` rows. ``step_losses`` collects the
+    values."""
     if not pending:
         return
-    losses = torch.stack([p[0] for p in pending]).tolist()
+    losses = torch.cat([p[0].reshape(-1) for p in pending]).tolist()
     aux = {
-        k: torch.stack([p[1][k] for p in pending]).tolist() for k in pending[0][1]
+        k: torch.cat([p[1][k].reshape(-1) for p in pending]).tolist()
+        for k in pending[0][1]
     }
-    for i, (_, _, n) in enumerate(pending):
+    weights = [p[2] for p in pending for _ in range(p[0].numel())]
+    for i, n in enumerate(weights):
         metrics.mean(loss_name).update(losses[i], n)
         for k, vals in aux.items():
             metrics.mean(k).update(vals[i], n)
+    if step_losses is not None:
+        step_losses.extend(losses)
     pending.clear()
 
 
 def _run_epochs(
-    state, step_fn, train_loader, epochs, rng, device, log_every, emit,
-    span_timer, sink,
+    dispatch, train_loader, epochs, rng, log_every, emit, span_timer, sink,
+    checkpointer, checkpoint_every, steps_per_call, start_epoch, start_step,
+    step_losses,
 ):
+    state = dispatch.state
     history: list[dict] = []
-    step_rng = torch.Generator(device=device)
-    global_step = 0
-    last_emit_step = 0
-    for epoch in range(epochs):
+    # On resume the step counter continues from the restored checkpoint, so
+    # log lines mean the same thing in a resumed run as in an uninterrupted
+    # one.
+    global_step = start_step
+    last_emit_step = global_step
+    for epoch in range(start_epoch, epochs):
         with telemetry.span("train.epoch", epoch=epoch):
             beacon_update(phase="train", epoch=epoch, step=global_step)
             if hasattr(train_loader, "set_epoch"):
@@ -241,26 +434,40 @@ def _run_epochs(
             # Step outputs stay on the device until a log point: reading
             # them per step would sync the host into every step.
             pending: list[tuple] = []
-            for batch in train_loader:
-                batch = to_device(batch, device)
-                step_rng.manual_seed(
-                    int(torch.randint(_SEED_RANGE, (), generator=rng))
-                )
-                with telemetry.span("train.step", step=global_step):
-                    state, loss, aux = step_fn(state, batch, step_rng)
-                global_step += 1
-                pending.append((loss, aux, 1))
-                if log_every and global_step % log_every == 0:
+
+            def run(call, arg, count):
+                nonlocal global_step, last_emit_step
+                prev = global_step
+                with telemetry.span("train.step", step=prev, count=count):
+                    losses, aux = call(arg)
+                global_step += count
+                pending.append((losses, aux, 1))
+                # Stride-aware: a K-step call can jump past the multiple.
+                if log_every and global_step // log_every > prev // log_every:
                     covered = global_step - last_emit_step
                     last_emit_step = global_step
                     beacon_update(phase="train", step=global_step)
-                    _drain_into(epoch_metrics, pending, "loss")
+                    _drain_into(epoch_metrics, pending, "loss", step_losses)
                     emit(
                         f"epoch {epoch} step {global_step} | "
                         f"{epoch_metrics.log_line()} | "
                         f"{span_timer.lap():.3f} sec/{covered} batches"
                     )
-            _drain_into(epoch_metrics, pending, "loss")
+
+            group: list = []
+            for batch in train_loader:
+                if steps_per_call == 1:
+                    run(dispatch.single, batch, 1)
+                    continue
+                group.append(batch)
+                if len(group) == steps_per_call:
+                    run(dispatch.group, group, len(group))
+                    group = []
+            # A ragged trailing group runs as single steps: a program per
+            # remainder length would be one more capture each.
+            for batch in group:
+                run(dispatch.single, batch, 1)
+            _drain_into(epoch_metrics, pending, "loss", step_losses)
             computed = epoch_metrics.compute()
             computed["epoch"] = epoch
             history.append(computed)
@@ -268,6 +475,22 @@ def _run_epochs(
                 sink.write({"kind": "epoch", "step": state.step, **computed})
             if log_every:
                 emit(f"epoch {epoch} done | {epoch_metrics.log_line()}")
+            if checkpointer is not None and (
+                (epoch + 1) % max(checkpoint_every, 1) == 0 or epoch == epochs - 1
+            ):
+                # The save snapshots the state to the host before it
+                # returns (after the device work that writes it) and
+                # writes the files on a thread. The sidecar carries what
+                # resume needs to continue the exact trajectory.
+                checkpointer.save(state, wait=False, meta={
+                    "epoch": epoch,
+                    "rng": _gen_to_meta(rng),
+                    "dropout_rng": _gen_to_meta(dispatch.rng),
+                    "metrics": {
+                        k: (v if isinstance(v, int) else float(v))
+                        for k, v in computed.items()
+                    },
+                })
     return history
 
 

@@ -21,7 +21,10 @@ optax's own formulas, so the same gradients give the same updates:
   gradients (``acc += (g − acc) / (i + 1)``), one real update on every K-th
   call, none in between, the counter carried across epochs;
 - the update itself is ``torch.optim.SGD``/``Adam``/``AdamW`` with optax's
-  defaults (``adamw``'s ``weight_decay`` is optax's 1e-4, not torch's 0.01).
+  defaults (``adamw``'s ``weight_decay`` is optax's 1e-4, not torch's 0.01);
+  on the card it is built ``capturable`` (SGD ``fused``) with its lr in a
+  device tensor, so an update issues no host value and a CUDA graph of
+  several steps (``train.loop.make_multi_step``) can hold it.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ import math
 from dataclasses import dataclass, field
 from typing import Callable
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -140,7 +144,14 @@ _OPTAX_KWARGS = {
 class Optimizer:
     """What ``make_optimizer`` returns: the torch optimizer to build and
     the optax chain around it — schedule, clip norm, accumulation count.
-    ``build(params)`` makes the ``torch.optim`` instance."""
+    ``build(params)`` makes the ``torch.optim`` instance.
+
+    On the card the optimizer takes its learning rate from a device
+    tensor and keeps its state there (Adam/AdamW ``capturable=True``, SGD
+    ``fused=True``), so an update issues no host value and a CUDA graph
+    can hold it; every update on the card, eager or replayed, runs this
+    one setup. On the CPU the lr is a Python float, as torch's defaults
+    take it."""
 
     name: str
     schedule: Schedule
@@ -149,20 +160,27 @@ class Optimizer:
     kwargs: dict = field(default_factory=dict)
 
     def build(self, params) -> torch.optim.Optimizer:
+        params = list(params)
         kw = dict(self.kwargs)
         lr = self.schedule(0)
+        on_card = bool(params) and params[0].device.type == "cuda"
+        if on_card:
+            lr = torch.tensor(lr, dtype=torch.float32, device=params[0].device)
         if self.name == "sgd":
             return torch.optim.SGD(
                 params, lr=lr, momentum=kw.get("momentum") or 0.0,
                 nesterov=bool(kw.get("nesterov", False)),
+                fused=True if on_card else None,
             )
         betas = (kw.get("b1", 0.9), kw.get("b2", 0.999))
         eps = kw.get("eps", 1e-8)
         if self.name == "adam":
-            return torch.optim.Adam(params, lr=lr, betas=betas, eps=eps)
+            return torch.optim.Adam(
+                params, lr=lr, betas=betas, eps=eps, capturable=on_card
+            )
         return torch.optim.AdamW(
             params, lr=lr, betas=betas, eps=eps,
-            weight_decay=kw.get("weight_decay", 1e-4),
+            weight_decay=kw.get("weight_decay", 1e-4), capturable=on_card,
         )
 
 
@@ -215,7 +233,14 @@ class TrainState:
     """The model (its parameters), the optimizer and its optax chain, and
     the counters: ``step`` counts ``apply_gradients`` calls (microbatches,
     as the JAX ``TrainState.step`` does), ``updates`` the real optimizer
-    updates (the schedule's count)."""
+    updates (the schedule's count), ``mini_step`` the accumulation phase;
+    ``acc_grads`` is ``optax.MultiSteps``' running mean (one buffer per
+    parameter, zeros between updates; None without accumulation).
+
+    ``apply_gradients`` is one update with its host bookkeeping. A
+    program of several steps (``train.loop.make_multi_step``) runs
+    ``update_on_device`` per step, which issues device work only, and
+    the caller moves the counters with ``advance`` after it."""
 
     model: nn.Module
     optimizer: torch.optim.Optimizer
@@ -227,11 +252,36 @@ class TrainState:
 
     @classmethod
     def create(cls, *, model: nn.Module, tx: Optimizer) -> "TrainState":
-        return cls(model=model, optimizer=tx.build(model.parameters()), tx=tx)
+        state = cls(model=model, optimizer=tx.build(model.parameters()), tx=tx)
+        if tx.accumulate_steps > 1:
+            state.acc_grads = [torch.zeros_like(p) for p in state.params]
+        return state
 
     @property
     def params(self) -> list[torch.Tensor]:
         return [p for g in self.optimizer.param_groups for p in g["params"]]
+
+    @property
+    def lr_tensor(self) -> torch.Tensor | None:
+        """The card's lr tensor (every group shares it), None on the CPU."""
+        lr = self.optimizer.param_groups[0]["lr"]
+        return lr if isinstance(lr, torch.Tensor) else None
+
+    def emits(self, mini_step: int) -> bool:
+        """Whether the update at accumulation phase ``mini_step`` steps
+        the optimizer (every ``accumulate_steps``-th call does)."""
+        return (mini_step + 1) % self.tx.accumulate_steps == 0
+
+    def scheduled_lrs(self, n: int) -> np.ndarray:
+        """float64 ``[n]``: the lr each of the next ``n`` updates uses
+        (the schedule at the update count each would step at; a call
+        that only accumulates gets the next one's, unused)."""
+        out = np.empty(n, np.float64)
+        updates = self.updates
+        for i in range(n):
+            out[i] = self.tx.schedule(updates)
+            updates += self.emits(self.mini_step + i)
+        return out
 
     @torch.no_grad()
     def apply_gradients(self) -> None:
@@ -240,24 +290,33 @@ class TrainState:
         call clip, set the scheduled lr, step the torch optimizer; always
         clear the grads. Runs on the parameters' device without a host
         sync."""
+        self.update_on_device(self.mini_step, self.tx.schedule(self.updates))
+        self.advance(1)
+
+    def advance(self, n: int) -> None:
+        """Move the host counters past ``n`` updates."""
+        k = self.tx.accumulate_steps
+        self.updates += sum(self.emits(self.mini_step + i) for i in range(n))
+        self.step += n
+        self.mini_step = (self.mini_step + n) % k
+
+    @torch.no_grad()
+    def update_on_device(self, mini_step: int, lr: float | torch.Tensor) -> None:
+        """The device work of one update at accumulation phase
+        ``mini_step``: accumulate, and if it emits, clip, set the lr
+        (a float, or a 0-d device tensor a program takes as its input)
+        and step the optimizer. Touches no host counter."""
         params = self.params
         grads = [
             p.grad if p.grad is not None else torch.zeros_like(p) for p in params
         ]
-        self.step += 1
-        k = self.tx.accumulate_steps
-        if k > 1:
-            if self.acc_grads is None:
-                self.acc_grads = [torch.zeros_like(p) for p in params]
+        if self.acc_grads is not None:
             for acc, g in zip(self.acc_grads, grads):
-                acc.add_((g - acc) / (self.mini_step + 1))
-            self.mini_step += 1
-            if self.mini_step < k:
+                acc.add_((g - acc) / (mini_step + 1))
+            if not self.emits(mini_step):
                 self.optimizer.zero_grad(set_to_none=True)
                 return
-            self.mini_step = 0
             grads = self.acc_grads
-            self.acc_grads = None  # optax resets the accumulator to zeros
         if self.tx.grad_clip is not None:
             max_norm = self.tx.grad_clip
             norm = torch.sqrt(sum(torch.sum(torch.square(g)) for g in grads))
@@ -265,9 +324,60 @@ class TrainState:
             grads = [torch.where(keep, g, g / norm * max_norm) for g in grads]
         for p, g in zip(params, grads):
             p.grad = g
-        lr = self.tx.schedule(self.updates)
-        for group in self.optimizer.param_groups:
-            group["lr"] = lr
+        if isinstance(lr, torch.Tensor):
+            self.lr_tensor.copy_(lr)
+        elif self.lr_tensor is not None:
+            # The float32 a program's lr input would hold.
+            self.lr_tensor.fill_(float(np.float32(lr)))
+        else:
+            for group in self.optimizer.param_groups:
+                group["lr"] = lr
         self.optimizer.step()
-        self.updates += 1
         self.optimizer.zero_grad(set_to_none=True)
+        if self.acc_grads is not None:
+            for acc in self.acc_grads:  # optax resets the accumulator to zeros
+                acc.zero_()
+
+    # -- checkpoint payload ---------------------------------------------------
+
+    def state_dict(self) -> dict:
+        """What a checkpoint holds: the counters, the accumulator, the
+        model's and the optimizer's state (device tensors; the caller
+        copies them to the host)."""
+        return {
+            "step": self.step,
+            "updates": self.updates,
+            "mini_step": self.mini_step,
+            "acc_grads": self.acc_grads,
+            "model": self.model.state_dict(),
+            "optimizer": self.optimizer.state_dict()["state"],
+        }
+
+    @torch.no_grad()
+    def load_state_dict(self, payload: dict) -> None:
+        """Restore ``payload`` (``state_dict``'s form, on any device) into
+        this state: parameters and the accumulator are copied in place;
+        the optimizer's per-parameter state is loaded under this state's
+        own param groups (its lr tensor, ``capturable``/``fused`` flags
+        and hyperparameters stay). The optimizer's state tensors are new
+        ones afterwards: a program captured before holds the old ones."""
+        acc = payload["acc_grads"]
+        if (acc is None) != (self.acc_grads is None):
+            raise ValueError(
+                "checkpoint accumulator does not match accumulate_steps="
+                f"{self.tx.accumulate_steps}"
+            )
+        self.model.load_state_dict(payload["model"])
+        groups = self.optimizer.state_dict()["param_groups"]
+        lrs = [g["lr"] for g in self.optimizer.param_groups]
+        self.optimizer.load_state_dict(
+            {"state": payload["optimizer"], "param_groups": groups}
+        )
+        for group, lr in zip(self.optimizer.param_groups, lrs):
+            group["lr"] = lr
+        if acc is not None:
+            for buf, saved in zip(self.acc_grads, acc):
+                buf.copy_(saved)
+        self.step = int(payload["step"])
+        self.updates = int(payload["updates"])
+        self.mini_step = int(payload["mini_step"])

@@ -747,3 +747,112 @@ def test_a_second_engine_on_the_card_captures_its_own_programs(cuda):
         a.stop()
         b.stop()
     assert outs[0] == outs[1] == outs[2]
+
+
+# -- training and one-shot decoding as programs ----------------------------------
+
+
+def _tiny_fit(cuda, k, *, epochs=2, ckpt=None, resume=False, seed=31):
+    """A tiny MT model on the card (2 layers, dropout 0.2) trained by
+    ``fit`` from fixed weights: Adam under a warmup-cosine schedule,
+    clipping, accumulation 2, 6 batches an epoch, ``k`` steps per call."""
+    from machine_learning_apache_spark_tpu_torch.data.loader import ArrayDataset, DataLoader
+    from machine_learning_apache_spark_tpu_torch.models import Transformer, TransformerConfig
+    from machine_learning_apache_spark_tpu_torch.recipes.translation import make_translation_loss
+    from machine_learning_apache_spark_tpu_torch.train.loop import fit
+    from machine_learning_apache_spark_tpu_torch.train.state import TrainState, make_optimizer
+
+    cfg = TransformerConfig(src_vocab_size=41, trg_vocab_size=37, d_model=64, ffn_hidden=128,
+                            num_heads=4, num_layers=2, max_len=24, dropout=0.2)
+    rng = np.random.default_rng(seed)
+    src = rng.integers(4, 41, (48, 16))
+    trg = rng.integers(4, 37, (48, 12))
+    for toks, lengths in ((src, rng.integers(3, 17, 48)), (trg, rng.integers(3, 13, 48))):
+        for i, n in enumerate(lengths):
+            toks[i, n:] = 0
+    model = Transformer(cfg, generator=torch.Generator().manual_seed(seed)).to(cuda)
+    state = TrainState.create(model=model, tx=make_optimizer(
+        "adam", 2e-3, schedule="warmup_cosine", warmup_steps=2, total_steps=12,
+        grad_clip=1.0, accumulate_steps=2))
+    loader = DataLoader(ArrayDataset(src, trg), 8, shuffle=True, seed=3)
+    return fit(state, make_translation_loss(0), loader, epochs=epochs, log_every=0,
+               rng=torch.Generator().manual_seed(5), steps_per_call=k,
+               checkpointer=ckpt, resume=resume)
+
+
+@pytest.mark.parametrize("k", [3, 4], ids=["exact-groups", "ragged-tail"])
+def test_k_step_replays_train_bit_for_bit_like_single_steps(cuda, k):
+    """Groups of K steps as CUDA graphs (one per accumulation phase,
+    captured at its first group, replayed after) against one eager step
+    at a time: every parameter and every step's loss bit for bit, dropout
+    drawn from the registered generator; each replay launches the three
+    flash kernels 3 sites x 2 layers x K times, as its eager first call
+    did."""
+    hop.reset_launches()
+    one = _tiny_fit(cuda, 1)
+    torch.cuda.synchronize()
+    eager_launches = dict(hop.LAUNCHES)
+    hop.reset_launches()
+    many = _tiny_fit(cuda, k)
+    torch.cuda.synchronize()
+    assert dict(hop.LAUNCHES) == eager_launches
+    assert eager_launches["flash_attention_bwd_dq"] == 6 * 12
+    for a, b in zip(one.state.params, many.state.params):
+        assert torch.equal(a, b)
+    assert one.step_losses == many.step_losses and len(one.step_losses) == 12
+    phases = {3: 2, 4: 1}[k]
+    assert len(many.programs) == phases
+    for p in many.programs:
+        assert p["replays"] == p["calls"] - 1 > 0
+        for name in ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+            assert p["launches"][name] == p["eager_launches"][name] == 6 * k
+
+
+def test_resumed_fit_on_the_card_equals_the_uninterrupted_run(cuda, tmp_path):
+    """2 epochs with a checkpointer, then ``resume=True`` to 4, at K=3,
+    against 4 epochs in one run: the same parameters and step losses."""
+    from machine_learning_apache_spark_tpu_torch.train.checkpoint import CheckpointManager
+
+    whole = _tiny_fit(cuda, 3, epochs=4)
+    with CheckpointManager(str(tmp_path / "c")) as ck:
+        first = _tiny_fit(cuda, 3, ckpt=ck)
+    with CheckpointManager(str(tmp_path / "c")) as ck:
+        second = _tiny_fit(cuda, 3, epochs=4, ckpt=ck, resume=True, seed=31)
+    assert second.resumed_step == 12
+    assert first.step_losses + second.step_losses == whole.step_losses
+    for a, b in zip(second.state.params, whole.state.params):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("method", ["greedy", "beam"])
+def test_translator_replays_equal_an_eager_decode(cuda, method):
+    """``Translator`` keeps one CUDA graph per call shape: its first call
+    runs eagerly and captures, a second call of that shape replays and
+    captures nothing; the replay's ids equal an eager call of the decoder
+    on the card bit for bit, with the same forward launches."""
+    from machine_learning_apache_spark_tpu_torch.data.text import EOS_ID, SOS_ID
+    from machine_learning_apache_spark_tpu_torch.models import (
+        beam_translate,
+        greedy_translate_cached,
+    )
+
+    t, texts = _card_translator(cuda)
+    kw = dict(method=method, max_new_tokens=10, beam_size=2)
+    first = t.translate_ids(texts[:6], **kw)
+    assert t.programs().size() == 1
+    hop.reset_launches()
+    replay = t.translate_ids(texts[:6], **kw)
+    replay_n = dict(hop.LAUNCHES)
+    assert t.programs().size() == 1 and t.programs().stats()[0]["replays"] == 1
+    src = torch.as_tensor(t.src_pipe(texts[:6]), dtype=torch.long, device=cuda)
+    hop.reset_launches()
+    dec = dict(max_new_tokens=10, sos_id=SOS_ID, eos_id=EOS_ID)
+    if method == "greedy":
+        eager = greedy_translate_cached(t.model, src, **dec)
+    else:
+        eager = beam_translate(t.model, src, beam_size=2, length_penalty=0.6, **dec)
+    torch.cuda.synchronize()
+    assert torch.equal(replay, eager.cpu()) and torch.equal(first, replay)
+    layers = t.model.cfg.num_layers
+    assert replay_n == dict(hop.LAUNCHES)
+    assert replay_n["flash_attention_fwd"] == layers + 2 * layers * (1 + 10)

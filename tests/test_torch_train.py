@@ -397,8 +397,7 @@ def test_unported_recipe_fields_raise(field):
 
 
 @pytest.mark.parametrize(
-    "kw", [dict(mesh=object()), dict(steps_per_call=2), dict(checkpointer=object()),
-           dict(resume=True), dict(profile_dir="p"), dict(sync_check_every=1),
+    "kw", [dict(mesh=object()), dict(profile_dir="p"), dict(sync_check_every=1),
            dict(zero1=True), dict(dp_mode="zero1"), dict(elastic=True)],
     ids=lambda kw: next(iter(kw)),
 )
