@@ -83,7 +83,31 @@ Phases, each fatal on failure:
    epochs in one run; with the newest payload torn the newest valid step
    is the one before, and the ``latest`` pointer names a complete step
    throughout;
-6. times — requests/s, generated tokens/s and peak device memory of each
+6. the model zoo — every zoo recipe through its entry point at the
+   reference widths on the committed fixtures: ``train_mlp`` (the libsvm
+   sample, layers 4-5-4-3, SGD 0.03, batch 30, its 100 epochs),
+   ``train_cnn`` on CIFAR-10 (32x32x3) and on FashionMNIST (28x28x1)
+   (TinyVGG, hidden 10, SGD 0.01, batch 32) and ``train_lstm`` on AG_NEWS
+   (embed 32, hidden 32, 2 layers, dropout 0.5, ``max_seq_len`` 128, Adam
+   1e-3, batch 32) reading the last and the last valid position, one
+   epoch each: finite losses, and none of the attention kernels launched.
+   The CNN (CIFAR-10) and both LSTM recipes at 4 steps per call (one CUDA
+   graph) against 1: every parameter and step loss bit for bit, one
+   program; 1 + 1 resumed CNN epochs against 2 in one run. Each recipe
+   with dropout off on the card and on the CPU: per-epoch losses within
+   1e-3 relative, step-0 gradients within 1e-4 of the largest (the four
+   largest per-parameter differences printed). ``Classifier.save`` ->
+   ``load`` on the card predicts the same classes (LSTM, CNN). The MLlib
+   ``MultilayerPerceptronClassifier`` (L-BFGS, maxIter 100) on the card
+   and on the CPU: the first 10 losses within 1e-4 relative, the same
+   test accuracy; fit wall, iterations and final loss. Then per recipe at
+   1 and 4 steps per call: ms per step (CUDA events), samples/s (non-pad
+   tokens/s for the LSTM), device ms per step and the idle share of a
+   profiled window, peak memory above the state; one LSTM layer's
+   forward + backward, the port's recurrence eager and as one CUDA graph
+   against ``torch.nn.LSTM`` (cuDNN) over the same weights; the CNN step
+   with cuDNN's deterministic algorithms on and off;
+7. times — requests/s, generated tokens/s and peak device memory of each
    engine (paged fp32 and int8, padded, beam); each engine's requests/s
    and device idle share over one profiled window; the host time of the
    paged engines' decode thread per launch, split by activity (staging,
@@ -2041,6 +2065,416 @@ def log_site_times(name: str, site: str, t: dict, card: str) -> None:
                         for w, x in t["warps_sweep"].items()))
 
 
+# -- phase 6: the model zoo (MLP, TinyVGG, LSTM, MLlib L-BFGS) ---------------------
+
+SAMPLE_LIBSVM = Path(__file__).resolve().parent / "assets" / "sample_multiclass_classification_data.txt"
+# The zoo's recipes at the reference widths on the committed fixtures:
+# (recipe module, its train function, the recipe's fields).
+ZOO = {
+    "mlp": ("mlp", "train_mlp", dict(data_path=str(SAMPLE_LIBSVM), layers=(4, 5, 4, 3),
+                                     learning_rate=0.03, batch_size=30)),
+    "cnn cifar10": ("cnn", "train_cnn", dict(data_root=str(FIXTURES), dataset="cifar10",
+                                             hidden_units=10, learning_rate=0.01, batch_size=32)),
+    "cnn fashion_mnist": ("cnn", "train_cnn", dict(data_root=str(FIXTURES), dataset="fashion_mnist",
+                                                   hidden_units=10, learning_rate=0.01, batch_size=32)),
+    "lstm last": ("lstm", "train_lstm", dict(data_root=str(FIXTURES), embed_dim=32, hidden_size=32,
+                                             num_layers=2, dropout=0.5, max_seq_len=128,
+                                             learning_rate=1e-3, batch_size=32, classify_from="last")),
+    "lstm last_valid": ("lstm", "train_lstm", dict(data_root=str(FIXTURES), embed_dim=32, hidden_size=32,
+                                                   num_layers=2, dropout=0.5, max_seq_len=128,
+                                                   learning_rate=1e-3, batch_size=32,
+                                                   classify_from="last_valid")),
+}
+# Epochs of the card-vs-CPU runs: the MLP's reference 100 (3 steps each),
+# one for the others.
+ZOO_PARITY_EPOCHS = {"mlp": 100}
+ZOO_K = 4
+ZOO_WINDOW = 8  # steps in each profiled window (an eager LSTM step is ~9,000 launches)
+LBFGS_RTOL = 1e-4  # card vs CPU, the first 10 L-BFGS iterations
+
+
+def zoo_run(torch, hop, name: str, device=None, **kw) -> dict:
+    """One zoo recipe through its entry point, with the launch counts set
+    to 0 just before and read just after, and its wall time."""
+    import importlib
+
+    module, fn, fields = ZOO[name]
+    train = getattr(importlib.import_module(f"machine_learning_apache_spark_tpu_torch.recipes.{module}"), fn)
+    if device is None:
+        torch.cuda.synchronize()
+    hop.reset_launches()
+    t0 = time.perf_counter()
+    out = train(device=device, _return_state=True, **{**fields, **kw})
+    if device is None:
+        torch.cuda.synchronize()
+    out["wall"] = time.perf_counter() - t0
+    out["launches"] = dict(hop.LAUNCHES)
+    return out
+
+
+def zoo_batches(name: str, n: int) -> tuple:
+    """The recipe's first ``n`` training batches (its loader, its seed) and
+    its training loss: what the step-0 gradients and the timings take."""
+    from machine_learning_apache_spark_tpu_torch.data import datasets
+    from machine_learning_apache_spark_tpu_torch.data.libsvm import read_libsvm
+    from machine_learning_apache_spark_tpu_torch.data.loader import ArrayDataset
+    from machine_learning_apache_spark_tpu_torch.data.text import PAD_ID, classification_pipeline
+    from machine_learning_apache_spark_tpu_torch.recipes import cnn, lstm, mlp
+    from machine_learning_apache_spark_tpu_torch.recipes._common import make_loaders
+    from machine_learning_apache_spark_tpu_torch.train.loop import classification_loss
+
+    fields = ZOO[name][2]
+    if name == "mlp":
+        r = mlp.MLPRecipe(**fields)
+        train, _ = read_libsvm(r.data_path).random_split([r.train_fraction, 1 - r.train_fraction], seed=r.seed)
+        ds, loss = ArrayDataset(*train.arrays()), classification_loss()
+    elif name.startswith("cnn"):
+        r = cnn.CNNRecipe(**fields)
+        load = datasets.load_cifar10 if r.dataset == "cifar10" else datasets.load_fashion_mnist
+        ds, loss = ArrayDataset(*load(r.data_root, train=True).arrays()), classification_loss()
+    else:
+        r = lstm.LSTMRecipe(**fields)
+        texts, labels = datasets.load_ag_news(r.data_root, train=True)
+        pipe = classification_pipeline(texts, max_seq_len=r.max_seq_len, fixed_len=r.max_seq_len + 1)
+        ds = ArrayDataset(pipe(texts), labels)
+        pad = PAD_ID if r.classify_from == "last_valid" else None
+        loss = classification_loss(last_timestep=True, pad_id=pad)
+    loader, _ = make_loaders(ds, None, batch_size=r.batch_size, seed=r.seed)
+    batches = []
+    for b in loader:
+        batches.append(b)
+        if len(batches) == n:
+            break
+    return batches, loss
+
+
+def zoo_parity(torch, hop, name: str) -> dict:
+    """Dropout 0, the recipe's seeded weights on both: its epochs on the
+    card and on the CPU, per-epoch losses within ``PARITY_RTOL`` relative;
+    the step-0 gradients of the recipe's first batch within
+    ``GRAD_RTOL`` of the largest, the four largest per-parameter
+    differences printed."""
+    from machine_learning_apache_spark_tpu_torch.train.loop import to_device
+
+    kw = dict(epochs=ZOO_PARITY_EPOCHS.get(name, 1))
+    if name.startswith("lstm"):
+        kw["dropout"] = 0.0
+    runs = {dev: zoo_run(torch, hop, name, device=dev, **kw) for dev in (None, "cpu")}
+    card = np.array([h["loss"] for h in runs[None]["history"]])
+    cpu = np.array([h["loss"] for h in runs["cpu"]["history"]])
+    rel = np.abs(card - cpu) / np.abs(cpu)
+    steps_card = np.array(runs[None]["fit_result"].step_losses)
+    steps_cpu = np.array(runs["cpu"]["fit_result"].step_losses)
+    step_rel = np.abs(steps_card - steps_cpu) / np.abs(steps_cpu)
+
+    batches, loss_fn = zoo_batches(name, 1)
+    fresh = {dev: zoo_run(torch, hop, name, device=dev, epochs=0, **{k: v for k, v in kw.items() if k != "epochs"})
+             for dev in (None, "cpu")}
+    named = {}
+    for dev, out in fresh.items():
+        model = out["state"].model
+        device = next(model.parameters()).device
+        named[dev] = step0_grads(model, to_device(batches[0], device), loss_fn)
+    card_g = torch.cat([g for _, g in named[None]])
+    cpu_g = torch.cat([g for _, g in named["cpu"]])
+    g_max = cpu_g.abs().max()
+    g_rel = ((card_g - cpu_g).abs().max() / g_max).item()
+    worst = sorted(
+        ((((a - b).abs().max() / g_max).item(), (b.abs().max() / g_max).item(), n)
+         for (n, a), (_, b) in zip(named[None], named["cpu"])),
+        reverse=True,
+    )[:4]
+    log(f"  {name}: card vs CPU, dropout 0, {len(card)} epoch(s) of {len(steps_card) // len(card)} steps: "
+        f"epoch losses card {card[-3:].tolist()} CPU {cpu[-3:].tolist()} (last up to 3), max relative "
+        f"difference {rel.max():.3e} (gate <= {PARITY_RTOL:.0e}); step losses max relative "
+        f"{step_rel.max():.3e}; step-0 gradients max |card - CPU| / max |CPU| {g_rel:.3e} "
+        f"(gate <= {GRAD_RTOL:.0e}); largest per parameter: "
+        + "; ".join(f"{n} {e:.2e} ({m:.2e})" for e, m, n in worst))
+    if not np.isfinite(card).all() or not (rel <= PARITY_RTOL).all():
+        fail(f"{name}: card and CPU epoch losses disagree")
+    if not g_rel <= GRAD_RTOL:
+        fail(f"{name}: card and CPU step-0 gradients disagree")
+    return dict(epoch_rel=float(rel.max()), step_rel=float(step_rel.max()), grad_rel=g_rel)
+
+
+def zoo_multistep(torch, hop, name: str, runs: dict) -> None:
+    """``runs[1]`` and ``runs[ZOO_K]`` (the recipe's epoch with dropout):
+    parameters and every step's loss bit for bit, one program."""
+    base, run = runs[1], runs[ZOO_K]
+    params_equal, loss_diffs = same_training(torch, run, base)
+    programs = run["fit_result"].programs
+    log(f"  {name}: steps_per_call {ZOO_K} vs 1 over {base['state'].step} steps: parameters equal bit for "
+        f"bit: {params_equal}; step losses differing: {loss_diffs}; programs "
+        + "; ".join(f"{p['calls']} calls, {p['replays']} replays" for p in programs))
+    if not params_equal or loss_diffs:
+        fail(f"{name}: steps_per_call={ZOO_K} did not train bit for bit like steps_per_call=1")
+    if len(programs) != 1:
+        fail(f"{name}: steps_per_call={ZOO_K} made {len(programs)} programs, not 1 per (K, phase)")
+
+
+def zoo_resume(torch, hop, name: str, whole: dict) -> dict:
+    """1 epoch with ``checkpoint_dir``, then a resumed run of 1 more, at
+    ``ZOO_K`` steps per call: equal bit for bit to ``whole`` (2 epochs in
+    one run)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(dir=scratch_dir()) as d:
+        first = zoo_run(torch, hop, name, epochs=1, steps_per_call=ZOO_K, checkpoint_dir=d)
+        second = zoo_run(torch, hop, name, epochs=1, steps_per_call=ZOO_K, checkpoint_dir=d)
+        check_pointer(d, f"{name} after the resumed run")
+    params_equal, loss_diffs = same_training(
+        torch, second, whole, whole["fit_result"].step_losses[len(first["fit_result"].step_losses):])
+    log(f"  {name}: 1 epoch + resume for 1 (steps_per_call {ZOO_K}): resumed_from_step "
+        f"{second.get('resumed_from_step')}; parameters equal to 2 epochs in one run: {params_equal}; "
+        f"step losses differing: {loss_diffs}")
+    if second.get("resumed_from_step") != first["state"].step:
+        fail(f"{name}: resumed from {second.get('resumed_from_step')}, not {first['state'].step}")
+    if not params_equal or loss_diffs:
+        fail(f"{name}: the resumed run did not train bit for bit like the uninterrupted one")
+    return dict(resumed_from=second.get("resumed_from_step"))
+
+
+def zoo_classifier(torch, out: dict, inputs, label: str) -> None:
+    """``Classifier.save`` -> ``load`` on the card: the same predictions."""
+    import tempfile
+
+    from machine_learning_apache_spark_tpu_torch.inference import Classifier
+
+    clf = out["classifier"]
+    want = clf.predict(inputs)
+    with tempfile.TemporaryDirectory(dir=scratch_dir()) as d:
+        clf.save(d)
+        loaded = Classifier.load(d)
+        got = loaded.predict(inputs)
+    log(f"  {label}: Classifier.save -> load on the card: {len(inputs)} predictions identical "
+        f"{torch.equal(got, want)} ({loaded.model.__class__.__name__} on {loaded.device})")
+    if not torch.equal(got, want):
+        fail(f"{label}: the loaded Classifier predicts otherwise")
+
+
+def zoo_mllib(torch, card: str) -> dict:
+    """``MultilayerPerceptronClassifier(layers=[4, 5, 4, 3], maxIter=100,
+    seed=1234).fit`` on the sample's 60 % split, on the card and on the
+    CPU from the same seeded weights: the first 10 L-BFGS iterations'
+    losses within ``LBFGS_RTOL``, the test accuracy equal; then
+    ``transform`` and the evaluator (accuracy, macro F1). Fit wall,
+    iterations and the final loss printed."""
+    from machine_learning_apache_spark_tpu_torch.data.reader import DataReader
+    from machine_learning_apache_spark_tpu_torch.mllib import (
+        MulticlassClassificationEvaluator,
+        MultilayerPerceptronClassifier,
+    )
+
+    frame = DataReader().format("libsvm").load(str(SAMPLE_LIBSVM))
+    train, test = frame.randomSplit([0.6, 0.4], seed=1234)
+    fits, scores = {}, {}
+    for dev in (None, "cpu"):
+        est = MultilayerPerceptronClassifier(layers=[4, 5, 4, 3], blockSize=30, seed=1234, maxIter=100)
+        model = est.fit(train, device=dev)
+        pred = model.transform(test)
+        fits[dev] = model
+        scores[dev] = {m: MulticlassClassificationEvaluator(m).evaluate(pred) for m in ("accuracy", "f1")}
+    h_card, h_cpu = fits[None].loss_history, fits["cpu"].loss_history
+    rel = np.abs(h_card[:10] - h_cpu[:10]) / np.abs(h_cpu[:10])
+    for dev, label in ((None, "card"), ("cpu", "CPU")):
+        m = fits[dev]
+        log(f"  MLlib L-BFGS on the {label}: fit wall {m.fit_seconds:.4f} s, {m.iterations} iterations "
+            f"updated the weights (of maxIter 100), final loss {float(m.loss_history[-1]):.6e}, "
+            f"test accuracy {scores[dev]['accuracy']:.4f}, macro F1 {scores[dev]['f1']:.4f}"
+            + (f" [{card}]" if dev is None else ""))
+    log(f"  MLlib L-BFGS card vs CPU: first 10 losses max relative difference {rel.max():.3e} "
+        f"(gate <= {LBFGS_RTOL:.0e}); test accuracy {scores[None]['accuracy']} vs {scores['cpu']['accuracy']}")
+    if not (rel <= LBFGS_RTOL).all():
+        fail("MLlib L-BFGS: card and CPU losses disagree over the first 10 iterations")
+    if scores[None]["accuracy"] != scores["cpu"]["accuracy"]:
+        fail("MLlib L-BFGS: card and CPU test accuracies differ")
+    if not np.isfinite(h_card).all() or not h_card[-1] < h_card[0]:
+        fail("MLlib L-BFGS: the loss did not fall")
+    return dict(fit_seconds=fits[None].fit_seconds, iterations=fits[None].iterations,
+                final_loss=float(h_card[-1]), lbfgs_rel=float(rel.max()), **scores[None])
+
+
+def time_zoo_dispatch(torch, name: str, state, card: str, label: str = "") -> dict:
+    """The recipe's train step on its trained state, over its first
+    training batches held on the card, at 1 and ``ZOO_K`` steps per call
+    (one ``StepDispatch``, as ``fit`` runs them): ms per step from CUDA
+    events, samples/s, device ms per step and the idle share of one
+    profiled window of ``ZOO_WINDOW`` steps, peak memory above the state
+    (for the LSTM also non-pad tokens/s)."""
+    from machine_learning_apache_spark_tpu_torch.train.loop import StepDispatch, to_device
+
+    dev = next(state.model.parameters()).device
+    host, loss_fn = zoo_batches(name, 8)
+    batches = [to_device(b, dev) for b in host]
+    rows = batches[0][0].shape[0]
+    tokens = [int((b[0] != 0).sum().item()) for b in batches] if name.startswith("lstm") else None
+    dispatch = StepDispatch(state, loss_fn, torch.Generator(device=dev).manual_seed(SEED))
+    out = {}
+    for k in (1, ZOO_K):
+        def run(n, offset=0, k=k):
+            for i in range(0, n, k):
+                group = [batches[(offset + i + j) % len(batches)] for j in range(k)]
+                if k == 1:
+                    dispatch.single(group[0])
+                else:
+                    dispatch.group(group)
+
+        run(2 * k)  # k > 1: the first group captures, the second replays
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        run(TIMED_STEPS, 3)
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / TIMED_STEPS
+        window = profiled_call(torch, lambda: run(ZOO_WINDOW, 5))
+        t = dict(ms=ms, samples_per_s=rows * 1e3 / ms, peak_above=torch.cuda.max_memory_allocated() - base,
+                 device_ms=None if window["busy"] is None else window["busy"] * 1e3 / ZOO_WINDOW,
+                 idle=None if window["busy"] is None else 1 - window["busy"] / window["wall"])
+        if tokens is not None:
+            n_tok = sum(tokens[(3 + i) % len(batches)] for i in range(TIMED_STEPS)) / TIMED_STEPS
+            t["tokens_per_s"] = n_tok * 1e3 / ms
+        out[k] = t
+        dms = "not measured" if t["device_ms"] is None else f"{t['device_ms']:.4f} ms"
+        idle = "not measured" if t["idle"] is None else f"{t['idle']:.4f}"
+        log(f"  {name}{label} train step, {k} step(s) per call (batch {rows}): {ms:.4f} ms/step "
+            f"(CUDA events over {TIMED_STEPS} steps), {t['samples_per_s']:.1f} samples/s"
+            + (f", {t['tokens_per_s']:.1f} non-pad tokens/s" if tokens is not None else "")
+            + f", device {dms}/step, device idle share {idle} (profiled window of {ZOO_WINDOW} steps), "
+            f"peak above the state {t['peak_above'] / 2**20:.2f} MiB [{card}]")
+        if k == ZOO_K:
+            for row_name, calls, us in window["rows"][:6]:
+                log(f"    {us / 1e3:10.3f} ms  {calls:6d} calls  {row_name[:90]}")
+    return out
+
+
+def time_lstm_recurrence(torch, card: str) -> dict:
+    """One LSTM layer at the recipe's width ([32, 129, 32] in, hidden 32),
+    forward + backward: the port's recurrence (eager, and replayed as one
+    CUDA graph) against one single-layer ``torch.nn.LSTM`` (cuDNN) over
+    the same weights (``weight_ih = w_xᵀ``, ``weight_hh = w_hᵀ``,
+    ``bias_ih = bias``, ``bias_hh = 0``). Outputs must agree within
+    ``TOL``."""
+    from machine_learning_apache_spark_tpu_torch.models.lstm import LSTMLayer
+    from machine_learning_apache_spark_tpu_torch.utils.graph_cache import ProgramCache
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED)
+    layer = LSTMLayer(32, 32)
+    layer.reset_parameters(gen)
+    layer.to(dev)
+    ref = torch.nn.LSTM(32, 32, batch_first=True).to(dev)
+    with torch.no_grad():
+        ref.weight_ih_l0.copy_(layer.w_x.T)
+        ref.weight_hh_l0.copy_(layer.w_h.T)
+        ref.bias_ih_l0.copy_(layer.bias)
+        ref.bias_hh_l0.zero_()
+    x = torch.randn(32, 129, 32, generator=gen).to(dev)
+    probe = torch.randn(32, 129, 32, generator=gen).to(dev)
+    with torch.no_grad():  # no autograd graph outlives this check (a capture follows)
+        err = (layer(x)[0] - ref(x)[0]).abs().max().item()
+
+    # Each call makes its own input leaf: a leaf made outside a capture
+    # would tie the captured backward to the default stream.
+    def port():
+        xx = x.detach().requires_grad_(True)
+        y, _ = layer(xx)
+        return torch.autograd.grad((y * probe).sum(), (xx, layer.w_x, layer.w_h, layer.bias))
+
+    def cudnn():
+        xx = x.detach().requires_grad_(True)
+        y, _ = ref(xx)
+        return torch.autograd.grad((y * probe).sum(), (xx, *ref.parameters()))
+
+    programs = ProgramCache(dev)
+    graphed = lambda: programs("lstm_layer", port)  # noqa: E731
+    out = {}
+    for label, fn in (("port recurrence, eager", port), ("port recurrence, one CUDA graph", graphed),
+                      ("torch.nn.LSTM (cuDNN)", cudnn)):
+        out[label] = dict(ms=cuda_time_ms(torch, fn, n=20, warmup=3), device_ms=device_ms_per_call(torch, fn, n=5))
+    log(f"  one LSTM layer [32, 129, 32] -> hidden 32, forward + backward; port vs nn.LSTM outputs "
+        f"max |diff| {err:.2e} (gate <= {TOL:.0e}): "
+        + "; ".join(f"{k} {v['ms']:.4f} ms (device "
+                    + ("not measured" if v["device_ms"] is None else f"{v['device_ms']:.4f} ms") + ")"
+                    for k, v in out.items()) + f" [{card}]")
+    if not err <= TOL:
+        fail(f"the port's LSTM layer and nn.LSTM disagree by {err:.2e}")
+    return out
+
+
+def time_cnn_determinism(torch, state, card: str) -> dict:
+    """The CNN train step (CIFAR-10 batch, 1 step per call) with cuDNN's
+    deterministic algorithms (the card path's setting) and without:
+    device ms per step, for what bit-for-bit training costs."""
+    from machine_learning_apache_spark_tpu_torch.train.loop import StepDispatch, to_device
+
+    dev = next(state.model.parameters()).device
+    host, loss_fn = zoo_batches("cnn cifar10", 1)
+    batch = to_device(host[0], dev)
+    dispatch = StepDispatch(state, loss_fn, torch.Generator(device=dev).manual_seed(SEED))
+    out = {}
+    try:
+        for det in (True, False, True):
+            torch.backends.cudnn.deterministic = det
+            step = lambda: dispatch.single(batch)  # noqa: E731
+            out.setdefault(det, []).append(
+                dict(ms=cuda_time_ms(torch, step, n=50), device_ms=device_ms_per_call(torch, step, n=20)))
+    finally:
+        torch.backends.cudnn.deterministic = True
+    log("  cnn cifar10 train step, cuDNN deterministic on / off / on: "
+        + ", ".join(f"{'on' if d else 'off'}: " + " and ".join(
+            f"{r['ms']:.4f} ms (device " + ("not measured" if r["device_ms"] is None else f"{r['device_ms']:.4f} ms")
+            + ")" for r in rs) for d, rs in out.items()) + f" [{card}]")
+    return {("on" if d else "off"): rs for d, rs in out.items()}
+
+
+def zoo_slice(torch, hop, card: str) -> dict:
+    """Every zoo recipe on the card at its reference widths: its epoch (the
+    MLP's 100) with dropout, checked finite with its test accuracy; card
+    vs CPU with dropout off; the CNN (CIFAR-10) and both LSTM recipes at
+    ``ZOO_K`` steps per call bit for bit against 1; 1 + 1 resumed CNN
+    epochs against 2; ``Classifier`` save and load; the MLlib fit; then
+    the times."""
+    from machine_learning_apache_spark_tpu_torch.data.datasets import load_ag_news, load_cifar10
+
+    zero = {n: 0 for n in hop.LAUNCHES}
+    runs, paths = {}, {}
+    for name in ZOO:
+        epochs = ZOO_PARITY_EPOCHS.get(name, 1)
+        k1 = zoo_run(torch, hop, name, epochs=epochs, _return_classifier=name != "mlp")
+        runs[name] = {1: k1}
+        paths[name] = k1["launches"]
+        losses = k1["fit_result"].step_losses
+        log(f"  {name}: {k1['state'].step} steps ({epochs} epoch(s)), {k1['wall']:.3f} s (evaluate "
+            f"included), train_seconds {k1['train_seconds']:.3f}; final_loss {k1['final_loss']:.6f}, "
+            f"test_loss {k1['test_loss']:.6f}, accuracy {k1['accuracy']:.3f} % over "
+            f"{k1['eval_samples']} rows; Hopper kernel launches {k1['launches']}")
+        if not np.isfinite(losses).all() or not np.isfinite(k1["test_loss"]):
+            fail(f"{name}: losses not finite")
+        if k1["launches"] != zero:
+            fail(f"{name}: the zoo path launched attention kernels: {k1['launches']}")
+    for name in ("cnn cifar10", "lstm last", "lstm last_valid"):
+        runs[name][ZOO_K] = zoo_run(torch, hop, name, epochs=1, steps_per_call=ZOO_K)
+        zoo_multistep(torch, hop, name, runs[name])
+    whole = zoo_run(torch, hop, "cnn cifar10", epochs=2, steps_per_call=ZOO_K)
+    resumed = zoo_resume(torch, hop, "cnn cifar10", whole)
+    parity = {name: zoo_parity(torch, hop, name) for name in ZOO}
+    test_texts, _ = load_ag_news(str(FIXTURES), train=False)
+    zoo_classifier(torch, runs["lstm last_valid"][1], test_texts, "lstm last_valid")
+    zoo_classifier(torch, runs["cnn cifar10"][1], load_cifar10(str(FIXTURES), train=False).features,
+                   "cnn cifar10")
+    mllib = zoo_mllib(torch, card)
+    # One LSTM recipe is timed: the two differ only in the head's gather.
+    times = {name: time_zoo_dispatch(torch, name, runs[name][1]["state"], card)
+             for name in ZOO if name != "lstm last_valid"}
+    recurrence = time_lstm_recurrence(torch, card)
+    determinism = time_cnn_determinism(torch, runs["cnn cifar10"][1]["state"], card)
+    return dict(paths=paths, parity=parity, resumed=resumed, mllib=mllib, times=times,
+                recurrence=recurrence, determinism=determinism)
+
+
 # The site whose numbers head each kernel's entry of the JSON line.
 MAIN_SITE = {
     "flash_attention_fwd": "prefill",
@@ -2187,7 +2621,10 @@ def main() -> int:
     multi = multistep_slice(torch, hop)
     resumed = resume_slice(torch, hop)
 
-    log("== phase 6: times")
+    log("== phase 6: the model zoo at the reference widths (MLP, TinyVGG, LSTM, MLlib L-BFGS)")
+    zoo = zoo_slice(torch, hop, card)
+
+    log("== phase 7: times")
     for label, run in runs.items():
         log(f"  {label:7s} engine ({run['kv_mode']}): {len(run['outs']) / run['wall']:.2f} requests/s, "
             f"{run['tokens'] / run['wall']:.1f} generated tokens/s "
@@ -2260,6 +2697,7 @@ def main() -> int:
         "training": [trained["launches"]],
         f"training, {MULTI_K} steps per call": [multi["runs"][k]["launches"] for k in MULTI_K],
         f"training, {RESUME_K} steps per call, resumed": [resumed["whole"]["launches"]],
+        **{f"zoo: {name}": [launches] for name, launches in zoo["paths"].items()},
     }
     path_launches = {p: {n: sum(x[n] for x in xs) for n in hop.LAUNCHES} for p, xs in paths.items()}
     kernels = []
@@ -2306,6 +2744,7 @@ def main() -> int:
     log(f"  training, steps per call -> numbers: {json.dumps(train_times)}")
     log(f"  BLEU decode per epoch: {json.dumps(bleu_times)}")
     log(f"  one-shot Translator programs: {json.dumps(one_shot_graphs)}")
+    log(f"  zoo: {json.dumps({k: zoo[k] for k in ('parity', 'resumed', 'mllib', 'times', 'recurrence', 'determinism')}, default=str)} [{card}]")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

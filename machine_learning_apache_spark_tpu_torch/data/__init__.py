@@ -1,5 +1,5 @@
-"""Text pipeline and bucketing rule (serving), datasets, sampler and
-loader (training)."""
+"""Ingestion (``frame``, ``libsvm``, ``reader``, ``datasets``), the text
+pipeline, length bucketing, and the sampler and loader of training."""
 
 from machine_learning_apache_spark_tpu_torch.data.text import (
     EOS_ID,

@@ -1,12 +1,17 @@
-"""Text-in/text-out inference over the port's MT Transformer.
+"""Inference over the port's models — the port of
+``machine_learning_apache_spark_tpu/inference.py``.
 
-A ``Translator`` bundles a model with the pipelines that tokenize its
-input and detokenize its output, translates raw strings with any of the
-three KV-cache decoders (greedy, beam, sampling), serves concurrent
-callers through the serving engine (``serve()``), and round-trips through
-``save``/``load`` so a trained model is a directory, not a process
-lifetime. It runs on the card unless ``device="cpu"`` is passed; with no
-card and no explicit device it raises.
+A ``Classifier`` wraps a trained zoo model (MLP, TinyVGG, LSTMClassifier)
+and, for text, the pipeline that made its ids, and predicts classes or
+probabilities from raw inputs. A ``Translator`` bundles the MT model with
+the pipelines that tokenize its input and detokenize its output,
+translates raw strings with any of the three KV-cache decoders (greedy,
+beam, sampling) and serves concurrent callers through the serving engine
+(``serve()``). Both round-trip through ``save``/``load``: the JAX
+package's JSON metadata beside the params in the port's own format, so a
+trained model is a directory, not a process lifetime. Both run on the
+card unless ``device="cpu"`` is passed; with no card and no explicit
+device they raise.
 
 >>> t = Translator(model, src_pipe, trg_pipe)        # on the card
 >>> t(["a sentence to translate"])                   # → ["ein satz ..."]
@@ -22,8 +27,10 @@ import shutil
 import threading
 from typing import Sequence
 
+import numpy as np
 import torch
 
+from machine_learning_apache_spark_tpu_torch import models as zoo
 from machine_learning_apache_spark_tpu_torch.data.text import (
     EOS_ID,
     SOS_ID,
@@ -108,6 +115,176 @@ def config_from_json(saved: dict) -> TransformerConfig:
             )
     cfg["dtype"] = getattr(torch, cfg["dtype"])
     return TransformerConfig(**cfg)
+
+
+_ACTIVATIONS = {"sigmoid": torch.sigmoid, "relu": torch.relu, "tanh": torch.tanh}
+
+
+def _model_spec(model: torch.nn.Module) -> dict:
+    """The JAX ``classifier.json``'s ``model_class``/``model_kwargs`` for a
+    zoo model: its fields (``model.config()``) with activations as
+    ``{"__activation__": name}``, dtypes as ``{"__dtype__": name}`` and
+    tuples as lists."""
+    names = {fn: name for name, fn in _ACTIVATIONS.items()}
+    kwargs = {}
+    for field, v in model.config().items():
+        if isinstance(v, torch.dtype):
+            kwargs[field] = {"__dtype__": str(v).removeprefix("torch.")}
+        elif callable(v):
+            if v not in names:
+                raise ValueError(
+                    f"field {field!r} holds an unserializable callable "
+                    f"{v!r}; use one of {sorted(names.values())}"
+                )
+            kwargs[field] = {"__activation__": names[v]}
+        elif isinstance(v, (list, tuple)):
+            kwargs[field] = list(v)
+        else:
+            kwargs[field] = v
+    return {"model_class": type(model).__name__, "model_kwargs": kwargs}
+
+
+def _model_from_spec(spec: dict, params: dict) -> torch.nn.Module:
+    """The zoo model ``spec`` names, shaped to hold ``params`` (a saved
+    ``state_dict``) and loaded from it."""
+    cls = getattr(zoo, spec["model_class"])
+    kwargs = {}
+    for k, v in spec["model_kwargs"].items():
+        if isinstance(v, dict) and "__activation__" in v:
+            kwargs[k] = _ACTIVATIONS[v["__activation__"]]
+        elif isinstance(v, dict) and "__dtype__" in v:
+            kwargs[k] = getattr(torch, v["__dtype__"])
+        elif isinstance(v, list):
+            kwargs[k] = tuple(v)
+        else:
+            kwargs[k] = v
+    if cls is zoo.TinyVGG:
+        # Flax sizes the head from a sample input; the saved params fix
+        # only the channels and (H // 4)·(W // 4), and any input shape of
+        # that area builds the same module.
+        channels = params["block0_conv0.weight"].shape[1]
+        area = params["classifier.weight"].shape[1] // kwargs["hidden_units"]
+        kwargs["input_shape"] = (4 * area, 4, channels)
+    model = cls(**kwargs)
+    model.load_state_dict(params)
+    return model
+
+
+class Classifier:
+    """Trained zoo classifier (MLP / TinyVGG / LSTMClassifier) + optional
+    text pipeline, callable on raw inputs — the ``model.eval()`` +
+    softmax→argmax block every reference script re-implements
+    (``pytorch_cnn.py:154-176``), as a reusable predict surface.
+
+    ``inputs``: feature arrays for MLP/CNN, raw strings (via ``pipeline``)
+    or token-id arrays for the LSTM. ``last_timestep=True`` scores
+    ``logits[:, -1, :]`` (the LSTM recipe's head, ``pytorch_lstm.py:160``);
+    with ``head_pad_id`` set, each row's last non-pad position
+    (``train.loop.select_last_valid``, the loss's own selection). The
+    model is moved to ``device`` (the card unless ``"cpu"``); predictions
+    come back on the host, ``batch_size`` rows per forward.
+    """
+
+    def __init__(
+        self,
+        model: torch.nn.Module,
+        *,
+        pipeline: TextPipeline | None = None,
+        last_timestep: bool = False,
+        head_pad_id: int | None = None,
+        batch_size: int = 256,
+        device: str | torch.device | None = None,
+    ):
+        self.device = resolve_device(device)
+        self.model = model.to(self.device).eval()
+        self.pipeline = pipeline
+        self.last_timestep = last_timestep
+        self.head_pad_id = head_pad_id
+        self.batch_size = batch_size
+
+    @torch.no_grad()
+    def _logits(self, inputs) -> torch.Tensor:
+        from machine_learning_apache_spark_tpu_torch.train.loop import (
+            select_last_valid,
+        )
+
+        # len()-based guards: bare truthiness on a multi-element array raises.
+        if len(inputs) == 0:
+            raise ValueError("predict called with an empty input batch")
+        if self.pipeline is not None and isinstance(inputs[0], str):
+            inputs = self.pipeline(list(inputs))
+        x = torch.as_tensor(np.asarray(inputs))
+        if not torch.is_floating_point(x):
+            x = x.long()
+        outs = []
+        for i in range(0, len(x), self.batch_size):
+            chunk = x[i : i + self.batch_size].to(self.device)
+            logits = self.model(chunk)
+            if self.last_timestep:
+                if self.head_pad_id is not None:
+                    logits = select_last_valid(logits, chunk, self.head_pad_id)
+                else:
+                    logits = logits[:, -1, :]
+            outs.append(logits.float().cpu())
+        return torch.cat(outs, dim=0)
+
+    def predict_proba(self, inputs) -> torch.Tensor:
+        return torch.softmax(self._logits(inputs), dim=-1)
+
+    def predict(self, inputs) -> torch.Tensor:
+        """argmax class ids — the reference's softmax→argmax eval pattern
+        (softmax is monotonic, so argmax of logits suffices)."""
+        return torch.argmax(self._logits(inputs), dim=-1)
+
+    # -- persistence ----------------------------------------------------------
+    def save(self, directory: str) -> None:
+        """``params/`` (the port's own format, ``train.checkpoint.save_params``)
+        and ``classifier.json`` (the JAX package's schema: the model class
+        and fields, the head selection, the pipeline spec and vocab)."""
+        directory = os.path.abspath(directory)
+        os.makedirs(directory, exist_ok=True)
+        meta = {
+            **_model_spec(self.model),
+            "last_timestep": self.last_timestep,
+            "head_pad_id": self.head_pad_id,
+        }
+        if self.pipeline is not None:
+            _check_registered_tokenizer(self.pipeline)
+            meta["pipeline"] = self.pipeline.spec
+            meta["vocab"] = self.pipeline.vocab.itos
+        # Params first, metadata last — a failed save can leave an old
+        # params tree behind, but never NEW metadata pointing at OLD params.
+        _overwrite_params(os.path.join(directory, "params"), self.model)
+        with open(os.path.join(directory, "classifier.json"), "w") as fh:
+            json.dump(meta, fh)
+
+    @classmethod
+    def load(
+        cls, directory: str, *, device: str | torch.device | None = None
+    ) -> "Classifier":
+        """The classifier ``save`` wrote, on ``device`` (as ``__init__``)."""
+        directory = os.path.abspath(directory)
+        with open(os.path.join(directory, "classifier.json")) as fh:
+            meta = json.load(fh)
+        model = _model_from_spec(meta, load_params(os.path.join(directory, "params")))
+        pipeline = None
+        if "pipeline" in meta:
+            spec = meta["pipeline"]
+            pipeline = TextPipeline(
+                Vocab(meta["vocab"], specials=()),
+                spec["tokenizer"],
+                max_seq_len=spec["max_seq_len"],
+                fixed_len=spec["fixed_len"],
+                add_sos=spec["add_sos"],
+                add_eos=spec["add_eos"],
+            )
+        return cls(
+            model,
+            pipeline=pipeline,
+            last_timestep=meta["last_timestep"],
+            head_pad_id=meta.get("head_pad_id"),
+            device=device,
+        )
 
 
 class Translator:

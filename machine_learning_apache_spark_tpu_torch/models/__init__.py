@@ -1,6 +1,13 @@
-"""Model zoo of the port: the encoder-decoder MT Transformer and its
-decoders (uncached greedy, KV-cache greedy, beam search, sampling)."""
+"""Model zoo of the port: the MLP, the TinyVGG CNN, the LSTM text
+classifier, and the encoder-decoder MT Transformer with its decoders
+(uncached greedy, KV-cache greedy, beam search, sampling)."""
 
+from machine_learning_apache_spark_tpu_torch.models.cnn import (
+    FashionMNISTModel,
+    TinyVGG,
+)
+from machine_learning_apache_spark_tpu_torch.models.lstm import LSTMClassifier
+from machine_learning_apache_spark_tpu_torch.models.mlp import MLP
 from machine_learning_apache_spark_tpu_torch.models.transformer import (
     DecodeCache,
     Transformer,
@@ -13,6 +20,10 @@ from machine_learning_apache_spark_tpu_torch.models.transformer import (
 
 __all__ = [
     "DecodeCache",
+    "FashionMNISTModel",
+    "LSTMClassifier",
+    "MLP",
+    "TinyVGG",
     "Transformer",
     "TransformerConfig",
     "beam_translate",

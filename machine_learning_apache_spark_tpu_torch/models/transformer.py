@@ -503,10 +503,14 @@ class Decoder(nn.Module):
         return y
 
 
-def _lecun_normal_(w: torch.Tensor, generator: torch.Generator | None) -> None:
-    # Flax's lecun_normal: truncated normal at two standard deviations,
-    # variance 1/fan_in after truncation. A Linear weight is [out, in].
-    std = math.sqrt(1.0 / w.shape[1]) / 0.87962566103423978
+def lecun_normal_(
+    w: torch.Tensor, generator: torch.Generator | None, fan_in: int | None = None
+) -> None:
+    """Flax's ``lecun_normal``: a truncated normal at two standard
+    deviations with variance ``1/fan_in`` after truncation. ``fan_in``
+    defaults to a ``Linear`` weight's (``[out, in]``) input width."""
+    fan_in = w.shape[1] if fan_in is None else fan_in
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
     nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=generator)
 
 
@@ -544,7 +548,7 @@ class Transformer(nn.Module):
             generator = torch.Generator().manual_seed(0)
         for m in self.modules():
             if isinstance(m, nn.Linear):
-                _lecun_normal_(m.weight, generator)
+                lecun_normal_(m.weight, generator)
                 m.bias.zero_()
             elif isinstance(m, nn.Embedding):
                 m.weight.normal_(0.0, 0.02, generator=generator)

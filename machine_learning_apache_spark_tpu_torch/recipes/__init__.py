@@ -1,2 +1,3 @@
-"""Recipes of the port: one reference entry-point script each. The
-training slice brings the MT recipe (``recipes.translation``)."""
+"""Recipes of the port: one reference entry-point script each — the MT
+recipe (``recipes.translation``) and the zoo's MLP, CNN and LSTM recipes
+(``recipes.mlp``, ``recipes.cnn``, ``recipes.lstm``)."""

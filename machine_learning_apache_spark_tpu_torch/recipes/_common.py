@@ -39,6 +39,46 @@ def with_overrides(recipe, overrides: dict):
     return dataclasses.replace(recipe, **overrides) if overrides else recipe
 
 
+def local_batch_scale(mesh=None) -> int:
+    """Per-process multiplier turning a per-replica batch into this
+    process's share of the global batch: 1 without a mesh, the only case
+    this port runs (a mesh is ROADMAP A4)."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "recipes on a mesh are not ported yet (ROADMAP queue A4 (distributed))"
+        )
+    return 1
+
+
+def make_bucketed_loader(
+    loader_cls,
+    *streams,
+    batch_size: int,
+    full_width: int,
+    boundaries: tuple[int, ...] = (),
+    seed: int = 0,
+):
+    """Shared bucketed-loader construction for recipes: default boundaries
+    at (1/4, 1/2, full) of the fixed width, and a loud error when the
+    batch leaves every bucket short of one full batch (``drop_last``
+    inside each bucket would otherwise "train" on zero batches)."""
+    boundaries = boundaries or tuple(
+        sorted({max(full_width // 4, 8), max(full_width // 2, 8), full_width})
+    )
+    effective = batch_size * local_batch_scale()
+    loader = loader_cls(
+        *streams, batch_size=effective, boundaries=boundaries, seed=seed
+    )
+    if len(loader) == 0:
+        raise ValueError(
+            f"effective batch {effective} (batch_size={batch_size} × "
+            f"{local_batch_scale()} local replicas) leaves every length "
+            f"bucket ({boundaries}) short of one full batch; shrink the "
+            "batch or provide more data"
+        )
+    return loader
+
+
 def make_loaders(
     train_ds: ArrayDataset | None,
     test_ds: ArrayDataset | None,
@@ -130,6 +170,39 @@ def open_checkpointing(
             state, resumed, _ = restored
             log.info("resuming from checkpoint step %d", resumed)
     return mgr, state, resumed
+
+
+def fit_recipe(r, state, loss_fn, train_loader):
+    """``fit`` under a recipe's training fields (``epochs``, ``seed``,
+    ``log_every``, ``checkpoint_dir``/``checkpoint_every``/``resume``,
+    ``metrics_path``, ``steps_per_call``, ``prefetch_to_device``).
+    Returns ``(FitResult, resumed_step_or_None)``.
+
+    With a checkpoint to resume from, the run trains ``r.epochs`` more
+    epochs numbered on from the checkpoint's, with its loader order and
+    dropout stream, so a run cut at an epoch boundary and resumed trains
+    as the uninterrupted run would."""
+    from machine_learning_apache_spark_tpu_torch.train.loop import fit
+
+    with checkpointing(r.checkpoint_dir, state, resume=r.resume) as (ckpt, state, resumed):
+        epochs = r.epochs
+        if resumed is not None:
+            epochs += int(ckpt.read_meta(resumed).get("epoch", -1)) + 1
+        result = fit(
+            state,
+            loss_fn,
+            train_loader,
+            epochs=epochs,
+            rng=torch.Generator().manual_seed(r.seed),
+            log_every=r.log_every,
+            checkpointer=ckpt,
+            checkpoint_every=r.checkpoint_every,
+            metrics_file=r.metrics_path,
+            steps_per_call=r.steps_per_call,
+            prefetch_to_device=r.prefetch_to_device,
+            resume=resumed is not None,
+        )
+    return result, resumed
 
 
 def summarize(

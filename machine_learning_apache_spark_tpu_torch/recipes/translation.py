@@ -142,8 +142,8 @@ UNPORTED = {
     "moe_aux_weight": "A2 (MoE)",
     "remat": "A2 (remat)",
     "zero1": "A4 (distributed)",
-    "bucket_by_length": "A1 (bucketed loaders)",
-    "bucket_boundaries": "A1 (bucketed loaders)",
+    "bucket_by_length": "A1.2 (translation wiring)",
+    "bucket_boundaries": "A1.2 (translation wiring)",
     "pack_sequences": "A1 (packed loaders)",
 }
 

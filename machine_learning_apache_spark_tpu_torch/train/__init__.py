@@ -8,11 +8,13 @@ from machine_learning_apache_spark_tpu_torch.train.checkpoint import (
 )
 from machine_learning_apache_spark_tpu_torch.train.loop import (
     FitResult,
+    classification_loss,
     evaluate,
     fit,
     make_eval_step,
     make_multi_step,
     make_train_step,
+    select_last_valid,
 )
 from machine_learning_apache_spark_tpu_torch.train.losses import (
     cross_entropy,
@@ -28,6 +30,7 @@ __all__ = [
     "CheckpointManager",
     "FitResult",
     "TrainState",
+    "classification_loss",
     "cross_entropy",
     "evaluate",
     "fit",
@@ -39,4 +42,5 @@ __all__ = [
     "make_train_step",
     "masked_token_cross_entropy",
     "save_params",
+    "select_last_valid",
 ]

@@ -531,3 +531,54 @@ def evaluate(
     emit(" | ".join(f"{k}: {v:.5f}" for k, v in out.items()))
     out["eval_samples"] = total
     return out
+
+
+def select_last_valid(
+    logits: torch.Tensor, tokens: torch.Tensor, pad_id: int
+) -> torch.Tensor:
+    """``[B, T, C]`` logits → ``[B, C]`` at each row's last non-pad
+    position (all-pad rows fall back to position 0). Training loss and
+    serving (``inference.Classifier``) MUST select through this one helper
+    — scoring a different timestep than the loss trained silently degrades
+    every deployed last-valid classifier."""
+    idx = ((tokens != pad_id).sum(dim=-1) - 1).clamp(min=0)
+    return torch.gather(
+        logits, 1, idx[:, None, None].expand(-1, 1, logits.shape[-1])
+    )[:, 0, :]
+
+
+def classification_loss(
+    model: nn.Module | None = None, *, last_timestep: bool = False,
+    train: bool = True, pad_id: int | None = None,
+) -> LossFn:
+    """Standard CE classification loss over ``(features, labels)`` batches.
+
+    ``model`` stands where the JAX function takes the model's ``apply_fn``
+    and may be left out: under the port's loss contract the loss calls the
+    module it is handed (``loss_fn(module, batch, rng)``, the state's model
+    in ``fit``).
+
+    ``last_timestep=True`` selects ``logits[:, -1, :]`` — the LSTM recipe's
+    last-position head (``pytorch_lstm.py:160``). With ``pad_id`` set, the
+    selection becomes each row's last NON-PAD position instead of the fixed
+    final column (``select_last_valid``). ``train=True`` hands ``rng`` to
+    the model's dropout (``model.train()``); ``train=False`` runs it
+    deterministic (the eval pass, ``pytorch_cnn.py:154-176``). The aux
+    output is ``{"accuracy": ...}``."""
+    from machine_learning_apache_spark_tpu_torch.train.losses import cross_entropy
+    from machine_learning_apache_spark_tpu_torch.train.metrics import logits_accuracy
+
+    del model
+
+    def loss_fn(module, batch, rng):
+        features, labels = batch
+        logits = module(features, dropout_rng=rng if train else None)
+        if last_timestep:
+            if pad_id is not None:
+                logits = select_last_valid(logits, features, pad_id)
+            else:
+                logits = logits[:, -1, :]
+        loss = cross_entropy(logits, labels)
+        return loss, {"accuracy": logits_accuracy(logits, labels)}
+
+    return loss_fn

@@ -22,8 +22,14 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
                 "the host (plain PyTorch in place of the Hopper kernels)"
             )
         # The JAX reference computes in plain fp32; TF32 keeps ~3 decimal
-        # digits and would make the card disagree with it. Both flags are
+        # digits and would make the card disagree with it. The flags are
         # process-wide, so set them wherever a card path starts.
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        # cuDNN's convolution backward may otherwise pick algorithms whose
+        # sums depend on scheduling; a training run must repeat bit for bit
+        # (K steps per call against one). No autotuning: the algorithm a
+        # capture holds is the one eager execution runs.
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
     return dev

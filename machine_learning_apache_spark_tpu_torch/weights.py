@@ -2,8 +2,10 @@
 
 ``load_flax_params(model, params)`` takes the tree as nested dicts of numpy
 arrays under Flax's own key names (``encoder/layer_0/self_attn/qkv/kernel``,
-``…/ln1/scale``, ``encoder/embed/embed/embedding``, ``lm_head/bias``, …)
-and fills the matching torch modules, name for name:
+``…/ln1/scale``, ``encoder/embed/embed/embedding``, ``lm_head/bias``;
+the zoo's ``dense_{i}``, ``block{b}_conv{c}``, ``classifier``,
+``embedding``, ``lstm_{l}/{w_x,w_h,bias}``, ``head``) and fills the
+matching torch modules of any of the port's models, name for name:
 
 - a Flax ``Dense.kernel`` ``[in, out]`` becomes ``Linear.weight``
   ``[out, in]``; the fused ``qkv``/``kv`` column order is kept, so the
@@ -11,6 +13,10 @@ and fills the matching torch modules, name for name:
 - ``LayerNorm.scale``/``bias`` → ``weight``/``bias`` (the port's
   LayerNorms use Flax's epsilon, 1e-6);
 - ``Embed.embedding`` → ``Embedding.weight``;
+- a Flax ``Conv.kernel`` ``[kh, kw, in, out]`` (HWIO) becomes
+  ``Conv2d.weight`` ``[out, in, kh, kw]`` (OIHW);
+- a module's own parameters (the LSTM layer's ``w_x``, ``w_h``, ``bias``)
+  are carried as they are, under their names;
 - ``lm_head`` keeps its ``logit_pad`` columns; ``Transformer.logits``
   slices them off as the JAX model does.
 
@@ -21,9 +27,10 @@ be filled: a mismatch raises, naming the keys.
 such a tree, so trained weights can be compared with (or handed to) the
 JAX model.
 
-``random_flax_params(cfg, seed)`` makes such a tree with numpy from a seed
-— random weights in Flax's layout, for runs that have no trained
-checkpoint.
+``random_flax_params(cfg, seed)`` makes such a tree for a Transformer
+config with numpy from a seed — random weights in Flax's layout, for runs
+that have no trained checkpoint; ``random_flax_like(model, seed)`` does
+the same for any model of the port, shaped as ``export_flax_params(model)``.
 """
 
 from __future__ import annotations
@@ -46,6 +53,10 @@ def _flatten(tree, prefix: str = "") -> dict[str, np.ndarray]:
     return out
 
 
+def _hwio_to_oihw(kernel: np.ndarray) -> np.ndarray:
+    return np.transpose(kernel, (3, 2, 0, 1))
+
+
 def _flax_path(module_name: str) -> str:
     """``decoder.layers.0.cross_attn.kv`` → ``decoder/layer_0/cross_attn/kv``."""
     return re.sub(r"layers\.(\d+)", r"layer_\1", module_name).replace(".", "/")
@@ -59,11 +70,11 @@ def load_flax_params(model: nn.Module, params) -> nn.Module:
     used: set[str] = set()
     missing: list[str] = []
 
-    def take(path: str, dest: torch.Tensor, transpose: bool = False) -> None:
+    def take(path: str, dest: torch.Tensor, to_torch=None) -> None:
         if path not in flat:
             missing.append(path)
             return
-        arr = flat[path].T if transpose else flat[path]
+        arr = to_torch(flat[path]) if to_torch is not None else flat[path]
         if tuple(arr.shape) != tuple(dest.shape):
             raise ValueError(
                 f"{path}: Flax shape {flat[path].shape} does not fit torch "
@@ -75,13 +86,19 @@ def load_flax_params(model: nn.Module, params) -> nn.Module:
     for name, mod in model.named_modules():
         base = _flax_path(name)
         if isinstance(mod, nn.Linear):
-            take(f"{base}/kernel", mod.weight, transpose=True)
+            take(f"{base}/kernel", mod.weight, np.transpose)
+            take(f"{base}/bias", mod.bias)
+        elif isinstance(mod, nn.Conv2d):
+            take(f"{base}/kernel", mod.weight, _hwio_to_oihw)
             take(f"{base}/bias", mod.bias)
         elif isinstance(mod, nn.LayerNorm):
             take(f"{base}/scale", mod.weight)
             take(f"{base}/bias", mod.bias)
         elif isinstance(mod, nn.Embedding):
             take(f"{base}/embedding", mod.weight)
+        else:
+            for pname, param in mod.named_parameters(recurse=False):
+                take(f"{base}/{pname}", param)
     unused = sorted(set(flat) - used)
     if missing or unused:
         raise ValueError(
@@ -109,12 +126,38 @@ def export_flax_params(model: nn.Module) -> dict:
         if isinstance(mod, nn.Linear):
             put(f"{base}/kernel", mod.weight.T)
             put(f"{base}/bias", mod.bias)
+        elif isinstance(mod, nn.Conv2d):
+            put(f"{base}/kernel", mod.weight.permute(2, 3, 1, 0))
+            put(f"{base}/bias", mod.bias)
         elif isinstance(mod, nn.LayerNorm):
             put(f"{base}/scale", mod.weight)
             put(f"{base}/bias", mod.bias)
         elif isinstance(mod, nn.Embedding):
             put(f"{base}/embedding", mod.weight)
+        else:
+            for pname, param in mod.named_parameters(recurse=False):
+                put(f"{base}/{pname}", param)
     return tree
+
+
+def random_flax_like(model: nn.Module, seed: int) -> dict:
+    """A Flax-layout tree shaped as ``export_flax_params(model)``, drawn
+    from ``numpy.random.default_rng(seed)``: every matrix or kernel
+    LeCun-normal over its fan-in (all axes but the last), every vector
+    N(0, 0.02)."""
+    rng = np.random.default_rng(seed)
+
+    def draw(node):
+        if isinstance(node, dict):
+            return {k: draw(v) for k, v in node.items()}
+        if node.ndim >= 2:
+            fan_in = int(np.prod(node.shape[:-1]))
+            out = rng.standard_normal(node.shape) / np.sqrt(fan_in)
+        else:
+            out = 0.02 * rng.standard_normal(node.shape)
+        return out.astype(np.float32)
+
+    return draw(export_flax_params(model))
 
 
 def random_flax_params(cfg, seed: int) -> dict:

@@ -856,3 +856,80 @@ def test_translator_replays_equal_an_eager_decode(cuda, method):
     layers = t.model.cfg.num_layers
     assert replay_n == dict(hop.LAUNCHES)
     assert replay_n["flash_attention_fwd"] == layers + 2 * layers * (1 + 10)
+
+
+# -- the model zoo: MLP, TinyVGG, the LSTM classifier --------------------------
+
+
+def _zoo_models():
+    from machine_learning_apache_spark_tpu_torch.models import (
+        MLP,
+        LSTMClassifier,
+        TinyVGG,
+    )
+
+    rng = np.random.default_rng(40)
+    tokens = np.zeros((32, 129), np.int64)
+    for i, n in enumerate(rng.integers(1, 129, 32)):
+        tokens[i, :n] = rng.integers(4, 500, n)
+    return {
+        "mlp": (MLP((4, 5, 4, 3)), torch.from_numpy(rng.standard_normal((30, 4)).astype(np.float32))),
+        "cnn": (TinyVGG(10, 10, input_shape=(32, 32, 3)),
+                torch.from_numpy(rng.random((32, 32, 32, 3)).astype(np.float32))),
+        "lstm": (LSTMClassifier(500, 32, 32, 4, 2, 0.5), torch.from_numpy(tokens)),
+    }
+
+
+@pytest.mark.parametrize("name", ["mlp", "cnn", "lstm"])
+def test_zoo_models_on_the_card_match_the_cpu(cuda, name):
+    """Logits within 1e-4 and gradients within 1e-4 of the largest, at the
+    recipes' widths (dropout off: no generator)."""
+    import copy
+
+    from machine_learning_apache_spark_tpu_torch.utils.device import resolve_device
+
+    resolve_device(None)
+    model, x = _zoo_models()[name]
+    card = copy.deepcopy(model).to(cuda)
+    outs = []
+    for m, inp in ((model, x), (card, x.to(cuda))):
+        logits = m(inp)
+        (logits.float() ** 2).mean().backward()
+        outs.append((logits.detach().cpu(), [p.grad.cpu() for p in m.parameters()]))
+    (want, want_g), (got, got_g) = outs
+    torch.testing.assert_close(got, want, atol=TOL, rtol=0)
+    scale = max(g.abs().max().item() for g in want_g)
+    for a, b in zip(got_g, want_g):
+        torch.testing.assert_close(a, b, atol=TOL * scale, rtol=0)
+
+
+@pytest.mark.parametrize("name", ["cnn", "lstm"])
+def test_zoo_recipes_train_bit_for_bit_at_four_steps_per_call(cuda, name):
+    """K = 4 steps per CUDA graph against K = 1 on the card: every step's
+    loss and every parameter the same bits (one program)."""
+    from machine_learning_apache_spark_tpu_torch.recipes.cnn import train_cnn
+    from machine_learning_apache_spark_tpu_torch.recipes.lstm import train_lstm
+
+    fn, kw = {
+        "cnn": (train_cnn, dict(dataset="cifar10")),
+        "lstm": (train_lstm, dict(max_seq_len=32, dropout=0.5)),
+    }[name]
+    runs = [fn(data_root="assets/fixtures", epochs=1, steps_per_call=k, _return_state=True, **kw)
+            for k in (1, 4)]
+    one, four = runs
+    assert one["fit_result"].step_losses == four["fit_result"].step_losses
+    for p, q in zip(one["state"].params, four["state"].params):
+        assert torch.equal(p, q)
+    assert len(four["fit_result"].programs) == 1
+
+
+def test_read_libsvm_through_the_built_native_parser(cuda):
+    from machine_learning_apache_spark_tpu_torch import native
+    from machine_learning_apache_spark_tpu_torch.data.libsvm import read_libsvm
+
+    got = read_libsvm("assets/sample_multiclass_classification_data.txt", use_native=True)
+    want = read_libsvm("assets/sample_multiclass_classification_data.txt", use_native=False)
+    assert native.available() and native.library_path().exists()
+    np.testing.assert_array_equal(got.features, want.features)
+    np.testing.assert_array_equal(got.labels, want.labels)
+    assert got.features.shape == (150, 4)
