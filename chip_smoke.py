@@ -107,7 +107,34 @@ Phases, each fatal on failure:
    forward + backward, the port's recurrence eager and as one CUDA graph
    against ``torch.nn.LSTM`` (cuDNN) over the same weights; the CNN step
    with cuDNN's deterministic algorithms on and off;
-7. times — requests/s, generated tokens/s and peak device memory of each
+7. the translation recipe's options, at the reference width on the
+   fixture: ``examples/advanced_translator.py``'s run (4 experts,
+   warmup-cosine over 20 steps, clipping 1.0, accumulation 2, BLEU,
+   checkpoints): finite losses and ``moe_aux``, dQ and dK/dV launched 3 x
+   steps; ``Translator.save`` -> ``load`` of the MoE translator served by
+   the paged fp32 engine (the ragged kernel launched) against the CPU's
+   one-shot greedy decoder and a beam-4 decode against the CPU's (token
+   agreement >= 0.99; the engine against the one-shot decoder at its own
+   prefill width, since an MoE encoder's expert capacity follows the
+   width); 4 steps per call against 1 bit for bit; the epoch card vs CPU
+   (dropout 0, every step's loss within 1e-3 relative) and the MoE parity
+   run (4 steps, step-0 gradients within 1e-4 relative, router and
+   experts included). remat
+   against none at 1 and 4 steps per call bit for bit with dropout 0.1,
+   the forward launched once more per site and step; one step's
+   gradients with dropout from one seed bit for bit, and the peak memory
+   and time of each. ``bucket_by_length`` (boundaries 50, 100, 200): an
+   epoch card vs CPU within 1e-3, the padding efficiency, a step's ms at
+   each width. ``pack_sequences`` (batches of 7 packed rows): an epoch
+   card vs CPU within 1e-3, no flash launch in training, 4 steps per call
+   bit for bit over two epochs, packed against unpacked scored tokens/s.
+   ``fit(profile_dir=, profile_window=(2, 5))`` at 1 and 4 steps per call:
+   one Chrome trace each, the flash kernels named at 1, what the trace
+   holds at 4. The fixture pipelines' native text encoding: ids equal to
+   the Python chain, both times. (Phase 3 also holds the training kernels
+   at the buckets' widths, 50/50, 50/49, 100/100 and 100/99, at every
+   launch choice.)
+8. times — requests/s, generated tokens/s and peak device memory of each
    engine (paged fp32 and int8, padded, beam); each engine's requests/s
    and device idle share over one profiled window; the host time of the
    paged engines' decode thread per launch, split by activity (staging,
@@ -611,7 +638,7 @@ def check_training_kernels(torch, hop, sites: dict, dev) -> dict:
             fail(f"flash_attention_bwd_dkv: a second run gave other bits ({label})")
         if not torch.equal(hop.flash_attention_bwd_dq(q, k, v, g, lse, delta, **kw), dq):
             fail(f"flash_attention_bwd_dq: a second run gave other bits ({label})")
-        if label.startswith("edge"):  # every launch choice, same inputs
+        if label.startswith(("edge", "bucket")):  # every launch choice, same inputs
             for fw, fc in LAUNCH_CHOICES:
                 o_w, lse_w = hop.flash_attention_fwd(q, k, v, return_lse=True, warps=fw, splits=fc, **kw)
                 torch.cuda.synchronize()
@@ -1388,10 +1415,11 @@ def step0_grads(model, batch, loss_fn):
     return named
 
 
-def parity_run(torch, hop, src_pipe, trg_pipe, train_ds) -> dict:
+def parity_run(torch, hop, src_pipe, trg_pipe, train_ds, **overrides) -> dict:
     """Dropout 0, random weights in the Flax layout bridged in: the same
     ``PARITY_STEPS`` Adam steps on the card (kernels) and on the CPU
-    (plain versions), and the step-0 gradients of both."""
+    (plain versions), and the step-0 gradients of both. ``overrides``
+    change the model's config (the MoE run)."""
     from machine_learning_apache_spark_tpu_torch.models import Transformer, TransformerConfig
     from machine_learning_apache_spark_tpu_torch.recipes.translation import make_translation_loss
     from machine_learning_apache_spark_tpu_torch.train.loop import make_train_step, to_device
@@ -1400,7 +1428,7 @@ def parity_run(torch, hop, src_pipe, trg_pipe, train_ds) -> dict:
 
     cfg = TransformerConfig(
         src_vocab_size=len(src_pipe.vocab), trg_vocab_size=len(trg_pipe.vocab),
-        **MODEL,
+        **{**MODEL, **overrides},
     )
     params = random_flax_params(cfg, SEED)
     batches = train_batches(train_ds, PARITY_STEPS)
@@ -1421,7 +1449,8 @@ def parity_run(torch, hop, src_pipe, trg_pipe, train_ds) -> dict:
     card_g = torch.cat([g for _, g in runs["cuda"]["named"]])
     cpu_g = torch.cat([g for _, g in runs["cpu"]["named"]])
     g_rel = ((card_g - cpu_g).abs().max() / cpu_g.abs().max()).item()
-    log(f"  parity, {PARITY_STEPS} Adam steps, dropout 0, random Flax-layout weights (seed {SEED}):")
+    log(f"  parity, {PARITY_STEPS} Adam steps, dropout 0, random Flax-layout weights (seed {SEED})"
+        + (f", {overrides}" if overrides else "") + ":")
     log(f"    card losses {card.tolist()}")
     log(f"    CPU  losses {cpu.tolist()} (plain versions, {runs['cpu']['seconds']:.1f} s)")
     log(f"    per-step relative difference {rel.tolist()} (gate <= {PARITY_RTOL:.0e})")
@@ -2476,6 +2505,487 @@ def zoo_slice(torch, hop, card: str) -> dict:
 
 
 # The site whose numbers head each kernel's entry of the JSON line.
+# -- phase 7: the translation recipe's options -------------------------------------
+
+# examples/advanced_translator.py's options: 4 switch-routed experts, a
+# warmup-cosine schedule, clipping and accumulation.
+ADVANCED = dict(moe_experts=4, schedule="warmup_cosine", warmup_steps=20, grad_clip=1.0, grad_accum=2)
+OPTION_K = 4
+# The 400 fixture pairs pack into 29 rows of 200: batches of 7 give 4
+# steps an epoch, one group of OPTION_K.
+PACK_BATCH = 7
+BUCKETS = (50, 100, 200)  # the default boundaries at max_len 200
+FLASH_KERNELS = {"flash_attention_fwd": "flash_fwd", "flash_attention_bwd_dq": "flash_bwd_dq",
+                 "flash_attention_bwd_dkv": "flash_bwd_dkv"}
+
+
+def bucket_sites(torch, rng, dev, src, trg_in) -> dict:
+    """The training sites at the default buckets' widths below 200, as a
+    bucketed batch gives them (source and decoder input both ``w`` wide)
+    and one shorter on the decoder side (``w - 1``): the fixture batch's
+    tokens cut to the width (its sentences are shorter than 50)."""
+    sites = {}
+    for w in BUCKETS[:-1]:
+        for t in (w, w - 1):
+            for name, site in training_sites(torch, rng, dev, src[:, :w], trg_in[:, :t]).items():
+                sites[f"bucket {w}/{t}: {name}"] = site
+    return sites
+
+
+def dispatch_ms(torch, state, loss_fn, batches, k: int) -> float:
+    """ms per train step of one ``StepDispatch`` on ``state`` over
+    ``batches`` (device tensors, cycled), ``k`` steps per call (``k`` > 1:
+    a replayed CUDA graph), dropout drawn from a seeded card generator:
+    CUDA events over ``TIMED_STEPS`` steps after ``2 k`` warm ones (the
+    first group captures)."""
+    from machine_learning_apache_spark_tpu_torch.train.loop import StepDispatch
+
+    dispatch = StepDispatch(state, loss_fn, torch.Generator(device="cuda").manual_seed(SEED))
+
+    def run(n):
+        for i in range(0, n, k):
+            group = [batches[(i + j) % len(batches)] for j in range(k)]
+            if k == 1:
+                dispatch.single(group[0])
+            else:
+                dispatch.group(group)
+
+    run(2 * k)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    run(TIMED_STEPS)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / TIMED_STEPS
+
+
+def card_vs_cpu(torch, hop, label: str, **kw) -> tuple[dict, dict]:
+    """The recipe on the card and on the CPU (plain versions) with dropout
+    0: every step's loss within ``PARITY_RTOL`` relative."""
+    from machine_learning_apache_spark_tpu_torch.recipes.translation import train_translator
+
+    card = recipe_run(torch, hop, dropout=0.0, **kw)
+    t0 = time.perf_counter()
+    cpu = train_translator(device="cpu", data_root=str(FIXTURES), log_every=0, dropout=0.0,
+                           _return_state=True, **kw)
+    a, b = np.array(card["fit_result"].step_losses), np.array(cpu["fit_result"].step_losses)
+    rel = np.abs(a - b) / np.abs(b)
+    log(f"  {label}, card vs CPU ({len(a)} steps, dropout 0; CPU {time.perf_counter() - t0:.1f} s): "
+        f"step losses card {a.tolist()}, CPU {b.tolist()}; largest relative difference "
+        f"{rel.max():.3e} (gate <= {PARITY_RTOL:.0e})")
+    if len(a) != len(b) or not np.isfinite(a).all() or not (rel <= PARITY_RTOL).all():
+        fail(f"{label}: card and CPU step losses disagree")
+    return card, cpu
+
+
+def k_steps_like_one(torch, hop, label: str, epochs: int = 2, **kw) -> dict:
+    """``OPTION_K`` steps per call against 1 over ``epochs`` epochs,
+    dropout 0.1: parameters and step losses bit for bit, one program
+    (per accumulation phase), replayed, its launches those of its eager
+    first call. Returns both runs."""
+    one = recipe_run(torch, hop, epochs=epochs, **kw)
+    many = recipe_run(torch, hop, epochs=epochs, steps_per_call=OPTION_K, **kw)
+    params_equal, loss_diffs = same_training(torch, many, one)
+    programs = many["fit_result"].programs
+    log(f"  {label}: steps_per_call {OPTION_K} vs 1 over {one['state'].step} steps: parameters equal "
+        f"bit for bit: {params_equal}; step losses differing: {loss_diffs}; programs "
+        + "; ".join(f"{p['calls']} calls, {p['replays']} replays, launches per replay {p['launches']}"
+                    for p in programs))
+    if not params_equal or loss_diffs:
+        fail(f"{label}: steps_per_call={OPTION_K} did not train bit for bit like 1")
+    if len(programs) != 1 or programs[0]["replays"] < 1:
+        fail(f"{label}: {len(programs)} programs, not 1 replayed")
+    if programs[0]["launches"] != programs[0]["eager_launches"] or many["launches"] != one["launches"]:
+        fail(f"{label}: a replay's launches differ from its eager first call's or from steps_per_call 1's")
+    return dict(one=one, many=many)
+
+
+def moe_slice(torch, hop, card: str, train_ds, src_pipe, trg_pipe) -> dict:
+    """``examples/advanced_translator.py``'s run through the port: MoE with
+    warmup-cosine, clipping, accumulation 2, BLEU and checkpoints; then
+    ``Translator.save`` -> ``load`` on the card, served by the paged fp32
+    engine (the ragged kernel launched) against the CPU's one-shot greedy
+    decoder over the prompts at the engine's prefill width, and the
+    card's one-shot greedy and beam decoders against the CPU's. Then K = 4
+    vs 1 bit for bit, the epoch card vs CPU, and the parity run with 4
+    experts (step-0 gradients, router and experts included).
+
+    An MoE encoder routes each sequence with ``ceil(1.25 * width / 4)``
+    slots per expert, so a prompt padded to the engine's 32-wide prefill
+    can drop tokens that the one-shot decoder's 200-wide rows keep (the
+    JAX engines and decoders alike): the engine is held against the
+    one-shot decoder at its own width, and its agreement with the 200-wide
+    one is printed."""
+    import tempfile
+
+    from machine_learning_apache_spark_tpu_torch.data.datasets import load_multi30k
+    from machine_learning_apache_spark_tpu_torch.data.text import TextPipeline
+    from machine_learning_apache_spark_tpu_torch.inference import Translator
+    from machine_learning_apache_spark_tpu_torch.recipes.translation import make_translation_loss
+    from machine_learning_apache_spark_tpu_torch.train.loop import to_device
+
+    with tempfile.TemporaryDirectory(dir=scratch_dir()) as d:
+        adv = recipe_run(torch, hop, compute_bleu=True, checkpoint_dir=f"{d}/ckpt",
+                         _return_translator=True, **ADVANCED)
+        check_pointer(f"{d}/ckpt", "the MoE run's checkpoint")
+        (epoch,) = adv["history"]
+        log(f"  advanced_translator options {ADVANCED}: history {adv['history']}; test_loss "
+            f"{adv['test_loss']:.6f}, eval moe_aux {adv['moe_aux']:.6f}; BLEU {adv['bleu']:.6f}; "
+            f"{adv['wall']:.2f} s (evaluate and BLEU included); launches {adv['launches']}")
+        if not all(np.isfinite([epoch["loss"], epoch["moe_aux"], adv["test_loss"], adv["moe_aux"]])):
+            fail(f"the MoE run's losses are not finite: {adv['history']}")
+        steps = adv["state"].step
+        for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+            if adv["launches"][name] != 3 * steps:
+                fail(f"MoE: {name} launched {adv['launches'][name]} times, not 3 x {steps} steps")
+        adv["translator"].save(f"{d}/moe")
+        loaded = Translator.load(f"{d}/moe")
+        oracle = Translator.load(f"{d}/moe", device="cpu")
+    if loaded.model.cfg.moe_experts != 4:
+        fail("the loaded translator lost its experts")
+    prompts = [s for s, _ in load_multi30k(str(FIXTURES), "valid")][:32]
+    width = SERVE["boundaries"][0]
+    if max(len(loaded.src_pipe.ragged([p])[0]) for p in prompts) > width:
+        fail(f"a MoE prompt is longer than the engine's first prefill width {width}")
+    served = serve_once(torch, hop, loaded, prompts, "MoE paged fp32", kv_dtype="float32", **SERVE)
+    mnt = SERVE["max_new_tokens"]
+    spec = oracle.src_pipe.spec
+    narrow = Translator(oracle.model, TextPipeline(
+        oracle.src_pipe.vocab, spec["tokenizer"], max_seq_len=width - 1, fixed_len=width,
+    ), oracle.trg_pipe, device="cpu")
+    want = narrow(prompts, max_new_tokens=mnt)
+    greedy, greedy_launches = one_shot(torch, hop, "the MoE greedy Translator",
+                                       lambda: loaded(prompts, max_new_tokens=mnt))
+    greedy_cpu = oracle(prompts, max_new_tokens=mnt)
+    beam_kw = dict(method="beam", beam_size=4, max_new_tokens=mnt)
+    beam, beam_launches = one_shot(torch, hop, "the MoE beam Translator",
+                                   lambda: loaded(prompts[:N_BEAM], **beam_kw))
+    beam_cpu = oracle(prompts[:N_BEAM], **beam_kw)
+    wide_share, _ = agreement(served["outs"], greedy_cpu)
+    log(f"  MoE paged engine (prefill width {width}) vs the one-shot greedy decoder's {spec['fixed_len']}-wide "
+        f"rows on the CPU, for reference (expert capacity differs with the width): {wide_share:.6f}")
+    for label, got, ref in (
+        (f"MoE paged fp32 engine vs one-shot greedy on the CPU at width {width}", served["outs"], want),
+        ("MoE one-shot greedy on the card vs on the CPU", greedy, greedy_cpu),
+        ("MoE beam 4 on the card vs beam_translate on the CPU", beam, beam_cpu),
+    ):
+        share, notes = agreement(got, ref)
+        same = sum(g == w for g, w in zip(got, ref))
+        log(f"  token agreement, {label}: {share:.6f} (gate >= {AGREEMENT_MIN}); {same} of "
+            f"{len(ref)} outputs identical")
+        for n in notes:
+            log(f"    mismatch: {n}")
+        if share < AGREEMENT_MIN:
+            fail(f"token agreement {share:.4f} < {AGREEMENT_MIN} ({label})")
+    log(f"  MoE paged engine: {len(served['outs'])} requests in {served['wall']:.3f} s, launches "
+        f"{served['launches']}, {served['programs']} programs, recompiles_after_warmup 0; "
+        f"one-shot greedy launches {greedy_launches}, beam {beam_launches} [{card}]")
+    runs = k_steps_like_one(torch, hop, "MoE (advanced_translator options)", **ADVANCED)
+    one = runs["one"]
+    batches = [to_device(b, torch.device("cuda")) for b in train_batches(train_ds, 4)]
+    step_ms = {k: dispatch_ms(torch, runs["many"]["state"], make_translation_loss(0), batches, k)
+               for k in (1, OPTION_K)}
+    log("  MoE train step (4 experts, accumulation 2, dropout 0.1; batch 32, [32, 200] / [32, 199]): "
+        + ", ".join(f"{k} step(s) per call {ms:.3f} ms" for k, ms in step_ms.items())
+        + f" (CUDA events over {TIMED_STEPS} steps) [{card}]")
+    eval_batches = -(-80 // 32)
+    if one["launches"]["flash_attention_fwd"] != 3 * one["state"].step + 3 * eval_batches:
+        fail(f"MoE: the forward launched {one['launches']['flash_attention_fwd']} times, not 3 x "
+             f"{one['state'].step} steps + 3 x {eval_batches} eval batches")
+    card_vs_cpu(torch, hop, "MoE (advanced_translator options)", **ADVANCED)
+    parity = parity_run(torch, hop, src_pipe, trg_pipe, train_ds, moe_experts=4)
+    return dict(adv=adv, served=served, one_shot_launches=[greedy_launches, beam_launches], k=runs,
+                parity=parity, step_ms=step_ms)
+
+
+def remat_slice(torch, hop, card: str, train_ds, src_pipe, trg_pipe) -> dict:
+    """The recipe's fixture epoch (dropout 0.1) with ``remat`` against
+    without, at 1 and ``OPTION_K`` steps per call: bit for bit, the
+    forward launched once more per site and step (the recompute), the
+    backward kernels as often. Then one step's gradients with dropout
+    from one generator seed, bit for bit, and the peak memory and time of
+    a forward + backward of each."""
+    import dataclasses
+
+    from machine_learning_apache_spark_tpu_torch.models import Transformer, TransformerConfig
+    from machine_learning_apache_spark_tpu_torch.recipes.translation import make_translation_loss
+    from machine_learning_apache_spark_tpu_torch.train.loop import to_device
+    from machine_learning_apache_spark_tpu_torch.weights import load_flax_params, random_flax_params
+
+    runs = {}
+    for k in (1, OPTION_K):
+        base = recipe_run(torch, hop, steps_per_call=k)
+        remat = recipe_run(torch, hop, steps_per_call=k, remat=True)
+        params_equal, loss_diffs = same_training(torch, remat, base)
+        extra = {n: remat["launches"][n] - base["launches"][n] for n in TRAIN_KERNELS}
+        steps = base["state"].step
+        log(f"  remat vs none, steps_per_call {k}: parameters equal bit for bit: {params_equal}; step "
+            f"losses differing: {loss_diffs} of {steps}; launches added by remat {extra}")
+        if not params_equal or loss_diffs:
+            fail(f"remat=True did not train bit for bit like remat=False at steps_per_call={k}")
+        if extra != {"flash_attention_fwd": 3 * steps, "flash_attention_bwd_dq": 0,
+                     "flash_attention_bwd_dkv": 0}:
+            fail(f"remat at steps_per_call={k} added launches {extra}, not one forward per site and step")
+        runs[k] = dict(base=base, remat=remat)
+    batches = [to_device(b, torch.device("cuda")) for b in train_batches(train_ds, 4)]
+    step_ms = {}
+    for label in ("base", "remat"):
+        state = runs[OPTION_K][label]["state"]
+        step_ms[label] = {k: dispatch_ms(torch, state, make_translation_loss(0), batches, k)
+                          for k in (1, OPTION_K)}
+    log("  train step (dropout 0.1; batch 32, [32, 200] / [32, 199]), dense without / with remat: "
+        + "; ".join(f"{k} step(s) per call {step_ms['base'][k]:.3f} / {step_ms['remat'][k]:.3f} ms"
+                    for k in (1, OPTION_K)) + f" (CUDA events over {TIMED_STEPS} steps) [{card}]")
+    cfg = TransformerConfig(src_vocab_size=len(src_pipe.vocab), trg_vocab_size=len(trg_pipe.vocab),
+                            **{**MODEL, "dropout": 0.1})
+    params = random_flax_params(cfg, SEED)
+    batch = to_device(train_batches(train_ds, 1)[0], torch.device("cuda"))
+    loss_fn = make_translation_loss(cfg.pad_id)
+    out = {}
+    for remat in (False, True):
+        model = load_flax_params(Transformer(dataclasses.replace(cfg, remat=remat)), params).cuda()
+
+        def step(model=model):
+            rng = torch.Generator(device="cuda").manual_seed(SEED)
+            loss, _ = loss_fn(model, batch, rng)
+            loss.backward()
+            return loss
+
+        step()
+        model.zero_grad(set_to_none=False)  # the gradients stay allocated
+        torch.cuda.synchronize()
+        base_mem = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        loss = step()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base_mem
+        grads = [p.grad.clone() for p in model.parameters()]
+        ms = cuda_time_ms(torch, lambda: (model.zero_grad(set_to_none=False), step()), n=20, warmup=2)
+        out[remat] = dict(loss=loss.item(), grads=grads, peak=peak, ms=ms)
+        log(f"  forward + backward, remat {remat}, dropout 0.1 (batch 32, [32, 200] / [32, 199]): "
+            f"peak {peak / 2**20:.1f} MiB above the model and its gradients, {ms:.3f} ms (CUDA events, "
+            f"20 calls) [{card}]")
+    same = out[False]["loss"] == out[True]["loss"] and all(
+        torch.equal(a, b) for a, b in zip(out[False]["grads"], out[True]["grads"]))
+    log(f"  step gradients with dropout from one seed, remat vs none: equal bit for bit {same}; remat "
+        f"saves {(out[False]['peak'] - out[True]['peak']) / 2**20:.1f} MiB of peak and adds "
+        f"{out[True]['ms'] - out[False]['ms']:.3f} ms [{card}]")
+    if not same:
+        fail("remat=True gave other gradients than remat=False with dropout on")
+    return dict(runs=runs, peak={k: v["peak"] for k, v in out.items()}, ms={k: v["ms"] for k, v in out.items()},
+                step_ms=step_ms)
+
+
+def bucket_slice(torch, hop, card: str) -> dict:
+    """One epoch with ``bucket_by_length`` at the default boundaries, on
+    the card and on the CPU: step losses within ``PARITY_RTOL``; the
+    padding efficiency; then a train step's ms at each bucket width (the
+    fixture's width-50 batches padded out to 100 and 200) against the
+    unbucketed [32, 200] step."""
+    from machine_learning_apache_spark_tpu_torch.data.bucketing import BucketByLengthPairsLoader
+    from machine_learning_apache_spark_tpu_torch.data.datasets import load_multi30k
+    from machine_learning_apache_spark_tpu_torch.data.text import translation_pipelines
+    from machine_learning_apache_spark_tpu_torch.recipes.translation import make_translation_loss
+    from machine_learning_apache_spark_tpu_torch.train.loop import to_device
+
+    card_run, _ = card_vs_cpu(torch, hop, "bucket_by_length", bucket_by_length=True)
+    steps = card_run["state"].step
+    log(f"  bucketed epoch: padding_efficiency {card_run['padding_efficiency']:.6f}, {steps} steps, "
+        f"launches {card_run['launches']}")
+    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        if card_run["launches"][name] != 3 * steps:
+            fail(f"bucketed: {name} launched {card_run['launches'][name]} times, not 3 x {steps}")
+    pairs = load_multi30k(str(FIXTURES), "train")
+    src_pipe, trg_pipe = translation_pipelines(pairs, max_len=200)
+    loader = BucketByLengthPairsLoader(src_pipe.ragged([s for s, _ in pairs]),
+                                       trg_pipe.ragged([t for _, t in pairs]),
+                                       batch_size=32, boundaries=BUCKETS, seed=SEED)
+    narrow = [b for b in loader][:4]
+    state = card_run["state"]
+    pad = state.model.cfg.pad_id
+    times = {}
+    for w in BUCKETS:
+        batches = []
+        for src, trg in narrow:
+            s = np.full((len(src), w), pad, src.dtype)
+            t = np.full((len(trg), w + 1), pad, trg.dtype)
+            s[:, : src.shape[1]] = src
+            t[:, : trg.shape[1]] = trg
+            batches.append(to_device((s, t), torch.device("cuda")))
+        times[f"bucket {w}"] = batches
+    times["unbucketed [32, 200]"] = [to_device(b, torch.device("cuda"))
+                                     for b in train_batches(fixture_data()[2], 4)]
+    loss_fn = make_translation_loss(pad)
+    times = {label: {k: dispatch_ms(torch, state, loss_fn, batches, k) for k in (1, OPTION_K)}
+             for label, batches in times.items()}
+    log(f"  train step ms by width (dropout 0.1, CUDA events over {TIMED_STEPS} steps), at 1 / "
+        f"{OPTION_K} steps per call: "
+        + ", ".join(f"{label} {t[1]:.3f} / {t[OPTION_K]:.3f}" for label, t in times.items()) + f" [{card}]")
+    return dict(run=card_run, padding_efficiency=card_run["padding_efficiency"], step_ms=times)
+
+
+def packing_slice(torch, hop, card: str) -> dict:
+    """One epoch with ``pack_sequences`` (batches of ``PACK_BATCH`` packed
+    rows), on the card and on the CPU: step losses within ``PARITY_RTOL``,
+    no flash launch in training (the segment masks are dense: the plain
+    path), K = 4 bit for bit like 1 over two epochs; then packed against
+    unpacked non-pad target tokens per second."""
+    from machine_learning_apache_spark_tpu_torch.data.datasets import load_multi30k
+    from machine_learning_apache_spark_tpu_torch.data.loader import ArrayDataset
+    from machine_learning_apache_spark_tpu_torch.data.packing import pack_translation_pairs
+    from machine_learning_apache_spark_tpu_torch.data.text import translation_pipelines
+    from machine_learning_apache_spark_tpu_torch.recipes.translation import (
+        make_packed_translation_loss,
+        make_translation_loss,
+    )
+    from machine_learning_apache_spark_tpu_torch.train.loop import to_device
+
+    kw = dict(pack_sequences=True, batch_size=PACK_BATCH)
+    card_run, _ = card_vs_cpu(torch, hop, "pack_sequences", **kw)
+    eval_batches = -(-80 // PACK_BATCH)
+    log(f"  packed epoch: packing_token_efficiency {card_run['packing_token_efficiency']} (unpacked "
+        f"{card_run['unpacked_token_efficiency']}), packed_rows {card_run['packed_rows']}, packed_pairs "
+        f"{card_run['packed_pairs']}, {card_run['state'].step} steps; launches {card_run['launches']} "
+        f"(the evaluation's {eval_batches} unpacked batches: 3 forwards each)")
+    want = {"flash_attention_fwd": 3 * eval_batches, "flash_attention_bwd_dq": 0,
+            "flash_attention_bwd_dkv": 0}
+    if {n: card_run["launches"][n] for n in TRAIN_KERNELS} != want:
+        fail(f"packed training launched flash kernels: {card_run['launches']}, want {want}")
+    runs = k_steps_like_one(torch, hop, "pack_sequences", **kw)
+    # Packed against unpacked training steps on the trained state.
+    pairs = load_multi30k(str(FIXTURES), "train")
+    src_pipe, trg_pipe = translation_pipelines(pairs, max_len=200)
+    packed = pack_translation_pairs(src_pipe.ragged([s for s, _ in pairs]),
+                                    trg_pipe.ragged([t for _, t in pairs]), src_len=200, trg_len=200)
+    ds = ArrayDataset(*packed.arrays())
+    state = card_run["state"]
+    dev = torch.device("cuda")
+    out = {}
+    for label, loss_fn, batches in (
+        ("packed", make_packed_translation_loss(0),
+         [to_device(ds[np.arange(i * PACK_BATCH, (i + 1) * PACK_BATCH)], dev) for i in range(4)]),
+        ("unpacked", make_translation_loss(0),
+         [to_device(b, dev) for b in train_batches(fixture_data()[2], 4)]),
+    ):
+        if label == "packed":
+            scored = [int(((b[4][:, 1:] == b[4][:, :-1]) & (b[4][:, :-1] > 0)).sum().item()) for b in batches]
+        else:
+            scored = [int((b[1][:, 1:] != 0).sum().item()) for b in batches]
+        tok = sum(scored[i % len(batches)] for i in range(TIMED_STEPS)) / TIMED_STEPS
+        for k in (1, OPTION_K):
+            ms = dispatch_ms(torch, state, loss_fn, batches, k)
+            out[f"{label}, {k} step(s) per call"] = dict(
+                ms=ms, tokens_per_step=tok, tokens_per_s=tok * 1e3 / ms, rows=int(batches[0][0].shape[0]))
+    log(f"  packed vs unpacked train steps (CUDA events over {TIMED_STEPS} steps; scored target "
+        "tokens): "
+        + "; ".join(f"{k}: {v['rows']} rows of 200, {v['ms']:.3f} ms/step, {v['tokens_per_step']:.1f} "
+                    f"tokens/step, {v['tokens_per_s']:.1f} tokens/s" for k, v in out.items())
+        + f" [{card}]")
+    return dict(run=card_run, k=runs, steps=out)
+
+
+def profiler_slice(torch, hop, card: str, train_ds) -> dict:
+    """``fit(profile_dir=, profile_window=(2, 5))`` over the fixture epoch
+    at the reference width, at 1 and ``OPTION_K`` steps per call: one
+    Chrome trace each, whose kernel events are counted by name. At 1 the
+    trace must name the three flash kernels; at 4 what it holds is
+    reported (a replayed CUDA graph)."""
+    import glob
+    import tempfile
+
+    from machine_learning_apache_spark_tpu_torch.data.loader import DataLoader
+    from machine_learning_apache_spark_tpu_torch.models import Transformer, TransformerConfig
+    from machine_learning_apache_spark_tpu_torch.recipes.translation import make_translation_loss
+    from machine_learning_apache_spark_tpu_torch.train.loop import fit
+    from machine_learning_apache_spark_tpu_torch.train.state import TrainState, make_optimizer
+
+    src_pipe, trg_pipe, _ = fixture_data()
+    out = {}
+    for k in (1, OPTION_K):
+        cfg = TransformerConfig(src_vocab_size=len(src_pipe.vocab), trg_vocab_size=len(trg_pipe.vocab),
+                                **{**MODEL, "dropout": 0.1})
+        model = Transformer(cfg, generator=torch.Generator().manual_seed(SEED)).cuda()
+        state = TrainState.create(model=model, tx=make_optimizer("adam", 1e-3))
+        with tempfile.TemporaryDirectory(dir=scratch_dir()) as d:
+            hop.reset_launches()
+            fit(state, make_translation_loss(0), DataLoader(train_ds, 32, shuffle=True, seed=SEED),
+                epochs=1, log_every=0, steps_per_call=k, profile_dir=d, profile_window=(2, 5))
+            launches = dict(hop.LAUNCHES)
+            traces = glob.glob(f"{d}/*.pt.trace.json")
+            if len(traces) != 1:
+                fail(f"fit(profile_dir=) at steps_per_call={k} wrote {len(traces)} traces, not 1")
+            size = Path(traces[0]).stat().st_size
+            events = json.loads(Path(traces[0]).read_text())["traceEvents"]
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        named = {n: sum(1 for e in kernels if frag in e.get("name", "")) for n, frag in FLASH_KERNELS.items()}
+        graphs = sum(1 for e in events if "cudaGraphLaunch" in e.get("name", ""))
+        out[k] = dict(bytes=size, events=len(events), kernel_events=len(kernels), flash=named,
+                      graph_launches=graphs, launches=launches)
+        log(f"  profiled fit, steps_per_call {k}, window [2, 5): trace {size} bytes, {len(events)} events, "
+            f"{len(kernels)} kernel events, flash kernels by name {named}, cudaGraphLaunch calls {graphs}; "
+            f"the run's launches {launches}")
+        if not events or not kernels:
+            fail(f"the profiled fit at steps_per_call={k} traced no device work")
+        if k == 1 and not all(named.values()):
+            fail(f"the profiled window of 3 single steps does not name every flash kernel: {named} "
+                 "(the run launched each 3 sites x 3 steps times in it)")
+    return out
+
+
+def native_text_slice(torch, card: str) -> dict:
+    """The fixture pipelines and ``text_encode.cpp``: a batch goes native
+    when every sentence is ASCII (the JAX package's gate), as the English
+    side's are; the German side's ASCII sentences go native too, its
+    whole corpus through the Python chain. The ids equal the Python
+    chain's; times over each side's texts ten times over (host only)."""
+    import os
+
+    from machine_learning_apache_spark_tpu_torch.data.datasets import load_multi30k
+    from machine_learning_apache_spark_tpu_torch.data.text import translation_pipelines
+
+    pairs = load_multi30k(str(FIXTURES), "train")
+    pipes = translation_pipelines(pairs, max_len=200)
+    out = {}
+    for side, pipe, texts in zip(("source", "target"), pipes, ([s for s, _ in pairs], [t for _, t in pairs])):
+        ascii_texts = [t for t in texts if t.isascii()]
+        for label, batch in ((f"{side}, all", texts * 10), (f"{side}, ASCII", ascii_texts * 10)):
+            native = pipe._encode_native(batch) is not None
+            t0 = time.perf_counter()
+            ids = pipe(batch)
+            t_call = time.perf_counter() - t0
+            os.environ["MLSPARK_NO_NATIVE_TEXT"] = "1"
+            try:
+                t0 = time.perf_counter()
+                python = pipe(batch)
+                t_python = time.perf_counter() - t0
+            finally:
+                del os.environ["MLSPARK_NO_NATIVE_TEXT"]
+            if not np.array_equal(ids, python):
+                fail(f"the pipeline's ids differ from the Python chain's ({label})")
+            out[label] = dict(sentences=len(batch), native=native, ms=t_call * 1e3, python_ms=t_python * 1e3)
+    if not (out["source, all"]["native"] and out["target, ASCII"]["native"]):
+        fail(f"the native encoder did not take the ASCII batches: {out}")
+    log("  text encoding, ids equal to the Python chain: " + "; ".join(
+        f"{label} ({v['sentences']} sentences, {'native' if v['native'] else 'Python: non-ASCII'}) "
+        f"{v['ms']:.2f} ms vs {v['python_ms']:.2f} ms Python" for label, v in out.items()) + " (host)")
+    return out
+
+
+def options_slice(torch, hop, card: str) -> dict:
+    src_pipe, trg_pipe, train_ds = fixture_data()
+    t0 = time.perf_counter()
+    out = dict(
+        moe=moe_slice(torch, hop, card, train_ds, src_pipe, trg_pipe),
+        remat=remat_slice(torch, hop, card, train_ds, src_pipe, trg_pipe),
+        buckets=bucket_slice(torch, hop, card),
+        packing=packing_slice(torch, hop, card),
+        profiler=profiler_slice(torch, hop, card, train_ds),
+        native_text=native_text_slice(torch, card),
+    )
+    log(f"  phase 7 took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 MAIN_SITE = {
     "flash_attention_fwd": "prefill",
     "ragged_paged_attention": "cross, fp32 pages",
@@ -2534,7 +3044,11 @@ def main() -> int:
 
     # Made anew for the timings of phase 6: held here they would sit in
     # device memory through the serving and training peaks.
-    train_errs = check_training_kernels(torch, hop, make_sites(), dev)
+    train_errs = check_training_kernels(
+        torch, hop,
+        make_sites() | bucket_sites(torch, np.random.default_rng(SEED + 5), dev, src0, trg0[:, :-1]),
+        dev,
+    )
     bleu_valid = bleu_val_valid()
     decode_err = check_decode_forward(torch, hop, decode_sites(torch, dev, bleu_valid), dev)
     torch.cuda.empty_cache()
@@ -2624,7 +3138,11 @@ def main() -> int:
     log("== phase 6: the model zoo at the reference widths (MLP, TinyVGG, LSTM, MLlib L-BFGS)")
     zoo = zoo_slice(torch, hop, card)
 
-    log("== phase 7: times")
+    log("== phase 7: the translation recipe's options (MoE, remat, length buckets, packing, "
+        "the profiler window, native text)")
+    options = options_slice(torch, hop, card)
+
+    log("== phase 8: times")
     for label, run in runs.items():
         log(f"  {label:7s} engine ({run['kv_mode']}): {len(run['outs']) / run['wall']:.2f} requests/s, "
             f"{run['tokens'] / run['wall']:.1f} generated tokens/s "
@@ -2698,6 +3216,19 @@ def main() -> int:
         f"training, {MULTI_K} steps per call": [multi["runs"][k]["launches"] for k in MULTI_K],
         f"training, {RESUME_K} steps per call, resumed": [resumed["whole"]["launches"]],
         **{f"zoo: {name}": [launches] for name, launches in zoo["paths"].items()},
+        "training, MoE (advanced_translator options, BLEU, checkpoints)": [options["moe"]["adv"]["launches"]],
+        f"training, MoE, 1 and {OPTION_K} steps per call": [
+            options["moe"]["k"][r]["launches"] for r in ("one", "many")],
+        "MoE paged serving (saved and loaded)": [options["moe"]["served"]["launches"]],
+        "MoE one-shot greedy and beam": options["moe"]["one_shot_launches"],
+        f"training, remat, 1 and {OPTION_K} steps per call": [
+            r["remat"]["launches"] for r in options["remat"]["runs"].values()],
+        "training, bucket_by_length": [options["buckets"]["run"]["launches"]],
+        f"training, pack_sequences, 1 and {OPTION_K} steps per call": [
+            options["packing"]["run"]["launches"],
+            *(options["packing"]["k"][r]["launches"] for r in ("one", "many"))],
+        f"profiled fit, 1 and {OPTION_K} steps per call": [
+            p["launches"] for p in options["profiler"].values()],
     }
     path_launches = {p: {n: sum(x[n] for x in xs) for n in hop.LAUNCHES} for p, xs in paths.items()}
     kernels = []
@@ -2745,6 +3276,14 @@ def main() -> int:
     log(f"  BLEU decode per epoch: {json.dumps(bleu_times)}")
     log(f"  one-shot Translator programs: {json.dumps(one_shot_graphs)}")
     log(f"  zoo: {json.dumps({k: zoo[k] for k in ('parity', 'resumed', 'mllib', 'times', 'recurrence', 'determinism')}, default=str)} [{card}]")
+    log("  recipe options: " + json.dumps(dict(
+        moe_parity=options["moe"]["parity"], remat_peak_bytes=options["remat"]["peak"],
+        remat_ms=options["remat"]["ms"], bucket_step_ms=options["buckets"]["step_ms"],
+        padding_efficiency=options["buckets"]["padding_efficiency"],
+        packed_steps=options["packing"]["steps"],
+        profiler={k: {f: v[f] for f in ("bytes", "kernel_events", "flash", "graph_launches")}
+                  for k, v in options["profiler"].items()},
+        native_text=options["native_text"]), default=str) + f" [{card}]")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

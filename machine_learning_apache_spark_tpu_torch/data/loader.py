@@ -4,8 +4,10 @@
 Batches are numpy arrays stacked to static shapes (ragged tails drop or
 stay, by ``drop_last``); ``train.loop`` moves them to the device. The
 batch order is the JAX package's: ``default_rng(seed + epoch)``, so the
-two packages see the same batches. Rows are gathered with numpy fancy
-indexing (the JAX package's native ``gather_rows`` is not ported yet).
+two packages see the same batches. A batch of integer indices is
+gathered through the native threaded row-gather (``native.gather_rows``,
+``batch_gather.cpp``; numpy fancy indexing where the library does not
+build), as in the JAX loader.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from typing import Any, Callable, Iterator, Sequence
 import numpy as np
 
 from machine_learning_apache_spark_tpu_torch.data.sampler import DistributedSampler
+from machine_learning_apache_spark_tpu_torch.native import gather_rows
 
 
 class ArrayDataset:
@@ -35,6 +38,13 @@ class ArrayDataset:
         return len(self.arrays[0])
 
     def __getitem__(self, idx):
+        if (
+            isinstance(idx, np.ndarray)
+            and idx.ndim == 1
+            and np.issubdtype(idx.dtype, np.integer)
+        ):
+            # The loader's host hot path: the native threaded row-gather.
+            return tuple(gather_rows(a, idx) for a in self.arrays)
         return tuple(a[idx] for a in self.arrays)
 
 

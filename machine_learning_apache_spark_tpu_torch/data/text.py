@@ -26,11 +26,17 @@ semantics use index 0 = ``<pad>`` (Q10 passed the token string ``'0'``).
 
 from __future__ import annotations
 
+import os
 import re
+import threading
+import weakref
 from collections import Counter
 from collections.abc import Callable, Iterable, Sequence
 
 import numpy as np
+
+from machine_learning_apache_spark_tpu_torch.native import text_native
+from machine_learning_apache_spark_tpu_torch.utils import env as envcfg
 
 # Special tokens, in the reference's order (special_first=True,
 # ``pytorch_lstm.py:58-67``): indices 0..3.
@@ -327,11 +333,77 @@ class TextPipeline:
             steps.append(PadToLength(fixed_len, PAD_ID))
         steps.append(ToArray(PAD_ID))
         self.transform = Sequential(*steps)
+        self._native_vocab: tuple[int, int] | None = None  # (pid, handle)
+        self._native_vocab_lock = threading.Lock()
+
+    def _encode_native(self, texts: Sequence[str]) -> np.ndarray | None:
+        """The C++ fast path (``native.text_native``, ``text_encode.cpp``):
+        one pass over the batch for the built-in tokenizers on ASCII text
+        with a fixed output width. Returns None whenever a gate fails;
+        the Python chain is the semantic reference (the ids are pinned
+        equal in ``tests/test_torch_recipe_options.py``)."""
+        if envcfg.get_bool("MLSPARK_NO_NATIVE_TEXT"):
+            return None
+        # The built-in functions themselves: a custom tokenizer registered
+        # over a built-in name must not be encoded with built-in rules.
+        if self.tokenizer is basic_english:
+            mode = 0
+        elif self.tokenizer is word_punct:
+            mode = 1
+        else:
+            return None
+        if self.spec["fixed_len"] is None or not texts:
+            return None
+        if not all(isinstance(t, str) and t.isascii() for t in texts):
+            return None
+        try:
+            pid = os.getpid()
+            with self._native_vocab_lock:
+                if self._native_vocab is None or self._native_vocab[0] != pid:
+                    itos = self.vocab.itos
+                    if any("\n" in t for t in itos):
+                        return None  # '\n' separates the handle blob's tokens
+                    # Handles are process-local: rebuilt after a fork, and
+                    # freed when the pipeline is collected.
+                    handle = text_native.vocab_handle(itos)
+                    weakref.finalize(self, text_native.vocab_free, handle)
+                    self._native_vocab = (pid, handle)
+            return text_native.encode(
+                self._native_vocab[1],
+                list(texts),
+                mode=mode,
+                max_seq_len=self.spec["max_seq_len"],
+                fixed_len=self.spec["fixed_len"],
+                add_sos=self.spec["add_sos"],
+                add_eos=self.spec["add_eos"],
+                sos_id=SOS_ID,
+                eos_id=EOS_ID,
+                pad_id=PAD_ID,
+                default_index=self.vocab.default_index,
+            )
+        except (ImportError, RuntimeError, OSError):
+            return None  # the fast path never fails the pipeline
 
     def __call__(self, texts: Sequence[str]) -> np.ndarray:
-        # The Python chain only: the native C++ encoder is not part of
-        # this package yet (its output is pinned equal to this chain).
-        return self.transform([self.tokenizer(t) for t in list(texts)])
+        # Materialised once: the native gate scans the texts before
+        # encoding, which would exhaust a one-shot iterator.
+        texts = list(texts)
+        arr = self._encode_native(texts)
+        if arr is not None:
+            return arr
+        return self.transform([self.tokenizer(t) for t in texts])
+
+    def __getstate__(self):
+        # The native handle and its lock are process-local and unpicklable.
+        d = self.__dict__.copy()
+        d["_native_vocab"] = None
+        d.pop("_native_vocab_lock", None)
+        return d
+
+    def __setstate__(self, d):
+        self.__dict__.update(d)
+        self._native_vocab = None
+        self._native_vocab_lock = threading.Lock()
 
     def ragged(self, texts: Sequence[str]) -> list[list[int]]:
         """Token-id lists *before* rectangularization — the input to length

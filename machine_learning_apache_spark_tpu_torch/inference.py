@@ -54,15 +54,11 @@ from machine_learning_apache_spark_tpu_torch.utils.device import resolve_device
 from machine_learning_apache_spark_tpu_torch.utils.graph_cache import ProgramCache
 
 #: ``TransformerConfig`` fields of the JAX package that the port's config
-#: lacks, at their defaults (what ``translator.json`` records for a port
-#: model), with the ROADMAP item that ports them. A saved config that sets
-#: one otherwise cannot load here.
-UNPORTED_CONFIG = {
-    "remat": (False, "A2 (remat)"),
-    "moe_experts": (0, "A2 (MoE)"),
-    "moe_capacity_factor": (1.25, "A2 (MoE)"),
-    "moe_aux_weight": (1e-2, "A2 (MoE)"),
-}
+#: lacks, as ``{name: (default, ROADMAP item)}``: what ``translator.json``
+#: records for a port model, and a saved config that sets one away from
+#: its default cannot load here. Every field is ported (``remat`` and the
+#: ``moe_*`` fields since the MoE slice), so it is empty.
+UNPORTED_CONFIG: dict[str, tuple] = {}
 
 
 def _check_registered_tokenizer(pipe: TextPipeline) -> None:
@@ -113,6 +109,12 @@ def config_from_json(saved: dict) -> TransformerConfig:
                 f"translator config {name}={saved[name]!r} is not ported yet "
                 f"(ROADMAP queue {item})"
             )
+    unknown = sorted(set(cfg) - {f.name for f in dataclasses.fields(TransformerConfig)})
+    if unknown:
+        raise NotImplementedError(
+            f"translator config fields {unknown} are not known to the port's "
+            "TransformerConfig"
+        )
     cfg["dtype"] = getattr(torch, cfg["dtype"])
     return TransformerConfig(**cfg)
 

@@ -1,6 +1,7 @@
 """Model zoo of the port: the MLP, the TinyVGG CNN, the LSTM text
 classifier, and the encoder-decoder MT Transformer with its decoders
-(uncached greedy, KV-cache greedy, beam search, sampling)."""
+(uncached greedy, KV-cache greedy, beam search, sampling) and its
+mixture-of-experts FFN."""
 
 from machine_learning_apache_spark_tpu_torch.models.cnn import (
     FashionMNISTModel,
@@ -8,6 +9,7 @@ from machine_learning_apache_spark_tpu_torch.models.cnn import (
 )
 from machine_learning_apache_spark_tpu_torch.models.lstm import LSTMClassifier
 from machine_learning_apache_spark_tpu_torch.models.mlp import MLP
+from machine_learning_apache_spark_tpu_torch.models.moe import MoEFeedForward
 from machine_learning_apache_spark_tpu_torch.models.transformer import (
     DecodeCache,
     Transformer,
@@ -23,6 +25,7 @@ __all__ = [
     "FashionMNISTModel",
     "LSTMClassifier",
     "MLP",
+    "MoEFeedForward",
     "TinyVGG",
     "Transformer",
     "TransformerConfig",

@@ -20,6 +20,24 @@ none it is the identity (Flax's ``deterministic=True``), so eval, serving
 and parity runs need no mode switch. The training step owns the
 generator (``train.loop``). The bits differ from JAX's by design.
 
+``cfg.moe_experts > 0`` swaps every FFN for the switch-routed
+``models.moe.MoEFeedForward``. Its routing validity comes from the tokens
+themselves, whatever mask overrides the caller passes; the one-token
+decode paths (``decode_step``, ``decode_step_paged``) route their token
+with no validity, as the JAX model does. ``forward(aux_losses=[])``
+collects each MoE layer's load-balancing loss as a device tensor (Flax's
+``mutable=["losses"]``).
+
+``cfg.remat`` recomputes each encoder and decoder layer in the backward
+(``torch.utils.checkpoint``, non-reentrant) when gradients are being
+recorded: the training path only, never the decode, paged or prefill
+paths. The checkpoint rewinds only the global generators, and dropout
+draws from the fit's own; so a checkpointed layer keeps the keep-masks
+its forward drew (one byte per element, ``_ReplayedDraws``) and its
+recompute takes them back in the same order. Its gradients equal the
+unrematerialised layer's bit for bit, on the CPU and inside a CUDA graph
+alike.
+
 Where Flax *sows* intermediate values into a mutable collection, these
 methods return them: ``prefill_paged`` returns each layer's memory K/V,
 ``decode_step_paged`` each layer's new self-attention K/V. Flax's mutable
@@ -44,7 +62,9 @@ import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from machine_learning_apache_spark_tpu_torch.ops import hopper_attention
 from machine_learning_apache_spark_tpu_torch.ops.attention import (
     NEG_INF,
     dot_product_attention,
@@ -77,6 +97,15 @@ class TransformerConfig:
     # Extra LM-head columns (tensor-parallel vocab padding in the JAX
     # package); logits are sliced back to trg_vocab_size.
     logit_pad: int = 0
+    # Recompute each encoder/decoder layer in the backward instead of
+    # keeping its activations (training path only).
+    remat: bool = False
+    # Mixture-of-experts FFN (models.moe): 0 = the dense FFN; N > 0 puts N
+    # switch-routed experts at every FFN site. Training adds
+    # moe_aux_weight x the mean of the layers' load-balancing losses.
+    moe_experts: int = 0
+    moe_capacity_factor: float = 1.25
+    moe_aux_weight: float = 1e-2
 
     @property
     def head_dim(self) -> int:
@@ -151,6 +180,35 @@ class EmbeddingLookup(torch.autograd.Function):
         return weight_grad, None
 
 
+class _ReplayedDraws:
+    """A rematerialised layer's dropout draws: the layer's first run
+    draws each keep-mask from ``rng`` and keeps it; after ``rewind()``
+    (the recompute in the backward) the same masks come back in order.
+    ``torch.utils.checkpoint`` cannot rewind an explicit generator, and
+    inside a CUDA graph no generator state can be read or set; holding
+    the masks needs neither."""
+
+    def __init__(self, rng: torch.Generator):
+        self.rng = rng
+        self.masks: list[torch.Tensor] = []
+        self.next = 0
+
+    def rewind(self) -> None:
+        self.next = 0
+
+    def keep_mask(self, x: torch.Tensor, keep: float) -> torch.Tensor:
+        if self.next == len(self.masks):
+            self.masks.append(_draw_keep_mask(x, keep, self.rng))
+        mask = self.masks[self.next]
+        self.next += 1
+        return mask
+
+
+def _draw_keep_mask(x: torch.Tensor, keep: float, rng: torch.Generator) -> torch.Tensor:
+    draw = torch.rand(x.shape, generator=rng, device=x.device, dtype=x.dtype)
+    return draw < keep
+
+
 class Dropout(nn.Module):
     """Flax's ``nn.Dropout`` with its bits from an explicit generator.
 
@@ -158,7 +216,8 @@ class Dropout(nn.Module):
     (Flax's ``deterministic=True``); with ``rate`` 1, zeros; otherwise it
     keeps each element where ``torch.rand(..., generator=rng) < 1 - rate``
     and scales the kept ones by ``1 / (1 - rate)``. ``rng`` must live on
-    ``x``'s device. Never touches the global RNG."""
+    ``x``'s device (or be a rematerialised layer's ``_ReplayedDraws``).
+    Never touches the global RNG."""
 
     def __init__(self, rate: float):
         super().__init__()
@@ -172,8 +231,11 @@ class Dropout(nn.Module):
         keep = 1.0 - self.rate
         if keep == 0.0:
             return torch.zeros_like(x)
-        draw = torch.rand(x.shape, generator=rng, device=x.device, dtype=x.dtype)
-        return torch.where(draw < keep, x / keep, 0.0)
+        if isinstance(rng, _ReplayedDraws):
+            mask = rng.keep_mask(x, keep)
+        else:
+            mask = _draw_keep_mask(x, keep, rng)
+        return torch.where(mask, x / keep, 0.0)
 
 
 @dataclasses.dataclass
@@ -371,7 +433,8 @@ class MultiHeadAttention(nn.Module):
 
 class FeedForward(nn.Module):
     """Position-wise FFN (C19, ``transformer.py:104-117``):
-    Linear(ffn) → ReLU → Dropout → Linear(d)."""
+    Linear(ffn) → ReLU → Dropout → Linear(d). Takes ``MoEFeedForward``'s
+    ``valid`` and ``aux`` and ignores them."""
 
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
@@ -380,9 +443,55 @@ class FeedForward(nn.Module):
         self.dropout = Dropout(cfg.dropout)
 
     def forward(
-        self, x: torch.Tensor, dropout_rng: torch.Generator | None = None
+        self, x: torch.Tensor, dropout_rng: torch.Generator | None = None, *,
+        valid=None, aux=None,
     ) -> torch.Tensor:
         return self.down(self.dropout(torch.relu(self.up(x)), dropout_rng))
+
+
+def _make_ffn(cfg: TransformerConfig) -> nn.Module:
+    """The dense FFN, or the switch-routed MoE one when ``cfg.moe_experts``."""
+    if cfg.moe_experts > 0:
+        from machine_learning_apache_spark_tpu_torch.models.moe import MoEFeedForward
+
+        return MoEFeedForward(
+            cfg.d_model, cfg.ffn_hidden, cfg.moe_experts,
+            capacity_factor=cfg.moe_capacity_factor, dropout=cfg.dropout,
+            dtype=cfg.dtype,
+        )
+    return FeedForward(cfg)
+
+
+def _token_valid(tokens: torch.Tensor, cfg: TransformerConfig):
+    """MoE routing validity, from the tokens whatever the mask overrides."""
+    return tokens != cfg.pad_id if cfg.moe_experts > 0 else None
+
+
+def _run_layer(layer: nn.Module, remat: bool, *args, dropout_rng, aux):
+    """``layer(*args, dropout_rng=, aux=)``; with ``remat`` while grad is
+    recorded, through a non-reentrant ``checkpoint``. Its recompute (on
+    autograd's device thread) replays the first run's dropout masks
+    (``_ReplayedDraws``), counts its kernel launches as the first run's
+    thread does (so a graph capture records them), and hands the MoE
+    layers a list of its own for the aux losses, which the loss has read
+    by then."""
+    if not (remat and torch.is_grad_enabled()):
+        return layer(*args, dropout_rng=dropout_rng, aux=aux)
+    draws = None if dropout_rng is None else _ReplayedDraws(dropout_rng)
+    recording = hopper_attention.launch_recording()
+    first = True
+
+    def run(*tensors):
+        nonlocal first
+        if first:
+            first = False
+            return layer(*tensors, dropout_rng=draws, aux=aux)
+        if draws is not None:
+            draws.rewind()
+        with hopper_attention.recording_as(recording):
+            return layer(*tensors, dropout_rng=draws, aux=None if aux is None else [])
+
+    return checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False)
 
 
 class EncoderLayer(nn.Module):
@@ -392,14 +501,15 @@ class EncoderLayer(nn.Module):
         super().__init__()
         self.self_attn = MultiHeadAttention(cfg)
         self.ln1 = _layer_norm(cfg)
-        self.ffn = FeedForward(cfg)
+        self.ffn = _make_ffn(cfg)
         self.ln2 = _layer_norm(cfg)
         self.dropout = Dropout(cfg.dropout)
 
-    def forward(self, x, mask=None, kv_valid=None, dropout_rng=None):
+    def forward(self, x, mask=None, kv_valid=None, token_valid=None, *,
+                dropout_rng=None, aux=None):
         attn = self.self_attn(x, mask=mask, kv_valid=kv_valid)
         x = self.ln1(x + self.dropout(attn, dropout_rng))
-        ffn = self.ffn(x, dropout_rng)
+        ffn = self.ffn(x, dropout_rng, valid=token_valid, aux=aux)
         return self.ln2(x + self.dropout(ffn, dropout_rng))
 
 
@@ -408,6 +518,7 @@ class Encoder(nn.Module):
 
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
+        self.cfg = cfg
         self.embed = SentenceEmbedding(cfg.src_vocab_size, cfg)
         self.layers = nn.ModuleList(
             EncoderLayer(cfg) for _ in range(cfg.num_layers)
@@ -415,11 +526,15 @@ class Encoder(nn.Module):
 
     def forward(
         self, src_tokens, src_mask=None, src_valid=None, *, positions=None,
-        dropout_rng=None,
+        dropout_rng=None, aux=None,
     ):
         x = self.embed(src_tokens, positions=positions, dropout_rng=dropout_rng)
+        token_valid = _token_valid(src_tokens, self.cfg)
         for layer in self.layers:
-            x = layer(x, src_mask, src_valid, dropout_rng)
+            x = _run_layer(
+                layer, self.cfg.remat, x, src_mask, src_valid, token_valid,
+                dropout_rng=dropout_rng, aux=aux,
+            )
         return x
 
 
@@ -433,13 +548,14 @@ class DecoderLayer(nn.Module):
         self.ln1 = _layer_norm(cfg)
         self.cross_attn = MultiHeadAttention(cfg, cross=True)
         self.ln2 = _layer_norm(cfg)
-        self.ffn = FeedForward(cfg)
+        self.ffn = _make_ffn(cfg)
         self.ln3 = _layer_norm(cfg)
         self.dropout = Dropout(cfg.dropout)
 
     def forward(
         self, y, memory, self_mask=None, cross_mask=None, trg_valid=None,
-        memory_valid=None, self_causal: bool = False, dropout_rng=None,
+        memory_valid=None, self_causal: bool = False, token_valid=None, *,
+        dropout_rng=None, aux=None,
     ):
         attn = self.self_attn(
             y, mask=self_mask, causal=self_causal, kv_valid=trg_valid
@@ -449,7 +565,7 @@ class DecoderLayer(nn.Module):
             y, memory, mask=cross_mask, kv_valid=memory_valid
         )
         y = self.ln2(y + self.dropout(cross, dropout_rng))
-        ffn = self.ffn(y, dropout_rng)
+        ffn = self.ffn(y, dropout_rng, valid=token_valid, aux=aux)
         return self.ln3(y + self.dropout(ffn, dropout_rng))
 
     def forward_decode(self, y, cache, layer, self_valid, memory_valid, *, prime):
@@ -472,6 +588,7 @@ class DecoderLayer(nn.Module):
 class Decoder(nn.Module):
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
+        self.cfg = cfg
         self.embed = SentenceEmbedding(cfg.trg_vocab_size, cfg)
         self.layers = nn.ModuleList(
             DecoderLayer(cfg) for _ in range(cfg.num_layers)
@@ -480,13 +597,15 @@ class Decoder(nn.Module):
     def forward(
         self, trg_tokens, memory, self_mask=None, cross_mask=None,
         trg_valid=None, memory_valid=None, *, self_causal: bool = False,
-        positions=None, dropout_rng=None,
+        positions=None, dropout_rng=None, aux=None,
     ):
         y = self.embed(trg_tokens, positions=positions, dropout_rng=dropout_rng)
+        token_valid = _token_valid(trg_tokens, self.cfg)
         for layer in self.layers:
-            y = layer(
-                y, memory, self_mask, cross_mask, trg_valid, memory_valid,
-                self_causal, dropout_rng,
+            y = _run_layer(
+                layer, self.cfg.remat, y, memory, self_mask, cross_mask,
+                trg_valid, memory_valid, self_causal, token_valid,
+                dropout_rng=dropout_rng, aux=aux,
             )
         return y
 
@@ -522,8 +641,9 @@ class Transformer(nn.Module):
     src keys) — as structured masks; explicit dense masks may be passed to
     override. ``dropout_rng`` (a ``torch.Generator`` on the model's
     device) turns dropout on, as Flax's ``rngs={"dropout": ...}`` with
-    ``deterministic=False`` does. The model is built on the CPU; move it
-    with ``.to(device)``.
+    ``deterministic=False`` does. ``aux_losses`` (a list) receives each
+    MoE layer's load-balancing loss, encoder layers first. The model is
+    built on the CPU; move it with ``.to(device)``.
     """
 
     def __init__(
@@ -546,8 +666,12 @@ class Transformer(nn.Module):
         ``torch.Generator()`` seeded 0 when None) — never the global RNG."""
         if generator is None:
             generator = torch.Generator().manual_seed(0)
+        from machine_learning_apache_spark_tpu_torch.models.moe import MoEFeedForward
+
         for m in self.modules():
-            if isinstance(m, nn.Linear):
+            if isinstance(m, MoEFeedForward):
+                m.reset_parameters(generator)
+            elif isinstance(m, nn.Linear):
                 lecun_normal_(m.weight, generator)
                 m.bias.zero_()
             elif isinstance(m, nn.Embedding):
@@ -576,6 +700,7 @@ class Transformer(nn.Module):
         src_positions: torch.Tensor | None = None,
         trg_positions: torch.Tensor | None = None,
         dropout_rng: torch.Generator | None = None,
+        aux_losses: list | None = None,
     ) -> torch.Tensor:
         pad = self.cfg.pad_id
         src_valid = (src_tokens != pad) if src_mask is None else None
@@ -583,12 +708,12 @@ class Transformer(nn.Module):
         memory_valid = (src_tokens != pad) if cross_mask is None else None
         memory = self.encoder(
             src_tokens, src_mask, src_valid, positions=src_positions,
-            dropout_rng=dropout_rng,
+            dropout_rng=dropout_rng, aux=aux_losses,
         )
         y = self.decoder(
             trg_tokens, memory, trg_mask, cross_mask, trg_valid, memory_valid,
             self_causal=trg_mask is None, positions=trg_positions,
-            dropout_rng=dropout_rng,
+            dropout_rng=dropout_rng, aux=aux_losses,
         )
         return self.logits(y)
 

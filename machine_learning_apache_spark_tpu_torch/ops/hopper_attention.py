@@ -107,6 +107,26 @@ def recorded_launches(*, counted: bool):
         _RECORDING.state = outer
 
 
+def launch_recording():
+    """This thread's launch recording (None outside ``recorded_launches``),
+    for ``recording_as`` in work another thread runs on this one's behalf."""
+    return getattr(_RECORDING, "state", None)
+
+
+@contextlib.contextmanager
+def recording_as(state):
+    """Launches this thread makes inside the block are recorded and
+    counted as ``state`` (another thread's ``launch_recording()``) says:
+    autograd runs a backward, and a checkpointed layer's recompute, on its
+    device thread, which does not see the forward thread's recording."""
+    outer = getattr(_RECORDING, "state", None)
+    _RECORDING.state = state
+    try:
+        yield
+    finally:
+        _RECORDING.state = outer
+
+
 def _check_head_dim(head_dim: int) -> None:
     if head_dim % 8 or not 8 <= head_dim <= MAX_HEAD_DIM:
         raise ValueError(
@@ -628,7 +648,7 @@ class FlashAttention(torch.autograd.Function):
         # The backward runs on autograd's device thread, which does not see
         # this thread's launch recording: it takes the forward's, so a
         # backward inside a graph capture is recorded with it.
-        ctx.recording = getattr(_RECORDING, "state", None)
+        ctx.recording = launch_recording()
         return out
 
     @staticmethod
@@ -639,15 +659,11 @@ class FlashAttention(torch.autograd.Function):
             # Autograd picks dO's layout (an expanded ``sum()`` gradient
             # has stride 0): give the kernels rows they can copy.
             d_out = d_out.clone(memory_format=torch.contiguous_format)
-        outer = getattr(_RECORDING, "state", None)
-        _RECORDING.state = ctx.recording
-        try:
+        with recording_as(ctx.recording):
             dq, dk, dv = flash_attention_backward(
                 query, key, value, out, lse, d_out,
                 causal=ctx.causal, kv_valid=kv_valid,
             )
-        finally:
-            _RECORDING.state = outer
         return dq, dk, dv, None, None, None
 
 

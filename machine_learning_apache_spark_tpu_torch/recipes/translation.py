@@ -19,10 +19,21 @@ versions on the CPU. ``steps_per_call=K`` runs K training steps per call
 ``checkpoint_dir`` every ``checkpoint_every`` epochs and the last are
 saved; a later run over the same directory (``resume``, the default)
 restores the newest valid step, trains ``epochs`` more numbered on from
-the saved one, and reports ``resumed_from_step``. The recipe fields of
-the JAX package that this slice does not port raise
-``NotImplementedError`` when set away from their defaults; ``use_mesh``
-is accepted (one card: nothing to shard).
+the saved one, and reports ``resumed_from_step``.
+
+The single-device options run as in the JAX recipe: ``moe_experts``
+(switch-routed expert FFNs; the load-balancing loss joins the task loss
+at ``moe_aux_weight`` and is reported as ``moe_aux``), ``remat`` (each
+layer recomputed in the backward), ``bucket_by_length`` /
+``bucket_boundaries`` (paired length buckets for the training batches;
+eval keeps the fixed width) and ``pack_sequences`` (several pairs per
+row behind block-diagonal segment masks, ``data.packing``; its dense
+masks take the plain attention path, as they take the fused-XLA path in
+the JAX package, so the packed step launches no flash kernel). The
+combinations the JAX recipe rejects raise the same ``ValueError``. The
+mesh fields raise ``NotImplementedError`` when set away from their
+defaults (ROADMAP queue A4); ``use_mesh`` is accepted (one card: nothing
+to shard).
 """
 
 from __future__ import annotations
@@ -31,13 +42,18 @@ from dataclasses import dataclass, fields
 
 import torch
 
+from machine_learning_apache_spark_tpu_torch.data.bucketing import (
+    BucketByLengthPairsLoader,
+)
 from machine_learning_apache_spark_tpu_torch.data.datasets import (
     load_multi30k,
     synthetic_translation_pairs,
 )
 from machine_learning_apache_spark_tpu_torch.data.loader import ArrayDataset
+from machine_learning_apache_spark_tpu_torch.data.packing import pack_translation_pairs
 from machine_learning_apache_spark_tpu_torch.data.text import (
     EOS_ID,
+    PAD_ID,
     SOS_ID,
     translation_pipelines,
 )
@@ -47,9 +63,15 @@ from machine_learning_apache_spark_tpu_torch.models.transformer import (
     TransformerConfig,
     greedy_translate_cached,
 )
+from machine_learning_apache_spark_tpu_torch.ops.masks import (
+    combine_masks,
+    make_causal_mask,
+    make_segment_mask,
+)
 from machine_learning_apache_spark_tpu_torch.recipes._common import (
     checkpointing,
     default_compute_dtype,
+    make_bucketed_loader,
     make_loaders,
     summarize,
     with_overrides,
@@ -60,6 +82,7 @@ from machine_learning_apache_spark_tpu_torch.train.loop import (
     to_device,
 )
 from machine_learning_apache_spark_tpu_torch.train.losses import (
+    cross_entropy,
     masked_token_cross_entropy,
 )
 from machine_learning_apache_spark_tpu_torch.train.metrics import (
@@ -121,14 +144,18 @@ class TranslationRecipe:
     checkpoint_every: int = 1
     resume: bool = True
     metrics_path: str | None = None
+    # Paired length buckets for the training batches (eval keeps the fixed
+    # width); () -> (1/4, 1/2, full) of max_len.
     bucket_by_length: bool = False
     bucket_boundaries: tuple[int, ...] = ()
+    # Several pairs per fixed row behind segment masks (data.packing);
+    # training only.
     pack_sequences: bool = False
     steps_per_call: int = 1
     prefetch_to_device: int = 2
 
 
-#: Recipe fields of the JAX package that this slice does not port, with
+#: Recipe fields of the JAX package that this port does not run yet, with
 #: the ROADMAP item that will. Each raises when set away from its default.
 UNPORTED = {
     "model_parallel": "A4 (distributed)",
@@ -136,19 +163,44 @@ UNPORTED = {
     "sequence_parallel_method": "A4 (distributed)",
     "pipeline_parallel": "A4 (distributed)",
     "pipeline_microbatches": "A4 (distributed)",
-    "moe_experts": "A2 (MoE)",
-    "expert_parallel": "A2 (MoE)",
-    "moe_capacity_factor": "A2 (MoE)",
-    "moe_aux_weight": "A2 (MoE)",
-    "remat": "A2 (remat)",
+    "expert_parallel": "A4 (distributed)",
     "zero1": "A4 (distributed)",
-    "bucket_by_length": "A1.2 (translation wiring)",
-    "bucket_boundaries": "A1.2 (translation wiring)",
-    "pack_sequences": "A1 (packed loaders)",
 }
 
 
-def _reject_unported(r: TranslationRecipe) -> None:
+def _validate(r: TranslationRecipe) -> None:
+    """The JAX recipe's rejections (``ValueError``, the same
+    combinations), then the fields this port does not run yet
+    (``NotImplementedError``)."""
+    if r.pack_sequences:
+        blockers = {
+            "bucket_by_length": r.bucket_by_length,
+            "sequence_parallel": r.sequence_parallel > 1,
+            "pipeline_parallel": r.pipeline_parallel > 1,
+            "moe_experts": r.moe_experts > 0,
+        }
+        bad = [k for k, v in blockers.items() if v]
+        if bad:
+            raise ValueError(
+                f"pack_sequences is incompatible with {bad}: bucketing is "
+                "another answer to the same padding, the sequence ring and "
+                "the pipeline split need the plain loss, and MoE capacity "
+                "routing is unvalidated on mixed rows"
+            )
+    if r.moe_experts and r.moe_experts % max(r.expert_parallel, 1):
+        raise ValueError(
+            f"moe_experts={r.moe_experts} must divide evenly over "
+            f"expert_parallel={r.expert_parallel}"
+        )
+    if r.expert_parallel > 1 and not r.moe_experts:
+        raise ValueError(
+            f"expert_parallel={r.expert_parallel} requires moe_experts > 0"
+        )
+    if r.bucket_by_length and r.sequence_parallel > 1:
+        raise ValueError(
+            "bucket_by_length is incompatible with sequence_parallel: the "
+            "ring needs one fixed seq-axis-divisible length"
+        )
     if r.bucket_by_length and r.steps_per_call > 1:
         raise ValueError(
             "steps_per_call > 1 is incompatible with bucket_by_length: a "
@@ -167,13 +219,62 @@ def _reject_unported(r: TranslationRecipe) -> None:
 def make_translation_loss(pad_id: int, *, train: bool = True):
     """Teacher-forced pad-masked CE over ``(src, trg)`` batches — the manual
     mask-mean at ``pytorch_machine_translator.py:182-188``. The loss
-    function is ``(model, batch, rng) -> (loss, {})``; ``train=True`` hands
-    ``rng`` to the model's dropout, ``train=False`` runs it deterministic."""
+    function is ``(model, batch, rng) -> (loss, aux)``; ``train=True``
+    hands ``rng`` to the model's dropout, ``train=False`` runs it
+    deterministic.
+
+    An MoE model's load-balancing losses (one per MoE layer, device
+    tensors) join the loss at ``cfg.moe_aux_weight`` times their mean,
+    reported as ``aux["moe_aux"]``, in training and eval alike."""
 
     def loss_fn(model, batch, rng):
         src, trg = batch
-        logits = model(src, trg[:, :-1], dropout_rng=rng if train else None)
+        dropout_rng = rng if train else None
+        if model.cfg.moe_experts > 0:
+            aux_terms: list = []
+            logits = model(src, trg[:, :-1], dropout_rng=dropout_rng, aux_losses=aux_terms)
+            aux = sum(aux_terms) / max(len(aux_terms), 1)
+            loss = masked_token_cross_entropy(logits, trg[:, 1:], pad_id)
+            return loss + model.cfg.moe_aux_weight * aux, {"moe_aux": aux}
+        logits = model(src, trg[:, :-1], dropout_rng=dropout_rng)
         return masked_token_cross_entropy(logits, trg[:, 1:], pad_id), {}
+
+    return loss_fn
+
+
+def make_packed_translation_loss(pad_id: int, *, train: bool = True):
+    """Teacher-forced CE over PACKED batches (``src, src_seg, src_pos, trg,
+    trg_seg, trg_pos`` — ``data.packing``): the same per-token CE as
+    ``make_translation_loss`` on the equivalent unpacked rows, through
+    block-diagonal segment masks at all three attention sites,
+    per-segment positions, and a loss mask that also drops the boundary
+    position where one segment's last token would be scored against the
+    next segment's first. The masks are dense, so attention takes the
+    plain path (no flash kernel), as the JAX recipe's takes fused XLA."""
+
+    def loss_fn(model, batch, rng):
+        src, src_seg, src_pos, trg, trg_seg, trg_pos = batch
+        tin_seg = trg_seg[:, :-1]
+        logits = model(
+            src,
+            trg[:, :-1],
+            src_mask=make_segment_mask(src_seg, src_seg),
+            trg_mask=combine_masks(
+                make_segment_mask(tin_seg, tin_seg),
+                make_causal_mask(tin_seg.shape[1], device=tin_seg.device),
+            ),
+            cross_mask=make_segment_mask(tin_seg, src_seg),
+            src_positions=src_pos,
+            trg_positions=trg_pos[:, :-1],
+            dropout_rng=rng if train else None,
+        )
+        labels = trg[:, 1:]
+        # Score a position only when its label belongs to the SAME segment
+        # as its input token: pad labels drop (segment 0) and so does each
+        # segment's boundary into the next.
+        scored = (trg_seg[:, 1:] == tin_seg) & (tin_seg > 0) & (labels != pad_id)
+        per_tok = cross_entropy(logits, labels, reduction="none")
+        return (per_tok * scored).sum() / scored.sum().clamp_min(1), {}
 
     return loss_fn
 
@@ -211,7 +312,7 @@ def train_translator(
     **overrides,
 ) -> dict:
     r = with_overrides(recipe or TranslationRecipe(), overrides)
-    _reject_unported(r)
+    _validate(r)
     dev = resolve_device(device)
     if r.data_root:
         pairs = load_multi30k(r.data_root, "train")
@@ -226,7 +327,17 @@ def train_translator(
     def to_ids(ps):
         return src_pipe([s for s, _ in ps]), trg_pipe([t for _, t in ps])
 
-    train_ds = ArrayDataset(*to_ids(pairs))
+    def ragged(ps):
+        return src_pipe.ragged([s for s, _ in ps]), trg_pipe.ragged([t for _, t in ps])
+
+    packed = None
+    if r.pack_sequences:
+        packed = pack_translation_pairs(
+            *ragged(pairs), src_len=r.max_len, trg_len=r.max_len, pad_id=PAD_ID
+        )
+        train_ds = ArrayDataset(*packed.arrays())
+    else:
+        train_ds = ArrayDataset(*to_ids(pairs))
     val_ds = ArrayDataset(*to_ids(val_pairs))
     cfg = TransformerConfig(
         src_vocab_size=len(src_pipe.vocab),
@@ -237,12 +348,28 @@ def train_translator(
         num_layers=r.num_layers,
         dropout=r.dropout,
         max_len=r.max_len,
+        remat=r.remat,
+        moe_experts=r.moe_experts,
+        moe_capacity_factor=r.moe_capacity_factor,
+        moe_aux_weight=r.moe_aux_weight,
         dtype=default_compute_dtype(r.dtype),
     )
     model = Transformer(cfg, generator=torch.Generator().manual_seed(r.seed)).to(dev)
+    # Under bucketing the fixed-width train loader is never used: eval
+    # keeps the fixed width (full coverage).
     train_loader, val_loader = make_loaders(
-        train_ds, val_ds, batch_size=r.batch_size, seed=r.seed
+        None if r.bucket_by_length else train_ds, val_ds,
+        batch_size=r.batch_size, seed=r.seed,
     )
+    if r.bucket_by_length:
+        train_loader = make_bucketed_loader(
+            BucketByLengthPairsLoader,
+            *ragged(pairs),
+            batch_size=r.batch_size,
+            full_width=r.max_len,
+            boundaries=r.bucket_boundaries,
+            seed=r.seed,
+        )
     # total_steps counts OPTIMIZER updates: under accumulation only every
     # grad_accum-th microbatch updates, and the microbatch counter carries
     # across epoch boundaries — so divide the GLOBAL batch count.
@@ -298,9 +425,13 @@ def train_translator(
             # order and dropout stream, so a run cut at an epoch boundary
             # and resumed trains as the uninterrupted run would.
             epochs += int(ckpt.read_meta(resumed).get("epoch", -1)) + 1
+        train_loss = (
+            make_packed_translation_loss(cfg.pad_id) if r.pack_sequences
+            else make_translation_loss(cfg.pad_id)
+        )
         result = fit(
             state,
-            make_translation_loss(cfg.pad_id),
+            train_loss,
             train_loader,
             epochs=epochs,
             rng=torch.Generator().manual_seed(r.seed),
@@ -318,6 +449,15 @@ def train_translator(
     extra: dict = {}
     if resumed is not None:
         extra["resumed_from_step"] = resumed
+    if r.bucket_by_length:
+        extra["padding_efficiency"] = train_loader.padding_efficiency
+    if packed is not None:
+        # Non-pad share of the packed token grid, against what the same
+        # corpus costs at one pair per row (the reference's layout).
+        extra["packing_token_efficiency"] = round(packed.token_efficiency, 4)
+        extra["unpacked_token_efficiency"] = round(packed.unpacked_efficiency, 4)
+        extra["packed_rows"] = len(packed.src)
+        extra["packed_pairs"] = packed.pair_count
     if r.compute_bleu:
         # The target width is the pipeline's fixed length, so every batch
         # decodes the same number of steps.

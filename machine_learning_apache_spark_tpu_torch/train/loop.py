@@ -22,9 +22,15 @@ group and replayed after, bit for bit the same training as K single
 steps. Checkpointing (``train.checkpoint.CheckpointManager``) saves at
 epoch ends and ``resume=True`` continues from the newest valid step.
 
-Single device only: the mesh, ZeRO, the profiler window, elastic resume
-and the replica sync check raise ``NotImplementedError`` naming the
-ROADMAP item that ports them.
+``profile_dir`` traces a window of steps (``profile_window``, steps
+``[start, stop)``) with ``torch.profiler`` into one Chrome trace
+(``utils.profiling.StepWindowTracer``); the trace stops in ``fit``'s
+``finally``, so an exception inside the window leaves no profiler
+running.
+
+Single device only: the mesh, ZeRO, elastic resume and the replica sync
+check raise ``NotImplementedError`` naming the ROADMAP item that ports
+them.
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ from machine_learning_apache_spark_tpu_torch.train.metrics import (
 from machine_learning_apache_spark_tpu_torch.train.state import TrainState
 from machine_learning_apache_spark_tpu_torch.utils.graph_cache import ProgramCache
 from machine_learning_apache_spark_tpu_torch.utils.logging import get_logger
+from machine_learning_apache_spark_tpu_torch.utils.profiling import StepWindowTracer
 from machine_learning_apache_spark_tpu_torch.utils.timing import Timer
 
 log = get_logger(__name__)
@@ -236,7 +243,6 @@ def _unported(**given) -> None:
         "dp_overlap": ("A4 (distributed)", given["dp_overlap"] is not None),
         "sync_check_every": ("A4 (distributed)", given["sync_check_every"] != 0),
         "elastic": ("A4 (train/reshard.py)", given["elastic"] is not None),
-        "profile_dir": ("A1 (profiler window)", given["profile_dir"] is not None),
     }
     for name, (item, set_) in items.items():
         if set_:
@@ -304,13 +310,17 @@ def fit(
     one; no checkpoint on disk is a fresh run. ``FitResult.resumed_step``
     records which happened.
 
+    ``profile_dir`` traces the steps ``[profile_window[0],
+    profile_window[1])`` (a K-step call enters and leaves the window as
+    its first step crosses a boundary) into one Chrome trace there.
+
     ``prefetch_to_device`` is accepted and, as in the JAX package without a
     mesh, has nothing to do. The state is updated in place and returned in
     the result."""
     _unported(
         mesh=mesh, zero1=zero1, dp_mode=dp_mode, dp_bucket_bytes=dp_bucket_bytes,
         dp_comms_dtype=dp_comms_dtype, dp_overlap=dp_overlap,
-        sync_check_every=sync_check_every, elastic=elastic, profile_dir=profile_dir,
+        sync_check_every=sync_check_every, elastic=elastic,
     )
     if data is not None:
         if train_loader is not None:
@@ -345,6 +355,9 @@ def fit(
         step_rng.manual_seed(int(torch.randint(_SEED_RANGE, (), generator=rng)))
 
     dispatch = StepDispatch(state, loss_fn, step_rng)
+    tracer = StepWindowTracer(
+        profile_dir, start=profile_window[0], stop=profile_window[1]
+    )
     sink = MetricsLogger(metrics_file) if metrics_file else None
     total_timer = Timer("train").start()
     span_timer = Timer("span").start()
@@ -354,11 +367,18 @@ def fit(
             "train.fit", epochs=epochs, steps_per_call=steps_per_call,
             resumed_step=resumed_step,
         ):
-            history = _run_epochs(
-                dispatch, train_loader, epochs, rng, log_every, emit, span_timer,
-                sink, checkpointer, checkpoint_every, steps_per_call, start_epoch,
-                resumed_step or 0, step_losses,
-            )
+            try:
+                history = _run_epochs(
+                    dispatch, train_loader, epochs, rng, log_every, emit,
+                    span_timer, sink, checkpointer, checkpoint_every,
+                    steps_per_call, start_epoch, resumed_step or 0,
+                    step_losses, tracer,
+                )
+            finally:
+                # Stops a window the run ended or raised inside: the
+                # profiler is process-wide, and a running one would make
+                # every later trace in the process fail to start.
+                tracer.close()
         if not history and resume_meta.get("metrics"):
             # An already-complete resume: report the last epoch's metrics
             # from its sidecar.
@@ -416,7 +436,7 @@ def _drain_into(metrics: MetricBundle, pending: list, loss_name: str,
 def _run_epochs(
     dispatch, train_loader, epochs, rng, log_every, emit, span_timer, sink,
     checkpointer, checkpoint_every, steps_per_call, start_epoch, start_step,
-    step_losses,
+    step_losses, tracer,
 ):
     state = dispatch.state
     history: list[dict] = []
@@ -438,6 +458,7 @@ def _run_epochs(
             def run(call, arg, count):
                 nonlocal global_step, last_emit_step
                 prev = global_step
+                tracer.on_step(prev)
                 with telemetry.span("train.step", step=prev, count=count):
                     losses, aux = call(arg)
                 global_step += count

@@ -107,6 +107,13 @@ register(
     choices=("float32", "int8"),
 )
 
+# data
+register(
+    "MLSPARK_NO_NATIVE_TEXT", type="bool", default=False, subsystem="data",
+    description="Force the pure-Python tokenizer/vocab paths even when the "
+    "native extension builds (bit-identical fallback; used by parity tests).",
+)
+
 # telemetry (read directly by the stdlib-only telemetry modules)
 register(
     "MLSPARK_TELEMETRY", type="bool", default=True, subsystem="telemetry",

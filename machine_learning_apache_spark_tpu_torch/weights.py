@@ -18,7 +18,10 @@ matching torch modules of any of the port's models, name for name:
 - a module's own parameters (the LSTM layer's ``w_x``, ``w_h``, ``bias``)
   are carried as they are, under their names;
 - ``lm_head`` keeps its ``logit_pad`` columns; ``Transformer.logits``
-  slices them off as the JAX model does.
+  slices them off as the JAX model does;
+- an MoE FFN's ``ffn/router`` ``[d, E]``, ``ffn/w_up`` ``[E, d, f]`` and
+  ``ffn/w_down`` ``[E, f, d]`` are the module's own parameters, in the
+  Flax layout, carried as they are.
 
 Every leaf of the tree must land on a parameter and every parameter must
 be filled: a mismatch raises, naming the keys.
@@ -62,6 +65,11 @@ def _flax_path(module_name: str) -> str:
     return re.sub(r"layers\.(\d+)", r"layer_\1", module_name).replace(".", "/")
 
 
+def _leaf(base: str, name: str) -> str:
+    """A parameter's path under its module's (the root module's is ``""``)."""
+    return f"{base}/{name}" if base else name
+
+
 @torch.no_grad()
 def load_flax_params(model: nn.Module, params) -> nn.Module:
     """Fill ``model`` (the port's ``Transformer``) from a Flax parameter
@@ -98,7 +106,7 @@ def load_flax_params(model: nn.Module, params) -> nn.Module:
             take(f"{base}/embedding", mod.weight)
         else:
             for pname, param in mod.named_parameters(recurse=False):
-                take(f"{base}/{pname}", param)
+                take(_leaf(base, pname), param)
     unused = sorted(set(flat) - used)
     if missing or unused:
         raise ValueError(
@@ -136,7 +144,7 @@ def export_flax_params(model: nn.Module) -> dict:
             put(f"{base}/embedding", mod.weight)
         else:
             for pname, param in mod.named_parameters(recurse=False):
-                put(f"{base}/{pname}", param)
+                put(_leaf(base, pname), param)
     return tree
 
 
@@ -183,7 +191,21 @@ def random_flax_params(cfg, seed: int) -> dict:
     def embed(vocab):
         return {"embed": {"embedding": (0.02 * rng.standard_normal((vocab, d))).astype(np.float32)}}
 
+    experts = getattr(cfg, "moe_experts", 0)
+
     def ffn():
+        if experts:
+            # models.moe's Flax names and layout: router [d, E], w_up
+            # [E, d, f], w_down [E, f, d].
+            def kernel(*shape):
+                fan_in = int(np.prod(shape[:-1]))
+                return (rng.standard_normal(shape) / np.sqrt(fan_in)).astype(np.float32)
+
+            return {
+                "router": kernel(d, experts),
+                "w_up": kernel(experts, d, f),
+                "w_down": kernel(experts, f, d),
+            }
         return {"up": dense(d, f), "down": dense(f, d)}
 
     encoder = {"embed": embed(cfg.src_vocab_size)}

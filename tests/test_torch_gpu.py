@@ -933,3 +933,89 @@ def test_read_libsvm_through_the_built_native_parser(cuda):
     np.testing.assert_array_equal(got.features, want.features)
     np.testing.assert_array_equal(got.labels, want.labels)
     assert got.features.shape == (150, 4)
+
+
+# -- the recipe's options: MoE, remat, packing, length buckets -------------------------
+
+
+def _option_run(k, **kw):
+    """The recipe on the fixture corpus at a reduced width (d_model 64, 4
+    heads, max_len 48), dropout 0.1, ``k`` steps per call, launches read
+    over the run."""
+    from machine_learning_apache_spark_tpu_torch.recipes.translation import train_translator
+
+    torch.cuda.synchronize()
+    hop.reset_launches()
+    out = train_translator(data_root="assets/fixtures", d_model=64, ffn_hidden=128, num_heads=4,
+                           max_len=48, epochs=1, log_every=0, dropout=0.1, steps_per_call=k,
+                           _return_state=True, **kw)
+    torch.cuda.synchronize()
+    out["launches"] = dict(hop.LAUNCHES)
+    return out
+
+
+def _same_bits(a, b):
+    assert a["fit_result"].step_losses == b["fit_result"].step_losses
+    for p, q in zip(a["state"].params, b["state"].params):
+        assert torch.equal(p, q)
+
+
+def test_moe_recipe_at_four_steps_per_call_trains_bit_for_bit(cuda):
+    """argmax routing, the 0/1 cumsum and the dispatch einsums repeat
+    inside the graph; the aux losses are tensors of the captured step."""
+    one, four = (_option_run(k, moe_experts=4) for k in (1, 4))
+    _same_bits(one, four)
+    assert np.isfinite(one["history"][0]["moe_aux"])
+    assert one["launches"]["flash_attention_bwd_dq"] == 3 * 12
+
+
+@pytest.mark.parametrize("k", [1, 4])
+def test_remat_trains_bit_for_bit_like_no_remat(cuda, k):
+    """The recompute replays the layer's dropout masks, in a graph too; the
+    forward runs twice a step at each of the 3 sites."""
+    base, remat = _option_run(k), _option_run(k, remat=True)
+    _same_bits(base, remat)
+    train_fwd = remat["launches"]["flash_attention_fwd"] - base["launches"]["flash_attention_fwd"]
+    assert train_fwd == 3 * 12  # one more forward per site and step
+    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        assert remat["launches"][name] == base["launches"][name] == 3 * 12
+
+
+def test_packed_recipe_launches_no_flash_kernel_and_repeats_at_four_steps(cuda):
+    one, four = (_option_run(k, pack_sequences=True) for k in (1, 4))
+    _same_bits(one, four)
+    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        assert one["launches"][name] == 0  # dense segment masks: the plain path
+    assert one["packed_rows"] < one["packed_pairs"] == 400
+
+
+@pytest.mark.parametrize("width", [50, 100, 200])
+def test_training_kernels_at_the_bucket_widths(cuda, width):
+    """The default buckets' training sites ([32, 8, w | w - 1, 64]):
+    encoder self, causal decoder self and cross, forward with ``lse``, dQ
+    and dK/dV within 1e-4 relative of the plain versions."""
+    rng = np.random.default_rng(width)
+    for sq, sk, causal in ((width, width, False), (width - 1, width - 1, True), (width - 1, width, False)):
+        q, k, v, g, valid = _bwd_inputs(rng, cuda, 32, 8, sq, sk, 64, 0.3, strided=True)
+        valid[0] = True  # no empty row at the fixture's shapes
+        kw = dict(causal=causal, kv_valid=valid)
+        out, lse = hop.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+        want_out, want_lse = hop.flash_attention_lse_plain(q, k, v, **kw)
+        assert _max_rel(out, want_out) < TOL and _max_rel(lse, want_lse) < TOL
+        delta = (g * out).sum(-1)
+        got = (hop.flash_attention_bwd_dq(q, k, v, g, lse, delta, **kw),
+               *hop.flash_attention_bwd_dkv(q, k, v, g, lse, delta, **kw))
+        want = hop.flash_attention_backward_plain(q, k, v, out, lse, g, **kw)
+        for a, b in zip(got, want):
+            assert _max_rel(a, b) < TOL
+
+
+def test_bucketed_recipe_on_the_card_matches_the_cpu(cuda):
+    from machine_learning_apache_spark_tpu_torch.recipes.translation import train_translator
+
+    kw = dict(data_root="assets/fixtures", d_model=64, ffn_hidden=128, num_heads=4, max_len=48,
+              epochs=1, log_every=0, dropout=0.0, bucket_by_length=True, _return_state=True)
+    card, cpu = train_translator(**kw), train_translator(device="cpu", **kw)
+    np.testing.assert_allclose(card["fit_result"].step_losses, cpu["fit_result"].step_losses,
+                               rtol=1e-3)
+    assert card["padding_efficiency"] == cpu["padding_efficiency"] < 1.0

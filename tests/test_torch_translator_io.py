@@ -118,9 +118,9 @@ def test_a_config_the_port_lacks_is_refused_on_load(bundles, tmp_path):
     tt.save(str(tmp_path / "moe"))
     path = tmp_path / "moe" / "translator.json"
     meta = json.loads(path.read_text())
-    meta["config"]["moe_experts"] = 4
+    meta["config"]["expert_axis_size"] = 4  # a field the port's config lacks
     path.write_text(json.dumps(meta))
-    with pytest.raises(NotImplementedError, match="moe_experts"):
+    with pytest.raises(NotImplementedError, match="expert_axis_size"):
         Translator.load(str(tmp_path / "moe"), device="cpu")
 
 
