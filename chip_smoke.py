@@ -134,6 +134,28 @@ Phases, each fatal on failure:
    the Python chain, both times. (Phase 3 also holds the training kernels
    at the buckets' widths, 50/50, 50/49, 100/100 and 100/99, at every
    launch choice.)
+7b. the distributed path — the reference's flagship run as users run it:
+   ``Session.builder.appName("DistributedCNN").config(
+   "spark.executor.instances", "2").getOrCreate()`` ->
+   ``Distributor(num_processes=2, local_mode=True).run(
+   "...recipes.cnn:train_cnn", data_root=..., dataset="cifar10")``: two
+   rank processes on the one card over gloo (the backend rule prints its
+   choice), rank 0's result with ``world_processes == 2``, finite
+   ``test_loss`` and ``accuracy``, and each rank's backend, device and
+   parameters' device read from its telemetry file. Then the MT recipe at
+   reference width (dropout 0) as a 2-rank gang at per-replica batch 16
+   with ``MLSPARK_TELEMETRY_DIR`` set: rank 0's per-step losses within
+   1e-5 relative and each of its final parameter tensors against one
+   process on the card fed the same global batches (both ranks' batches
+   in rank order; a tensor whose float noise Adam amplifies beyond 1e-5
+   is held to 10 x a control run's, the same batches with the ranks'
+   rows in the other order), ``assert_replicas_in_sync`` (its divergence
+   printed), each rank's flash forward, dQ and dK/dV launches (3 x its
+   steps, plus the eval forward), and the merged gang report with both
+   ranks' step spans (its skew and comms reports printed). Then the CNN
+   gang again, with rank 1 raising at step 3 while rank 0 goes into that
+   step's all-reduce: a ``GangFailure`` naming rank 1 and the message, no
+   stray process group and a flight dump;
 8. times — requests/s, generated tokens/s and peak device memory of each
    engine (paged fp32 and int8, padded, beam); each engine's requests/s
    and device idle share over one profiled window; the host time of the
@@ -155,7 +177,15 @@ Phases, each fatal on failure:
    ids and launches; the train step at 1 and 4 steps per call, in one
    process: ms per step, steps/s, target tokens/s, peak memory, the
    device idle share of one profiled window of steps and the memory the
-   4-step program holds. (The one-shot ``Translator``'s latency, eager
+   4-step program holds; the 2-rank gangs (MT at per-replica batch 16 on
+   the fixture's vocabularies and on the published 8004, TinyVGG on
+   CIFAR-10 at 32) against one process at the same global batch over 20
+   steps after warm-up: ms per step, non-pad target tokens/s or
+   samples/s, the gradient all-reduce's host-timed ms per step (from the
+   first bucket's launch to the last one's completion, and summed over
+   its buckets) and each rank's device idle share over a profiled
+   window. (The
+   one-shot ``Translator``'s latency, eager
    and replayed, and the memory its programs hold are taken in phase 4.)
 
 The line before the last is ``nvidia-smi``'s name and power limit; before
@@ -2994,6 +3024,461 @@ MAIN_SITE = {
 }
 
 
+# -- phase 7b: the distributed path ------------------------------------------------
+
+GANG = 2
+# The MT recipe at reference width as a gang: per-replica batch 16, so the
+# global batch is the one-process recipe's 32; dropout off for parity.
+GANG_MT = dict(data_root=str(FIXTURES), batch_size=16, dropout=0.0, log_every=0)
+GANG_RTOL = 1e-5
+# A tensor whose difference Adam's float noise lifts above GANG_RTOL is
+# held to this many times the control run's (gang_slice).
+GANG_NOISE_X = 10
+# The CNN recipe's per-replica batch (recipes/cnn.py), the flagship's.
+GANG_CNN_BATCH = 32
+GANG_WARMUP = 5
+
+
+def _gather(obj) -> list:
+    """Every rank's ``obj``, in rank order (inside a gang rank)."""
+    import torch.distributed as dist
+
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, obj)
+    return out
+
+
+def gang_mt_rank(kw: dict) -> dict:
+    """One rank of the MT gang: ``train_translator`` under the gang (its
+    ``fit(mesh=)``), this rank's launch counts from its own process, the
+    replicas' divergence, and every rank's backend, device and parameters'
+    device. Rank 0's step losses and parameters (on the host) come back."""
+    import torch.distributed as dist
+
+    from machine_learning_apache_spark_tpu_torch.launcher.coordinator import (
+        current_backend,
+        current_device,
+    )
+    from machine_learning_apache_spark_tpu_torch.ops import hopper_attention as hop
+    from machine_learning_apache_spark_tpu_torch.parallel import assert_replicas_in_sync
+    from machine_learning_apache_spark_tpu_torch.recipes.translation import train_translator
+
+    hop.reset_launches()
+    out = train_translator(_return_state=True, **kw)
+    launches = dict(hop.LAUNCHES)
+    state, result = out.pop("state"), out.pop("fit_result")
+    divergence = assert_replicas_in_sync(state)
+    rank = dist.get_rank()
+    ranks = _gather(dict(
+        rank=rank, backend=current_backend(), device=str(current_device()),
+        param_device=str(next(state.model.parameters()).device), launches=launches,
+        steps=state.step, eval_samples=out["eval_samples"], comms=result.comms,
+    ))
+    params = ({k: v.detach().cpu() for k, v in state.model.state_dict().items()}
+              if rank == 0 else None)
+    return dict(out=out, step_losses=result.step_losses, params=params,
+                divergence=divergence, ranks=ranks)
+
+
+def _mt_model(torch, dev, seed=SEED, vocab: int | None = None):
+    """The recipe's model on the fixture vocabularies, built as
+    ``train_translator`` builds it (dropout 0); ``vocab`` sets both
+    vocabularies instead (the published 8004: the fixture's ids are all
+    below it)."""
+    from machine_learning_apache_spark_tpu_torch.models.transformer import (
+        Transformer,
+        TransformerConfig,
+    )
+    from machine_learning_apache_spark_tpu_torch.recipes.translation import TranslationRecipe
+
+    src_pipe, trg_pipe, train_ds = fixture_data()
+    r = TranslationRecipe(**GANG_MT)
+    cfg = TransformerConfig(
+        src_vocab_size=vocab or len(src_pipe.vocab), trg_vocab_size=vocab or len(trg_pipe.vocab),
+        d_model=r.d_model, ffn_hidden=r.ffn_hidden, num_heads=r.num_heads,
+        num_layers=r.num_layers, dropout=r.dropout, max_len=r.max_len,
+    )
+    return Transformer(cfg, generator=torch.Generator().manual_seed(seed)).to(dev), train_ds, r
+
+
+def _rank_batches(train_ds, batch: int, rank: int, seed=SEED) -> list:
+    """Rank ``rank``'s first-epoch batches, as the recipe's loader under a
+    2-rank gang makes them (``recipes._common.make_loaders``)."""
+    from machine_learning_apache_spark_tpu_torch.data.loader import DataLoader
+    from machine_learning_apache_spark_tpu_torch.data.sampler import DistributedSampler
+
+    loader = DataLoader(
+        train_ds, batch, sampler=DistributedSampler(len(train_ds), GANG, rank, seed=seed),
+        drop_last=True, seed=seed,
+    )
+    loader.set_epoch(0)
+    return list(loader)
+
+
+def gang_reference(torch, dev, ranks_batches: list, order=(0, 1)) -> dict:
+    """One process on the card fed the gang's global batches (each step's
+    rank batches concatenated in ``order``: rank order for the reference,
+    reversed for the control, the same sums in another order): step
+    losses and final parameters."""
+    from machine_learning_apache_spark_tpu_torch.recipes.translation import make_translation_loss
+    from machine_learning_apache_spark_tpu_torch.train.loop import fit
+    from machine_learning_apache_spark_tpu_torch.train.state import TrainState, make_optimizer
+
+    model, _, r = _mt_model(torch, dev)
+    global_batches = [tuple(np.concatenate(parts) for parts in zip(*(step[r] for r in order)))
+                      for step in zip(*ranks_batches)]
+    state = TrainState.create(model=model, tx=make_optimizer("adam", r.learning_rate))
+    res = fit(state, make_translation_loss(model.cfg.pad_id), global_batches, epochs=1,
+              rng=torch.Generator().manual_seed(r.seed), log_every=0)
+    return dict(step_losses=res.step_losses, params=model.state_dict(),
+                rows=[len(b[0]) for b in global_batches])
+
+
+def _rank_events(directory: str) -> dict:
+    """Per rank, the ``launcher.rendezvous`` annotation and the
+    ``train.fit`` span's attributes from its telemetry file."""
+    from machine_learning_apache_spark_tpu_torch.telemetry import aggregate
+
+    out = {}
+    for rank, path in aggregate.find_rank_files(directory).items():
+        evs = aggregate.load_jsonl(path)
+        rdv = [e["attrs"] for e in evs if e.get("name") == "launcher.rendezvous"]
+        fits = [e["attrs"] for e in evs
+                if e.get("name") == "train.fit" and e.get("kind") == "span_start"]
+        out[rank] = dict(rendezvous=rdv[-1] if rdv else {}, fit=fits[-1] if fits else {})
+    return out
+
+
+def _key_bias(name: str, d_model: int):
+    """The key slice of an attention projection's bias (the ``k`` third of
+    a fused ``qkv``, the ``k`` half of a cross-attention ``kv``), or None."""
+    if name.endswith("self_attn.qkv.bias"):
+        return slice(d_model, 2 * d_model)
+    if name.endswith("cross_attn.kv.bias"):
+        return slice(0, d_model)
+    return None
+
+
+def gang_slice(torch, hop, card: str) -> dict:
+    """Phase 7b: the flagship CNN gang, the MT gang against one process,
+    its merged telemetry, and a failing gang."""
+    import shutil
+
+    from machine_learning_apache_spark_tpu_torch import Session
+    from machine_learning_apache_spark_tpu_torch.launcher import (
+        Distributor,
+        GangFailure,
+        choose_backend,
+        kill_stray_gangs,
+    )
+    from machine_learning_apache_spark_tpu_torch.recipes.translation import TranslationRecipe
+    from machine_learning_apache_spark_tpu_torch.telemetry import aggregate
+
+    root = scratch_dir() / "gang"
+    shutil.rmtree(root, ignore_errors=True)
+    out = {}
+    rule = choose_backend("cuda", GANG, torch.cuda.device_count())
+    log(f"  backend rule: {GANG} ranks on {torch.cuda.device_count()} card(s) -> {rule} "
+        f"(NCCL only when every rank has a card of its own; gloo over CUDA tensors, staged "
+        f"through host memory, when ranks share one)")
+
+    # 1. The flagship path, literally as examples/distributed_cnn.py runs it.
+    tdir = root / "cnn"
+    spark = Session.builder.appName("DistributedCNN").config(
+        "spark.executor.instances", str(GANG)).getOrCreate()
+    try:
+        t0 = time.perf_counter()
+        cnn = Distributor(
+            num_processes=spark.conf.executor_instances, local_mode=True, timeout=600,
+            env={"MLSPARK_TELEMETRY_DIR": str(tdir)},
+        ).run("machine_learning_apache_spark_tpu_torch.recipes.cnn:train_cnn",
+              data_root=str(FIXTURES), dataset="cifar10", log_every=0)
+        wall = time.perf_counter() - t0
+    finally:
+        spark.stop()
+    ranks = _rank_events(str(tdir))
+    log(f"  flagship CNN gang ({spark.conf.app_name}, executor_instances "
+        f"{spark.conf.executor_instances}): {wall:.2f} s (spawn to result); rank 0: world_processes "
+        f"{cnn['world_processes']}, devices {cnn['devices']}, test_loss {cnn['test_loss']:.6f}, "
+        f"accuracy {cnn['accuracy']:.4f}, eval_samples {cnn['eval_samples']}, history {cnn['history']}")
+    for rank, ev in sorted(ranks.items()):
+        log(f"    rank {rank}: backend {ev['rendezvous'].get('backend')}, device "
+            f"{ev['rendezvous'].get('device')}, parameters on {ev['fit'].get('device')}, "
+            f"fit world {ev['fit'].get('world')}")
+    if cnn["world_processes"] != GANG or not np.isfinite(cnn["test_loss"]) or "accuracy" not in cnn:
+        fail(f"the flagship CNN gang returned {cnn}")
+    if sorted(ranks) != list(range(GANG)) or any(
+            ev["rendezvous"].get("backend") != rule or ev["rendezvous"].get("device") != "cuda:0"
+            or ev["fit"].get("device") != "cuda:0" for ev in ranks.values()):
+        fail(f"the CNN gang's ranks were not each on cuda:0 over {rule}: {ranks}")
+    if kill_stray_gangs() != 0:
+        fail("the CNN gang left a stray process group")
+    out["cnn"] = dict(wall=wall, result={k: cnn[k] for k in ("test_loss", "accuracy", "world_processes")})
+
+    # 2. MT data parallel at full width, against one process on the same
+    # global batches.
+    tdir = root / "mt"
+    t0 = time.perf_counter()
+    mt = Distributor(num_processes=GANG, timeout=600, env={"MLSPARK_TELEMETRY_DIR": str(tdir)}).run(
+        "chip_smoke:gang_mt_rank", GANG_MT)
+    wall = time.perf_counter() - t0
+    if kill_stray_gangs() != 0:
+        fail("the MT gang left a stray process group")
+    _, _, train_ds = fixture_data()
+    rank_batches = [_rank_batches(train_ds, GANG_MT["batch_size"], r) for r in range(GANG)]
+    ref = gang_reference(torch, torch.device("cuda"), rank_batches)
+    control = gang_reference(torch, torch.device("cuda"), rank_batches, order=(1, 0))
+    got, want = np.asarray(mt["step_losses"]), np.asarray(ref["step_losses"])
+    loss_rel = float(np.max(np.abs(got - want) / np.abs(want))) if len(got) == len(want) else float("inf")
+    # Each tensor is gated on its own. The attention key biases' true
+    # gradient is exactly zero (softmax is invariant to a per-row
+    # constant), so Adam turns their float noise, which differs with the
+    # summation order, into steps of up to lr each way: those slices are
+    # held to that bound. Every other tensor's relative difference is held
+    # to GANG_RTOL, or, where Adam amplifies float noise beyond it (small
+    # gradients), to GANG_NOISE_X times the control's: one process fed the
+    # same global batches with the ranks' rows in the other order, a sound
+    # run whose only difference is the order of the sums.
+    d_model = TranslationRecipe().d_model
+
+    def tensor_diffs(run):
+        rel, noise = {}, {}
+        for k, v in ref["params"].items():
+            want_p = v.detach().cpu().double().reshape(-1)
+            diff = run[k].detach().cpu().double().reshape(-1) - want_p
+            key_bias = _key_bias(k, d_model)
+            if key_bias is not None:
+                noise[k] = float(diff[key_bias].abs().max())
+                keep = torch.ones_like(diff, dtype=torch.bool)
+                keep[key_bias] = False
+                diff, want_p = diff[keep], want_p[keep]
+            rel[k] = float(diff.norm() / want_p.norm().clamp_min(1e-30))
+        return rel, noise
+
+    rel, noise = tensor_diffs(mt["params"])
+    ctrl_rel, ctrl_noise = tensor_diffs(control["params"])
+    limit = {k: max(GANG_RTOL, GANG_NOISE_X * ctrl_rel[k]) for k in rel}
+    over = {k: (rel[k], limit[k]) for k in rel if rel[k] > limit[k]}
+    noise_max = max(noise.values()) if noise else 0.0
+    noise_bound = 2 * TranslationRecipe().learning_rate * len(want)
+    worst = sorted(((v / limit[k], k) for k, v in rel.items()), reverse=True)[:4]
+    ctrl_loss_rel = float(np.max(np.abs(np.asarray(control["step_losses"]) - want) / np.abs(want)))
+    log(f"  MT gang ({GANG} ranks x batch {GANG_MT['batch_size']}, dropout 0): {wall:.2f} s; "
+        f"{len(got)} steps; rank 0 step losses {[round(float(x), 6) for x in got]}")
+    log(f"    one process on the same global batches ({ref['rows'][0]} rows): step losses "
+        f"{[round(float(x), 6) for x in want]}; max relative difference {loss_rel:.3e} (gate {GANG_RTOL}); "
+        f"the control (rows in the other rank order) {ctrl_loss_rel:.3e}")
+    log(f"    final parameters, per tensor (key-bias slices apart): relative norm of the difference "
+        f"to the one process, gate max({GANG_RTOL}, {GANG_NOISE_X} x the control's); the four "
+        f"nearest their gate {[(k, f'{rel[k]:.2e}', f'{limit[k]:.2e}') for _, k in worst]}; "
+        f"the control's readings above {GANG_RTOL / GANG_NOISE_X:.0e} "
+        f"{[(k, f'{v:.2e}') for k, v in sorted(ctrl_rel.items(), key=lambda kv: -kv[1]) if v > GANG_RTOL / GANG_NOISE_X]}")
+    log(f"    the attention key biases (true gradient 0, Adam steps of float noise): max abs "
+        f"difference {noise_max:.3e}, the control's {max(ctrl_noise.values(), default=0.0):.3e} (bound 2 x lr x "
+        f"steps = {noise_bound:.3e}) {[(k, f'{v:.2e}') for k, v in noise.items()]}")
+    log(f"    assert_replicas_in_sync divergence {mt['divergence']!r}; eval: test_loss "
+        f"{mt['out']['test_loss']:.6f}, eval_samples {mt['out']['eval_samples']} per rank")
+    if loss_rel > GANG_RTOL:
+        fail(f"the MT gang's step losses differ from one process by {loss_rel:.3e} relative")
+    if over:
+        fail(f"the MT gang's final parameters differ from one process beyond their gates: {over}")
+    if not len(noise) == 3 * TranslationRecipe().num_layers or noise_max > noise_bound:
+        fail(f"the MT gang's key biases differ from one process by {noise_max:.3e}, beyond Adam's bound")
+    for rk in mt["ranks"]:
+        n = rk["launches"]
+        fwd_eval = n["flash_attention_fwd"] - 3 * rk["steps"]
+        log(f"    rank {rk['rank']}: backend {rk['backend']}, device {rk['device']}, parameters on "
+            f"{rk['param_device']}, {rk['steps']} steps, launches {n} (forward: 3 x steps + "
+            f"{fwd_eval} in eval), gradient all-reduce {rk['comms']}")
+        if rk["device"] != "cuda:0" or rk["param_device"] != "cuda:0" or rk["backend"] != rule:
+            fail(f"MT gang rank {rk['rank']} ran on {rk['device']} / {rk['param_device']} over {rk['backend']}")
+        for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+            if n[name] != 3 * rk["steps"]:
+                fail(f"MT gang rank {rk['rank']}: {name} launched {n[name]} times, not 3 x {rk['steps']}")
+        if fwd_eval <= 0 or n["ragged_paged_attention"]:
+            fail(f"MT gang rank {rk['rank']}: forward launches {n}")
+    report = aggregate.merge_gang_dir(str(tdir))
+    step_ranks = sorted(report["phases"].get("train.step", {}).get("ranks", {}))
+    log(f"    merged gang report ({report['event_count']} events from ranks {report['ranks']}): "
+        f"train.step ranks {step_ranks}")
+    log(f"    skew_report: {json.dumps(report['skew'])}")
+    log(f"    comms_report: {json.dumps(report['comms'])}")
+    if step_ranks != list(range(GANG)):
+        fail(f"the merged gang report holds train.step spans of ranks {step_ranks}")
+    out["mt"] = dict(wall=wall, loss_rel=loss_rel, param_rel=max(rel.values()), key_bias_abs=noise_max,
+                     divergence=mt["divergence"], ranks=mt["ranks"], skew=report["skew"],
+                     comms=report["comms"])
+
+    # 3. A failing gang: the flagship CNN recipe, in which rank 1 raises
+    # at step 3 (a fault plan) while rank 0 goes on into that step's
+    # all-reduce and fails there too once rank 1 is gone.
+    tdir = root / "boom"
+    try:
+        Distributor(num_processes=GANG, timeout=600, env={
+            "MLSPARK_TELEMETRY_DIR": str(tdir),
+            "MLSPARK_FAULTS": "raise@train_step:rank=1,step=3",
+        }).run("machine_learning_apache_spark_tpu_torch.recipes.cnn:train_cnn",
+               data_root=str(FIXTURES), dataset="cifar10", log_every=0)
+        fail("the failing gang returned")
+    except GangFailure as e:
+        msg = str(e)
+        flights = sorted(p.name for p in tdir.glob("flight_*.json"))
+        log(f"  failing gang (CNN recipe, rank 1 raises at step 3): GangFailure rank {e.rank}, "
+            f"cause {e.cause}: {msg.splitlines()[0]} ...; the blamed rank's error "
+            f"{[ln for ln in msg.splitlines() if ln.strip()][-1]!r}; flight dumps {flights}")
+        if e.rank != 1 or "injected fault raise_train_step_r1" not in msg:
+            fail(f"the failing gang's GangFailure does not name rank 1 and its message: {msg}")
+        if not flights:
+            fail("the failing gang left no flight dump")
+    stray = kill_stray_gangs()
+    log(f"  kill_stray_gangs() after the failing gang: {stray}")
+    if stray:
+        fail("the failing gang left a stray process group")
+    return out
+
+
+# The reference recipe's vocabularies (pytorch_machine_translator.py's
+# 8004 tokens each side): 17,559,364 parameters, where the fixture's make
+# the same model a third of that.
+MT_PUBLISHED_VOCAB = 8004
+
+
+def _timed_steps(torch, step, state, batches, n: int) -> float:
+    """Host seconds per step over ``n`` steps, the card synchronised at
+    both ends."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n):
+        step(state, batches[i % len(batches)], None)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n
+
+
+def _step_times(torch, kind: str, mesh, rank: int, world: int, dev) -> dict:
+    """One rank's (or one process's) timing of a model's train step:
+    ``GANG_WARMUP`` steps, then ``TIMED_STEPS`` timed, then a profiled
+    window of 12 steps. With a mesh the step is the data-parallel one at
+    the per-replica batch; without, the one-process step at the global
+    batch; both take host batches, as ``fit`` hands them. MT: the
+    recipe's model (dropout 0), Adam, on the fixture's vocabularies
+    ("mt") or the published ones ("mt8004"); CNN: TinyVGG on CIFAR-10,
+    SGD 0.01."""
+    from machine_learning_apache_spark_tpu_torch.parallel import make_data_parallel_step
+    from machine_learning_apache_spark_tpu_torch.train.loop import make_train_step, to_device
+    from machine_learning_apache_spark_tpu_torch.train.state import TrainState, make_optimizer
+
+    if kind.startswith("mt"):
+        from machine_learning_apache_spark_tpu_torch.recipes.translation import make_translation_loss
+
+        model, train_ds, r = _mt_model(torch, dev, vocab=MT_PUBLISHED_VOCAB if kind == "mt8004" else None)
+        loss_fn = make_translation_loss(model.cfg.pad_id)
+        tx = make_optimizer("adam", r.learning_rate)
+        per = GANG_MT["batch_size"]
+        units = "non-pad target tokens"
+        count = lambda b: int((b[1][:, 1:] != model.cfg.pad_id).sum())  # noqa: E731
+    else:
+        from machine_learning_apache_spark_tpu_torch.data.datasets import load_cifar10
+        from machine_learning_apache_spark_tpu_torch.data.loader import ArrayDataset
+        from machine_learning_apache_spark_tpu_torch.models.cnn import TinyVGG
+        from machine_learning_apache_spark_tpu_torch.train.loop import classification_loss
+
+        frame = load_cifar10(str(FIXTURES), train=True)
+        train_ds = ArrayDataset(*frame.arrays())
+        model = TinyVGG(hidden_units=10, num_classes=10, input_shape=frame.features.shape[1:],
+                        generator=torch.Generator().manual_seed(SEED)).to(dev)
+        loss_fn = classification_loss()
+        tx = make_optimizer("sgd", 0.01)
+        per = GANG_CNN_BATCH
+        units = "samples"
+        count = lambda b: len(b[0])  # noqa: E731
+    per_rank = [_rank_batches(train_ds, per, rk) for rk in range(GANG)]
+    global_host = [tuple(np.concatenate(parts) for parts in zip(*s)) for s in zip(*per_rank)]
+    units_per_step = float(np.mean([count(b) for b in global_host]))
+    if mesh is not None:
+        batches = per_rank[rank]
+        step = make_data_parallel_step(loss_fn, mesh)
+    else:
+        batches = global_host
+        one_step = make_train_step(loss_fn)
+
+        def step(state, batch, rng):
+            return one_step(state, to_device(batch, dev), rng)
+    state = TrainState.create(model=model, tx=tx)
+    n_params = sum(p.numel() for p in model.parameters())
+    _timed_steps(torch, step, state, batches, GANG_WARMUP)
+    comms = getattr(step, "comms", None)
+    before = comms.stats() if comms is not None else None
+    sec = _timed_steps(torch, step, state, batches, TIMED_STEPS)
+    reduce = {}
+    if comms is not None:
+        after = comms.stats()
+        steps = after["allreduce_steps"] - before["allreduce_steps"]
+        reduce = dict(
+            window_ms=1e3 * (after["allreduce_window_seconds"] - before["allreduce_window_seconds"]) / steps,
+            sum_ms=1e3 * (after["allreduce_seconds"] - before["allreduce_seconds"]) / steps,
+            buckets=(after["allreduce_calls"] - before["allreduce_calls"]) / steps,
+            bytes=(after["allreduce_bytes"] - before["allreduce_bytes"]) // steps,
+        )
+    try:
+        window = profiled_call(torch, lambda: _timed_steps(torch, step, state, batches, 12))
+    except RuntimeError as e:  # a second process's profiler on a shared card
+        log(f"  the profiler failed in rank {rank}: {e!r}; idle share not measured")
+        window = dict(wall=None, busy=None)
+    return dict(kind=kind, rank=rank, world=world, batch=len(batches[0][0]), ms=1e3 * sec,
+                params=n_params, units=units, units_per_step=units_per_step,
+                units_per_s=units_per_step / sec, reduce=reduce,
+                wall=window["wall"], busy=window["busy"],
+                idle=None if window["busy"] is None else 1 - window["busy"] / window["wall"])
+
+
+# Phase 8's gang timings: the MT model on the fixture's vocabularies and
+# on the published ones, and TinyVGG.
+GANG_TIMED = ("mt", "mt8004", "cnn")
+
+
+def gang_times_rank() -> list:
+    """One rank of the timing gang: the MT and CNN steps, every rank's
+    numbers in rank order."""
+    import torch
+
+    from machine_learning_apache_spark_tpu_torch.parallel import data_parallel_mesh, process_index
+
+    mesh = data_parallel_mesh()
+    rows = [_step_times(torch, kind, mesh, process_index(), mesh.size, mesh.device)
+            for kind in GANG_TIMED]
+    return _gather(rows)
+
+
+def time_gang(torch, card: str) -> dict:
+    """Phase 8's gang numbers: the 2-rank gang's step against one process
+    at the same global batch, MT and CNN."""
+    from machine_learning_apache_spark_tpu_torch.launcher import Distributor, kill_stray_gangs
+
+    gang = Distributor(num_processes=GANG, timeout=600).run("chip_smoke:gang_times_rank")
+    if kill_stray_gangs() != 0:
+        fail("the timing gang left a stray process group")
+    one = {kind: _step_times(torch, kind, None, 0, 1, torch.device("cuda")) for kind in GANG_TIMED}
+    out = {}
+    for kind in GANG_TIMED:
+        ranks = [r for rows in gang for r in rows if r["kind"] == kind]
+        o = one[kind]
+        for t in ranks:
+            idle = "not measured" if t["idle"] is None else f"{t['idle']:.4f} (wall {t['wall']:.4f} s)"
+            rd = t["reduce"]
+            log(f"  {kind} gang rank {t['rank']} of {t['world']} ({t['params']} parameters; batch "
+                f"{t['batch']} per replica, global {t['batch'] * t['world']}): {t['ms']:.3f} ms/step "
+                f"(host-timed over {TIMED_STEPS} steps after {GANG_WARMUP}), {t['units_per_s']:.1f} "
+                f"{t['units']}/s of the global batch, gradient all-reduce {rd['window_ms']:.3f} ms/step "
+                f"from the first bucket's launch to the last one's completion ({rd['sum_ms']:.3f} ms "
+                f"summed over {rd['buckets']:.0f} buckets, {rd['bytes']} bytes), profiled window of "
+                f"12 steps: device idle share {idle} [{card}]")
+        idle = "not measured" if o["idle"] is None else f"{o['idle']:.4f}"
+        log(f"  {kind} one process ({o['params']} parameters; batch {o['batch']}): {o['ms']:.3f} ms/step, {o['units_per_s']:.1f} "
+            f"{o['units']}/s, profiled window of 12 steps: device idle share {idle} [{card}]")
+        out[kind] = dict(gang=ranks, one=o)
+    return out
+
+
 # -- main -----------------------------------------------------------------------
 
 
@@ -3142,6 +3627,12 @@ def main() -> int:
         "the profiler window, native text)")
     options = options_slice(torch, hop, card)
 
+    log("== phase 7b: the distributed path (Session -> Distributor gang over torch.distributed, "
+        "data-parallel fit(mesh=), the gang's telemetry, a failing gang)")
+    t0 = time.perf_counter()
+    gangs = gang_slice(torch, hop, card)
+    log(f"  phase 7b took {time.perf_counter() - t0:.1f} s")
+
     log("== phase 8: times")
     for label, run in runs.items():
         log(f"  {label:7s} engine ({run['kv_mode']}): {len(run['outs']) / run['wall']:.2f} requests/s, "
@@ -3192,6 +3683,7 @@ def main() -> int:
     if eval_decode["launches"] != eval_launches or eval_decode["recorded"] != eval_launches:
         fail(f"the profiled eval/BLEU decode launched the forward {eval_decode['launches']} times "
              f"({eval_decode['recorded']} recorded), the recipe run's {eval_launches}")
+    gang_times = time_gang(torch, card)
     times = time_kernels(torch, hop, dev, prompt_lens)
     train_times = time_train_dispatch(torch, trained["state"], train_ds, card)
     bleu_times = time_bleu_decode(torch, hop, trained["state"], card)
@@ -3229,6 +3721,9 @@ def main() -> int:
             *(options["packing"]["k"][r]["launches"] for r in ("one", "many"))],
         f"profiled fit, 1 and {OPTION_K} steps per call": [
             p["launches"] for p in options["profiler"].values()],
+        # Each rank counts in its own process; the gang's path sums them.
+        f"gang: MT data parallel, {GANG} ranks on one card": [
+            r["launches"] for r in gangs["mt"]["ranks"]],
     }
     path_launches = {p: {n: sum(x[n] for x in xs) for n in hop.LAUNCHES} for p, xs in paths.items()}
     kernels = []
@@ -3284,6 +3779,10 @@ def main() -> int:
         profiler={k: {f: v[f] for f in ("bytes", "kernel_events", "flash", "graph_launches")}
                   for k, v in options["profiler"].items()},
         native_text=options["native_text"]), default=str) + f" [{card}]")
+    log("  gang: " + json.dumps(dict(
+        cnn=gangs["cnn"], mt={k: v for k, v in gangs["mt"].items() if k not in ("skew", "comms")},
+        launches_by_rank={r["rank"]: r["launches"] for r in gangs["mt"]["ranks"]},
+        times=gang_times), default=str) + f" [{card}]")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

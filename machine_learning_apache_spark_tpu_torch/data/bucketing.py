@@ -54,9 +54,9 @@ class BucketByLengthLoader:
     ``truncate_overlong=True`` (the same eos-clipping guard
     ``TextPipeline`` applies to ``fixed_len``).
 
-    ``num_replicas``/``rank`` (default: one process, rank 0) give each
-    rank a disjoint per-epoch slice of every bucket, as
-    ``DistributedSampler`` does.
+    ``num_replicas``/``rank`` (default: the gang's process group — one
+    process, rank 0 outside a gang) give each rank a disjoint per-epoch
+    slice of every bucket, as ``DistributedSampler`` does.
     """
 
     def __init__(
@@ -89,10 +89,15 @@ class BucketByLengthLoader:
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.seed = seed
-        self.num_replicas = (
-            num_replicas if num_replicas is not None else 1
+        from machine_learning_apache_spark_tpu_torch.parallel.mesh import (
+            process_count,
+            process_index,
         )
-        self.rank = rank if rank is not None else 0
+
+        self.num_replicas = (
+            num_replicas if num_replicas is not None else process_count()
+        )
+        self.rank = rank if rank is not None else process_index()
         if not (0 <= self.rank < self.num_replicas):
             raise ValueError(f"rank {self.rank} outside [0, {self.num_replicas})")
         self._epoch = 0

@@ -1,0 +1,585 @@
+"""Distributor — the TorchDistributor equivalent (reference C12); the port
+of ``machine_learning_apache_spark_tpu/launcher/distributor.py``.
+
+The reference launches distributed training with
+``TorchDistributor(num_processes=executors_n, local_mode=..., use_gpu=False)
+.run(train_func)`` (``distributed_cnn.py:227-231``): Spark gang-schedules one
+barrier task per process, sets the torch rendezvous env vars, pickles
+``train_func`` with its module globals, and returns rank 0's result.
+
+Design deltas (SURVEY.md §7 design stance):
+
+- **Function by reference, not pickle-by-value**: the train function must be
+  importable (``module:qualname`` or a module-level callable). This kills the
+  reference's accidental re-execution of module-level downloads on every
+  executor (quirk Q13) — each worker imports the module once, deliberately.
+- **Rendezvous**: the launcher picks a free coordinator port and writes the
+  ``{MLSPARK_COORDINATOR, NUM_PROCESSES, PROCESS_ID}`` env contract (plus the
+  torch-style aliases) that ``launcher.coordinator`` maps onto
+  ``torch.distributed.init_process_group`` (SURVEY.md §2.4).
+- **Result**: rank 0's return value is actually returned (the reference's
+  ``train_func``s return None yet assign the result — quirk Q7).
+- **Gang failure semantics**: any worker dying kills the gang and raises —
+  the Spark-barrier all-or-nothing behavior (SURVEY.md §5 failure detection).
+
+``local_mode=True`` (the reference's bring-up path,
+``distributed_multilayer_perceptron.py:179``) spawns all ranks on this host.
+Multi-host mode emits the per-host command lines instead (control-plane
+integration with an external scheduler; see ``commands_for_hosts``).
+
+``platform=None`` puts the ranks on the card (``launcher.coordinator``
+picks each rank's device and the backend); ``platform="cpu"`` keeps them
+on the host over gloo. Not ported yet, each raising
+``NotImplementedError`` at construction with its ROADMAP item:
+``dp_mode="zero1"`` and ``dp_overlap`` (A4: ``parallel/zero.py``),
+``elastic``, ``elastic_min_world`` and ``rank_restart_budget`` (A4:
+``train/reshard.py``), ``ingest`` (A5). ``max_restarts`` (whole-gang
+retry) is ported.
+"""
+
+from __future__ import annotations
+
+import atexit
+import os
+import pickle
+import random
+import signal
+import socket
+import subprocess
+import sys
+import tempfile
+import threading
+import time
+from dataclasses import dataclass
+from typing import Any, Callable, Sequence
+
+from machine_learning_apache_spark_tpu_torch import telemetry
+from machine_learning_apache_spark_tpu_torch.launcher.monitor import (
+    GangFailure,
+    GangMonitor,
+    terminate_gang,
+)
+from machine_learning_apache_spark_tpu_torch.utils import env as envcfg
+from machine_learning_apache_spark_tpu_torch.utils.logging import get_logger
+
+log = get_logger(__name__)
+
+# Process groups of gangs this interpreter spawned and has not yet reaped.
+# Safety net against orphaned workers: the normal path unregisters after
+# reaping, and the atexit sweep (plus tests/conftest.py's session-finish
+# sweep) SIGKILLs whatever a crashed/interrupted driver left behind —
+# otherwise a timed-out pytest run leaves rogue ranks burning CPU past the
+# CI timeout.
+_LIVE_PGIDS: set[int] = set()
+_PGIDS_LOCK = threading.Lock()
+
+
+def _register_gang(procs: Sequence[subprocess.Popen]) -> None:
+    with _PGIDS_LOCK:
+        _LIVE_PGIDS.update(p.pid for p in procs)
+
+
+def _unregister_gang(procs: Sequence[subprocess.Popen]) -> None:
+    with _PGIDS_LOCK:
+        _LIVE_PGIDS.difference_update(p.pid for p in procs)
+
+
+def kill_stray_gangs() -> int:
+    """SIGKILL every registered-but-unreaped gang process group. Returns
+    the number of groups signalled (0 in any healthy run)."""
+    with _PGIDS_LOCK:
+        pgids, stray = list(_LIVE_PGIDS), len(_LIVE_PGIDS)
+        _LIVE_PGIDS.clear()
+    for pgid in pgids:
+        try:
+            os.killpg(pgid, signal.SIGKILL)
+        except (ProcessLookupError, PermissionError, OSError):
+            stray -= 1
+    if stray:
+        log.warning("killed %d stray gang process group(s)", stray)
+    return stray
+
+
+atexit.register(kill_stray_gangs)
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def fn_reference(fn: Callable | str) -> str:
+    """``module:qualname`` reference for an importable function."""
+    if isinstance(fn, str):
+        if ":" not in fn:
+            raise ValueError(f"function reference must be 'module:qualname', got {fn!r}")
+        return fn
+    module = getattr(fn, "__module__", None)
+    qualname = getattr(fn, "__qualname__", None)
+    if not module or not qualname or "<" in qualname:
+        raise ValueError(
+            f"{fn!r} is not an importable module-level function; the launcher "
+            "runs functions by reference (no closure pickling — SURVEY.md Q13)"
+        )
+    return f"{module}:{qualname}"
+
+
+def resolve_fn(ref: str) -> Callable:
+    """Import a ``module:qualname`` reference (shared by Distributor and the
+    per-worker runner)."""
+    import importlib
+
+    module, _, qual = fn_reference(ref).partition(":")
+    obj: Any = importlib.import_module(module)
+    for part in qual.split("."):
+        obj = getattr(obj, part)
+    return obj
+
+
+@dataclass
+class WorkerResult:
+    rank: int
+    value: Any = None
+    error: str | None = None
+    # Wall-clock time the rank's function raised (None: it did not).
+    failed_at: float | None = None
+
+
+def gang_failure(
+    results: list[WorkerResult], failure: GangFailure | None, attempt: int
+) -> GangFailure:
+    """The ``GangFailure`` of a failed attempt, from every rank's result
+    and what the monitor saw (``failure``; None when every rank exited 0
+    yet some result holds an error)."""
+    errors = [r for r in results if r.error]
+    # Ranks killed by the gang teardown leave placeholder errors;
+    # surface the rank that actually crashed (its real traceback). A
+    # rank with only a placeholder is an EFFECT of teardown, never the
+    # blamed cause — a deadline expiry, where every rank is healthy but
+    # slow, must keep rank=None. Of the ranks that raised, the first
+    # to fail is the cause: when one rank raises, its peers' pending
+    # collectives break within milliseconds, often before the monitor
+    # polls, so the first exit the monitor sees may be a peer's.
+    raised = sorted(
+        (r for r in errors if r.failed_at is not None), key=lambda r: r.failed_at
+    )
+    real = raised[0] if raised else next(
+        (r for r in errors if "produced no result" not in r.error), None
+    )
+    primary = real or (errors[0] if errors else None)
+    detail = (
+        f"\n[rank {primary.rank}] {primary.error}" if primary else ""
+    )
+    cause = failure.cause if failure is not None else "exit"
+    if cause == "exit" and real is not None:
+        rank = real.rank
+        seen = "" if failure is None else (
+            f": {failure}" if failure.rank == rank
+            else f": rank {rank} failed first ({failure})"
+        )
+    else:
+        rank = (
+            failure.rank if failure is not None and failure.rank is not None
+            else (real.rank if real else None)
+        )
+        seen = f": {failure}" if failure is not None else ""
+    return GangFailure(
+        "gang failed on rank(s) "
+        + (", ".join(str(r.rank) for r in errors) or "?")
+        + f" (cause={cause}, attempt={attempt})"
+        + seen
+        + detail,
+        rank=rank,
+        cause=cause,
+        attempt=attempt,
+        exit_code=failure.exit_code if failure is not None else None,
+    )
+
+
+class Distributor:
+    """``Distributor(num_processes=N, local_mode=True).run(train_fn, *args)``.
+
+    ``use_gpu`` is accepted for API parity with TorchDistributor and ignored
+    (``platform`` decides: None is the card, ``"cpu"`` the host; the
+    reference always passed ``use_gpu=False`` anyway,
+    ``distributed_cnn.py:230``).
+    """
+
+    def __init__(
+        self,
+        num_processes: int | None = None,
+        *,
+        local_mode: bool = True,
+        use_gpu: bool = False,  # noqa: ARG002 - API parity
+        platform: str | None = None,
+        env: dict[str, str] | None = None,
+        dp_mode: str | None = None,
+        dp_overlap: bool | None = None,
+        serve_kv_mode: str | None = None,
+        serve_kv_dtype: str | None = None,
+        telemetry_http: int | None = None,
+        ingest: dict | None = None,
+        timeout: float = 600.0,
+        max_restarts: int = 0,
+        heartbeat_interval: float = 1.0,
+        heartbeat_timeout: float | None = 300.0,
+        term_grace: float = 5.0,
+        backoff_base: float = 0.5,
+        backoff_max: float = 30.0,
+        elastic: bool = False,
+        elastic_min_world: int = 1,
+        rank_restart_budget: int | None = None,
+    ) -> None:
+        self.num_processes = num_processes or 1
+        self.local_mode = local_mode
+        self.platform = platform
+        self.extra_env = env or {}
+        # The data-parallel update mode: "replicated" (DDP) is what the
+        # port runs; "zero1" and its overlap knob need parallel/zero.py.
+        # Validated here so a typo fails at construction, not inside every
+        # rank after rendezvous.
+        if dp_mode is not None and dp_mode not in ("replicated", "zero1"):
+            raise ValueError(
+                f"unknown dp_mode {dp_mode!r} (expected 'replicated' or "
+                "'zero1')"
+            )
+        if dp_mode == "zero1" or dp_overlap is not None:
+            raise NotImplementedError(
+                "Distributor(dp_mode='zero1' / dp_overlap=...) is not ported "
+                "yet (ROADMAP queue A4: parallel/zero.py)"
+            )
+        self.dp_mode = dp_mode
+        # Serving KV-cache mode and store dtype ride the env contract
+        # (MLSPARK_SERVE_KV_MODE / _DTYPE in every worker, resolved by
+        # ServingEngine when kv_mode/kv_dtype are not passed).
+        if serve_kv_mode is not None and serve_kv_mode not in (
+            "padded", "paged"
+        ):
+            raise ValueError(
+                f"unknown serve_kv_mode {serve_kv_mode!r} (expected "
+                "'padded' or 'paged')"
+            )
+        self.serve_kv_mode = serve_kv_mode
+        if serve_kv_dtype is not None and serve_kv_dtype not in (
+            "float32", "int8"
+        ):
+            raise ValueError(
+                f"unknown serve_kv_dtype {serve_kv_dtype!r} (expected "
+                "'float32' or 'int8')"
+            )
+        self.serve_kv_dtype = serve_kv_dtype
+        # Live observability plane, same env-contract shape: the knob
+        # becomes MLSPARK_TELEMETRY_HTTP in every worker, which runner.main
+        # resolves into a per-rank HTTP server. 0 means "ephemeral port per
+        # rank" (the only sane choice for a local gang — fixed ports would
+        # collide); each rank publishes its bound port in an
+        # http_rank<k>.json sidecar.
+        if telemetry_http is not None and not (
+            0 <= int(telemetry_http) <= 65535
+        ):
+            raise ValueError(
+                f"telemetry_http must be a port in [0, 65535] or None, "
+                f"got {telemetry_http!r}"
+            )
+        self.telemetry_http = telemetry_http
+        if ingest:
+            raise NotImplementedError(
+                "Distributor(ingest=...) is not ported yet (ROADMAP queue "
+                "A5: the ingest/ streaming pipeline)"
+            )
+        self.timeout = timeout
+        # Spark-barrier recovery semantics (SURVEY.md §5 failure detection):
+        # a failed stage is retried whole — all-or-nothing gang restarts.
+        self.max_restarts = max_restarts
+        # Liveness detection (docs/FAULT_TOLERANCE.md): each worker touches
+        # a per-rank heartbeat file every `heartbeat_interval`; a rank silent
+        # past `heartbeat_timeout` is declared stalled and the gang torn
+        # down (None disables — exit codes and the deadline still apply).
+        self.heartbeat_interval = heartbeat_interval
+        self.heartbeat_timeout = heartbeat_timeout
+        # Teardown escalation: SIGTERM, wait `term_grace`, then SIGKILL.
+        self.term_grace = term_grace
+        # Restart pacing: exponential backoff with jitter, so co-failing
+        # gangs on one host don't re-stampede the same resource in lockstep.
+        self.backoff_base = backoff_base
+        self.backoff_max = backoff_max
+        # Elastic shrink (retry at world - 1 after a rank is judged
+        # permanently lost, resharding its checkpoints) needs
+        # train/reshard.py, and so does a per-rank restart budget, whose
+        # exhaustion is what triggers the shrink.
+        for name, given in (
+            ("elastic", bool(elastic)),
+            ("elastic_min_world", elastic_min_world != 1),
+            ("rank_restart_budget", rank_restart_budget is not None),
+        ):
+            if given:
+                raise NotImplementedError(
+                    f"Distributor({name}=...) is not ported yet (ROADMAP "
+                    "queue A4: train/reshard.py)"
+                )
+
+    # -- multi-host control plane --------------------------------------------
+    def commands_for_hosts(
+        self, fn: Callable | str, hosts: Sequence[str], coordinator_port: int = 29500
+    ) -> list[str]:
+        """One launch command per host for an external scheduler (the analogue
+        of spark-submit's role): host 0 is the coordinator."""
+        ref = fn_reference(fn)
+        coord = f"{hosts[0]}:{coordinator_port}"
+        return [
+            sys.executable
+            + " -m machine_learning_apache_spark_tpu_torch.launcher.runner"
+            + f" --fn {ref} --coordinator {coord}"
+            + f" --num-processes {len(hosts)} --process-id {rank}"
+            for rank, _ in enumerate(hosts)
+        ]
+
+    # -- local gang spawn ----------------------------------------------------
+    def run(self, fn: Callable | str, *args: Any, **kwargs: Any) -> Any:
+        """Spawn the gang, wait, return rank 0's result
+        (``distributor.run(train_func)`` contract, ``distributed_cnn.py:231``)."""
+        if not self.local_mode:
+            raise RuntimeError(
+                "cluster mode is driven by an external scheduler: use "
+                "commands_for_hosts() to obtain per-host launch commands"
+            )
+        n = self.num_processes
+        if n == 1 and not (self.platform or self.extra_env):
+            # Single process: run inline, as the reference's sequential
+            # scripts do (no rendezvous needed). With platform/env overrides
+            # we must still spawn (they only apply to a fresh interpreter).
+            fn = self._resolve(fn)
+            return fn(*args, **kwargs)
+
+        ref = fn_reference(fn)
+        coord = f"127.0.0.1:{_free_port()}"
+        workdir = tempfile.mkdtemp(prefix="mlspark_gang_")
+        args_path = os.path.join(workdir, "args.pkl")
+        with open(args_path, "wb") as f:
+            pickle.dump((args, kwargs), f)
+
+        try:
+            attempt = 0
+            while True:
+                # Clear any stale result/heartbeat files from a failed
+                # attempt so a restart can't return a dead rank's leftovers
+                # (or judge liveness off a corpse's last beat).
+                for rank in range(n):
+                    for name in (f"result_{rank}.pkl", f"heartbeat_{rank}"):
+                        stale = os.path.join(workdir, name)
+                        if os.path.exists(stale):
+                            os.unlink(stale)
+                try:
+                    with telemetry.span(
+                        "launcher.gang_attempt",
+                        attempt=attempt, num_processes=n,
+                    ):
+                        value = self._run_gang(
+                            ref, coord, workdir, args_path, n, attempt
+                        )
+                    self._write_telemetry_report(workdir)
+                    return value
+                except GangFailure as failure:
+                    attempt += 1
+                    telemetry.annotate(
+                        "launcher.gang_retry" if attempt <= self.max_restarts
+                        else "launcher.gang_exhausted",
+                        attempt=attempt, rank=failure.rank,
+                        cause=failure.cause,
+                    )
+                    if attempt > self.max_restarts:
+                        raise
+                    delay = min(
+                        self.backoff_max,
+                        self.backoff_base * (2 ** (attempt - 1)),
+                    ) * (0.5 + random.random() / 2)  # full-jitter-lite
+                    log.warning(
+                        "gang attempt %d/%d failed (rank=%s cause=%s); "
+                        "restarting whole gang in %.2fs (Spark-barrier "
+                        "all-or-nothing semantics)",
+                        attempt, self.max_restarts, failure.rank,
+                        failure.cause, delay,
+                    )
+                    time.sleep(delay)
+                    coord = f"127.0.0.1:{_free_port()}"  # stale port may linger
+        finally:
+            import shutil
+
+            shutil.rmtree(workdir, ignore_errors=True)
+
+    def _telemetry_out_dir(self, workdir: str) -> str:
+        """Where this gang's telemetry files land — the same precedence the
+        worker env gets in ``_run_gang`` (explicit env= > inherited env >
+        the ephemeral workdir)."""
+        return (
+            self.extra_env.get("MLSPARK_TELEMETRY_DIR")
+            or envcfg.get_str("MLSPARK_TELEMETRY_DIR")
+            or workdir
+        )
+
+    def _write_telemetry_report(self, workdir: str) -> None:
+        """Rank-0-side gang merge: after a successful run, fold the per-rank
+        ``telemetry_rank<k>.jsonl`` exports into ``telemetry_report.json``
+        (+ ``.md``) in the telemetry dir. Best-effort — reporting must never
+        fail a run that trained fine."""
+        if not telemetry.enabled():
+            return
+        try:
+            tdir = self._telemetry_out_dir(workdir)
+            from machine_learning_apache_spark_tpu_torch.telemetry import aggregate
+
+            if not aggregate.find_rank_files(tdir):
+                return
+            report = aggregate.merge_gang_dir(tdir)
+            import json
+
+            with open(os.path.join(tdir, "telemetry_report.json"), "w") as f:
+                json.dump(report, f, indent=2)
+                f.write("\n")
+            with open(os.path.join(tdir, "telemetry_report.md"), "w") as f:
+                f.write(aggregate.render_markdown(report))
+            log.info(
+                "telemetry report merged from %d rank(s) into %s",
+                len(report["ranks"]), tdir,
+            )
+        except Exception:
+            log.exception("telemetry report generation failed (ignored)")
+
+    def _run_gang(
+        self,
+        ref: str,
+        coord: str,
+        workdir: str,
+        args_path: str,
+        n: int,
+        attempt: int = 0,
+    ) -> Any:
+        procs: list[subprocess.Popen] = []
+        result_paths, heartbeat_paths = [], []
+        for rank in range(n):
+            result_path = os.path.join(workdir, f"result_{rank}.pkl")
+            heartbeat_path = os.path.join(workdir, f"heartbeat_{rank}")
+            result_paths.append(result_path)
+            heartbeat_paths.append(heartbeat_path)
+            env = dict(os.environ)
+            # Constructor knobs ride the env contract (inherited env below
+            # them, explicit env= above them). Writes go through the
+            # registry (envcfg.put_into): a typo'd contract name fails
+            # here, not as a silently ignored variable in every rank.
+            if self.serve_kv_mode is not None:
+                envcfg.put_into(env, "MLSPARK_SERVE_KV_MODE", self.serve_kv_mode)
+            if self.serve_kv_dtype is not None:
+                envcfg.put_into(env, "MLSPARK_SERVE_KV_DTYPE", self.serve_kv_dtype)
+            if self.telemetry_http is not None:
+                envcfg.put_into(env, "MLSPARK_TELEMETRY_HTTP", self.telemetry_http)
+            # Local mode: every rank is on this host, so gloo's sockets
+            # go over loopback. Pinned here because gloo otherwise binds
+            # to the interface the hostname resolves to, which a host
+            # without a resolvable name (or without a network) lacks.
+            # Not a user knob: an inherited or explicit value wins.
+            env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+            env.update(self.extra_env)
+            # Workers default their telemetry output (rank JSONLs, flight
+            # dumps) next to the heartbeat files; an inherited or explicit
+            # MLSPARK_TELEMETRY_DIR (e.g. a persistent dir from the fault
+            # drill) wins — the workdir is ephemeral (rmtree'd below).
+            env.setdefault("MLSPARK_TELEMETRY_DIR", workdir)
+            envcfg.put_into(env, "MLSPARK_COORDINATOR", coord)
+            envcfg.put_into(env, "MLSPARK_NUM_PROCESSES", n)
+            envcfg.put_into(env, "MLSPARK_PROCESS_ID", rank)
+            envcfg.put_into(env, "MLSPARK_GANG_ATTEMPT", attempt)
+            envcfg.put_into(env, "MLSPARK_HEARTBEAT_FILE", heartbeat_path)
+            envcfg.put_into(
+                env, "MLSPARK_HEARTBEAT_INTERVAL", self.heartbeat_interval
+            )
+            host, _, port = coord.partition(":")
+            env["MASTER_ADDR"], env["MASTER_PORT"] = host, port
+            env["WORLD_SIZE"], env["RANK"] = str(n), str(rank)
+            if self.platform:
+                # The coordinator reads it for the rank's device and the
+                # group's backend.
+                envcfg.put_into(env, "MLSPARK_PLATFORM", self.platform)
+            env["PYTHONPATH"] = os.pathsep.join(
+                p for p in sys.path if p
+            )
+            cmd = [
+                sys.executable,
+                "-m",
+                "machine_learning_apache_spark_tpu_torch.launcher.runner",
+                "--fn", ref,
+                "--args-file", args_path,
+                "--result-file", result_path,
+            ]
+            # start_new_session: each worker leads its own process group, so
+            # teardown signals reach the worker AND anything it spawned.
+            procs.append(
+                subprocess.Popen(cmd, env=env, start_new_session=True)
+            )
+        _register_gang(procs)
+        log.info(
+            "spawned %d-process gang (coordinator %s, attempt %d)",
+            n, coord, attempt,
+        )
+
+        try:
+            failure = self._wait_gang(procs, heartbeat_paths)
+        finally:
+            # Belt and suspenders for non-GangFailure exits (KeyboardInterrupt
+            # etc.): nothing outlives the attempt.
+            terminate_gang(procs, grace=0.0)
+            _unregister_gang(procs)
+
+        results = [self._read_result(path, rank) for rank, path in enumerate(result_paths)]
+        errors = [r for r in results if r.error]
+        if failure is None and not errors:
+            return results[0].value
+
+        raise gang_failure(results, failure, attempt)
+
+    def _wait_gang(
+        self,
+        procs: list[subprocess.Popen],
+        heartbeat_paths: list[str] | None = None,
+    ) -> GangFailure | None:
+        """All-or-nothing barrier semantics, delegated to a ``GangMonitor``
+        thread: the first nonzero exit, stalled heartbeat, or deadline
+        expiry tears the gang down (SIGTERM -> SIGKILL). Returns the
+        detected failure, or None if every rank exited 0."""
+        watcher = GangMonitor(
+            procs,
+            heartbeat_paths,
+            timeout=self.timeout,
+            heartbeat_timeout=self.heartbeat_timeout,
+            grace=self.term_grace,
+        )
+        watcher.start()
+        while watcher.is_alive():
+            # join with a timeout so the driver stays interruptible
+            # (Ctrl-C in a notebook must not wedge behind a daemon join).
+            watcher.join(timeout=1.0)
+        return watcher.failure
+
+    @staticmethod
+    def _resolve(fn: Callable | str) -> Callable:
+        return fn if callable(fn) else resolve_fn(fn)
+
+    @staticmethod
+    def _read_result(path: str, rank: int) -> WorkerResult:
+        if not os.path.exists(path):
+            return WorkerResult(rank=rank, error=f"rank {rank} produced no result (crashed?)")
+        try:
+            with open(path, "rb") as f:
+                return pickle.load(f)
+        except Exception as e:
+            # Truncated/corrupt file (e.g. the worker died mid-dump, or its
+            # return value wasn't picklable): treat as a worker failure so the
+            # gang error carries the rank, not a bare unpickling traceback.
+            return WorkerResult(
+                rank=rank, error=f"rank {rank} produced no result (unreadable result file: {e!r})"
+            )
+
+
+# API-parity alias: reference user code says TorchDistributor
+# (distributed_cnn.py:227).
+TorchDistributor = Distributor

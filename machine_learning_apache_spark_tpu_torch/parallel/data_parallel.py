@@ -1,0 +1,336 @@
+"""Data parallelism — the reference's DDP layer over the process group;
+the port of ``machine_learning_apache_spark_tpu/parallel/data_parallel.py``.
+
+The reference wraps each model in ``DDP(model)`` over a gloo process group
+and lets backward hooks all-reduce the gradients (C11,
+``distributed_cnn.py:152-156``); so does the port. The JAX package's
+``fit(mesh=)`` compiles one step over the *global* batch, so its loss and
+gradient are the global batch's. Here each rank holds its own slice and:
+
+1. sums its loss weight — the count the loss averages over
+   (``loss_weight(batch)``: the rows for the zoo's per-row mean, the valid
+   target tokens for the translation loss) — over the ranks, read from the
+   host batch before it moves to the device;
+2. back-propagates its loss through ``DistributedDataParallel`` scaled by
+   ``world × weight / total weight``: DDP's mean over the ranks of the
+   scaled gradients is then the gradient of the global loss (with equal
+   weights the scale is exactly 1: plain DDP). The gradients are reduced
+   once per optimizer step: a step that only accumulates runs under
+   ``no_sync``;
+3. after the update, sums ``[loss × weight, aux × weight]`` over the ranks
+   for the global batch's reported loss and aux.
+
+Averaging the ranks' own means instead would weight a rank with few valid
+tokens as much as one with many: a different gradient for the MT loss.
+
+A DDP comm hook times each bucket's all-reduce on the host, from its
+launch to its completion (``comms.grad_allreduce`` spans), and the step
+counts the bytes reduced (``comms.bytes_allreduced``).
+
+``params_fingerprint`` is the JAX package's weighted sum of |p| per leaf,
+in the Flax tree's leaf order; ``assert_replicas_in_sync`` compares it
+across the ranks.
+"""
+
+from __future__ import annotations
+
+import inspect
+import threading
+import time
+from contextlib import nullcontext
+from typing import Callable
+
+import numpy as np
+import torch
+import torch.distributed as dist
+from torch import nn
+from torch.nn.parallel import DistributedDataParallel
+
+from machine_learning_apache_spark_tpu_torch import telemetry
+from machine_learning_apache_spark_tpu_torch.parallel.mesh import DATA_AXIS, Mesh
+
+_TINY = float(np.finfo(np.float32).tiny)
+
+# DDP's switch for the buffer broadcast before each forward, under the
+# name this torch gives it.
+_NO_FORWARD_BUFFER_SYNC = (
+    {"forward_sync_buffers": False}
+    if "forward_sync_buffers" in inspect.signature(DistributedDataParallel).parameters
+    else {"broadcast_buffers": False}
+)
+
+
+def loss_weight_of(loss_fn: Callable) -> Callable:
+    """The count ``loss_fn`` averages over, as a function of its batch:
+    the loss's own ``loss_weight`` attribute when it has one, else the
+    batch's rows."""
+    weight = getattr(loss_fn, "loss_weight", None)
+    return weight if weight is not None else (lambda batch: batch[0].shape[0])
+
+
+class _Replica(DistributedDataParallel):
+    """``DDP(model)`` through which a loss still reads the model's own
+    attributes (the translation loss reads ``model.cfg``)."""
+
+    def __getattr__(self, name: str):
+        try:
+            return super().__getattr__(name)
+        except AttributeError:
+            return getattr(self.module, name)
+
+
+class GradientComms:
+    """The gradient all-reduce, as DDP's comm hook: each bucket is divided
+    by the world and summed over the ranks (DDP's own default), and timed
+    on the host from its launch to its completion — a
+    ``comms.grad_allreduce`` span per bucket. ``stats()`` gives the
+    totals: buckets reduced, synchronised steps, the buckets' seconds
+    summed, each step's window from its first bucket's launch to its last
+    one's completion summed, and bytes."""
+
+    def __init__(self, world: int):
+        self.world = world
+        self.calls = 0
+        self.steps = 0
+        self.seconds = 0.0
+        self.window = 0.0
+        self.bytes = 0
+        self._first: float | None = None
+        self._last = 0.0
+        self._lock = threading.Lock()
+
+    def hook(self, group, bucket):
+        buf = bucket.buffer()
+        buf.div_(self.world)
+        nbytes = buf.numel() * buf.element_size()
+        t0 = time.perf_counter()
+        with self._lock:
+            if self._first is None:
+                self._first = t0
+        fut = dist.all_reduce(buf, group=group, async_op=True).get_future()
+
+        def done(f):
+            t1 = time.perf_counter()
+            dur = t1 - t0
+            with self._lock:
+                self.calls += 1
+                self.seconds += dur
+                self.bytes += nbytes
+                self._last = max(self._last, t1)
+            telemetry.get_log().emit(
+                "span_end", "comms.grad_allreduce", value=dur, attrs={"bytes": nbytes}
+            )
+            return f.value()[0]
+
+        return fut.then(done)
+
+    def end_step(self) -> None:
+        """Close a synchronised step (after its backward, which waits for
+        every bucket)."""
+        with self._lock:
+            self.steps += 1
+            if self._first is not None:
+                self.window += self._last - self._first
+            self._first = None
+
+    def stats(self) -> dict:
+        return {
+            "allreduce_calls": self.calls,
+            "allreduce_steps": self.steps,
+            "allreduce_seconds": self.seconds,
+            "allreduce_bytes": self.bytes,
+            "allreduce_window_seconds": self.window,
+            "allreduce_ms_per_step": 1e3 * self.window / max(self.steps, 1),
+        }
+
+
+def _total_weight(mesh: Mesh, weight: float) -> float:
+    """The loss weight summed over the ranks (a host collective)."""
+    t = torch.tensor([weight], dtype=torch.float64)
+    with telemetry.span("comms.weight_allreduce"):
+        mesh.all_reduce_(t)
+    return float(t[0])
+
+
+def _global_means(mesh: Mesh, weight: float, loss: torch.Tensor, aux: dict,
+                  total: float | None = None):
+    """``(loss, aux)`` of the global batch — the weight-averaged means over
+    every rank's rows — from one all-reduce of ``[loss × weight, aux ×
+    weight]`` (and the weight itself when ``total`` is not known yet)."""
+    keys = list(aux)
+    parts = [loss.detach().float() * weight, *(aux[k].detach().float() * weight for k in keys)]
+    if total is None:
+        parts.append(torch.full((), weight, dtype=torch.float32, device=loss.device))
+    stats = torch.stack(parts)
+    with telemetry.span("comms.loss_allreduce"):
+        mesh.all_reduce_(stats)
+    denom = stats[-1].clamp_min(_TINY) if total is None else max(total, _TINY)
+    stats = stats / denom
+    return stats[0], {k: stats[1 + i] for i, k in enumerate(keys)}
+
+
+def _device_of(model: nn.Module) -> torch.device:
+    return next(model.parameters()).device
+
+
+def make_data_parallel_step(loss_fn: Callable, mesh: Mesh, *, axis: str = DATA_AXIS):
+    """One data-parallel training step: ``step(state, batch, rng) ->
+    (state, loss, aux)`` like ``train.loop.make_train_step``, with the
+    loss and aux of the global batch. ``batch`` is this rank's slice, on
+    the host (its loss weight is read there) or already on the device;
+    ``loss_fn(model, batch, rng)`` runs through ``DDP(state.model)``,
+    built at the first step (its constructor broadcasts rank 0's
+    parameters). ``step.comms`` is the ``GradientComms``.
+
+    Accumulation (``accumulate_steps=K``) reduces once per update: the
+    first K - 1 microbatches back-propagate under ``no_sync`` into the
+    state's running mean; the K-th back-propagates onto their sum, so DDP
+    reduces the sum of all K, and the mean is that over K."""
+    from machine_learning_apache_spark_tpu_torch.train.loop import to_device
+
+    del axis  # one data axis: the whole group
+    weight_of = loss_weight_of(loss_fn)
+    comms = GradientComms(mesh.size)
+    counter = telemetry.get_registry().counter("comms", "bytes_allreduced")
+    held: dict = {}
+
+    def replica(model: nn.Module) -> nn.Module:
+        if mesh.size == 1:
+            return model
+        if held.get("model") is not model:
+            # Buffers are tables every rank builds alike (positional
+            # encodings): no broadcast before every forward.
+            ddp = _Replica(model, **_NO_FORWARD_BUFFER_SYNC)
+            ddp.register_comm_hook(None, comms.hook)
+            held.update(model=model, ddp=ddp)
+        return held["ddp"]
+
+    def step(state, batch, rng):
+        world = mesh.size
+        weight = float(weight_of(batch))
+        total = _total_weight(mesh, weight)
+        model = replica(state.model)
+        batch = to_device(batch, _device_of(state.model))
+        emits = state.emits(state.mini_step)
+        k = state.tx.accumulate_steps
+        onto_sum = world > 1 and k > 1 and emits
+        if onto_sum:
+            with torch.no_grad():
+                for p, acc in zip(state.params, state.acc_grads):
+                    p.grad = acc * state.mini_step
+        with nullcontext() if emits or world == 1 else model.no_sync():
+            loss, aux = loss_fn(model, batch, rng)
+            (loss * (weight * world / max(total, _TINY))).backward()
+        if onto_sum:
+            with torch.no_grad():
+                # The running mean becomes the reduced mean, so the
+                # state's accumulate step leaves it as it is.
+                for p, acc in zip(state.params, state.acc_grads):
+                    acc.copy_(p.grad.div_(k))
+        if world > 1 and emits:
+            nbytes = sum(p.numel() * p.element_size() for p in state.params)
+            comms.end_step()
+            counter.inc(nbytes)
+            telemetry.get_log().emit(
+                "counter", "comms.bytes_allreduced", value=nbytes, attrs={"steps": 1}
+            )
+        state.apply_gradients()
+        g_loss, g_aux = _global_means(mesh, weight, loss, aux, total)
+        return state, g_loss, g_aux
+
+    step.comms = comms
+    step.replica = replica
+    return step
+
+
+def make_data_parallel_eval_step(loss_fn: Callable, mesh: Mesh, *, axis: str = DATA_AXIS):
+    """Eval counterpart: ``step(state, batch, rng) -> (loss, aux)`` of the
+    global batch, under ``torch.no_grad``; ``batch`` on the host or the
+    device."""
+    from machine_learning_apache_spark_tpu_torch.train.loop import to_device
+
+    del axis
+    weight_of = loss_weight_of(loss_fn)
+
+    @torch.no_grad()
+    def step(state, batch, rng):
+        weight = float(weight_of(batch))
+        loss, aux = loss_fn(state.model, to_device(batch, _device_of(state.model)), rng)
+        return _global_means(mesh, weight, loss, aux)
+
+    return step
+
+
+def pad_batch_to_multiple(batch, multiple: int):
+    """Pad the leading dim so it divides ``multiple``: ``(padded_batch,
+    real_count)``, padded rows repeating row 0 (the JAX function's
+    contract). ``batch`` is a tuple/list of arrays or tensors."""
+    n = batch[0].shape[0]
+    target = -(-n // multiple) * multiple
+    if target == n:
+        return batch, n
+    pad = target - n
+
+    def _pad(x):
+        if isinstance(x, torch.Tensor):
+            return torch.cat([x, x[:1].repeat_interleave(pad, dim=0)], dim=0)
+        x = np.asarray(x)
+        return np.concatenate([x, np.repeat(x[:1], pad, axis=0)], axis=0)
+
+    return type(batch)(_pad(x) for x in batch), n
+
+
+def _leaves(params) -> list[torch.Tensor]:
+    """The tensors to fingerprint, in the JAX package's leaf order: a
+    ``TrainState`` or ``nn.Module`` by its Flax tree paths (sorted level
+    by level, as ``jax.tree.leaves`` orders a dict tree), a sequence of
+    tensors as given."""
+    model = getattr(params, "model", params)
+    if isinstance(model, nn.Module):
+        from machine_learning_apache_spark_tpu_torch.weights import flax_named_parameters
+
+        return [p for _, p in sorted(
+            flax_named_parameters(model), key=lambda kv: tuple(kv[0].split("/"))
+        )]
+    return list(params)
+
+
+@torch.no_grad()
+def params_fingerprint(params) -> float:
+    """Order-stable scalar fingerprint: ``Σ (i + 1) · Σ|p_i|`` over the
+    leaves (each sum in float32, the total in float64) — the JAX
+    package's, on the same weights within float32 summation order.
+    Accepts a ``TrainState``, an ``nn.Module`` or a sequence of tensors."""
+    leaves = _leaves(params)
+    if not leaves:
+        return 0.0
+    sums = torch.stack([p.detach().float().abs().sum() for p in leaves]).tolist()
+    total = 0.0
+    for i, v in enumerate(sums):
+        total += (i + 1) * v
+    return total
+
+
+def assert_replicas_in_sync(params, *, atol: float = 1e-6, mesh: Mesh | None = None) -> float:
+    """Race-detector analogue (SURVEY.md §5): gather every rank's
+    parameter fingerprint and assert they agree within ``atol`` relative —
+    the check for the reference's Q2-class replica drift
+    (``distributed_cnn.py:175``). One process passes trivially. Returns
+    the largest divergence from rank 0's."""
+    from machine_learning_apache_spark_tpu_torch.parallel.mesh import (
+        data_parallel_mesh,
+        process_count,
+    )
+
+    fp = params_fingerprint(params)
+    world = mesh.size if mesh is not None else process_count()
+    if world == 1:
+        return 0.0
+    mesh = mesh or data_parallel_mesh()
+    slots = torch.zeros(world, dtype=torch.float64)
+    slots[mesh.rank] = fp
+    mesh.all_reduce_(slots)
+    div = float((slots - slots[0]).abs().max())
+    if div > atol * max(abs(fp), 1.0):
+        raise AssertionError(f"replica divergence {div} across {world} processes")
+    return div

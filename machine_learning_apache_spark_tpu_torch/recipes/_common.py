@@ -1,6 +1,12 @@
 """Shared recipe plumbing — the port of
-``machine_learning_apache_spark_tpu/recipes/_common.py`` for one process on
-one device: no mesh and no distributed sampler.
+``machine_learning_apache_spark_tpu/recipes/_common.py``.
+
+A recipe is one reference entry-point script: data resolution, mesh and
+world bring-up (``resolve_mesh``: a data-parallel mesh over the gang when
+the recipe runs under ``launcher.Distributor``, none for one process),
+the fit/evaluate calls and a picklable result dict (the launcher returns
+rank 0's result across a process boundary — ``distributor.run``
+contract, ``distributed_cnn.py:231``).
 """
 
 from __future__ import annotations
@@ -14,6 +20,13 @@ import torch
 from machine_learning_apache_spark_tpu_torch.data.loader import (
     ArrayDataset,
     DataLoader,
+)
+from machine_learning_apache_spark_tpu_torch.data.sampler import DistributedSampler
+from machine_learning_apache_spark_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    data_parallel_mesh,
+    process_count,
+    process_index,
 )
 from machine_learning_apache_spark_tpu_torch.train.metrics import MetricsLogger
 from machine_learning_apache_spark_tpu_torch.utils.logging import get_logger
@@ -39,40 +52,103 @@ def with_overrides(recipe, overrides: dict):
     return dataclasses.replace(recipe, **overrides) if overrides else recipe
 
 
+def resolve_mesh(
+    use_mesh: bool = True,
+    *,
+    model_parallel: int = 1,
+    sequence_parallel: int = 1,
+    expert_parallel: int = 1,
+    pipeline_parallel: int = 1,
+):
+    """The recipe's mesh, or None when a mesh buys nothing — the JAX
+    package's rules, with one device per process: under a gang of several
+    processes a data-parallel mesh over all of them; for one process none.
+
+    ``use_mesh=False`` under a gang raises ``ValueError`` (each rank would
+    train an unsynchronized replica, and rank 0's metrics would pass for a
+    full-data run), as does any other parallelism without a mesh or with
+    one device. A model/sequence/expert/pipeline axis larger than 1 goes
+    to ``make_mesh``, which raises ``NotImplementedError`` naming its
+    ROADMAP A4 item."""
+    extra = {
+        "model_parallel": model_parallel,
+        "sequence_parallel": sequence_parallel,
+        "expert_parallel": expert_parallel,
+        "pipeline_parallel": pipeline_parallel,
+    }
+    any_extra = any(v > 1 for v in extra.values())
+    world = process_count()
+    if world > 1 and not use_mesh:
+        raise ValueError(
+            "use_mesh=False under a multi-process gang would train "
+            "independent unsynchronized replicas; run single-process or "
+            "keep use_mesh=True"
+        )
+    if not use_mesh and any_extra:
+        raise ValueError(
+            "model/sequence/expert parallelism requires use_mesh=True"
+        )
+    if world == 1 and any_extra:
+        # Never silently drop a requested parallelism mode.
+        raise ValueError(f"{extra} requested but only {world} device(s) are available")
+    if use_mesh and world > 1:
+        from machine_learning_apache_spark_tpu_torch.parallel.mesh import (
+            EXPERT_AXIS,
+            MODEL_AXIS,
+            PIPELINE_AXIS,
+            SEQ_AXIS,
+            make_mesh,
+        )
+
+        axes = {DATA_AXIS: -1}
+        if pipeline_parallel > 1:
+            axes[PIPELINE_AXIS] = pipeline_parallel
+        if expert_parallel > 1:
+            axes[EXPERT_AXIS] = expert_parallel
+        if model_parallel > 1:
+            axes[MODEL_AXIS] = model_parallel
+        if sequence_parallel > 1:
+            axes[SEQ_AXIS] = sequence_parallel
+        if len(axes) > 1:
+            return make_mesh(axes)
+        return data_parallel_mesh()
+    return None
+
+
 def local_batch_scale(mesh=None) -> int:
     """Per-process multiplier turning a per-replica batch into this
-    process's share of the global batch: 1 without a mesh, the only case
-    this port runs (a mesh is ROADMAP A4)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "recipes on a mesh are not ported yet (ROADMAP queue A4 (distributed))"
-        )
-    return 1
+    process's share of the global batch (``data`` axis size / processes):
+    1 with one device per process, and without a mesh."""
+    return mesh.shape[DATA_AXIS] // process_count() if mesh is not None else 1
 
 
 def make_bucketed_loader(
     loader_cls,
     *streams,
     batch_size: int,
+    mesh=None,
     full_width: int,
     boundaries: tuple[int, ...] = (),
     seed: int = 0,
 ):
     """Shared bucketed-loader construction for recipes: default boundaries
-    at (1/4, 1/2, full) of the fixed width, and a loud error when the
-    batch leaves every bucket short of one full batch (``drop_last``
-    inside each bucket would otherwise "train" on zero batches)."""
+    at (1/4, 1/2, full) of the fixed width, per-replica batch scaled to the
+    mesh's local share (each rank takes its slice of every bucket), and a
+    loud error when the batch leaves every bucket short of one full batch
+    (``drop_last`` inside each bucket would otherwise "train" on zero
+    batches)."""
     boundaries = boundaries or tuple(
         sorted({max(full_width // 4, 8), max(full_width // 2, 8), full_width})
     )
-    effective = batch_size * local_batch_scale()
+    effective = batch_size * local_batch_scale(mesh)
     loader = loader_cls(
-        *streams, batch_size=effective, boundaries=boundaries, seed=seed
+        *streams, batch_size=effective, boundaries=boundaries, seed=seed,
+        num_replicas=process_count(), rank=process_index(),
     )
     if len(loader) == 0:
         raise ValueError(
             f"effective batch {effective} (batch_size={batch_size} × "
-            f"{local_batch_scale()} local replicas) leaves every length "
+            f"{local_batch_scale(mesh)} local replicas) leaves every length "
             f"bucket ({boundaries}) short of one full batch; shrink the "
             "batch or provide more data"
         )
@@ -84,23 +160,49 @@ def make_loaders(
     test_ds: ArrayDataset | None,
     *,
     batch_size: int,
+    mesh=None,
     seed: int = 0,
     collate: Callable[[tuple], Any] | None = None,
 ) -> tuple[DataLoader | None, DataLoader | None]:
-    """The JAX package's loader rules for one process without a mesh: the
-    batch is clamped to what the split can fill once; ``drop_last=True`` on
-    the shuffled train loader (one static shape), ``drop_last=False`` on
-    the test loader so eval scores every row (``train.loop.evaluate``)."""
+    """The JAX package's loader rules, mesh-aware.
 
-    def _clamped(n_rows: int, want: int) -> int:
-        return min(want, max(n_rows, 1))
+    ``batch_size`` is **per replica**, as in the reference, which shards
+    the dataset across ranks (``DistributedSampler`` + per-rank loaders,
+    ``distributed_cnn.py:112-124``): under a gang each rank samples its
+    shard at ``batch_size × local_batch_scale(mesh)`` rows, so the global
+    batch is ``batch_size × world``. The batch is clamped to what the
+    split can fill once; ``drop_last=True`` on the train loader (one
+    static shape), ``drop_last=False`` on the test loader so eval scores
+    every row (``train.loop.evaluate``)."""
+    world = process_count()
+    local_scale = local_batch_scale(mesh)
+
+    def _clamped(n_rows: int, want: int, split: str) -> int:
+        if mesh is None:
+            return min(want, max(n_rows, 1))
+        largest = (n_rows // local_scale) * local_scale
+        if largest == 0:
+            raise ValueError(
+                f"{split} split ({n_rows} rows on this process) cannot fill "
+                f"one row per local device ({local_scale}); provide more "
+                "data or a smaller mesh"
+            )
+        if want > largest:
+            log.warning(
+                "%s batch %d exceeds the %d-row split; clamping to %d",
+                split, want, n_rows, largest,
+            )
+        return min(want, largest)
 
     train_loader = None
-    if train_ds is not None:
+    if train_ds is not None:  # None: the caller brings its own (bucketed)
+        sampler = DistributedSampler(len(train_ds), seed=seed) if world > 1 else None
+        n_train = len(sampler) if sampler is not None else len(train_ds)
         train_loader = DataLoader(
             train_ds,
-            _clamped(len(train_ds), batch_size),
-            shuffle=True,
+            _clamped(n_train, batch_size * local_scale, "train"),
+            shuffle=sampler is None,
+            sampler=sampler,
             drop_last=True,
             seed=seed,
             collate=collate,
@@ -109,9 +211,15 @@ def make_loaders(
         )
     test_loader = None
     if test_ds is not None:
+        test_sampler = (
+            DistributedSampler(len(test_ds), shuffle=False, seed=seed)
+            if world > 1 else None
+        )
+        n_test = len(test_sampler) if test_sampler is not None else len(test_ds)
         test_loader = DataLoader(
             test_ds,
-            _clamped(len(test_ds), batch_size),
+            _clamped(n_test, batch_size * local_scale, "test"),
+            sampler=test_sampler,
             drop_last=False,
             seed=seed,
             collate=collate,
@@ -155,9 +263,16 @@ def open_checkpointing(
     freshly created ``state`` is the restore template (same model and
     optimizer code) and takes the newest valid step's values in place.
     Callers pass the manager to ``fit(checkpointer=...)`` and must
-    ``close()`` it when done — or use ``checkpointing``, which does."""
+    ``close()`` it when done — or use ``checkpointing``, which does.
+    Checkpoints in a gang of several processes are not ported yet."""
     if not checkpoint_dir:
         return None, state, None
+    if process_count() > 1:
+        raise NotImplementedError(
+            "checkpoint_dir in a gang of more than one process is not "
+            "ported yet (ROADMAP queue A4: gang checkpoints — "
+            "group_agreed_step and the checkpoint group)"
+        )
     from machine_learning_apache_spark_tpu_torch.train.checkpoint import (
         CheckpointManager,
     )
@@ -172,7 +287,7 @@ def open_checkpointing(
     return mgr, state, resumed
 
 
-def fit_recipe(r, state, loss_fn, train_loader):
+def fit_recipe(r, state, loss_fn, train_loader, mesh=None):
     """``fit`` under a recipe's training fields (``epochs``, ``seed``,
     ``log_every``, ``checkpoint_dir``/``checkpoint_every``/``resume``,
     ``metrics_path``, ``steps_per_call``, ``prefetch_to_device``).
@@ -201,6 +316,7 @@ def fit_recipe(r, state, loss_fn, train_loader):
             steps_per_call=r.steps_per_call,
             prefetch_to_device=r.prefetch_to_device,
             resume=resumed is not None,
+            mesh=mesh,
         )
     return result, resumed
 
@@ -210,20 +326,22 @@ def summarize(
     **extra,
 ) -> dict:
     """The printable/picklable end-of-run contract — the reference's metric
-    vocabulary (train wall time, losses, eval metrics). ``metrics_path``
-    appends one ``{"kind": "eval", ...}`` JSON line."""
+    vocabulary (train wall time, losses, eval metrics, the gang's world).
+    ``metrics_path`` appends one ``{"kind": "eval", ...}`` JSON line (rank
+    0 only)."""
     out = {
         "train_seconds": fit_result.train_seconds,
         "final_loss": fit_result.final_loss,
         "epochs": len(fit_result.history),
         "history": fit_result.history,
-        "world_processes": 1,
-        "devices": 1,
+        # One device per process: the world is both counts.
+        "world_processes": process_count(),
+        "devices": process_count(),
     }
     if eval_metrics:
         out.update(eval_metrics)
     out.update(extra)
-    if metrics_path and eval_metrics:
+    if metrics_path and eval_metrics and process_index() == 0:
         scalars = {
             k: v for k, v in extra.items() if isinstance(v, (int, float, str))
         }

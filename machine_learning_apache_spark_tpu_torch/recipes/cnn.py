@@ -1,5 +1,5 @@
 """CNN recipe — the FashionMNIST workload (C6 + C7); the port of
-``machine_learning_apache_spark_tpu/recipes/cnn.py`` on one device.
+``machine_learning_apache_spark_tpu/recipes/cnn.py``.
 
 Sequential form: ``pytorch_cnn.py:101-180`` — TinyVGG (1 input channel, 10
 hidden units, 10 classes), CrossEntropy, SGD(lr=0.01), 3 epochs, batch 32,
@@ -12,6 +12,9 @@ pass actually runs (fixing Q7).
 the convolutions are cuDNN's with deterministic algorithms
 (``utils.device.resolve_device``), so ``steps_per_call=K`` trains bit for
 bit like K = 1. Checkpoint and resume as in ``recipes._common.fit_recipe``.
+Under ``launcher.Distributor`` it is ``distributed_cnn.py``'s gang: each
+rank trains its ``DistributedSampler`` shard and the gradients are
+all-reduced (``use_mesh``, the default; ``train.loop.fit(mesh=)``).
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from machine_learning_apache_spark_tpu_torch.recipes._common import (
     default_compute_dtype,
     fit_recipe,
     make_loaders,
+    resolve_mesh,
     summarize,
     with_overrides,
 )
@@ -105,9 +109,10 @@ def train_cnn(
             max(r.synthetic_n // 4, 128), num_classes=r.num_classes,
             seed=r.seed + 1, **shape,
         )
+    mesh = resolve_mesh(r.use_mesh)
     train_loader, test_loader = make_loaders(
         ArrayDataset(*train_frame.arrays()), ArrayDataset(*test_frame.arrays()),
-        batch_size=r.batch_size, seed=r.seed,
+        batch_size=r.batch_size, mesh=mesh, seed=r.seed,
     )
     model = TinyVGG(
         hidden_units=r.hidden_units,
@@ -117,8 +122,12 @@ def train_cnn(
         generator=torch.Generator().manual_seed(r.seed),
     ).to(dev)
     state = TrainState.create(model=model, tx=make_optimizer("sgd", r.learning_rate))
-    result, resumed = fit_recipe(r, state, classification_loss(model), train_loader)
-    metrics = evaluate(result.state, classification_loss(model, train=False), test_loader)
+    result, resumed = fit_recipe(
+        r, state, classification_loss(model), train_loader, mesh=mesh
+    )
+    metrics = evaluate(
+        result.state, classification_loss(model, train=False), test_loader, mesh=mesh
+    )
     extra = {"resumed_from_step": resumed} if resumed is not None else {}
     out = summarize(result, metrics, metrics_path=r.metrics_path, **extra)
     if _return_state:

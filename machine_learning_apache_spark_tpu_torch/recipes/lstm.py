@@ -1,5 +1,5 @@
 """LSTM recipe — the AG_NEWS text classification workload (C9); the port of
-``machine_learning_apache_spark_tpu/recipes/lstm.py`` on one device.
+``machine_learning_apache_spark_tpu/recipes/lstm.py``.
 
 Sequential form: ``pytorch_lstm.py:131-188`` — basic_english tokenizer, vocab
 with pad/sos/eos/unk, truncate-128 transform chain, Embedding(32) → 2-layer
@@ -13,7 +13,9 @@ tokenizes per batch inside it, ``pytorch_lstm.py:148``).
 of small launches: ``steps_per_call=K`` runs K steps as one CUDA graph.
 ``bucket_by_length`` pads each training batch to the smallest of a few
 boundaries (``data.bucketing``); it takes one step per call. Checkpoint
-and resume as in ``recipes._common.fit_recipe``.
+and resume as in ``recipes._common.fit_recipe``. Under
+``launcher.Distributor`` each rank trains its shard and the gradients are
+all-reduced (``use_mesh``, the default; ``train.loop.fit(mesh=)``).
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from machine_learning_apache_spark_tpu_torch.recipes._common import (
     fit_recipe,
     make_bucketed_loader,
     make_loaders,
+    resolve_mesh,
     summarize,
     with_overrides,
 )
@@ -131,9 +134,10 @@ def train_lstm(
     test_ds = ArrayDataset(pipe(test_texts), test_labels)
     # Under bucketing the fixed-width train loader is never used: build only
     # the test loader (eval keeps the fixed width for full coverage).
+    mesh = resolve_mesh(r.use_mesh)
     train_loader, test_loader = make_loaders(
         None if r.bucket_by_length else train_ds, test_ds,
-        batch_size=r.batch_size, seed=r.seed,
+        batch_size=r.batch_size, mesh=mesh, seed=r.seed,
     )
     if r.bucket_by_length:
         train_loader = make_bucketed_loader(
@@ -141,6 +145,7 @@ def train_lstm(
             pipe.ragged(train_texts),
             train_labels,
             batch_size=r.batch_size,
+            mesh=mesh,
             full_width=r.max_seq_len + 1,  # the fixed width (incl. eos)
             boundaries=r.bucket_boundaries,
             seed=r.seed,
@@ -164,11 +169,13 @@ def train_lstm(
         r, state,
         classification_loss(model, last_timestep=True, pad_id=head_pad),
         train_loader,
+        mesh=mesh,
     )
     metrics = evaluate(
         result.state,
         classification_loss(model, last_timestep=True, train=False, pad_id=head_pad),
         test_loader,
+        mesh=mesh,
     )
     extra = {"resumed_from_step": resumed} if resumed is not None else {}
     if r.bucket_by_length:

@@ -1,13 +1,14 @@
 """MLP recipe — the reference's MLP entry points as one function (C3 + C4);
-the port of ``machine_learning_apache_spark_tpu/recipes/mlp.py`` on one
-device.
+the port of ``machine_learning_apache_spark_tpu/recipes/mlp.py``.
 
 Sequential form: ``pytorch_multilayer_perceptron.py:83-146`` — libsvm 4-class
 data via Spark, 4-5-4-3 sigmoid MLP, CrossEntropy, SGD(lr=0.03), 100 epochs,
 batch 30, 60/40 split, then an eval pass printing accuracy. The
 distributed form (``distributed_multilayer_perceptron.py:96-181``) is the
-same recipe on a mesh, which this port does not run yet (ROADMAP A4);
-``use_mesh`` is accepted and means one device.
+same recipe under ``launcher.Distributor``: with ``use_mesh`` (the
+default) each rank trains its ``DistributedSampler`` shard at
+``batch_size`` rows and the gradients are all-reduced
+(``recipes._common.resolve_mesh``, ``train.loop.fit(mesh=)``).
 
 ``train_mlp`` runs on the card unless ``device="cpu"`` is passed
 (``utils.device.resolve_device``). ``steps_per_call=K`` runs K steps per
@@ -28,6 +29,7 @@ from machine_learning_apache_spark_tpu_torch.models.mlp import MLP
 from machine_learning_apache_spark_tpu_torch.recipes._common import (
     fit_recipe,
     make_loaders,
+    resolve_mesh,
     summarize,
     with_overrides,
 )
@@ -86,17 +88,22 @@ def train_mlp(
             seed=r.seed,
         )
     )
+    mesh = resolve_mesh(r.use_mesh)
     train_frame, test_frame = frame.random_split(
         [r.train_fraction, 1 - r.train_fraction], seed=r.seed
     )
     train_loader, test_loader = make_loaders(
         ArrayDataset(*train_frame.arrays()), ArrayDataset(*test_frame.arrays()),
-        batch_size=r.batch_size, seed=r.seed,
+        batch_size=r.batch_size, mesh=mesh, seed=r.seed,
     )
     model = MLP(r.layers, generator=torch.Generator().manual_seed(r.seed)).to(dev)
     state = TrainState.create(model=model, tx=make_optimizer("sgd", r.learning_rate))
-    result, resumed = fit_recipe(r, state, classification_loss(model), train_loader)
-    metrics = evaluate(result.state, classification_loss(model, train=False), test_loader)
+    result, resumed = fit_recipe(
+        r, state, classification_loss(model), train_loader, mesh=mesh
+    )
+    metrics = evaluate(
+        result.state, classification_loss(model, train=False), test_loader, mesh=mesh
+    )
     extra = {"resumed_from_step": resumed} if resumed is not None else {}
     out = summarize(result, metrics, metrics_path=r.metrics_path, **extra)
     if _return_state:

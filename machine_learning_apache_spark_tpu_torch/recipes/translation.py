@@ -1,6 +1,5 @@
 """Machine-translation recipe — the Multi30k Transformer workload (C24), the
-port of ``machine_learning_apache_spark_tpu/recipes/translation.py`` on one
-device.
+port of ``machine_learning_apache_spark_tpu/recipes/translation.py``.
 
 Reference: ``pytorch_machine_translator.py:107-209`` — en→de pairs, dual
 vocabs with fixed length-200 transform chains, encoder-decoder Transformer
@@ -30,10 +29,16 @@ eval keeps the fixed width) and ``pack_sequences`` (several pairs per
 row behind block-diagonal segment masks, ``data.packing``; its dense
 masks take the plain attention path, as they take the fused-XLA path in
 the JAX package, so the packed step launches no flash kernel). The
-combinations the JAX recipe rejects raise the same ``ValueError``. The
-mesh fields raise ``NotImplementedError`` when set away from their
-defaults (ROADMAP queue A4); ``use_mesh`` is accepted (one card: nothing
-to shard).
+combinations the JAX recipe rejects raise the same ``ValueError``.
+
+Under ``launcher.Distributor`` the recipe trains data-parallel
+(``use_mesh``, the default): each rank takes its ``DistributedSampler``
+shard at ``batch_size`` rows, and ``train.loop.fit(mesh=)`` weights each
+rank's gradient by its share of the global batch's valid target tokens
+(the losses' ``loss_weight``), so the gang trains on the global batch's
+token mean as the JAX ``fit(mesh=)`` does. The other mesh fields raise
+``NotImplementedError`` when set away from their defaults (ROADMAP queue
+A4).
 """
 
 from __future__ import annotations
@@ -73,6 +78,7 @@ from machine_learning_apache_spark_tpu_torch.recipes._common import (
     default_compute_dtype,
     make_bucketed_loader,
     make_loaders,
+    resolve_mesh,
     summarize,
     with_overrides,
 )
@@ -239,6 +245,10 @@ def make_translation_loss(pad_id: int, *, train: bool = True):
         logits = model(src, trg[:, :-1], dropout_rng=dropout_rng)
         return masked_token_cross_entropy(logits, trg[:, 1:], pad_id), {}
 
+    # What the loss averages over — the batch's valid target tokens — so
+    # a gang weights each rank's gradient by its share of the global count
+    # (parallel.data_parallel).
+    loss_fn.loss_weight = lambda batch: (batch[1][:, 1:] != pad_id).sum()
     return loss_fn
 
 
@@ -269,14 +279,20 @@ def make_packed_translation_loss(pad_id: int, *, train: bool = True):
             dropout_rng=rng if train else None,
         )
         labels = trg[:, 1:]
-        # Score a position only when its label belongs to the SAME segment
-        # as its input token: pad labels drop (segment 0) and so does each
-        # segment's boundary into the next.
-        scored = (trg_seg[:, 1:] == tin_seg) & (tin_seg > 0) & (labels != pad_id)
         per_tok = cross_entropy(logits, labels, reduction="none")
+        scored = _packed_scored(trg, trg_seg, pad_id)
         return (per_tok * scored).sum() / scored.sum().clamp_min(1), {}
 
+    loss_fn.loss_weight = lambda batch: _packed_scored(batch[3], batch[4], pad_id).sum()
     return loss_fn
+
+
+def _packed_scored(trg: torch.Tensor, trg_seg: torch.Tensor, pad_id: int) -> torch.Tensor:
+    """The packed loss's scored positions: a label counts only when it
+    belongs to the SAME segment as its input token — pad labels drop
+    (segment 0) and so does each segment's boundary into the next."""
+    tin_seg = trg_seg[:, :-1]
+    return (trg_seg[:, 1:] == tin_seg) & (tin_seg > 0) & (trg[:, 1:] != pad_id)
 
 
 def bleu_decode(
@@ -357,15 +373,17 @@ def train_translator(
     model = Transformer(cfg, generator=torch.Generator().manual_seed(r.seed)).to(dev)
     # Under bucketing the fixed-width train loader is never used: eval
     # keeps the fixed width (full coverage).
+    mesh = resolve_mesh(r.use_mesh)
     train_loader, val_loader = make_loaders(
         None if r.bucket_by_length else train_ds, val_ds,
-        batch_size=r.batch_size, seed=r.seed,
+        batch_size=r.batch_size, mesh=mesh, seed=r.seed,
     )
     if r.bucket_by_length:
         train_loader = make_bucketed_loader(
             BucketByLengthPairsLoader,
             *ragged(pairs),
             batch_size=r.batch_size,
+            mesh=mesh,
             full_width=r.max_len,
             boundaries=r.bucket_boundaries,
             seed=r.seed,
@@ -442,9 +460,11 @@ def train_translator(
             steps_per_call=r.steps_per_call,
             prefetch_to_device=r.prefetch_to_device,
             resume=resumed is not None,
+            mesh=mesh,
         )
         metrics = evaluate(
-            result.state, make_translation_loss(cfg.pad_id, train=False), val_loader
+            result.state, make_translation_loss(cfg.pad_id, train=False), val_loader,
+            mesh=mesh,
         )
     extra: dict = {}
     if resumed is not None:

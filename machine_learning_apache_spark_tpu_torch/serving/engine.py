@@ -30,8 +30,10 @@ counted alike. ``compile_count()`` is the number of programs (paged:
 engine's figures) and ``recompiles_after_warmup`` how many were added
 after warmup — 0 in a healthy steady state.
 
-Not ported yet (ROADMAP): the telemetry HTTP server, status and health
-providers, flight-recorder dumps and fault-injection sites.
+Each batch (padded) or launch (paged) passes the ``decode_batch``
+fault-injection site (``utils.faults.maybe_fault``) on the host before
+its program runs, and a quarantine dumps the flight recorder. Not ported
+yet (ROADMAP A6): the engine's ``/statusz`` and ``/healthz`` providers.
 """
 
 from __future__ import annotations
@@ -72,6 +74,7 @@ from machine_learning_apache_spark_tpu_torch.telemetry import (
 )
 from machine_learning_apache_spark_tpu_torch.train.metrics import strip_special_ids
 from machine_learning_apache_spark_tpu_torch.utils import env as envcfg
+from machine_learning_apache_spark_tpu_torch.utils.faults import maybe_fault
 from machine_learning_apache_spark_tpu_torch.utils.graph_cache import ProgramCache
 from machine_learning_apache_spark_tpu_torch.utils.logging import get_logger
 
@@ -200,6 +203,10 @@ class ServingEngine:
             on_slo=self.metrics.on_slo,
         )
         self._stop = threading.Event()
+        # Monotonic sequence over dispatched batches/launches — the
+        # ``decode_batch`` fault-injection coordinate (worker thread
+        # only; no lock needed).
+        self._batch_seq = 0
         self._worker: threading.Thread | None = None
         self._compiles_at_warmup: int | None = None
         if kv_mode == "padded":
@@ -486,8 +493,13 @@ class ServingEngine:
             )
 
     def _paged_step(self) -> None:
-        """One page-growth pass, the deadline sweep, one launch, then
-        host-side retirement of every finished row."""
+        """One fault-injection point, one page-growth pass, the deadline
+        sweep, one launch, then host-side retirement of every finished
+        row. The fault point is on the host, before the launch's graph
+        replays."""
+        seq = self._batch_seq
+        self._batch_seq += 1
+        maybe_fault("decode_batch", batch=seq)
         for row in self.runtime.grow():
             req = self.runtime.retire(row)
             self.pool.release_owner(req.id)
@@ -585,6 +597,7 @@ class ServingEngine:
             return
         active = self.runtime.reset()
         log.info("quarantining paged launch of %d: %r", len(active), exc)
+        traces: list[dict] = []
         telemetry.annotate(
             "serving.quarantine", mode="paged", requests=len(active),
             error=type(exc).__name__,
@@ -604,9 +617,19 @@ class ServingEngine:
                 err.__cause__ = exc
                 req.future.set_exception(err)
                 n += 1
+                traces.append(req.trace.to_dict())
                 self.metrics.on_trace(req)
         self.metrics.on_quarantine(n)
         self.metrics.on_failure(n)
+        # The flight dump carries each quarantined request's full trace
+        # timeline — postmortems see where every victim's time went.
+        telemetry.dump_flight(
+            f"serving.quarantine:{type(exc).__name__}",
+            extra={
+                "mode": "paged", "requests_failed": n,
+                "request_traces": traces,
+            },
+        )
 
     def _paged_fail_active(self, exc: Exception) -> None:
         """Engine stopping with rows mid-decode: fail them terminally so
@@ -627,6 +650,7 @@ class ServingEngine:
         """Contain one failed batch: free its KV slots, fail its (and only
         its) requests with ``InternalError``, and count it."""
         log.info("quarantining batch of %d: %r", len(batch.requests), exc)
+        traces: list[dict] = []
         telemetry.annotate(
             "serving.quarantine", mode="padded", boundary=batch.boundary,
             requests=len(batch.requests), error=type(exc).__name__,
@@ -646,9 +670,19 @@ class ServingEngine:
                 err.__cause__ = exc
                 r.future.set_exception(err)
                 n += 1
+                traces.append(r.trace.to_dict())
                 self.metrics.on_trace(r)
         self.metrics.on_quarantine(n)
         self.metrics.on_failure(n)
+        # Flight recorder: the quarantined batch's decode span (errored),
+        # the annotation above, and every victim's trace timeline.
+        telemetry.dump_flight(
+            f"serving.quarantine:{type(exc).__name__}",
+            extra={
+                "boundary": batch.boundary, "requests_failed": n,
+                "request_traces": traces,
+            },
+        )
 
     def _take_slots(self, batch: Batch) -> list[ServeRequest]:
         """All-or-nothing slot acquisition for the batch's live members,
@@ -692,6 +726,11 @@ class ServingEngine:
         members = self._take_slots(batch)
         if not members:
             return
+        # After slot acquisition, before decode: an injected failure here
+        # exercises the full quarantine path, slot release included.
+        seq = self._batch_seq
+        self._batch_seq += 1
+        maybe_fault("decode_batch", batch=seq)
         batch_start = self.clock()
         for r in members:
             r.trace.mark(

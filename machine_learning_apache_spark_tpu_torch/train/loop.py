@@ -28,9 +28,20 @@ epoch ends and ``resume=True`` continues from the newest valid step.
 ``finally``, so an exception inside the window leaves no profiler
 running.
 
-Single device only: the mesh, ZeRO, elastic resume and the replica sync
-check raise ``NotImplementedError`` naming the ROADMAP item that ports
-them.
+``mesh=`` (``parallel.mesh``) trains data-parallel over the process group
+of a gang: each rank steps on its own slice of the global batch through
+``parallel.data_parallel.make_data_parallel_step`` (the global batch's
+loss, gradients all-reduced once per optimizer step), rank 0's parameters
+are broadcast at the start, each rank draws its dropout from its own
+generator (seeded from the fit's seed and the rank) and
+``sync_check_every=N`` compares the replicas' fingerprints every N
+epochs. Each step passes the ``train_step`` fault-injection site
+(``utils.faults.maybe_fault``) on the host before it runs, and an
+exception out of the loop dumps the flight recorder. Not ported yet, each
+raising ``NotImplementedError`` naming its ROADMAP item: ZeRO-1 and the
+``dp_*`` knobs, elastic resume, ``steps_per_call > 1`` on a mesh of more
+than one process (a gloo collective runs on the host and cannot sit in a
+captured step) and checkpoints in a gang.
 """
 
 from __future__ import annotations
@@ -50,6 +61,7 @@ from machine_learning_apache_spark_tpu_torch.train.metrics import (
     MetricsLogger,
 )
 from machine_learning_apache_spark_tpu_torch.train.state import TrainState
+from machine_learning_apache_spark_tpu_torch.utils.faults import maybe_fault
 from machine_learning_apache_spark_tpu_torch.utils.graph_cache import ProgramCache
 from machine_learning_apache_spark_tpu_torch.utils.logging import get_logger
 from machine_learning_apache_spark_tpu_torch.utils.profiling import StepWindowTracer
@@ -131,6 +143,9 @@ class FitResult:
     # The run's programs (``ProgramCache.stats()``): one per group size
     # and accumulation phase; empty when every step ran singly.
     programs: list[dict] = field(default_factory=list)
+    # On a mesh of more than one process: the gradient all-reduce's
+    # host-timed totals (``GradientComms.stats()``); empty otherwise.
+    comms: dict = field(default_factory=dict)
 
     @property
     def final_loss(self) -> float:
@@ -189,7 +204,10 @@ class StepDispatch:
     A state whose tensors are replaced (``TrainState.load_state_dict``)
     needs a new dispatch: the programs hold the old ones."""
 
-    def __init__(self, state: TrainState, loss_fn: LossFn, rng: torch.Generator):
+    def __init__(
+        self, state: TrainState, loss_fn: LossFn, rng: torch.Generator,
+        step_fn=None,
+    ):
         self.state = state
         self.rng = rng
         self.device = _device_of(state)
@@ -197,7 +215,12 @@ class StepDispatch:
             self.device, eager_first_call=True,
             generators=(rng,) if self.device.type == "cuda" else (),
         )
-        self._step = make_train_step(loss_fn)
+        # ``step_fn`` replaces the single step (the data-parallel one on a
+        # mesh, which takes the host batch: it reads the loss weight there
+        # and moves the batch itself); the K-step program is always the
+        # one-process chain.
+        self._step = step_fn or make_train_step(loss_fn)
+        self._host_batch = step_fn is not None
         self._multi = make_multi_step(loss_fn)
 
     def _program(self, *args):
@@ -205,7 +228,9 @@ class StepDispatch:
         return self._multi(self.state, tuple(fields), self.rng, lrs, phase)
 
     def single(self, batch):
-        _, loss, aux = self._step(self.state, to_device(batch, self.device), self.rng)
+        if not self._host_batch:
+            batch = to_device(batch, self.device)
+        _, loss, aux = self._step(self.state, batch, self.rng)
         return loss[None], {k: v[None] for k, v in aux.items()}
 
     def group(self, batches):
@@ -233,16 +258,15 @@ def _gen_from_meta(gen: torch.Generator, text: str) -> torch.Generator:
 
 
 def _unported(**given) -> None:
-    """Raise for the first argument set away from its default."""
+    """Raise for the first argument set away from what the port runs."""
+    zero = "A4: parallel/zero.py"
     items = {
-        "mesh": ("A4 (distributed)", given["mesh"] is not None),
-        "zero1": ("A4 (distributed)", given["zero1"]),
-        "dp_mode": ("A4 (distributed)", given["dp_mode"] is not None),
-        "dp_bucket_bytes": ("A4 (distributed)", given["dp_bucket_bytes"] is not None),
-        "dp_comms_dtype": ("A4 (distributed)", given["dp_comms_dtype"] is not None),
-        "dp_overlap": ("A4 (distributed)", given["dp_overlap"] is not None),
-        "sync_check_every": ("A4 (distributed)", given["sync_check_every"] != 0),
-        "elastic": ("A4 (train/reshard.py)", given["elastic"] is not None),
+        "zero1": (zero, given["zero1"]),
+        "dp_mode": (zero, given["dp_mode"] not in (None, "replicated")),
+        "dp_bucket_bytes": (zero, given["dp_bucket_bytes"] is not None),
+        "dp_comms_dtype": (zero, given["dp_comms_dtype"] is not None),
+        "dp_overlap": (zero, given["dp_overlap"] is not None),
+        "elastic": ("A4: train/reshard.py", given["elastic"] is not None),
     }
     for name, (item, set_) in items.items():
         if set_:
@@ -314,13 +338,24 @@ def fit(
     profile_window[1])`` (a K-step call enters and leaves the window as
     its first step crosses a boundary) into one Chrome trace there.
 
-    ``prefetch_to_device`` is accepted and, as in the JAX package without a
-    mesh, has nothing to do. The state is updated in place and returned in
-    the result."""
+    ``mesh`` (a ``parallel.mesh.Mesh`` over the gang's process group)
+    trains data-parallel: every rank runs this call on its own loader
+    shard, each step is ``make_data_parallel_step`` (the reported loss is
+    the global batch's, the gradient the global loss's, all-reduced once
+    per optimizer step), rank 0's parameters are broadcast first and each
+    rank's dropout generator is seeded from the fit's seed and its rank.
+    ``sync_check_every=N`` runs ``assert_replicas_in_sync`` after every
+    N-th epoch (one process passes trivially). On a mesh of one process
+    nothing changes, CUDA graphs included. ``FitResult.comms`` holds the
+    gradient all-reduce's host-timed totals.
+
+    ``prefetch_to_device`` is accepted and has nothing to do: the loader
+    already assembles ahead on a thread and the copy to the device is
+    pinned and non-blocking. The state is updated in place and returned
+    in the result."""
     _unported(
-        mesh=mesh, zero1=zero1, dp_mode=dp_mode, dp_bucket_bytes=dp_bucket_bytes,
-        dp_comms_dtype=dp_comms_dtype, dp_overlap=dp_overlap,
-        sync_check_every=sync_check_every, elastic=elastic,
+        zero1=zero1, dp_mode=dp_mode, dp_bucket_bytes=dp_bucket_bytes,
+        dp_comms_dtype=dp_comms_dtype, dp_overlap=dp_overlap, elastic=elastic,
     )
     if data is not None:
         if train_loader is not None:
@@ -330,6 +365,20 @@ def fit(
         raise ValueError("fit needs a train_loader (or data=...)")
     if steps_per_call < 1:
         raise ValueError(f"steps_per_call must be >= 1, got {steps_per_call}")
+    world = mesh.size if mesh is not None else 1
+    if world > 1 and steps_per_call > 1:
+        raise NotImplementedError(
+            "fit(steps_per_call > 1, mesh=...) over more than one process is "
+            "not ported yet (ROADMAP queue A4: collectives in a captured "
+            "step): a gloo collective runs on the host and cannot sit "
+            "inside a CUDA graph"
+        )
+    if world > 1 and checkpointer is not None:
+        raise NotImplementedError(
+            "fit(checkpointer=...) in a gang of more than one process is not "
+            "ported yet (ROADMAP queue A4: gang checkpoints — "
+            "group_agreed_step and the checkpoint group)"
+        )
     emit = emit or log.info
     rng = rng if rng is not None else torch.Generator().manual_seed(0)
     device = _device_of(state)
@@ -352,28 +401,54 @@ def fit(
     if "dropout_rng" in resume_meta:
         _gen_from_meta(step_rng, resume_meta["dropout_rng"])
     else:
-        step_rng.manual_seed(int(torch.randint(_SEED_RANGE, (), generator=rng)))
+        seed = int(torch.randint(_SEED_RANGE, (), generator=rng))
+        if world > 1:
+            # Each rank its own dropout masks (DDP's replicas draw their
+            # own): the fit's seed mixed with the rank. Rank 0 keeps the
+            # one-process seed.
+            seed = (seed + mesh.rank * 0x9E3779B97F4A7C15) % _SEED_RANGE
+        step_rng.manual_seed(seed)
 
-    dispatch = StepDispatch(state, loss_fn, step_rng)
+    step_fn = None
+    if world > 1:
+        from machine_learning_apache_spark_tpu_torch.parallel.data_parallel import (
+            make_data_parallel_step,
+        )
+        step_fn = make_data_parallel_step(loss_fn, mesh)
+        # DDP's constructor broadcast: every replica starts from rank 0's
+        # parameters.
+        step_fn.replica(state.model)
+    dispatch = StepDispatch(state, loss_fn, step_rng, step_fn=step_fn)
     tracer = StepWindowTracer(
         profile_dir, start=profile_window[0], stop=profile_window[1]
     )
-    sink = MetricsLogger(metrics_file) if metrics_file else None
+    # Rank-0 gated like the JAX loop: a gang writing one shared file would
+    # duplicate every record.
+    is_rank0 = mesh is None or mesh.rank == 0
+    sink = MetricsLogger(metrics_file) if metrics_file and is_rank0 else None
     total_timer = Timer("train").start()
     span_timer = Timer("span").start()
     step_losses: list[float] = []
     try:
         with telemetry.span(
             "train.fit", epochs=epochs, steps_per_call=steps_per_call,
-            resumed_step=resumed_step,
+            resumed_step=resumed_step, device=str(device), world=world,
         ):
             try:
                 history = _run_epochs(
                     dispatch, train_loader, epochs, rng, log_every, emit,
                     span_timer, sink, checkpointer, checkpoint_every,
                     steps_per_call, start_epoch, resumed_step or 0,
-                    step_losses, tracer,
+                    step_losses, tracer, mesh, sync_check_every,
                 )
+            except BaseException as e:
+                # Flight recorder: an unhandled exception out of the
+                # training loop ships with its last events (the failing
+                # step's spans are the newest entries).
+                telemetry.dump_flight(
+                    f"train.fit:{type(e).__name__}", extra={"error": str(e)[:500]}
+                )
+                raise
             finally:
                 # Stops a window the run ended or raised inside: the
                 # profiler is process-wide, and a running one would make
@@ -404,6 +479,7 @@ def fit(
         state=state, train_seconds=seconds, history=history,
         resumed_step=resumed_step, step_losses=step_losses,
         programs=dispatch.programs.stats(),
+        comms=step_fn.comms.stats() if step_fn is not None else {},
     )
 
 
@@ -436,7 +512,7 @@ def _drain_into(metrics: MetricBundle, pending: list, loss_name: str,
 def _run_epochs(
     dispatch, train_loader, epochs, rng, log_every, emit, span_timer, sink,
     checkpointer, checkpoint_every, steps_per_call, start_epoch, start_step,
-    step_losses, tracer,
+    step_losses, tracer, mesh=None, sync_check_every=0,
 ):
     state = dispatch.state
     history: list[dict] = []
@@ -460,6 +536,11 @@ def _run_epochs(
                 prev = global_step
                 tracer.on_step(prev)
                 with telemetry.span("train.step", step=prev, count=count):
+                    # On the host, before the step's work: a K-step call
+                    # checks every step it covers, so a step-pinned fault
+                    # fires whatever steps_per_call is.
+                    for s in range(prev, prev + count):
+                        maybe_fault("train_step", step=s)
                     losses, aux = call(arg)
                 global_step += count
                 pending.append((losses, aux, 1))
@@ -496,6 +577,15 @@ def _run_epochs(
                 sink.write({"kind": "epoch", "step": state.step, **computed})
             if log_every:
                 emit(f"epoch {epoch} done | {epoch_metrics.log_line()}")
+            if sync_check_every and (epoch + 1) % sync_check_every == 0:
+                # Before the checkpoint save: a diverged state must raise
+                # here, not be persisted as the newest resumable step.
+                from machine_learning_apache_spark_tpu_torch.parallel.data_parallel import (
+                    assert_replicas_in_sync,
+                )
+
+                div = assert_replicas_in_sync(state, mesh=mesh)
+                emit(f"epoch {epoch} replica divergence: {div:.3g}")
             if checkpointer is not None and (
                 (epoch + 1) % max(checkpoint_every, 1) == 0 or epoch == epochs - 1
             ):
@@ -531,20 +621,45 @@ def evaluate(
 
     Consumes the WHOLE loader, ragged tail included. Per-batch metrics are
     weighted by the batch's row count (not its token count), and the total
-    is returned as ``eval_samples`` so callers can assert full coverage."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "evaluate(mesh=...) is not ported yet (ROADMAP queue A4 (distributed))"
-        )
+    is returned as ``eval_samples`` so callers can assert full coverage.
+
+    With a ``mesh`` over several processes each batch's loss and metrics
+    are the global batch's (``make_data_parallel_eval_step``: every rank
+    passes its own shard), weighted, as in the JAX loop, by this rank's
+    rows, which ``eval_samples`` counts. A local batch whose rows do not
+    divide this rank's share of the data axis is skipped with a warning,
+    the JAX loop's treatment of a ragged local tail under a gang (with one
+    device per rank the share is 1, so none is)."""
+    from machine_learning_apache_spark_tpu_torch.parallel.mesh import DATA_AXIS
+
     emit = emit or log.info
     device = _device_of(state)
-    step_fn = make_eval_step(loss_fn)
+    world = mesh.size if mesh is not None else 1
+    if world > 1:
+        from machine_learning_apache_spark_tpu_torch.parallel.data_parallel import (
+            make_data_parallel_eval_step,
+        )
+
+        step_fn = make_data_parallel_eval_step(loss_fn, mesh)
+    else:
+        eval_step = make_eval_step(loss_fn)
+
+        def step_fn(state, batch, rng):
+            return eval_step(state, to_device(batch, device), rng)
+    local_size = mesh.shape[DATA_AXIS] // world if mesh is not None else 1
     metrics = MetricBundle()
     pending: list[tuple] = []
     total = 0
     for batch in eval_loader:
         n = len(batch[0])
-        loss, aux = step_fn(state, to_device(batch, device), rng)
+        if world > 1 and n % local_size:
+            log.warning(
+                "skipping %d-row ragged eval tail: a process-local tail "
+                "cannot join the sharded step (%d local devices)",
+                n, local_size,
+            )
+            continue
+        loss, aux = step_fn(state, batch, rng)
         total += n
         pending.append((loss, aux, n))
     _drain_into(metrics, pending, "test_loss")

@@ -78,8 +78,37 @@ def register(
 
 # -- the contract ------------------------------------------------------------
 
-# launcher (read for the rank label in logs and telemetry, and by the
-# training slice's DistributedSampler for its default rank and world)
+# core / platform bootstrap
+register(
+    "MLSPARK_PLATFORM", type="str", default=None, subsystem="core",
+    description="Where a gang's ranks run: `cpu` (the host, gloo) or "
+    "`cuda`; unset means the card. Set by Distributor(platform=...).",
+)
+
+# launcher / rendezvous / gang liveness (also read for the rank label in
+# logs and telemetry, and by DistributedSampler for its default rank and
+# world)
+register(
+    "MLSPARK_COORDINATOR", type="str", default=None, subsystem="launcher",
+    description="Rendezvous coordinator `host:port` the launcher writes "
+    "into every worker (maps onto torch.distributed.init_process_group "
+    "over tcp://; MASTER_ADDR/MASTER_PORT are the torch-style aliases).",
+)
+register(
+    "MLSPARK_GANG_ATTEMPT", type="int", default=0, subsystem="launcher",
+    description="Which all-or-nothing gang restart attempt this worker "
+    "belongs to (0 on the first launch).",
+)
+register(
+    "MLSPARK_HEARTBEAT_FILE", type="path", default=None, subsystem="launcher",
+    description="Per-rank heartbeat file the worker rewrites every "
+    "interval; the GangMonitor's liveness signal (mtime) and "
+    "gang-status payload (JSON content).",
+)
+register(
+    "MLSPARK_HEARTBEAT_INTERVAL", type="float", default=1.0, subsystem="launcher",
+    description="Seconds between heartbeat rewrites.",
+)
 register(
     "MLSPARK_NUM_PROCESSES", type="int", default=1, subsystem="launcher",
     description="Gang world size as this worker sees it (WORLD_SIZE "
@@ -128,6 +157,13 @@ register(
 )
 
 register(
+    "MLSPARK_TELEMETRY_HTTP", type="int", default=None, subsystem="telemetry",
+    description="Port for the per-process observability HTTP server "
+    "(/metrics, /healthz, /statusz, /flightz); 0 = ephemeral; unset = no "
+    "server, zero threads.",
+)
+
+register(
     "MLSPARK_TELEMETRY_EVENTS", type="int", default=4096, subsystem="telemetry",
     description="Flight-recorder event-ring capacity (events kept for "
     "/flightz and crash dumps).",
@@ -145,6 +181,19 @@ register(
     description="Head-based trace sampling probability in [0, 1]; the "
     "decision is made once per request at the router/engine entry point "
     "and inherited by every hop.",
+)
+
+# fault injection (read directly by the stdlib-only utils.faults)
+register(
+    "MLSPARK_FAULTS", type="spec", default=None, subsystem="faults",
+    description="Fault-injection plan (semicolon-separated grammar, see "
+    "utils/faults.py): which site fails, on which rank/world/occurrence, "
+    "and how.",
+)
+register(
+    "MLSPARK_FAULTS_DIR", type="path", default=None, subsystem="faults",
+    description="Where fault-marker files are written (evidence that an "
+    "injected fault fired, robust to the process dying mid-action).",
 )
 
 

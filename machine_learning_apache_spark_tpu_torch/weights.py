@@ -116,35 +116,40 @@ def load_flax_params(model: nn.Module, params) -> nn.Module:
     return model
 
 
+def flax_named_parameters(model: nn.Module) -> list[tuple[str, torch.Tensor]]:
+    """Every parameter of ``model`` under its Flax tree path, as a view in
+    the Flax layout (a ``Linear.weight`` transposed, a ``Conv2d.weight``
+    as HWIO) — no copy."""
+    out = []
+    for name, mod in model.named_modules():
+        base = _flax_path(name)
+        if isinstance(mod, nn.Linear):
+            out += [(f"{base}/kernel", mod.weight.T), (f"{base}/bias", mod.bias)]
+        elif isinstance(mod, nn.Conv2d):
+            out += [(f"{base}/kernel", mod.weight.permute(2, 3, 1, 0)), (f"{base}/bias", mod.bias)]
+        elif isinstance(mod, nn.LayerNorm):
+            out += [(f"{base}/scale", mod.weight), (f"{base}/bias", mod.bias)]
+        elif isinstance(mod, nn.Embedding):
+            out.append((f"{base}/embedding", mod.weight))
+        else:
+            out += [
+                (_leaf(base, pname), param)
+                for pname, param in mod.named_parameters(recurse=False)
+            ]
+    return out
+
+
 @torch.no_grad()
 def export_flax_params(model: nn.Module) -> dict:
     """The model's parameters as a Flax tree of numpy float arrays (nested
     dicts under Flax's key names) — the inverse of ``load_flax_params``."""
     tree: dict = {}
-
-    def put(path: str, value: torch.Tensor) -> None:
+    for path, value in flax_named_parameters(model):
         *parents, leaf = path.split("/")
         node = tree
         for key in parents:
             node = node.setdefault(key, {})
         node[leaf] = value.detach().cpu().numpy().copy()
-
-    for name, mod in model.named_modules():
-        base = _flax_path(name)
-        if isinstance(mod, nn.Linear):
-            put(f"{base}/kernel", mod.weight.T)
-            put(f"{base}/bias", mod.bias)
-        elif isinstance(mod, nn.Conv2d):
-            put(f"{base}/kernel", mod.weight.permute(2, 3, 1, 0))
-            put(f"{base}/bias", mod.bias)
-        elif isinstance(mod, nn.LayerNorm):
-            put(f"{base}/scale", mod.weight)
-            put(f"{base}/bias", mod.bias)
-        elif isinstance(mod, nn.Embedding):
-            put(f"{base}/embedding", mod.weight)
-        else:
-            for pname, param in mod.named_parameters(recurse=False):
-                put(_leaf(base, pname), param)
     return tree
 
 

@@ -1019,3 +1019,68 @@ def test_bucketed_recipe_on_the_card_matches_the_cpu(cuda):
     np.testing.assert_allclose(card["fit_result"].step_losses, cpu["fit_result"].step_losses,
                                rtol=1e-3)
     assert card["padding_efficiency"] == cpu["padding_efficiency"] < 1.0
+
+
+# -- the distributed path on the card ------------------------------------------------
+
+
+GANG_CFG = dict(src_vocab_size=41, trg_vocab_size=37, d_model=64, ffn_hidden=128,
+                num_heads=2, num_layers=1, max_len=24, dropout=0.0)
+
+
+@pytest.fixture(scope="module")
+def card_gang():
+    """One 2-rank gang on the card (gloo: the ranks share it), training a
+    small Transformer through ``fit(mesh=)`` on 3 global batches of 8."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the gang's ranks run on it")
+    from machine_learning_apache_spark_tpu_torch.launcher import Distributor, kill_stray_gangs
+
+    rng = np.random.default_rng(31)
+    batches = []
+    for _ in range(3):
+        src = rng.integers(4, 41, (8, 20)).astype(np.int64)
+        trg = rng.integers(4, 37, (8, 19)).astype(np.int64)
+        for i, m in enumerate(rng.integers(3, 19, 8)):
+            trg[i, m:] = 0
+        batches.append((src, trg))
+    ranks = Distributor(num_processes=2, timeout=300).run(
+        "torch_launcher_workers:card_gang", GANG_CFG, batches
+    )
+    assert kill_stray_gangs() == 0
+    return ranks
+
+
+def test_gang_on_the_card_runs_each_rank_on_cuda_over_gloo(card_gang):
+    assert [r["rank"] for r in card_gang] == [0, 1]
+    for r in card_gang:
+        assert r["backend"] == "gloo"
+        assert r["device"] == "cuda:0" and r["param_device"] == "cuda:0"
+        assert r["divergence"] == 0.0
+    assert card_gang[0]["losses"] == card_gang[1]["losses"]  # the global batch's loss
+
+
+def test_gang_ranks_launch_the_training_kernels_three_per_step(card_gang):
+    for r in card_gang:
+        n, steps = r["train_launches"], r["steps"]
+        assert steps == 3
+        assert n["flash_attention_fwd"] == n["flash_attention_bwd_dq"] == 3 * steps
+        assert n["flash_attention_bwd_dkv"] == 3 * steps
+        # evaluate adds one forward per site of its one batch
+        assert r["launches"]["flash_attention_fwd"] == 3 * steps + 3
+
+
+def test_k_steps_per_call_on_a_two_process_mesh_raises(cuda):
+    from machine_learning_apache_spark_tpu_torch.models.transformer import (
+        Transformer,
+        TransformerConfig,
+    )
+    from machine_learning_apache_spark_tpu_torch.parallel.mesh import make_mesh
+    from machine_learning_apache_spark_tpu_torch.recipes.translation import make_translation_loss
+    from machine_learning_apache_spark_tpu_torch.train import loop, state as tstate
+
+    model = Transformer(TransformerConfig(**GANG_CFG)).to(cuda)
+    st = tstate.TrainState.create(model=model, tx=tstate.make_optimizer())
+    with pytest.raises(NotImplementedError, match="collectives in a captured step"):
+        loop.fit(st, make_translation_loss(0), [], epochs=1, steps_per_call=4,
+                 mesh=make_mesh({"data": 2}, world=2, device=cuda))

@@ -399,15 +399,30 @@ def test_unported_recipe_fields_raise(field):
         trecipe.train_translator(device="cpu", **{field: value}, **extra)
 
 
+def _two_process_mesh():
+    # A mesh over a 2-process gang, as a gang's rank would hold it; fit
+    # refuses what is unported before any collective runs.
+    from machine_learning_apache_spark_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh({"data": 2}, world=2, device="cpu")
+
+
 @pytest.mark.parametrize(
-    "kw", [dict(mesh=object()), dict(sync_check_every=1),
-           dict(zero1=True), dict(dp_mode="zero1"), dict(elastic=True)],
+    "kw", [
+        # A mesh and sync checks run since the data-parallel slice; what
+        # stays unported on them: K steps per captured call at world > 1,
+        # and checkpoints in a gang.
+        dict(mesh="gang", steps_per_call=4),
+        dict(sync_check_every=1, mesh="gang", checkpointer=object()),
+        dict(zero1=True), dict(dp_mode="zero1"), dict(elastic=True)],
     ids=lambda kw: next(iter(kw)),
 )
 def test_unported_fit_arguments_raise(kw):
     state = tstate.TrainState.create(
         model=Transformer(TransformerConfig(**TINY)), tx=tstate.make_optimizer()
     )
+    if kw.get("mesh") == "gang":
+        kw = {**kw, "mesh": _two_process_mesh()}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tloop.fit(state, trecipe.make_translation_loss(0), [], epochs=1, **kw)
 
