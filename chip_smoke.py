@@ -156,6 +156,28 @@ Phases, each fatal on failure:
    gang again, with rank 1 raising at step 3 while rank 0 goes into that
    step's all-reduce: a ``GangFailure`` naming rank 1 and the message, no
    stray process group and a flight dump;
+7c. the gang that survives a crash and reports its health — the MT
+   recipe at reference width (dropout 0, 16 a replica) as a 2-rank gang
+   with ``checkpoint_dir``, 2 epochs of 12 steps a rank, once unfaulted
+   and once with rank 1 crashed at step 18 (``MLSPARK_FAULTS``) under
+   ``Distributor(max_restarts=1)``: the crash fired, every rank of the
+   retried gang resumed step 12, and its step losses after the resume and
+   its final parameters equal the unfaulted gang's bit for bit; each
+   rank's flash launches 3 x the steps it ran (+ the eval's forwards);
+   both spawn-to-result walls and their difference, the time to recover.
+   Then rank 1's newest payload cut in half and its pointer set back to
+   step 12: the next run resumes step 12 on both ranks and again ends on
+   the unfaulted gang's bits. The MLlib estimator (4-5-4-3, maxIter 5,
+   the libsvm sample's 60 % split) under a 2-rank gang against one
+   process on the card (atol 1e-5 after rtol 1e-4, JAX's ``TestMeshFit``
+   bound): the gang's fit wall in a fresh gang and again after it, one
+   process's, all-reduces per iteration. The live plane: a
+   paged (fp32) and a padded engine behind the HTTP plane on an
+   ephemeral port, ``/healthz`` 200 -> 503 on a launch quarantined by a
+   ``decode_batch`` fault -> 200 after the next, ``/statusz``'s
+   ``serving`` (and ``prefix_cache``) sections, ``/metrics``' live
+   gauges, and ``/tracez?id=`` of a served request rooted at its
+   ``serving.submit`` span;
 8. times — requests/s, generated tokens/s and peak device memory of each
    engine (paged fp32 and int8, padded, beam); each engine's requests/s
    and device idle share over one profiled window; the host time of the
@@ -3337,6 +3359,313 @@ def gang_slice(torch, hop, card: str) -> dict:
     return out
 
 
+# -- phase 7c: the gang that survives a crash and reports its health ------------
+
+# The fault drill: the MT recipe at reference width as a 2-rank gang, 2
+# epochs of 12 steps per rank (per-replica batch 16), a checkpoint at each
+# epoch's end. Rank 1 crashes at step 18, inside epoch 2, after the
+# step-12 checkpoint.
+DRILL_EPOCHS = 2
+DRILL_CRASH_STEP = 18
+DRILL_RESUME_STEP = 12
+# The MLlib baseline under a gang: the reference's estimator on the libsvm
+# sample's 60 % split; JAX's TestMeshFit bound at maxIter 5.
+MLLIB_GANG = dict(layers=[4, 5, 4, 3], maxIter=5)
+MLLIB_ATOL, MLLIB_RTOL = 1e-5, 1e-4
+LIVE_GAUGES = ("queue_depth_live", "kv_page_occupancy", "kv_mem_bytes_in_use", "active_rows")
+
+
+def drill_mt_rank(kw: dict) -> dict:
+    """One rank of the drill's MT gang: ``train_translator`` with
+    ``checkpoint_dir`` under the gang, this rank's launches counted in its
+    own process. Every rank's resumed step, steps run and launches; rank
+    0's step losses and final parameters (on the host)."""
+    import torch.distributed as dist
+
+    from machine_learning_apache_spark_tpu_torch.ops import hopper_attention as hop
+    from machine_learning_apache_spark_tpu_torch.recipes.translation import train_translator
+
+    hop.reset_launches()
+    out = train_translator(_return_state=True, **kw)
+    launches = dict(hop.LAUNCHES)
+    state, result = out.pop("state"), out.pop("fit_result")
+    rank = dist.get_rank()
+    ranks = _gather(dict(rank=rank, resumed=out.get("resumed_from_step"), final_step=state.step,
+                         steps_run=len(result.step_losses), launches=launches))
+    params = ({k: v.detach().cpu() for k, v in state.model.state_dict().items()}
+              if rank == 0 else None)
+    return dict(out=out, step_losses=result.step_losses, params=params, ranks=ranks)
+
+
+def mllib_gang_rank(data_path: str, layers: list, max_iter: int) -> dict:
+    """One rank of the MLlib gang: ``fit(mesh=data_parallel_mesh())`` on
+    the sample's 60 % split, twice (the first in a fresh gang, the second
+    after it). Rank 0's parameters, both fit walls, iterations and
+    all-reduce count, and whether every rank ended on the same bits."""
+    import torch
+
+    from machine_learning_apache_spark_tpu_torch.data.libsvm import read_libsvm
+    from machine_learning_apache_spark_tpu_torch.mllib import MultilayerPerceptronClassifier
+    from machine_learning_apache_spark_tpu_torch.parallel import data_parallel_mesh
+
+    train, _ = read_libsvm(data_path).random_split([0.6, 0.4], seed=1234)
+    mesh = data_parallel_mesh()
+    est = MultilayerPerceptronClassifier(layers=list(layers), maxIter=max_iter)
+    first = est.fit(train, mesh=mesh)
+    model = est.fit(train, mesh=mesh)
+    flat = torch.cat([p.detach().reshape(-1).cpu() for p in model.mlp.parameters()])
+    gathered = _gather(flat)
+    return dict(params=model.params, fit_seconds=model.fit_seconds,
+                first_fit_seconds=first.fit_seconds, iterations=model.iterations,
+                evaluations=model.evaluations, allreduces=model.allreduces,
+                device=str(next(model.mlp.parameters()).device),
+                ranks_agree=all(torch.equal(gathered[0], g) for g in gathered))
+
+
+def _drill_run(label: str, directory: Path, env: dict | None = None, **kw) -> tuple[dict, float]:
+    from machine_learning_apache_spark_tpu_torch.launcher import Distributor, kill_stray_gangs
+
+    t0 = time.perf_counter()
+    out = Distributor(num_processes=GANG, timeout=600, env=env or {}, **kw).run(
+        "chip_smoke:drill_mt_rank", dict(GANG_MT, epochs=DRILL_EPOCHS, checkpoint_dir=str(directory)))
+    wall = time.perf_counter() - t0
+    if kill_stray_gangs() != 0:
+        fail(f"the {label} gang left a stray process group")
+    return out, wall
+
+
+def _same_run(label: str, got: dict, want: dict, from_step: int) -> None:
+    """Fail unless ``got``'s step losses equal ``want``'s from
+    ``from_step`` on and its final parameters equal ``want``'s, bit for
+    bit."""
+    import torch
+
+    if list(got["step_losses"]) != list(want["step_losses"][from_step:]):
+        fail(f"{label}: step losses after the resume {got['step_losses']} are not the unfaulted "
+             f"gang's {want['step_losses'][from_step:]}")
+    differ = [k for k, v in want["params"].items() if not torch.equal(got["params"][k], v)]
+    if differ:
+        fail(f"{label}: final parameters differ from the unfaulted gang's in {differ}")
+
+
+def _check_drill_launches(label: str, run: dict, eval_fwd: int) -> None:
+    for rk in run["ranks"]:
+        n, steps = rk["launches"], rk["steps_run"]
+        if n["flash_attention_bwd_dq"] != 3 * steps or n["flash_attention_bwd_dkv"] != 3 * steps \
+                or n["flash_attention_fwd"] != 3 * steps + eval_fwd:
+            fail(f"{label} rank {rk['rank']}: launches {n} are not 3 x its {steps} steps "
+                 f"(+ {eval_fwd} forwards in eval)")
+
+
+def _http_json(url: str) -> tuple[int, dict]:
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=10) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _http_text(url: str) -> str:
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=10) as r:
+        return r.read().decode()
+
+
+def _wait_health(url: str, code: int, seconds: float = 10.0) -> tuple[int, dict]:
+    deadline = time.monotonic() + seconds
+    while True:
+        got = _http_json(url)
+        if got[0] == code or time.monotonic() > deadline:
+            return got
+        time.sleep(0.01)
+
+
+def live_plane(torch, hop, translator, prompts, card: str) -> dict:
+    """Phase 7c's live plane: a paged engine (fp32 pages) and a padded one
+    on the card behind the HTTP plane on an ephemeral port. /healthz 200,
+    503 on a quarantined launch (an injected ``decode_batch`` fault), 200
+    after the next good one; /statusz's sections, /metrics' live gauges,
+    and /tracez of a served request rooted at its ``serving.submit``."""
+    from machine_learning_apache_spark_tpu_torch import telemetry
+    from machine_learning_apache_spark_tpu_torch.serving import InternalError
+    from machine_learning_apache_spark_tpu_torch.utils import faults
+
+    srv = telemetry.start_http_server(port=0)
+    if srv is None:
+        fail("the HTTP plane did not start (is MLSPARK_TELEMETRY=0 set?)")
+    out = {}
+    try:
+        for label, kw in (("paged fp32", dict(kv_dtype="float32", **SERVE)), ("padded", SERVE_PADDED)):
+            eng = translator.serve(**kw)
+            hop.reset_launches()
+            faults.install(faults.FaultPlan.from_spec("raise@decode_batch:batch=0"))
+            try:
+                before = _http_json(srv.url("/healthz"))
+                victim = eng.submit(prompts[0])
+                try:
+                    victim.result(timeout=120)
+                    fail(f"{label}: the request of the faulted launch completed")
+                except InternalError:
+                    pass
+                degraded = _wait_health(srv.url("/healthz"), 503)
+                served = [eng.submit(p) for p in prompts[1:9]]
+                texts = [f.result(timeout=120) for f in served]
+                recovered = _wait_health(srv.url("/healthz"), 200)
+                status = _http_json(srv.url("/statusz"))
+                metrics = _http_text(srv.url("/metrics"))
+                tid = served[0].trace.trace_id
+                tree = _http_json(srv.url(f"/tracez?id={tid}"))
+            finally:
+                faults.clear()
+                eng.stop()
+            launches = dict(hop.LAUNCHES)
+            sections = sorted(status[1].get("sections", {}))
+            gauges = [g for g in LIVE_GAUGES if f"serving_{g}" in metrics]
+            roots = [n["name"] for n in tree[1].get("roots", [])]
+            check = degraded[1].get("checks", {}).get("serving", {})
+            log(f"  live plane, {label} engine: /healthz {before[0]} -> {degraded[0]} "
+                f"({degraded[1].get('status')}, quarantined {check.get('quarantined')}) on the "
+                f"quarantined launch -> {recovered[0]} after the next good one; /statusz sections "
+                f"{sections}; /metrics live gauges {gauges}; /tracez?id={tid}: roots {roots}, "
+                f"orphans {len(tree[1].get('orphans', []))}, annotations "
+                f"{len(tree[1].get('annotations', []))}, spans {tree[1].get('span_count')}; "
+                f"{len(texts)} requests served; launches {launches} [{card}]")
+            want_sections = {"serving"} | ({"prefix_cache"} if eng.runtime is not None else set())
+            want_gauges = LIVE_GAUGES if eng.runtime is not None else LIVE_GAUGES[:1]
+            if (before[0], degraded[0], recovered[0]) != (200, 503, 200):
+                fail(f"{label}: /healthz read {before[0]} -> {degraded[0]} -> {recovered[0]}, "
+                     "not 200 -> 503 -> 200")
+            if not want_sections <= set(sections) or tuple(gauges) != tuple(want_gauges):
+                fail(f"{label}: /statusz sections {sections}, /metrics gauges {gauges}")
+            if tree[0] != 200 or roots != ["serving.submit"] or tree[1].get("orphans") \
+                    or "annotations" not in tree[1]:
+                fail(f"{label}: /tracez of a served request returned {tree}")
+            if not all(isinstance(t, str) for t in texts):
+                fail(f"{label}: the requests after the quarantine did not complete")
+            kernels = ("flash_attention_fwd", "ragged_paged_attention") \
+                if eng.runtime is not None else ("flash_attention_fwd",)
+            if not all(launches[k] for k in kernels):
+                fail(f"{label}: the engine's kernels did not launch: {launches}")
+            out[label] = dict(healthz=[before[0], degraded[0], recovered[0]], sections=sections,
+                              gauges=gauges, tracez_roots=roots, launches=launches)
+    finally:
+        telemetry.stop_http_server()
+    return out
+
+
+def recovery_slice(torch, hop, translator, prompts, card: str) -> dict:
+    """Phase 7c: the MT gang crashed and retried against the unfaulted
+    gang, group agreement over a torn payload, the MLlib baseline under a
+    gang, and the serving engine's live plane."""
+    import shutil
+
+    from machine_learning_apache_spark_tpu_torch.launcher import Distributor, kill_stray_gangs
+    from machine_learning_apache_spark_tpu_torch.mllib import MultilayerPerceptronClassifier
+    from machine_learning_apache_spark_tpu_torch.data.libsvm import read_libsvm
+    from machine_learning_apache_spark_tpu_torch.train import checkpoint as ckpt
+
+    root = scratch_dir() / "drill"
+    shutil.rmtree(root, ignore_errors=True)
+    out = {}
+
+    # a. The fault drill: unfaulted, then crashed at step 18 and retried.
+    want, wall_ok = _drill_run("unfaulted drill", root / "unfaulted")
+    markers = root / "markers"
+    got, wall_crash = _drill_run(
+        "crashed drill", root / "crashed", max_restarts=1, backoff_base=0.05, term_grace=2.0,
+        env={"MLSPARK_FAULTS": f"crash@train_step:rank=1,step={DRILL_CRASH_STEP}",
+             "MLSPARK_FAULTS_DIR": str(markers)})
+    fired = sorted(p.name for p in markers.iterdir()) if markers.exists() else []
+    steps = len(want["step_losses"])
+    eval_fwd = want["ranks"][0]["launches"]["flash_attention_fwd"] - 3 * steps
+    log(f"  MT gang, {DRILL_EPOCHS} epochs of {steps // DRILL_EPOCHS} steps per rank with "
+        f"checkpoint_dir: unfaulted {wall_ok:.2f} s spawn to result; rank 1 crashed at step "
+        f"{DRILL_CRASH_STEP} (markers {fired}) and the gang retried (max_restarts=1): "
+        f"{wall_crash:.2f} s spawn to result; time to recover (the difference) "
+        f"{wall_crash - wall_ok:.2f} s [{card}]")
+    log(f"    retried gang: resumed_from_step {got['out'].get('resumed_from_step')}, ranks "
+        f"{[(r['rank'], r['resumed'], r['steps_run'], r['final_step']) for r in got['ranks']]} "
+        f"(rank, resumed, steps run, final step); step losses after the resume "
+        f"{[round(float(x), 6) for x in got['step_losses']]}")
+    if not fired:
+        fail("the drill's crash fault never fired")
+    if got["out"].get("resumed_from_step") != DRILL_RESUME_STEP or any(
+            r["resumed"] != DRILL_RESUME_STEP or r["final_step"] != steps for r in got["ranks"]):
+        fail(f"the retried gang did not resume every rank at step {DRILL_RESUME_STEP}: {got['ranks']}")
+    _same_run("the retried gang", got, want, DRILL_RESUME_STEP)
+    _check_drill_launches("unfaulted drill", want, eval_fwd)
+    _check_drill_launches("retried drill", got, eval_fwd)
+    log(f"    the retried gang's step losses and final parameters equal the unfaulted gang's bit "
+        f"for bit (torch.equal on all {len(want['params'])} tensors); launches per rank "
+        f"{[r['launches'] for r in got['ranks']]}")
+    out["drill"] = dict(wall_unfaulted=wall_ok, wall_crashed=wall_crash,
+                        time_to_recover=wall_crash - wall_ok,
+                        resumed_from_step=got["out"].get("resumed_from_step"),
+                        launches=[r["launches"] for r in got["ranks"]])
+
+    # b. Group agreement: rank 1's newest payload torn and its pointer back
+    # at the older step, as a rank killed mid-save leaves them. A new run
+    # of one more epoch resumes the older step on both ranks.
+    r1 = root / "unfaulted" / "ckpt_r1"
+    newest, older = ckpt.pointed_step_of(str(r1)), DRILL_RESUME_STEP
+    payload = r1 / str(newest) / ckpt.PAYLOAD
+    with open(payload, "r+b") as f:
+        f.truncate(payload.stat().st_size // 2)
+    (r1 / ckpt.LATEST_POINTER).write_text(json.dumps({"step": older}))
+    t0 = time.perf_counter()
+    torn = Distributor(num_processes=GANG, timeout=600).run(
+        "chip_smoke:drill_mt_rank", dict(GANG_MT, epochs=1, checkpoint_dir=str(root / "unfaulted")))
+    wall_torn = time.perf_counter() - t0
+    if kill_stray_gangs() != 0:
+        fail("the torn-payload gang left a stray process group")
+    log(f"  torn payload: rank 1's step {newest} cut to half and its pointer set to {older}, rank "
+        f"0's pointer at {ckpt.pointed_step_of(str(root / 'unfaulted' / 'ckpt_r0'))} before the run; "
+        f"the next run resumed {[(r['rank'], r['resumed'], r['final_step']) for r in torn['ranks']]} "
+        f"(rank, resumed, final step), {wall_torn:.2f} s")
+    if any(r["resumed"] != older or r["final_step"] != steps for r in torn["ranks"]):
+        fail(f"the torn-payload gang did not agree on step {older} on both ranks: {torn['ranks']}")
+    _same_run("the torn-payload gang", torn, want, older)
+    out["torn"] = dict(resumed=[r["resumed"] for r in torn["ranks"]], wall=wall_torn)
+
+    # c. The MLlib baseline under a gang, against one process on the card.
+    data = str(Path(__file__).resolve().parent / "assets" / "sample_multiclass_classification_data.txt")
+    t0 = time.perf_counter()
+    mg = Distributor(num_processes=GANG, timeout=600).run(
+        "chip_smoke:mllib_gang_rank", data, MLLIB_GANG["layers"], MLLIB_GANG["maxIter"])
+    wall_gang = time.perf_counter() - t0
+    if kill_stray_gangs() != 0:
+        fail("the MLlib gang left a stray process group")
+    train, _ = read_libsvm(data).random_split([0.6, 0.4], seed=1234)
+    one = MultilayerPerceptronClassifier(**MLLIB_GANG).fit(train)
+    worst = 0.0
+    for name, leaf in one.params.items():
+        for key, want_p in leaf.items():
+            diff = np.abs(np.asarray(mg["params"][name][key]) - want_p)
+            worst = max(worst, float(np.max(diff - MLLIB_RTOL * np.abs(want_p))))
+    per_iter = mg["allreduces"] / max(mg["iterations"], 1)
+    log(f"  MLlib gang ({GANG} ranks on {mg['device']}, layers {MLLIB_GANG['layers']}, maxIter "
+        f"{MLLIB_GANG['maxIter']}, the sample's 60 % split): fit {mg['fit_seconds']:.4f} s, "
+        f"{mg['iterations']} iterations, {mg['evaluations']} loss-and-gradient evaluations, "
+        f"{mg['allreduces']} all-reduces ({per_iter:.2f} per iteration); the gang's first fit "
+        f"{mg['first_fit_seconds']:.4f} s; {wall_gang:.2f} s spawn to "
+        f"result; one process on the card: fit {one.fit_seconds:.4f} s; parameters: max(|diff| - "
+        f"{MLLIB_RTOL} x |want|) {worst:.3e} (gate {MLLIB_ATOL}); ranks agree {mg['ranks_agree']} "
+        f"[{card}]")
+    if worst > MLLIB_ATOL or not mg["ranks_agree"] or mg["allreduces"] != mg["evaluations"]:
+        fail("the MLlib gang's parameters are outside the TestMeshFit bound or its ranks disagree")
+    out["mllib"] = dict(fit_seconds=mg["fit_seconds"], first_fit_seconds=mg["first_fit_seconds"],
+                        one_fit_seconds=one.fit_seconds,
+                        allreduces_per_iteration=per_iter, worst=worst, wall=wall_gang)
+
+    # d. The live plane.
+    out["live"] = live_plane(torch, hop, translator, prompts, card)
+    return out
+
+
 # The reference recipe's vocabularies (pytorch_machine_translator.py's
 # 8004 tokens each side): 17,559,364 parameters, where the fixture's make
 # the same model a third of that.
@@ -3633,6 +3962,12 @@ def main() -> int:
     gangs = gang_slice(torch, hop, card)
     log(f"  phase 7b took {time.perf_counter() - t0:.1f} s")
 
+    log("== phase 7c: the gang that survives a crash and reports its health (gang checkpoints "
+        "and a Distributor retry, group agreement, MLlib fit(mesh=), /healthz, /statusz, /tracez)")
+    t0 = time.perf_counter()
+    recovery = recovery_slice(torch, hop, translator, prompts, card)
+    log(f"  phase 7c took {time.perf_counter() - t0:.1f} s")
+
     log("== phase 8: times")
     for label, run in runs.items():
         log(f"  {label:7s} engine ({run['kv_mode']}): {len(run['outs']) / run['wall']:.2f} requests/s, "
@@ -3724,6 +4059,9 @@ def main() -> int:
         # Each rank counts in its own process; the gang's path sums them.
         f"gang: MT data parallel, {GANG} ranks on one card": [
             r["launches"] for r in gangs["mt"]["ranks"]],
+        "gang: MT fault drill, the retried attempt": recovery["drill"]["launches"],
+        "live plane: paged fp32 engine": [recovery["live"]["paged fp32"]["launches"]],
+        "live plane: padded engine": [recovery["live"]["padded"]["launches"]],
     }
     path_launches = {p: {n: sum(x[n] for x in xs) for n in hop.LAUNCHES} for p, xs in paths.items()}
     kernels = []
@@ -3783,6 +4121,7 @@ def main() -> int:
         cnn=gangs["cnn"], mt={k: v for k, v in gangs["mt"].items() if k not in ("skew", "comms")},
         launches_by_rank={r["rank"]: r["launches"] for r in gangs["mt"]["ranks"]},
         times=gang_times), default=str) + f" [{card}]")
+    log("  recovery: " + json.dumps(recovery, default=str) + f" [{card}]")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -33,8 +33,17 @@ on the host over gloo. Not ported yet, each raising
 ``NotImplementedError`` at construction with its ROADMAP item:
 ``dp_mode="zero1"`` and ``dp_overlap`` (A4: ``parallel/zero.py``),
 ``elastic``, ``elastic_min_world`` and ``rank_restart_budget`` (A4:
-``train/reshard.py``), ``ingest`` (A5). ``max_restarts`` (whole-gang
-retry) is ported.
+``train/reshard.py``), ``ingest`` (A5).
+
+``max_restarts=N`` retries a failed gang whole, up to N times, with the
+same function and arguments. A retried gang resumes rather than starts
+over when its workers checkpoint: each rank saves to its own
+``<root>/ckpt_r<rank>`` (a recipe's ``checkpoint_dir`` does so in a
+gang) and ``fit(resume=True)`` restores the newest step complete on
+every rank (``train.checkpoint.group_agreed_step``). Every attempt of
+one ``run()`` carries the same ``MLSPARK_GANG_RUN`` id, from which a
+recipe tells a retry of its own run (finish it) from a new run over an
+old checkpoint directory (train its epochs more).
 """
 
 from __future__ import annotations
@@ -160,13 +169,23 @@ def gang_failure(
     # slow, must keep rank=None. Of the ranks that raised, the first
     # to fail is the cause: when one rank raises, its peers' pending
     # collectives break within milliseconds, often before the monitor
-    # polls, so the first exit the monitor sees may be a peer's.
+    # polls, so the first exit the monitor sees may be a peer's. A rank
+    # that died WITHOUT raising (a hard crash: no result file) and is the
+    # exit the monitor saw first is the cause itself: its peers' raises
+    # came after, when their collectives broke.
     raised = sorted(
         (r for r in errors if r.failed_at is not None), key=lambda r: r.failed_at
     )
-    real = raised[0] if raised else next(
-        (r for r in errors if "produced no result" not in r.error), None
+    seen_first = (
+        next((r for r in errors if r.rank == failure.rank), None)
+        if failure is not None and failure.cause == "exit" else None
     )
+    if seen_first is not None and seen_first.failed_at is None:
+        real = seen_first
+    else:
+        real = raised[0] if raised else next(
+            (r for r in errors if "produced no result" not in r.error), None
+        )
     primary = real or (errors[0] if errors else None)
     detail = (
         f"\n[rank {primary.rank}] {primary.error}" if primary else ""
@@ -489,6 +508,8 @@ class Distributor:
             envcfg.put_into(env, "MLSPARK_NUM_PROCESSES", n)
             envcfg.put_into(env, "MLSPARK_PROCESS_ID", rank)
             envcfg.put_into(env, "MLSPARK_GANG_ATTEMPT", attempt)
+            # One id per run() call, the same on every attempt.
+            envcfg.put_into(env, "MLSPARK_GANG_RUN", os.path.basename(workdir))
             envcfg.put_into(env, "MLSPARK_HEARTBEAT_FILE", heartbeat_path)
             envcfg.put_into(
                 env, "MLSPARK_HEARTBEAT_INTERVAL", self.heartbeat_interval

@@ -1,5 +1,5 @@
 """MLlib-parity MLP classifier: full-batch L-BFGS training; the port of
-``machine_learning_apache_spark_tpu/mllib/classifier.py`` on one device.
+``machine_learning_apache_spark_tpu/mllib/classifier.py``.
 
 Reference C1 (``mllib_multilayer_perceptron_classifier.py:32-39``):
 ``MultilayerPerceptronClassifier(layers=[4,5,4,3], maxIter=100, blockSize=30,
@@ -16,7 +16,10 @@ port's ``MLP``), with the JAX fit's ``tol`` rule: from the iteration
 after the loss improvement first falls below ``tol``, the parameters and
 the optimizer state stay as they are and every later iteration records
 the same loss. ``fit`` runs on the card unless ``device="cpu"`` is
-passed; ``mesh=`` (the sharded full batch) raises: it is ROADMAP A4.
+passed. ``fit(mesh=)`` over a gang is MLlib's treeAggregate: each rank
+holds its block of the rows, and every loss-and-gradient evaluation sums
+the ranks' parts with one all-reduce, so every rank walks the same
+L-BFGS.
 """
 
 from __future__ import annotations
@@ -67,12 +70,17 @@ class MultilayerPerceptronClassificationModel:
     pair. ``mlp`` holds the trained weights on the fit's device;
     ``loss_history`` is one loss per iteration (``maxIter`` of them),
     ``iterations`` the iterations that updated the parameters (the
-    count the JAX fit logs), ``fit_seconds`` the fit's wall time."""
+    count the JAX fit logs), ``fit_seconds`` the fit's wall time,
+    ``evaluations`` the loss-and-gradient evaluations (line-search trials
+    included) and ``allreduces`` the gang all-reduces (one per
+    evaluation over a mesh of several processes, else 0)."""
 
     mlp: MLP
     loss_history: np.ndarray = field(repr=False, default=None)
     iterations: int = 0
     fit_seconds: float = 0.0
+    evaluations: int = 0
+    allreduces: int = 0
 
     @property
     def params(self) -> dict:
@@ -160,20 +168,27 @@ class MultilayerPerceptronClassifier:
         device: str | torch.device | None = None,
         initial_params: dict | None = None,
     ) -> MultilayerPerceptronClassificationModel:
-        """Full-batch fit on ``device`` (the card unless ``"cpu"``).
+        """Full-batch fit on ``device`` (the card unless ``"cpu"``; in a
+        gang, the rank's own device).
 
         The MLP starts from Flax's initialisers drawn from ``seed`` with a
         ``torch.Generator``, or from ``initial_params`` (a Flax-layout tree,
-        e.g. the JAX fit's initial parameters) when given."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "MultilayerPerceptronClassifier.fit(mesh=...) is not ported yet "
-                "(ROADMAP queue A4 (distributed))"
-            )
+        e.g. the JAX fit's initial parameters) when given — the same on
+        every rank.
+
+        ``mesh`` (a ``parallel.mesh.Mesh`` over the gang) shards the rows
+        over ``"data"`` as the JAX fit does: padded with zero-weight rows
+        to a multiple of the world, each rank takes its contiguous block
+        (``batch_sharding``'s order). Every loss-and-gradient evaluation,
+        line-search trials included, all-reduces ``[Σ w·loss, Σ w, Σ
+        ∇(w·loss)]`` (one collective) and divides, so every rank takes the
+        same steps; each returns the model. A mesh of one process is the
+        single-device fit, bit for bit."""
         solver = self.solver.lower()
         if solver not in ("l-bfgs", "lbfgs", "gd"):
             raise ValueError(f"unsupported solver {self.solver!r}")
-        dev = resolve_device(device)
+        world = mesh.size if mesh is not None else 1
+        dev = mesh.device if world > 1 and device is None else resolve_device(device)
         features, labels = frame.arrays()
         x = torch.as_tensor(features, device=dev)
         y = torch.as_tensor(labels, device=dev)
@@ -183,15 +198,33 @@ class MultilayerPerceptronClassifier:
         mlp.to(dev)
         flat = _FlatParams(mlp)
         n = x.shape[0]
+        counts = {"evaluations": 0, "allreduces": 0}
 
-        def value_and_grad(w: torch.Tensor):
-            w = w.detach().requires_grad_(True)
-            with torch.enable_grad():
-                logits = torch.func.functional_call(mlp, flat.unflatten(w), (x,))
-                # The JAX fit's weighted mean, every row at weight one.
-                value = torch.sum(cross_entropy(logits, y, reduction="none")) / n
-                (grad,) = torch.autograd.grad(value, w)
-            return value.detach(), grad
+        if world == 1:
+            def value_and_grad(w: torch.Tensor):
+                counts["evaluations"] += 1
+                w = w.detach().requires_grad_(True)
+                with torch.enable_grad():
+                    logits = torch.func.functional_call(mlp, flat.unflatten(w), (x,))
+                    # The JAX fit's weighted mean, every row at weight one.
+                    value = torch.sum(cross_entropy(logits, y, reduction="none")) / n
+                    (grad,) = torch.autograd.grad(value, w)
+                return value.detach(), grad
+        else:
+            x, y, weights = _row_block(x, y, world, mesh.rank)
+
+            def value_and_grad(w: torch.Tensor):
+                counts["evaluations"] += 1
+                counts["allreduces"] += 1
+                w = w.detach().requires_grad_(True)
+                with torch.enable_grad():
+                    logits = torch.func.functional_call(mlp, flat.unflatten(w), (x,))
+                    part = torch.sum(cross_entropy(logits, y, reduction="none") * weights)
+                    (grad,) = torch.autograd.grad(part, w)
+                # MLlib's treeAggregate: the gang's sums, then the mean.
+                sums = torch.cat([part.detach().reshape(1), weights.sum().reshape(1), grad])
+                mesh.all_reduce_(sums)
+                return sums[0] / sums[1], sums[2:] / sums[1]
 
         t0 = time.perf_counter()
         w = flat.flatten()
@@ -245,5 +278,21 @@ class MultilayerPerceptronClassifier:
             )
         return MultilayerPerceptronClassificationModel(
             mlp=mlp, loss_history=history_arr, iterations=iterations,
-            fit_seconds=seconds,
+            fit_seconds=seconds, **counts,
         )
+
+
+def _row_block(x: torch.Tensor, y: torch.Tensor, world: int, rank: int):
+    """This rank's contiguous block of the full batch after padding with
+    zero rows to a multiple of ``world``, and the block's row weights
+    (1 for a real row, 0 for padding)."""
+    n = x.shape[0]
+    pad = (-n) % world
+    weights = torch.ones(n, dtype=torch.float32, device=x.device)
+    if pad:
+        x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+        y = torch.cat([y, y.new_zeros((pad,))])
+        weights = torch.cat([weights, weights.new_zeros((pad,))])
+    per = (n + pad) // world
+    rows = slice(rank * per, (rank + 1) * per)
+    return x[rows], y[rows], weights[rows]

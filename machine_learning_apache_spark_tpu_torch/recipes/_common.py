@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
 from typing import Any, Callable
 
 import torch
@@ -29,6 +30,7 @@ from machine_learning_apache_spark_tpu_torch.parallel.mesh import (
     process_index,
 )
 from machine_learning_apache_spark_tpu_torch.train.metrics import MetricsLogger
+from machine_learning_apache_spark_tpu_torch.utils import env as envcfg
 from machine_learning_apache_spark_tpu_torch.utils.logging import get_logger
 
 log = get_logger(__name__)
@@ -264,20 +266,23 @@ def open_checkpointing(
     optimizer code) and takes the newest valid step's values in place.
     Callers pass the manager to ``fit(checkpointer=...)`` and must
     ``close()`` it when done — or use ``checkpointing``, which does.
-    Checkpoints in a gang of several processes are not ported yet."""
+
+    In a gang of several processes each rank checkpoints to its own
+    ``<checkpoint_dir>/ckpt_r<rank>`` (the checkpoint group convention),
+    and the resume is the group-capped ``restore_latest_valid``: every
+    rank restores the newest step complete on all of them, or none."""
     if not checkpoint_dir:
         return None, state, None
-    if process_count() > 1:
-        raise NotImplementedError(
-            "checkpoint_dir in a gang of more than one process is not "
-            "ported yet (ROADMAP queue A4: gang checkpoints — "
-            "group_agreed_step and the checkpoint group)"
-        )
     from machine_learning_apache_spark_tpu_torch.train.checkpoint import (
         CheckpointManager,
     )
 
-    mgr = CheckpointManager(checkpoint_dir, max_to_keep=max_to_keep)
+    directory = checkpoint_dir
+    if process_count() > 1:
+        directory = os.path.join(checkpoint_dir, f"ckpt_r{process_index()}")
+    mgr = CheckpointManager(
+        directory, max_to_keep=max_to_keep, run=envcfg.get_str("MLSPARK_GANG_RUN")
+    )
     resumed = None
     if resume:
         restored = mgr.restore_latest_valid(state)
@@ -285,6 +290,20 @@ def open_checkpointing(
             state, resumed, _ = restored
             log.info("resuming from checkpoint step %d", resumed)
     return mgr, state, resumed
+
+
+def resume_epochs(ckpt, resumed: int, epochs: int) -> int:
+    """The epoch count ``fit`` runs to after resuming step ``resumed``.
+
+    A retried attempt of the same gang run (the step's sidecar carries
+    this run's ``MLSPARK_GANG_RUN`` id) finishes the interrupted run: to
+    the epoch count that run was given. Otherwise ``epochs`` more,
+    numbered on from the checkpoint's — a new run over an old checkpoint
+    directory trains on."""
+    meta = ckpt.read_meta(resumed)
+    if ckpt.run is not None and meta.get("run") == ckpt.run and "epochs" in meta:
+        return int(meta["epochs"])
+    return epochs + int(meta.get("epoch", -1)) + 1
 
 
 def fit_recipe(r, state, loss_fn, train_loader, mesh=None):
@@ -296,13 +315,17 @@ def fit_recipe(r, state, loss_fn, train_loader, mesh=None):
     With a checkpoint to resume from, the run trains ``r.epochs`` more
     epochs numbered on from the checkpoint's, with its loader order and
     dropout stream, so a run cut at an epoch boundary and resumed trains
-    as the uninterrupted run would."""
+    as the uninterrupted run would; a retried gang attempt finishes its
+    own run instead (``resume_epochs``)."""
     from machine_learning_apache_spark_tpu_torch.train.loop import fit
 
+    # The restore below checks the checkpoints' topology stamp, which
+    # names the mesh the state trains on.
+    state.mesh = mesh
     with checkpointing(r.checkpoint_dir, state, resume=r.resume) as (ckpt, state, resumed):
         epochs = r.epochs
         if resumed is not None:
-            epochs += int(ckpt.read_meta(resumed).get("epoch", -1)) + 1
+            epochs = resume_epochs(ckpt, resumed, r.epochs)
         result = fit(
             state,
             loss_fn,

@@ -79,6 +79,7 @@ from machine_learning_apache_spark_tpu_torch.recipes._common import (
     make_bucketed_loader,
     make_loaders,
     resolve_mesh,
+    resume_epochs,
     summarize,
     with_overrides,
 )
@@ -417,6 +418,9 @@ def train_translator(
             accumulate_steps=r.grad_accum,
         ),
     )
+    # The restore checks the checkpoints' topology stamp, which names the
+    # mesh the state trains on.
+    state.mesh = mesh
     with checkpointing(
         r.checkpoint_dir, state, resume=r.resume
     ) as (ckpt, state, resumed):
@@ -438,11 +442,12 @@ def train_translator(
                     grad_clip=r.grad_clip,
                     accumulate_steps=r.grad_accum,
                 )
-            # r.epochs more epochs, numbered on from the checkpoint's: fit's
-            # resume reads the same step's sidecar and continues its loader
-            # order and dropout stream, so a run cut at an epoch boundary
-            # and resumed trains as the uninterrupted run would.
-            epochs += int(ckpt.read_meta(resumed).get("epoch", -1)) + 1
+            # r.epochs more epochs, numbered on from the checkpoint's (a
+            # retried gang attempt finishes its own run): fit's resume
+            # reads the same step's sidecar and continues its loader order
+            # and dropout stream, so a run cut at an epoch boundary and
+            # resumed trains as the uninterrupted run would.
+            epochs = resume_epochs(ckpt, resumed, r.epochs)
         train_loss = (
             make_packed_translation_loss(cfg.pad_id) if r.pack_sequences
             else make_translation_loss(cfg.pad_id)

@@ -32,8 +32,15 @@ after warmup — 0 in a healthy steady state.
 
 Each batch (padded) or launch (paged) passes the ``decode_batch``
 fault-injection site (``utils.faults.maybe_fault``) on the host before
-its program runs, and a quarantine dumps the flight recorder. Not ported
-yet (ROADMAP A6): the engine's ``/statusz`` and ``/healthz`` providers.
+its program runs, and a quarantine dumps the flight recorder.
+
+The live plane, as in the JAX engine: ``start()`` registers the
+``serving`` status and health providers (``/statusz``, ``/healthz``),
+the paged runtime's ``prefix_cache`` section and the live gauges
+``queue_depth_live``, ``kv_page_occupancy``, ``kv_mem_bytes_in_use`` and
+``active_rows`` (``/metrics``), and starts the HTTP server when
+``MLSPARK_TELEMETRY_HTTP`` asks for one. ``/healthz`` turns 503 on a
+quarantine and back at the next batch or launch that completes.
 """
 
 from __future__ import annotations
@@ -92,6 +99,39 @@ class InternalError(RuntimeError):
     this and the decode loop keeps serving. The original exception rides
     along as ``__cause__``.
     """
+
+
+class _HealthWindow:
+    """The /healthz quarantine-recovery window, shared between the decode
+    worker (writes) and HTTP scrape threads (reads). Both timestamps move
+    under one lock so a reader always sees a (quarantine, ok-batch) pair
+    that actually coexisted: two bare loads could pair a fresh ok-batch
+    time with a stale quarantine time and report "recovered" inside the
+    degraded window."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._last_quarantine_t: float | None = None  # guarded-by: self._lock
+        self._last_ok_batch_t: float | None = None  # guarded-by: self._lock
+
+    def note_quarantine(self, t: float) -> None:
+        with self._lock:
+            self._last_quarantine_t = t
+
+    def note_ok_batch(self, t: float) -> None:
+        with self._lock:
+            self._last_ok_batch_t = t
+
+    def snapshot(self) -> tuple[float | None, float | None]:
+        """A consistent (last_quarantine_t, last_ok_batch_t) pair."""
+        with self._lock:
+            return self._last_quarantine_t, self._last_ok_batch_t
+
+    def recovered(self) -> bool:
+        """False while the most recent quarantine has not yet been
+        followed by a successful batch."""
+        lq, lok = self.snapshot()
+        return lq is None or (lok is not None and lok > lq)
 
 
 class ServingEngine:
@@ -209,6 +249,7 @@ class ServingEngine:
         self._batch_seq = 0
         self._worker: threading.Thread | None = None
         self._compiles_at_warmup: int | None = None
+        self._health = _HealthWindow()
         if kv_mode == "padded":
             self.max_active = max_batch
             self.runtime = None
@@ -292,11 +333,42 @@ class ServingEngine:
             target=self._serve_loop, name="serving-engine", daemon=True
         )
         self._worker.start()
+        # The live plane: contribute this engine's state to /statusz,
+        # /healthz and /metrics, and (idempotently) start the HTTP server
+        # — a no-op with zero threads unless MLSPARK_TELEMETRY_HTTP is set
+        # and telemetry is on.
+        telemetry.register_status_provider("serving", self._status_snapshot)
+        telemetry.register_health_provider("serving", self._health_snapshot)
+        telemetry.register_live_gauge(
+            "serving", "queue_depth_live", lambda: self.queue.depth
+        )
+        if self.runtime is not None:
+            # The residency section a prefix-affinity router reads off
+            # /statusz. Looked up per scrape: a quarantine replaces the
+            # runtime's prefix cache.
+            telemetry.register_status_provider(
+                "prefix_cache", lambda: self.runtime.prefix_cache.stats()
+            )
+            telemetry.register_live_gauge(
+                "serving", "kv_page_occupancy",
+                lambda: self.runtime.mem_pool.occupancy,
+            )
+            telemetry.register_live_gauge(
+                "serving", "kv_mem_bytes_in_use",
+                lambda: self.runtime.mem_pool.bytes_in_use,
+            )
+            telemetry.register_live_gauge(
+                "serving", "active_rows", self.runtime.active_count,
+            )
+        telemetry.start_http_server()
+        telemetry.beacon_update(phase="serving")
         return self
 
     def stop(self, *, timeout: float = 30.0) -> None:
         if self._worker is None:
             return
+        telemetry.unregister_provider("serving")
+        telemetry.unregister_provider("prefix_cache")
         self._stop.set()
         with self.queue.cond:
             self.queue.cond.notify_all()
@@ -364,6 +436,46 @@ class ServingEngine:
         if self._compiles_at_warmup is None:
             return None
         return self.compile_count() - self._compiles_at_warmup
+
+    # -- live plane providers (called from HTTP scrape threads) --------------
+    def _health_snapshot(self) -> dict:
+        """/healthz check: worker thread alive, and not in the degraded
+        window between a quarantine and the next successful batch."""
+        worker = self._worker
+        worker_alive = worker is not None and worker.is_alive()
+        recovered = self._health.recovered()
+        return {
+            "healthy": worker_alive and recovered,
+            "worker_alive": worker_alive,
+            "quarantine_recovered": recovered,
+            "kv_mode": self.kv_mode,
+            "kv_dtype": self.kv_dtype,
+            "queue_depth": self.queue.depth,
+            "loop_restarts": self.metrics.loop_restarts,
+            "quarantined": self.metrics.quarantined,
+        }
+
+    def _status_snapshot(self) -> dict:
+        """/statusz section: the engine's live state — config,
+        conservation ledger, latency summary, page-pool stats,
+        slowest-request exemplars."""
+        out = {
+            "kv_mode": self.kv_mode,
+            "kv_dtype": self.kv_dtype,
+            "method": self.method,
+            "boundaries": list(self.boundaries),
+            "max_batch": self.max_batch,
+            "max_active": self.max_active,
+            "max_new_tokens": self.max_new_tokens,
+            "queue_depth": self.queue.depth,
+            "recompiles_after_warmup": self.recompiles_after_warmup,
+            "ledger": self.metrics.ledger(),
+            "metrics": self.metrics.summary(),
+            "slowest_requests": self.metrics.request_exemplars(),
+        }
+        if self.runtime is not None:
+            out["page_pool"] = self.runtime.stats()
+        return out
 
     # -- request path --------------------------------------------------------
     @property
@@ -588,6 +700,9 @@ class ServingEngine:
             queue_depth=self.queue.depth,
             slot_occupancy=self.runtime.mem_pool.occupancy,
         )
+        # A launch completed without raising: the degraded window (if
+        # any) is over — /healthz flips back to ok.
+        self._health.note_ok_batch(decode_done)
 
     def _paged_quarantine(self, exc: Exception) -> None:
         """Contain a failed launch/admission: the page store's contents
@@ -595,6 +710,7 @@ class ServingEngine:
         and the store resets; everything still queued keeps flowing."""
         if self._stop.is_set():
             return
+        self._health.note_quarantine(self.clock())
         active = self.runtime.reset()
         log.info("quarantining paged launch of %d: %r", len(active), exc)
         traces: list[dict] = []
@@ -649,6 +765,7 @@ class ServingEngine:
     def _quarantine(self, batch: Batch, exc: Exception) -> None:
         """Contain one failed batch: free its KV slots, fail its (and only
         its) requests with ``InternalError``, and count it."""
+        self._health.note_quarantine(self.clock())
         log.info("quarantining batch of %d: %r", len(batch.requests), exc)
         traces: list[dict] = []
         telemetry.annotate(
@@ -788,3 +905,5 @@ class ServingEngine:
             queue_depth=self.queue.depth,
             slot_occupancy=self.pool.occupancy,
         )
+        # Batch retired cleanly: end of any post-quarantine degraded window.
+        self._health.note_ok_batch(decode_done)

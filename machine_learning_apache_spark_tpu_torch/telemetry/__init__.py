@@ -13,14 +13,15 @@ One subsystem every layer reports into:
   comms rollup;
 - :mod:`~.recorder` — flight recorder: dump the last ~512 events to
   ``flight_<rank>.json`` at the moment of failure;
+- :mod:`~.traceview` — per-rank event exports stitched into request
+  trees (loaded on demand, not here);
 - :mod:`~.http` — the live plane (``/metrics``, ``/healthz``,
-  ``/statusz``, ``/flightz``).
+  ``/statusz``, ``/flightz``, ``/tracez``).
 
 ``MLSPARK_TELEMETRY=0`` turns every entry point into a no-op singleton;
 ``MLSPARK_TELEMETRY_DIR`` is where rank exports and flight dumps land.
 All submodules are stdlib-only — importable before torch (the launcher's
-runner does exactly that). Not ported yet: ``traceview`` and its
-``/tracez`` (ROADMAP A2.6).
+runner does exactly that).
 """
 
 from machine_learning_apache_spark_tpu_torch.telemetry import (

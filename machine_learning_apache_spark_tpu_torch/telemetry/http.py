@@ -3,7 +3,7 @@ the port of ``machine_learning_apache_spark_tpu/telemetry/http.py``.
 
 JSONL exports, merged reports and flight dumps are post-hoc — readable
 only after the process is done (or dead). This module answers "what is this replica doing *right now*": a background
-stdlib HTTP server exposing the process's live state on four endpoints,
+stdlib HTTP server exposing the process's live state on five endpoints,
 the per-replica signal a least-loaded router or an SRE dashboard scrapes
 (Prometheus conventions on ``/metrics``, JSON everywhere else):
 
@@ -20,11 +20,9 @@ the per-replica signal a least-loaded router or an SRE dashboard scrapes
   section (the serving engine contributes its ledger, page-pool stats,
   and slowest-request trace exemplars);
 - ``/flightz`` — the event-ring tail, i.e. the flight recorder's view
-  without waiting for a crash.
-
-``/tracez`` answers 404 here: the stitched trace tree it serves in the
-JAX package is built by ``telemetry/traceview.py``, which this port has
-not taken yet (ROADMAP A2.6, "telemetry/traceview.py and /tracez").
+  without waiting for a crash;
+- ``/tracez`` — the event ring's traces (``telemetry.traceview``), or one
+  stitched tree with ``?id=<trace id>``.
 
 Env contract: ``MLSPARK_TELEMETRY_HTTP`` is the port (0 = ephemeral);
 unset means no server and **zero threads**. ``MLSPARK_TELEMETRY=0``
@@ -212,11 +210,24 @@ def flightz(n: int = FLIGHTZ_TAIL) -> dict:
     }
 
 
-#: The ``/tracez`` answer until the trace tree is ported.
-TRACEZ_UNPORTED = (
-    "/tracez needs telemetry/traceview.py, which is not ported yet "
-    "(ROADMAP queue A2.6: telemetry/traceview.py and /tracez)"
-)
+def tracez(trace_id: str | None = None) -> dict:
+    """``/tracez`` payload: distributed-trace view over this process's
+    live event ring — trace summaries, or one stitched tree with
+    ``?id=<trace id>``. Single-process by nature (the ring is local);
+    the cross-process merge reads the rank exports
+    (``traceview.load_dir``)."""
+    # Lazy import: traceview pulls aggregate; the HTTP plane must stay
+    # importable (and cheap) for processes that never serve a trace.
+    from machine_learning_apache_spark_tpu_torch.telemetry import (
+        traceview as _traceview,
+    )
+
+    log = _events.get_log()
+    events = [ev.to_dict() for ev in log.snapshot()]
+    payload = _traceview.tracez_payload(events, trace_id)
+    payload["rank"] = _events._env_rank()
+    payload["pid"] = os.getpid()
+    return payload
 
 
 def _build_info() -> dict:
@@ -254,7 +265,10 @@ class _Handler(BaseHTTPRequestHandler):
                     n = max(1, int(m.group(1)))
                 self._reply_json(200, flightz(n))
             elif path == "/tracez":
-                self._reply_json(404, {"error": TRACEZ_UNPORTED})
+                m = re.search(r"(?:^|&)id=([0-9a-fA-F]+)", query)
+                self._reply_json(
+                    200, tracez(m.group(1).lower() if m else None)
+                )
             else:
                 self._reply_json(404, {"error": f"no endpoint {path!r}"})
         except Exception:  # noqa: BLE001 — a scrape must never kill the thread
@@ -447,7 +461,6 @@ def reset() -> None:
 __all__ = [
     "ENV_TELEMETRY_HTTP",
     "FLIGHTZ_TAIL",
-    "TRACEZ_UNPORTED",
     "TelemetryHTTPServer",
     "find_port_sidecars",
     "flightz",
@@ -463,6 +476,7 @@ __all__ = [
     "start_http_server",
     "statusz",
     "stop_http_server",
+    "tracez",
     "unregister_provider",
     "write_port_sidecar",
 ]

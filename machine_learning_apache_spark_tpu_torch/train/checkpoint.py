@@ -16,9 +16,15 @@ On disk, under one directory:
 - ``latest`` — ``{"step": N}``, replaced atomically, naming the newest
   step whose payload and sidecar are both durable.
 
-What is gang-only in the JAX module (per-rank directories, group
-agreement, ``attach_local``, cross-topology reads) comes with the
-distributed layers (ROADMAP A4).
+In a gang each rank checkpoints to its own sibling directory
+``<root>/ckpt_r<rank>`` (``GROUP_DIR_RE``), the JAX package's group
+convention: a manager there finds its peers (``group_rank_dirs``), and a
+resume restores the newest step complete on every rank
+(``group_agreed_step``), so the ranks never restore different steps. The
+group functions read only pointers, sidecars and the integer step
+directories, so they read the JAX package's trees as well as the port's.
+``attach_local``'s 1-D sharded case (ZeRO-1's flat moments) comes with
+``parallel/zero.py``.
 """
 
 from __future__ import annotations
@@ -41,6 +47,25 @@ LATEST_POINTER = "latest"  # <dir>/latest — JSON {"step": N}
 PAYLOAD = "payload.pt"
 PARAMS = "params.pt"
 
+# Gang group convention: rank k of a gang checkpoints to a sibling
+# directory `<root>/ckpt_r<k>`. Managers whose directory matches can
+# locate their peers — the basis for group-agreed fallback.
+GROUP_DIR_RE = re.compile(r"^ckpt_r(\d+)$")
+
+
+class TopologyMismatch(RuntimeError):
+    """A resume found checkpoints written under a different topology and
+    elastic resume is disabled (the port's copy of the JAX
+    ``train.reshard.TopologyMismatch``). The message names BOTH
+    topologies — a wrong-world resume must never silently misload
+    per-rank state."""
+
+
+def _world_size() -> int:
+    import torch.distributed as dist
+
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+
 
 def host_copy(tree):
     """``tree`` with every tensor copied to the host (a blocking copy: it
@@ -55,10 +80,28 @@ def host_copy(tree):
     return tree
 
 
+def detached_payload(state: TrainState) -> dict:
+    """The host checkpoint payload of ``state`` (``TrainState.state_dict``
+    with every tensor copied to the host): what this rank's manager
+    writes, taken before the call returns."""
+    return host_copy(state.state_dict())
+
+
 def topology_stamp(state: TrainState | None = None) -> dict:
-    """The topology a checkpoint was written under: one process, no mesh,
-    replicated (the JAX stamp's keys; the port runs world size 1)."""
-    return {"world_size": 1, "dp_mode": "replicated", "mesh": None, "layout": None}
+    """The topology under which ``state`` checkpoints, in the JAX stamp's
+    keys: the gang's world size (the process group's), the mesh's axis
+    sizes when the state trains on one (``state.mesh``, which
+    ``fit(mesh=)`` sets; ``{"data": world}`` in a gang), and the
+    data-parallel mode, ``"replicated"`` (ZeRO-1's flat layout comes with
+    ``parallel/zero.py``). Stamped into every sidecar; a resume whose own
+    stamp differs raises ``TopologyMismatch`` rather than misload."""
+    mesh = getattr(state, "mesh", None)
+    return {
+        "world_size": _world_size(),
+        "dp_mode": "replicated",
+        "mesh": {str(k): int(v) for k, v in mesh.shape.items()} if mesh is not None else None,
+        "layout": None,
+    }
 
 
 def same_topology(a: dict | None, b: dict | None) -> bool:
@@ -97,6 +140,22 @@ def read_meta_at(directory: str, step: int) -> dict:
         return {}
 
 
+def group_agreed_step(dirs: dict[int, str | None]) -> int | None:
+    """The newest step COMPLETE on every rank of a checkpoint group: the
+    min over rank directories of each ``latest`` pointer (a pointer only
+    advances past durability, so its step is whole on that rank; the min
+    is therefore whole on all). None when any rank has no pointer — the
+    group then has no step it can agree on and every rank must conclude
+    the same (a fresh run), which is the agreement property itself."""
+    steps = []
+    for _, d in sorted(dirs.items()):
+        s = pointed_step_of(d) if d else None
+        if s is None:
+            return None
+        steps.append(s)
+    return min(steps) if steps else None
+
+
 _META_RE = re.compile(r"^meta_(\d+)\.json$")
 
 
@@ -126,6 +185,40 @@ def durable_steps_of(directory: str) -> set[int]:
         int(n) for n in names
         if n.isdigit() and os.path.isdir(os.path.join(directory, n))
     }
+
+
+def group_durable_step(
+    dirs: dict[int, str | None], *, meta_dir: str | None = None
+) -> int | None:
+    """The newest step whose payload is finalized on EVERY rank of a
+    group, preferring (when ``meta_dir`` is given) steps whose sidecar
+    exists there — the authority directory the caller reads the
+    generators, epoch and topology from. Looser than
+    ``group_agreed_step``: it needs no ``latest`` pointer, so a rank that
+    died before its pointer moved still leaves the last step durable
+    everywhere recoverable."""
+    common: set[int] | None = None
+    for _, d in sorted(dirs.items()):
+        steps = durable_steps_of(d) if d else set()
+        if not steps:
+            return None
+        common = steps if common is None else (common & steps)
+    if not common:
+        return None
+    ordered = sorted(common, reverse=True)
+    if meta_dir is not None:
+        for s in ordered:
+            if os.path.exists(os.path.join(meta_dir, f"meta_{s}.json")):
+                return s
+    return ordered[0]
+
+
+def read_raw_payload(directory: str, step: int) -> dict:
+    """One-shot read of ``directory``'s step ``step`` payload onto the
+    host, without opening a manager on it — how a rank reads a peer's
+    checkpoint. (The JAX function takes a shaped target for orbax;
+    ``torch.load`` needs none.)"""
+    return _load(os.path.join(os.path.abspath(directory), str(int(step)), PAYLOAD))
 
 
 def _fsync_dir(path: str) -> None:
@@ -183,11 +276,14 @@ class CheckpointManager:
     first, then every other step newest-first, past any that fails to
     load: corrupt or partial data costs one checkpoint interval, never
     the run. ``max_to_keep`` prunes the oldest steps (never the pointed
-    one)."""
+    one). ``run`` (an id) is stamped into every sidecar as ``"run"``."""
 
-    def __init__(self, directory: str, *, max_to_keep: int = 3):
+    def __init__(self, directory: str, *, max_to_keep: int = 3, run: str | None = None):
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
+        # Stamped into every sidecar this manager writes (the gang run id
+        # a recipe passes), so a retried attempt knows its own steps.
+        self.run = run
         self._last_saved: int | None = None
         self._writer: threading.Thread | None = None
         self._error: Exception | None = None
@@ -217,7 +313,9 @@ class CheckpointManager:
         self._last_saved = step
         meta = dict(meta or {})
         meta.setdefault("topology", topology_stamp(state))
-        payload = host_copy(state.state_dict())
+        if self.run is not None:
+            meta.setdefault("run", self.run)
+        payload = detached_payload(state)
         if wait:
             self._write(step, payload, meta)
         else:
@@ -301,6 +399,65 @@ class CheckpointManager:
         log.info("restored checkpoint step %d from %s", step, self.directory)
         return template, step
 
+    def group_rank_dirs(self) -> dict[int, str] | None:
+        """Sibling rank directories of this checkpoint's gang group
+        (``<root>/ckpt_r<k>``), keyed by rank and including self — or
+        None when the directory does not follow the group convention."""
+        m = GROUP_DIR_RE.match(os.path.basename(self.directory))
+        if not m:
+            return None
+        parent = os.path.dirname(self.directory)
+        try:
+            names = os.listdir(parent)
+        except OSError:
+            return None
+        out = {}
+        for name in names:
+            mm = GROUP_DIR_RE.match(name)
+            if mm and os.path.isdir(os.path.join(parent, name)):
+                out[int(mm.group(1))] = os.path.join(parent, name)
+        return out or None
+
+    def _group_scope(self) -> dict[int, str | None] | None:
+        """Rank directories participating in fallback agreement. Inside a
+        gang, exactly the CURRENT world's ranks — stale higher-rank
+        directories left by a bigger run must not drag the agreed step
+        down. Offline (one process), every sibling present. None when
+        agreement does not apply (no group / no peers)."""
+        dirs = self.group_rank_dirs()
+        if dirs is None:
+            return None
+        world = _world_size()
+        if world > 1:
+            return {r: dirs.get(r) for r in range(world)}
+        return dirs if len(dirs) > 1 else None
+
+    def newest_topology_stamp(self) -> dict | None:
+        """The topology stamp a resume validates against, BEFORE any
+        restore is attempted. Authority order: the lowest-ranked group
+        sibling with a stamped step, then self — so every rank of a gang
+        resolves the SAME old topology even when its own directory is
+        stale or empty."""
+        dirs = self.group_rank_dirs()
+        candidates = (
+            [self.directory] if dirs is None
+            else [dirs[r] for r in sorted(dirs)]
+        )
+        for d in candidates:
+            # Pointer target first, then every finalized step newest-first
+            # — a rank torn down before its pointer moved still has
+            # stamped sidecars for earlier steps.
+            steps = [pointed_step_of(d)] + sorted(durable_steps_of(d), reverse=True)
+            seen: set[int] = set()
+            for step in steps:
+                if step is None or step in seen:
+                    continue
+                seen.add(step)
+                stamp = read_meta_at(d, step).get("topology")
+                if stamp:
+                    return stamp
+        return None
+
     def restore_latest_valid(
         self, template: TrainState
     ) -> tuple[TrainState, int, dict] | None:
@@ -309,8 +466,27 @@ class CheckpointManager:
         newest-first. A step without a sidecar while others have one (a
         torn sidecar write) or stamped with another topology is skipped,
         as is one whose payload fails to load. Returns ``(state, step,
-        meta)``, or None when nothing on disk restores."""
+        meta)``, or None when nothing on disk restores.
+
+        When the directory belongs to a ``ckpt_r<k>`` gang group, the
+        candidates are first capped at the GROUP-AGREED step (min over
+        every rank's pointer): rank k may hold a durable step S while
+        another rank's S is torn, and without the cap the ranks would
+        restore different steps and deadlock the next collective. No
+        agreed step is a fresh start on every rank."""
         steps = sorted(durable_steps_of(self.directory), reverse=True)
+        scope = self._group_scope()
+        if scope is not None:
+            agreed = group_agreed_step(scope)
+            if agreed is None:
+                if steps:
+                    log.warning(
+                        "checkpoint group %s has no step complete on "
+                        "every rank; starting fresh",
+                        os.path.dirname(self.directory),
+                    )
+                return None
+            steps = [s for s in steps if s <= agreed]
         pointed = self.pointed_step()
         if pointed in steps:
             steps.remove(pointed)

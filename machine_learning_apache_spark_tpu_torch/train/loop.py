@@ -257,6 +257,21 @@ def _gen_from_meta(gen: torch.Generator, text: str) -> torch.Generator:
     return gen.set_state(torch.from_numpy(state))
 
 
+def _check_resume_agreed(mesh, step: int | None) -> None:
+    """Raise unless every rank of ``mesh`` restored the same step (or
+    none): ranks on different steps would train different states, or
+    block in different collectives. The group-agreed cap makes them
+    agree; a payload torn under its own pointer is what breaks it."""
+    mine = -1 if step is None else int(step)
+    both = mesh.all_reduce_(torch.tensor([mine, -mine], dtype=torch.int64), op="max")
+    if int(both[0]) != -int(both[1]):
+        raise RuntimeError(
+            f"the gang's ranks resumed from different checkpoint steps "
+            f"(this rank {step}, steps {-int(both[1])}..{int(both[0])} "
+            "across the gang, -1 for none)"
+        )
+
+
 def _unported(**given) -> None:
     """Raise for the first argument set away from what the port runs."""
     zero = "A4: parallel/zero.py"
@@ -326,13 +341,18 @@ def fit(
     ``checkpointer`` (a ``train.checkpoint.CheckpointManager``) saves the
     state every ``checkpoint_every`` epochs and after the last, without
     waiting for the write (``wait=False``); the sidecar holds the epoch,
-    both generators' states and the epoch's metrics. ``resume=True``
-    (with a ``checkpointer``) restores the newest valid checkpoint before
-    training (its parameters copied into the state's own tensors) and
-    continues from the epoch after the saved one with the saved
-    generators, so a resumed run trains bit for bit like an uninterrupted
-    one; no checkpoint on disk is a fresh run. ``FitResult.resumed_step``
-    records which happened.
+    the run's epoch count, both generators' states, the epoch's metrics
+    and the topology stamp.
+    ``resume=True`` (with a ``checkpointer``) restores the newest valid
+    checkpoint before training (its parameters copied into the state's
+    own tensors) and continues from the epoch after the saved one with
+    the saved generators, so a resumed run trains bit for bit like an
+    uninterrupted one; no checkpoint on disk is a fresh run.
+    ``FitResult.resumed_step`` records which happened. In a gang each
+    rank saves through its own manager (``<root>/ckpt_r<rank>``) and
+    resumes the group-agreed step with its own dropout generator; a
+    checkpoint of another topology raises ``TopologyMismatch``, and with
+    a mesh the ranks check that they all resumed the same step.
 
     ``profile_dir`` traces the steps ``[profile_window[0],
     profile_window[1])`` (a K-step call enters and leaves the window as
@@ -373,22 +393,37 @@ def fit(
             "step): a gloo collective runs on the host and cannot sit "
             "inside a CUDA graph"
         )
-    if world > 1 and checkpointer is not None:
-        raise NotImplementedError(
-            "fit(checkpointer=...) in a gang of more than one process is not "
-            "ported yet (ROADMAP queue A4: gang checkpoints — "
-            "group_agreed_step and the checkpoint group)"
-        )
     emit = emit or log.info
     rng = rng if rng is not None else torch.Generator().manual_seed(0)
     device = _device_of(state)
     step_rng = torch.Generator(device=device)
+    if mesh is not None:
+        # The checkpoint's topology stamp names the mesh it trained on.
+        state.mesh = mesh
 
     resumed_step: int | None = None
     resume_meta: dict = {}
     start_epoch = 0
     if resume and checkpointer is not None:
+        from machine_learning_apache_spark_tpu_torch.train import checkpoint as _ckpt
+
+        # Topology is checked BEFORE any restore: every rank resolves the
+        # same old stamp from its group, so every rank takes the same
+        # route.
+        current = _ckpt.topology_stamp(state)
+        old = checkpointer.newest_topology_stamp()
+        if old is not None and not _ckpt.same_topology(old, current):
+            raise _ckpt.TopologyMismatch(
+                f"checkpoints under {checkpointer.directory} were "
+                f"written by a different topology — checkpoint "
+                f"topology {old} vs this run's {current}. Pass "
+                "elastic=True (or set MLSPARK_ELASTIC=1, which "
+                "Distributor(elastic=True) does) to reshard, or "
+                "point the run at a fresh checkpoint directory."
+            )
         restored = checkpointer.restore_latest_valid(state)
+        if world > 1:
+            _check_resume_agreed(mesh, restored[1] if restored is not None else None)
         if restored is not None:
             state, resumed_step, resume_meta = restored
             if "rng" in resume_meta:
@@ -595,6 +630,7 @@ def _run_epochs(
                 # resume needs to continue the exact trajectory.
                 checkpointer.save(state, wait=False, meta={
                     "epoch": epoch,
+                    "epochs": epochs,
                     "rng": _gen_to_meta(rng),
                     "dropout_rng": _gen_to_meta(dispatch.rng),
                     "metrics": {

@@ -235,7 +235,8 @@ class TrainState:
     as the JAX ``TrainState.step`` does), ``updates`` the real optimizer
     updates (the schedule's count), ``mini_step`` the accumulation phase;
     ``acc_grads`` is ``optax.MultiSteps``' running mean (one buffer per
-    parameter, zeros between updates; None without accumulation).
+    parameter, zeros between updates; None without accumulation);
+    ``mesh`` is the mesh it trains on, for the checkpoint's stamp.
 
     ``apply_gradients`` is one update with its host bookkeeping. A
     program of several steps (``train.loop.make_multi_step``) runs
@@ -249,6 +250,10 @@ class TrainState:
     updates: int = 0
     mini_step: int = 0
     acc_grads: list | None = None
+    # The ``parallel.mesh.Mesh`` this state trains on (``fit(mesh=)`` sets
+    # it), which a checkpoint's topology stamp records; None for one
+    # process without a mesh.
+    mesh: object | None = None
 
     @classmethod
     def create(cls, *, model: nn.Module, tx: Optimizer) -> "TrainState":

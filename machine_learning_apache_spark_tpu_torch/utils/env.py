@@ -100,6 +100,13 @@ register(
     "belongs to (0 on the first launch).",
 )
 register(
+    "MLSPARK_GANG_RUN", type="str", default=None, subsystem="launcher",
+    description="Id of the Distributor.run call this worker belongs to, "
+    "the same on every retried attempt. A recipe's checkpoints carry it, "
+    "so a retried attempt finishes the interrupted run instead of "
+    "training its epochs again.",
+)
+register(
     "MLSPARK_HEARTBEAT_FILE", type="path", default=None, subsystem="launcher",
     description="Per-rank heartbeat file the worker rewrites every "
     "interval; the GangMonitor's liveness signal (mtime) and "

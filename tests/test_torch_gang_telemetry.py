@@ -1,7 +1,8 @@
 """The port's gang telemetry held against the JAX package: the merged gang
 report (``aggregate.merge_gang_dir``, ``render_markdown``) over the same
 per-rank JSONL files, the flight recorder's dump read by the JAX
-``load_flight``, the live HTTP plane answering on an ephemeral port, the
+``load_flight``, the live HTTP plane answering on an ephemeral port
+(``/tracez`` serving the stitched tree of a traced span), the
 fault plan grammar, and the ``train_step`` / ``decode_batch`` fault sites
 firing from ``fit`` and from the serving engines."""
 
@@ -28,7 +29,7 @@ from machine_learning_apache_spark_tpu_torch.models.transformer import (
     TransformerConfig,
 )
 from machine_learning_apache_spark_tpu_torch.serving import InternalError
-from machine_learning_apache_spark_tpu_torch.telemetry import aggregate
+from machine_learning_apache_spark_tpu_torch.telemetry import aggregate, tracectx
 from machine_learning_apache_spark_tpu_torch.train import loop as tloop
 from machine_learning_apache_spark_tpu_torch.train import state as tstate
 from machine_learning_apache_spark_tpu_torch.utils import faults
@@ -126,8 +127,20 @@ def test_http_plane_answers_on_an_ephemeral_port(clean_telemetry):
         assert "torch" in payload["build"]
         status, body = _get(server.url("/flightz?n=5"))
         assert status == 200 and json.loads(body)["artifact"] == "flightz"
+        # /tracez stitches the live ring: one traced span is one complete
+        # tree, rooted at that span, served whole under ?id=.
+        ctx = tracectx.mint()
+        with tracectx.use(ctx), telemetry.span("serving.submit"):
+            pass
         status, body = _get(server.url("/tracez"))
-        assert status == 404 and "traceview" in json.loads(body)["error"]
+        payload = json.loads(body)
+        assert status == 200 and payload["artifact"] == "tracez"
+        assert payload["completeness"] == {"traces": 1, "complete": 1, "fraction": 1.0}
+        status, body = _get(server.url(f"/tracez?id={ctx.trace_id.upper()}"))
+        tree = json.loads(body)
+        assert status == 200 and tree["trace_id"] == ctx.trace_id
+        assert [n["name"] for n in tree["roots"]] == ["serving.submit"]
+        assert tree["orphans"] == [] and tree["annotations"] == []
         # the port sidecar for discovery, in the JAX format
         assert telemetry.http.find_port_sidecars(str(clean_telemetry))[0]["port"] == server.port
     finally:

@@ -1084,3 +1084,98 @@ def test_k_steps_per_call_on_a_two_process_mesh_raises(cuda):
     with pytest.raises(NotImplementedError, match="collectives in a captured step"):
         loop.fit(st, make_translation_loss(0), [], epochs=1, steps_per_call=4,
                  mesh=make_mesh({"data": 2}, world=2, device=cuda))
+
+
+# -- the gang that survives a crash, and the engine's health, on the card -----------
+
+
+def test_fault_drill_on_the_card_resumes_the_agreed_step(cuda, tmp_path, monkeypatch):
+    """The drill's mesh twin on the card: a 2-rank data-parallel gang with
+    per-rank checkpoints, rank 1 crashed at step 9 and the gang retried,
+    against the same gang unfaulted. Every rank resumes the same step
+    (4 or 8, by whether the step-8 writes were durable at the crash), and
+    the retried gang's final parameters and step losses after the resume
+    equal the unfaulted gang's bit for bit."""
+    from machine_learning_apache_spark_tpu_torch.launcher import Distributor, kill_stray_gangs
+    from machine_learning_apache_spark_tpu_torch.utils import faults
+
+    def gang(workdir, **kw):
+        return Distributor(num_processes=2, timeout=300, **kw).run(
+            "torch_launcher_workers:fault_drill_train_mesh", str(workdir), epochs=3,
+        )
+
+    ref = gang(tmp_path / "ref")
+    monkeypatch.setenv(faults.ENV_PLAN, "crash@train_step:rank=1,step=9")
+    monkeypatch.setenv(faults.ENV_MARKER_DIR, str(tmp_path / "markers"))
+    out = gang(tmp_path / "gang", max_restarts=1, backoff_base=0.05, term_grace=2.0)
+    assert kill_stray_gangs() == 0
+    assert list((tmp_path / "markers").iterdir()), "crash fault never fired"
+    assert ref["resumed_step"] is None and out["resumed_step"] in (4, 8)
+    assert out["step_losses"] == ref["step_losses"][out["resumed_step"]:]
+    for name, leaf in ref["params"].items():
+        for key in leaf:
+            np.testing.assert_array_equal(out["params"][name][key], leaf[key])
+
+
+def test_healthz_flips_on_a_card_engine(cuda, monkeypatch):
+    import json
+    import time
+    import urllib.error
+    import urllib.request
+
+    from machine_learning_apache_spark_tpu_torch import telemetry
+    from machine_learning_apache_spark_tpu_torch.serving import InternalError
+    from machine_learning_apache_spark_tpu_torch.utils import faults
+
+    def healthz(srv):
+        try:
+            with urllib.request.urlopen(srv.url("/healthz"), timeout=10) as r:
+                return r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read())
+
+    monkeypatch.delenv("MLSPARK_TELEMETRY", raising=False)
+    monkeypatch.setenv("MLSPARK_TELEMETRY_HTTP", "0")
+    telemetry.reset()
+    t, texts = _card_translator(cuda)
+    faults.install(faults.FaultPlan.from_spec("raise@decode_batch:batch=0"))
+    try:
+        with t.serve(**CARD_ENGINE) as eng:
+            srv = telemetry.get_http_server()
+            assert healthz(srv)[0] == 200
+            victim = eng.submit(texts[0])
+            with pytest.raises(InternalError):
+                victim.result(timeout=120)
+            code, payload = healthz(srv)
+            assert code == 503 and payload["checks"]["serving"]["quarantined"] >= 1
+            assert isinstance(eng.submit(texts[1]).result(timeout=120), str)
+            # The verdict flips after the launch's results are handed out.
+            deadline = time.monotonic() + 10
+            while healthz(srv)[0] != 200 and time.monotonic() < deadline:
+                time.sleep(0.01)
+            assert healthz(srv)[0] == 200
+    finally:
+        faults.clear()
+        telemetry.reset()
+        t.model.to("cpu")
+
+
+def test_mllib_mesh_fit_on_the_card_matches_the_cpu(cuda):
+    """``fit(mesh=)`` of a 2-rank gang on the card against one process on
+    the CPU, within the JAX ``TestMeshFit`` bound (atol 1e-5, rtol 1e-4) at
+    maxIter=5."""
+    from machine_learning_apache_spark_tpu_torch.data.libsvm import read_libsvm
+    from machine_learning_apache_spark_tpu_torch.launcher import Distributor, kill_stray_gangs
+    from machine_learning_apache_spark_tpu_torch.mllib import MultilayerPerceptronClassifier
+
+    data = "assets/sample_multiclass_classification_data.txt"
+    train, _ = read_libsvm(data).random_split([0.6, 0.4], seed=1234)
+    cpu = MultilayerPerceptronClassifier(layers=[4, 5, 4, 3], maxIter=5).fit(train, device="cpu")
+    out = Distributor(num_processes=2, timeout=300).run(
+        "torch_launcher_workers:mllib_mesh_fit", data, [4, 5, 4, 3], 5, None,
+    )
+    assert kill_stray_gangs() == 0
+    assert out["ranks_agree"] and out["allreduces"] == out["evaluations"]
+    for name, leaf in cpu.params.items():
+        for key in leaf:
+            np.testing.assert_allclose(out["params"][name][key], leaf[key], atol=1e-5, rtol=1e-4)

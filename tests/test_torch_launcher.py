@@ -163,6 +163,21 @@ def test_gang_failure_blames_the_rank_that_failed_first():
     assert gang_failure(placeholders, late, 0).rank is None
 
 
+def test_gang_failure_blames_a_hard_crash_seen_first():
+    # A rank that dies without raising (os._exit, a segfault) leaves no
+    # result; the monitor sees its exit first, and its peer raises later
+    # in a collective the crash broke. The crash is the cause, as the JAX
+    # monitor, which names the first exit it sees, reports it.
+    results = [
+        WorkerResult(rank=0, error="RuntimeError: Connection closed by peer", failed_at=100.04),
+        WorkerResult(rank=1, error="rank 1 produced no result (crashed?)"),
+    ]
+    seen = GangFailure("rank 1 exited with code 23", rank=1, cause="exit", exit_code=23)
+    e = gang_failure(results, seen, 0)
+    assert e.rank == 1 and e.exit_code == 23
+    assert str(e).endswith("[rank 1] rank 1 produced no result (crashed?)")
+
+
 def test_max_restarts_recovers():
     out = Distributor(
         num_processes=2, platform="cpu", timeout=120, max_restarts=1, backoff_base=0.01,

@@ -117,8 +117,13 @@ def test_set_params_and_bad_arguments():
     frame = read_libsvm(SAMPLE)
     with pytest.raises(ValueError, match="unsupported solver 'newton'"):
         MultilayerPerceptronClassifier(solver="newton").fit(frame, device="cpu")
-    with pytest.raises(NotImplementedError, match="A4"):
-        MultilayerPerceptronClassifier().fit(frame, mesh=object(), device="cpu")
+    # fit(mesh=) is ported: a mesh of one process runs the plain fit.
+    from machine_learning_apache_spark_tpu_torch.parallel import data_parallel_mesh
+
+    model = MultilayerPerceptronClassifier(maxIter=2).fit(
+        frame, mesh=data_parallel_mesh(device="cpu"), device="cpu"
+    )
+    assert model.loss_history.shape == (2,) and model.allreduces == 0
 
 
 @pytest.mark.parametrize("metric", ["accuracy", "f1"])
@@ -132,3 +137,43 @@ def test_evaluator_matches_jax(metric):
     assert got == want
     with pytest.raises(ValueError, match="unknown metric"):
         MulticlassClassificationEvaluator("auc").evaluate(PredictionFrame(x, labels, preds))
+
+
+# -- fit(mesh=): MLlib's treeAggregate over a gang ------------------------------
+
+
+def test_mesh_of_one_process_is_the_single_fit_bit_for_bit():
+    from machine_learning_apache_spark_tpu_torch.parallel import data_parallel_mesh
+
+    train, _, jtrain, _ = _splits()
+    init = _jax_init(jtrain, 1234)
+    trainer = MultilayerPerceptronClassifier(layers=LAYERS, maxIter=5)
+    single = trainer.fit(train, device="cpu", initial_params=init)
+    meshed = trainer.fit(train, mesh=data_parallel_mesh(device="cpu"), device="cpu",
+                         initial_params=init)
+    np.testing.assert_array_equal(meshed.loss_history, single.loss_history)
+    for a, b in zip(jax.tree.leaves(single.params), jax.tree.leaves(meshed.params)):
+        np.testing.assert_array_equal(a, b)
+    assert meshed.allreduces == 0 and meshed.evaluations == single.evaluations > 5
+
+
+def test_two_rank_gang_fit_matches_the_jax_mesh_fit():
+    """A 2-rank CPU gang against the JAX ``fit(mesh=make_mesh({"data": 2}))``
+    from the JAX fit's own initial parameters, within the JAX
+    ``TestMeshFit`` bound (atol 1e-5, rtol 1e-4) at maxIter=5."""
+    from machine_learning_apache_spark_tpu.parallel import make_mesh
+    from machine_learning_apache_spark_tpu_torch.launcher import Distributor
+
+    _, _, jtrain, _ = _splits()
+    jmesh = make_mesh({"data": 2}, devices=jax.devices()[:2])
+    jmodel = JClassifier(layers=LAYERS, maxIter=5).fit(jtrain, mesh=jmesh)
+    out = Distributor(num_processes=2, platform="cpu", timeout=300).run(
+        "torch_launcher_workers:mllib_mesh_fit", SAMPLE, LAYERS, 5,
+        _jax_init(jtrain, 1234), device="cpu",
+    )
+    assert out["world"] == 2 and out["ranks_agree"]
+    # Every evaluation, line-search trials included, is one all-reduce.
+    assert out["allreduces"] == out["evaluations"] > 5
+    np.testing.assert_allclose(out["loss_history"], np.asarray(jmodel.loss_history), rtol=1e-4)
+    for a, b in zip(jax.tree.leaves(jmodel.params), jax.tree.leaves(out["params"])):
+        np.testing.assert_allclose(np.asarray(b), np.asarray(a), atol=1e-5, rtol=1e-4)

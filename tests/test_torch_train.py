@@ -409,11 +409,13 @@ def _two_process_mesh():
 
 @pytest.mark.parametrize(
     "kw", [
-        # A mesh and sync checks run since the data-parallel slice; what
-        # stays unported on them: K steps per captured call at world > 1,
-        # and checkpoints in a gang.
+        # A mesh and sync checks run since the data-parallel slice, and
+        # checkpoints in a gang since gang checkpoints; what stays
+        # unported on them: K steps per captured call at world > 1, and
+        # an elastic (resharding) resume of a gang's checkpoints.
         dict(mesh="gang", steps_per_call=4),
-        dict(sync_check_every=1, mesh="gang", checkpointer=object()),
+        dict(sync_check_every=1, mesh="gang", checkpointer=object(), resume=True,
+             elastic=True),
         dict(zero1=True), dict(dp_mode="zero1"), dict(elastic=True)],
     ids=lambda kw: next(iter(kw)),
 )

@@ -268,3 +268,200 @@ def card_gang(cfg_kwargs, batches):
     out = [None] * world
     dist.all_gather_object(out, report)
     return out
+
+
+def _worker_device(device):
+    """``device`` when given, else the gang's device for this rank (the
+    host outside a gang)."""
+    from machine_learning_apache_spark_tpu_torch.launcher.coordinator import current_device
+
+    if device is not None:
+        return torch.device(device)
+    return current_device() or torch.device("cpu")
+
+
+def _drill_result(rank, res, world=None):
+    from machine_learning_apache_spark_tpu_torch.weights import export_flax_params
+
+    out = {
+        "rank": rank,
+        "final_loss": res.final_loss,
+        "resumed_step": res.resumed_step,
+        "epochs_run": len(res.history),
+        "step_losses": list(res.step_losses),
+        "params": export_flax_params(res.state.model),
+    }
+    if world is not None:
+        out["world"] = world
+    return out
+
+
+def fault_drill_train(workdir, epochs=4, checkpoint_every=1, device=None):
+    """Restart-safe training workload for the fault drill (the port of the
+    JAX drill's worker): deterministic per-rank MLP training with per-rank
+    checkpoint directories (``<workdir>/ckpt_r<rank>``, the group
+    convention) and ``fit(resume=True)``. When the gang is killed mid-run
+    and retried, every rank resumes from the group-agreed step and the
+    final loss must match an unfaulted run. No mesh: each rank trains the
+    same data on its own, as in the JAX worker."""
+    from machine_learning_apache_spark_tpu_torch.models.mlp import MLP
+    from machine_learning_apache_spark_tpu_torch.parallel.mesh import process_index
+    from machine_learning_apache_spark_tpu_torch.train.checkpoint import CheckpointManager
+    from machine_learning_apache_spark_tpu_torch.train.loop import fit
+    from machine_learning_apache_spark_tpu_torch.train.losses import cross_entropy
+    from machine_learning_apache_spark_tpu_torch.train.state import (
+        TrainState,
+        make_optimizer,
+    )
+
+    rank = process_index()
+    dev = _worker_device(device)
+    rng = np.random.default_rng(7)
+    feats = rng.normal(size=(32, 4)).astype(np.float32)
+    labels = rng.integers(0, 3, 32).astype(np.int64)
+    loader = [
+        (feats[i * 8:(i + 1) * 8], labels[i * 8:(i + 1) * 8]) for i in range(4)
+    ]
+    model = MLP((4, 8, 3), generator=torch.Generator().manual_seed(0)).to(dev)
+    state = TrainState.create(model=model, tx=make_optimizer("sgd", 0.1))
+
+    def loss_fn(module, batch, step_rng):
+        del step_rng
+        x, y = batch
+        return cross_entropy(module(x), y), {}
+
+    with CheckpointManager(os.path.join(workdir, f"ckpt_r{rank}")) as ckpt:
+        res = fit(
+            state, loss_fn, loader, epochs=epochs, checkpointer=ckpt,
+            checkpoint_every=checkpoint_every, resume=True, log_every=0,
+        )
+    out = _drill_result(rank, res)
+    if dist.is_initialized():
+        # Every rank's outcome, in rank order: the crashed rank's resume
+        # is the one the drill is about.
+        out["ranks"] = [None] * dist.get_world_size()
+        dist.all_gather_object(out["ranks"], _drill_result(rank, res))
+    return out
+
+
+def fault_drill_train_mesh(
+    workdir, epochs=4, checkpoint_every=1, global_batch=8, steps_per_epoch=4,
+    device=None,
+):
+    """The fault drill's mesh twin: data-parallel MLP training over the
+    gang (each rank its contiguous rows of every global batch, the
+    gradients all-reduced), Adam, per-rank checkpoint directories and
+    ``fit(resume=True)``. A retried gang resumes the group-agreed step on
+    every rank and must finish with the unfaulted gang's parameters."""
+    from machine_learning_apache_spark_tpu_torch.models.mlp import MLP
+    from machine_learning_apache_spark_tpu_torch.parallel import data_parallel_mesh
+    from machine_learning_apache_spark_tpu_torch.train.checkpoint import CheckpointManager
+    from machine_learning_apache_spark_tpu_torch.train.loop import fit
+    from machine_learning_apache_spark_tpu_torch.train.losses import cross_entropy
+    from machine_learning_apache_spark_tpu_torch.train.state import (
+        TrainState,
+        make_optimizer,
+    )
+
+    rank, world = _rank_world()
+    if global_batch % world:
+        raise ValueError(f"global_batch {global_batch} must divide world {world}")
+    rng = np.random.default_rng(7)
+    n = global_batch * steps_per_epoch
+    feats = rng.normal(size=(n, 4)).astype(np.float32)
+    labels = rng.integers(0, 3, n).astype(np.int64)
+    loader = [
+        _rows((feats[s * global_batch:(s + 1) * global_batch],
+               labels[s * global_batch:(s + 1) * global_batch]), rank, world)
+        for s in range(steps_per_epoch)
+    ]
+    dev = _worker_device(device)
+    model = MLP((4, 8, 3), generator=torch.Generator().manual_seed(0)).to(dev)
+    state = TrainState.create(model=model, tx=make_optimizer("adam", 0.05))
+
+    def loss_fn(module, batch, step_rng):
+        del step_rng
+        x, y = batch
+        return cross_entropy(module(x), y), {}
+
+    with CheckpointManager(os.path.join(workdir, f"ckpt_r{rank}")) as ckpt:
+        res = fit(
+            state, loss_fn, loader, epochs=epochs, mesh=data_parallel_mesh(),
+            checkpointer=ckpt, checkpoint_every=checkpoint_every, resume=True,
+            log_every=0,
+        )
+    return _drill_result(rank, res, world)
+
+
+def mlp_recipe_two_plus_two(workdir, data_path, device=None):
+    """The MLP recipe in this gang, three times: 2 epochs into
+    ``<workdir>/split``, 2 more epochs resumed from there, and 4 epochs
+    into ``<workdir>/whole``. Each call stands for a run of its own (its
+    own ``MLSPARK_GANG_RUN``), so the second trains 2 epochs on rather
+    than finishing the first. Every rank's results, in rank order: the
+    final parameters, the resumed step and what each rank's checkpoint
+    directory holds."""
+    from machine_learning_apache_spark_tpu_torch.recipes.mlp import train_mlp
+    from machine_learning_apache_spark_tpu_torch.weights import export_flax_params
+
+    rank, world = _rank_world()
+    dev = _worker_device(device)
+    runs = {}
+    gang_run = os.environ.get("MLSPARK_GANG_RUN")
+    for name, sub, epochs in (("first", "split", 2), ("second", "split", 2),
+                              ("whole", "whole", 4)):
+        os.environ["MLSPARK_GANG_RUN"] = f"{gang_run}-{name}"
+        out = train_mlp(
+            device=dev, data_path=data_path, epochs=epochs,
+            checkpoint_dir=os.path.join(workdir, sub), _return_state=True,
+        )
+        runs[name] = {
+            "params": export_flax_params(out["state"].model),
+            "resumed_from_step": out.get("resumed_from_step"),
+            "epochs": out["epochs"],
+            "step_losses": list(out["fit_result"].step_losses),
+            "dirs": sorted(os.listdir(os.path.join(workdir, sub))),
+        }
+    gathered = [None] * world
+    dist.all_gather_object(gathered, {"rank": rank, "runs": runs})
+    return gathered
+
+
+def mllib_mesh_fit(data_path, layers, max_iter, initial_params, solver="l-bfgs", device=None):
+    """``MultilayerPerceptronClassifier.fit(mesh=data_parallel_mesh())``
+    on the libsvm file's 60 % split (seed 1234) from the given Flax
+    parameters. Rank 0's parameters, loss history and evaluation and
+    all-reduce counts, and whether every rank ended on the same
+    parameters."""
+    from machine_learning_apache_spark_tpu_torch.data.libsvm import read_libsvm
+    from machine_learning_apache_spark_tpu_torch.mllib import MultilayerPerceptronClassifier
+    from machine_learning_apache_spark_tpu_torch.parallel import data_parallel_mesh
+
+    rank, world = _rank_world()
+    train, _ = read_libsvm(data_path).random_split([0.6, 0.4], seed=1234)
+    model = MultilayerPerceptronClassifier(
+        layers=list(layers), maxIter=max_iter, solver=solver,
+    ).fit(train, mesh=data_parallel_mesh(), device=device, initial_params=initial_params)
+    params = model.params
+    flat = np.concatenate([np.ravel(v) for v in _leaves(params)])
+    gathered = [None] * world
+    dist.all_gather_object(gathered, flat)
+    return {
+        "rank": rank,
+        "world": world,
+        "params": params,
+        "loss_history": model.loss_history,
+        "iterations": model.iterations,
+        "evaluations": model.evaluations,
+        "allreduces": model.allreduces,
+        "fit_seconds": model.fit_seconds,
+        "ranks_agree": all(np.array_equal(gathered[0], g) for g in gathered),
+    }
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k])
+    else:
+        yield tree
