@@ -11,7 +11,9 @@ Phases, each fatal on failure:
    parallel) and prints the build time and ``ptxas`` report; reads each
    library's SASS (``cuobjdump``) and checks that the tensor-core kernels
    (flash forward, dQ, dK/dV) issue TF32 ``HMMA`` and ``cp.async``
-   (``LDGSTS``) instructions, and the ragged kernel ``LDGSTS``;
+   (``LDGSTS``) instructions, their bf16 instantiations
+   ``HMMA.16816.F32.BF16`` and ``LDGSTS``, and every instantiation of the
+   ragged kernel ``LDGSTS``;
 3. kernels vs plain — each kernel against its plain PyTorch version on
    the card, at the serving slice's shapes (the prefill's fused-qkv views
    at d = 8, 40, 64, 128, and a one-row query; the ragged decode over fp32
@@ -33,7 +35,11 @@ Phases, each fatal on failure:
    0, 31, 32, 33, 99 and 198, with and without pads inside the written
    prefix, its cross-attention and its priming call; the beam engine's
    16-row grid over a reordered cache and over the memory), at every
-   launch choice, within 1e-4 relative, two runs the same bits;
+   launch choice, within 1e-4 relative, two runs the same bits; then all
+   of phase 3 again on bf16 inputs against the bf16 instantiations (the
+   same sites, edge cases and launch choices, bf16 and int8 pages under a
+   bf16 query): outputs within two bf16 ulps of the largest value
+   (``BF16_TOL``), ``lse`` within 1e-5 relative;
 4. serving — the reference MT model at full width (d_model 512, ffn 1024,
    8 heads of 64, 1 layer, max_len 200, ~8,000-word vocabularies, random
    weights from a seed in the JAX package's Flax layout, through the
@@ -178,6 +184,21 @@ Phases, each fatal on failure:
    ``serving`` (and ``prefix_cache``) sections, ``/metrics``' live
    gauges, and ``/tracez?id=`` of a served request rooted at its
    ``serving.submit`` span;
+7d. bf16 compute — the MT recipe at the reference width with
+   ``dtype="bfloat16"``, one fixture epoch at 1 and 4 steps per call:
+   float32 parameters, step losses and parameters bit for bit, the bf16
+   dQ and dK/dV launched 3 x 12 each and no float32 kernel; the card's
+   bf16 losses over 2 steps against the CPU port's bf16 run (within one
+   bf16 ulp; the step-0 gradients within 2^-5 of the largest); that model
+   saved (``"dtype": "bfloat16"``), loaded and served by the paged engine
+   over bf16 pages and over int8 pages, the padded and the beam engine
+   (program counts, zero recompiles, replays equal to eager calls bit
+   for bit), the bf16 paged engine against the bf16 one-shot decoder on
+   the card (token agreement >= 0.99) and, as readings, int8 against
+   bf16 pages, padded against paged, the beam engine against the one-shot
+   beam decoder and bf16 against the float32 model on the same weights;
+   TinyVGG on the CIFAR-10 fixture at bf16 and the MoE options at bf16,
+   4 steps per call against 1 bit for bit;
 8. times — requests/s, generated tokens/s and peak device memory of each
    engine (paged fp32 and int8, padded, beam); each engine's requests/s
    and device idle share over one profiled window; the host time of the
@@ -206,7 +227,11 @@ Phases, each fatal on failure:
    samples/s, the gradient all-reduce's host-timed ms per step (from the
    first bucket's launch to the last one's completion, and summed over
    its buckets) and each rank's device idle share over a profiled
-   window. (The
+   window; every bf16 instantiation's time at the same sites beside its
+   bound (bf16 bytes, the bf16 tensor-core rate), its plain version and
+   SDPA at bf16; the MT step (1 and 4 steps per call) and the TinyVGG
+   step at fp32 beside bf16: ms, tokens/s or samples/s, idle share and
+   peak memory. (The
    one-shot ``Translator``'s latency, eager
    and replayed, and the memory its programs hold are taken in phase 4.)
 
@@ -228,6 +253,15 @@ from pathlib import Path
 import numpy as np
 
 TOL = 1e-4  # fp32, kernel vs plain: the two sum in different orders
+# bf16 kernels vs their plain versions, relative to the largest value:
+# both round at the reference's points (P, dS and the outputs to bf16),
+# but sum in other orders and, in the forward, round P against the running
+# max of its key tile instead of the row's final max, so an output may
+# land one or two bf16 ulps away (2^-8 to 2^-7 of the largest value).
+BF16_TOL = 2.0 ** -6
+# lse at bf16: float32 sums of exact products of bf16 values, in other
+# orders (no rounding to bf16 anywhere on its path).
+BF16_LSE_TOL = 1e-5
 AGREEMENT_MIN = 0.99
 SEED = 0
 
@@ -285,6 +319,10 @@ TIMED_STEPS = 20
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 TF32X3_FLOPS_PER_S = 495e12 / 3
+# The bf16 instantiations of the tensor-core kernels take bf16 products at
+# the dense bf16 rate; the ragged kernel's bf16 one computes in fp32 on
+# the CUDA cores as its fp32 one does.
+BF16_FLOPS_PER_S = 989e12
 TENSOR_CORE_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 # The tensor-core kernels' (warps per block, splits) launch choices,
 # checked and timed beside the wrappers' picks.
@@ -347,25 +385,33 @@ def sass_opcodes(library: str) -> dict[str, dict[str, int]]:
 
 def check_tensor_core_sass(built: dict) -> dict:
     """Every instantiation of the flash forward, dQ and dK/dV kernels must
-    issue TF32 HMMA and LDGSTS (cp.async) instructions; every
-    instantiation of the ragged kernel LDGSTS."""
+    issue HMMA (TF32 in the fp32 kernels, ``HMMA.16816.F32.BF16`` in the
+    bf16 ones) and LDGSTS (cp.async) instructions; every instantiation of
+    the ragged kernel (fp32, int8 and bf16 pages; fp32 and bf16 queries)
+    LDGSTS."""
     libs = sorted({kb.library for kb in built.values()})
     report = {}
+    shorts = ("flash_fwd_bf16_kernel", "flash_bwd_dkv_bf16_kernel", "flash_bwd_dq_bf16_kernel",
+              "flash_fwd_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel", "ragged_paged_kernel")
     for lib in libs:
         for fn, ops in sass_opcodes(lib).items():
-            short = next((k for k in ("flash_fwd_kernel", "flash_bwd_dkv_kernel",
-                                      "flash_bwd_dq_kernel", "ragged_paged_kernel")
-                          if k in fn), fn)
+            short = next((k for k in shorts if k in fn), fn)
             log(f"  SASS {short} ({fn[:60]}): {ops or 'no HMMA/LDGSTS'}")
             report.setdefault(short, []).append(ops)
-    for short, n_inst, hmma in (("flash_fwd_kernel", 2, True), ("flash_bwd_dq_kernel", 2, True),
-                                ("flash_bwd_dkv_kernel", 2, True), ("ragged_paged_kernel", 4, False)):
+    for short, n_inst, hmma in (("flash_fwd_kernel", 2, "TF32"), ("flash_bwd_dq_kernel", 2, "TF32"),
+                                ("flash_bwd_dkv_kernel", 2, "TF32"),
+                                ("flash_fwd_bf16_kernel", 2, "HMMA.16816.F32.BF16"),
+                                ("flash_bwd_dq_bf16_kernel", 2, "HMMA.16816.F32.BF16"),
+                                ("flash_bwd_dkv_bf16_kernel", 2, "HMMA.16816.F32.BF16"),
+                                ("ragged_paged_kernel", 8, None)):
         insts = report.get(short, [])
         if len(insts) < n_inst:
             fail(f"expected {n_inst} instantiations of {short} in the SASS, found {len(insts)}")
         for ops in insts:
-            if hmma and not any(op.startswith("HMMA") and "TF32" in op for op in ops):
+            if hmma == "TF32" and not any(op.startswith("HMMA") and "TF32" in op for op in ops):
                 fail(f"{short}: no TF32 HMMA instruction in its SASS")
+            if hmma and hmma != "TF32" and not any(op.startswith(hmma) for op in ops):
+                fail(f"{short}: no {hmma} instruction in its SASS")
             if not any(op.startswith("LDGSTS") for op in ops):
                 fail(f"{short}: no LDGSTS (cp.async) instruction in its SASS")
     return report
@@ -375,9 +421,10 @@ def check_tensor_core_sass(built: dict) -> dict:
 
 
 def _flash_case(torch, rng, b, h, sq, sk, d, *, causal, valid_frac, dev,
-                strided=False, empty_batch=None, n_valid=None):
+                strided=False, empty_batch=None, n_valid=None, dtype=None):
     def t(*shape):
-        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+        x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+        return x if dtype is None else x.to(dtype)
 
     if strided:
         # Head-split views of a fused [B, S, H*d] projection, as the
@@ -400,9 +447,14 @@ def _flash_case(torch, rng, b, h, sq, sk, d, *, causal, valid_frac, dev,
     return q, k, v, kv_valid
 
 
-def check_kernels(torch, hop, dev) -> dict:
+def check_kernels(torch, hop, dev, dtype=None) -> dict:
     """Every kernel against its plain version on the card; returns the
-    largest error per kernel."""
+    largest error per kernel instantiation. At ``dtype`` bf16 the inputs
+    are bf16 (the bf16 instantiations) and the gate is ``BF16_TOL`` of
+    the largest value, not ``TOL`` absolute."""
+    dtype = dtype or torch.float32
+    bf16 = dtype == torch.bfloat16
+    fwd = hop.kernel_name("flash_attention_fwd", dtype)
     rng = np.random.default_rng(SEED)
     errs = {}
     flash_cases = [
@@ -426,26 +478,28 @@ def check_kernels(torch, hop, dev) -> dict:
     worst = 0.0
     for label, kw in flash_cases:
         causal = kw.pop("causal")
-        q, k, v, kv_valid = _flash_case(torch, rng, causal=causal, dev=dev, **kw)
+        q, k, v, kv_valid = _flash_case(torch, rng, causal=causal, dev=dev, dtype=dtype, **kw)
         got = hop.flash_attention(q, k, v, causal=causal, kv_valid=kv_valid)
         want = hop.flash_attention_plain(q, k, v, causal=causal, kv_valid=kv_valid)
         # every warps-per-block the wrapper may pick, on the same inputs
         others = [hop.flash_attention_fwd(q, k, v, causal=causal, kv_valid=kv_valid, warps=w, splits=c)
                   for w, c in LAUNCH_CHOICES]
         torch.cuda.synchronize()
-        err = max((x - want).abs().max().item() for x in [got, *others])
+        err = max((x.float() - want.float()).abs().max().item() for x in [got, *others])
+        rel = max(_rel(x.float(), want.float()) for x in [got, *others])
         nan = any(bool(torch.isnan(x).any().item()) for x in [got, *others])
         choice = hop.flash_fwd_launch_params(*q.shape[:3], k.shape[2], q.shape[3], hop.device_sm_count(dev))
-        log(f"  flash_attention_fwd  {label:48s} max_abs_err {err:.3e} (tol {TOL:.0e}; "
+        gate = (f"rel {rel:.3e} (tol {BF16_TOL:.3e} of the largest)" if bf16 else f"(tol {TOL:.0e}")
+        log(f"  {fwd:24s} {label:48s} max_abs_err {err:.3e} {gate}; "
             f"(warps, splits) {choice[:2]} "
-            f"and each of {LAUNCH_CHOICES})")
-        if nan or not err <= TOL:
-            fail(f"flash_attention_fwd disagrees with its plain version on {label}")
+            f"and each of {LAUNCH_CHOICES}{')' if not bf16 else ''}")
+        if nan or not (rel <= BF16_TOL if bf16 else err <= TOL):
+            fail(f"{fwd} disagrees with its plain version on {label}")
         if kw.get("empty_batch") is not None:
             if got[kw["empty_batch"]].abs().max().item() != 0.0:
-                fail("flash_attention_fwd: rows that see no key must be zeros")
+                fail(f"{fwd}: rows that see no key must be zeros")
         worst = max(worst, err)
-    errs["flash_attention_fwd"] = worst
+    errs[fwd] = worst
 
     # The ragged decode at the serving slice's shapes (32 rows x 8 heads of
     # 64, pages of 16, four per row, lengths 0, 1, 15, 16, 17 and full
@@ -454,12 +508,12 @@ def check_kernels(torch, hop, dev) -> dict:
     # at the wrapper's launch choice and at every splits choice.
     worst = 0.0
     for geometry, R, P in (("serving decode", 32, 4), ("rows of 13 pages", 8, 13)):
-        worst = max(worst, _check_ragged(torch, hop, rng, dev, geometry, R, P))
-    errs["ragged_paged_attention"] = worst
+        worst = max(worst, _check_ragged(torch, hop, rng, dev, geometry, R, P, dtype=dtype))
+    errs[hop.kernel_name("ragged_paged_attention", dtype)] = worst
     return errs
 
 
-def _check_ragged(torch, hop, rng, dev, geometry, R, P, H=8, dh=64, page=16) -> float:
+def _check_ragged(torch, hop, rng, dev, geometry, R, P, H=8, dh=64, page=16, dtype=None) -> float:
     D = H * dh
     num_pages = 1 + R * P
     lengths = rng.integers(1, P * page + 1, R).astype(np.int32)
@@ -476,20 +530,26 @@ def _check_ragged(torch, hop, rng, dev, geometry, R, P, H=8, dh=64, page=16) -> 
     query = rng.standard_normal((R, H, dh)).astype(np.float32)
     query[R - 1] = query[R - 2]
 
+    dtype = dtype or torch.float32
+    bf16 = dtype == torch.bfloat16
+    name = hop.kernel_name("ragged_paged_attention", dtype)
+
     def to(x):
-        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+        t = torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+        return t.to(dtype) if t.dtype == torch.float32 else t
 
     pages_f32 = [to(rng.standard_normal((num_pages, page, D)).astype(np.float32)) for _ in range(2)]
     pages_i8 = [to(rng.integers(-127, 128, (num_pages, page, D)).astype(np.int8)) for _ in range(2)]
-    scales = [to((rng.random((num_pages, page)) * 0.02 + 1e-3).astype(np.float32)) for _ in range(2)]
+    scales = [to((rng.random((num_pages, page)) * 0.02 + 1e-3).astype(np.float32)).float() for _ in range(2)]
     qkv = to(rng.standard_normal((R, 3 * D)).astype(np.float32))
     q_rows = qkv[:, :D].reshape(R, H, dh)  # strided rows, as the model passes them
     cur_k, cur_v = qkv[:, D:2 * D], qkv[:, 2 * D:]
     tbl, lens = to(table), to(lengths)
     worst = 0.0
-    for store in ("float32", "int8"):
-        kp, vp = pages_f32 if store == "float32" else pages_i8
-        ks, vs = (None, None) if store == "float32" else scales
+    float_store = "bfloat16" if bf16 else "float32"
+    for store in (float_store, "int8"):
+        kp, vp = pages_f32 if store == float_store else pages_i8
+        ks, vs = (None, None) if store == float_store else scales
         for with_cur in (False, True):
             for qname, qq in (("contiguous q", to(query)), ("strided q", q_rows)):
                 ck, cv = (cur_k, cur_v) if with_cur else (None, None)
@@ -504,22 +564,27 @@ def _check_ragged(torch, hop, rng, dev, geometry, R, P, H=8, dh=64, page=16) -> 
                     qq[5:6], kp, vp, tbl[5:6], lens[5:6], k_scale=ks, v_scale=vs,
                     cur_k=None if ck is None else ck[5:6], cur_v=None if cv is None else cv[5:6])
                 torch.cuda.synchronize()
-                err = max((x - want).abs().max().item() for x in [got, *others])
-                err = max(err, (one - want[5:6]).abs().max().item())
-                choice = hop.ragged_launch_params(dh, P * page, store == "int8")
+                want = want.float()
+                err = max((x.float() - want).abs().max().item() for x in [got, *others])
+                err = max(err, (one.float() - want[5:6]).abs().max().item())
+                rel = max(_rel(x.float(), want) for x in [got, *others])
+                rel = max(rel, _rel(one.float(), want[5:6]))
+                choice = hop.ragged_launch_params(dh, P * page, store == "int8", page_bytes=kp.element_size())
                 label = f"{geometry}, {store} pages, cur={with_cur}, {qname}"
-                log(f"  ragged_paged_attention {label:62s} max_abs_err {err:.3e} (tol {TOL:.0e}; "
+                gate = (f"rel {rel:.3e} (tol {BF16_TOL:.3e} of the largest;" if bf16
+                        else f"(tol {TOL:.0e};")
+                log(f"  {name} {label:62s} max_abs_err {err:.3e} {gate} "
                     f"(splits, stages) {choice} and splits {hop.RAGGED_SPLITS})")
-                if not err <= TOL:
-                    fail(f"ragged_paged_attention disagrees with its plain version ({label})")
+                if not (rel <= BF16_TOL if bf16 else err <= TOL):
+                    fail(f"{name} disagrees with its plain version ({label})")
                 if not torch.equal(got, again):
-                    fail(f"ragged_paged_attention: a second run gave other bits ({label})")
+                    fail(f"{name}: a second run gave other bits ({label})")
                 for x in [got, *others]:
                     if not with_cur and x[0].abs().max().item() != 0.0:
-                        fail("ragged_paged_attention: a length-0 row without cur must be zeros")
+                        fail(f"{name}: a length-0 row without cur must be zeros")
                     # (with cur, or strided q, the two rows' own inputs differ)
                     if not with_cur and qname == "contiguous q" and not torch.equal(x[R - 1], x[R - 2]):
-                        fail("ragged_paged_attention: rows sharing prefix pages differ")
+                        fail(f"{name}: rows sharing prefix pages differ")
                 worst = max(worst, err)
     return worst
 
@@ -556,7 +621,7 @@ def train_batches(train_ds, n: int):
     return batches
 
 
-def training_sites(torch, rng, dev, src, trg_in, heads=8, head_dim=64) -> dict:
+def training_sites(torch, rng, dev, src, trg_in, heads=8, head_dim=64, dtype=None) -> dict:
     """q, k, v and dO of the three attention sites of one training step at
     the model's width, as the model hands them to the kernels: head-split
     views of the fused ``qkv``/``kv`` projections (and of the cross
@@ -568,7 +633,8 @@ def training_sites(torch, rng, dev, src, trg_in, heads=8, head_dim=64) -> dict:
     width = heads * head_dim
 
     def randn(*shape):
-        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+        x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+        return x if dtype is None else x.to(dtype)
 
     def split(x, s):
         return x.view(b, s, heads, head_dim).transpose(1, 2)
@@ -608,9 +674,10 @@ def one_sequence_sites(torch, encoder: dict) -> dict:
 
 
 def _edge_case(torch, rng, dev, b, h, sq, sk, d, *, causal, valid_frac, empty_batch=None,
-               n_valid=None):
+               n_valid=None, dtype=None):
     def randn(*shape):
-        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+        x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+        return x if dtype is None else x.to(dtype)
 
     valid = None
     if n_valid is not None:  # the first n_valid keys of each batch row
@@ -633,35 +700,42 @@ def _rel(got, want) -> float:
     return ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
 
 
-def check_training_kernels(torch, hop, sites: dict, dev) -> dict:
+def check_training_kernels(torch, hop, sites: dict, dev, dtype=None) -> dict:
     """The forward with ``lse``, dQ and dK/dV against their plain versions
     on the same inputs, at the training sites and at edge cases. Returns
-    each kernel's largest absolute and relative error."""
+    each kernel instantiation's largest absolute and relative error. At
+    ``dtype`` bf16 (sites made in bf16) the gates are ``BF16_TOL`` of the
+    largest value (``BF16_LSE_TOL`` for ``lse``)."""
+    dtype = dtype or torch.float32
+    bf16 = dtype == torch.bfloat16
+    fwd, dq_name, dkv_name = (hop.kernel_name(n, dtype) for n in (
+        "flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"))
     rng = np.random.default_rng(SEED + 3)
     cases = list(sites.items()) + [
         ("edge: fully masked batch row, Sk=45, d=128",
-         _edge_case(torch, rng, dev, 3, 2, 37, 45, 128, causal=False, valid_frac=0.5, empty_batch=1)),
+         _edge_case(torch, rng, dev, 3, 2, 37, 45, 128, causal=False, valid_frac=0.5, empty_batch=1, dtype=dtype)),
         ("edge: causal Sq>Sk 40x30 (rows see nothing), d=16",
-         _edge_case(torch, rng, dev, 2, 4, 40, 30, 16, causal=True, valid_frac=None)),
+         _edge_case(torch, rng, dev, 2, 4, 40, 30, 16, causal=True, valid_frac=None, dtype=dtype)),
         ("edge: causal Sq<Sk 24x70, masked keys, d=64",
-         _edge_case(torch, rng, dev, 2, 8, 24, 70, 64, causal=True, valid_frac=0.7)),
+         _edge_case(torch, rng, dev, 2, 8, 24, 70, 64, causal=True, valid_frac=0.7, dtype=dtype)),
         ("edge: d=40, 33x65, no mask",
-         _edge_case(torch, rng, dev, 2, 3, 33, 65, 40, causal=False, valid_frac=None)),
+         _edge_case(torch, rng, dev, 2, 3, 33, 65, 40, causal=False, valid_frac=None, dtype=dtype)),
         ("edge: keys 10-199 masked (dead 64-key blocks), d=64",
-         _edge_case(torch, rng, dev, 2, 8, 77, 200, 64, causal=False, valid_frac=None, n_valid=10)),
+         _edge_case(torch, rng, dev, 2, 8, 77, 200, 64, causal=False, valid_frac=None, n_valid=10, dtype=dtype)),
         ("edge: d=8, causal 50x50, masked keys",
-         _edge_case(torch, rng, dev, 2, 4, 50, 50, 8, causal=True, valid_frac=0.6)),
+         _edge_case(torch, rng, dev, 2, 4, 50, 50, 8, causal=True, valid_frac=0.6, dtype=dtype)),
         ("edge: all keys masked, 33x70, d=64",
-         _edge_case(torch, rng, dev, 2, 4, 33, 70, 64, causal=False, valid_frac=None, n_valid=0)),
+         _edge_case(torch, rng, dev, 2, 4, 33, 70, 64, causal=False, valid_frac=None, n_valid=0, dtype=dtype)),
         ("edge: one query row, 1x65, masked keys, d=64",
-         _edge_case(torch, rng, dev, 2, 8, 1, 65, 64, causal=False, valid_frac=0.8)),
+         _edge_case(torch, rng, dev, 2, 8, 1, 65, 64, causal=False, valid_frac=0.8, dtype=dtype)),
     ]
-    worst = {n: [0.0, 0.0] for n in ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")}
+    worst = {n: [0.0, 0.0] for n in (fwd, dq_name, dkv_name)}
 
-    def record(name, label, got, want):
+    def record(name, label, got, want, tol=BF16_TOL if bf16 else TOL):
+        got, want = got.float(), want.float()
         err, rel = (got - want).abs().max().item(), _rel(got, want)
-        log(f"  {name:24s} {label:46s} max_abs_err {err:.3e}, rel {rel:.3e} (tol {TOL:.0e} relative)")
-        if not rel <= TOL or bool(torch.isnan(got).any().item()):
+        log(f"  {name:29s} {label:46s} max_abs_err {err:.3e}, rel {rel:.3e} (tol {tol:.3e} relative)")
+        if not rel <= tol or bool(torch.isnan(got).any().item()):
             fail(f"{name} disagrees with its plain version on {label}")
         worst[name][0] = max(worst[name][0], err)
         worst[name][1] = max(worst[name][1], rel)
@@ -673,49 +747,50 @@ def check_training_kernels(torch, hop, sites: dict, dev) -> dict:
         want_out, want_lse = hop.flash_attention_lse_plain(q, k, v, **kw)
         finite = want_lse > hop.NEG_INF / 2
         if not torch.equal(lse > hop.NEG_INF / 2, finite):
-            fail(f"flash_attention_fwd: lse marks other rows as empty than its plain version ({label})")
-        record("flash_attention_fwd", label + " (out)", out, want_out)
+            fail(f"{fwd}: lse marks other rows as empty than its plain version ({label})")
+        record(fwd, label + " (out)", out, want_out)
         if bool(finite.any().item()):
-            record("flash_attention_fwd", label + " (lse)", lse[finite], want_lse[finite])
-        delta = (g * out).sum(-1)
+            record(fwd, label + " (lse)", lse[finite], want_lse[finite],
+                   tol=BF16_LSE_TOL if bf16 else TOL)
+        delta = (g.float() * out.float()).sum(-1)
         dq = hop.flash_attention_bwd_dq(q, k, v, g, lse, delta, **kw)
         dk, dv = hop.flash_attention_bwd_dkv(q, k, v, g, lse, delta, **kw)
         want = hop.flash_attention_backward_plain(q, k, v, out, lse, g, **kw)
         torch.cuda.synchronize()
-        record("flash_attention_bwd_dq", label, dq, want[0])
-        record("flash_attention_bwd_dkv", label + " (dk)", dk, want[1])
-        record("flash_attention_bwd_dkv", label + " (dv)", dv, want[2])
+        record(dq_name, label, dq, want[0])
+        record(dkv_name, label + " (dk)", dk, want[1])
+        record(dkv_name, label + " (dv)", dv, want[2])
         again = hop.flash_attention_bwd_dkv(q, k, v, g, lse, delta, **kw)
         if not (torch.equal(again[0], dk) and torch.equal(again[1], dv)):
-            fail(f"flash_attention_bwd_dkv: a second run gave other bits ({label})")
+            fail(f"{dkv_name}: a second run gave other bits ({label})")
         if not torch.equal(hop.flash_attention_bwd_dq(q, k, v, g, lse, delta, **kw), dq):
-            fail(f"flash_attention_bwd_dq: a second run gave other bits ({label})")
+            fail(f"{dq_name}: a second run gave other bits ({label})")
         if label.startswith(("edge", "bucket")):  # every launch choice, same inputs
             for fw, fc in LAUNCH_CHOICES:
                 o_w, lse_w = hop.flash_attention_fwd(q, k, v, return_lse=True, warps=fw, splits=fc, **kw)
                 torch.cuda.synchronize()
-                record("flash_attention_fwd", f"{label} (out, {fw}x{fc})", o_w, want_out)
+                record(fwd, f"{label} (out, {fw}x{fc})", o_w, want_out)
                 if not torch.equal(lse_w > hop.NEG_INF / 2, finite):
-                    fail(f"flash_attention_fwd: lse marks other rows as empty at {fw}x{fc} ({label})")
+                    fail(f"{fwd}: lse marks other rows as empty at {fw}x{fc} ({label})")
             for w, sc in LAUNCH_CHOICES:
                 dq_w = hop.flash_attention_bwd_dq(q, k, v, g, lse, delta, warps=w, splits=sc, **kw)
                 torch.cuda.synchronize()
-                record("flash_attention_bwd_dq", f"{label} ({w}x{sc})", dq_w, want[0])
+                record(dq_name, f"{label} ({w}x{sc})", dq_w, want[0])
                 if not bool(finite.all().item()) and dq_w[~finite].abs().max().item() != 0.0:
-                    fail(f"flash_attention_bwd_dq: rows that see no key must get zero dQ ({w}x{sc}, {label})")
+                    fail(f"{dq_name}: rows that see no key must get zero dQ ({w}x{sc}, {label})")
                 dk_w, dv_w = hop.flash_attention_bwd_dkv(q, k, v, g, lse, delta, warps=w, splits=sc, **kw)
                 torch.cuda.synchronize()
-                record("flash_attention_bwd_dkv", f"{label} (dk, {w}x{sc})", dk_w, want[1])
-                record("flash_attention_bwd_dkv", f"{label} (dv, {w}x{sc})", dv_w, want[2])
+                record(dkv_name, f"{label} (dk, {w}x{sc})", dk_w, want[1])
+                record(dkv_name, f"{label} (dv, {w}x{sc})", dv_w, want[2])
                 if c["kv_valid"] is not None:
                     masked = ~c["kv_valid"][:, None, :, None].expand_as(dk_w)
                     if bool(masked.any().item()) and (dk_w[masked].abs().max().item() != 0.0
                                                       or dv_w[masked].abs().max().item() != 0.0):
-                        fail(f"flash_attention_bwd_dkv: masked keys must get exactly zero dK/dV ({w}x{sc}, {label})")
+                        fail(f"{dkv_name}: masked keys must get exactly zero dK/dV ({w}x{sc}, {label})")
         if c["kv_valid"] is not None:
             masked = ~c["kv_valid"][:, None, :, None].expand_as(dk)
             if bool(masked.any().item()) and (dk[masked].abs().max().item() != 0.0 or dv[masked].abs().max().item() != 0.0):
-                fail(f"flash_attention_bwd_dkv: masked keys must get exactly zero dK/dV ({label})")
+                fail(f"{dkv_name}: masked keys must get exactly zero dK/dV ({label})")
         if not bool(finite.all().item()):
             empty = ~finite
             if out[empty].abs().max().item() != 0.0 or dq[empty].abs().max().item() != 0.0:
@@ -737,7 +812,8 @@ def bleu_val_valid() -> np.ndarray:
     return np.asarray(src_pipe([s for s, _ in pairs[:32]])) != 0
 
 
-def _decode_site(torch, rng, dev, rows, sk, kv_valid, *, step_qkv=False, reorder=False, h=8, dh=64):
+def _decode_site(torch, rng, dev, rows, sk, kv_valid, *, step_qkv=False, reorder=False, h=8, dh=64,
+                 dtype=None):
     """q, k, v of one decode-step attention call as the model passes them:
     q a head-split view of the step's fused qkv ``[rows, 1, 3 h dh]``; K/V
     head-split views of cache buffers ``[rows, sk, h dh]`` (the self
@@ -748,7 +824,8 @@ def _decode_site(torch, rng, dev, rows, sk, kv_valid, *, step_qkv=False, reorder
     d = h * dh
 
     def randn(*shape):
-        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+        x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+        return x if dtype is None else x.to(dtype)
 
     def heads(t, n):
         return t.view(rows, n, h, dh).transpose(1, 2)
@@ -779,7 +856,7 @@ def _prefix_valid(rng, rows, gen_len, t, pads: bool) -> np.ndarray:
     return valid
 
 
-def decode_sites(torch, dev, bleu_src_valid: np.ndarray) -> dict:
+def decode_sites(torch, dev, bleu_src_valid: np.ndarray, dtype=None) -> dict:
     """The forward's one-query-row sites of the KV-cache decoders. The
     eval/BLEU decode (32 rows, 8 heads of 64, the cache sized to gen_len
     200): the self-attention at steps 0, 31, 32, 33 (a 32-key tile
@@ -796,23 +873,28 @@ def decode_sites(torch, dev, bleu_src_valid: np.ndarray) -> dict:
         for pads in ((False, True) if t else (False,)):
             label = f"BLEU self, step {t}" + (", pads in the prefix" if pads else "")
             sites[label] = _decode_site(torch, rng, dev, rows, gen_len,
-                                        _prefix_valid(rng, rows, gen_len, t, pads))
-    sites["BLEU cross"] = _decode_site(torch, rng, dev, rows, bleu_src_valid.shape[1], bleu_src_valid)
-    sites["BLEU priming self"] = _decode_site(torch, rng, dev, rows, 1, None, step_qkv=True)
+                                        _prefix_valid(rng, rows, gen_len, t, pads), dtype=dtype)
+    sites["BLEU cross"] = _decode_site(torch, rng, dev, rows, bleu_src_valid.shape[1], bleu_src_valid,
+                                       dtype=dtype)
+    sites["BLEU priming self"] = _decode_site(torch, rng, dev, rows, 1, None, step_qkv=True, dtype=dtype)
     sites["beam self, step 40"] = _decode_site(
-        torch, rng, dev, 16, 65, _prefix_valid(rng, 16, 65, 40, True), reorder=True)
+        torch, rng, dev, 16, 65, _prefix_valid(rng, 16, 65, 40, True), reorder=True, dtype=dtype)
     lens = rng.integers(6, 62, 16)
-    sites["beam cross"] = _decode_site(torch, rng, dev, 16, 64, np.arange(64)[None, :] < lens[:, None])
+    sites["beam cross"] = _decode_site(torch, rng, dev, 16, 64, np.arange(64)[None, :] < lens[:, None],
+                                       dtype=dtype)
     return sites
 
 
 def check_decode_forward(torch, hop, sites: dict, dev) -> float:
     """The forward (no ``lse``) at every one-query-row site against its
     plain version, at the wrapper's launch choice and at every other, each
-    within 1e-4 relative; two runs the same bits. Returns the largest
-    relative error."""
+    within 1e-4 relative (``BF16_TOL`` for bf16 sites); two runs the same
+    bits. Returns the largest relative error."""
     worst = 0.0
     for label, c in sites.items():
+        bf16 = c["q"].dtype == torch.bfloat16
+        tol = BF16_TOL if bf16 else TOL
+        fwd = hop.kernel_name("flash_attention_fwd", c["q"].dtype)
         q, k, v, valid = c["q"], c["k"], c["v"], c["kv_valid"]
         for t in (q, k, v):
             if not hop.kernel_layout_ok(t):
@@ -823,16 +905,16 @@ def check_decode_forward(torch, hop, sites: dict, dev) -> float:
         others = [hop.flash_attention_fwd(q, k, v, kv_valid=valid, warps=w, splits=c_)
                   for w, c_ in LAUNCH_CHOICES]
         torch.cuda.synchronize()
-        rel = max(_rel(x, want) for x in [got, *others])
+        rel = max(_rel(x.float(), want.float()) for x in [got, *others])
         choice = hop.flash_fwd_launch_params(*q.shape[:3], k.shape[2], q.shape[3], hop.device_sm_count(dev))
         n_valid = "all" if valid is None else int(valid.sum().item())
-        log(f"  flash_attention_fwd  {label:36s} q {list(q.shape)} k {list(k.shape)} valid {n_valid}: "
-            f"max_rel_err {rel:.3e} (tol {TOL:.0e} relative; (warps, splits) {choice[:2]} "
+        log(f"  {fwd:24s} {label:36s} q {list(q.shape)} k {list(k.shape)} valid {n_valid}: "
+            f"max_rel_err {rel:.3e} (tol {tol:.3e} relative; (warps, splits) {choice[:2]} "
             f"and each of {LAUNCH_CHOICES})")
-        if not rel <= TOL or any(bool(torch.isnan(x).any().item()) for x in [got, *others]):
-            fail(f"flash_attention_fwd disagrees with its plain version at decode site {label}")
+        if not rel <= tol or any(bool(torch.isnan(x).any().item()) for x in [got, *others]):
+            fail(f"{fwd} disagrees with its plain version at decode site {label}")
         if not torch.equal(got, again):
-            fail(f"flash_attention_fwd: a second run gave other bits at decode site {label}")
+            fail(f"{fwd}: a second run gave other bits at decode site {label}")
         worst = max(worst, rel)
     return worst
 
@@ -980,9 +1062,12 @@ def serve_once(torch, hop, translator, prompts, label: str, **engine_kw) -> dict
         fail(f"{label} engine completed {metrics['completed']} of {len(prompts)}")
     if rows_in_use or stats.get("active_rows") or stats.get("self_pages_in_use"):
         fail(f"{label} engine pools not back at baseline: rows {rows_in_use}, {stats}")
+    dtype = translator.model.cfg.dtype
     for name in SERVING_KERNELS if paged else ("flash_attention_fwd",):
-        if launches[name] <= 0:
-            fail(f"{label} engine never launched {name}")
+        if launches[hop.kernel_name(name, dtype)] <= 0:
+            fail(f"{label} engine never launched {hop.kernel_name(name, dtype)}")
+    if dtype != torch.float32 and any(launches[n] for n in hop.KERNELS):
+        fail(f"{label} engine (a {dtype} model) launched a float32 kernel: {launches}")
     return dict(
         outs=outs, wall=wall, launches=launches, stats=stats,
         tokens=metrics["tokens_out"], peak=peak, kv_mode=eng.kv_mode,
@@ -991,7 +1076,7 @@ def serve_once(torch, hop, translator, prompts, label: str, **engine_kw) -> dict
     )
 
 
-def replay_vs_eager(torch, hop, translator, prompts) -> None:
+def replay_vs_eager(torch, hop, translator, prompts, prefix: str = "") -> None:
     """One paged launch (fp32 and int8 pages, rows of real prompts two
     launches in) and one bucket decode (padded and beam, a rectangle of
     real prompts) replayed from the programs captured at warmup, against
@@ -1039,7 +1124,7 @@ def replay_vs_eager(torch, hop, translator, prompts) -> None:
         def replay(rt=rt):
             return [rt._replay(rt._stage()), *(t for t in rt.stores() if t is not None)]
 
-        compare(f"paged {kv} launch", replay, eager)
+        compare(f"{prefix}paged {kv} launch", replay, eager)
     pad = translator.model.cfg.pad_id
     for label, kw, n in (("padded", SERVE_PADDED, None), ("beam", SERVE_BEAM, N_BEAM)):
         eng = translator.serve(start=False, **kw)
@@ -1050,22 +1135,27 @@ def replay_vs_eager(torch, hop, translator, prompts) -> None:
             ids = translator.src_pipe.ragged([p])[0][:b]
             src[i, : len(ids)] = ids
         host = torch.from_numpy(src)
-        compare(f"{label} bucket {b} decode",
+        compare(f"{prefix}{label} bucket {b} decode",
                 lambda eng=eng, host=host: [eng._decode(host).clone()],
                 lambda eng=eng, host=host: [eng._decode_body(host.to(dev))])
 
 
-def one_shot(torch, hop, label: str, decode) -> tuple[list[str], dict]:
-    """``decode()`` (a one-shot decoder on the card) with the launch
-    counts set to 0 just before and read just after; it must have
-    launched the flash forward."""
+def one_shot(torch, hop, label: str, decode, dtype=None) -> tuple[list[str], dict]:
+    """``decode()`` (a one-shot decoder on the card, of a model computing
+    in ``dtype``) with the launch counts set to 0 just before and read
+    just after; it must have launched the flash forward of its dtype, and
+    a bf16 model no float32 kernel."""
+    dtype = dtype or torch.float32
     torch.cuda.synchronize()
     hop.reset_launches()
     outs = decode()
     torch.cuda.synchronize()
     launches = dict(hop.LAUNCHES)
-    if launches["flash_attention_fwd"] <= 0:
-        fail(f"{label} never launched flash_attention_fwd")
+    fwd = hop.kernel_name("flash_attention_fwd", dtype)
+    if launches[fwd] <= 0:
+        fail(f"{label} never launched {fwd}")
+    if dtype != torch.float32 and any(launches[n] for n in hop.KERNELS):
+        fail(f"{label} (a {dtype} model) launched a float32 kernel: {launches}")
     return outs, launches
 
 
@@ -1232,17 +1322,23 @@ def host_split(torch, translator, engine_kw: dict, prompts, window=serve_window)
 
 
 def bound_ms(name: str, bytes_moved: float, flops: float) -> tuple[float, str]:
-    rate = TF32X3_FLOPS_PER_S if name in TENSOR_CORE_KERNELS else FP32_FLOPS_PER_S
+    base = name.removesuffix("_bf16")
+    rate = FP32_FLOPS_PER_S
+    if base in TENSOR_CORE_KERNELS:
+        rate = BF16_FLOPS_PER_S if name.endswith("_bf16") else TF32X3_FLOPS_PER_S
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = flops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def time_kernels(torch, hop, dev, prompt_lens: list[int]) -> dict:
+def time_kernels(torch, hop, dev, prompt_lens: list[int], dtype=None) -> dict:
     """Each serving kernel at the serving slice's sites: kernel, plain
-    version, one library call, and the bound; kernel -> site -> times."""
+    version, one library call, and the bound; kernel instantiation ->
+    site -> times. ``dtype`` bf16 times the bf16 instantiations (bf16
+    inputs, so half the bytes of q, k, v and out)."""
     import torch.nn.functional as F
 
+    dtype = dtype or torch.float32
     rng = np.random.default_rng(SEED + 2)
     out = {}
     # Flash: the prefill encoder self-attention of one 64-token prompt
@@ -1250,7 +1346,7 @@ def time_kernels(torch, hop, dev, prompt_lens: list[int]) -> dict:
     # are head-split views of one fused qkv projection, as the model
     # passes them (stride 3*h*d between positions).
     b, h, s, d = 1, 8, 64, 64
-    qkv = torch.from_numpy(rng.standard_normal((b, s, 3 * h * d)).astype(np.float32)).to(dev)
+    qkv = torch.from_numpy(rng.standard_normal((b, s, 3 * h * d)).astype(np.float32)).to(dev).to(dtype)
     q, k, v = (t.view(b, s, h, d).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
     valid = torch.from_numpy(np.arange(s)[None, :] < 45).to(dev)
     mask = valid[:, None, None, :]
@@ -1265,23 +1361,25 @@ def time_kernels(torch, hop, dev, prompt_lens: list[int]) -> dict:
     }
     # q read and out written for every row; K and V only for the valid
     # keys (masked keys do not touch the output); kv_valid read once.
-    nbytes = 4 * b * h * d * (2 * s + 2 * n_valid) + b * s
+    nbytes = q.element_size() * b * h * d * (2 * s + 2 * n_valid) + b * s
     flops = 4.0 * b * h * s * n_valid * d  # QK^T and PV over the valid keys
-    bnd, by = bound_ms("flash_attention_fwd", nbytes, flops)
-    out["flash_attention_fwd"] = {"prefill": dict(
+    fwd = hop.kernel_name("flash_attention_fwd", dtype)
+    bnd, by = bound_ms(fwd, nbytes, flops)
+    out[fwd] = {"prefill": dict(
         ms=t_kernel, plain_ms=t_plain, library_ms=t_lib, bound_ms=bnd, bound_by=by,
         library_name="F.scaled_dot_product_attention, bool mask", nbytes=nbytes, flops=flops,
         device_ms=dev_ms, warps=hop.flash_fwd_launch_params(b, h, s, s, d, hop.device_sm_count(dev))[:2],
         warps_sweep={f"{w}x{c}": device_ms_per_call(
             torch, lambda w=w, c=c: hop.flash_attention_fwd(q, k, v, kv_valid=valid, warps=w, splits=c))
             for w, c in LAUNCH_CHOICES},
-        shape=f"q,k,v [{b},{h},{s},{d}] fp32 views of a fused qkv, kv_valid {n_valid}/{s}",
+        shape=f"q,k,v [{b},{h},{s},{d}] {_dtype_name(q)} views of a fused qkv, kv_valid {n_valid}/{s}",
     )}
-    out["ragged_paged_attention"] = time_ragged(torch, hop, dev, ragged_sites(torch, rng, dev, prompt_lens))
+    out[hop.kernel_name("ragged_paged_attention", dtype)] = time_ragged(
+        torch, hop, dev, ragged_sites(torch, rng, dev, prompt_lens, dtype))
     return out
 
 
-def ragged_sites(torch, rng, dev, prompt_lens: list[int]) -> dict:
+def ragged_sites(torch, rng, dev, prompt_lens: list[int], dtype=None) -> dict:
     """The decode step's two ragged calls over a full batch (32 rows, 8
     heads of 64, pages of 16, 4 per row), each over fp32 and over int8
     pages: cross-attention over the memory store (lengths = the prompts'
@@ -1293,9 +1391,11 @@ def ragged_sites(torch, rng, dev, prompt_lens: list[int]) -> dict:
     R, H, dh, page = SERVE["max_active"], 8, 64, SERVE["page_size"]
     P = SERVE["boundaries"][-1] // page
     D = H * dh
+    store = "bf16" if dtype == torch.bfloat16 else "fp32"
 
     def to(x):
-        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+        t = torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+        return t.to(dtype) if dtype is not None and t.dtype == torch.float32 else t
 
     def table_for(lens):
         table = np.zeros((R, P), np.int32)
@@ -1309,7 +1409,7 @@ def ragged_sites(torch, rng, dev, prompt_lens: list[int]) -> dict:
     num_pages = 1 + R * P
     f32 = [to(rng.standard_normal((num_pages, page, D)).astype(np.float32)) for _ in range(2)]
     i8 = [to(rng.integers(-127, 128, (num_pages, page, D)).astype(np.int8)) for _ in range(2)]
-    scales = [to((rng.random((num_pages, page)) * 0.02 + 1e-3).astype(np.float32)) for _ in range(2)]
+    scales = [to((rng.random((num_pages, page)) * 0.02 + 1e-3).astype(np.float32)).float() for _ in range(2)]
     qkv = to(rng.standard_normal((R, 3 * D)).astype(np.float32))
     q_self, cur_k, cur_v = qkv[:, :D].reshape(R, H, dh), qkv[:, D:2 * D], qkv[:, 2 * D:]
     q_cross = to(rng.standard_normal((R, H, dh)).astype(np.float32))
@@ -1318,11 +1418,11 @@ def ragged_sites(torch, rng, dev, prompt_lens: list[int]) -> dict:
     sites = {}
     for name, q, lens, cur in (("cross", q_cross, cross_lens, None), ("self + cur", q_self, self_lens, (cur_k, cur_v))):
         tbl, ln = to(table_for(lens)), to(lens)
-        for store, pages, sc in (("fp32", f32, (None, None)), ("int8", i8, scales)):
+        for kind, pages, sc in ((store, f32, (None, None)), ("int8", i8, scales)):
             kw = dict(k_scale=sc[0], v_scale=sc[1])
             if cur is not None:
                 kw.update(cur_k=cur[0], cur_v=cur[1])
-            sites[f"{name}, {store} pages"] = ((q, pages[0], pages[1], tbl, ln), kw)
+            sites[f"{name}, {kind} pages"] = ((q, pages[0], pages[1], tbl, ln), kw)
     return sites
 
 
@@ -1351,6 +1451,7 @@ def time_ragged(torch, hop, dev, sites: dict) -> dict:
             if quant:
                 kk = kk.float() * kw["k_scale"][tbl_long][..., None]
                 vv = vv.float() * kw["v_scale"][tbl_long][..., None]
+                kk, vv = kk.to(query.dtype), vv.to(query.dtype)
             kk = kk.reshape(R, P * page, H, dh).transpose(1, 2)
             vv = vv.reshape(R, P * page, H, dh).transpose(1, 2)
             if cur:
@@ -1367,14 +1468,15 @@ def time_ragged(torch, hop, dev, sites: dict) -> dict:
         lens_np = lens.cpu().numpy()
         n_pos = int(lens_np.sum())
         n_pages_read = int(sum(-(-int(x) // page) for x in lens_np))
-        elem = 1 if quant else 4
-        nbytes = (4 * R * D * 2  # query read, out written
+        elem = kp.element_size()
+        qe = query.element_size()
+        nbytes = (qe * R * D * 2  # query read, out written
                   + 2 * elem * n_pos * D  # K and V of every cached position
                   + (2 * 4 * n_pos if quant else 0)  # their scales
-                  + (2 * 4 * R * D if cur else 0)  # cur_k, cur_v
+                  + (2 * qe * R * D if cur else 0)  # cur_k, cur_v
                   + 4 * n_pages_read + 4 * R)  # table entries walked, lengths
         flops = 4.0 * (n_pos + (R if cur else 0)) * D
-        bnd, by = bound_ms("ragged_paged_attention", nbytes, flops)
+        bnd, by = bound_ms(hop.kernel_name("ragged_paged_attention", query.dtype), nbytes, flops)
         out[site] = dict(
             ms=cuda_time_ms(torch, kernel), plain_ms=cuda_time_ms(torch, plain),
             library_ms=cuda_time_ms(torch, library), library_name="gather + SDPA",
@@ -1384,11 +1486,12 @@ def time_ragged(torch, hop, dev, sites: dict) -> dict:
                 "plain": device_ms_per_call(torch, plain),
                 "library": device_ms_per_call(torch, library),
             },
-            warps=hop.ragged_launch_params(dh, P * page, quant),
+            warps=hop.ragged_launch_params(dh, P * page, quant, page_bytes=elem),
             warps_sweep={f"splits {sp}": device_ms_per_call(
                 torch, lambda sp=sp: hop.ragged_paged_attention(*args, splits=sp, **kw))
                 for sp in hop.RAGGED_SPLITS},
-            shape=f"{R} rows x {H} heads x {dh}, {'int8' if quant else 'fp32'} pages of {page}, "
+            shape=f"{R} rows x {H} heads x {dh}, {_dtype_name(query)} query, "
+                  f"{'int8' if quant else _dtype_name(kp)} pages of {page}, "
                   f"{n_pos} cached positions{', + cur' if cur else ''}",
         )
     return out
@@ -1467,11 +1570,13 @@ def step0_grads(model, batch, loss_fn):
     return named
 
 
-def parity_run(torch, hop, src_pipe, trg_pipe, train_ds, **overrides) -> dict:
+def parity_run(torch, hop, src_pipe, trg_pipe, train_ds, steps=PARITY_STEPS, rtol=PARITY_RTOL,
+               grad_rtol=GRAD_RTOL, **overrides) -> dict:
     """Dropout 0, random weights in the Flax layout bridged in: the same
-    ``PARITY_STEPS`` Adam steps on the card (kernels) and on the CPU
-    (plain versions), and the step-0 gradients of both. ``overrides``
-    change the model's config (the MoE run)."""
+    ``steps`` Adam steps on the card (kernels) and on the CPU (plain
+    versions), and the step-0 gradients of both; every step's loss within
+    ``rtol``, the gradients within ``grad_rtol``. ``overrides`` change the
+    model's config (the MoE run, the bf16 run)."""
     from machine_learning_apache_spark_tpu_torch.models import Transformer, TransformerConfig
     from machine_learning_apache_spark_tpu_torch.recipes.translation import make_translation_loss
     from machine_learning_apache_spark_tpu_torch.train.loop import make_train_step, to_device
@@ -1483,7 +1588,7 @@ def parity_run(torch, hop, src_pipe, trg_pipe, train_ds, **overrides) -> dict:
         **{**MODEL, **overrides},
     )
     params = random_flax_params(cfg, SEED)
-    batches = train_batches(train_ds, PARITY_STEPS)
+    batches = train_batches(train_ds, steps)
     loss_fn = make_translation_loss(cfg.pad_id)
     step = make_train_step(loss_fn)
     runs = {}
@@ -1501,13 +1606,13 @@ def parity_run(torch, hop, src_pipe, trg_pipe, train_ds, **overrides) -> dict:
     card_g = torch.cat([g for _, g in runs["cuda"]["named"]])
     cpu_g = torch.cat([g for _, g in runs["cpu"]["named"]])
     g_rel = ((card_g - cpu_g).abs().max() / cpu_g.abs().max()).item()
-    log(f"  parity, {PARITY_STEPS} Adam steps, dropout 0, random Flax-layout weights (seed {SEED})"
+    log(f"  parity, {steps} Adam steps, dropout 0, random Flax-layout weights (seed {SEED})"
         + (f", {overrides}" if overrides else "") + ":")
     log(f"    card losses {card.tolist()}")
     log(f"    CPU  losses {cpu.tolist()} (plain versions, {runs['cpu']['seconds']:.1f} s)")
-    log(f"    per-step relative difference {rel.tolist()} (gate <= {PARITY_RTOL:.0e})")
+    log(f"    per-step relative difference {rel.tolist()} (gate <= {rtol:.3e})")
     log(f"    step-0 gradients: max |card - CPU| / max |CPU| = {g_rel:.3e} over all "
-        f"parameters (gate <= {GRAD_RTOL:.0e})")
+        f"parameters (gate <= {grad_rtol:.3e})")
     g_max = cpu_g.abs().max()
     worst = sorted(
         ((((a - b).abs().max() / g_max).item(), (b.abs().max() / g_max).item(), n)
@@ -1516,9 +1621,9 @@ def parity_run(torch, hop, src_pipe, trg_pipe, train_ds, **overrides) -> dict:
     )[:4]
     log("    largest per parameter (|card - CPU| / max |CPU|, own max |CPU| / max |CPU|): "
         + "; ".join(f"{n} {e:.2e} ({m:.2e})" for e, m, n in worst))
-    if not np.isfinite(card).all() or not (rel <= PARITY_RTOL).all():
+    if not np.isfinite(card).all() or not (rel <= rtol).all():
         fail("card and CPU training losses disagree")
-    if not g_rel <= GRAD_RTOL:
+    if not g_rel <= grad_rtol:
         fail("card and CPU step-0 gradients disagree")
     return dict(card=card.tolist(), cpu=cpu.tolist(), rel=rel.tolist(), grad_rel=g_rel)
 
@@ -1797,7 +1902,7 @@ def time_bleu_decode(torch, hop, state, card) -> dict:
     return {k: dict(wall=v["wall"], busy=v["busy"], launches=v["launches"]) for k, v in runs.items()}
 
 
-def time_train_dispatch(torch, state, train_ds, card) -> dict:
+def time_train_dispatch(torch, state, train_ds, card, label: str = "") -> dict:
     """The recipe's train step (dropout 0.1) on the trained state, over
     device-resident fixture batches, one step per call and ``RESUME_K``
     steps per call (a replayed CUDA graph), in one process and on one
@@ -1842,7 +1947,7 @@ def time_train_dispatch(torch, state, train_ds, card) -> dict:
                  idle=None if window["busy"] is None else 1 - window["busy"] / window["wall"])
         out[k] = t
         idle = "not measured" if t["idle"] is None else f"{t['idle']:.4f}"
-        log(f"  train step, {k} step(s) per call (batch 32, [32, 200] src, [32, 199] decoder input, "
+        log(f"  {label}train step, {k} step(s) per call (batch 32, [32, 200] src, [32, 199] decoder input, "
             f"dropout 0.1): {ms:.3f} ms/step (CUDA events over {TIMED_STEPS} steps), "
             f"{t['steps_per_s']:.2f} steps/s, {t['tokens_per_s']:.1f} non-pad target tokens/s "
             f"({n_tok:.1f} per step), peak max_memory_allocated {t['peak'] / 2**20:.1f} MiB "
@@ -1888,12 +1993,13 @@ def time_training_kernels(torch, hop, sites: dict) -> dict:
         if causal:
             mask = mask & torch.ones(sq, sk, dtype=torch.bool, device=q.device).tril(sk - sq)
         o, lse = hop.flash_attention_fwd(q, k, v, return_lse=True, **kw)
-        delta = (g * o).sum(-1)
+        delta = (g.float() * o.float()).sum(-1)
         lq, lk, lv = (t.detach().requires_grad_() for t in (q, k, v))
         lib_out = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=mask)
         valid_np = valid.cpu().numpy()
         n_valid, pairs = int(valid_np.sum()), _pairs(valid_np, sq, causal)
-        rows, kv = 4 * b * h * sq * d, 4 * h * d * n_valid  # one [B,H,Sq,d] tensor; K or V of valid keys
+        e = q.element_size()  # 4 fp32, 2 bf16: the bytes of q, k, v, dO and the outputs
+        rows, kv = e * b * h * sq * d, e * h * d * n_valid  # one [B,H,Sq,d] tensor; K or V of valid keys
         stats = 4 * b * h * sq  # one [B,H,Sq] fp32 tensor (lse or delta)
         work = {
             "flash_attention_fwd": dict(
@@ -1915,22 +2021,23 @@ def time_training_kernels(torch, hop, sites: dict) -> dict:
                 plain=lambda: hop.flash_attention_bwd_dkv_plain(q, k, v, g, lse, delta, **kw),
                 library=lambda: torch.autograd.grad(lib_out, (lk, lv), g, retain_graph=True),
                 library_name="SDPA backward, dK and dV (autograd.grad, retained graph)",
-                nbytes=2 * rows + 2 * kv + 2 * stats + b * sk + 2 * 4 * b * h * sk * d,
+                nbytes=2 * rows + 2 * kv + 2 * stats + b * sk + 2 * e * b * h * sk * d,
                 flops=8.0 * d * h * pairs,
             ),
         }
+        work = {hop.kernel_name(n, q.dtype): w for n, w in work.items()}
         sweep = {
-            "flash_attention_fwd": (
+            hop.kernel_name("flash_attention_fwd", q.dtype): (
                 hop.flash_fwd_launch_params(b, h, sq, sk, d, hop.device_sm_count(q.device))[:2],
                 {f"{w}x{c}": (lambda w=w, c=c: hop.flash_attention_fwd(
                     q, k, v, return_lse=True, warps=w, splits=c, **kw)) for w, c in LAUNCH_CHOICES},
             ),
-            "flash_attention_bwd_dq": (
+            hop.kernel_name("flash_attention_bwd_dq", q.dtype): (
                 hop.dq_launch_params(b, h, sq, sk, d, hop.device_sm_count(q.device))[:2],
                 {f"{w}x{c}": (lambda w=w, c=c: hop.flash_attention_bwd_dq(
                     q, k, v, g, lse, delta, warps=w, splits=c, **kw)) for w, c in LAUNCH_CHOICES},
             ),
-            "flash_attention_bwd_dkv": (
+            hop.kernel_name("flash_attention_bwd_dkv", q.dtype): (
                 hop.dkv_launch_params(b, h, sq, sk, d)[:2],
                 {f"{w}x{c}": (lambda w=w, c=c: hop.flash_attention_bwd_dkv(
                     q, k, v, g, lse, delta, warps=w, splits=c, **kw)) for w, c in LAUNCH_CHOICES},
@@ -1940,7 +2047,7 @@ def time_training_kernels(torch, hop, sites: dict) -> dict:
             bnd, by = bound_ms(name, w["nbytes"], w["flops"])
             r = dict(
                 site=site,
-                shape=f"q [{b},{h},{sq},{d}], k/v [{b},{h},{sk},{d}] fp32 views of fused projections, "
+                shape=f"q [{b},{h},{sq},{d}], k/v [{b},{h},{sk},{d}] {_dtype_name(q)} views of fused projections, "
                       f"{'causal + ' if causal else ''}kv_valid {n_valid}/{b * sk} keys, {pairs} visible pairs per head",
                 ms=cuda_time_ms(torch, w["kernel"], n=50, warmup=5),
                 plain_ms=cuda_time_ms(torch, w["plain"], n=20, warmup=3),
@@ -1960,14 +2067,18 @@ def time_training_kernels(torch, hop, sites: dict) -> dict:
     return out
 
 
-def _fwd_work(q_shape, sk: int, causal: bool, valid_np) -> tuple[int, float]:
+def _dtype_name(t) -> str:
+    return "bf16" if t.element_size() == 2 else "fp32"
+
+
+def _fwd_work(q_shape, sk: int, causal: bool, valid_np, elem: int = 4) -> tuple[int, float]:
     """Bytes and operations of one forward launch (no ``lse``): q read and
-    out written, K and V of the valid keys, kv_valid; QKᵀ and P·V over the
-    visible pairs."""
+    out written, K and V of the valid keys (``elem`` bytes each), kv_valid;
+    QKᵀ and P·V over the visible pairs."""
     b, h, sq, d = q_shape
     n_valid = int(valid_np.sum()) if valid_np is not None else b * sk
     pairs = _pairs(valid_np if valid_np is not None else np.ones((b, sk), bool), sq, causal)
-    nbytes = 2 * 4 * b * h * sq * d + 2 * 4 * h * d * n_valid + (b * sk if valid_np is not None else 0)
+    nbytes = 2 * elem * b * h * sq * d + 2 * elem * h * d * n_valid + (b * sk if valid_np is not None else 0)
     return nbytes, 4.0 * d * h * pairs
 
 
@@ -1998,15 +2109,15 @@ def time_decode_forward(torch, hop, sites: dict) -> dict:
         sk = k.shape[2]
         mask = None if valid is None else valid[:, None, None, :]
         valid_np = None if valid is None else valid.cpu().numpy()
-        nbytes, flops = _fwd_work(tuple(q.shape), sk, False, valid_np)
-        bnd, by = bound_ms("flash_attention_fwd", nbytes, flops)
+        nbytes, flops = _fwd_work(tuple(q.shape), sk, False, valid_np, q.element_size())
+        bnd, by = bound_ms(hop.kernel_name("flash_attention_fwd", q.dtype), nbytes, flops)
         work = dict(
             kernel=lambda: hop.flash_attention_fwd(q, k, v, kv_valid=valid),
             plain=lambda: hop.flash_attention_plain(q, k, v, kv_valid=valid),
             library=lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
         )
         out[label] = dict(
-            shape=f"q [{b},{h},{sq},{d}], k/v [{b},{h},{sk},{d}] fp32 views of the step's qkv "
+            shape=f"q [{b},{h},{sq},{d}], k/v [{b},{h},{sk},{d}] {_dtype_name(q)} views of the step's qkv "
                   f"and the cache, kv_valid {'none' if valid_np is None else int(valid_np.sum())} keys",
             ms=cuda_time_ms(torch, work["kernel"], n=100, warmup=10),
             plain_ms=cuda_time_ms(torch, work["plain"], n=50, warmup=5),
@@ -2571,7 +2682,7 @@ FLASH_KERNELS = {"flash_attention_fwd": "flash_fwd", "flash_attention_bwd_dq": "
                  "flash_attention_bwd_dkv": "flash_bwd_dkv"}
 
 
-def bucket_sites(torch, rng, dev, src, trg_in) -> dict:
+def bucket_sites(torch, rng, dev, src, trg_in, dtype=None) -> dict:
     """The training sites at the default buckets' widths below 200, as a
     bucketed batch gives them (source and decoder input both ``w`` wide)
     and one shorter on the decoder side (``w - 1``): the fixture batch's
@@ -2579,7 +2690,7 @@ def bucket_sites(torch, rng, dev, src, trg_in) -> dict:
     sites = {}
     for w in BUCKETS[:-1]:
         for t in (w, w - 1):
-            for name, site in training_sites(torch, rng, dev, src[:, :w], trg_in[:, :t]).items():
+            for name, site in training_sites(torch, rng, dev, src[:, :w], trg_in[:, :t], dtype=dtype).items():
                 sites[f"bucket {w}/{t}: {name}"] = site
     return sites
 
@@ -3808,6 +3919,174 @@ def time_gang(torch, card: str) -> dict:
     return out
 
 
+# -- phase 7d: bf16 compute ------------------------------------------------------
+
+BF16 = "bfloat16"
+# The card's bf16 run against the CPU port's bf16 run (plain versions) on
+# the same weights and batches, 2 Adam steps: both round at the same
+# points, in bf16, but sum in other orders (cuBLAS and the kernels against
+# the CPU's matmuls), so a logit may land a bf16 ulp apart; each step's
+# loss, a float32 mean over ~6,000 tokens, within one bf16 ulp (2^-7).
+BF16_LOSS_RTOL = 2.0 ** -7
+# Step-0 gradients: each a bf16 backward's products rounded at several
+# points on either side, within four bf16 ulps of the largest (2^-5).
+BF16_GRAD_RTOL = 2.0 ** -5
+BF16_PARITY_STEPS = 2
+BF16_KERNELS = tuple(f"{n}_bf16" for n in (
+    "flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv", "ragged_paged_attention"))
+
+
+def fp32_twin(torch, translator):
+    """The same weights in a float32 model, a translator on the same
+    device."""
+    import dataclasses
+
+    from machine_learning_apache_spark_tpu_torch.inference import Translator
+    from machine_learning_apache_spark_tpu_torch.models import Transformer
+
+    cfg = dataclasses.replace(translator.model.cfg, dtype=torch.float32)
+    model = Transformer(cfg)
+    model.load_state_dict(translator.model.state_dict())
+    return Translator(model, translator.src_pipe, translator.trg_pipe, device=translator.device)
+
+
+def bf16_slice(torch, hop, card: str, src_pipe, trg_pipe, train_ds) -> dict:
+    """bf16 compute through the port's entry points. The MT recipe at the
+    reference width, ``dtype="bfloat16"``, one fixture epoch at 1 and 4
+    steps per call: float32 parameters, step losses and parameters bit for
+    bit, the bf16 kernels launched 3 x steps each (dQ, dK/dV) and the fp32
+    ones never. The card's bf16 step-0 loss against the CPU port's bf16
+    run. The trained model saved, loaded and served by the paged engine
+    over bf16 pages and over int8 pages, the padded engine and the beam
+    engine (the JAX program counts, zero recompiles, replays equal to
+    eager calls bit for bit); the bf16 paged engine against the bf16
+    one-shot decoder on the card (token agreement >= 0.99); bf16 against
+    the float32 model on the same weights (a reading). TinyVGG on the
+    CIFAR-10 fixture at bf16, 4 steps per call against 1, bit for bit. The
+    MoE options (``ADVANCED``) at bf16, 4 steps per call against 1."""
+    import tempfile
+
+    from machine_learning_apache_spark_tpu_torch.data.datasets import load_multi30k
+    from machine_learning_apache_spark_tpu_torch.inference import Translator
+
+    t0 = time.perf_counter()
+    one = recipe_run(torch, hop, epochs=1, dtype=BF16, compute_bleu=True, _return_translator=True)
+    many = recipe_run(torch, hop, epochs=1, dtype=BF16, steps_per_call=OPTION_K)
+    steps = one["state"].step
+    params_equal, loss_diffs = same_training(torch, many, one)
+    programs = many["fit_result"].programs
+    dtypes = {p.dtype for p in one["state"].params}
+    log(f"  MT recipe at bf16 (reference width, dropout 0.1, Adam 1e-3, batch 32): {steps} steps, "
+        f"history {one['history']}, test_loss {one['test_loss']:.6f}, BLEU {one['bleu']:.6f}, "
+        f"{one['wall']:.2f} s; parameters {sorted(str(d) for d in dtypes)}")
+    log(f"  steps_per_call {OPTION_K} vs 1: parameters equal bit for bit: {params_equal}; step losses "
+        f"differing: {loss_diffs}; programs "
+        + "; ".join(f"{p['calls']} calls, {p['replays']} replays, launches per replay {p['launches']}"
+                    for p in programs))
+    for label, run in (("1 step per call", one), (f"{OPTION_K} steps per call", many)):
+        lc = run["launches"]
+        log(f"  launches, {label}: dQ bf16 {lc['flash_attention_bwd_dq_bf16']}, dK/dV bf16 "
+            f"{lc['flash_attention_bwd_dkv_bf16']} (3 x {steps} = {3 * steps}), forward bf16 "
+            f"{lc['flash_attention_fwd_bf16']}; fp32 kernels {sum(lc[n] for n in hop.KERNELS)}")
+        for name in ("flash_attention_bwd_dq_bf16", "flash_attention_bwd_dkv_bf16"):
+            if lc[name] != 3 * steps:
+                fail(f"bf16 recipe ({label}): {name} launched {lc[name]} times, not 3 x {steps}")
+        if any(lc[n] for n in hop.KERNELS):
+            fail(f"bf16 recipe ({label}) launched a float32 kernel: {lc}")
+    if dtypes != {torch.float32}:
+        fail(f"bf16 compute must keep float32 parameters, got {dtypes}")
+    if not params_equal or loss_diffs:
+        fail(f"bf16: steps_per_call={OPTION_K} did not train bit for bit like 1")
+    if len(programs) != 1 or programs[0]["launches"] != programs[0]["eager_launches"]:
+        fail(f"bf16: {len(programs)} programs, or a replay's launches differ from its eager call's")
+    if not np.isfinite(one["fit_result"].step_losses).all():
+        fail("bf16 recipe: losses not finite")
+
+    parity = parity_run(torch, hop, src_pipe, trg_pipe, train_ds, steps=BF16_PARITY_STEPS,
+                        rtol=BF16_LOSS_RTOL, grad_rtol=BF16_GRAD_RTOL, dtype=torch.bfloat16)
+
+    with tempfile.TemporaryDirectory(dir=scratch_dir()) as d:
+        one["translator"].save(f"{d}/bf16")
+        config = json.loads(Path(f"{d}/bf16/translator.json").read_text())["config"]
+        loaded = Translator.load(f"{d}/bf16")
+    if config["dtype"] != "bfloat16" or loaded.model.cfg.dtype != torch.bfloat16:
+        fail(f"the saved bf16 translator came back as {config['dtype']} / {loaded.model.cfg.dtype}")
+    prompts = [s for s, _ in load_multi30k(str(FIXTURES), "valid")][:N_REQUESTS]
+    runs = {kv: serve_once(torch, hop, loaded, prompts, f"bf16 paged {kv}", kv_dtype=kv, **SERVE)
+            for kv in ("float32", "int8")}
+    runs["padded"] = serve_once(torch, hop, loaded, prompts, "bf16 padded", **SERVE_PADDED)
+    runs["beam"] = serve_once(torch, hop, loaded, prompts[:N_BEAM], "bf16 beam", **SERVE_BEAM)
+    for label, run in runs.items():
+        log(f"  bf16 {label:7s} engine ({run['kv_mode']}): {len(run['outs'])} completed in "
+            f"{run['wall']:.3f} s, launches {run['launches']}, {run['programs']} programs at warmup, "
+            f"recompiles_after_warmup 0")
+    replay_vs_eager(torch, hop, loaded, prompts, prefix="bf16 ")
+    mnt = SERVE["max_new_tokens"]
+    greedy, greedy_launches = one_shot(torch, hop, "the bf16 one-shot Translator",
+                                       lambda: loaded(prompts, max_new_tokens=mnt), torch.bfloat16)
+    beam_kw = dict(method="beam", beam_size=SERVE_BEAM["beam_size"], max_new_tokens=mnt)
+    beam = loaded(prompts[:N_BEAM], **beam_kw)
+    twin = fp32_twin(torch, loaded)
+    fp32_greedy = twin(prompts, max_new_tokens=mnt)
+    share, notes = agreement(runs["float32"]["outs"], greedy)
+    log(f"  token agreement, bf16 paged engine (bf16 pages) vs the bf16 one-shot greedy decoder on the "
+        f"card: {share:.6f} (gate >= {AGREEMENT_MIN})")
+    for n in notes:
+        log(f"    mismatch: {n}")
+    if share < AGREEMENT_MIN:
+        fail(f"token agreement {share:.4f} < {AGREEMENT_MIN} (bf16 paged engine vs one-shot)")
+    readings = {
+        "bf16 int8 pages vs bf16 pages": (runs["int8"]["outs"], runs["float32"]["outs"]),
+        "bf16 padded vs bf16 paged": (runs["padded"]["outs"], runs["float32"]["outs"]),
+        "bf16 beam engine vs bf16 one-shot beam": (runs["beam"]["outs"], beam),
+        "bf16 one-shot greedy vs the float32 model's on the same weights": (greedy, fp32_greedy),
+    }
+    for label, (got, ref) in readings.items():
+        log(f"  token agreement (a reading), {label}: {agreement(got, ref)[0]:.6f}")
+
+    cnn = {k: zoo_run(torch, hop, "cnn cifar10", epochs=1, dtype=BF16, steps_per_call=k) for k in (1, ZOO_K)}
+    zoo_multistep(torch, hop, "cnn cifar10 at bf16", cnn)
+    zero = {n: 0 for n in hop.LAUNCHES}
+    if any(r["launches"] != zero for r in cnn.values()):
+        fail("TinyVGG at bf16 launched attention kernels")
+    log(f"  TinyVGG (CIFAR-10 fixture, hidden 10) at bf16: final_loss {cnn[1]['final_loss']:.6f}, "
+        f"test_loss {cnn[1]['test_loss']:.6f}, accuracy {cnn[1]['accuracy']:.3f} %")
+    moe = k_steps_like_one(torch, hop, "MoE (advanced_translator options) at bf16", epochs=1,
+                           dtype=BF16, **ADVANCED)
+    for run in moe.values():
+        if any(run["launches"][n] for n in hop.KERNELS):
+            fail(f"MoE at bf16 launched a float32 kernel: {run['launches']}")
+    log(f"  phase 7d took {time.perf_counter() - t0:.1f} s")
+    return dict(
+        one=one, many=many, parity=parity, runs=runs, cnn=cnn, moe=moe,
+        one_shot_launches=greedy_launches,
+        paths={
+            "bf16 training, 1 and 4 steps per call": [one["launches"], many["launches"]],
+            "bf16 paged serving (bf16 and int8 pages)": [runs["float32"]["launches"], runs["int8"]["launches"]],
+            "bf16 padded serving": [runs["padded"]["launches"]],
+            "bf16 beam serving": [runs["beam"]["launches"]],
+            "bf16 one-shot greedy": [greedy_launches],
+            "bf16 MoE training, 1 and 4 steps per call": [moe["one"]["launches"], moe["many"]["launches"]],
+        },
+    )
+
+
+def log_bf16_steps(mt32: dict, mt16: dict, cnn32: dict, cnn16: dict, card: str) -> None:
+    """The MT step (1 and 4 steps per call) and the TinyVGG step at fp32
+    beside bf16, measured in this process."""
+    for label, a, b in (("MT", mt32, mt16), ("TinyVGG", cnn32, cnn16)):
+        for k in sorted(set(a) & set(b)):
+            x, y = a[k], b[k]
+            idle = {n: ("not measured" if t.get("idle") is None else f"{t['idle']:.4f}") for n, t in (("fp32", x), ("bf16", y))}
+            rate = "tokens_per_s" if "tokens_per_s" in x else "samples_per_s"
+            extra = (f", {rate.replace('_per_s', '')}/s fp32 {x[rate]:.1f}, bf16 {y[rate]:.1f}"
+                     if rate in x and rate in y else "")
+            peak = "peak" if "peak" in x else "peak_above"
+            log(f"  {label} step at {k} step(s) per call: fp32 {x['ms']:.4f} ms, bf16 {y['ms']:.4f} ms "
+                f"({x['ms'] / y['ms']:.3f}x){extra}; idle share fp32 {idle['fp32']}, bf16 {idle['bf16']}; "
+                f"{peak} fp32 {x[peak] / 2**20:.1f} MiB, bf16 {y[peak] / 2**20:.1f} MiB [{card}]")
+
+
 # -- main -----------------------------------------------------------------------
 
 
@@ -3853,8 +4132,8 @@ def main() -> int:
     src_pipe_t, trg_pipe_t, train_ds = fixture_data()
     src0, trg0 = train_batches(train_ds, 1)[0]
 
-    def make_sites():
-        return training_sites(torch, np.random.default_rng(SEED + 4), dev, src0, trg0[:, :-1])
+    def make_sites(dtype=None):
+        return training_sites(torch, np.random.default_rng(SEED + 4), dev, src0, trg0[:, :-1], dtype=dtype)
 
     # Made anew for the timings of phase 6: held here they would sit in
     # device memory through the serving and training peaks.
@@ -3865,6 +4144,15 @@ def main() -> int:
     )
     bleu_valid = bleu_val_valid()
     decode_err = check_decode_forward(torch, hop, decode_sites(torch, dev, bleu_valid), dev)
+    # The bf16 instantiations at the same sites and edge cases.
+    bf16 = torch.bfloat16
+    errs |= check_kernels(torch, hop, dev, dtype=bf16)
+    train_errs |= check_training_kernels(
+        torch, hop,
+        make_sites(bf16) | bucket_sites(torch, np.random.default_rng(SEED + 5), dev, src0, trg0[:, :-1], dtype=bf16),
+        dev, dtype=bf16,
+    )
+    decode_err_bf16 = check_decode_forward(torch, hop, decode_sites(torch, dev, bleu_valid, dtype=bf16), dev)
     torch.cuda.empty_cache()
 
     log("== phase 4: serving slice at full width")
@@ -3968,6 +4256,9 @@ def main() -> int:
     recovery = recovery_slice(torch, hop, translator, prompts, card)
     log(f"  phase 7c took {time.perf_counter() - t0:.1f} s")
 
+    log("== phase 7d: bf16 compute (the MT recipe, its engines, TinyVGG and MoE at dtype=\"bfloat16\")")
+    bf = bf16_slice(torch, hop, card, src_pipe_t, trg_pipe_t, train_ds)
+
     log("== phase 8: times")
     for label, run in runs.items():
         log(f"  {label:7s} engine ({run['kv_mode']}): {len(run['outs']) / run['wall']:.2f} requests/s, "
@@ -4020,15 +4311,22 @@ def main() -> int:
              f"({eval_decode['recorded']} recorded), the recipe run's {eval_launches}")
     gang_times = time_gang(torch, card)
     times = time_kernels(torch, hop, dev, prompt_lens)
+    times |= time_kernels(torch, hop, dev, prompt_lens, dtype=bf16)
     train_times = time_train_dispatch(torch, trained["state"], train_ds, card)
+    train_times_bf16 = time_train_dispatch(torch, bf["one"]["state"], train_ds, card, label="bf16 ")
+    cnn_times_bf16 = time_zoo_dispatch(torch, "cnn cifar10", bf["cnn"][1]["state"], card, label=" at bf16")
     bleu_times = time_bleu_decode(torch, hop, trained["state"], card)
     timed_sites = make_sites()
     timed_sites |= one_sequence_sites(torch, timed_sites["encoder self"])
     site_times = time_training_kernels(torch, hop, timed_sites)
+    site_times |= time_training_kernels(torch, hop, make_sites(bf16))
     decode_times = time_decode_forward(torch, hop, decode_sites(torch, dev, bleu_valid))
-    for name, by_site in [*times.items(), *site_times.items(), ("flash_attention_fwd", decode_times)]:
+    decode_times_bf16 = time_decode_forward(torch, hop, decode_sites(torch, dev, bleu_valid, dtype=bf16))
+    for name, by_site in [*times.items(), *site_times.items(), ("flash_attention_fwd", decode_times),
+                          ("flash_attention_fwd_bf16", decode_times_bf16)]:
         for site, t in by_site.items():
             log_site_times(name, site, t, card)
+    log_bf16_steps(train_times, train_times_bf16, zoo["times"]["cnn cifar10"], cnn_times_bf16, card)
 
     # Launches per path, each read from its own run (counts set to 0 just
     # before it): the paged engines (fp32 and int8), the padded and beam
@@ -4062,23 +4360,26 @@ def main() -> int:
         "gang: MT fault drill, the retried attempt": recovery["drill"]["launches"],
         "live plane: paged fp32 engine": [recovery["live"]["paged fp32"]["launches"]],
         "live plane: padded engine": [recovery["live"]["padded"]["launches"]],
+        **bf["paths"],
     }
     path_launches = {p: {n: sum(x[n] for x in xs) for n in hop.LAUNCHES} for p, xs in paths.items()}
     kernels = []
     for name in ("flash_attention_fwd", "ragged_paged_attention",
-                 "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+                 "flash_attention_bwd_dq", "flash_attention_bwd_dkv", *BF16_KERNELS):
         # Serving-shape numbers for the serving kernels; the encoder
         # self-attention site for the backward kernels; every training
         # site under "training_sites".
-        main_t = (times.get(name) or site_times[name])[MAIN_SITE[name]]
+        base = name.removesuffix("_bf16")
+        site = MAIN_SITE[base] if name == base else MAIN_SITE[base].replace("fp32", "bf16")
+        main_t = (times.get(name) or site_times[name])[site]
         err = errs.get(name, 0.0)
         if name in train_errs:
             err = max(err, train_errs[name]["max_abs_err"])
         entry = {
             "name": name,
             "route": "cuda",
-            "source": SOURCES[name],
-            "replaces": REPLACES[name],
+            "source": SOURCES[base],
+            "replaces": REPLACES[base],
             "launches": sum(x[name] for x in path_launches.values()),
             "launches_by_path": {p: x[name] for p, x in path_launches.items()},
             "max_abs_err": err,
@@ -4091,12 +4392,15 @@ def main() -> int:
         }
         if name in train_errs:
             entry["max_rel_err"] = train_errs[name]["max_rel_err"]
-        if name == "flash_attention_fwd":  # the decode sites are held relative
-            entry["max_rel_err"] = max(entry["max_rel_err"], decode_err)
+        if base == "flash_attention_fwd":  # the decode sites are held relative
+            entry["max_rel_err"] = max(entry["max_rel_err"], decode_err if name == base else decode_err_bf16)
         keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms", "warps", "warps_sweep")
         for label, by_site in (("serving_sites", times.get(name)), ("training_sites", site_times.get(name))):
             if by_site:
                 entry[label] = {site: {k: t[k] for k in keys if k in t} for site, t in by_site.items()}
+        if name == "flash_attention_fwd_bf16":
+            entry["decode_sites"] = {site: {k: t[k] for k in keys if k in t}
+                                     for site, t in decode_times_bf16.items()}
         if name == "flash_attention_fwd":
             entry["eval_bleu_decode"] = dict(
                 decoder="greedy_translate_cached", launches=eval_launches,
@@ -4122,6 +4426,10 @@ def main() -> int:
         launches_by_rank={r["rank"]: r["launches"] for r in gangs["mt"]["ranks"]},
         times=gang_times), default=str) + f" [{card}]")
     log("  recovery: " + json.dumps(recovery, default=str) + f" [{card}]")
+    log("  bf16: " + json.dumps(dict(
+        parity=bf["parity"], train_step={"fp32": train_times, "bf16": train_times_bf16},
+        tinyvgg_step={"fp32": zoo["times"]["cnn cifar10"], "bf16": cnn_times_bf16}), default=str)
+        + f" [{card}]")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,5 +1,5 @@
-// Flash-2 attention backward, fp32, for Hopper (sm_90a): a dQ kernel and a
-// dK/dV kernel.
+// Flash-2 attention backward for Hopper (sm_90a): a dQ kernel and a dK/dV
+// kernel, each fp32 (3xTF32 products) and bf16 (bf16 products, below).
 //
 // Replaces machine_learning_apache_spark_tpu/ops/pallas_attention.py::
 // _flash_bwd_dq_kernel and ::_flash_bwd_dkv_kernel (both launched from
@@ -726,6 +726,622 @@ cudaError_t launch_dkv(const dim3& grid, int warps, int splits, size_t bytes,
   return cudaGetLastError();
 }
 
+
+// -- bf16 ----------------------------------------------------------------------
+//
+// The bf16 instantiations: q/k/v/dO in and dQ/dK/dV out bf16, lse and delta
+// float32, P and dS in float32. The products run on mma.sync m16n8k16 with
+// bf16 operands and float32 accumulators (hopper_mma.cuh): S and dP from
+// bf16 rows; dS (dQ's and dK's A operand) and P^T (dV's) are rounded to
+// bf16 as they become A operands, as the reference's
+// ds.astype(k.dtype) / p_t.astype(do.dtype) round them; dQ, dK and dV are
+// summed in float32 registers and cast once at the end, as the
+// reference's float32 scratch is. The blocks, splits, masks, skipping and
+// merges are the fp32 kernels'. Rows sit in shared memory at D_PAD + 8
+// bf16; the head dim's k-steps are 16 wide, a row zero-filled past d.
+
+using bf16 = __nv_bfloat16;
+
+// Dynamic shared memory of the bf16 dQ kernel: Q and dO rows [16G][D_PAD
+// + 8] bf16, lse and delta [16G] float32, K/V tiles [2][C][2][kBlockK]
+// [D_PAD + 8] bf16, the validity words and the live-tile list
+// (ops/hopper_attention.dq_smem_bytes mirrors this).
+size_t dq_bf16_smem_bytes(int warps, int splits, int d_pad, int kv_len) {
+  const int stride = d_pad + 8;
+  const int rows = 16 * (warps / splits);
+  const int tiles = (kv_len + kBlockK - 1) / kBlockK;
+  return sizeof(bf16) * (2 * rows * stride + 2 * splits * 2 * kBlockK * stride) +
+         sizeof(float) * 2 * rows + 2 * sizeof(uint32_t) * tiles;
+}
+
+template <int D_PAD>
+__global__ void __launch_bounds__(kDqMaxWarps * 32)
+flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v,
+                         const bf16* __restrict__ d_out,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         const uint8_t* __restrict__ kv_valid,
+                         bf16* __restrict__ dq, Strides qs, Strides ks,
+                         Strides vs, Strides dos, int heads, int q_len,
+                         int kv_len, int head_dim, int causal, float scale,
+                         int splits) {
+  constexpr int S = D_PAD + 8;     // shared row stride in bf16, 4 mod 32 words
+  constexpr int KD = D_PAD / 8;    // 8-wide output column tiles
+  constexpr int KS = D_PAD / 16;   // 16-wide head-dim k-steps
+  constexpr int NK = kBlockK / 8;  // 8-key n-tiles per tile
+  constexpr int TILE = kBlockK * S;
+  extern __shared__ __align__(16) unsigned char dq_bf16_smem[];
+  const int warps = blockDim.x >> 5;
+  const int row_warps = warps / splits;
+  const int rows = 16 * row_warps;
+  bf16* q_s = reinterpret_cast<bf16*>(dq_bf16_smem);  // [rows][S]
+  bf16* do_s = q_s + rows * S;                        // [rows][S]
+  float* lse_s = reinterpret_cast<float*>(do_s + rows * S);  // [rows]
+  float* delta_s = lse_s + rows;                              // [rows]
+  bf16* kv_s = reinterpret_cast<bf16*>(delta_s + rows);  // [2][splits][2][kBlockK][S]
+  const int tiles_alloc = (kv_len + kBlockK - 1) / kBlockK;
+  uint32_t* bits_s = reinterpret_cast<uint32_t*>(kv_s + 4 * splits * TILE);
+  int* live_s = reinterpret_cast<int*>(bits_s + tiles_alloc);
+  __shared__ int n_live_s;
+
+  const int bh = blockIdx.y;
+  const int b = bh / heads;
+  const int h = bh - b * heads;
+  const int q0 = blockIdx.x * rows;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int rw = warp % row_warps;
+  const int sp = warp / row_warps;
+  const int offset = kv_len - q_len;
+  const int d = head_dim;
+  const int ks16 = (d + 15) >> 4;  // 16-wide k-steps in use
+  const int chunks = ks16 << 1;    // 16-byte chunks per row, zero past d
+  const int kd = d >> 3;           // 8-wide output tiles in use
+
+  const bf16* qb = q + b * qs.b + h * qs.h;
+  const bf16* kb = k + b * ks.b + h * ks.h;
+  const bf16* vb = v + b * vs.b + h * vs.h;
+  const bf16* dob = d_out + b * dos.b + h * dos.h;
+  const float* lseb = lse + static_cast<long long>(bh) * q_len;
+  const float* deltab = delta + static_cast<long long>(bh) * q_len;
+
+  int k_end = kv_len;
+  if (causal) k_end = min(kv_len, min(q0 + rows, q_len) + offset);
+  const int n_tiles = k_end > 0 ? (k_end + kBlockK - 1) / kBlockK : 0;
+
+  auto load_kv = [&](int tile, int buf, int c) {
+    const int k0 = tile * kBlockK;
+    bf16* kd_s = kv_s + ((buf * splits + c) * 2) * TILE;
+    bf16* vd_s = kd_s + TILE;
+    for (int i = threadIdx.x; i < kBlockK * chunks; i += blockDim.x) {
+      const int j = i / chunks;
+      const int col = (i - j * chunks) << 3;
+      const int kj = k0 + j;
+      const bool in = kj < kv_len && col < d;
+      hopper::cp_async16(kd_s + j * S + col, kb + (in ? kj * ks.s + col : 0), in);
+      hopper::cp_async16(vd_s + j * S + col, vb + (in ? kj * vs.s + col : 0), in);
+    }
+  };
+
+  for (int i = threadIdx.x; i < rows * chunks; i += blockDim.x) {
+    const int r = i / chunks;
+    const int col = (i - r * chunks) << 3;
+    const int qi = q0 + r;
+    const bool in = qi < q_len && col < d;
+    hopper::cp_async16(q_s + r * S + col, qb + (in ? qi * qs.s + col : 0), in);
+    hopper::cp_async16(do_s + r * S + col, dob + (in ? qi * dos.s + col : 0), in);
+  }
+  if (threadIdx.x < rows) {
+    const int qi = q0 + threadIdx.x;
+    const bool in = qi < q_len;
+    const int row = in ? qi : 0;
+    hopper::cp_async4(lse_s + threadIdx.x, lseb + row, in);
+    hopper::cp_async4(delta_s + threadIdx.x, deltab + row, in);
+  }
+  for (int c = 0; c < splits && c < n_tiles; ++c) load_kv(c, 0, c);
+  hopper::cp_async_commit();
+
+  for (int tile = warp; tile < n_tiles; tile += warps) {
+    const int kj = tile * kBlockK + lane;
+    bool ok = kj < kv_len;
+    if (ok && kv_valid != nullptr) {
+      ok = kv_valid[static_cast<long long>(b) * kv_len + kj] != 0;
+    }
+    const unsigned word = __ballot_sync(hopper::kFull, ok);
+    if (lane == 0) bits_s[tile] = word;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    int n = 0;
+    for (int base = splits; base < n_tiles; base += 32) {
+      const int tile = base + lane;
+      const bool live = tile < n_tiles && bits_s[tile] != 0u;
+      const unsigned m = __ballot_sync(hopper::kFull, live);
+      if (live) live_s[n + __popc(m & ((1u << lane) - 1u))] = tile;
+      n += __popc(m);
+    }
+    if (lane == 0) n_live_s = n;
+  }
+  __syncthreads();
+  const int n_live = n_live_s;
+  const int n_walk = n_tiles > 0 ? 1 + (n_live + splits - 1) / splits : 0;
+  auto step_tile = [&](int step, int c) {
+    if (step == 0) return c < n_tiles ? c : -1;
+    const int i = (step - 1) * splits + c;
+    return i < n_live ? live_s[i] : -1;
+  };
+
+  const int r0 = q0 + 16 * rw;
+  const bool warp_live = r0 < q_len;
+  const int warp_last = min(r0 + 15, q_len - 1);
+
+  float dq_acc[KD][4];
+#pragma unroll
+  for (int n = 0; n < KD; ++n) {
+    dq_acc[n][0] = dq_acc[n][1] = dq_acc[n][2] = dq_acc[n][3] = 0.f;
+  }
+
+  int buf = 0;
+  for (int step = 0; step < n_walk; ++step) {
+    if (step + 1 < n_walk) {
+      for (int c = 0; c < splits; ++c) {
+        const int tile = step_tile(step + 1, c);
+        if (tile >= 0) load_kv(tile, buf ^ 1, c);
+      }
+      hopper::cp_async_commit();
+      hopper::cp_async_wait<1>();
+    } else {
+      hopper::cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    const int tile = step_tile(step, sp);
+    const int k0 = tile * kBlockK;
+    const bool dq_work = tile >= 0 && warp_live && bits_s[tile] != 0u &&
+                         (!causal || k0 <= warp_last + offset);
+    if (dq_work) {
+      const bf16* kt = kv_s + ((buf * splits + sp) * 2) * TILE;
+      const bf16* vt = kt + TILE;
+      const unsigned word = bits_s[tile];
+      const bf16* qr = q_s + (16 * rw + g) * S + 2 * t;
+      const bf16* dr = do_s + (16 * rw + g) * S + 2 * t;
+      unsigned live8 = 0;
+#pragma unroll
+      for (int n = 0; n < NK; ++n) {
+        if (((word >> (8 * n)) & 0xffu) && (!causal || k0 + 8 * n <= warp_last + offset)) {
+          live8 |= 1u << n;
+        }
+      }
+
+      // S = Q K^T and dP = dO V^T over this tile, k-steps of 16.
+      float s_acc[NK][4], dp_acc[NK][4];
+#pragma unroll
+      for (int n = 0; n < NK; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s_acc[n][e] = dp_acc[n][e] = 0.f;
+      }
+#pragma unroll
+      for (int s = 0; s < KS; ++s) {
+        if (s < ks16) {
+          uint32_t qa[4], da[4];
+          hopper::frag_a_bf16(qa, qr + 16 * s, S);
+          hopper::frag_a_bf16(da, dr + 16 * s, S);
+#pragma unroll
+          for (int n = 0; n < NK; ++n) {
+            if ((live8 >> n) & 1u) {
+              const bf16* kr = kt + (8 * n + g) * S + 16 * s + 2 * t;
+              const bf16* vr = vt + (8 * n + g) * S + 16 * s + 2 * t;
+              const uint32_t kf[2] = {hopper::ld_bf16x2(kr), hopper::ld_bf16x2(kr + 8)};
+              const uint32_t vf[2] = {hopper::ld_bf16x2(vr), hopper::ld_bf16x2(vr + 8)};
+              hopper::mma_bf16(s_acc[n], qa, kf);
+              hopper::mma_bf16(dp_acc[n], da, vf);
+            }
+          }
+        }
+      }
+
+      // P = exp(S * scale - lse) and dS = P (dP - delta) under the masks.
+#pragma unroll
+      for (int n = 0; n < NK; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = 8 * n + 2 * t + (e & 1);
+          const int ri = 16 * rw + g + 8 * (e >> 1);
+          const int row = q0 + ri;
+          const float l_ = lse_s[ri];
+          bool ok = ((word >> j) & 1u) && row < q_len && l_ > 0.5f * kNegInf;
+          if (causal) ok = ok && (k0 + j <= row + offset);
+          const float p = ok ? expf(s_acc[n][e] * scale - l_) : 0.f;
+          dp_acc[n][e] = ok ? p * (dp_acc[n][e] - delta_s[ri]) : 0.f;
+        }
+      }
+
+      // dQ += dS K: k-steps of 16 keys (two of dS's fragments, rounded to
+      // bf16, are the A operand), K read down its columns.
+#pragma unroll
+      for (int j = 0; j < NK / 2; ++j) {
+        if (!((live8 >> (2 * j)) & 3u)) continue;
+        uint32_t sa[4];
+        hopper::frag_a_from_c(sa, dp_acc[2 * j], dp_acc[2 * j + 1]);
+        const bf16* kr = kt + (16 * j + 2 * t) * S + g;
+#pragma unroll
+        for (int n = 0; n < KD; ++n) {
+          if (n < kd) {
+            const uint32_t kf[2] = {hopper::ld_bf16_col2(kr + 8 * n, S),
+                                    hopper::ld_bf16_col2(kr + 8 * S + 8 * n, S)};
+            hopper::mma_bf16(dq_acc[n], sa, kf);
+          }
+        }
+      }
+    }
+    __syncthreads();
+    buf ^= 1;
+  }
+  hopper::cp_async_wait<0>();
+
+  if (splits > 1) {
+    constexpr int STATE = 4 * KD;
+    float* state_s = reinterpret_cast<float*>(kv_s);
+    if (sp > 0 && warp_live) {
+      float* st = state_s + ((sp - 1) * row_warps + rw) * 32 * STATE + lane;
+#pragma unroll
+      for (int n = 0; n < KD; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[(4 * n + e) * 32] = dq_acc[n][e];
+      }
+    }
+    __syncthreads();
+    if (sp > 0) return;
+    if (warp_live) {
+      for (int c = 1; c < splits; ++c) {
+        const float* sc = state_s + ((c - 1) * row_warps + rw) * 32 * STATE + lane;
+#pragma unroll
+        for (int n = 0; n < KD; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dq_acc[n][e] += sc[(4 * n + e) * 32];
+        }
+      }
+    }
+  }
+
+  if (!warp_live) return;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + g + 8 * i;
+    if (row >= q_len) continue;
+    bf16* o = dq + (static_cast<long long>(bh) * q_len + row) * d + 2 * t;
+#pragma unroll
+    for (int n = 0; n < KD; ++n) {
+      if (n < kd) {
+        *reinterpret_cast<__nv_bfloat162*>(o + 8 * n) = __floats2bfloat162_rn(
+            dq_acc[n][2 * i] * scale, dq_acc[n][2 * i + 1] * scale);
+      }
+    }
+  }
+}
+
+template <int D_PAD>
+cudaError_t launch_dq_bf16(const dim3& grid, int warps, int splits, size_t bytes,
+                           cudaStream_t stream, const bf16* q, const bf16* k,
+                           const bf16* v, const bf16* d_out, const float* lse,
+                           const float* delta, const uint8_t* kv_valid, bf16* dq,
+                           Strides qs, Strides ks, Strides vs, Strides dos,
+                           int heads, int q_len, int kv_len, int head_dim,
+                           int causal, float scale) {
+  cudaError_t err = allow_smem(flash_bwd_dq_bf16_kernel<D_PAD>, bytes);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq_bf16_kernel<D_PAD><<<grid, 32 * warps, bytes, stream>>>(
+      q, k, v, d_out, lse, delta, kv_valid, dq, qs, ks, vs, dos, heads,
+      q_len, kv_len, head_dim, causal, scale, splits);
+  return cudaGetLastError();
+}
+
+// Dynamic shared memory of the bf16 dK/dV kernel: the block's K and V rows
+// [16G][D_PAD + 8] bf16, then [2][C] staged query tiles, each Q and dO
+// [kTileQ][D_PAD + 8] bf16 and lse and delta [kTileQ] float32.
+__host__ __device__ inline size_t dkv_bf16_tile_bytes(int d_pad) {
+  return sizeof(bf16) * 2 * kTileQ * (d_pad + 8) + sizeof(float) * 2 * kTileQ;
+}
+
+size_t dkv_bf16_smem_bytes(int warps, int splits, int d_pad) {
+  return sizeof(bf16) * 2 * 16 * (warps / splits) * (d_pad + 8) +
+         2 * splits * dkv_bf16_tile_bytes(d_pad);
+}
+
+// Zeros into rows [row0, row0 + n) of the contiguous [*, d] bf16 dk and dv.
+__device__ __forceinline__ void zero_rows_bf16(bf16* dk, bf16* dv,
+                                               long long row0, int n, int d,
+                                               int tid, int threads) {
+  const uint4 z = make_uint4(0u, 0u, 0u, 0u);
+  uint4* k4 = reinterpret_cast<uint4*>(dk + row0 * d);
+  uint4* v4 = reinterpret_cast<uint4*>(dv + row0 * d);
+  for (int i = tid; i < n * (d >> 3); i += threads) {
+    k4[i] = z;
+    v4[i] = z;
+  }
+}
+
+template <int D_PAD>
+__global__ void __launch_bounds__(kDkvMaxWarps * 32)
+flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v,
+                          const bf16* __restrict__ d_out,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          const uint8_t* __restrict__ kv_valid,
+                          bf16* __restrict__ dk, bf16* __restrict__ dv,
+                          Strides qs, Strides ks, Strides vs, Strides dos,
+                          int heads, int q_len, int kv_len, int head_dim,
+                          int causal, float scale, int splits) {
+  constexpr int S = D_PAD + 8;      // shared row stride in bf16, 4 mod 32 words
+  constexpr int KD = D_PAD / 8;     // 8-wide output column tiles
+  constexpr int KS = D_PAD / 16;    // 16-wide head-dim k-steps
+  constexpr int NQ = kTileQ / 8;    // 8-row query n-tiles per tile
+  extern __shared__ __align__(16) unsigned char dkv_bf16_smem[];
+  const int warps = blockDim.x >> 5;
+  const int groups = warps / splits;
+  const int keys = 16 * groups;
+  const size_t tile_bytes = dkv_bf16_tile_bytes(D_PAD);
+  bf16* k_s = reinterpret_cast<bf16*>(dkv_bf16_smem);  // [keys][S]
+  bf16* v_s = k_s + keys * S;                          // [keys][S]
+  unsigned char* tiles_s = reinterpret_cast<unsigned char*>(v_s + keys * S);
+
+  const int bh = blockIdx.y;
+  const int b = bh / heads;
+  const int h = bh - b * heads;
+  const int k0 = blockIdx.x * keys;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int grp = warp % groups;
+  const int sp = warp / groups;
+  const int offset = kv_len - q_len;
+  const int d = head_dim;
+  const int ks16 = (d + 15) >> 4;
+  const int chunks = ks16 << 1;
+  const int kd = d >> 3;
+  const long long out0 = static_cast<long long>(bh) * kv_len;
+  const int kw0 = k0 + 16 * grp;
+
+  bool ok = false;
+  if (lane < 16) {
+    const int kj = kw0 + lane;
+    ok = kj < kv_len;
+    if (ok && kv_valid != nullptr) {
+      ok = kv_valid[static_cast<long long>(b) * kv_len + kj] != 0;
+    }
+  }
+  const unsigned kbits = __ballot_sync(hopper::kFull, ok);
+  if (!__syncthreads_or(kbits != 0u)) {
+    zero_rows_bf16(dk, dv, out0 + k0, min(keys, kv_len - k0), d, threadIdx.x,
+                   blockDim.x);
+    return;
+  }
+  const bool warp_live = kbits != 0u;
+  if (!warp_live && sp == 0) {
+    zero_rows_bf16(dk, dv, out0 + kw0, max(0, min(16, kv_len - kw0)), d, lane, 32);
+  }
+
+  const bf16* qb = q + b * qs.b + h * qs.h;
+  const bf16* kb = k + b * ks.b + h * ks.h;
+  const bf16* vb = v + b * vs.b + h * vs.h;
+  const bf16* dob = d_out + b * dos.b + h * dos.h;
+  const float* lseb = lse + static_cast<long long>(bh) * q_len;
+  const float* deltab = delta + static_cast<long long>(bh) * q_len;
+
+  for (int i = threadIdx.x; i < keys * chunks; i += blockDim.x) {
+    const int r = i / chunks;
+    const int c = (i - r * chunks) << 3;
+    const int kj = k0 + r;
+    const bool in = kj < kv_len && c < d;
+    hopper::cp_async16(k_s + r * S + c, kb + (in ? kj * ks.s + c : 0), in);
+    hopper::cp_async16(v_s + r * S + c, vb + (in ? kj * vs.s + c : 0), in);
+  }
+  hopper::cp_async_commit();
+
+  int q_begin = 0;
+  if (causal) q_begin = (max(0, k0 - offset) / kTileQ) * kTileQ;
+  const int n_qtiles = q_begin < q_len ? (q_len - q_begin + kTileQ - 1) / kTileQ : 0;
+  const int n_steps = (n_qtiles + splits - 1) / splits;
+
+  auto tile_q = [&](int buf, int c) {
+    return reinterpret_cast<bf16*>(tiles_s + (buf * splits + c) * tile_bytes);
+  };
+  auto load_rows = [&](int step, int buf) {
+    for (int c = 0; c < splits; ++c) {
+      const int i0 = q_begin + (step * splits + c) * kTileQ;
+      if (i0 >= q_len) break;
+      bf16* qd = tile_q(buf, c);
+      bf16* dd = qd + kTileQ * S;
+      float* ld = reinterpret_cast<float*>(dd + kTileQ * S);
+      for (int i = threadIdx.x; i < kTileQ * chunks; i += blockDim.x) {
+        const int r = i / chunks;
+        const int col = (i - r * chunks) << 3;
+        const int qi = i0 + r;
+        const bool in = qi < q_len && col < d;
+        hopper::cp_async16(qd + r * S + col, qb + (in ? qi * qs.s + col : 0), in);
+        hopper::cp_async16(dd + r * S + col, dob + (in ? qi * dos.s + col : 0), in);
+      }
+      if (threadIdx.x < kTileQ) {
+        const int qi = i0 + threadIdx.x;
+        const bool in = qi < q_len;
+        const int row = in ? qi : 0;
+        hopper::cp_async4(ld + threadIdx.x, lseb + row, in);
+        hopper::cp_async4(ld + kTileQ + threadIdx.x, deltab + row, in);
+      }
+    }
+    hopper::cp_async_commit();
+  };
+
+  float dk_acc[KD][4], dv_acc[KD][4];
+#pragma unroll
+  for (int n = 0; n < KD; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+  }
+
+  if (n_steps > 0) load_rows(0, 0);
+  int buf = 0;
+  for (int step = 0; step < n_steps; ++step) {
+    if (step + 1 < n_steps) {
+      load_rows(step + 1, buf ^ 1);
+      hopper::cp_async_wait<1>();
+    } else {
+      hopper::cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    const int i0 = q_begin + (step * splits + sp) * kTileQ;
+    bool work = warp_live && i0 < q_len;
+    if (causal) work = work && (min(i0 + kTileQ, q_len) - 1 + offset >= kw0);
+    if (work) {
+      const bf16* qt = tile_q(buf, sp);
+      const bf16* dt = qt + kTileQ * S;
+      const float* lt = reinterpret_cast<const float*>(dt + kTileQ * S);
+      const float* et = lt + kTileQ;
+      const bf16* kr = k_s + (16 * grp + g) * S + 2 * t;
+      const bf16* vr = v_s + (16 * grp + g) * S + 2 * t;
+
+      // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys by the tile's
+      // query rows, k-steps of 16 over the head dim.
+      float st[NQ][4], dpt[NQ][4];
+#pragma unroll
+      for (int n = 0; n < NQ; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
+      }
+#pragma unroll
+      for (int s = 0; s < KS; ++s) {
+        if (s < ks16) {
+          uint32_t ka[4], va[4];
+          hopper::frag_a_bf16(ka, kr + 16 * s, S);
+          hopper::frag_a_bf16(va, vr + 16 * s, S);
+#pragma unroll
+          for (int n = 0; n < NQ; ++n) {
+            const bf16* qr = qt + (8 * n + g) * S + 16 * s + 2 * t;
+            const bf16* dr = dt + (8 * n + g) * S + 16 * s + 2 * t;
+            const uint32_t qf[2] = {hopper::ld_bf16x2(qr), hopper::ld_bf16x2(qr + 8)};
+            const uint32_t df[2] = {hopper::ld_bf16x2(dr), hopper::ld_bf16x2(dr + 8)};
+            hopper::mma_bf16(st[n], ka, qf);
+            hopper::mma_bf16(dpt[n], va, df);
+          }
+        }
+      }
+
+#pragma unroll
+      for (int n = 0; n < NQ; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * n + 2 * t + (e & 1);
+          const int qi = i0 + col;
+          const int kr_ = g + 8 * (e >> 1);
+          const float l_ = lt[col];
+          bool m = ((kbits >> kr_) & 1u) && qi < q_len && l_ > 0.5f * kNegInf;
+          if (causal) m = m && (kw0 + kr_ <= qi + offset);
+          const float p = m ? expf(st[n][e] * scale - l_) : 0.f;
+          dpt[n][e] = m ? p * (dpt[n][e] - et[col]) : 0.f;
+          st[n][e] = p;
+        }
+      }
+
+      // dV += P^T dO and dK += dS^T Q: k-steps of 16 query rows (two of
+      // P^T's and dS^T's fragments, rounded to bf16, are the A operands),
+      // dO and Q read down their columns.
+#pragma unroll
+      for (int j = 0; j < NQ / 2; ++j) {
+        uint32_t pa[4], sa[4];
+        hopper::frag_a_from_c(pa, st[2 * j], st[2 * j + 1]);
+        hopper::frag_a_from_c(sa, dpt[2 * j], dpt[2 * j + 1]);
+        const bf16* dor = dt + (16 * j + 2 * t) * S + g;
+        const bf16* qr = qt + (16 * j + 2 * t) * S + g;
+#pragma unroll
+        for (int n = 0; n < KD; ++n) {
+          if (n < kd) {
+            const uint32_t df[2] = {hopper::ld_bf16_col2(dor + 8 * n, S),
+                                    hopper::ld_bf16_col2(dor + 8 * S + 8 * n, S)};
+            const uint32_t qf[2] = {hopper::ld_bf16_col2(qr + 8 * n, S),
+                                    hopper::ld_bf16_col2(qr + 8 * S + 8 * n, S)};
+            hopper::mma_bf16(dv_acc[n], pa, df);
+            hopper::mma_bf16(dk_acc[n], sa, qf);
+          }
+        }
+      }
+    }
+    __syncthreads();
+    buf ^= 1;
+  }
+  hopper::cp_async_wait<0>();
+
+  if (splits > 1) {
+    constexpr int STATE = 8 * KD;
+    float* state_s = reinterpret_cast<float*>(tiles_s);
+    if (sp > 0 && warp_live) {
+      float* st = state_s + ((sp - 1) * groups + grp) * 32 * STATE + lane;
+#pragma unroll
+      for (int n = 0; n < KD; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          st[(4 * n + e) * 32] = dk_acc[n][e];
+          st[(4 * KD + 4 * n + e) * 32] = dv_acc[n][e];
+        }
+      }
+    }
+    __syncthreads();
+    if (sp > 0) return;
+    if (warp_live) {
+      for (int c = 1; c < splits; ++c) {
+        const float* sc = state_s + ((c - 1) * groups + grp) * 32 * STATE + lane;
+#pragma unroll
+        for (int n = 0; n < KD; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            dk_acc[n][e] += sc[(4 * n + e) * 32];
+            dv_acc[n][e] += sc[(4 * KD + 4 * n + e) * 32];
+          }
+        }
+      }
+    }
+  }
+
+  if (!warp_live || sp > 0) return;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int kj = kw0 + g + 8 * i;
+    if (kj >= kv_len) continue;
+    bf16* dkr = dk + (out0 + kj) * d + 2 * t;
+    bf16* dvr = dv + (out0 + kj) * d + 2 * t;
+#pragma unroll
+    for (int n = 0; n < KD; ++n) {
+      if (n < kd) {
+        *reinterpret_cast<__nv_bfloat162*>(dkr + 8 * n) = __floats2bfloat162_rn(
+            dk_acc[n][2 * i] * scale, dk_acc[n][2 * i + 1] * scale);
+        *reinterpret_cast<__nv_bfloat162*>(dvr + 8 * n) =
+            __floats2bfloat162_rn(dv_acc[n][2 * i], dv_acc[n][2 * i + 1]);
+      }
+    }
+  }
+}
+
+template <int D_PAD>
+cudaError_t launch_dkv_bf16(const dim3& grid, int warps, int splits, size_t bytes,
+                            cudaStream_t stream, const bf16* q, const bf16* k,
+                            const bf16* v, const bf16* d_out, const float* lse,
+                            const float* delta, const uint8_t* kv_valid, bf16* dk,
+                            bf16* dv, Strides qs, Strides ks, Strides vs,
+                            Strides dos, int heads, int q_len, int kv_len,
+                            int head_dim, int causal, float scale) {
+  cudaError_t err = allow_smem(flash_bwd_dkv_bf16_kernel<D_PAD>, bytes);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dkv_bf16_kernel<D_PAD><<<grid, 32 * warps, bytes, stream>>>(
+      q, k, v, d_out, lse, delta, kv_valid, dk, dv, qs, ks, vs, dos, heads,
+      q_len, kv_len, head_dim, causal, scale, splits);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C entry points (loaded with ctypes). q/k/v/d_out are [B, H, S, d]
@@ -818,5 +1434,91 @@ extern "C" int flash_attention_bwd_dkv(
           : launch_dkv<128>(grid, warps, splits, bytes, s, qp, kp, vp, dop,
                             lp, dp, valid, dkp, dvp, qs, ks, vs, dos, heads,
                             q_len, kv_len, head_dim, causal, scale);
+  return static_cast<int>(err);
+}
+
+// The bf16 instantiations' entry points: the arguments and checks of
+// flash_attention_bwd_dq / flash_attention_bwd_dkv, with q/k/v/d_out and
+// dq/dk/dv bf16 (rows 16-byte aligned) and lse/delta float32.
+extern "C" int flash_attention_bwd_dq_bf16(
+    const void* q, const void* k, const void* v, const void* d_out,
+    const void* lse, const void* delta, const void* kv_valid, void* dq,
+    int batch, int heads, int q_len, int kv_len, int head_dim, int causal,
+    float scale, int warps, int splits, int d_pad, long long q_sb,
+    long long q_sh, long long q_ss, long long k_sb, long long k_sh,
+    long long k_ss, long long v_sb, long long v_sh, long long v_ss,
+    long long do_sb, long long do_sh, long long do_ss, void* stream) {
+  if (head_dim < 8 || head_dim % 8 != 0 || head_dim > d_pad ||
+      (d_pad != 64 && d_pad != 128) ||
+      (warps != 1 && warps != 2 && warps != 4) ||
+      (splits != 1 && splits != 2) || warps % splits != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (batch == 0 || heads == 0 || q_len == 0) return 0;
+  const size_t bytes = dq_bf16_smem_bytes(warps, splits, d_pad, kv_len);
+  if (bytes > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  const int rows = 16 * (warps / splits);
+  const dim3 grid((q_len + rows - 1) / rows, batch * heads);
+  const Strides qs{q_sb, q_sh, q_ss}, ks{k_sb, k_sh, k_ss},
+      vs{v_sb, v_sh, v_ss}, dos{do_sb, do_sh, do_ss};
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto qp = static_cast<const bf16*>(q);
+  const auto kp = static_cast<const bf16*>(k);
+  const auto vp = static_cast<const bf16*>(v);
+  const auto dop = static_cast<const bf16*>(d_out);
+  const auto lp = static_cast<const float*>(lse);
+  const auto dp = static_cast<const float*>(delta);
+  const auto valid = static_cast<const uint8_t*>(kv_valid);
+  const auto dqp = static_cast<bf16*>(dq);
+  const cudaError_t err =
+      d_pad == 64
+          ? launch_dq_bf16<64>(grid, warps, splits, bytes, s, qp, kp, vp, dop,
+                               lp, dp, valid, dqp, qs, ks, vs, dos, heads,
+                               q_len, kv_len, head_dim, causal, scale)
+          : launch_dq_bf16<128>(grid, warps, splits, bytes, s, qp, kp, vp, dop,
+                                lp, dp, valid, dqp, qs, ks, vs, dos, heads,
+                                q_len, kv_len, head_dim, causal, scale);
+  return static_cast<int>(err);
+}
+
+extern "C" int flash_attention_bwd_dkv_bf16(
+    const void* q, const void* k, const void* v, const void* d_out,
+    const void* lse, const void* delta, const void* kv_valid, void* dk,
+    void* dv, int batch, int heads, int q_len, int kv_len, int head_dim,
+    int causal, float scale, int warps, int splits, int d_pad,
+    long long q_sb, long long q_sh, long long q_ss, long long k_sb,
+    long long k_sh, long long k_ss, long long v_sb, long long v_sh,
+    long long v_ss, long long do_sb, long long do_sh, long long do_ss,
+    void* stream) {
+  if (head_dim < 8 || head_dim % 8 != 0 || head_dim > d_pad ||
+      (d_pad != 64 && d_pad != 128) ||
+      (warps != 1 && warps != 2 && warps != 4) ||
+      (splits != 1 && splits != 2) || warps % splits != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (batch == 0 || heads == 0 || kv_len == 0) return 0;
+  const size_t bytes = dkv_bf16_smem_bytes(warps, splits, d_pad);
+  const int keys = 16 * (warps / splits);
+  const dim3 grid((kv_len + keys - 1) / keys, batch * heads);
+  const Strides qs{q_sb, q_sh, q_ss}, ks{k_sb, k_sh, k_ss},
+      vs{v_sb, v_sh, v_ss}, dos{do_sb, do_sh, do_ss};
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto qp = static_cast<const bf16*>(q);
+  const auto kp = static_cast<const bf16*>(k);
+  const auto vp = static_cast<const bf16*>(v);
+  const auto dop = static_cast<const bf16*>(d_out);
+  const auto lp = static_cast<const float*>(lse);
+  const auto dp = static_cast<const float*>(delta);
+  const auto valid = static_cast<const uint8_t*>(kv_valid);
+  const auto dkp = static_cast<bf16*>(dk);
+  const auto dvp = static_cast<bf16*>(dv);
+  const cudaError_t err =
+      d_pad == 64
+          ? launch_dkv_bf16<64>(grid, warps, splits, bytes, s, qp, kp, vp, dop,
+                                lp, dp, valid, dkp, dvp, qs, ks, vs, dos,
+                                heads, q_len, kv_len, head_dim, causal, scale)
+          : launch_dkv_bf16<128>(grid, warps, splits, bytes, s, qp, kp, vp,
+                                 dop, lp, dp, valid, dkp, dvp, qs, ks, vs, dos,
+                                 heads, q_len, kv_len, head_dim, causal, scale);
   return static_cast<int>(err);
 }

@@ -30,9 +30,35 @@
 // (c0, c2, c1, c3), and the B operand's rows are read in the same order:
 // b0 from row 2t, b1 from row 2t + 1. A sum over k does not depend on
 // its order of terms, only on which terms pair up, so this is exact.
+//
+// bf16 products (the kernels' bf16 instantiations) run on
+// mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32: bf16 operands,
+// exact products, a float32 accumulator. Each 32-bit register holds two
+// bf16 values, the lower index in the low half. Fragment layouts (PTX ISA,
+// "Matrix Fragments for mma.m16n8k16" with .bf16), g = lane / 4, t =
+// lane % 4:
+//   A (16 x 16, row-major): a0a1 (g, 2t..2t+1)  a2a3 (g + 8, 2t..2t+1)
+//                           a4a5 (g, 2t+8..2t+9) a6a7 (g + 8, 2t+8..2t+9)
+//   B (16 x 8, k x n):      b0b1 (k 2t..2t+1, n g)  b2b3 (k 2t+8..2t+9, n g)
+//   C (16 x 8):             as m16n8k8's above.
+// So two neighbouring C fragments (n-tiles 2j and 2j + 1) are the A
+// operand of a k16 step over their 16 columns with no shuffle: a0a1 =
+// pack(c0, c1) and a2a3 = pack(c2, c3) of tile 2j, a4a5 and a6a7 the same
+// of tile 2j + 1. Packing rounds to nearest even: that is where P (and
+// dS) become bf16, as the reference rounds them before their products.
+// - No fresh fragment per k-step at bf16: the accumulator's truncation
+//   costs ~2^-23 relative per mma, a few dozen mma per output at these
+//   sites, ~2^-18 in all, while the bf16 output itself rounds at 2^-9.
+//   The fp32 kernels need the fresh fragment because their gates are
+//   1e-4 of fp32 sums; the bf16 ones are bf16 ulps.
+// - cp.async moves 16 bytes: 8 bf16 values where it moved 4 floats, so a
+//   bf16 row stride is a multiple of 8 elements; shared rows pad by 8
+//   bf16 (16 bytes), which keeps the stride at 4 mod 32 words and the
+//   fragment loads free of bank conflicts.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -99,6 +125,58 @@ __device__ __forceinline__ void mma_3xtf32(float (&c)[4], const FragA& a,
   mma_tf32(p, a.hi, b.hi);
 #pragma unroll
   for (int i = 0; i < 4; ++i) c[i] += p[i];
+}
+
+// Two floats as one bf16x2 register (x in the low half), rounded to
+// nearest even.
+__device__ __forceinline__ uint32_t pack_bf16(float x, float y) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(x, y);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Two neighbouring bf16 values as one register (p 4-byte aligned).
+__device__ __forceinline__ uint32_t ld_bf16x2(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// Two bf16 values of one column from rows p and p + stride (a B operand
+// read along k from a row-major tile).
+__device__ __forceinline__ uint32_t ld_bf16_col2(const __nv_bfloat16* p,
+                                                 int stride) {
+  const uint32_t lo = *reinterpret_cast<const unsigned short*>(p);
+  const uint32_t hi = *reinterpret_cast<const unsigned short*>(p + stride);
+  return lo | (hi << 16);
+}
+
+// c += a * b on bf16 tensor cores, the accumulator in fp32.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The A fragment of rows r (g) and r + 8 (g + 8), columns c0 .. c0 + 15,
+// of a row-major bf16 tile: p points at (row g, column c0 + 2t).
+__device__ __forceinline__ void frag_a_bf16(uint32_t (&a)[4],
+                                            const __nv_bfloat16* p,
+                                            int stride) {
+  a[0] = ld_bf16x2(p);
+  a[1] = ld_bf16x2(p + 8 * stride);
+  a[2] = ld_bf16x2(p + 8);
+  a[3] = ld_bf16x2(p + 8 * stride + 8);
+}
+
+// The A fragment of a k16 step from two accumulator fragments (n-tiles
+// 2j and 2j + 1), rounded to bf16.
+__device__ __forceinline__ void frag_a_from_c(uint32_t (&a)[4],
+                                              const float (&c0)[4],
+                                              const float (&c1)[4]) {
+  a[0] = pack_bf16(c0[0], c0[1]);
+  a[1] = pack_bf16(c0[2], c0[3]);
+  a[2] = pack_bf16(c1[0], c1[1]);
+  a[3] = pack_bf16(c1[2], c1[3]);
 }
 
 // 16 bytes global -> shared, bypassing L1; zeros when !in (the source

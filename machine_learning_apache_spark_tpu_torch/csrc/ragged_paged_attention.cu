@@ -1,4 +1,6 @@
-// Ragged paged-attention decode step, for Hopper (sm_90a).
+// Ragged paged-attention decode step, for Hopper (sm_90a): fp32 queries
+// over fp32 or int8 pages, and (the bf16 instantiations) bf16 queries over
+// bf16 or int8 pages.
 //
 // Replaces machine_learning_apache_spark_tpu/ops/pallas_attention.py::
 // _ragged_paged_kernel (launched from ragged_paged_attention_kernel). Same
@@ -57,9 +59,17 @@
 //   registers at the start) are folded in last, and the row is written.
 //   No atomics: a result repeats bit for bit, and rows with the same
 //   query, pages and length give the same bits.
+// - bf16 (a bf16 model's decode): the query, cur and out are bf16, the
+//   pages bf16 (staged at 2 * dh + 16 bytes a row, read 8 values at a
+//   time) or int8. Every value is widened to float32 exactly and the math
+//   is the fp32 kernel's, on the CUDA cores: the reference does its dots
+//   with float32 accumulation and no rounding of P, and rounds the output
+//   to the query's dtype once, as this kernel does.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "hopper_mma.cuh"
 
@@ -71,22 +81,28 @@ constexpr int kMaxHeadDim = 128;
 constexpr float kNegInf = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
 
+using bf16 = __nv_bfloat16;
+
 // Shared memory, per warp (ops/hopper_attention.ragged_smem_bytes mirrors
 // this): `stages` x [K rows kChunk x row_bytes | V rows | k scales | v
-// scales | slots], then its q row, the chunk's p and its merge state
-// (m, l, acc[d]); every piece 16-byte aligned.
+// scales | slots], then its q row (float32 whatever the query's dtype),
+// the chunk's p and its merge state (m, l, acc[d]); every piece 16-byte
+// aligned. A staged row is padded by 16 bytes: fp32 rows by 4 floats,
+// bf16 rows by 8 bf16 (row strides of 4 mod 32 words), int8 rows to a
+// multiple of 16 and 16 more. `elem` is the page element's size: 4
+// (fp32), 2 (bf16) or 1 (int8).
 __host__ __device__ inline int round16(int x) { return (x + 15) & ~15; }
 
-__host__ __device__ inline int row_bytes(int d, bool quant) {
-  return quant ? round16(d) + 16 : 4 * (d + 4);
+__host__ __device__ inline int row_bytes(int d, int elem) {
+  return elem == 1 ? round16(d) + 16 : elem * d + 16;
 }
 
-__host__ __device__ inline int stage_bytes(int d, bool quant) {
-  return 2 * kChunk * row_bytes(d, quant) + 3 * kChunk * 4;
+__host__ __device__ inline int stage_bytes(int d, int elem) {
+  return 2 * kChunk * row_bytes(d, elem) + 3 * kChunk * 4;
 }
 
-__host__ __device__ inline int warp_bytes(int d, bool quant, int stages) {
-  return stages * stage_bytes(d, quant) + round16(4 * d) + 4 * kChunk +
+__host__ __device__ inline int warp_bytes(int d, int elem, int stages) {
+  return stages * stage_bytes(d, elem) + round16(4 * d) + 4 * kChunk +
          round16(4 * (d + 2));
 }
 
@@ -137,29 +153,53 @@ __device__ __forceinline__ void load_cols(const int8_t* p, float s,
   for (int i = 0; i < CPL; ++i) x[i] = static_cast<float>(p[i]) * s;
 }
 
-template <typename T, int CPL>
+// CPL adjacent bf16 values as floats (exact).
+template <int CPL>
+__device__ __forceinline__ void load_cols(const bf16* p, float (&x)[CPL]) {
+#pragma unroll
+  for (int i = 0; i < CPL; i += 2) {
+    const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p + i));
+    x[i] = v.x;
+    x[i + 1] = v.y;
+  }
+}
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); }
+
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(bf16* p, float x) { *p = __float2bfloat16_rn(x); }
+
+// T: the page element (float, int8_t or bf16); Q: the query's, cur's and
+// out's (float, or bf16 for a bf16 model). The math is float32 whatever
+// they are: a bf16 query and bf16 pages are widened exactly, int8 pages
+// dequantised slot by slot, and the output rounded to Q once at the end
+// (the reference takes P.V in float32 against the values, no rounding of
+// P, and casts the output to the query's dtype).
+template <typename T, typename Q, int CPL>
 __global__ void __launch_bounds__(kMaxSplits * 32)
-ragged_paged_kernel(const float* __restrict__ q, long long q_row_stride,
+ragged_paged_kernel(const Q* __restrict__ q, long long q_row_stride,
                     const T* __restrict__ k_pages,
                     const T* __restrict__ v_pages,
                     const float* __restrict__ k_scale,
                     const float* __restrict__ v_scale,
                     const int* __restrict__ block_table, int pages_per_row,
                     const int* __restrict__ lengths,
-                    const float* __restrict__ cur_k,
-                    const float* __restrict__ cur_v, long long cur_row_stride,
-                    float* __restrict__ out, int heads, int head_dim,
+                    const Q* __restrict__ cur_k,
+                    const Q* __restrict__ cur_v, long long cur_row_stride,
+                    Q* __restrict__ out, int heads, int head_dim,
                     int page_size, float scale, int splits, int stages) {
   constexpr bool kQuant = sizeof(T) == 1;
+  constexpr int kElem = sizeof(T);
   extern __shared__ __align__(16) unsigned char smem[];
   const int sp = threadIdx.x >> 5;  // this warp's share of the row's chunks
   const int lane = threadIdx.x & 31;
   const int d = head_dim;
   const int h = blockIdx.x;
   const int r = blockIdx.y;
-  const int rb = row_bytes(d, kQuant);
-  const int sb = stage_bytes(d, kQuant);
-  const int wb = warp_bytes(d, kQuant, stages);
+  const int rb = row_bytes(d, kElem);
+  const int sb = stage_bytes(d, kElem);
+  const int wb = warp_bytes(d, kElem, stages);
   unsigned char* base = smem + sp * wb;
   float* q_s = reinterpret_cast<float*>(base + stages * sb);
   float* p_s = q_s + round16(4 * d) / 4;
@@ -178,8 +218,12 @@ ragged_paged_kernel(const float* __restrict__ q, long long q_row_stride,
   };
   const int len = lengths[r];
   int pg = table_entry(sp);
-  const float* qr = q + r * q_row_stride + static_cast<long long>(h) * d;
-  for (int c = 4 * lane; c < d; c += 4 * 32) hopper::cp_async16(q_s + c, qr + c, true);
+  const Q* qr = q + r * q_row_stride + static_cast<long long>(h) * d;
+  if constexpr (std::is_same<Q, float>::value) {
+    for (int c = 4 * lane; c < d; c += 4 * 32) hopper::cp_async16(q_s + c, qr + c, true);
+  } else {  // widened into the float row; visible after the first __syncwarp
+    for (int c = lane; c < d; c += 32) q_s[c] = to_float(qr[c]);
+  }
   hopper::cp_async_commit();
   float ck[CPL] = {}, cv[CPL] = {};
   const bool with_cur = cur_k != nullptr && sp == 0;
@@ -187,8 +231,8 @@ ragged_paged_kernel(const float* __restrict__ q, long long q_row_stride,
     const long long off = r * cur_row_stride + static_cast<long long>(h) * d + c0;
 #pragma unroll
     for (int i = 0; i < CPL; ++i) {
-      ck[i] = cur_k[off + i];
-      cv[i] = cur_v[off + i];
+      ck[i] = to_float(cur_k[off + i]);
+      cv[i] = to_float(cur_v[off + i]);
     }
   }
 
@@ -277,6 +321,25 @@ ragged_paged_kernel(const float* __restrict__ q, long long q_row_stride,
         part[2] += qb.z * (byte_at(raw.y, 2) * ks);
         part[3] += qb.w * (byte_at(raw.y, 3) * ks);
       }
+    } else if constexpr (std::is_same<T, bf16>::value) {
+      const bf16* kr = reinterpret_cast<const bf16*>(k_s + lane * rb);
+      for (int c = 0; c < d; c += 8) {
+        const uint4 raw = *reinterpret_cast<const uint4*>(kr + c);
+        const float4 qa = *reinterpret_cast<const float4*>(q_s + c);
+        const float4 qb = *reinterpret_cast<const float4*>(q_s + c + 4);
+        const float2 k0 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+        const float2 k1 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+        const float2 k2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.z));
+        const float2 k3 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.w));
+        part[0] += qa.x * k0.x;
+        part[1] += qa.y * k0.y;
+        part[2] += qa.z * k1.x;
+        part[3] += qa.w * k1.y;
+        part[0] += qb.x * k2.x;
+        part[1] += qb.y * k2.y;
+        part[2] += qb.z * k3.x;
+        part[3] += qb.w * k3.y;
+      }
     } else {
       const float* kr = reinterpret_cast<const float*>(k_s + lane * rb);
 #pragma unroll 4
@@ -311,7 +374,7 @@ ragged_paged_kernel(const float* __restrict__ q, long long q_row_stride,
         if constexpr (kQuant) {
           load_cols<CPL>(reinterpret_cast<const int8_t*>(v_s + j * rb) + c0, vs_s[j], x);
         } else {
-          load_cols<CPL>(reinterpret_cast<const float*>(v_s + j * rb) + c0, x);
+          load_cols<CPL>(reinterpret_cast<const T*>(v_s + j * rb) + c0, x);
         }
         const float pj = p_s[j];
 #pragma unroll
@@ -320,7 +383,7 @@ ragged_paged_kernel(const float* __restrict__ q, long long q_row_stride,
           if constexpr (kQuant) {
             load_cols<CPL>(reinterpret_cast<const int8_t*>(v_s + (j + 1) * rb) + c0, vs_s[j + 1], x);
           } else {
-            load_cols<CPL>(reinterpret_cast<const float*>(v_s + (j + 1) * rb) + c0, x);
+            load_cols<CPL>(reinterpret_cast<const T*>(v_s + (j + 1) * rb) + c0, x);
           }
           const float pk = p_s[j + 1];
 #pragma unroll
@@ -388,23 +451,23 @@ ragged_paged_kernel(const float* __restrict__ q, long long q_row_stride,
 
   if (!col_live) return;
   const float safe_l = l == 0.f ? 1.f : l;
-  float* o = out + (static_cast<long long>(r) * heads + h) * d + c0;
+  Q* o = out + (static_cast<long long>(r) * heads + h) * d + c0;
 #pragma unroll
-  for (int i = 0; i < CPL; ++i) o[i] = acc[i] / safe_l;
+  for (int i = 0; i < CPL; ++i) store(o + i, acc[i] / safe_l);
 }
 
-template <typename T, int CPL>
+template <typename T, typename Q, int CPL>
 cudaError_t launch(const dim3& grid, size_t bytes, cudaStream_t s,
-                   const float* q, long long q_row_stride, const void* k_pages,
+                   const Q* q, long long q_row_stride, const void* k_pages,
                    const void* v_pages, const float* k_scale,
                    const float* v_scale, const int* tbl, int pages_per_row,
-                   const int* lens, const float* ck, const float* cv,
-                   long long cur_row_stride, float* out, int heads,
+                   const int* lens, const Q* ck, const Q* cv,
+                   long long cur_row_stride, Q* out, int heads,
                    int head_dim, int page_size, float scale, int splits,
                    int stages) {
-  cudaError_t err = hopper::allow_smem(ragged_paged_kernel<T, CPL>, bytes);
+  cudaError_t err = hopper::allow_smem(ragged_paged_kernel<T, Q, CPL>, bytes);
   if (err != cudaSuccess) return err;
-  ragged_paged_kernel<T, CPL><<<grid, 32 * splits, bytes, s>>>(
+  ragged_paged_kernel<T, Q, CPL><<<grid, 32 * splits, bytes, s>>>(
       q, q_row_stride, static_cast<const T*>(k_pages),
       static_cast<const T*>(v_pages), k_scale, v_scale, tbl, pages_per_row,
       lens, ck, cv, cur_row_stride, out, heads, head_dim, page_size, scale,
@@ -414,24 +477,19 @@ cudaError_t launch(const dim3& grid, size_t bytes, cudaStream_t s,
 
 }  // namespace
 
-// Plain C entry point (loaded with ctypes). query rows are [H, dh]
-// contiguous, q_row_stride elements apart, each row start 16-byte
-// aligned; pages are [num_pages, page, H*dh] fp32 (pages_int8 == 0) or
-// int8 with k_scale / v_scale [num_pages, page] fp32; block_table [R,
-// pages_per_row] and lengths [R] are int32; cur_k / cur_v are [R, H*dh]
-// rows cur_row_stride apart, or both null; out is a contiguous [R, H, dh]
-// fp32 tensor. A block covers one (row, head): `splits` (1, 2 or 4)
-// warps share out its positions, `stages` (1 or 2) is how many chunks a
-// warp keeps in flight; dh is a multiple of 8 up to 128; anything
-// else is refused with cudaErrorInvalidValue. Launches on `stream` and
-// returns cudaGetLastError() — nonzero means the launch was refused.
-extern "C" int ragged_paged_attention(
-    const void* q, long long q_row_stride, const void* k_pages,
-    const void* v_pages, const void* k_scale, const void* v_scale,
-    int pages_int8, const void* block_table, int pages_per_row,
-    const void* lengths, const void* cur_k, const void* cur_v,
-    long long cur_row_stride, void* out, int rows, int heads, int head_dim,
-    int page_size, float scale, int splits, int stages, void* stream) {
+namespace {
+
+// The entry points' shared body: checks, then the instantiation for the
+// page type (int8 when pages_int8, else P) and the head dim's columns per
+// lane.
+template <typename P, typename Q>
+int ragged_entry(const void* q, long long q_row_stride, const void* k_pages,
+                 const void* v_pages, const void* k_scale, const void* v_scale,
+                 int pages_int8, const void* block_table, int pages_per_row,
+                 const void* lengths, const void* cur_k, const void* cur_v,
+                 long long cur_row_stride, void* out, int rows, int heads,
+                 int head_dim, int page_size, float scale, int splits,
+                 int stages, void* stream) {
   if (head_dim < 8 || head_dim % 8 != 0 || head_dim > kMaxHeadDim ||
       page_size < 1 || (splits != 1 && splits != 2 && splits != 4) ||
       (stages != 1 && stages != 2)) {
@@ -440,36 +498,77 @@ extern "C" int ragged_paged_attention(
   if (pages_int8 && (k_scale == nullptr || v_scale == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t bytes =
-      static_cast<size_t>(splits) * warp_bytes(head_dim, pages_int8 != 0, stages);
+  const int elem = pages_int8 ? 1 : static_cast<int>(sizeof(P));
+  const size_t bytes = static_cast<size_t>(splits) * warp_bytes(head_dim, elem, stages);
   if (bytes > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
   if (rows == 0 || heads == 0) return 0;
   const dim3 grid(heads, rows);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* qf = static_cast<const float*>(q);
+  const Q* qf = static_cast<const Q*>(q);
   const int* tbl = static_cast<const int*>(block_table);
   const int* lens = static_cast<const int*>(lengths);
-  const float* ck = static_cast<const float*>(cur_k);
-  const float* cv = static_cast<const float*>(cur_v);
+  const Q* ck = static_cast<const Q*>(cur_k);
+  const Q* cv = static_cast<const Q*>(cur_v);
   const float* ks = static_cast<const float*>(k_scale);
   const float* vs = static_cast<const float*>(v_scale);
-  float* o = static_cast<float*>(out);
+  Q* o = static_cast<Q*>(out);
   const bool wide = head_dim > 64;
   cudaError_t err;
   if (pages_int8) {
-    err = wide ? launch<int8_t, 4>(grid, bytes, s, qf, q_row_stride, k_pages, v_pages, ks, vs, tbl,
-                                   pages_per_row, lens, ck, cv, cur_row_stride, o, heads, head_dim,
-                                   page_size, scale, splits, stages)
-               : launch<int8_t, 2>(grid, bytes, s, qf, q_row_stride, k_pages, v_pages, ks, vs, tbl,
-                                   pages_per_row, lens, ck, cv, cur_row_stride, o, heads, head_dim,
-                                   page_size, scale, splits, stages);
+    err = wide ? launch<int8_t, Q, 4>(grid, bytes, s, qf, q_row_stride, k_pages, v_pages, ks, vs,
+                                      tbl, pages_per_row, lens, ck, cv, cur_row_stride, o, heads,
+                                      head_dim, page_size, scale, splits, stages)
+               : launch<int8_t, Q, 2>(grid, bytes, s, qf, q_row_stride, k_pages, v_pages, ks, vs,
+                                      tbl, pages_per_row, lens, ck, cv, cur_row_stride, o, heads,
+                                      head_dim, page_size, scale, splits, stages);
   } else {
-    err = wide ? launch<float, 4>(grid, bytes, s, qf, q_row_stride, k_pages, v_pages, nullptr,
-                                  nullptr, tbl, pages_per_row, lens, ck, cv, cur_row_stride, o, heads,
-                                  head_dim, page_size, scale, splits, stages)
-               : launch<float, 2>(grid, bytes, s, qf, q_row_stride, k_pages, v_pages, nullptr,
-                                  nullptr, tbl, pages_per_row, lens, ck, cv, cur_row_stride, o, heads,
-                                  head_dim, page_size, scale, splits, stages);
+    err = wide ? launch<P, Q, 4>(grid, bytes, s, qf, q_row_stride, k_pages, v_pages, nullptr,
+                                 nullptr, tbl, pages_per_row, lens, ck, cv, cur_row_stride, o,
+                                 heads, head_dim, page_size, scale, splits, stages)
+               : launch<P, Q, 2>(grid, bytes, s, qf, q_row_stride, k_pages, v_pages, nullptr,
+                                 nullptr, tbl, pages_per_row, lens, ck, cv, cur_row_stride, o,
+                                 heads, head_dim, page_size, scale, splits, stages);
   }
   return static_cast<int>(err);
+}
+
+}  // namespace
+
+// Plain C entry points (loaded with ctypes). query rows are [H, dh]
+// contiguous, q_row_stride elements apart, each row start 16-byte
+// aligned; block_table [R, pages_per_row] and lengths [R] are int32;
+// cur_k / cur_v are [R, H*dh] rows cur_row_stride apart, or both null; out
+// is a contiguous [R, H, dh] tensor. ragged_paged_attention: query, cur
+// and out fp32, pages [num_pages, page, H*dh] fp32 (pages_int8 == 0) or
+// int8 with k_scale / v_scale [num_pages, page] fp32.
+// ragged_paged_attention_bf16: query, cur and out bf16, pages bf16 or int8
+// with the same fp32 scales. A block covers one (row, head): `splits` (1,
+// 2 or 4) warps share out its positions, `stages` (1 or 2) is how many
+// chunks a warp keeps in flight; dh is a multiple of 8 up to 128; anything
+// else is refused with cudaErrorInvalidValue. Each launches on `stream`
+// and returns cudaGetLastError() — nonzero means the launch was refused.
+extern "C" int ragged_paged_attention(
+    const void* q, long long q_row_stride, const void* k_pages,
+    const void* v_pages, const void* k_scale, const void* v_scale,
+    int pages_int8, const void* block_table, int pages_per_row,
+    const void* lengths, const void* cur_k, const void* cur_v,
+    long long cur_row_stride, void* out, int rows, int heads, int head_dim,
+    int page_size, float scale, int splits, int stages, void* stream) {
+  return ragged_entry<float, float>(
+      q, q_row_stride, k_pages, v_pages, k_scale, v_scale, pages_int8,
+      block_table, pages_per_row, lengths, cur_k, cur_v, cur_row_stride, out,
+      rows, heads, head_dim, page_size, scale, splits, stages, stream);
+}
+
+extern "C" int ragged_paged_attention_bf16(
+    const void* q, long long q_row_stride, const void* k_pages,
+    const void* v_pages, const void* k_scale, const void* v_scale,
+    int pages_int8, const void* block_table, int pages_per_row,
+    const void* lengths, const void* cur_k, const void* cur_v,
+    long long cur_row_stride, void* out, int rows, int heads, int head_dim,
+    int page_size, float scale, int splits, int stages, void* stream) {
+  return ragged_entry<bf16, bf16>(
+      q, q_row_stride, k_pages, v_pages, k_scale, v_scale, pages_int8,
+      block_table, pages_per_row, lengths, cur_k, cur_v, cur_row_stride, out,
+      rows, heads, head_dim, page_size, scale, splits, stages, stream);
 }

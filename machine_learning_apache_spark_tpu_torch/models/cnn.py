@@ -26,7 +26,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from machine_learning_apache_spark_tpu_torch.models.transformer import lecun_normal_
+from machine_learning_apache_spark_tpu_torch.models.transformer import add_bias, lecun_normal_
 
 
 class TinyVGG(nn.Module):
@@ -37,7 +37,10 @@ class TinyVGG(nn.Module):
     ``(H, W, C)`` gives them (default: FashionMNIST's 28×28×1). Any input
     with C channels and the same ``(H // 4) · (W // 4)`` runs, as in Flax.
     Convs ``block{b}_conv{c}`` and the ``classifier`` are named as in
-    Flax. ``dtype`` is float32 only (bf16 compute is ROADMAP A1.6).
+    Flax. ``dtype`` is the compute dtype (float32 or bfloat16): the input,
+    the convolutions and the classifier compute in it, with their float32
+    parameters cast to it (Flax's ``param_dtype`` default), and the
+    logits come back float32 so the loss never runs in half precision.
     Parameters are drawn from ``generator`` (LeCun-normal kernels over
     the 3·3·C_in fan-in, zero biases), never from the global RNG.
     """
@@ -52,10 +55,6 @@ class TinyVGG(nn.Module):
         generator: torch.Generator | None = None,
     ):
         super().__init__()
-        if dtype != torch.float32:
-            raise NotImplementedError(
-                f"TinyVGG(dtype={dtype}) is not ported yet (ROADMAP queue A1.6 (bf16))"
-            )
         self.hidden_units = hidden_units
         self.num_classes = num_classes
         self.dtype = dtype
@@ -99,14 +98,23 @@ class TinyVGG(nn.Module):
     ) -> torch.Tensor:
         # Accepted for zoo-wide signature uniformity; TinyVGG has no dropout.
         del dropout_rng
-        x = x.permute(0, 3, 1, 2).contiguous()  # NHWC → NCHW (see the module doc)
+        dt = self.dtype
+        x = x.to(dt).permute(0, 3, 1, 2).contiguous()  # NHWC → NCHW (see the module doc)
         for block in range(2):
             for conv in range(2):
-                x = F.relu(getattr(self, f"block{block}_conv{conv}")(x))
+                c = getattr(self, f"block{block}_conv{conv}")
+                if dt == torch.float32:
+                    x = c(x)
+                else:  # the bias after the bf16 rounding, as Flax's Conv
+                    x = add_bias(F.conv2d(x, c.weight.to(dt), padding=1), c.bias, dim=1)
+                x = F.relu(x)
             x = F.max_pool2d(x, 2, 2)
         # Back to NHWC so the flatten is Flax's (h, w, c) order.
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
-        return self.classifier(x)
+        if dt == torch.float32:
+            return self.classifier(x)
+        w, b = self.classifier.weight, self.classifier.bias
+        return add_bias(F.linear(x, w.to(dt)), b).float()
 
 
 # The reference's class name, for API-parity imports.

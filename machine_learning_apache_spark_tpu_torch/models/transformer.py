@@ -53,6 +53,17 @@ Parameters are made with an explicit ``torch.Generator`` (Flax's
 initialiser families: LeCun-normal kernels, zero biases, N(0, 0.02)
 embeddings, unit LayerNorm scales); modules are built on the meta device
 first, so construction never draws from the global RNG.
+
+``cfg.dtype`` is the compute dtype, Flax's ``dtype=`` with its default
+``param_dtype=float32``: parameters stay float32 whatever it is (the
+optimizer updates them in float32), and at ``bfloat16`` each layer casts
+its input and parameters to bf16 and computes there — the linears
+(``Dense``), the attention kernels, the embedding (looked up in float32,
+then cast: Flax casts the table, then takes; the same values), the PE
+table (built in bf16, as ``sinusoidal_encoding(..., dtype)``) — with two
+exceptions as in Flax: ``LayerNorm`` takes its statistics and affine in
+float32 and casts its output, and the MoE router runs in float32. The
+logits, the decode caches and the paged stores come out in bf16.
 """
 
 from __future__ import annotations
@@ -112,12 +123,54 @@ class TransformerConfig:
         return self.d_model // self.num_heads
 
 
+def add_bias(y: torch.Tensor, bias: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """``y + bias`` (broadcast along ``dim``) in ``y``'s dtype: Flax's
+    ``Dense`` and ``Conv`` add the bias to the product already rounded to
+    the compute dtype, so at bf16 there are two roundings, as here."""
+    shape = [1] * y.dim()
+    shape[dim] = -1
+    return y + bias.to(y.dtype).view(shape)
+
+
+class Dense(nn.Linear):
+    """``nn.Linear`` with float32 parameters that computes in ``dtype``
+    (Flax's ``Dense(dtype=)``): input, weight and bias cast to ``dtype``,
+    then ``x·Wᵀ`` rounded to ``dtype`` and the bias added (``add_bias``).
+    At float32 it is ``nn.Linear`` (one fused call: the same function)."""
+
+    def __init__(self, n_in: int, n_out: int, dtype: torch.dtype = torch.float32):
+        super().__init__(n_in, n_out)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt == torch.float32:
+            return nn.functional.linear(x, self.weight, self.bias)
+        return add_bias(nn.functional.linear(x.to(dt), self.weight.to(dt)), self.bias)
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` with float32 parameters whose output is cast to
+    ``dtype`` (Flax's ``LayerNorm(dtype=)``: mean, variance, scale and
+    bias in float32 whatever the input's dtype)."""
+
+    def __init__(self, d: int, eps: float, dtype: torch.dtype = torch.float32):
+        super().__init__(d, eps=eps)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = nn.functional.layer_norm(
+            x.float(), self.normalized_shape, self.weight, self.bias, self.eps
+        )
+        return y.to(self.compute_dtype)
+
+
 def _linear(n_in: int, n_out: int, cfg: TransformerConfig) -> nn.Linear:
-    return nn.Linear(n_in, n_out, dtype=cfg.dtype)
+    return Dense(n_in, n_out, cfg.dtype)
 
 
 def _layer_norm(cfg: TransformerConfig) -> nn.LayerNorm:
-    return nn.LayerNorm(cfg.d_model, eps=LN_EPS, dtype=cfg.dtype)
+    return LayerNorm(cfg.d_model, LN_EPS, cfg.dtype)
 
 
 class EmbeddingLookup(torch.autograd.Function):
@@ -282,7 +335,7 @@ class SentenceEmbedding(nn.Module):
     def __init__(self, vocab_size: int, cfg: TransformerConfig):
         super().__init__()
         self.cfg = cfg
-        self.embed = nn.Embedding(vocab_size, cfg.d_model, dtype=cfg.dtype)
+        self.embed = nn.Embedding(vocab_size, cfg.d_model)  # float32, as Flax's param
         self.dropout = Dropout(cfg.dropout)
         self.register_buffer(
             "pe", torch.empty(cfg.max_len, cfg.d_model, dtype=cfg.dtype),
@@ -300,7 +353,7 @@ class SentenceEmbedding(nn.Module):
         position_offset: int = 0,
         dropout_rng: torch.Generator | None = None,
     ) -> torch.Tensor:
-        x = EmbeddingLookup.apply(self.embed.weight, tokens)
+        x = EmbeddingLookup.apply(self.embed.weight, tokens).to(self.cfg.dtype)
         length = tokens.shape[-1]
         # The table covers max(max_len, L), as in the JAX package, so a
         # static sequence longer than max_len still has encodings.

@@ -52,25 +52,29 @@ _F32 = ctypes.c_float
 #: dK/dV's query splits) and the padded head dim; the ragged kernel:
 #: splits per (row, head) and stages.
 _FLASH_TAIL = [_INT] * 6 + [_F32] + [_INT] * 3
-ENTRY_POINTS = {
+_FLOAT32_ENTRY_POINTS = {
     "flash_attention_fwd": (
-        "flash_attention_fwd", "flash_attention_fwd",
-        [_VOID] * 6 + _FLASH_TAIL + [_I64] * 9 + [_VOID],
+        "flash_attention_fwd", [_VOID] * 6 + _FLASH_TAIL + [_I64] * 9 + [_VOID],
     ),
     "flash_attention_bwd_dq": (
-        "flash_attention_bwd", "flash_attention_bwd_dq",
-        [_VOID] * 8 + _FLASH_TAIL + [_I64] * 12 + [_VOID],
+        "flash_attention_bwd", [_VOID] * 8 + _FLASH_TAIL + [_I64] * 12 + [_VOID],
     ),
     "flash_attention_bwd_dkv": (
-        "flash_attention_bwd", "flash_attention_bwd_dkv",
-        [_VOID] * 9 + _FLASH_TAIL + [_I64] * 12 + [_VOID],
+        "flash_attention_bwd", [_VOID] * 9 + _FLASH_TAIL + [_I64] * 12 + [_VOID],
     ),
     "ragged_paged_attention": (
-        "ragged_paged_attention", "ragged_paged_attention",
+        "ragged_paged_attention",
         [_VOID, _I64, _VOID, _VOID, _VOID, _VOID, _INT, _VOID, _INT, _VOID,
          _VOID, _VOID, _I64, _VOID, _INT, _INT, _INT, _INT, _F32,
          _INT, _INT, _VOID],
     ),
+}
+#: The bf16 instantiations sit in the same sources under ``<name>_bf16``
+#: and take the same arguments (their tensors bf16, lse/delta/scales fp32).
+ENTRY_POINTS = {
+    f"{name}{suffix}": (stem, f"{name}{suffix}", argtypes)
+    for suffix in ("", "_bf16")
+    for name, (stem, argtypes) in _FLOAT32_ENTRY_POINTS.items()
 }
 
 

@@ -14,6 +14,15 @@ Four CUDA C++ kernels (``csrc/``), each replacing a Pallas TPU kernel of
   replacing ``_ragged_paged_kernel`` (forward only, as in the JAX
   package).
 
+Every kernel has a float32 and a bfloat16 instantiation (``*_bf16``
+entry points and ``LAUNCHES`` keys): a bf16 CUDA tensor launches the
+bf16 kernel, never the fp32 one. At bf16 the flash kernels take their
+products on bf16 tensor cores (``mma.sync`` m16n8k16, float32
+accumulators) and round P and dS to bf16 before the products that use
+them, as the Pallas kernels do; ``lse`` and ``delta`` stay float32; the
+ragged kernel widens bf16 (or int8) pages to float32 and rounds only its
+output. The plain versions round at the same points.
+
 ``flash_attention`` is differentiable: ``FlashAttention`` is the
 ``torch.autograd.Function`` that mirrors the JAX package's
 ``_flash_vjp_nomask``/``_flash_vjp_masked``. Each source's header says
@@ -65,16 +74,29 @@ RAGGED_SPLITS = (1, 2, 4)
 RAGGED_CHUNK = 32
 #: Dynamic shared memory a block may ask for on an H100 (227 KB).
 SMEM_LIMIT = 227 * 1024
+#: The element types the kernels are instantiated for.
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
-#: Kernel launches per kernel name since the last ``reset_launches()``.
-#: ``flash_attention_fwd`` counts both forward variants (with and without
-#: ``lse``).
-LAUNCHES = {
-    "flash_attention_fwd": 0,
-    "flash_attention_bwd_dq": 0,
-    "flash_attention_bwd_dkv": 0,
-    "ragged_paged_attention": 0,
-}
+#: The four kernels, by the name of their float32 entry point.
+KERNELS = (
+    "flash_attention_fwd",
+    "flash_attention_bwd_dq",
+    "flash_attention_bwd_dkv",
+    "ragged_paged_attention",
+)
+
+
+def kernel_name(kernel: str, dtype: torch.dtype) -> str:
+    """The entry point (and ``LAUNCHES`` key) of ``kernel``'s instantiation
+    for ``dtype``: the float32 one keeps the kernel's name, the bf16 one
+    adds ``_bf16``."""
+    return kernel if dtype == torch.float32 else f"{kernel}_bf16"
+
+
+#: Kernel launches per instantiation since the last ``reset_launches()``.
+#: ``flash_attention_fwd`` (and its ``_bf16``) counts both forward
+#: variants (with and without ``lse``).
+LAUNCHES = {kernel_name(k, dt): 0 for dt in KERNEL_DTYPES for k in KERNELS}
 
 
 _RECORDING = threading.local()
@@ -191,6 +213,20 @@ def _structural_mask(q_len, kv_len, causal, kv_valid, device) -> torch.Tensor:
     return mask
 
 
+def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype the plain versions compute in: float32 for bf16 inputs
+    (the kernels' accumulators), the inputs' own otherwise (float64 for
+    ``gradcheck``)."""
+    return torch.float32 if dtype == torch.bfloat16 else dtype
+
+
+def _rounded(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` rounded to ``dtype`` and back (nearest even): where the
+    reference casts P or dS to the inputs' dtype before a product. The
+    identity when ``x`` is already in ``dtype``'s precision."""
+    return x.to(dtype).to(x.dtype)
+
+
 def _scores(query, key) -> torch.Tensor:
     return torch.matmul(query, key.transpose(-1, -2)) * (1.0 / math.sqrt(query.shape[-1]))
 
@@ -207,7 +243,14 @@ def flash_attention_lse_plain(
     explicit-zero probabilities, zeros for rows that see no key. Returns
     ``(out, lse)``: ``lse`` ``[B, H, Sq]`` is ``m + log(l)`` of each row's
     softmax, ``NEG_INF`` on rows that see no key (``_flash_kernel``'s
-    ``lse`` output). Any float dtype (float64 for ``gradcheck``)."""
+    ``lse`` output). Any float dtype (float64 for ``gradcheck``). At
+    bf16 the scores, the softmax and ``lse`` are float32 (products of bf16
+    values are exact in float32), P is rounded to bf16 before P·V
+    (``_flash_kernel``'s ``p.astype(v.dtype)``), ``l`` sums the unrounded
+    P, and ``out`` is cast back to bf16."""
+    dtype = query.dtype
+    acc = _acc_dtype(dtype)
+    query, key, value = query.to(acc), key.to(acc), value.to(acc)
     mask = _structural_mask(
         query.shape[2], key.shape[2], causal, kv_valid, query.device
     )
@@ -216,9 +259,9 @@ def flash_attention_lse_plain(
     p = torch.where(mask, torch.exp(s - m), 0.0)
     l = p.sum(dim=-1, keepdim=True)
     safe_l = torch.where(l == 0.0, 1.0, l)
-    out = torch.matmul(p, value) / safe_l
+    out = torch.matmul(_rounded(p, dtype), value) / safe_l
     lse = torch.where(l == 0.0, NEG_INF, m + torch.log(safe_l))[..., 0]
-    return out, lse
+    return out.to(dtype), lse
 
 
 def flash_attention_plain(
@@ -239,7 +282,10 @@ def _backward_terms(query, key, value, d_out, lse, delta, causal, kv_valid):
     """``(p, ds)`` of the flash-2 backward (``pallas_attention.py``
     ``:304-329``, ``:369-396``): P recomputed from ``lse``, masked where
     the forward masked and where ``lse`` is not finite (rows that see no
-    key), and an explicit zero in ``ds`` wherever P is masked."""
+    key), and an explicit zero in ``ds`` wherever P is masked. In the
+    plain versions' compute dtype (float32 at bf16)."""
+    acc = _acc_dtype(query.dtype)
+    query, key, value, d_out = (t.to(acc) for t in (query, key, value, d_out))
     mask = _structural_mask(
         query.shape[2], key.shape[2], causal, kv_valid, query.device
     ) & (lse > NEG_INF * 0.5)[..., None]
@@ -249,12 +295,28 @@ def _backward_terms(query, key, value, d_out, lse, delta, causal, kv_valid):
     return p, ds
 
 
+def _dq(query, key, ds):
+    """dS·K·scale with dS rounded to the inputs' dtype first
+    (``ds.astype(k.dtype)``), in the inputs' dtype."""
+    scale = 1.0 / math.sqrt(query.shape[-1])
+    return (torch.matmul(_rounded(ds, key.dtype), key.to(ds.dtype)) * scale).to(query.dtype)
+
+
+def _dkv(query, d_out, p, ds):
+    """``(dSᵀ·Q·scale, Pᵀ·dO)`` with dS and P rounded to the inputs'
+    dtype first (``ds_t.astype(q.dtype)``, ``p_t.astype(do.dtype)``)."""
+    scale = 1.0 / math.sqrt(query.shape[-1])
+    dk = torch.matmul(_rounded(ds, query.dtype).transpose(-1, -2), query.to(ds.dtype)) * scale
+    dv = torch.matmul(_rounded(p, d_out.dtype).transpose(-1, -2), d_out.to(p.dtype))
+    return dk.to(query.dtype), dv.to(query.dtype)
+
+
 def flash_attention_bwd_dq_plain(
     query, key, value, d_out, lse, delta, *, causal=False, kv_valid=None
 ) -> torch.Tensor:
     """dQ = dS·K·scale — the plain form of the dQ kernel."""
     _, ds = _backward_terms(query, key, value, d_out, lse, delta, causal, kv_valid)
-    return torch.matmul(ds, key) * (1.0 / math.sqrt(query.shape[-1]))
+    return _dq(query, key, ds)
 
 
 def flash_attention_bwd_dkv_plain(
@@ -262,11 +324,7 @@ def flash_attention_bwd_dkv_plain(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """dK = dSᵀ·Q·scale, dV = Pᵀ·dO — the plain form of the dK/dV kernel."""
     p, ds = _backward_terms(query, key, value, d_out, lse, delta, causal, kv_valid)
-    scale = 1.0 / math.sqrt(query.shape[-1])
-    return (
-        torch.matmul(ds.transpose(-1, -2), query) * scale,
-        torch.matmul(p.transpose(-1, -2), d_out),
-    )
+    return _dkv(query, d_out, p, ds)
 
 
 def flash_attention_backward_plain(
@@ -276,31 +334,38 @@ def flash_attention_backward_plain(
     and ``lse``, with ``delta = rowsum(dO∘O)``."""
     delta = _delta(out, d_out)
     p, ds = _backward_terms(query, key, value, d_out, lse, delta, causal, kv_valid)
-    scale = 1.0 / math.sqrt(query.shape[-1])
-    return (
-        torch.matmul(ds, key) * scale,
-        torch.matmul(ds.transpose(-1, -2), query) * scale,
-        torch.matmul(p.transpose(-1, -2), d_out),
-    )
+    return (_dq(query, key, ds), *_dkv(query, d_out, p, ds))
 
 
 def _delta(out: torch.Tensor, d_out: torch.Tensor) -> torch.Tensor:
-    """``rowsum(dO∘O)`` ``[B, H, Sq]``, in fp32 for fp32 inputs. The JAX
-    package computes it outside any kernel (``pallas_attention.py:431``);
-    so does the port — a torch reduction."""
-    return (d_out * out).sum(dim=-1)
+    """``rowsum(dO∘O)`` ``[B, H, Sq]``, in fp32 for fp32 and bf16 inputs
+    (``g.astype(f32) * out.astype(f32)``). The JAX package computes it
+    outside any kernel (``pallas_attention.py:431``); so does the port —
+    a torch reduction."""
+    acc = _acc_dtype(out.dtype)
+    return (d_out.to(acc) * out.to(acc)).sum(dim=-1)
 
 
 # -- flash attention: kernels ------------------------------------------------------
 
 
-def _check_flash_cuda(name, tensors, kv_valid) -> tuple[torch.device, torch.Tensor | None]:
-    """Device, dtype and layout checks shared by the three flash kernels;
-    returns the device and ``kv_valid`` as contiguous bytes (or None)."""
-    dev = _check_cuda(name, *tensors, kv_valid)
+def _check_flash_cuda(
+    name, tensors, kv_valid, stats=()
+) -> tuple[torch.device, torch.Tensor | None]:
+    """Device, dtype and layout checks shared by the three flash kernels:
+    ``tensors`` (q, k, v and dO) share one dtype of ``KERNEL_DTYPES``,
+    ``stats`` (``lse``, ``delta``) are float32. Returns the device and
+    ``kv_valid`` as contiguous bytes (or None)."""
+    dev = _check_cuda(name, *tensors, *stats, kv_valid)
+    dtype = tensors[0].dtype
+    if dtype not in KERNEL_DTYPES:
+        raise TypeError(f"{name}: inputs must be float32 or bfloat16, got {dtype}")
     for t in tensors:
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: inputs must share one dtype, got {dtype} and {t.dtype}")
+    for t in stats:
         if t.dtype != torch.float32:
-            raise TypeError(f"{name}: inputs must be float32, got {t.dtype}")
+            raise TypeError(f"{name}: lse and delta must be float32, got {t.dtype}")
     valid = None
     if kv_valid is not None:
         if kv_valid.dtype != torch.bool:
@@ -319,9 +384,30 @@ def _d_pad(head_dim: int) -> int:
     return next(p for p in KERNEL_D_PADS if head_dim <= p)
 
 
+def _pad_elems(elem_bytes: int) -> int:
+    """Elements a shared row is padded by: 16 bytes (4 floats, 8 bf16)."""
+    return 16 // elem_bytes
+
+
+def fwd_smem_bytes(warps: int, splits: int, d_pad: int, kv_len: int, elem_bytes: int = 4) -> int:
+    """Dynamic shared memory of one flash forward block
+    (``fwd_smem_bytes``/``fwd_bf16_smem_bytes`` in
+    ``csrc/flash_attention_fwd.cu``): the Q rows, two buffers of K/V tiles
+    per split (rows of ``d_pad`` + 16 bytes of ``elem_bytes`` elements),
+    the key-validity words and the live-tile list."""
+    stride = d_pad + _pad_elems(elem_bytes)
+    rows = 16 * (warps // splits)
+    return elem_bytes * (rows * stride + 2 * splits * 2 * 32 * stride) + 8 * -(-kv_len // 32)
+
+
+def _check_smem(name: str, need: int) -> None:
+    if need > SMEM_LIMIT:
+        raise ValueError(f"{name}: the launch needs {need} bytes of shared memory, more than {SMEM_LIMIT}")
+
+
 def flash_fwd_launch_params(
     batch: int, heads: int, q_len: int, kv_len: int, head_dim: int, sm_count: int,
-    warps: int | None = None, splits: int | None = None,
+    warps: int | None = None, splits: int | None = None, elem_bytes: int = 4,
 ) -> tuple[int, int, int]:
     """``(warps per block, key splits, padded head dim)`` of the flash
     forward kernel on a card with ``sm_count`` SMs. A block has
@@ -337,48 +423,77 @@ def flash_fwd_launch_params(
     the grid, and one warp's walk leaves each SM a warp or two: two
     splits whenever there are two key tiles (the eval decode's
     self-attention at step 198 on an H100: 33.9 µs against 56.8 µs with
-    one warp)."""
+    one warp). The same choices at both element sizes (``elem_bytes`` 4
+    for fp32, 2 for bf16); each must fit a block's shared memory."""
     d_pad = _d_pad(head_dim)
     if warps is None and splits is None:
         for rows in (4, 2, 1):
             if (q_len > 16 and 16 * (rows - 1) < q_len
                     and batch * heads * -(-q_len // (16 * rows)) >= sm_count):
-                return rows, 1, d_pad
-        splits = 2 if kv_len > 32 else 1
-        rows = next(r for r in (4, 2, 1) if r * splits in KERNEL_WARPS and 16 * (r - 1) < q_len)
-        return rows * splits, splits, d_pad
-    return _check_launch(warps, splits) + (d_pad,)
+                warps, splits = rows, 1
+                break
+        else:
+            splits = 2 if kv_len > 32 else 1
+            rows = next(r for r in (4, 2, 1) if r * splits in KERNEL_WARPS and 16 * (r - 1) < q_len)
+            warps = rows * splits
+    else:
+        warps, splits = _check_launch(warps, splits)
+    _check_smem("flash_attention", fwd_smem_bytes(warps, splits, d_pad, kv_len, elem_bytes))
+    return warps, splits, d_pad
 
 
-#: ``(warps per block, key splits, padded head dim)`` of the dQ kernel.
-#: It walks the forward's tiles (16-row groups against 32-key tiles), so
-#: it takes the forward's rule: at the training sites four row groups per
-#: block and one split (1,024 blocks); where the rows leave the card part
-#: empty (one sequence of 200), two warps share out a group's key tiles.
-dq_launch_params = flash_fwd_launch_params
+def dq_launch_params(
+    batch: int, heads: int, q_len: int, kv_len: int, head_dim: int, sm_count: int,
+    warps: int | None = None, splits: int | None = None, elem_bytes: int = 4,
+) -> tuple[int, int, int]:
+    """``(warps per block, key splits, padded head dim)`` of the dQ kernel.
+    It walks the forward's tiles (16-row groups against 32-key tiles), so
+    it takes the forward's rule: at the training sites four row groups per
+    block and one split (1,024 blocks); where the rows leave the card part
+    empty (one sequence of 200), two warps share out a group's key tiles."""
+    warps, splits, d_pad = flash_fwd_launch_params(
+        batch, heads, q_len, kv_len, head_dim, sm_count, warps, splits, elem_bytes
+    )
+    _check_smem("flash_attention_bwd_dq", dq_smem_bytes(warps, splits, d_pad, kv_len, elem_bytes))
+    return warps, splits, d_pad
 
 
-def dq_smem_bytes(warps: int, splits: int, d_pad: int, kv_len: int) -> int:
-    """Dynamic shared memory of one dQ block (``dq_smem_bytes`` in
-    ``csrc/flash_attention_bwd.cu``): Q and dO rows, their lse and delta,
-    two buffers of K/V tiles per split, the key-validity words and the
+def dq_smem_bytes(warps: int, splits: int, d_pad: int, kv_len: int, elem_bytes: int = 4) -> int:
+    """Dynamic shared memory of one dQ block (``dq_smem_bytes``/
+    ``dq_bf16_smem_bytes`` in ``csrc/flash_attention_bwd.cu``): Q and dO
+    rows, their float32 lse and delta, two buffers of K/V tiles per split
+    (rows of ``d_pad`` + 16 bytes), the key-validity words and the
     live-tile list."""
-    stride = d_pad + 4
+    stride = d_pad + _pad_elems(elem_bytes)
     rows = 16 * (warps // splits)
     tiles = -(-kv_len // 32)
-    return 4 * (2 * rows * stride + 2 * rows + 2 * splits * 2 * 32 * stride) + 8 * tiles
+    return (elem_bytes * (2 * rows * stride + 2 * splits * 2 * 32 * stride)
+            + 4 * 2 * rows + 8 * tiles)
 
 
-def ragged_smem_bytes(head_dim: int, quant: bool, splits: int, stages: int) -> int:
+def dkv_smem_bytes(warps: int, splits: int, d_pad: int, elem_bytes: int = 4) -> int:
+    """Dynamic shared memory of one dK/dV block (``dkv_smem_bytes``/
+    ``dkv_bf16_smem_bytes``): the block's K and V rows, then two buffers
+    per split of a 32-row query tile (Q and dO rows, float32 lse and
+    delta)."""
+    stride = d_pad + _pad_elems(elem_bytes)
+    keys = 16 * (warps // splits)
+    return elem_bytes * 2 * keys * stride + 2 * splits * (elem_bytes * 2 * 32 * stride + 4 * 2 * 32)
+
+
+def ragged_smem_bytes(
+    head_dim: int, quant: bool, splits: int, stages: int, page_bytes: int = 4,
+) -> int:
     """Dynamic shared memory of one ragged block (``warp_bytes`` in
     ``csrc/ragged_paged_attention.cu``, times the splits): per warp,
-    ``stages`` chunks of 32 K and V head slices (fp32 rows padded by four
-    floats, int8 rows by 16 bytes) with their scales and slots, then its q
-    row, the chunk's p and its merge state."""
+    ``stages`` chunks of 32 K and V head slices (fp32 and bf16 rows —
+    ``page_bytes`` 4 or 2 — padded by 16 bytes, int8 rows to 16 and 16
+    more) with their scales and slots, then its float32 q row, the chunk's
+    p and its merge state."""
     def r16(x):
         return (x + 15) & ~15
 
-    row = r16(head_dim) + 16 if quant else 4 * (head_dim + 4)
+    row = r16(head_dim) + 16 if quant else page_bytes * head_dim + 16
     stage = 2 * RAGGED_CHUNK * row + 3 * RAGGED_CHUNK * 4
     per_warp = stages * stage + r16(4 * head_dim) + 4 * RAGGED_CHUNK + r16(4 * (head_dim + 2))
     return splits * per_warp
@@ -386,6 +501,7 @@ def ragged_smem_bytes(head_dim: int, quant: bool, splits: int, stages: int) -> i
 
 def ragged_launch_params(
     head_dim: int, capacity: int, quant: bool, splits: int | None = None,
+    page_bytes: int = 4,
 ) -> tuple[int, int]:
     """``(splits, stages)`` of the ragged decode kernel for block tables
     that cover ``capacity`` = pages per row × page size positions. A block
@@ -394,17 +510,20 @@ def ragged_launch_params(
     keeps two in flight (``stages`` 2). Unless given: as many splits as
     the longest row has chunks, up to four (the serving decode: 64
     positions, two splits, one chunk each), and fewer where the shared
-    memory would not fit (fp32 pages at a head dim of 128)."""
+    memory would not fit (fp32 pages at a head dim of 128). ``page_bytes``
+    is a float page's element size (4 fp32, 2 bf16)."""
     _check_head_dim(head_dim)
     chunks = max(1, -(-capacity // RAGGED_CHUNK))
     if splits is None:
         splits = next((s for s in RAGGED_SPLITS if s >= chunks), RAGGED_SPLITS[-1])
-        while ragged_smem_bytes(head_dim, quant, splits, 2 if chunks > splits else 1) > SMEM_LIMIT:
+        while ragged_smem_bytes(
+            head_dim, quant, splits, 2 if chunks > splits else 1, page_bytes
+        ) > SMEM_LIMIT:
             splits //= 2
     elif splits not in RAGGED_SPLITS:
         raise ValueError(f"splits must be one of {RAGGED_SPLITS}, got {splits}")
     stages = 2 if chunks > splits else 1
-    need = ragged_smem_bytes(head_dim, quant, splits, stages)
+    need = ragged_smem_bytes(head_dim, quant, splits, stages, page_bytes)
     if need > SMEM_LIMIT:
         raise ValueError(
             f"splits={splits} needs {need} bytes of shared memory at head_dim={head_dim}, "
@@ -415,20 +534,24 @@ def ragged_launch_params(
 
 def dkv_launch_params(
     batch: int, heads: int, q_len: int, kv_len: int, head_dim: int,
-    warps: int | None = None, splits: int | None = None,
+    warps: int | None = None, splits: int | None = None, elem_bytes: int = 4,
 ) -> tuple[int, int, int]:
     """``(warps per block, query splits, padded head dim)`` of the dK/dV
     kernel. A block has ``warps // splits`` key groups of 16 keys; the
     ``splits`` warps of a group share out the 32-row query tiles. Unless
     given: two splits when the walk has two query tiles or more (it is one
     block's serial chain), and as many key groups as the keys fill up to
-    four warps (the training sites: blocks of 2 x 16 keys by 2 splits)."""
+    four warps (the training sites: blocks of 2 x 16 keys by 2 splits).
+    The same choices at both element sizes; each must fit a block."""
     d_pad = _d_pad(head_dim)
     if warps is None and splits is None:
         splits = 2 if q_len > 32 else 1
         groups = next(r for r in (4, 2, 1) if r * splits in KERNEL_WARPS and 16 * (r - 1) < kv_len)
-        return groups * splits, splits, d_pad
-    return _check_launch(warps, splits) + (d_pad,)
+        warps = groups * splits
+    else:
+        warps, splits = _check_launch(warps, splits)
+    _check_smem("flash_attention_bwd_dkv", dkv_smem_bytes(warps, splits, d_pad, elem_bytes))
+    return warps, splits, d_pad
 
 
 def _check_launch(warps: int | None, splits: int | None) -> tuple[int, int]:
@@ -444,10 +567,11 @@ def _check_launch(warps: int | None, splits: int | None) -> tuple[int, int]:
 
 def kernel_layout_ok(t: torch.Tensor) -> bool:
     """Whether a ``[B, H, S, d]`` tensor meets ``check_kernel_layout``."""
+    per_16 = 16 // t.element_size()  # elements in 16 bytes
     return (
         t.stride(3) == 1
         and t.data_ptr() % 16 == 0
-        and all(t.stride(i) % 4 == 0 for i in range(3) if t.shape[i] > 1)
+        and all(t.stride(i) % per_16 == 0 for i in range(3) if t.shape[i] > 1)
     )
 
 
@@ -455,10 +579,10 @@ def check_kernel_layout(name: str, *tensors: torch.Tensor) -> None:
     """The tensor-core kernels copy rows into shared memory 16 bytes at a
     time (``cp.async``): every ``[B, H, S, d]`` input must have a
     contiguous head dim, a 16-byte aligned start, and batch, head and
-    position strides that are multiples of 4 elements (strides of
-    size-1 dims are never used). Raises ``ValueError`` otherwise. The
-    model's head-split views of fused projections pass, since ``d`` is a
-    multiple of 8."""
+    position strides of whole 16-byte pieces — multiples of 4 float32 or
+    8 bf16 elements (strides of size-1 dims are never used). Raises
+    ``ValueError`` otherwise. The model's head-split views of fused
+    projections pass, since ``d`` is a multiple of 8."""
     for t in tensors:
         if t.stride(3) != 1:
             raise ValueError(f"{name}: every input's head dim must be contiguous")
@@ -485,8 +609,9 @@ def flash_attention_fwd(
     query, key, value, *, causal=False, kv_valid=None, return_lse=False,
     warps=None, splits=None,
 ):
-    """The flash forward kernel's wrapper: ``out`` ``[B, H, Sq, d]``, or
-    ``(out, lse)`` with ``lse`` ``[B, H, Sq]`` fp32, both contiguous. No
+    """The flash forward kernel's wrapper: ``out`` ``[B, H, Sq, d]`` in the
+    inputs' dtype (float32 or bf16), or ``(out, lse)`` with ``lse`` ``[B,
+    H, Sq]`` fp32, both contiguous. No
     autograd: ``flash_attention`` is the differentiable entry point.
     ``warps``/``splits`` override ``flash_fwd_launch_params``' choice."""
     _check_flash_shapes(query, key, value, kv_valid)
@@ -499,17 +624,17 @@ def flash_attention_fwd(
     kv_len = key.shape[2]
     dev, valid = _check_flash_cuda("flash_attention", (query, key, value), kv_valid)
     n_warps, n_splits, d_pad = flash_fwd_launch_params(
-        b, h, q_len, kv_len, d, device_sm_count(dev), warps, splits
+        b, h, q_len, kv_len, d, device_sm_count(dev), warps, splits, query.element_size()
     )
     check_kernel_layout("flash_attention", query, key, value)
     strides = _strides(query, key, value)
-    out = torch.empty((b, h, q_len, d), dtype=torch.float32, device=dev)
+    out = torch.empty((b, h, q_len, d), dtype=query.dtype, device=dev)
     lse = (
         torch.empty((b, h, q_len), dtype=torch.float32, device=dev)
         if return_lse else None
     )
     _launch(
-        "flash_attention_fwd", dev,
+        kernel_name("flash_attention_fwd", query.dtype), dev,
         query.data_ptr(), key.data_ptr(), value.data_ptr(),
         None if valid is None else valid.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(),
@@ -525,7 +650,7 @@ def _bwd_cuda(name, query, key, value, d_out, lse, delta, kv_valid):
         raise ValueError(f"{name}: d_out {tuple(d_out.shape)} must match query {tuple(query.shape)}")
     if lse.shape != (b, h, q_len) or delta.shape != lse.shape:
         raise ValueError(f"{name}: lse and delta must be [{b}, {h}, {q_len}]")
-    dev, valid = _check_flash_cuda(name, (query, key, value, d_out, lse, delta), kv_valid)
+    dev, valid = _check_flash_cuda(name, (query, key, value, d_out), kv_valid, (lse, delta))
     _check_head_dim(d)
     return dev, valid, _strides(query, key, value, d_out), lse.contiguous(), delta.contiguous()
 
@@ -534,9 +659,10 @@ def flash_attention_bwd_dq(
     query, key, value, d_out, lse, delta, *, causal=False, kv_valid=None,
     warps=None, splits=None,
 ) -> torch.Tensor:
-    """dQ of flash attention ``[B, H, Sq, d]``, contiguous, from the
-    forward's ``lse`` and ``delta = rowsum(dO∘O)`` (both ``[B, H, Sq]``
-    fp32). q/k/v/d_out may be strided views with a contiguous head dim and
+    """dQ of flash attention ``[B, H, Sq, d]``, contiguous, in the inputs'
+    dtype (float32 or bf16), from the forward's ``lse`` and ``delta =
+    rowsum(dO∘O)`` (both ``[B, H, Sq]`` fp32). q/k/v/d_out (one dtype)
+    may be strided views with a contiguous head dim and
     rows 16-byte aligned (``check_kernel_layout``). ``warps``/``splits``
     override ``dq_launch_params``' choice."""
     _check_flash_shapes(query, key, value, kv_valid)
@@ -550,12 +676,12 @@ def flash_attention_bwd_dq(
     b, h, q_len, d = query.shape
     kv_len = key.shape[2]
     n_warps, n_splits, d_pad = dq_launch_params(
-        b, h, q_len, kv_len, d, device_sm_count(dev), warps, splits
+        b, h, q_len, kv_len, d, device_sm_count(dev), warps, splits, query.element_size()
     )
     check_kernel_layout("flash_attention_bwd_dq", query, key, value, d_out)
-    dq = torch.empty((b, h, q_len, d), dtype=torch.float32, device=dev)
+    dq = torch.empty((b, h, q_len, d), dtype=query.dtype, device=dev)
     _launch(
-        "flash_attention_bwd_dq", dev,
+        kernel_name("flash_attention_bwd_dq", query.dtype), dev,
         query.data_ptr(), key.data_ptr(), value.data_ptr(), d_out.data_ptr(),
         lse.data_ptr(), delta.data_ptr(),
         None if valid is None else valid.data_ptr(), dq.data_ptr(),
@@ -569,7 +695,8 @@ def flash_attention_bwd_dkv(
     query, key, value, d_out, lse, delta, *, causal=False, kv_valid=None,
     warps=None, splits=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """``(dK, dV)`` of flash attention, each ``[B, H, Sk, d]`` contiguous;
+    """``(dK, dV)`` of flash attention, each ``[B, H, Sk, d]`` contiguous
+    in the inputs' dtype;
     same inputs as ``flash_attention_bwd_dq``, with rows 16-byte aligned
     (``check_kernel_layout``). A key that no row sees gets exactly zero.
     ``warps``/``splits`` override ``dkv_launch_params``' choice."""
@@ -583,12 +710,14 @@ def flash_attention_bwd_dkv(
     )
     b, h, q_len, d = query.shape
     kv_len = key.shape[2]
-    n_warps, n_splits, d_pad = dkv_launch_params(b, h, q_len, kv_len, d, warps, splits)
+    n_warps, n_splits, d_pad = dkv_launch_params(
+        b, h, q_len, kv_len, d, warps, splits, query.element_size()
+    )
     check_kernel_layout("flash_attention_bwd_dkv", query, key, value, d_out)
-    dk = torch.empty((b, h, kv_len, d), dtype=torch.float32, device=dev)
+    dk = torch.empty((b, h, kv_len, d), dtype=query.dtype, device=dev)
     dv = torch.empty_like(dk)
     _launch(
-        "flash_attention_bwd_dkv", dev,
+        kernel_name("flash_attention_bwd_dkv", query.dtype), dev,
         query.data_ptr(), key.data_ptr(), value.data_ptr(), d_out.data_ptr(),
         lse.data_ptr(), delta.data_ptr(),
         None if valid is None else valid.data_ptr(), dk.data_ptr(), dv.data_ptr(),
@@ -675,7 +804,8 @@ def flash_attention(
     causal: bool = False,
     kv_valid: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Attention over ``[B, H, S, d]`` fp32 streams with structured masks:
+    """Attention over ``[B, H, S, d]`` float32 or bf16 streams with
+    structured masks:
     ``causal`` (bottom-right aligned when ``Sq != Sk``) and ``kv_valid``
     (``[B, Sk]`` bool, per-key validity). Query and key lengths may
     differ. Rows that see no key give zeros. Returns a contiguous
@@ -710,16 +840,22 @@ def ragged_paged_attention_plain(
     ``[R, W]`` view (int8 pages dequantised first), mask positions past
     each row's length, append ``cur`` as an always-valid key, and take a
     masked softmax with explicit zeros — rows that see nothing give
-    zeros."""
+    zeros. A bf16 query (with bf16 or int8 pages) is taken in float32,
+    with no rounding of P, and the output cast back to bf16."""
     rows, heads, head_dim = query.shape
     pages_per_row, page_size = block_table.shape[1], k_pages.shape[1]
     width = pages_per_row * page_size
+    dtype = query.dtype
+    acc = _acc_dtype(dtype)
     table = block_table.long()
     k = k_pages[table]  # [R, P, page, H*dh]
     v = v_pages[table]
     if k_scale is not None:
         k = k.float() * k_scale[table][..., None]
         v = v.float() * v_scale[table][..., None]
+    query, k, v = query.to(acc), k.to(acc), v.to(acc)
+    if cur_k is not None:
+        cur_k, cur_v = cur_k.to(acc), cur_v.to(acc)
     k = k.reshape(rows, width, heads, head_dim).transpose(1, 2)
     v = v.reshape(rows, width, heads, head_dim).transpose(1, 2)
     positions = torch.arange(width, device=query.device)
@@ -736,7 +872,7 @@ def ragged_paged_attention_plain(
     p = torch.where(mask, torch.exp(s - m), 0.0)
     l = p.sum(dim=-1, keepdim=True)
     out = torch.einsum("rhw,rhwd->rhd", p, v)
-    return out / torch.where(l == 0.0, 1.0, l)
+    return (out / torch.where(l == 0.0, 1.0, l)).to(dtype)
 
 
 def ragged_paged_attention(
@@ -755,11 +891,12 @@ def ragged_paged_attention(
     """One decode step of attention over a paged KV store, ragged across
     rows (the contract of ``ops.attention.ragged_paged_attention``).
 
-    ``query`` ``[R, H, dh]`` fp32; ``k_pages``/``v_pages`` ``[N, page,
-    H*dh]`` fp32, or int8 with ``k_scale``/``v_scale`` ``[N, page]`` fp32;
-    ``block_table`` ``[R, P]`` and ``lengths`` ``[R]`` int32; optional
-    ``cur_k``/``cur_v`` ``[R, H*dh]`` fp32. Returns a contiguous ``[R, H,
-    dh]`` fp32 tensor. Query rows and cur rows may be strided views (a
+    ``query`` ``[R, H, dh]`` float32 or bf16; ``k_pages``/``v_pages``
+    ``[N, page, H*dh]`` in the query's dtype, or int8 with
+    ``k_scale``/``v_scale`` ``[N, page]`` fp32; ``block_table`` ``[R, P]``
+    and ``lengths`` ``[R]`` int32; optional ``cur_k``/``cur_v`` ``[R,
+    H*dh]`` in the query's dtype. Returns a contiguous ``[R, H, dh]``
+    tensor in the query's dtype (the bf16 kernel for a bf16 query). Query rows and cur rows may be strided views (a
     slice of a fused projection); within a row the data must be
     contiguous, and on the card query rows and the page stores must start
     on 16 bytes (the kernel stages them with 16-byte ``cp.async``).
@@ -799,15 +936,16 @@ def ragged_paged_attention(
         lengths, k_scale, v_scale, cur_k, cur_v,
     )
     _check_head_dim(head_dim)
-    if query.dtype != torch.float32:
-        raise TypeError(f"query must be float32, got {query.dtype}")
+    dtype = query.dtype
+    if dtype not in KERNEL_DTYPES:
+        raise TypeError(f"query must be float32 or bfloat16, got {dtype}")
     if query.stride(2) != 1 or (heads > 1 and query.stride(1) != head_dim):
         raise ValueError("each query row [H, dh] must be contiguous")
     quant = k_pages.dtype == torch.int8
     if quant != (k_scale is not None):
-        raise ValueError("int8 pages need k_scale/v_scale, float32 pages take none")
-    if k_pages.dtype not in (torch.float32, torch.int8) or v_pages.dtype != k_pages.dtype:
-        raise TypeError(f"pages must be float32 or int8, got {k_pages.dtype}")
+        raise ValueError("int8 pages need k_scale/v_scale, float pages take none")
+    if k_pages.dtype not in (dtype, torch.int8) or v_pages.dtype != k_pages.dtype:
+        raise TypeError(f"pages must be {dtype} (the query's dtype) or int8, got {k_pages.dtype}")
     for name, t in (("k_pages", k_pages), ("v_pages", v_pages),
                     ("k_scale", k_scale), ("v_scale", v_scale),
                     ("block_table", block_table), ("lengths", lengths)):
@@ -817,7 +955,7 @@ def ragged_paged_attention(
         raise TypeError("block_table and lengths must be int32")
     if quant and (k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32):
         raise TypeError("k_scale and v_scale must be float32")
-    if query.data_ptr() % 16 or (rows > 1 and query.stride(0) % 4):
+    if query.data_ptr() % 16 or (rows > 1 and query.stride(0) % (16 // query.element_size())):
         raise ValueError(
             f"ragged_paged_attention: query rows must start on 16 bytes (data_ptr % 16 = "
             f"{query.data_ptr() % 16}, row stride {query.stride(0)}); the kernel "
@@ -827,18 +965,18 @@ def ragged_paged_attention(
         raise ValueError("ragged_paged_attention: the page stores must start on 16 bytes")
     cur_stride = 0
     if cur_k is not None:
-        if cur_k.dtype != torch.float32 or cur_v.dtype != torch.float32:
-            raise TypeError("cur_k and cur_v must be float32")
+        if cur_k.dtype != dtype or cur_v.dtype != dtype:
+            raise TypeError(f"cur_k and cur_v must be {dtype} (the query's dtype)")
         if cur_k.stride(1) != 1 or cur_v.stride() != cur_k.stride():
             raise ValueError("cur_k and cur_v rows must be contiguous, same strides")
         cur_stride = cur_k.stride(0)
     pages_per_row, page_size = block_table.shape[1], k_pages.shape[1]
     n_splits, stages = ragged_launch_params(
-        head_dim, pages_per_row * page_size, quant, splits
+        head_dim, pages_per_row * page_size, quant, splits, k_pages.element_size()
     )
-    out = torch.empty((rows, heads, head_dim), dtype=torch.float32, device=dev)
+    out = torch.empty((rows, heads, head_dim), dtype=dtype, device=dev)
     _launch(
-        "ragged_paged_attention", dev,
+        kernel_name("ragged_paged_attention", dtype), dev,
         query.data_ptr(), query.stride(0),
         k_pages.data_ptr(), v_pages.data_ptr(),
         k_scale.data_ptr() if quant else None,

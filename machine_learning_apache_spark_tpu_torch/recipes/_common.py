@@ -16,6 +16,7 @@ import dataclasses
 import os
 from typing import Any, Callable
 
+import numpy as np
 import torch
 
 from machine_learning_apache_spark_tpu_torch.data.loader import (
@@ -36,15 +37,31 @@ from machine_learning_apache_spark_tpu_torch.utils.logging import get_logger
 log = get_logger(__name__)
 
 
-def default_compute_dtype(override: str | None = None) -> torch.dtype:
-    """The compute dtype: float32, the only one the port's kernels take in
-    this slice (the JAX package picks bfloat16 on a TPU; bf16 kernels are
-    ROADMAP queue B work). An explicit ``"float32"`` is accepted."""
-    if override in (None, "float32"):
+#: The compute dtypes the port runs: its kernels are instantiated for both.
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def default_compute_dtype(override: str | torch.dtype | None = None) -> torch.dtype:
+    """Platform-default compute dtype, the JAX package's rule: bfloat16 on
+    a TPU (full-rate MXU), float32 elsewhere — so float32 in the port,
+    which runs on no TPU. An explicit ``"float32"`` or ``"bfloat16"`` (or
+    the torch dtype) wins. A name of another dtype that JAX would take
+    (``"float16"``, ``"float64"``, ...) raises ``NotImplementedError``: no
+    kernel is built for it. A string that names no dtype raises
+    ``TypeError``, as ``jnp.dtype`` does."""
+    if override is None:
         return torch.float32
+    if isinstance(override, torch.dtype) and override in COMPUTE_DTYPES.values():
+        return override
+    if isinstance(override, str) and override in COMPUTE_DTYPES:
+        return COMPUTE_DTYPES[override]
+    try:
+        name = np.dtype(override).name
+    except TypeError:
+        raise TypeError(f"data type {override!r} not understood") from None
     raise NotImplementedError(
-        f"compute dtype {override!r} is not ported yet: the kernels take "
-        "float32 only (bf16 inputs are ROADMAP queue B)"
+        f"compute dtype {name!r} is not ported: the port's kernels take "
+        f"{' and '.join(COMPUTE_DTYPES)}"
     )
 
 

@@ -67,7 +67,9 @@ class CNNRecipe:
     synthetic_n: int = 4096
     use_mesh: bool = True
     log_every: int = 0
-    # None → float32, the only compute dtype ported so far.
+    # None → platform default (bfloat16 on TPU's MXU, float32 elsewhere —
+    # so float32 in the port); an explicit dtype string is honored on any
+    # platform ("float32" or "bfloat16").
     dtype: str | None = None
     checkpoint_dir: str | None = None
     checkpoint_every: int = 1

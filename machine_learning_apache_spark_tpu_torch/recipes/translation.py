@@ -125,7 +125,9 @@ class TranslationRecipe:
     synthetic_n: int = 2048
     use_mesh: bool = True
     log_every: int = 100  # the reference's per-100-batch print cadence
-    # None → float32 (the only dtype the port's kernels take so far).
+    # None → platform default (bfloat16 on TPU's MXU, float32 elsewhere —
+    # so float32 in the port); an explicit dtype string is honored on any
+    # platform ("float32" or "bfloat16").
     dtype: str | None = None
     model_parallel: int = 1
     sequence_parallel: int = 1

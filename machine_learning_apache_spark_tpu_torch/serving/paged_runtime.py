@@ -80,10 +80,12 @@ def _round_up(n: int, m: int) -> int:
 def _quantize(x: torch.Tensor, absmax: torch.Tensor):
     """Absmax int8: ``(q, scale)`` with ``x ≈ q * scale``; the scale has
     ``absmax``'s shape and a 1e-30 floor, ``q`` is clipped to ±127 and
-    rounded half to even (as ``jnp.round``)."""
-    s = torch.clamp_min(absmax / 127.0, 1e-30)
+    rounded half to even (as ``jnp.round``). As in the JAX runtime,
+    ``absmax / 127`` is taken in ``x``'s dtype (bf16 for a bf16 model),
+    and the scale and the division are float32."""
+    s = torch.clamp_min((absmax / 127.0).float(), 1e-30)
     shape = s.shape + (1,) * (x.dim() - s.dim())
-    q = torch.clamp(torch.round(x / s.reshape(shape)), -127, 127)
+    q = torch.clamp(torch.round(x.float() / s.reshape(shape)), -127, 127)
     return q.to(torch.int8), s
 
 

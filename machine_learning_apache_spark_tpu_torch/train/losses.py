@@ -6,6 +6,12 @@ manual pad-masked mean (``pytorch_machine_translator.py:125-126,182-188``).
 Both shapes live here, once. Per-token losses are optax's
 ``softmax_cross_entropy_with_integer_labels``: ``logsumexp(logits) −
 logits[label]``.
+
+Logits in bf16 (a bf16 Transformer's) are widened to float32 first, so the
+loss and its reduction are float32. The JAX package takes optax's loss in
+the logits' dtype and returns a bf16 loss; the port keeps the softmax in
+float32, as both frameworks' attention does (a standing difference,
+ROADMAP queue C, of about one bf16 rounding of the loss).
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ from torch import nn
 
 
 def _per_example(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    logits = logits.to(torch.promote_types(logits.dtype, torch.float32))
     label_logits = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     return torch.logsumexp(logits, dim=-1) - label_logits
 

@@ -602,9 +602,9 @@ def test_full_width_train_steps_on_the_card_match_the_cpu(cuda):
 # -- the engines' programs: CUDA graphs captured at warmup ----------------------
 
 
-def _card_translator(cuda):
-    """A tiny model on the card, its pipelines, and 16 prompts of 2-11
-    words (random weights, the pad logit pushed down as in
+def _card_translator(cuda, dtype=torch.float32):
+    """A tiny model on the card (compute ``dtype``), its pipelines, and 16
+    prompts of 2-11 words (random weights, the pad logit pushed down as in
     ``chip_smoke.py``)."""
     from machine_learning_apache_spark_tpu_torch.data.text import TextPipeline
     from machine_learning_apache_spark_tpu_torch.inference import Translator
@@ -624,7 +624,7 @@ def _card_translator(cuda):
     cfg = TransformerConfig(
         src_vocab_size=len(pipe.vocab.itos), trg_vocab_size=len(pipe.vocab.itos),
         d_model=64, ffn_hidden=128, num_heads=4, num_layers=2, max_len=24,
-        dropout=0.0,
+        dropout=0.0, dtype=dtype,
     )
     params = random_flax_params(cfg, seed=7)
     params["lm_head"]["bias"][0] = -30.0
@@ -1179,3 +1179,127 @@ def test_mllib_mesh_fit_on_the_card_matches_the_cpu(cuda):
     for name, leaf in cpu.params.items():
         for key in leaf:
             np.testing.assert_allclose(out["params"][name][key], leaf[key], atol=1e-5, rtol=1e-4)
+
+
+# -- bf16 ------------------------------------------------------------------------
+
+BF16_TOL = 2.0 ** -6  # two bf16 ulps of the largest value (chip_smoke.BF16_TOL)
+
+
+def _bf16_rel(got, want):
+    got, want = got.float(), want.float()
+    return ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
+
+
+@pytest.mark.parametrize("warps,splits", [(None, None), (1, 1), (4, 1), (4, 2)],
+                         ids=["picked", "w1", "w4", "w4-split2"])
+@pytest.mark.parametrize("b,h,sq,sk,d,causal,valid_frac", [
+    (4, 8, 200, 200, 64, False, 0.1), (4, 8, 199, 199, 64, True, 0.1), (2, 4, 40, 30, 16, True, None),
+    (3, 2, 37, 45, 128, False, 0.5), (2, 3, 33, 65, 40, False, None), (2, 8, 1, 65, 64, False, 0.8),
+])
+def test_bf16_flash_kernels_match_plain(cuda, b, h, sq, sk, d, causal, valid_frac, warps, splits):
+    """The bf16 forward (``lse`` float32), dQ and dK/dV against their plain
+    versions on the same bf16 inputs: outputs bf16 within two ulps of the
+    largest value, ``lse`` within 1e-5; masked keys' dK/dV exactly zero;
+    only the bf16 instantiations launch; a second run the same bits."""
+    rng = np.random.default_rng(41)
+    q, k, v, g = (_randn(rng, b, h, n, d).to(cuda).to(torch.bfloat16) for n in (sq, sk, sk, sq))
+    valid = None if valid_frac is None else torch.from_numpy(rng.random((b, sk)) < valid_frac).to(cuda)
+    kw = dict(causal=causal, kv_valid=valid, warps=warps, splits=splits)
+    hop.reset_launches()
+    out, lse = hop.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+    delta = (g.float() * out.float()).sum(-1)
+    dq = hop.flash_attention_bwd_dq(q, k, v, g, lse, delta, **kw)
+    dk, dv = hop.flash_attention_bwd_dkv(q, k, v, g, lse, delta, **kw)
+    torch.cuda.synchronize()
+    assert {n: c for n, c in hop.LAUNCHES.items() if c} == {
+        "flash_attention_fwd_bf16": 1, "flash_attention_bwd_dq_bf16": 1, "flash_attention_bwd_dkv_bf16": 1}
+    assert out.dtype == dq.dtype == dk.dtype == dv.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    plain = dict(causal=causal, kv_valid=valid)
+    want_out, want_lse = hop.flash_attention_lse_plain(q, k, v, **plain)
+    want = hop.flash_attention_backward_plain(q, k, v, out, lse, g, **plain)
+    assert _bf16_rel(out, want_out) <= BF16_TOL
+    finite = want_lse > hop.NEG_INF / 2
+    assert torch.equal(lse > hop.NEG_INF / 2, finite)
+    if finite.any():
+        assert _bf16_rel(lse[finite], want_lse[finite]) <= 1e-5
+    for got, ref in zip((dq, dk, dv), want):
+        assert _bf16_rel(got, ref) <= BF16_TOL
+    if valid is not None:
+        masked = ~valid[:, None, :, None].expand_as(dk)
+        assert not dk[masked].any() and not dv[masked].any()
+    assert torch.equal(hop.flash_attention_bwd_dq(q, k, v, g, lse, delta, **kw), dq)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16_pages", "int8_pages"])
+@pytest.mark.parametrize("with_cur", [False, True], ids=["no_cur", "cur"])
+def test_bf16_ragged_kernel_matches_plain(cuda, int8, with_cur):
+    """A bf16 query over bf16 pages or int8 pages (float32 scales), at
+    every splits choice: bf16 out within two ulps of the plain version's
+    largest value, a length-0 row zeros, rows sharing prefix pages equal."""
+    rng = np.random.default_rng(42)
+    qkv, kp, vp, table, lengths, scales = serving_decode(rng, int8)
+
+    def dev(x):
+        t = torch.from_numpy(np.ascontiguousarray(x)).to(cuda)
+        return t.to(torch.bfloat16) if t.dtype == torch.float32 else t
+
+    q, ck, cv = split_qkv(dev(qkv), 8)
+    kw = {n: torch.from_numpy(x).to(cuda) for n, x in scales.items()}
+    if with_cur:
+        kw.update(cur_k=ck, cur_v=cv)
+    args = (q, dev(kp), dev(vp), dev(table), dev(lengths))
+    want = hop.ragged_paged_attention_plain(*args, **kw)
+    hop.reset_launches()
+    for sp in (None, *hop.RAGGED_SPLITS):
+        got = hop.ragged_paged_attention(*args, splits=sp, **kw)
+        assert got.dtype == torch.bfloat16
+        assert _bf16_rel(got, want) <= BF16_TOL
+        if not with_cur:
+            assert not got[0].any()
+            assert torch.equal(got[-1], got[-2])
+    torch.cuda.synchronize()
+    assert hop.LAUNCHES["ragged_paged_attention_bf16"] == 1 + len(hop.RAGGED_SPLITS)
+    assert hop.LAUNCHES["ragged_paged_attention"] == 0
+
+
+def test_bf16_recipe_at_four_steps_per_call_trains_bit_for_bit(cuda):
+    """The recipe at ``dtype="bfloat16"``: float32 parameters; 4 steps per
+    CUDA graph against 1, every step's loss and parameter the same bits;
+    the bf16 kernels launched 3 x 12 and the fp32 ones never."""
+    one, four = (_option_run(k, dtype="bfloat16") for k in (1, 4))
+    _same_bits(one, four)
+    assert {p.dtype for p in one["state"].params} == {torch.float32}
+    assert one["launches"]["flash_attention_bwd_dq_bf16"] == 3 * 12
+    assert one["launches"]["flash_attention_bwd_dkv_bf16"] == 3 * 12
+    assert all(one["launches"][n] == 0 for n in hop.KERNELS)
+
+
+def test_bf16_cnn_recipe_at_four_steps_per_call_trains_bit_for_bit(cuda):
+    from machine_learning_apache_spark_tpu_torch.recipes.cnn import train_cnn
+
+    one, four = (train_cnn(data_root="assets/fixtures", dataset="cifar10", epochs=1, dtype="bfloat16",
+                           steps_per_call=k, _return_state=True) for k in (1, 4))
+    _same_bits(one, four)
+    assert {p.dtype for p in one["state"].params} == {torch.float32}
+
+
+@pytest.mark.parametrize("kv_dtype", ["float32", "int8"], ids=["bf16_pages", "int8_pages"])
+def test_bf16_paged_engine_builds_every_program_at_warmup(cuda, kv_dtype):
+    """A bf16 model served by the paged engine: the store follows the
+    model (bf16 pages) or is int8; the JAX program count, zero recompiles
+    after traffic, the bf16 kernels launched and the fp32 ones never, and
+    the one-shot decoder's tokens on at least 99 % of positions."""
+    t, texts = _card_translator(cuda, torch.bfloat16)
+    hop.reset_launches()
+    with t.serve(kv_dtype=kv_dtype, **CARD_ENGINE) as eng:
+        got = [f.result(timeout=120) for f in [eng.submit(s) for s in texts]]
+        assert eng.compile_count() == eng.runtime.max_chunks + 1
+        assert eng.recompiles_after_warmup == 0
+        assert eng.runtime.kv_mem.dtype == (torch.int8 if kv_dtype == "int8" else torch.bfloat16)
+    torch.cuda.synchronize()
+    assert hop.LAUNCHES["ragged_paged_attention_bf16"] > 0 and hop.LAUNCHES["flash_attention_fwd_bf16"] > 0
+    assert all(hop.LAUNCHES[n] == 0 for n in hop.KERNELS)
+    want = t(texts, max_new_tokens=CARD_ENGINE["max_new_tokens"])
+    pairs = [(a, b) for g, w in zip(got, want) for a, b in zip(g.split(), w.split())]
+    assert sum(a == b for a, b in pairs) >= 0.99 * len(pairs)

@@ -553,3 +553,143 @@ def test_ragged_split_merge_over_long_rows():
         got = ragged_split_model(q, k_pages, v_pages, table, lengths, splits)
         assert np.abs(got - one).max() <= MERGE_TOL
         assert np.abs(got - want).max() <= MERGE_TOL
+
+
+# -- the bf16 instantiations --------------------------------------------------------
+
+
+def test_bf16_entry_points_sit_beside_the_fp32_ones():
+    """Each kernel's bf16 instantiation is its own C entry point in the
+    same source (so the build hash covers it with the fp32 one) with the
+    same arguments, and its own ``LAUNCHES`` count."""
+    for name in hop.KERNELS:
+        stem, fn, argtypes = cuda_build.ENTRY_POINTS[name]
+        stem16, fn16, argtypes16 = cuda_build.ENTRY_POINTS[f"{name}_bf16"]
+        assert (stem16, fn16, argtypes16) == (stem, f"{fn}_bf16", argtypes)
+        source = (cuda_build.CSRC_DIR / f"{stem}.cu").read_text()
+        assert f'extern "C" int {fn16}(' in source
+        assert hop.kernel_name(name, torch.bfloat16) == f"{name}_bf16"
+        assert hop.kernel_name(name, torch.float32) == name
+    assert set(hop.LAUNCHES) == set(cuda_build.ENTRY_POINTS)
+
+
+def test_build_hash_covers_a_bf16_instantiation(tmp_path, monkeypatch):
+    """Editing a bf16 kernel rebuilds its source's library: the hash is
+    over the whole source, both instantiations."""
+    src = tmp_path / "k.cu"
+    src.write_text('extern "C" int k() { return 0; }\nextern "C" int k_bf16() { return 0; }\n')
+    monkeypatch.setattr(cuda_build, "CSRC_DIR", tmp_path)
+    before = cuda_build._digest(src)
+    src.write_text('extern "C" int k() { return 0; }\nextern "C" int k_bf16() { return 1; }\n')
+    assert cuda_build._digest(src) != before
+
+
+@pytest.mark.parametrize("shape", FLASH_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_bf16_launch_params_and_every_choice_fit_a_block(shape):
+    """The bf16 kernels take the fp32 kernels' launch choices (the rules
+    follow the rows and keys, not the bytes), and every choice's shared
+    memory at bf16 — rows of d_pad + 8 bf16 — fits a block."""
+    b, h, sq, sk, d = shape
+    d_pad = next(p for p in hop.KERNEL_D_PADS if d <= p)
+    for params in (_fwd_params, _dq_params):
+        assert params(b, h, sq, sk, d, elem_bytes=2) == params(b, h, sq, sk, d)
+    assert hop.dkv_launch_params(b, h, sq, sk, d, elem_bytes=2) == hop.dkv_launch_params(b, h, sq, sk, d)
+    for w in hop.KERNEL_WARPS:
+        for c in hop.KERNEL_SPLITS:
+            if w % c:
+                continue
+            for elem in (4, 2):
+                assert hop.fwd_smem_bytes(w, c, d_pad, sk, elem) <= H100_SMEM, (w, c, elem)
+                assert hop.dq_smem_bytes(w, c, d_pad, sk, elem) <= H100_SMEM, (w, c, elem)
+                assert hop.dkv_smem_bytes(w, c, d_pad, elem) <= H100_SMEM, (w, c, elem)
+            # halving the element halves the rows' bytes
+            assert hop.dq_smem_bytes(w, c, d_pad, sk, 2) < hop.dq_smem_bytes(w, c, d_pad, sk, 4)
+
+
+def test_bf16_smem_mirrors_the_kernels():
+    """``fwd_bf16_smem_bytes``, ``dq_bf16_smem_bytes``,
+    ``dkv_bf16_smem_bytes`` and ``warp_bytes`` at 2-byte pages, as the
+    sources compute them, at the training and serving sites."""
+    # forward, 4 row groups, 200 keys: Q 64 x 72 bf16, 2 x 1 x 2 x 32 x 72 bf16, 2 x 7 words
+    assert hop.fwd_smem_bytes(4, 1, 64, 200, 2) == 2 * (64 * 72 + 2 * 2 * 32 * 72) + 8 * 7
+    assert hop.fwd_smem_bytes(4, 1, 64, 200) == 4 * (64 * 68 + 2 * 2 * 32 * 68) + 8 * 7
+    assert hop.dq_smem_bytes(4, 1, 64, 200, 2) == 2 * (2 * 64 * 72 + 2 * 2 * 32 * 72) + 4 * 2 * 64 + 8 * 7
+    # dK/dV, 2 key groups x 2 splits: K, V 32 x 72 bf16; 2 x 2 tiles of Q, dO 32 x 72 bf16 + 64 floats
+    assert hop.dkv_smem_bytes(4, 2, 64, 2) == 2 * 2 * 32 * 72 + 2 * 2 * (2 * 2 * 32 * 72 + 4 * 64)
+    assert hop.dkv_smem_bytes(4, 2, 64) == 4 * (2 * 32 * 68 + 2 * 2 * (2 * 32 * 68 + 64))
+    # ragged, bf16 pages: rows of 2 x 64 + 16 bytes
+    assert hop.ragged_smem_bytes(64, False, 1, 1, page_bytes=2) == 2 * 32 * 144 + 384 + 256 + 128 + 272
+
+
+@pytest.mark.parametrize("shape", RAGGED_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_every_bf16_ragged_choice_fits_a_block(shape):
+    d, cap = shape
+    s, st = hop.ragged_launch_params(d, cap, False, page_bytes=2)
+    assert hop.ragged_smem_bytes(d, False, s, st, page_bytes=2) <= H100_SMEM
+    # bf16 pages never need fewer splits than fp32 ones
+    assert s >= hop.ragged_launch_params(d, cap, False)[0]
+    for s in hop.RAGGED_SPLITS:
+        stages = 2 if -(-cap // 32) > s else 1
+        if hop.ragged_smem_bytes(d, False, s, stages, page_bytes=2) <= H100_SMEM:
+            assert hop.ragged_launch_params(d, cap, False, s, page_bytes=2) == (s, stages)
+        else:
+            with pytest.raises(ValueError, match="shared memory"):
+                hop.ragged_launch_params(d, cap, False, s, page_bytes=2)
+
+
+@pytest.mark.parametrize("d", [8, 40, 64, 128])
+def test_bf16_layout_admits_the_models_views(d):
+    qkv = torch.zeros(2, 10, 3 * 4 * d, dtype=torch.bfloat16)
+    views = [t.view(2, 10, 4, d).transpose(1, 2) for t in qkv.chunk(3, dim=-1)]
+    hop.check_kernel_layout("flash_attention", *views)
+    assert all(hop.kernel_layout_ok(t) for t in views)
+
+
+def test_layout_counts_16_bytes_not_4_elements_at_bf16():
+    """A row stride of 68 elements is 272 bytes in fp32 (whole 16-byte
+    pieces) but 136 in bf16 (not): the same strides pass at fp32 and
+    fail at bf16. 72 bf16 elements (144 bytes) pass."""
+    fp32 = torch.zeros(2, 4, 10, 68)[..., :64]
+    bf16 = torch.zeros(2, 4, 10, 68, dtype=torch.bfloat16)[..., :64]
+    assert hop.kernel_layout_ok(fp32)
+    assert not hop.kernel_layout_ok(bf16)
+    with pytest.raises(ValueError, match="16 bytes"):
+        hop.check_kernel_layout("flash_attention", bf16)
+    assert hop.kernel_layout_ok(torch.zeros(2, 4, 10, 72, dtype=torch.bfloat16)[..., :64])
+
+
+def _bf16(x: np.ndarray) -> np.ndarray:
+    return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(torch.bfloat16).float().numpy()
+
+
+def tc_matmul_bf16(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """``a @ b`` as the bf16 kernels form it: operands rounded to bf16,
+    mma.sync m16n8k16 per 16-wide k-step with exact products, the running
+    float32 accumulator carried through every mma and truncated once per
+    mma (no fresh fragment)."""
+    a, b = _bf16(a), _bf16(b)
+    k = a.shape[-1]
+    pad = -k % 16
+    a = np.pad(a, [(0, 0)] * (a.ndim - 1) + [(0, pad)])
+    b = np.pad(b, [(0, 0)] * (b.ndim - 2) + [(0, pad), (0, 0)])
+    acc = np.zeros(a.shape[:-1] + b.shape[-1:], np.float32)
+    for k0 in range(0, k + pad, 16):
+        x, y = a[..., k0:k0 + 16].astype(np.float64), b[..., k0:k0 + 16, :].astype(np.float64)
+        acc = round_toward_zero(acc.astype(np.float64) + x @ y)
+    return acc
+
+
+@pytest.mark.parametrize("k", [64, 200], ids=["head-dim-sum", "query-row-sum"])
+def test_chained_bf16_accumulator_stays_far_below_a_bf16_ulp(k):
+    """Why the bf16 kernels carry their accumulator through every mma
+    (no fresh fragment, unlike the fp32 kernels): over the head dim (4
+    k-steps) and over 200 query rows (13), the truncating accumulator
+    leaves the sum of the bf16 operands' products within 2^-18 of its
+    exact value, while the bf16 output it becomes rounds at 2^-9."""
+    rng = np.random.default_rng(13)
+    a = rng.standard_normal((4000, k)).astype(np.float32)
+    b = rng.standard_normal((k, 1)).astype(np.float32)
+    exact = _bf16(a).astype(np.float64) @ _bf16(b).astype(np.float64)
+    norm = np.abs(_bf16(a)).astype(np.float64) @ np.abs(_bf16(b)).astype(np.float64)
+    err = (np.abs(tc_matmul_bf16(a, b) - exact) / norm).max()
+    assert err < 2.0 ** -18

@@ -14,7 +14,10 @@ its cross-attention and self-attention sites over fp32 and int8 pages;
 the forward with ``lse``, dQ and dK/dV at the three MT training sites
 and at one sequence of the encoder site (fixture keys, all keys valid);
 and the forward at the KV-cache decoders' one-query-row sites (with each
-tree's own launch choice). The inputs are made by
+tree's own launch choice); a tree with bf16 instantiations (the
+``*_bf16`` entry points) also times them at the same sites on bf16
+inputs (the ``bf16 ...`` rows; an older tree reads ``n/m`` there). The
+inputs are made by
 this tree's ``chip_smoke.py`` helpers from the same seeds for every run,
 and the wrappers are called only with arguments that trees since the
 first port slice take, so an older tree runs as it is. Prints each run's
@@ -62,42 +65,49 @@ def worker(tree: Path) -> dict:
     def record(label, fn):
         times[label] = cs.device_ms_per_call(torch, fn, n=30)
 
-    rng = np.random.default_rng(cs.SEED + 2)
-    b, h, s, d = 1, 8, 64, 64
-    qkv = torch.from_numpy(rng.standard_normal((b, s, 3 * h * d)).astype(np.float32)).to(dev)
-    pq, pk, pv = (t.view(b, s, h, d).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
-    pvalid = torch.from_numpy(np.arange(s)[None, :] < 45).to(dev)
-    record("forward @ serving prefill", lambda: hop.flash_attention(pq, pk, pv, kv_valid=pvalid))
-
     from machine_learning_apache_spark_tpu_torch.data.text import TextPipeline
 
     words, corpus = cs.make_vocab_texts("s")
     pipe = TextPipeline.fit(corpus, max_seq_len=cs.SERVE["boundaries"][-1] - 1)
     prompt_lens = [len(pipe.ragged([p])[0]) for p in cs.make_prompts(words)]
-    for site, (args, kw) in cs.ragged_sites(torch, rng, dev, prompt_lens).items():
-        kw = {k: v for k, v in kw.items() if v is not None}
-        record(f"ragged @ {site}", lambda args=args, kw=kw: hop.ragged_paged_attention(*args, **kw))
-
     _, _, train_ds = cs.fixture_data()
     src0, trg0 = cs.train_batches(train_ds, 1)[0]
-    sites = cs.training_sites(torch, np.random.default_rng(cs.SEED + 4), dev, src0, trg0[:, :-1])
-    sites |= cs.one_sequence_sites(torch, sites["encoder self"])
-    for site, c in sites.items():
-        q, k, v, g = c["q"], c["k"], c["v"], c["g"]
-        kw = dict(causal=c["causal"], kv_valid=c["kv_valid"])
-        out, lse = hop.flash_attention_fwd(q, k, v, return_lse=True, **kw)
-        delta = (g * out).sum(-1)
-        record(f"forward+lse @ {site}",
-               lambda q=q, k=k, v=v, kw=kw: hop.flash_attention_fwd(q, k, v, return_lse=True, **kw))
-        record(f"dQ @ {site}",
-               lambda q=q, k=k, v=v, g=g, lse=lse, delta=delta, kw=kw:
-               hop.flash_attention_bwd_dq(q, k, v, g, lse, delta, **kw))
-        record(f"dK/dV @ {site}",
-               lambda q=q, k=k, v=v, g=g, lse=lse, delta=delta, kw=kw:
-               hop.flash_attention_bwd_dkv(q, k, v, g, lse, delta, **kw))
-    for site, c in cs.decode_sites(torch, dev, cs.bleu_val_valid()).items():
-        record(f"forward @ decode {site}",
-               lambda c=c: hop.flash_attention_fwd(c["q"], c["k"], c["v"], kv_valid=c["kv_valid"]))
+    # Trees since the bf16 slice time their bf16 instantiations too, at
+    # the same sites on bf16 inputs ("bf16 ..." rows).
+    dtypes = [None] + ([torch.bfloat16] if hasattr(hop, "kernel_name") else [])
+    for dtype in dtypes:
+        tag = "" if dtype is None else "bf16 "
+        kw_dt = {} if dtype is None else dict(dtype=dtype)
+        rng = np.random.default_rng(cs.SEED + 2)
+        b, h, s, d = 1, 8, 64, 64
+        qkv = torch.from_numpy(rng.standard_normal((b, s, 3 * h * d)).astype(np.float32)).to(dev)
+        if dtype is not None:
+            qkv = qkv.to(dtype)
+        pq, pk, pv = (t.view(b, s, h, d).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
+        pvalid = torch.from_numpy(np.arange(s)[None, :] < 45).to(dev)
+        record(f"{tag}forward @ serving prefill",
+               lambda pq=pq, pk=pk, pv=pv, pvalid=pvalid: hop.flash_attention(pq, pk, pv, kv_valid=pvalid))
+        for site, (args, kw) in cs.ragged_sites(torch, rng, dev, prompt_lens, **kw_dt).items():
+            kw = {k: v for k, v in kw.items() if v is not None}
+            record(f"{tag}ragged @ {site}", lambda args=args, kw=kw: hop.ragged_paged_attention(*args, **kw))
+        sites = cs.training_sites(torch, np.random.default_rng(cs.SEED + 4), dev, src0, trg0[:, :-1], **kw_dt)
+        sites |= cs.one_sequence_sites(torch, sites["encoder self"])
+        for site, c in sites.items():
+            q, k, v, g = c["q"], c["k"], c["v"], c["g"]
+            kw = dict(causal=c["causal"], kv_valid=c["kv_valid"])
+            out, lse = hop.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+            delta = (g.float() * out.float()).sum(-1)
+            record(f"{tag}forward+lse @ {site}",
+                   lambda q=q, k=k, v=v, kw=kw: hop.flash_attention_fwd(q, k, v, return_lse=True, **kw))
+            record(f"{tag}dQ @ {site}",
+                   lambda q=q, k=k, v=v, g=g, lse=lse, delta=delta, kw=kw:
+                   hop.flash_attention_bwd_dq(q, k, v, g, lse, delta, **kw))
+            record(f"{tag}dK/dV @ {site}",
+                   lambda q=q, k=k, v=v, g=g, lse=lse, delta=delta, kw=kw:
+                   hop.flash_attention_bwd_dkv(q, k, v, g, lse, delta, **kw))
+        for site, c in cs.decode_sites(torch, dev, cs.bleu_val_valid(), **kw_dt).items():
+            record(f"{tag}forward @ decode {site}",
+                   lambda c=c: hop.flash_attention_fwd(c["q"], c["k"], c["v"], kv_valid=c["kv_valid"]))
     return dict(tree=str(tree), card=cs.card_line(), device_ms=times)
 
 
@@ -122,7 +132,8 @@ def main(argv: list[str]) -> int:
     print(f"device us per call [{runs[0]['card']}]; runs: "
           + ", ".join(f"{i} = {r['tree']}" for i, r in enumerate(runs)))
     print(f"{'site':58s} " + " ".join(f"{f'run {i}':>12s}" for i in range(len(runs))))
-    for site in runs[0]["device_ms"]:
+    sites = list(dict.fromkeys(site for r in runs for site in r["device_ms"]))
+    for site in sites:
         cells = []
         for r in runs:
             t = r["device_ms"].get(site)
