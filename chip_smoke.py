@@ -199,6 +199,25 @@ Phases, each fatal on failure:
    beam decoder and bf16 against the float32 model on the same weights;
    TinyVGG on the CIFAR-10 fixture at bf16 and the MoE options at bf16,
    4 steps per call against 1 bit for bit;
+7e. ZeRO-1 on the data axis and the gang's K steps — ``Session`` ->
+   ``Distributor(dp_mode="zero1")`` -> the MT recipe at reference width
+   (dropout 0, 16 a replica, one fixture epoch) as a 2-rank gang, 13
+   recipe runs in one gang: ZeRO-1 against the replicated gang on the
+   same global batches (step losses and each parameter tensor within
+   1e-5 relative, the key biases within 2 x lr x steps; whether the bits
+   are equal is printed), overlap off against on bit for bit, the bf16
+   wire (step losses within 2 x 2^-8 of the float32 wire's, and falling)
+   and the int8 wire (losses falling), the optimizer bytes per rank
+   (exactly 2 x 4 x the padded shard + 4) beside the replicated gang's
+   and both peaks, each rank's flash forward, dQ and dK/dV launches equal
+   to the replicated gang's, the replicated gang at 4 steps per call
+   against 1 bit for bit, and ZeRO-1 checkpoints: 1 + 1 epochs against 2
+   (losses, parameters and the ranks' moment shards bit for bit). Then
+   each rank's step times over 20 steps after 5: the replicated step,
+   ZeRO-1 (overlap on and off, the bf16 and int8 wires) and the
+   replicated step again, with the host-timed reduce-scatter, all-gather
+   and all-reduce windows per step, and ``fit``'s dispatch at 1 and 4
+   steps per call;
 8. times — requests/s, generated tokens/s and peak device memory of each
    engine (paged fp32 and int8, padded, beam); each engine's requests/s
    and device idle share over one profiled window; the host time of the
@@ -3919,6 +3938,320 @@ def time_gang(torch, card: str) -> dict:
     return out
 
 
+# -- phase 7e: ZeRO-1 on the data axis and the gang's K steps -----------------
+
+# The replicated gang's K steps per call: K eager data-parallel steps (a
+# gloo collective cannot sit inside a CUDA graph).
+ZERO1_K = 4
+# The bf16 wire against the float32 one: two bf16 roundings a step (each
+# rank's bucket, then the sum) move a step's gradient by at most 2u of its
+# largest coordinate (u = 2^-8); the step losses held to 2u relative.
+ZERO1_BF16_LOSS_RTOL = 2 * 2.0 ** -8
+ZERO1_WIRES = ("bfloat16", "int8")
+
+
+def _zero1_recipe(torch, env: dict, **kw) -> tuple[dict, object]:
+    """One ``train_translator`` run in this gang rank under ``env`` (the
+    data-parallel contract variables, over the Distributor's): its step
+    losses, launches, peak memory, optimizer bytes, comms totals, the
+    replicas' divergence; and the trained state."""
+    import gc
+    import os
+
+    from machine_learning_apache_spark_tpu_torch.ops import hopper_attention as hop
+    from machine_learning_apache_spark_tpu_torch.parallel import assert_replicas_in_sync, zero
+    from machine_learning_apache_spark_tpu_torch.recipes.translation import train_translator
+
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        hop.reset_launches()
+        out = train_translator(_return_state=True, **{**GANG_MT, **kw})
+        torch.cuda.synchronize()
+        launches = dict(hop.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    state, res = out.pop("state"), out.pop("fit_result")
+    return dict(
+        type=type(state).__name__, step_losses=res.step_losses, launches=launches, peak=peak,
+        opt_bytes=zero.opt_state_bytes_per_chip(state), comms=res.comms, steps=state.step,
+        resumed=out.get("resumed_from_step"), test_loss=out["test_loss"],
+        divergence=assert_replicas_in_sync(state),
+        layout=zero.plan_layout(state.plan) if hasattr(state, "plan") else None,
+    ), state
+
+
+def _param_gate(torch, got: dict, want: dict, steps: int) -> dict:
+    """Per tensor, PR 10's gang gate: the relative norm of the difference
+    (key-bias slices apart) within ``GANG_RTOL``, the key biases (true
+    gradient 0, Adam steps of float noise) within 2 x lr x steps; and
+    whether every tensor is the same bits."""
+    from machine_learning_apache_spark_tpu_torch.recipes.translation import TranslationRecipe
+
+    r = TranslationRecipe(**GANG_MT)
+    rel, noise, same = {}, 0.0, True
+    for k, w in want.items():
+        g = got[k]
+        same = same and bool(torch.equal(g, w))
+        diff = (g.double() - w.double()).reshape(-1)
+        ref = w.double().reshape(-1)
+        kb = _key_bias(k, r.d_model)
+        if kb is not None:
+            noise = max(noise, float(diff[kb].abs().max()))
+            keep = torch.ones_like(diff, dtype=torch.bool)
+            keep[kb] = False
+            diff, ref = diff[keep], ref[keep]
+        rel[k] = float(diff.norm() / ref.norm().clamp_min(1e-30))
+    bound = 2 * r.learning_rate * steps
+    over = {k: v for k, v in rel.items() if v > GANG_RTOL}
+    return dict(same_bits=same, max_rel=max(rel.values()), over=over, key_bias_abs=noise,
+                key_bias_bound=bound, ok=not over and noise <= bound)
+
+
+def _zero1_step_times(torch, rank: int) -> dict:
+    """This rank's step on the fixture batches (the recipe's model, Adam,
+    16 a replica), ``GANG_WARMUP`` steps then ``TIMED_STEPS`` timed: the
+    replicated step and the ZeRO-1 step (overlap on and off, the bf16 and
+    int8 wires) with their collectives' host-timed windows per step; then
+    the replicated gang through ``fit``'s dispatch at 1 and ``ZERO1_K``
+    steps per call."""
+    import gc
+
+    from machine_learning_apache_spark_tpu_torch.parallel import (
+        data_parallel_mesh,
+        make_data_parallel_step,
+        zero,
+    )
+    from machine_learning_apache_spark_tpu_torch.recipes.translation import make_translation_loss
+    from machine_learning_apache_spark_tpu_torch.train.loop import StepDispatch
+    from machine_learning_apache_spark_tpu_torch.train.state import TrainState, make_optimizer
+
+    mesh = data_parallel_mesh()
+    dev = mesh.device
+    out = {}
+    # The replicated step is timed first and again last: a call's first
+    # gang timing can read slower than the rest.
+    variants = [("replicated", None), ("zero1", zero.Zero1Config()),
+                ("zero1 serial", zero.Zero1Config(overlap=False)),
+                *((f"zero1 {w}", zero.Zero1Config(comms_dtype=w)) for w in ZERO1_WIRES),
+                ("replicated again", None)]
+    for label, config in variants:
+        gc.collect()
+        torch.cuda.empty_cache()
+        model, train_ds, r = _mt_model(torch, dev)
+        loss_fn = make_translation_loss(model.cfg.pad_id)
+        batches = _rank_batches(train_ds, GANG_MT["batch_size"], rank)
+        state = TrainState.create(model=model, tx=make_optimizer("adam", r.learning_rate))
+        if config is None:
+            step = make_data_parallel_step(loss_fn, mesh)
+        else:
+            state = zero.init_sharded(model=model, tx=state.tx, mesh=mesh, config=config)
+            step = zero.make_zero1_step(loss_fn, mesh, state)
+        _timed_steps(torch, step, state, batches, GANG_WARMUP)
+        before = step.comms.stats()
+        sec = _timed_steps(torch, step, state, batches, TIMED_STEPS)
+        after = step.comms.stats()
+        per = {k: (after[k] - before[k]) for k in after if isinstance(after[k], (int, float))}
+        if config is None:
+            windows = dict(allreduce_ms=1e3 * per["allreduce_window_seconds"] / per["allreduce_steps"])
+        else:
+            windows = {f"{k}_ms": 1e3 * per[f"{k}_window_seconds"] / per["zero1_steps"]
+                       for k in zero.Zero1Comms.KINDS}
+            windows["buckets"] = len(state.plan.buckets)
+        out[label] = dict(ms=1e3 * sec, **windows)
+        del state, step, model
+    # The replicated gang through fit's dispatch at 1 and K steps per call.
+    gc.collect()
+    model, train_ds, r = _mt_model(torch, dev)
+    loss_fn = make_translation_loss(model.cfg.pad_id)
+    batches = _rank_batches(train_ds, GANG_MT["batch_size"], rank)
+    state = TrainState.create(model=model, tx=make_optimizer("adam", r.learning_rate))
+    step_fn = make_data_parallel_step(loss_fn, mesh)
+    step_fn.replica(model)
+    dispatch = StepDispatch(state, loss_fn, torch.Generator(device=dev).manual_seed(SEED),
+                            step_fn=step_fn)
+
+    def timed(k: int, n: int) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n):
+            group = [batches[(i * k + j) % len(batches)] for j in range(k)]
+            if k == 1:
+                dispatch.single(group[0])
+            else:
+                dispatch.group(group)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / (n * k)
+
+    timed(1, GANG_WARMUP)
+    out["dispatch"] = {"k1_ms": timed(1, TIMED_STEPS), f"k{ZERO1_K}_ms": timed(ZERO1_K, TIMED_STEPS // ZERO1_K)}
+    return out
+
+
+def zero1_gang_rank(root: str) -> dict:
+    """One rank of phase 7e's gang (``Distributor(dp_mode="zero1")``): the
+    MT recipe at reference width under ZeRO-1 (the gang's mode), then
+    replicated, ZeRO-1 serial, on the bf16 and int8 wires, replicated at
+    ``ZERO1_K`` steps per call, and a ZeRO-1 checkpoint resume (1 + 1
+    epochs against 2); rank 0 holds every run against the replicated
+    one (and the resume against the whole run) in its own process. Then
+    the step times. Every rank's numbers, in rank order."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    rank = dist.get_rank()
+    runs, states = {}, {}
+    plan = {
+        "zero1": {},
+        "replicated": {"MLSPARK_DP_MODE": "replicated"},
+        "zero1 serial": {"MLSPARK_ZERO1_OVERLAP": "0"},
+        **{f"zero1 {w}": {"MLSPARK_COMMS_DTYPE": w} for w in ZERO1_WIRES},
+    }
+    for label, env in plan.items():
+        runs[label], st = _zero1_recipe(torch, env)
+        states[label] = {k: v.detach().cpu() for k, v in st.model.state_dict().items()}
+        del st
+    runs["replicated k4"], st = _zero1_recipe(
+        torch, {"MLSPARK_DP_MODE": "replicated"}, steps_per_call=ZERO1_K)
+    states["replicated k4"] = {k: v.detach().cpu() for k, v in st.model.state_dict().items()}
+    gang_run = os.environ.get("MLSPARK_GANG_RUN", "zero1")
+    for name, sub, epochs in (("first", "split", 1), ("second", "split", 1), ("whole", "whole", 2)):
+        os.environ["MLSPARK_GANG_RUN"] = f"{gang_run}-{name}"
+        runs[f"ckpt {name}"], st = _zero1_recipe(
+            torch, {}, epochs=epochs, checkpoint_dir=os.path.join(root, sub))
+        states[f"ckpt {name}"] = {k: v.detach().cpu() for k, v in st.model.state_dict().items()}
+        states[f"ckpt {name} moments"] = {k: v.detach().cpu() for k, v in st.opt_state.items()
+                                          if getattr(v, "ndim", 0)}
+        del st
+    gates = {}
+    if rank == 0:
+        ref = states["replicated"]
+        for label in ("zero1", "zero1 serial", "replicated k4", *(f"zero1 {w}" for w in ZERO1_WIRES)):
+            gates[label] = _param_gate(torch, states[label], ref, runs[label]["steps"])
+        gates["overlap on vs off"] = _param_gate(torch, states["zero1 serial"], states["zero1"],
+                                                 runs["zero1"]["steps"])
+        gates["resume"] = _param_gate(torch, states["ckpt second"], states["ckpt whole"],
+                                      runs["ckpt whole"]["steps"])
+        gates["resume moments"] = all(
+            bool(torch.equal(states["ckpt second moments"][k], v))
+            for k, v in states["ckpt whole moments"].items())
+    del states
+    times = _zero1_step_times(torch, rank)
+    return _gather(dict(rank=rank, runs=runs, gates=gates, times=times))
+
+
+def zero1_slice(torch, hop, card: str) -> dict:
+    """Phase 7e: the MT recipe's ZeRO-1 gang against the replicated gang,
+    its schedules, wires, memory, collectives and checkpoints, and the
+    replicated gang's K steps per call."""
+    import shutil
+
+    from machine_learning_apache_spark_tpu_torch import Session
+    from machine_learning_apache_spark_tpu_torch.launcher import Distributor, kill_stray_gangs
+
+    root = scratch_dir() / "zero1"
+    shutil.rmtree(root, ignore_errors=True)
+    spark = Session.builder.appName("Zero1Translation").config(
+        "spark.executor.instances", str(GANG)).getOrCreate()
+    try:
+        t0 = time.perf_counter()
+        ranks = Distributor(
+            num_processes=spark.conf.executor_instances, dp_mode="zero1", timeout=900,
+        ).run("chip_smoke:zero1_gang_rank", str(root))
+        wall = time.perf_counter() - t0
+    finally:
+        spark.stop()
+    if kill_stray_gangs() != 0:
+        fail("the ZeRO-1 gang left a stray process group")
+    r0 = ranks[0]
+    runs, gates = r0["runs"], r0["gates"]
+    rep, z = runs["replicated"], runs["zero1"]
+    steps = z["steps"]
+    log(f"  Session -> Distributor(dp_mode='zero1') -> train_translator, {GANG} ranks x batch "
+        f"{GANG_MT['batch_size']} (dropout 0): {wall:.2f} s spawn to result (13 recipe runs and "
+        f"the step times); state {z['type']} (replicated run: {rep['type']}), {steps} steps")
+    if z["type"] != "Zero1State" or rep["type"] != "TrainState":
+        fail(f"the gang's recipe ran {z['type']} under dp_mode='zero1' and {rep['type']} replicated")
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(z["step_losses"], rep["step_losses"]))
+    g = gates["zero1"]
+    log(f"    ZeRO-1 against the replicated gang (same global batches): step losses max relative "
+        f"difference {loss_rel:.3e} (gate {GANG_RTOL}); parameters per tensor max relative "
+        f"{g['max_rel']:.3e} (gate {GANG_RTOL}), key biases {g['key_bias_abs']:.3e} (bound "
+        f"{g['key_bias_bound']:.3e}); the same bits: {g['same_bits']}")
+    if loss_rel > GANG_RTOL or not g["ok"]:
+        fail(f"the ZeRO-1 gang differs from the replicated gang: losses {loss_rel:.3e}, {g}")
+    ov = gates["overlap on vs off"]
+    log(f"    overlap on vs off: step losses equal {runs['zero1 serial']['step_losses'] == z['step_losses']}, "
+        f"parameters the same bits {ov['same_bits']}")
+    if not ov["same_bits"] or runs["zero1 serial"]["step_losses"] != z["step_losses"]:
+        fail("ZeRO-1 with overlap on and off trained different bits")
+    for w in ZERO1_WIRES:
+        run = runs[f"zero1 {w}"]
+        first, last = np.mean(run["step_losses"][:4]), np.mean(run["step_losses"][-4:])
+        rel = max(abs(a - b) / abs(b) for a, b in zip(run["step_losses"], z["step_losses"]))
+        gw = gates[f"zero1 {w}"]
+        log(f"    {w} wire: step losses {first:.5f} -> {last:.5f} (first / last 4), max relative "
+            f"difference to the float32 wire {rel:.3e}"
+            + (f" (gate {ZERO1_BF16_LOSS_RTOL:.3e})" if w == "bfloat16" else "")
+            + f"; parameters per tensor max relative {gw['max_rel']:.3e} to the replicated gang, "
+            f"largest key-bias difference {gw['key_bias_abs']:.3e}; wire bytes {run['comms'].get('reduce_scatter_bytes')} "
+            f"reduce-scattered over {run['comms'].get('reduce_scatter_calls')} buckets x steps")
+        if not last < first or (w == "bfloat16" and rel > ZERO1_BF16_LOSS_RTOL):
+            fail(f"the {w} wire's losses: {first} -> {last}, {rel:.3e} from the float32 wire")
+    n_params = z["layout"]["total"]
+    for rk in ranks:
+        zr, rr = rk["runs"]["zero1"], rk["runs"]["replicated"]
+        want_bytes = 2 * 4 * zr["layout"]["shard_len"] + 4
+        log(f"    rank {rk['rank']}: optimizer bytes {zr['opt_bytes']} ({zr['opt_bytes'] / 2**20:.3f} MiB; "
+            f"replicated {rr['opt_bytes']}, {rr['opt_bytes'] / 2**20:.3f} MiB, ratio "
+            f"{zr['opt_bytes'] / rr['opt_bytes']:.4f}); peak max_memory_allocated {zr['peak'] / 2**20:.1f} "
+            f"MiB (replicated {rr['peak'] / 2**20:.1f}); launches ZeRO-1 {zr['launches']}, replicated "
+            f"{rr['launches']}; divergence {zr['divergence']!r} [{card}]")
+        if zr["opt_bytes"] != want_bytes:
+            fail(f"rank {rk['rank']}'s ZeRO-1 optimizer holds {zr['opt_bytes']} bytes, not {want_bytes}")
+        for name in TENSOR_CORE_KERNELS:
+            if zr["launches"][name] != rr["launches"][name] or zr["launches"][name] < 3 * zr["steps"]:
+                fail(f"rank {rk['rank']}: {name} launched {zr['launches'][name]} times under ZeRO-1, "
+                     f"{rr['launches'][name]} replicated")
+    gk = gates["replicated k4"]
+    k4 = runs["replicated k4"]
+    log(f"    replicated gang at {ZERO1_K} steps per call against 1: step losses equal "
+        f"{k4['step_losses'] == rep['step_losses']}, parameters the same bits {gk['same_bits']}")
+    if k4["step_losses"] != rep["step_losses"] or not gk["same_bits"]:
+        fail(f"the replicated gang at {ZERO1_K} steps per call trained other bits than at 1")
+    first, second, whole = runs["ckpt first"], runs["ckpt second"], runs["ckpt whole"]
+    same_losses = first["step_losses"] + second["step_losses"] == whole["step_losses"]
+    log(f"    ZeRO-1 checkpoints (ckpt_r<rank>, each rank its flat moment shard): 1 + 1 epochs "
+        f"(resumed from step {second['resumed']}) against 2: step losses equal {same_losses}, "
+        f"parameters the same bits {gates['resume']['same_bits']}, moments the same bits "
+        f"{gates['resume moments']}")
+    if second["resumed"] != first["steps"] or not same_losses or not gates["resume"]["same_bits"] \
+            or not gates["resume moments"]:
+        fail("the ZeRO-1 gang's 1 + 1 epochs did not train the bits of 2")
+    for rk in ranks:
+        t = rk["times"]
+        log(f"    rank {rk['rank']} step times (host-timed, {TIMED_STEPS} after {GANG_WARMUP}; "
+            f"{n_params} parameters, 16 a replica): "
+            + "; ".join(f"{label} {v['ms']:.3f} ms/step ("
+                        + ", ".join(f"{k} {x:.3f}" if isinstance(x, float) else f"{k} {x}"
+                                    for k, x in v.items() if k != "ms") + ")"
+                        for label, v in t.items() if label != "dispatch")
+            + f"; fit's dispatch K = 1 {t['dispatch']['k1_ms']:.3f}, K = {ZERO1_K} "
+            f"{t['dispatch'][f'k{ZERO1_K}_ms']:.3f} ms/step [{card}]")
+    return dict(wall=wall, ranks=ranks)
+
+
 # -- phase 7d: bf16 compute ------------------------------------------------------
 
 BF16 = "bfloat16"
@@ -4259,6 +4592,13 @@ def main() -> int:
     log("== phase 7d: bf16 compute (the MT recipe, its engines, TinyVGG and MoE at dtype=\"bfloat16\")")
     bf = bf16_slice(torch, hop, card, src_pipe_t, trg_pipe_t, train_ds)
 
+    log("== phase 7e: ZeRO-1 on the data axis (Distributor(dp_mode='zero1'): reduce-scatter, "
+        "the shard's update, all-gather; bf16 and int8 wires; its checkpoints) and the gang's "
+        "K steps per call")
+    t0 = time.perf_counter()
+    zero1 = zero1_slice(torch, hop, card)
+    log(f"  phase 7e took {time.perf_counter() - t0:.1f} s")
+
     log("== phase 8: times")
     for label, run in runs.items():
         log(f"  {label:7s} engine ({run['kv_mode']}): {len(run['outs']) / run['wall']:.2f} requests/s, "
@@ -4358,6 +4698,8 @@ def main() -> int:
         f"gang: MT data parallel, {GANG} ranks on one card": [
             r["launches"] for r in gangs["mt"]["ranks"]],
         "gang: MT fault drill, the retried attempt": recovery["drill"]["launches"],
+        f"gang: MT ZeRO-1, {GANG} ranks on one card": [
+            r["runs"]["zero1"]["launches"] for r in zero1["ranks"]],
         "live plane: paged fp32 engine": [recovery["live"]["paged fp32"]["launches"]],
         "live plane: padded engine": [recovery["live"]["padded"]["launches"]],
         **bf["paths"],
@@ -4426,6 +4768,11 @@ def main() -> int:
         launches_by_rank={r["rank"]: r["launches"] for r in gangs["mt"]["ranks"]},
         times=gang_times), default=str) + f" [{card}]")
     log("  recovery: " + json.dumps(recovery, default=str) + f" [{card}]")
+    log("  zero1: " + json.dumps(dict(wall=zero1["wall"], ranks=[dict(
+        rank=r["rank"], times=r["times"], gates=r["gates"],
+        runs={k: {f: v[f] for f in ("steps", "opt_bytes", "peak", "comms", "launches")}
+              for k, v in r["runs"].items()}) for r in zero1["ranks"]]), default=str)
+        + f" [{card}]")
     log("  bf16: " + json.dumps(dict(
         parity=bf["parity"], train_step={"fp32": train_times, "bf16": train_times_bf16},
         tinyvgg_step={"fp32": zoo["times"]["cnn cifar10"], "bf16": cnn_times_bf16}), default=str)

@@ -29,11 +29,12 @@ integration with an external scheduler; see ``commands_for_hosts``).
 
 ``platform=None`` puts the ranks on the card (``launcher.coordinator``
 picks each rank's device and the backend); ``platform="cpu"`` keeps them
-on the host over gloo. Not ported yet, each raising
-``NotImplementedError`` at construction with its ROADMAP item:
-``dp_mode="zero1"`` and ``dp_overlap`` (A4: ``parallel/zero.py``),
-``elastic``, ``elastic_min_world`` and ``rank_restart_budget`` (A4:
-``train/reshard.py``), ``ingest`` (A5).
+on the host over gloo. ``dp_mode`` and ``dp_overlap`` reach every
+worker's ``fit`` as ``MLSPARK_DP_MODE`` / ``MLSPARK_ZERO1_OVERLAP``
+(``dp_mode="zero1"``: the ZeRO-1 step of ``parallel.zero``). Not ported
+yet, each raising ``NotImplementedError`` at construction with its
+ROADMAP item: ``elastic``, ``elastic_min_world`` and
+``rank_restart_budget`` (A4: ``train/reshard.py``), ``ingest`` (A5).
 
 ``max_restarts=N`` retries a failed gang whole, up to N times, with the
 same function and arguments. A retried gang resumes rather than starts
@@ -254,21 +255,22 @@ class Distributor:
         self.local_mode = local_mode
         self.platform = platform
         self.extra_env = env or {}
-        # The data-parallel update mode: "replicated" (DDP) is what the
-        # port runs; "zero1" and its overlap knob need parallel/zero.py.
-        # Validated here so a typo fails at construction, not inside every
-        # rank after rendezvous.
+        # Data-parallel update mode for the workers' fit() (parallel.zero
+        # env contract): "zero1" opts the whole gang into the ZeRO-1 step
+        # via MLSPARK_DP_MODE. Validated here so a typo fails at
+        # construction, not inside every rank after rendezvous.
         if dp_mode is not None and dp_mode not in ("replicated", "zero1"):
             raise ValueError(
                 f"unknown dp_mode {dp_mode!r} (expected 'replicated' or "
                 "'zero1')"
             )
-        if dp_mode == "zero1" or dp_overlap is not None:
-            raise NotImplementedError(
-                "Distributor(dp_mode='zero1' / dp_overlap=...) is not ported "
-                "yet (ROADMAP queue A4: parallel/zero.py)"
-            )
         self.dp_mode = dp_mode
+        # The zero1 overlap schedule rides the same contract: the boolean
+        # becomes MLSPARK_ZERO1_OVERLAP in every worker (Zero1Config.from_env
+        # resolves it; overlap is on when neither knob nor env is set).
+        if dp_overlap is not None and not isinstance(dp_overlap, bool):
+            raise ValueError(f"dp_overlap must be a bool or None, got {dp_overlap!r}")
+        self.dp_overlap = dp_overlap
         # Serving KV-cache mode and store dtype ride the env contract
         # (MLSPARK_SERVE_KV_MODE / _DTYPE in every worker, resolved by
         # ServingEngine when kv_mode/kv_dtype are not passed).
@@ -465,6 +467,61 @@ class Distributor:
         except Exception:
             log.exception("telemetry report generation failed (ignored)")
 
+    def worker_env(
+        self, coord: str, workdir: str, n: int, rank: int, attempt: int, heartbeat_path: str
+    ) -> dict[str, str]:
+        """The environment of rank ``rank``'s worker: the inherited one,
+        the constructor knobs' contract variables, the explicit ``env=``
+        above them, then the gang's rendezvous and liveness variables."""
+        env = dict(os.environ)
+        # Constructor knobs ride the env contract (inherited env below
+        # them, explicit env= above them). Writes go through the
+        # registry (envcfg.put_into): a typo'd contract name fails
+        # here, not as a silently ignored variable in every rank.
+        if self.dp_mode is not None:
+            envcfg.put_into(env, "MLSPARK_DP_MODE", self.dp_mode)
+        if self.dp_overlap is not None:
+            envcfg.put_into(env, "MLSPARK_ZERO1_OVERLAP", "1" if self.dp_overlap else "0")
+        if self.serve_kv_mode is not None:
+            envcfg.put_into(env, "MLSPARK_SERVE_KV_MODE", self.serve_kv_mode)
+        if self.serve_kv_dtype is not None:
+            envcfg.put_into(env, "MLSPARK_SERVE_KV_DTYPE", self.serve_kv_dtype)
+        if self.telemetry_http is not None:
+            envcfg.put_into(env, "MLSPARK_TELEMETRY_HTTP", self.telemetry_http)
+        # Local mode: every rank is on this host, so gloo's sockets
+        # go over loopback. Pinned here because gloo otherwise binds
+        # to the interface the hostname resolves to, which a host
+        # without a resolvable name (or without a network) lacks.
+        # Not a user knob: an inherited or explicit value wins.
+        env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+        env.update(self.extra_env)
+        # Workers default their telemetry output (rank JSONLs, flight
+        # dumps) next to the heartbeat files; an inherited or explicit
+        # MLSPARK_TELEMETRY_DIR (e.g. a persistent dir from the fault
+        # drill) wins — the workdir is ephemeral (rmtree'd below).
+        env.setdefault("MLSPARK_TELEMETRY_DIR", workdir)
+        envcfg.put_into(env, "MLSPARK_COORDINATOR", coord)
+        envcfg.put_into(env, "MLSPARK_NUM_PROCESSES", n)
+        envcfg.put_into(env, "MLSPARK_PROCESS_ID", rank)
+        envcfg.put_into(env, "MLSPARK_GANG_ATTEMPT", attempt)
+        # One id per run() call, the same on every attempt.
+        envcfg.put_into(env, "MLSPARK_GANG_RUN", os.path.basename(workdir))
+        envcfg.put_into(env, "MLSPARK_HEARTBEAT_FILE", heartbeat_path)
+        envcfg.put_into(
+            env, "MLSPARK_HEARTBEAT_INTERVAL", self.heartbeat_interval
+        )
+        host, _, port = coord.partition(":")
+        env["MASTER_ADDR"], env["MASTER_PORT"] = host, port
+        env["WORLD_SIZE"], env["RANK"] = str(n), str(rank)
+        if self.platform:
+            # The coordinator reads it for the rank's device and the
+            # group's backend.
+            envcfg.put_into(env, "MLSPARK_PLATFORM", self.platform)
+        env["PYTHONPATH"] = os.pathsep.join(
+            p for p in sys.path if p
+        )
+        return env
+
     def _run_gang(
         self,
         ref: str,
@@ -481,49 +538,7 @@ class Distributor:
             heartbeat_path = os.path.join(workdir, f"heartbeat_{rank}")
             result_paths.append(result_path)
             heartbeat_paths.append(heartbeat_path)
-            env = dict(os.environ)
-            # Constructor knobs ride the env contract (inherited env below
-            # them, explicit env= above them). Writes go through the
-            # registry (envcfg.put_into): a typo'd contract name fails
-            # here, not as a silently ignored variable in every rank.
-            if self.serve_kv_mode is not None:
-                envcfg.put_into(env, "MLSPARK_SERVE_KV_MODE", self.serve_kv_mode)
-            if self.serve_kv_dtype is not None:
-                envcfg.put_into(env, "MLSPARK_SERVE_KV_DTYPE", self.serve_kv_dtype)
-            if self.telemetry_http is not None:
-                envcfg.put_into(env, "MLSPARK_TELEMETRY_HTTP", self.telemetry_http)
-            # Local mode: every rank is on this host, so gloo's sockets
-            # go over loopback. Pinned here because gloo otherwise binds
-            # to the interface the hostname resolves to, which a host
-            # without a resolvable name (or without a network) lacks.
-            # Not a user knob: an inherited or explicit value wins.
-            env.setdefault("GLOO_SOCKET_IFNAME", "lo")
-            env.update(self.extra_env)
-            # Workers default their telemetry output (rank JSONLs, flight
-            # dumps) next to the heartbeat files; an inherited or explicit
-            # MLSPARK_TELEMETRY_DIR (e.g. a persistent dir from the fault
-            # drill) wins — the workdir is ephemeral (rmtree'd below).
-            env.setdefault("MLSPARK_TELEMETRY_DIR", workdir)
-            envcfg.put_into(env, "MLSPARK_COORDINATOR", coord)
-            envcfg.put_into(env, "MLSPARK_NUM_PROCESSES", n)
-            envcfg.put_into(env, "MLSPARK_PROCESS_ID", rank)
-            envcfg.put_into(env, "MLSPARK_GANG_ATTEMPT", attempt)
-            # One id per run() call, the same on every attempt.
-            envcfg.put_into(env, "MLSPARK_GANG_RUN", os.path.basename(workdir))
-            envcfg.put_into(env, "MLSPARK_HEARTBEAT_FILE", heartbeat_path)
-            envcfg.put_into(
-                env, "MLSPARK_HEARTBEAT_INTERVAL", self.heartbeat_interval
-            )
-            host, _, port = coord.partition(":")
-            env["MASTER_ADDR"], env["MASTER_PORT"] = host, port
-            env["WORLD_SIZE"], env["RANK"] = str(n), str(rank)
-            if self.platform:
-                # The coordinator reads it for the rank's device and the
-                # group's backend.
-                envcfg.put_into(env, "MLSPARK_PLATFORM", self.platform)
-            env["PYTHONPATH"] = os.pathsep.join(
-                p for p in sys.path if p
-            )
+            env = self.worker_env(coord, workdir, n, rank, attempt, heartbeat_path)
             cmd = [
                 sys.executable,
                 "-m",

@@ -2,9 +2,11 @@
 ``machine_learning_apache_spark_tpu/parallel``.
 
 Data parallelism over a ``torch.distributed`` process group is what the
-port runs (the reference's only strategy). The JAX package's ZeRO-1,
-tensor, pipeline, ring and Ulysses parallelism are ROADMAP A4; a mesh
-axis for them larger than 1 raises ``NotImplementedError``.
+port runs (the reference's only strategy): the replicated step (DDP) and
+ZeRO-1 (``parallel.zero``: reduce-scatter, the rank's shard updated,
+all-gather). The JAX package's tensor, pipeline, ring and Ulysses
+parallelism are ROADMAP A4; a mesh axis for them larger than 1 raises
+``NotImplementedError``.
 """
 
 from machine_learning_apache_spark_tpu_torch.parallel.data_parallel import (
@@ -31,26 +33,56 @@ from machine_learning_apache_spark_tpu_torch.parallel.mesh import (
     replicated_sharding,
     shard_batch,
 )
+from machine_learning_apache_spark_tpu_torch.parallel.zero import (
+    COMMS_DTYPES,
+    DEFAULT_BUCKET_BYTES,
+    DP_MODES,
+    Zero1Config,
+    Zero1State,
+    comms_bytes_per_step,
+    init_sharded,
+    make_flat_plan,
+    make_zero1_step,
+    opt_state_bytes,
+    opt_state_bytes_per_chip,
+    plan_layout,
+    resolve_dp_mode,
+    shard_optimizer_state,
+)
 
 __all__ = [
+    "COMMS_DTYPES",
+    "DEFAULT_BUCKET_BYTES",
+    "DP_MODES",
     "DATA_AXIS",
     "EXPERT_AXIS",
     "MODEL_AXIS",
     "Mesh",
+    "Zero1Config",
+    "Zero1State",
     "PIPELINE_AXIS",
     "SEQ_AXIS",
     "assert_replicas_in_sync",
     "batch_sharding",
+    "comms_bytes_per_step",
     "data_model_mesh",
     "data_parallel_mesh",
+    "init_sharded",
     "make_data_parallel_eval_step",
     "make_data_parallel_step",
+    "make_flat_plan",
     "make_mesh",
+    "make_zero1_step",
+    "opt_state_bytes",
+    "opt_state_bytes_per_chip",
     "pad_batch_to_multiple",
     "params_fingerprint",
+    "plan_layout",
     "process_count",
     "process_index",
     "replicate",
     "replicated_sharding",
+    "resolve_dp_mode",
     "shard_batch",
+    "shard_optimizer_state",
 ]

@@ -29,7 +29,9 @@ counts the bytes reduced (``comms.bytes_allreduced``).
 
 ``params_fingerprint`` is the JAX package's weighted sum of |p| per leaf,
 in the Flax tree's leaf order; ``assert_replicas_in_sync`` compares it
-across the ranks.
+across the ranks. The loss-weight helpers here (``loss_weight_of``,
+``_total_weight``, ``_global_means``) serve the ZeRO-1 step
+(``parallel.zero``) too.
 """
 
 from __future__ import annotations
@@ -283,8 +285,9 @@ def pad_batch_to_multiple(batch, multiple: int):
 def _leaves(params) -> list[torch.Tensor]:
     """The tensors to fingerprint, in the JAX package's leaf order: a
     ``TrainState`` or ``nn.Module`` by its Flax tree paths (sorted level
-    by level, as ``jax.tree.leaves`` orders a dict tree), a sequence of
-    tensors as given."""
+    by level, as ``jax.tree.leaves`` orders a dict tree), a dict tree
+    (an optimizer state) by its sorted keys, a sequence of tensors as
+    given."""
     model = getattr(params, "model", params)
     if isinstance(model, nn.Module):
         from machine_learning_apache_spark_tpu_torch.weights import flax_named_parameters
@@ -292,7 +295,11 @@ def _leaves(params) -> list[torch.Tensor]:
         return [p for _, p in sorted(
             flax_named_parameters(model), key=lambda kv: tuple(kv[0].split("/"))
         )]
-    return list(params)
+    if isinstance(params, dict):
+        return [t for k in sorted(params, key=str) for t in _leaves(params[k])]
+    if isinstance(params, torch.Tensor):
+        return [params]
+    return [t for p in params for t in _leaves(p)]
 
 
 @torch.no_grad()
@@ -316,11 +323,22 @@ def assert_replicas_in_sync(params, *, atol: float = 1e-6, mesh: Mesh | None = N
     parameter fingerprint and assert they agree within ``atol`` relative —
     the check for the reference's Q2-class replica drift
     (``distributed_cnn.py:175``). One process passes trivially. Returns
-    the largest divergence from rank 0's."""
+    the largest divergence from rank 0's. A state is checked by its
+    parameters (a ZeRO-1 state's are replicated); an optimizer state
+    sharded over the ranks (``parallel.zero.ShardedOptState``) raises
+    ``ValueError``: its ranks hold different data by design."""
     from machine_learning_apache_spark_tpu_torch.parallel.mesh import (
         data_parallel_mesh,
         process_count,
     )
+    from machine_learning_apache_spark_tpu_torch.parallel.zero import ShardedOptState
+
+    if isinstance(params, ShardedOptState):
+        raise ValueError(
+            "assert_replicas_in_sync needs a replicated tree; this optimizer "
+            "state is sharded over the data axis (each rank holds its own "
+            "shard), so its fingerprints differ by design"
+        )
 
     fp = params_fingerprint(params)
     world = mesh.size if mesh is not None else process_count()

@@ -323,6 +323,18 @@ def resume_epochs(ckpt, resumed: int, epochs: int) -> int:
     return epochs + int(meta.get("epoch", -1)) + 1
 
 
+def data_parallel_state(state, mesh):
+    """``state`` as ``fit(mesh=)`` trains it under the gang's data-parallel
+    mode (``MLSPARK_DP_MODE``, which ``Distributor(dp_mode=)`` sets): a
+    ZeRO-1 gang's state is sharded here, before the recipe's checkpoint
+    restore, so that the restore finds the layout its checkpoints hold."""
+    from machine_learning_apache_spark_tpu_torch.parallel import zero
+
+    if mesh is None or zero.resolve_dp_mode(None) != "zero1":
+        return state
+    return zero.shard_optimizer_state(state, mesh, zero.Zero1Config.from_env())
+
+
 def fit_recipe(r, state, loss_fn, train_loader, mesh=None):
     """``fit`` under a recipe's training fields (``epochs``, ``seed``,
     ``log_every``, ``checkpoint_dir``/``checkpoint_every``/``resume``,
@@ -337,7 +349,8 @@ def fit_recipe(r, state, loss_fn, train_loader, mesh=None):
     from machine_learning_apache_spark_tpu_torch.train.loop import fit
 
     # The restore below checks the checkpoints' topology stamp, which
-    # names the mesh the state trains on.
+    # names the mesh the state trains on and its data-parallel layout.
+    state = data_parallel_state(state, mesh)
     state.mesh = mesh
     with checkpointing(r.checkpoint_dir, state, resume=r.resume) as (ckpt, state, resumed):
         epochs = r.epochs

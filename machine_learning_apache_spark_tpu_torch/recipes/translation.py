@@ -78,6 +78,7 @@ from machine_learning_apache_spark_tpu_torch.recipes._common import (
     default_compute_dtype,
     make_bucketed_loader,
     make_loaders,
+    data_parallel_state,
     resolve_mesh,
     resume_epochs,
     summarize,
@@ -173,7 +174,6 @@ UNPORTED = {
     "pipeline_parallel": "A4 (distributed)",
     "pipeline_microbatches": "A4 (distributed)",
     "expert_parallel": "A4 (distributed)",
-    "zero1": "A4 (distributed)",
 }
 
 
@@ -421,7 +421,8 @@ def train_translator(
         ),
     )
     # The restore checks the checkpoints' topology stamp, which names the
-    # mesh the state trains on.
+    # mesh the state trains on and its data-parallel layout.
+    state = data_parallel_state(state, mesh)
     state.mesh = mesh
     with checkpointing(
         r.checkpoint_dir, state, resume=r.resume
@@ -468,6 +469,7 @@ def train_translator(
             prefetch_to_device=r.prefetch_to_device,
             resume=resumed is not None,
             mesh=mesh,
+            zero1=r.zero1,
         )
         metrics = evaluate(
             result.state, make_translation_loss(cfg.pad_id, train=False), val_loader,

@@ -23,8 +23,9 @@ resume restores the newest step complete on every rank
 (``group_agreed_step``), so the ranks never restore different steps. The
 group functions read only pointers, sidecars and the integer step
 directories, so they read the JAX package's trees as well as the port's.
-``attach_local``'s 1-D sharded case (ZeRO-1's flat moments) comes with
-``parallel/zero.py``.
+A ZeRO-1 rank's payload holds its own run of the flat moments
+(``parallel.zero.Zero1State.state_dict``); ``attach_local`` takes it, or
+the whole vector, back.
 """
 
 from __future__ import annotations
@@ -80,6 +81,22 @@ def host_copy(tree):
     return tree
 
 
+def attach_local(value: torch.Tensor, plan, rank: int) -> torch.Tensor:
+    """This rank's run of a 1-D ZeRO-1 leaf (a flat moment, the
+    accumulator): ``value`` is either the whole vector (every rank's run,
+    in rank order, as a reshard hands it) or this rank's run already —
+    told apart by its length, as the JAX ``attach_local`` does."""
+    n = int(value.shape[0])
+    if n == plan.shard_len:
+        return value
+    if n == plan.padded:
+        return value[rank * plan.shard_len:(rank + 1) * plan.shard_len]
+    raise ValueError(
+        f"a flat ZeRO-1 leaf of {n} elements fits neither this rank's run "
+        f"({plan.shard_len}) nor the whole vector ({plan.padded})"
+    )
+
+
 def detached_payload(state: TrainState) -> dict:
     """The host checkpoint payload of ``state`` (``TrainState.state_dict``
     with every tensor copied to the host): what this rank's manager
@@ -91,17 +108,25 @@ def topology_stamp(state: TrainState | None = None) -> dict:
     """The topology under which ``state`` checkpoints, in the JAX stamp's
     keys: the gang's world size (the process group's), the mesh's axis
     sizes when the state trains on one (``state.mesh``, which
-    ``fit(mesh=)`` sets; ``{"data": world}`` in a gang), and the
-    data-parallel mode, ``"replicated"`` (ZeRO-1's flat layout comes with
-    ``parallel/zero.py``). Stamped into every sidecar; a resume whose own
-    stamp differs raises ``TopologyMismatch`` rather than misload."""
+    ``fit(mesh=)`` sets; ``{"data": world}`` in a gang), the
+    data-parallel mode, and for a ZeRO-1 state (``parallel.zero``)
+    ``"zero1"`` with its bucket layout (``plan_layout``). Stamped into
+    every sidecar; a resume whose own stamp differs raises
+    ``TopologyMismatch`` rather than misload."""
     mesh = getattr(state, "mesh", None)
-    return {
+    stamp = {
         "world_size": _world_size(),
         "dp_mode": "replicated",
         "mesh": {str(k): int(v) for k, v in mesh.shape.items()} if mesh is not None else None,
         "layout": None,
     }
+    plan = getattr(state, "plan", None)
+    if plan is not None:
+        from machine_learning_apache_spark_tpu_torch.parallel.zero import plan_layout
+
+        stamp["dp_mode"] = "zero1"
+        stamp["layout"] = plan_layout(plan)
+    return stamp
 
 
 def same_topology(a: dict | None, b: dict | None) -> bool:

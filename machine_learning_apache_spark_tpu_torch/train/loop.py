@@ -35,13 +35,16 @@ loss, gradients all-reduced once per optimizer step), rank 0's parameters
 are broadcast at the start, each rank draws its dropout from its own
 generator (seeded from the fit's seed and the rank) and
 ``sync_check_every=N`` compares the replicas' fingerprints every N
-epochs. Each step passes the ``train_step`` fault-injection site
+epochs. ``dp_mode="zero1"`` (or ``MLSPARK_DP_MODE``) trains through the
+ZeRO-1 step of ``parallel.zero`` instead (the optimizer sharded over the
+ranks, the gradient reduce-scattered, the parameters all-gathered), and
+``zero1=True`` shards the moments on top of the replicated step. In a
+gang, ``steps_per_call=K`` runs K eager data-parallel steps per call: a
+gloo collective runs on the host and cannot sit inside a CUDA graph.
+Each step passes the ``train_step`` fault-injection site
 (``utils.faults.maybe_fault``) on the host before it runs, and an
-exception out of the loop dumps the flight recorder. Not ported yet, each
-raising ``NotImplementedError`` naming its ROADMAP item: ZeRO-1 and the
-``dp_*`` knobs, elastic resume, ``steps_per_call > 1`` on a mesh of more
-than one process (a gloo collective runs on the host and cannot sit in a
-captured step) and checkpoints in a gang.
+exception out of the loop dumps the flight recorder. Not ported yet:
+elastic resume (``NotImplementedError`` naming its ROADMAP item).
 """
 
 from __future__ import annotations
@@ -143,8 +146,9 @@ class FitResult:
     # The run's programs (``ProgramCache.stats()``): one per group size
     # and accumulation phase; empty when every step ran singly.
     programs: list[dict] = field(default_factory=list)
-    # On a mesh of more than one process: the gradient all-reduce's
-    # host-timed totals (``GradientComms.stats()``); empty otherwise.
+    # On a mesh of more than one process: the gradient collectives'
+    # host-timed totals (``GradientComms.stats()``, or ZeRO-1's
+    # ``Zero1Comms.stats()``); empty otherwise.
     comms: dict = field(default_factory=dict)
 
     @property
@@ -235,6 +239,14 @@ class StepDispatch:
 
     def group(self, batches):
         k = len(batches)
+        if self._host_batch:
+            # A gang's K steps run eagerly, one data-parallel step each: a
+            # gloo collective runs on the host and cannot sit inside a
+            # CUDA graph. The same steps in the same order as K calls.
+            outs = [self.single(b) for b in batches]
+            return torch.cat([o[0] for o in outs]), {
+                n: torch.cat([o[1][n] for o in outs]) for n in outs[0][1]
+            }
         lrs = torch.from_numpy(self.state.scheduled_lrs(k))
         if self.device.type == "cuda":
             lrs = lrs.float().pin_memory()
@@ -272,22 +284,61 @@ def _check_resume_agreed(mesh, step: int | None) -> None:
         )
 
 
-def _unported(**given) -> None:
-    """Raise for the first argument set away from what the port runs."""
-    zero = "A4: parallel/zero.py"
-    items = {
-        "zero1": (zero, given["zero1"]),
-        "dp_mode": (zero, given["dp_mode"] not in (None, "replicated")),
-        "dp_bucket_bytes": (zero, given["dp_bucket_bytes"] is not None),
-        "dp_comms_dtype": (zero, given["dp_comms_dtype"] is not None),
-        "dp_overlap": (zero, given["dp_overlap"] is not None),
-        "elastic": ("A4: train/reshard.py", given["elastic"] is not None),
+def _unported(elastic) -> None:
+    """Raise for the argument this port does not run yet."""
+    if elastic is not None:
+        raise NotImplementedError(
+            "fit(elastic=...) is not ported yet (ROADMAP queue A4: train/reshard.py)"
+        )
+
+
+def _with_comms_counters(zstep, state):
+    """The ZeRO-1 step with the comms telemetry contract of the JAX loop:
+    per-step wire-byte counters (the static amounts of
+    ``comms_bytes_per_step``, no device sync), the
+    ``comms.opt_state_bytes_per_chip`` gauge set once, the ``comms.zero1``
+    annotation, and one ``counter`` event per kind per fit
+    (``flush_comms``), which the gang report's comms section reads."""
+    if not telemetry.enabled():
+        return zstep
+    from machine_learning_apache_spark_tpu_torch.parallel import zero as _zero
+
+    stats = zstep.comms_stats
+    reg = telemetry.get_registry()
+    reg.gauge("comms", "opt_state_bytes_per_chip").set(_zero.opt_state_bytes_per_chip(state))
+    telemetry.annotate("comms.zero1", **{k: v for k, v in stats.items() if k != "grad_bytes_fp32"})
+    kinds = {
+        "bytes_reduce_scattered": "reduce_scatter_bytes",
+        "bytes_allgathered": "allgather_bytes",
+        # The exposed/overlapped split of the same wire bytes: the static
+        # pipeline model (overlap on: 1/nb of each collective exposed).
+        "bytes_exposed": "bytes_exposed",
+        "bytes_overlapped": "bytes_overlapped",
     }
-    for name, (item, set_) in items.items():
-        if set_:
-            raise NotImplementedError(
-                f"fit({name}=...) is not ported yet (ROADMAP queue {item})"
+    counters = {name: reg.counter("comms", name) for name in kinds}
+    counted = [0]
+
+    def step(st, batch, rng):
+        out = zstep(st, batch, rng)
+        for name, key in kinds.items():
+            counters[name].inc(stats[key])
+        counted[0] += 1
+        return out
+
+    def flush():
+        if not counted[0]:
+            return
+        common = {"steps": counted[0], "comms_dtype": stats["comms_dtype"], "overlap": stats["overlap"]}
+        for name, key in kinds.items():
+            telemetry.get_log().emit(
+                "counter", f"comms.{name}", value=counted[0] * stats[key], attrs=common
             )
+        counted[0] = 0
+
+    step.flush_comms = flush
+    step.comms = zstep.comms
+    step.comms_stats = stats
+    return step
 
 
 def fit(
@@ -369,14 +420,29 @@ def fit(
     nothing changes, CUDA graphs included. ``FitResult.comms`` holds the
     gradient all-reduce's host-timed totals.
 
+    ``dp_mode="zero1"`` (or env ``MLSPARK_DP_MODE=zero1``, which
+    ``Distributor(dp_mode="zero1")`` sets) with a mesh trains through the
+    ZeRO-1 step (``parallel.zero.make_zero1_step``): the optimizer's
+    moments built 1/N per rank, the gradient reduce-scattered per bucket,
+    this rank's shard updated, the parameters all-gathered; float32
+    trains the replicated step's bits. ``dp_bucket_bytes`` /
+    ``dp_comms_dtype`` / ``dp_overlap`` (env ``MLSPARK_ZERO1_BUCKET_BYTES``
+    / ``MLSPARK_COMMS_DTYPE`` / ``MLSPARK_ZERO1_OVERLAP``) set the bucket
+    size, the gradient's wire dtype and the schedule. ``zero1=True`` is
+    the implicit form: the replicated step with each moment sharded over
+    its leading dimension (``parallel.zero.shard_moments``). The JAX
+    loop's ``ValueError``s refuse the combinations it refuses. In a gang,
+    ``steps_per_call=K`` runs K eager steps per call, the bits of K
+    single steps. ``FitResult.comms`` holds the ZeRO-1 collectives'
+    host-timed totals (``parallel.zero.Zero1Comms``).
+
     ``prefetch_to_device`` is accepted and has nothing to do: the loader
     already assembles ahead on a thread and the copy to the device is
     pinned and non-blocking. The state is updated in place and returned
     in the result."""
-    _unported(
-        zero1=zero1, dp_mode=dp_mode, dp_bucket_bytes=dp_bucket_bytes,
-        dp_comms_dtype=dp_comms_dtype, dp_overlap=dp_overlap, elastic=elastic,
-    )
+    from machine_learning_apache_spark_tpu_torch.parallel import zero as _zero
+
+    _unported(elastic)
     if data is not None:
         if train_loader is not None:
             raise ValueError("pass either train_loader or data=, not both")
@@ -385,18 +451,41 @@ def fit(
         raise ValueError("fit needs a train_loader (or data=...)")
     if steps_per_call < 1:
         raise ValueError(f"steps_per_call must be >= 1, got {steps_per_call}")
-    world = mesh.size if mesh is not None else 1
-    if world > 1 and steps_per_call > 1:
-        raise NotImplementedError(
-            "fit(steps_per_call > 1, mesh=...) over more than one process is "
-            "not ported yet (ROADMAP queue A4: collectives in a captured "
-            "step): a gloo collective runs on the host and cannot sit "
-            "inside a CUDA graph"
+    mode = _zero.resolve_dp_mode(dp_mode)
+    if mode == "zero1":
+        if mesh is None:
+            raise ValueError("dp_mode='zero1' requires a mesh (use_mesh=True)")
+        if zero1:
+            raise ValueError(
+                "pass either dp_mode='zero1' (fused reduce-scatter step) or "
+                "zero1=True (implicit opt-state sharding), not both"
+            )
+        if steps_per_call > 1:
+            raise ValueError(
+                "dp_mode='zero1' runs its own fused step; steps_per_call "
+                "fusion is not supported with it"
+            )
+    elif dp_bucket_bytes is not None or dp_comms_dtype is not None or dp_overlap is not None:
+        raise ValueError(
+            "dp_bucket_bytes/dp_comms_dtype/dp_overlap only apply to dp_mode='zero1'"
         )
+    elif zero1 and mesh is None:
+        # Never a silent no-op: without a mesh there is nothing to shard
+        # the optimizer moments over.
+        raise ValueError("zero1=True requires a mesh (use_mesh=True)")
+    world = mesh.size if mesh is not None else 1
     emit = emit or log.info
     rng = rng if rng is not None else torch.Generator().manual_seed(0)
     device = _device_of(state)
     step_rng = torch.Generator(device=device)
+    if mode == "zero1":
+        # The sharded state before the resume: the restore template
+        # carries the run's real layout, and its stamp names it.
+        state = _zero.shard_optimizer_state(state, mesh, _zero.Zero1Config.from_env(
+            bucket_bytes=dp_bucket_bytes, comms_dtype=dp_comms_dtype, overlap=dp_overlap,
+        ))
+    elif zero1:
+        state = _zero.shard_moments(state, mesh)
     if mesh is not None:
         # The checkpoint's topology stamp names the mesh it trained on.
         state.mesh = mesh
@@ -445,7 +534,15 @@ def fit(
         step_rng.manual_seed(seed)
 
     step_fn = None
-    if world > 1:
+    if mode == "zero1":
+        # Every replica starts from rank 0's parameters (the shard from
+        # them), as DDP's constructor broadcast makes it below.
+        from machine_learning_apache_spark_tpu_torch.parallel.mesh import replicate
+
+        replicate(mesh, state.params)
+        state.refresh_shard()
+        step_fn = _with_comms_counters(_zero.make_zero1_step(loss_fn, mesh, state), state)
+    elif world > 1:
         from machine_learning_apache_spark_tpu_torch.parallel.data_parallel import (
             make_data_parallel_step,
         )
@@ -453,6 +550,8 @@ def fit(
         # DDP's constructor broadcast: every replica starts from rank 0's
         # parameters.
         step_fn.replica(state.model)
+        if zero1:
+            state.refresh_owned()
     dispatch = StepDispatch(state, loss_fn, step_rng, step_fn=step_fn)
     tracer = StepWindowTracer(
         profile_dir, start=profile_window[0], stop=profile_window[1]
@@ -489,6 +588,10 @@ def fit(
                 # profiler is process-wide, and a running one would make
                 # every later trace in the process fail to start.
                 tracer.close()
+                # Comms byte totals land on the event log even for a run
+                # that died mid-epoch.
+                if hasattr(step_fn, "flush_comms"):
+                    step_fn.flush_comms()
         if not history and resume_meta.get("metrics"):
             # An already-complete resume: report the last epoch's metrics
             # from its sidecar.

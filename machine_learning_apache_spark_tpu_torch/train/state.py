@@ -228,6 +228,13 @@ def make_optimizer(
     return Optimizer(name, lr, grad_clip, accumulate_steps, dict(kw))
 
 
+def clip_by_global_norm(grads: list, norm: torch.Tensor, max_norm: float) -> list:
+    """optax's ``clip_by_global_norm`` given the global norm: each tensor
+    scaled by ``max_norm / norm`` only when ``norm >= max_norm``."""
+    keep = norm < max_norm
+    return [torch.where(keep, g, g / norm * max_norm) for g in grads]
+
+
 @dataclass
 class TrainState:
     """The model (its parameters), the optimizer and its optax chain, and
@@ -319,16 +326,24 @@ class TrainState:
             for acc, g in zip(self.acc_grads, grads):
                 acc.add_((g - acc) / (mini_step + 1))
             if not self.emits(mini_step):
-                self.optimizer.zero_grad(set_to_none=True)
+                for p in params:
+                    p.grad = None
                 return
             grads = self.acc_grads
         if self.tx.grad_clip is not None:
-            max_norm = self.tx.grad_clip
-            norm = torch.sqrt(sum(torch.sum(torch.square(g)) for g in grads))
-            keep = norm < max_norm
-            grads = [torch.where(keep, g, g / norm * max_norm) for g in grads]
-        for p, g in zip(params, grads):
-            p.grad = g
+            grads = clip_by_global_norm(
+                grads, torch.sqrt(sum(torch.sum(torch.square(g)) for g in grads)),
+                self.tx.grad_clip,
+            )
+        self.set_lr(lr)
+        self._step_optimizer(params, grads)
+        if self.acc_grads is not None:
+            for acc in self.acc_grads:  # optax resets the accumulator to zeros
+                acc.zero_()
+
+    def set_lr(self, lr: float | torch.Tensor) -> None:
+        """The lr of the next optimizer step: a float, or a 0-d device
+        tensor a program takes as its input."""
         if isinstance(lr, torch.Tensor):
             self.lr_tensor.copy_(lr)
         elif self.lr_tensor is not None:
@@ -337,11 +352,14 @@ class TrainState:
         else:
             for group in self.optimizer.param_groups:
                 group["lr"] = lr
+
+    def _step_optimizer(self, params: list, grads: list) -> None:
+        """One step of the torch optimizer on ``grads``, then the grads
+        cleared."""
+        for p, g in zip(params, grads):
+            p.grad = g
         self.optimizer.step()
         self.optimizer.zero_grad(set_to_none=True)
-        if self.acc_grads is not None:
-            for acc in self.acc_grads:  # optax resets the accumulator to zeros
-                acc.zero_()
 
     # -- checkpoint payload ---------------------------------------------------
 

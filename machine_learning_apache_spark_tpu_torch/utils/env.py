@@ -127,6 +127,29 @@ register(
     "label telemetry and fault plans key on.",
 )
 
+# parallel / comms
+register(
+    "MLSPARK_DP_MODE", type="str", default="replicated", subsystem="parallel",
+    description="Data-parallel update mode for fit() when dp_mode= is not "
+    "passed.", choices=("replicated", "zero1"),
+)
+register(
+    "MLSPARK_ZERO1_BUCKET_BYTES", type="int", default=4194304, subsystem="parallel",
+    description="ZeRO-1 bucket size in bytes (the comm/compute overlap "
+    "pipeline grain).",
+)
+register(
+    "MLSPARK_ZERO1_OVERLAP", type="bool", default=True, subsystem="parallel",
+    description="Per-bucket update/allgather overlap schedule on (default) "
+    "or off (serial reference path; bit-identical either way).",
+)
+register(
+    "MLSPARK_COMMS_DTYPE", type="str", default="float32", subsystem="parallel",
+    description="ZeRO-1 wire dtype for reduce-scatter/allgather "
+    "(sub-fp32 shrinks bytes; int8 uses EQuARX-style per-bucket scales).",
+    choices=("float32", "bfloat16", "int8"),
+)
+
 # serving
 register(
     "MLSPARK_SERVE_KV_MODE", type="str", default="paged", subsystem="serving",

@@ -1070,23 +1070,96 @@ def test_gang_ranks_launch_the_training_kernels_three_per_step(card_gang):
         assert r["launches"]["flash_attention_fwd"] == 3 * steps + 3
 
 
-def test_k_steps_per_call_on_a_two_process_mesh_raises(cuda):
+@pytest.fixture(scope="module")
+def card_zero1_gang():
+    """One 2-rank gang on the card running every data-parallel variant of
+    ``torch_launcher_workers:zero1_variants`` on a small Transformer over
+    8 global batches of 8: the replicated step at 1 and 4 steps per call,
+    ZeRO-1 serial and overlapped with one bucket and several, the bf16
+    and int8 wires, Adam replicated, ZeRO-1 and ``zero1=True``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the gang's ranks run on it")
+    from machine_learning_apache_spark_tpu_torch.launcher import Distributor, kill_stray_gangs
     from machine_learning_apache_spark_tpu_torch.models.transformer import (
         Transformer,
         TransformerConfig,
     )
-    from machine_learning_apache_spark_tpu_torch.parallel.mesh import make_mesh
-    from machine_learning_apache_spark_tpu_torch.recipes.translation import make_translation_loss
-    from machine_learning_apache_spark_tpu_torch.train import loop, state as tstate
+    from machine_learning_apache_spark_tpu_torch.weights import export_flax_params
 
-    model = Transformer(TransformerConfig(**GANG_CFG)).to(cuda)
-    st = tstate.TrainState.create(model=model, tx=tstate.make_optimizer())
-    with pytest.raises(NotImplementedError, match="collectives in a captured step"):
-        loop.fit(st, make_translation_loss(0), [], epochs=1, steps_per_call=4,
-                 mesh=make_mesh({"data": 2}, world=2, device=cuda))
+    rng = np.random.default_rng(37)
+    batches = []
+    for _ in range(8):
+        src = rng.integers(4, 41, (8, 20)).astype(np.int64)
+        trg = rng.integers(4, 37, (8, 19)).astype(np.int64)
+        for i, m in enumerate(rng.integers(3, 19, 8)):
+            trg[i, m:] = 0
+        batches.append((src, trg))
+    tree = export_flax_params(Transformer(TransformerConfig(**GANG_CFG),
+                                          generator=torch.Generator().manual_seed(5)))
+    segments = (rng.standard_normal((2, 64)) * 3).astype(np.float32)
+    out = Distributor(num_processes=2, timeout=600).run(
+        "torch_launcher_workers:zero1_variants", GANG_CFG, tree, batches, segments
+    )
+    assert kill_stray_gangs() == 0
+    return out
 
 
-# -- the gang that survives a crash, and the engine's health, on the card -----------
+def _same_run(a: dict, b: dict) -> bool:
+    def flat(t):
+        return [np.asarray(v) for k in sorted(t) for v in (flat(t[k]) if isinstance(t[k], dict) else [t[k]])]
+
+    return a["step_losses"] == b["step_losses"] and all(
+        np.array_equal(x, y) for x, y in zip(flat(a["params"]), flat(b["params"])))
+
+
+@pytest.mark.parametrize("name,base", [
+    ("zero1_overlap", "replicated"), ("zero1_serial", "replicated"),
+    ("zero1_overlap_4096", "replicated"), ("zero1_serial_4096", "replicated"),
+    ("adam_zero1_overlap_4096", "adam_replicated"), ("adam_zero1_serial", "adam_replicated"),
+    ("adam_implicit", "adam_replicated"),
+])
+def test_zero1_gang_on_the_card_trains_the_replicated_bits(card_zero1_gang, name, base):
+    runs = card_zero1_gang["runs"]
+    assert runs[name]["type"] in ("Zero1State", "LeadingShardState")
+    assert _same_run(runs[name], runs[base])
+
+
+def test_zero1_gang_on_the_card_launches_the_replicated_kernels(card_zero1_gang):
+    runs = card_zero1_gang["runs"]
+    for name in ("zero1_overlap", "zero1_serial_4096", "adam_zero1_overlap_4096"):
+        base = "adam_replicated" if name.startswith("adam") else "replicated"
+        for got, want in zip(runs[name]["launches"], runs[base]["launches"]):
+            assert got == want
+            assert got["flash_attention_bwd_dq"] == got["flash_attention_bwd_dkv"] == 3 * 8
+
+
+def test_zero1_wires_on_the_card_train(card_zero1_gang):
+    runs = card_zero1_gang["runs"]
+    base = runs["zero1_serial_4096"]["step_losses"]
+    bf16 = runs["zero1_bf16"]["step_losses"]
+    assert max(abs(a - b) / b for a, b in zip(bf16, base)) <= 2 * 2.0**-8
+    int8 = runs["zero1_int8"]["history"]
+    assert int8[0] > int8[1] > int8[2]
+    # The wires as the gang sums them on the card: bf16 within its two
+    # roundings, int8 within its scale of the float32 reduce-scatter.
+    wires = card_zero1_gang["wires"]
+    exact = wires["float32"]
+    assert np.abs(wires["bfloat16"] - exact).max() <= 2 * 2.0**-8 * np.abs(exact).max()
+    assert np.abs(wires["int8"] - exact).max() <= 2 * np.abs(exact).max() / 127
+
+
+def test_zero1_gang_on_the_card_holds_half_the_moments(card_zero1_gang):
+    runs = card_zero1_gang["runs"]
+    for name in ("adam_zero1_overlap_4096", "adam_zero1_serial"):
+        layout = runs[name]["layout"]
+        assert runs[name]["opt_bytes"] == [2 * 4 * layout["shard_len"] + 4] * 2
+    assert card_zero1_gang["sync"]["opt_state_refused"]
+
+
+def test_k_steps_per_call_in_a_card_gang_train_like_single_steps(card_zero1_gang):
+    runs = card_zero1_gang["runs"]
+    assert _same_run(runs["replicated_k4"], runs["replicated"])
+    assert runs["replicated_k4"]["comms"]["allreduce_steps"] == 8
 
 
 def test_fault_drill_on_the_card_resumes_the_agreed_step(cuda, tmp_path, monkeypatch):

@@ -195,10 +195,32 @@ def test_unpicklable_result_fails_the_gang():
 
 
 @pytest.mark.parametrize(
+    "kw,env",
+    [(dict(dp_mode="zero1"), {"MLSPARK_DP_MODE": "zero1"}),
+     (dict(dp_overlap=False), {"MLSPARK_ZERO1_OVERLAP": "0"})],
+    ids=lambda v: next(iter(v)) if isinstance(v, dict) else None,
+)
+def test_zero1_knobs_reach_the_worker_env(kw, env, monkeypatch):
+    """``Distributor(dp_mode=, dp_overlap=)`` become every worker's
+    ``MLSPARK_DP_MODE`` / ``MLSPARK_ZERO1_OVERLAP`` (the JAX launcher's
+    contract); an explicit ``env=`` still wins over them."""
+    for name in ("MLSPARK_DP_MODE", "MLSPARK_ZERO1_OVERLAP"):
+        monkeypatch.delenv(name, raising=False)
+    d = Distributor(num_processes=2, platform="cpu", **kw)
+    for rank in range(2):
+        got = d.worker_env("127.0.0.1:1234", "/tmp/run", 2, rank, 0, f"/tmp/run/hb_{rank}")
+        assert {k: got.get(k) for k in env} == env
+        assert got["MLSPARK_PROCESS_ID"] == str(rank)
+    plain = Distributor(num_processes=2, platform="cpu").worker_env("h:1", "/tmp/run", 2, 0, 0, "hb")
+    assert not any(k in plain for k in env)
+    name, value = next(iter(env.items()))
+    forced = Distributor(num_processes=2, platform="cpu", env={name: "x"}, **kw)
+    assert forced.worker_env("h:1", "/tmp/run", 2, 0, 0, "hb")[name] == "x"
+
+
+@pytest.mark.parametrize(
     "kw,item",
-    [(dict(dp_mode="zero1"), "parallel/zero.py"),
-     (dict(dp_overlap=True), "parallel/zero.py"),
-     (dict(elastic=True), "train/reshard.py"),
+    [(dict(elastic=True), "train/reshard.py"),
      (dict(elastic_min_world=2), "train/reshard.py"),
      (dict(rank_restart_budget=1), "train/reshard.py"),
      (dict(ingest={"buffer": 4}), "A5")],

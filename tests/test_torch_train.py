@@ -409,14 +409,11 @@ def _two_process_mesh():
 
 @pytest.mark.parametrize(
     "kw", [
-        # A mesh and sync checks run since the data-parallel slice, and
-        # checkpoints in a gang since gang checkpoints; what stays
-        # unported on them: K steps per captured call at world > 1, and
-        # an elastic (resharding) resume of a gang's checkpoints.
-        dict(mesh="gang", steps_per_call=4),
+        # A mesh, sync checks and gang checkpoints run; what stays
+        # unported on them is an elastic (resharding) resume.
         dict(sync_check_every=1, mesh="gang", checkpointer=object(), resume=True,
              elastic=True),
-        dict(zero1=True), dict(dp_mode="zero1"), dict(elastic=True)],
+        dict(elastic=True)],
     ids=lambda kw: next(iter(kw)),
 )
 def test_unported_fit_arguments_raise(kw):
@@ -427,6 +424,38 @@ def test_unported_fit_arguments_raise(kw):
         kw = {**kw, "mesh": _two_process_mesh()}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tloop.fit(state, trecipe.make_translation_loss(0), [], epochs=1, **kw)
+
+
+@pytest.mark.parametrize(
+    "kw,match", [
+        (dict(dp_mode="zero1"), "mesh"),
+        (dict(mesh="gang", dp_mode="zero1", zero1=True), "not both"),
+        (dict(mesh="gang", dp_mode="zero1", steps_per_call=2), "steps_per_call"),
+        (dict(mesh="gang", dp_comms_dtype="bfloat16"), "zero1"),
+        (dict(mesh="gang", dp_overlap=False), "zero1"),
+        (dict(zero1=True), "requires a mesh"),
+    ],
+    ids=["zero1-no-mesh", "zero1-and-implicit", "zero1-k-steps", "comms-dtype-replicated",
+         "overlap-replicated", "implicit-no-mesh"],
+)
+def test_fit_rejects_bad_combinations(kw, match):
+    """The JAX loop's ``ValueError``s (``tests/test_zero.py``'s
+    ``test_fit_rejects_bad_combinations``), raised before any collective."""
+    state = tstate.TrainState.create(
+        model=Transformer(TransformerConfig(**TINY)), tx=tstate.make_optimizer()
+    )
+    if kw.get("mesh") == "gang":
+        kw = {**kw, "mesh": _two_process_mesh()}
+    with pytest.raises(ValueError, match=match):
+        tloop.fit(state, trecipe.make_translation_loss(0), [], epochs=1, **kw)
+
+
+def test_recipe_zero1_needs_a_gang():
+    """The recipe's ``zero1`` reaches ``fit(zero1=True)``: one process has
+    no data axis to shard the moments over, the JAX loop's error."""
+    with pytest.raises(ValueError, match="zero1=True requires a mesh"):
+        trecipe.train_translator(device="cpu", zero1=True, d_model=32, ffn_hidden=64,
+                                 num_heads=2, max_len=24, synthetic_n=16)
 
 
 def test_train_translator_needs_a_card_or_an_explicit_cpu(monkeypatch):

@@ -8,6 +8,7 @@ torch and numpy, never JAX.
 from __future__ import annotations
 
 import os
+import time
 
 import numpy as np
 import torch
@@ -465,3 +466,183 @@ def _leaves(tree):
             yield from _leaves(tree[k])
     else:
         yield tree
+
+
+#: The comms counters the ZeRO-1 fit emits (train.loop._with_comms_counters).
+ZERO1_COUNTERS = ("bytes_reduce_scattered", "bytes_allgathered", "bytes_exposed", "bytes_overlapped")
+
+
+def zero1_variants(cfg_kwargs, flax_params, batches, segments, device=None):
+    """A tiny Transformer through ``fit(mesh=)`` in this gang (on
+    ``device``, default the gang's), from the given Flax weights over the
+    given global batches (each rank its half), dropout off, once per
+    variant: the replicated step at K = 1 and 4, ``dp_mode="zero1"``
+    serial and overlapped with one bucket and with several, the bf16 and
+    int8 wires, Adam replicated and ZeRO-1, and the implicit
+    ``zero1=True``. Then the real bucket reduce-scatter of
+    ``segments[rank]`` on each wire, and the sync check on a ZeRO-1 state.
+    Rank 0's results per variant: step losses, epoch losses, final
+    parameters, the comms totals and counters, the optimizer bytes and
+    kernel launches of every rank, the plan's layout and wire
+    accounting."""
+    from machine_learning_apache_spark_tpu_torch import telemetry
+    from machine_learning_apache_spark_tpu_torch.models.transformer import (
+        Transformer,
+        TransformerConfig,
+    )
+    from machine_learning_apache_spark_tpu_torch.parallel import (
+        assert_replicas_in_sync,
+        data_parallel_mesh,
+        params_fingerprint,
+    )
+    from machine_learning_apache_spark_tpu_torch.parallel import zero
+    from machine_learning_apache_spark_tpu_torch.recipes.translation import (
+        make_translation_loss,
+    )
+    from machine_learning_apache_spark_tpu_torch.train.loop import fit
+    from machine_learning_apache_spark_tpu_torch.train.state import (
+        TrainState,
+        make_optimizer,
+    )
+    from machine_learning_apache_spark_tpu_torch.weights import (
+        export_flax_params,
+        load_flax_params,
+    )
+
+    from machine_learning_apache_spark_tpu_torch.ops import hopper_attention as hop
+
+    rank, world = _rank_world()
+    dev = _worker_device(device)
+    mesh = data_parallel_mesh(device=dev)
+    cfg = TransformerConfig(**cfg_kwargs)
+    local = [_rows(b, rank, world) for b in batches]
+    reg = telemetry.get_registry()
+    variants = {
+        "replicated": dict(opt=("sgd", 0.5)),
+        "replicated_k4": dict(opt=("sgd", 0.5), steps_per_call=4),
+        "zero1_overlap": dict(opt=("sgd", 0.5), dp_mode="zero1", dp_overlap=True),
+        "zero1_serial": dict(opt=("sgd", 0.5), dp_mode="zero1", dp_overlap=False),
+        "zero1_overlap_4096": dict(opt=("sgd", 0.5), dp_mode="zero1", dp_overlap=True,
+                                   dp_bucket_bytes=4096),
+        "zero1_serial_4096": dict(opt=("sgd", 0.5), dp_mode="zero1", dp_overlap=False,
+                                  dp_bucket_bytes=4096),
+        "zero1_bf16": dict(opt=("sgd", 0.5), dp_mode="zero1", dp_bucket_bytes=4096,
+                           dp_comms_dtype="bfloat16"),
+        "zero1_int8": dict(opt=("sgd", 0.5), dp_mode="zero1", dp_bucket_bytes=4096,
+                           dp_comms_dtype="int8", epochs=3),
+        "adam_replicated": dict(opt=("adam", 1e-2)),
+        "adam_zero1_overlap_4096": dict(opt=("adam", 1e-2), dp_mode="zero1",
+                                        dp_bucket_bytes=4096),
+        "adam_zero1_serial": dict(opt=("adam", 1e-2), dp_mode="zero1", dp_overlap=False),
+        "adam_implicit": dict(opt=("adam", 1e-2), zero1=True),
+    }
+    runs, states = {}, {}
+    for name, kw in variants.items():
+        kw = dict(kw)
+        opt, lr = kw.pop("opt")
+        epochs = kw.pop("epochs", 1)
+        model = load_flax_params(Transformer(cfg), flax_params).to(dev)
+        state = TrainState.create(model=model, tx=make_optimizer(opt, lr))
+        before = {n: reg.counter("comms", n).value for n in ZERO1_COUNTERS}
+        hop.reset_launches()
+        t0 = time.perf_counter()
+        res = fit(state, make_translation_loss(cfg.pad_id), local, epochs=epochs, mesh=mesh,
+                  log_every=0, sync_check_every=1, **kw)
+        seconds = time.perf_counter() - t0
+        st = res.state
+        states[name] = st
+        gathered = [None] * world
+        dist.all_gather_object(gathered, (zero.opt_state_bytes_per_chip(st), dict(hop.LAUNCHES)))
+        plan = getattr(st, "plan", None)
+        runs[name] = {
+            "step_losses": res.step_losses,
+            "history": [h["loss"] for h in res.history],
+            "params": export_flax_params(model),
+            "comms": res.comms,
+            "counters": {n: reg.counter("comms", n).value - before[n] for n in ZERO1_COUNTERS},
+            "opt_bytes": [g[0] for g in gathered],
+            "launches": [g[1] for g in gathered],
+            "layout": zero.plan_layout(plan) if plan is not None else None,
+            "wire": zero.comms_bytes_per_step(plan, st.config) if plan is not None else None,
+            "steps": st.step,
+            "type": type(st).__name__,
+            "seconds": seconds,
+        }
+    wires = {}
+    for dt in zero.COMMS_DTYPES:
+        seg = torch.as_tensor(segments[rank]).to(dev)
+        out = torch.zeros(len(seg) // world, device=dev)
+        _, finish = zero._reduce_scatter_bucket(seg.clone(), out, world, dt)
+        finish()
+        pieces = [None] * world
+        dist.all_gather_object(pieces, out.cpu().numpy())
+        wires[dt] = np.concatenate(pieces)
+    zs = states["zero1_overlap"]
+    sync = {"divergence": assert_replicas_in_sync(zs, mesh=mesh),
+            "fingerprint_equal": params_fingerprint(zs) == params_fingerprint(zs.model)}
+    try:
+        assert_replicas_in_sync(zs.opt_state, mesh=mesh)
+        sync["opt_state_refused"] = False
+    except ValueError as e:
+        sync["opt_state_refused"] = "replicat" in str(e)
+    return {"runs": runs, "wires": wires, "sync": sync, "world": world}
+
+
+def zero1_recipe_two_plus_two(workdir, recipe_kw, device=None):
+    """The MT recipe under this gang's ``MLSPARK_DP_MODE=zero1``, three
+    times: 2 epochs into ``<workdir>/split``, 2 more resumed from there,
+    4 into ``<workdir>/whole`` (each call a run of its own). Then
+    ``fit(resume=True)`` over the zero1 checkpoints with a replicated
+    state and with a ZeRO-1 state of another bucket size, each of which
+    must raise ``TopologyMismatch``. Rank 0's results."""
+    from machine_learning_apache_spark_tpu_torch.models.transformer import (
+        Transformer,
+        TransformerConfig,
+    )
+    from machine_learning_apache_spark_tpu_torch.parallel import data_parallel_mesh
+    from machine_learning_apache_spark_tpu_torch.recipes.translation import (
+        make_translation_loss,
+        train_translator,
+    )
+    from machine_learning_apache_spark_tpu_torch.train.checkpoint import (
+        CheckpointManager,
+        TopologyMismatch,
+    )
+    from machine_learning_apache_spark_tpu_torch.train.loop import fit
+    from machine_learning_apache_spark_tpu_torch.train.state import TrainState, make_optimizer
+
+    rank, world = _rank_world()
+    dev = _worker_device(device)
+    runs = {}
+    gang_run = os.environ.get("MLSPARK_GANG_RUN")
+    for name, sub, epochs in (("first", "split", 2), ("second", "split", 2),
+                              ("whole", "whole", 4)):
+        os.environ["MLSPARK_GANG_RUN"] = f"{gang_run}-{name}"
+        out = train_translator(
+            device=dev, epochs=epochs, checkpoint_dir=os.path.join(workdir, sub),
+            _return_state=True, **recipe_kw,
+        )
+        st = out["state"]
+        runs[name] = {
+            "params": {k: v.detach().cpu().numpy() for k, v in st.model.state_dict().items()},
+            "opt_state": {k: v.detach().cpu().numpy() for k, v in st.opt_state.items()},
+            "type": type(st).__name__,
+            "resumed_from_step": out.get("resumed_from_step"),
+            "step_losses": list(out["fit_result"].step_losses),
+        }
+    crossed = {}
+    mine = os.path.join(workdir, "whole", f"ckpt_r{rank}")
+    for label, kw in (("replicated", {"dp_mode": "replicated"}),
+                      ("bucket_4096", {"dp_mode": "zero1", "dp_bucket_bytes": 4096})):
+        model = Transformer(TransformerConfig(
+            src_vocab_size=out["src_vocab"], trg_vocab_size=out["trg_vocab"],
+            d_model=recipe_kw["d_model"], ffn_hidden=recipe_kw["ffn_hidden"],
+            num_heads=recipe_kw["num_heads"], max_len=recipe_kw["max_len"]))
+        state = TrainState.create(model=model, tx=make_optimizer("adam"))
+        try:
+            fit(state, make_translation_loss(0), [], epochs=5, mesh=data_parallel_mesh(device="cpu"),
+                checkpointer=CheckpointManager(mine), resume=True, log_every=0, **kw)
+            crossed[label] = "no raise"
+        except TopologyMismatch as e:
+            crossed[label] = str(e)
+    return {"rank": rank, "world": world, "runs": runs, "crossed": crossed}

@@ -14,10 +14,11 @@ its cross-attention and self-attention sites over fp32 and int8 pages;
 the forward with ``lse``, dQ and dK/dV at the three MT training sites
 and at one sequence of the encoder site (fixture keys, all keys valid);
 and the forward at the KV-cache decoders' one-query-row sites (with each
-tree's own launch choice); a tree with bf16 instantiations (the
-``*_bf16`` entry points) also times them at the same sites on bf16
-inputs (the ``bf16 ...`` rows; an older tree reads ``n/m`` there). The
-inputs are made by
+tree's own launch choice) beside ``F.scaled_dot_product_attention`` with
+a bool mask on the same inputs (the ``SDPA ...`` rows); a tree with bf16
+instantiations (the ``*_bf16`` entry points) also times them at the
+same sites on bf16 inputs (the ``bf16 ...`` rows; an older tree reads
+``n/m`` there). The inputs are made by
 this tree's ``chip_smoke.py`` helpers from the same seeds for every run,
 and the wrappers are called only with arguments that trees since the
 first port slice take, so an older tree runs as it is. Prints each run's
@@ -52,6 +53,7 @@ def worker(tree: Path) -> dict:
     """Times one tree's kernels; the tree's package comes first on the path."""
     sys.path.insert(0, str(tree))
     import torch
+    import torch.nn.functional as F
 
     from machine_learning_apache_spark_tpu_torch.ops import hopper_attention as hop
 
@@ -108,6 +110,12 @@ def worker(tree: Path) -> dict:
         for site, c in cs.decode_sites(torch, dev, cs.bleu_val_valid(), **kw_dt).items():
             record(f"{tag}forward @ decode {site}",
                    lambda c=c: hop.flash_attention_fwd(c["q"], c["k"], c["v"], kv_valid=c["kv_valid"]))
+            # The library call the kernel table sets beside it, read by
+            # the same profiler in the same process.
+            mask = None if c["kv_valid"] is None else c["kv_valid"][:, None, None, :]
+            record(f"{tag}SDPA @ decode {site}",
+                   lambda c=c, mask=mask: F.scaled_dot_product_attention(
+                       c["q"], c["k"], c["v"], attn_mask=mask))
     return dict(tree=str(tree), card=cs.card_line(), device_ms=times)
 
 
