@@ -218,6 +218,29 @@ Phases, each fatal on failure:
    replicated step again, with the host-timed reduce-scatter, all-gather
    and all-reduce windows per step, and ``fit``'s dispatch at 1 and 4
    steps per call;
+7f. tensor parallelism on the model axis — ``Session`` -> ``Distributor``
+   -> one 4-rank gang sharing the card over gloo, every mesh a view of
+   its process group: the MT model at reference width (dropout 0, Adam,
+   global batch 32, the fixture's first epoch and its eval) on (a)
+   ``{data: 4}``, (b) ``{data: 1, model: 4}`` (2 heads a rank), (c)
+   ``{data: 2, model: 2}``, (d) (c) under ZeRO-1 (float32 overlapped and
+   serial, the bf16 wire), (e) (c) with checkpoints, 1 + 1 epochs
+   against 2, and a resume under (b) that must raise
+   ``TopologyMismatch``, (f) ``train_translator(model_parallel=2)``
+   returning a gathered ``Translator``, whose paged engine serves 64
+   fixture sentences. Gates: (b) and (c) step losses within 1e-4
+   relative of one process on the same global batches; (d) float32 the
+   bits of (c), parameters and each rank's moment shards, the bf16 wire's
+   losses within 2 x 2^-8 of float32's; (d)'s optimizer bytes per rank
+   exactly 2 x 4 x its shard + 4 and at most the replicated model's / 4
+   + 64; (e) bit for bit; (f) gathered parameters the shards
+   concatenated, paged engine against its one-shot decode >= 0.99 and no
+   recompile after warmup; every rank 45 / 36 / 36 flash launches a
+   fixture epoch with eval; the training kernels against their plain
+   versions at the TP shapes ``[32,4,..]``, ``[16,4,..]``, ``[32,2,..]``.
+   Printed: each mesh's step ms beside one process's, the model axis's
+   ``comms.tp_allreduce`` window and bytes per step, the data axis's
+   window, each rank's peak and optimizer bytes;
 8. times — requests/s, generated tokens/s and peak device memory of each
    engine (paged fp32 and int8, padded, beam); each engine's requests/s
    and device idle share over one profiled window; the host time of the
@@ -719,9 +742,9 @@ def _rel(got, want) -> float:
     return ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
 
 
-def check_training_kernels(torch, hop, sites: dict, dev, dtype=None) -> dict:
+def check_training_kernels(torch, hop, sites: dict, dev, dtype=None, edges: bool = True) -> dict:
     """The forward with ``lse``, dQ and dK/dV against their plain versions
-    on the same inputs, at the training sites and at edge cases. Returns
+    on the same inputs, at the training sites and (``edges``) at edge cases. Returns
     each kernel instantiation's largest absolute and relative error. At
     ``dtype`` bf16 (sites made in bf16) the gates are ``BF16_TOL`` of the
     largest value (``BF16_LSE_TOL`` for ``lse``)."""
@@ -730,7 +753,7 @@ def check_training_kernels(torch, hop, sites: dict, dev, dtype=None) -> dict:
     fwd, dq_name, dkv_name = (hop.kernel_name(n, dtype) for n in (
         "flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"))
     rng = np.random.default_rng(SEED + 3)
-    cases = list(sites.items()) + [
+    cases = list(sites.items()) + ([] if not edges else [
         ("edge: fully masked batch row, Sk=45, d=128",
          _edge_case(torch, rng, dev, 3, 2, 37, 45, 128, causal=False, valid_frac=0.5, empty_batch=1, dtype=dtype)),
         ("edge: causal Sq>Sk 40x30 (rows see nothing), d=16",
@@ -747,7 +770,7 @@ def check_training_kernels(torch, hop, sites: dict, dev, dtype=None) -> dict:
          _edge_case(torch, rng, dev, 2, 4, 33, 70, 64, causal=False, valid_frac=None, n_valid=0, dtype=dtype)),
         ("edge: one query row, 1x65, masked keys, d=64",
          _edge_case(torch, rng, dev, 2, 8, 1, 65, 64, causal=False, valid_frac=0.8, dtype=dtype)),
-    ]
+    ])
     worst = {n: [0.0, 0.0] for n in (fwd, dq_name, dkv_name)}
 
     def record(name, label, got, want, tol=BF16_TOL if bf16 else TOL):
@@ -4252,6 +4275,405 @@ def zero1_slice(torch, hop, card: str) -> dict:
     return dict(wall=wall, ranks=ranks)
 
 
+# -- phase 7f: tensor parallelism on the model axis ------------------------------
+
+TP_GANG = 4
+TP_MESHES = {
+    "a {data: 4}": {"data": 4},
+    "b {data: 1, model: 4}": {"data": 1, "model": 4},
+    "c {data: 2, model: 2}": {"data": 2, "model": 2},
+}
+TP_RTOL = 1e-4
+TP_BF16_LOSS_RTOL = 2 * 2.0 ** -8
+# Flash forward / dQ / dK/dV launches per rank over the fixture's first
+# epoch with its eval: 3 sites x 12 steps, + 3 sites x 3 eval batches.
+TP_LAUNCHES = (45, 36, 36)
+TP_WARMUP, TP_TIMED = 3, 10
+
+
+def tp_sites(torch, dev, src, trg_in) -> dict:
+    """The training sites at the shapes a rank hands the kernels under
+    tensor parallelism: ``[32, 4, ..]`` (M = 2 of a full batch), ``[16,
+    4, ..]`` (M = 2 of a data half) and ``[32, 2, ..]`` (M = 4)."""
+    out = {}
+    for rows, heads in ((32, 4), (16, 4), (32, 2)):
+        sites = training_sites(torch, np.random.default_rng(SEED + rows + heads), dev,
+                               src[:rows], trg_in[:rows], heads=heads)
+        out |= {f"TP [{rows},{heads}] {k}": v for k, v in sites.items()}
+    return out
+
+
+def _data_rows(batch, index: int, ways: int):
+    """Data index ``index``'s contiguous rows of a global batch."""
+    n = len(batch[0]) // ways
+    return tuple(np.asarray(a)[index * n:(index + 1) * n] for a in batch)
+
+
+def _tp_fit(torch, axes: dict, batches, val_batches, *, epochs=1, ckpt=None, resume=False,
+            **fit_kw) -> tuple[dict, object]:
+    """One ``fit(mesh=)`` + ``evaluate(mesh=)`` of the reference MT model
+    in this rank on ``axes``, each data index on its rows of the global
+    batches: step losses, launches, peak, optimizer bytes, comms."""
+    import gc
+
+    from machine_learning_apache_spark_tpu_torch.ops import hopper_attention as hop
+    from machine_learning_apache_spark_tpu_torch.parallel import make_mesh, zero
+    from machine_learning_apache_spark_tpu_torch.recipes.translation import make_translation_loss
+    from machine_learning_apache_spark_tpu_torch.train.checkpoint import CheckpointManager
+    from machine_learning_apache_spark_tpu_torch.train.loop import evaluate, fit
+    from machine_learning_apache_spark_tpu_torch.train.state import TrainState, make_optimizer
+
+    mesh = make_mesh(axes)
+    d, ways = mesh.index("data"), mesh.axis_size("data")
+    model, _, r = _mt_model(torch, mesh.device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hop.reset_launches()
+    state = TrainState.create(model=model, tx=make_optimizer("adam", r.learning_rate))
+    mgr = CheckpointManager(ckpt) if ckpt else None
+    try:
+        res = fit(state, make_translation_loss(model.cfg.pad_id),
+                  [_data_rows(b, d, ways) for b in batches], epochs=epochs, mesh=mesh,
+                  log_every=0, rng=torch.Generator().manual_seed(r.seed), checkpointer=mgr,
+                  resume=resume, **fit_kw)
+    finally:
+        if mgr is not None:
+            mgr.close()
+    metrics = evaluate(res.state, make_translation_loss(model.cfg.pad_id, train=False),
+                       [_data_rows(b, d, ways) for b in val_batches], mesh=mesh, emit=lambda s: None)
+    torch.cuda.synchronize()
+    return dict(
+        step_losses=res.step_losses, launches=dict(hop.LAUNCHES),
+        peak=torch.cuda.max_memory_allocated(), opt_bytes=zero.opt_state_bytes_per_chip(res.state),
+        comms=res.comms, test_loss=metrics["test_loss"], steps=res.state.step,
+        type=type(res.state).__name__, resumed=res.resumed_step,
+        shard_len=getattr(getattr(res.state, "plan", None), "shard_len", None),
+    ), res.state
+
+
+def _full_params(torch, state, keep: bool = True) -> dict | None:
+    """``state``'s parameters gathered over the model axis (a collective:
+    every rank calls it), on the host where ``keep``."""
+    from machine_learning_apache_spark_tpu_torch.parallel.tensor_parallel import gather_params
+
+    full = gather_params(state.model)
+    return {k: v.detach().cpu() for k, v in full.items()} if keep else None
+
+
+def _moments_match(torch, zstate, ref) -> bool:
+    """Whether this rank's ZeRO-1 moment shards are, bit for bit, the
+    slices of the replicated hybrid state ``ref``'s moments its plan
+    assigns it."""
+    ok = True
+    for key in ("exp_avg", "exp_avg_sq"):
+        by_param = [ref.optimizer.state[p][key] for p in ref.params]
+        flat = torch.zeros(zstate.plan.padded, device=zstate.shard.device)
+        for i, o, n in zip(zstate.order, zstate.plan.offsets, zstate.plan.sizes):
+            flat[o:o + n] = by_param[i].reshape(-1)
+        want = torch.cat([flat[zstate.bucket_span(k)[0]] for k in range(len(zstate.plan.buckets))])
+        ok = ok and bool(torch.equal(want, zstate.opt_state[key]))
+    return ok
+
+
+def _tp_step_times(torch, axes: dict, batches, config=None) -> dict:
+    """This rank's step on ``axes`` (``config``: ZeRO-1's), ``TP_WARMUP``
+    steps then ``TP_TIMED`` timed, host-timed with the card synchronised
+    at both ends; the model axis's all-reduce window and bytes per step
+    and the data axis's gradient window per step."""
+    import gc
+
+    from machine_learning_apache_spark_tpu_torch.parallel import (
+        make_data_parallel_step,
+        make_mesh,
+        tensor_parallel,
+        zero,
+    )
+    from machine_learning_apache_spark_tpu_torch.recipes.translation import make_translation_loss
+    from machine_learning_apache_spark_tpu_torch.train.loop import to_device
+    from machine_learning_apache_spark_tpu_torch.train.state import TrainState, make_optimizer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = make_mesh(axes)
+    d, ways = mesh.index("data"), mesh.axis_size("data")
+    model, _, r = _mt_model(torch, mesh.device)
+    loss_fn = make_translation_loss(model.cfg.pad_id)
+    local = [to_device(_data_rows(b, d, ways), mesh.device) for b in batches]
+    state = TrainState.create(model=model, tx=make_optimizer("adam", r.learning_rate))
+    if config is None:
+        state = tensor_parallel.shard_state(state, mesh)
+        step = make_data_parallel_step(loss_fn, mesh)
+    else:
+        state = zero.init_sharded(model=model, tx=state.tx, mesh=mesh, config=config)
+        step = zero.make_zero1_step(loss_fn, mesh, state)
+    _timed_steps(torch, step, state, local, TP_WARMUP)
+    tp_axis = getattr(state.model, "tp_axis", None)
+    before = (step.comms.stats(), tp_axis.comms.stats() if tp_axis else {})
+    sec = _timed_steps(torch, step, state, local, TP_TIMED)
+    after = (step.comms.stats(), tp_axis.comms.stats() if tp_axis else {})
+    per = [{k: a[k] - b.get(k, 0) for k in a if isinstance(a[k], (int, float))}
+           for a, b in zip(after, before)]
+    out = dict(ms=1e3 * sec)
+    if tp_axis is not None:
+        out["tp_allreduce_ms"] = 1e3 * per[1]["tp_allreduce_window_seconds"] / TP_TIMED
+        out["tp_allreduce_bytes"] = per[1]["tp_allreduce_bytes"] / TP_TIMED
+        out["tp_allreduce_calls"] = per[1]["tp_allreduce_calls"] / TP_TIMED
+    if config is None and ways > 1:
+        out["data_allreduce_ms"] = 1e3 * per[0]["allreduce_window_seconds"] / TP_TIMED
+    elif config is not None:
+        out |= {f"data_{k}_ms": 1e3 * per[0][f"{k}_window_seconds"] / TP_TIMED
+                for k in zero.Zero1Comms.KINDS}
+    del state, step, model
+    return out
+
+
+def _rel_to(got: dict, want: dict) -> float:
+    """The largest per-tensor max |got - want| / max |want|."""
+    return max(float((got[k].double() - v.double()).abs().max() / v.double().abs().max().clamp_min(1e-30))
+               for k, v in want.items())
+
+
+def _same_bits(torch, got: dict, want: dict) -> bool:
+    return all(bool(torch.equal(got[k], v)) for k, v in want.items())
+
+
+def tp_gang_rank(root: str, batches, val_batches, serve_prompts, ref_params) -> dict:
+    """One rank of phase 7f's 4-rank gang: runs (a)-(f) (see the module
+    docstring), then the step times on each mesh. Every rank's numbers,
+    in rank order; rank 0's gates hold the gathered parameters against
+    one process's (``ref_params``) and against each other, and its
+    served requests."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from machine_learning_apache_spark_tpu_torch.ops import hopper_attention as hop
+    from machine_learning_apache_spark_tpu_torch.parallel import tensor_parallel as tp
+    from machine_learning_apache_spark_tpu_torch.recipes.translation import train_translator
+    from machine_learning_apache_spark_tpu_torch.train.checkpoint import TopologyMismatch
+
+    rank = dist.get_rank()
+    runs, params, gates = {}, {}, {}
+    c_label = "c {data: 2, model: 2}"
+    for label, axes in TP_MESHES.items():
+        runs[label], st = _tp_fit(torch, axes, batches, val_batches)
+        params[label] = _full_params(torch, st, keep=rank == 0)
+        if label == c_label:
+            ref_state = st
+    zero_runs = {"d ZeRO-1 fp32": dict(dp_overlap=True), "d ZeRO-1 fp32 serial": dict(dp_overlap=False),
+                 "d ZeRO-1 bf16 wire": dict(dp_comms_dtype="bfloat16")}
+    for label, kw in zero_runs.items():
+        runs[label], st = _tp_fit(torch, TP_MESHES[c_label], batches, val_batches, dp_mode="zero1",
+                                  dp_bucket_bytes=4 * 2**20, **kw)
+        params[label] = _full_params(torch, st, keep=rank == 0)
+        if "bf16" not in label:
+            gates[f"{label} moments"] = _moments_match(torch, st, ref_state)
+        del st
+    del ref_state
+    for name, sub, epochs, resume in (("e first", "split", 1, False), ("e second", "split", 2, True),
+                                      ("e whole", "whole", 2, False)):
+        ckpt = os.path.join(root, sub, f"ckpt_r{rank}")
+        runs[name], st = _tp_fit(torch, TP_MESHES[c_label], batches, val_batches, epochs=epochs,
+                                 ckpt=ckpt, resume=resume)
+        params[name] = _full_params(torch, st, keep=rank == 0)
+        del st
+    try:
+        _tp_fit(torch, TP_MESHES["b {data: 1, model: 4}"], batches, val_batches, epochs=3,
+                ckpt=os.path.join(root, "split", f"ckpt_r{rank}"), resume=True)
+        gates["crossed resume"] = "no error"
+    except TopologyMismatch as e:
+        gates["crossed resume"] = str(e)
+    # (f) the recipe with model_parallel=2 on {data: 2, model: 2}.
+    hop.reset_launches()
+    out = train_translator(data_root=str(FIXTURES), batch_size=16, dropout=0.0, log_every=0,
+                           model_parallel=2, _return_state=True, _return_translator=True)
+    recipe_launches = dict(hop.LAUNCHES)
+    sharded, translator = out["state"].model, out["translator"]
+    gathered = tp.gather_params(sharded)
+    concat = True
+    for name, p in sharded.named_parameters():
+        axis = getattr(p, "tp_axis", None)
+        if axis is None:
+            concat = concat and bool(torch.equal(gathered[name], p.detach()))
+            continue
+        pieces = axis.pieces(p.detach())
+        concat = concat and bool(torch.equal(pieces[axis.index], p.detach()))
+        concat = concat and bool(torch.equal(gathered[name], tp.unshard(pieces, p.tp_dim, p.tp_parts)))
+    runs["f recipe"] = dict(step_losses=out["fit_result"].step_losses, launches=recipe_launches,
+                            test_loss=out["test_loss"], logit_pad=sharded.cfg.logit_pad,
+                            mesh=dict(out["state"].mesh.shape), concat=concat,
+                            translator_sharded=translator.model.tp_axis is not None)
+    served = None
+    if rank == 0:
+        served = serve_once(torch, hop, translator, serve_prompts, "TP gathered paged fp32",
+                            kv_dtype="float32", **SERVE)
+        one = translator(serve_prompts, max_new_tokens=SERVE["max_new_tokens"])
+        served = dict(agreement=agreement(served["outs"], one)[0], programs=served["programs"],
+                      replays=served["replays"], launches=served["launches"], wall=served["wall"])
+        for label in TP_MESHES:
+            gates[f"{label} params rel"] = _rel_to(params[label], ref_params)
+        for label in ("d ZeRO-1 fp32", "d ZeRO-1 fp32 serial"):
+            gates[f"{label} same bits"] = _same_bits(torch, params[label], params[c_label])
+        gates["e same bits"] = _same_bits(torch, params["e second"], params["e whole"])
+    del out, sharded, translator, gathered, params
+    times = {label: _tp_step_times(torch, axes, batches) for label, axes in TP_MESHES.items()}
+    from machine_learning_apache_spark_tpu_torch.parallel import zero
+
+    times["d ZeRO-1 fp32"] = _tp_step_times(torch, TP_MESHES[c_label], batches,
+                                            zero.Zero1Config(bucket_bytes=4 * 2**20))
+    times["d ZeRO-1 bf16 wire"] = _tp_step_times(
+        torch, TP_MESHES[c_label], batches,
+        zero.Zero1Config(bucket_bytes=4 * 2**20, comms_dtype="bfloat16"))
+    return _gather(dict(rank=rank, runs=runs, gates=gates, times=times, served=served))
+
+
+def _tp_reference(torch, batches, val_batches) -> dict:
+    """One process on the card over the same global batches: step losses,
+    parameters, the eval loss, the replicated optimizer bytes and the
+    step time (one process, host-timed as the gang's)."""
+    from machine_learning_apache_spark_tpu_torch.parallel import zero
+    from machine_learning_apache_spark_tpu_torch.recipes.translation import make_translation_loss
+    from machine_learning_apache_spark_tpu_torch.train.loop import evaluate, fit, make_train_step, to_device
+    from machine_learning_apache_spark_tpu_torch.train.state import TrainState, make_optimizer
+
+    dev = torch.device("cuda")
+    model, _, r = _mt_model(torch, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = TrainState.create(model=model, tx=make_optimizer("adam", r.learning_rate))
+    res = fit(state, make_translation_loss(model.cfg.pad_id), batches, epochs=1,
+              rng=torch.Generator().manual_seed(r.seed), log_every=0)
+    metrics = evaluate(state, make_translation_loss(model.cfg.pad_id, train=False), val_batches,
+                       emit=lambda s: None)
+    out = dict(step_losses=res.step_losses, test_loss=metrics["test_loss"],
+               params={k: v.detach().cpu() for k, v in model.state_dict().items()},
+               opt_bytes=zero.opt_state_bytes(state.optimizer), peak=torch.cuda.max_memory_allocated(),
+               n_params=sum(p.numel() for p in model.parameters()))
+    model, _, r = _mt_model(torch, dev)
+    state = TrainState.create(model=model, tx=make_optimizer("adam", r.learning_rate))
+    step = make_train_step(make_translation_loss(model.cfg.pad_id))
+    local = [to_device(b, dev) for b in batches]
+    _timed_steps(torch, step, state, local, TP_WARMUP)
+    out["ms"] = 1e3 * _timed_steps(torch, step, state, local, TP_TIMED)
+    return out
+
+
+def _max_rel(a, b) -> float:
+    return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+
+def tp_slice(torch, hop, card: str, dev) -> dict:
+    """Phase 7f: the training kernels at the TP shapes, the one-process
+    reference, then one 4-rank gang over every mesh (``tp_gang_rank``)
+    and its gates."""
+    import shutil
+
+    from machine_learning_apache_spark_tpu_torch import Session
+    from machine_learning_apache_spark_tpu_torch.data.datasets import load_multi30k
+    from machine_learning_apache_spark_tpu_torch.launcher import Distributor, kill_stray_gangs
+
+    t_phase = time.perf_counter()
+    src_pipe, _, train_ds = fixture_data()
+    batches = train_batches(train_ds, 12)
+    src0, trg0 = batches[0]
+    errs = check_training_kernels(torch, hop, tp_sites(torch, dev, src0, trg0[:, :-1]), dev, edges=False)
+    val_loader, _ = eval_loader()
+    val_batches = list(val_loader)
+    serve_prompts = [s for s, _ in load_multi30k(str(FIXTURES), "valid")][:N_REQUESTS]
+    ref = _tp_reference(torch, batches, val_batches)
+    log(f"  one process on the same {len(batches)} global batches of 32: {ref['ms']:.3f} ms/step "
+        f"(host-timed over {TP_TIMED} after {TP_WARMUP}), peak {ref['peak'] / 2**20:.1f} MiB, "
+        f"{ref['n_params']} parameters, Adam state {ref['opt_bytes']} bytes [{card}]")
+    root = scratch_dir() / "tp"
+    shutil.rmtree(root, ignore_errors=True)
+    spark = Session.builder.appName("TensorParallelTranslation").config(
+        "spark.executor.instances", str(TP_GANG)).getOrCreate()
+    try:
+        t0 = time.perf_counter()
+        ranks = Distributor(num_processes=spark.conf.executor_instances, timeout=900).run(
+            "chip_smoke:tp_gang_rank", str(root), batches, val_batches, serve_prompts, ref["params"])
+        wall = time.perf_counter() - t0
+    finally:
+        spark.stop()
+    if kill_stray_gangs() != 0:
+        fail("the tensor-parallel gang left a stray process group")
+    r0 = ranks[0]
+    runs, gates = r0["runs"], r0["gates"]
+    log(f"  Session -> Distributor, {TP_GANG} ranks on one card over gloo: {wall:.2f} s spawn to "
+        f"result (meshes a-f and the step times)")
+    for label in TP_MESHES:
+        rel = _max_rel(runs[label]["step_losses"], ref["step_losses"])
+        pmax = gates[f"{label} params rel"]
+        log(f"    {label}: step losses max relative difference to one process {rel:.3e} (gate "
+            f"{TP_RTOL}), parameters largest relative difference {pmax:.3e}, eval loss "
+            f"{runs[label]['test_loss']:.6f} (one process {ref['test_loss']:.6f})")
+        if rel > TP_RTOL:
+            fail(f"{label}: step losses {rel:.3e} from one process")
+    c = "c {data: 2, model: 2}"
+    for label in ("d ZeRO-1 fp32", "d ZeRO-1 fp32 serial"):
+        same = gates[f"{label} same bits"]
+        moments = [rk["gates"][f"{label} moments"] for rk in ranks]
+        log(f"    {label} against (c): step losses equal {runs[label]['step_losses'] == runs[c]['step_losses']}, "
+            f"parameters the same bits {same}, each rank's moment shards the slices of (c)'s: {moments}")
+        if not same or runs[label]["step_losses"] != runs[c]["step_losses"] or not all(moments):
+            fail(f"{label} did not train the bits of the replicated hybrid mesh")
+    rel = _max_rel(runs["d ZeRO-1 bf16 wire"]["step_losses"], runs["d ZeRO-1 fp32"]["step_losses"])
+    log(f"    d ZeRO-1 bf16 wire: step losses within {rel:.3e} of the float32 wire's (gate {TP_BF16_LOSS_RTOL:.3e})")
+    if rel > TP_BF16_LOSS_RTOL:
+        fail(f"the hybrid bf16 wire's losses {rel:.3e} from the float32 wire's")
+    for rk in ranks:
+        z, zr = rk["runs"]["d ZeRO-1 fp32"], rk["runs"][c]
+        want = 2 * 4 * z["shard_len"] + 4
+        log(f"    rank {rk['rank']}: optimizer bytes ZeRO-1 {z['opt_bytes']} (2 x 4 x {z['shard_len']} + 4; "
+            f"replicated hybrid {zr['opt_bytes']}, one process {ref['opt_bytes']}, bound one process / 4 + 64 = "
+            f"{ref['opt_bytes'] / 4 + 64:.0f}); peak max_memory_allocated "
+            + ", ".join(f"{k.split()[0]} {v['peak'] / 2**20:.1f}" for k, v in rk["runs"].items()
+                        if k[0] in "abcd") + f" MiB (one process {ref['peak'] / 2**20:.1f}) [{card}]")
+        if z["opt_bytes"] != want or z["opt_bytes"] > ref["opt_bytes"] / 4 + 64:
+            fail(f"rank {rk['rank']}'s hybrid ZeRO-1 optimizer holds {z['opt_bytes']} bytes")
+        for label, run in rk["runs"].items():
+            if label[0] not in "abcdf" or label == "e first":
+                continue
+            got = tuple(run["launches"][n] for n in TENSOR_CORE_KERNELS)
+            if got != TP_LAUNCHES:
+                fail(f"rank {rk['rank']} {label}: flash launches {got}, not {TP_LAUNCHES}")
+    log(f"    every rank, every run (a-d, f): flash forward / dQ / dK/dV launches {TP_LAUNCHES}")
+    first, second, whole = runs["e first"], runs["e second"], runs["e whole"]
+    same = gates["e same bits"]
+    log(f"    e checkpoints on (c): 1 + 1 epochs (resumed from step {second['resumed']}) against 2: "
+        f"step losses equal {first['step_losses'] + second['step_losses'] == whole['step_losses']}, "
+        f"parameters the same bits {same}; resuming them on (b): {gates['crossed resume'][:160]}")
+    if second["resumed"] != first["steps"] or not same or \
+            first["step_losses"] + second["step_losses"] != whole["step_losses"]:
+        fail("the hybrid mesh's 1 + 1 epochs did not train the bits of 2")
+    if "written by a different topology" not in gates["crossed resume"]:
+        fail("resuming (c)'s checkpoints on (b) did not raise TopologyMismatch")
+    f, served = runs["f recipe"], r0["served"]
+    log(f"    f train_translator(model_parallel=2) on {f['mesh']}: logit_pad {f['logit_pad']}, eval loss "
+        f"{f['test_loss']:.6f}, gathered parameters the shards concatenated {all(rk['runs']['f recipe']['concat'] for rk in ranks)}, "
+        f"Translator unsharded {not f['translator_sharded']}; its paged engine: {len(serve_prompts)} "
+        f"prompts in {served['wall']:.3f} s, agreement with its one-shot decode {served['agreement']:.6f} "
+        f"(gate >= {AGREEMENT_MIN}), {served['programs']} programs, recompiles_after_warmup 0")
+    if not all(rk["runs"]["f recipe"]["concat"] for rk in ranks) or f["translator_sharded"] \
+            or f["mesh"] != {"data": 2, "model": 2}:
+        fail("the recipe's gathered Translator is not the shards concatenated")
+    if served["agreement"] < AGREEMENT_MIN:
+        fail(f"the gathered Translator's paged engine agrees {served['agreement']:.4f} with its one-shot decode")
+    for rk in ranks:
+        log(f"    rank {rk['rank']} step times (host-timed, {TP_TIMED} after {TP_WARMUP}; one process "
+            f"{ref['ms']:.3f} ms): " + "; ".join(
+                f"{label} {t['ms']:.3f} ms/step (" + ", ".join(
+                    f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}"
+                    for k, v in t.items() if k != "ms") + ")"
+                for label, t in rk["times"].items()) + f" [{card}]")
+    log(f"  phase 7f took {time.perf_counter() - t_phase:.1f} s")
+    return dict(wall=wall, ranks=ranks, ref={k: ref[k] for k in ("ms", "peak", "opt_bytes", "n_params")},
+                errs=errs, served=served)
+
+
 # -- phase 7d: bf16 compute ------------------------------------------------------
 
 BF16 = "bfloat16"
@@ -4599,6 +5021,15 @@ def main() -> int:
     zero1 = zero1_slice(torch, hop, card)
     log(f"  phase 7e took {time.perf_counter() - t0:.1f} s")
 
+    log("== phase 7f: tensor parallelism on the model axis (one 4-rank gang: {data: 4}, "
+        "{data: 1, model: 4}, {data: 2, model: 2}, its ZeRO-1, checkpoints, "
+        "train_translator(model_parallel=2))")
+    tp = tp_slice(torch, hop, card, dev)
+    for name, e in tp["errs"].items():
+        if name in train_errs:
+            train_errs[name]["max_abs_err"] = max(train_errs[name]["max_abs_err"], e["max_abs_err"])
+            train_errs[name]["max_rel_err"] = max(train_errs[name]["max_rel_err"], e["max_rel_err"])
+
     log("== phase 8: times")
     for label, run in runs.items():
         log(f"  {label:7s} engine ({run['kv_mode']}): {len(run['outs']) / run['wall']:.2f} requests/s, "
@@ -4700,6 +5131,12 @@ def main() -> int:
         "gang: MT fault drill, the retried attempt": recovery["drill"]["launches"],
         f"gang: MT ZeRO-1, {GANG} ranks on one card": [
             r["runs"]["zero1"]["launches"] for r in zero1["ranks"]],
+        f"gang: MT TP, {TP_GANG} ranks on one card ({{data: 1, model: 4}}, {{data: 2, model: 2}}, "
+        "train_translator(model_parallel=2))": [
+            r["runs"][k]["launches"] for r in tp["ranks"]
+            for k in ("b {data: 1, model: 4}", "c {data: 2, model: 2}", "f recipe")],
+        f"gang: MT TP ZeRO-1, {TP_GANG} ranks on one card ({{data: 2, model: 2}})": [
+            r["runs"]["d ZeRO-1 fp32"]["launches"] for r in tp["ranks"]],
         "live plane: paged fp32 engine": [recovery["live"]["paged fp32"]["launches"]],
         "live plane: padded engine": [recovery["live"]["padded"]["launches"]],
         **bf["paths"],
@@ -4772,6 +5209,13 @@ def main() -> int:
         rank=r["rank"], times=r["times"], gates=r["gates"],
         runs={k: {f: v[f] for f in ("steps", "opt_bytes", "peak", "comms", "launches")}
               for k, v in r["runs"].items()}) for r in zero1["ranks"]]), default=str)
+        + f" [{card}]")
+    log("  tp: " + json.dumps(dict(
+        wall=tp["wall"], ref=tp["ref"], errs=tp["errs"],
+        served={k: v for k, v in tp["served"].items() if k != "launches"},
+        ranks=[dict(rank=r["rank"], times=r["times"],
+                    runs={k: {f: v.get(f) for f in ("steps", "opt_bytes", "peak", "comms", "launches")}
+                          for k, v in r["runs"].items()}) for r in tp["ranks"]]), default=str)
         + f" [{card}]")
     log("  bf16: " + json.dumps(dict(
         parity=bf["parity"], train_step={"fp32": train_times, "bf16": train_times_bf16},

@@ -16,7 +16,7 @@ from typing import Callable, Sequence
 import torch
 from torch import nn
 
-from machine_learning_apache_spark_tpu_torch.models.transformer import lecun_normal_
+from machine_learning_apache_spark_tpu_torch.models.transformer import Dense, lecun_normal_
 
 
 class MLP(nn.Module):
@@ -27,8 +27,14 @@ class MLP(nn.Module):
     ``activation`` sits between layers only; logits come out raw for a
     downstream softmax cross-entropy. Parameters are Flax's initialisers
     (LeCun-normal kernels, zero biases) drawn from ``generator`` (seeded 0
-    when None), never from the global RNG. ``tp_rules=True`` (logical-axis
-    annotations for tensor parallelism) raises: the mesh is ROADMAP A4.
+    when None), never from the global RNG.
+
+    ``tp_rules=True`` annotates the kernels with logical axis names,
+    alternating ``("embed", "mlp")`` / ``("mlp", "embed")`` (the
+    column-then-row pairing), so ``parallel.tensor_parallel.shard_params``
+    places them over a mesh ``"model"`` axis; a width the axis cannot
+    divide stays replicated, loudly. A last layer that is column-parallel
+    leaves its outputs sharded, and they are gathered before they leave.
     """
 
     def __init__(
@@ -40,16 +46,13 @@ class MLP(nn.Module):
         generator: torch.Generator | None = None,
     ):
         super().__init__()
-        if tp_rules:
-            raise NotImplementedError(
-                "MLP(tp_rules=True) is not ported yet (ROADMAP queue A4 (distributed))"
-            )
         self.layers = tuple(layers)
         self.activation = activation
         self.tp_rules = tp_rules
         with torch.device("meta"):
             for i, (n_in, n_out) in enumerate(zip(self.layers[:-1], self.layers[1:])):
-                self.add_module(f"dense_{i}", nn.Linear(n_in, n_out))
+                names = (("embed", "mlp") if i % 2 == 0 else ("mlp", "embed")) if tp_rules else None
+                self.add_module(f"dense_{i}", Dense(n_in, n_out, axes=names))
         self.to_empty(device="cpu")
         self.reset_parameters(generator)
 
@@ -80,4 +83,11 @@ class MLP(nn.Module):
             x = getattr(self, f"dense_{i}")(x)
             if i < n - 1:
                 x = self.activation(x)
+        last = getattr(self, f"dense_{n - 1}").tp
+        if last is not None and last.mode == "column":
+            from machine_learning_apache_spark_tpu_torch.parallel.tensor_parallel import (
+                gather_from_model,
+            )
+
+            x = gather_from_model(x, last.axis)
         return x

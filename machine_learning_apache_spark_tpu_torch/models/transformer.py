@@ -136,17 +136,36 @@ class Dense(nn.Linear):
     """``nn.Linear`` with float32 parameters that computes in ``dtype``
     (Flax's ``Dense(dtype=)``): input, weight and bias cast to ``dtype``,
     then ``x·Wᵀ`` rounded to ``dtype`` and the bias added (``add_bias``).
-    At float32 it is ``nn.Linear`` (one fused call: the same function)."""
+    At float32 it is ``nn.Linear`` (one fused call: the same function).
 
-    def __init__(self, n_in: int, n_out: int, dtype: torch.dtype = torch.float32):
+    ``axes`` are the Flax kernel's logical axis names (``[in, out]``) and
+    ``parts`` the fused projections its output holds, which
+    ``parallel.tensor_parallel.shard_params`` reads; once sharded, ``tp``
+    runs the layer's column- or row-parallel forward."""
+
+    tp = None  # a tensor_parallel.LinearShard once sharded
+
+    def __init__(self, n_in: int, n_out: int, dtype: torch.dtype = torch.float32,
+                 *, axes: tuple | None = None, parts: int = 1):
         super().__init__(n_in, n_out)
         self.compute_dtype = dtype
+        if axes is not None:
+            self.logical_axes, self.fused_parts = tuple(axes), parts
+
+    def compute(self, x: torch.Tensor, *, with_bias: bool = True) -> torch.Tensor:
+        """``x·Wᵀ (+ b)`` in the compute dtype, on whatever slice of the
+        weight this rank holds."""
+        dt = self.compute_dtype
+        bias = self.bias if with_bias else None
+        if dt == torch.float32:
+            return nn.functional.linear(x, self.weight, bias)
+        y = nn.functional.linear(x.to(dt), self.weight.to(dt))
+        return y if bias is None else add_bias(y, bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = self.compute_dtype
-        if dt == torch.float32:
-            return nn.functional.linear(x, self.weight, self.bias)
-        return add_bias(nn.functional.linear(x.to(dt), self.weight.to(dt)), self.bias)
+        if self.tp is not None:
+            return self.tp(self, x)
+        return self.compute(x)
 
 
 class LayerNorm(nn.LayerNorm):
@@ -165,8 +184,9 @@ class LayerNorm(nn.LayerNorm):
         return y.to(self.compute_dtype)
 
 
-def _linear(n_in: int, n_out: int, cfg: TransformerConfig) -> nn.Linear:
-    return Dense(n_in, n_out, cfg.dtype)
+def _linear(n_in: int, n_out: int, cfg: TransformerConfig, axes: tuple | None = None,
+            parts: int = 1) -> nn.Linear:
+    return Dense(n_in, n_out, cfg.dtype, axes=axes, parts=parts)
 
 
 def _layer_norm(cfg: TransformerConfig) -> nn.LayerNorm:
@@ -249,17 +269,26 @@ class _ReplayedDraws:
     def rewind(self) -> None:
         self.next = 0
 
-    def keep_mask(self, x: torch.Tensor, keep: float) -> torch.Tensor:
+    def keep_mask(self, x: torch.Tensor, keep: float, shard=None) -> torch.Tensor:
         if self.next == len(self.masks):
-            self.masks.append(_draw_keep_mask(x, keep, self.rng))
+            self.masks.append(_draw_keep_mask(x, keep, self.rng, shard))
         mask = self.masks[self.next]
         self.next += 1
         return mask
 
 
-def _draw_keep_mask(x: torch.Tensor, keep: float, rng: torch.Generator) -> torch.Tensor:
-    draw = torch.rand(x.shape, generator=rng, device=x.device, dtype=x.dtype)
-    return draw < keep
+def _draw_keep_mask(x: torch.Tensor, keep: float, rng: torch.Generator,
+                    shard: tuple[int, int] | None = None) -> torch.Tensor:
+    """The keep-mask of ``x``; for a model-axis shard ``(index, size)`` of
+    the last dim, the mask of the whole width drawn and this rank's slice
+    kept, so the shards of one layer draw as the unsharded layer does."""
+    if shard is None:
+        draw = torch.rand(x.shape, generator=rng, device=x.device, dtype=x.dtype)
+        return draw < keep
+    index, size = shard
+    width = x.shape[-1]
+    draw = torch.rand((*x.shape[:-1], width * size), generator=rng, device=x.device, dtype=x.dtype)
+    return draw[..., index * width:(index + 1) * width] < keep
 
 
 class Dropout(nn.Module):
@@ -270,7 +299,11 @@ class Dropout(nn.Module):
     keeps each element where ``torch.rand(..., generator=rng) < 1 - rate``
     and scales the kept ones by ``1 / (1 - rate)``. ``rng`` must live on
     ``x``'s device (or be a rematerialised layer's ``_ReplayedDraws``).
-    Never touches the global RNG."""
+    Never touches the global RNG. On a model-axis shard of the last dim
+    (``tp_shard = (index, size)``, set by tensor parallelism) the mask is
+    this rank's slice of the whole width's."""
+
+    tp_shard: tuple[int, int] | None = None
 
     def __init__(self, rate: float):
         super().__init__()
@@ -285,9 +318,9 @@ class Dropout(nn.Module):
         if keep == 0.0:
             return torch.zeros_like(x)
         if isinstance(rng, _ReplayedDraws):
-            mask = rng.keep_mask(x, keep)
+            mask = rng.keep_mask(x, keep, self.tp_shard)
         else:
-            mask = _draw_keep_mask(x, keep, rng)
+            mask = _draw_keep_mask(x, keep, rng, self.tp_shard)
         return torch.where(mask, x / keep, 0.0)
 
 
@@ -379,24 +412,39 @@ class SentenceEmbedding(nn.Module):
 class MultiHeadAttention(nn.Module):
     """Self-attention with a fused ``qkv`` projection (C17), or
     cross-attention with ``q`` and a fused ``kv`` (C21) that reshapes each
-    stream with its own length (Q8 fixed)."""
+    stream with its own length (Q8 fixed).
+
+    Under tensor parallelism the projections are column-parallel and
+    ``out`` row-parallel; ``heads`` becomes this rank's ``H/M``, whose q,
+    k and v columns its slices of the fused kernels hold."""
 
     def __init__(self, cfg: TransformerConfig, *, cross: bool = False):
         super().__init__()
         self.cfg = cfg
         self.cross = cross
+        self.heads = cfg.num_heads
         d = cfg.d_model
         if cross:
-            self.q = _linear(d, d, cfg)
-            self.kv = _linear(d, 2 * d, cfg)
+            self.q = _linear(d, d, cfg, ("embed", "heads"))
+            self.kv = _linear(d, 2 * d, cfg, ("embed", "heads"), parts=2)
         else:
-            self.qkv = _linear(d, 3 * d, cfg)
-        self.out = _linear(d, d, cfg)
+            self.qkv = _linear(d, 3 * d, cfg, ("embed", "heads"), parts=3)
+        self.out = _linear(d, d, cfg, ("heads", "embed"))
+
+    def tp_check(self, ways: int) -> None:
+        if self.cfg.num_heads % ways:
+            raise ValueError(
+                f"num_heads={self.cfg.num_heads} does not divide over a "
+                f"{ways}-way model axis: each rank runs whole heads"
+            )
+
+    def tp_sharded(self, axis) -> None:
+        if (self.q if self.cross else self.qkv).tp is not None:
+            self.heads = self.cfg.num_heads // axis.size
 
     def _split_heads(self, t: torch.Tensor) -> torch.Tensor:
         b, length, _ = t.shape
-        cfg = self.cfg
-        return t.view(b, length, cfg.num_heads, cfg.head_dim).transpose(1, 2)
+        return t.view(b, length, self.heads, self.cfg.head_dim).transpose(1, 2)
 
     def project_memory(self, memory: torch.Tensor):
         """Cross-attention K/V over the encoder memory, ``[B, S, d]``
@@ -424,7 +472,7 @@ class MultiHeadAttention(nn.Module):
             self._split_heads(q), self._split_heads(k), self._split_heads(v),
             mask, causal=causal, kv_valid=kv_valid,
         )
-        return self.out(out.transpose(1, 2).reshape(b, s_q, d))
+        return self.out(out.transpose(1, 2).reshape(b, s_q, self.heads * self.cfg.head_dim))
 
     def forward_decode(
         self,
@@ -491,9 +539,14 @@ class FeedForward(nn.Module):
 
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
-        self.up = _linear(cfg.d_model, cfg.ffn_hidden, cfg)
-        self.down = _linear(cfg.ffn_hidden, cfg.d_model, cfg)
+        self.up = _linear(cfg.d_model, cfg.ffn_hidden, cfg, ("embed", "mlp"))
+        self.down = _linear(cfg.ffn_hidden, cfg.d_model, cfg, ("mlp", "embed"))
         self.dropout = Dropout(cfg.dropout)
+
+    def tp_sharded(self, axis) -> None:
+        # The dropout between up and down sees this rank's hidden slice.
+        if self.up.tp is not None:
+            self.dropout.tp_shard = (axis.index, axis.size)
 
     def forward(
         self, x: torch.Tensor, dropout_rng: torch.Generator | None = None, *,
@@ -708,7 +761,7 @@ class Transformer(nn.Module):
             self.encoder = Encoder(cfg)
             self.decoder = Decoder(cfg)
             self.lm_head = _linear(
-                cfg.d_model, cfg.trg_vocab_size + cfg.logit_pad, cfg
+                cfg.d_model, cfg.trg_vocab_size + cfg.logit_pad, cfg, ("embed", "vocab")
             )
         self.to_empty(device="cpu")
         self.reset_parameters(generator)
@@ -735,10 +788,32 @@ class Transformer(nn.Module):
             elif isinstance(m, SentenceEmbedding):
                 m.reset_table()
 
+    #: Set by tensor parallelism: the model axis this model's shard lies on.
+    tp_axis = None
+
+    @property
+    def vocab_shard(self):
+        """``(model axis, first vocab column)`` when the LM head is
+        vocab-parallel: ``logits`` then returns this rank's columns,
+        ``logit_pad`` included, for the vocab-parallel loss; else None."""
+        if self.lm_head.tp is None:
+            return None
+        axis = self.lm_head.tp.axis
+        return axis, axis.index * self.lm_head.weight.shape[0]
+
+    def _single_device(self, what: str) -> None:
+        if self.tp_axis is not None:
+            raise ValueError(
+                f"{what} runs on whole weights; this model holds a model-axis "
+                "shard — load tensor_parallel.gather_params(model) into an "
+                "unsharded Transformer"
+            )
+
     def logits(self, y: torch.Tensor) -> torch.Tensor:
-        """LM head with the vocab padding sliced off."""
+        """LM head with the vocab padding sliced off (a vocab-parallel
+        head's local columns stay as they are)."""
         out = self.lm_head(y)
-        if self.cfg.logit_pad:
+        if self.cfg.logit_pad and self.lm_head.tp is None:
             out = out[..., : self.cfg.trg_vocab_size]
         return out
 
@@ -782,6 +857,7 @@ class Transformer(nn.Module):
 
     def decode_logits(self, trg_tokens, memory, src_valid) -> torch.Tensor:
         """One decoder pass → vocab logits, for the generation loop."""
+        self._single_device("decoding")
         return self.logits(self.decode(trg_tokens, memory, src_valid))
 
     def decode_step(
@@ -808,6 +884,7 @@ class Transformer(nn.Module):
         this step's K/V at ``cache.index``, attend the written prefix with
         ``trg_valid`` ``[B, gen_len]`` (False where the token is pad)
         masking it further, and return the cache with ``index`` + 1."""
+        self._single_device("decode_step")
         prime = cache is None
         if prime:
             gen_len = self.cfg.max_len if trg_valid is None else trg_valid.shape[1]
@@ -838,6 +915,7 @@ class Transformer(nn.Module):
         keeping what its cross-attention sows; nothing else of that pass
         is live, so its compiled program drops the rest. The port computes
         only the live part: the memory projections."""
+        self._single_device("prefill_paged")
         memory = self.encode(src_tokens)
         return (memory, *self._memory_kv(memory))
 

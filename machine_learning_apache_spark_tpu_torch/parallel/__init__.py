@@ -1,12 +1,14 @@
 """parallel — the mesh and data parallelism; the port of
 ``machine_learning_apache_spark_tpu/parallel``.
 
-Data parallelism over a ``torch.distributed`` process group is what the
-port runs (the reference's only strategy): the replicated step (DDP) and
-ZeRO-1 (``parallel.zero``: reduce-scatter, the rank's shard updated,
-all-gather). The JAX package's tensor, pipeline, ring and Ulysses
-parallelism are ROADMAP A4; a mesh axis for them larger than 1 raises
-``NotImplementedError``.
+Data parallelism over a ``torch.distributed`` process group (the
+reference's only strategy): the replicated step (DDP) and ZeRO-1
+(``parallel.zero``: reduce-scatter, the rank's shard updated,
+all-gather); tensor parallelism over the mesh's ``"model"`` axis
+(``parallel.tensor_parallel``, Megatron-style), alone or on a hybrid
+``data × model`` mesh with either. The JAX package's pipeline, ring and
+Ulysses parallelism are ROADMAP A4; a mesh axis for them larger than 1
+raises ``NotImplementedError``.
 """
 
 from machine_learning_apache_spark_tpu_torch.parallel.data_parallel import (
@@ -33,6 +35,13 @@ from machine_learning_apache_spark_tpu_torch.parallel.mesh import (
     replicated_sharding,
     shard_batch,
 )
+from machine_learning_apache_spark_tpu_torch.parallel.tensor_parallel import (
+    DEFAULT_RULES,
+    gather_params,
+    logical_to_mesh_spec,
+    shard_params,
+    shard_state,
+)
 from machine_learning_apache_spark_tpu_torch.parallel.zero import (
     COMMS_DTYPES,
     DEFAULT_BUCKET_BYTES,
@@ -52,6 +61,7 @@ from machine_learning_apache_spark_tpu_torch.parallel.zero import (
 
 __all__ = [
     "COMMS_DTYPES",
+    "DEFAULT_RULES",
     "DEFAULT_BUCKET_BYTES",
     "DP_MODES",
     "DATA_AXIS",
@@ -67,7 +77,9 @@ __all__ = [
     "comms_bytes_per_step",
     "data_model_mesh",
     "data_parallel_mesh",
+    "gather_params",
     "init_sharded",
+    "logical_to_mesh_spec",
     "make_data_parallel_eval_step",
     "make_data_parallel_step",
     "make_flat_plan",
@@ -85,4 +97,6 @@ __all__ = [
     "resolve_dp_mode",
     "shard_batch",
     "shard_optimizer_state",
+    "shard_params",
+    "shard_state",
 ]

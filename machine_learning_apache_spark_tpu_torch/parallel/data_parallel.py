@@ -27,6 +27,14 @@ A DDP comm hook times each bucket's all-reduce on the host, from its
 launch to its completion (``comms.grad_allreduce`` spans), and the step
 counts the bytes reduced (``comms.bytes_allreduced``).
 
+All of this runs over this rank's line of the **data** axis: DDP's
+group, the weights, the loss sums, the replica check. On a ``data ×
+model`` mesh (tensor parallelism, ``parallel.tensor_parallel``) the ranks
+of one model line see the same rows and hold different shards; summing
+over the whole gang would count the rows M times and mix the shards. A
+mesh without a data axis has one replica and no data-parallel sums. The
+model's own collectives run inside its forward and backward.
+
 ``params_fingerprint`` is the JAX package's weighted sum of |p| per leaf,
 in the Flax tree's leaf order; ``assert_replicas_in_sync`` compares it
 across the ranks. The loss-weight helpers here (``loss_weight_of``,
@@ -147,10 +155,10 @@ class GradientComms:
 
 
 def _total_weight(mesh: Mesh, weight: float) -> float:
-    """The loss weight summed over the ranks (a host collective)."""
+    """The loss weight summed over the data replicas (a host collective)."""
     t = torch.tensor([weight], dtype=torch.float64)
     with telemetry.span("comms.weight_allreduce"):
-        mesh.all_reduce_(t)
+        mesh.all_reduce_(t, axis=DATA_AXIS)
     return float(t[0])
 
 
@@ -165,7 +173,7 @@ def _global_means(mesh: Mesh, weight: float, loss: torch.Tensor, aux: dict,
         parts.append(torch.full((), weight, dtype=torch.float32, device=loss.device))
     stats = torch.stack(parts)
     with telemetry.span("comms.loss_allreduce"):
-        mesh.all_reduce_(stats)
+        mesh.all_reduce_(stats, axis=DATA_AXIS)
     denom = stats[-1].clamp_min(_TINY) if total is None else max(total, _TINY)
     stats = stats / denom
     return stats[0], {k: stats[1 + i] for i, k in enumerate(keys)}
@@ -181,8 +189,10 @@ def make_data_parallel_step(loss_fn: Callable, mesh: Mesh, *, axis: str = DATA_A
     loss and aux of the global batch. ``batch`` is this rank's slice, on
     the host (its loss weight is read there) or already on the device;
     ``loss_fn(model, batch, rng)`` runs through ``DDP(state.model)``,
-    built at the first step (its constructor broadcasts rank 0's
-    parameters). ``step.comms`` is the ``GradientComms``.
+    built at the first step over the data axis's group (its constructor
+    broadcasts the first data rank's parameters). ``step.comms`` is the
+    ``GradientComms``; on a mesh with a model axis ``step.tp_comms`` is
+    the model's ``TPComms``, closed once per step.
 
     Accumulation (``accumulate_steps=K``) reduces once per update: the
     first K - 1 microbatches back-propagate under ``no_sync`` into the
@@ -190,25 +200,28 @@ def make_data_parallel_step(loss_fn: Callable, mesh: Mesh, *, axis: str = DATA_A
     reduces the sum of all K, and the mean is that over K."""
     from machine_learning_apache_spark_tpu_torch.train.loop import to_device
 
-    del axis  # one data axis: the whole group
+    del axis  # the data axis: the whole group, or its line on a hybrid mesh
     weight_of = loss_weight_of(loss_fn)
-    comms = GradientComms(mesh.size)
+    dp_world = mesh.axis_size(DATA_AXIS)
+    comms = GradientComms(dp_world)
     counter = telemetry.get_registry().counter("comms", "bytes_allreduced")
     held: dict = {}
 
     def replica(model: nn.Module) -> nn.Module:
-        if mesh.size == 1:
+        if dp_world == 1:
             return model
         if held.get("model") is not model:
             # Buffers are tables every rank builds alike (positional
             # encodings): no broadcast before every forward.
-            ddp = _Replica(model, **_NO_FORWARD_BUFFER_SYNC)
-            ddp.register_comm_hook(None, comms.hook)
+            group = mesh.group(DATA_AXIS)
+            ddp = _Replica(model, process_group=group, **_NO_FORWARD_BUFFER_SYNC)
+            # The hook's state is the group its all-reduce runs over.
+            ddp.register_comm_hook(group, comms.hook)
             held.update(model=model, ddp=ddp)
         return held["ddp"]
 
     def step(state, batch, rng):
-        world = mesh.size
+        world = dp_world
         weight = float(weight_of(batch))
         total = _total_weight(mesh, weight)
         model = replica(state.model)
@@ -238,11 +251,15 @@ def make_data_parallel_step(loss_fn: Callable, mesh: Mesh, *, axis: str = DATA_A
             )
         state.apply_gradients()
         g_loss, g_aux = _global_means(mesh, weight, loss, aux, total)
+        tp_axis = getattr(state.model, "tp_axis", None)
+        if tp_axis is not None:
+            tp_axis.comms.end_step()
         return state, g_loss, g_aux
 
     step.comms = comms
     step.replica = replica
     return step
+
 
 
 def make_data_parallel_eval_step(loss_fn: Callable, mesh: Mesh, *, axis: str = DATA_AXIS):
@@ -323,7 +340,9 @@ def assert_replicas_in_sync(params, *, atol: float = 1e-6, mesh: Mesh | None = N
     parameter fingerprint and assert they agree within ``atol`` relative —
     the check for the reference's Q2-class replica drift
     (``distributed_cnn.py:175``). One process passes trivially. Returns
-    the largest divergence from rank 0's. A state is checked by its
+    the largest divergence from rank 0's. On a mesh with a model axis the
+    replicas are the ranks of one data line (each model rank holds its
+    own shards), compared line by line. A state is checked by its
     parameters (a ZeRO-1 state's are replicated); an optimizer state
     sharded over the ranks (``parallel.zero.ShardedOptState``) raises
     ``ValueError``: its ranks hold different data by design."""
@@ -341,13 +360,16 @@ def assert_replicas_in_sync(params, *, atol: float = 1e-6, mesh: Mesh | None = N
         )
 
     fp = params_fingerprint(params)
-    world = mesh.size if mesh is not None else process_count()
+    if mesh is None:
+        if process_count() == 1:
+            return 0.0
+        mesh = data_parallel_mesh()
+    world = mesh.axis_size(DATA_AXIS)
     if world == 1:
         return 0.0
-    mesh = mesh or data_parallel_mesh()
     slots = torch.zeros(world, dtype=torch.float64)
-    slots[mesh.rank] = fp
-    mesh.all_reduce_(slots)
+    slots[mesh.index(DATA_AXIS)] = fp
+    mesh.all_reduce_(slots, axis=DATA_AXIS)
     div = float((slots - slots[0]).abs().max())
     if div > atol * max(abs(fp), 1.0):
         raise AssertionError(f"replica divergence {div} across {world} processes")

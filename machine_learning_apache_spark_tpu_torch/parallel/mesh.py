@@ -7,28 +7,43 @@ with one device each (``launcher.coordinator``), joined by a
 ``torch.distributed`` process group, and the mesh names its axes:
 
 - ``"data"``     — batch-sharded data parallelism (the reference's DDP, C11);
-- ``"model"``, ``"seq"``, ``"pipeline"``, ``"expert"`` — the JAX package's
-  other axes. Only size 1 is ported: a larger one raises
-  ``NotImplementedError`` naming ROADMAP A4's item.
+- ``"model"``    — tensor parallelism (``parallel.tensor_parallel``): each
+  rank holds its slice of every annotated weight;
+- ``"seq"``, ``"pipeline"``, ``"expert"`` — the JAX package's other axes.
+  Only size 1 is ported: a larger one raises ``NotImplementedError``
+  naming its ROADMAP item.
+
+Ranks lie on the mesh as the JAX mesh lays devices: the axes in
+canonical order, ``data`` outermost and ``model`` innermost, so on a
+``data × model`` mesh rank = ``data_index · M + model_index``. A mesh of
+several processes builds one process group per line of each axis (the
+ranks that share every other coordinate) when it is made: every rank
+calls ``dist.new_group`` for every group, in one fixed order, as
+``torch.distributed`` requires; meshes of one shape share their groups.
 
 Each rank's ``DistributedSampler`` already gives it its slice of the
 global batch, so ``shard_batch`` only moves this rank's batch onto its
-device; ``replicate`` is a broadcast from rank 0. The collectives
-(``Mesh.all_reduce_``, ``Mesh.broadcast_``) take host and device tensors
-under either backend: gloo stages a CUDA tensor through host memory
-itself, and a host tensor under NCCL is staged through the card.
+device; ``replicate`` is a broadcast from the first rank of each data
+line. The collectives (``Mesh.all_reduce_``, ``Mesh.broadcast_``) run
+over the whole gang or, given ``axis=``, over this rank's line of that
+axis; they take host and device tensors under either backend: gloo
+stages a CUDA tensor through host memory itself, and a host tensor under
+NCCL is staged through the card.
 """
 
 from __future__ import annotations
 
 import math
+import threading
+import time
 from dataclasses import dataclass
-from typing import Mapping
+from typing import Callable, Mapping
 
 import torch
 import torch.distributed as dist
 from torch import nn
 
+from machine_learning_apache_spark_tpu_torch import telemetry
 from machine_learning_apache_spark_tpu_torch.utils.device import resolve_device
 
 DATA_AXIS = "data"
@@ -39,13 +54,19 @@ EXPERT_AXIS = "expert"
 
 _CANONICAL_ORDER = (DATA_AXIS, PIPELINE_AXIS, EXPERT_AXIS, SEQ_AXIS, MODEL_AXIS)
 
-#: The ROADMAP items that port each non-data axis.
+#: The ROADMAP items that port each axis still unported.
 _AXIS_ITEMS = {
-    MODEL_AXIS: "A4: parallel/tensor_parallel.py",
     SEQ_AXIS: "A4: ring_attention.py and ulysses_attention.py",
     PIPELINE_AXIS: "A4: pipeline_parallel.py",
     EXPERT_AXIS: "A4: the MoE experts' mesh axis",
 }
+
+#: The axes a mesh may hold larger than 1.
+_PORTED_AXES = (DATA_AXIS, MODEL_AXIS)
+
+#: Process groups per (world, mesh shape): built once, shared by every
+#: mesh of that shape.
+_GROUPS: dict = {}
 
 
 def process_count() -> int:
@@ -57,6 +78,53 @@ def process_count() -> int:
 def process_index() -> int:
     """This process's rank in the gang, 0 outside one."""
     return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+
+
+def _coords(rank: int, shape: Mapping[str, int]) -> dict[str, int]:
+    """``rank``'s coordinate on each axis of ``shape`` (canonical order,
+    the last axis innermost)."""
+    out = {}
+    for name in reversed(tuple(shape)):
+        out[name] = rank % shape[name]
+        rank //= shape[name]
+    return {a: out[a] for a in shape}
+
+
+def _line_ranks(shape: Mapping[str, int], axis: str, at: Mapping[str, int]) -> list[int]:
+    """The ranks along ``axis`` through the coordinates ``at`` (every
+    other axis fixed), in axis order."""
+    names = tuple(shape)
+    ranks = []
+    for i in range(shape[axis]):
+        point = dict(at, **{axis: i})
+        r = 0
+        for a in names:
+            r = r * shape[a] + point[a]
+        ranks.append(r)
+    return ranks
+
+
+def _axis_groups(shape: Mapping[str, int]) -> dict:
+    """``{axis: (group, ranks)}`` for this rank's line of each axis larger
+    than 1 and smaller than the world. Every group of every axis is made
+    here, by every rank, in one order (axes canonical, lines by their
+    first rank): ``dist.new_group`` is collective over the whole gang."""
+    world = math.prod(shape.values())
+    key = (world, tuple(shape.items()))
+    if key not in _GROUPS:
+        out = {}
+        for axis, size in shape.items():
+            if size <= 1 or size == world:
+                continue
+            lines = sorted({
+                tuple(_line_ranks(shape, axis, _coords(r, shape))) for r in range(world)
+            })
+            for line in lines:
+                group = dist.new_group(list(line))
+                if process_index() in line:
+                    out[axis] = (group, list(line))
+        _GROUPS[key] = out
+    return _GROUPS[key]
 
 
 def _run_collective(tensor: torch.Tensor, call) -> None:
@@ -73,17 +141,118 @@ def _run_collective(tensor: torch.Tensor, call) -> None:
         call(tensor)
 
 
+class TimedCollectives:
+    """Host-timed collectives of the ``KINDS`` a subclass names: each from
+    its issue to the return of its wait (a ``comms.<kind>`` span; gloo's
+    handles have no completion callback, so a collective that finished
+    earlier is read at its wait), each step's window per kind from the
+    first issue to the last wait's return, and the bytes. ``end_step()``
+    closes a step; ``stats()`` gives the totals, the steps under
+    ``STEPS``."""
+
+    KINDS: tuple = ()
+    STEPS = "steps"
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.steps = 0
+        self.calls = dict.fromkeys(self.KINDS, 0)
+        self.seconds = dict.fromkeys(self.KINDS, 0.0)
+        self.window = dict.fromkeys(self.KINDS, 0.0)
+        self.bytes = dict.fromkeys(self.KINDS, 0)
+        self._first: dict = dict.fromkeys(self.KINDS)
+        self._last = dict.fromkeys(self.KINDS, 0.0)
+
+    def timed(self, kind: str, wait: Callable, nbytes: int) -> Callable:
+        """``wait`` (the completion of a collective issued now, or a
+        blocking collective itself) timed from now to its first return;
+        returns the timed wait."""
+        t0 = time.perf_counter()
+        with self._lock:
+            if self._first[kind] is None:
+                self._first[kind] = t0
+        done = []
+
+        def timed_wait():
+            wait()
+            if done:
+                return
+            done.append(True)
+            t1 = time.perf_counter()
+            with self._lock:
+                self.calls[kind] += 1
+                self.seconds[kind] += t1 - t0
+                self.bytes[kind] += nbytes
+                self._last[kind] = max(self._last[kind], t1)
+            telemetry.get_log().emit(
+                "span_end", f"comms.{kind}", value=t1 - t0, attrs={"bytes": nbytes}
+            )
+
+        return timed_wait
+
+    def end_step(self) -> None:
+        with self._lock:
+            self.steps += 1
+            for kind in self.KINDS:
+                if self._first[kind] is not None:
+                    self.window[kind] += self._last[kind] - self._first[kind]
+                self._first[kind] = None
+
+    def stats(self) -> dict:
+        out = {self.STEPS: self.steps}
+        for kind in self.KINDS:
+            out |= {
+                f"{kind}_calls": self.calls[kind],
+                f"{kind}_seconds": self.seconds[kind],
+                f"{kind}_bytes": self.bytes[kind],
+                f"{kind}_window_seconds": self.window[kind],
+                f"{kind}_ms_per_step": 1e3 * self.window[kind] / max(self.steps, 1),
+            }
+        return out
+
+
 class Mesh:
     """A named-axes view of the process group: ``shape`` (axis → size, in
     canonical order), ``axis_names``, ``size`` (the product, the world
-    size) and this process's ``rank``. ``device`` is this rank's device:
-    the coordinator's choice in a gang, else the one given (default: the
-    card, which raises without one)."""
+    size), this process's ``rank`` and its ``coords`` (axis → index).
+    ``device`` is this rank's device: the coordinator's choice in a gang,
+    else the one given (default: the card, which raises without one).
+    ``group(axis)`` / ``axis_ranks(axis)`` name this rank's line of an
+    axis: its process group (None for the whole gang) and its ranks."""
 
     def __init__(self, axes: Mapping[str, int], device: str | torch.device | None = None):
         self.shape = dict(axes)
         self.axis_names = tuple(self.shape)
         self._device = device
+        self._groups = {}
+        if self.size > 1 and process_count() == self.size:
+            self._groups = _axis_groups(self.shape)
+
+    @property
+    def coords(self) -> dict[str, int]:
+        return _coords(self.rank, self.shape)
+
+    def index(self, axis: str) -> int:
+        """This rank's index on ``axis`` (0 on an axis the mesh lacks)."""
+        return self.coords.get(axis, 0)
+
+    def axis_size(self, axis: str) -> int:
+        return self.shape.get(axis, 1)
+
+    def axis_ranks(self, axis: str) -> list[int]:
+        """The global ranks of this rank's line of ``axis``."""
+        if axis not in self.shape:
+            return [self.rank]
+        return _line_ranks(self.shape, axis, self.coords)
+
+    def group(self, axis: str | None = None):
+        """The process group of this rank's line of ``axis``: None (the
+        default group) for the whole gang or an axis that spans it."""
+        if axis is None or self.axis_size(axis) == self.size:
+            return None
+        if self.axis_size(axis) <= 1:
+            raise ValueError(f"axis {axis!r} of size 1 has no group")
+        return self._groups[axis][0]
 
     @property
     def size(self) -> int:
@@ -104,19 +273,27 @@ class Mesh:
             return gang
         return resolve_device(self._device)
 
-    def all_reduce_(self, tensor: torch.Tensor, op: str = "sum") -> torch.Tensor:
-        """Sum (or max) ``tensor`` in place over every rank of the mesh;
-        a no-op for a mesh of one."""
-        if self.size > 1:
+    def all_reduce_(self, tensor: torch.Tensor, op: str = "sum",
+                    axis: str | None = None) -> torch.Tensor:
+        """Sum (or max) ``tensor`` in place over every rank of the mesh,
+        or over this rank's line of ``axis``; a no-op over one rank."""
+        n = self.size if axis is None else self.axis_size(axis)
+        if n > 1:
             red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
-            _run_collective(tensor, lambda t: dist.all_reduce(t, op=red))
+            group = self.group(axis)
+            _run_collective(tensor, lambda t: dist.all_reduce(t, op=red, group=group))
         return tensor
 
-    def broadcast_(self, tensor: torch.Tensor, src: int = 0) -> torch.Tensor:
-        """Overwrite ``tensor`` in place with rank ``src``'s; a no-op for a
-        mesh of one."""
-        if self.size > 1:
-            _run_collective(tensor, lambda t: dist.broadcast(t, src=src))
+    def broadcast_(self, tensor: torch.Tensor, src: int = 0,
+                   axis: str | None = None) -> torch.Tensor:
+        """Overwrite ``tensor`` in place with rank ``src``'s (with ``axis``:
+        with the ``src``-th rank's of this rank's line of it); a no-op over
+        one rank."""
+        n = self.size if axis is None else self.axis_size(axis)
+        if n > 1:
+            group = self.group(axis)
+            root = src if axis is None else self.axis_ranks(axis)[src]
+            _run_collective(tensor, lambda t: dist.broadcast(t, src=root, group=group))
         return tensor
 
     def __repr__(self) -> str:
@@ -135,8 +312,8 @@ def make_mesh(
     Size ``0`` or ``-1`` on at most one axis means "all remaining
     processes"; no axes means a pure data-parallel mesh over all of them.
     The shape errors are the JAX package's ``ValueError``s. An axis other
-    than ``"data"`` larger than 1 raises ``NotImplementedError`` naming
-    the ROADMAP item that ports it."""
+    than ``"data"`` or ``"model"`` larger than 1 raises
+    ``NotImplementedError`` naming the ROADMAP item that ports it."""
     n = process_count() if world is None else world
     axes = dict(axes or {DATA_AXIS: n})
 
@@ -152,7 +329,7 @@ def make_mesh(
         raise ValueError(f"mesh {axes} does not cover {n} devices")
 
     for name, size in axes.items():
-        if name != DATA_AXIS and size > 1:
+        if name not in _PORTED_AXES and size > 1:
             item = _AXIS_ITEMS.get(name, "A4 (distributed)")
             raise NotImplementedError(
                 f"mesh axis {name!r} of size {size} is not ported yet "
@@ -175,8 +352,10 @@ def data_parallel_mesh(n: int | None = None, *, device: str | torch.device | Non
 
 
 def data_model_mesh(model: int, data: int | None = None) -> Mesh:
-    """The hybrid ``data × model`` mesh; a ``"model"`` axis larger than 1
-    is ROADMAP A4's tensor-parallel item and raises."""
+    """The hybrid 2-D mesh: ``data × model`` with ``model`` innermost
+    (canonical axis order), the layout ``fit(dp_mode="zero1")`` composes
+    ZeRO-1 and tensor parallelism over. ``data=None`` spreads whatever
+    processes remain after the model axis."""
     if model <= 0:
         raise ValueError(f"model axis size must be positive, got {model}")
     return make_mesh({DATA_AXIS: 0 if data is None else data, MODEL_AXIS: model})
@@ -215,10 +394,12 @@ def shard_batch(mesh: Mesh, batch, *, axis: str = DATA_AXIS):
 
 
 def replicate(mesh: Mesh, tree):
-    """Make every rank hold rank 0's values: each tensor of ``tree`` (an
-    ``nn.Module``'s parameters and buffers, a list, tuple or dict of
-    tensors, or one tensor) is broadcast from rank 0 in place. Returns
-    ``tree``."""
+    """Make every rank hold the values of the first rank of its data
+    line (rank 0 on a pure data mesh; on a ``data × model`` mesh the
+    rank of data index 0 with this rank's model index, whose tensor
+    shards are this rank's): each tensor of ``tree`` (an ``nn.Module``'s
+    parameters and buffers, a list, tuple or dict of tensors, or one
+    tensor) is broadcast in place. Returns ``tree``."""
     if isinstance(tree, nn.Module):
         tensors = [*tree.parameters(), *tree.buffers()]
     elif isinstance(tree, torch.Tensor):
@@ -229,5 +410,6 @@ def replicate(mesh: Mesh, tree):
         tensors = list(tree)
     with torch.no_grad():
         for t in tensors:
-            mesh.broadcast_(t.data if isinstance(t, nn.Parameter) else t, src=0)
+            mesh.broadcast_(t.data if isinstance(t, nn.Parameter) else t, src=0,
+                            axis=DATA_AXIS)
     return tree

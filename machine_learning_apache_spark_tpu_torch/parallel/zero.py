@@ -51,18 +51,27 @@ reaches it last).
 
 The JAX package runs the ranks' step as one ``shard_map`` program; here
 each rank is a process and the collectives run over gloo, which takes
-host and CUDA tensors alike. ``_make_hybrid_step`` (the data × model
-composition) needs the model axis and raises ``NotImplementedError``.
-The implicit form, ``fit(zero1=True)``, shards each optimizer moment
-over its leading dimension on top of the replicated step
-(``shard_moments``).
+host and CUDA tensors alike. The implicit form, ``fit(zero1=True)``,
+shards each optimizer moment over its leading dimension on top of the
+replicated step (``shard_moments``).
+
+On a hybrid ``data × model`` mesh (tensor parallelism over ``"model"``,
+``parallel.tensor_parallel``) each rank's flat vector holds its own TP
+shards first, then the replicated leaves (``make_hybrid_plan``): two
+segments, each cut into buckets. Every bucket is reduce-scattered over
+this rank's **data line** (the ranks of one model index hold the same
+shards). A bucket of shards is updated whole by its data piece's owner;
+a bucket of replicated leaves holds the same values on every model rank,
+so each model rank updates 1/M of its data piece and the pieces are
+all-gathered over the whole gang (rank ``d·M + m`` owns the ``(d·M +
+m)``-th 1/(D·M) of the bucket, in rank order). The moments then cost
+1/(D·M) of the model's, as the JAX package's flat ``(data, model)``
+sharding does. The float32 wire gives the replicated hybrid step's bits.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import threading
-import time
 from typing import Callable
 
 import numpy as np
@@ -70,14 +79,17 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
-from machine_learning_apache_spark_tpu_torch import telemetry
 from machine_learning_apache_spark_tpu_torch.parallel.data_parallel import (
     _TINY,
     _global_means,
     _total_weight,
     loss_weight_of,
 )
-from machine_learning_apache_spark_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS
+from machine_learning_apache_spark_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    MODEL_AXIS,
+    TimedCollectives,
+)
 from machine_learning_apache_spark_tpu_torch.train.state import (
     TrainState,
     clip_by_global_norm,
@@ -167,10 +179,15 @@ class Zero1Config:
 
 @dataclasses.dataclass(frozen=True)
 class _FlatPlan:
-    """The parameters ↔ flat float32 vector mapping. Buckets partition
-    ``[0, padded)``; every bucket length (and so ``padded``) is a
-    multiple of the world, so each bucket reduce-scatters evenly and the
-    zero pad lies in the last bucket."""
+    """The parameters ↔ flat float32 vector mapping. The leaves lie in
+    one segment or, on a ``data × model`` mesh, two
+    (``make_hybrid_plan``); each segment is padded to a multiple of its
+    ranks and cut into buckets of multiples of them, so each bucket
+    reduce-scatters evenly over the ``world`` data ranks and a segment's
+    zero pad lies in its last bucket. ``offsets`` are the leaves' places
+    in the vector; ``subs`` per bucket how many model ranks split each
+    data piece (1 for a pure data mesh and for TP shards, M for the
+    replicated leaves of a hybrid plan)."""
 
     shapes: tuple
     dtypes: tuple
@@ -179,19 +196,18 @@ class _FlatPlan:
     padded: int
     shard_len: int
     buckets: tuple  # ((start, stop), ...) in flat padded coordinates
-
-    @property
-    def world(self) -> int:
-        return self.padded // self.shard_len
-
-    @property
-    def offsets(self) -> list[int]:
-        return np.cumsum((0,) + self.sizes[:-1]).tolist()
+    subs: tuple
+    offsets: tuple
+    world: int
 
     def piece(self, k: int) -> int:
-        """Bucket ``k``'s piece length: what each rank owns of it."""
+        """Bucket ``k``'s data piece: what each data rank reduces of it."""
         s, e = self.buckets[k]
         return (e - s) // self.world
+
+    def owned(self, k: int) -> int:
+        """What this rank updates of bucket ``k``."""
+        return self.piece(k) // self.subs[k]
 
 
 def _leaves_of(params) -> list:
@@ -212,23 +228,45 @@ def _dtype_name(leaf) -> str:
 def make_flat_plan(params, axis_size: int, bucket_bytes: int) -> _FlatPlan:
     """The flat plan of ``params`` (a dict tree or a sequence of tensors
     or arrays) over ``axis_size`` ranks — the JAX function's."""
-    leaves = _leaves_of(params)
-    if not leaves:
-        raise ValueError("cannot build a ZeRO-1 plan for an empty params tree")
-    shapes = tuple(tuple(l.shape) for l in leaves)
-    dtypes = tuple(_dtype_name(l) for l in leaves)
-    sizes = tuple(int(np.prod(s, dtype=np.int64)) for s in shapes)
-    total = sum(sizes)
+    return make_hybrid_plan(_leaves_of(params), [], axis_size, 1, bucket_bytes)
+
+
+def make_hybrid_plan(sharded, replicated, data_ways: int, model_ways: int,
+                     bucket_bytes: int) -> _FlatPlan:
+    """The flat plan of one rank on a ``data × model`` mesh: its TP shards
+    (``sharded``), padded to a multiple of ``data_ways`` and bucketed in
+    multiples of it, then the ``replicated`` leaves, padded and bucketed
+    in multiples of ``data_ways · model_ways``. With no replicated leaves
+    it is the flat plan of ``sharded`` over ``data_ways`` ranks."""
     # Bucket element counts are fp32-denominated (the master accumulation
-    # dtype) and rounded up to a multiple of the axis size so every
+    # dtype) and rounded up to a multiple of the segment's ranks so every
     # bucket reduce-scatters evenly.
     elems = max(bucket_bytes // 4, 1)
-    elems = -(-elems // axis_size) * axis_size
-    padded = -(-total // axis_size) * axis_size
-    buckets = tuple((start, min(start + elems, padded)) for start in range(0, padded, elems))
+    shapes, dtypes, sizes, offsets, buckets, subs = [], [], [], [], [], []
+    start = 0
+    for leaves, ways, sub in ((sharded, data_ways, 1), (replicated, data_ways * model_ways, model_ways)):
+        if not leaves:
+            continue
+        o = start
+        for leaf in leaves:
+            shapes.append(tuple(leaf.shape))
+            dtypes.append(_dtype_name(leaf))
+            sizes.append(int(np.prod(leaf.shape, dtype=np.int64)))
+            offsets.append(o)
+            o += sizes[-1]
+        seg = -(-(o - start) // ways) * ways
+        step = -(-elems // ways) * ways
+        for b in range(start, start + seg, step):
+            buckets.append((b, min(b + step, start + seg)))
+            subs.append(sub)
+        start += seg
+    if not sizes:
+        raise ValueError("cannot build a ZeRO-1 plan for an empty params tree")
+    shard_len = sum((e - s) // data_ways // sub for (s, e), sub in zip(buckets, subs))
     return _FlatPlan(
-        shapes=shapes, dtypes=dtypes, sizes=sizes, total=total, padded=padded,
-        shard_len=padded // axis_size, buckets=buckets,
+        shapes=tuple(shapes), dtypes=tuple(dtypes), sizes=tuple(sizes), total=sum(sizes),
+        padded=start, shard_len=shard_len, buckets=tuple(buckets), subs=tuple(subs),
+        offsets=tuple(offsets), world=data_ways,
     )
 
 
@@ -360,13 +398,16 @@ def comms_bytes_per_step(plan: _FlatPlan, config: Zero1Config) -> dict:
 def plan_layout(plan: _FlatPlan) -> dict:
     """JSON-safe bucket layout of a plan — the ``layout`` record of the
     checkpoint topology stamp (the JAX function's)."""
-    return {
+    layout = {
         "total": int(plan.total),
-        "world": int(plan.padded // plan.shard_len),
+        "world": int(plan.world),
         "padded": int(plan.padded),
         "shard_len": int(plan.shard_len),
         "buckets": [[int(s), int(e)] for s, e in plan.buckets],
     }
+    if any(sub > 1 for sub in plan.subs):  # the model splits of a hybrid plan
+        layout["subs"] = [int(x) for x in plan.subs]
+    return layout
 
 
 class ShardedOptState(dict):
@@ -422,24 +463,36 @@ class Zero1State(TrainState):
     shard: torch.Tensor | None = None
     shard_grad: torch.Tensor | None = None
     pieces: list = dataclasses.field(default_factory=list)
+    # Hybrid mesh: this rank's model index, the data line's group (None:
+    # the whole gang) and the parameters' order in the flat vector.
+    model_rank: int = 0
+    group: object | None = None
+    order: tuple = ()
 
     @property
     def params(self) -> list[torch.Tensor]:
         return list(self.model.parameters())
 
+    @property
+    def flat_params(self) -> list[torch.Tensor]:
+        """The parameters in the flat vector's order."""
+        params = self.params
+        return [params[i] for i in self.order] if self.order else params
+
     def bucket_span(self, k: int) -> tuple[slice, slice]:
-        """Bucket ``k``'s piece of this rank: its slice of the flat vector
-        and of the shard."""
+        """Bucket ``k``'s part this rank updates: its slice of the flat
+        vector and of the shard."""
         s, _ = self.plan.buckets[k]
-        n = self.plan.piece(k)
-        o = sum(self.plan.piece(j) for j in range(k))
-        return slice(s + self.rank * n, s + (self.rank + 1) * n), slice(o, o + n)
+        n, own = self.plan.piece(k), self.plan.owned(k)
+        lo = s + self.rank * n + (self.model_rank * own if self.plan.subs[k] > 1 else 0)
+        o = sum(self.plan.owned(j) for j in range(k))
+        return slice(lo, lo + own), slice(o, o + own)
 
     def param_views(self, lo: int, hi: int) -> list[tuple[torch.Tensor, slice]]:
         """The flat range ``[lo, hi)`` as ``(view of a parameter, slice of
         the range)`` pairs, in order (the zero pad has none)."""
         out = []
-        for p, o, n in zip(self.params, self.plan.offsets, self.plan.sizes):
+        for p, o, n in zip(self.flat_params, self.plan.offsets, self.plan.sizes):
             a, b = max(lo, o), min(hi, o + n)
             if a < b:
                 out.append((p.detach().view(-1)[a - o:b - o], slice(a - lo, b - lo)))
@@ -493,7 +546,7 @@ class Zero1State(TrainState):
         — then the shard from the restored parameters."""
         from machine_learning_apache_spark_tpu_torch.train.checkpoint import attach_local
 
-        lens = [self.plan.piece(k) for k in range(len(self.plan.buckets))]
+        lens = [self.plan.owned(k) for k in range(len(self.plan.buckets))]
         per_piece: dict = {i: {} for i in range(len(self.pieces))}
         for key, value in payload["optimizer"].items():
             if isinstance(value, torch.Tensor) and value.ndim >= 1:
@@ -513,7 +566,7 @@ class Zero1State(TrainState):
 def _require_zero1_mesh(mesh, axis: str) -> tuple[int, int]:
     """Validate the mesh for ``dp_mode='zero1'``: ``(axis_size,
     model_ways)``. Any other axis larger than 1 (pipeline, seq, expert)
-    raises; a ``model`` axis is the hybrid step."""
+    raises; a ``model`` axis is the hybrid layout."""
     if axis not in mesh.axis_names:
         raise ValueError(f"zero1 needs a mesh with a {axis!r} axis; got {mesh.axis_names}")
     axis_size = mesh.shape[axis]
@@ -536,39 +589,53 @@ def _require_zero1_mesh(mesh, axis: str) -> tuple[int, int]:
     return axis_size, model_ways
 
 
-def _make_hybrid_step(*_args, **_kw):
-    """The implicit sharded-update step over a data × model mesh."""
-    raise NotImplementedError(
-        "the ZeRO-1 step on a data x model mesh is not ported yet (ROADMAP "
-        "queue A4: parallel/tensor_parallel.py)"
-    )
-
-
 @torch.no_grad()
 def init_sharded(*, model: nn.Module, tx, mesh, config: Zero1Config | None = None) -> Zero1State:
     """A ``Zero1State`` over ``model`` whose optimizer is built over this
     rank's shard from the start: the replicated moments never exist. The
-    parameters' grads become views into one flat float32 buffer."""
+    parameters' grads become views into one flat float32 buffer.
+
+    On a ``data × model`` mesh the model is first sharded over the model
+    axis (``tensor_parallel.shard_params``, unless it is already) and
+    the plan is ``make_hybrid_plan``'s: the moments cost 1/(D·M)."""
     config = config or Zero1Config()
     axis_size, model_ways = _require_zero1_mesh(mesh, config.axis)
-    if model_ways > 1:
-        _make_hybrid_step()
     params = list(model.parameters())
     odd = sorted({str(p.dtype) for p in params if p.dtype != torch.float32})
     if odd:
         raise ValueError(f"the ZeRO-1 flat vector holds float32 parameters; got {odd}")
-    plan = make_flat_plan(params, axis_size, config.bucket_bytes)
+    order: tuple = ()
+    group = None
+    if model_ways > 1:
+        from machine_learning_apache_spark_tpu_torch.parallel import tensor_parallel as _tp
+
+        _tp.shard_params(model, mesh)
+        order = tuple(
+            [i for i, p in enumerate(params) if getattr(p, "tp_axis", None) is not None]
+            + [i for i, p in enumerate(params) if getattr(p, "tp_axis", None) is None]
+        )
+        n_sharded = sum(getattr(p, "tp_axis", None) is not None for p in params)
+        ordered = [params[i] for i in order]
+        plan = make_hybrid_plan(
+            ordered[:n_sharded], ordered[n_sharded:], axis_size, model_ways, config.bucket_bytes
+        )
+        params = ordered
+        group = mesh.group(config.axis)
+    else:
+        plan = make_flat_plan(params, axis_size, config.bucket_bytes)
     dev = params[0].device
     flat_grad = torch.zeros(plan.padded, device=dev)
     for p, o, n in zip(params, plan.offsets, plan.sizes):
         p.grad = flat_grad[o:o + n].view_as(p)
     shard = torch.zeros(plan.shard_len, device=dev)
-    lens = [plan.piece(k) for k in range(len(plan.buckets))]
+    lens = [plan.owned(k) for k in range(len(plan.buckets))]
     pieces = list(torch.split(shard, lens))
     state = Zero1State(
         model=model, optimizer=tx.build(pieces), tx=tx, mesh=mesh,
         acc_grads=[torch.zeros_like(shard)] if tx.accumulate_steps > 1 else None,
-        plan=plan, config=config, world=axis_size, rank=mesh.rank, flat_grad=flat_grad, shard=shard, shard_grad=torch.zeros_like(shard), pieces=pieces,
+        plan=plan, config=config, world=axis_size, rank=mesh.index(config.axis),
+        flat_grad=flat_grad, shard=shard, shard_grad=torch.zeros_like(shard), pieces=pieces,
+        model_rank=mesh.index(MODEL_AXIS), group=group, order=order,
     )
     state.refresh_shard()
     return state
@@ -592,73 +659,14 @@ def shard_optimizer_state(state: TrainState, mesh, config: Zero1Config | None = 
     return init_sharded(model=state.model, tx=state.tx, mesh=mesh, config=config)
 
 
-class Zero1Comms:
+class Zero1Comms(TimedCollectives):
     """Host-timed collectives of the ZeRO-1 step: each bucket's
     reduce-scatter and all-gather from its issue to the return of the
     step's wait for it (``comms.reduce_scatter`` / ``comms.allgather``
-    spans; gloo's handles of these collectives have no completion
-    callback, so a collective that finished earlier is read at its
-    wait), each step's window per kind from the first issue to the last
-    wait's return, and the bytes on the wire. ``stats()`` gives the
-    totals."""
+    spans), each step's window per kind, and the bytes on the wire."""
 
     KINDS = ("reduce_scatter", "allgather")
-
-    def __init__(self):
-        self._lock = threading.Lock()
-        self.steps = 0
-        self.calls = dict.fromkeys(self.KINDS, 0)
-        self.seconds = dict.fromkeys(self.KINDS, 0.0)
-        self.window = dict.fromkeys(self.KINDS, 0.0)
-        self.bytes = dict.fromkeys(self.KINDS, 0)
-        self._first: dict = dict.fromkeys(self.KINDS)
-        self._last = dict.fromkeys(self.KINDS, 0.0)
-
-    def timed(self, kind: str, wait: Callable, nbytes: int) -> Callable:
-        """``wait`` (the completion of a collective issued now) timed from
-        now to its first return; returns the timed wait."""
-        t0 = time.perf_counter()
-        with self._lock:
-            if self._first[kind] is None:
-                self._first[kind] = t0
-        done = []
-
-        def timed_wait():
-            wait()
-            if done:
-                return
-            done.append(True)
-            t1 = time.perf_counter()
-            with self._lock:
-                self.calls[kind] += 1
-                self.seconds[kind] += t1 - t0
-                self.bytes[kind] += nbytes
-                self._last[kind] = max(self._last[kind], t1)
-            telemetry.get_log().emit(
-                "span_end", f"comms.{kind}", value=t1 - t0, attrs={"bytes": nbytes}
-            )
-
-        return timed_wait
-
-    def end_step(self) -> None:
-        with self._lock:
-            self.steps += 1
-            for kind in self.KINDS:
-                if self._first[kind] is not None:
-                    self.window[kind] += self._last[kind] - self._first[kind]
-                self._first[kind] = None
-
-    def stats(self) -> dict:
-        out = {"zero1_steps": self.steps}
-        for kind in self.KINDS:
-            out |= {
-                f"{kind}_calls": self.calls[kind],
-                f"{kind}_seconds": self.seconds[kind],
-                f"{kind}_bytes": self.bytes[kind],
-                f"{kind}_window_seconds": self.window[kind],
-                f"{kind}_ms_per_step": 1e3 * self.window[kind] / max(self.steps, 1),
-            }
-        return out
+    STEPS = "zero1_steps"
 
 
 class _Schedule:
@@ -691,9 +699,24 @@ class _Schedule:
         # DDP's arithmetic: each rank's share divided by the world, summed.
         seg.div_(st.world)
         _, in_shard = st.bucket_span(k)
-        _, finish = _reduce_scatter_bucket(
-            seg, st.shard_grad[in_shard], st.world, st.config.comms_dtype
+        sub = st.plan.subs[k]
+        out = st.shard_grad[in_shard] if sub == 1 else torch.empty(
+            st.plan.piece(k), device=seg.device
         )
+        _, finish = _reduce_scatter_bucket(
+            seg, out, st.world, st.config.comms_dtype, group=st.group
+        )
+        if sub > 1:
+            # A replicated bucket: this model rank keeps its 1/M of the
+            # data piece.
+            own = st.plan.owned(k)
+            lo = st.model_rank * own
+            reduce = finish
+
+            def finish():
+                reduce()
+                st.shard_grad[in_shard].copy_(out[lo:lo + own])
+
         wire = (e - s) * _WIRE_ITEMSIZE[st.config.comms_dtype]
         self.finish[k] = self.comms.timed("reduce_scatter", finish, wire)
         self.next = min(self.next, k - 1)
@@ -715,7 +738,9 @@ def make_zero1_step(loss_fn: Callable, mesh, state: Zero1State, *, grad_clip: fl
     optimizer), and the updated pieces all-gathered into the
     parameters. ``grad_clip`` defaults to the optimizer's. The step
     carries ``comms`` (``Zero1Comms``) and ``comms_stats`` (the static
-    wire bytes per step)."""
+    wire bytes per step). On a ``data × model`` mesh the collectives of
+    the gradient run over the data line and a replicated bucket's
+    all-gather over the gang (the module docstring's hybrid layout)."""
     from machine_learning_apache_spark_tpu_torch.train.loop import to_device
 
     if not isinstance(state, Zero1State):
@@ -725,14 +750,15 @@ def make_zero1_step(loss_fn: Callable, mesh, state: Zero1State, *, grad_clip: fl
         )
     config, plan = state.config, state.plan
     axis_size, model_ways = _require_zero1_mesh(mesh, config.axis)
-    if plan.padded % (axis_size * model_ways):
+    tp_axis = getattr(state.model, "tp_axis", None)
+    if plan.world != axis_size or (tp_axis.size if tp_axis else 1) != model_ways or any(
+        sub not in (1, model_ways) for sub in plan.subs
+    ):
         raise ValueError(
             f"state plan (padded={plan.padded}) does not divide the mesh's "
             f"{config.axis!r} x model layout ({axis_size} x {model_ways}); the "
             "state was built for a different mesh"
         )
-    if model_ways > 1:
-        return _make_hybrid_step(loss_fn, mesh, state, grad_clip)
     clip = grad_clip if grad_clip is not None else state.tx.grad_clip
     weight_of = loss_weight_of(loss_fn)
     comms = Zero1Comms()
@@ -744,7 +770,7 @@ def make_zero1_step(loss_fn: Callable, mesh, state: Zero1State, *, grad_clip: fl
     if config.overlap:
         # Each leaf's hook tells the running step's schedule its gradient
         # is accumulated (backward runs them on its own thread).
-        for i, p in enumerate(state.params):
+        for i, p in enumerate(state.flat_params):
             p.register_post_accumulate_grad_hook(
                 lambda _p, i=i: live["schedule"].leaf_ready(i) if "schedule" in live else None
             )
@@ -772,7 +798,11 @@ def make_zero1_step(loss_fn: Callable, mesh, state: Zero1State, *, grad_clip: fl
             land(*in_flight.pop(0))
         s, e = plan.buckets[k]
         buf = landing[k % len(landing)]
-        work = dist.all_gather_into_tensor(buf[:e - s], state.pieces[k], async_op=True)
+        # A bucket of shards gathers over the data line; a replicated one,
+        # split over the model ranks too, over the gang (rank order is
+        # the bucket's order).
+        group = state.group if plan.subs[k] == 1 else None
+        work = dist.all_gather_into_tensor(buf[:e - s], state.pieces[k], group=group, async_op=True)
         in_flight.append((k, comms.timed("allgather", work.wait, (e - s) * 4), buf))
 
     @torch.no_grad()
@@ -796,8 +826,10 @@ def make_zero1_step(loss_fn: Callable, mesh, state: Zero1State, *, grad_clip: fl
             grads = accs
             needs_all = True
         if clip is not None:
-            # The shard pieces tile the padded vector once over the ranks,
-            # so the sum of the ranks' sums of squares is the global one.
+            # The shard pieces tile the padded vector once over the ranks
+            # (on a hybrid mesh: every shard and replicated leaf once over
+            # the gang), so the sum of the ranks' sums of squares is the
+            # global one.
             sq = sum(torch.sum(torch.square(g)) for g in grads).reshape(1)
             dist.all_reduce(sq)
             grads = clip_by_global_norm(grads, torch.sqrt(sq[0]), clip)
@@ -830,7 +862,7 @@ def make_zero1_step(loss_fn: Callable, mesh, state: Zero1State, *, grad_clip: fl
         state.flat_grad.zero_()
         # The grads stay views into the flat gradient (a caller that set
         # them to None would break the buckets).
-        for p, o, n in zip(state.params, plan.offsets, plan.sizes):
+        for p, o, n in zip(state.flat_params, plan.offsets, plan.sizes):
             p.grad = state.flat_grad[o:o + n].view_as(p)
         schedule = _Schedule(state, comms, leaf_buckets)
         if config.overlap:
@@ -847,6 +879,8 @@ def make_zero1_step(loss_fn: Callable, mesh, state: Zero1State, *, grad_clip: fl
         comms.end_step()
         state.advance(1)
         g_loss, g_aux = _global_means(mesh, weight, loss, aux, total)
+        if tp_axis is not None:
+            tp_axis.comms.end_step()
         return state, g_loss, g_aux
 
     step.comms = comms
@@ -887,10 +921,11 @@ class LeadingShardState(TrainState):
                 o.grad = g
         self.optimizer.step()
         self.optimizer.zero_grad(set_to_none=True)
+        group = self.mesh.group(DATA_AXIS)
         for p, o in zip(params, self.owned):
             p.grad = None
             if self._sharded(p, o):
-                dist.all_gather_into_tensor(p.data, o)
+                dist.all_gather_into_tensor(p.data, o, group=group)
 
     @torch.no_grad()
     def refresh_owned(self) -> None:
@@ -943,7 +978,7 @@ def shard_moments(state: TrainState, mesh) -> LeadingShardState:
             f"zero1=True builds the optimizer moments sharded; a state at step "
             f"{int(state.step)} would lose its moments"
         )
-    rank = mesh.rank
+    rank = mesh.index(DATA_AXIS)
     owned = []
     for p in state.model.parameters():
         if p.ndim >= 1 and p.shape[0] % world == 0:
@@ -976,6 +1011,7 @@ __all__ = [
     "init_sharded",
     "int8_scale",
     "make_flat_plan",
+    "make_hybrid_plan",
     "make_zero1_step",
     "opt_state_bytes",
     "opt_state_bytes_per_chip",

@@ -86,9 +86,10 @@ def resolve_mesh(
     ``use_mesh=False`` under a gang raises ``ValueError`` (each rank would
     train an unsynchronized replica, and rank 0's metrics would pass for a
     full-data run), as does any other parallelism without a mesh or with
-    one device. A model/sequence/expert/pipeline axis larger than 1 goes
-    to ``make_mesh``, which raises ``NotImplementedError`` naming its
-    ROADMAP A4 item."""
+    one device. ``model_parallel=M`` carves the inner ``"model"`` axis
+    (tensor parallelism, ``{data: world/M, model: M}``); a
+    sequence/expert/pipeline axis larger than 1 goes to ``make_mesh``,
+    which raises ``NotImplementedError`` naming its ROADMAP A4 item."""
     extra = {
         "model_parallel": model_parallel,
         "sequence_parallel": sequence_parallel,
@@ -129,16 +130,18 @@ def resolve_mesh(
         if sequence_parallel > 1:
             axes[SEQ_AXIS] = sequence_parallel
         if len(axes) > 1:
-            return make_mesh(axes)
+            return make_mesh(axes, world=world)
         return data_parallel_mesh()
     return None
 
 
-def local_batch_scale(mesh=None) -> int:
-    """Per-process multiplier turning a per-replica batch into this
-    process's share of the global batch (``data`` axis size / processes):
-    1 with one device per process, and without a mesh."""
-    return mesh.shape[DATA_AXIS] // process_count() if mesh is not None else 1
+def data_replicas(mesh=None) -> tuple[int, int]:
+    """``(num_replicas, rank)`` for the samplers: the data axis's size and
+    this process's index on it (the ranks of one model line read the same
+    rows); without a mesh, the gang's processes."""
+    if mesh is None:
+        return process_count(), process_index()
+    return mesh.shape.get(DATA_AXIS, 1), mesh.index(DATA_AXIS)
 
 
 def make_bucketed_loader(
@@ -151,25 +154,25 @@ def make_bucketed_loader(
     seed: int = 0,
 ):
     """Shared bucketed-loader construction for recipes: default boundaries
-    at (1/4, 1/2, full) of the fixed width, per-replica batch scaled to the
-    mesh's local share (each rank takes its slice of every bucket), and a
-    loud error when the batch leaves every bucket short of one full batch
+    at (1/4, 1/2, full) of the fixed width, the per-replica batch on each
+    data replica (each takes its slice of every bucket; one device per
+    process, so a process's share is one replica's), and a loud error
+    when the batch leaves every bucket short of one full batch
     (``drop_last`` inside each bucket would otherwise "train" on zero
     batches)."""
     boundaries = boundaries or tuple(
         sorted({max(full_width // 4, 8), max(full_width // 2, 8), full_width})
     )
-    effective = batch_size * local_batch_scale(mesh)
+    replicas, rank = data_replicas(mesh)
     loader = loader_cls(
-        *streams, batch_size=effective, boundaries=boundaries, seed=seed,
-        num_replicas=process_count(), rank=process_index(),
+        *streams, batch_size=batch_size, boundaries=boundaries, seed=seed,
+        num_replicas=replicas, rank=rank,
     )
     if len(loader) == 0:
         raise ValueError(
-            f"effective batch {effective} (batch_size={batch_size} × "
-            f"{local_batch_scale(mesh)} local replicas) leaves every length "
-            f"bucket ({boundaries}) short of one full batch; shrink the "
-            "batch or provide more data"
+            f"batch_size={batch_size} leaves every length bucket "
+            f"({boundaries}) short of one full batch; shrink the batch or "
+            "provide more data"
         )
     return loader
 
@@ -188,38 +191,38 @@ def make_loaders(
     ``batch_size`` is **per replica**, as in the reference, which shards
     the dataset across ranks (``DistributedSampler`` + per-rank loaders,
     ``distributed_cnn.py:112-124``): under a gang each rank samples its
-    shard at ``batch_size × local_batch_scale(mesh)`` rows, so the global
-    batch is ``batch_size × world``. The batch is clamped to what the
+    shard at ``batch_size`` rows (one device per process), so the global
+    batch is ``batch_size`` × the data axis's size. The batch is clamped to what the
     split can fill once; ``drop_last=True`` on the train loader (one
     static shape), ``drop_last=False`` on the test loader so eval scores
     every row (``train.loop.evaluate``)."""
     world = process_count()
-    local_scale = local_batch_scale(mesh)
+    replicas, rank = data_replicas(mesh)
 
     def _clamped(n_rows: int, want: int, split: str) -> int:
         if mesh is None:
             return min(want, max(n_rows, 1))
-        largest = (n_rows // local_scale) * local_scale
-        if largest == 0:
+        if n_rows == 0:
             raise ValueError(
-                f"{split} split ({n_rows} rows on this process) cannot fill "
-                f"one row per local device ({local_scale}); provide more "
-                "data or a smaller mesh"
+                f"{split} split (0 rows on this process) cannot fill one "
+                "row; provide more data or a smaller mesh"
             )
-        if want > largest:
+        if want > n_rows:
             log.warning(
                 "%s batch %d exceeds the %d-row split; clamping to %d",
-                split, want, n_rows, largest,
+                split, want, n_rows, n_rows,
             )
-        return min(want, largest)
+        return min(want, n_rows)
 
     train_loader = None
     if train_ds is not None:  # None: the caller brings its own (bucketed)
-        sampler = DistributedSampler(len(train_ds), seed=seed) if world > 1 else None
+        sampler = (
+            DistributedSampler(len(train_ds), replicas, rank, seed=seed) if world > 1 else None
+        )
         n_train = len(sampler) if sampler is not None else len(train_ds)
         train_loader = DataLoader(
             train_ds,
-            _clamped(n_train, batch_size * local_scale, "train"),
+            _clamped(n_train, batch_size, "train"),
             shuffle=sampler is None,
             sampler=sampler,
             drop_last=True,
@@ -231,13 +234,13 @@ def make_loaders(
     test_loader = None
     if test_ds is not None:
         test_sampler = (
-            DistributedSampler(len(test_ds), shuffle=False, seed=seed)
+            DistributedSampler(len(test_ds), replicas, rank, shuffle=False, seed=seed)
             if world > 1 else None
         )
         n_test = len(test_sampler) if test_sampler is not None else len(test_ds)
         test_loader = DataLoader(
             test_ds,
-            _clamped(n_test, batch_size * local_scale, "test"),
+            _clamped(n_test, batch_size, "test"),
             sampler=test_sampler,
             drop_last=False,
             seed=seed,
@@ -325,14 +328,18 @@ def resume_epochs(ckpt, resumed: int, epochs: int) -> int:
 
 def data_parallel_state(state, mesh):
     """``state`` as ``fit(mesh=)`` trains it under the gang's data-parallel
-    mode (``MLSPARK_DP_MODE``, which ``Distributor(dp_mode=)`` sets): a
-    ZeRO-1 gang's state is sharded here, before the recipe's checkpoint
-    restore, so that the restore finds the layout its checkpoints hold."""
-    from machine_learning_apache_spark_tpu_torch.parallel import zero
+    mode (``MLSPARK_DP_MODE``, which ``Distributor(dp_mode=)`` sets) and
+    the mesh's model axis: a ZeRO-1 gang's state is sharded here, and a
+    tensor-parallel state takes this rank's model shard, before the
+    recipe's checkpoint restore, so that the restore finds the layout its
+    checkpoints hold."""
+    from machine_learning_apache_spark_tpu_torch.parallel import tensor_parallel, zero
 
-    if mesh is None or zero.resolve_dp_mode(None) != "zero1":
+    if mesh is None:
         return state
-    return zero.shard_optimizer_state(state, mesh, zero.Zero1Config.from_env())
+    if zero.resolve_dp_mode(None) == "zero1":
+        return zero.shard_optimizer_state(state, mesh, zero.Zero1Config.from_env())
+    return tensor_parallel.shard_state(state, mesh)
 
 
 def fit_recipe(r, state, loss_fn, train_loader, mesh=None):

@@ -36,9 +36,17 @@ Under ``launcher.Distributor`` the recipe trains data-parallel
 shard at ``batch_size`` rows, and ``train.loop.fit(mesh=)`` weights each
 rank's gradient by its share of the global batch's valid target tokens
 (the losses' ``loss_weight``), so the gang trains on the global batch's
-token mean as the JAX ``fit(mesh=)`` does. The other mesh fields raise
-``NotImplementedError`` when set away from their defaults (ROADMAP queue
-A4).
+token mean as the JAX ``fit(mesh=)`` does. ``model_parallel=M`` trains
+tensor-parallel on a ``{data: world/M, model: M}`` mesh
+(``parallel.tensor_parallel``): the LM head is padded to a multiple of M
+(``logit_pad``, as the JAX recipe pads it), each rank holds its slice of
+every annotated weight and runs the flash kernels on its ``H/M`` heads,
+and the loss is the vocab-parallel one. The BLEU decode and the returned
+``Translator`` run on the parameters gathered to full on every rank.
+``model_parallel`` with ``moe_experts`` raises ``NotImplementedError``
+(the experts' mesh axis is its own ROADMAP item). The other mesh fields
+raise ``NotImplementedError`` when set away from their defaults (ROADMAP
+queue A4).
 """
 
 from __future__ import annotations
@@ -91,7 +99,8 @@ from machine_learning_apache_spark_tpu_torch.train.loop import (
 )
 from machine_learning_apache_spark_tpu_torch.train.losses import (
     cross_entropy,
-    masked_token_cross_entropy,
+    masked_mean,
+    vocab_parallel_token_cross_entropy,
 )
 from machine_learning_apache_spark_tpu_torch.train.metrics import (
     corpus_bleu,
@@ -168,7 +177,6 @@ class TranslationRecipe:
 #: Recipe fields of the JAX package that this port does not run yet, with
 #: the ROADMAP item that will. Each raises when set away from its default.
 UNPORTED = {
-    "model_parallel": "A4 (distributed)",
     "sequence_parallel": "A4 (distributed)",
     "sequence_parallel_method": "A4 (distributed)",
     "pipeline_parallel": "A4 (distributed)",
@@ -216,6 +224,12 @@ def _validate(r: TranslationRecipe) -> None:
             "K-step program stacks K batches into one static shape, but "
             "buckets emit per-bucket widths"
         )
+    if r.model_parallel > 1 and r.moe_experts:
+        raise NotImplementedError(
+            f"model_parallel={r.model_parallel} with moe_experts={r.moe_experts} is "
+            "not ported yet: the expert weights shard over the mesh's expert axis "
+            "(ROADMAP queue A4: the MoE experts' mesh axis)"
+        )
     defaults = TranslationRecipe()
     for f in fields(TranslationRecipe):
         if f.name in UNPORTED and getattr(r, f.name) != getattr(defaults, f.name):
@@ -223,6 +237,17 @@ def _validate(r: TranslationRecipe) -> None:
                 f"TranslationRecipe.{f.name}={getattr(r, f.name)!r} is not "
                 f"ported yet (ROADMAP queue {UNPORTED[f.name]})"
             )
+
+
+def token_losses(model, logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-token CE of the model's logits: through the vocab-parallel loss
+    when its LM head is sharded over the model axis (``logits`` are then
+    this rank's columns), else the plain one."""
+    shard = model.vocab_shard
+    if shard is None:
+        return cross_entropy(logits, labels, reduction="none")
+    axis, start = shard
+    return vocab_parallel_token_cross_entropy(logits, labels, axis, start, model.cfg.trg_vocab_size)
 
 
 def make_translation_loss(pad_id: int, *, train: bool = True):
@@ -243,10 +268,10 @@ def make_translation_loss(pad_id: int, *, train: bool = True):
             aux_terms: list = []
             logits = model(src, trg[:, :-1], dropout_rng=dropout_rng, aux_losses=aux_terms)
             aux = sum(aux_terms) / max(len(aux_terms), 1)
-            loss = masked_token_cross_entropy(logits, trg[:, 1:], pad_id)
+            loss = masked_mean(token_losses(model, logits, trg[:, 1:]), trg[:, 1:], pad_id)
             return loss + model.cfg.moe_aux_weight * aux, {"moe_aux": aux}
         logits = model(src, trg[:, :-1], dropout_rng=dropout_rng)
-        return masked_token_cross_entropy(logits, trg[:, 1:], pad_id), {}
+        return masked_mean(token_losses(model, logits, trg[:, 1:]), trg[:, 1:], pad_id), {}
 
     # What the loss averages over — the batch's valid target tokens — so
     # a gang weights each rank's gradient by its share of the global count
@@ -282,7 +307,7 @@ def make_packed_translation_loss(pad_id: int, *, train: bool = True):
             dropout_rng=rng if train else None,
         )
         labels = trg[:, 1:]
-        per_tok = cross_entropy(logits, labels, reduction="none")
+        per_tok = token_losses(model, logits, labels)
         scored = _packed_scored(trg, trg_seg, pad_id)
         return (per_tok * scored).sum() / scored.sum().clamp_min(1), {}
 
@@ -361,6 +386,9 @@ def train_translator(
     cfg = TransformerConfig(
         src_vocab_size=len(src_pipe.vocab),
         trg_vocab_size=len(trg_pipe.vocab),
+        # Megatron-style vocab padding, the JAX recipe's: the LM head stays
+        # shardable over the model axis whatever the vocab size.
+        logit_pad=(-len(trg_pipe.vocab)) % r.model_parallel if r.model_parallel > 1 else 0,
         d_model=r.d_model,
         ffn_hidden=r.ffn_hidden,
         num_heads=r.num_heads,
@@ -376,7 +404,7 @@ def train_translator(
     model = Transformer(cfg, generator=torch.Generator().manual_seed(r.seed)).to(dev)
     # Under bucketing the fixed-width train loader is never used: eval
     # keeps the fixed width (full coverage).
-    mesh = resolve_mesh(r.use_mesh)
+    mesh = resolve_mesh(r.use_mesh, model_parallel=r.model_parallel)
     train_loader, val_loader = make_loaders(
         None if r.bucket_by_length else train_ds, val_ds,
         batch_size=r.batch_size, mesh=mesh, seed=r.seed,
@@ -487,12 +515,18 @@ def train_translator(
         extra["unpacked_token_efficiency"] = round(packed.unpacked_efficiency, 4)
         extra["packed_rows"] = len(packed.src)
         extra["packed_pairs"] = packed.pair_count
+    # A tensor-parallel model decodes on its parameters gathered to full
+    # (every rank the same whole model, as the JAX recipe's Translator
+    # holds the unboxed full tree).
+    decoder_model = model
+    if r.model_parallel > 1 and (r.compute_bleu or _return_translator):
+        decoder_model = _gathered(model, cfg, dev)
     if r.compute_bleu:
         # The target width is the pipeline's fixed length, so every batch
         # decodes the same number of steps.
         gen = min(val_ds[:1][1].shape[1], r.max_len) - 1
         programs = ProgramCache(dev, eager_first_call=True)
-        extra["bleu"] = bleu_decode(model, val_loader, gen, programs)[1]
+        extra["bleu"] = bleu_decode(decoder_model, val_loader, gen, programs)[1]
     out = summarize(
         result,
         metrics,
@@ -509,5 +543,15 @@ def train_translator(
         if r.compute_bleu:
             out["bleu_programs"] = programs.stats()
     if _return_translator:
-        out["translator"] = Translator(model, src_pipe, trg_pipe, device=dev)
+        out["translator"] = Translator(decoder_model, src_pipe, trg_pipe, device=dev)
     return out
+
+
+def _gathered(model: Transformer, cfg: TransformerConfig, dev: torch.device) -> Transformer:
+    """The unsharded Transformer holding ``model``'s shards gathered over
+    the model axis (``tensor_parallel.gather_params``)."""
+    from machine_learning_apache_spark_tpu_torch.parallel.tensor_parallel import gather_params
+
+    full = Transformer(cfg).to(dev)
+    full.load_state_dict(gather_params(model))
+    return full

@@ -108,9 +108,11 @@ def topology_stamp(state: TrainState | None = None) -> dict:
     """The topology under which ``state`` checkpoints, in the JAX stamp's
     keys: the gang's world size (the process group's), the mesh's axis
     sizes when the state trains on one (``state.mesh``, which
-    ``fit(mesh=)`` sets; ``{"data": world}`` in a gang), the
-    data-parallel mode, and for a ZeRO-1 state (``parallel.zero``)
-    ``"zero1"`` with its bucket layout (``plan_layout``). Stamped into
+    ``fit(mesh=)`` sets; ``{"data": world}`` in a gang, ``{"data": D,
+    "model": M}`` under tensor parallelism), the data-parallel mode, and
+    for a ZeRO-1 state (``parallel.zero``) ``"zero1"`` with its bucket
+    layout (``plan_layout``), for a tensor-parallel one its shard layout.
+    Stamped into
     every sidecar; a resume whose own stamp differs raises
     ``TopologyMismatch`` rather than misload."""
     mesh = getattr(state, "mesh", None)
@@ -126,6 +128,10 @@ def topology_stamp(state: TrainState | None = None) -> dict:
 
         stamp["dp_mode"] = "zero1"
         stamp["layout"] = plan_layout(plan)
+    elif getattr(getattr(state, "model", None), "tp_axis", None) is not None:
+        # Each rank's payload holds its model-axis shard, fused q/k/v
+        # split by heads (parallel.tensor_parallel).
+        stamp["layout"] = {"tensor_parallel": "heads", "model": state.model.tp_axis.size}
     return stamp
 
 

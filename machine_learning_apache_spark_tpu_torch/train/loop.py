@@ -38,7 +38,12 @@ generator (seeded from the fit's seed and the rank) and
 epochs. ``dp_mode="zero1"`` (or ``MLSPARK_DP_MODE``) trains through the
 ZeRO-1 step of ``parallel.zero`` instead (the optimizer sharded over the
 ranks, the gradient reduce-scattered, the parameters all-gathered), and
-``zero1=True`` shards the moments on top of the replicated step. In a
+``zero1=True`` shards the moments on top of the replicated step. A mesh
+with a ``"model"`` axis trains tensor-parallel: the model is sharded
+over it first (``parallel.tensor_parallel.shard_state``), the
+data-parallel sums run over the data axis, and the ranks of one model
+line draw the same dropout bits (seeded by the data index, not the
+rank), as they hold the same replicated activations. In a
 gang, ``steps_per_call=K`` runs K eager data-parallel steps per call: a
 gloo collective runs on the host and cannot sit inside a CUDA graph.
 Each step passes the ``train_step`` fault-injection site
@@ -148,7 +153,8 @@ class FitResult:
     programs: list[dict] = field(default_factory=list)
     # On a mesh of more than one process: the gradient collectives'
     # host-timed totals (``GradientComms.stats()``, or ZeRO-1's
-    # ``Zero1Comms.stats()``); empty otherwise.
+    # ``Zero1Comms.stats()``), with the model axis's (``TPComms.stats()``)
+    # under tensor parallelism; empty otherwise.
     comms: dict = field(default_factory=dict)
 
     @property
@@ -436,6 +442,14 @@ def fit(
     single steps. ``FitResult.comms`` holds the ZeRO-1 collectives'
     host-timed totals (``parallel.zero.Zero1Comms``).
 
+    A mesh with a ``"model"`` axis larger than 1 trains tensor-parallel:
+    an unsharded model is sharded over it here (``tensor_parallel.
+    shard_state``: this rank's slice of every annotated weight, and of its
+    optimizer moments), the data-parallel step runs over the data axis,
+    dropout is seeded by the data index, and ``grad_clip`` clips by the
+    norm of the whole model. ``dp_mode="zero1"`` and ``zero1=True``
+    compose with it (the hybrid ZeRO-1 step of ``parallel.zero``).
+
     ``prefetch_to_device`` is accepted and has nothing to do: the loader
     already assembles ahead on a thread and the copy to the device is
     pinned and non-blocking. The state is updated in place and returned
@@ -478,6 +492,12 @@ def fit(
     rng = rng if rng is not None else torch.Generator().manual_seed(0)
     device = _device_of(state)
     step_rng = torch.Generator(device=device)
+    if mesh is not None and mesh.axis_size("model") > 1 and mode != "zero1":
+        # Tensor parallelism: this rank's shard of the model (ZeRO-1's
+        # init_sharded below shards it itself).
+        from machine_learning_apache_spark_tpu_torch.parallel import tensor_parallel as _tp
+
+        state = _tp.shard_state(state, mesh)
     if mode == "zero1":
         # The sharded state before the resume: the restore template
         # carries the run's real layout, and its stamp names it.
@@ -489,6 +509,10 @@ def fit(
     if mesh is not None:
         # The checkpoint's topology stamp names the mesh it trained on.
         state.mesh = mesh
+    tp_axis = getattr(state.model, "tp_axis", None)
+    if tp_axis is not None:
+        # This fit's model-axis totals, as step_fn.comms holds its own.
+        tp_axis.restart_comms()
 
     resumed_step: int | None = None
     resume_meta: dict = {}
@@ -496,6 +520,11 @@ def fit(
     if resume and checkpointer is not None:
         from machine_learning_apache_spark_tpu_torch.train import checkpoint as _ckpt
 
+        if world > 1:
+            # A barrier: every rank's earlier saves (an earlier fit of
+            # this gang's processes) are on disk before any rank reads
+            # the group's pointers.
+            mesh.all_reduce_(torch.zeros(1))
         # Topology is checked BEFORE any restore: every rank resolves the
         # same old stamp from its group, so every rank takes the same
         # route.
@@ -508,7 +537,9 @@ def fit(
                 f"topology {old} vs this run's {current}. Pass "
                 "elastic=True (or set MLSPARK_ELASTIC=1, which "
                 "Distributor(elastic=True) does) to reshard, or "
-                "point the run at a fresh checkpoint directory."
+                "point the run at a fresh checkpoint directory. "
+                "(Resharding, to another world or model-axis size, is "
+                "train/reshard.py: ROADMAP queue A4, not ported yet.)"
             )
         restored = checkpointer.restore_latest_valid(state)
         if world > 1:
@@ -527,10 +558,12 @@ def fit(
     else:
         seed = int(torch.randint(_SEED_RANGE, (), generator=rng))
         if world > 1:
-            # Each rank its own dropout masks (DDP's replicas draw their
-            # own): the fit's seed mixed with the rank. Rank 0 keeps the
-            # one-process seed.
-            seed = (seed + mesh.rank * 0x9E3779B97F4A7C15) % _SEED_RANGE
+            # Each replica its own dropout masks (DDP's replicas draw
+            # their own): the fit's seed mixed with the data index (the
+            # rank on a pure data mesh). The ranks of one model line share
+            # it: they drop the same elements of their replicated
+            # activations. Data index 0 keeps the one-process seed.
+            seed = (seed + mesh.index("data") * 0x9E3779B97F4A7C15) % _SEED_RANGE
         step_rng.manual_seed(seed)
 
     step_fn = None
@@ -613,11 +646,14 @@ def fit(
         if sink is not None:
             sink.close()
     emit(f"Training Time: {seconds:.3f} sec")
+    comms = step_fn.comms.stats() if step_fn is not None else {}
+    tp_axis = getattr(state.model, "tp_axis", None)
+    if tp_axis is not None:
+        comms |= tp_axis.comms.stats()
     return FitResult(
         state=state, train_seconds=seconds, history=history,
         resumed_step=resumed_step, step_losses=step_losses,
-        programs=dispatch.programs.stats(),
-        comms=step_fn.comms.stats() if step_fn is not None else {},
+        programs=dispatch.programs.stats(), comms=comms,
     )
 
 
@@ -785,7 +821,8 @@ def evaluate(
 
         def step_fn(state, batch, rng):
             return eval_step(state, to_device(batch, device), rng)
-    local_size = mesh.shape[DATA_AXIS] // world if mesh is not None else 1
+    # One device per process: each rank's share of the data axis is 1.
+    local_size = max(mesh.shape.get(DATA_AXIS, 1) // world, 1) if mesh is not None else 1
     metrics = MetricBundle()
     pending: list[tuple] = []
     total = 0
@@ -802,6 +839,10 @@ def evaluate(
         total += n
         pending.append((loss, aux, n))
     _drain_into(metrics, pending, "test_loss")
+    tp_axis = getattr(state.model, "tp_axis", None)
+    if tp_axis is not None:
+        # The evaluation's all-reduces are no training step's.
+        tp_axis.restart_comms()
     out = metrics.compute()
     emit(" | ".join(f"{k}: {v:.5f}" for k, v in out.items()))
     out["eval_samples"] = total

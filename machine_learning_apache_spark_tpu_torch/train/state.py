@@ -331,9 +331,13 @@ class TrainState:
                 return
             grads = self.acc_grads
         if self.tx.grad_clip is not None:
+            # (Imported here: the parallel package imports this module.)
+            from machine_learning_apache_spark_tpu_torch.parallel.tensor_parallel import (
+                global_sq_norm,
+            )
+
             grads = clip_by_global_norm(
-                grads, torch.sqrt(sum(torch.sum(torch.square(g)) for g in grads)),
-                self.tx.grad_clip,
+                grads, torch.sqrt(global_sq_norm(params, grads)), self.tx.grad_clip
             )
         self.set_lr(lr)
         self._step_optimizer(params, grads)

@@ -24,7 +24,11 @@ matching torch modules of any of the port's models, name for name:
   Flax layout, carried as they are.
 
 Every leaf of the tree must land on a parameter and every parameter must
-be filled: a mismatch raises, naming the keys.
+be filled: a mismatch raises, naming the keys. With ``mesh=`` (a mesh with
+a ``"model"`` axis) the full load is then sharded over that axis
+(``parallel.tensor_parallel.shard_params``): the rank keeps its slice,
+and ``tensor_parallel.gather_params`` gives the full load's tensors back,
+bit for bit.
 
 ``export_flax_params(model)`` is the inverse: the model's parameters as
 such a tree, so trained weights can be compared with (or handed to) the
@@ -71,9 +75,10 @@ def _leaf(base: str, name: str) -> str:
 
 
 @torch.no_grad()
-def load_flax_params(model: nn.Module, params) -> nn.Module:
+def load_flax_params(model: nn.Module, params, *, mesh=None) -> nn.Module:
     """Fill ``model`` (the port's ``Transformer``) from a Flax parameter
-    tree of numpy arrays; returns the model."""
+    tree of numpy arrays; returns the model, sharded over ``mesh``'s
+    model axis when given."""
     flat = _flatten(params)
     used: set[str] = set()
     missing: list[str] = []
@@ -113,6 +118,10 @@ def load_flax_params(model: nn.Module, params) -> nn.Module:
             f"Flax tree does not match the model: missing {missing}, "
             f"unused {unused}"
         )
+    if mesh is not None:
+        from machine_learning_apache_spark_tpu_torch.parallel.tensor_parallel import shard_params
+
+        shard_params(model, mesh)
     return model
 
 

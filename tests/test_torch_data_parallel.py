@@ -114,10 +114,16 @@ def test_pad_batch_to_multiple_equals_jax(rows, multiple):
 
 def test_mesh_axes_beyond_data_raise_naming_their_item():
     assert make_mesh({"data": 2, "model": 1}, world=2).shape == {"data": 2, "model": 1}
-    with pytest.raises(NotImplementedError, match="tensor_parallel"):
-        make_mesh({"data": 1, "model": 2}, world=2)
+    # The model axis is ported: ranks lie data-major, model innermost (the
+    # JAX mesh's device order).
+    mesh = make_mesh({"model": 2, "data": 2}, world=4)
+    assert mesh.shape == {"data": 2, "model": 2} and mesh.coords == {"data": 0, "model": 0}
     with pytest.raises(NotImplementedError, match="ring_attention"):
         make_mesh({"seq": -1}, world=2)
+    with pytest.raises(NotImplementedError, match="pipeline_parallel"):
+        make_mesh({"data": 1, "pipeline": 2}, world=2)
+    with pytest.raises(NotImplementedError, match="expert"):
+        make_mesh({"expert": 2}, world=2)
     with pytest.raises(ValueError, match="does not cover 1 devices"):
         data_parallel_mesh(2)
 

@@ -1376,3 +1376,75 @@ def test_bf16_paged_engine_builds_every_program_at_warmup(cuda, kv_dtype):
     want = t(texts, max_new_tokens=CARD_ENGINE["max_new_tokens"])
     pairs = [(a, b) for g, w in zip(got, want) for a, b in zip(g.split(), w.split())]
     assert sum(a == b for a, b in pairs) >= 0.99 * len(pairs)
+
+
+# -- tensor parallelism on the card (gloo: the ranks share it) -----------------
+
+TP_CFG = dict(src_vocab_size=41, trg_vocab_size=37, d_model=64, ffn_hidden=128,
+              num_heads=4, num_layers=1, max_len=24, dropout=0.0, logit_pad=3)
+
+
+@pytest.fixture(scope="module")
+def card_tp_gang():
+    """One 4-rank gang on the card per check: the sharded Transformer
+    (``{data: 1, model: 4}``, one head a rank) against the unsharded one
+    and the vocab-parallel loss against the full-logit loss, then the
+    hybrid ``{data: 2, model: 2}`` MLP steps (replicated, ZeRO-1 float32
+    overlapped and serial, bf16 and int8 wires)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the gang's ranks run on it")
+    from machine_learning_apache_spark_tpu_torch.launcher import Distributor, kill_stray_gangs
+    from machine_learning_apache_spark_tpu_torch.models import MLP
+    from machine_learning_apache_spark_tpu_torch.models.transformer import (
+        Transformer,
+        TransformerConfig,
+    )
+    from machine_learning_apache_spark_tpu_torch.weights import export_flax_params
+
+    rng = np.random.default_rng(41)
+    src = rng.integers(4, 41, (8, 20)).astype(np.int64)
+    trg = rng.integers(4, 37, (8, 19)).astype(np.int64)
+    for i, m in enumerate(rng.integers(3, 19, 8)):
+        trg[i, m:] = 0
+    tree = export_flax_params(Transformer(TransformerConfig(**TP_CFG),
+                                          generator=torch.Generator().manual_seed(7)))
+    layers = (4, 8, 8, 4)
+    mlp_tree = export_flax_params(MLP(layers, tp_rules=True, generator=torch.Generator().manual_seed(1)))
+    feats = rng.standard_normal((16, 4)).astype(np.float32)
+    labels = rng.integers(0, 4, 16)
+    out = {"layers": Distributor(num_processes=4, timeout=300).run(
+        "torch_launcher_workers:tp_card_layers", TP_CFG, tree, (src, trg))}
+    out["hybrid"] = Distributor(num_processes=4, timeout=300).run(
+        "torch_launcher_workers:tp_hybrid_four_rank", layers, mlp_tree, (feats, labels), 5, 1e-2, 64)
+    assert kill_stray_gangs() == 0
+    return out
+
+
+def test_tp_layers_on_the_card_match_the_unsharded_model(card_tp_gang):
+    r = card_tp_gang["layers"]
+    assert r["device"] == "cuda:0" and r["heads"] == 1
+    got, want = r["loss"]
+    assert abs(got - want) <= TOL * abs(want)
+    assert r["grad_rel"] <= TOL
+    # Each rank runs the flash kernels on its own heads: 3 sites, once.
+    assert r["launches"]["flash_attention_fwd"] == 3
+    assert r["launches"]["flash_attention_bwd_dq"] == r["launches"]["flash_attention_bwd_dkv"] == 3
+
+
+def test_vocab_parallel_loss_on_the_card_matches_the_full_logit_loss(card_tp_gang):
+    got, want = card_tp_gang["layers"]["vocab_parallel"]
+    assert abs(got - want) <= 1e-6 * abs(want)
+
+
+def test_hybrid_zero1_on_the_card_trains_the_replicated_hybrid_bits(card_tp_gang):
+    h = card_tp_gang["hybrid"]
+    for name in ("fp32_overlap", "fp32_serial"):
+        for k, v in h["replicated"]["params"].items():
+            for leaf, x in v.items():
+                np.testing.assert_array_equal(h[name]["params"][k][leaf], x)
+        assert h[name]["moments_equal"] == [True] * 4
+        for b, n in zip(h[name]["opt_bytes"], h[name]["shard_len"]):
+            assert b == 2 * 4 * n + 4 and b <= h["replicated_bytes"] / 4 + 64
+    for name in ("bf16", "int8"):
+        for v in h[name]["params"].values():
+            assert all(np.isfinite(x).all() for x in v.values())

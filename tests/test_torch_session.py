@@ -157,7 +157,7 @@ def test_submit_empty_builder_reads_the_submitted_conf(tmp_path, monkeypatch):
 
 def test_resolve_mesh_rules(monkeypatch):
     assert _common.resolve_mesh(True) is None  # one process: nothing to shard
-    assert _common.local_batch_scale(None) == 1
+    assert _common.data_replicas(None) == (1, 0)
     with pytest.raises(ValueError, match="requested but only 1 device"):
         _common.resolve_mesh(True, model_parallel=2)
     with pytest.raises(ValueError, match="requires use_mesh=True"):
@@ -165,6 +165,15 @@ def test_resolve_mesh_rules(monkeypatch):
     monkeypatch.setattr(_common, "process_count", lambda: 2)
     with pytest.raises(ValueError, match="independent unsynchronized replicas"):
         _common.resolve_mesh(False)
+    # Under a gang the model axis is ported: {data: world/M, model: M},
+    # and each process is one replica's share of the rows.
+    mesh = _common.resolve_mesh(True, model_parallel=2)
+    assert mesh.shape == {"data": 1, "model": 2}
+    assert _common.data_replicas(mesh) == (1, 0)
+    with pytest.raises(NotImplementedError, match="ring_attention"):
+        _common.resolve_mesh(True, sequence_parallel=2)
+    with pytest.raises(NotImplementedError, match="pipeline_parallel"):
+        _common.resolve_mesh(True, pipeline_parallel=2)
 
 
 def test_recipe_under_a_two_rank_gang_reports_its_world():

@@ -25,10 +25,21 @@ Two 2-rank gloo gangs (one thread per rank): the variants of
 ``torch_launcher_workers:zero1_variants`` (the replicated step at K = 1
 and 4 among them) and the recipe's ZeRO-1 checkpoints
 (``zero1_recipe_two_plus_two``).
+
+On the hybrid ``data × model`` mesh the JAX oracles do run: one 4-rank
+``{data: 2, model: 2}`` gang (``tp_hybrid_four_rank``) on the JAX
+``TestHybridMesh`` setup holds the port's replicated hybrid step to the
+JAX TP reference step, its ZeRO-1 hybrid step bit for bit to the
+replicated hybrid one (moments included) and within 1e-5 to the JAX
+hybrid ``make_zero1_step``, the optimizer bytes per rank to ≤
+replicated/4 + 64, the bf16 and int8 wires as the JAX tests hold them,
+``fit(zero1=True)`` and the recipe's ``MLSPARK_DP_MODE=zero1`` contract
+on that mesh; ``make_hybrid_plan``'s arithmetic is checked on its own.
 """
 
 import functools
 
+import flax.linen as fnn
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -36,7 +47,11 @@ import optax
 import pytest
 import torch
 
+from machine_learning_apache_spark_tpu.models import MLP as JMLP
 from machine_learning_apache_spark_tpu.parallel import zero as jzero
+from machine_learning_apache_spark_tpu.parallel.mesh import make_mesh as j_make_mesh
+from machine_learning_apache_spark_tpu.parallel.mesh import shard_batch as j_shard_batch
+from machine_learning_apache_spark_tpu.parallel.tensor_parallel import shard_state as j_shard_state
 from machine_learning_apache_spark_tpu.parallel.mesh import (
     data_parallel_mesh as j_data_parallel_mesh,
 )
@@ -63,6 +78,8 @@ from test_torch_data_parallel import (
     _update_errors,
 )
 from test_torch_data_parallel import _transformer_params as _init_transformer
+from test_torch_tensor_parallel import RECIPE
+from test_torch_tensor_parallel import _flat as _flat_tree
 
 # One Flax init per seed for the whole module (each init compiles).
 _transformer_params = functools.cache(_init_transformer)
@@ -263,8 +280,9 @@ def test_guards_are_the_jax_packages():
     with pytest.raises(ValueError, match=">1 'data' axis"):
         zero._require_zero1_mesh(FakeMesh({"data": 1}), "data")
     state.step = 0
-    with pytest.raises(NotImplementedError, match="tensor_parallel.py"):
-        zero.shard_optimizer_state(state, FakeMesh({"data": 2, "model": 2}))
+    # The data x model layout is ported: a mesh with a model axis passes
+    # the guard (the hybrid step itself runs in the 4-rank gang test).
+    assert zero._require_zero1_mesh(FakeMesh({"data": 2, "model": 2}), "data") == (2, 2)
     with pytest.raises(ValueError, match="comms_dtype"):
         zero.Zero1Config(comms_dtype="fp8")
     with pytest.raises(ValueError, match="bucket_bytes"):
@@ -439,3 +457,106 @@ def test_implicit_form_shards_moments_on_the_leading_dim_and_refuses_a_2d_checkp
         [torch.zeros(2, p.numel()) for p in state.params])
     with pytest.raises(ValueError, match="multi-dimensional cross-process sharded array"):
         ckpt.detached_payload(state)
+
+
+# -- the hybrid data x model mesh ----------------------------------------------
+
+
+def test_hybrid_plan_owns_one_dm_th_of_the_model():
+    shards = [torch.zeros(4, 3), torch.zeros(5)]
+    replicated = [torch.zeros(7), torch.zeros(2, 2)]
+    plan = zero.make_hybrid_plan(shards, replicated, data_ways=2, model_ways=2, bucket_bytes=16)
+    # Shards: 17 elements padded to 18 over 2 data ranks, buckets of 4.
+    # Replicated: 11 padded to 12 over 2 x 2, buckets of 4 split by 2.
+    assert plan.buckets[:5] == ((0, 4), (4, 8), (8, 12), (12, 16), (16, 18))
+    assert plan.buckets[5:] == ((18, 22), (22, 26), (26, 30))
+    assert plan.subs == (1,) * 5 + (2,) * 3
+    assert plan.offsets == (0, 12, 18, 25)
+    assert plan.shard_len == 18 // 2 + 12 // 4
+    assert [plan.owned(k) for k in range(len(plan.buckets))] == [2, 2, 2, 2, 1, 1, 1, 1]
+
+
+def test_four_rank_hybrid_zero1_equals_the_replicated_hybrid_and_jax():
+    rng = np.random.default_rng(0)
+    feats = rng.standard_normal((16, 4)).astype(np.float32)
+    labels = rng.integers(0, 4, 16)
+    layers, steps, lr, bucket = (4, 8, 8, 4), 5, 1e-2, 64
+    jm = JMLP(layers=layers, tp_rules=True)
+    boxed = jm.init(jax.random.key(0), jnp.asarray(feats[:1]))["params"]
+    tree = jax.tree.map(np.array, fnn.unbox(boxed))
+
+    recipe = {**RECIPE, "device": "cpu", "batch_size": 16, "num_heads": 4}
+    out = Distributor(num_processes=4, platform="cpu", timeout=600, env=GANG_ENV).run(
+        "torch_launcher_workers:tp_hybrid_four_rank", layers, tree, (feats, labels), steps, lr,
+        bucket, None, recipe,
+    )
+    assert kill_stray_gangs() == 0
+    assert out["coords"] == [{"data": 0, "model": 0}, {"data": 0, "model": 1},
+                             {"data": 1, "model": 0}, {"data": 1, "model": 1}]
+
+    # The JAX references on a {data: 2, model: 2} mesh of 4 virtual devices.
+    mesh = j_make_mesh({"data": 2, "model": 2}, devices=jax.devices()[:4])
+    loss_fn = jloop.classification_loss(jm.apply)
+    batch = (jnp.asarray(feats), jnp.asarray(labels))
+
+    def run(step, state):
+        sharded = j_shard_batch(mesh, batch)
+        for i in range(steps):
+            state, loss, _ = step(state, sharded, jax.random.fold_in(jax.random.key(9), i))
+        return _flat_tree(jax.tree.map(np.asarray, jax.device_get(state.params))), float(loss)
+
+    ref = j_shard_state(jstate.TrainState.create(
+        apply_fn=jm.apply, params=jax.tree.map(jnp.copy, boxed), tx=jstate.make_optimizer("adam", lr),
+    ), mesh)
+    ref_params, ref_loss = run(jloop.make_train_step(loss_fn), ref)
+    zs = jzero.init_sharded(apply_fn=jm.apply, params=jax.tree.map(jnp.copy, boxed),
+                            tx=jstate.make_optimizer("adam", lr), mesh=mesh,
+                            config=jzero.Zero1Config(bucket_bytes=bucket))
+    z_params, z_loss = run(jzero.make_zero1_step(loss_fn, mesh, zs), zs)
+
+    rep = _flat_tree(out["replicated"]["params"])
+    for path, w in ref_params.items():
+        np.testing.assert_allclose(rep[path], w, rtol=0, atol=1e-5, err_msg=path)
+    assert out["replicated"]["loss"] == pytest.approx(ref_loss, abs=1e-5)
+    # fit(zero1=True) with a model axis: the replicated hybrid's bits,
+    # the moments of leaves whose leading dim the data axis divides
+    # halved.
+    imp = out["implicit"]
+    assert imp["types"] == ["LeadingShardState"] * 4
+    for path in rep:
+        np.testing.assert_array_equal(_flat_tree(imp["params"])[path], rep[path], err_msg=path)
+    assert all(b < out["replicated_bytes"] for b in imp["opt_bytes"])
+    for name in ("fp32_overlap", "fp32_serial"):
+        run_ = out[name]
+        got = _flat_tree(run_["params"])
+        for path in rep:  # bit for bit the replicated hybrid, moments too
+            np.testing.assert_array_equal(got[path], rep[path], err_msg=f"{name} {path}")
+            np.testing.assert_allclose(got[path], z_params[path], rtol=0, atol=1e-5)
+        assert run_["moments_equal"] == [True] * 4
+        assert run_["loss"] == pytest.approx(z_loss, abs=1e-5)
+        # Each rank keeps 1/(D·M) of the moments (+ the padding and one
+        # step count), as the JAX figure's joint (data, model) sharding.
+        for b, n in zip(run_["opt_bytes"], run_["shard_len"]):
+            assert b == 2 * 4 * n + 4
+            assert b <= out["replicated_bytes"] / 4 + 64
+    fp32 = out["fp32_overlap"]["wire_fp32"]
+    bf16 = out["bf16"]
+    for path, w in ref_params.items():
+        np.testing.assert_allclose(_flat_tree(bf16["params"])[path], w, rtol=0, atol=1e-2)
+    assert bf16["wire"]["reduce_scatter_bytes"] == fp32["reduce_scatter_bytes"] // 2
+    assert bf16["wire"]["allgather_bytes"] == fp32["allgather_bytes"]
+    i8 = out["int8"]
+    for path, w in ref_params.items():
+        got = _flat_tree(i8["params"])[path]
+        assert np.isfinite(got).all()
+        np.testing.assert_allclose(got, w, rtol=0, atol=0.2)
+    n_buckets = len(i8["layout"]["buckets"])
+    assert i8["wire"]["reduce_scatter_bytes"] == fp32["reduce_scatter_bytes"] // 4 + 4 * n_buckets
+    assert i8["layout"]["subs"] and set(i8["layout"]["subs"]) == {1, 2}
+    # The recipe under the gang's MLSPARK_DP_MODE=zero1 contract on
+    # {data: 2, model: 2}: the hybrid ZeRO-1 state, the replicated run's
+    # step losses bit for bit.
+    rec = out["recipe"]
+    assert rec["zero1"]["type"] == "Zero1State" and rec["replicated"]["type"] == "TrainState"
+    assert rec["zero1"]["mesh"] == rec["replicated"]["mesh"] == {"data": 2, "model": 2}
+    assert rec["zero1"]["step_losses"] == rec["replicated"]["step_losses"]

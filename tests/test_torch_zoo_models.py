@@ -116,8 +116,15 @@ def test_feedforward_models_match_flax(case):
 def test_mlp_validates_its_input_width_and_rejects_tp_rules():
     with pytest.raises(ValueError, match="expects 4 input features, got 5"):
         MLP((4, 3))(torch.zeros(2, 5))
-    with pytest.raises(NotImplementedError, match="A4"):
-        MLP((4, 3), tp_rules=True)
+    # tp_rules is ported: the JAX module's alternating annotations, and
+    # the same function as the plain MLP on one device.
+    tp = MLP((4, 8, 8, 3), tp_rules=True)
+    assert [tp.dense_0.logical_axes, tp.dense_1.logical_axes, tp.dense_2.logical_axes] == [
+        ("embed", "mlp"), ("mlp", "embed"), ("embed", "mlp")
+    ]
+    plain = MLP((4, 8, 8, 3))
+    x = torch.randn(2, 4, generator=torch.Generator().manual_seed(0))
+    assert torch.equal(tp(x), plain(x))
 
 
 def test_tinyvgg_head_rows_are_in_flax_hwc_order():

@@ -646,3 +646,303 @@ def zero1_recipe_two_plus_two(workdir, recipe_kw, device=None):
         except TopologyMismatch as e:
             crossed[label] = str(e)
     return {"rank": rank, "world": world, "runs": runs, "crossed": crossed}
+
+
+# -- tensor parallelism ----------------------------------------------------------
+
+
+def _gathered_tree(model, factory, grads: bool = False):
+    """``model``'s parameters (or their gradients) gathered over the model
+    axis into ``factory()``'s full model, as a Flax tree."""
+    from machine_learning_apache_spark_tpu_torch.parallel.tensor_parallel import gather_full
+    from machine_learning_apache_spark_tpu_torch.weights import export_flax_params
+
+    full = {name: gather_full(p, p.grad if grads else None) for name, p in model.named_parameters()}
+    out = factory()
+    out.load_state_dict(full)
+    return export_flax_params(out)
+
+
+def tp_two_rank(cfg_kwargs, flax_params, probe_batch, batches, lr, mlp_layers, mlp_params,
+                mlp_batches, workdir, recipe_kw, probe_texts):
+    """Every check of the 2-rank ``{data: 1, model: 2}`` gang, in one gang
+    start: the sharded Transformer's loss and gathered gradients on
+    ``probe_batch``; 3 SGD steps of ``fit(mesh=)`` over ``batches`` and of
+    an ``MLP(tp_rules=True)`` over ``mlp_batches``, the latter also on a
+    ``{model: 2}`` mesh; 1 + 1 epochs against 2
+    with checkpoints (dropout and Adam), and the crossed resume; then
+    ``train_translator(model_parallel=2)``. Rank 0's results."""
+    from machine_learning_apache_spark_tpu_torch.models.mlp import MLP
+    from machine_learning_apache_spark_tpu_torch.models.transformer import (
+        Transformer,
+        TransformerConfig,
+    )
+    from machine_learning_apache_spark_tpu_torch.parallel import make_mesh
+    from machine_learning_apache_spark_tpu_torch.parallel import tensor_parallel as tp
+    from machine_learning_apache_spark_tpu_torch.recipes.translation import (
+        make_translation_loss,
+        train_translator,
+    )
+    from machine_learning_apache_spark_tpu_torch.train import checkpoint as ckpt
+    from machine_learning_apache_spark_tpu_torch.train.loop import (
+        classification_loss,
+        evaluate,
+        fit,
+    )
+    from machine_learning_apache_spark_tpu_torch.train.state import TrainState, make_optimizer
+    from machine_learning_apache_spark_tpu_torch.weights import export_flax_params, load_flax_params
+
+    rank, world = _rank_world()
+    mesh = make_mesh({"data": 1, "model": world}, device="cpu")
+    cfg = TransformerConfig(**cfg_kwargs)
+    full_cfg = lambda: Transformer(cfg)  # noqa: E731
+    out = {"mesh": dict(mesh.shape), "coords": mesh.coords}
+
+    model = load_flax_params(Transformer(cfg), flax_params, mesh=mesh)
+    probe = tuple(torch.as_tensor(a) for a in probe_batch)
+    loss, _ = make_translation_loss(cfg.pad_id, train=False)(model, probe, None)
+    loss.backward()
+    out["probe_loss"] = float(loss)
+    out["probe_grads"] = _gathered_tree(model, full_cfg, grads=True)
+    out["heads_per_rank"] = model.encoder.layers[0].self_attn.heads
+    out["probe_tp_calls"] = model.tp_axis.comms.calls["tp_allreduce"]
+
+    model = load_flax_params(Transformer(cfg), flax_params)
+    res = fit(TrainState.create(model=model, tx=make_optimizer("sgd", lr)),
+              make_translation_loss(cfg.pad_id), batches, epochs=1, mesh=mesh, log_every=0)
+    out["fit"] = {"params": _gathered_tree(model, full_cfg), "step_losses": res.step_losses,
+                  "comms": res.comms}
+
+    mlp = load_flax_params(MLP(tuple(mlp_layers), tp_rules=True), mlp_params)
+    res = fit(TrainState.create(model=mlp, tx=make_optimizer("sgd", lr)), classification_loss(),
+              mlp_batches, epochs=1, mesh=mesh, log_every=0)
+    out["mlp"] = {"params": _gathered_tree(mlp, lambda: MLP(tuple(mlp_layers), tp_rules=True)),
+                  "step_losses": res.step_losses,
+                  "modes": [getattr(getattr(mlp, f"dense_{i}").tp, "mode", None)
+                            for i in range(len(mlp_layers) - 1)]}
+    # A mesh with no data axis: the same TP fit, no data-parallel sums (a
+    # replica check compares nothing), so the same bits.
+    mlp = load_flax_params(MLP(tuple(mlp_layers), tp_rules=True), mlp_params)
+    model_only = make_mesh({"model": world}, device="cpu")
+    res = fit(TrainState.create(model=mlp, tx=make_optimizer("sgd", lr)), classification_loss(),
+              mlp_batches, epochs=1, mesh=model_only, log_every=0, sync_check_every=1)
+    out["mlp_model_only"] = {
+        "params": _gathered_tree(mlp, lambda: MLP(tuple(mlp_layers), tp_rules=True)),
+        "step_losses": res.step_losses,
+    }
+    # A second fit after an evaluation reports its own model-axis totals.
+    evaluate(res.state, classification_loss(train=False), mlp_batches[:1], mesh=model_only)
+    again = fit(res.state, classification_loss(), mlp_batches, epochs=1, mesh=model_only,
+                log_every=0)
+    out["tp_comms_per_fit"] = (res.comms, again.comms)
+
+    drop_cfg = TransformerConfig(**{**cfg_kwargs, "dropout": 0.1})
+
+    def resumable(tag, epochs, resume):
+        m = load_flax_params(Transformer(drop_cfg), flax_params)
+        with ckpt.CheckpointManager(os.path.join(workdir, tag, f"ckpt_r{rank}")) as mgr:
+            r = fit(TrainState.create(model=m, tx=make_optimizer("adam", lr / 10)),
+                    make_translation_loss(cfg.pad_id), batches, epochs=epochs, mesh=mesh,
+                    log_every=0, checkpointer=mgr, resume=resume,
+                    rng=torch.Generator().manual_seed(11))
+        return m, r
+
+    whole, r2 = resumable("whole", 2, False)
+    resumable("split", 1, False)
+    split, r11 = resumable("split", 2, True)
+    out["resume"] = {
+        "params_equal": all(torch.equal(a, b) for a, b in zip(whole.parameters(), split.parameters())),
+        "losses": (r2.step_losses, r11.step_losses),
+        "resumed_from": r11.resumed_step,
+    }
+    m = load_flax_params(Transformer(drop_cfg), flax_params)
+    try:
+        with ckpt.CheckpointManager(os.path.join(workdir, "split", f"ckpt_r{rank}")) as mgr:
+            fit(TrainState.create(model=m, tx=make_optimizer("adam", lr / 10)),
+                make_translation_loss(cfg.pad_id), batches, epochs=3,
+                mesh=make_mesh({"data": world}, device="cpu"), log_every=0,
+                checkpointer=mgr, resume=True)
+        out["crossed"] = "no error"
+    except ckpt.TopologyMismatch as e:
+        out["crossed"] = str(e)
+
+    res = train_translator(device="cpu", model_parallel=world, _return_translator=True,
+                           _return_state=True, **recipe_kw)
+    tr = res["translator"]
+    sharded = res["state"].model
+    gathered = tp.gather_params(sharded)
+    concat_ok = True
+    for name, p in sharded.named_parameters():
+        pieces = [torch.empty_like(p) for _ in range(world)]
+        dist.all_gather(pieces, p.detach().contiguous())
+        if getattr(p, "tp_axis", None) is not None:
+            concat_ok &= torch.equal(gathered[name], tp.unshard(pieces, p.tp_dim, p.tp_parts))
+            concat_ok &= torch.equal(pieces[rank], p.detach())
+        else:
+            concat_ok &= torch.equal(gathered[name], p.detach())
+    out["recipe"] = {
+        "step_losses": res["fit_result"].step_losses,
+        "final_loss": res["final_loss"],
+        "test_loss": res.get("test_loss"),
+        "logit_pad": sharded.cfg.logit_pad,
+        "translator_params": export_flax_params(tr.model),
+        "gathered_equal_concat": bool(concat_ok),
+        "translator_sharded": tr.model.tp_axis is not None,
+        "tokens": tr(list(probe_texts), max_new_tokens=8),
+    }
+    return out if rank == 0 else None
+
+
+def tp_hybrid_four_rank(mlp_layers, mlp_params, batch, steps, lr, bucket_bytes, device=None,
+                        recipe_kw=None):
+    """The 4-rank ``{data: 2, model: 2}`` gang on the JAX ``TestHybridMesh``
+    setup: ``steps`` Adam steps of the replicated hybrid step
+    (``shard_state`` + ``make_data_parallel_step``) and of the ZeRO-1
+    hybrid step (overlapped, serial; float32, bf16 and int8 wires), each
+    data index on its half of ``batch``. Rank 0's results: every run's
+    gathered parameters and last loss, whether each rank's ZeRO-1 moments
+    equal the slices of its replicated moments bit for bit, the
+    optimizer bytes per rank, the full model's replicated optimizer
+    bytes, and the wire accounting. On ``device`` (default: the gang's).
+    With ``recipe_kw``, also ``train_translator(model_parallel=2)``
+    replicated and under the ``MLSPARK_DP_MODE=zero1`` contract: their
+    step losses and state types."""
+    from machine_learning_apache_spark_tpu_torch.models.mlp import MLP
+    from machine_learning_apache_spark_tpu_torch.parallel import make_data_parallel_step, make_mesh
+    from machine_learning_apache_spark_tpu_torch.parallel import tensor_parallel as tp
+    from machine_learning_apache_spark_tpu_torch.parallel import zero
+    from machine_learning_apache_spark_tpu_torch.train.loop import classification_loss, to_device
+    from machine_learning_apache_spark_tpu_torch.train.state import TrainState, make_optimizer
+    from machine_learning_apache_spark_tpu_torch.weights import load_flax_params
+
+    rank, world = _rank_world()
+    dev = _worker_device(device)
+    mesh = make_mesh({"data": 2, "model": 2}, device=dev)
+    d = mesh.index("data")
+    local = to_device(_rows(batch, d, 2), dev)
+    factory = lambda: MLP(tuple(mlp_layers), tp_rules=True)  # noqa: E731
+    loss_fn = classification_loss()
+    out: dict = {"coords": [None] * world}
+    dist.all_gather_object(out["coords"], mesh.coords)
+
+    def fresh():
+        return load_flax_params(factory(), mlp_params).to(dev)
+
+    state = tp.shard_state(TrainState.create(model=fresh(), tx=make_optimizer("adam", lr)), mesh)
+    step = make_data_parallel_step(loss_fn, mesh)
+    for _ in range(steps):
+        _, loss, _ = step(state, local, None)
+    ref = state
+    out["replicated"] = {"params": _gathered_tree(state.model, factory), "loss": float(loss),
+                         "grad_allreduce_steps": step.comms.steps,
+                         "tp": state.model.tp_axis.comms.stats()}
+
+    full = TrainState.create(model=fresh(), tx=make_optimizer("adam", lr))
+    l, _ = loss_fn(full.model, local, None)
+    l.backward()
+    full.apply_gradients()
+    out["replicated_bytes"] = zero.opt_state_bytes(full.optimizer)
+
+    # fit(zero1=True) on the hybrid mesh: the replicated hybrid step with
+    # each moment sharded on its leading dim over the data line.
+    from machine_learning_apache_spark_tpu_torch.train.loop import fit
+
+    res = fit(TrainState.create(model=fresh(), tx=make_optimizer("adam", lr)), loss_fn,
+              [local] * steps, epochs=1, mesh=mesh, zero1=True, log_every=0)
+    flags = [None] * world
+    dist.all_gather_object(flags, (type(res.state).__name__, zero.opt_state_bytes_per_chip(res.state)))
+    out["implicit"] = {"params": _gathered_tree(res.state.model, factory),
+                       "types": [f[0] for f in flags], "opt_bytes": [f[1] for f in flags],
+                       "step_losses": res.step_losses}
+
+    runs = {"fp32_overlap": dict(overlap=True), "fp32_serial": dict(overlap=False),
+            "bf16": dict(comms_dtype="bfloat16"), "int8": dict(comms_dtype="int8")}
+    for name, kw in runs.items():
+        zs = zero.init_sharded(model=fresh(), tx=make_optimizer("adam", lr), mesh=mesh,
+                               config=zero.Zero1Config(bucket_bytes=bucket_bytes, **kw))
+        zstep = zero.make_zero1_step(loss_fn, mesh, zs)
+        for _ in range(steps):
+            _, loss, _ = zstep(zs, local, None)
+        moments_equal = None
+        if name.startswith("fp32"):
+            moments_equal = True
+            for key in ("exp_avg", "exp_avg_sq"):
+                by_param = [ref.optimizer.state[p][key] for p in ref.params]
+                flat = torch.zeros(zs.plan.padded, device=dev)
+                for i, o, n in zip(zs.order, zs.plan.offsets, zs.plan.sizes):
+                    flat[o:o + n] = by_param[i].reshape(-1)
+                want = torch.cat([flat[zs.bucket_span(k)[0]] for k in range(len(zs.plan.buckets))])
+                moments_equal &= torch.equal(want, zs.opt_state[key])
+        flags = [None] * world
+        dist.all_gather_object(flags, (moments_equal, zero.opt_state_bytes_per_chip(zs), zs.plan.shard_len))
+        out[name] = {
+            "params": _gathered_tree(zs.model, factory), "loss": float(loss),
+            "moments_equal": [f[0] for f in flags], "opt_bytes": [f[1] for f in flags],
+            "shard_len": [f[2] for f in flags], "wire": zstep.comms_stats,
+            "wire_fp32": zero.comms_bytes_per_step(zs.plan, zero.Zero1Config(bucket_bytes=bucket_bytes)),
+            "layout": zero.plan_layout(zs.plan),
+        }
+    if recipe_kw is not None:
+        from machine_learning_apache_spark_tpu_torch.recipes.translation import train_translator
+
+        out["recipe"] = {}
+        for mode in ("replicated", "zero1"):
+            os.environ["MLSPARK_DP_MODE"] = mode
+            try:
+                res = train_translator(model_parallel=2, _return_state=True, **recipe_kw)
+            finally:
+                os.environ.pop("MLSPARK_DP_MODE")
+            out["recipe"][mode] = {"step_losses": res["fit_result"].step_losses,
+                                   "type": type(res["state"]).__name__,
+                                   "mesh": dict(res["state"].mesh.shape)}
+    return out if rank == 0 else None
+
+
+def tp_card_layers(cfg_kwargs, flax_params, batch, device=None):
+    """The sharded Transformer's loss and gathered gradients on
+    ``device`` (default: the gang's) on a ``{data: 1, model: world}``
+    mesh (every rank the whole ``batch``) against the unsharded model on
+    the same device; and the
+    vocab-parallel loss against the full-logit loss on the same logits.
+    Rank 0's largest relative differences and kernel launches."""
+    from machine_learning_apache_spark_tpu_torch.models.transformer import (
+        Transformer,
+        TransformerConfig,
+    )
+    from machine_learning_apache_spark_tpu_torch.ops import hopper_attention as hop
+    from machine_learning_apache_spark_tpu_torch.parallel import make_mesh
+    from machine_learning_apache_spark_tpu_torch.parallel import tensor_parallel as tp
+    from machine_learning_apache_spark_tpu_torch.recipes.translation import make_translation_loss
+    from machine_learning_apache_spark_tpu_torch.train import losses
+    from machine_learning_apache_spark_tpu_torch.weights import load_flax_params
+
+    rank, world = _rank_world()
+    dev = _worker_device(device)
+    mesh = make_mesh({"data": 1, "model": world}, device=dev)
+    cfg = TransformerConfig(**cfg_kwargs)
+    probe = tuple(torch.as_tensor(a).to(dev) for a in batch)
+    loss_fn = make_translation_loss(cfg.pad_id, train=False)
+    full = load_flax_params(Transformer(cfg), flax_params).to(dev)
+    want, _ = loss_fn(full, probe, None)
+    want.backward()
+    model = tp.shard_params(load_flax_params(Transformer(cfg), flax_params).to(dev), mesh)
+    hop.reset_launches()
+    got, _ = loss_fn(model, probe, None)
+    got.backward()
+    launches = dict(hop.LAUNCHES)
+    grads = {n: tp.gather_full(p, p.grad) for n, p in model.named_parameters()}
+    rel = max(float((grads[n] - p.grad).norm() / p.grad.norm().clamp_min(1e-30))
+              for n, p in full.named_parameters())
+    logits = torch.randn(*probe[1].shape, cfg.trg_vocab_size + cfg.logit_pad, device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(3))
+    labels = probe[1]
+    width = logits.shape[-1] // world
+    axis = model.tp_axis
+    vp = losses.masked_mean(losses.vocab_parallel_token_cross_entropy(
+        logits[..., axis.index * width:(axis.index + 1) * width], labels, axis,
+        axis.index * width, cfg.trg_vocab_size), labels)
+    plain = losses.masked_token_cross_entropy(logits[..., :cfg.trg_vocab_size], labels)
+    out = {"loss": (float(got), float(want)), "grad_rel": rel, "launches": launches,
+           "vocab_parallel": (float(vp), float(plain)), "device": str(dev),
+           "heads": model.encoder.layers[0].self_attn.heads}
+    return out if rank == 0 else None
