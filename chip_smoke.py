@@ -241,6 +241,28 @@ Phases, each fatal on failure:
    Printed: each mesh's step ms beside one process's, the model axis's
    ``comms.tp_allreduce`` window and bytes per step, the data axis's
    window, each rank's peak and optimizer bytes;
+7g. pipeline parallelism on the pipeline axis — ``Session`` ->
+   ``Distributor`` -> one 4-rank gang sharing the card over gloo: the MT
+   model at reference width and ``num_layers = S`` (dropout 0, Adam,
+   global batch 32, the fixture's first epoch and its eval) on (a)
+   ``{pipeline: 4}`` at M = 4 and (b) M = 8 (num_layers 4), (c) ``{data:
+   2, pipeline: 2}`` at M = 2 (num_layers 2), (c) at 4 steps per call and
+   (d) at bf16; (e) ``train_translator(pipeline_parallel=2,
+   pipeline_microbatches=4, remat=True)`` with checkpoints, 1 + 1 epochs
+   against 2; ZeRO-1 on (c) must raise the JAX ``ValueError``. Gates:
+   (a)-(c) step losses within 1e-4 relative of one process at the same
+   depth on the same global batches, each parameter tensor within 1e-4
+   (relative norm; key biases within 2 x lr x steps), every rank's
+   parameters and moments the same bits; K = 4 and (e) bit for bit; (d)
+   within the bf16 gate of one process at bf16; each rank's flash
+   forward, dQ and dK/dV launches exactly 3 x (L/S) x M a step (twice the
+   forwards under remat) and 3 x L an eval batch; (e)'s Translator agrees
+   >= 0.99 with one process's on the same weights; the training kernels
+   against their plain versions at the microbatch shapes ``[8,8,..]`` and
+   ``[4,8,..]``, fp32 and bf16. Printed: each mesh's step ms beside one
+   process's at the same depth, the bubble ``(S-1)/(M+S-1)``, the hops'
+   (``pp_send``, ``pp_recv``, ``pp_bcast``, ``pp_allreduce``) bytes and
+   windows per step, the gradient sync's, each rank's peak;
 8. times — requests/s, generated tokens/s and peak device memory of each
    engine (paged fp32 and int8, padded, beam); each engine's requests/s
    and device idle share over one profiled window; the host time of the
@@ -4037,7 +4059,7 @@ def _param_gate(torch, got: dict, want: dict, steps: int) -> dict:
     bound = 2 * r.learning_rate * steps
     over = {k: v for k, v in rel.items() if v > GANG_RTOL}
     return dict(same_bits=same, max_rel=max(rel.values()), over=over, key_bias_abs=noise,
-                key_bias_bound=bound, ok=not over and noise <= bound)
+                key_bias_bound=bound, ok=not over and noise <= bound, rel=rel)
 
 
 def _zero1_step_times(torch, rank: int) -> dict:
@@ -4288,7 +4310,7 @@ TP_BF16_LOSS_RTOL = 2 * 2.0 ** -8
 # Flash forward / dQ / dK/dV launches per rank over the fixture's first
 # epoch with its eval: 3 sites x 12 steps, + 3 sites x 3 eval batches.
 TP_LAUNCHES = (45, 36, 36)
-TP_WARMUP, TP_TIMED = 3, 10
+TP_WARMUP, TP_TIMED = 2, 5
 
 
 def tp_sites(torch, dev, src, trg_in) -> dict:
@@ -4674,6 +4696,460 @@ def tp_slice(torch, hop, card: str, dev) -> dict:
                 errs=errs, served=served)
 
 
+# -- phase 7g: pipeline parallelism on the pipeline axis --------------------------
+
+PP_GANG = 4
+# label: (mesh axes, num_layers, microbatches). The reference MT model's
+# widths; num_layers = S, the least depth the pipeline admits.
+PP_MESHES = {
+    "a {pipeline: 4} M=4": ({"pipeline": 4}, 4, 4),
+    "b {pipeline: 4} M=8": ({"pipeline": 4}, 4, 8),
+    "c {data: 2, pipeline: 2} M=2": ({"data": 2, "pipeline": 2}, 2, 2),
+}
+PP_C = "c {data: 2, pipeline: 2} M=2"
+PP_RTOL = 1e-4
+PP_WARMUP, PP_TIMED = 1, 3
+# train_translator(pipeline_parallel=2) in the 4-rank gang: {data: 2,
+# pipeline: 2}, 16 rows a data replica (global batch 32), 4 microbatches.
+PP_RECIPE = dict(data_root=str(FIXTURES), batch_size=16, dropout=0.0, log_every=0, num_layers=2,
+                 pipeline_parallel=2, pipeline_microbatches=4, remat=True)
+PP_EVAL_BATCHES = 3  # the 80 validation pairs: 32, 32, 16 (halves under a data axis)
+
+
+def pp_sites(torch, dev, src, trg_in, dtype=None) -> dict:
+    """The training sites at the microbatch shapes the pipeline hands the
+    kernels: ``[8, 8, ..]`` (M = 4 of a 32-row batch, M = 2 of a 16-row
+    data half) and ``[4, 8, ..]`` (M = 8 of 32, M = 4 of 16)."""
+    out = {}
+    for rows in (8, 4):
+        sites = training_sites(torch, np.random.default_rng(SEED + 200 + rows), dev,
+                               src[:rows], trg_in[:rows], dtype=dtype)
+        out |= {f"PP [{rows},8] {k}": v for k, v in sites.items()}
+    return out
+
+
+def _pp_model(torch, dev, layers: int, dtype=None):
+    """The reference MT model at ``layers`` layers on the fixture
+    vocabularies (dropout 0), built as ``_mt_model`` builds it."""
+    from machine_learning_apache_spark_tpu_torch.models.transformer import (
+        Transformer,
+        TransformerConfig,
+    )
+    from machine_learning_apache_spark_tpu_torch.recipes.translation import TranslationRecipe
+
+    src_pipe, trg_pipe, _ = fixture_data()
+    r = TranslationRecipe(**GANG_MT)
+    cfg = TransformerConfig(
+        src_vocab_size=len(src_pipe.vocab), trg_vocab_size=len(trg_pipe.vocab),
+        d_model=r.d_model, ffn_hidden=r.ffn_hidden, num_heads=r.num_heads, num_layers=layers,
+        dropout=r.dropout, max_len=r.max_len, dtype=dtype or torch.float32,
+    )
+    return Transformer(cfg, generator=torch.Generator().manual_seed(SEED)).to(dev), r
+
+
+def _pp_state_equal(torch, mesh, state) -> bool:
+    """Whether this rank's parameters and moments are rank 0's, bit for bit
+    (each broadcast from rank 0 over the whole mesh and compared)."""
+    same = True
+    tensors = [*state.model.parameters()]
+    for st in state.optimizer.state.values():
+        tensors += [v for v in st.values() if torch.is_tensor(v) and v.dim()]
+    for t in tensors:
+        theirs = t.detach().clone()
+        mesh.broadcast_(theirs, src=0)
+        same = same and bool(torch.equal(theirs, t.detach()))
+    return same
+
+
+def _pp_fit(torch, axes: dict, layers: int, n_micro: int, batches, val_batches, *, dtype=None,
+            steps_per_call: int = 1) -> tuple[dict, dict | None]:
+    """One pipelined ``fit(mesh=)`` + ``evaluate(mesh=)`` of the reference
+    MT model in this rank, each data index on its rows of the global
+    batches: step losses, launches, peak, comms, whether every rank holds
+    the same state; and rank 0's parameters on the host."""
+    import gc
+
+    from machine_learning_apache_spark_tpu_torch.ops import hopper_attention as hop
+    from machine_learning_apache_spark_tpu_torch.parallel import make_mesh
+    from machine_learning_apache_spark_tpu_torch.recipes.translation import (
+        make_pipeline_translation_loss,
+        make_translation_loss,
+    )
+    from machine_learning_apache_spark_tpu_torch.train.loop import evaluate, fit
+    from machine_learning_apache_spark_tpu_torch.train.state import TrainState, make_optimizer
+
+    mesh = make_mesh(axes)
+    d, ways = mesh.index("data"), mesh.axis_size("data")
+    model, r = _pp_model(torch, mesh.device, layers, dtype)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hop.reset_launches()
+    state = TrainState.create(model=model, tx=make_optimizer("adam", r.learning_rate))
+    res = fit(state, make_pipeline_translation_loss(model.cfg.pad_id, mesh, n_micro=n_micro),
+              [_data_rows(b, d, ways) for b in batches], epochs=1, mesh=mesh, log_every=0,
+              rng=torch.Generator().manual_seed(r.seed), steps_per_call=steps_per_call)
+    metrics = evaluate(res.state, make_translation_loss(model.cfg.pad_id, train=False),
+                       [_data_rows(b, d, ways) for b in val_batches], mesh=mesh, emit=lambda s: None)
+    torch.cuda.synchronize()
+    out = dict(step_losses=res.step_losses, launches=dict(hop.LAUNCHES),
+               peak=torch.cuda.max_memory_allocated(), comms=res.comms,
+               test_loss=metrics["test_loss"], steps=res.state.step,
+               ranks_equal=_pp_state_equal(torch, mesh, res.state))
+    params = ({k: v.detach().cpu() for k, v in model.state_dict().items()}
+              if mesh.rank == 0 else None)
+    return out, params
+
+
+def _pp_step_times(torch, axes: dict, layers: int, n_micro: int, batches) -> dict:
+    """This rank's pipelined step, ``PP_WARMUP`` steps then ``PP_TIMED``
+    timed, host-timed with the card synchronised at both ends; the hops'
+    bytes and windows per step and the gradient sync's, and the peak."""
+    import gc
+
+    from machine_learning_apache_spark_tpu_torch.parallel import make_data_parallel_step, make_mesh
+    from machine_learning_apache_spark_tpu_torch.parallel.pipeline_parallel import pipeline_line
+    from machine_learning_apache_spark_tpu_torch.recipes.translation import (
+        make_pipeline_translation_loss,
+    )
+    from machine_learning_apache_spark_tpu_torch.train.loop import to_device
+    from machine_learning_apache_spark_tpu_torch.train.state import TrainState, make_optimizer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = make_mesh(axes)
+    d, ways = mesh.index("data"), mesh.axis_size("data")
+    model, r = _pp_model(torch, mesh.device, layers)
+    state = TrainState.create(model=model, tx=make_optimizer("adam", r.learning_rate))
+    step = make_data_parallel_step(
+        make_pipeline_translation_loss(model.cfg.pad_id, mesh, n_micro=n_micro), mesh)
+    step.replica(model)
+    local = [to_device(_data_rows(b, d, ways), mesh.device) for b in batches]
+    line = pipeline_line(mesh)
+    torch.cuda.reset_peak_memory_stats()
+    _timed_steps(torch, step, state, local, PP_WARMUP)
+    before = (step.comms.stats(), line.comms.stats())
+    sec = _timed_steps(torch, step, state, local, PP_TIMED)
+    after = (step.comms.stats(), line.comms.stats())
+    per = [{k: (a[k] - b[k]) / PP_TIMED for k in a} for a, b in zip(after, before)]
+    out = dict(ms=1e3 * sec, peak_mib=torch.cuda.max_memory_allocated() / 2**20,
+               grad_sync_ms=1e3 * per[0]["allreduce_window_seconds"],
+               grad_sync_bytes=per[0]["allreduce_bytes"])
+    for kind in ("pp_send", "pp_recv", "pp_bcast", "pp_allreduce"):
+        out[f"{kind}_ms"] = 1e3 * per[1][f"{kind}_window_seconds"]
+        out[f"{kind}_bytes"] = per[1][f"{kind}_bytes"]
+    del state, step, model
+    return out
+
+
+def pp_gang_rank(root: str, batches, val_batches, prompts) -> dict:
+    """One rank of phase 7g's 4-rank gang: the fits on each mesh (a-c),
+    (c) at 4 steps per call and at bf16, the recipe with checkpoints and
+    remat (1 + 1 epochs and 2), the ZeRO-1 refusal, then the step times.
+    Every rank's numbers, in rank order; rank 0's parameters of each run
+    and its translator's tokens on ``prompts``."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from machine_learning_apache_spark_tpu_torch.ops import hopper_attention as hop
+    from machine_learning_apache_spark_tpu_torch.parallel import make_mesh
+    from machine_learning_apache_spark_tpu_torch.recipes.translation import (
+        make_pipeline_translation_loss,
+        train_translator,
+    )
+    from machine_learning_apache_spark_tpu_torch.train.loop import fit
+    from machine_learning_apache_spark_tpu_torch.train.state import TrainState, make_optimizer
+
+    rank = dist.get_rank()
+    runs, params = {}, {}
+    for label, (axes, layers, m) in PP_MESHES.items():
+        runs[label], params[label] = _pp_fit(torch, axes, layers, m, batches, val_batches)
+    axes, layers, m = PP_MESHES[PP_C]
+    runs["c K=4"], k4 = _pp_fit(torch, axes, layers, m, batches, val_batches, steps_per_call=4)
+    same = {"c K=4": k4 is None or all(bool(torch.equal(k4[k], v)) for k, v in params[PP_C].items())}
+    runs["d bf16"], _ = _pp_fit(torch, axes, layers, m, batches, val_batches, dtype=torch.bfloat16)
+    recipe, kept = {}, {}
+    gang_run = os.environ.get("MLSPARK_GANG_RUN", "pp")
+    for name, sub, epochs in (("whole", "whole", 2), ("first", "split", 1), ("second", "split", 1)):
+        # Each call its own run: one run id would make the second call
+        # finish the first's run (a retried attempt) instead of adding one.
+        os.environ["MLSPARK_GANG_RUN"] = f"{gang_run}-{name}"
+        hop.reset_launches()
+        out = train_translator(checkpoint_dir=os.path.join(root, sub), epochs=epochs,
+                               _return_state=True, _return_translator=True, **PP_RECIPE)
+        res, state = out["fit_result"], out["state"]
+        recipe[name] = dict(step_losses=res.step_losses, launches=dict(hop.LAUNCHES),
+                            steps=state.step, resumed=out.get("resumed_from_step"),
+                            mesh=dict(state.mesh.shape), test_loss=out["test_loss"],
+                            ranks_equal=_pp_state_equal(torch, state.mesh, state),
+                            translator_is_model=out["translator"].model is state.model)
+        if rank == 0 and name != "first":
+            kept[name] = {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()}
+        if name == "whole" and rank == 0:
+            recipe["tokens"] = out["translator"](list(prompts), max_new_tokens=32)
+        del out, res, state
+    if rank == 0:
+        same["recipe"] = all(bool(torch.equal(kept["second"][k], v)) for k, v in kept["whole"].items())
+        params["recipe whole"] = kept["whole"]
+    del kept
+    mesh = make_mesh(PP_MESHES[PP_C][0])
+    model, r = _pp_model(torch, mesh.device, 2)
+    try:
+        fit(TrainState.create(model=model, tx=make_optimizer("adam", r.learning_rate)),
+            make_pipeline_translation_loss(model.cfg.pad_id, mesh), batches, epochs=1, mesh=mesh,
+            dp_mode="zero1", log_every=0)
+        zero1 = "no error"
+    except ValueError as e:
+        zero1 = str(e)
+    del model
+    times = {label: _pp_step_times(torch, axes, layers, m, batches)
+             for label, (axes, layers, m) in PP_MESHES.items()}
+    ranks = _gather(dict(rank=rank, runs=runs, recipe={k: v for k, v in recipe.items() if k != "tokens"},
+                         times=times))
+    return dict(ranks=ranks, params=params if rank == 0 else None, zero1=zero1,
+                tokens=recipe.get("tokens"), same=same)
+
+
+def _microbatched_loss(torch, pad_id: int, chunks: int, drop: bool = False):
+    """The translation loss over ``chunks`` microbatches of the batch, each
+    through its own forward (so the gradients add up microbatch by
+    microbatch, as on a pipeline), the token mean of the whole batch.
+    With ``drop`` the last microbatch's logits are detached: the loss is
+    the same, its gradient lacks that microbatch's part (the size of fault
+    the gates must see)."""
+    from machine_learning_apache_spark_tpu_torch.recipes.translation import token_losses
+    from machine_learning_apache_spark_tpu_torch.train.losses import masked_mean
+
+    def loss_fn(model, batch, rng):
+        src, trg = batch
+        parts = [model(s, t[:, :-1]) for s, t in zip(src.chunk(chunks), trg.chunk(chunks))]
+        if drop:
+            parts[-1] = parts[-1].detach()
+        logits = torch.cat(parts)
+        return masked_mean(token_losses(model, logits, trg[:, 1:]), trg[:, 1:], pad_id), {}
+
+    return loss_fn
+
+
+def _pp_reference(torch, layers: int, batches, val_batches, dtype=None, timed: bool = True,
+                  chunks: int = 1, drop: bool = False) -> dict:
+    """One process on the card at ``layers`` layers over the same global
+    batches: step losses, parameters, the eval loss, the peak and the
+    step time (host-timed as the gang's). With ``chunks``, a control: the
+    same batches in that many microbatches (``_microbatched_loss``), the
+    same sums in the pipeline's order; with ``drop`` too, a faulty run
+    whose gradients lack one microbatch a step."""
+    from machine_learning_apache_spark_tpu_torch.recipes.translation import make_translation_loss
+    from machine_learning_apache_spark_tpu_torch.train.loop import evaluate, fit, make_train_step, to_device
+    from machine_learning_apache_spark_tpu_torch.train.state import TrainState, make_optimizer
+
+    dev = torch.device("cuda")
+    model, r = _pp_model(torch, dev, layers, dtype)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = TrainState.create(model=model, tx=make_optimizer("adam", r.learning_rate))
+    loss = (make_translation_loss(model.cfg.pad_id) if chunks == 1
+            else _microbatched_loss(torch, model.cfg.pad_id, chunks, drop))
+    res = fit(state, loss, batches, epochs=1, rng=torch.Generator().manual_seed(r.seed), log_every=0)
+    metrics = evaluate(state, make_translation_loss(model.cfg.pad_id, train=False), val_batches,
+                       emit=lambda s: None)
+    out = dict(step_losses=res.step_losses, test_loss=metrics["test_loss"],
+               params={k: v.detach().cpu() for k, v in model.state_dict().items()},
+               peak=torch.cuda.max_memory_allocated(), model=model)
+    if timed:
+        model2, _ = _pp_model(torch, dev, layers, dtype)
+        state2 = TrainState.create(model=model2, tx=make_optimizer("adam", r.learning_rate))
+        step = make_train_step(make_translation_loss(model2.cfg.pad_id))
+        local = [to_device(b, dev) for b in batches]
+        _timed_steps(torch, step, state2, local, PP_WARMUP)
+        out["ms"] = 1e3 * _timed_steps(torch, step, state2, local, PP_TIMED)
+    return out
+
+
+def pp_slice(torch, hop, card: str, dev) -> dict:
+    """Phase 7g: the training kernels at the microbatch shapes, the
+    one-process references, then one 4-rank gang over every pipeline mesh
+    (``pp_gang_rank``) and its gates."""
+    import shutil
+
+    from machine_learning_apache_spark_tpu_torch import Session
+    from machine_learning_apache_spark_tpu_torch.data.datasets import load_multi30k
+    from machine_learning_apache_spark_tpu_torch.inference import Translator
+    from machine_learning_apache_spark_tpu_torch.launcher import Distributor, kill_stray_gangs
+    from machine_learning_apache_spark_tpu_torch.parallel.pipeline_parallel import bubble_fraction
+
+    t_phase = time.perf_counter()
+    src_pipe, trg_pipe, train_ds = fixture_data()
+    batches = train_batches(train_ds, 12)
+    src0, trg0 = batches[0]
+    sites = pp_sites(torch, dev, src0, trg0[:, :-1])
+    errs = check_training_kernels(torch, hop, sites, dev, edges=False)
+    bf16_errs = check_training_kernels(torch, hop, pp_sites(torch, dev, src0, trg0[:, :-1], torch.bfloat16),
+                                       dev, dtype=torch.bfloat16, edges=False)
+    val_loader, _ = eval_loader()
+    val_batches = list(val_loader)
+    prompts = [s for s, _ in load_multi30k(str(FIXTURES), "valid")][:32]
+    refs = {layers: _pp_reference(torch, layers, batches, val_batches) for layers in (4, 2)}
+    # A control per mesh: one process on the gang's microbatches (M per
+    # data replica), whose only difference from one process on the whole
+    # batch is the order of the sums: the gates allow the gang 10 times
+    # the control's distance where that exceeds PP_RTOL.
+    ctrls = {label: _pp_reference(torch, layers, batches, val_batches, timed=False,
+                                  chunks=m * axes.get("data", 1))
+             for label, (axes, layers, m) in PP_MESHES.items()}
+    # A fault the gates must see, on (c), whose control reads the most:
+    # one process whose gradient lacks one of the gang's microbatches a
+    # step. The loss gate and the per-tensor gates, max(PP_RTOL, 10 x the
+    # control's), are read against its distance, and fail the phase if
+    # neither sees it. (Adam normalises a gradient's scale away: these
+    # Adam gates are noise gates, the SGD tests hold the scale.)
+    axes_c, layers_c, m_c = PP_MESHES[PP_C]
+    fault = _pp_reference(torch, layers_c, batches, val_batches, timed=False,
+                          chunks=m_c * axes_c["data"], drop=True)
+    ref16 = _pp_reference(torch, 2, batches, val_batches, dtype=torch.bfloat16)
+    for layers, ref in refs.items():
+        log(f"  one process at num_layers {layers} on the same {len(batches)} global batches of 32: "
+            f"{ref['ms']:.3f} ms/step (host-timed over {PP_TIMED} after {PP_WARMUP}), peak "
+            f"{ref['peak'] / 2**20:.1f} MiB [{card}]")
+        del ref["model"]
+    for ctrl in (*ctrls.values(), fault):
+        del ctrl["model"]
+    del ref16["model"]
+    root = scratch_dir() / "pp"
+    shutil.rmtree(root, ignore_errors=True)
+    spark = Session.builder.appName("PipelineParallelTranslation").config(
+        "spark.executor.instances", str(PP_GANG)).getOrCreate()
+    try:
+        t0 = time.perf_counter()
+        got = Distributor(num_processes=spark.conf.executor_instances, timeout=900).run(
+            "chip_smoke:pp_gang_rank", str(root), batches, val_batches, prompts)
+        wall = time.perf_counter() - t0
+    finally:
+        spark.stop()
+    if kill_stray_gangs() != 0:
+        fail("the pipeline-parallel gang left a stray process group")
+    ranks, params = got["ranks"], got["params"]
+    r0 = ranks[0]
+    log(f"  Session -> Distributor, {PP_GANG} ranks on one card over gloo: {wall:.2f} s spawn to "
+        f"result (meshes a-c, K = 4, bf16, the recipe three times, the step times)")
+    steps = len(batches)
+    for label, (axes, layers, m) in PP_MESHES.items():
+        ref = refs[layers]
+        run = r0["runs"][label]
+        rel = _max_rel(run["step_losses"], ref["step_losses"])
+        # The step losses within PP_RTOL of one process, or, where the
+        # microbatches' order of sums alone moves them further through
+        # Adam, within GANG_NOISE_X times the control's distance.
+        ctrl_loss = _max_rel(ctrls[label]["step_losses"], ref["step_losses"])
+        loss_gate = max(PP_RTOL, GANG_NOISE_X * ctrl_loss)
+        # The gangs' per-tensor gate: each tensor's relative difference within
+        # PP_RTOL, or, where Adam lifts float noise above it, within
+        # GANG_NOISE_X times the control's (one process on the same
+        # microbatches); the key biases within 2 x lr x steps.
+        gate = _param_gate(torch, params[label], ref["params"], steps)
+        ctrl = _param_gate(torch, ctrls[label]["params"], ref["params"], steps)["rel"]
+        limit = {k: max(PP_RTOL, GANG_NOISE_X * ctrl[k]) for k in gate["rel"]}
+        over = {k: v for k, v in gate["rel"].items() if v > limit[k]}
+        worst = sorted(gate["rel"].items(), key=lambda kv: -kv[1] / limit[kv[0]])[:3]
+        equal = all(rk["runs"][label]["ranks_equal"] for rk in ranks)
+        log(f"    {label} (num_layers {layers}): step losses max relative difference to one process "
+            f"{rel:.3e}, gate max({PP_RTOL}, {GANG_NOISE_X} x the control's {ctrl_loss:.3e}), to the "
+            f"control {_max_rel(run['step_losses'], ctrls[label]['step_losses']):.3e}; parameters per "
+            f"tensor largest relative difference "
+            f"{gate['max_rel']:.3e}, gate max({PP_RTOL}, {GANG_NOISE_X} x the control's), the three "
+            f"nearest their gate " + ", ".join(f"{k} {v:.2e} (control {ctrl[k]:.2e})" for k, v in worst)
+            + f"; against the control itself {_param_gate(torch, params[label], ctrls[label]['params'], steps)['max_rel']:.3e}"
+            + f"; key biases {gate['key_bias_abs']:.3e} (bound {gate['key_bias_bound']:.3e}); every "
+            f"rank the same parameters and moments {equal}; eval loss {run['test_loss']:.6f} (one "
+            f"process {ref['test_loss']:.6f})")
+        if rel > loss_gate or over or gate["key_bias_abs"] > gate["key_bias_bound"] or not equal:
+            fail(f"{label}: the pipelined gang did not train as one process does ({over})")
+        if label == PP_C:
+            f_loss = _max_rel(fault["step_losses"], ref["step_losses"])
+            f_rel = _param_gate(torch, fault["params"], ref["params"], steps)["rel"]
+            seen = {k: v for k, v in f_rel.items() if v > limit[k]}
+            log(f"    {label}: a fault, one process without one microbatch's gradient a step: step "
+                f"losses {f_loss:.3e} from one process ({f_loss / loss_gate:.1f} x the loss gate "
+                f"{loss_gate:.3e}); {len(seen)} of {len(f_rel)} tensors over their gate, the "
+                f"largest {max(f_rel.values()):.3e}")
+            if f_loss <= loss_gate and not seen:
+                fail(f"{label}: the gates cannot see a dropped microbatch ({f_loss:.3e} against {loss_gate:.3e})")
+    k4, c = r0["runs"]["c K=4"], r0["runs"][PP_C]
+    same = k4["step_losses"] == c["step_losses"] and got["same"]["c K=4"]
+    log(f"    (c) at 4 steps per call against 1: the same bits {same}")
+    if not same:
+        fail("the pipelined gang's 4 steps per call did not train the bits of 1")
+    bf = r0["runs"]["d bf16"]
+    rel16 = _max_rel(bf["step_losses"], ref16["step_losses"])
+    log(f"    d (c) at dtype bfloat16: step losses within {rel16:.3e} of one process at bf16 (gate "
+        f"{BF16_LOSS_RTOL:.3e}); every rank the same state {all(rk['runs']['d bf16']['ranks_equal'] for rk in ranks)}")
+    if rel16 > BF16_LOSS_RTOL or not all(rk["runs"]["d bf16"]["ranks_equal"] for rk in ranks):
+        fail(f"the bf16 pipelined gang's losses {rel16:.3e} from one process at bf16")
+    # Launches: each rank 3 sites x its L/S layers x M microbatches a step,
+    # and the sequential eval's 3 x L a batch.
+    for rk in ranks:
+        for label, (axes, layers, m) in {**PP_MESHES, "c K=4": PP_MESHES[PP_C],
+                                         "d bf16": PP_MESHES[PP_C]}.items():
+            s = axes["pipeline"]
+            train = 3 * (layers // s) * m * steps
+            want = (train + 3 * layers * PP_EVAL_BATCHES, train, train)
+            names = TENSOR_CORE_KERNELS if label != "d bf16" else tuple(f"{n}_bf16" for n in TENSOR_CORE_KERNELS)
+            got_l = tuple(rk["runs"][label]["launches"][n] for n in names)
+            if got_l != want:
+                fail(f"rank {rk['rank']} {label}: flash launches {got_l}, not {want}")
+    log("    every rank, every run: flash forward / dQ / dK/dV launches 3 x (L/S) x M a step and "
+        f"3 x L an eval batch: " + ", ".join(
+            f"{label} {tuple(r0['runs'][label]['launches'][n] for n in TENSOR_CORE_KERNELS)}"
+            for label in PP_MESHES))
+    rec = r0["recipe"]
+    first, second, whole = rec["first"], rec["second"], rec["whole"]
+    same = first["step_losses"] + second["step_losses"] == whole["step_losses"] and got["same"]["recipe"]
+    log(f"    e train_translator(pipeline_parallel=2, pipeline_microbatches=4, remat=True) on "
+        f"{whole['mesh']}: 1 + 1 epochs (resumed from step {second['resumed']}) against 2 with "
+        f"checkpoints: the same bits {same}; eval loss {whole['test_loss']:.6f}; every rank the same "
+        f"state {all(rk['recipe'][n]['ranks_equal'] for rk in ranks for n in ('whole', 'second'))}; "
+        f"its Translator is the trained model {whole['translator_is_model']}")
+    if not same or second["resumed"] != first["steps"] or whole["mesh"] != {"data": 2, "pipeline": 2}:
+        fail("the pipelined recipe's 1 + 1 epochs did not train the bits of 2")
+    if not all(rk["recipe"][n]["ranks_equal"] for rk in ranks for n in ("whole", "second")):
+        fail("the pipelined recipe's ranks hold different states")
+    for rk in ranks:
+        for name in ("whole", "first", "second"):
+            run = rk["recipe"][name]
+            n_steps = len(run["step_losses"])
+            train = 3 * (2 // 2) * PP_RECIPE["pipeline_microbatches"] * n_steps
+            got_l = tuple(run["launches"][n] for n in TENSOR_CORE_KERNELS)
+            # remat: each layer's forward again in the backward; then the
+            # sequential eval.
+            if got_l != (2 * train + 3 * 2 * PP_EVAL_BATCHES, train, train):
+                fail(f"rank {rk['rank']} recipe {name}: flash launches {got_l}, train {train}")
+    full, _ = _pp_model(torch, dev, 2)
+    full.load_state_dict({k: v.to(dev) for k, v in params["recipe whole"].items()})
+    one = Translator(full, src_pipe, trg_pipe, device=dev)(prompts, max_new_tokens=32)
+    share = agreement(got["tokens"], one)[0]
+    log(f"    the recipe's Translator (rank 0 of the gang) against one process's on the same weights: "
+        f"agreement {share:.6f} over {len(prompts)} validation sentences (gate >= {AGREEMENT_MIN})")
+    if share < AGREEMENT_MIN:
+        fail(f"the pipelined recipe's Translator agrees {share:.4f} with one process's")
+    log(f"    ZeRO-1 on {PP_MESHES[PP_C][0]}: {got['zero1'][:150]}")
+    if "Pipeline/sequence/expert axes restructure the step" not in got["zero1"]:
+        fail("dp_mode='zero1' on a pipeline mesh did not raise the JAX ValueError")
+    for rk in ranks:
+        log(f"    rank {rk['rank']} step times (host-timed, {PP_TIMED} after {PP_WARMUP}): " + "; ".join(
+            f"{label} {t['ms']:.3f} ms/step against one process at num_layers "
+            f"{PP_MESHES[label][1]} {refs[PP_MESHES[label][1]]['ms']:.3f} ms, bubble "
+            f"{bubble_fraction(PP_MESHES[label][0]['pipeline'], PP_MESHES[label][2]):.3f} of the ticks ("
+            + ", ".join(f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}"
+                        for k, v in t.items() if k != "ms") + ")"
+            for label, t in rk["times"].items()) + f" [{card}]")
+    log(f"  phase 7g took {time.perf_counter() - t_phase:.1f} s")
+    return dict(wall=wall, ranks=ranks, errs=errs, bf16_errs=bf16_errs, sites=sites,
+                refs={k: {f: v[f] for f in ("ms", "peak", "test_loss")} for k, v in refs.items()})
+
+
 # -- phase 7d: bf16 compute ------------------------------------------------------
 
 BF16 = "bfloat16"
@@ -5030,6 +5506,15 @@ def main() -> int:
             train_errs[name]["max_abs_err"] = max(train_errs[name]["max_abs_err"], e["max_abs_err"])
             train_errs[name]["max_rel_err"] = max(train_errs[name]["max_rel_err"], e["max_rel_err"])
 
+    log("== phase 7g: pipeline parallelism on the pipeline axis (one 4-rank gang: {pipeline: 4} at "
+        "M = 4 and 8, {data: 2, pipeline: 2}, K = 4, bf16, train_translator(pipeline_parallel=2) "
+        "with checkpoints and remat)")
+    pp = pp_slice(torch, hop, card, dev)
+    for name, e in [*pp["errs"].items(), *pp["bf16_errs"].items()]:
+        if name in train_errs:
+            train_errs[name]["max_abs_err"] = max(train_errs[name]["max_abs_err"], e["max_abs_err"])
+            train_errs[name]["max_rel_err"] = max(train_errs[name]["max_rel_err"], e["max_rel_err"])
+
     log("== phase 8: times")
     for label, run in runs.items():
         log(f"  {label:7s} engine ({run['kv_mode']}): {len(run['outs']) / run['wall']:.2f} requests/s, "
@@ -5089,6 +5574,7 @@ def main() -> int:
     bleu_times = time_bleu_decode(torch, hop, trained["state"], card)
     timed_sites = make_sites()
     timed_sites |= one_sequence_sites(torch, timed_sites["encoder self"])
+    timed_sites |= pp_sites(torch, dev, src0, trg0[:, :-1])
     site_times = time_training_kernels(torch, hop, timed_sites)
     site_times |= time_training_kernels(torch, hop, make_sites(bf16))
     decode_times = time_decode_forward(torch, hop, decode_sites(torch, dev, bleu_valid))
@@ -5137,6 +5623,12 @@ def main() -> int:
             for k in ("b {data: 1, model: 4}", "c {data: 2, model: 2}", "f recipe")],
         f"gang: MT TP ZeRO-1, {TP_GANG} ranks on one card ({{data: 2, model: 2}})": [
             r["runs"]["d ZeRO-1 fp32"]["launches"] for r in tp["ranks"]],
+        f"gang: MT PP, {PP_GANG} ranks on one card ({{pipeline: 4}} at M = 4 and 8, "
+        "{data: 2, pipeline: 2}, train_translator(pipeline_parallel=2))": [
+            r["runs"][k]["launches"] for r in pp["ranks"] for k in PP_MESHES]
+        + [r["recipe"]["whole"]["launches"] for r in pp["ranks"]],
+        f"gang: MT PP bf16, {PP_GANG} ranks on one card ({{data: 2, pipeline: 2}})": [
+            r["runs"]["d bf16"]["launches"] for r in pp["ranks"]],
         "live plane: paged fp32 engine": [recovery["live"]["paged fp32"]["launches"]],
         "live plane: padded engine": [recovery["live"]["padded"]["launches"]],
         **bf["paths"],
@@ -5216,6 +5708,12 @@ def main() -> int:
         ranks=[dict(rank=r["rank"], times=r["times"],
                     runs={k: {f: v.get(f) for f in ("steps", "opt_bytes", "peak", "comms", "launches")}
                           for k, v in r["runs"].items()}) for r in tp["ranks"]]), default=str)
+        + f" [{card}]")
+    log("  pp: " + json.dumps(dict(
+        wall=pp["wall"], refs=pp["refs"], errs=pp["errs"], bf16_errs=pp["bf16_errs"],
+        ranks=[dict(rank=r["rank"], times=r["times"],
+                    runs={k: {f: v.get(f) for f in ("steps", "peak", "comms", "launches")}
+                          for k, v in r["runs"].items()}) for r in pp["ranks"]]), default=str)
         + f" [{card}]")
     log("  bf16: " + json.dumps(dict(
         parity=bf["parity"], train_step={"fp32": train_times, "bf16": train_times_bf16},

@@ -41,9 +41,11 @@ def _start_heartbeat(
         # sys.modules peek instead of an import: this thread must stay
         # stdlib-only and never be the one that imports a module. If user
         # code never imported the faults module, no stall fault can have
-        # fired.
+        # fired. A module the main thread is still importing is in
+        # sys.modules before its functions are: not suspended either.
         mod = sys.modules.get("machine_learning_apache_spark_tpu_torch.utils.faults")
-        return bool(mod is not None and mod.heartbeats_suspended())
+        fn = getattr(mod, "heartbeats_suspended", None)
+        return bool(fn is not None and fn())
 
     def beacon() -> dict:
         # Same peek discipline for the telemetry beacon (phase, step,

@@ -635,8 +635,18 @@ class Encoder(nn.Module):
         dropout_rng=None, aux=None,
     ):
         x = self.embed(src_tokens, positions=positions, dropout_rng=dropout_rng)
-        token_valid = _token_valid(src_tokens, self.cfg)
-        for layer in self.layers:
+        return self.run_layers(
+            x, 0, len(self.layers), src_mask, src_valid, _token_valid(src_tokens, self.cfg),
+            dropout_rng=dropout_rng, aux=aux,
+        )
+
+    def run_layers(
+        self, x, start: int, stop: int, src_mask=None, src_valid=None, token_valid=None, *,
+        dropout_rng=None, aux=None,
+    ):
+        """Layers ``[start, stop)`` of the stack on ``x`` (one pipeline
+        stage's share), each through ``cfg.remat``'s recompute when set."""
+        for layer in self.layers[start:stop]:
             x = _run_layer(
                 layer, self.cfg.remat, x, src_mask, src_valid, token_valid,
                 dropout_rng=dropout_rng, aux=aux,
@@ -706,8 +716,20 @@ class Decoder(nn.Module):
         positions=None, dropout_rng=None, aux=None,
     ):
         y = self.embed(trg_tokens, positions=positions, dropout_rng=dropout_rng)
-        token_valid = _token_valid(trg_tokens, self.cfg)
-        for layer in self.layers:
+        return self.run_layers(
+            y, 0, len(self.layers), memory, self_mask, cross_mask, trg_valid, memory_valid,
+            self_causal=self_causal, token_valid=_token_valid(trg_tokens, self.cfg),
+            dropout_rng=dropout_rng, aux=aux,
+        )
+
+    def run_layers(
+        self, y, start: int, stop: int, memory, self_mask=None, cross_mask=None,
+        trg_valid=None, memory_valid=None, *, self_causal: bool = False, token_valid=None,
+        dropout_rng=None, aux=None,
+    ):
+        """Layers ``[start, stop)`` of the stack on ``y`` (one pipeline
+        stage's share), each through ``cfg.remat``'s recompute when set."""
+        for layer in self.layers[start:stop]:
             y = _run_layer(
                 layer, self.cfg.remat, y, memory, self_mask, cross_mask,
                 trg_valid, memory_valid, self_causal, token_valid,

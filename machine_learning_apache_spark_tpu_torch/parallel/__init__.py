@@ -6,9 +6,13 @@ reference's only strategy): the replicated step (DDP) and ZeRO-1
 (``parallel.zero``: reduce-scatter, the rank's shard updated,
 all-gather); tensor parallelism over the mesh's ``"model"`` axis
 (``parallel.tensor_parallel``, Megatron-style), alone or on a hybrid
-``data × model`` mesh with either. The JAX package's pipeline, ring and
-Ulysses parallelism are ROADMAP A4; a mesh axis for them larger than 1
-raises ``NotImplementedError``.
+``data × model`` mesh with either; pipeline parallelism over the
+``"pipeline"`` axis (``parallel.pipeline_parallel``: GPipe over
+point-to-point hops, one stage a rank; ``parallel.pipeline_transformer``
+for the encoder-decoder Transformer), alone or on ``data × pipeline``.
+The JAX package's ring and Ulysses parallelism and the experts' axis are
+ROADMAP A4; a mesh axis for them larger than 1 raises
+``NotImplementedError``.
 """
 
 from machine_learning_apache_spark_tpu_torch.parallel.data_parallel import (
@@ -34,6 +38,10 @@ from machine_learning_apache_spark_tpu_torch.parallel.mesh import (
     replicate,
     replicated_sharding,
     shard_batch,
+)
+from machine_learning_apache_spark_tpu_torch.parallel.pipeline_parallel import pipeline_apply
+from machine_learning_apache_spark_tpu_torch.parallel.pipeline_transformer import (
+    pipeline_transformer_logits,
 )
 from machine_learning_apache_spark_tpu_torch.parallel.tensor_parallel import (
     DEFAULT_RULES,
@@ -89,6 +97,8 @@ __all__ = [
     "opt_state_bytes_per_chip",
     "pad_batch_to_multiple",
     "params_fingerprint",
+    "pipeline_apply",
+    "pipeline_transformer_logits",
     "plan_layout",
     "process_count",
     "process_index",

@@ -35,6 +35,17 @@ over the whole gang would count the rows M times and mix the shards. A
 mesh without a data axis has one replica and no data-parallel sums. The
 model's own collectives run inside its forward and backward.
 
+On a mesh with a ``"pipeline"`` axis (``parallel.pipeline_parallel``)
+the ranks of one pipeline line see the same rows and hold the whole
+model, but each computes the gradients of its own stage's layers only
+(and stage 0 the embeddings'). There is no DDP: after the backward of
+an update's last microbatch one all-reduce over the whole mesh
+(``pipeline_parallel.GradSync``) sums, for each parameter, the
+gradients of the ranks of the stage that owns it — the others put
+zeros — divided by the data axis's size, so every rank applies the same
+update to the same parameters. The loss weights and sums stay the data
+line's. ``assert_replicas_in_sync`` compares the whole mesh there.
+
 ``params_fingerprint`` is the JAX package's weighted sum of |p| per leaf,
 in the Flax tree's leaf order; ``assert_replicas_in_sync`` compares it
 across the ranks. The loss-weight helpers here (``loss_weight_of``,
@@ -57,7 +68,12 @@ from torch import nn
 from torch.nn.parallel import DistributedDataParallel
 
 from machine_learning_apache_spark_tpu_torch import telemetry
-from machine_learning_apache_spark_tpu_torch.parallel.mesh import DATA_AXIS, Mesh
+from machine_learning_apache_spark_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    MODEL_AXIS,
+    PIPELINE_AXIS,
+    Mesh,
+)
 
 _TINY = float(np.finfo(np.float32).tiny)
 
@@ -191,8 +207,12 @@ def make_data_parallel_step(loss_fn: Callable, mesh: Mesh, *, axis: str = DATA_A
     ``loss_fn(model, batch, rng)`` runs through ``DDP(state.model)``,
     built at the first step over the data axis's group (its constructor
     broadcasts the first data rank's parameters). ``step.comms`` is the
-    ``GradientComms``; on a mesh with a model axis ``step.tp_comms`` is
-    the model's ``TPComms``, closed once per step.
+    ``GradientComms``; on a mesh with a model axis the model's
+    ``TPComms`` is closed once per step. On a mesh with a pipeline axis
+    the gradients are synced by ``pipeline_parallel.GradSync`` instead
+    of DDP (``step.comms``), the first step's ``replica`` broadcasts
+    rank 0's parameters and buffers over the whole mesh, and the line's
+    ``PPComms`` is closed once per step.
 
     Accumulation (``accumulate_steps=K``) reduces once per update: the
     first K - 1 microbatches back-propagate under ``no_sync`` into the
@@ -203,11 +223,27 @@ def make_data_parallel_step(loss_fn: Callable, mesh: Mesh, *, axis: str = DATA_A
     del axis  # the data axis: the whole group, or its line on a hybrid mesh
     weight_of = loss_weight_of(loss_fn)
     dp_world = mesh.axis_size(DATA_AXIS)
-    comms = GradientComms(dp_world)
+    pipelined = mesh.axis_size(PIPELINE_AXIS) > 1
+    line = None
+    if pipelined:
+        from machine_learning_apache_spark_tpu_torch.parallel import pipeline_parallel as _pp
+
+        comms = _pp.GradSync(mesh)
+        line = _pp.pipeline_line(mesh)
+    else:
+        comms = GradientComms(dp_world)
     counter = telemetry.get_registry().counter("comms", "bytes_allreduced")
     held: dict = {}
 
     def replica(model: nn.Module) -> nn.Module:
+        if pipelined:
+            if held.get("model") is not model:
+                # DDP's constructor broadcast, over every rank of the mesh.
+                with torch.no_grad():
+                    for t in [*model.parameters(), *model.buffers()]:
+                        mesh.broadcast_(t.data, src=0)
+                held.update(model=model)
+            return model
         if dp_world == 1:
             return model
         if held.get("model") is not model:
@@ -228,21 +264,23 @@ def make_data_parallel_step(loss_fn: Callable, mesh: Mesh, *, axis: str = DATA_A
         batch = to_device(batch, _device_of(state.model))
         emits = state.emits(state.mini_step)
         k = state.tx.accumulate_steps
-        onto_sum = world > 1 and k > 1 and emits
+        onto_sum = (world > 1 or pipelined) and k > 1 and emits
         if onto_sum:
             with torch.no_grad():
                 for p, acc in zip(state.params, state.acc_grads):
                     p.grad = acc * state.mini_step
-        with nullcontext() if emits or world == 1 else model.no_sync():
+        with nullcontext() if emits or world == 1 or pipelined else model.no_sync():
             loss, aux = loss_fn(model, batch, rng)
             (loss * (weight * world / max(total, _TINY))).backward()
+        if pipelined and emits:
+            comms.sync_(state.params)
         if onto_sum:
             with torch.no_grad():
                 # The running mean becomes the reduced mean, so the
                 # state's accumulate step leaves it as it is.
                 for p, acc in zip(state.params, state.acc_grads):
                     acc.copy_(p.grad.div_(k))
-        if world > 1 and emits:
+        if (world > 1 or pipelined) and emits:
             nbytes = sum(p.numel() * p.element_size() for p in state.params)
             comms.end_step()
             counter.inc(nbytes)
@@ -254,6 +292,8 @@ def make_data_parallel_step(loss_fn: Callable, mesh: Mesh, *, axis: str = DATA_A
         tp_axis = getattr(state.model, "tp_axis", None)
         if tp_axis is not None:
             tp_axis.comms.end_step()
+        if line is not None:
+            line.comms.end_step()
         return state, g_loss, g_aux
 
     step.comms = comms
@@ -342,10 +382,12 @@ def assert_replicas_in_sync(params, *, atol: float = 1e-6, mesh: Mesh | None = N
     (``distributed_cnn.py:175``). One process passes trivially. Returns
     the largest divergence from rank 0's. On a mesh with a model axis the
     replicas are the ranks of one data line (each model rank holds its
-    own shards), compared line by line. A state is checked by its
-    parameters (a ZeRO-1 state's are replicated); an optimizer state
-    sharded over the ranks (``parallel.zero.ShardedOptState``) raises
-    ``ValueError``: its ranks hold different data by design."""
+    own shards), compared line by line; on a pipeline mesh every rank
+    holds the whole model, so the whole mesh is compared. A state is
+    checked by its parameters (a ZeRO-1 state's are replicated); an
+    optimizer state sharded over the ranks
+    (``parallel.zero.ShardedOptState``) raises ``ValueError``: its ranks
+    hold different data by design."""
     from machine_learning_apache_spark_tpu_torch.parallel.mesh import (
         data_parallel_mesh,
         process_count,
@@ -364,12 +406,13 @@ def assert_replicas_in_sync(params, *, atol: float = 1e-6, mesh: Mesh | None = N
         if process_count() == 1:
             return 0.0
         mesh = data_parallel_mesh()
-    world = mesh.axis_size(DATA_AXIS)
+    axis = DATA_AXIS if mesh.axis_size(MODEL_AXIS) > 1 else None
+    world = mesh.axis_size(DATA_AXIS) if axis else mesh.size
     if world == 1:
         return 0.0
     slots = torch.zeros(world, dtype=torch.float64)
-    slots[mesh.index(DATA_AXIS)] = fp
-    mesh.all_reduce_(slots, axis=DATA_AXIS)
+    slots[mesh.index(DATA_AXIS) if axis else mesh.rank] = fp
+    mesh.all_reduce_(slots, axis=axis)
     div = float((slots - slots[0]).abs().max())
     if div > atol * max(abs(fp), 1.0):
         raise AssertionError(f"replica divergence {div} across {world} processes")

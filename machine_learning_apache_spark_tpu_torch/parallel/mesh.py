@@ -9,13 +9,16 @@ with one device each (``launcher.coordinator``), joined by a
 - ``"data"``     — batch-sharded data parallelism (the reference's DDP, C11);
 - ``"model"``    — tensor parallelism (``parallel.tensor_parallel``): each
   rank holds its slice of every annotated weight;
-- ``"seq"``, ``"pipeline"``, ``"expert"`` — the JAX package's other axes.
-  Only size 1 is ported: a larger one raises ``NotImplementedError``
-  naming its ROADMAP item.
+- ``"pipeline"`` — pipeline parallelism (``parallel.pipeline_parallel``):
+  each rank runs one stage of a layer stack on every microbatch;
+- ``"seq"``, ``"expert"`` — the JAX package's other axes. Only size 1 is
+  ported: a larger one raises ``NotImplementedError`` naming its ROADMAP
+  item.
 
 Ranks lie on the mesh as the JAX mesh lays devices: the axes in
 canonical order, ``data`` outermost and ``model`` innermost, so on a
-``data × model`` mesh rank = ``data_index · M + model_index``. A mesh of
+``data × model`` mesh rank = ``data_index · M + model_index`` and on a
+``data × pipeline`` one rank = ``data_index · S + stage``. A mesh of
 several processes builds one process group per line of each axis (the
 ranks that share every other coordinate) when it is made: every rank
 calls ``dist.new_group`` for every group, in one fixed order, as
@@ -57,12 +60,11 @@ _CANONICAL_ORDER = (DATA_AXIS, PIPELINE_AXIS, EXPERT_AXIS, SEQ_AXIS, MODEL_AXIS)
 #: The ROADMAP items that port each axis still unported.
 _AXIS_ITEMS = {
     SEQ_AXIS: "A4: ring_attention.py and ulysses_attention.py",
-    PIPELINE_AXIS: "A4: pipeline_parallel.py",
     EXPERT_AXIS: "A4: the MoE experts' mesh axis",
 }
 
 #: The axes a mesh may hold larger than 1.
-_PORTED_AXES = (DATA_AXIS, MODEL_AXIS)
+_PORTED_AXES = (DATA_AXIS, PIPELINE_AXIS, MODEL_AXIS)
 
 #: Process groups per (world, mesh shape): built once, shared by every
 #: mesh of that shape.
@@ -198,6 +200,18 @@ class TimedCollectives:
                     self.window[kind] += self._last[kind] - self._first[kind]
                 self._first[kind] = None
 
+    def emit_counters(self) -> None:
+        """One ``comms.<kind>_bytes`` and one ``comms.<kind>_window_seconds``
+        counter event per kind with the steps so far, which the gang
+        report's comms section turns into per-step figures."""
+        if not self.steps:
+            return
+        log = telemetry.get_log()
+        for kind in self.KINDS:
+            attrs = {"steps": self.steps}
+            log.emit("counter", f"comms.{kind}_bytes", value=self.bytes[kind], attrs=attrs)
+            log.emit("counter", f"comms.{kind}_window_seconds", value=self.window[kind], attrs=attrs)
+
     def stats(self) -> dict:
         out = {self.STEPS: self.steps}
         for kind in self.KINDS:
@@ -312,7 +326,7 @@ def make_mesh(
     Size ``0`` or ``-1`` on at most one axis means "all remaining
     processes"; no axes means a pure data-parallel mesh over all of them.
     The shape errors are the JAX package's ``ValueError``s. An axis other
-    than ``"data"`` or ``"model"`` larger than 1 raises
+    than ``"data"``, ``"pipeline"`` or ``"model"`` larger than 1 raises
     ``NotImplementedError`` naming the ROADMAP item that ports it."""
     n = process_count() if world is None else world
     axes = dict(axes or {DATA_AXIS: n})

@@ -44,9 +44,17 @@ every annotated weight and runs the flash kernels on its ``H/M`` heads,
 and the loss is the vocab-parallel one. The BLEU decode and the returned
 ``Translator`` run on the parameters gathered to full on every rank.
 ``model_parallel`` with ``moe_experts`` raises ``NotImplementedError``
-(the experts' mesh axis is its own ROADMAP item). The other mesh fields
-raise ``NotImplementedError`` when set away from their defaults (ROADMAP
-queue A4).
+(the experts' mesh axis is its own ROADMAP item).
+``pipeline_parallel=S`` trains on a ``{data: world/S, pipeline: S}``
+mesh (``parallel.pipeline_transformer``): the training loss runs the
+encoder and decoder stacks as GPipe rings of ``pipeline_microbatches``
+microbatches (default S), ``num_layers / S`` layers a stage; eval, the
+BLEU decode and the returned ``Translator`` run the sequential model,
+whose whole parameters every rank holds. The JAX recipe's
+``ValueError``s refuse it with tensor, sequence or expert parallelism,
+MoE, length buckets, packing and a layer count S does not divide. The
+other mesh fields raise ``NotImplementedError`` when set away from their
+defaults (ROADMAP queue A4).
 """
 
 from __future__ import annotations
@@ -179,8 +187,6 @@ class TranslationRecipe:
 UNPORTED = {
     "sequence_parallel": "A4 (distributed)",
     "sequence_parallel_method": "A4 (distributed)",
-    "pipeline_parallel": "A4 (distributed)",
-    "pipeline_microbatches": "A4 (distributed)",
     "expert_parallel": "A4 (distributed)",
 }
 
@@ -224,6 +230,30 @@ def _validate(r: TranslationRecipe) -> None:
             "K-step program stacks K batches into one static shape, but "
             "buckets emit per-bucket widths"
         )
+    if r.pipeline_parallel > 1:
+        # The pipeline schedule runs on data x pipeline meshes only.
+        incompatible = {
+            "model_parallel": r.model_parallel,
+            "sequence_parallel": r.sequence_parallel,
+            "expert_parallel": r.expert_parallel,
+        }
+        bad = {k: v for k, v in incompatible.items() if v > 1}
+        if bad or r.moe_experts:
+            raise ValueError(
+                f"pipeline_parallel={r.pipeline_parallel} composes with "
+                f"data parallelism only; incompatible settings: "
+                f"{bad or {'moe_experts': r.moe_experts}}"
+            )
+        if r.bucket_by_length:
+            raise ValueError(
+                "pipeline_parallel is incompatible with bucket_by_length "
+                "(the microbatch split needs one fixed batch shape)"
+            )
+        if r.num_layers % r.pipeline_parallel:
+            raise ValueError(
+                f"num_layers={r.num_layers} must divide into "
+                f"{r.pipeline_parallel} pipeline stages"
+            )
     if r.model_parallel > 1 and r.moe_experts:
         raise NotImplementedError(
             f"model_parallel={r.model_parallel} with moe_experts={r.moe_experts} is "
@@ -276,6 +306,28 @@ def make_translation_loss(pad_id: int, *, train: bool = True):
     # What the loss averages over — the batch's valid target tokens — so
     # a gang weights each rank's gradient by its share of the global count
     # (parallel.data_parallel).
+    loss_fn.loss_weight = lambda batch: (batch[1][:, 1:] != pad_id).sum()
+    return loss_fn
+
+
+def make_pipeline_translation_loss(pad_id: int, mesh, *, n_micro: int | None = None,
+                                   train: bool = True):
+    """The training loss with the forward scheduled as two GPipe rings
+    over the mesh's ``"pipeline"`` axis
+    (``parallel.pipeline_transformer``): the pad-masked CE of
+    ``make_translation_loss``, its ``loss_weight`` too."""
+    from machine_learning_apache_spark_tpu_torch.parallel.pipeline_transformer import (
+        pipeline_transformer_logits,
+    )
+
+    def loss_fn(model, batch, rng):
+        src, trg = batch
+        logits = pipeline_transformer_logits(
+            model, src, trg[:, :-1], mesh, n_micro=n_micro,
+            generator=rng if train else None, deterministic=not train,
+        )
+        return masked_mean(token_losses(model, logits, trg[:, 1:]), trg[:, 1:], pad_id), {}
+
     loss_fn.loss_weight = lambda batch: (batch[1][:, 1:] != pad_id).sum()
     return loss_fn
 
@@ -404,7 +456,8 @@ def train_translator(
     model = Transformer(cfg, generator=torch.Generator().manual_seed(r.seed)).to(dev)
     # Under bucketing the fixed-width train loader is never used: eval
     # keeps the fixed width (full coverage).
-    mesh = resolve_mesh(r.use_mesh, model_parallel=r.model_parallel)
+    mesh = resolve_mesh(r.use_mesh, model_parallel=r.model_parallel,
+                        pipeline_parallel=r.pipeline_parallel)
     train_loader, val_loader = make_loaders(
         None if r.bucket_by_length else train_ds, val_ds,
         batch_size=r.batch_size, mesh=mesh, seed=r.seed,
@@ -479,10 +532,14 @@ def train_translator(
             # and dropout stream, so a run cut at an epoch boundary and
             # resumed trains as the uninterrupted run would.
             epochs = resume_epochs(ckpt, resumed, r.epochs)
-        train_loss = (
-            make_packed_translation_loss(cfg.pad_id) if r.pack_sequences
-            else make_translation_loss(cfg.pad_id)
-        )
+        if r.pipeline_parallel > 1:
+            train_loss = make_pipeline_translation_loss(
+                cfg.pad_id, mesh, n_micro=r.pipeline_microbatches
+            )
+        elif r.pack_sequences:
+            train_loss = make_packed_translation_loss(cfg.pad_id)
+        else:
+            train_loss = make_translation_loss(cfg.pad_id)
         result = fit(
             state,
             train_loss,

@@ -201,7 +201,9 @@ COMMS_BOUND_THRESHOLD = 0.25
 def comms_report(events: list[dict], table: dict | None = None) -> dict:
     """Comms rollup for the gang report: per-rank totals of the ``comms.*``
     counter events (wire bytes the zero1 step moved, with bytes/step where
-    the emitter recorded a step count in ``attrs``) plus the duration
+    the emitter recorded a step count in ``attrs``), the pipeline line's
+    hops per kind (``pipeline``, when a pipelined fit ran: bytes and
+    window ms per step) plus the duration
     stats of any ``comms.*`` span phases (the collective p50/p99 the
     comms-bench emits). Empty dicts when the run had no comms activity —
     the renderer then omits the section's tables.
@@ -281,7 +283,7 @@ def comms_report(events: list[dict], table: dict | None = None) -> dict:
             if comms_fraction > COMMS_BOUND_THRESHOLD
             else "compute-bound"
         )
-    return {
+    out = {
         "counters": {
             name: dict(sorted(
                 per_rank.items(), key=lambda kv: (kv[0] is None, kv[0])
@@ -293,6 +295,29 @@ def comms_report(events: list[dict], table: dict | None = None) -> dict:
         "comms_fraction": comms_fraction,
         "verdict": verdict,
     }
+    pipeline = _pipeline_hops(counters)
+    if pipeline:
+        out["pipeline"] = pipeline
+    return out
+
+
+def _pipeline_hops(counters: dict) -> dict:
+    """The pipeline line's hops per kind (``pp_send``, ``pp_recv``,
+    ``pp_bcast``, ``pp_allreduce``; the ``comms.<kind>_bytes`` and
+    ``comms.<kind>_window_seconds`` counters a pipelined ``fit`` emits),
+    per rank: bytes and window ms per step. Empty without them."""
+    out: dict = {}
+    for name, per_rank in counters.items():
+        for suffix, key, scale in (("_bytes", "bytes_per_step", 1.0),
+                                   ("_window_seconds", "window_ms_per_step", 1e3)):
+            kind = name[len("comms."):-len(suffix)]
+            if not (name.endswith(suffix) and kind.startswith("pp_")):
+                continue
+            for rank, entry in per_rank.items():
+                per_step = entry["total"] / entry["steps"] if entry["steps"] else None
+                out.setdefault(kind, {}).setdefault(rank, {})[key] = (
+                    None if per_step is None else round(scale * per_step, 3))
+    return out
 
 
 #: Stall fraction above which a run is called input-bound: more than this
@@ -711,6 +736,16 @@ def render_markdown(report: dict) -> str:
                         f"| {name} | {rank} | {int(entry['total'])} "
                         f"| {entry['steps'] or '-'} "
                         f"| {per_step if per_step is not None else '-'} |"
+                    )
+        if comms.get("pipeline"):
+            lines.append("")
+            lines.append("| pipeline hop | rank | bytes/step | window ms/step |")
+            lines.append("|---|---|---|---|")
+            for kind, per_rank in comms["pipeline"].items():
+                for rank, entry in per_rank.items():
+                    lines.append(
+                        f"| {kind} | {rank} | {entry.get('bytes_per_step', '-')} "
+                        f"| {entry.get('window_ms_per_step', '-')} |"
                     )
         if comms.get("collectives"):
             lines.append("")

@@ -43,7 +43,12 @@ with a ``"model"`` axis trains tensor-parallel: the model is sharded
 over it first (``parallel.tensor_parallel.shard_state``), the
 data-parallel sums run over the data axis, and the ranks of one model
 line draw the same dropout bits (seeded by the data index, not the
-rank), as they hold the same replicated activations. In a
+rank), as they hold the same replicated activations. A mesh with a
+``"pipeline"`` axis trains the pipelined loss
+(``recipes.translation.make_pipeline_translation_loss``) with each
+stage's gradients synced from the stage that computed them
+(``parallel.pipeline_parallel.GradSync``) and dropout seeded by the data
+index and the stage. In a
 gang, ``steps_per_call=K`` runs K eager data-parallel steps per call: a
 gloo collective runs on the host and cannot sit inside a CUDA graph.
 Each step passes the ``train_step`` fault-injection site
@@ -152,9 +157,10 @@ class FitResult:
     # and accumulation phase; empty when every step ran singly.
     programs: list[dict] = field(default_factory=list)
     # On a mesh of more than one process: the gradient collectives'
-    # host-timed totals (``GradientComms.stats()``, or ZeRO-1's
-    # ``Zero1Comms.stats()``), with the model axis's (``TPComms.stats()``)
-    # under tensor parallelism; empty otherwise.
+    # host-timed totals (``GradientComms.stats()``, ZeRO-1's
+    # ``Zero1Comms.stats()`` or a pipeline mesh's ``GradSync.stats()``),
+    # with the model axis's (``TPComms.stats()``) under tensor parallelism
+    # and the pipeline line's hops (``PPComms.stats()``); empty otherwise.
     comms: dict = field(default_factory=dict)
 
     @property
@@ -450,6 +456,15 @@ def fit(
     norm of the whole model. ``dp_mode="zero1"`` and ``zero1=True``
     compose with it (the hybrid ZeRO-1 step of ``parallel.zero``).
 
+    A mesh with a ``"pipeline"`` axis larger than 1 keeps the whole state
+    on every rank (the JAX memory note) and syncs each parameter's
+    gradient from the ranks of the stage that owns it: after every update
+    all ranks of the mesh hold the same parameters and moments. Dropout is
+    seeded by the data index and the stage. ``FitResult.comms`` adds the
+    line's hops (``PPComms.stats()``: ``pp_send``, ``pp_recv``,
+    ``pp_bcast``, ``pp_allreduce``). ``dp_mode="zero1"`` there raises the
+    JAX ``ValueError``; ``zero1=True`` is not ported there.
+
     ``prefetch_to_device`` is accepted and has nothing to do: the loader
     already assembles ahead on a thread and the copy to the device is
     pinned and non-blocking. The state is updated in place and returned
@@ -488,6 +503,20 @@ def fit(
         # the optimizer moments over.
         raise ValueError("zero1=True requires a mesh (use_mesh=True)")
     world = mesh.size if mesh is not None else 1
+    pp_line = None
+    if mesh is not None and mesh.axis_size("pipeline") > 1:
+        if zero1:
+            raise NotImplementedError(
+                "fit(zero1=True) on a mesh with a pipeline axis is not ported yet "
+                "(ROADMAP queue A, speed work: stage-local parameters and moments)"
+            )
+        from machine_learning_apache_spark_tpu_torch.parallel.pipeline_parallel import (
+            pipeline_line,
+        )
+
+        pp_line = pipeline_line(mesh)
+        # This fit's hop totals, as step_fn.comms holds its own.
+        pp_line.restart_comms()
     emit = emit or log.info
     rng = rng if rng is not None else torch.Generator().manual_seed(0)
     device = _device_of(state)
@@ -562,8 +591,10 @@ def fit(
             # their own): the fit's seed mixed with the data index (the
             # rank on a pure data mesh). The ranks of one model line share
             # it: they drop the same elements of their replicated
-            # activations. Data index 0 keeps the one-process seed.
-            seed = (seed + mesh.index("data") * 0x9E3779B97F4A7C15) % _SEED_RANGE
+            # activations. Each pipeline stage draws for its own layers.
+            # Data index 0, stage 0 keeps the one-process seed.
+            seed = (seed + mesh.index("data") * 0x9E3779B97F4A7C15
+                    + mesh.index("pipeline") * 0xC2B2AE3D27D4EB4F) % _SEED_RANGE
         step_rng.manual_seed(seed)
 
     step_fn = None
@@ -625,6 +656,8 @@ def fit(
                 # that died mid-epoch.
                 if hasattr(step_fn, "flush_comms"):
                     step_fn.flush_comms()
+                if pp_line is not None:
+                    pp_line.comms.emit_counters()
         if not history and resume_meta.get("metrics"):
             # An already-complete resume: report the last epoch's metrics
             # from its sidecar.
@@ -650,6 +683,8 @@ def fit(
     tp_axis = getattr(state.model, "tp_axis", None)
     if tp_axis is not None:
         comms |= tp_axis.comms.stats()
+    if pp_line is not None:
+        comms |= pp_line.comms.stats()
     return FitResult(
         state=state, train_seconds=seconds, history=history,
         resumed_step=resumed_step, step_losses=step_losses,

@@ -120,8 +120,11 @@ def test_mesh_axes_beyond_data_raise_naming_their_item():
     assert mesh.shape == {"data": 2, "model": 2} and mesh.coords == {"data": 0, "model": 0}
     with pytest.raises(NotImplementedError, match="ring_attention"):
         make_mesh({"seq": -1}, world=2)
-    with pytest.raises(NotImplementedError, match="pipeline_parallel"):
-        make_mesh({"data": 1, "pipeline": 2}, world=2)
+    # So is the pipeline axis, data-major too.
+    mesh = make_mesh({"pipeline": 2, "data": 1}, world=2)
+    assert mesh.shape == {"data": 1, "pipeline": 2} and mesh.axis_ranks("pipeline") == [0, 1]
+    with pytest.raises(NotImplementedError, match="ring_attention.py and ulysses_attention.py"):
+        make_mesh({"data": 1, "pipeline": 2, "seq": 2}, world=4)
     with pytest.raises(NotImplementedError, match="expert"):
         make_mesh({"expert": 2}, world=2)
     with pytest.raises(ValueError, match="does not cover 1 devices"):

@@ -1448,3 +1448,90 @@ def test_hybrid_zero1_on_the_card_trains_the_replicated_hybrid_bits(card_tp_gang
     for name in ("bf16", "int8"):
         for v in h[name]["params"].values():
             assert all(np.isfinite(x).all() for x in v.values())
+
+
+# -- pipeline parallelism on the card (gloo: the ranks share it) ---------------
+
+PP_CFG = dict(src_vocab_size=41, trg_vocab_size=37, d_model=64, ffn_hidden=128,
+              num_heads=4, num_layers=4, max_len=24, dropout=0.0)
+
+
+@pytest.mark.parametrize("rows", [8, 4], ids=["M4_of_32", "M8_of_32"])
+@pytest.mark.parametrize("causal,sk", [(False, 200), (True, 199)], ids=["enc_cross", "dec_self"])
+def test_pipeline_microbatch_sites_match_plain(cuda, rows, causal, sk):
+    """The forward with lse, dQ and dK/dV at a pipeline microbatch's shape
+    (``[B/M, 8, 200|199, 64]``, head-split views, masked keys) within 1e-4
+    of their plain versions, dQ and dK/dV bit-repeating."""
+    rng = np.random.default_rng(28 + rows)
+    sq = sk
+    q, k, v, g, valid = _bwd_inputs(rng, cuda, rows, 8, sq, sk, 64, 0.6, strided=True)
+    kw = dict(causal=causal, kv_valid=valid)
+    out, lse = hop.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+    want_out, want_lse = hop.flash_attention_lse_plain(q, k, v, **kw)
+    torch.testing.assert_close(out, want_out, atol=TOL, rtol=0)
+    finite = want_lse > hop.NEG_INF / 2
+    assert _max_rel(lse[finite], want_lse[finite]) < TOL
+    delta = (g * out).sum(-1)
+    dq = hop.flash_attention_bwd_dq(q, k, v, g, lse, delta, **kw)
+    dk, dv = hop.flash_attention_bwd_dkv(q, k, v, g, lse, delta, **kw)
+    want = hop.flash_attention_backward_plain(q, k, v, out, lse, g, **kw)
+    for got, ref in zip((dq, dk, dv), want):
+        assert _max_rel(got, ref) < TOL
+    assert torch.equal(hop.flash_attention_bwd_dq(q, k, v, g, lse, delta, **kw), dq)
+    again = hop.flash_attention_bwd_dkv(q, k, v, g, lse, delta, **kw)
+    assert torch.equal(again[0], dk) and torch.equal(again[1], dv)
+
+
+@pytest.fixture(scope="module")
+def card_pp_gang():
+    """One 4-rank ``{pipeline: 4}`` gang on the card (4 layers, one a
+    stage, 4 microbatches): 3 SGD steps of the pipelined ``fit``, and the
+    same steps in this process on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the gang's ranks run on it")
+    from machine_learning_apache_spark_tpu_torch.launcher import Distributor, kill_stray_gangs
+    from machine_learning_apache_spark_tpu_torch.models.transformer import (
+        Transformer,
+        TransformerConfig,
+    )
+    from machine_learning_apache_spark_tpu_torch.recipes.translation import make_translation_loss
+    from machine_learning_apache_spark_tpu_torch.train.loop import fit
+    from machine_learning_apache_spark_tpu_torch.train.state import TrainState, make_optimizer
+    from machine_learning_apache_spark_tpu_torch.weights import export_flax_params, load_flax_params
+
+    rng = np.random.default_rng(43)
+    batches = []
+    for _ in range(3):
+        src = rng.integers(4, 41, (16, 20)).astype(np.int64)
+        trg = rng.integers(4, 37, (16, 19)).astype(np.int64)
+        for i, m in enumerate(rng.integers(3, 19, 16)):
+            trg[i, m:] = 0
+        batches.append((src, trg))
+    tree = export_flax_params(Transformer(TransformerConfig(**PP_CFG),
+                                          generator=torch.Generator().manual_seed(9)))
+    gang = Distributor(num_processes=4, timeout=300).run(
+        "torch_launcher_workers:pp_card_gang", PP_CFG, tree, batches, 0.5, 4)
+    assert kill_stray_gangs() == 0
+    model = load_flax_params(Transformer(TransformerConfig(**PP_CFG)), tree).cuda()
+    res = fit(TrainState.create(model=model, tx=make_optimizer("sgd", 0.5)),
+              make_translation_loss(0), batches, epochs=1, log_every=0)
+    one = {"step_losses": res.step_losses,
+           "params": {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()}}
+    return gang, one
+
+
+def test_pipeline_gang_on_the_card_trains_as_one_process(card_pp_gang):
+    gang, one = card_pp_gang
+    assert gang["device"] == "cuda:0" and gang["mesh"] == {"pipeline": 4}
+    np.testing.assert_allclose(gang["step_losses"], one["step_losses"], rtol=1e-4)
+    assert gang["ranks_equal"]
+    for k, want in one["params"].items():
+        np.testing.assert_allclose(gang["params"][k], want, rtol=0, atol=1e-5, err_msg=k)
+
+
+def test_pipeline_gang_on_the_card_launches_its_stage_share(card_pp_gang):
+    gang, _ = card_pp_gang
+    # Each rank: 3 sites x 1 layer x 4 microbatches a step, 3 steps.
+    for launches in gang["launches"]:
+        assert launches["flash_attention_fwd"] == 36
+        assert launches["flash_attention_bwd_dq"] == launches["flash_attention_bwd_dkv"] == 36

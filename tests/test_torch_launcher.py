@@ -10,7 +10,9 @@ Gang workers live in ``tests/torch_launcher_workers.py`` (no JAX).
 """
 
 import os
+import sys
 import time
+import types
 
 import pytest
 
@@ -100,6 +102,22 @@ def test_heartbeat_files_cross_read(writer, tmp_path):
     assert payload["rank"] == 3 and payload["world"] == 4
     assert payload["pid"] == os.getpid()
     assert set(payload) == {"rank", "pid", "wall", "phase", "step", "http_port", "world"}
+
+
+def test_heartbeat_outlives_a_faults_module_mid_import(tmp_path, monkeypatch):
+    """The beat thread peeks at ``utils.faults`` in ``sys.modules`` while
+    the worker's main thread may still be importing it: a module with no
+    ``heartbeats_suspended`` yet must not end the beats (the monitor would
+    then tear a healthy gang down as stalled)."""
+    name = "machine_learning_apache_spark_tpu_torch.utils.faults"
+    monkeypatch.setitem(sys.modules, name, types.ModuleType(name))
+    hb = tmp_path / "heartbeat_0"
+    beats = _start_heartbeat(str(hb), 0.02)
+    deadline = time.monotonic() + 5.0
+    while time.monotonic() < deadline and not read_heartbeat(str(hb)):
+        time.sleep(0.02)
+    time.sleep(0.1)
+    assert beats.is_alive() and read_heartbeat(str(hb))["rank"] == 0
 
 
 @pytest.mark.parametrize(

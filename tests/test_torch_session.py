@@ -172,8 +172,12 @@ def test_resolve_mesh_rules(monkeypatch):
     assert _common.data_replicas(mesh) == (1, 0)
     with pytest.raises(NotImplementedError, match="ring_attention"):
         _common.resolve_mesh(True, sequence_parallel=2)
-    with pytest.raises(NotImplementedError, match="pipeline_parallel"):
-        _common.resolve_mesh(True, pipeline_parallel=2)
+    # The pipeline axis is ported too: {data: world/S, pipeline: S}.
+    mesh = _common.resolve_mesh(True, pipeline_parallel=2)
+    assert mesh.shape == {"data": 1, "pipeline": 2}
+    assert _common.data_replicas(mesh) == (1, 0)
+    with pytest.raises(NotImplementedError, match="the MoE experts' mesh axis"):
+        _common.resolve_mesh(True, expert_parallel=2)
 
 
 def test_recipe_under_a_two_rank_gang_reports_its_world():

@@ -946,3 +946,291 @@ def tp_card_layers(cfg_kwargs, flax_params, batch, device=None):
            "vocab_parallel": (float(vp), float(plain)), "device": str(dev),
            "heads": model.encoder.layers[0].self_attn.heads}
     return out if rank == 0 else None
+
+
+# -- pipeline parallelism ----------------------------------------------------------
+
+
+def _mlp_stage(p, x):
+    """The JAX tests' residual-MLP stage."""
+    return x + torch.tanh(x @ p["w"] + p["b"])
+
+
+def _aux_stage(p, h, aux_m, rep_m, stage_id, tick):
+    (scale,) = aux_m
+    out = h + torch.tanh(h @ p["w"] + p["b"]) * scale
+    return out if rep_m is None else out + rep_m * (stage_id + 1)
+
+
+def _pp_mlp_case(mesh, params, x, n_micro, scale=None, shift=None):
+    """``pipeline_apply`` of the residual-MLP stage on this rank's data
+    rows of ``x``: the output, this stage's gradients of ``sum(out²)``
+    and the input's gradient, with the rank's coordinates. ``scale`` is a
+    per-example aux, ``shift`` a per-microbatch one (``aux_replicated``)."""
+    from machine_learning_apache_spark_tpu_torch.parallel import pipeline_apply
+
+    d, ways = mesh.index("data"), mesh.axis_size("data")
+    n = len(x) // ways
+    w = torch.tensor(params["w"], requires_grad=True)
+    b = torch.tensor(params["b"], requires_grad=True)
+    xl = torch.tensor(x[d * n:(d + 1) * n], requires_grad=True)
+    if scale is None:
+        out = pipeline_apply(_mlp_stage, {"w": w, "b": b}, xl, mesh, n_micro=n_micro)
+    else:
+        out = pipeline_apply(_aux_stage, {"w": w, "b": b}, xl, mesh, n_micro=n_micro,
+                             aux=(torch.tensor(scale[d * n:(d + 1) * n]),),
+                             aux_replicated=None if shift is None else torch.tensor(shift))
+    (out ** 2).sum().backward()
+    s = mesh.index("pipeline")
+    return {"data": d, "stage": s, "out": out.detach().numpy(), "gw": w.grad[s].numpy(),
+            "gb": b.grad[s].numpy(),
+            "gx": (xl.grad if xl.grad is not None else torch.zeros_like(xl)).numpy(),
+            "other_stages_zero": bool(torch.all(w.grad[torch.arange(len(w)) != s] == 0))}
+
+
+def _pp_mlp_fit(mesh, params, batches, lr, n_micro, *, listed=False):
+    """3 SGD steps of ``fit(mesh=)`` on the residual MLP's mean of
+    ``out²``, its parameters given to ``pipeline_apply`` stacked (a dict of
+    ``[S, ...]`` parameters, JAX's form) or, with ``listed``, as a list of
+    per-stage dicts; each data index on its rows of ``batches``. The
+    parameters stacked, and whether every rank holds the same."""
+    from torch import nn
+
+    from machine_learning_apache_spark_tpu_torch.parallel import pipeline_apply
+    from machine_learning_apache_spark_tpu_torch.train.loop import fit
+    from machine_learning_apache_spark_tpu_torch.train.state import TrainState, make_optimizer
+
+    model = nn.Module()
+    if listed:
+        model.w = nn.ParameterList([torch.tensor(w) for w in params["w"]])
+        model.b = nn.ParameterList([torch.tensor(b) for b in params["b"]])
+    else:
+        model.w = nn.Parameter(torch.tensor(params["w"]))
+        model.b = nn.Parameter(torch.tensor(params["b"]))
+
+    def loss_fn(model, batch, rng):
+        if listed:
+            stages = [{"w": w, "b": b} for w, b in zip(model.w, model.b)]
+        else:
+            stages = {"w": model.w, "b": model.b}
+        out = pipeline_apply(_mlp_stage, stages, batch[0], mesh, n_micro=n_micro)
+        return (out ** 2).mean(), {}
+
+    d, ways = mesh.index("data"), mesh.axis_size("data")
+    res = fit(TrainState.create(model=model, tx=make_optimizer("sgd", lr)), loss_fn,
+              [_rows((b,), d, ways) for b in batches], epochs=1, mesh=mesh, log_every=0,
+              rng=torch.Generator().manual_seed(0))
+    got = {k: torch.stack(list(getattr(model, k))).detach().numpy() for k in ("w", "b")}
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, got)
+    return {"params": got, "ranks_equal": all(_same_tree(e, got) for e in every),
+            "steps": res.state.step}
+
+
+def _owner_grads(model, mesh):
+    """Every parameter's gradient taken from a rank of the stage that
+    owns it (``pp_stage``, untagged: stage 0), as a Flax tree."""
+    from machine_learning_apache_spark_tpu_torch.models.transformer import Transformer
+    from machine_learning_apache_spark_tpu_torch.weights import export_flax_params
+
+    mine = {n: (getattr(p, "pp_stage", 0), None if p.grad is None else p.grad.numpy())
+            for n, p in model.named_parameters()}
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, (mesh.index("pipeline"), mine))
+    full = {n: torch.from_numpy(next(g[n][1] for s, g in every if s == owner))
+            for n, (owner, _) in mine.items()}
+    out = Transformer(model.cfg)
+    out.load_state_dict(full)
+    return export_flax_params(out)
+
+
+def _pp_fit(mesh, cfg_kwargs, flax_params, batches, lr, n_micro, *, opt="sgd", epochs=1,
+            ckpt=None, resume=False, steps_per_call=1, seed=0):
+    """``fit(mesh=)`` of the pipelined MT loss, each data index on its
+    rows of ``batches``: the parameters (a Flax tree), step losses, comms
+    and whether every rank of the gang holds the same parameters and
+    moments bit for bit."""
+    from machine_learning_apache_spark_tpu_torch.models.transformer import (
+        Transformer,
+        TransformerConfig,
+    )
+    from machine_learning_apache_spark_tpu_torch.recipes.translation import (
+        make_pipeline_translation_loss,
+    )
+    from machine_learning_apache_spark_tpu_torch.train.checkpoint import CheckpointManager
+    from machine_learning_apache_spark_tpu_torch.train.loop import fit
+    from machine_learning_apache_spark_tpu_torch.train.state import TrainState, make_optimizer
+    from machine_learning_apache_spark_tpu_torch.weights import export_flax_params, load_flax_params
+
+    d, ways = mesh.index("data"), mesh.axis_size("data")
+    model = load_flax_params(Transformer(TransformerConfig(**cfg_kwargs)), flax_params)
+    local = [_rows(b, d, ways) for b in batches]
+    mgr = CheckpointManager(ckpt) if ckpt else None
+    try:
+        res = fit(TrainState.create(model=model, tx=make_optimizer(opt, lr)),
+                  make_pipeline_translation_loss(0, mesh, n_micro=n_micro), local, epochs=epochs,
+                  mesh=mesh, log_every=0, checkpointer=mgr, resume=resume,
+                  steps_per_call=steps_per_call, rng=torch.Generator().manual_seed(seed))
+    finally:
+        if mgr is not None:
+            mgr.close()
+    mine = [t.numpy().copy() for t in res.state.state_dict()["model"].values()]
+    mine += [v.numpy().copy() for st in res.state.optimizer.state.values()
+             for v in st.values() if isinstance(v, torch.Tensor) and v.dim()]
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    same = all(all(np.array_equal(a, b) for a, b in zip(e, every[0])) for e in every)
+    return {"params": export_flax_params(model), "step_losses": list(res.step_losses),
+            "comms": res.comms, "ranks_equal": bool(same), "resumed": res.resumed_step,
+            "steps": res.state.step}
+
+
+def pp_two_rank(mlp_params, mlp_x, mlp_aux, cfg_kwargs, flax_params, probe, batches, lr, workdir,
+                recipe_kw, probe_texts):
+    """Every check of the 2-rank ``{data: 1, pipeline: 2}`` gang in one
+    gang start: ``pipeline_apply`` of the residual MLP at (S, M) = (2, 2)
+    and (2, 6), and at M = 3 with a per-example and a per-microbatch aux
+    (``mlp_aux``); the pipelined Transformer's logits and owner gradients on
+    ``probe``, with and without ``remat``; 3 SGD steps of ``fit``; with
+    dropout and Adam, 4 steps per call against 1 and 1 + 1 epochs
+    against 2 with checkpoints, and a resume on ``{data: 2}`` that must
+    raise; then ``train_translator(pipeline_parallel=2)``. Every rank's
+    results where they differ by rank, else rank 0's."""
+    from machine_learning_apache_spark_tpu_torch.models.transformer import (
+        Transformer,
+        TransformerConfig,
+    )
+    from machine_learning_apache_spark_tpu_torch.parallel import make_mesh
+    from machine_learning_apache_spark_tpu_torch.parallel.pipeline_transformer import (
+        pipeline_transformer_logits,
+    )
+    from machine_learning_apache_spark_tpu_torch.recipes.translation import train_translator
+    from machine_learning_apache_spark_tpu_torch.train.checkpoint import TopologyMismatch
+    from machine_learning_apache_spark_tpu_torch.weights import load_flax_params
+
+    rank, world = _rank_world()
+    mesh = make_mesh({"data": 1, "pipeline": world}, device="cpu")
+    out: dict = {"mesh": dict(mesh.shape)}
+    mlp = {m: _pp_mlp_case(mesh, mlp_params, mlp_x, m) for m in (2, 6)}
+    mlp["aux"] = _pp_mlp_case(mesh, mlp_params, mlp_x, 3, scale=mlp_aux[0], shift=mlp_aux[1])
+    every = [None] * world
+    dist.all_gather_object(every, mlp)
+    out["mlp"] = every
+
+    src, trg = (torch.as_tensor(a) for a in probe)
+    logits = {}
+    for remat in (False, True):
+        cfg = TransformerConfig(**{**cfg_kwargs, "remat": remat})
+        model = load_flax_params(Transformer(cfg), flax_params)
+        y = pipeline_transformer_logits(model, src, trg, mesh)
+        (y ** 2).mean().backward()
+        logits[remat] = {"logits": y.detach().numpy(), "grads": _owner_grads(model, mesh)}
+    out["logits"] = logits
+
+    out["fit"] = _pp_fit(mesh, cfg_kwargs, flax_params, batches[:3], lr, 2)
+    drop = {**cfg_kwargs, "dropout": 0.1}
+    kw = dict(opt="adam", seed=11)
+    one = _pp_fit(mesh, drop, flax_params, batches, lr / 10, 2, **kw)
+    four = _pp_fit(mesh, drop, flax_params, batches, lr / 10, 2, steps_per_call=4, **kw)
+    out["k_steps"] = {"losses_equal": one["step_losses"] == four["step_losses"],
+                      "params_equal": _same_tree(one["params"], four["params"])}
+    root = os.path.join(workdir, "pp")
+    whole = _pp_fit(mesh, drop, flax_params, batches, lr / 10, 2, epochs=2,
+                    ckpt=os.path.join(root, "whole", f"ckpt_r{rank}"), **kw)
+    first = _pp_fit(mesh, drop, flax_params, batches, lr / 10, 2, epochs=1,
+                    ckpt=os.path.join(root, "split", f"ckpt_r{rank}"), **kw)
+    second = _pp_fit(mesh, drop, flax_params, batches, lr / 10, 2, epochs=2,
+                     ckpt=os.path.join(root, "split", f"ckpt_r{rank}"), resume=True, **kw)
+    out["resume"] = {"params_equal": _same_tree(whole["params"], second["params"]),
+                     "losses_equal": first["step_losses"] + second["step_losses"] == whole["step_losses"],
+                     "resumed_from": second["resumed"], "first_steps": first["steps"],
+                     "ranks_equal": whole["ranks_equal"] and second["ranks_equal"]}
+    try:
+        _pp_fit(make_mesh({"data": world}, device="cpu"), drop, flax_params, batches, lr / 10, 2,
+                epochs=3, ckpt=os.path.join(root, "split", f"ckpt_r{rank}"), resume=True, **kw)
+        out["crossed"] = "no error"
+    except TopologyMismatch as e:
+        out["crossed"] = str(e)
+
+    res = train_translator(device="cpu", pipeline_parallel=world, pipeline_microbatches=4,
+                           _return_translator=True, _return_state=True, **recipe_kw)
+    tr = res["translator"]
+    out["recipe"] = {"step_losses": res["fit_result"].step_losses,
+                     "mesh": dict(res["state"].mesh.shape),
+                     "translator_is_model": tr.model is res["state"].model,
+                     "tokens": tr(list(probe_texts), max_new_tokens=8),
+                     "comms": res["fit_result"].comms}
+    return out if rank == 0 else None
+
+
+def _same_tree(a, b) -> bool:
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same_tree(a[k], b[k]) for k in a)
+    return bool(np.array_equal(a, b))
+
+
+def pp_four_rank(mlp_params4, mlp_params2, mlp_x, scale, cfg_kwargs, flax_params, batches, lr,
+                 mlp_batches):
+    """The 4-rank gang: ``pipeline_apply`` of the residual MLP on
+    ``{pipeline: 4}`` at M = 4 and 8 and on ``{data: 2, pipeline: 2}``
+    (M = 2, with and without a per-example aux); 3 SGD steps of ``fit``
+    on the residual MLP over ``mlp_batches``, its parameters stacked on
+    ``{pipeline: 4}`` and listed per stage on ``{data: 2, pipeline: 2}``;
+    then 3 SGD steps of the pipelined Transformer's ``fit`` on ``{data:
+    2, pipeline: 2}``. Every rank's MLP results, rank 0's fits."""
+    from machine_learning_apache_spark_tpu_torch.parallel import make_mesh
+
+    rank, world = _rank_world()
+    deep = make_mesh({"pipeline": world}, device="cpu")
+    hybrid = make_mesh({"data": 2, "pipeline": world // 2}, device="cpu")
+    cases = {f"pipeline4 M{m}": _pp_mlp_case(deep, mlp_params4, mlp_x, m) for m in (4, 8)}
+    cases["data2 pipeline2 M2"] = _pp_mlp_case(hybrid, mlp_params2, mlp_x, 2)
+    cases["data2 pipeline2 aux"] = _pp_mlp_case(hybrid, mlp_params2, mlp_x, 2, scale=scale)
+    every = [None] * world
+    dist.all_gather_object(every, cases)
+    out = {"mlp": every, "coords": [None] * world}
+    dist.all_gather_object(out["coords"], hybrid.coords)
+    out["mlp_fit"] = {"stacked": _pp_mlp_fit(deep, mlp_params4, mlp_batches, lr, 4),
+                      "listed": _pp_mlp_fit(hybrid, mlp_params2, mlp_batches, lr, 2, listed=True)}
+    out["fit"] = _pp_fit(hybrid, cfg_kwargs, flax_params, batches, lr, 2)
+    return out if rank == 0 else None
+
+
+def pp_card_gang(cfg_kwargs, flax_params, batches, lr, n_micro, device=None):
+    """SGD steps of the pipelined ``fit`` on ``device`` (default: the gang's) on a
+    ``{pipeline: world}`` mesh, every rank the whole batches: rank 0's
+    step losses and parameters, whether every rank holds the same
+    parameters and moments, and every rank's launches."""
+    from machine_learning_apache_spark_tpu_torch.models.transformer import (
+        Transformer,
+        TransformerConfig,
+    )
+    from machine_learning_apache_spark_tpu_torch.ops import hopper_attention as hop
+    from machine_learning_apache_spark_tpu_torch.parallel import make_mesh
+    from machine_learning_apache_spark_tpu_torch.recipes.translation import (
+        make_pipeline_translation_loss,
+    )
+    from machine_learning_apache_spark_tpu_torch.train.loop import fit
+    from machine_learning_apache_spark_tpu_torch.train.state import TrainState, make_optimizer
+    from machine_learning_apache_spark_tpu_torch.weights import load_flax_params
+
+    rank, world = _rank_world()
+    dev = _worker_device(device)
+    mesh = make_mesh({"pipeline": world}, device=dev)
+    model = load_flax_params(Transformer(TransformerConfig(**cfg_kwargs)), flax_params).to(dev)
+    hop.reset_launches()
+    res = fit(TrainState.create(model=model, tx=make_optimizer("sgd", lr)),
+              make_pipeline_translation_loss(0, mesh, n_micro=n_micro), batches, epochs=1,
+              mesh=mesh, log_every=0)
+    launches = [None] * world
+    dist.all_gather_object(launches, dict(hop.LAUNCHES))
+    mine = [t.detach().cpu().numpy() for t in model.state_dict().values()]
+    mine += [v.detach().cpu().numpy() for st in res.state.optimizer.state.values()
+             for v in st.values() if isinstance(v, torch.Tensor) and v.dim()]
+    every = [None] * world
+    dist.all_gather_object(every, mine)
+    out = {"device": str(dev), "mesh": dict(mesh.shape), "step_losses": res.step_losses,
+           "params": {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()},
+           "ranks_equal": all(all(np.array_equal(a, b) for a, b in zip(e, every[0])) for e in every),
+           "launches": launches}
+    return out if rank == 0 else None
