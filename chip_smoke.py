@@ -263,6 +263,38 @@ Phases, each fatal on failure:
    process's at the same depth, the bubble ``(S-1)/(M+S-1)``, the hops'
    (``pp_send``, ``pp_recv``, ``pp_bcast``, ``pp_allreduce``) bytes and
    windows per step, the gradient sync's, each rank's peak;
+7h. the sequence axis — (a) the flash forward with ``lse`` and the dQ
+   and dK/dV kernels at the ring's hop shapes ``[32, 8, 50, 64]``,
+   ``[32, 8, 100, 64]`` and ``[2, 8, 512, 64]``, fp32 and bf16: the
+   diagonal hop (causal) and a hop behind (unmasked, rows with no valid
+   key) against their plain versions, the two merged by ``lse`` against
+   the forward over both chunks at once, and each hop's dQ and dK/dV with
+   the merged ``lse`` and ``delta`` against their plain versions (the
+   hops' dQ summed against the whole backward's); (b) ``Session`` ->
+   ``Distributor`` -> one 4-rank gang sharing the card over gloo: the MT
+   model at reference width (1 layer, dropout 0, Adam, the fixture's
+   first epoch at global batch 32, targets one pad longer, and its eval)
+   under ``sequence_parallel`` on ``{seq: 4}`` (ring, then Ulysses) and
+   ``{data: 2, seq: 2}`` (ring): step losses and each parameter tensor
+   within max(1e-4, 10 x a control's distance: one process on the same
+   batches in two microbatches a step) of one process on the same global
+   batches, every seq line the same bits after every
+   step, each rank's flash forward, dQ and dK/dV launches as the hop
+   schedule says (ring: n + (r + 1) + n a step on seq index r, the chunks
+   ahead of the causal decoder skipped; Ulysses: 3); (c)
+   ``train_translator(sequence_parallel=2)`` under ring and under Ulysses
+   with checkpoints and BLEU (a falling loss, a finite BLEU, each rank's
+   checkpoint, dQ and dK/dV launches per the schedule); (d) one train
+   step at 2,048 positions (batch 2, remat, the published 8004 vocabulary,
+   ids from the seed) on ``{seq: 4}`` under ring against one process:
+   the loss within 1e-4 relative, each gradient tensor within max(1e-4,
+   10 x the dense path's distance from the flash path in one process),
+   the key biases' (true gradient 0) within 1e-4 of the largest gradient,
+   each rank's peak beside one process's under ``attention_impl("flash")``
+   and ``("dense")``.
+   Printed: each mesh's step ms beside one process's, the seq line's
+   ``comms.sp_ring`` / ``sp_a2a`` / ``sp_gather`` windows and bytes per
+   step, each rank's launches and peak; the phase's own seconds;
 8. times — requests/s, generated tokens/s and peak device memory of each
    engine (paged fp32 and int8, padded, beam); each engine's requests/s
    and device idle share over one profiled window; the host time of the
@@ -275,7 +307,7 @@ Phases, each fatal on failure:
    self-attention with cur over fp32 and int8 pages), at the three
    training sites (and at one sequence of the encoder site, fixture keys
    and all keys valid, where the rules pick dQ's and the forward's key
-   split) and at the KV-cache decoders' one-query-row sites, and each
+   split, and at the ring's hop shapes of phase 7h, diagonal and behind) and at the KV-cache decoders' one-query-row sites, and each
    kernel at each of its launch choices; the recipe's evaluate and BLEU
    decode once more under the profiler, for the forward's launches (which
    must equal the recipe run's), device time and bound over the whole
@@ -4728,9 +4760,11 @@ def pp_sites(torch, dev, src, trg_in, dtype=None) -> dict:
     return out
 
 
-def _pp_model(torch, dev, layers: int, dtype=None):
+def _pp_model(torch, dev, layers: int, dtype=None, *, max_len: int | None = None,
+              vocab: int | None = None, remat: bool = False):
     """The reference MT model at ``layers`` layers on the fixture
-    vocabularies (dropout 0), built as ``_mt_model`` builds it."""
+    vocabularies (dropout 0), built as ``_mt_model`` builds it; ``max_len``,
+    ``vocab`` (both vocabularies) and ``remat`` for the long-context step."""
     from machine_learning_apache_spark_tpu_torch.models.transformer import (
         Transformer,
         TransformerConfig,
@@ -4740,9 +4774,9 @@ def _pp_model(torch, dev, layers: int, dtype=None):
     src_pipe, trg_pipe, _ = fixture_data()
     r = TranslationRecipe(**GANG_MT)
     cfg = TransformerConfig(
-        src_vocab_size=len(src_pipe.vocab), trg_vocab_size=len(trg_pipe.vocab),
+        src_vocab_size=vocab or len(src_pipe.vocab), trg_vocab_size=vocab or len(trg_pipe.vocab),
         d_model=r.d_model, ffn_hidden=r.ffn_hidden, num_heads=r.num_heads, num_layers=layers,
-        dropout=r.dropout, max_len=r.max_len, dtype=dtype or torch.float32,
+        dropout=r.dropout, max_len=max_len or r.max_len, remat=remat, dtype=dtype or torch.float32,
     )
     return Transformer(cfg, generator=torch.Generator().manual_seed(SEED)).to(dev), r
 
@@ -5150,6 +5184,541 @@ def pp_slice(torch, hop, card: str, dev) -> dict:
                 refs={k: {f: v[f] for f in ("ms", "peak", "test_loss")} for k, v in refs.items()})
 
 
+# -- phase 7h: the sequence axis ---------------------------------------------------
+
+SP_GANG = 4
+# label: (mesh axes, method). The reference MT model (1 layer) at full
+# width on the fixture's global batches of 32, targets one pad longer (the
+# recipe's SP padding) so that all three attention sites split.
+SP_MESHES = {
+    "a {seq: 4} ring": ({"seq": 4}, "ring"),
+    "b {seq: 4} ulysses": ({"seq": 4}, "ulysses"),
+    "c {data: 2, seq: 2} ring": ({"data": 2, "seq": 2}, "ring"),
+}
+SP_RTOL = 1e-4
+SP_WARMUP, SP_TIMED = 1, 3
+# The ring's hop shapes: {seq: 4} and {seq: 2} at S = 200 (batch 32), and
+# {seq: 4} at S = 2048 (batch 2).
+SP_HOP_SHAPES = ((32, 8, 50, 64), (32, 8, 100, 64), (2, 8, 512, 64))
+# train_translator(sequence_parallel=2) in the 4-rank gang: {data: 2, seq:
+# 2}, 16 rows a data replica (global batch 32), BLEU and checkpoints.
+SP_RECIPE = dict(data_root=str(FIXTURES), batch_size=16, dropout=0.0, log_every=0, compute_bleu=True,
+                 sequence_parallel=2)
+SP_LONG = dict(seq=2048, batch=2)
+
+
+def _sp_pad(batch):
+    """A fixture batch with its targets one pad longer: the decoder input
+    then has the source's 200 positions, as the recipe's SP pipelines make
+    it."""
+    src, trg = batch
+    return src, np.pad(np.asarray(trg), ((0, 0), (0, 1)))
+
+
+def sp_hop_cases(torch, dev, dtype=None) -> dict:
+    """At each hop shape ``[b, H, S/n, d]``: the local queries, the
+    diagonal chunk's K/V and validity (some keys masked) and a chunk
+    behind's (every key of the first batch row masked), and dO."""
+    out = {}
+    for b, h, c, d in SP_HOP_SHAPES:
+        rng = np.random.default_rng(SEED + 300 + c)
+
+        def randn(*shape):
+            x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+            return x if dtype is None else x.to(dtype)
+
+        diag = rng.random((b, c)) < 0.8
+        behind = rng.random((b, c)) < 0.8
+        behind[0] = False
+        out[f"SP hop [{b},{h},{c},{d}]"] = dict(
+            q=randn(b, h, c, d), k0=randn(b, h, c, d), v0=randn(b, h, c, d),
+            valid0=torch.from_numpy(diag).to(dev), k1=randn(b, h, c, d), v1=randn(b, h, c, d),
+            valid1=torch.from_numpy(behind).to(dev), g=randn(b, h, c, d))
+    return out
+
+
+def sp_hop_sites(torch, dev, dtype=None) -> dict:
+    """The hops as training sites (for the timings): the diagonal, causal
+    with its validity, and a hop behind, unmasked, with its."""
+    sites = {}
+    for label, c in sp_hop_cases(torch, dev, dtype).items():
+        sites[f"{label} diagonal"] = dict(q=c["q"], k=c["k0"], v=c["v0"], g=c["g"], causal=True,
+                                          kv_valid=c["valid0"])
+        sites[f"{label} behind"] = dict(q=c["q"], k=c["k1"], v=c["v1"], g=c["g"], causal=False,
+                                        kv_valid=c["valid1"])
+    return sites
+
+
+def check_hop_kernels(torch, hop, dev, dtype=None) -> dict:
+    """Phase 7h (a): at each hop shape, the flash forward with ``lse`` on the
+    diagonal hop (causal) and on a hop behind (unmasked, rows with no valid
+    key) against the plain version; the two merged by ``lse``
+    (``ring_attention.merge_hop``) against the forward over both chunks at
+    once (bottom-right causal over ``[behind | diagonal]``); then dQ and
+    dK/dV of each hop with the MERGED ``lse`` and ``delta`` against their
+    plain versions, and the hops' dQ summed against the whole backward's.
+    Each within ``TOL`` relative (``BF16_TOL`` at bf16)."""
+    from machine_learning_apache_spark_tpu_torch.parallel.ring_attention import (
+        finish_merge,
+        hop_backward,
+        hop_forward,
+        merge_hop,
+    )
+
+    dtype = dtype or torch.float32
+    tol = BF16_TOL if dtype == torch.bfloat16 else TOL
+    names = {n: hop.kernel_name(n, dtype) for n in TENSOR_CORE_KERNELS}
+    worst = {n: [0.0, 0.0] for n in names.values()}
+
+    def record(kernel, label, got, want, tol=tol):
+        got, want = got.float(), want.float()
+        err, rel = (got - want).abs().max().item(), _rel(got, want)
+        log(f"  {names[kernel]:29s} {label:52s} max_abs_err {err:.3e}, rel {rel:.3e} (tol {tol:.3e} relative)")
+        if not rel <= tol or bool(torch.isnan(got).any().item()):
+            fail(f"{names[kernel]} disagrees with its plain version on {label}")
+        worst[names[kernel]][0] = max(worst[names[kernel]][0], err)
+        worst[names[kernel]][1] = max(worst[names[kernel]][1], rel)
+
+    for label, c in sp_hop_cases(torch, dev, dtype).items():
+        q, g = c["q"], c["g"]
+        hops = ((c["k0"], c["v0"], c["valid0"], "diagonal"), (c["k1"], c["v1"], c["valid1"], "behind"))
+        acc = None
+        for k, v, valid, kind in hops:
+            o, lse = hop_forward(q, k, v, valid, kind)
+            want_o, want_lse = hop.flash_attention_lse_plain(q, k, v, causal=kind == "diagonal", kv_valid=valid)
+            record("flash_attention_fwd", f"{label} {kind} (out)", o, want_o)
+            live = want_lse > hop.NEG_INF / 2
+            record("flash_attention_fwd", f"{label} {kind} (lse)", lse[live], want_lse[live],
+                   tol=BF16_LSE_TOL if dtype == torch.bfloat16 else TOL)
+            acc = merge_hop(acc, o, lse)
+        out, lse = finish_merge(acc, dtype)
+        k_all = torch.cat([c["k1"], c["k0"]], dim=2)
+        v_all = torch.cat([c["v1"], c["v0"]], dim=2)
+        valid_all = torch.cat([c["valid1"], c["valid0"]], dim=1)
+        whole, whole_lse = hop.flash_attention_lse_plain(q, k_all, v_all, causal=True, kv_valid=valid_all)
+        record("flash_attention_fwd", f"{label} merged (out)", out, whole)
+        live = whole_lse > hop.NEG_INF / 2
+        if not torch.equal(lse > hop.NEG_INF / 2, live):
+            fail(f"the merged lse marks other rows as empty than the whole forward ({label})")
+        record("flash_attention_fwd", f"{label} merged (lse)", lse[live], whole_lse[live],
+               tol=BF16_LSE_TOL if dtype == torch.bfloat16 else TOL)
+        delta = (g.float() * out.float()).sum(-1)
+        dq_sum = torch.zeros(q.shape, dtype=torch.float32, device=dev)
+        for k, v, valid, kind in hops:
+            dq, dk, dv = hop_backward(q, k, v, g, lse, delta, valid, kind)
+            kw = dict(causal=kind == "diagonal", kv_valid=valid)
+            want_dq = hop.flash_attention_bwd_dq_plain(q, k, v, g, lse, delta, **kw)
+            want_dk, want_dv = hop.flash_attention_bwd_dkv_plain(q, k, v, g, lse, delta, **kw)
+            torch.cuda.synchronize()
+            record("flash_attention_bwd_dq", f"{label} {kind}, merged lse", dq, want_dq)
+            record("flash_attention_bwd_dkv", f"{label} {kind}, merged lse (dk)", dk, want_dk)
+            record("flash_attention_bwd_dkv", f"{label} {kind}, merged lse (dv)", dv, want_dv)
+            dq_sum += dq.float()
+        want_whole = hop.flash_attention_backward_plain(q, k_all, v_all, whole, whole_lse, g,
+                                                        causal=True, kv_valid=valid_all)
+        record("flash_attention_bwd_dq", f"{label} hops summed vs whole", dq_sum, want_whole[0])
+    return {n: dict(max_abs_err=a, max_rel_err=r) for n, (a, r) in worst.items()}
+
+
+def _sp_launches(method: str, n: int, r: int) -> int:
+    """Each training kernel's launches at one step's three sites on the
+    rank at seq index ``r`` (the forward's at one eval batch): the ring n
+    hops at the encoder and the cross-attention, ``r + 1`` at the causal
+    decoder (the chunks ahead skipped); Ulysses one inner attention a
+    site."""
+    return n + (r + 1) + n if method == "ring" else 3
+
+
+def _sp_fit(torch, axes: dict, method: str, batches, val_batches) -> tuple[dict, dict | None]:
+    """One ``fit(mesh=)`` + ``evaluate(mesh=)`` of the reference MT model
+    (Adam) in this rank under ``sequence_parallel(mesh, method=)``, each
+    data index on its rows of the global batches: step losses, launches,
+    peak, comms, the eval loss, whether the seq line holds the same bits
+    (``assert_replicas_in_sync``); and rank 0's parameters."""
+    import gc
+
+    from machine_learning_apache_spark_tpu_torch.ops import hopper_attention as hop
+    from machine_learning_apache_spark_tpu_torch.ops.attention import sequence_parallel
+    from machine_learning_apache_spark_tpu_torch.parallel import assert_replicas_in_sync, make_mesh
+    from machine_learning_apache_spark_tpu_torch.recipes.translation import make_translation_loss
+    from machine_learning_apache_spark_tpu_torch.train.loop import evaluate, fit
+    from machine_learning_apache_spark_tpu_torch.train.state import TrainState, make_optimizer
+
+    mesh = make_mesh(axes)
+    d, ways = mesh.index("data"), mesh.axis_size("data")
+    model, r = _pp_model(torch, mesh.device, 1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hop.reset_launches()
+    state = TrainState.create(model=model, tx=make_optimizer("adam", r.learning_rate))
+    with sequence_parallel(mesh, method=method):
+        res = fit(state, make_translation_loss(model.cfg.pad_id),
+                  [_data_rows(b, d, ways) for b in batches], epochs=1, mesh=mesh, log_every=0,
+                  rng=torch.Generator().manual_seed(r.seed))
+        metrics = evaluate(res.state, make_translation_loss(model.cfg.pad_id, train=False),
+                           [_data_rows(b, d, ways) for b in val_batches], mesh=mesh, emit=lambda s: None)
+    torch.cuda.synchronize()
+    try:
+        assert_replicas_in_sync(res.state, mesh=mesh)
+        in_sync = "ok"
+    except AssertionError as e:
+        in_sync = str(e)
+    out = dict(step_losses=res.step_losses, launches=dict(hop.LAUNCHES), seq=mesh.index("seq"),
+               peak=torch.cuda.max_memory_allocated(), comms=res.comms,
+               test_loss=metrics["test_loss"], steps=res.state.step, in_sync=in_sync)
+    params = ({k: v.detach().cpu() for k, v in model.state_dict().items()} if mesh.rank == 0 else None)
+    return out, params
+
+
+def _sp_step_times(torch, axes: dict, method: str, batches) -> dict:
+    """This rank's SP step, ``SP_WARMUP`` steps then ``SP_TIMED`` timed, each
+    synchronised at both ends; after every step the seq line's bits are
+    compared (``assert_replicas_in_sync``, outside the timed window); the
+    seq line's collectives' windows and bytes per step, and the peak."""
+    import gc
+
+    from machine_learning_apache_spark_tpu_torch.ops.attention import sequence_parallel
+    from machine_learning_apache_spark_tpu_torch.parallel import (
+        assert_replicas_in_sync,
+        make_data_parallel_step,
+        make_mesh,
+    )
+    from machine_learning_apache_spark_tpu_torch.parallel.sequence import sequence_line
+    from machine_learning_apache_spark_tpu_torch.recipes.translation import make_translation_loss
+    from machine_learning_apache_spark_tpu_torch.train.loop import to_device
+    from machine_learning_apache_spark_tpu_torch.train.state import TrainState, make_optimizer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = make_mesh(axes)
+    d, ways = mesh.index("data"), mesh.axis_size("data")
+    model, r = _pp_model(torch, mesh.device, 1)
+    state = TrainState.create(model=model, tx=make_optimizer("adam", r.learning_rate))
+    step = make_data_parallel_step(make_translation_loss(model.cfg.pad_id), mesh)
+    step.replica(model)
+    local = [to_device(_data_rows(b, d, ways), mesh.device) for b in batches]
+    line = sequence_line(mesh)
+    torch.cuda.reset_peak_memory_stats()
+    seconds, every_step_equal = 0.0, True
+    with sequence_parallel(mesh, method=method):
+        for i in range(SP_WARMUP + SP_TIMED):
+            if i == SP_WARMUP:
+                before = line.comms.stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(state, local[i % len(local)], None)
+            torch.cuda.synchronize()
+            if i >= SP_WARMUP:
+                seconds += time.perf_counter() - t0
+            try:
+                assert_replicas_in_sync(state, mesh=mesh)
+            except AssertionError:
+                every_step_equal = False
+    after = line.comms.stats()
+    out = dict(ms=1e3 * seconds / SP_TIMED, peak_mib=torch.cuda.max_memory_allocated() / 2**20,
+               every_step_same_bits=every_step_equal)
+    for kind in line.comms.KINDS:
+        out[f"{kind}_ms"] = 1e3 * (after[f"{kind}_window_seconds"] - before[f"{kind}_window_seconds"]) / SP_TIMED
+        out[f"{kind}_bytes"] = (after[f"{kind}_bytes"] - before[f"{kind}_bytes"]) / SP_TIMED
+    del state, step, model
+    return out
+
+
+def sp_long_batch(seq: int, batch: int) -> tuple:
+    """Token ids drawn from ``SEED`` for the long-context step: sources of
+    ``seq`` and targets of ``seq + 1`` positions over the published 8004
+    vocabulary, the second row padded from three quarters on."""
+    rng = np.random.default_rng(SEED + 7)
+    src = rng.integers(4, MT_PUBLISHED_VOCAB, (batch, seq))
+    trg = rng.integers(4, MT_PUBLISHED_VOCAB, (batch, seq + 1))
+    src[1, 3 * seq // 4:] = 0
+    trg[1, 3 * seq // 4:] = 0
+    return src, trg
+
+
+def _long_step(torch, model, batch, dev) -> dict:
+    """One train step's loss and gradients (a warm step first, then one
+    timed), the peak above the model."""
+    from machine_learning_apache_spark_tpu_torch.recipes.translation import make_translation_loss
+    from machine_learning_apache_spark_tpu_torch.train.loop import to_device
+
+    loss_fn = make_translation_loss(model.cfg.pad_id)
+    local = to_device(batch, dev)
+    for p in model.parameters():
+        p.grad = None
+    loss_fn(model, local, None)[0].backward()
+    for p in model.parameters():
+        p.grad = None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    loss = loss_fn(model, local, None)[0]
+    loss.backward()
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    return dict(loss=loss.item(), ms=ms, peak_mib=(torch.cuda.max_memory_allocated() - base) / 2**20,
+                grads={n: p.grad.detach().cpu() for n, p in model.named_parameters()})
+
+
+def _sp_long_rank(torch, batch) -> dict:
+    """Phase 7h (d) in this rank: one train step of the reference-width
+    model at ``SP_LONG["seq"]`` positions (remat) on ``{seq: 4}`` under
+    ring, with the launches it made."""
+    import gc
+
+    from machine_learning_apache_spark_tpu_torch.ops import hopper_attention as hop
+    from machine_learning_apache_spark_tpu_torch.ops.attention import sequence_parallel
+    from machine_learning_apache_spark_tpu_torch.parallel import make_mesh
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = make_mesh({"seq": SP_GANG})
+    model, _ = _pp_model(torch, mesh.device, 1, max_len=SP_LONG["seq"], vocab=MT_PUBLISHED_VOCAB,
+                         remat=True)
+    hop.reset_launches()
+    with sequence_parallel(mesh, method="ring"):
+        out = _long_step(torch, model, batch, mesh.device)
+    out["launches"] = dict(hop.LAUNCHES)
+    if mesh.rank != 0:
+        del out["grads"]
+    del model
+    return out
+
+
+def sp_gang_rank(root: str, batches, val_batches, long_batch) -> dict:
+    """One rank of phase 7h's 4-rank gang: the fits on each mesh (a-c), the
+    recipe with ``sequence_parallel=2`` under ring and Ulysses (BLEU,
+    checkpoints), the long-context step, then the step times. Every rank's
+    numbers, in rank order; rank 0's parameters and long-step gradients."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from machine_learning_apache_spark_tpu_torch.ops import hopper_attention as hop
+    from machine_learning_apache_spark_tpu_torch.recipes.translation import train_translator
+
+    rank = dist.get_rank()
+    runs, params = {}, {}
+    for label, (axes, method) in SP_MESHES.items():
+        runs[label], params[label] = _sp_fit(torch, axes, method, batches, val_batches)
+    recipe = {}
+    gang_run = os.environ.get("MLSPARK_GANG_RUN", "sp")
+    for method in ("ring", "ulysses"):
+        os.environ["MLSPARK_GANG_RUN"] = f"{gang_run}-{method}"
+        hop.reset_launches()
+        out = train_translator(checkpoint_dir=os.path.join(root, method), sequence_parallel_method=method,
+                               _return_state=True, **SP_RECIPE)
+        state = out["state"]
+        recipe[method] = dict(step_losses=out["fit_result"].step_losses, launches=dict(hop.LAUNCHES),
+                              mesh=dict(state.mesh.shape), test_loss=out["test_loss"], bleu=out["bleu"],
+                              comms=out["fit_result"].comms, seq=state.mesh.index("seq"),
+                              pointer=os.path.exists(os.path.join(root, method, f"ckpt_r{rank}", "latest")))
+        del out, state
+    long = _sp_long_rank(torch, long_batch)
+    times = {label: _sp_step_times(torch, axes, method, batches)
+             for label, (axes, method) in SP_MESHES.items()}
+    grads = long.pop("grads", None)
+    ranks = _gather(dict(rank=rank, runs=runs, recipe=recipe, long=long, times=times))
+    return dict(ranks=ranks, params=params if rank == 0 else None, long_grads=grads)
+
+
+def _grad_gate(torch, got: dict, want: dict) -> dict:
+    """Per gradient tensor the relative norm of the difference, the key
+    biases' slices apart: their true gradient is 0 (softmax is blind to a
+    shift shared by a row's scores), so both sides hold float noise there,
+    held to ``SP_RTOL`` x the largest gradient element instead."""
+    from machine_learning_apache_spark_tpu_torch.recipes.translation import TranslationRecipe
+
+    d_model = TranslationRecipe(**GANG_MT).d_model
+    scale = max(float(v.abs().max()) for v in want.values())
+    rel, noise = {}, 0.0
+    for k, w in want.items():
+        diff = (got[k].double() - w.double()).reshape(-1)
+        ref = w.double().reshape(-1)
+        kb = _key_bias(k, d_model)
+        if kb is not None:
+            noise = max(noise, float(diff[kb].abs().max()))
+            keep = torch.ones_like(diff, dtype=torch.bool)
+            keep[kb] = False
+            diff, ref = diff[keep], ref[keep]
+        rel[k] = float(diff.norm() / ref.norm().clamp_min(1e-30))
+    return dict(rel=rel, key_bias_abs=noise, key_bias_bound=SP_RTOL * scale)
+
+
+def _sp_long_reference(torch, dev, batch, impl: str) -> dict:
+    """The long-context step in one process under ``attention_impl(impl)``
+    (``"flash"``: the kernels; ``"dense"``: the plain path's [S, S]
+    scores)."""
+    import gc
+
+    from machine_learning_apache_spark_tpu_torch.ops.attention import attention_impl
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, _ = _pp_model(torch, dev, 1, max_len=SP_LONG["seq"], vocab=MT_PUBLISHED_VOCAB, remat=True)
+    with attention_impl(impl):
+        out = _long_step(torch, model, batch, dev)
+    del model
+    return out
+
+
+def sp_slice(torch, hop, card: str, dev) -> dict:
+    """Phase 7h: the kernels at the ring's hop shapes, the one-process
+    references, then one 4-rank gang over every SP mesh (``sp_gang_rank``)
+    and its gates."""
+    import shutil
+
+    from machine_learning_apache_spark_tpu_torch import Session
+    from machine_learning_apache_spark_tpu_torch.launcher import Distributor, kill_stray_gangs
+
+    t_phase = time.perf_counter()
+    errs = check_hop_kernels(torch, hop, dev)
+    bf16_errs = check_hop_kernels(torch, hop, dev, dtype=torch.bfloat16)
+    torch.cuda.empty_cache()
+    _, _, train_ds = fixture_data()
+    batches = [_sp_pad(b) for b in train_batches(train_ds, 12)]
+    val_loader, _ = eval_loader()
+    val_batches = [_sp_pad(b) for b in val_loader]
+    long_batch = sp_long_batch(**SP_LONG)
+    # One process (1 layer) on the same global batches, and a control: the
+    # same batches in two microbatches a step, the same sums in another
+    # order (the gates allow the gang 10 times its distance).
+    ref = _pp_reference(torch, 1, batches, val_batches)
+    ctrl = _pp_reference(torch, 1, batches, val_batches, timed=False, chunks=2)
+    del ref["model"], ctrl["model"]
+    long_ref = _sp_long_reference(torch, dev, long_batch, "flash")
+    long_dense = _sp_long_reference(torch, dev, long_batch, "dense")
+    log(f"  one process on the same {len(batches)} global batches of 32 (targets 201 wide): "
+        f"{ref['ms']:.3f} ms/step (host-timed over {SP_TIMED} after {SP_WARMUP}), peak "
+        f"{ref['peak'] / 2**20:.1f} MiB [{card}]")
+    root = scratch_dir() / "sp"
+    shutil.rmtree(root, ignore_errors=True)
+    spark = Session.builder.appName("SequenceParallelTranslation").config(
+        "spark.executor.instances", str(SP_GANG)).getOrCreate()
+    try:
+        t0 = time.perf_counter()
+        got = Distributor(num_processes=spark.conf.executor_instances, timeout=900).run(
+            "chip_smoke:sp_gang_rank", str(root), batches, val_batches, long_batch)
+        wall = time.perf_counter() - t0
+    finally:
+        spark.stop()
+    if kill_stray_gangs() != 0:
+        fail("the sequence-parallel gang left a stray process group")
+    ranks, params = got["ranks"], got["params"]
+    r0 = ranks[0]
+    log(f"  Session -> Distributor, {SP_GANG} ranks on one card over gloo: {wall:.2f} s spawn to "
+        f"result (meshes a-c, the recipe twice, the long step, the step times)")
+    steps = len(batches)
+    ctrl_loss = _max_rel(ctrl["step_losses"], ref["step_losses"])
+    loss_gate = max(SP_RTOL, GANG_NOISE_X * ctrl_loss)
+    ctrl_rel = _param_gate(torch, ctrl["params"], ref["params"], steps)["rel"]
+    limit = {k: max(SP_RTOL, GANG_NOISE_X * v) for k, v in ctrl_rel.items()}
+    for label, (axes, method) in SP_MESHES.items():
+        run = r0["runs"][label]
+        rel = _max_rel(run["step_losses"], ref["step_losses"])
+        gate = _param_gate(torch, params[label], ref["params"], steps)
+        over = {k: v for k, v in gate["rel"].items() if v > limit[k]}
+        worst = sorted(gate["rel"].items(), key=lambda kv: -kv[1] / limit[kv[0]])[:3]
+        synced = all(rk["runs"][label]["in_sync"] == "ok" for rk in ranks)
+        log(f"    {label}: step losses max relative difference to one process {rel:.3e}, gate "
+            f"max({SP_RTOL}, {GANG_NOISE_X} x the microbatched control's {ctrl_loss:.3e}); parameters per "
+            f"tensor largest relative difference {gate['max_rel']:.3e}, the three nearest their gate "
+            + ", ".join(f"{k} {v:.2e} (control {ctrl_rel[k]:.2e})" for k, v in worst)
+            + f"; key biases {gate['key_bias_abs']:.3e} (bound {gate['key_bias_bound']:.3e}); every "
+            f"seq line the same bits {synced}; eval loss {run['test_loss']:.6f} (one process "
+            f"{ref['test_loss']:.6f})")
+        if rel > loss_gate or over or gate["key_bias_abs"] > gate["key_bias_bound"] or not synced:
+            fail(f"{label}: the sequence-parallel gang did not train as one process does "
+                 f"({over}, {[rk['runs'][label]['in_sync'] for rk in ranks]})")
+    # Launches: each rank's kernels at the three sites, every step and
+    # eval batch (the ring's chunks ahead skipped, per seq index).
+    for rk in ranks:
+        for label, (axes, method) in SP_MESHES.items():
+            run = rk["runs"][label]
+            per = _sp_launches(method, axes["seq"], run["seq"])
+            want = (per * (steps + len(val_batches)), per * steps, per * steps)
+            got_l = tuple(run["launches"][n] for n in TENSOR_CORE_KERNELS)
+            if got_l != want:
+                fail(f"rank {rk['rank']} {label}: flash launches {got_l}, not {want}")
+    log("    every rank, every mesh: flash forward / dQ / dK/dV launches as the hop schedule says "
+        "(ring: n + (r + 1) + n a step on seq index r; Ulysses: 3): "
+        + "; ".join(f"rank {rk['rank']} " + ", ".join(
+            f"{label[:1]} {tuple(rk['runs'][label]['launches'][n] for n in TENSOR_CORE_KERNELS)}"
+            for label in SP_MESHES) for rk in ranks))
+    for method in ("ring", "ulysses"):
+        recs = [rk["recipe"][method] for rk in ranks]
+        rec = recs[0]
+        losses = rec["step_losses"]
+        log(f"    c train_translator(sequence_parallel=2, sequence_parallel_method={method!r}) on "
+            f"{rec['mesh']}: {len(losses)} steps, loss {losses[0]:.4f} -> {losses[-1]:.4f}, eval loss "
+            f"{rec['test_loss']:.6f}, BLEU {rec['bleu']:.6f}, checkpoints on every rank "
+            f"{all(x['pointer'] for x in recs)}; dQ launches per rank {[x['launches']['flash_attention_bwd_dq'] for x in recs]}")
+        if (rec["mesh"] != {"data": 2, "seq": 2} or not np.all(np.isfinite(losses))
+                or not losses[-1] < losses[0] or not np.isfinite(rec["bleu"])
+                or not all(x["pointer"] for x in recs)):
+            fail(f"the SP recipe ({method}) did not train, evaluate, decode and checkpoint")
+        for x in recs:
+            per = _sp_launches(method, 2, x["seq"]) * len(x["step_losses"])
+            if (x["launches"]["flash_attention_bwd_dq"], x["launches"]["flash_attention_bwd_dkv"]) != (per, per):
+                fail(f"the SP recipe ({method}): dQ/dK/dV launches {x['launches']}, not {per} each")
+    rel_r = _max_rel(ranks[0]["recipe"]["ulysses"]["step_losses"], ranks[0]["recipe"]["ring"]["step_losses"])
+    log(f"    the recipe under Ulysses against ring: step losses within {rel_r:.3e} (reading)")
+    # (d) the long-context step.
+    lg = r0["long"]
+    rel_l = abs(lg["loss"] - long_ref["loss"]) / abs(long_ref["loss"])
+    grads = _grad_gate(torch, got["long_grads"], long_ref["grads"])
+    # The control: one process through the dense path, the same step's
+    # sums in another order; each tensor's gate max(SP_RTOL, GANG_NOISE_X
+    # x the control's distance) (the decoder FFN's up projection, behind
+    # its ReLU, amplifies last-digit differences over 4,096 positions).
+    ctrl_g = _grad_gate(torch, long_dense.pop("grads"), long_ref["grads"])["rel"]
+    g_limit = {k: max(SP_RTOL, GANG_NOISE_X * v) for k, v in ctrl_g.items()}
+    g_over = {k: v for k, v in grads["rel"].items() if v > g_limit[k]}
+    g_rel = max(grads["rel"].values())
+    worst = sorted(grads["rel"].items(), key=lambda kv: -kv[1] / g_limit[kv[0]])[:3]
+    log(f"    d one train step at {SP_LONG['seq']} positions, batch {SP_LONG['batch']}, remat, vocab "
+        f"{MT_PUBLISHED_VOCAB}: {{seq: 4}} ring loss {lg['loss']:.6f} against one process (flash) "
+        f"{long_ref['loss']:.6f}, relative {rel_l:.3e}; gradients' largest relative norm difference "
+        f"{g_rel:.3e}, the three nearest their gate max({SP_RTOL}, {GANG_NOISE_X} x the dense "
+        f"control's) " + ", ".join(f"{k} {v:.2e} (control {ctrl_g[k]:.2e})" for k, v in worst)
+        + f"), the key biases' (true gradient 0) largest {grads['key_bias_abs']:.3e} (gate "
+        f"{SP_RTOL} x the largest gradient, {grads['key_bias_bound']:.3e}); step ms {lg['ms']:.1f} (rank 0) against {long_ref['ms']:.1f}; peak "
+        f"above the model per rank " + ", ".join(f"{rk['long']['peak_mib']:.1f}" for rk in ranks)
+        + f" MiB against one process {long_ref['peak_mib']:.1f} MiB (flash) and "
+        f"{long_dense['peak_mib']:.1f} MiB (dense, attention_impl('dense'), {long_dense['ms']:.1f} ms) [{card}]")
+    if rel_l > SP_RTOL or g_over or grads["key_bias_abs"] > grads["key_bias_bound"]:
+        fail(f"the long-context ring step differs from one process (loss {rel_l:.3e}, grads {g_over})")
+    for rk in ranks:
+        per = _sp_launches("ring", SP_GANG, rk["rank"])
+        # Two steps (a warm one, then the timed one); remat runs each
+        # layer's forward again in the backward.
+        want = (4 * per, 2 * per, 2 * per)
+        got_l = tuple(rk["long"]["launches"][n] for n in TENSOR_CORE_KERNELS)
+        if got_l != want:
+            fail(f"rank {rk['rank']} long step: flash launches {got_l}, not {want}")
+    for rk in ranks:
+        for label, t in rk["times"].items():
+            if not t["every_step_same_bits"]:
+                fail(f"rank {rk['rank']} {label}: a step left the seq line holding different bits")
+        log(f"    rank {rk['rank']} step times (host-timed, {SP_TIMED} after {SP_WARMUP}; the seq line's "
+            f"bits equal after every step): " + "; ".join(
+                f"{label} {t['ms']:.3f} ms/step against one process {ref['ms']:.3f} ms ("
+                + ", ".join(f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}"
+                            for k, v in t.items() if k != "ms") + ")"
+                for label, t in rk["times"].items()) + f"; fit peak per mesh "
+            + ", ".join(f"{rk['runs'][label]['peak'] / 2**20:.1f}" for label in SP_MESHES) + f" MiB [{card}]")
+    took = time.perf_counter() - t_phase
+    log(f"  phase 7h took {took:.1f} s")
+    return dict(wall=wall, ranks=ranks, errs=errs, bf16_errs=bf16_errs, seconds=took,
+                ref={f: ref[f] for f in ("ms", "peak", "test_loss")},
+                long_ref={f: long_ref[f] for f in ("loss", "ms", "peak_mib")},
+                long_dense={f: long_dense[f] for f in ("loss", "ms", "peak_mib")})
+
+
 # -- phase 7d: bf16 compute ------------------------------------------------------
 
 BF16 = "bfloat16"
@@ -5515,6 +6084,15 @@ def main() -> int:
             train_errs[name]["max_abs_err"] = max(train_errs[name]["max_abs_err"], e["max_abs_err"])
             train_errs[name]["max_rel_err"] = max(train_errs[name]["max_rel_err"], e["max_rel_err"])
 
+    log("== phase 7h: the sequence axis (one 4-rank gang: {seq: 4} ring and Ulysses, {data: 2, "
+        "seq: 2} ring, train_translator(sequence_parallel=2) under ring and Ulysses, one step at "
+        f"{SP_LONG['seq']} positions)")
+    sp = sp_slice(torch, hop, card, dev)
+    for name, e in [*sp["errs"].items(), *sp["bf16_errs"].items()]:
+        if name in train_errs:
+            train_errs[name]["max_abs_err"] = max(train_errs[name]["max_abs_err"], e["max_abs_err"])
+            train_errs[name]["max_rel_err"] = max(train_errs[name]["max_rel_err"], e["max_rel_err"])
+
     log("== phase 8: times")
     for label, run in runs.items():
         log(f"  {label:7s} engine ({run['kv_mode']}): {len(run['outs']) / run['wall']:.2f} requests/s, "
@@ -5575,6 +6153,7 @@ def main() -> int:
     timed_sites = make_sites()
     timed_sites |= one_sequence_sites(torch, timed_sites["encoder self"])
     timed_sites |= pp_sites(torch, dev, src0, trg0[:, :-1])
+    timed_sites |= sp_hop_sites(torch, dev)
     site_times = time_training_kernels(torch, hop, timed_sites)
     site_times |= time_training_kernels(torch, hop, make_sites(bf16))
     decode_times = time_decode_forward(torch, hop, decode_sites(torch, dev, bleu_valid))
@@ -5629,6 +6208,11 @@ def main() -> int:
         + [r["recipe"]["whole"]["launches"] for r in pp["ranks"]],
         f"gang: MT PP bf16, {PP_GANG} ranks on one card ({{data: 2, pipeline: 2}})": [
             r["runs"]["d bf16"]["launches"] for r in pp["ranks"]],
+        f"gang: MT SP, {SP_GANG} ranks on one card ({{seq: 4}} ring and Ulysses, {{data: 2, seq: 2}} "
+        "ring, train_translator(sequence_parallel=2) ring and Ulysses, the long-context step)": [
+            r["runs"][k]["launches"] for r in sp["ranks"] for k in SP_MESHES]
+        + [r["recipe"][m]["launches"] for r in sp["ranks"] for m in ("ring", "ulysses")]
+        + [r["long"]["launches"] for r in sp["ranks"]],
         "live plane: paged fp32 engine": [recovery["live"]["paged fp32"]["launches"]],
         "live plane: padded engine": [recovery["live"]["padded"]["launches"]],
         **bf["paths"],
@@ -5714,6 +6298,15 @@ def main() -> int:
         ranks=[dict(rank=r["rank"], times=r["times"],
                     runs={k: {f: v.get(f) for f in ("steps", "peak", "comms", "launches")}
                           for k, v in r["runs"].items()}) for r in pp["ranks"]]), default=str)
+        + f" [{card}]")
+    log("  sp: " + json.dumps(dict(
+        wall=sp["wall"], seconds=sp["seconds"], ref=sp["ref"], long_ref=sp["long_ref"],
+        long_dense=sp["long_dense"], errs=sp["errs"], bf16_errs=sp["bf16_errs"],
+        ranks=[dict(rank=r["rank"], times=r["times"], long=r["long"],
+                    runs={k: {f: v.get(f) for f in ("steps", "peak", "comms", "launches")}
+                          for k, v in r["runs"].items()},
+                    recipe={k: {f: v.get(f) for f in ("comms", "launches", "bleu")}
+                            for k, v in r["recipe"].items()}) for r in sp["ranks"]]), default=str)
         + f" [{card}]")
     log("  bf16: " + json.dumps(dict(
         parity=bf["parity"], train_step={"fp32": train_times, "bf16": train_times_bf16},

@@ -9,10 +9,13 @@ all-gather); tensor parallelism over the mesh's ``"model"`` axis
 ``data × model`` mesh with either; pipeline parallelism over the
 ``"pipeline"`` axis (``parallel.pipeline_parallel``: GPipe over
 point-to-point hops, one stage a rank; ``parallel.pipeline_transformer``
-for the encoder-decoder Transformer), alone or on ``data × pipeline``.
-The JAX package's ring and Ulysses parallelism and the experts' axis are
-ROADMAP A4; a mesh axis for them larger than 1 raises
-``NotImplementedError``.
+for the encoder-decoder Transformer), alone or on ``data × pipeline``;
+sequence parallelism over the ``"seq"`` axis (``parallel.sequence``:
+ring attention, ``parallel.ring_attention``, or Ulysses all-to-alls,
+``parallel.ulysses_attention``, under ``ops.attention.
+sequence_parallel``), alone or on ``data × seq``. The experts' axis is
+ROADMAP A4; a mesh axis for it larger than 1 raises
+``NotImplementedError``, as does a seq axis beside any axis but data.
 """
 
 from machine_learning_apache_spark_tpu_torch.parallel.data_parallel import (
@@ -40,6 +43,9 @@ from machine_learning_apache_spark_tpu_torch.parallel.mesh import (
     shard_batch,
 )
 from machine_learning_apache_spark_tpu_torch.parallel.pipeline_parallel import pipeline_apply
+from machine_learning_apache_spark_tpu_torch.parallel.ring_attention import ring_attention
+from machine_learning_apache_spark_tpu_torch.parallel.sequence import sequence_parallel_attention
+from machine_learning_apache_spark_tpu_torch.parallel.ulysses_attention import ulysses_attention
 from machine_learning_apache_spark_tpu_torch.parallel.pipeline_transformer import (
     pipeline_transformer_logits,
 )
@@ -105,8 +111,11 @@ __all__ = [
     "replicate",
     "replicated_sharding",
     "resolve_dp_mode",
+    "ring_attention",
+    "sequence_parallel_attention",
     "shard_batch",
     "shard_optimizer_state",
     "shard_params",
     "shard_state",
+    "ulysses_attention",
 ]

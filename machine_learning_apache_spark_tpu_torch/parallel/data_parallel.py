@@ -35,6 +35,14 @@ over the whole gang would count the rows M times and mix the shards. A
 mesh without a data axis has one replica and no data-parallel sums. The
 model's own collectives run inside its forward and backward.
 
+On a mesh with a ``"seq"`` axis (``parallel.sequence``) the ranks of
+one seq line see the same rows and hold the same whole model; under
+``sequence_parallel`` each attention site splits its sequence over them
+and gathers the output back, so their gradients are the same bits: DDP
+and the sums stay the data line's, and ``assert_replicas_in_sync`` also
+holds each seq line to the same bits. The line's collectives are closed
+once per step (``SeqLine.comms``).
+
 On a mesh with a ``"pipeline"`` axis (``parallel.pipeline_parallel``)
 the ranks of one pipeline line see the same rows and hold the whole
 model, but each computes the gradients of its own stage's layers only
@@ -72,6 +80,7 @@ from machine_learning_apache_spark_tpu_torch.parallel.mesh import (
     DATA_AXIS,
     MODEL_AXIS,
     PIPELINE_AXIS,
+    SEQ_AXIS,
     Mesh,
 )
 
@@ -212,7 +221,8 @@ def make_data_parallel_step(loss_fn: Callable, mesh: Mesh, *, axis: str = DATA_A
     the gradients are synced by ``pipeline_parallel.GradSync`` instead
     of DDP (``step.comms``), the first step's ``replica`` broadcasts
     rank 0's parameters and buffers over the whole mesh, and the line's
-    ``PPComms`` is closed once per step.
+    ``PPComms`` is closed once per step; on a mesh with a seq axis the
+    seq line's ``SPComms`` is.
 
     Accumulation (``accumulate_steps=K``) reduces once per update: the
     first K - 1 microbatches back-propagate under ``no_sync`` into the
@@ -232,6 +242,11 @@ def make_data_parallel_step(loss_fn: Callable, mesh: Mesh, *, axis: str = DATA_A
         line = _pp.pipeline_line(mesh)
     else:
         comms = GradientComms(dp_world)
+    sp_line = None
+    if mesh.axis_size(SEQ_AXIS) > 1:
+        from machine_learning_apache_spark_tpu_torch.parallel.sequence import sequence_line
+
+        sp_line = sequence_line(mesh)
     counter = telemetry.get_registry().counter("comms", "bytes_allreduced")
     held: dict = {}
 
@@ -292,8 +307,9 @@ def make_data_parallel_step(loss_fn: Callable, mesh: Mesh, *, axis: str = DATA_A
         tp_axis = getattr(state.model, "tp_axis", None)
         if tp_axis is not None:
             tp_axis.comms.end_step()
-        if line is not None:
-            line.comms.end_step()
+        for open_line in (line, sp_line):
+            if open_line is not None:
+                open_line.comms.end_step()
         return state, g_loss, g_aux
 
     step.comms = comms
@@ -375,6 +391,21 @@ def params_fingerprint(params) -> float:
     return total
 
 
+@torch.no_grad()
+def bits_checksum(params) -> int:
+    """An exact checksum of the parameters' bits: each leaf's elements as
+    integers of their width, summed, weighted by the leaf's place (the
+    fingerprint's leaf order), modulo a 61-bit prime. Equal bits give
+    equal checksums on any device."""
+    ints = {8: torch.int64, 4: torch.int32, 2: torch.int16, 1: torch.uint8}
+    total = 0
+    for i, p in enumerate(_leaves(params)):
+        t = p.detach().contiguous()
+        s = t.view(ints[t.element_size()]).to(torch.int64).sum()
+        total = (total + (i + 1) * int(s)) % (2**61 - 1)
+    return total
+
+
 def assert_replicas_in_sync(params, *, atol: float = 1e-6, mesh: Mesh | None = None) -> float:
     """Race-detector analogue (SURVEY.md §5): gather every rank's
     parameter fingerprint and assert they agree within ``atol`` relative —
@@ -383,7 +414,9 @@ def assert_replicas_in_sync(params, *, atol: float = 1e-6, mesh: Mesh | None = N
     the largest divergence from rank 0's. On a mesh with a model axis the
     replicas are the ranks of one data line (each model rank holds its
     own shards), compared line by line; on a pipeline mesh every rank
-    holds the whole model, so the whole mesh is compared. A state is
+    holds the whole model, so the whole mesh is compared. On a mesh with
+    a seq axis each seq line must hold the same bits besides (a checksum
+    of the parameters' bits, equal on every rank of the line). A state is
     checked by its parameters (a ZeRO-1 state's are replicated); an
     optimizer state sharded over the ranks
     (``parallel.zero.ShardedOptState``) raises ``ValueError``: its ranks
@@ -406,6 +439,16 @@ def assert_replicas_in_sync(params, *, atol: float = 1e-6, mesh: Mesh | None = N
         if process_count() == 1:
             return 0.0
         mesh = data_parallel_mesh()
+    if mesh.axis_size(SEQ_AXIS) > 1 and process_count() > 1:
+        n = mesh.axis_size(SEQ_AXIS)
+        sums = torch.zeros(n, dtype=torch.int64)
+        sums[mesh.index(SEQ_AXIS)] = bits_checksum(params)
+        mesh.all_reduce_(sums, axis=SEQ_AXIS)
+        if bool((sums != sums[0]).any()):
+            raise AssertionError(
+                f"the {n} ranks of a seq line hold different parameter bits "
+                f"(checksums {sums.tolist()})"
+            )
     axis = DATA_AXIS if mesh.axis_size(MODEL_AXIS) > 1 else None
     world = mesh.axis_size(DATA_AXIS) if axis else mesh.size
     if world == 1:

@@ -11,14 +11,20 @@ with one device each (``launcher.coordinator``), joined by a
   rank holds its slice of every annotated weight;
 - ``"pipeline"`` — pipeline parallelism (``parallel.pipeline_parallel``):
   each rank runs one stage of a layer stack on every microbatch;
-- ``"seq"``, ``"expert"`` — the JAX package's other axes. Only size 1 is
-  ported: a larger one raises ``NotImplementedError`` naming its ROADMAP
-  item.
+- ``"seq"``      — sequence parallelism (``parallel.sequence``): the ranks
+  of a seq line hold the same activations and split each attention site's
+  sequence between them (ring or Ulysses attention) under
+  ``ops.attention.sequence_parallel``. It composes with ``"data"`` only:
+  beside ``"model"``, ``"pipeline"`` or ``"expert"`` it raises
+  ``NotImplementedError`` naming its ROADMAP item;
+- ``"expert"``   — the JAX package's MoE axis. Only size 1 is ported: a
+  larger one raises ``NotImplementedError`` naming its ROADMAP item.
 
 Ranks lie on the mesh as the JAX mesh lays devices: the axes in
 canonical order, ``data`` outermost and ``model`` innermost, so on a
-``data × model`` mesh rank = ``data_index · M + model_index`` and on a
-``data × pipeline`` one rank = ``data_index · S + stage``. A mesh of
+``data × model`` mesh rank = ``data_index · M + model_index``, on a
+``data × pipeline`` one rank = ``data_index · S + stage`` and on a
+``data × seq`` one rank = ``data_index · N + seq_index``. A mesh of
 several processes builds one process group per line of each axis (the
 ranks that share every other coordinate) when it is made: every rank
 calls ``dist.new_group`` for every group, in one fixed order, as
@@ -59,12 +65,15 @@ _CANONICAL_ORDER = (DATA_AXIS, PIPELINE_AXIS, EXPERT_AXIS, SEQ_AXIS, MODEL_AXIS)
 
 #: The ROADMAP items that port each axis still unported.
 _AXIS_ITEMS = {
-    SEQ_AXIS: "A4: ring_attention.py and ulysses_attention.py",
     EXPERT_AXIS: "A4: the MoE experts' mesh axis",
 }
 
 #: The axes a mesh may hold larger than 1.
-_PORTED_AXES = (DATA_AXIS, PIPELINE_AXIS, MODEL_AXIS)
+_PORTED_AXES = (DATA_AXIS, PIPELINE_AXIS, SEQ_AXIS, MODEL_AXIS)
+
+#: The ROADMAP item that composes the seq axis with the axes other than
+#: ``"data"``.
+SEQ_COMPOSE_ITEM = "A4: seq × model"
 
 #: Process groups per (world, mesh shape): built once, shared by every
 #: mesh of that shape.
@@ -253,6 +262,12 @@ class Mesh:
     def axis_size(self, axis: str) -> int:
         return self.shape.get(axis, 1)
 
+    def ring_neighbours(self, axis: str) -> tuple[int, int]:
+        """``(prev, next)``: the global ranks before and after this one on
+        its line of ``axis``, the line closed into a ring."""
+        ranks, i = self.axis_ranks(axis), self.index(axis)
+        return ranks[(i - 1) % len(ranks)], ranks[(i + 1) % len(ranks)]
+
     def axis_ranks(self, axis: str) -> list[int]:
         """The global ranks of this rank's line of ``axis``."""
         if axis not in self.shape:
@@ -326,8 +341,10 @@ def make_mesh(
     Size ``0`` or ``-1`` on at most one axis means "all remaining
     processes"; no axes means a pure data-parallel mesh over all of them.
     The shape errors are the JAX package's ``ValueError``s. An axis other
-    than ``"data"``, ``"pipeline"`` or ``"model"`` larger than 1 raises
-    ``NotImplementedError`` naming the ROADMAP item that ports it."""
+    than ``"data"``, ``"pipeline"``, ``"seq"`` or ``"model"`` larger than 1
+    raises ``NotImplementedError`` naming the ROADMAP item that ports it,
+    as does a ``"seq"`` axis beside a ``"model"``, ``"pipeline"`` or
+    ``"expert"`` one."""
     n = process_count() if world is None else world
     axes = dict(axes or {DATA_AXIS: n})
 
@@ -342,6 +359,15 @@ def make_mesh(
     if math.prod(axes.values()) != n:
         raise ValueError(f"mesh {axes} does not cover {n} devices")
 
+    if axes.get(SEQ_AXIS, 1) > 1:
+        beside = {a: axes[a] for a in (MODEL_AXIS, PIPELINE_AXIS, EXPERT_AXIS)
+                  if axes.get(a, 1) > 1}
+        if beside:
+            raise NotImplementedError(
+                f"a {SEQ_AXIS!r} axis of size {axes[SEQ_AXIS]} beside {beside} is not "
+                f"ported yet: sequence parallelism composes with {DATA_AXIS!r} only "
+                f"(ROADMAP queue {SEQ_COMPOSE_ITEM})"
+            )
     for name, size in axes.items():
         if name not in _PORTED_AXES and size > 1:
             item = _AXIS_ITEMS.get(name, "A4 (distributed)")

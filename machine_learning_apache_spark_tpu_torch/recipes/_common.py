@@ -89,9 +89,10 @@ def resolve_mesh(
     one device. ``model_parallel=M`` carves the inner ``"model"`` axis
     (tensor parallelism, ``{data: world/M, model: M}``) and
     ``pipeline_parallel=S`` the ``"pipeline"`` axis (``{data: world/S,
-    pipeline: S}``); a sequence/expert axis larger than 1 goes to
-    ``make_mesh``, which raises ``NotImplementedError`` naming its
-    ROADMAP A4 item."""
+    pipeline: S}``) and ``sequence_parallel=N`` the ``"seq"`` axis
+    (``{data: world/N, seq: N}``); an expert axis larger than 1, or a seq
+    axis beside a model or pipeline one, goes to ``make_mesh``, which
+    raises ``NotImplementedError`` naming its ROADMAP A4 item."""
     extra = {
         "model_parallel": model_parallel,
         "sequence_parallel": sequence_parallel,
@@ -139,9 +140,9 @@ def resolve_mesh(
 
 def data_replicas(mesh=None) -> tuple[int, int]:
     """``(num_replicas, rank)`` for the samplers: the data axis's size and
-    this process's index on it (the ranks of one model line, or of one
-    pipeline line, read the same rows); without a mesh, the gang's
-    processes."""
+    this process's index on it (the ranks of one model line, of one
+    pipeline line or of one seq line read the same rows); without a mesh,
+    the gang's processes."""
     if mesh is None:
         return process_count(), process_index()
     return mesh.shape.get(DATA_AXIS, 1), mesh.index(DATA_AXIS)

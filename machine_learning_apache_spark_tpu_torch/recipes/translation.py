@@ -52,13 +52,24 @@ microbatches (default S), ``num_layers / S`` layers a stage; eval, the
 BLEU decode and the returned ``Translator`` run the sequential model,
 whose whole parameters every rank holds. The JAX recipe's
 ``ValueError``s refuse it with tensor, sequence or expert parallelism,
-MoE, length buckets, packing and a layer count S does not divide. The
-other mesh fields raise ``NotImplementedError`` when set away from their
-defaults (ROADMAP queue A4).
+MoE, length buckets, packing and a layer count S does not divide.
+``sequence_parallel=N`` trains on a ``{data: world/N, seq: N}`` mesh with
+``fit`` and ``evaluate`` inside ``ops.attention.sequence_parallel(mesh,
+method=sequence_parallel_method)``: targets are padded to ``max_len + 1``
+so the decoder's input, like the source, has ``max_len`` positions and
+every attention site (cross-attention too) splits over the seq line,
+through ring attention (``"ring"``) or Ulysses all-to-alls
+(``"ulysses"``, which needs ``num_heads % N == 0``: the JAX
+``ValueError``); the BLEU decode and the returned ``Translator`` run the
+whole model outside the context. ``sequence_parallel`` beside
+``model_parallel`` raises ``NotImplementedError`` (ROADMAP queue A4: seq
+× model). ``expert_parallel`` raises ``NotImplementedError`` when set
+away from its default (ROADMAP queue A4).
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass, fields
 
 import torch
@@ -84,6 +95,7 @@ from machine_learning_apache_spark_tpu_torch.models.transformer import (
     TransformerConfig,
     greedy_translate_cached,
 )
+from machine_learning_apache_spark_tpu_torch.ops.attention import sequence_parallel
 from machine_learning_apache_spark_tpu_torch.ops.masks import (
     combine_masks,
     make_causal_mask,
@@ -185,9 +197,7 @@ class TranslationRecipe:
 #: Recipe fields of the JAX package that this port does not run yet, with
 #: the ROADMAP item that will. Each raises when set away from its default.
 UNPORTED = {
-    "sequence_parallel": "A4 (distributed)",
-    "sequence_parallel_method": "A4 (distributed)",
-    "expert_parallel": "A4 (distributed)",
+    "expert_parallel": "A4: the MoE experts' mesh axis",
 }
 
 
@@ -254,6 +264,13 @@ def _validate(r: TranslationRecipe) -> None:
                 f"num_layers={r.num_layers} must divide into "
                 f"{r.pipeline_parallel} pipeline stages"
             )
+    if (r.sequence_parallel > 1 and r.sequence_parallel_method == "ulysses"
+            and r.num_heads % r.sequence_parallel):
+        raise ValueError(
+            f"sequence_parallel_method='ulysses' needs num_heads "
+            f"({r.num_heads}) divisible by sequence_parallel "
+            f"({r.sequence_parallel}); use 'ring'"
+        )
     if r.model_parallel > 1 and r.moe_experts:
         raise NotImplementedError(
             f"model_parallel={r.model_parallel} with moe_experts={r.moe_experts} is "
@@ -418,7 +435,13 @@ def train_translator(
         val_pairs = synthetic_translation_pairs(
             max(r.synthetic_n // 8, 64), seed=r.seed + 1
         )
-    src_pipe, trg_pipe = translation_pipelines(pairs, max_len=r.max_len)
+    # Under SP the targets are one longer, so the teacher-forced decoder
+    # input (trg[:, :-1]) has max_len positions and rides the seq line as
+    # the encoder does (max_len - 1 would share no divisor with the axis).
+    src_pipe, trg_pipe = translation_pipelines(
+        pairs, max_len=r.max_len,
+        trg_max_len=r.max_len + 1 if r.sequence_parallel > 1 else None,
+    )
 
     def to_ids(ps):
         return src_pipe([s for s, _ in ps]), trg_pipe([t for _, t in ps])
@@ -457,7 +480,8 @@ def train_translator(
     # Under bucketing the fixed-width train loader is never used: eval
     # keeps the fixed width (full coverage).
     mesh = resolve_mesh(r.use_mesh, model_parallel=r.model_parallel,
-                        pipeline_parallel=r.pipeline_parallel)
+                        pipeline_parallel=r.pipeline_parallel,
+                        sequence_parallel=r.sequence_parallel)
     train_loader, val_loader = make_loaders(
         None if r.bucket_by_length else train_ds, val_ds,
         batch_size=r.batch_size, mesh=mesh, seed=r.seed,
@@ -540,26 +564,35 @@ def train_translator(
             train_loss = make_packed_translation_loss(cfg.pad_id)
         else:
             train_loss = make_translation_loss(cfg.pad_id)
-        result = fit(
-            state,
-            train_loss,
-            train_loader,
-            epochs=epochs,
-            rng=torch.Generator().manual_seed(r.seed),
-            log_every=r.log_every,
-            checkpointer=ckpt,
-            checkpoint_every=r.checkpoint_every,
-            metrics_file=r.metrics_path,
-            steps_per_call=r.steps_per_call,
-            prefetch_to_device=r.prefetch_to_device,
-            resume=resumed is not None,
-            mesh=mesh,
-            zero1=r.zero1,
+        # Under SP the attention dispatch context wraps the training and
+        # the evaluation, whose sites every rank of a seq line runs alike;
+        # the BLEU decode below runs outside it.
+        sp_ctx = (
+            sequence_parallel(mesh, method=r.sequence_parallel_method)
+            if mesh is not None and r.sequence_parallel > 1
+            else contextlib.nullcontext()
         )
-        metrics = evaluate(
-            result.state, make_translation_loss(cfg.pad_id, train=False), val_loader,
-            mesh=mesh,
-        )
+        with sp_ctx:
+            result = fit(
+                state,
+                train_loss,
+                train_loader,
+                epochs=epochs,
+                rng=torch.Generator().manual_seed(r.seed),
+                log_every=r.log_every,
+                checkpointer=ckpt,
+                checkpoint_every=r.checkpoint_every,
+                metrics_file=r.metrics_path,
+                steps_per_call=r.steps_per_call,
+                prefetch_to_device=r.prefetch_to_device,
+                resume=resumed is not None,
+                mesh=mesh,
+                zero1=r.zero1,
+            )
+            metrics = evaluate(
+                result.state, make_translation_loss(cfg.pad_id, train=False), val_loader,
+                mesh=mesh,
+            )
     extra: dict = {}
     if resumed is not None:
         extra["resumed_from_step"] = resumed

@@ -203,7 +203,9 @@ def comms_report(events: list[dict], table: dict | None = None) -> dict:
     counter events (wire bytes the zero1 step moved, with bytes/step where
     the emitter recorded a step count in ``attrs``), the pipeline line's
     hops per kind (``pipeline``, when a pipelined fit ran: bytes and
-    window ms per step) plus the duration
+    window ms per step), the seq line's ring rotations, all-to-alls and
+    gathers per kind (``sequence``, when a fit ran under
+    ``sequence_parallel``: the same figures) plus the duration
     stats of any ``comms.*`` span phases (the collective p50/p99 the
     comms-bench emits). Empty dicts when the run had no comms activity —
     the renderer then omits the section's tables.
@@ -295,23 +297,26 @@ def comms_report(events: list[dict], table: dict | None = None) -> dict:
         "comms_fraction": comms_fraction,
         "verdict": verdict,
     }
-    pipeline = _pipeline_hops(counters)
-    if pipeline:
-        out["pipeline"] = pipeline
+    for section, prefix in (("pipeline", "pp_"), ("sequence", "sp_")):
+        hops = _line_hops(counters, prefix)
+        if hops:
+            out[section] = hops
     return out
 
 
-def _pipeline_hops(counters: dict) -> dict:
-    """The pipeline line's hops per kind (``pp_send``, ``pp_recv``,
-    ``pp_bcast``, ``pp_allreduce``; the ``comms.<kind>_bytes`` and
-    ``comms.<kind>_window_seconds`` counters a pipelined ``fit`` emits),
-    per rank: bytes and window ms per step. Empty without them."""
+def _line_hops(counters: dict, prefix: str) -> dict:
+    """A mesh line's collectives per kind — the pipeline's (``pp_send``,
+    ``pp_recv``, ``pp_bcast``, ``pp_allreduce``) or the seq line's
+    (``sp_ring``, ``sp_a2a``, ``sp_gather``), the kinds named with
+    ``prefix``; the ``comms.<kind>_bytes`` and
+    ``comms.<kind>_window_seconds`` counters a ``fit`` emits — per rank:
+    bytes and window ms per step. Empty without them."""
     out: dict = {}
     for name, per_rank in counters.items():
         for suffix, key, scale in (("_bytes", "bytes_per_step", 1.0),
                                    ("_window_seconds", "window_ms_per_step", 1e3)):
             kind = name[len("comms."):-len(suffix)]
-            if not (name.endswith(suffix) and kind.startswith("pp_")):
+            if not (name.endswith(suffix) and kind.startswith(prefix)):
                 continue
             for rank, entry in per_rank.items():
                 per_step = entry["total"] / entry["steps"] if entry["steps"] else None
@@ -737,11 +742,13 @@ def render_markdown(report: dict) -> str:
                         f"| {entry['steps'] or '-'} "
                         f"| {per_step if per_step is not None else '-'} |"
                     )
-        if comms.get("pipeline"):
+        for section, title in (("pipeline", "pipeline hop"), ("sequence", "seq line")):
+            if not comms.get(section):
+                continue
             lines.append("")
-            lines.append("| pipeline hop | rank | bytes/step | window ms/step |")
+            lines.append(f"| {title} | rank | bytes/step | window ms/step |")
             lines.append("|---|---|---|---|")
-            for kind, per_rank in comms["pipeline"].items():
+            for kind, per_rank in comms[section].items():
                 for rank, entry in per_rank.items():
                     lines.append(
                         f"| {kind} | {rank} | {entry.get('bytes_per_step', '-')} "

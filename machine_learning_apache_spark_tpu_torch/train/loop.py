@@ -48,7 +48,12 @@ rank), as they hold the same replicated activations. A mesh with a
 (``recipes.translation.make_pipeline_translation_loss``) with each
 stage's gradients synced from the stage that computed them
 (``parallel.pipeline_parallel.GradSync``) and dropout seeded by the data
-index and the stage. In a
+index and the stage. A mesh with a ``"seq"`` axis trains as a data mesh
+whose seq lines hold the same replicas: under
+``ops.attention.sequence_parallel(mesh)`` each attention site splits its
+sequence over the line (ring or Ulysses attention) and gathers it back,
+and the ranks of a line draw the same dropout bits (seeded by the data
+index, as the JAX loop's masks are the same over ``"seq"``). In a
 gang, ``steps_per_call=K`` runs K eager data-parallel steps per call: a
 gloo collective runs on the host and cannot sit inside a CUDA graph.
 Each step passes the ``train_step`` fault-injection site
@@ -465,6 +470,16 @@ def fit(
     ``pp_bcast``, ``pp_allreduce``). ``dp_mode="zero1"`` there raises the
     JAX ``ValueError``; ``zero1=True`` is not ported there.
 
+    A mesh with a ``"seq"`` axis larger than 1 keeps the whole state and
+    the whole activations on every rank of a seq line; run ``fit`` (and
+    ``evaluate``) inside ``ops.attention.sequence_parallel(mesh,
+    method=...)`` and each attention site splits its sequence over the
+    line. The line's ranks see the same rows (the samplers key on the data
+    index), draw the same dropout bits (seeded by the data index) and
+    compute the same gradients; DDP and the sums are the data line's.
+    ``FitResult.comms`` adds the line's collectives (``SPComms.stats()``:
+    ``sp_ring``, ``sp_a2a``, ``sp_gather``).
+
     ``prefetch_to_device`` is accepted and has nothing to do: the loader
     already assembles ahead on a thread and the copy to the device is
     pinned and non-blocking. The state is updated in place and returned
@@ -517,6 +532,12 @@ def fit(
         pp_line = pipeline_line(mesh)
         # This fit's hop totals, as step_fn.comms holds its own.
         pp_line.restart_comms()
+    sp_line = None
+    if mesh is not None and mesh.axis_size("seq") > 1 and world > 1:
+        from machine_learning_apache_spark_tpu_torch.parallel.sequence import sequence_line
+
+        sp_line = sequence_line(mesh)
+        sp_line.restart_comms()
     emit = emit or log.info
     rng = rng if rng is not None else torch.Generator().manual_seed(0)
     device = _device_of(state)
@@ -589,9 +610,10 @@ def fit(
         if world > 1:
             # Each replica its own dropout masks (DDP's replicas draw
             # their own): the fit's seed mixed with the data index (the
-            # rank on a pure data mesh). The ranks of one model line share
-            # it: they drop the same elements of their replicated
-            # activations. Each pipeline stage draws for its own layers.
+            # rank on a pure data mesh). The ranks of one model line, and
+            # of one seq line, share it: they drop the same elements of
+            # their replicated activations. Each pipeline stage draws for
+            # its own layers.
             # Data index 0, stage 0 keeps the one-process seed.
             seed = (seed + mesh.index("data") * 0x9E3779B97F4A7C15
                     + mesh.index("pipeline") * 0xC2B2AE3D27D4EB4F) % _SEED_RANGE
@@ -656,8 +678,9 @@ def fit(
                 # that died mid-epoch.
                 if hasattr(step_fn, "flush_comms"):
                     step_fn.flush_comms()
-                if pp_line is not None:
-                    pp_line.comms.emit_counters()
+                for line in (pp_line, sp_line):
+                    if line is not None:
+                        line.comms.emit_counters()
         if not history and resume_meta.get("metrics"):
             # An already-complete resume: report the last epoch's metrics
             # from its sidecar.
@@ -683,8 +706,9 @@ def fit(
     tp_axis = getattr(state.model, "tp_axis", None)
     if tp_axis is not None:
         comms |= tp_axis.comms.stats()
-    if pp_line is not None:
-        comms |= pp_line.comms.stats()
+    for line in (pp_line, sp_line):
+        if line is not None:
+            comms |= line.comms.stats()
     return FitResult(
         state=state, train_seconds=seconds, history=history,
         resumed_step=resumed_step, step_losses=step_losses,

@@ -81,6 +81,7 @@ from machine_learning_apache_spark_tpu_torch.weights import (
     load_flax_params,
     random_flax_like,
 )
+from torch_host import one_thread  # noqa: F401 - autouse: one CPU thread a test process
 
 BF16 = torch.bfloat16
 ULP = 2.0 ** -7  # one bf16 ulp of the largest value, relative

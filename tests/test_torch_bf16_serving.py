@@ -33,6 +33,7 @@ from machine_learning_apache_spark_tpu_torch.data.text import TextPipeline, Voca
 from machine_learning_apache_spark_tpu_torch.inference import Translator
 from machine_learning_apache_spark_tpu_torch.models import Transformer, TransformerConfig
 from machine_learning_apache_spark_tpu_torch.weights import load_flax_params
+from torch_host import one_thread  # noqa: F401 - autouse: one CPU thread a test process
 
 pytestmark = pytest.mark.serving
 

@@ -34,6 +34,7 @@ from machine_learning_apache_spark_tpu_torch.train.checkpoint import (
     save_params,
 )
 from test_torch_train import TINY, _tokens
+from torch_host import one_thread  # noqa: F401 - autouse: one CPU thread a test process
 
 FIXTURES = "assets/fixtures"
 RECIPE = dict(device="cpu", data_root=FIXTURES, d_model=32, ffn_hidden=64, num_heads=2,

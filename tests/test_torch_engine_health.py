@@ -34,6 +34,7 @@ from machine_learning_apache_spark_tpu_torch.serving import InternalError
 from machine_learning_apache_spark_tpu_torch.telemetry import recorder
 from machine_learning_apache_spark_tpu_torch.utils import faults
 from machine_learning_apache_spark_tpu_torch.weights import load_flax_params
+from torch_host import one_thread  # noqa: F401 - autouse: one CPU thread a test process
 
 ENGINE = dict(boundaries=(8, 16), max_batch=4, max_wait_s=0.01, max_new_tokens=8)
 GAUGES = ("queue_depth_live", "kv_page_occupancy", "kv_mem_bytes_in_use", "active_rows")

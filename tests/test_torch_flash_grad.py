@@ -21,6 +21,7 @@ import torch
 
 from machine_learning_apache_spark_tpu.ops import pallas_attention as jpallas
 from machine_learning_apache_spark_tpu_torch.ops import hopper_attention as hop
+from torch_host import one_thread  # noqa: F401 - autouse: one CPU thread a test process
 
 REL = 1e-4
 

@@ -46,6 +46,7 @@ from machine_learning_apache_spark_tpu_torch.train import checkpoint as ckpt
 from machine_learning_apache_spark_tpu_torch.train.loop import classification_loss, fit
 from machine_learning_apache_spark_tpu_torch.train.state import TrainState, make_optimizer
 from machine_learning_apache_spark_tpu_torch.utils import faults
+from torch_host import one_thread  # noqa: F401 - autouse: one CPU thread a test process
 
 SAMPLE = "assets/sample_multiclass_classification_data.txt"
 STAMP_1 = {"world_size": 1, "dp_mode": "replicated", "mesh": None, "layout": None}

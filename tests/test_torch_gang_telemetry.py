@@ -33,6 +33,7 @@ from machine_learning_apache_spark_tpu_torch.telemetry import aggregate, tracect
 from machine_learning_apache_spark_tpu_torch.train import loop as tloop
 from machine_learning_apache_spark_tpu_torch.train import state as tstate
 from machine_learning_apache_spark_tpu_torch.utils import faults
+from torch_host import one_thread  # noqa: F401 - autouse: one CPU thread a test process
 
 
 @pytest.fixture

@@ -1535,3 +1535,126 @@ def test_pipeline_gang_on_the_card_launches_its_stage_share(card_pp_gang):
     for launches in gang["launches"]:
         assert launches["flash_attention_fwd"] == 36
         assert launches["flash_attention_bwd_dq"] == launches["flash_attention_bwd_dkv"] == 36
+
+
+# -- sequence parallelism on the card (gloo: the ranks share it) -----------------
+
+SP_HOP_SHAPES = [(32, 8, 50, 64), (32, 8, 100, 64), (2, 8, 512, 64)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", SP_HOP_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_ring_hops_match_plain_with_the_merged_lse(cuda, shape, dtype):
+    """A ring's two kinds of computed hop at its chunk shape — the diagonal
+    (causal) and one behind (unmasked; batch row 0 sees no key there) —
+    through the flash forward with ``lse`` against the plain version; the
+    hops merged by ``lse`` against the forward over both chunks at once;
+    each hop's dQ and dK/dV with the MERGED ``lse`` and ``delta`` against
+    their plain versions (1e-4 relative; bf16: 2^-6 of the largest)."""
+    from machine_learning_apache_spark_tpu_torch.parallel.ring_attention import (
+        finish_merge,
+        hop_backward,
+        hop_forward,
+        merge_hop,
+    )
+
+    tol = TOL if dtype == torch.float32 else 2.0 ** -6
+    b, h, c, d = shape
+    rng = np.random.default_rng(60 + c)
+    q, k0, v0, k1, v1, g = (_randn(rng, b, h, c, d).to(cuda).to(dtype) for _ in range(6))
+    valid0 = torch.from_numpy(rng.random((b, c)) < 0.8).to(cuda)
+    behind = rng.random((b, c)) < 0.8
+    behind[0] = False
+    valid1 = torch.from_numpy(behind).to(cuda)
+    hops = ((k0, v0, valid0, "diagonal"), (k1, v1, valid1, "behind"))
+    hop.reset_launches()
+    acc = None
+    for k, v, valid, kind in hops:
+        o, lse = hop_forward(q, k, v, valid, kind)
+        want_o, _ = hop.flash_attention_lse_plain(q, k, v, causal=kind == "diagonal", kv_valid=valid)
+        assert _max_rel(o.float(), want_o.float()) < tol
+        acc = merge_hop(acc, o, lse)
+    out, lse = finish_merge(acc, dtype)
+    k_all, v_all = torch.cat([k1, k0], dim=2), torch.cat([v1, v0], dim=2)
+    valid_all = torch.cat([valid1, valid0], dim=1)
+    whole, whole_lse = hop.flash_attention_lse_plain(q, k_all, v_all, causal=True, kv_valid=valid_all)
+    assert _max_rel(out.float(), whole.float()) < tol
+    live = whole_lse > hop.NEG_INF / 2
+    assert torch.equal(lse > hop.NEG_INF / 2, live)
+    assert _max_rel(lse[live], whole_lse[live]) < 1e-4
+    delta = (g.float() * out.float()).sum(-1)
+    for k, v, valid, kind in hops:
+        got = hop_backward(q, k, v, g, lse, delta, valid, kind)
+        kw = dict(causal=kind == "diagonal", kv_valid=valid)
+        want = (hop.flash_attention_bwd_dq_plain(q, k, v, g, lse, delta, **kw),
+                *hop.flash_attention_bwd_dkv_plain(q, k, v, g, lse, delta, **kw))
+        for x, ref in zip(got, want):
+            assert _max_rel(x.float(), ref.float()) < tol
+    name = lambda n: hop.kernel_name(n, dtype)  # noqa: E731
+    assert hop.LAUNCHES[name("flash_attention_fwd")] == 2
+    assert hop.LAUNCHES[name("flash_attention_bwd_dq")] == hop.LAUNCHES[name("flash_attention_bwd_dkv")] == 2
+
+
+SP_CFG = dict(src_vocab_size=41, trg_vocab_size=37, d_model=64, ffn_hidden=128,
+              num_heads=4, num_layers=1, max_len=24, dropout=0.0)
+
+
+@pytest.fixture(scope="module")
+def card_sp_gang():
+    """One 4-rank gang on the card: 3 SGD steps of ``fit`` under
+    ``sequence_parallel`` on ``{seq: 4}`` with ring and with Ulysses, and
+    the same steps in this process on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the gang's ranks run on it")
+    from machine_learning_apache_spark_tpu_torch.launcher import Distributor, kill_stray_gangs
+    from machine_learning_apache_spark_tpu_torch.models.transformer import (
+        Transformer,
+        TransformerConfig,
+    )
+    from machine_learning_apache_spark_tpu_torch.recipes.translation import make_translation_loss
+    from machine_learning_apache_spark_tpu_torch.train.loop import fit
+    from machine_learning_apache_spark_tpu_torch.train.state import TrainState, make_optimizer
+    from machine_learning_apache_spark_tpu_torch.weights import export_flax_params, load_flax_params
+
+    rng = np.random.default_rng(47)
+    batches = []
+    for _ in range(3):
+        src = rng.integers(4, 41, (16, 20)).astype(np.int64)
+        trg = rng.integers(4, 37, (16, 21)).astype(np.int64)
+        for i, m in enumerate(rng.integers(3, 21, 16)):
+            trg[i, m:] = 0
+        src[0, 12:] = 0
+        batches.append((src, trg))
+    tree = export_flax_params(Transformer(TransformerConfig(**SP_CFG),
+                                          generator=torch.Generator().manual_seed(9)))
+    gang = Distributor(num_processes=4, timeout=300).run(
+        "torch_launcher_workers:sp_card_gang", SP_CFG, tree, batches, 0.5)
+    assert kill_stray_gangs() == 0
+    model = load_flax_params(Transformer(TransformerConfig(**SP_CFG)), tree).cuda()
+    res = fit(TrainState.create(model=model, tx=make_optimizer("sgd", 0.5)),
+              make_translation_loss(0), batches, epochs=1, log_every=0)
+    one = {"step_losses": res.step_losses,
+           "params": {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()}}
+    return gang, one
+
+
+@pytest.mark.parametrize("method", ["ring", "ulysses"])
+def test_sp_gang_on_the_card_trains_as_one_process(card_sp_gang, method):
+    gang, one = card_sp_gang
+    run = gang[method]
+    assert run["device"] == "cuda:0" and run["mesh"] == {"seq": 4}
+    np.testing.assert_allclose(run["step_losses"], one["step_losses"], rtol=1e-4)
+    assert run["ranks_equal"]
+    for k, want in one["params"].items():
+        np.testing.assert_allclose(run["params"][k], want, rtol=0, atol=1e-5, err_msg=k)
+
+
+@pytest.mark.parametrize("method", ["ring", "ulysses"])
+def test_sp_gang_on_the_card_launches_the_hop_schedule(card_sp_gang, method):
+    gang, _ = card_sp_gang
+    for r, launches in enumerate(gang[method]["launches"]):
+        # 3 steps; the ring: 4 hops at the encoder and the cross-attention,
+        # r + 1 at the causal decoder; Ulysses: one inner attention a site.
+        per = (4 + (r + 1) + 4) if method == "ring" else 3
+        assert launches["flash_attention_fwd"] == launches["flash_attention_bwd_dq"] \
+            == launches["flash_attention_bwd_dkv"] == 3 * per, (method, r, launches)

@@ -20,6 +20,7 @@ from machine_learning_apache_spark_tpu_torch.utils.graph_cache import (
     signature,
 )
 from test_torch_serving import ENGINE, translators  # noqa: F401 — the fixture
+from torch_host import one_thread  # noqa: F401 - autouse: one CPU thread a test process
 
 pytestmark = pytest.mark.serving
 

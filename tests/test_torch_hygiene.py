@@ -20,6 +20,7 @@ import pytest
 import torch
 
 import machine_learning_apache_spark_tpu_torch as port
+from torch_host import one_thread  # noqa: F401 - autouse: one CPU thread a test process
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_DIR = Path(port.__file__).resolve().parent

@@ -25,6 +25,7 @@ import torch
 from machine_learning_apache_spark_tpu_torch.ops import cuda_build
 from machine_learning_apache_spark_tpu_torch.ops import hopper_attention as hop
 from torch_ragged_cases import serving_decode, split_qkv
+from torch_host import one_thread  # noqa: F401 - autouse: one CPU thread a test process
 
 
 # -- launch parameters -----------------------------------------------------------

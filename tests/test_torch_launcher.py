@@ -37,6 +37,7 @@ from machine_learning_apache_spark_tpu_torch.launcher import (
 )
 from machine_learning_apache_spark_tpu_torch.launcher.distributor import WorkerResult, gang_failure
 from machine_learning_apache_spark_tpu_torch.launcher.runner import _start_heartbeat
+from torch_host import one_thread  # noqa: F401 - autouse: one CPU thread a test process
 
 PORT = "machine_learning_apache_spark_tpu_torch"
 JAX = "machine_learning_apache_spark_tpu"

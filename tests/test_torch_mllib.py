@@ -27,6 +27,7 @@ from machine_learning_apache_spark_tpu_torch.mllib import (
     PredictionFrame,
 )
 from machine_learning_apache_spark_tpu_torch.mllib.lbfgs import _cubicmin, _quadmin
+from torch_host import one_thread  # noqa: F401 - autouse: one CPU thread a test process
 
 SAMPLE = "assets/sample_multiclass_classification_data.txt"
 LAYERS = [4, 5, 4, 3]

@@ -37,6 +37,7 @@ from machine_learning_apache_spark_tpu_torch.train import state as tstate
 from machine_learning_apache_spark_tpu_torch.utils.graph_cache import ProgramCache
 from machine_learning_apache_spark_tpu_torch.weights import export_flax_params
 from test_torch_train import TINY, _bridge, _flat, _tokens
+from torch_host import one_thread  # noqa: F401 - autouse: one CPU thread a test process
 
 ROWS, BATCH, EPOCHS = 48, 8, 2  # 6 batches an epoch
 

@@ -28,6 +28,7 @@ from machine_learning_apache_spark_tpu_torch.ops import masks as tmasks
 from machine_learning_apache_spark_tpu_torch.ops.positional import (
     sinusoidal_encoding as t_sinusoidal,
 )
+from torch_host import one_thread  # noqa: F401 - autouse: one CPU thread a test process
 
 ATOL, RTOL = 2e-5, 1e-5
 

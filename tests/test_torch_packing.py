@@ -45,6 +45,7 @@ from machine_learning_apache_spark_tpu_torch.recipes import translation as treci
 from machine_learning_apache_spark_tpu_torch.train.losses import masked_token_cross_entropy
 from machine_learning_apache_spark_tpu_torch.train.loop import to_device
 from machine_learning_apache_spark_tpu_torch.weights import load_flax_params
+from torch_host import one_thread  # noqa: F401 - autouse: one CPU thread a test process
 
 FIXTURES = "assets/fixtures"
 TINY = dict(

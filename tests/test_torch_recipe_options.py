@@ -56,6 +56,7 @@ from machine_learning_apache_spark_tpu_torch.utils.profiling import (
     device_trace,
 )
 from machine_learning_apache_spark_tpu_torch.weights import load_flax_params
+from torch_host import one_thread  # noqa: F401 - autouse: one CPU thread a test process
 
 FIXTURES = "assets/fixtures"
 SMALL = dict(data_root=FIXTURES, d_model=32, ffn_hidden=64, num_heads=2, max_len=24,

@@ -53,6 +53,7 @@ from machine_learning_apache_spark_tpu_torch.serving.metrics import (
     percentile,
 )
 from machine_learning_apache_spark_tpu_torch.weights import load_flax_params
+from torch_host import one_thread  # noqa: F401 - autouse: one CPU thread a test process
 
 pytestmark = pytest.mark.serving
 

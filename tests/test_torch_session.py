@@ -19,6 +19,7 @@ from machine_learning_apache_spark_tpu_torch import Session, config, session, su
 from machine_learning_apache_spark_tpu_torch.launcher import Distributor, kill_stray_gangs
 from machine_learning_apache_spark_tpu_torch.parallel.mesh import make_mesh
 from machine_learning_apache_spark_tpu_torch.recipes import _common
+from torch_host import one_thread  # noqa: F401 - autouse: one CPU thread a test process
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ENV = {
@@ -170,8 +171,15 @@ def test_resolve_mesh_rules(monkeypatch):
     mesh = _common.resolve_mesh(True, model_parallel=2)
     assert mesh.shape == {"data": 1, "model": 2}
     assert _common.data_replicas(mesh) == (1, 0)
-    with pytest.raises(NotImplementedError, match="ring_attention"):
-        _common.resolve_mesh(True, sequence_parallel=2)
+    # So is the seq axis: {data: world/N, seq: N}, the line's ranks one
+    # replica's rows.
+    mesh = _common.resolve_mesh(True, sequence_parallel=2)
+    assert mesh.shape == {"data": 1, "seq": 2}
+    assert _common.data_replicas(mesh) == (1, 0)
+    monkeypatch.setattr(_common, "process_count", lambda: 4)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue A4: seq × model"):
+        _common.resolve_mesh(True, sequence_parallel=2, model_parallel=2)
+    monkeypatch.setattr(_common, "process_count", lambda: 2)
     # The pipeline axis is ported too: {data: world/S, pipeline: S}.
     mesh = _common.resolve_mesh(True, pipeline_parallel=2)
     assert mesh.shape == {"data": 1, "pipeline": 2}

@@ -68,6 +68,7 @@ from machine_learning_apache_spark_tpu_torch.recipes.translation import (
 )
 from machine_learning_apache_spark_tpu_torch.train import losses
 from machine_learning_apache_spark_tpu_torch.weights import export_flax_params, load_flax_params
+from torch_host import one_thread  # noqa: F401 - autouse: one CPU thread a test process
 
 GANG_ENV = {"OMP_NUM_THREADS": "1"}
 FIXTURES = "assets/fixtures"

@@ -14,6 +14,7 @@ import pytest
 from machine_learning_apache_spark_tpu.telemetry import traceview as jtraceview
 from machine_learning_apache_spark_tpu_torch import telemetry
 from machine_learning_apache_spark_tpu_torch.telemetry import http, traceview, tracectx
+from torch_host import one_thread  # noqa: F401 - autouse: one CPU thread a test process
 
 TID, TID_ORPHAN, TID_SLOW = "ab" * 16, "cd" * 16, "ef" * 16
 WIRE = "11" * 8

@@ -58,6 +58,7 @@ from machine_learning_apache_spark_tpu_torch.weights import (
     export_flax_params,
     load_flax_params,
 )
+from torch_host import one_thread  # noqa: F401 - autouse: one CPU thread a test process
 
 FIXTURES = "assets/fixtures"
 TINY = dict(

@@ -29,6 +29,7 @@ from machine_learning_apache_spark_tpu_torch.weights import (
     load_flax_params,
     random_flax_params,
 )
+from torch_host import one_thread  # noqa: F401 - autouse: one CPU thread a test process
 
 ATOL = RTOL = 1e-4
 

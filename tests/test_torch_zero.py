@@ -80,6 +80,7 @@ from test_torch_data_parallel import (
 from test_torch_data_parallel import _transformer_params as _init_transformer
 from test_torch_tensor_parallel import RECIPE
 from test_torch_tensor_parallel import _flat as _flat_tree
+from torch_host import one_thread  # noqa: F401 - autouse: one CPU thread a test process
 
 # One Flax init per seed for the whole module (each init compiles).
 _transformer_params = functools.cache(_init_transformer)

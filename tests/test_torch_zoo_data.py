@@ -32,6 +32,7 @@ from machine_learning_apache_spark_tpu_torch.data.libsvm import (
 )
 from machine_learning_apache_spark_tpu_torch.data.reader import DataReader
 from machine_learning_apache_spark_tpu_torch.data.text import classification_pipeline
+from torch_host import one_thread  # noqa: F401 - autouse: one CPU thread a test process
 
 SAMPLE = "assets/sample_multiclass_classification_data.txt"
 FIXTURES = "assets/fixtures"

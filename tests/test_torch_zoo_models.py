@@ -35,6 +35,7 @@ from machine_learning_apache_spark_tpu_torch.weights import (
     load_flax_params,
     random_flax_like,
 )
+from torch_host import one_thread  # noqa: F401 - autouse: one CPU thread a test process
 
 LOGIT_ATOL = 1e-5
 GRAD_RTOL = 1e-5  # of the largest gradient entry

@@ -56,6 +56,7 @@ from machine_learning_apache_spark_tpu_torch.weights import (
     load_flax_params,
     random_flax_like,
 )
+from torch_host import one_thread  # noqa: F401 - autouse: one CPU thread a test process
 
 SAMPLE = "assets/sample_multiclass_classification_data.txt"
 FIXTURES = "assets/fixtures"

@@ -1234,3 +1234,172 @@ def pp_card_gang(cfg_kwargs, flax_params, batches, lr, n_micro, device=None):
            "ranks_equal": all(all(np.array_equal(a, b) for a, b in zip(e, every[0])) for e in every),
            "launches": launches}
     return out if rank == 0 else None
+
+
+# -- sequence parallelism -----------------------------------------------------------
+
+
+def _sp_line_equal(mesh, arrays) -> bool:
+    """Whether every rank of this rank's seq line holds ``arrays`` bit for
+    bit (all ranks gather; each line is compared within itself)."""
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, (mesh.index("data"), [np.asarray(a) for a in arrays]))
+    mine = [e for d, e in every if d == mesh.index("data")]
+    return all(all(np.array_equal(a, b) for a, b in zip(e, mine[0])) for e in mine)
+
+
+def _sp_attention_case(mesh, method, qkv, causal, valid):
+    """One site under ``sequence_parallel(mesh, method=)`` through
+    ``dot_product_attention``, this data index's rows of the global
+    ``qkv``/``valid``: the output and the gradients of sum(out²), the seq
+    line's collectives, and whether its ranks agree bit for bit."""
+    from machine_learning_apache_spark_tpu_torch.ops.attention import (
+        dot_product_attention,
+        sequence_parallel,
+    )
+    from machine_learning_apache_spark_tpu_torch.parallel.sequence import sequence_line
+
+    d, ways = mesh.index("data"), mesh.axis_size("data")
+    q, k, v = (torch.from_numpy(a).requires_grad_() for a in _rows(qkv, d, ways))
+    kv_valid = None if valid is None else torch.from_numpy(_rows((valid,), d, ways)[0])
+    line = sequence_line(mesh)
+    line.restart_comms()
+    with sequence_parallel(mesh, method=method):
+        out = dot_product_attention(q, k, v, causal=causal, kv_valid=kv_valid)
+    (out ** 2).sum().backward()
+    res = [out.detach().numpy(), q.grad.numpy(), k.grad.numpy(), v.grad.numpy()]
+    stats = line.comms.stats()
+    return {"data": d, "out": res, "line_equal": _sp_line_equal(mesh, res),
+            "calls": {kind: stats[f"{kind}_calls"] for kind in line.comms.KINDS}}
+
+
+def _sp_fit(mesh, method, cfg_kwargs, flax_params, batches, lr, eval_batches):
+    """3 SGD steps of ``fit(mesh=)`` and an ``evaluate`` under
+    ``sequence_parallel(mesh, method=)``, each data index on its rows:
+    rank 0's parameters (a Flax tree), the step losses, the eval loss, the
+    comms, ``assert_replicas_in_sync``'s verdict and whether every rank
+    of the gang holds the same parameters bit for bit."""
+    from machine_learning_apache_spark_tpu_torch.models.transformer import (
+        Transformer,
+        TransformerConfig,
+    )
+    from machine_learning_apache_spark_tpu_torch.ops.attention import sequence_parallel
+    from machine_learning_apache_spark_tpu_torch.parallel import assert_replicas_in_sync
+    from machine_learning_apache_spark_tpu_torch.recipes.translation import make_translation_loss
+    from machine_learning_apache_spark_tpu_torch.train.loop import evaluate, fit
+    from machine_learning_apache_spark_tpu_torch.train.state import TrainState, make_optimizer
+    from machine_learning_apache_spark_tpu_torch.weights import export_flax_params, load_flax_params
+
+    d, ways = mesh.index("data"), mesh.axis_size("data")
+    model = load_flax_params(Transformer(TransformerConfig(**cfg_kwargs)), flax_params)
+    with sequence_parallel(mesh, method=method):
+        res = fit(TrainState.create(model=model, tx=make_optimizer("sgd", lr)),
+                  make_translation_loss(0), [_rows(b, d, ways) for b in batches], epochs=1,
+                  mesh=mesh, log_every=0)
+        metrics = evaluate(res.state, make_translation_loss(0, train=False),
+                           [_rows(b, d, ways) for b in eval_batches], mesh=mesh,
+                           emit=lambda s: None)
+    try:
+        assert_replicas_in_sync(res.state, mesh=mesh)
+        in_sync = "ok"
+    except AssertionError as e:
+        in_sync = str(e)
+    mine = [t.numpy().copy() for t in model.state_dict().values()]
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    return {"params": export_flax_params(model), "step_losses": list(res.step_losses),
+            "test_loss": metrics["test_loss"], "comms": res.comms, "in_sync": in_sync,
+            "ranks_equal": all(all(np.array_equal(a, b) for a, b in zip(e, every[0]))
+                               for e in every)}
+
+
+def sp_four_rank(qkv, valid, cfg_kwargs, flax_params, batches, lr, eval_batches, recipe_kw,
+                 workdir):
+    """Every check of the 4-rank sequence-parallel gang in one gang start,
+    on ``{seq: 4}`` and ``{data: 2, seq: 2}``: ring and Ulysses at one
+    attention site (full; causal with ``kv_valid``), forward and
+    gradients; 3 SGD steps of the Transformer's ``fit`` under ring on
+    ``{seq: 4}`` and under Ulysses on ``{data: 2, seq: 2}``; the recipe
+    with ``sequence_parallel=4`` (ring) and ``=2`` (Ulysses, BLEU,
+    checkpoints), and ``sequence_parallel`` beside ``model_parallel``.
+    Rank 0's results, with every rank's attention rows."""
+    from machine_learning_apache_spark_tpu_torch.parallel import make_mesh
+    from machine_learning_apache_spark_tpu_torch.recipes.translation import train_translator
+
+    rank, world = _rank_world()
+    meshes = {"seq4": make_mesh({"seq": world}, device="cpu"),
+              "data2 seq2": make_mesh({"data": 2, "seq": world // 2}, device="cpu")}
+    cases = {}
+    for name, mesh in meshes.items():
+        for method in ("ring", "ulysses"):
+            cases[f"{name} {method} full"] = _sp_attention_case(mesh, method, qkv, False, None)
+            cases[f"{name} {method} causal valid"] = _sp_attention_case(mesh, method, qkv, True, valid)
+    every = [None] * world
+    dist.all_gather_object(every, cases)
+    out = {"attention": every, "coords": [None] * world}
+    dist.all_gather_object(out["coords"], meshes["data2 seq2"].coords)
+    out["fit"] = {
+        "seq4 ring": _sp_fit(meshes["seq4"], "ring", cfg_kwargs, flax_params, batches, lr,
+                             eval_batches),
+        "data2 seq2 ulysses": _sp_fit(meshes["data2 seq2"], "ulysses", cfg_kwargs, flax_params,
+                                      batches, lr, eval_batches),
+    }
+    recipes = {}
+    for n, method, extra in ((world, "ring", {}),
+                             (world // 2, "ulysses", dict(compute_bleu=True, checkpoint_dir=os.path.join(workdir, "sp")))):
+        res = train_translator(device="cpu", sequence_parallel=n, sequence_parallel_method=method,
+                               _return_state=True, **recipe_kw, **extra)
+        recipes[f"{method} {n}"] = {
+            "step_losses": res["fit_result"].step_losses, "mesh": dict(res["state"].mesh.shape),
+            "test_loss": res["test_loss"], "bleu": res.get("bleu"),
+            "comms": res["fit_result"].comms,
+            "line_equal": _sp_line_equal(res["state"].mesh, [
+                t.numpy() for t in res["state"].model.state_dict().values()])}
+    out["recipe"] = recipes
+    try:
+        train_translator(device="cpu", sequence_parallel=2, model_parallel=2, **recipe_kw)
+        out["seq_model"] = "no error"
+    except NotImplementedError as e:
+        out["seq_model"] = str(e)
+    return out if rank == 0 else None
+
+
+def sp_card_gang(cfg_kwargs, flax_params, batches, lr, device=None):
+    """SGD steps of ``fit`` on ``device`` (default: the gang's) under
+    ``sequence_parallel`` on a ``{seq: world}`` mesh with ring and with
+    Ulysses, every rank the whole batches: per method, rank 0's step
+    losses and parameters, whether every rank holds the same parameters,
+    and every rank's launches."""
+    from machine_learning_apache_spark_tpu_torch.models.transformer import (
+        Transformer,
+        TransformerConfig,
+    )
+    from machine_learning_apache_spark_tpu_torch.ops import hopper_attention as hop
+    from machine_learning_apache_spark_tpu_torch.ops.attention import sequence_parallel
+    from machine_learning_apache_spark_tpu_torch.parallel import make_mesh
+    from machine_learning_apache_spark_tpu_torch.recipes.translation import make_translation_loss
+    from machine_learning_apache_spark_tpu_torch.train.loop import fit
+    from machine_learning_apache_spark_tpu_torch.train.state import TrainState, make_optimizer
+    from machine_learning_apache_spark_tpu_torch.weights import load_flax_params
+
+    rank, world = _rank_world()
+    dev = _worker_device(device)
+    mesh = make_mesh({"seq": world}, device=dev)
+    out = {}
+    for method in ("ring", "ulysses"):
+        model = load_flax_params(Transformer(TransformerConfig(**cfg_kwargs)), flax_params).to(dev)
+        hop.reset_launches()
+        with sequence_parallel(mesh, method=method):
+            res = fit(TrainState.create(model=model, tx=make_optimizer("sgd", lr)),
+                      make_translation_loss(0), batches, epochs=1, mesh=mesh, log_every=0)
+        launches = [None] * world
+        dist.all_gather_object(launches, dict(hop.LAUNCHES))
+        mine = [t.detach().cpu().numpy() for t in model.state_dict().values()]
+        every = [None] * world
+        dist.all_gather_object(every, mine)
+        out[method] = {
+            "device": str(dev), "mesh": dict(mesh.shape), "step_losses": res.step_losses,
+            "params": {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()},
+            "ranks_equal": all(all(np.array_equal(a, b) for a, b in zip(e, every[0])) for e in every),
+            "launches": launches}
+    return out if rank == 0 else None
