@@ -295,6 +295,27 @@ Phases, each fatal on failure:
    Printed: each mesh's step ms beside one process's, the seq line's
    ``comms.sp_ring`` / ``sp_a2a`` / ``sp_gather`` windows and bytes per
    step, each rank's launches and peak; the phase's own seconds;
+7i. the MoE expert axis — ``Session`` -> ``Distributor`` -> one 4-rank
+   gang sharing the card over gloo: the MT model at reference width (1
+   layer, 8 experts, capacity factor 1.25, dropout 0, the published
+   8004-word vocabularies, 4 of the fixture's global batches of 32) on
+   ``{expert: 4}`` (a), ``{data: 2, expert: 2}`` (b) and ``{expert: 2,
+   model: 2}`` (c), each against one process (rank 0 alone, before the
+   meshes) from the same weights: one forward's logits and ``moe_aux``
+   within 1e-4; 4 SGD steps, each tensor's displacement within max(1e-4,
+   10 x a control's: one process on the same batches with 16 rows of
+   padding after them, the same loss at other matmul shapes) — this gate
+   carries correctness; 4 Adam steps, each tensor within max(1e-4, 10 x
+   the control's), a noise gate (Adam turns float noise into lr-sized
+   steps); every data line in sync, 12 flash
+   forward / dQ / dK/dV launches a fit on every rank, each rank's
+   expert-weight bytes 1/(N·M) of one process's 67,108,864; (d)
+   ``train_translator(moe_experts=8, expert_parallel=2)`` on ``{data: 2,
+   expert: 2}`` with checkpoints and BLEU on the gathered model, and a
+   second run resumed from the first's last step (dQ and dK/dV 3 a step).
+   Printed: each mesh's step ms (Adam, 3 after 1) beside one process's,
+   the ``comms.ep_allreduce`` (and ``tp_allreduce``) calls, bytes and
+   window per step, the peak per rank; the phase's own seconds;
 8. times — requests/s, generated tokens/s and peak device memory of each
    engine (paged fp32 and int8, padded, beam); each engine's requests/s
    and device idle share over one profiled window; the host time of the
@@ -4549,13 +4570,13 @@ def tp_gang_rank(root: str, batches, val_batches, serve_prompts, ref_params) -> 
     gathered = tp.gather_params(sharded)
     concat = True
     for name, p in sharded.named_parameters():
-        axis = getattr(p, "tp_axis", None)
-        if axis is None:
+        if not getattr(p, "shards", ()):
             concat = concat and bool(torch.equal(gathered[name], p.detach()))
             continue
+        ((axis, dim, parts),) = p.shards
         pieces = axis.pieces(p.detach())
         concat = concat and bool(torch.equal(pieces[axis.index], p.detach()))
-        concat = concat and bool(torch.equal(gathered[name], tp.unshard(pieces, p.tp_dim, p.tp_parts)))
+        concat = concat and bool(torch.equal(gathered[name], tp.unshard(pieces, dim, parts)))
     runs["f recipe"] = dict(step_losses=out["fit_result"].step_losses, launches=recipe_launches,
                             test_loss=out["test_loss"], logit_pad=sharded.cfg.logit_pad,
                             mesh=dict(out["state"].mesh.shape), concat=concat,
@@ -4761,10 +4782,11 @@ def pp_sites(torch, dev, src, trg_in, dtype=None) -> dict:
 
 
 def _pp_model(torch, dev, layers: int, dtype=None, *, max_len: int | None = None,
-              vocab: int | None = None, remat: bool = False):
+              vocab: int | None = None, remat: bool = False, moe_experts: int = 0):
     """The reference MT model at ``layers`` layers on the fixture
     vocabularies (dropout 0), built as ``_mt_model`` builds it; ``max_len``,
-    ``vocab`` (both vocabularies) and ``remat`` for the long-context step."""
+    ``vocab`` (both vocabularies) and ``remat`` for the long-context step,
+    ``moe_experts`` (capacity factor 1.25) for the expert axis."""
     from machine_learning_apache_spark_tpu_torch.models.transformer import (
         Transformer,
         TransformerConfig,
@@ -4777,6 +4799,7 @@ def _pp_model(torch, dev, layers: int, dtype=None, *, max_len: int | None = None
         src_vocab_size=vocab or len(src_pipe.vocab), trg_vocab_size=vocab or len(trg_pipe.vocab),
         d_model=r.d_model, ffn_hidden=r.ffn_hidden, num_heads=r.num_heads, num_layers=layers,
         dropout=r.dropout, max_len=max_len or r.max_len, remat=remat, dtype=dtype or torch.float32,
+        moe_experts=moe_experts,
     )
     return Transformer(cfg, generator=torch.Generator().manual_seed(SEED)).to(dev), r
 
@@ -5719,6 +5742,384 @@ def sp_slice(torch, hop, card: str, dev) -> dict:
                 long_dense={f: long_dense[f] for f in ("loss", "ms", "peak_mib")})
 
 
+# -- phase 7i: the MoE expert axis ------------------------------------------------
+
+EP_GANG = 4
+EP_EXPERTS = 8
+# label: mesh axes. The reference MT model (1 layer) at full width with 8
+# experts (capacity factor 1.25), on the published 8004-word vocabularies
+# (the fixture's ids are all below them), the fixture's global batches of 32.
+EP_MESHES = {
+    "a {expert: 4}": {"expert": 4},
+    "b {data: 2, expert: 2}": {"data": 2, "expert": 2},
+    "c {expert: 2, model: 2}": {"expert": 2, "model": 2},
+}
+EP_STEPS = 4
+EP_SGD_LR = 0.1
+EP_RTOL = 1e-4
+EP_WARMUP, EP_TIMED = 1, 3
+# One process's expert weights: 2 MoE sites x (w_up + w_down) x 8 x 512 x 1024 x 4 B.
+EP_EXPERT_BYTES = 2 * 2 * EP_EXPERTS * 512 * 1024 * 4
+# train_translator(moe_experts=8, expert_parallel=2) in the 4-rank gang:
+# {data: 2, expert: 2}, 16 rows a data replica (global batch 32),
+# checkpoints, BLEU on the gathered model.
+EP_RECIPE = dict(data_root=str(FIXTURES), batch_size=16, dropout=0.0, log_every=0, compute_bleu=True,
+                 moe_experts=EP_EXPERTS, expert_parallel=2)
+
+
+def _ep_launches(steps: int) -> int:
+    """Each training kernel's launches over ``steps`` steps on a rank: the
+    three attention sites a step, every rank running all of them."""
+    return 3 * steps
+
+
+def _ep_model(torch, dev):
+    """The phase's model (``_pp_model`` at one layer with ``EP_EXPERTS``
+    experts on the published vocabularies), and the recipe's fields."""
+    return _pp_model(torch, dev, 1, vocab=MT_PUBLISHED_VOCAB, moe_experts=EP_EXPERTS)
+
+
+def _ep_batch(batch, control: bool):
+    """A global batch, or (the control) the same rows with half as many
+    rows of padding after them: the same loss, routing and gradients, the
+    pad rows adding exact zeros, computed at other matmul shapes (as the
+    gang's rank computes its share), so with other roundings."""
+    if not control:
+        return batch
+    return tuple(np.concatenate([a, np.zeros_like(a[:len(a) // 2])]) for a in batch)
+
+
+def _ep_displacement(torch, start: dict, got: dict, want: dict, d_model: int) -> dict:
+    """Per tensor the relative norm of the difference of two SGD
+    displacements from ``start``, ``|(got - start) - (want - start)| /
+    |want - start|``; the key biases' slices apart (true gradient 0: both
+    sides float noise), their largest absolute difference."""
+    rel, noise = {}, 0.0
+    for k, w in want.items():
+        diff = (got[k].double() - w.double()).reshape(-1)
+        ref = (w.double() - start[k].double()).reshape(-1)
+        kb = _key_bias(k, d_model)
+        if kb is not None:
+            noise = max(noise, float(diff[kb].abs().max()))
+            keep = torch.ones_like(diff, dtype=torch.bool)
+            keep[kb] = False
+            diff, ref = diff[keep], ref[keep]
+        rel[k] = float(diff.norm() / ref.norm().clamp_min(1e-30))
+    scale = max(float((w.double() - start[k].double()).abs().max()) for k, w in want.items())
+    return dict(rel=rel, key_bias_abs=noise, key_bias_bound=EP_RTOL * scale)
+
+
+def _ep_reference(torch, base, batches, r) -> dict:
+    """One process (this rank alone, no mesh) on the global batches: the
+    SGD and Adam fits from ``base``'s weights, each beside its control
+    (``_ep_batch``), on the host; the one-process step ms (Adam,
+    ``EP_TIMED`` after ``EP_WARMUP``)."""
+    import copy
+
+    from machine_learning_apache_spark_tpu_torch.recipes.translation import make_translation_loss
+    from machine_learning_apache_spark_tpu_torch.train.loop import fit, make_train_step, to_device
+    from machine_learning_apache_spark_tpu_torch.train.state import TrainState, make_optimizer
+
+    out = {}
+    for opt, lr in (("sgd", EP_SGD_LR), ("adam", r.learning_rate)):
+        for control in (False, True):
+            model = copy.deepcopy(base)
+            res = fit(TrainState.create(model=model, tx=make_optimizer(opt, lr)),
+                      make_translation_loss(model.cfg.pad_id), [_ep_batch(b, control) for b in batches],
+                      epochs=1, log_every=0)
+            out[(opt, control)] = dict(step_losses=res.step_losses,
+                                    params={k: v.detach().cpu() for k, v in model.state_dict().items()})
+            del model, res
+    model = copy.deepcopy(base)
+    state = TrainState.create(model=model, tx=make_optimizer("adam", r.learning_rate))
+    step = make_train_step(make_translation_loss(model.cfg.pad_id))
+    local = [to_device(b, base.lm_head.weight.device) for b in batches]
+    _timed_steps(torch, step, state, local, EP_WARMUP)
+    out["ms"] = 1e3 * _timed_steps(torch, step, state, local, EP_TIMED)
+    return out
+
+
+def _ep_forward(torch, base, mesh, batch) -> dict:
+    """One forward of ``base``'s weights sharded on ``mesh`` (no grad),
+    this data index's rows of ``batch``, against one process's (the whole
+    model on the whole batch, in this rank): the logits' largest
+    difference relative to their largest value, and the two ``moe_aux``."""
+    import copy
+
+    from machine_learning_apache_spark_tpu_torch.parallel.data_parallel import bind_batch_line
+    from machine_learning_apache_spark_tpu_torch.parallel.tensor_parallel import shard_params
+    from machine_learning_apache_spark_tpu_torch.train.loop import to_device
+
+    d, ways = mesh.index("data"), mesh.axis_size("data")
+    src, trg = to_device(batch, mesh.device)
+    rows = slice(d * len(src) // ways, (d + 1) * len(src) // ways)
+    with torch.no_grad():
+        aux_ref: list = []
+        want = base(src, trg[:, :-1], aux_losses=aux_ref)[rows]
+        model = shard_params(copy.deepcopy(base), mesh)
+        bind_batch_line(model, mesh)
+        aux: list = []
+        got = model(src[rows], trg[rows, :-1], aux_losses=aux)
+        if model.vocab_shard is not None:
+            got = model.vocab_shard[0].all_gather(got, dim=-1)
+        rel = float((got - want).abs().max() / want.abs().max())
+    return dict(logits_rel=rel, aux=[float(a) for a in aux], aux_ref=[float(a) for a in aux_ref])
+
+
+def _ep_fit(torch, base, mesh, opt: str, lr: float, batches) -> tuple[dict, dict | None]:
+    """A ``fit(mesh=)`` of ``base``'s weights on ``mesh``, each data index
+    on its rows of the global batches: step losses, launches, comms, the
+    replica check, this rank's expert-weight bytes; the parameters
+    gathered to full (on rank 0's host)."""
+    import copy
+
+    from machine_learning_apache_spark_tpu_torch.ops import hopper_attention as hop
+    from machine_learning_apache_spark_tpu_torch.parallel import assert_replicas_in_sync
+    from machine_learning_apache_spark_tpu_torch.recipes.translation import make_translation_loss
+    from machine_learning_apache_spark_tpu_torch.train.loop import fit
+    from machine_learning_apache_spark_tpu_torch.train.state import TrainState, make_optimizer
+
+    d, ways = mesh.index("data"), mesh.axis_size("data")
+    model = copy.deepcopy(base)
+    hop.reset_launches()
+    res = fit(TrainState.create(model=model, tx=make_optimizer(opt, lr)),
+              make_translation_loss(model.cfg.pad_id), [_data_rows(b, d, ways) for b in batches],
+              epochs=1, mesh=mesh, log_every=0)
+    torch.cuda.synchronize()
+    launches = dict(hop.LAUNCHES)
+    try:
+        assert_replicas_in_sync(res.state, mesh=mesh)
+        in_sync = "ok"
+    except AssertionError as e:
+        in_sync = str(e)
+    expert_bytes = sum(p.numel() * p.element_size() for n, p in model.named_parameters()
+                       if n.endswith(("w_up", "w_down")))
+    out = dict(step_losses=res.step_losses, launches=launches, comms=res.comms, in_sync=in_sync,
+               expert_bytes=expert_bytes)
+    full = _full_params(torch, res.state, keep=mesh.rank == 0)
+    del model, res
+    return out, full
+
+
+def _ep_step_times(torch, base, mesh, batches, r) -> dict:
+    """This rank's Adam step on ``mesh``, ``EP_WARMUP`` steps then
+    ``EP_TIMED`` timed, the card synchronised at both ends: ms, the expert
+    line's all-reduces (count, bytes, window) and the model line's per
+    step, the peak."""
+    import copy
+    import gc
+
+    from machine_learning_apache_spark_tpu_torch.parallel import make_data_parallel_step, tensor_parallel
+    from machine_learning_apache_spark_tpu_torch.parallel.data_parallel import bind_batch_line
+    from machine_learning_apache_spark_tpu_torch.recipes.translation import make_translation_loss
+    from machine_learning_apache_spark_tpu_torch.train.loop import to_device
+    from machine_learning_apache_spark_tpu_torch.train.state import TrainState, make_optimizer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    d, ways = mesh.index("data"), mesh.axis_size("data")
+    model = copy.deepcopy(base)
+    state = tensor_parallel.shard_state(
+        TrainState.create(model=model, tx=make_optimizer("adam", r.learning_rate)), mesh)
+    bind_batch_line(model, mesh)
+    step = make_data_parallel_step(make_translation_loss(model.cfg.pad_id), mesh)
+    step.replica(model)
+    local = [to_device(_data_rows(b, d, ways), mesh.device) for b in batches]
+    torch.cuda.reset_peak_memory_stats()
+    _timed_steps(torch, step, state, local, EP_WARMUP)
+    lines = tensor_parallel.model_lines(model)
+    before = [line.comms.stats() for line in lines]
+    sec = _timed_steps(torch, step, state, local, EP_TIMED)
+    out = dict(ms=1e3 * sec, peak_mib=torch.cuda.max_memory_allocated() / 2**20)
+    for line, b in zip(lines, before):
+        a, kind = line.comms.stats(), line.KIND
+        out[f"{kind}_calls"] = (a[f"{kind}_calls"] - b[f"{kind}_calls"]) / EP_TIMED
+        out[f"{kind}_bytes"] = (a[f"{kind}_bytes"] - b[f"{kind}_bytes"]) / EP_TIMED
+        out[f"{kind}_ms"] = 1e3 * (a[f"{kind}_window_seconds"] - b[f"{kind}_window_seconds"]) / EP_TIMED
+    del state, step, model
+    return out
+
+
+def ep_gang_rank(root: str, batches) -> dict:
+    """One rank of phase 7i's 4-rank gang: rank 0's one-process references
+    (the others wait at a barrier), then on each mesh (a-c) a forward, an
+    SGD fit and an Adam fit from the same weights, the step times; then
+    (d) the recipe with ``moe_experts=8, expert_parallel=2``, checkpoints
+    and BLEU, and its resumed second run. Every rank's numbers, in rank
+    order, with rank 0's gates (per tensor, against its references)."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from machine_learning_apache_spark_tpu_torch.ops import hopper_attention as hop
+    from machine_learning_apache_spark_tpu_torch.parallel import make_mesh
+    from machine_learning_apache_spark_tpu_torch.recipes.translation import train_translator
+
+    from machine_learning_apache_spark_tpu_torch.launcher.coordinator import current_device
+
+    rank = dist.get_rank()
+    base, r = _ep_model(torch, current_device())
+    start = {k: v.detach().cpu() for k, v in base.state_dict().items()}
+    ref = _ep_reference(torch, base, batches, r) if rank == 0 else None
+    dist.barrier()
+    runs, gates = {}, {}
+    for label, axes in EP_MESHES.items():
+        mesh = make_mesh(axes)
+        run = dict(forward=_ep_forward(torch, base, mesh, batches[0]))
+        torch.cuda.reset_peak_memory_stats()
+        for opt, lr in (("sgd", EP_SGD_LR), ("adam", r.learning_rate)):
+            run[opt], full = _ep_fit(torch, base, mesh, opt, lr, batches)
+            if rank == 0:
+                want, ctrl = ref[(opt, False)], ref[(opt, True)]
+                if opt == "sgd":
+                    g = _ep_displacement(torch, start, full, want["params"], r.d_model)
+                    c = _ep_displacement(torch, start, ctrl["params"], want["params"], r.d_model)
+                else:
+                    g = _param_gate(torch, full, want["params"], EP_STEPS)
+                    c = _param_gate(torch, ctrl["params"], want["params"], EP_STEPS)
+                    g["key_bias_bound"] = 2 * r.learning_rate * EP_STEPS
+                limit = {k: max(EP_RTOL, GANG_NOISE_X * v) for k, v in c["rel"].items()}
+                gates[f"{label} {opt}"] = dict(
+                    over={k: (v, limit[k]) for k, v in g["rel"].items() if v > limit[k]},
+                    worst=sorted(((k, v, c["rel"][k]) for k, v in g["rel"].items()),
+                                 key=lambda kv: -kv[1] / limit[kv[0]])[:3],
+                    key_bias=(g["key_bias_abs"], g["key_bias_bound"]),
+                    loss_rel=_max_rel(run[opt]["step_losses"], want["step_losses"]),
+                    ctrl_loss_rel=_max_rel(ctrl["step_losses"], want["step_losses"]))
+            del full
+        run["peak"] = torch.cuda.max_memory_allocated()
+        run["times"] = _ep_step_times(torch, base, mesh, batches, r)
+        runs[label] = run
+    del base
+    recipe = {}
+    gang_run = os.environ.get("MLSPARK_GANG_RUN", "ep")
+    for name in ("first", "second"):
+        os.environ["MLSPARK_GANG_RUN"] = f"{gang_run}-{name}"
+        hop.reset_launches()
+        out = train_translator(checkpoint_dir=str(root), _return_state=True, **EP_RECIPE)
+        state = out["state"]
+        w_up = state.model.encoder.layers[0].ffn.w_up
+        recipe[name] = dict(
+            step_losses=out["fit_result"].step_losses, launches=dict(hop.LAUNCHES),
+            mesh=dict(state.mesh.shape), test_loss=out["test_loss"], bleu=out["bleu"],
+            moe_aux=out["moe_aux"], comms=out["fit_result"].comms,
+            resumed=out.get("resumed_from_step"), w_up_shape=tuple(w_up.shape),
+            pointer=os.path.exists(os.path.join(root, f"ckpt_r{rank}", "latest")))
+        del out, state, w_up
+    ranks = _gather(dict(rank=rank, runs=runs, recipe=recipe))
+    return dict(ranks=ranks, gates=gates if rank == 0 else None,
+                ref=dict(ms=ref["ms"], sgd_losses=ref[("sgd", False)]["step_losses"],
+                         adam_losses=ref[("adam", False)]["step_losses"]) if rank == 0 else None)
+
+
+def ep_slice(torch, hop, card: str) -> dict:
+    """Phase 7i: one 4-rank gang over every expert mesh (``ep_gang_rank``)
+    and its gates."""
+    import shutil
+
+    from machine_learning_apache_spark_tpu_torch import Session
+    from machine_learning_apache_spark_tpu_torch.launcher import Distributor, kill_stray_gangs
+
+    t_phase = time.perf_counter()
+    _, _, train_ds = fixture_data()
+    batches = train_batches(train_ds, EP_STEPS)
+    root = scratch_dir() / "ep"
+    shutil.rmtree(root, ignore_errors=True)
+    spark = Session.builder.appName("ExpertParallelTranslation").config(
+        "spark.executor.instances", str(EP_GANG)).getOrCreate()
+    try:
+        t0 = time.perf_counter()
+        got = Distributor(num_processes=spark.conf.executor_instances, timeout=900).run(
+            "chip_smoke:ep_gang_rank", str(root), batches)
+        wall = time.perf_counter() - t0
+    finally:
+        spark.stop()
+    if kill_stray_gangs() != 0:
+        fail("the expert-parallel gang left a stray process group")
+    ranks, gates, ref = got["ranks"], got["gates"], got["ref"]
+    # Every reading is printed before the phase fails on the first gate
+    # missed.
+    failed: list[str] = []
+    log(f"  Session -> Distributor, {EP_GANG} ranks on one card over gloo: {wall:.2f} s spawn to "
+        f"result (rank 0's one-process references, meshes a-c, the recipe twice); one process "
+        f"{ref['ms']:.3f} ms/step (Adam, {EP_TIMED} after {EP_WARMUP}) [{card}]")
+    for label, axes in EP_MESHES.items():
+        for opt in ("sgd", "adam"):
+            g = gates[f"{label} {opt}"]
+            log(f"    {label} {opt.upper()} x {EP_STEPS}: step losses max relative difference to one "
+                f"process {g['loss_rel']:.3e} (control {g['ctrl_loss_rel']:.3e}); per tensor "
+                + ("displacement" if opt == "sgd" else "parameter")
+                + f" relative difference, the three nearest their gate max("
+                f"{EP_RTOL}, {GANG_NOISE_X} x the control's): "
+                + ", ".join(f"{k} {v:.2e} (control {c:.2e})" for k, v, c in g["worst"])
+                + f"; key biases {g['key_bias'][0]:.3e} (bound {g['key_bias'][1]:.3e})"
+                + ("" if opt == "sgd" else " [a noise gate: Adam's steps turn float noise into lr]"))
+            loss_gate = max(EP_RTOL, GANG_NOISE_X * g["ctrl_loss_rel"])
+            if g["over"] or g["key_bias"][0] > g["key_bias"][1] or g["loss_rel"] > loss_gate:
+                failed.append(f"{label} {opt}: the expert-parallel gang did not train as one process does "
+                     f"({g['over']}, key biases {g['key_bias']}, losses {g['loss_rel']:.3e})")
+        n, m = axes["expert"], axes.get("model", 1)
+        for rk in ranks:
+            run = rk["runs"][label]
+            fw = run["forward"]
+            aux_rel = max(abs(a - b) / abs(b) for a, b in zip(fw["aux"], fw["aux_ref"]))
+            if fw["logits_rel"] > EP_RTOL or aux_rel > EP_RTOL:
+                failed.append(f"rank {rk['rank']} {label}: one forward's logits {fw['logits_rel']:.3e} / moe_aux "
+                     f"{aux_rel:.3e} from one process's")
+            if run["sgd"]["expert_bytes"] * n * m != EP_EXPERT_BYTES:
+                failed.append(f"rank {rk['rank']} {label}: {run['sgd']['expert_bytes']} expert-weight bytes, not "
+                     f"1/{n * m} of {EP_EXPERT_BYTES}")
+            for opt in ("sgd", "adam"):
+                if run[opt]["in_sync"] != "ok":
+                    failed.append(f"rank {rk['rank']} {label} {opt}: {run[opt]['in_sync']}")
+                got_l = tuple(run[opt]["launches"][k] for k in TENSOR_CORE_KERNELS)
+                if got_l != (_ep_launches(EP_STEPS),) * 3:
+                    failed.append(f"rank {rk['rank']} {label} {opt}: flash launches {got_l}, not "
+                         f"{_ep_launches(EP_STEPS)} each")
+        fw = [rk["runs"][label]["forward"] for rk in ranks]
+        log(f"    {label}: one forward's logits against one process's, largest difference relative to "
+            f"the largest logit per rank " + ", ".join(f"{f['logits_rel']:.2e}" for f in fw)
+            + f" (gate {EP_RTOL}); moe_aux rank 0 {fw[0]['aux']} against {fw[0]['aux_ref']}; "
+            f"expert-weight bytes per rank {ranks[0]['runs'][label]['sgd']['expert_bytes']} "
+            f"(one process {EP_EXPERT_BYTES}, 1/{n * m}); every rank in sync; flash forward / dQ / "
+            f"dK/dV launches per fit {_ep_launches(EP_STEPS)} each on every rank")
+    for rk in ranks:
+        log(f"    rank {rk['rank']} step times (Adam, host-timed, {EP_TIMED} after {EP_WARMUP}; one "
+            f"process {ref['ms']:.3f} ms): " + "; ".join(
+                f"{label} {run['times']['ms']:.3f} ms/step (" + ", ".join(
+                    f"{k} {v:.3f}" for k, v in run["times"].items() if k != "ms")
+                + f"; fit peak {run['peak'] / 2**20:.1f} MiB)"
+                for label, run in rk["runs"].items()) + f" [{card}]")
+    recs = [rk["recipe"] for rk in ranks]
+    first, second = recs[0]["first"], recs[0]["second"]
+    for name, rec in (("first", first), ("second", second)):
+        losses = rec["step_losses"]
+        log(f"    d train_translator(moe_experts={EP_EXPERTS}, expert_parallel=2) on {rec['mesh']}, "
+            f"{name} run: {len(losses)} steps, loss {losses[0]:.4f} -> {losses[-1]:.4f}, eval loss "
+            f"{rec['test_loss']:.6f}, moe_aux {rec['moe_aux']:.6f}, BLEU (the gathered model) "
+            f"{rec['bleu']:.6f}, resumed from {rec['resumed']}, w_up per rank {rec['w_up_shape']}, "
+            f"ep_allreduce {rec['comms'].get('ep_allreduce_calls')} calls; launches per rank "
+            + ", ".join(str(tuple(x[name]["launches"][k] for k in TENSOR_CORE_KERNELS)) for x in recs))
+        if (rec["mesh"] != {"data": 2, "expert": 2} or not np.all(np.isfinite(losses))
+                or not np.isfinite(rec["bleu"]) or rec["w_up_shape"][0] != EP_EXPERTS // 2
+                or not all(x[name]["pointer"] for x in recs)):
+            failed.append(f"the EP recipe's {name} run did not train, evaluate, decode and checkpoint")
+        for x in recs:
+            per = _ep_launches(len(x[name]["step_losses"]))
+            if (x[name]["launches"]["flash_attention_bwd_dq"], x[name]["launches"]["flash_attention_bwd_dkv"]) != (per, per):
+                failed.append(f"the EP recipe ({name}): dQ/dK/dV launches {x[name]['launches']}, not {per} each")
+    if first["resumed"] is not None or second["resumed"] != len(first["step_losses"]):
+        failed.append(f"the EP recipe's second run resumed from {second['resumed']}, not step "
+             f"{len(first['step_losses'])}")
+    took = time.perf_counter() - t_phase
+    log(f"  phase 7i took {took:.1f} s")
+    if failed:
+        fail("; ".join(failed))
+    return dict(wall=wall, ranks=ranks, seconds=took, ref=ref,
+                gates={k: {f: v[f] for f in ("loss_rel", "ctrl_loss_rel", "key_bias")} for k, v in gates.items()})
+
+
 # -- phase 7d: bf16 compute ------------------------------------------------------
 
 BF16 = "bfloat16"
@@ -6093,6 +6494,11 @@ def main() -> int:
             train_errs[name]["max_abs_err"] = max(train_errs[name]["max_abs_err"], e["max_abs_err"])
             train_errs[name]["max_rel_err"] = max(train_errs[name]["max_rel_err"], e["max_rel_err"])
 
+    log("== phase 7i: the MoE expert axis (one 4-rank gang: {expert: 4}, {data: 2, expert: 2}, "
+        f"{{expert: 2, model: 2}} at {EP_EXPERTS} experts, train_translator(moe_experts={EP_EXPERTS}, "
+        "expert_parallel=2) with checkpoints, a resume and BLEU)")
+    ep = ep_slice(torch, hop, card)
+
     log("== phase 8: times")
     for label, run in runs.items():
         log(f"  {label:7s} engine ({run['kv_mode']}): {len(run['outs']) / run['wall']:.2f} requests/s, "
@@ -6213,6 +6619,11 @@ def main() -> int:
             r["runs"][k]["launches"] for r in sp["ranks"] for k in SP_MESHES]
         + [r["recipe"][m]["launches"] for r in sp["ranks"] for m in ("ring", "ulysses")]
         + [r["long"]["launches"] for r in sp["ranks"]],
+        f"gang: MT EP, {EP_GANG} ranks on one card ({{expert: 4}}, {{data: 2, expert: 2}}, "
+        f"{{expert: 2, model: 2}} at {EP_EXPERTS} experts, SGD and Adam; "
+        f"train_translator(moe_experts={EP_EXPERTS}, expert_parallel=2) and its resume)": [
+            r["runs"][k][opt]["launches"] for r in ep["ranks"] for k in EP_MESHES for opt in ("sgd", "adam")]
+        + [r["recipe"][n]["launches"] for r in ep["ranks"] for n in ("first", "second")],
         "live plane: paged fp32 engine": [recovery["live"]["paged fp32"]["launches"]],
         "live plane: padded engine": [recovery["live"]["padded"]["launches"]],
         **bf["paths"],
@@ -6307,6 +6718,15 @@ def main() -> int:
                           for k, v in r["runs"].items()},
                     recipe={k: {f: v.get(f) for f in ("comms", "launches", "bleu")}
                             for k, v in r["recipe"].items()}) for r in sp["ranks"]]), default=str)
+        + f" [{card}]")
+    log("  ep: " + json.dumps(dict(
+        wall=ep["wall"], seconds=ep["seconds"], ref=ep["ref"], gates=ep["gates"],
+        ranks=[dict(rank=r["rank"], runs={k: dict(
+            times=v["times"], peak=v["peak"], forward=v["forward"],
+            **{opt: {f: v[opt][f] for f in ("comms", "launches", "expert_bytes")} for opt in ("sgd", "adam")})
+            for k, v in r["runs"].items()},
+            recipe={k: {f: v.get(f) for f in ("comms", "launches", "bleu", "moe_aux", "resumed")}
+                    for k, v in r["recipe"].items()}) for r in ep["ranks"]]), default=str)
         + f" [{card}]")
     log("  bf16: " + json.dumps(dict(
         parity=bf["parity"], train_step={"fp32": train_times, "bf16": train_times_bf16},

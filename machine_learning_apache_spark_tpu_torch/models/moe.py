@@ -31,7 +31,27 @@ it. Expert dropout draws from the caller's generator
 
 The parameters keep the Flax names and layout — ``router`` ``[d, E]``,
 ``w_up`` ``[E, d, f]``, ``w_down`` ``[E, f, d]`` — so the weight bridge
-carries them as they are.
+carries them as they are, and their Flax logical axes (``param_axes``):
+``tensor_parallel.shard_params`` slices the leading ``"expert"`` dim over
+the mesh's expert axis and the ``"mlp"`` dim over its model axis.
+
+Sharded (the ``ep_sharded`` / ``tp_sharded`` hooks), the router, its
+softmax, the capacity assignment and the aux loss run replicated on
+every rank of the line, exactly as unsharded. Rank ``r`` of an expert
+line of N keeps experts ``[r·E/N, (r+1)·E/N)`` of the dispatch tensor
+and of the weights and runs the batched FFN on them; under the model
+axis it also keeps its ``f/M`` hidden columns of ``w_up`` and rows of
+``w_down``, with ``copy_to_model`` before the up-projection and
+``reduce_from_model`` after the down-projection. Its combine is then
+summed over the expert line (``reduce_from_expert``). ``copy_to_expert``
+wraps only the copy of ``x`` that feeds the dispatch einsum and the gate
+as it enters the combine (``parallel.expert_parallel`` says why). The
+expert dropout draws the whole ``[E, B, C, f]`` mask from the shared
+generator and keeps this rank's slice.
+
+In a data-parallel gang the load-balancing loss is the global batch's,
+as in the JAX step over the whole batch: its statistics are summed over
+the data line (``parallel.data_parallel.bind_batch_line``).
 """
 
 from __future__ import annotations
@@ -45,11 +65,32 @@ from machine_learning_apache_spark_tpu_torch.models.transformer import (
     Dropout,
     lecun_normal_,
 )
+from machine_learning_apache_spark_tpu_torch.parallel.expert_parallel import (
+    copy_to_expert,
+    reduce_from_expert,
+)
+from machine_learning_apache_spark_tpu_torch.parallel.tensor_parallel import (
+    copy_to_model,
+    reduce_from_model,
+    sum_over_line,
+)
 
 
 class MoEFeedForward(nn.Module):
     """Drop-in replacement for the dense position-wise FFN: ``[B, S, d]``
     in and out, ``forward(x, dropout_rng, valid=, aux=)``."""
+
+    #: The Flax params' logical axes, which ``shard_params`` reads.
+    param_axes = {
+        "router": ("embed", None),
+        "w_up": ("expert", "embed", "mlp"),
+        "w_down": ("expert", "mlp", "embed"),
+    }
+    #: This rank's expert and model lines once sharded, and its data line
+    #: in a data-parallel gang (``data_parallel.bind_batch_line``).
+    ep = None
+    tp = None
+    batch_line = None
 
     def __init__(
         self,
@@ -76,6 +117,21 @@ class MoEFeedForward(nn.Module):
         for w in (self.router, self.w_up, self.w_down):
             lecun_normal_(w, generator, fan_in=math.prod(w.shape[:-1]))
 
+    def _sharded_on(self, line) -> bool:
+        return any(owner is line for owner, _, _ in getattr(self.w_up, "shards", ()))
+
+    def ep_sharded(self, axis) -> None:
+        """Run on this rank's experts of the expert line ``axis``."""
+        if self._sharded_on(axis):
+            self.ep = axis
+            self.dropout.shards += ((0, axis.index, axis.size),)
+
+    def tp_sharded(self, axis) -> None:
+        """Run on this rank's hidden columns of the model line ``axis``."""
+        if self._sharded_on(axis):
+            self.tp = axis
+            self.dropout.shards += ((-1, axis.index, axis.size),)
+
     def capacity(self, seq_len: int) -> int:
         """Slots per expert in each sequence's routing group."""
         return max(int(math.ceil(self.capacity_factor * seq_len / self.num_experts)), 1)
@@ -100,9 +156,8 @@ class MoEFeedForward(nn.Module):
             else torch.ones((b, s), dtype=torch.float32, device=x.device)
         )
 
-        # -- router (float32) ------------------------------------------------
-        logits = torch.einsum("bsd,de->bse", x.float(), self.router.float())
-        probs = torch.softmax(logits, dim=-1)  # [B, S, E]
+        # -- router (float32), replicated on an expert line -------------------
+        probs = self.route(x)  # [B, S, E]
         expert_idx = torch.argmax(probs, dim=-1)  # [B, S], the first max
         gate = probs.gather(-1, expert_idx[..., None])[..., 0] * vf
 
@@ -117,20 +172,48 @@ class MoEFeedForward(nn.Module):
         # [B, S, E, C]: token (b, s) -> (its expert, its slot)
         dispatch = onehot[..., None] * slots[:, :, None, :] * keep[..., None, None].float()
 
-        # -- expert FFNs, batched over the expert axis -----------------------
-        expert_in = torch.einsum("bsec,bsd->ebcd", dispatch.to(self.dtype), x.to(self.dtype))
+        # -- expert FFNs, batched over this rank's experts --------------------
+        x_in = x
+        if self.ep is not None:
+            dispatch = dispatch[:, :, self.ep.experts(e)]
+            x_in = copy_to_expert(x, self.ep)
+            gate = copy_to_expert(gate, self.ep)
+        expert_in = torch.einsum("bsec,bsd->ebcd", dispatch.to(self.dtype), x_in.to(self.dtype))
+        if self.tp is not None:
+            expert_in = copy_to_model(expert_in, self.tp)
         h = torch.relu(torch.einsum("ebcd,edf->ebcf", expert_in, self.w_up.to(self.dtype)))
         h = self.dropout(h, dropout_rng)
         expert_out = torch.einsum("ebcf,efd->ebcd", h, self.w_down.to(self.dtype))
+        if self.tp is not None:
+            expert_out = reduce_from_model(expert_out, self.tp)
 
         # -- weighted combine -------------------------------------------------
         combine = dispatch * gate[..., None, None]
         out = torch.einsum("bsec,ebcd->bsd", combine.to(self.dtype), expert_out)
+        if self.ep is not None:
+            out = reduce_from_expert(out, self.ep)
 
-        # -- Switch load-balancing loss over valid tokens ---------------------
         if aux is not None:
-            n_valid = vf.sum().clamp_min(1.0)
-            frac_routed = onehot.sum(dim=(0, 1)) / n_valid  # f_e, before drops
-            mean_prob = (probs * vf[..., None]).sum(dim=(0, 1)) / n_valid  # p_e
-            aux.append(e * torch.sum(frac_routed * mean_prob))
+            aux.append(self.balance_loss(probs, onehot, vf))
         return out
+
+    def route(self, x: torch.Tensor) -> torch.Tensor:
+        """The router's softmax over the experts, in float32."""
+        logits = torch.einsum("bsd,de->bse", x.float(), self.router.float())
+        return torch.softmax(logits, dim=-1)
+
+    def balance_loss(self, probs: torch.Tensor, onehot: torch.Tensor,
+                     vf: torch.Tensor) -> torch.Tensor:
+        """The Switch load-balancing loss over the valid tokens — of the
+        global batch under a data line (``batch_line``): the routed counts,
+        the probability sums and the valid count summed over it, the sum's
+        cotangent summed back."""
+        e = self.num_experts
+        stats = torch.cat([onehot.sum(dim=(0, 1)), (probs * vf[..., None]).sum(dim=(0, 1)),
+                           vf.sum().reshape(1)])
+        if self.batch_line is not None:
+            stats = sum_over_line(stats, self.batch_line)
+        n_valid = stats[2 * e].clamp_min(1.0)
+        frac_routed = stats[:e] / n_valid  # f_e, before drops
+        mean_prob = stats[e:2 * e] / n_valid  # p_e
+        return e * torch.sum(frac_routed * mean_prob)

@@ -269,26 +269,29 @@ class _ReplayedDraws:
     def rewind(self) -> None:
         self.next = 0
 
-    def keep_mask(self, x: torch.Tensor, keep: float, shard=None) -> torch.Tensor:
+    def keep_mask(self, x: torch.Tensor, keep: float, shards: tuple = ()) -> torch.Tensor:
         if self.next == len(self.masks):
-            self.masks.append(_draw_keep_mask(x, keep, self.rng, shard))
+            self.masks.append(_draw_keep_mask(x, keep, self.rng, shards))
         mask = self.masks[self.next]
         self.next += 1
         return mask
 
 
 def _draw_keep_mask(x: torch.Tensor, keep: float, rng: torch.Generator,
-                    shard: tuple[int, int] | None = None) -> torch.Tensor:
-    """The keep-mask of ``x``; for a model-axis shard ``(index, size)`` of
-    the last dim, the mask of the whole width drawn and this rank's slice
-    kept, so the shards of one layer draw as the unsharded layer does."""
-    if shard is None:
-        draw = torch.rand(x.shape, generator=rng, device=x.device, dtype=x.dtype)
-        return draw < keep
-    index, size = shard
-    width = x.shape[-1]
-    draw = torch.rand((*x.shape[:-1], width * size), generator=rng, device=x.device, dtype=x.dtype)
-    return draw[..., index * width:(index + 1) * width] < keep
+                    shards: tuple = ()) -> torch.Tensor:
+    """The keep-mask of ``x``. For a shard of ``x`` (``shards``: ``(dim,
+    index, size)`` for each dim of which this rank holds the ``index``-th
+    of ``size`` equal slices) the mask of the whole tensor is drawn and
+    this rank's slice kept, so the shards of one layer draw as the
+    unsharded layer does and every rank's generator advances alike."""
+    shape = list(x.shape)
+    for dim, _, size in shards:
+        shape[dim] *= size
+    draw = torch.rand(shape, generator=rng, device=x.device, dtype=x.dtype)
+    for dim, index, _ in shards:
+        width = x.shape[dim]
+        draw = draw.narrow(dim, index * width, width)
+    return draw < keep
 
 
 class Dropout(nn.Module):
@@ -299,11 +302,11 @@ class Dropout(nn.Module):
     keeps each element where ``torch.rand(..., generator=rng) < 1 - rate``
     and scales the kept ones by ``1 / (1 - rate)``. ``rng`` must live on
     ``x``'s device (or be a rematerialised layer's ``_ReplayedDraws``).
-    Never touches the global RNG. On a model-axis shard of the last dim
-    (``tp_shard = (index, size)``, set by tensor parallelism) the mask is
-    this rank's slice of the whole width's."""
+    Never touches the global RNG. On a shard (``shards``, set by tensor
+    and expert parallelism: ``(dim, index, size)`` per sharded dim) the
+    mask is this rank's slice of the whole tensor's."""
 
-    tp_shard: tuple[int, int] | None = None
+    shards: tuple = ()
 
     def __init__(self, rate: float):
         super().__init__()
@@ -318,9 +321,9 @@ class Dropout(nn.Module):
         if keep == 0.0:
             return torch.zeros_like(x)
         if isinstance(rng, _ReplayedDraws):
-            mask = rng.keep_mask(x, keep, self.tp_shard)
+            mask = rng.keep_mask(x, keep, self.shards)
         else:
-            mask = _draw_keep_mask(x, keep, rng, self.tp_shard)
+            mask = _draw_keep_mask(x, keep, rng, self.shards)
         return torch.where(mask, x / keep, 0.0)
 
 
@@ -546,7 +549,7 @@ class FeedForward(nn.Module):
     def tp_sharded(self, axis) -> None:
         # The dropout between up and down sees this rank's hidden slice.
         if self.up.tp is not None:
-            self.dropout.tp_shard = (axis.index, axis.size)
+            self.dropout.shards = ((-1, axis.index, axis.size),)
 
     def forward(
         self, x: torch.Tensor, dropout_rng: torch.Generator | None = None, *,
@@ -810,8 +813,10 @@ class Transformer(nn.Module):
             elif isinstance(m, SentenceEmbedding):
                 m.reset_table()
 
-    #: Set by tensor parallelism: the model axis this model's shard lies on.
+    #: Set by tensor and expert parallelism: the model and expert axes
+    #: this model's shards lie on.
     tp_axis = None
+    ep_axis = None
 
     @property
     def vocab_shard(self):
@@ -824,11 +829,11 @@ class Transformer(nn.Module):
         return axis, axis.index * self.lm_head.weight.shape[0]
 
     def _single_device(self, what: str) -> None:
-        if self.tp_axis is not None:
+        if self.tp_axis is not None or self.ep_axis is not None:
             raise ValueError(
-                f"{what} runs on whole weights; this model holds a model-axis "
-                "shard — load tensor_parallel.gather_params(model) into an "
-                "unsharded Transformer"
+                f"{what} runs on whole weights; this model holds a model- or "
+                "expert-axis shard — load tensor_parallel.gather_params(model) "
+                "into an unsharded Transformer"
             )
 
     def logits(self, y: torch.Tensor) -> torch.Tensor:

@@ -13,9 +13,11 @@ for the encoder-decoder Transformer), alone or on ``data × pipeline``;
 sequence parallelism over the ``"seq"`` axis (``parallel.sequence``:
 ring attention, ``parallel.ring_attention``, or Ulysses all-to-alls,
 ``parallel.ulysses_attention``, under ``ops.attention.
-sequence_parallel``), alone or on ``data × seq``. The experts' axis is
-ROADMAP A4; a mesh axis for it larger than 1 raises
-``NotImplementedError``, as does a seq axis beside any axis but data.
+sequence_parallel``), alone or on ``data × seq``; expert parallelism
+over the ``"expert"`` axis (``parallel.expert_parallel``: each rank of
+an expert line runs its share of every MoE layer's experts), alone, on
+``data × expert`` or beside the model axis. A seq axis beside any axis
+but data raises ``NotImplementedError`` (ROADMAP A4: seq × model).
 """
 
 from machine_learning_apache_spark_tpu_torch.parallel.data_parallel import (
@@ -41,6 +43,12 @@ from machine_learning_apache_spark_tpu_torch.parallel.mesh import (
     replicate,
     replicated_sharding,
     shard_batch,
+)
+from machine_learning_apache_spark_tpu_torch.parallel.expert_parallel import (
+    EPComms,
+    ExpertAxis,
+    copy_to_expert,
+    reduce_from_expert,
 )
 from machine_learning_apache_spark_tpu_torch.parallel.pipeline_parallel import pipeline_apply
 from machine_learning_apache_spark_tpu_torch.parallel.ring_attention import ring_attention
@@ -79,7 +87,9 @@ __all__ = [
     "DEFAULT_BUCKET_BYTES",
     "DP_MODES",
     "DATA_AXIS",
+    "EPComms",
     "EXPERT_AXIS",
+    "ExpertAxis",
     "MODEL_AXIS",
     "Mesh",
     "Zero1Config",
@@ -89,6 +99,7 @@ __all__ = [
     "assert_replicas_in_sync",
     "batch_sharding",
     "comms_bytes_per_step",
+    "copy_to_expert",
     "data_model_mesh",
     "data_parallel_mesh",
     "gather_params",
@@ -108,6 +119,7 @@ __all__ = [
     "plan_layout",
     "process_count",
     "process_index",
+    "reduce_from_expert",
     "replicate",
     "replicated_sharding",
     "resolve_dp_mode",

@@ -33,7 +33,10 @@ model`` mesh (tensor parallelism, ``parallel.tensor_parallel``) the ranks
 of one model line see the same rows and hold different shards; summing
 over the whole gang would count the rows M times and mix the shards. A
 mesh without a data axis has one replica and no data-parallel sums. The
-model's own collectives run inside its forward and backward.
+model's own collectives run inside its forward and backward. So it is on
+a mesh with an ``"expert"`` axis (``parallel.expert_parallel``): the
+ranks of an expert line see the same rows and hold different experts,
+and an expert shard is the same on every rank of its data line.
 
 On a mesh with a ``"seq"`` axis (``parallel.sequence``) the ranks of
 one seq line see the same rows and hold the same whole model; under
@@ -53,6 +56,14 @@ gradients of the ranks of the stage that owns it — the others put
 zeros — divided by the data axis's size, so every rank applies the same
 update to the same parameters. The loss weights and sums stay the data
 line's. ``assert_replicas_in_sync`` compares the whole mesh there.
+
+A layer whose output depends on statistics of the whole global batch
+(the MoE's load-balancing loss: the fraction of valid tokens routed to
+each expert and their mean router probability) sums them over the data
+line (``bind_batch_line``, which ``fit`` and ``evaluate`` call) with an
+all-reduce whose backward all-reduces the cotangent: each rank then holds
+the global batch's value, and DDP's token-weighted mean of the ranks'
+gradients is the global loss's gradient, as in the JAX step.
 
 ``params_fingerprint`` is the JAX package's weighted sum of |p| per leaf,
 in the Flax tree's leaf order; ``assert_replicas_in_sync`` compares it
@@ -78,11 +89,15 @@ from torch.nn.parallel import DistributedDataParallel
 from machine_learning_apache_spark_tpu_torch import telemetry
 from machine_learning_apache_spark_tpu_torch.parallel.mesh import (
     DATA_AXIS,
+    EXPERT_AXIS,
     MODEL_AXIS,
     PIPELINE_AXIS,
     SEQ_AXIS,
     Mesh,
+    TimedCollectives,
+    process_count,
 )
+from machine_learning_apache_spark_tpu_torch.parallel.tensor_parallel import AxisLine, model_lines
 
 _TINY = float(np.finfo(np.float32).tiny)
 
@@ -187,6 +202,35 @@ def _total_weight(mesh: Mesh, weight: float) -> float:
     return float(t[0])
 
 
+class BatchStatsComms(TimedCollectives):
+    """Host-timed all-reduces of a layer's batch statistics over the data
+    line (``comms.dp_stats`` spans)."""
+
+    KINDS = ("dp_stats",)
+    STEPS = "dp_stats_steps"
+
+
+class DataLine(AxisLine):
+    """This rank's line of the data axis: the ranks whose rows make up one
+    global batch."""
+
+    AXIS, KIND, COMMS = DATA_AXIS, "dp_stats", BatchStatsComms
+
+
+def bind_batch_line(model: nn.Module, mesh: Mesh | None) -> None:
+    """Give every layer of ``model`` that sums statistics over the global
+    batch (a ``batch_line`` attribute: the MoE's load-balancing loss) this
+    rank's data line on ``mesh``, or none (one process, or a data axis of
+    1): the JAX step computes such a statistic over the whole global
+    batch, where each rank here holds only its rows."""
+    line = None
+    if mesh is not None and mesh.axis_size(DATA_AXIS) > 1 and process_count() > 1:
+        line = DataLine(mesh)
+    for m in model.modules():
+        if hasattr(m, "batch_line"):
+            m.batch_line = line
+
+
 def _global_means(mesh: Mesh, weight: float, loss: torch.Tensor, aux: dict,
                   total: float | None = None):
     """``(loss, aux)`` of the global batch — the weight-averaged means over
@@ -217,7 +261,8 @@ def make_data_parallel_step(loss_fn: Callable, mesh: Mesh, *, axis: str = DATA_A
     built at the first step over the data axis's group (its constructor
     broadcasts the first data rank's parameters). ``step.comms`` is the
     ``GradientComms``; on a mesh with a model axis the model's
-    ``TPComms`` is closed once per step. On a mesh with a pipeline axis
+    ``TPComms`` (with an expert axis, its ``EPComms``) is closed once per
+    step. On a mesh with a pipeline axis
     the gradients are synced by ``pipeline_parallel.GradSync`` instead
     of DDP (``step.comms``), the first step's ``replica`` broadcasts
     rank 0's parameters and buffers over the whole mesh, and the line's
@@ -304,9 +349,8 @@ def make_data_parallel_step(loss_fn: Callable, mesh: Mesh, *, axis: str = DATA_A
             )
         state.apply_gradients()
         g_loss, g_aux = _global_means(mesh, weight, loss, aux, total)
-        tp_axis = getattr(state.model, "tp_axis", None)
-        if tp_axis is not None:
-            tp_axis.comms.end_step()
+        for axis_line in model_lines(state.model):
+            axis_line.comms.end_step()
         for open_line in (line, sp_line):
             if open_line is not None:
                 open_line.comms.end_step()
@@ -411,9 +455,9 @@ def assert_replicas_in_sync(params, *, atol: float = 1e-6, mesh: Mesh | None = N
     parameter fingerprint and assert they agree within ``atol`` relative —
     the check for the reference's Q2-class replica drift
     (``distributed_cnn.py:175``). One process passes trivially. Returns
-    the largest divergence from rank 0's. On a mesh with a model axis the
-    replicas are the ranks of one data line (each model rank holds its
-    own shards), compared line by line; on a pipeline mesh every rank
+    the largest divergence from rank 0's. On a mesh with a model or an
+    expert axis the replicas are the ranks of one data line (each model
+    and expert rank holds its own shards), compared line by line; on a pipeline mesh every rank
     holds the whole model, so the whole mesh is compared. On a mesh with
     a seq axis each seq line must hold the same bits besides (a checksum
     of the parameters' bits, equal on every rank of the line). A state is
@@ -421,10 +465,7 @@ def assert_replicas_in_sync(params, *, atol: float = 1e-6, mesh: Mesh | None = N
     optimizer state sharded over the ranks
     (``parallel.zero.ShardedOptState``) raises ``ValueError``: its ranks
     hold different data by design."""
-    from machine_learning_apache_spark_tpu_torch.parallel.mesh import (
-        data_parallel_mesh,
-        process_count,
-    )
+    from machine_learning_apache_spark_tpu_torch.parallel.mesh import data_parallel_mesh
     from machine_learning_apache_spark_tpu_torch.parallel.zero import ShardedOptState
 
     if isinstance(params, ShardedOptState):
@@ -449,7 +490,8 @@ def assert_replicas_in_sync(params, *, atol: float = 1e-6, mesh: Mesh | None = N
                 f"the {n} ranks of a seq line hold different parameter bits "
                 f"(checksums {sums.tolist()})"
             )
-    axis = DATA_AXIS if mesh.axis_size(MODEL_AXIS) > 1 else None
+    sharded = mesh.axis_size(MODEL_AXIS) > 1 or mesh.axis_size(EXPERT_AXIS) > 1
+    axis = DATA_AXIS if sharded else None
     world = mesh.axis_size(DATA_AXIS) if axis else mesh.size
     if world == 1:
         return 0.0

@@ -17,14 +17,17 @@ with one device each (``launcher.coordinator``), joined by a
   ``ops.attention.sequence_parallel``. It composes with ``"data"`` only:
   beside ``"model"``, ``"pipeline"`` or ``"expert"`` it raises
   ``NotImplementedError`` naming its ROADMAP item;
-- ``"expert"``   — the JAX package's MoE axis. Only size 1 is ported: a
-  larger one raises ``NotImplementedError`` naming its ROADMAP item.
+- ``"expert"``   — expert parallelism (``parallel.expert_parallel``): each
+  rank of an expert line holds its share of every MoE layer's experts and
+  runs their FFNs on the rows the line holds alike.
 
 Ranks lie on the mesh as the JAX mesh lays devices: the axes in
 canonical order, ``data`` outermost and ``model`` innermost, so on a
 ``data × model`` mesh rank = ``data_index · M + model_index``, on a
-``data × pipeline`` one rank = ``data_index · S + stage`` and on a
-``data × seq`` one rank = ``data_index · N + seq_index``. A mesh of
+``data × pipeline`` one rank = ``data_index · S + stage``, on a
+``data × seq`` one rank = ``data_index · N + seq_index`` and on a
+``data × expert × model`` one rank = ``(data_index · N + expert_index) ·
+M + model_index``. A mesh of
 several processes builds one process group per line of each axis (the
 ranks that share every other coordinate) when it is made: every rank
 calls ``dist.new_group`` for every group, in one fixed order, as
@@ -63,13 +66,8 @@ EXPERT_AXIS = "expert"
 
 _CANONICAL_ORDER = (DATA_AXIS, PIPELINE_AXIS, EXPERT_AXIS, SEQ_AXIS, MODEL_AXIS)
 
-#: The ROADMAP items that port each axis still unported.
-_AXIS_ITEMS = {
-    EXPERT_AXIS: "A4: the MoE experts' mesh axis",
-}
-
 #: The axes a mesh may hold larger than 1.
-_PORTED_AXES = (DATA_AXIS, PIPELINE_AXIS, SEQ_AXIS, MODEL_AXIS)
+_PORTED_AXES = (DATA_AXIS, PIPELINE_AXIS, EXPERT_AXIS, SEQ_AXIS, MODEL_AXIS)
 
 #: The ROADMAP item that composes the seq axis with the axes other than
 #: ``"data"``.
@@ -210,14 +208,16 @@ class TimedCollectives:
                 self._first[kind] = None
 
     def emit_counters(self) -> None:
-        """One ``comms.<kind>_bytes`` and one ``comms.<kind>_window_seconds``
-        counter event per kind with the steps so far, which the gang
-        report's comms section turns into per-step figures."""
+        """One ``comms.<kind>_calls``, one ``comms.<kind>_bytes`` and one
+        ``comms.<kind>_window_seconds`` counter event per kind with the
+        steps so far, which the gang report's comms section turns into
+        per-step figures."""
         if not self.steps:
             return
         log = telemetry.get_log()
         for kind in self.KINDS:
             attrs = {"steps": self.steps}
+            log.emit("counter", f"comms.{kind}_calls", value=self.calls[kind], attrs=attrs)
             log.emit("counter", f"comms.{kind}_bytes", value=self.bytes[kind], attrs=attrs)
             log.emit("counter", f"comms.{kind}_window_seconds", value=self.window[kind], attrs=attrs)
 
@@ -313,6 +313,17 @@ class Mesh:
             _run_collective(tensor, lambda t: dist.all_reduce(t, op=red, group=group))
         return tensor
 
+    def all_gather(self, tensor: torch.Tensor, axis: str) -> torch.Tensor:
+        """Every rank's ``tensor`` of this rank's line of ``axis``, stacked
+        in index order (``[n, *tensor.shape]``; one
+        ``all_gather_into_tensor``, which gloo takes for CUDA tensors)."""
+        n = self.axis_size(axis)
+        if n == 1:
+            return tensor[None]
+        out = torch.empty(n * tensor.numel(), dtype=tensor.dtype, device=tensor.device)
+        dist.all_gather_into_tensor(out, tensor.reshape(-1).contiguous(), group=self.group(axis))
+        return out.view(n, *tensor.shape)
+
     def broadcast_(self, tensor: torch.Tensor, src: int = 0,
                    axis: str | None = None) -> torch.Tensor:
         """Overwrite ``tensor`` in place with rank ``src``'s (with ``axis``:
@@ -340,11 +351,10 @@ def make_mesh(
 
     Size ``0`` or ``-1`` on at most one axis means "all remaining
     processes"; no axes means a pure data-parallel mesh over all of them.
-    The shape errors are the JAX package's ``ValueError``s. An axis other
-    than ``"data"``, ``"pipeline"``, ``"seq"`` or ``"model"`` larger than 1
-    raises ``NotImplementedError`` naming the ROADMAP item that ports it,
-    as does a ``"seq"`` axis beside a ``"model"``, ``"pipeline"`` or
-    ``"expert"`` one."""
+    The shape errors are the JAX package's ``ValueError``s. A ``"seq"``
+    axis beside a ``"model"``, ``"pipeline"`` or ``"expert"`` one raises
+    ``NotImplementedError`` naming the ROADMAP item that composes them; an
+    axis name the port does not know, larger than 1, raises it too."""
     n = process_count() if world is None else world
     axes = dict(axes or {DATA_AXIS: n})
 
@@ -370,10 +380,9 @@ def make_mesh(
             )
     for name, size in axes.items():
         if name not in _PORTED_AXES and size > 1:
-            item = _AXIS_ITEMS.get(name, "A4 (distributed)")
             raise NotImplementedError(
                 f"mesh axis {name!r} of size {size} is not ported yet "
-                f"(ROADMAP queue {item})"
+                f"(ROADMAP queue A4 (distributed))"
             )
     names = sorted(
         axes.keys(),

@@ -36,6 +36,13 @@ cross-entropy (``train.losses.vocab_parallel_token_cross_entropy``); an
 MLP whose last layer is column-parallel gathers its outputs
 (``gather_from_model``) before the loss.
 
+The same placement covers the expert axis: an MoE layer's ``param_axes``
+name ``"expert"`` on the leading dim of ``w_up``/``w_down`` (and
+``"mlp"`` on their hidden dim), so under ``model × expert`` such a leaf
+is sliced on two axes at once. Its mark lists both (``p.shards``), and
+``gather_full``, ``shard_state`` and ``global_sq_norm`` read each entry
+(``parallel.expert_parallel`` holds the expert line's collectives).
+
 Every model-axis all-reduce is host-timed into the model's
 ``TPComms`` (``comms.tp_allreduce`` spans: count, bytes, the window per
 step). ``with_sharding_constraint`` has no eager counterpart — an
@@ -47,7 +54,6 @@ from __future__ import annotations
 from typing import Mapping
 
 import torch
-import torch.distributed as dist
 from torch import nn
 
 from machine_learning_apache_spark_tpu_torch.parallel.mesh import (
@@ -110,20 +116,27 @@ class TPComms(TimedCollectives):
     STEPS = "tp_allreduce_steps"
 
 
-class ModelAxis:
-    """This rank's line of the mesh's model axis: ``size`` ranks, this one
-    at ``index``, and the collectives over them (timed into ``comms``)."""
+class AxisLine:
+    """This rank's line of one mesh axis (``AXIS``): ``size`` ranks, this
+    one at ``index``, and the collectives over them, each all-reduce
+    timed into ``comms`` (a ``COMMS``, under the kind ``KIND``).
+    ``ModelAxis`` and ``parallel.expert_parallel.ExpertAxis`` are its
+    two lines."""
+
+    AXIS = ""
+    KIND = ""
+    COMMS = TimedCollectives
 
     def __init__(self, mesh):
         self.mesh = mesh
-        self.size = mesh.axis_size(MODEL_AXIS)
-        self.index = mesh.index(MODEL_AXIS)
-        self.comms = TPComms()
+        self.size = mesh.axis_size(self.AXIS)
+        self.index = mesh.index(self.AXIS)
+        self.comms = self.COMMS()
 
     def restart_comms(self) -> None:
         """Start new totals: a fit's own, or none left open by an
         evaluation."""
-        self.comms = TPComms()
+        self.comms = self.COMMS()
 
     def all_reduce_(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
         """``t`` summed (or maxed) in place over the line, in float32 for
@@ -132,7 +145,7 @@ class ModelAxis:
             return t
         work = t if t.dtype in (torch.float32, torch.float64, torch.int64) else t.float()
         self.comms.timed(
-            "tp_allreduce", lambda: self.mesh.all_reduce_(work, op=op, axis=MODEL_AXIS),
+            self.KIND, lambda: self.mesh.all_reduce_(work, op=op, axis=self.AXIS),
             work.numel() * work.element_size(),
         )()
         if work is not t:
@@ -140,23 +153,26 @@ class ModelAxis:
         return t
 
     def pieces(self, t: torch.Tensor) -> list[torch.Tensor]:
-        """Every rank's ``t`` of the line, in index order (one
-        ``all_gather_into_tensor``, which gloo takes for CUDA tensors)."""
+        """Every rank's ``t`` of the line, in index order."""
         if self.size == 1:
             return [t]
-        out = torch.empty(self.size * t.numel(), dtype=t.dtype, device=t.device)
-        dist.all_gather_into_tensor(out, t.reshape(-1), group=self.mesh.group(MODEL_AXIS))
-        return list(out.view(self.size, *t.shape).unbind(0))
+        return list(self.mesh.all_gather(t, self.AXIS).unbind(0))
 
     def all_gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
         """The line's ``t``s concatenated along ``dim`` in index order."""
         return torch.cat(self.pieces(t), dim=dim) if self.size > 1 else t
 
     def __repr__(self) -> str:
-        return f"ModelAxis(size={self.size}, index={self.index})"
+        return f"{type(self).__name__}(size={self.size}, index={self.index})"
 
 
-class _CopyToModel(torch.autograd.Function):
+class ModelAxis(AxisLine):
+    """This rank's line of the mesh's model axis (``comms.tp_allreduce``)."""
+
+    AXIS, KIND, COMMS = MODEL_AXIS, "tp_allreduce", TPComms
+
+
+class _CopyToLine(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, axis):
         ctx.axis = axis
@@ -167,7 +183,7 @@ class _CopyToModel(torch.autograd.Function):
         return ctx.axis.all_reduce_(grad.clone(memory_format=torch.contiguous_format)), None
 
 
-class _ReduceFromModel(torch.autograd.Function):
+class _ReduceFromLine(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, axis):
         return axis.all_reduce_(x.clone(memory_format=torch.contiguous_format))
@@ -191,12 +207,18 @@ class _GatherFromModel(torch.autograd.Function):
 
 def copy_to_model(x: torch.Tensor, axis: ModelAxis) -> torch.Tensor:
     """Identity forward; the gradient all-reduced over the model axis."""
-    return _CopyToModel.apply(x, axis)
+    return _CopyToLine.apply(x, axis)
 
 
 def reduce_from_model(x: torch.Tensor, axis: ModelAxis) -> torch.Tensor:
     """``x`` summed over the model axis; the gradient passed through."""
-    return _ReduceFromModel.apply(x, axis)
+    return _ReduceFromLine.apply(x, axis)
+
+
+def sum_over_line(x: torch.Tensor, line: AxisLine) -> torch.Tensor:
+    """``x`` summed over ``line``, the gradient summed over it too: the
+    adjoint of a sum that every rank of the line goes on to use."""
+    return _CopyToLine.apply(_ReduceFromLine.apply(x, line), line)
 
 
 def gather_from_model(x: torch.Tensor, axis: ModelAxis) -> torch.Tensor:
@@ -268,13 +290,42 @@ def _layer_spec(module: nn.Module, mesh, rules, name: str) -> tuple[str | None, 
     return None, 1
 
 
-def _mark(p: torch.Tensor, axis: ModelAxis, dim: int, parts: int) -> None:
-    p.tp_axis, p.tp_dim, p.tp_parts = axis, dim, parts
+def _mark(p: torch.Tensor, line: AxisLine, dim: int, parts: int) -> None:
+    """Record on ``p`` that it holds ``line``'s slice along ``dim`` (of
+    each of ``parts`` fused parts): ``p.shards`` lists every such
+    ``(line, dim, parts)`` in the order they were taken."""
+    p.shards = (*getattr(p, "shards", ()), (line, dim, parts))
+
+
+def local_slice(p: torch.Tensor, full: torch.Tensor) -> torch.Tensor:
+    """This rank's slice of ``full`` (a tensor of ``p``'s unsharded
+    shape: an optimizer moment, an accumulator) as ``p``'s marks took
+    ``p``'s."""
+    for line, dim, parts in getattr(p, "shards", ()):
+        full = shard_slice(full, dim, parts, line.index, line.size)
+    return full.contiguous()
 
 
 def is_sharded(model: nn.Module) -> bool:
-    """Whether ``model`` holds a model-axis shard (``shard_params`` ran)."""
-    return getattr(model, "tp_axis", None) is not None
+    """Whether ``model`` holds a model- or expert-axis shard
+    (``shard_params`` ran)."""
+    return (getattr(model, "tp_axis", None) is not None
+            or getattr(model, "ep_axis", None) is not None)
+
+
+def model_lines(model: nn.Module) -> list:
+    """The model's own axis lines (its ``ModelAxis`` and ``ExpertAxis``,
+    once sharded), whose collectives it times."""
+    return [a for a in (getattr(model, "tp_axis", None), getattr(model, "ep_axis", None))
+            if a is not None]
+
+
+def _mesh_lines(mesh) -> dict:
+    """``{axis: line}`` for the mesh's model and expert axes larger than 1."""
+    from machine_learning_apache_spark_tpu_torch.parallel.expert_parallel import ExpertAxis
+
+    return {line.AXIS: line(mesh) for line in (ModelAxis, ExpertAxis)
+            if mesh.axis_size(line.AXIS) > 1}
 
 
 @torch.no_grad()
@@ -282,53 +333,76 @@ def shard_params(model: nn.Module, mesh, rules: Mapping[str, str | None] | None 
     """Keep only this rank's slice of every annotated weight of ``model``
     (in place: each ``Parameter`` keeps its identity, so an optimizer
     built over it stays valid) and switch its layers to the sharded
-    forward. Every model rank must call this on the same full weights.
-    A mesh whose model axis is 1 changes nothing. Returns ``model``."""
-    if is_sharded(model) or mesh.axis_size(MODEL_AXIS) <= 1:
+    forward. Every rank must call this on the same full weights.
+
+    A linear layer's annotation (``Dense(axes=)``) shards it over the
+    model axis, column- or row-parallel. A module's ``param_axes``
+    (``{name: logical axes}``, e.g. the MoE's ``("expert", "embed",
+    "mlp")`` on ``w_up``) slices each dim of that parameter whose logical
+    name the rules map to a mesh axis larger than 1 — the expert axis, the
+    model axis, or both at once. Then each module's ``tp_sharded(model
+    line)`` and ``ep_sharded(expert line)`` hooks run. A mesh whose model
+    and expert axes are 1 changes nothing. Returns ``model``."""
+    lines = _mesh_lines(mesh)
+    if is_sharded(model) or not lines:
         return model
-    axis = ModelAxis(mesh)
-    for m in model.modules():
-        check = getattr(m, "tp_check", None)
-        if check is not None:
-            check(axis.size)
+    axis = lines.get(MODEL_AXIS)
+    if axis is not None:
+        for m in model.modules():
+            check = getattr(m, "tp_check", None)
+            if check is not None:
+                check(axis.size)
+        for name, m in model.named_modules():
+            mode, parts = _layer_spec(m, mesh, rules, name)
+            if mode is None:
+                continue
+            if mode == "column":
+                m.weight.data = shard_slice(m.weight.data, 0, parts, axis.index, axis.size).contiguous()
+                m.bias.data = shard_slice(m.bias.data, 0, parts, axis.index, axis.size).contiguous()
+                _mark(m.weight, axis, 0, parts)
+                _mark(m.bias, axis, 0, parts)
+            else:
+                m.weight.data = shard_slice(m.weight.data, 1, 1, axis.index, axis.size).contiguous()
+                _mark(m.weight, axis, 1, 1)
+            m.tp = LinearShard(mode, axis)
     for name, m in model.named_modules():
-        mode, parts = _layer_spec(m, mesh, rules, name)
-        if mode is None:
+        for pname, logical in getattr(m, "param_axes", {}).items():
+            p = getattr(m, pname)
+            for dim, entry in enumerate(logical_to_mesh_spec(logical, mesh, rules)):
+                line = lines.get(entry)
+                if line is None or not _divisible(
+                        p.shape[dim], line.size, 1, f"{name}/{pname}", dim, entry):
+                    continue
+                p.data = shard_slice(p.data, dim, 1, line.index, line.size).contiguous()
+                _mark(p, line, dim, 1)
+    for hook_name, line in (("tp_sharded", axis), ("ep_sharded", lines.get(EXPERT_AXIS))):
+        if line is None:
             continue
-        if mode == "column":
-            m.weight.data = shard_slice(m.weight.data, 0, parts, axis.index, axis.size).contiguous()
-            m.bias.data = shard_slice(m.bias.data, 0, parts, axis.index, axis.size).contiguous()
-            _mark(m.weight, axis, 0, parts)
-            _mark(m.bias, axis, 0, parts)
-        else:
-            m.weight.data = shard_slice(m.weight.data, 1, 1, axis.index, axis.size).contiguous()
-            _mark(m.weight, axis, 1, 1)
-        m.tp = LinearShard(mode, axis)
-    for m in model.modules():
-        hook = getattr(m, "tp_sharded", None)
-        if hook is not None:
-            hook(axis)
+        for m in model.modules():
+            hook = getattr(m, hook_name, None)
+            if hook is not None:
+                hook(line)
     model.tp_axis = axis
+    model.ep_axis = lines.get(EXPERT_AXIS)
     return model
 
 
 def gather_full(p: torch.Tensor, value: torch.Tensor | None = None) -> torch.Tensor:
     """``value`` (default: the parameter ``p`` itself; e.g. its gradient)
-    in ``p``'s unsharded layout: gathered over the model axis when ``p``
-    is a shard, else as it is."""
+    in ``p``'s unsharded layout: gathered over each axis ``p`` is sharded
+    on, in turn, when it is a shard, else as it is."""
     value = p.detach() if value is None else value
-    axis = getattr(p, "tp_axis", None)
-    if axis is None:
-        return value
-    return unshard(axis.pieces(value), p.tp_dim, p.tp_parts)
+    for line, dim, parts in reversed(getattr(p, "shards", ())):
+        value = unshard(line.pieces(value), dim, parts)
+    return value
 
 
 @torch.no_grad()
 def gather_params(model: nn.Module) -> dict[str, torch.Tensor]:
     """The full ``state_dict`` of a sharded ``model``: each sharded
-    parameter all-gathered over the model axis and put back in the
-    unsharded layout (exact copies: bit for bit the weights a full load
-    holds), every other entry as it is. Loads into the unsharded model."""
+    parameter all-gathered over its axes and put back in the unsharded
+    layout (exact copies: bit for bit the weights a full load holds),
+    every other entry as it is. Loads into the unsharded model."""
     out = dict(model.state_dict())
     for name, p in model.named_parameters():
         out[name] = gather_full(p)
@@ -336,28 +410,35 @@ def gather_params(model: nn.Module) -> dict[str, torch.Tensor]:
 
 
 def global_sq_norm(params: list, grads: list) -> torch.Tensor:
-    """The squared global norm of ``grads`` over the whole model: a
-    sharded leaf's squares summed over the model axis, a replicated
-    leaf's counted once (with no shard, the plain sum of squares)."""
-    sharded, replicated, axis = [], [], None
+    """The squared global norm of ``grads`` over the whole model: each
+    leaf's squares summed over exactly the axes its parameter is sharded
+    on (the leaves of one set of axes together: one all-reduce per axis
+    of the set), a replicated leaf's counted once (with no shard, the
+    plain sum of squares)."""
+    groups: dict = {}
     for p, g in zip(params, grads):
-        a = getattr(p, "tp_axis", None)
-        (sharded if a is not None else replicated).append(g)
-        axis = axis or a
-    if not sharded:
+        lines = tuple(line for line, _, _ in getattr(p, "shards", ()))
+        groups.setdefault(tuple(line.AXIS for line in lines), (lines, []))[1].append(g)
+    if set(groups) <= {()}:
         return sum(torch.sum(torch.square(g)) for g in grads)
-    part = sum(torch.sum(torch.square(g)) for g in sharded).reshape(1).float()
-    total = axis.all_reduce_(part)[0]
-    if replicated:
-        total = total + sum(torch.sum(torch.square(g)) for g in replicated)
+    total = None
+    for key in sorted(k for k in groups if k):
+        lines, members = groups[key]
+        part = sum(torch.sum(torch.square(g)) for g in members).reshape(1).float()
+        for line in lines:
+            part = line.all_reduce_(part)
+        total = part[0] if total is None else total + part[0]
+    if () in groups:
+        total = total + sum(torch.sum(torch.square(g)) for g in groups[()][1])
     return total
 
 
 def shard_state(state, mesh, rules: Mapping[str, str | None] | None = None, *, zero1: bool = False):
     """Place a ``TrainState`` per its model's annotations: the model
-    sharded over the model axis (``shard_params``), each optimizer moment
-    and accumulator sliced as its parameter is, every other leaf as it is
-    — the JAX ``shard_state``. On a pure data mesh nothing moves.
+    sharded over the model and expert axes (``shard_params``), each
+    optimizer moment and accumulator sliced as its parameter is, every
+    other leaf as it is — the JAX ``shard_state``. On a pure data mesh
+    nothing moves.
 
     ``zero1=True`` further shards the optimizer moments over the
     ``"data"`` axis on their leading dim (``parallel.zero.shard_moments``,
@@ -369,25 +450,19 @@ def shard_state(state, mesh, rules: Mapping[str, str | None] | None = None, *, z
             f"mesh shape {dict(mesh.shape)}"
         )
     model = state.model
-    if not is_sharded(model) and mesh.axis_size(MODEL_AXIS) > 1:
+    if not is_sharded(model) and _mesh_lines(mesh):
         full_shapes = {id(p): tuple(p.shape) for p in model.parameters()}
         shard_params(model, mesh, rules)
         with torch.no_grad():
             for p in model.parameters():
-                axis = getattr(p, "tp_axis", None)
-                if axis is None:
+                if not getattr(p, "shards", ()):
                     continue
                 for key, value in list(state.optimizer.state.get(p, {}).items()):
                     if isinstance(value, torch.Tensor) and tuple(value.shape) == full_shapes[id(p)]:
-                        state.optimizer.state[p][key] = shard_slice(
-                            value, p.tp_dim, p.tp_parts, axis.index, axis.size
-                        ).contiguous()
+                        state.optimizer.state[p][key] = local_slice(p, value)
             if state.acc_grads is not None:
-                state.acc_grads = [
-                    shard_slice(a, p.tp_dim, p.tp_parts, p.tp_axis.index, p.tp_axis.size).contiguous()
-                    if getattr(p, "tp_axis", None) is not None else a
-                    for p, a in zip(state.params, state.acc_grads)
-                ]
+                state.acc_grads = [local_slice(p, a) if getattr(p, "shards", ()) else a
+                                   for p, a in zip(state.params, state.acc_grads)]
     state.mesh = mesh
     if zero1:
         from machine_learning_apache_spark_tpu_torch.parallel.zero import shard_moments
@@ -398,6 +473,7 @@ def shard_state(state, mesh, rules: Mapping[str, str | None] | None = None, *, z
 
 __all__ = [
     "DEFAULT_RULES",
+    "AxisLine",
     "LinearShard",
     "ModelAxis",
     "TPComms",
@@ -407,10 +483,13 @@ __all__ = [
     "gather_params",
     "global_sq_norm",
     "is_sharded",
+    "local_slice",
     "logical_to_mesh_spec",
+    "model_lines",
     "reduce_from_model",
     "shard_params",
     "shard_slice",
     "shard_state",
+    "sum_over_line",
     "unshard",
 ]

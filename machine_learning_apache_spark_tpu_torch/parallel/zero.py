@@ -610,11 +610,13 @@ def init_sharded(*, model: nn.Module, tx, mesh, config: Zero1Config | None = Non
         from machine_learning_apache_spark_tpu_torch.parallel import tensor_parallel as _tp
 
         _tp.shard_params(model, mesh)
+        # Beside the data axis only the model axis may shard a leaf
+        # (_require_zero1_mesh), so a marked leaf is a model shard.
         order = tuple(
-            [i for i, p in enumerate(params) if getattr(p, "tp_axis", None) is not None]
-            + [i for i, p in enumerate(params) if getattr(p, "tp_axis", None) is None]
+            [i for i, p in enumerate(params) if getattr(p, "shards", ())]
+            + [i for i, p in enumerate(params) if not getattr(p, "shards", ())]
         )
-        n_sharded = sum(getattr(p, "tp_axis", None) is not None for p in params)
+        n_sharded = sum(bool(getattr(p, "shards", ())) for p in params)
         ordered = [params[i] for i in order]
         plan = make_hybrid_plan(
             ordered[:n_sharded], ordered[n_sharded:], axis_size, model_ways, config.bucket_bytes

@@ -89,10 +89,13 @@ def resolve_mesh(
     one device. ``model_parallel=M`` carves the inner ``"model"`` axis
     (tensor parallelism, ``{data: world/M, model: M}``) and
     ``pipeline_parallel=S`` the ``"pipeline"`` axis (``{data: world/S,
-    pipeline: S}``) and ``sequence_parallel=N`` the ``"seq"`` axis
-    (``{data: world/N, seq: N}``); an expert axis larger than 1, or a seq
-    axis beside a model or pipeline one, goes to ``make_mesh``, which
-    raises ``NotImplementedError`` naming its ROADMAP A4 item."""
+    pipeline: S}``), ``sequence_parallel=N`` the ``"seq"`` axis
+    (``{data: world/N, seq: N}``) and ``expert_parallel=N`` the
+    ``"expert"`` axis (``{data: world/N, expert: N}``, with
+    ``model_parallel=M`` beside it ``{data: world/(N·M), expert: N,
+    model: M}``); a seq axis beside a model, pipeline or expert one goes
+    to ``make_mesh``, which raises ``NotImplementedError`` naming its
+    ROADMAP A4 item."""
     extra = {
         "model_parallel": model_parallel,
         "sequence_parallel": sequence_parallel,
@@ -141,8 +144,8 @@ def resolve_mesh(
 def data_replicas(mesh=None) -> tuple[int, int]:
     """``(num_replicas, rank)`` for the samplers: the data axis's size and
     this process's index on it (the ranks of one model line, of one
-    pipeline line or of one seq line read the same rows); without a mesh,
-    the gang's processes."""
+    pipeline line, of one seq line or of one expert line read the same
+    rows); without a mesh, the gang's processes."""
     if mesh is None:
         return process_count(), process_index()
     return mesh.shape.get(DATA_AXIS, 1), mesh.index(DATA_AXIS)
@@ -333,10 +336,10 @@ def resume_epochs(ckpt, resumed: int, epochs: int) -> int:
 def data_parallel_state(state, mesh):
     """``state`` as ``fit(mesh=)`` trains it under the gang's data-parallel
     mode (``MLSPARK_DP_MODE``, which ``Distributor(dp_mode=)`` sets) and
-    the mesh's model axis: a ZeRO-1 gang's state is sharded here, and a
-    tensor-parallel state takes this rank's model shard, before the
-    recipe's checkpoint restore, so that the restore finds the layout its
-    checkpoints hold."""
+    the mesh's model and expert axes: a ZeRO-1 gang's state is sharded
+    here, and a tensor- or expert-parallel state takes this rank's model
+    and expert shards, before the recipe's checkpoint restore, so that the
+    restore finds the layout its checkpoints hold."""
     from machine_learning_apache_spark_tpu_torch.parallel import tensor_parallel, zero
 
     if mesh is None:

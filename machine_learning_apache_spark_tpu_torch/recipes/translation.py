@@ -43,8 +43,15 @@ tensor-parallel on a ``{data: world/M, model: M}`` mesh
 every annotated weight and runs the flash kernels on its ``H/M`` heads,
 and the loss is the vocab-parallel one. The BLEU decode and the returned
 ``Translator`` run on the parameters gathered to full on every rank.
-``model_parallel`` with ``moe_experts`` raises ``NotImplementedError``
-(the experts' mesh axis is its own ROADMAP item).
+With ``moe_experts`` the expert weights' hidden dim is sharded over the
+model axis too (``w_up`` columns, ``w_down`` rows).
+``expert_parallel=N`` (with ``moe_experts``, which it must divide)
+trains on a ``{data: world/N, expert: N}`` mesh, or ``{data:
+world/(N·M), expert: N, model: M}`` beside ``model_parallel=M``
+(``parallel.expert_parallel``): each rank of an expert line reads the
+same rows, routes them replicated and runs its ``E/N`` experts, their
+outputs summed over the line; the BLEU decode and the returned
+``Translator`` run on the whole experts, gathered on every rank.
 ``pipeline_parallel=S`` trains on a ``{data: world/S, pipeline: S}``
 mesh (``parallel.pipeline_transformer``): the training loss runs the
 encoder and decoder stacks as GPipe rings of ``pipeline_microbatches``
@@ -62,9 +69,8 @@ through ring attention (``"ring"``) or Ulysses all-to-alls
 (``"ulysses"``, which needs ``num_heads % N == 0``: the JAX
 ``ValueError``); the BLEU decode and the returned ``Translator`` run the
 whole model outside the context. ``sequence_parallel`` beside
-``model_parallel`` raises ``NotImplementedError`` (ROADMAP queue A4: seq
-× model). ``expert_parallel`` raises ``NotImplementedError`` when set
-away from its default (ROADMAP queue A4).
+``model_parallel`` or ``expert_parallel`` raises ``NotImplementedError``
+(ROADMAP queue A4: seq × model).
 """
 
 from __future__ import annotations
@@ -100,6 +106,10 @@ from machine_learning_apache_spark_tpu_torch.ops.masks import (
     combine_masks,
     make_causal_mask,
     make_segment_mask,
+)
+from machine_learning_apache_spark_tpu_torch.parallel.tensor_parallel import (
+    gather_params,
+    is_sharded,
 )
 from machine_learning_apache_spark_tpu_torch.recipes._common import (
     checkpointing,
@@ -196,9 +206,7 @@ class TranslationRecipe:
 
 #: Recipe fields of the JAX package that this port does not run yet, with
 #: the ROADMAP item that will. Each raises when set away from its default.
-UNPORTED = {
-    "expert_parallel": "A4: the MoE experts' mesh axis",
-}
+UNPORTED: dict[str, str] = {}
 
 
 def _validate(r: TranslationRecipe) -> None:
@@ -270,12 +278,6 @@ def _validate(r: TranslationRecipe) -> None:
             f"sequence_parallel_method='ulysses' needs num_heads "
             f"({r.num_heads}) divisible by sequence_parallel "
             f"({r.sequence_parallel}); use 'ring'"
-        )
-    if r.model_parallel > 1 and r.moe_experts:
-        raise NotImplementedError(
-            f"model_parallel={r.model_parallel} with moe_experts={r.moe_experts} is "
-            "not ported yet: the expert weights shard over the mesh's expert axis "
-            "(ROADMAP queue A4: the MoE experts' mesh axis)"
         )
     defaults = TranslationRecipe()
     for f in fields(TranslationRecipe):
@@ -481,7 +483,8 @@ def train_translator(
     # keeps the fixed width (full coverage).
     mesh = resolve_mesh(r.use_mesh, model_parallel=r.model_parallel,
                         pipeline_parallel=r.pipeline_parallel,
-                        sequence_parallel=r.sequence_parallel)
+                        sequence_parallel=r.sequence_parallel,
+                        expert_parallel=r.expert_parallel)
     train_loader, val_loader = make_loaders(
         None if r.bucket_by_length else train_ds, val_ds,
         batch_size=r.batch_size, mesh=mesh, seed=r.seed,
@@ -605,11 +608,11 @@ def train_translator(
         extra["unpacked_token_efficiency"] = round(packed.unpacked_efficiency, 4)
         extra["packed_rows"] = len(packed.src)
         extra["packed_pairs"] = packed.pair_count
-    # A tensor-parallel model decodes on its parameters gathered to full
-    # (every rank the same whole model, as the JAX recipe's Translator
-    # holds the unboxed full tree).
+    # A tensor- or expert-parallel model decodes on its parameters
+    # gathered to full (every rank the same whole model, as the JAX
+    # recipe's Translator holds the unboxed full tree).
     decoder_model = model
-    if r.model_parallel > 1 and (r.compute_bleu or _return_translator):
+    if is_sharded(model) and (r.compute_bleu or _return_translator):
         decoder_model = _gathered(model, cfg, dev)
     if r.compute_bleu:
         # The target width is the pipeline's fixed length, so every batch
@@ -639,9 +642,7 @@ def train_translator(
 
 def _gathered(model: Transformer, cfg: TransformerConfig, dev: torch.device) -> Transformer:
     """The unsharded Transformer holding ``model``'s shards gathered over
-    the model axis (``tensor_parallel.gather_params``)."""
-    from machine_learning_apache_spark_tpu_torch.parallel.tensor_parallel import gather_params
-
+    the model and expert axes (``tensor_parallel.gather_params``)."""
     full = Transformer(cfg).to(dev)
     full.load_state_dict(gather_params(model))
     return full

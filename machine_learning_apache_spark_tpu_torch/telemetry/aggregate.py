@@ -205,7 +205,9 @@ def comms_report(events: list[dict], table: dict | None = None) -> dict:
     hops per kind (``pipeline``, when a pipelined fit ran: bytes and
     window ms per step), the seq line's ring rotations, all-to-alls and
     gathers per kind (``sequence``, when a fit ran under
-    ``sequence_parallel``: the same figures) plus the duration
+    ``sequence_parallel``: the same figures), the expert line's
+    all-reduces (``expert``, when a fit ran on an expert axis: calls,
+    bytes and window ms per step) plus the duration
     stats of any ``comms.*`` span phases (the collective p50/p99 the
     comms-bench emits). Empty dicts when the run had no comms activity —
     the renderer then omits the section's tables.
@@ -297,7 +299,7 @@ def comms_report(events: list[dict], table: dict | None = None) -> dict:
         "comms_fraction": comms_fraction,
         "verdict": verdict,
     }
-    for section, prefix in (("pipeline", "pp_"), ("sequence", "sp_")):
+    for section, prefix in (("pipeline", "pp_"), ("sequence", "sp_"), ("expert", "ep_")):
         hops = _line_hops(counters, prefix)
         if hops:
             out[section] = hops
@@ -306,14 +308,16 @@ def comms_report(events: list[dict], table: dict | None = None) -> dict:
 
 def _line_hops(counters: dict, prefix: str) -> dict:
     """A mesh line's collectives per kind — the pipeline's (``pp_send``,
-    ``pp_recv``, ``pp_bcast``, ``pp_allreduce``) or the seq line's
-    (``sp_ring``, ``sp_a2a``, ``sp_gather``), the kinds named with
-    ``prefix``; the ``comms.<kind>_bytes`` and
+    ``pp_recv``, ``pp_bcast``, ``pp_allreduce``), the seq line's
+    (``sp_ring``, ``sp_a2a``, ``sp_gather``) or the expert line's
+    (``ep_allreduce``), the kinds named with ``prefix``; the
+    ``comms.<kind>_calls``, ``comms.<kind>_bytes`` and
     ``comms.<kind>_window_seconds`` counters a ``fit`` emits — per rank:
-    bytes and window ms per step. Empty without them."""
+    calls, bytes and window ms per step. Empty without them."""
     out: dict = {}
     for name, per_rank in counters.items():
-        for suffix, key, scale in (("_bytes", "bytes_per_step", 1.0),
+        for suffix, key, scale in (("_calls", "calls_per_step", 1.0),
+                                   ("_bytes", "bytes_per_step", 1.0),
                                    ("_window_seconds", "window_ms_per_step", 1e3)):
             kind = name[len("comms."):-len(suffix)]
             if not (name.endswith(suffix) and kind.startswith(prefix)):
@@ -752,6 +756,17 @@ def render_markdown(report: dict) -> str:
                 for rank, entry in per_rank.items():
                     lines.append(
                         f"| {kind} | {rank} | {entry.get('bytes_per_step', '-')} "
+                        f"| {entry.get('window_ms_per_step', '-')} |"
+                    )
+        if comms.get("expert"):
+            lines.append("")
+            lines.append("| expert line | rank | calls/step | bytes/step | window ms/step |")
+            lines.append("|---|---|---|---|---|")
+            for kind, per_rank in comms["expert"].items():
+                for rank, entry in per_rank.items():
+                    lines.append(
+                        f"| {kind} | {rank} | {entry.get('calls_per_step', '-')} "
+                        f"| {entry.get('bytes_per_step', '-')} "
                         f"| {entry.get('window_ms_per_step', '-')} |"
                     )
         if comms.get("collectives"):

@@ -111,7 +111,8 @@ def topology_stamp(state: TrainState | None = None) -> dict:
     ``fit(mesh=)`` sets; ``{"data": world}`` in a gang, ``{"data": D,
     "model": M}`` under tensor parallelism), the data-parallel mode, and
     for a ZeRO-1 state (``parallel.zero``) ``"zero1"`` with its bucket
-    layout (``plan_layout``), for a tensor-parallel one its shard layout.
+    layout (``plan_layout``), for a tensor- or expert-parallel one its
+    shard layout (the model and expert axes' sizes).
     Stamped into
     every sidecar; a resume whose own stamp differs raises
     ``TopologyMismatch`` rather than misload."""
@@ -128,10 +129,18 @@ def topology_stamp(state: TrainState | None = None) -> dict:
 
         stamp["dp_mode"] = "zero1"
         stamp["layout"] = plan_layout(plan)
-    elif getattr(getattr(state, "model", None), "tp_axis", None) is not None:
+    else:
         # Each rank's payload holds its model-axis shard, fused q/k/v
-        # split by heads (parallel.tensor_parallel).
-        stamp["layout"] = {"tensor_parallel": "heads", "model": state.model.tp_axis.size}
+        # split by heads (parallel.tensor_parallel), and its expert-axis
+        # shard, whole experts (parallel.expert_parallel).
+        model = getattr(state, "model", None)
+        tp_axis = getattr(model, "tp_axis", None)
+        ep_axis = getattr(model, "ep_axis", None)
+        if tp_axis is not None:
+            stamp["layout"] = {"tensor_parallel": "heads", "model": tp_axis.size}
+        if ep_axis is not None:
+            stamp["layout"] = {**(stamp["layout"] or {}), "expert_parallel": "experts",
+                               "expert": ep_axis.size}
     return stamp
 
 

@@ -73,6 +73,7 @@ import torch
 from torch import nn
 
 from machine_learning_apache_spark_tpu_torch import telemetry
+from machine_learning_apache_spark_tpu_torch.parallel.tensor_parallel import model_lines
 from machine_learning_apache_spark_tpu_torch.telemetry.events import beacon_update
 from machine_learning_apache_spark_tpu_torch.train.metrics import (
     MetricBundle,
@@ -542,9 +543,10 @@ def fit(
     rng = rng if rng is not None else torch.Generator().manual_seed(0)
     device = _device_of(state)
     step_rng = torch.Generator(device=device)
-    if mesh is not None and mesh.axis_size("model") > 1 and mode != "zero1":
-        # Tensor parallelism: this rank's shard of the model (ZeRO-1's
-        # init_sharded below shards it itself).
+    if (mesh is not None and mode != "zero1"
+            and (mesh.axis_size("model") > 1 or mesh.axis_size("expert") > 1)):
+        # Tensor and expert parallelism: this rank's shard of the model
+        # (ZeRO-1's init_sharded below shards it itself).
         from machine_learning_apache_spark_tpu_torch.parallel import tensor_parallel as _tp
 
         state = _tp.shard_state(state, mesh)
@@ -559,10 +561,10 @@ def fit(
     if mesh is not None:
         # The checkpoint's topology stamp names the mesh it trained on.
         state.mesh = mesh
-    tp_axis = getattr(state.model, "tp_axis", None)
-    if tp_axis is not None:
-        # This fit's model-axis totals, as step_fn.comms holds its own.
-        tp_axis.restart_comms()
+    for axis_line in model_lines(state.model):
+        # This fit's model- and expert-axis totals, as step_fn.comms
+        # holds its own.
+        axis_line.restart_comms()
 
     resumed_step: int | None = None
     resume_meta: dict = {}
@@ -588,8 +590,8 @@ def fit(
                 "elastic=True (or set MLSPARK_ELASTIC=1, which "
                 "Distributor(elastic=True) does) to reshard, or "
                 "point the run at a fresh checkpoint directory. "
-                "(Resharding, to another world or model-axis size, is "
-                "train/reshard.py: ROADMAP queue A4, not ported yet.)"
+                "(Resharding, to another world, model- or expert-axis "
+                "size, is train/reshard.py: ROADMAP queue A4, not ported yet.)"
             )
         restored = checkpointer.restore_latest_valid(state)
         if world > 1:
@@ -619,6 +621,9 @@ def fit(
                     + mesh.index("pipeline") * 0xC2B2AE3D27D4EB4F) % _SEED_RANGE
         step_rng.manual_seed(seed)
 
+    from machine_learning_apache_spark_tpu_torch.parallel.data_parallel import bind_batch_line
+
+    bind_batch_line(state.model, mesh if world > 1 else None)
     step_fn = None
     if mode == "zero1":
         # Every replica starts from rank 0's parameters (the shard from
@@ -678,7 +683,7 @@ def fit(
                 # that died mid-epoch.
                 if hasattr(step_fn, "flush_comms"):
                     step_fn.flush_comms()
-                for line in (pp_line, sp_line):
+                for line in (pp_line, sp_line, getattr(state.model, "ep_axis", None)):
                     if line is not None:
                         line.comms.emit_counters()
         if not history and resume_meta.get("metrics"):
@@ -703,9 +708,8 @@ def fit(
             sink.close()
     emit(f"Training Time: {seconds:.3f} sec")
     comms = step_fn.comms.stats() if step_fn is not None else {}
-    tp_axis = getattr(state.model, "tp_axis", None)
-    if tp_axis is not None:
-        comms |= tp_axis.comms.stats()
+    for axis_line in model_lines(state.model):
+        comms |= axis_line.comms.stats()
     for line in (pp_line, sp_line):
         if line is not None:
             comms |= line.comms.stats()
@@ -866,14 +870,16 @@ def evaluate(
     device per rank the share is 1, so none is)."""
     from machine_learning_apache_spark_tpu_torch.parallel.mesh import DATA_AXIS
 
+    from machine_learning_apache_spark_tpu_torch.parallel.data_parallel import (
+        bind_batch_line,
+        make_data_parallel_eval_step,
+    )
+
     emit = emit or log.info
     device = _device_of(state)
     world = mesh.size if mesh is not None else 1
+    bind_batch_line(state.model, mesh if world > 1 else None)
     if world > 1:
-        from machine_learning_apache_spark_tpu_torch.parallel.data_parallel import (
-            make_data_parallel_eval_step,
-        )
-
         step_fn = make_data_parallel_eval_step(loss_fn, mesh)
     else:
         eval_step = make_eval_step(loss_fn)
@@ -898,10 +904,9 @@ def evaluate(
         total += n
         pending.append((loss, aux, n))
     _drain_into(metrics, pending, "test_loss")
-    tp_axis = getattr(state.model, "tp_axis", None)
-    if tp_axis is not None:
+    for axis_line in model_lines(state.model):
         # The evaluation's all-reduces are no training step's.
-        tp_axis.restart_comms()
+        axis_line.restart_comms()
     out = metrics.compute()
     emit(" | ".join(f"{k}: {v:.5f}" for k, v in out.items()))
     out["eval_samples"] = total

@@ -126,8 +126,9 @@ def test_mesh_axes_beyond_data_raise_naming_their_item():
     assert mesh.shape == {"data": 1, "pipeline": 2} and mesh.axis_ranks("pipeline") == [0, 1]
     with pytest.raises(NotImplementedError, match="ROADMAP queue A4: seq × model"):
         make_mesh({"data": 1, "pipeline": 2, "seq": 2}, world=4)
-    with pytest.raises(NotImplementedError, match="expert"):
-        make_mesh({"expert": 2}, world=2)
+    # So is the expert axis, data-major too.
+    mesh = make_mesh({"expert": 2}, world=2)
+    assert mesh.shape == {"expert": 2} and mesh.axis_ranks("expert") == [0, 1]
     with pytest.raises(ValueError, match="does not cover 1 devices"):
         data_parallel_mesh(2)
 

@@ -1658,3 +1658,61 @@ def test_sp_gang_on_the_card_launches_the_hop_schedule(card_sp_gang, method):
         per = (4 + (r + 1) + 4) if method == "ring" else 3
         assert launches["flash_attention_fwd"] == launches["flash_attention_bwd_dq"] \
             == launches["flash_attention_bwd_dkv"] == 3 * per, (method, r, launches)
+
+
+EP_CFG = dict(src_vocab_size=41, trg_vocab_size=37, d_model=64, ffn_hidden=128,
+              num_heads=4, num_layers=1, max_len=24, dropout=0.0, moe_experts=4)
+EP_MESHES = ("expert4", "data2 expert2", "expert2 model2")
+
+
+@pytest.fixture(scope="module")
+def card_ep_gang():
+    """One 4-rank gang on the card: 3 SGD steps of the MoE Transformer's
+    ``fit`` on ``{expert: 4}``, ``{data: 2, expert: 2}`` and ``{expert: 2,
+    model: 2}``, and the same steps in this process on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the gang's ranks run on it")
+    from machine_learning_apache_spark_tpu_torch.launcher import Distributor, kill_stray_gangs
+    from machine_learning_apache_spark_tpu_torch.models.transformer import (
+        Transformer,
+        TransformerConfig,
+    )
+    from machine_learning_apache_spark_tpu_torch.recipes.translation import make_translation_loss
+    from machine_learning_apache_spark_tpu_torch.train.loop import fit
+    from machine_learning_apache_spark_tpu_torch.train.state import TrainState, make_optimizer
+    from machine_learning_apache_spark_tpu_torch.weights import export_flax_params, load_flax_params
+
+    rng = np.random.default_rng(53)
+    batches = []
+    for _ in range(3):
+        src = rng.integers(4, 41, (16, 20)).astype(np.int64)
+        trg = rng.integers(4, 37, (16, 21)).astype(np.int64)
+        for i, m in enumerate(rng.integers(3, 21, 16)):
+            trg[i, m:] = 0
+        src[0, 12:] = 0
+        batches.append((src, trg))
+    tree = export_flax_params(Transformer(TransformerConfig(**EP_CFG),
+                                          generator=torch.Generator().manual_seed(9)))
+    gang = Distributor(num_processes=4, timeout=300).run(
+        "torch_launcher_workers:ep_card_gang", EP_CFG, tree, batches, 0.5)
+    assert kill_stray_gangs() == 0
+    model = load_flax_params(Transformer(TransformerConfig(**EP_CFG)), tree).cuda()
+    res = fit(TrainState.create(model=model, tx=make_optimizer("sgd", 0.5)),
+              make_translation_loss(0), batches, epochs=1, log_every=0)
+    one = {"step_losses": res.step_losses,
+           "params": {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()}}
+    return gang, one
+
+
+@pytest.mark.parametrize("mesh", EP_MESHES)
+def test_ep_gang_on_the_card_trains_as_one_process(card_ep_gang, mesh):
+    gang, one = card_ep_gang
+    run = gang[mesh]
+    assert run["device"] == "cuda:0"
+    np.testing.assert_allclose(run["step_losses"], one["step_losses"], rtol=1e-5)
+    for k, want in one["params"].items():
+        np.testing.assert_allclose(run["params"][k], want, rtol=0, atol=1e-5, err_msg=k)
+    for r, launches in enumerate(run["launches"]):
+        # 3 steps, 3 attention sites each, on every rank.
+        assert launches["flash_attention_fwd"] == launches["flash_attention_bwd_dq"] \
+            == launches["flash_attention_bwd_dkv"] == 9, (mesh, r, launches)

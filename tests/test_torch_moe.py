@@ -12,7 +12,9 @@ rtol 1e-4, as ``tests/test_torch_transformer.py``), the recipe's MoE loss,
 recipe's loss (rtol 1e-5 on the loss, atol 1e-5 of the largest
 gradient), the cached greedy and beam decoders' tokens and the paged and
 padded serving engines' tokens identical to the JAX ones, and
-``translator.json`` equal to the JAX ``Translator.save``'s. Dropout is off
+``translator.json`` equal to the JAX ``Translator.save``'s. Tensor
+parallelism with MoE, alone and beside the expert axis (each rank a
+thread): the same loss, ``moe_aux`` and gathered gradients. Dropout is off
 wherever the packages are compared.
 """
 
@@ -211,6 +213,47 @@ def test_moe_loss_aux_and_grads_match_jax_value_and_grad(bridged):
     assert np.abs(want["encoder/layer_0/ffn/router"]).max() > 0  # the router learns
     for k in want:
         np.testing.assert_allclose(got[k], want[k], atol=1e-5 * scale, rtol=0, err_msg=k)
+
+
+@pytest.mark.parametrize("shape", [{"model": 2}, {"expert": 2, "model": 2}],
+                         ids=["model2", "expert2-model2"])
+def test_sharded_moe_loss_aux_and_grads_match_jax_value_and_grad(bridged, shape):
+    """Tensor parallelism with MoE (the expert weights' hidden dim over the
+    model axis), alone and beside the expert axis: each rank a thread
+    (``tests/torch_thread_line.run_mesh``), the loss, ``moe_aux`` and every
+    gradient gathered to full against ``jax.value_and_grad`` as above."""
+    from machine_learning_apache_spark_tpu_torch.parallel import tensor_parallel as tp
+    from torch_thread_line import run_mesh
+
+    jm, params, tm, _ = bridged
+    rng = np.random.default_rng(6)
+    src, trg = _tokens(rng, 4, 12, 31), _tokens(rng, 4, 11, 29)
+    (want_loss, want_aux), want = jax.jit(
+        jax.value_and_grad(j_make_translation_loss(jm, PAD), has_aux=True)
+    )(params, (jnp.asarray(src), jnp.asarray(trg)), jax.random.key(0))
+    want = _flat(jax.tree.map(np.asarray, want))
+    scale = max(np.abs(v).max() for v in want.values())
+
+    def rank(mesh):
+        model = tp.shard_params(copy.deepcopy(tm), mesh)
+        loss, aux = trecipe.make_translation_loss(PAD)(
+            model, to_device((src, trg), torch.device("cpu")), None
+        )
+        loss.backward()
+        holder = copy.deepcopy(tm)
+        with torch.no_grad():
+            for (name, p), q in zip(model.named_parameters(), holder.parameters()):
+                q.copy_(tp.gather_full(p, p.grad))
+        w_up = model.encoder.layers[0].ffn.w_up
+        return loss.item(), aux["moe_aux"].item(), _flat(export_flax_params(holder)), w_up.shape
+
+    for loss, aux, got, w_up_shape in run_mesh(shape, rank):
+        assert w_up_shape == (4 // shape.get("expert", 1), 32, 64 // shape["model"])
+        np.testing.assert_allclose(loss, float(want_loss), rtol=1e-5)
+        np.testing.assert_allclose(aux, float(want_aux["moe_aux"]), rtol=1e-5)
+        assert got.keys() == want.keys()
+        for k in want:
+            np.testing.assert_allclose(got[k], want[k], atol=1e-5 * scale, rtol=0, err_msg=k)
 
 
 @pytest.fixture(scope="module")

@@ -184,8 +184,11 @@ def test_resolve_mesh_rules(monkeypatch):
     mesh = _common.resolve_mesh(True, pipeline_parallel=2)
     assert mesh.shape == {"data": 1, "pipeline": 2}
     assert _common.data_replicas(mesh) == (1, 0)
-    with pytest.raises(NotImplementedError, match="the MoE experts' mesh axis"):
-        _common.resolve_mesh(True, expert_parallel=2)
+    # So is the expert axis: {data: world/N, expert: N}, an expert line
+    # reading one replica's rows.
+    mesh = _common.resolve_mesh(True, expert_parallel=2)
+    assert mesh.shape == {"data": 1, "expert": 2}
+    assert _common.data_replicas(mesh) == (1, 0)
 
 
 def test_recipe_under_a_two_rank_gang_reports_its_world():

@@ -387,17 +387,14 @@ def test_train_translator_runs_on_the_cpu_with_the_jax_result_keys():
     assert 0.0 <= out["bleu"] <= 1.0
 
 
-@pytest.mark.parametrize("field", sorted(trecipe.UNPORTED))
+@pytest.mark.parametrize("field", ["expert_parallel"])
 def test_unported_recipe_fields_raise(field):
-    default = getattr(trecipe.TranslationRecipe(), field)
-    value = {bool: True, int: 2, float: 0.5, str: "ulysses", tuple: (8,)}.get(
-        type(default), "x"
-    )
-    # expert_parallel without experts is the JAX recipe's ValueError; with
-    # experts it divides, it is the mesh the port lacks.
-    extra = {"moe_experts": 4} if field == "expert_parallel" else {}
-    with pytest.raises(NotImplementedError, match=field):
-        trecipe.train_translator(device="cpu", **{field: value}, **extra)
+    """Every field of the JAX recipe runs now (``UNPORTED`` is empty): the
+    last one, ``expert_parallel``, with experts it divides, in one process
+    raises the JAX recipe's ``ValueError`` — the parallelism needs a gang."""
+    assert trecipe.UNPORTED == {}
+    with pytest.raises(ValueError, match=r"requested but only 1 device\(s\)"):
+        trecipe.train_translator(device="cpu", **{field: 2}, moe_experts=4)
 
 
 def _two_process_mesh():

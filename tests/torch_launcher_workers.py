@@ -775,8 +775,9 @@ def tp_two_rank(cfg_kwargs, flax_params, probe_batch, batches, lr, mlp_layers, m
     for name, p in sharded.named_parameters():
         pieces = [torch.empty_like(p) for _ in range(world)]
         dist.all_gather(pieces, p.detach().contiguous())
-        if getattr(p, "tp_axis", None) is not None:
-            concat_ok &= torch.equal(gathered[name], tp.unshard(pieces, p.tp_dim, p.tp_parts))
+        if getattr(p, "shards", ()):
+            ((_, dim, parts),) = p.shards
+            concat_ok &= torch.equal(gathered[name], tp.unshard(pieces, dim, parts))
             concat_ok &= torch.equal(pieces[rank], p.detach())
         else:
             concat_ok &= torch.equal(gathered[name], p.detach())
@@ -1402,4 +1403,155 @@ def sp_card_gang(cfg_kwargs, flax_params, batches, lr, device=None):
             "params": {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()},
             "ranks_equal": all(all(np.array_equal(a, b) for a, b in zip(e, every[0])) for e in every),
             "launches": launches}
+    return out if rank == 0 else None
+
+
+# -- expert parallelism -------------------------------------------------------------
+
+
+def _ep_fit(mesh, cfg_kwargs, flax_params, batches, lr, steps_per_call=1):
+    """3 SGD steps of ``fit(mesh=)`` of the MoE Transformer on ``mesh``,
+    each data index on its rows: rank 0's parameters gathered to full (a
+    Flax tree), the step losses, the comms, ``assert_replicas_in_sync``'s
+    verdict, each rank's ``w_up`` shard shape and the expert line's
+    gathered ``w_up`` bit for bit the same on every data line."""
+    from machine_learning_apache_spark_tpu_torch.models.transformer import (
+        Transformer,
+        TransformerConfig,
+    )
+    from machine_learning_apache_spark_tpu_torch.parallel import assert_replicas_in_sync
+    from machine_learning_apache_spark_tpu_torch.recipes.translation import make_translation_loss
+    from machine_learning_apache_spark_tpu_torch.train.loop import fit
+    from machine_learning_apache_spark_tpu_torch.train.state import TrainState, make_optimizer
+    from machine_learning_apache_spark_tpu_torch.weights import load_flax_params
+
+    cfg = TransformerConfig(**cfg_kwargs)
+    d, ways = mesh.index("data"), mesh.axis_size("data")
+    model = load_flax_params(Transformer(cfg), flax_params)
+    res = fit(TrainState.create(model=model, tx=make_optimizer("sgd", lr)),
+              make_translation_loss(cfg.pad_id), [_rows(b, d, ways) for b in batches],
+              epochs=1, mesh=mesh, log_every=0, steps_per_call=steps_per_call)
+    try:
+        assert_replicas_in_sync(res.state, mesh=mesh)
+        in_sync = "ok"
+    except AssertionError as e:
+        in_sync = str(e)
+    shapes = [None] * dist.get_world_size()
+    dist.all_gather_object(shapes, tuple(model.encoder.layers[0].ffn.w_up.shape))
+    return {"params": _gathered_tree(model, lambda: Transformer(cfg)),
+            "step_losses": list(res.step_losses), "comms": res.comms, "in_sync": in_sync,
+            "w_up_shapes": shapes}
+
+
+def ep_four_rank(cfg_kwargs, flax_params, batches, lr, recipe_kw, workdir):
+    """Every check of the 4-rank expert-parallel gang in one gang start: 3
+    SGD steps of the MoE Transformer's ``fit`` on ``{expert: 4}``,
+    ``{data: 2, expert: 2}`` and ``{expert: 2, model: 2}``, the second
+    again at 3 steps per call; then
+    ``train_translator(moe_experts=4, expert_parallel=2,
+    model_parallel=2, checkpoint_dir=)`` and its resume (each its own gang
+    run); ``train_translator(moe_experts=4, model_parallel=2)`` with no
+    expert axis; and a fit's checkpoints on ``{data: 2, expert: 2}``
+    resumed on ``{expert: 4}``. Rank 0's results."""
+    from machine_learning_apache_spark_tpu_torch.models.transformer import (
+        Transformer,
+        TransformerConfig,
+    )
+    from machine_learning_apache_spark_tpu_torch.parallel import make_mesh
+    from machine_learning_apache_spark_tpu_torch.recipes.translation import (
+        make_translation_loss,
+        train_translator,
+    )
+    from machine_learning_apache_spark_tpu_torch.train.checkpoint import (
+        CheckpointManager,
+        TopologyMismatch,
+    )
+    from machine_learning_apache_spark_tpu_torch.train.loop import fit
+    from machine_learning_apache_spark_tpu_torch.train.state import TrainState, make_optimizer
+    from machine_learning_apache_spark_tpu_torch.weights import load_flax_params
+
+    rank, world = _rank_world()
+    meshes = {"expert4": {"data": 1, "expert": world},
+              "data2 expert2": {"data": 2, "expert": world // 2},
+              "expert2 model2": {"data": 1, "expert": 2, "model": world // 2}}
+    meshes = {name: make_mesh(axes, device="cpu") for name, axes in meshes.items()}
+    out = {"fit": {name: _ep_fit(mesh, cfg_kwargs, flax_params, batches, lr)
+                   for name, mesh in meshes.items()}}
+    out["k3"] = _ep_fit(meshes["data2 expert2"], cfg_kwargs, flax_params, batches, lr,
+                        steps_per_call=3)
+    ckpt = os.path.join(workdir, "tp_ep")
+    gang_run = os.environ.get("MLSPARK_GANG_RUN")
+    runs = {}
+    for name in ("first", "second"):
+        os.environ["MLSPARK_GANG_RUN"] = f"{gang_run}-{name}"
+        res = train_translator(device="cpu", moe_experts=4, expert_parallel=2, model_parallel=2,
+                               checkpoint_dir=ckpt, _return_state=True, **recipe_kw)
+        w_up = res["state"].model.encoder.layers[0].ffn.w_up
+        qkv = res["state"].model.encoder.layers[0].self_attn.qkv.weight
+        runs[name] = {
+            "resumed_from_step": res.get("resumed_from_step"), "final_loss": res["final_loss"],
+            "mesh": dict(res["state"].mesh.shape),
+            "w_up_axes": [line.AXIS for line, _, _ in getattr(w_up, "shards", ())],
+            "w_up_shape": tuple(w_up.shape),
+            "qkv_axes": [line.AXIS for line, _, _ in getattr(qkv, "shards", ())],
+            "moe_aux": res.get("moe_aux"), "comms": res["fit_result"].comms,
+        }
+    out["recipe"] = runs
+    os.environ["MLSPARK_GANG_RUN"] = f"{gang_run}-tp"
+    res = train_translator(device="cpu", moe_experts=4, model_parallel=2, _return_state=True,
+                           **recipe_kw)
+    out["tp_moe"] = {"mesh": dict(res["state"].mesh.shape), "final_loss": res["final_loss"],
+                     "moe_aux": res.get("moe_aux"), "comms": res["fit_result"].comms}
+    # Checkpoints of a {data: 2, expert: 2} fit, resumed on {expert: 4}.
+    cfg = TransformerConfig(**cfg_kwargs)
+    mine = os.path.join(workdir, "crossed", f"ckpt_r{rank}")
+    for mesh, resume in ((meshes["data2 expert2"], False), (meshes["expert4"], True)):
+        model = load_flax_params(Transformer(cfg), flax_params)
+        try:
+            with CheckpointManager(mine) as mgr:
+                fit(TrainState.create(model=model, tx=make_optimizer("sgd", lr)),
+                    make_translation_loss(cfg.pad_id), batches[:1], epochs=1,
+                    mesh=mesh, log_every=0, checkpointer=mgr,
+                    resume=resume)
+            out["crossed"] = "no error"
+        except TopologyMismatch as e:
+            out["crossed"] = str(e)
+    return out if rank == 0 else None
+
+
+def ep_card_gang(cfg_kwargs, flax_params, batches, lr, device=None):
+    """SGD steps of the MoE Transformer's ``fit`` on ``device`` (default:
+    the gang's) on ``{expert: 4}``, ``{data: 2, expert: 2}`` and
+    ``{expert: 2, model: 2}``, each data index on its rows: per mesh,
+    rank 0's step losses and parameters gathered to full, and every
+    rank's launches."""
+    from machine_learning_apache_spark_tpu_torch.models.transformer import (
+        Transformer,
+        TransformerConfig,
+    )
+    from machine_learning_apache_spark_tpu_torch.ops import hopper_attention as hop
+    from machine_learning_apache_spark_tpu_torch.parallel import make_mesh
+    from machine_learning_apache_spark_tpu_torch.parallel.tensor_parallel import gather_params
+    from machine_learning_apache_spark_tpu_torch.recipes.translation import make_translation_loss
+    from machine_learning_apache_spark_tpu_torch.train.loop import fit
+    from machine_learning_apache_spark_tpu_torch.train.state import TrainState, make_optimizer
+    from machine_learning_apache_spark_tpu_torch.weights import load_flax_params
+
+    rank, world = _rank_world()
+    dev = _worker_device(device)
+    out = {}
+    for name, axes in (("expert4", {"expert": world}), ("data2 expert2", {"data": 2, "expert": 2}),
+                       ("expert2 model2", {"expert": 2, "model": 2})):
+        mesh = make_mesh(axes, device=dev)
+        d, ways = mesh.index("data"), mesh.axis_size("data")
+        model = load_flax_params(Transformer(TransformerConfig(**cfg_kwargs)), flax_params).to(dev)
+        hop.reset_launches()
+        res = fit(TrainState.create(model=model, tx=make_optimizer("sgd", lr)),
+                  make_translation_loss(0), [_rows(b, d, ways) for b in batches], epochs=1,
+                  mesh=mesh, log_every=0)
+        launches = [None] * world
+        dist.all_gather_object(launches, dict(hop.LAUNCHES))
+        full = {k: v.detach().cpu().numpy() for k, v in gather_params(model).items()}
+        out[name] = {"device": str(dev), "step_losses": res.step_losses, "params": full,
+                     "launches": launches}
     return out if rank == 0 else None
