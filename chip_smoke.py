@@ -6120,6 +6120,436 @@ def ep_slice(torch, hop, card: str) -> dict:
                 gates={k: {f: v[f] for f in ("loss_rel", "ctrl_loss_rel", "key_bias")} for k, v in gates.items()})
 
 
+# -- phase 7j: the streaming ingest pipeline and elastic resume -----------------------
+
+INGEST_BATCH = 32
+INGEST_K = 4
+INGEST_PER_EPOCH = 3 * INGEST_BATCH  # a mixture epoch of 3 steps: checkpoints inside a fixture pass
+INGEST_EPOCHS = 4
+ELASTIC_GANG = 4
+ELASTIC_MIN_WORLD = 2
+ELASTIC_GLOBAL = 48  # 12 rows a rank at 4 ranks, 16 at 3
+ELASTIC_STEPS = 8  # one global batch a fit epoch: a checkpoint every step
+ELASTIC_CRASH = f"crash@train_step:world={ELASTIC_GANG},rank=3,step=5"
+ELASTIC_LAYERS = 2
+ELASTIC_RTOL = 1e-5  # step losses, the shrunken run against the unfaulted one
+
+
+def fixture_pairs() -> tuple[list, tuple[int, int]]:
+    """The fixture's training pairs as ragged id lists (no pads) and the
+    widths the recipe pads them to."""
+    from machine_learning_apache_spark_tpu_torch.data.datasets import load_multi30k
+
+    src_pipe, trg_pipe, _ = fixture_data()
+    pairs = load_multi30k(str(FIXTURES), "train")
+    src, trg = [s for s, _ in pairs], [t for _, t in pairs]
+    widths = (src_pipe(src[:1]).shape[1], trg_pipe(trg[:1]).shape[1])
+    return list(zip(src_pipe.ragged(src), trg_pipe.ragged(trg))), widths
+
+
+def _pad_pair(widths):
+    def pad(rec):
+        out = []
+        for ids, w in zip(rec, widths):
+            row = np.zeros(w, np.int32)
+            row[:len(ids)] = ids
+            out.append(row)
+        return tuple(out)
+    return pad
+
+
+def ingest_pipe(pairs, widths, batch: int, *, per_epoch: int | None = None, pack=None, **kw):
+    """``StreamingPipeline(PairSource(fixture pairs))`` (through a
+    one-source mixture when ``per_epoch`` is given, whose position rides
+    the checkpoints), ``shard="records"``, padded to the recipe's widths
+    in the producer thread unless packing."""
+    from machine_learning_apache_spark_tpu_torch.ingest import MixtureSampler, PairSource, StreamingPipeline
+
+    source = PairSource(pairs)
+    if per_epoch is not None:
+        source = MixtureSampler({"fixture": source}, records_per_epoch=per_epoch, seed=SEED)
+    return StreamingPipeline(source, batch, shard="records", tail="drop", pack=pack,
+                             transform=None if pack else _pad_pair(widths), **kw)
+
+
+def _ingest_state(torch, dev, layers: int = 1, dropout: float = 0.1):
+    """The reference recipe's model (width, Adam 1e-3) on the fixture
+    vocabularies, random weights from the seed, and its training loss."""
+    from machine_learning_apache_spark_tpu_torch.models.transformer import Transformer, TransformerConfig
+    from machine_learning_apache_spark_tpu_torch.recipes.translation import (
+        TranslationRecipe,
+        make_translation_loss,
+    )
+    from machine_learning_apache_spark_tpu_torch.train.state import TrainState, make_optimizer
+
+    src_pipe, trg_pipe, _ = fixture_data()
+    r = TranslationRecipe(data_root=str(FIXTURES))
+    cfg = TransformerConfig(
+        src_vocab_size=len(src_pipe.vocab), trg_vocab_size=len(trg_pipe.vocab), d_model=r.d_model,
+        ffn_hidden=r.ffn_hidden, num_heads=r.num_heads, num_layers=layers, dropout=dropout,
+        max_len=r.max_len,
+    )
+    model = Transformer(cfg, generator=torch.Generator().manual_seed(SEED)).to(dev)
+    return TrainState.create(model=model, tx=make_optimizer("adam", r.learning_rate)), make_translation_loss(cfg.pad_id)
+
+
+def _ingest_threads() -> list[str]:
+    import threading
+
+    from machine_learning_apache_spark_tpu_torch.ingest import WORKER_PREFIX
+
+    time.sleep(0.05)
+    return [t.name for t in threading.enumerate() if t.name.startswith(WORKER_PREFIX) and t.is_alive()]
+
+
+def _ingest_fit(torch, hop, data, k: int = 1, epochs: int = 1, **kw) -> dict:
+    """One ``fit`` of a fresh reference model over ``data``, the launch
+    counts set to 0 just before and read just after, and what reached the
+    step: each batch's fields on the card or not, and the copies
+    ``to_device`` made (``stack_batches`` for K steps a call)."""
+    from machine_learning_apache_spark_tpu_torch.train import loop as tloop
+
+    state, loss_fn = _ingest_state(torch, torch.device("cuda"))
+    seen = dict(batches=0, on_card=0, copies=0, stacks=0)
+    to_device, stack = tloop.to_device, tloop.stack_batches
+
+    def there(batch, device) -> bool:
+        return all(isinstance(t, torch.Tensor) and t.device == device for t in batch)
+
+    def counted_to_device(batch, device):
+        out = to_device(batch, device)
+        seen["batches"] += 1
+        seen["on_card"] += there(batch, device)
+        seen["copies"] += sum(o is not t for o, t in zip(out, batch))
+        return out
+
+    def counted_stack(batches, device):
+        seen["stacks"] += 1
+        seen["batches"] += len(batches)
+        seen["on_card"] += sum(there(b, device) for b in batches)
+        return stack(batches, device)
+
+    tloop.to_device, tloop.stack_batches = counted_to_device, counted_stack
+    try:
+        torch.cuda.synchronize()
+        hop.reset_launches()
+        res = tloop.fit(state, loss_fn, data=data, epochs=epochs, steps_per_call=k, log_every=0,
+                        rng=torch.Generator().manual_seed(SEED), **kw)
+        torch.cuda.synchronize()
+    finally:
+        tloop.to_device, tloop.stack_batches = to_device, stack
+    return dict(state=res.state, res=res, launches=dict(hop.LAUNCHES), seen=seen, threads=_ingest_threads(),
+                ms=1e3 * res.train_seconds / max(res.state.step - (res.resumed_step or 0), 1))
+
+
+def _same_fit(torch, a: dict, b: dict, b_losses=None) -> tuple[bool, int]:
+    params = all(torch.equal(x, y) for x, y in zip(a["state"].params, b["state"].params))
+    want = b["res"].step_losses if b_losses is None else b_losses
+    got = a["res"].step_losses
+    return params, sum(x != y for x, y in zip(got, want)) + abs(len(got) - len(want))
+
+
+def _data_events() -> dict:
+    """The ``data.*`` spans and the H2D byte counter the ingest stage
+    recorded since the last ``telemetry.reset()``."""
+    from machine_learning_apache_spark_tpu_torch import telemetry
+
+    spans: dict = {}
+    for ev in telemetry.get_log().snapshot():
+        if ev.kind == "span_end" and ev.name.startswith("data."):
+            spans.setdefault(ev.name, []).append(float(ev.value))
+    return dict(spans=spans, bytes_h2d=telemetry.get_registry().counter("data", "bytes_h2d").value)
+
+
+def ingest_slice(torch, hop, card: str) -> dict:
+    """Phase 7j (a): the reference model through ``fit(data=
+    StreamingPipeline(...))`` with the device stage on the card, against
+    the same fit over a plain list of the same host batches."""
+    import tempfile
+
+    from machine_learning_apache_spark_tpu_torch import telemetry
+    from machine_learning_apache_spark_tpu_torch.data.packing import pack_translation_pairs
+    from machine_learning_apache_spark_tpu_torch.train.checkpoint import CheckpointManager
+
+    t0 = time.perf_counter()
+    pairs, widths = fixture_pairs()
+    host_batches = list(ingest_pipe(pairs, widths, INGEST_BATCH, device=False))
+    steps = len(host_batches)
+    failed: list[str] = []
+    _ingest_fit(torch, hop, host_batches[:2])  # untimed: the first fit's one-time costs
+    runs = {"list K=1": _ingest_fit(torch, hop, host_batches)}
+    pipes = {}
+    for k in (1, INGEST_K):
+        telemetry.reset()
+        pipes[k] = ingest_pipe(pairs, widths, INGEST_BATCH)
+        runs[f"pipeline K={k}"] = _ingest_fit(torch, hop, pipes[k], k)
+        runs[f"pipeline K={k}"]["data"] = _data_events()
+    runs[f"list K={INGEST_K}"] = _ingest_fit(torch, hop, host_batches, INGEST_K)
+    layers = runs["list K=1"]["state"].model.cfg.num_layers
+    base = runs["list K=1"]
+    for label, run in runs.items():
+        params, losses = _same_fit(torch, run, base)
+        seen = run["seen"]
+        got_l = tuple(run["launches"][n] for n in TRAIN_KERNELS)
+        log(f"  {label}: {run['state'].step} steps, parameters equal to the list at K=1 bit for bit: "
+            f"{params}, step losses differing {losses}; batches reaching the step on the card "
+            f"{seen['on_card']} of {seen['batches']}, to_device copies {seen['copies']}, K-step stacks "
+            f"{seen['stacks']}; flash fwd / dQ / dK/dV launches {got_l}; ingest threads after: {run['threads']}")
+        if not params or losses or run["state"].step != steps:
+            failed.append(f"{label} did not train bit for bit like the list at K=1")
+        if got_l != (3 * layers * steps,) * 3:
+            failed.append(f"{label}: flash launches {got_l}, not {3 * layers * steps} each")
+        if run["threads"]:
+            failed.append(f"{label}: ingest threads {run['threads']} outlived fit")
+        if label.startswith("pipeline") and (seen["on_card"] != steps or seen["copies"]):
+            failed.append(f"{label}: {seen['on_card']} of {steps} batches reached the step on the card, "
+                          f"{seen['copies']} copied again in to_device")
+    for k, pipe in pipes.items():
+        if pipe.h2d_copies != 2 * steps:
+            failed.append(f"pipeline K={k}: {pipe.h2d_copies} host-to-card copies, not 2 a batch")
+    for k in (1, INGEST_K):
+        run, lst = runs[f"pipeline K={k}"], runs[f"list K={k}"]
+        d = run["data"]
+        wait = sum(d["spans"].get("data.wait", []))
+        h2d = d["spans"].get("data.h2d", [])
+        log(f"  K={k}: {run['ms']:.3f} ms/step through the pipeline, {lst['ms']:.3f} ms/step over the "
+            f"list (each fit's wall over its {steps} steps, one epoch; K={INGEST_K}'s first group "
+            f"captures its graph); data.wait {wait:.6f} s = {wait / run['res'].train_seconds:.6f} of the "
+            f"fit's wall; data.h2d mean {1e3 * float(np.mean(h2d)) if h2d else float('nan'):.4f} ms over "
+            f"{len(h2d)} batches (the copies' enqueue); data.bytes_h2d {d['bytes_h2d']:.0f} [{card}]")
+
+    # Packing: the pipeline's rows (through the card) equal the one-shot packer's.
+    pack = dict(src_len=widths[0], trg_len=widths[1], pad_id=0)
+    packed = [tuple(t.cpu().numpy() for t in b) for b in ingest_pipe(pairs, widths, 2, pack=pack)]
+    want = pack_translation_pairs([s for s, _ in pairs], [t for _, t in pairs], **pack).arrays()
+    rows = 2 * len(packed)
+    pack_equal = bool(packed) and all(
+        np.array_equal(np.concatenate([b[i] for b in packed]), w[:rows]) for i, w in enumerate(want))
+    log(f"  pack=: {rows} packed rows through the card equal the one-shot packer's first {rows} "
+        f"(of {len(want[0])}): {pack_equal}")
+    if not pack_equal:
+        failed.append("the pipeline's packed rows differ from pack_translation_pairs'")
+
+    # A run checkpointed inside the fixture pass, stopped and resumed,
+    # replays the stream: the uninterrupted run's parameters, bit for bit.
+    whole = _ingest_fit(torch, hop, ingest_pipe(pairs, widths, INGEST_BATCH, per_epoch=INGEST_PER_EPOCH),
+                        epochs=INGEST_EPOCHS)
+    with tempfile.TemporaryDirectory(dir=scratch_dir()) as d:
+        with CheckpointManager(d) as ck:
+            first = _ingest_fit(torch, hop, ingest_pipe(pairs, widths, INGEST_BATCH, per_epoch=INGEST_PER_EPOCH),
+                                epochs=INGEST_EPOCHS // 2, checkpointer=ck)
+        with CheckpointManager(d) as ck:
+            second = _ingest_fit(torch, hop, ingest_pipe(pairs, widths, INGEST_BATCH, per_epoch=INGEST_PER_EPOCH),
+                                 epochs=INGEST_EPOCHS, checkpointer=ck, resume=True)
+    split = first["res"].step_losses + second["res"].step_losses
+    params, _ = _same_fit(torch, second, whole)
+    replayed = params and split == whole["res"].step_losses
+    log(f"  {INGEST_EPOCHS // 2} + {INGEST_EPOCHS // 2} mixture epochs of {INGEST_PER_EPOCH} records "
+        f"(checkpoints every {INGEST_PER_EPOCH // INGEST_BATCH} steps, inside the fixture's pass), resumed "
+        f"from step {second['res'].resumed_step}: parameters and step losses equal to {INGEST_EPOCHS} "
+        f"in one run bit for bit: {replayed}; ingest threads after {second['threads']}")
+    if not replayed or second["res"].resumed_step != first["state"].step or second["threads"]:
+        failed.append("the resumed run did not replay the stream bit for bit")
+    took = time.perf_counter() - t0
+    log(f"  phase 7j (a) took {took:.1f} s")
+    if failed:
+        fail("; ".join(failed))
+    paths = {label: run["launches"] for label, run in runs.items()}
+    paths["resume: whole, first, second"] = {
+        n: whole["launches"][n] + first["launches"][n] + second["launches"][n] for n in hop.LAUNCHES}
+    return dict(seconds=took, paths=paths, ms={label: run["ms"] for label, run in runs.items()},
+                data={k: dict(wait=sum(runs[f"pipeline K={k}"]["data"]["spans"].get("data.wait", [])),
+                              bytes_h2d=runs[f"pipeline K={k}"]["data"]["bytes_h2d"]) for k in pipes})
+
+
+def _logical_flat(stored: dict, plan) -> np.ndarray:
+    """A ZeRO-1 flat vector in the parameters' order, pads taken out, from
+    the ranks' stored runs ``{data index: vector}``, read through
+    ``Zero1State.bucket_span`` (the map the step itself uses)."""
+    import types
+
+    from machine_learning_apache_spark_tpu_torch.parallel.zero import Zero1State
+
+    full = np.zeros(plan.padded, np.float32)
+    for d, vec in stored.items():
+        for k in range(len(plan.buckets)):
+            in_flat, in_shard = Zero1State.bucket_span(types.SimpleNamespace(plan=plan, rank=d, model_rank=0), k)
+            full[in_flat] = np.asarray(vec)[in_shard]
+    return np.concatenate([full[o:o + n] for o, n in zip(plan.offsets, plan.sizes)])
+
+
+def elastic_gang_rank(root: str, pairs, widths) -> dict:
+    """One rank of phase 7j (b)'s gang: the reference model (2 layers,
+    dropout 0) under ZeRO-1 and Adam through ``fit(data=StreamingPipeline)``
+    over the gang's data axis, one global batch a fit epoch and a
+    checkpoint each, ``resume=True`` (elastic through the launcher's
+    ``MLSPARK_ELASTIC``). The state ``elastic_restore`` hands ``fit`` is
+    kept; rank 0 holds every rank's against the old group's checkpoint
+    (the flat moments through both layouts, the parameters). Rank 0's
+    result: step losses, parameters, the resumed step, every rank's
+    launches, steps and elastic events."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from machine_learning_apache_spark_tpu_torch import telemetry
+    from machine_learning_apache_spark_tpu_torch.launcher.coordinator import current_device
+    from machine_learning_apache_spark_tpu_torch.ops import hopper_attention as hop
+    from machine_learning_apache_spark_tpu_torch.parallel import data_parallel_mesh
+    from machine_learning_apache_spark_tpu_torch.parallel.zero import make_flat_plan, plan_layout
+    from machine_learning_apache_spark_tpu_torch.train import checkpoint as ck
+    from machine_learning_apache_spark_tpu_torch.train import reshard
+    from machine_learning_apache_spark_tpu_torch.train.loop import fit
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    state, loss_fn = _ingest_state(torch, current_device(), layers=ELASTIC_LAYERS, dropout=0.0)
+    pipe = ingest_pipe(pairs, widths, ELASTIC_GLOBAL // world, per_epoch=ELASTIC_GLOBAL)
+    captured: dict = {}
+    restore = reshard.elastic_restore
+
+    def keep(checkpointer, template, **kwargs):
+        # The restored state, and the old group's step it came from, read
+        # before this run's own checkpoints prune that step.
+        out = restore(checkpointer, template, **kwargs)
+        if out is not None:
+            st, step = out[0], out[1]
+            old_dir = os.path.join(root, "ckpt_r0")
+            stamp = ck.read_meta_at(old_dir, step)["topology"]
+            captured.update(step=step, plan=st.plan, stamp=stamp, params={
+                k: v.detach().to("cpu", copy=True) for k, v in st.model.state_dict().items()},
+                moments={k: v.detach().to("cpu", copy=True) for k, v in st.opt_state.items()
+                         if getattr(v, "ndim", 0)},
+                old=[ck.read_raw_payload(os.path.join(root, f"ckpt_r{r}"), step)
+                     for r in (range(stamp["world_size"]) if rank == 0 else (0,))])
+        return out
+
+    reshard.elastic_restore = keep
+    try:
+        with ck.CheckpointManager(os.path.join(root, f"ckpt_r{rank}")) as mgr:
+            torch.cuda.synchronize()
+            hop.reset_launches()
+            res = fit(state, loss_fn, data=pipe, epochs=ELASTIC_STEPS, mesh=data_parallel_mesh(),
+                      dp_mode="zero1", checkpointer=mgr, resume=True, log_every=0,
+                      rng=torch.Generator().manual_seed(SEED))
+            torch.cuda.synchronize()
+            launches = dict(hop.LAUNCHES)
+    finally:
+        reshard.elastic_restore = restore
+    events = [dict(name=e.name, **(e.attrs or {})) for e in telemetry.get_log().snapshot()
+              if e.name in ("train.elastic_restore", "train.elastic_resume")]
+    gate = None
+    moments = _gather(captured.get("moments"))
+    if captured:
+        old = captured["old"]
+        all_params = _gather([k for k, v in old[0]["model"].items() if not torch.equal(captured["params"][k], v)])
+        if rank == 0:
+            old_world = captured["stamp"]["world_size"]
+            old_plan = make_flat_plan(list(res.state.model.parameters()), old_world, res.state.config.bucket_bytes)
+            equal = {key: bool(np.array_equal(
+                _logical_flat({r: old[r]["optimizer"][key].numpy() for r in range(old_world)}, old_plan),
+                _logical_flat({r: m[key].numpy() for r, m in enumerate(moments)}, captured["plan"])))
+                for key in sorted(captured["moments"])}
+            gate = dict(step=captured["step"], old_world=old_world,
+                        layout_ok=plan_layout(old_plan) == captured["stamp"]["layout"],
+                        buckets=(len(old_plan.buckets), len(captured["plan"].buckets)),
+                        moments=equal, params=not any(all_params), params_differing=all_params)
+        del old
+    ranks = _gather(dict(rank=rank, world=world, launches=launches, steps=len(res.step_losses),
+                         events=events, threads=_ingest_threads(), resumed=res.resumed_step))
+    if rank != 0:
+        return None
+    return dict(ranks=ranks, gate=gate, world=world, resumed=res.resumed_step,
+                step_losses=res.step_losses,
+                params={k: v.detach().cpu() for k, v in res.state.model.state_dict().items()})
+
+
+def elastic_slice(torch, hop, card: str) -> dict:
+    """Phase 7j (b): ``Session`` -> ``Distributor(elastic=True)`` gangs of
+    ``elastic_gang_rank`` over gloo — an unfaulted 4-rank run and one whose
+    rank 3 crashes past a durable checkpoint and which shrinks to 3. The
+    shrunken run is held to the unfaulted one: step losses within 1e-5
+    relative, each tensor within phase 7e's ZeRO-1 gate."""
+    import shutil
+
+    from machine_learning_apache_spark_tpu_torch import Session
+    from machine_learning_apache_spark_tpu_torch.launcher import Distributor, kill_stray_gangs
+    from machine_learning_apache_spark_tpu_torch.utils import faults
+
+    t_phase = time.perf_counter()
+    pairs, widths = fixture_pairs()
+    root = scratch_dir() / "elastic"
+    shutil.rmtree(root, ignore_errors=True)
+    spark = Session.builder.appName("ElasticIngest").config(
+        "spark.executor.instances", str(ELASTIC_GANG)).getOrCreate()
+    walls, out = {}, {}
+    try:
+        for label, env in (("unfaulted", {}), ("faulted", {faults.ENV_PLAN: ELASTIC_CRASH,
+                                                            faults.ENV_MARKER_DIR: str(root / "markers")})):
+            t0 = time.perf_counter()
+            out[label] = Distributor(
+                num_processes=spark.conf.executor_instances, timeout=900, env=env, elastic=True,
+                rank_restart_budget=0, elastic_min_world=ELASTIC_MIN_WORLD,
+            ).run("chip_smoke:elastic_gang_rank", str(root / label), pairs, widths)
+            walls[label] = time.perf_counter() - t0
+    finally:
+        spark.stop()
+    if kill_stray_gangs() != 0:
+        fail("an elastic gang left a stray process group")
+    whole, shrunk = out["unfaulted"], out["faulted"]
+    failed: list[str] = []
+    resumed, gate = shrunk["resumed"], shrunk["gate"]
+    restore_ev = [e for r in shrunk["ranks"] for e in r["events"] if e["name"] == "train.elastic_restore"]
+    log(f"  Session -> Distributor, {ELASTIC_GANG} ranks on one card over gloo, ZeRO-1, Adam, global batch "
+        f"{ELASTIC_GLOBAL}, {ELASTIC_STEPS} steps with a checkpoint each: unfaulted {walls['unfaulted']:.2f} s "
+        f"spawn to result; with {ELASTIC_CRASH}: {walls['faulted']:.2f} s, the gang shrank to "
+        f"{shrunk['world']} ranks and resumed elastically from step {resumed}; time to recover (the "
+        f"faulted run's wall beyond the unfaulted one's) {walls['faulted'] - walls['unfaulted']:.2f} s [{card}]")
+    log("    elastic_restore per rank: " + ", ".join(
+        f"{e['seconds']:.3f} s, {e['bytes_read']} payload bytes read" for e in restore_ev) + f" [{card}]")
+    if shrunk["world"] != ELASTIC_GANG - 1 or resumed is None or len(restore_ev) != ELASTIC_GANG - 1:
+        failed.append(f"the gang did not shrink {ELASTIC_GANG} -> {ELASTIC_GANG - 1} and resume elastically "
+                      f"(world {shrunk['world']}, resumed {resumed}, {len(restore_ev)} restores)")
+    if whole["world"] != ELASTIC_GANG or whole["resumed"] is not None:
+        failed.append("the unfaulted gang did not run whole")
+    log(f"    the resharded state (as elastic_restore handed it to fit) against the old "
+        f"{gate and gate['old_world']}-rank group's step {gate and gate['step']}: flat moments through "
+        f"both layouts (buckets {gate and gate['buckets']}) bit for bit {gate and gate['moments']}; every "
+        f"rank's parameters bit for bit {gate and gate['params']}; stamp layout = the plan's "
+        f"{gate and gate['layout_ok']}")
+    if not gate or not gate["params"] or not gate["layout_ok"] or not all(gate["moments"].values()) \
+            or not gate["moments"]:
+        failed.append(f"the resharded state differs from the old group's ({gate})")
+    want_losses = whole["step_losses"][resumed or 0:]
+    loss_rel = _max_rel(shrunk["step_losses"], want_losses) if shrunk["step_losses"] else float("inf")
+    pg = _param_gate(torch, shrunk["params"], whole["params"], ELASTIC_STEPS)
+    worst = sorted(pg["rel"].items(), key=lambda kv: -kv[1])[:3]
+    log(f"    the shrunken run against the unfaulted one on the same global batches: step losses max "
+        f"relative difference {loss_rel:.3e} (gate {ELASTIC_RTOL}); per tensor relative difference "
+        f"(phase 7e's gate {GANG_RTOL}, the key biases apart), the three largest: "
+        + ", ".join(f"{k} {v:.2e}" for k, v in worst)
+        + f"; same bits {pg['same_bits']}; key biases {pg['key_bias_abs']:.3e} (bound {pg['key_bias_bound']:.3e})")
+    if len(shrunk["step_losses"]) != len(want_losses) or loss_rel > ELASTIC_RTOL or not pg["ok"]:
+        failed.append(f"the shrunken run left the unfaulted run's trajectory (losses {loss_rel:.3e}, "
+                      f"parameters {pg['over']}, key biases {pg['key_bias_abs']:.3e})")
+    for label, run in out.items():
+        for r in run["ranks"]:
+            got_l = tuple(r["launches"][n] for n in TRAIN_KERNELS)
+            want_l = 3 * ELASTIC_LAYERS * r["steps"]
+            if got_l != (want_l,) * 3 or r["threads"]:
+                failed.append(f"{label} rank {r['rank']}: flash launches {got_l} over {r['steps']} steps "
+                              f"(not {want_l} each), ingest threads {r['threads']}")
+        log(f"    {label}: per rank (steps, flash fwd / dQ / dK/dV launches) " + ", ".join(
+            f"{r['rank']}: ({r['steps']}, {tuple(r['launches'][n] for n in TRAIN_KERNELS)})" for r in run["ranks"]))
+    took = time.perf_counter() - t_phase
+    log(f"  phase 7j (b) took {took:.1f} s")
+    if failed:
+        fail("; ".join(failed))
+    return dict(walls=walls, seconds=took, resumed=resumed, loss_rel=loss_rel, gate=gate,
+                restore=restore_ev, ranks={k: v["ranks"] for k, v in out.items()},
+                params=dict(max_rel=pg["max_rel"], key_bias=pg["key_bias_abs"]))
+
+
 # -- phase 7d: bf16 compute ------------------------------------------------------
 
 BF16 = "bfloat16"
@@ -6499,6 +6929,12 @@ def main() -> int:
         "expert_parallel=2) with checkpoints, a resume and BLEU)")
     ep = ep_slice(torch, hop, card)
 
+    log("== phase 7j: the streaming ingest pipeline and elastic resume ((a) fit(data=StreamingPipeline) "
+        "on the card at K = 1 and 4, packing, a resumed stream; (b) a 4-rank ZeRO-1 gang that loses "
+        "rank 3 and shrinks to 3 onto resharded checkpoints)")
+    ingest = ingest_slice(torch, hop, card)
+    elastic = elastic_slice(torch, hop, card)
+
     log("== phase 8: times")
     for label, run in runs.items():
         log(f"  {label:7s} engine ({run['kv_mode']}): {len(run['outs']) / run['wall']:.2f} requests/s, "
@@ -6624,6 +7060,10 @@ def main() -> int:
         f"train_translator(moe_experts={EP_EXPERTS}, expert_parallel=2) and its resume)": [
             r["runs"][k][opt]["launches"] for r in ep["ranks"] for k in EP_MESHES for opt in ("sgd", "adam")]
         + [r["recipe"][n]["launches"] for r in ep["ranks"] for n in ("first", "second")],
+        "ingest: fit(data=StreamingPipeline) and over its host batches, K = 1 and 4, resumed": list(
+            ingest["paths"].values()),
+        f"gang: elastic ZeRO-1, {ELASTIC_GANG} ranks on one card, unfaulted and shrunk to "
+        f"{ELASTIC_GANG - 1}": [r["launches"] for rs in elastic["ranks"].values() for r in rs],
         "live plane: paged fp32 engine": [recovery["live"]["paged fp32"]["launches"]],
         "live plane: padded engine": [recovery["live"]["padded"]["launches"]],
         **bf["paths"],
@@ -6727,6 +7167,10 @@ def main() -> int:
             for k, v in r["runs"].items()},
             recipe={k: {f: v.get(f) for f in ("comms", "launches", "bleu", "moe_aux", "resumed")}
                     for k, v in r["recipe"].items()}) for r in ep["ranks"]]), default=str)
+        + f" [{card}]")
+    log("  ingest: " + json.dumps(dict(seconds=ingest["seconds"], ms=ingest["ms"], data=ingest["data"]),
+                                default=str) + f" [{card}]")
+    log("  elastic: " + json.dumps({k: v for k, v in elastic.items() if k != "ranks"}, default=str)
         + f" [{card}]")
     log("  bf16: " + json.dumps(dict(
         parity=bf["parity"], train_step={"fp32": train_times, "bf16": train_times_bf16},

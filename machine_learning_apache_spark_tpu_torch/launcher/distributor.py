@@ -31,10 +31,18 @@ integration with an external scheduler; see ``commands_for_hosts``).
 picks each rank's device and the backend); ``platform="cpu"`` keeps them
 on the host over gloo. ``dp_mode`` and ``dp_overlap`` reach every
 worker's ``fit`` as ``MLSPARK_DP_MODE`` / ``MLSPARK_ZERO1_OVERLAP``
-(``dp_mode="zero1"``: the ZeRO-1 step of ``parallel.zero``). Not ported
-yet, each raising ``NotImplementedError`` at construction with its
-ROADMAP item: ``elastic``, ``elastic_min_world`` and
-``rank_restart_budget`` (A4: ``train/reshard.py``), ``ingest`` (A5).
+(``dp_mode="zero1"``: the ZeRO-1 step of ``parallel.zero``), and
+``ingest={...}`` every worker's ``StreamingPipeline`` as
+``MLSPARK_INGEST_*`` (validated here, ``ingest.validate_ingest_knobs``).
+
+Elastic shrink: a rank that fails more than ``rank_restart_budget``
+times since the last shrink (default ``max_restarts``; a deadline
+expiry blames the gang, not a rank) is permanently lost. Without
+``elastic`` that raises ``GangFailure(permanent=True)`` when a budget
+was set; with ``elastic=True`` the gang retries at ``world - 1`` on a
+fresh coordinator port (never below ``elastic_min_world``), and every
+worker sees ``MLSPARK_ELASTIC=1``, so ``fit(resume=True)`` reshards the
+old world's checkpoints onto the smaller mesh (``train.reshard``).
 
 ``max_restarts=N`` retries a failed gang whole, up to N times, with the
 same function and arguments. A retried gang resumes rather than starts
@@ -304,11 +312,20 @@ class Distributor:
                 f"got {telemetry_http!r}"
             )
         self.telemetry_http = telemetry_http
+        # Input-pipeline plumbing, same shape as dp_mode: the
+        # Distributor(ingest={"buffer": 4, "tail": "pad", ...}) knob
+        # becomes MLSPARK_INGEST_* in every worker's environment (the
+        # contract ingest.IngestConfig.from_env resolves), validated at
+        # construction so a typo'd knob fails in the driver, not inside
+        # every rank after rendezvous.
         if ingest:
-            raise NotImplementedError(
-                "Distributor(ingest=...) is not ported yet (ROADMAP queue "
-                "A5: the ingest/ streaming pipeline)"
+            from machine_learning_apache_spark_tpu_torch.ingest.config import (
+                validate_ingest_knobs,
             )
+
+            self.ingest_env = validate_ingest_knobs(ingest)
+        else:
+            self.ingest_env = {}
         self.timeout = timeout
         # Spark-barrier recovery semantics (SURVEY.md §5 failure detection):
         # a failed stage is retried whole — all-or-nothing gang restarts.
@@ -325,20 +342,36 @@ class Distributor:
         # gangs on one host don't re-stampede the same resource in lockstep.
         self.backoff_base = backoff_base
         self.backoff_max = backoff_max
-        # Elastic shrink (retry at world - 1 after a rank is judged
-        # permanently lost, resharding its checkpoints) needs
-        # train/reshard.py, and so does a per-rank restart budget, whose
-        # exhaustion is what triggers the shrink.
-        for name, given in (
-            ("elastic", bool(elastic)),
-            ("elastic_min_world", elastic_min_world != 1),
-            ("rank_restart_budget", rank_restart_budget is not None),
-        ):
-            if given:
-                raise NotImplementedError(
-                    f"Distributor({name}=...) is not ported yet (ROADMAP "
-                    "queue A4: train/reshard.py)"
-                )
+        # Elastic shrink policy: when one rank keeps failing past its
+        # per-rank restart budget (`rank_restart_budget`, defaulting to
+        # `max_restarts`), it is judged PERMANENTLY LOST — a preempted
+        # card, a bad host. With elastic=True the gang retries at world-1
+        # (never below `elastic_min_world`) instead of raising, and the
+        # workers see MLSPARK_ELASTIC=1 so fit(resume=True) reshards the
+        # old world's checkpoints onto the shrunken mesh
+        # (train/reshard.py). With elastic=False (but a budget set) the
+        # exhaustion raises a GangFailure with permanent=True naming the
+        # rank, cause, and attempt count. Deadline expiries never count
+        # against a rank — they blame the whole gang, not a member.
+        self.elastic = bool(elastic)
+        if int(elastic_min_world) < 1:
+            raise ValueError(
+                f"elastic_min_world must be >= 1, got {elastic_min_world}"
+            )
+        if int(elastic_min_world) > self.num_processes:
+            raise ValueError(
+                f"elastic_min_world={elastic_min_world} exceeds "
+                f"num_processes={self.num_processes}"
+            )
+        self.elastic_min_world = int(elastic_min_world)
+        if rank_restart_budget is not None and int(rank_restart_budget) < 0:
+            raise ValueError(
+                f"rank_restart_budget must be >= 0 or None, got "
+                f"{rank_restart_budget}"
+            )
+        self.rank_restart_budget = (
+            None if rank_restart_budget is None else int(rank_restart_budget)
+        )
 
     # -- multi-host control plane --------------------------------------------
     def commands_for_hosts(
@@ -382,11 +415,17 @@ class Distributor:
 
         try:
             attempt = 0
+            # Per-rank failure counts since the last shrink — the elastic
+            # policy's permanent-loss ledger (deadline expiries excluded:
+            # they blame the gang, not a member).
+            rank_failures: dict[int, int] = {}
             while True:
                 # Clear any stale result/heartbeat files from a failed
                 # attempt so a restart can't return a dead rank's leftovers
-                # (or judge liveness off a corpse's last beat).
-                for rank in range(n):
+                # (or judge liveness off a corpse's last beat). Sweep the
+                # ORIGINAL world's files — after a shrink, a departed
+                # rank's leftovers must not linger either.
+                for rank in range(self.num_processes):
                     for name in (f"result_{rank}.pkl", f"heartbeat_{rank}"):
                         stale = os.path.join(workdir, name)
                         if os.path.exists(stale):
@@ -403,6 +442,25 @@ class Distributor:
                     return value
                 except GangFailure as failure:
                     attempt += 1
+                    budget = (
+                        self.max_restarts
+                        if self.rank_restart_budget is None
+                        else self.rank_restart_budget
+                    )
+                    lost: int | None = None
+                    if failure.rank is not None and failure.cause != "deadline":
+                        rank_failures[failure.rank] = rank_failures.get(failure.rank, 0) + 1
+                        if rank_failures[failure.rank] > budget:
+                            lost = failure.rank
+                    if lost is not None and (
+                        self.elastic or self.rank_restart_budget is not None
+                    ):
+                        n = self._shrink(failure, lost, rank_failures[lost], budget, n, attempt)
+                        attempt = 0
+                        rank_failures.clear()
+                        time.sleep(min(self.backoff_max, self.backoff_base))
+                        coord = f"127.0.0.1:{_free_port()}"
+                        continue
                     telemetry.annotate(
                         "launcher.gang_retry" if attempt <= self.max_restarts
                         else "launcher.gang_exhausted",
@@ -428,6 +486,40 @@ class Distributor:
             import shutil
 
             shutil.rmtree(workdir, ignore_errors=True)
+
+    def _shrink(self, failure: GangFailure, lost: int, fails: int, budget: int,
+                n: int, attempt: int) -> int:
+        """The world after rank ``lost`` is judged permanently lost: raise
+        ``GangFailure(permanent=True)`` when the gang may not shrink
+        (elastic off, or ``elastic_min_world`` reached), else ``n - 1``,
+        with a ``launcher.gang_shrink`` annotation."""
+        why = None
+        if not self.elastic:
+            why = (f"per-rank restart budget {budget} exhausted and elastic "
+                   "resume is disabled")
+        elif n - 1 < self.elastic_min_world:
+            why = (f"the gang cannot shrink below elastic_min_world="
+                   f"{self.elastic_min_world} (world is {n})")
+        if why is not None:
+            telemetry.annotate(
+                "launcher.gang_exhausted", attempt=attempt, rank=lost, cause=failure.cause,
+            )
+            raise GangFailure(
+                f"rank {lost} permanently lost (cause={failure.cause}) after "
+                f"{fails} failed attempt(s) — {why}",
+                rank=lost, cause=failure.cause, attempt=attempt,
+                exit_code=failure.exit_code, permanent=True,
+            ) from failure
+        telemetry.annotate(
+            "launcher.gang_shrink", old_world=n, new_world=n - 1, rank=lost,
+            cause=failure.cause, failures=fails,
+        )
+        log.warning(
+            "rank %d permanently lost (cause=%s, %d failure(s) > budget %d); "
+            "shrinking gang %d -> %d and resuming elastically from the group "
+            "checkpoints", lost, failure.cause, fails, budget, n, n - 1,
+        )
+        return n - 1
 
     def _telemetry_out_dir(self, workdir: str) -> str:
         """Where this gang's telemetry files land — the same precedence the
@@ -488,6 +580,15 @@ class Distributor:
             envcfg.put_into(env, "MLSPARK_SERVE_KV_DTYPE", self.serve_kv_dtype)
         if self.telemetry_http is not None:
             envcfg.put_into(env, "MLSPARK_TELEMETRY_HTTP", self.telemetry_http)
+        # Elastic opt-in rides the same contract: the workers' fit()
+        # resolves MLSPARK_ELASTIC when elastic= isn't passed, so a
+        # shrunken gang reshards old-topology checkpoints instead of
+        # refusing them (train/reshard.py).
+        if self.elastic:
+            envcfg.put_into(env, "MLSPARK_ELASTIC", "1")
+        # Ingest knobs: constructor > inherited env (explicit env= wins).
+        for name, value in self.ingest_env.items():
+            envcfg.put_into(env, name, value)
         # Local mode: every rank is on this host, so gloo's sockets
         # go over loopback. Pinned here because gloo otherwise binds
         # to the interface the hostname resolves to, which a host

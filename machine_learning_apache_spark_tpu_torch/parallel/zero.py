@@ -407,6 +407,11 @@ def plan_layout(plan: _FlatPlan) -> dict:
     }
     if any(sub > 1 for sub in plan.subs):  # the model splits of a hybrid plan
         layout["subs"] = [int(x) for x in plan.subs]
+        # The model shards' length before their segment's pad: where the
+        # replicated leaves' coordinates start once the pad is taken out
+        # (train.reshard re-pads them for another data-axis size).
+        seg = min(s for (s, _), sub in zip(plan.buckets, plan.subs) if sub > 1)
+        layout["sharded"] = int(sum(n for o, n in zip(plan.offsets, plan.sizes) if o < seg))
     return layout
 
 

@@ -1,5 +1,5 @@
-"""Training on one device: losses, metrics, the optimizer chain, the loop
-and checkpoints (the port of the JAX package's ``train/``)."""
+"""Training: losses, metrics, the optimizer chain, the loop, checkpoints
+and their elastic reshard (the port of the JAX package's ``train/``)."""
 
 from machine_learning_apache_spark_tpu_torch.train.checkpoint import (
     CheckpointManager,
@@ -20,6 +20,21 @@ from machine_learning_apache_spark_tpu_torch.train.losses import (
     cross_entropy,
     masked_token_cross_entropy,
 )
+from machine_learning_apache_spark_tpu_torch.train.reshard import (
+    BucketLayout,
+    TopologyMismatch,
+    elastic_restore,
+    gather_spec,
+    reshard_flat,
+    reshard_flat_oracle,
+)
+from machine_learning_apache_spark_tpu_torch.train.metrics import (
+    Mean,
+    MetricBundle,
+    Sum,
+    accuracy,
+    logits_accuracy,
+)
 from machine_learning_apache_spark_tpu_torch.train.state import (
     TrainState,
     make_optimizer,
@@ -27,7 +42,18 @@ from machine_learning_apache_spark_tpu_torch.train.state import (
 )
 
 __all__ = [
+    "BucketLayout",
     "CheckpointManager",
+    "Mean",
+    "MetricBundle",
+    "Sum",
+    "TopologyMismatch",
+    "accuracy",
+    "elastic_restore",
+    "gather_spec",
+    "logits_accuracy",
+    "reshard_flat",
+    "reshard_flat_oracle",
     "FitResult",
     "TrainState",
     "classification_loss",

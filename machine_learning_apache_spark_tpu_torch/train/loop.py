@@ -58,8 +58,18 @@ gang, ``steps_per_call=K`` runs K eager data-parallel steps per call: a
 gloo collective runs on the host and cannot sit inside a CUDA graph.
 Each step passes the ``train_step`` fault-injection site
 (``utils.faults.maybe_fault``) on the host before it runs, and an
-exception out of the loop dumps the flight recorder. Not ported yet:
-elastic resume (``NotImplementedError`` naming its ROADMAP item).
+exception out of the loop dumps the flight recorder.
+
+``data=`` takes an ``ingest.StreamingPipeline`` as well as a list or a
+loader: ``fit`` binds it to the mesh's data index and to the model's
+device (its batches arrive on the device, copied on a side stream, and
+go into the step as they are), records its stream state in every
+checkpoint sidecar, restores it on resume and shuts its threads down
+when ``fit`` returns or raises. A resume whose checkpoints were written
+by another data-axis world reshards them (``train.reshard``) when
+``elastic`` is on (or ``MLSPARK_ELASTIC``, which
+``Distributor(elastic=True)`` sets) and raises ``TopologyMismatch``
+naming both topologies when it is off.
 """
 
 from __future__ import annotations
@@ -302,14 +312,6 @@ def _check_resume_agreed(mesh, step: int | None) -> None:
         )
 
 
-def _unported(elastic) -> None:
-    """Raise for the argument this port does not run yet."""
-    if elastic is not None:
-        raise NotImplementedError(
-            "fit(elastic=...) is not ported yet (ROADMAP queue A4: train/reshard.py)"
-        )
-
-
 def _with_comms_counters(zstep, state):
     """The ZeRO-1 step with the comms telemetry contract of the JAX loop:
     per-step wire-byte counters (the static amounts of
@@ -392,7 +394,14 @@ def fit(
 
     ``train_loader`` (or ``data=``) yields host batches of numpy arrays; if
     it has ``set_epoch``, it is called per epoch. Batches go to the model's
-    device. ``rng`` is a CPU ``torch.Generator`` (default: seeded 0); one
+    device. ``data=`` may be an ``ingest.StreamingPipeline``: ``fit`` binds
+    it to the mesh's data index and size and to the model's device, and
+    its batches, copied there ahead on a side stream, go into the step
+    (or are stacked on the device for K steps per call) without another
+    copy; each checkpoint sidecar holds its stream state
+    (``meta["ingest"]``), a resume restores it, and its threads are shut
+    down when ``fit`` returns or raises. ``rng`` is a CPU
+    ``torch.Generator`` (default: seeded 0); one
     seed drawn from it seeds the run's dropout generator on the device,
     from which every step draws on. ``metrics_file`` appends one JSON
     line per epoch and a final run record. The wall time blocks on the
@@ -420,8 +429,15 @@ def fit(
     ``FitResult.resumed_step`` records which happened. In a gang each
     rank saves through its own manager (``<root>/ckpt_r<rank>``) and
     resumes the group-agreed step with its own dropout generator; a
-    checkpoint of another topology raises ``TopologyMismatch``, and with
-    a mesh the ranks check that they all resumed the same step.
+    checkpoint of another topology raises ``TopologyMismatch`` naming
+    both, unless ``elastic`` (argument > ``MLSPARK_ELASTIC`` > off) is
+    on: then ``train.reshard.elastic_restore`` reshards the old group's
+    step onto this run's data-axis world (a change of any other axis, of
+    the dp mode or of the model still raises), the ingest state is
+    re-scattered (``ingest.rescatter_stream_state``), each rank's dropout
+    generator is seeded anew and a ``train.elastic_resume`` event is
+    emitted. With a mesh the ranks check that they all resumed the same
+    step.
 
     ``profile_dir`` traces the steps ``[profile_window[0],
     profile_window[1])`` (a K-step call enters and leaves the window as
@@ -487,7 +503,6 @@ def fit(
     in the result."""
     from machine_learning_apache_spark_tpu_torch.parallel import zero as _zero
 
-    _unported(elastic)
     if data is not None:
         if train_loader is not None:
             raise ValueError("pass either train_loader or data=, not both")
@@ -543,6 +558,13 @@ def fit(
     rng = rng if rng is not None else torch.Generator().manual_seed(0)
     device = _device_of(state)
     step_rng = torch.Generator(device=device)
+    # A streaming pipeline reads as this rank's data index (the ranks of
+    # a model, expert, pipeline or seq line read the same rows) and
+    # copies its batches to the model's device, which the step takes as
+    # they are.
+    streaming = getattr(train_loader, "is_streaming_pipeline", False)
+    if streaming:
+        train_loader.bind(mesh=mesh, device=device if train_loader.device is not False else None)
     if (mesh is not None and mode != "zero1"
             and (mesh.axis_size("model") > 1 or mesh.axis_size("expert") > 1)):
         # Tensor and expert parallelism: this rank's shard of the model
@@ -571,6 +593,7 @@ def fit(
     start_epoch = 0
     if resume and checkpointer is not None:
         from machine_learning_apache_spark_tpu_torch.train import checkpoint as _ckpt
+        from machine_learning_apache_spark_tpu_torch.train import reshard as _reshard
 
         if world > 1:
             # A barrier: every rank's earlier saves (an earlier fit of
@@ -582,18 +605,21 @@ def fit(
         # route.
         current = _ckpt.topology_stamp(state)
         old = checkpointer.newest_topology_stamp()
-        if old is not None and not _ckpt.same_topology(old, current):
-            raise _ckpt.TopologyMismatch(
-                f"checkpoints under {checkpointer.directory} were "
-                f"written by a different topology — checkpoint "
-                f"topology {old} vs this run's {current}. Pass "
-                "elastic=True (or set MLSPARK_ELASTIC=1, which "
-                "Distributor(elastic=True) does) to reshard, or "
-                "point the run at a fresh checkpoint directory. "
-                "(Resharding, to another world, model- or expert-axis "
-                "size, is train/reshard.py: ROADMAP queue A4, not ported yet.)"
-            )
-        restored = checkpointer.restore_latest_valid(state)
+        crossed = old is not None and not _ckpt.same_topology(old, current)
+        if crossed:
+            if not _reshard.resolve_elastic(elastic):
+                raise _ckpt.TopologyMismatch(
+                    f"checkpoints under {checkpointer.directory} were "
+                    f"written by a different topology — checkpoint "
+                    f"topology {old} vs this run's {current}. Pass "
+                    "elastic=True (or set MLSPARK_ELASTIC=1, which "
+                    "Distributor(elastic=True) does) to reshard through "
+                    "train/reshard.py, or point the run at a fresh "
+                    "checkpoint directory."
+                )
+            restored = _reshard.elastic_restore(checkpointer, state, old_stamp=old)
+        else:
+            restored = checkpointer.restore_latest_valid(state)
         if world > 1:
             _check_resume_agreed(mesh, restored[1] if restored is not None else None)
         if restored is not None:
@@ -601,6 +627,40 @@ def fit(
             if "rng" in resume_meta:
                 rng = _gen_from_meta(torch.Generator(), resume_meta["rng"])
             start_epoch = int(resume_meta.get("epoch", -1)) + 1
+            if streaming and resume_meta.get("ingest") is not None:
+                # The stream's position (mixture generator, cursors) from
+                # the sidecar: the resumed run replays the batches the
+                # interrupted one would have read.
+                ingest_state = resume_meta["ingest"]
+                if crossed:
+                    from machine_learning_apache_spark_tpu_torch.ingest import rescatter_stream_state
+
+                    ingest_state = rescatter_stream_state(
+                        ingest_state,
+                        old_world=int(old.get("world_size", 1)),
+                        new_world=int(current.get("world_size", 1)),
+                        shard=train_loader.shard,
+                    )
+                train_loader.load_state_dict(ingest_state)
+            if crossed:
+                # The old ranks' dropout streams do not map onto the new
+                # data indices: each draws anew from the restored host
+                # generator, as a fresh fit does.
+                resume_meta.pop("dropout_rng", None)
+                telemetry.annotate(
+                    "train.elastic_resume",
+                    step=int(resumed_step),
+                    old_world=int(old.get("world_size", 1)),
+                    new_world=int(current.get("world_size", 1)),
+                    old_mesh=old.get("mesh"),
+                    new_mesh=current.get("mesh"),
+                    dp_mode=current.get("dp_mode"),
+                )
+                emit(
+                    f"elastic resume: resharded checkpoint step "
+                    f"{resumed_step} from world {old.get('world_size')} "
+                    f"onto world {current.get('world_size')}"
+                )
             emit(
                 f"resuming from checkpoint step {resumed_step} "
                 f"(starting epoch {start_epoch})"
@@ -706,6 +766,10 @@ def fit(
     finally:
         if sink is not None:
             sink.close()
+        if streaming:
+            # The pipeline's threads end with the fit, whether it
+            # returned or raised.
+            train_loader.shutdown()
     emit(f"Training Time: {seconds:.3f} sec")
     comms = step_fn.comms.stats() if step_fn is not None else {}
     for axis_line in model_lines(state.model):
@@ -830,7 +894,7 @@ def _run_epochs(
                 # returns (after the device work that writes it) and
                 # writes the files on a thread. The sidecar carries what
                 # resume needs to continue the exact trajectory.
-                checkpointer.save(state, wait=False, meta={
+                meta = {
                     "epoch": epoch,
                     "epochs": epochs,
                     "rng": _gen_to_meta(rng),
@@ -839,7 +903,13 @@ def _run_epochs(
                         k: (v if isinstance(v, int) else float(v))
                         for k, v in computed.items()
                     },
-                })
+                }
+                if getattr(train_loader, "is_streaming_pipeline", False):
+                    # The epoch's end is a quiescent point of the stream
+                    # (its producer has finished the epoch): the cursor
+                    # and the mixture's generator are exact here.
+                    meta["ingest"] = train_loader.state_dict()
+                checkpointer.save(state, wait=False, meta=meta)
     return history
 
 

@@ -126,6 +126,12 @@ register(
     description="This worker's gang rank (RANK analogue); also the rank "
     "label telemetry and fault plans key on.",
 )
+register(
+    "MLSPARK_ELASTIC", type="bool", default=False, subsystem="launcher",
+    description="Set by Distributor(elastic=True): workers' fit() "
+    "reshards old-topology checkpoints onto a shrunken mesh instead of "
+    "refusing them (train/reshard.py).",
+)
 
 # parallel / comms
 register(
@@ -211,6 +217,28 @@ register(
     description="Head-based trace sampling probability in [0, 1]; the "
     "decision is made once per request at the router/engine entry point "
     "and inherited by every hop.",
+)
+
+# ingest
+register(
+    "MLSPARK_INGEST_BUFFER", type="int", default=2, subsystem="ingest",
+    description="Host-side prefetch depth in batches (0 = synchronous "
+    "batch assembly).",
+)
+register(
+    "MLSPARK_INGEST_DEVICE_PREFETCH", type="int", default=2, subsystem="ingest",
+    description="Batches kept resident on-device ahead of consumption "
+    "(double buffering at 2; 0 disables the device stage).",
+)
+register(
+    "MLSPARK_INGEST_TAIL", type="str", default="pad", subsystem="ingest",
+    description="Epoch-tail policy: `pad` (collective-safe wrap-pad) or "
+    "`drop`.", choices=("pad", "drop"),
+)
+register(
+    "MLSPARK_INGEST_CHUNK_LINES", type="int", default=1024, subsystem="ingest",
+    description="Lines per parser call in the streaming file readers "
+    "(native-parser batching grain).",
 )
 
 # fault injection (read directly by the stdlib-only utils.faults)

@@ -11,8 +11,9 @@
 - ``restore_latest_valid`` capped at the group-agreed step; a group with
   no agreed step is a fresh start.
 - A crossed topology raises ``TopologyMismatch`` with the JAX message;
-  ``elastic=True`` raises ``NotImplementedError`` naming
-  ``train/reshard.py``.
+  under ``elastic=True`` the resume goes through ``train/reshard.py``,
+  which needs the old gang's ``ckpt_r<k>`` directories (the JAX
+  ``elastic_restore``'s refusal).
 - The recipe's resume count: a retried attempt finishes its own run, a
   new run trains its epochs on.
 - In a 2-rank CPU gang: the MLP recipe trained 2 + 2 epochs with
@@ -232,8 +233,11 @@ def test_crossed_topology_raises(tmp_path):
             fit(_state(), classification_loss(), batches, epochs=2, checkpointer=mgr,
                 resume=True, log_every=0)
     assert str(STAMP_2) in str(e.value) and str(STAMP_1) in str(e.value)
+    # With elastic on, the crossed resume goes through train/reshard.py,
+    # which needs the old gang's ckpt_r<k> directories, as the JAX
+    # elastic_restore does.
     with ckpt.CheckpointManager(d) as mgr:
-        with pytest.raises(NotImplementedError, match="train/reshard.py"):
+        with pytest.raises(ckpt.TopologyMismatch, match="ckpt_r<rank> group convention"):
             fit(_state(), classification_loss(), batches, epochs=2, checkpointer=mgr,
                 resume=True, elastic=True, log_every=0)
 

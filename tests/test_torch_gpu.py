@@ -1716,3 +1716,33 @@ def test_ep_gang_on_the_card_trains_as_one_process(card_ep_gang, mesh):
         # 3 steps, 3 attention sites each, on every rank.
         assert launches["flash_attention_fwd"] == launches["flash_attention_bwd_dq"] \
             == launches["flash_attention_bwd_dkv"] == 9, (mesh, r, launches)
+
+
+# -- the streaming pipeline's device stage --------------------------------------------
+
+
+@pytest.mark.parametrize("buffer", [0, 2])
+def test_pipeline_device_stage_copies_once_onto_the_card(cuda, buffer):
+    """The device stage on the card: every batch arrives on the card, ids
+    as int64, equal to the host batches; two copies a batch (one a
+    field), none after; no ingest thread outlives the iterator."""
+    import threading
+
+    from machine_learning_apache_spark_tpu_torch.ingest import ArraySource, StreamingPipeline, WORKER_PREFIX
+    from machine_learning_apache_spark_tpu_torch.train.loop import stack_batches, to_device
+
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(40, 6)).astype(np.float32)
+    y = rng.integers(0, 9, 40).astype(np.int32)
+    host = list(StreamingPipeline(ArraySource(x, y), 8, device=False, buffer=buffer))
+    pipe = StreamingPipeline(ArraySource(x, y), 8, device=cuda, buffer=buffer, device_prefetch=2)
+    got = list(pipe)
+    assert len(got) == len(host) == 5 and pipe.h2d_copies == 2 * len(got)
+    for b, h in zip(got, host):
+        assert all(t.is_cuda for t in b) and b[1].dtype == torch.int64
+        assert all(m is t for m, t in zip(to_device(b, b[0].device), b))
+        np.testing.assert_array_equal(b[0].cpu().numpy(), h[0])
+        np.testing.assert_array_equal(b[1].cpu().numpy(), h[1].astype(np.int64))
+    assert stack_batches(got[:4], got[0][0].device)[0].is_cuda
+    pipe.shutdown()
+    assert not [t for t in threading.enumerate() if t.name.startswith(WORKER_PREFIX) and t.is_alive()]

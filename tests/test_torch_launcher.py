@@ -216,14 +216,18 @@ def test_unpicklable_result_fails_the_gang():
 @pytest.mark.parametrize(
     "kw,env",
     [(dict(dp_mode="zero1"), {"MLSPARK_DP_MODE": "zero1"}),
-     (dict(dp_overlap=False), {"MLSPARK_ZERO1_OVERLAP": "0"})],
+     (dict(dp_overlap=False), {"MLSPARK_ZERO1_OVERLAP": "0"}),
+     (dict(elastic=True), {"MLSPARK_ELASTIC": "1"}),
+     (dict(ingest={"buffer": 4, "tail": "drop"}),
+      {"MLSPARK_INGEST_BUFFER": "4", "MLSPARK_INGEST_TAIL": "drop"})],
     ids=lambda v: next(iter(v)) if isinstance(v, dict) else None,
 )
 def test_zero1_knobs_reach_the_worker_env(kw, env, monkeypatch):
     """``Distributor(dp_mode=, dp_overlap=)`` become every worker's
     ``MLSPARK_DP_MODE`` / ``MLSPARK_ZERO1_OVERLAP`` (the JAX launcher's
     contract); an explicit ``env=`` still wins over them."""
-    for name in ("MLSPARK_DP_MODE", "MLSPARK_ZERO1_OVERLAP"):
+    for name in ("MLSPARK_DP_MODE", "MLSPARK_ZERO1_OVERLAP", "MLSPARK_ELASTIC",
+                 "MLSPARK_INGEST_BUFFER", "MLSPARK_INGEST_TAIL"):
         monkeypatch.delenv(name, raising=False)
     d = Distributor(num_processes=2, platform="cpu", **kw)
     for rank in range(2):
@@ -239,15 +243,43 @@ def test_zero1_knobs_reach_the_worker_env(kw, env, monkeypatch):
 
 @pytest.mark.parametrize(
     "kw,item",
-    [(dict(elastic=True), "train/reshard.py"),
-     (dict(elastic_min_world=2), "train/reshard.py"),
-     (dict(rank_restart_budget=1), "train/reshard.py"),
-     (dict(ingest={"buffer": 4}), "A5")],
+    [(dict(elastic=True, elastic_min_world=0), "elastic_min_world must be >= 1"),
+     (dict(elastic_min_world=3), "elastic_min_world=3 exceeds num_processes=2"),
+     (dict(rank_restart_budget=-1), "rank_restart_budget must be >= 0"),
+     (dict(ingest={"bufer": 4}), "unknown ingest knob 'bufer'")],
     ids=lambda v: next(iter(v)) if isinstance(v, dict) else None,
 )
 def test_unported_knobs_raise_naming_their_item(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
+    """The knobs that raised ``NotImplementedError`` before the elastic
+    policy and the ingest pipeline were ported: a bad value now raises
+    the JAX launcher's ``ValueError`` at construction, naming the knob
+    (``TestElasticShrinkPolicy::test_constructor_validation``,
+    ``TestEnvContract::test_distributor_rejects_bad_knobs_at_construction``)."""
+    with pytest.raises(ValueError, match=item):
         Distributor(num_processes=2, platform="cpu", **kw)
+
+
+def test_permanent_loss_without_elastic_names_rank_cause_budget():
+    """The JAX ``TestElasticShrinkPolicy`` budget case: rank 1 always
+    fails; with a budget of 0 and elastic off the first failure is a
+    permanent loss, and the error says which knob would have shrunk."""
+    with pytest.raises(GangFailure) as e:
+        Distributor(num_processes=2, platform="cpu", timeout=120, rank_restart_budget=0,
+                    backoff_base=0.05, term_grace=1.0).run("torch_launcher_workers:fail_rank", 1)
+    f = e.value
+    assert f.permanent is True and f.rank == 1 and f.cause == "exit"
+    assert "permanently lost" in str(f) and "budget 0" in str(f) and "elastic" in str(f)
+    assert kill_stray_gangs() == 0
+
+
+def test_elastic_cannot_shrink_below_min_world():
+    with pytest.raises(GangFailure) as e:
+        Distributor(num_processes=2, platform="cpu", timeout=120, elastic=True,
+                    rank_restart_budget=0, elastic_min_world=2, backoff_base=0.05,
+                    term_grace=1.0).run("torch_launcher_workers:fail_rank", 1)
+    assert e.value.permanent is True and e.value.rank == 1
+    assert "elastic_min_world" in str(e.value)
+    assert kill_stray_gangs() == 0
 
 
 def test_knob_validation_is_the_jax_packages():

@@ -407,21 +407,35 @@ def _two_process_mesh():
 
 @pytest.mark.parametrize(
     "kw", [
-        # A mesh, sync checks and gang checkpoints run; what stays
-        # unported on them is an elastic (resharding) resume.
-        dict(sync_check_every=1, mesh="gang", checkpointer=object(), resume=True,
-             elastic=True),
-        dict(elastic=True)],
-    ids=lambda kw: next(iter(kw)),
+        # Once unported (NotImplementedError); now a crossed resume under
+        # elastic goes through train/reshard.py and refuses what the JAX
+        # elastic_restore refuses, naming it: a group it cannot find, a
+        # change of the dp mode.
+        dict(elastic=True, stamp={"world_size": 2, "dp_mode": "replicated",
+                                  "mesh": {"data": 2}, "layout": None},
+             match="ckpt_r<rank> group convention"),
+        dict(elastic=True, stamp={"world_size": 1, "dp_mode": "zero1", "mesh": None,
+                                  "layout": {"total": 8, "world": 1, "padded": 8,
+                                             "shard_len": 8, "buckets": [[0, 8]]}},
+             match="dp_mode 'zero1'")],
+    ids=lambda kw: kw["match"].split()[0],
 )
-def test_unported_fit_arguments_raise(kw):
-    state = tstate.TrainState.create(
-        model=Transformer(TransformerConfig(**TINY)), tx=tstate.make_optimizer()
-    )
-    if kw.get("mesh") == "gang":
-        kw = {**kw, "mesh": _two_process_mesh()}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tloop.fit(state, trecipe.make_translation_loss(0), [], epochs=1, **kw)
+def test_unported_fit_arguments_raise(kw, tmp_path):
+    from machine_learning_apache_spark_tpu_torch.train import checkpoint as tckpt
+
+    def state():
+        return tstate.TrainState.create(
+            model=Transformer(TransformerConfig(**TINY)), tx=tstate.make_optimizer()
+        )
+
+    with tckpt.CheckpointManager(str(tmp_path)) as mgr:
+        mgr.save(state(), meta={"epoch": 0, "topology": kw["stamp"]})
+    with tckpt.CheckpointManager(str(tmp_path)) as mgr:
+        with pytest.raises(tckpt.TopologyMismatch, match=kw["match"]) as e:
+            tloop.fit(state(), trecipe.make_translation_loss(0), [], epochs=1,
+                      checkpointer=mgr, resume=True, elastic=kw["elastic"], log_every=0)
+    if "dp_mode" in kw["match"]:  # the refusal names both topologies
+        assert str(kw["stamp"]) in str(e.value) and "'dp_mode': 'replicated'" in str(e.value)
 
 
 @pytest.mark.parametrize(

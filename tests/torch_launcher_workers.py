@@ -1555,3 +1555,133 @@ def ep_card_gang(cfg_kwargs, flax_params, batches, lr, device=None):
         out[name] = {"device": str(dev), "step_losses": res.step_losses, "params": full,
                      "launches": launches}
     return out if rank == 0 else None
+
+
+# -- the streaming pipeline and elastic resume ------------------------------------
+
+
+def fail_rank(target=1):
+    """Exit nonzero on the targeted rank of the CURRENT world; everyone
+    else returns their coordinates (plus the elastic env contract) — the
+    JAX ``launcher_workers.fail_rank``. Once a shrink removes the rank
+    from the world, the gang succeeds."""
+    rank = int(os.environ.get("MLSPARK_PROCESS_ID", "0"))
+    if rank == int(target):
+        raise RuntimeError(f"rank {rank} exploded (injected permanent loss)")
+    return {
+        "rank": rank,
+        "world": int(os.environ.get("MLSPARK_NUM_PROCESSES", "1")),
+        "elastic_env": os.environ.get("MLSPARK_ELASTIC"),
+    }
+
+
+def echo_ingest_env():
+    """The ingest env contract as a worker sees it, resolved through
+    ``IngestConfig.from_env`` as a worker's ``StreamingPipeline`` does."""
+    from machine_learning_apache_spark_tpu_torch.ingest.config import IngestConfig
+
+    cfg = IngestConfig.from_env()
+    return {"buffer": cfg.buffer, "tail": cfg.tail,
+            "rank": int(os.environ.get("MLSPARK_PROCESS_ID", "-1"))}
+
+
+def _mlp_stream(features, labels, global_batch, world):
+    """One fit epoch = one global batch of the records' stream: a
+    one-source mixture (its stream position rides the sidecar), each
+    rank its records ``i % world``."""
+    from machine_learning_apache_spark_tpu_torch.ingest import (
+        ArraySource,
+        MixtureSampler,
+        StreamingPipeline,
+    )
+
+    mix = MixtureSampler({"rows": ArraySource(features, labels)}, records_per_epoch=global_batch)
+    return StreamingPipeline(mix, global_batch // world, device="cpu")
+
+
+def elastic_drill(root, layers, flax_params, features, labels, global_batch, epochs, lr,
+                  bucket_bytes, groups_root=None):
+    """The shrink drill's worker: ``fit(data=StreamingPipeline)`` of the
+    MLP under ZeRO-1 over the gang's data axis, SGD, one global batch a
+    fit epoch and a checkpoint each (per rank ``<root>/ckpt_r<rank>``),
+    ``resume=True`` — elastic through ``MLSPARK_ELASTIC`` from the
+    launcher. On the first attempt at world 3 and with ``groups_root``,
+    it first writes two checkpoint groups for the reshard tests (2
+    epochs: replicated SGD, and ZeRO-1 Adam at ``bucket_bytes``). Rank
+    0's result: final parameters (Flax layout), step losses, the resumed
+    step, the world, and the elastic events this process saw."""
+    from machine_learning_apache_spark_tpu_torch import telemetry
+    from machine_learning_apache_spark_tpu_torch.ingest import WORKER_PREFIX
+    from machine_learning_apache_spark_tpu_torch.models.mlp import MLP
+    from machine_learning_apache_spark_tpu_torch.parallel import data_parallel_mesh
+    from machine_learning_apache_spark_tpu_torch.train.checkpoint import CheckpointManager
+    from machine_learning_apache_spark_tpu_torch.train.loop import classification_loss, fit
+    from machine_learning_apache_spark_tpu_torch.train.state import TrainState, make_optimizer
+    from machine_learning_apache_spark_tpu_torch.weights import export_flax_params, load_flax_params
+
+    import threading
+
+    rank, world = _rank_world()
+    mesh = data_parallel_mesh(device="cpu")
+
+    def state(opt):
+        return TrainState.create(model=load_flax_params(MLP(tuple(layers)), flax_params),
+                                 tx=make_optimizer(opt, lr))
+
+    if groups_root is not None and world == 3:
+        for name, opt, mode in (("replicated", "sgd", None), ("zero1", "adam", "zero1")):
+            with CheckpointManager(os.path.join(groups_root, name, f"ckpt_r{rank}")) as ck:
+                fit(state(opt), classification_loss(), data=_mlp_stream(features, labels, global_batch, world),
+                    epochs=2, mesh=mesh, dp_mode=mode, dp_bucket_bytes=bucket_bytes if mode else None,
+                    checkpointer=ck, log_every=0)
+    with CheckpointManager(os.path.join(root, f"ckpt_r{rank}")) as ck:
+        res = fit(state("sgd"), classification_loss(), data=_mlp_stream(features, labels, global_batch, world),
+                  epochs=epochs, mesh=mesh, dp_mode="zero1", dp_bucket_bytes=bucket_bytes,
+                  checkpointer=ck, resume=True, log_every=0)
+    events = [dict(name=e.name, **(e.attrs or {})) for e in telemetry.get_log().snapshot()
+              if e.name in ("train.elastic_resume", "train.elastic_restore")]
+    threads = [t.name for t in threading.enumerate() if t.name.startswith(WORKER_PREFIX)]
+    if rank != 0:
+        return None
+    return {"params": {k: np.asarray(v) for k, v in _flat_tree(export_flax_params(res.state.model)).items()},
+            "step_losses": res.step_losses, "resumed": res.resumed_step, "world": world,
+            "step": res.state.step, "events": events, "threads": threads}
+
+
+def _flat_tree(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else k
+        out.update(_flat_tree(v, path) if isinstance(v, dict) else {path: v})
+    return out
+
+
+def hybrid_ckpt_group(root, layers, flax_params, features, labels, global_batch, lr, bucket_bytes):
+    """A ``{data: 2, model: 2}`` ZeRO-1 checkpoint group (the MLP with
+    ``tp_rules``, Adam, 2 fit epochs over a streaming pipeline bound to
+    the data axis) under ``<root>/ckpt_r<rank>``. Rank 0's result: the
+    plan's leaf shapes (model shards first) and how many are model
+    shards, the stamp, and the rows each data index read."""
+    from machine_learning_apache_spark_tpu_torch.models.mlp import MLP
+    from machine_learning_apache_spark_tpu_torch.parallel import make_mesh
+    from machine_learning_apache_spark_tpu_torch.train.checkpoint import CheckpointManager, topology_stamp
+    from machine_learning_apache_spark_tpu_torch.train.loop import classification_loss, fit
+    from machine_learning_apache_spark_tpu_torch.train.state import TrainState, make_optimizer
+    from machine_learning_apache_spark_tpu_torch.weights import load_flax_params
+
+    rank, _ = _rank_world()
+    mesh = make_mesh({"data": 2, "model": 2}, device="cpu")
+    state = TrainState.create(model=load_flax_params(MLP(tuple(layers), tp_rules=True), flax_params),
+                              tx=make_optimizer("adam", lr))
+    pipe = _mlp_stream(features, labels, global_batch, 2)
+    with CheckpointManager(os.path.join(root, f"ckpt_r{rank}")) as ck:
+        res = fit(state, classification_loss(), data=pipe, epochs=2, mesh=mesh, dp_mode="zero1",
+                  dp_bucket_bytes=bucket_bytes, checkpointer=ck, log_every=0)
+    plan = res.state.plan
+    n_sharded = sum(1 for p in res.state.flat_params if getattr(p, "shards", ()))
+    coords = [None] * 4
+    dist.all_gather_object(coords, (mesh.coords, (pipe.rank, pipe.world)))
+    if rank != 0:
+        return None
+    return {"shapes": [list(s) for s in plan.shapes], "n_sharded": n_sharded,
+            "stamp": topology_stamp(res.state), "step": res.state.step, "coords": coords}
