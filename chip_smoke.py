@@ -244,7 +244,7 @@ Phases, each fatal on failure:
 7g. pipeline parallelism on the pipeline axis — ``Session`` ->
    ``Distributor`` -> one 4-rank gang sharing the card over gloo: the MT
    model at reference width and ``num_layers = S`` (dropout 0, Adam,
-   global batch 32, the fixture's first epoch and its eval) on (a)
+   global batch 32, the fixture's first 8 batches and its eval) on (a)
    ``{pipeline: 4}`` at M = 4 and (b) M = 8 (num_layers 4), (c) ``{data:
    2, pipeline: 2}`` at M = 2 (num_layers 2), (c) at 4 steps per call and
    (d) at bf16; (e) ``train_translator(pipeline_parallel=2,
@@ -316,6 +316,32 @@ Phases, each fatal on failure:
    Printed: each mesh's step ms (Adam, 3 after 1) beside one process's,
    the ``comms.ep_allreduce`` (and ``tp_allreduce``) calls, bytes and
    window per step, the peak per rank; the phase's own seconds;
+7k. the serving fleet — ``ReplicaGang("chip_smoke:fleet_replica_rank",
+   platform=None)``: 2 replica processes on the card, each phase 4's
+   translator (reference width, the 8,000-word vocabularies, weights from
+   the seed) served by ``fleet.serve_replica`` with phase 4's paged knobs,
+   behind ``FleetRouter(policy="affinity")``. (a) phase 4's 64 prompts
+   routed from 16 client threads: every request completes, token agreement
+   with phase 4's in-process paged engine >= 0.99 (mismatches printed),
+   the router ledger balances, every replica scrapes 0 in flight and 0
+   recompiles after warmup, both replicas served, and each replica
+   launched the flash forward and the ragged decode (read off its
+   ``/statusz``: ``tools/torch_fleet_bench.serve_counted``) over this pass
+   and a second of 8 x the prompts from 16 closed-loop clients, which is
+   timed against one engine in this process on the same work; (b)
+   ``kill_rank(1)`` under 8 closed-loop clients: only rank 1's in-flight
+   requests lost, rank 0 serves through the outage, rank 1 restarts and
+   serves again, the ledger balances; (c) a ``FleetAutoscaler`` on the
+   router's scrape loop takes the gang 2 -> 3 under queue-depth load (16
+   closed-loop clients; the added replica must scrape healthy) and back to
+   2 by draining the coldest replica under 1 client, no request lost,
+   every decision with its inputs. Printed: each replica's start-up
+   seconds (spawn to first healthy scrape, graph capture included), the
+   time to recover (kill to rank 1 serving a routed request again), the
+   added replica's start-up and the requests routed to it, requests/s and
+   tokens/s through the fleet beside one engine, the skew
+   (``replica_skew``), each replica's launches and peak memory, the
+   decisions; no throughput gate (the replicas share one card and host);
 8. times — requests/s, generated tokens/s and peak device memory of each
    engine (paged fp32 and int8, padded, beam); each engine's requests/s
    and device idle share over one profiled window; the host time of the
@@ -1043,6 +1069,18 @@ def make_vocab_texts(prefix: str) -> tuple[list[str], list[str]]:
     words = [f"{prefix}{i:04d}" for i in range(VOCAB_WORDS)]
     corpus = [" ".join(words[i:i + 50]) for i in range(0, VOCAB_WORDS, 50)]
     return words, corpus
+
+
+def serving_pipes():
+    """The serving slice's words and its source and target pipelines over
+    the ``VOCAB_WORDS``-word vocabularies."""
+    from machine_learning_apache_spark_tpu_torch.data.text import TextPipeline
+
+    src_words, src_corpus = make_vocab_texts("s")
+    _, trg_corpus = make_vocab_texts("t")
+    width = SERVE["boundaries"][-1] - 1
+    return src_words, TextPipeline.fit(src_corpus, max_seq_len=width), TextPipeline.fit(
+        trg_corpus, max_seq_len=width)
 
 
 def make_prompts(words: list[str]) -> list[str]:
@@ -4762,6 +4800,10 @@ PP_MESHES = {
 PP_C = "c {data: 2, pipeline: 2} M=2"
 PP_RTOL = 1e-4
 PP_WARMUP, PP_TIMED = 1, 3
+# Global batches of 32 a fit on each mesh (a-d) and in its references: the
+# first 8 of the fixture epoch's 12, two full groups at 4 steps per call;
+# the recipe (e) still trains whole epochs.
+PP_BATCHES = 8
 # train_translator(pipeline_parallel=2) in the 4-rank gang: {data: 2,
 # pipeline: 2}, 16 rows a data replica (global batch 32), 4 microbatches.
 PP_RECIPE = dict(data_root=str(FIXTURES), batch_size=16, dropout=0.0, log_every=0, num_layers=2,
@@ -5040,7 +5082,7 @@ def pp_slice(torch, hop, card: str, dev) -> dict:
 
     t_phase = time.perf_counter()
     src_pipe, trg_pipe, train_ds = fixture_data()
-    batches = train_batches(train_ds, 12)
+    batches = train_batches(train_ds, PP_BATCHES)
     src0, trg0 = batches[0]
     sites = pp_sites(torch, dev, src0, trg0[:, :-1])
     errs = check_training_kernels(torch, hop, sites, dev, edges=False)
@@ -6550,6 +6592,287 @@ def elastic_slice(torch, hop, card: str) -> dict:
                 params=dict(max_rel=pg["max_rel"], key_bias=pg["key_bias_abs"]))
 
 
+# -- phase 7k: the serving fleet ---------------------------------------------------
+
+# Two replicas of phase 4's paged engine, each its own process on the card
+# (``ReplicaGang(platform=None)``), behind one ``FleetRouter(policy=
+# "affinity")``; a third added and one drained by the autoscaler.
+FLEET_REPLICAS = 2
+FLEET_CLIENTS = 16  # client threads routing phase 4's prompts (half its engine's rows)
+FLEET_KILL_CLIENTS = 8  # closed-loop clients while rank 1 is killed
+FLEET_REPEATS = 8  # the prompts over again, for the throughput windows
+FLEET_HOT_AFTER_S = 5.0  # the hot load on, once the added replica is healthy
+FLEET_HOT_CLIENTS = 16  # closed-loop load that trips the queue-depth trigger
+FLEET_WAIT_S = 180.0  # a replica's start-up (import, weights, graph capture) or a drain, at most
+FLEET_AUTOSCALE = dict(min_replicas=2, max_replicas=3, burn_up=0.5, burn_down=0.05, queue_up=1.5,
+                       queue_down=0.5, hysteresis_ticks=2, cooldown_s=2.0, drain_deadline_s=30.0,
+                       drain_batch_shed=0.5)
+
+
+def fleet_replica_rank(knobs: dict, max_s: float = 900.0) -> dict:
+    """One replica of phase 7k's gang: phase 4's translator (the reference
+    model at full width, the ``VOCAB_WORDS``-word vocabularies, weights
+    from the seed) on ``fleet.replica.replica_device()`` — the card —
+    served behind the fleet's data plane until the gang stops it. Its
+    kernel launches and memory ride its ``/statusz`` (the smoke cannot
+    read another process's counters) and its result."""
+    import torch_fleet_bench as fb
+
+    from machine_learning_apache_spark_tpu_torch.fleet.replica import replica_device
+
+    _, src_pipe, trg_pipe = serving_pipes()
+    translator = build_translator(replica_device(), model_params(src_pipe, trg_pipe), src_pipe, trg_pipe)
+    return fb.serve_counted(translator, knobs, max_s=max_s)
+
+
+def _fleet_wait(pred, seconds: float = FLEET_WAIT_S, poll: float = 0.05) -> float | None:
+    """Seconds until ``pred()`` held, or None if it never did."""
+    t0 = time.monotonic()
+    while time.monotonic() - t0 < seconds:
+        if pred():
+            return time.monotonic() - t0
+        time.sleep(poll)
+    return None
+
+
+def _fleet_healthy(router) -> dict:
+    return {r: s for r, s in router._scrape.snapshots().items() if s.healthy}
+
+
+def _fleet_load(fb, router, prompts, clients: int) -> tuple:
+    """Closed-loop load in a thread until the returned event is set."""
+    import threading
+
+    stop, result = threading.Event(), {}
+    thread = threading.Thread(target=lambda: result.update(fb.drive_load(
+        router, prompts, clients=clients, stop=stop, tier="interactive", deadline_s=120.0)), daemon=True)
+    thread.start()
+    return stop, thread, result
+
+
+def _delta(after: dict, before: dict) -> dict:
+    return {k: after[k] - before.get(k, 0) for k in after}
+
+
+def fleet_slice(torch, hop, card: str, translator, prompts, single: dict) -> dict:
+    """Phase 7k: (a) two replicas on the card behind the router route phase
+    4's prompts; (b) rank 1 killed under closed-loop load and restarted;
+    (c) one autoscale cycle 2 -> 3 -> 2. ``single`` is phase 4's paged fp32
+    run over the same prompts, the in-process oracle and baseline."""
+    import shutil
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
+    import torch_fleet_bench as fb
+
+    from machine_learning_apache_spark_tpu_torch.fleet import AutoscaleConfig, FleetAutoscaler
+    from machine_learning_apache_spark_tpu_torch.fleet.scrape import find_fleet_sidecars
+    from machine_learning_apache_spark_tpu_torch.launcher import kill_stray_gangs
+    from machine_learning_apache_spark_tpu_torch.telemetry.aggregate import replica_skew
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()  # the replicas share the card with this process
+    root = scratch_dir() / "fleet"
+    shutil.rmtree(root, ignore_errors=True)
+    knobs = dict(SERVE)
+    failed, out = [], {}
+    t_spawn = time.monotonic()
+    gang, router = fb.start_fleet(
+        FLEET_REPLICAS, str(root), "chip_smoke:fleet_replica_rank", knobs, platform=None,
+        key_fn=fb.make_key_fn(translator), gang_kw=dict(backoff_base=0.1))
+    try:
+        # (a) Start-up: spawn to the first healthy scrape (import, weights,
+        # the engine's graph capture), each replica.
+        startup = {}
+
+        def all_up():
+            for r in _fleet_healthy(router):
+                startup.setdefault(r, time.monotonic() - t_spawn)
+            return len(startup) >= FLEET_REPLICAS
+
+        if _fleet_wait(all_up) is None:
+            fail(f"the fleet never came healthy: {gang.status()}")
+        log(f"  (a) {FLEET_REPLICAS} replicas of phase 4's paged engine on the card, start-up s (spawn to "
+            f"first healthy scrape, graph capture included): "
+            + ", ".join(f"rank {r} {t:.2f}" for r, t in sorted(startup.items())) + f" [{card}]")
+        base = fb.replica_sections(router)
+        devices = {r: (s or {}).get("device") for r, s in base.items()}
+        if any(d is None or not d.startswith("cuda") for d in devices.values()):
+            failed.append(f"a replica is not on the card: {devices}")
+        routed = fb.route(router, prompts, clients=FLEET_CLIENTS, deadline_s=120.0)
+        share, notes = agreement(routed["outs"], single["outs"])
+        # Throughput: the same closed-loop work through the fleet and
+        # through one engine in this process, both after their first pass.
+        work = prompts * FLEET_REPEATS
+        steady = fb.route(router, work, clients=FLEET_CLIENTS, deadline_s=120.0)
+        after = fb.replica_sections(router)
+        serving = fb.replica_sections(router, "serving")
+        conservation = fb.conservation_gate(router)
+        launches = {r: _delta(after[r]["launches"], base[r]["launches"]) for r in after}
+        local = fb.local_route(translator, knobs, work, clients=FLEET_CLIENTS)
+        words, local_words = (sum(len(o.split()) for o in r["outs"] if o) for r in (steady, local))
+        single_words = sum(len(o.split()) for o in single["outs"])
+        skew = replica_skew(router._scrape.rows())
+        per_replica = router.stats()["per_replica"]
+        log(f"  (a) {len(prompts)} prompts routed from {FLEET_CLIENTS} client threads: "
+            f"{len(prompts) - len(routed['errors'])} completed in {routed['wall']:.3f} s [{card}]")
+        log(f"    throughput, {len(work)} requests ({FLEET_REPEATS} x the prompts) from {FLEET_CLIENTS} "
+            f"closed-loop clients: fleet of {FLEET_REPLICAS} {len(work) / steady['wall']:.2f} requests/s, "
+            f"{words / steady['wall']:.1f} generated tokens/s (words of the outputs); one engine in this "
+            f"process {len(work) / local['wall']:.2f} requests/s, {local_words / local['wall']:.1f} "
+            f"tokens/s; phase 4's engine, all {len(prompts)} submitted at once: "
+            f"{len(single['outs']) / single['wall']:.2f} requests/s, {single_words / single['wall']:.1f} "
+            f"tokens/s [{card}]")
+        log(f"    per replica: completed {({r: v['completed'] for r, v in sorted(per_replica.items())})}, "
+            f"skew {json.dumps(skew)}; launches in (a) "
+            f"{({r: {k: v for k, v in d.items() if v} for r, d in launches.items()})}; peak memory "
+            f"{({r: after[r].get('peak_bytes') for r in after})} B; recompiles_after_warmup "
+            f"{({r: s.get('recompiles_after_warmup') for r, s in serving.items()})} [{card}]")
+        log(f"    token agreement with phase 4's paged fp32 engine: {share:.6f} (gate >= {AGREEMENT_MIN})")
+        for n in notes:
+            log(f"      mismatch: {n}")
+        log(f"    router ledger {conservation['router_ledger']}, scraped in_flight "
+            f"{conservation['replica_in_flight']}")
+        if routed["errors"] or steady["errors"]:
+            failed.append(f"routed requests failed: {(routed['errors'] + steady['errors'])[:4]}")
+        if share < AGREEMENT_MIN:
+            failed.append(f"fleet token agreement {share:.4f} < {AGREEMENT_MIN}")
+        if not conservation["ok"]:
+            failed.append(f"a replica kept requests in flight: {conservation['replica_in_flight']}")
+        if any(s.get("recompiles_after_warmup") != 0 for s in serving.values()):
+            failed.append("a replica recompiled after warmup")
+        if fb.served_ranks(router) != list(range(FLEET_REPLICAS)):
+            failed.append(f"not every replica served: {per_replica}")
+        for r, d in launches.items():
+            for name in SERVING_KERNELS:
+                if d.get(name, 0) <= 0:
+                    failed.append(f"replica {r} never launched {name} in (a)")
+        out["a"] = dict(startup_s=startup, wall=routed["wall"], agreement=share,
+                        requests_per_s=len(work) / steady["wall"], tokens_per_s=words / steady["wall"],
+                        local_requests_per_s=len(work) / local["wall"],
+                        local_tokens_per_s=local_words / local["wall"],
+                        single_requests_per_s=len(single["outs"]) / single["wall"],
+                        single_tokens_per_s=single_words / single["wall"], skew=skew,
+                        peak_bytes={r: after[r].get("peak_bytes") for r in after}, launches=launches,
+                        ledger=conservation["router_ledger"])
+
+        # (b) Kill rank 1 under closed-loop load; time until it scrapes
+        # healthy again (a new process) and serves a routed request.
+        stop, thread, load = _fleet_load(fb, router, prompts, FLEET_KILL_CLIENTS)
+        time.sleep(2.0)
+        old_pid = find_fleet_sidecars(str(root))[1]["pid"]
+        per = router.stats()["per_replica"]
+        rank0_at_kill, rank1_at_kill = per[0]["completed"], per[1]["completed"]
+        t_kill = time.monotonic()
+        if not gang.kill_rank(1):
+            fail("kill_rank(1) found no live rank 1")
+        marks = {}
+
+        def rank1_back():
+            side = find_fleet_sidecars(str(root)).get(1)
+            snap = router._scrape.snapshots().get(1)
+            if side and side.get("pid") != old_pid and snap is not None and snap.healthy:
+                marks.setdefault("healthy", time.monotonic() - t_kill)
+                marks.setdefault("rank0", router.stats()["per_replica"][0]["completed"])
+            return "healthy" in marks and router.stats()["per_replica"][1]["completed"] > rank1_at_kill
+
+        recover = _fleet_wait(rank1_back)
+        time.sleep(1.0)
+        stop.set()
+        thread.join()
+        drained = _fleet_wait(lambda: router.ledger()["in_flight"] == 0, 60.0)
+        conservation = fb.conservation_gate(router)
+        status = gang.status()
+        outage = marks.get("rank0", rank0_at_kill) - rank0_at_kill
+        log(f"  (b) rank 1 SIGKILLed under {FLEET_KILL_CLIENTS} closed-loop clients: time to recover (kill to "
+            f"rank 1 serving a routed request again) "
+            f"{'never' if recover is None else f'{recover:.2f} s'}, healthy again after "
+            f"{marks.get('healthy', float('nan')):.2f} s; rank 0 completed {outage} during the outage; "
+            f"load {json.dumps({k: load.get(k) for k in ('completed', 'failed', 'failed_by_rank', 'failures', 'rejected', 'unavailable', 'expired', 'requests_per_sec', 'tokens_per_sec')})}; "
+            f"restarts {status['restarts']} [{card}]")
+        if recover is None:
+            failed.append(f"rank 1 did not come back: {status}")
+        if set(load.get("failed_by_rank", {})) - {1} or load.get("failed", 0) > FLEET_KILL_CLIENTS:
+            failed.append(f"requests lost beyond rank 1's in-flight: {load}")
+        if load.get("rejected") or load.get("unavailable") or load.get("expired"):
+            failed.append(f"the kill cost more than rank 1's in-flight: {load}")
+        if outage <= 0:
+            failed.append("rank 0 served nothing while rank 1 was down")
+        if drained is None or not conservation["ok"]:
+            failed.append(f"the ledger did not balance after the kill: {conservation}")
+        out["b"] = dict(time_to_recover_s=recover, healthy_s=marks.get("healthy"), rank0_during_outage=outage,
+                        load=load, restarts=status["restarts"], ledger=conservation["router_ledger"])
+
+        # (c) One autoscale cycle on the router's scrape loop: queue-depth
+        # load takes the gang 2 -> 3, a light load back to 2 by draining
+        # the coldest replica, whose accepted work must complete.
+        # Every control step logs its decision at INFO, ten a second here;
+        # the phase prints the decisions that act.
+        logging.getLogger(FleetAutoscaler.__module__).setLevel(logging.WARNING)
+        scaler = FleetAutoscaler(gang, config=AutoscaleConfig(**FLEET_AUTOSCALE),
+                                 admission=router.admission).attach(router._scrape)
+        stop, thread, hot = _fleet_load(fb, router, prompts, FLEET_HOT_CLIENTS)
+        up = _fleet_wait(lambda: scaler.scale_ups >= 1, 60.0)
+        added = next((d["rank"] for d in scaler.decisions if d["action"] == "scale_up"), None)
+        added_up = None if up is None else _fleet_wait(lambda: added in _fleet_healthy(router))
+        time.sleep(FLEET_HOT_AFTER_S)  # the hot load on three replicas
+        seen = {r: (s.status, s.in_flight, s.consecutive_failures)
+                for r, s in sorted(router._scrape.snapshots().items())}
+        per_replica = router.stats()["per_replica"]
+        stop.set()
+        thread.join()
+        stop, thread, light = _fleet_load(fb, router, prompts, 1)
+        down = _fleet_wait(lambda: scaler.scale_downs >= 1 and len(gang.live_ranks()) == 2)
+        stop.set()
+        thread.join()
+        drained = _fleet_wait(lambda: router.ledger()["in_flight"] == 0, 60.0)
+        conservation = fb.conservation_gate(router)
+        decisions = list(scaler.decisions)
+        victim = next((d["rank"] for d in decisions if d["action"] == "scale_down_start"), None)
+        actions = [d["action"] for d in decisions]
+        log(f"  (c) autoscaler {FLEET_AUTOSCALE}: scale-up after {'never' if up is None else f'{up:.2f} s'} of "
+            f"{FLEET_HOT_CLIENTS} closed-loop clients, rank {added} start-up (decision to healthy scrape) "
+            f"{'never' if added_up is None else f'{added_up:.2f} s'}; drain of rank {victim} complete after "
+            f"{'never' if down is None else f'{down:.2f} s'} of 1 client; hot load "
+            f"{json.dumps({k: hot.get(k) for k in ('completed', 'failed', 'failed_by_rank', 'failures', 'rejected', 'requests_per_sec', 'tokens_per_sec')})}, "
+            f"light load {json.dumps({k: light.get(k) for k in ('completed', 'failed', 'failed_by_rank', 'failures', 'rejected')})}; "
+            f"live {gang.live_ranks()}, gang {json.dumps({k: v for k, v in gang.status().items() if k != 'workdir'})} "
+            f"[{card}]")
+        log(f"    at the end of the hot load: scraped (status, in_flight, failures) {seen}; the router's "
+            f"per-replica outcomes {per_replica}")
+        holds = {}
+        for d in decisions:
+            if d["action"].startswith("hold"):
+                holds[d["action"]] = holds.get(d["action"], 0) + 1
+            else:
+                log(f"    decision: {json.dumps(d)}")
+        log(f"    and {sum(holds.values())} holds {holds}")
+        if up is None or added_up is None:
+            failed.append(f"the autoscaler did not scale 2 -> 3 to a healthy rank: {actions}")
+        if down is None or "scale_down_complete" not in actions:
+            failed.append(f"the autoscaler did not drain back to 2: {actions}")
+        lost = {k: hot.get(k, 0) + light.get(k, 0) for k in ("failed", "unavailable", "expired")}
+        if any(lost.values()):
+            failed.append(f"the autoscale cycle lost requests: {lost}")
+        if any(k not in d for d in decisions for k in ("action", "burn", "queue_depth", "live", "target")):
+            failed.append("an autoscaler decision lacks its inputs")
+        if drained is None or not conservation["ok"]:
+            failed.append(f"the ledger did not balance after the autoscale cycle: {conservation}")
+        out["c"] = dict(scale_up_s=up, added=added, added_startup_s=added_up, drain_s=down, victim=victim,
+                        added_dispatched=per_replica.get(added, {}).get("dispatched", 0),
+                        hot=hot, light=light, decisions=decisions, ledger=conservation["router_ledger"])
+    finally:
+        router.stop()
+        gang.stop(drain_s=30.0)
+    if kill_stray_gangs() != 0:
+        failed.append("the fleet left a stray process group")
+    took = time.perf_counter() - t_phase
+    log(f"  phase 7k took {took:.1f} s")
+    if failed:
+        fail("; ".join(failed))
+    out["seconds"] = took
+    return out
+
+
 # -- phase 7d: bf16 compute ------------------------------------------------------
 
 BF16 = "bfloat16"
@@ -6727,7 +7050,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
-    from machine_learning_apache_spark_tpu_torch.data.text import TextPipeline
     from machine_learning_apache_spark_tpu_torch.ops import hopper_attention as hop
     from machine_learning_apache_spark_tpu_torch.ops.cuda_build import LIBRARY
     from machine_learning_apache_spark_tpu_torch.utils.device import resolve_device
@@ -6787,10 +7109,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     log("== phase 4: serving slice at full width")
-    src_words, src_corpus = make_vocab_texts("s")
-    trg_words, trg_corpus = make_vocab_texts("t")
-    src_pipe = TextPipeline.fit(src_corpus, max_seq_len=SERVE["boundaries"][-1] - 1)
-    trg_pipe = TextPipeline.fit(trg_corpus, max_seq_len=SERVE["boundaries"][-1] - 1)
+    src_words, src_pipe, trg_pipe = serving_pipes()
     prompts = make_prompts(src_words)
     prompt_lens = [len(src_pipe.ragged([p])[0]) for p in prompts]
     log(f"  vocab {len(src_pipe.vocab.itos)} / {len(trg_pipe.vocab.itos)}; "
@@ -6935,6 +7254,11 @@ def main() -> int:
     ingest = ingest_slice(torch, hop, card)
     elastic = elastic_slice(torch, hop, card)
 
+    log(f"== phase 7k: the serving fleet ({FLEET_REPLICAS} replicas of phase 4's paged engine on the card "
+        "behind FleetRouter(policy='affinity'): routed prompts, rank 1 killed and restarted, one "
+        "autoscale cycle 2 -> 3 -> 2)")
+    fleet = fleet_slice(torch, hop, card, translator, prompts, runs["float32"])
+
     log("== phase 8: times")
     for label, run in runs.items():
         log(f"  {label:7s} engine ({run['kv_mode']}): {len(run['outs']) / run['wall']:.2f} requests/s, "
@@ -7064,6 +7388,8 @@ def main() -> int:
             ingest["paths"].values()),
         f"gang: elastic ZeRO-1, {ELASTIC_GANG} ranks on one card, unfaulted and shrunk to "
         f"{ELASTIC_GANG - 1}": [r["launches"] for rs in elastic["ranks"].values() for r in rs],
+        f"fleet: {FLEET_REPLICAS} paged replicas behind the router, phase 7k (a)": list(
+            fleet["a"]["launches"].values()),
         "live plane: paged fp32 engine": [recovery["live"]["paged fp32"]["launches"]],
         "live plane: padded engine": [recovery["live"]["padded"]["launches"]],
         **bf["paths"],
@@ -7176,6 +7502,9 @@ def main() -> int:
         parity=bf["parity"], train_step={"fp32": train_times, "bf16": train_times_bf16},
         tinyvgg_step={"fp32": zoo["times"]["cnn cifar10"], "bf16": cnn_times_bf16}), default=str)
         + f" [{card}]")
+    log("  fleet: " + json.dumps({k: {f: v for f, v in part.items() if f not in ("decisions", "launches")}
+                                  if isinstance(part, dict) else part for k, part in fleet.items()},
+                                 default=str) + f" [{card}]")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

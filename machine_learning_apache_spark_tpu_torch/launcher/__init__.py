@@ -1,6 +1,7 @@
 """launcher — gang spawn + rendezvous (the TorchDistributor layer, C12);
-the port of ``machine_learning_apache_spark_tpu/launcher``. The serving
-replica gang (``replica_gang.py``) is ROADMAP A6.
+the port of ``machine_learning_apache_spark_tpu/launcher``, with the
+serving fleet's replica gang (``replica_gang.py``: N independent ranks,
+each restarted on its own).
 
 The names load on first use: every rank starts as
 ``python -m machine_learning_apache_spark_tpu_torch.launcher.runner``,
@@ -23,6 +24,7 @@ _EXPORTS = {
     "GangMonitor": "monitor",
     "read_heartbeat": "monitor",
     "terminate_gang": "monitor",
+    "ReplicaGang": "replica_gang",
 }
 
 

@@ -241,6 +241,125 @@ register(
     "(native-parser batching grain).",
 )
 
+# fleet / multi-replica serving
+register(
+    "MLSPARK_FLEET_DIR", type="path", default=None, subsystem="fleet",
+    description="Where fleet sidecars (`fleet_rank<k>.json`) and the "
+    "`fleet_stop` marker live; defaults to the telemetry dir.",
+)
+register(
+    "MLSPARK_FLEET_PORT", type="int", default=0, subsystem="fleet",
+    description="Replica data-plane port (0 = ephemeral, the only sane "
+    "choice for a local gang).",
+)
+register(
+    "MLSPARK_FLEET_POLICY", type="str", default="affinity", subsystem="fleet",
+    description="Router dispatch policy when policy= is not passed.",
+    choices=("round_robin", "least_loaded", "affinity"),
+)
+register(
+    "MLSPARK_FLEET_SCRAPE_INTERVAL", type="float", default=0.5, subsystem="fleet",
+    description="Router scrape-loop period in seconds (replica /statusz "
+    "polling).",
+)
+register(
+    "MLSPARK_FLEET_TENANT_MAX_IN_FLIGHT", type="int", default=None, subsystem="fleet",
+    description="Per-tenant in-flight admission quota (unset = no tenant "
+    "quota).",
+)
+register(
+    "MLSPARK_FLEET_INTERACTIVE_DEADLINE_S", type="float", default=10.0, subsystem="fleet",
+    description="Default deadline for the `interactive` SLO tier.",
+)
+register(
+    "MLSPARK_FLEET_INTERACTIVE_MAX_IN_FLIGHT", type="int", default=64, subsystem="fleet",
+    description="In-flight cap for the `interactive` SLO tier.",
+)
+register(
+    "MLSPARK_FLEET_BATCH_DEADLINE_S", type="float", default=120.0, subsystem="fleet",
+    description="Default deadline for the `batch` SLO tier.",
+)
+register(
+    "MLSPARK_FLEET_BATCH_MAX_IN_FLIGHT", type="int", default=256, subsystem="fleet",
+    description="In-flight cap for the `batch` SLO tier.",
+)
+register(
+    "MLSPARK_FLEET_HEDGE", type="bool", default=False, subsystem="fleet",
+    description="Enable straggler hedging: after the hedge delay, the "
+    "router issues a duplicate dispatch to a second healthy replica; "
+    "first response wins, the loser is cancelled via /v1/cancel.",
+)
+register(
+    "MLSPARK_FLEET_HEDGE_TIERS", type="str", default="interactive", subsystem="fleet",
+    description="Comma-separated SLO tiers eligible for hedging "
+    "(latency-sensitive tiers only by default; batch work rides the "
+    "plain retry taxonomy).",
+)
+register(
+    "MLSPARK_FLEET_HEDGE_DELAY_FACTOR", type="float", default=3.0, subsystem="fleet",
+    description="Hedge delay as a multiple of the admission layer's "
+    "observed service-time EWMA — a dispatch outstanding this much "
+    "longer than typical is presumed straggling.",
+)
+register(
+    "MLSPARK_FLEET_HEDGE_MIN_DELAY_S", type="float", default=0.05, subsystem="fleet",
+    description="Floor on the hedge delay, so a cold or noisy EWMA "
+    "cannot make every request fan out twice.",
+)
+
+# fleet autoscaling (closed loop: SLO burn / queue depth -> replica count)
+register(
+    "MLSPARK_AUTOSCALE_MIN_REPLICAS", type="int", default=1, subsystem="autoscale",
+    description="Floor on the autoscaler's replica target; scale-down "
+    "never drains below this.",
+)
+register(
+    "MLSPARK_AUTOSCALE_MAX_REPLICAS", type="int", default=8, subsystem="autoscale",
+    description="Ceiling on the autoscaler's replica target; scale-up "
+    "never spawns past this.",
+)
+register(
+    "MLSPARK_AUTOSCALE_BURN_UP", type="float", default=0.1, subsystem="autoscale",
+    description="Scale up when any tier's SLO burn EWMA (scraped replica "
+    "rollup or router-side gauge) is at/above this miss fraction.",
+)
+register(
+    "MLSPARK_AUTOSCALE_BURN_DOWN", type="float", default=0.01, subsystem="autoscale",
+    description="Burn EWMA must be at/below this before the load signal "
+    "may vote to scale down (both signals must be cold).",
+)
+register(
+    "MLSPARK_AUTOSCALE_QUEUE_UP", type="float", default=4.0, subsystem="autoscale",
+    description="Scale up when mean in-flight per healthy replica is "
+    "at/above this depth.",
+)
+register(
+    "MLSPARK_AUTOSCALE_QUEUE_DOWN", type="float", default=1.0, subsystem="autoscale",
+    description="Mean in-flight per healthy replica must be at/below "
+    "this before a scale-down vote counts.",
+)
+register(
+    "MLSPARK_AUTOSCALE_HYSTERESIS_TICKS", type="int", default=2, subsystem="autoscale",
+    description="Consecutive scrape ticks a signal must hold before the "
+    "autoscaler acts on it (one bad scrape cannot thrash the fleet).",
+)
+register(
+    "MLSPARK_AUTOSCALE_COOLDOWN_S", type="float", default=5.0, subsystem="autoscale",
+    description="Minimum seconds between autoscale actions (either "
+    "direction); the anti-thrash backstop behind hysteresis.",
+)
+register(
+    "MLSPARK_AUTOSCALE_DRAIN_DEADLINE_S", type="float", default=30.0, subsystem="autoscale",
+    description="Seconds a draining replica gets to retire its in-flight "
+    "work before it is torn down anyway.",
+)
+register(
+    "MLSPARK_AUTOSCALE_DRAIN_BATCH_SHED", type="float", default=0.5, subsystem="autoscale",
+    description="While a drain is in progress the batch tier's admission "
+    "budget is multiplied by this factor (interactive is untouched) so "
+    "shed capacity comes out of batch work first.",
+)
+
 # fault injection (read directly by the stdlib-only utils.faults)
 register(
     "MLSPARK_FAULTS", type="spec", default=None, subsystem="faults",

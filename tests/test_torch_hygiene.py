@@ -57,6 +57,13 @@ def test_port_never_imports_jax_or_the_jax_package():
     files = _scanned_files()
     assert len(files) > 20  # the scan sees the whole package
     assert PORT_DIR / "parallel" / "tensor_parallel.py" in files
+    # The serving fleet and its tools: host code that must run where no
+    # JAX is installed, as every replica on the card does.
+    for path in (*(PORT_DIR / "fleet" / f"{m}.py" for m in (
+            "__init__", "admission", "affinity", "autoscaler", "replica", "router", "scrape")),
+            PORT_DIR / "launcher" / "replica_gang.py", PORT_DIR / "utils" / "sysinfo.py",
+            REPO / "tools" / "torch_fleet_bench.py"):
+        assert path in files, path
     bad = [
         f"{p.relative_to(REPO)}:{line}: import {mod}"
         for p in files
