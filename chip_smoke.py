@@ -218,8 +218,13 @@ Phases, each fatal on failure:
    replicated step again, with the host-timed reduce-scatter, all-gather
    and all-reduce windows per step, and ``fit``'s dispatch at 1 and 4
    steps per call;
+7f-7l. Phases 7f, 7g, 7h, 7i and 7l share one 4-rank gang
+   (``run_shared_gang``: each phase's work in this process up to its gang
+   job, the jobs in turn in one ``Session`` -> ``Distributor`` gang over
+   gloo, then each phase's gates), since a gang's start costs ~15 s on
+   the card's machine (importing torch);
 7f. tensor parallelism on the model axis — ``Session`` -> ``Distributor``
-   -> one 4-rank gang sharing the card over gloo, every mesh a view of
+   -> the 4-rank gang sharing the card over gloo, every mesh a view of
    its process group: the MT model at reference width (dropout 0, Adam,
    global batch 32, the fixture's first epoch and its eval) on (a)
    ``{data: 4}``, (b) ``{data: 1, model: 4}`` (2 heads a rank), (c)
@@ -342,6 +347,28 @@ Phases, each fatal on failure:
    tokens/s through the fleet beside one engine, the skew
    (``replica_skew``), each replica's launches and peak memory, the
    decisions; no throughput gate (the replicas share one card and host);
+7l. the seq axis beside the model and expert axes — the flash forward
+   with ``lse``, dQ and dK/dV against their plain versions at the shapes
+   this path gives them (``LC_SHAPES``: the ring hop at [32, 4, 100, 64]
+   on ``{model: 2, seq: 2}``, Ulysses' inner attention at [32, 2, 200,
+   64], the 2,048-position hop at [2, 4, 1024, 64]; diagonal and behind,
+   merged by ``lse``, as 7h's, whose [32, 8, 100, 64] hop is the one on
+   ``{expert: 2, seq: 2}``); then in the 4-rank gang over gloo on the card, the reference MT
+   model at full width (1 layer, the published 8004-word vocabularies,
+   dropout 0, 4 of the fixture's global batches of 32, targets one pad
+   longer) on (a) ``{model: 2, seq: 2}`` under ring, (b) the same under
+   Ulysses, (c) ``{expert: 2, seq: 2}`` under ring with 8 experts: 1
+   Adam step then 3 timed, the step losses within 1e-4 of one process's
+   on the same batches, every seq line the same bits after every step,
+   the launches the hop schedule gives; (d) one step at 2,048 positions
+   (batch 2, remat) on ``{model: 2, seq: 2}`` under ring, its loss within
+   1e-4 of phase 7h's one process; (e) ``train_translator(
+   sequence_parallel=2, model_parallel=2)`` for one epoch with
+   checkpoints and BLEU on the gathered model (dQ and dK/dV as the ring
+   schedule gives). Printed: each mesh's step ms beside one process's, the
+   peak per rank, the ``comms.sp_*``, ``tp_allreduce`` and
+   ``ep_allreduce`` calls, bytes and windows per step; the long step's
+   peak per rank beside one process's; the phase's own seconds;
 8. times — requests/s, generated tokens/s and peak device memory of each
    engine (paged fp32 and int8, padded, beam); each engine's requests/s
    and device idle share over one profiled window; the host time of the
@@ -354,7 +381,9 @@ Phases, each fatal on failure:
    self-attention with cur over fp32 and int8 pages), at the three
    training sites (and at one sequence of the encoder site, fixture keys
    and all keys valid, where the rules pick dQ's and the forward's key
-   split, and at the ring's hop shapes of phase 7h, diagonal and behind) and at the KV-cache decoders' one-query-row sites, and each
+   split, and at the ring's hop shapes of phase 7h and the shapes of
+   phase 7l, diagonal and behind) and at the KV-cache decoders'
+   one-query-row sites, and each
    kernel at each of its launch choices; the recipe's evaluate and BLEU
    decode once more under the profiler, for the forward's launches (which
    must equal the recipe run's), device time and bound over the whole
@@ -388,6 +417,7 @@ from __future__ import annotations
 
 import json
 import logging
+import os
 import subprocess
 import sys
 import time
@@ -4684,9 +4714,7 @@ def tp_slice(torch, hop, card: str, dev) -> dict:
     and its gates."""
     import shutil
 
-    from machine_learning_apache_spark_tpu_torch import Session
     from machine_learning_apache_spark_tpu_torch.data.datasets import load_multi30k
-    from machine_learning_apache_spark_tpu_torch.launcher import Distributor, kill_stray_gangs
 
     t_phase = time.perf_counter()
     src_pipe, _, train_ds = fixture_data()
@@ -4702,21 +4730,15 @@ def tp_slice(torch, hop, card: str, dev) -> dict:
         f"{ref['n_params']} parameters, Adam state {ref['opt_bytes']} bytes [{card}]")
     root = scratch_dir() / "tp"
     shutil.rmtree(root, ignore_errors=True)
-    spark = Session.builder.appName("TensorParallelTranslation").config(
-        "spark.executor.instances", str(TP_GANG)).getOrCreate()
-    try:
-        t0 = time.perf_counter()
-        ranks = Distributor(num_processes=spark.conf.executor_instances, timeout=900).run(
-            "chip_smoke:tp_gang_rank", str(root), batches, val_batches, serve_prompts, ref["params"])
-        wall = time.perf_counter() - t0
-    finally:
-        spark.stop()
-    if kill_stray_gangs() != 0:
-        fail("the tensor-parallel gang left a stray process group")
+    # The rank function runs in the shared gang of phases 7f-7l
+    # (``run_shared_gang``): this phase's time there comes back as ``wall``.
+    t_pre = time.perf_counter() - t_phase
+    ranks, wall = yield "chip_smoke:tp_gang_rank", (str(root), batches, val_batches, serve_prompts, ref["params"])
+    t_post = time.perf_counter()
     r0 = ranks[0]
     runs, gates = r0["runs"], r0["gates"]
-    log(f"  Session -> Distributor, {TP_GANG} ranks on one card over gloo: {wall:.2f} s spawn to "
-        f"result (meshes a-f and the step times)")
+    log(f"  Session -> Distributor, {TP_GANG} ranks on one card over gloo, the shared gang of phases "
+        f"7f-7l: {wall:.2f} s of it ran this phase (meshes a-f and the step times)")
     for label in TP_MESHES:
         rel = _max_rel(runs[label]["step_losses"], ref["step_losses"])
         pmax = gates[f"{label} params rel"]
@@ -4782,7 +4804,7 @@ def tp_slice(torch, hop, card: str, dev) -> dict:
                     f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}"
                     for k, v in t.items() if k != "ms") + ")"
                 for label, t in rk["times"].items()) + f" [{card}]")
-    log(f"  phase 7f took {time.perf_counter() - t_phase:.1f} s")
+    log(f"  phase 7f took {t_pre + wall + time.perf_counter() - t_post:.1f} s")
     return dict(wall=wall, ranks=ranks, ref={k: ref[k] for k in ("ms", "peak", "opt_bytes", "n_params")},
                 errs=errs, served=served)
 
@@ -5074,10 +5096,8 @@ def pp_slice(torch, hop, card: str, dev) -> dict:
     (``pp_gang_rank``) and its gates."""
     import shutil
 
-    from machine_learning_apache_spark_tpu_torch import Session
     from machine_learning_apache_spark_tpu_torch.data.datasets import load_multi30k
     from machine_learning_apache_spark_tpu_torch.inference import Translator
-    from machine_learning_apache_spark_tpu_torch.launcher import Distributor, kill_stray_gangs
     from machine_learning_apache_spark_tpu_torch.parallel.pipeline_parallel import bubble_fraction
 
     t_phase = time.perf_counter()
@@ -5119,21 +5139,15 @@ def pp_slice(torch, hop, card: str, dev) -> dict:
     del ref16["model"]
     root = scratch_dir() / "pp"
     shutil.rmtree(root, ignore_errors=True)
-    spark = Session.builder.appName("PipelineParallelTranslation").config(
-        "spark.executor.instances", str(PP_GANG)).getOrCreate()
-    try:
-        t0 = time.perf_counter()
-        got = Distributor(num_processes=spark.conf.executor_instances, timeout=900).run(
-            "chip_smoke:pp_gang_rank", str(root), batches, val_batches, prompts)
-        wall = time.perf_counter() - t0
-    finally:
-        spark.stop()
-    if kill_stray_gangs() != 0:
-        fail("the pipeline-parallel gang left a stray process group")
+    # The rank function runs in the shared gang of phases 7f-7l
+    # (``run_shared_gang``): this phase's time there comes back as ``wall``.
+    t_pre = time.perf_counter() - t_phase
+    got, wall = yield "chip_smoke:pp_gang_rank", (str(root), batches, val_batches, prompts)
+    t_post = time.perf_counter()
     ranks, params = got["ranks"], got["params"]
     r0 = ranks[0]
-    log(f"  Session -> Distributor, {PP_GANG} ranks on one card over gloo: {wall:.2f} s spawn to "
-        f"result (meshes a-c, K = 4, bf16, the recipe three times, the step times)")
+    log(f"  Session -> Distributor, {PP_GANG} ranks on one card over gloo, the shared gang of phases "
+        f"7f-7l: {wall:.2f} s of it ran this phase (meshes a-c, K = 4, bf16, the recipe three times, the step times)")
     steps = len(batches)
     for label, (axes, layers, m) in PP_MESHES.items():
         ref = refs[layers]
@@ -5244,7 +5258,7 @@ def pp_slice(torch, hop, card: str, dev) -> dict:
             + ", ".join(f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}"
                         for k, v in t.items() if k != "ms") + ")"
             for label, t in rk["times"].items()) + f" [{card}]")
-    log(f"  phase 7g took {time.perf_counter() - t_phase:.1f} s")
+    log(f"  phase 7g took {t_pre + wall + time.perf_counter() - t_post:.1f} s")
     return dict(wall=wall, ranks=ranks, errs=errs, bf16_errs=bf16_errs, sites=sites,
                 refs={k: {f: v[f] for f in ("ms", "peak", "test_loss")} for k, v in refs.items()})
 
@@ -5280,13 +5294,16 @@ def _sp_pad(batch):
     return src, np.pad(np.asarray(trg), ((0, 0), (0, 1)))
 
 
-def sp_hop_cases(torch, dev, dtype=None) -> dict:
-    """At each hop shape ``[b, H, S/n, d]``: the local queries, the
-    diagonal chunk's K/V and validity (some keys masked) and a chunk
-    behind's (every key of the first batch row masked), and dO."""
+def sp_hop_cases(torch, dev, dtype=None, shapes: dict | None = None) -> dict:
+    """At each hop shape ``[b, H, S/n, d]`` (``shapes``: label → shape, by
+    default phase 7h's ``SP_HOP_SHAPES``): the local queries, the diagonal
+    chunk's K/V and validity (some keys masked) and a chunk behind's
+    (every key of the first batch row masked), and dO."""
+    if shapes is None:
+        shapes = {f"SP hop [{b},{h},{c},{d}]": (b, h, c, d) for b, h, c, d in SP_HOP_SHAPES}
     out = {}
-    for b, h, c, d in SP_HOP_SHAPES:
-        rng = np.random.default_rng(SEED + 300 + c)
+    for label, (b, h, c, d) in shapes.items():
+        rng = np.random.default_rng(SEED + 300 + c + (0 if h == 8 else 1000 * h))
 
         def randn(*shape):
             x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
@@ -5295,18 +5312,18 @@ def sp_hop_cases(torch, dev, dtype=None) -> dict:
         diag = rng.random((b, c)) < 0.8
         behind = rng.random((b, c)) < 0.8
         behind[0] = False
-        out[f"SP hop [{b},{h},{c},{d}]"] = dict(
+        out[label] = dict(
             q=randn(b, h, c, d), k0=randn(b, h, c, d), v0=randn(b, h, c, d),
             valid0=torch.from_numpy(diag).to(dev), k1=randn(b, h, c, d), v1=randn(b, h, c, d),
             valid1=torch.from_numpy(behind).to(dev), g=randn(b, h, c, d))
     return out
 
 
-def sp_hop_sites(torch, dev, dtype=None) -> dict:
+def sp_hop_sites(torch, dev, dtype=None, shapes: dict | None = None) -> dict:
     """The hops as training sites (for the timings): the diagonal, causal
     with its validity, and a hop behind, unmasked, with its."""
     sites = {}
-    for label, c in sp_hop_cases(torch, dev, dtype).items():
+    for label, c in sp_hop_cases(torch, dev, dtype, shapes).items():
         sites[f"{label} diagonal"] = dict(q=c["q"], k=c["k0"], v=c["v0"], g=c["g"], causal=True,
                                           kv_valid=c["valid0"])
         sites[f"{label} behind"] = dict(q=c["q"], k=c["k1"], v=c["v1"], g=c["g"], causal=False,
@@ -5314,7 +5331,7 @@ def sp_hop_sites(torch, dev, dtype=None) -> dict:
     return sites
 
 
-def check_hop_kernels(torch, hop, dev, dtype=None) -> dict:
+def check_hop_kernels(torch, hop, dev, dtype=None, shapes: dict | None = None) -> dict:
     """Phase 7h (a): at each hop shape, the flash forward with ``lse`` on the
     diagonal hop (causal) and on a hop behind (unmasked, rows with no valid
     key) against the plain version; the two merged by ``lse``
@@ -5322,7 +5339,8 @@ def check_hop_kernels(torch, hop, dev, dtype=None) -> dict:
     once (bottom-right causal over ``[behind | diagonal]``); then dQ and
     dK/dV of each hop with the MERGED ``lse`` and ``delta`` against their
     plain versions, and the hops' dQ summed against the whole backward's.
-    Each within ``TOL`` relative (``BF16_TOL`` at bf16)."""
+    Each within ``TOL`` relative (``BF16_TOL`` at bf16). ``shapes`` as
+    ``sp_hop_cases`` takes them."""
     from machine_learning_apache_spark_tpu_torch.parallel.ring_attention import (
         finish_merge,
         hop_backward,
@@ -5344,7 +5362,7 @@ def check_hop_kernels(torch, hop, dev, dtype=None) -> dict:
         worst[names[kernel]][0] = max(worst[names[kernel]][0], err)
         worst[names[kernel]][1] = max(worst[names[kernel]][1], rel)
 
-    for label, c in sp_hop_cases(torch, dev, dtype).items():
+    for label, c in sp_hop_cases(torch, dev, dtype, shapes).items():
         q, g = c["q"], c["g"]
         hops = ((c["k0"], c["v0"], c["valid0"], "diagonal"), (c["k1"], c["v1"], c["valid1"], "behind"))
         acc = None
@@ -5637,8 +5655,6 @@ def sp_slice(torch, hop, card: str, dev) -> dict:
     and its gates."""
     import shutil
 
-    from machine_learning_apache_spark_tpu_torch import Session
-    from machine_learning_apache_spark_tpu_torch.launcher import Distributor, kill_stray_gangs
 
     t_phase = time.perf_counter()
     errs = check_hop_kernels(torch, hop, dev)
@@ -5662,21 +5678,15 @@ def sp_slice(torch, hop, card: str, dev) -> dict:
         f"{ref['peak'] / 2**20:.1f} MiB [{card}]")
     root = scratch_dir() / "sp"
     shutil.rmtree(root, ignore_errors=True)
-    spark = Session.builder.appName("SequenceParallelTranslation").config(
-        "spark.executor.instances", str(SP_GANG)).getOrCreate()
-    try:
-        t0 = time.perf_counter()
-        got = Distributor(num_processes=spark.conf.executor_instances, timeout=900).run(
-            "chip_smoke:sp_gang_rank", str(root), batches, val_batches, long_batch)
-        wall = time.perf_counter() - t0
-    finally:
-        spark.stop()
-    if kill_stray_gangs() != 0:
-        fail("the sequence-parallel gang left a stray process group")
+    # The rank function runs in the shared gang of phases 7f-7l
+    # (``run_shared_gang``): this phase's time there comes back as ``wall``.
+    t_pre = time.perf_counter() - t_phase
+    got, wall = yield "chip_smoke:sp_gang_rank", (str(root), batches, val_batches, long_batch)
+    t_post = time.perf_counter()
     ranks, params = got["ranks"], got["params"]
     r0 = ranks[0]
-    log(f"  Session -> Distributor, {SP_GANG} ranks on one card over gloo: {wall:.2f} s spawn to "
-        f"result (meshes a-c, the recipe twice, the long step, the step times)")
+    log(f"  Session -> Distributor, {SP_GANG} ranks on one card over gloo, the shared gang of phases "
+        f"7f-7l: {wall:.2f} s of it ran this phase (meshes a-c, the recipe twice, the long step, the step times)")
     steps = len(batches)
     ctrl_loss = _max_rel(ctrl["step_losses"], ref["step_losses"])
     loss_gate = max(SP_RTOL, GANG_NOISE_X * ctrl_loss)
@@ -5776,7 +5786,7 @@ def sp_slice(torch, hop, card: str, dev) -> dict:
                             for k, v in t.items() if k != "ms") + ")"
                 for label, t in rk["times"].items()) + f"; fit peak per mesh "
             + ", ".join(f"{rk['runs'][label]['peak'] / 2**20:.1f}" for label in SP_MESHES) + f" MiB [{card}]")
-    took = time.perf_counter() - t_phase
+    took = t_pre + wall + time.perf_counter() - t_post
     log(f"  phase 7h took {took:.1f} s")
     return dict(wall=wall, ranks=ranks, errs=errs, bf16_errs=bf16_errs, seconds=took,
                 ref={f: ref[f] for f in ("ms", "peak", "test_loss")},
@@ -6060,31 +6070,23 @@ def ep_slice(torch, hop, card: str) -> dict:
     and its gates."""
     import shutil
 
-    from machine_learning_apache_spark_tpu_torch import Session
-    from machine_learning_apache_spark_tpu_torch.launcher import Distributor, kill_stray_gangs
 
     t_phase = time.perf_counter()
     _, _, train_ds = fixture_data()
     batches = train_batches(train_ds, EP_STEPS)
     root = scratch_dir() / "ep"
     shutil.rmtree(root, ignore_errors=True)
-    spark = Session.builder.appName("ExpertParallelTranslation").config(
-        "spark.executor.instances", str(EP_GANG)).getOrCreate()
-    try:
-        t0 = time.perf_counter()
-        got = Distributor(num_processes=spark.conf.executor_instances, timeout=900).run(
-            "chip_smoke:ep_gang_rank", str(root), batches)
-        wall = time.perf_counter() - t0
-    finally:
-        spark.stop()
-    if kill_stray_gangs() != 0:
-        fail("the expert-parallel gang left a stray process group")
+    # The rank function runs in the shared gang of phases 7f-7l
+    # (``run_shared_gang``): this phase's time there comes back as ``wall``.
+    t_pre = time.perf_counter() - t_phase
+    got, wall = yield "chip_smoke:ep_gang_rank", (str(root), batches)
+    t_post = time.perf_counter()
     ranks, gates, ref = got["ranks"], got["gates"], got["ref"]
     # Every reading is printed before the phase fails on the first gate
     # missed.
     failed: list[str] = []
-    log(f"  Session -> Distributor, {EP_GANG} ranks on one card over gloo: {wall:.2f} s spawn to "
-        f"result (rank 0's one-process references, meshes a-c, the recipe twice); one process "
+    log(f"  Session -> Distributor, {EP_GANG} ranks on one card over gloo, the shared gang of phases "
+        f"7f-7l: {wall:.2f} s of it ran this phase (rank 0's one-process references, meshes a-c, the recipe twice); one process "
         f"{ref['ms']:.3f} ms/step (Adam, {EP_TIMED} after {EP_WARMUP}) [{card}]")
     for label, axes in EP_MESHES.items():
         for opt in ("sgd", "adam"):
@@ -6154,12 +6156,95 @@ def ep_slice(torch, hop, card: str) -> dict:
     if first["resumed"] is not None or second["resumed"] != len(first["step_losses"]):
         failed.append(f"the EP recipe's second run resumed from {second['resumed']}, not step "
              f"{len(first['step_losses'])}")
-    took = time.perf_counter() - t_phase
+    took = t_pre + wall + time.perf_counter() - t_post
     log(f"  phase 7i took {took:.1f} s")
     if failed:
         fail("; ".join(failed))
     return dict(wall=wall, ranks=ranks, seconds=took, ref=ref,
                 gates={k: {f: v[f] for f in ("loss_rel", "ctrl_loss_rel", "key_bias")} for k, v in gates.items()})
+
+
+# -- phases 7f-7l: one gang for the parallel axes ---------------------------------
+
+SHARED_GANG = 4
+
+
+def _to_host(obj):
+    """``obj`` with every tensor in it copied to the host."""
+    import torch
+
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu()
+    if isinstance(obj, dict):
+        return {k: _to_host(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_host(v) for v in obj)
+    return obj
+
+
+def shared_gang_rank(jobs: list) -> list:
+    """One rank of the gang that phases 7f, 7g, 7h, 7i and 7l share: each
+    phase's rank function (``"chip_smoke:<name>"``, its arguments) in
+    turn, each result (on the host, so that it holds no device memory
+    through the later phases) with the seconds it took and the device
+    memory this rank held when the phase began. One start of the gang's
+    processes serves five phases: on the card's machine a start is ~15 s
+    (importing torch)."""
+    import gc
+
+    import torch
+
+    out = []
+    for fn, args in jobs:
+        gc.collect()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        result = _to_host(globals()[fn.split(":", 1)[1]](*args))
+        out.append((result, time.perf_counter() - t0, held))
+    return out
+
+
+def run_shared_gang(phases: list) -> list:
+    """Phases 7f-7l: each phase, a header and a generator, runs its work in
+    this process up to its gang job (what it yields); one ``Session`` ->
+    ``Distributor`` gang of ``SHARED_GANG`` ranks over gloo runs every
+    job in turn (``shared_gang_rank``); then each phase gets rank 0's
+    result and its seconds in the gang back and runs its gates. Returns
+    what each phase returns."""
+    from machine_learning_apache_spark_tpu_torch import Session
+    from machine_learning_apache_spark_tpu_torch.launcher import Distributor, kill_stray_gangs
+
+    jobs = []
+    for header, phase in phases:
+        log(header)
+        jobs.append(next(phase))
+    spark = Session.builder.appName("ParallelAxesTranslation").config(
+        "spark.executor.instances", str(SHARED_GANG)).getOrCreate()
+    try:
+        t0 = time.perf_counter()
+        results = Distributor(num_processes=spark.conf.executor_instances, timeout=2400).run(
+            "chip_smoke:shared_gang_rank", jobs)
+        wall = time.perf_counter() - t0
+    finally:
+        spark.stop()
+    if kill_stray_gangs() != 0:
+        fail("the gang of phases 7f-7l left a stray process group")
+    names = [header.split(":")[0].removeprefix("== ") for header, _ in phases]
+    log(f"== {names[0]} to {names[-1]}: one {SHARED_GANG}-rank gang ran each phase's gang work in turn, "
+        f"{wall:.2f} s spawn to result: " + ", ".join(
+            f"{n} {w:.1f} s (rank 0 held {held / 2**20:.1f} MiB of device memory as it began)"
+            for n, (_, w, held) in zip(names, results)))
+    out = []
+    for name, (_, phase), (result, seconds, _) in zip(names, phases, results):
+        log(f"== {name}, its gates")
+        try:
+            phase.send((result, seconds))
+        except StopIteration as done:
+            out.append(done.value)
+        else:
+            fail(f"{name} asked for a second gang job")
+    return out
 
 
 # -- phase 7j: the streaming ingest pipeline and elastic resume -----------------------
@@ -6873,6 +6958,313 @@ def fleet_slice(torch, hop, card: str, translator, prompts, single: dict) -> dic
     return out
 
 
+# -- phase 7l: the seq axis beside the model and expert axes -------------------------
+
+LC_GANG = 4
+# label: (mesh axes, method, experts). The reference MT model (1 layer) at
+# full width on the published 8004-word vocabularies (the fixture's ids all
+# below them; 8004 divides over the model axis), the fixture's global
+# batches of 32, targets one pad longer (phase 7h's padding), dropout 0;
+# (c) with phase 7i's 8 experts.
+LC_MESHES = {
+    "a {model: 2, seq: 2} ring": ({"model": 2, "seq": 2}, "ring", 0),
+    "b {model: 2, seq: 2} ulysses": ({"model": 2, "seq": 2}, "ulysses", 0),
+    "c {expert: 2, seq: 2} ring": ({"expert": 2, "seq": 2}, "ring", EP_EXPERTS),
+}
+# The kernels' shapes on 7l's path, as a rank launches them: a ring hop on
+# {model: 2, seq: 2} (the rank's 4 heads, 100 positions a chunk), Ulysses'
+# inner attention on {model: 2, seq: 2} (2 of the rank's 4 heads over all
+# 200 positions), and a ring hop of the 2,048-position step on {model: 2,
+# seq: 2}. The hop on {expert: 2, seq: 2} (every head, [32, 8, 100, 64])
+# is phase 7h's {seq: 2} hop, checked and timed there ("SP hop
+# [32,8,100,64]", the same inputs).
+LC_SHAPES = {
+    "SPxTP ring hop [32,4,100,64]": (32, 4, 100, 64),
+    "SPxTP Ulysses inner [32,2,200,64]": (32, 2, 200, 64),
+    "SPxTP ring hop [2,4,1024,64]": (2, 4, 1024, 64),
+}
+LC_LONG_MESH = {"model": 2, "seq": 2}
+# train_translator(sequence_parallel=2, model_parallel=2) in the 4-rank
+# gang: {data: 1, seq: 2, model: 2}, the global batch of 32 on every rank,
+# BLEU (the gathered model) and checkpoints, one epoch.
+LC_RECIPE = dict(data_root=str(FIXTURES), batch_size=32, dropout=0.0, log_every=0, compute_bleu=True,
+                 sequence_parallel=2, model_parallel=2)
+
+
+def _lc_model(torch, dev, experts: int):
+    """The phase's model (``_pp_model`` at one layer on the published
+    vocabularies, with ``experts``), and the recipe's fields."""
+    return _pp_model(torch, dev, 1, vocab=MT_PUBLISHED_VOCAB, moe_experts=experts)
+
+
+def _lc_reference(torch, batches, experts: int) -> dict:
+    """One process on the card over the same global batches: the step
+    losses of ``SP_WARMUP + SP_TIMED`` Adam steps, the step ms (host
+    timed, ``SP_TIMED`` after ``SP_WARMUP``) and the peak above what the
+    process held before (a gang rank holds nothing else)."""
+    import gc
+
+    from machine_learning_apache_spark_tpu_torch.recipes.translation import make_translation_loss
+    from machine_learning_apache_spark_tpu_torch.train.loop import fit, make_train_step, to_device
+    from machine_learning_apache_spark_tpu_torch.train.state import TrainState, make_optimizer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    n = SP_WARMUP + SP_TIMED
+    model, r = _lc_model(torch, dev, experts)
+    res = fit(TrainState.create(model=model, tx=make_optimizer("adam", r.learning_rate)),
+              make_translation_loss(model.cfg.pad_id), batches[:n], epochs=1, log_every=0)
+    losses = res.step_losses
+    del model, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    model2, _ = _lc_model(torch, dev, experts)
+    state2 = TrainState.create(model=model2, tx=make_optimizer("adam", r.learning_rate))
+    step = make_train_step(make_translation_loss(model2.cfg.pad_id))
+    local = [to_device(b, dev) for b in batches[:n]]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _timed_steps(torch, step, state2, local, SP_WARMUP)
+    ms = 1e3 * _timed_steps(torch, step, state2, local[SP_WARMUP:], SP_TIMED)
+    out = dict(step_losses=losses, ms=ms, peak_mib=(torch.cuda.max_memory_allocated() - base) / 2**20)
+    del model2, state2, step, local
+    return out
+
+
+def _lc_steps(torch, axes: dict, method: str, experts: int, batches) -> dict:
+    """This rank's Adam steps on ``axes`` under ``sequence_parallel(mesh,
+    method=)``: the phase's model sharded over the model and expert axes
+    (``shard_state``), ``SP_WARMUP`` steps then ``SP_TIMED`` timed, each
+    synchronised at both ends; after every step the seq line's bits are
+    compared (``assert_replicas_in_sync``, outside the timed window). The
+    step losses, the launches, the peak above what the rank held before,
+    and per step the seq line's,
+    the model line's and the expert line's collectives (calls, bytes,
+    window)."""
+    import gc
+
+    from machine_learning_apache_spark_tpu_torch.ops import hopper_attention as hop
+    from machine_learning_apache_spark_tpu_torch.ops.attention import sequence_parallel
+    from machine_learning_apache_spark_tpu_torch.parallel import (
+        assert_replicas_in_sync,
+        make_data_parallel_step,
+        make_mesh,
+        tensor_parallel,
+    )
+    from machine_learning_apache_spark_tpu_torch.parallel.data_parallel import bind_batch_line
+    from machine_learning_apache_spark_tpu_torch.parallel.sequence import sequence_line
+    from machine_learning_apache_spark_tpu_torch.recipes.translation import make_translation_loss
+    from machine_learning_apache_spark_tpu_torch.train.loop import to_device
+    from machine_learning_apache_spark_tpu_torch.train.state import TrainState, make_optimizer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    mesh = make_mesh(axes)
+    d, ways = mesh.index("data"), mesh.axis_size("data")
+    model, r = _lc_model(torch, mesh.device, experts)
+    state = tensor_parallel.shard_state(
+        TrainState.create(model=model, tx=make_optimizer("adam", r.learning_rate)), mesh)
+    bind_batch_line(model, mesh)
+    step = make_data_parallel_step(make_translation_loss(model.cfg.pad_id), mesh)
+    step.replica(model)
+    local = [to_device(_data_rows(b, d, ways), mesh.device) for b in batches]
+    lines = [sequence_line(mesh), *tensor_parallel.model_lines(model)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hop.reset_launches()
+    losses, seconds, every_step_equal = [], 0.0, True
+    with sequence_parallel(mesh, method=method):
+        for i in range(SP_WARMUP + SP_TIMED):
+            if i == SP_WARMUP:
+                before = [line.comms.stats() for line in lines]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, loss, _ = step(state, local[i], None)
+            torch.cuda.synchronize()
+            if i >= SP_WARMUP:
+                seconds += time.perf_counter() - t0
+            losses.append(float(loss))
+            try:
+                assert_replicas_in_sync(state, mesh=mesh)
+            except AssertionError:
+                every_step_equal = False
+    out = dict(ms=1e3 * seconds / SP_TIMED, peak_mib=(torch.cuda.max_memory_allocated() - base) / 2**20,
+               step_losses=losses, every_step_same_bits=every_step_equal,
+               launches=dict(hop.LAUNCHES), seq=mesh.index("seq"))
+    for line, b in zip(lines, before):
+        a = line.comms.stats()
+        for kind in line.comms.KINDS:
+            out[f"{kind}_calls"] = (a[f"{kind}_calls"] - b[f"{kind}_calls"]) / SP_TIMED
+            out[f"{kind}_bytes"] = (a[f"{kind}_bytes"] - b[f"{kind}_bytes"]) / SP_TIMED
+            out[f"{kind}_ms"] = 1e3 * (a[f"{kind}_window_seconds"] - b[f"{kind}_window_seconds"]) / SP_TIMED
+    del state, step, model
+    return out
+
+
+def _lc_long_rank(torch, batch) -> dict:
+    """Phase 7l (d) in this rank: one train step of the reference-width
+    model at ``SP_LONG["seq"]`` positions (remat) sharded over the model
+    axis of ``LC_LONG_MESH`` under ring, with the launches it made; the
+    peak above the model."""
+    import gc
+
+    from machine_learning_apache_spark_tpu_torch.ops import hopper_attention as hop
+    from machine_learning_apache_spark_tpu_torch.ops.attention import sequence_parallel
+    from machine_learning_apache_spark_tpu_torch.parallel import make_mesh, tensor_parallel
+    from machine_learning_apache_spark_tpu_torch.parallel.data_parallel import bind_batch_line
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = make_mesh(LC_LONG_MESH)
+    model, _ = _pp_model(torch, mesh.device, 1, max_len=SP_LONG["seq"], vocab=MT_PUBLISHED_VOCAB,
+                         remat=True)
+    tensor_parallel.shard_params(model, mesh)
+    bind_batch_line(model, mesh)
+    hop.reset_launches()
+    with sequence_parallel(mesh, method="ring"):
+        out = _long_step(torch, model, batch, mesh.device)
+    out["launches"] = dict(hop.LAUNCHES)
+    out["seq"] = mesh.index("seq")
+    out["model_mib"] = sum(p.numel() * p.element_size() for p in model.parameters()) / 2**20
+    del out["grads"], model
+    return out
+
+
+def lc_gang_rank(root: str, batches, long_batch) -> dict:
+    """One rank of phase 7l's 4-rank gang: the steps on each mesh (a-c),
+    the long-context step (d), then the recipe with ``sequence_parallel=2,
+    model_parallel=2`` (e: BLEU, checkpoints). Every rank's numbers, in
+    rank order."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from machine_learning_apache_spark_tpu_torch.ops import hopper_attention as hop
+    from machine_learning_apache_spark_tpu_torch.recipes.translation import train_translator
+
+    rank = dist.get_rank()
+    runs = {label: _lc_steps(torch, axes, method, experts, batches)
+            for label, (axes, method, experts) in LC_MESHES.items()}
+    long = _lc_long_rank(torch, long_batch)
+    os.environ["MLSPARK_GANG_RUN"] = os.environ.get("MLSPARK_GANG_RUN", "lc") + "-recipe"
+    hop.reset_launches()
+    out = train_translator(checkpoint_dir=str(root), _return_state=True, **LC_RECIPE)
+    state = out["state"]
+    recipe = dict(step_losses=out["fit_result"].step_losses, launches=dict(hop.LAUNCHES),
+                  mesh=dict(state.mesh.shape), test_loss=out["test_loss"], bleu=out["bleu"],
+                  comms=out["fit_result"].comms, seq=state.mesh.index("seq"),
+                  pointer=os.path.exists(os.path.join(root, f"ckpt_r{rank}", "latest")))
+    del out, state
+    return _gather(dict(rank=rank, runs=runs, long=long, recipe=recipe))
+
+
+def lc_slice(torch, hop, card: str, dev):
+    """Phase 7l: the kernels at the shapes the seq axis beside the model
+    and expert axes gives them, the one-process references (the step at
+    2,048 positions is phase 7h's), then (a)-(e) in the shared gang
+    (``lc_gang_rank``) and their gates."""
+    import shutil
+
+
+    t_phase = time.perf_counter()
+    errs = check_hop_kernels(torch, hop, dev, shapes=LC_SHAPES)
+    torch.cuda.empty_cache()
+    _, _, train_ds = fixture_data()
+    batches = [_sp_pad(b) for b in train_batches(train_ds, SP_WARMUP + SP_TIMED)]
+    long_batch = sp_long_batch(**SP_LONG)
+    long_ref = _sp_long_reference(torch, dev, long_batch, "flash")
+    del long_ref["grads"]
+    refs = {experts: _lc_reference(torch, batches, experts) for experts in (0, EP_EXPERTS)}
+    root = scratch_dir() / "lc"
+    shutil.rmtree(root, ignore_errors=True)
+    # The rank function runs in the shared gang of phases 7f-7l
+    # (``run_shared_gang``): this phase's time there comes back as ``wall``.
+    t_pre = time.perf_counter() - t_phase
+    ranks, wall = yield "chip_smoke:lc_gang_rank", (str(root), batches, long_batch)
+    t_post = time.perf_counter()
+    # Every reading is printed before the phase fails on the first gate
+    # missed.
+    failed: list[str] = []
+    log(f"  Session -> Distributor, {LC_GANG} ranks on one card over gloo, the shared gang of phases "
+        f"7f-7l: {wall:.2f} s of it ran this phase (meshes a-c, the long step, the recipe); one process {refs[0]['ms']:.3f} ms/step, "
+        f"with {EP_EXPERTS} experts {refs[EP_EXPERTS]['ms']:.3f} ms/step (Adam, host-timed, {SP_TIMED} "
+        f"after {SP_WARMUP}) [{card}]")
+    steps = SP_WARMUP + SP_TIMED
+    for label, (axes, method, experts) in LC_MESHES.items():
+        ref = refs[experts]
+        n = axes["seq"]
+        rels = [_max_rel(rk["runs"][label]["step_losses"], ref["step_losses"]) for rk in ranks]
+        log(f"    {label}{f' ({experts} experts)' if experts else ''}: {steps} Adam steps' losses "
+            f"against one process, largest relative difference per rank "
+            + ", ".join(f"{x:.3e}" for x in rels) + f" (gate {SP_RTOL}); the seq line's bits equal "
+            f"after every step on every rank {all(rk['runs'][label]['every_step_same_bits'] for rk in ranks)}")
+        if max(rels) > SP_RTOL:
+            failed.append(f"{label}: step losses {max(rels):.3e} from one process's (gate {SP_RTOL})")
+        for rk in ranks:
+            run = rk["runs"][label]
+            if not run["every_step_same_bits"]:
+                failed.append(f"rank {rk['rank']} {label}: a step left the seq line holding different bits")
+            per = _sp_launches(method, n, run["seq"]) * steps
+            got_l = tuple(run["launches"][k] for k in TENSOR_CORE_KERNELS)
+            if got_l != (per,) * 3:
+                failed.append(f"rank {rk['rank']} {label}: flash launches {got_l}, not {per} each")
+            log(f"      rank {rk['rank']} (seq index {run['seq']}): {run['ms']:.3f} ms/step against one "
+                f"process {ref['ms']:.3f} ms, peak {run['peak_mib']:.1f} MiB (one process "
+                f"{ref['peak_mib']:.1f}); flash forward / dQ / dK/dV launches {got_l}; per step "
+                + ", ".join(f"{k} {v:.3f}" for k, v in run.items() if k.endswith(("_calls", "_bytes", "_ms"))
+                            and k != "ms") + f" [{card}]")
+    # (d) the long-context step on {model: 2, seq: 2}.
+    longs = [rk["long"] for rk in ranks]
+    rel_l = max(abs(lg["loss"] - long_ref["loss"]) / abs(long_ref["loss"]) for lg in longs)
+    log(f"    d one train step at {SP_LONG['seq']} positions, batch {SP_LONG['batch']}, remat, vocab "
+        f"{MT_PUBLISHED_VOCAB} on {LC_LONG_MESH} ring: loss {longs[0]['loss']:.6f} against one process "
+        f"{long_ref['loss']:.6f} (phase 7h's reference), largest relative difference over the ranks {rel_l:.3e} (gate "
+        f"{SP_RTOL}); step ms per rank " + ", ".join(f"{lg['ms']:.1f}" for lg in longs)
+        + f" against {long_ref['ms']:.1f}; peak above the model per rank "
+        + ", ".join(f"{lg['peak_mib']:.1f}" for lg in longs)
+        + f" MiB (the model's shard {longs[0]['model_mib']:.1f} MiB) against one process "
+        f"{long_ref['peak_mib']:.1f} MiB (phase 7h's reference; PR 16's {{seq: 4}}: 536.1 MiB on every "
+        f"rank) [{card}]")
+    if rel_l > SP_RTOL:
+        failed.append(f"the long step on {LC_LONG_MESH} differs from one process's loss ({rel_l:.3e})")
+    for rk in ranks:
+        per = _sp_launches("ring", LC_LONG_MESH["seq"], rk["long"]["seq"])
+        # Two steps (a warm one, then the timed one); remat runs each
+        # layer's forward again in the backward.
+        want = (4 * per, 2 * per, 2 * per)
+        got_l = tuple(rk["long"]["launches"][k] for k in TENSOR_CORE_KERNELS)
+        if got_l != want:
+            failed.append(f"rank {rk['rank']} long step: flash launches {got_l}, not {want}")
+    # (e) the recipe.
+    recs = [rk["recipe"] for rk in ranks]
+    rec = recs[0]
+    losses = rec["step_losses"]
+    log(f"    e train_translator(sequence_parallel=2, model_parallel=2) on {rec['mesh']}: {len(losses)} "
+        f"steps, loss {losses[0]:.4f} -> {losses[-1]:.4f}, eval loss {rec['test_loss']:.6f}, BLEU (the "
+        f"gathered model) {rec['bleu']:.6f}, checkpoints on every rank {all(x['pointer'] for x in recs)}; "
+        f"sp_ring / tp_allreduce calls {rec['comms'].get('sp_ring_calls')} / "
+        f"{rec['comms'].get('tp_allreduce_calls')}; dQ launches per rank "
+        f"{[x['launches']['flash_attention_bwd_dq'] for x in recs]}")
+    if (rec["mesh"] != {"data": 1, "seq": 2, "model": 2} or not np.all(np.isfinite(losses))
+            or not losses[-1] < losses[0] or not np.isfinite(rec["bleu"])
+            or not all(x["pointer"] for x in recs)):
+        failed.append("the seq x model recipe did not train, evaluate, decode and checkpoint")
+    for x in recs:
+        per = _sp_launches("ring", 2, x["seq"]) * len(x["step_losses"])
+        if (x["launches"]["flash_attention_bwd_dq"], x["launches"]["flash_attention_bwd_dkv"]) != (per, per):
+            failed.append(f"the seq x model recipe: dQ/dK/dV launches {x['launches']}, not {per} each")
+    took = t_pre + wall + time.perf_counter() - t_post
+    log(f"  phase 7l took {took:.1f} s")
+    if failed:
+        fail("; ".join(failed))
+    return dict(wall=wall, ranks=ranks, errs=errs, seconds=took,
+                refs={str(k): v for k, v in refs.items()})
+
+
 # -- phase 7d: bf16 compute ------------------------------------------------------
 
 BF16 = "bfloat16"
@@ -7044,12 +7436,29 @@ def log_bf16_steps(mt32: dict, mt16: dict, cnn32: dict, cnn16: dict, card: str) 
 # -- main -----------------------------------------------------------------------
 
 
+def cache_bytecode() -> Path:
+    """Keep this process's and every worker's compiled Python under the
+    checkout's ``build/pycache``. Where the environment turns bytecode
+    writing off (``PYTHONDONTWRITEBYTECODE``) and the installed packages
+    ship none, each of the smoke's ~80 gang and replica processes would
+    compile torch again on import: on the card's machine ~12 s an import
+    against ~5.4 s from the cache. The workers inherit the environment."""
+    prefix = Path(__file__).resolve().parent / "build" / "pycache"
+    sys.dont_write_bytecode = False
+    sys.pycache_prefix = str(prefix)
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    os.environ["PYTHONPYCACHEPREFIX"] = str(prefix)
+    return prefix
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    no_bytecode = os.environ.get("PYTHONDONTWRITEBYTECODE")
+    pycache = cache_bytecode()
     from machine_learning_apache_spark_tpu_torch.ops import hopper_attention as hop
     from machine_learning_apache_spark_tpu_torch.ops.cuda_build import LIBRARY
     from machine_learning_apache_spark_tpu_torch.utils.device import resolve_device
@@ -7063,6 +7472,8 @@ def main() -> int:
     log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}; device {kind}; count {count}")
     log(f"  nvidia-smi: {card}")
     log(f"  allow_tf32: matmul {torch.backends.cuda.matmul.allow_tf32}, cudnn {torch.backends.cudnn.allow_tf32}")
+    log(f"  compiled Python cached for this process and its workers in {pycache} "
+        f"(PYTHONDONTWRITEBYTECODE was {no_bytecode!r})")
 
     log("== phase 2: build")
     t0 = time.perf_counter()
@@ -7216,37 +7627,29 @@ def main() -> int:
     zero1 = zero1_slice(torch, hop, card)
     log(f"  phase 7e took {time.perf_counter() - t0:.1f} s")
 
-    log("== phase 7f: tensor parallelism on the model axis (one 4-rank gang: {data: 4}, "
-        "{data: 1, model: 4}, {data: 2, model: 2}, its ZeRO-1, checkpoints, "
-        "train_translator(model_parallel=2))")
-    tp = tp_slice(torch, hop, card, dev)
-    for name, e in tp["errs"].items():
+    tp, pp, sp, ep, lc = run_shared_gang([
+        ("== phase 7f: tensor parallelism on the model axis ({data: 4}, {data: 1, model: 4}, "
+         "{data: 2, model: 2}, its ZeRO-1, checkpoints, train_translator(model_parallel=2))",
+         tp_slice(torch, hop, card, dev)),
+        ("== phase 7g: pipeline parallelism on the pipeline axis ({pipeline: 4} at M = 4 and 8, "
+         "{data: 2, pipeline: 2}, K = 4, bf16, train_translator(pipeline_parallel=2) with checkpoints "
+         "and remat)", pp_slice(torch, hop, card, dev)),
+        ("== phase 7h: the sequence axis ({seq: 4} ring and Ulysses, {data: 2, seq: 2} ring, "
+         "train_translator(sequence_parallel=2) under ring and Ulysses, one step at "
+         f"{SP_LONG['seq']} positions)", sp_slice(torch, hop, card, dev)),
+        ("== phase 7i: the MoE expert axis ({expert: 4}, {data: 2, expert: 2}, {expert: 2, model: 2} "
+         f"at {EP_EXPERTS} experts, train_translator(moe_experts={EP_EXPERTS}, expert_parallel=2) with "
+         "checkpoints, a resume and BLEU)", ep_slice(torch, hop, card)),
+        ("== phase 7l: the seq axis beside the model and expert axes ({model: 2, seq: 2} ring and "
+         f"Ulysses, {{expert: 2, seq: 2}} ring at {EP_EXPERTS} experts, one step at {SP_LONG['seq']} "
+         "positions on {model: 2, seq: 2}, train_translator(sequence_parallel=2, model_parallel=2) "
+         "with checkpoints and BLEU)", lc_slice(torch, hop, card, dev)),
+    ])
+    for name, e in [*tp["errs"].items(), *pp["errs"].items(), *pp["bf16_errs"].items(),
+                    *sp["errs"].items(), *sp["bf16_errs"].items(), *lc["errs"].items()]:
         if name in train_errs:
             train_errs[name]["max_abs_err"] = max(train_errs[name]["max_abs_err"], e["max_abs_err"])
             train_errs[name]["max_rel_err"] = max(train_errs[name]["max_rel_err"], e["max_rel_err"])
-
-    log("== phase 7g: pipeline parallelism on the pipeline axis (one 4-rank gang: {pipeline: 4} at "
-        "M = 4 and 8, {data: 2, pipeline: 2}, K = 4, bf16, train_translator(pipeline_parallel=2) "
-        "with checkpoints and remat)")
-    pp = pp_slice(torch, hop, card, dev)
-    for name, e in [*pp["errs"].items(), *pp["bf16_errs"].items()]:
-        if name in train_errs:
-            train_errs[name]["max_abs_err"] = max(train_errs[name]["max_abs_err"], e["max_abs_err"])
-            train_errs[name]["max_rel_err"] = max(train_errs[name]["max_rel_err"], e["max_rel_err"])
-
-    log("== phase 7h: the sequence axis (one 4-rank gang: {seq: 4} ring and Ulysses, {data: 2, "
-        "seq: 2} ring, train_translator(sequence_parallel=2) under ring and Ulysses, one step at "
-        f"{SP_LONG['seq']} positions)")
-    sp = sp_slice(torch, hop, card, dev)
-    for name, e in [*sp["errs"].items(), *sp["bf16_errs"].items()]:
-        if name in train_errs:
-            train_errs[name]["max_abs_err"] = max(train_errs[name]["max_abs_err"], e["max_abs_err"])
-            train_errs[name]["max_rel_err"] = max(train_errs[name]["max_rel_err"], e["max_rel_err"])
-
-    log("== phase 7i: the MoE expert axis (one 4-rank gang: {expert: 4}, {data: 2, expert: 2}, "
-        f"{{expert: 2, model: 2}} at {EP_EXPERTS} experts, train_translator(moe_experts={EP_EXPERTS}, "
-        "expert_parallel=2) with checkpoints, a resume and BLEU)")
-    ep = ep_slice(torch, hop, card)
 
     log("== phase 7j: the streaming ingest pipeline and elastic resume ((a) fit(data=StreamingPipeline) "
         "on the card at K = 1 and 4, packing, a resumed stream; (b) a 4-rank ZeRO-1 gang that loses "
@@ -7320,6 +7723,7 @@ def main() -> int:
     timed_sites |= one_sequence_sites(torch, timed_sites["encoder self"])
     timed_sites |= pp_sites(torch, dev, src0, trg0[:, :-1])
     timed_sites |= sp_hop_sites(torch, dev)
+    timed_sites |= sp_hop_sites(torch, dev, shapes=LC_SHAPES)
     site_times = time_training_kernels(torch, hop, timed_sites)
     site_times |= time_training_kernels(torch, hop, make_sites(bf16))
     decode_times = time_decode_forward(torch, hop, decode_sites(torch, dev, bleu_valid))
@@ -7386,6 +7790,11 @@ def main() -> int:
         + [r["recipe"][n]["launches"] for r in ep["ranks"] for n in ("first", "second")],
         "ingest: fit(data=StreamingPipeline) and over its host batches, K = 1 and 4, resumed": list(
             ingest["paths"].values()),
+        f"gang: MT SP beside TP and EP, {LC_GANG} ranks on one card ({{model: 2, seq: 2}} ring and "
+        f"Ulysses, {{expert: 2, seq: 2}} ring, the long-context step, "
+        "train_translator(sequence_parallel=2, model_parallel=2))": [
+            r["runs"][k]["launches"] for r in lc["ranks"] for k in LC_MESHES]
+        + [r["long"]["launches"] for r in lc["ranks"]] + [r["recipe"]["launches"] for r in lc["ranks"]],
         f"gang: elastic ZeRO-1, {ELASTIC_GANG} ranks on one card, unfaulted and shrunk to "
         f"{ELASTIC_GANG - 1}": [r["launches"] for rs in elastic["ranks"].values() for r in rs],
         f"fleet: {FLEET_REPLICAS} paged replicas behind the router, phase 7k (a)": list(
@@ -7494,6 +7903,11 @@ def main() -> int:
             recipe={k: {f: v.get(f) for f in ("comms", "launches", "bleu", "moe_aux", "resumed")}
                     for k, v in r["recipe"].items()}) for r in ep["ranks"]]), default=str)
         + f" [{card}]")
+    log("  lc: " + json.dumps(dict(
+        wall=lc["wall"], seconds=lc["seconds"], refs=lc["refs"], errs=lc["errs"],
+        ranks=[dict(rank=r["rank"], runs=r["runs"], long=r["long"],
+                    recipe={f: r["recipe"].get(f) for f in ("comms", "launches", "bleu", "test_loss")})
+               for r in lc["ranks"]]), default=str) + f" [{card}]")
     log("  ingest: " + json.dumps(dict(seconds=ingest["seconds"], ms=ingest["ms"], data=ingest["data"]),
                                 default=str) + f" [{card}]")
     log("  elastic: " + json.dumps({k: v for k, v in elastic.items() if k != "ranks"}, default=str)

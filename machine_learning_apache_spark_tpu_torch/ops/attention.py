@@ -85,8 +85,10 @@ def sequence_parallel(
     ``seq_axis`` and whose batch fills this process's rows of the data
     axis goes through the mechanism — the MT model's cross-attention too
     when both lengths are ``max_len``; other sites (``Sq != Sk``, decode
-    steps, dense masks) keep their usual paths. Every rank of a seq line
-    must run the same sites in the same order."""
+    steps, dense masks) keep their usual paths. On a mesh with a
+    ``"model"`` axis of ``M`` ranks (tensor parallelism) a site holds this
+    model rank's ``H/M`` heads, and Ulysses' head check is on ``H``. Every
+    rank of a seq line must run the same sites in the same order."""
     if seq_axis not in mesh.shape:
         raise ValueError(f"mesh {dict(mesh.shape)} has no '{seq_axis}' axis")
     if method not in ("ring", "ulysses"):
@@ -174,7 +176,8 @@ def dot_product_attention(
     a batch that fills this process's rows of the data axis goes through
     the context's mechanism (the JAX rule); Ulysses with a head count the
     seq axis cannot divide raises ``ValueError`` instead of falling
-    through."""
+    through. The count is the global one: under a model axis of ``M``
+    ranks, the site's ``H/M`` heads times ``M``."""
     ctx = _active_seq_mesh()
     if ctx is not None and mask is None:
         from machine_learning_apache_spark_tpu_torch.parallel.sequence import (
@@ -190,12 +193,13 @@ def dot_product_attention(
             # A batch must fill this process's rows of the batch axis.
             and query.shape[0] % rows_per_process(mesh, batch_axis) == 0
         ):
-            if method == "ulysses" and query.shape[1] % n:
+            heads = query.shape[1] * mesh.axis_size("model")
+            if method == "ulysses" and heads % n:
                 # A model-config error, not a fall-through: running the
                 # ring (or one rank) would misreport the mechanism.
                 raise ValueError(
                     f"sequence_parallel(method='ulysses') needs num_heads "
-                    f"({query.shape[1]}) divisible by the {seq_axis!r} axis "
+                    f"({heads}) divisible by the {seq_axis!r} axis "
                     f"({n}); use method='ring'"
                 )
             return sequence_parallel_attention(

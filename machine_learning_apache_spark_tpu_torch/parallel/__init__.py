@@ -13,11 +13,12 @@ for the encoder-decoder Transformer), alone or on ``data × pipeline``;
 sequence parallelism over the ``"seq"`` axis (``parallel.sequence``:
 ring attention, ``parallel.ring_attention``, or Ulysses all-to-alls,
 ``parallel.ulysses_attention``, under ``ops.attention.
-sequence_parallel``), alone or on ``data × seq``; expert parallelism
-over the ``"expert"`` axis (``parallel.expert_parallel``: each rank of
-an expert line runs its share of every MoE layer's experts), alone, on
-``data × expert`` or beside the model axis. A seq axis beside any axis
-but data raises ``NotImplementedError`` (ROADMAP A4: seq × model).
+sequence_parallel``), alone or beside the data, model and expert axes
+(on each model rank's heads); expert parallelism over the ``"expert"``
+axis (``parallel.expert_parallel``: each rank of an expert line runs its
+share of every MoE layer's experts), alone, on ``data × expert`` or
+beside the model axis. A seq axis beside a pipeline axis raises the JAX
+recipe's ``ValueError``.
 """
 
 from machine_learning_apache_spark_tpu_torch.parallel.data_parallel import (

@@ -14,9 +14,10 @@ with one device each (``launcher.coordinator``), joined by a
 - ``"seq"``      — sequence parallelism (``parallel.sequence``): the ranks
   of a seq line hold the same activations and split each attention site's
   sequence between them (ring or Ulysses attention) under
-  ``ops.attention.sequence_parallel``. It composes with ``"data"`` only:
-  beside ``"model"``, ``"pipeline"`` or ``"expert"`` it raises
-  ``NotImplementedError`` naming its ROADMAP item;
+  ``ops.attention.sequence_parallel``. It composes with ``"data"``,
+  ``"model"`` and ``"expert"`` (a seq line for each of their coordinates,
+  the attention on each model rank's heads); beside ``"pipeline"`` it
+  raises the JAX recipe's ``ValueError``;
 - ``"expert"``   — expert parallelism (``parallel.expert_parallel``): each
   rank of an expert line holds its share of every MoE layer's experts and
   runs their FFNs on the rows the line holds alike.
@@ -25,9 +26,10 @@ Ranks lie on the mesh as the JAX mesh lays devices: the axes in
 canonical order, ``data`` outermost and ``model`` innermost, so on a
 ``data × model`` mesh rank = ``data_index · M + model_index``, on a
 ``data × pipeline`` one rank = ``data_index · S + stage``, on a
-``data × seq`` one rank = ``data_index · N + seq_index`` and on a
+``data × seq`` one rank = ``data_index · N + seq_index``, on a
 ``data × expert × model`` one rank = ``(data_index · N + expert_index) ·
-M + model_index``. A mesh of
+M + model_index`` and on a ``data × seq × model`` one rank =
+``(data_index · N + seq_index) · M + model_index``. A mesh of
 several processes builds one process group per line of each axis (the
 ranks that share every other coordinate) when it is made: every rank
 calls ``dist.new_group`` for every group, in one fixed order, as
@@ -68,10 +70,6 @@ _CANONICAL_ORDER = (DATA_AXIS, PIPELINE_AXIS, EXPERT_AXIS, SEQ_AXIS, MODEL_AXIS)
 
 #: The axes a mesh may hold larger than 1.
 _PORTED_AXES = (DATA_AXIS, PIPELINE_AXIS, EXPERT_AXIS, SEQ_AXIS, MODEL_AXIS)
-
-#: The ROADMAP item that composes the seq axis with the axes other than
-#: ``"data"``.
-SEQ_COMPOSE_ITEM = "A4: seq × model"
 
 #: Process groups per (world, mesh shape): built once, shared by every
 #: mesh of that shape.
@@ -352,9 +350,10 @@ def make_mesh(
     Size ``0`` or ``-1`` on at most one axis means "all remaining
     processes"; no axes means a pure data-parallel mesh over all of them.
     The shape errors are the JAX package's ``ValueError``s. A ``"seq"``
-    axis beside a ``"model"``, ``"pipeline"`` or ``"expert"`` one raises
-    ``NotImplementedError`` naming the ROADMAP item that composes them; an
-    axis name the port does not know, larger than 1, raises it too."""
+    axis beside a ``"pipeline"`` one raises the JAX recipe's
+    ``ValueError`` (the pipeline composes with data parallelism only); an
+    axis name the port does not know, larger than 1, raises
+    ``NotImplementedError``."""
     n = process_count() if world is None else world
     axes = dict(axes or {DATA_AXIS: n})
 
@@ -369,15 +368,11 @@ def make_mesh(
     if math.prod(axes.values()) != n:
         raise ValueError(f"mesh {axes} does not cover {n} devices")
 
-    if axes.get(SEQ_AXIS, 1) > 1:
-        beside = {a: axes[a] for a in (MODEL_AXIS, PIPELINE_AXIS, EXPERT_AXIS)
-                  if axes.get(a, 1) > 1}
-        if beside:
-            raise NotImplementedError(
-                f"a {SEQ_AXIS!r} axis of size {axes[SEQ_AXIS]} beside {beside} is not "
-                f"ported yet: sequence parallelism composes with {DATA_AXIS!r} only "
-                f"(ROADMAP queue {SEQ_COMPOSE_ITEM})"
-            )
+    if axes.get(SEQ_AXIS, 1) > 1 and axes.get(PIPELINE_AXIS, 1) > 1:
+        raise ValueError(
+            f"pipeline_parallel={axes[PIPELINE_AXIS]} composes with data parallelism "
+            f"only; incompatible settings: {{'sequence_parallel': {axes[SEQ_AXIS]}}}"
+        )
     for name, size in axes.items():
         if name not in _PORTED_AXES and size > 1:
             raise NotImplementedError(

@@ -29,6 +29,17 @@ Every rank of a line must make the same dispatch decisions and the same
 collectives in the same order: work that only some ranks run (a BLEU
 decode on rank 0) must run outside the context.
 
+Beside the data, model and expert axes there is one seq line for each of
+their coordinates. Under tensor parallelism (``"model"``) a site's q, k
+and v hold this model rank's ``H/M`` heads, and the line runs the
+mechanism on them: the ring on the local heads as they are; Ulysses on
+them where ``H/M`` divides over the line's ``n`` ranks, else on every
+head of the model line, gathered first (``SeqLine.gather_heads``, as
+GSPMD hands the JAX ``shard_map`` every head), this rank's heads kept of
+the output. The heads check is on the global ``H``, the JAX package's.
+The expert line holds every row (the MoE sits outside the attention), so
+its ranks run the same sites on the same rows.
+
 ``SeqLine`` is this rank's line of the axis: its ranks, its ring
 neighbours, its process group, the collectives the mechanisms use
 (``rotate``, ``all_to_all``, ``all_gather``) and their host-timed totals
@@ -48,6 +59,7 @@ import torch.distributed as dist
 
 from machine_learning_apache_spark_tpu_torch.parallel.mesh import (
     DATA_AXIS,
+    MODEL_AXIS,
     SEQ_AXIS,
     TimedCollectives,
     process_count,
@@ -59,7 +71,8 @@ METHODS = ("ring", "ulysses")
 class SPComms(TimedCollectives):
     """Host-timed collectives of the seq line: the ring's K/V (and, in the
     backward, dK/dV) rotations, Ulysses' all-to-alls and the sites'
-    all-gathers, each step's window per kind and the bytes sent."""
+    all-gathers (with Ulysses' gathers of the model line's heads), each
+    step's window per kind and the bytes sent."""
 
     KINDS = ("sp_ring", "sp_a2a", "sp_gather")
     STEPS = "sp_steps"
@@ -96,7 +109,9 @@ class SeqLine:
     ``index``, the global ranks of the line (``ranks``) and its ring
     neighbours (``next`` receives from this rank, ``prev`` sends to it),
     the line's process group (None when the line is the whole gang), and
-    the collectives over it, timed into ``comms``. One per mesh shape
+    the collectives over it, timed into ``comms``; ``model_size`` and
+    ``model_index`` place this rank on its line of the model axis, whose
+    heads ``gather_heads`` collects. One per mesh shape
     (``sequence_line``)."""
 
     def __init__(self, mesh, axis: str = SEQ_AXIS):
@@ -107,6 +122,8 @@ class SeqLine:
         self.ranks = mesh.axis_ranks(axis)
         self.prev, self.next = mesh.ring_neighbours(axis)
         self.group = mesh.group(axis)
+        self.model_size = mesh.axis_size(MODEL_AXIS)
+        self.model_index = mesh.index(MODEL_AXIS)
         self.comms = SPComms()
 
     def restart_comms(self) -> None:
@@ -156,11 +173,19 @@ class SeqLine:
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """``[n, *x.shape]``: every rank's ``x`` in line order."""
+        return self._gathered(x, self.size, self.group)
+
+    def gather_heads(self, x: torch.Tensor) -> torch.Tensor:
+        """``[m, *x.shape]``: every rank's ``x`` of this rank's line of the
+        model axis, in model-index order (timed as ``sp_gather``)."""
+        return self._gathered(x, self.model_size, self.mesh.group(MODEL_AXIS))
+
+    def _gathered(self, x: torch.Tensor, n: int, group) -> torch.Tensor:
         host = _to_host(x)
-        parts = [_host_like(x) for _ in range(self.size)]
+        parts = [_host_like(x) for _ in range(n)]
 
         def call():
-            dist.all_gather(parts, host, group=self.group)
+            dist.all_gather(parts, host, group=group)
 
         self.comms.timed("sp_gather", call, host.numel() * host.element_size())()
         return _back(torch.stack(parts), x)
@@ -190,11 +215,14 @@ def rows_per_process(mesh, batch_axis: str = DATA_AXIS) -> int:
 
 
 def check_shapes(method: str, query, key, value, kv_valid, n: int,
-                 seq_axis: str = SEQ_AXIS, *, whole: bool = True) -> None:
+                 seq_axis: str = SEQ_AXIS, *, whole: bool = True,
+                 heads: int | None = None) -> None:
     """The JAX mechanisms' ``ValueError``s, their words: q/k/v of one
     shape, ``S`` divisible by the line's ``n`` ranks (for ``whole``
-    tensors; a rank's chunk is one part already), ``H`` too for Ulysses,
-    ``kv_valid`` ``[B, S]``."""
+    tensors; a rank's chunk is one part already), the global head count
+    ``heads`` (default: ``query``'s; under tensor parallelism ``H/M`` on
+    a rank, times ``M``) too for Ulysses, ``kv_valid`` ``[B, S]``."""
+    heads = query.shape[1] if heads is None else heads
     if query.shape != key.shape or key.shape != value.shape:
         raise ValueError(
             f"{method} attention is self-attention-shaped: q/k/v must match, "
@@ -204,9 +232,9 @@ def check_shapes(method: str, query, key, value, kv_valid, n: int,
         raise ValueError(
             f"sequence length {query.shape[2]} not divisible by {seq_axis}={n}"
         )
-    if method == "ulysses" and query.shape[1] % n:
+    if method == "ulysses" and heads % n:
         raise ValueError(
-            f"ulysses needs num_heads ({query.shape[1]}) divisible by "
+            f"ulysses needs num_heads ({heads}) divisible by "
             f"{seq_axis}={n}; use ring attention for this head count"
         )
     if kv_valid is not None and tuple(kv_valid.shape) != (query.shape[0], query.shape[2]):
@@ -290,13 +318,16 @@ def sequence_parallel_attention(
     """Attention of whole ``[b, H, S, d]`` tensors, replicated over this
     rank's line of ``seq_axis``, through ``method`` (``"ring"`` or
     ``"ulysses"``) on the line — what an attention site runs under
-    ``sequence_parallel``. The JAX mechanisms' ``ValueError``s first, on
-    the whole shapes. ``batch_axis`` names the data axis, whose rows this
-    rank already holds. Returns the whole output, the same bits on every
-    rank of the line; differentiable in q, k and v."""
+    ``sequence_parallel``. On a mesh with a model axis of ``M`` ranks the
+    tensors hold this model rank's ``H/M`` heads. The JAX mechanisms'
+    ``ValueError``s first, on the whole shapes and the global head count.
+    ``batch_axis`` names the data axis, whose rows this rank already
+    holds. Returns the whole output, the same bits on every rank of the
+    line; differentiable in q, k and v."""
     del batch_axis
     if method not in METHODS:
         raise ValueError(f"method must be 'ring' or 'ulysses', got {method!r}")
-    check_shapes(method, query, key, value, kv_valid, mesh.axis_size(seq_axis), seq_axis)
+    check_shapes(method, query, key, value, kv_valid, mesh.axis_size(seq_axis), seq_axis,
+                 heads=query.shape[1] * mesh.axis_size(MODEL_AXIS))
     return attend_on_line(sequence_line(mesh, seq_axis), method, query, key, value,
                           causal=causal, kv_valid=kv_valid)

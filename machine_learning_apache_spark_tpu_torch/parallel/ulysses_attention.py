@@ -11,6 +11,19 @@ output back to its chunk. q goes alone and k, v stacked in one exchange,
 as in ``_ulysses_shard_fn``: three exchanges a call. ``kv_valid`` is
 all-gathered to ``[b, S]``. Needs ``num_heads % n == 0``.
 
+Under tensor parallelism a rank holds ``H/M`` heads. Where they divide
+over the line they go through the exchanges as they are. Where they do
+not (``{model: 2, seq: 4}`` at 4 heads, ``{model: 2, seq: 2}`` at 2), the
+rank first gathers every head of its model line (``_ModelHeads``,
+``SeqLine.gather_heads``), runs the same exchanges and attention on all
+``H`` (which the check has held divisible by ``n``) and keeps its own
+heads of the output: what GSPMD does for the JAX ``shard_map``, whose
+spec leaves the heads whole. The ``M`` seq lines of a model line then
+attend the same heads; each keeps its own. The gather's backward keeps
+this rank's heads of the gradient: the heads are independent, so the
+other ranks' heads get exact zeros from this rank's cotangent, and the
+adjoint's sum over the model line adds nothing to them.
+
 The inner attention is ``ops.hopper_attention.flash_attention`` (the
 autograd ``Function`` over the Hopper forward and both backward kernels
 on the card, their plain versions on the CPU), never
@@ -29,7 +42,7 @@ from __future__ import annotations
 import torch
 
 from machine_learning_apache_spark_tpu_torch.ops.hopper_attention import flash_attention
-from machine_learning_apache_spark_tpu_torch.parallel.mesh import DATA_AXIS, SEQ_AXIS
+from machine_learning_apache_spark_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, SEQ_AXIS
 
 
 def seq_to_heads(line, t: torch.Tensor) -> torch.Tensor:
@@ -62,6 +75,23 @@ class _SeqToHeads(torch.autograd.Function):
         return None, heads_to_seq(ctx.line, grad)
 
 
+class _ModelHeads(torch.autograd.Function):
+    """Every head of this rank's model line, ``[..., M·h, c, d]`` from each
+    rank's ``[..., h, c, d]`` in model-index order; the backward keeps
+    this rank's heads of the gradient."""
+
+    @staticmethod
+    def forward(ctx, line, t):
+        ctx.line, ctx.h = line, t.shape[-3]
+        got = line.gather_heads(t)  # [M, ..., h, c, d]
+        return torch.cat(got.unbind(0), dim=-3)
+
+    @staticmethod
+    def backward(ctx, grad):
+        i, h = ctx.line.model_index, ctx.h
+        return None, grad.narrow(-3, i * h, h).contiguous()
+
+
 class _HeadsToSeq(torch.autograd.Function):
     @staticmethod
     def forward(ctx, line, t):
@@ -75,7 +105,14 @@ class _HeadsToSeq(torch.autograd.Function):
 
 def ulysses_on_line(line, q, k, v, *, causal=False, kv_valid=None) -> torch.Tensor:
     """Ulysses attention of this rank's chunks on ``line`` (any object with
-    ``size``, ``index``, ``all_to_all`` and ``all_gather``)."""
+    ``size``, ``index``, ``all_to_all`` and ``all_gather``; and, where the
+    chunks' heads do not divide over the line, ``model_index`` and
+    ``gather_heads``: the model line's heads gathered first)."""
+    h = q.shape[-3]
+    if h % line.size:
+        qkv = _ModelHeads.apply(line, torch.stack([q, k, v]))  # one gather
+        out = ulysses_on_line(line, *qkv.unbind(0), causal=causal, kv_valid=kv_valid)
+        return out.narrow(-3, line.model_index * h, h)
     q_h = _SeqToHeads.apply(line, q)
     kv_h = _SeqToHeads.apply(line, torch.stack([k, v]))
     valid = None
@@ -102,7 +139,8 @@ def ulysses_attention(
     (and ``kv_valid`` ``[b, S/n]``) over its line of ``seq_axis`` through
     head↔sequence all-to-alls — the JAX ``ulysses_attention``'s
     ``shard_map`` body: returns this rank's output chunk, the same as
-    ``ring_attention`` gives. ``num_heads`` must divide over the line.
+    ``ring_attention`` gives. ``num_heads`` (under a model axis of ``M``
+    ranks the chunks' ``H/M`` times ``M``) must divide over the line.
     Differentiable in q, k and v; fully padded rows give zeros."""
     from machine_learning_apache_spark_tpu_torch.parallel.sequence import (
         check_shapes,
@@ -111,5 +149,6 @@ def ulysses_attention(
 
     del batch_axis
     line = sequence_line(mesh, seq_axis)
-    check_shapes("ulysses", query, key, value, kv_valid, line.size, seq_axis, whole=False)
+    check_shapes("ulysses", query, key, value, kv_valid, line.size, seq_axis, whole=False,
+                 heads=query.shape[1] * mesh.axis_size(MODEL_AXIS))
     return ulysses_on_line(line, query, key, value, causal=causal, kv_valid=kv_valid)

@@ -93,9 +93,9 @@ def resolve_mesh(
     (``{data: world/N, seq: N}``) and ``expert_parallel=N`` the
     ``"expert"`` axis (``{data: world/N, expert: N}``, with
     ``model_parallel=M`` beside it ``{data: world/(N·M), expert: N,
-    model: M}``); a seq axis beside a model, pipeline or expert one goes
-    to ``make_mesh``, which raises ``NotImplementedError`` naming its
-    ROADMAP A4 item."""
+    model: M}``); the seq axis composes with both (``{data, expert, seq,
+    model}``, canonical order), and beside a pipeline axis ``make_mesh``
+    raises the JAX recipe's ``ValueError``."""
     extra = {
         "model_parallel": model_parallel,
         "sequence_parallel": sequence_parallel,

@@ -68,9 +68,11 @@ every attention site (cross-attention too) splits over the seq line,
 through ring attention (``"ring"``) or Ulysses all-to-alls
 (``"ulysses"``, which needs ``num_heads % N == 0``: the JAX
 ``ValueError``); the BLEU decode and the returned ``Translator`` run the
-whole model outside the context. ``sequence_parallel`` beside
-``model_parallel`` or ``expert_parallel`` raises ``NotImplementedError``
-(ROADMAP queue A4: seq × model).
+whole model outside the context. Beside ``model_parallel=M`` (``{data:
+world/(N·M), seq: N, model: M}``) each seq line attends on its model
+rank's ``num_heads / M`` heads, and beside ``moe_experts=E,
+expert_parallel=X`` (``{data, expert: X, seq: N[, model: M]}``) each
+expert line holds every row, as the JAX recipe's meshes do.
 """
 
 from __future__ import annotations

@@ -207,7 +207,8 @@ def comms_report(events: list[dict], table: dict | None = None) -> dict:
     gathers per kind (``sequence``, when a fit ran under
     ``sequence_parallel``: the same figures), the expert line's
     all-reduces (``expert``, when a fit ran on an expert axis: calls,
-    bytes and window ms per step) plus the duration
+    bytes and window ms per step) and the model line's (``model``, when a
+    fit ran on a model axis: the same figures) plus the duration
     stats of any ``comms.*`` span phases (the collective p50/p99 the
     comms-bench emits). Empty dicts when the run had no comms activity —
     the renderer then omits the section's tables.
@@ -299,7 +300,8 @@ def comms_report(events: list[dict], table: dict | None = None) -> dict:
         "comms_fraction": comms_fraction,
         "verdict": verdict,
     }
-    for section, prefix in (("pipeline", "pp_"), ("sequence", "sp_"), ("expert", "ep_")):
+    for section, prefix in (("pipeline", "pp_"), ("sequence", "sp_"), ("expert", "ep_"),
+                            ("model", "tp_")):
         hops = _line_hops(counters, prefix)
         if hops:
             out[section] = hops
@@ -309,8 +311,9 @@ def comms_report(events: list[dict], table: dict | None = None) -> dict:
 def _line_hops(counters: dict, prefix: str) -> dict:
     """A mesh line's collectives per kind — the pipeline's (``pp_send``,
     ``pp_recv``, ``pp_bcast``, ``pp_allreduce``), the seq line's
-    (``sp_ring``, ``sp_a2a``, ``sp_gather``) or the expert line's
-    (``ep_allreduce``), the kinds named with ``prefix``; the
+    (``sp_ring``, ``sp_a2a``, ``sp_gather``), the expert line's
+    (``ep_allreduce``) or the model line's (``tp_allreduce``), the kinds
+    named with ``prefix``; the
     ``comms.<kind>_calls``, ``comms.<kind>_bytes`` and
     ``comms.<kind>_window_seconds`` counters a ``fit`` emits — per rank:
     calls, bytes and window ms per step. Empty without them."""
@@ -758,11 +761,13 @@ def render_markdown(report: dict) -> str:
                         f"| {kind} | {rank} | {entry.get('bytes_per_step', '-')} "
                         f"| {entry.get('window_ms_per_step', '-')} |"
                     )
-        if comms.get("expert"):
+        for section, title in (("expert", "expert line"), ("model", "model line")):
+            if not comms.get(section):
+                continue
             lines.append("")
-            lines.append("| expert line | rank | calls/step | bytes/step | window ms/step |")
+            lines.append(f"| {title} | rank | calls/step | bytes/step | window ms/step |")
             lines.append("|---|---|---|---|---|")
-            for kind, per_rank in comms["expert"].items():
+            for kind, per_rank in comms[section].items():
                 for rank, entry in per_rank.items():
                     lines.append(
                         f"| {kind} | {rank} | {entry.get('calls_per_step', '-')} "

@@ -112,8 +112,9 @@ def topology_stamp(state: TrainState | None = None) -> dict:
     "model": M}`` under tensor parallelism), the data-parallel mode, and
     for a ZeRO-1 state (``parallel.zero``) ``"zero1"`` with its bucket
     layout (``plan_layout``), for a tensor- or expert-parallel one its
-    shard layout (the model and expert axes' sizes).
-    Stamped into
+    shard layout (the model and expert axes' sizes). A seq axis lies in
+    the mesh's sizes (``{data, expert, seq, model}``): each rank of a seq
+    line holds its model coordinate's shards whole. Stamped into
     every sidecar; a resume whose own stamp differs raises
     ``TopologyMismatch`` rather than misload."""
     mesh = getattr(state, "mesh", None)

@@ -53,7 +53,9 @@ whose seq lines hold the same replicas: under
 ``ops.attention.sequence_parallel(mesh)`` each attention site splits its
 sequence over the line (ring or Ulysses attention) and gathers it back,
 and the ranks of a line draw the same dropout bits (seeded by the data
-index, as the JAX loop's masks are the same over ``"seq"``). In a
+index, as the JAX loop's masks are the same over ``"seq"``); beside a
+``"model"`` or ``"expert"`` axis there is a seq line for each of their
+coordinates, attending on its model rank's heads. In a
 gang, ``steps_per_call=K`` runs K eager data-parallel steps per call: a
 gloo collective runs on the host and cannot sit inside a CUDA graph.
 Each step passes the ``train_step`` fault-injection site
@@ -495,7 +497,10 @@ def fit(
     index), draw the same dropout bits (seeded by the data index) and
     compute the same gradients; DDP and the sums are the data line's.
     ``FitResult.comms`` adds the line's collectives (``SPComms.stats()``:
-    ``sp_ring``, ``sp_a2a``, ``sp_gather``).
+    ``sp_ring``, ``sp_a2a``, ``sp_gather``). Beside a model or an expert
+    axis each of their coordinates has its own seq line, whose ranks hold
+    that coordinate's shards; ``dp_mode="zero1"`` on such a mesh raises
+    the JAX ``ValueError``.
 
     ``prefetch_to_device`` is accepted and has nothing to do: the loader
     already assembles ahead on a thread and the copy to the device is
@@ -743,7 +748,8 @@ def fit(
                 # that died mid-epoch.
                 if hasattr(step_fn, "flush_comms"):
                     step_fn.flush_comms()
-                for line in (pp_line, sp_line, getattr(state.model, "ep_axis", None)):
+                for line in (pp_line, sp_line, getattr(state.model, "ep_axis", None),
+                             getattr(state.model, "tp_axis", None)):
                     if line is not None:
                         line.comms.emit_counters()
         if not history and resume_meta.get("metrics"):

@@ -124,7 +124,9 @@ def test_mesh_axes_beyond_data_raise_naming_their_item():
     # So is the pipeline axis, data-major too.
     mesh = make_mesh({"pipeline": 2, "data": 1}, world=2)
     assert mesh.shape == {"data": 1, "pipeline": 2} and mesh.axis_ranks("pipeline") == [0, 1]
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A4: seq × model"):
+    # Beside the pipeline axis the seq axis is refused in the JAX
+    # recipe's words.
+    with pytest.raises(ValueError, match="composes with data parallelism only"):
         make_mesh({"data": 1, "pipeline": 2, "seq": 2}, world=4)
     # So is the expert axis, data-major too.
     mesh = make_mesh({"expert": 2}, world=2)

@@ -312,8 +312,14 @@ def test_zero1_and_seq_beside_the_expert_axis_are_refused_as_in_jax():
     with pytest.raises(ValueError) as err:
         zero._require_zero1_mesh(make_mesh({"data": 2, "expert": 2}, world=4), "data")
     assert str(err.value) == str(jerr.value) and "'expert': 2" in str(err.value)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A4: seq × model"):
-        make_mesh({"data": 1, "expert": 2, "seq": 2}, world=4)
+    # A seq axis beside the expert axis now builds; the ZeRO-1 step on it
+    # is refused as the JAX package refuses it.
+    axes = {"data": 2, "expert": 2, "seq": 2}
+    with pytest.raises(ValueError) as jerr:
+        j_require_zero1_mesh(j_make_mesh(axes, devices=jax.devices()[:8]), "data")
+    with pytest.raises(ValueError) as err:
+        zero._require_zero1_mesh(make_mesh(axes, world=8), "data")
+    assert str(err.value) == str(jerr.value) and "'seq': 2" in str(err.value)
 
 
 def test_gang_report_rolls_up_the_expert_line():

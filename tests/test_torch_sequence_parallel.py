@@ -15,14 +15,17 @@ weights carried over by ``weights.load_flax_params``) under ring on
 ``{seq: 4}`` and under Ulysses on ``{data: 2, seq: 2}`` against the JAX
 ``fit`` on the same meshes: parameters at atol 1e-5, the epoch's mean
 loss at rtol 1e-5, ``assert_replicas_in_sync`` passing (the seq lines' bits equal),
-every rank's parameters the same bits. The recipe under the gang's
-``Distributor``: ``sequence_parallel=4`` (ring) against the one-process
-recipe (step losses rtol 1e-4: the one extra pad column of the SP targets
-changes only the summation order), ``=2`` (Ulysses, BLEU, checkpoints),
-and ``sequence_parallel`` beside ``model_parallel`` raising
-``NotImplementedError`` with its ROADMAP item. In process: the mesh's
-layout and refusals, the gang report's seq-line section, the recipe's
-Ulysses head check beside the JAX recipe's.
+every rank's parameters the same bits. Ulysses on ``{model: 2, seq: 2}``
+at 2 heads (one a model rank, which does not divide over the line: the
+model line's heads gathered first) against the JAX mechanism. The recipe
+under the gang's ``Distributor``: ``sequence_parallel=4`` (ring) and
+``sequence_parallel=2, model_parallel=2`` against the one-process recipe
+(step losses rtol 1e-4: the one extra pad column of the SP targets, and
+the model axis's sums, change only the summation order), ``=2``
+(Ulysses, BLEU, checkpoints). In process: the mesh's layout beside the
+model and expert axes and its refusal beside the pipeline axis, the gang
+report's seq-line section, the recipe's Ulysses head check beside the
+JAX recipe's.
 """
 
 from __future__ import annotations
@@ -79,9 +82,15 @@ def _j_mesh(name):
     return j_make_mesh(axes, devices=jax.devices()[:int(np.prod(list(axes.values())))])
 
 
+TWO_HEADS = {"data": 1, "model": 2, "seq": 2}
+
+
 def _inputs():
     rng = np.random.default_rng(11)
     qkv = tuple(rng.standard_normal((4, 4, 16, 8)).astype(np.float32) for _ in range(3))
+    # Drawn after the rest, so the other inputs are the ones they were.
+    two = np.random.default_rng(12)
+    qkv_two = tuple(two.standard_normal((4, 2, 16, 8)).astype(np.float32) for _ in range(3))
     valid = np.ones((4, 16), bool)
     valid[0] = False
     valid[1, 10:] = False
@@ -97,25 +106,28 @@ def _inputs():
         s[1, 6:] = 0
         t[2, 5:] = 0
         batches.append((s, t))
-    return qkv, valid, jm, boxed, batches
+    return qkv, valid, jm, boxed, batches, qkv_two
 
 
-def _jax_attention(qkv, valid):
+def _jax_attention(qkv, valid, qkv_two):
     """The JAX mechanism per (mesh, method, case): output and gradients of
-    sum(out²) over the whole batch."""
+    sum(out²) over the whole batch; Ulysses at 2 heads on ``{model: 2,
+    seq: 2}``."""
     out = {}
-    for name in MESHES:
-        mesh = _j_mesh(name)
-        for method, fn in (("ring", j_ring), ("ulysses", j_ulysses)):
-            for case, causal, kv in (("full", False, None), ("causal valid", True, valid)):
-                def loss(q, k, v, kv=kv, causal=causal, fn=fn, mesh=mesh):
-                    o = fn(q, k, v, mesh, causal=causal,
-                           kv_valid=None if kv is None else jnp.asarray(kv))
-                    return (o ** 2).sum(), o
+    runs = [(name, _j_mesh(name), method, fn, qkv) for name in MESHES
+            for method, fn in (("ring", j_ring), ("ulysses", j_ulysses))]
+    runs.append(("model2 seq2", j_make_mesh(TWO_HEADS, devices=jax.devices()[:4]),
+                 "ulysses two heads", j_ulysses, qkv_two))
+    for name, mesh, method, fn, inputs in runs:
+        for case, causal, kv in (("full", False, None), ("causal valid", True, valid)):
+            def loss(q, k, v, kv=kv, causal=causal, fn=fn, mesh=mesh):
+                o = fn(q, k, v, mesh, causal=causal,
+                       kv_valid=None if kv is None else jnp.asarray(kv))
+                return (o ** 2).sum(), o
 
-                (_, o), grads = jax.jit(jax.value_and_grad(loss, argnums=(0, 1, 2), has_aux=True))(
-                    *(jnp.asarray(a) for a in qkv))
-                out[f"{name} {method} {case}"] = [np.asarray(o), *(np.asarray(g) for g in grads)]
+            (_, o), grads = jax.jit(jax.value_and_grad(loss, argnums=(0, 1, 2), has_aux=True))(
+                *(jnp.asarray(a) for a in inputs))
+            out[f"{name} {method} {case}"] = [np.asarray(o), *(np.asarray(g) for g in grads)]
     return out
 
 
@@ -148,7 +160,7 @@ def _jax_fit(jm, boxed, batches, mesh_name, method):
 @pytest.fixture(scope="module")
 def gang(tmp_path_factory):
     """The gang's results and the JAX oracles, computed while it runs."""
-    qkv, valid, jm, boxed, batches = _inputs()
+    qkv, valid, jm, boxed, batches, qkv_two = _inputs()
     tree = jax.tree.map(np.array, fnn.unbox(boxed))
     got: dict = {}
 
@@ -156,14 +168,14 @@ def gang(tmp_path_factory):
         try:
             got["out"] = Distributor(num_processes=4, platform="cpu", timeout=600, env=GANG_ENV).run(
                 "torch_launcher_workers:sp_four_rank", qkv, valid, TINY, tree, batches[:3], LR,
-                batches[3:], RECIPE, str(tmp_path_factory.mktemp("sp")))
+                batches[3:], RECIPE, str(tmp_path_factory.mktemp("sp")), qkv_two)
         except BaseException as e:  # noqa: BLE001 - re-raised in the main thread
             got["error"] = e
 
     thread = threading.Thread(target=run)
     thread.start()
     try:
-        oracle = {"attention": _jax_attention(qkv, valid),
+        oracle = {"attention": _jax_attention(qkv, valid, qkv_two),
                   "fit": {label: _jax_fit(jm, boxed, batches[:3], *where)
                           for label, where in FITS.items()},
                   "one": train_translator(device="cpu", _return_state=True, **RECIPE),
@@ -189,8 +201,19 @@ def test_data_seq_mesh_lays_ranks_out_data_major():
 
 @pytest.mark.parametrize("other", ["model", "pipeline", "expert"])
 def test_seq_beside_another_axis_names_its_roadmap_item(other):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A4: seq × model"):
-        make_mesh({"data": 1, "seq": 2, other: 2}, world=4)
+    if other == "pipeline":
+        # The JAX recipe's refusal: the pipeline composes with data only.
+        with pytest.raises(ValueError, match="composes with data parallelism only"):
+            make_mesh({"data": 1, "seq": 2, other: 2}, world=4)
+        return
+    # Beside the model and expert axes the seq axis is ported: canonical
+    # order (expert outside seq, model inside), a seq line per coordinate.
+    mesh = make_mesh({other: 2, "seq": 2, "data": 1}, world=4)
+    assert tuple(mesh.shape) == (("data", "expert", "seq") if other == "expert"
+                                 else ("data", "seq", "model"))
+    seq_line = [0, 1] if other == "expert" else [0, 2]
+    assert mesh.axis_ranks("seq") == seq_line
+    assert mesh.axis_ranks(other) == ([0, 2] if other == "expert" else [0, 1])
 
 
 def test_gang_report_rolls_up_the_seq_line():
@@ -260,6 +283,23 @@ def test_sp_fit_in_the_gang_equals_the_jax_fit(gang, label):
     assert np.isfinite(got["test_loss"])
 
 
+@pytest.mark.parametrize("case", ["full", "causal valid"])
+def test_ulysses_at_two_heads_beside_the_model_axis_equals_the_jax_mechanism(gang, case):
+    out, oracle, _ = gang
+    label = f"model2 seq2 ulysses two heads {case}"
+    want = oracle["attention"][label]
+    for rank in out["attention"]:
+        got = rank[label]
+        heads = slice(got["model"], got["model"] + 1)
+        for name, g, w in zip(("out", "dq", "dk", "dv"), got["out"], want):
+            np.testing.assert_allclose(g, w[:, heads], rtol=0, atol=ATOL, err_msg=f"{label} {name}")
+        assert got["line_equal"], label
+        # Ulysses, not the ring: the three exchanges each way, the site's
+        # gathers, kv_valid's, and the model line's heads gathered once.
+        assert got["calls"] == {"sp_ring": 0, "sp_a2a": 6,
+                                "sp_gather": 3 + (case == "causal valid")}, label
+
+
 def test_the_two_fits_agree(gang):
     out, _, _ = gang
     a, b = (out["fit"][label] for label in FITS)
@@ -278,7 +318,14 @@ def test_recipe_trains_under_the_gangs_distributor(gang):
     assert ring["line_equal"] and uly["line_equal"]
     assert ring["comms"]["sp_ring_calls"] > 0 and uly["comms"]["sp_a2a_calls"] > 0
     assert np.all(np.isfinite(uly["step_losses"])) and uly["bleu"] is not None
-    assert "ROADMAP queue A4: seq × model" in out["seq_model"]
+    # Beside the model axis: {data: 1, seq: 2, model: 2}, each seq line on
+    # its model rank's heads, held to the one-process recipe as ring 4 is.
+    tp = rec["ring 2 model 2"]
+    assert tp["mesh"] == {"data": 1, "seq": 2, "model": 2}
+    np.testing.assert_allclose(tp["step_losses"], one["fit_result"].step_losses, rtol=1e-4)
+    np.testing.assert_allclose(tp["test_loss"], one["test_loss"], rtol=1e-4)
+    assert tp["line_equal"]
+    assert tp["comms"]["sp_ring_calls"] > 0 and tp["comms"]["tp_allreduce_calls"] > 0
 
 
 def test_recipe_refuses_indivisible_heads_as_jax_does(gang):

@@ -177,8 +177,11 @@ def test_resolve_mesh_rules(monkeypatch):
     assert mesh.shape == {"data": 1, "seq": 2}
     assert _common.data_replicas(mesh) == (1, 0)
     monkeypatch.setattr(_common, "process_count", lambda: 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A4: seq × model"):
-        _common.resolve_mesh(True, sequence_parallel=2, model_parallel=2)
+    # Beside the model axis too: {data: world/(N·M), seq: N, model: M},
+    # model innermost, as the JAX resolve_mesh builds it.
+    mesh = _common.resolve_mesh(True, sequence_parallel=2, model_parallel=2)
+    assert mesh.shape == {"data": 1, "seq": 2, "model": 2}
+    assert _common.data_replicas(mesh) == (1, 0)
     monkeypatch.setattr(_common, "process_count", lambda: 2)
     # The pipeline axis is ported too: {data: world/S, pipeline: S}.
     mesh = _common.resolve_mesh(True, pipeline_parallel=2)

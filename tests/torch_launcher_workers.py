@@ -7,6 +7,7 @@ torch and numpy, never JAX.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 
@@ -1241,19 +1242,23 @@ def pp_card_gang(cfg_kwargs, flax_params, batches, lr, n_micro, device=None):
 
 
 def _sp_line_equal(mesh, arrays) -> bool:
-    """Whether every rank of this rank's seq line holds ``arrays`` bit for
-    bit (all ranks gather; each line is compared within itself)."""
+    """Whether every rank of this rank's seq line (the ranks that share
+    every other coordinate) holds ``arrays`` bit for bit (all ranks
+    gather; each line is compared within itself)."""
+    key = tuple(i for a, i in mesh.coords.items() if a != "seq")
     every = [None] * dist.get_world_size()
-    dist.all_gather_object(every, (mesh.index("data"), [np.asarray(a) for a in arrays]))
-    mine = [e for d, e in every if d == mesh.index("data")]
-    return all(all(np.array_equal(a, b) for a, b in zip(e, mine[0])) for e in mine)
+    dist.all_gather_object(every, (key, [np.asarray(a) for a in arrays]))
+    mine = [e for k, e in every if k == key]
+    return len(mine) == mesh.axis_size("seq") and all(
+        all(np.array_equal(a, b) for a, b in zip(e, mine[0])) for e in mine)
 
 
 def _sp_attention_case(mesh, method, qkv, causal, valid):
     """One site under ``sequence_parallel(mesh, method=)`` through
-    ``dot_product_attention``, this data index's rows of the global
-    ``qkv``/``valid``: the output and the gradients of sum(out²), the seq
-    line's collectives, and whether its ranks agree bit for bit."""
+    ``dot_product_attention``: this data index's rows and this model
+    index's heads of the global ``qkv`` (and the rows of ``valid``); the
+    output and the gradients of sum(out²), the seq line's collectives and
+    whether its ranks agree bit for bit."""
     from machine_learning_apache_spark_tpu_torch.ops.attention import (
         dot_product_attention,
         sequence_parallel,
@@ -1261,7 +1266,9 @@ def _sp_attention_case(mesh, method, qkv, causal, valid):
     from machine_learning_apache_spark_tpu_torch.parallel.sequence import sequence_line
 
     d, ways = mesh.index("data"), mesh.axis_size("data")
-    q, k, v = (torch.from_numpy(a).requires_grad_() for a in _rows(qkv, d, ways))
+    m, heads = mesh.index("model"), qkv[0].shape[1] // mesh.axis_size("model")
+    q, k, v = (torch.from_numpy(np.ascontiguousarray(a[:, m * heads:(m + 1) * heads]))
+               .requires_grad_() for a in _rows(qkv, d, ways))
     kv_valid = None if valid is None else torch.from_numpy(_rows((valid,), d, ways)[0])
     line = sequence_line(mesh)
     line.restart_comms()
@@ -1270,7 +1277,7 @@ def _sp_attention_case(mesh, method, qkv, causal, valid):
     (out ** 2).sum().backward()
     res = [out.detach().numpy(), q.grad.numpy(), k.grad.numpy(), v.grad.numpy()]
     stats = line.comms.stats()
-    return {"data": d, "out": res, "line_equal": _sp_line_equal(mesh, res),
+    return {"data": d, "model": m, "out": res, "line_equal": _sp_line_equal(mesh, res),
             "calls": {kind: stats[f"{kind}_calls"] for kind in line.comms.KINDS}}
 
 
@@ -1315,15 +1322,17 @@ def _sp_fit(mesh, method, cfg_kwargs, flax_params, batches, lr, eval_batches):
 
 
 def sp_four_rank(qkv, valid, cfg_kwargs, flax_params, batches, lr, eval_batches, recipe_kw,
-                 workdir):
+                 workdir, qkv_two_heads):
     """Every check of the 4-rank sequence-parallel gang in one gang start,
     on ``{seq: 4}`` and ``{data: 2, seq: 2}``: ring and Ulysses at one
     attention site (full; causal with ``kv_valid``), forward and
-    gradients; 3 SGD steps of the Transformer's ``fit`` under ring on
-    ``{seq: 4}`` and under Ulysses on ``{data: 2, seq: 2}``; the recipe
-    with ``sequence_parallel=4`` (ring) and ``=2`` (Ulysses, BLEU,
-    checkpoints), and ``sequence_parallel`` beside ``model_parallel``.
-    Rank 0's results, with every rank's attention rows."""
+    gradients; Ulysses on ``{model: 2, seq: 2}`` at the 2 heads of
+    ``qkv_two_heads`` (one a model rank); 3 SGD steps of the
+    Transformer's ``fit`` under ring on ``{seq: 4}`` and under Ulysses on
+    ``{data: 2, seq: 2}``; the recipe with ``sequence_parallel=4`` (ring),
+    ``=2`` (Ulysses, BLEU, checkpoints), and ``=2`` beside
+    ``model_parallel=2``. Rank 0's results, with every rank's attention
+    rows."""
     from machine_learning_apache_spark_tpu_torch.parallel import make_mesh
     from machine_learning_apache_spark_tpu_torch.recipes.translation import train_translator
 
@@ -1335,6 +1344,10 @@ def sp_four_rank(qkv, valid, cfg_kwargs, flax_params, batches, lr, eval_batches,
         for method in ("ring", "ulysses"):
             cases[f"{name} {method} full"] = _sp_attention_case(mesh, method, qkv, False, None)
             cases[f"{name} {method} causal valid"] = _sp_attention_case(mesh, method, qkv, True, valid)
+    tp_mesh = make_mesh({"data": 1, "model": 2, "seq": world // 2}, device="cpu")
+    for case, causal, kv in (("full", False, None), ("causal valid", True, valid)):
+        cases[f"model2 seq2 ulysses two heads {case}"] = _sp_attention_case(
+            tp_mesh, "ulysses", qkv_two_heads, causal, kv)
     every = [None] * world
     dist.all_gather_object(every, cases)
     out = {"attention": every, "coords": [None] * world}
@@ -1356,12 +1369,14 @@ def sp_four_rank(qkv, valid, cfg_kwargs, flax_params, batches, lr, eval_batches,
             "comms": res["fit_result"].comms,
             "line_equal": _sp_line_equal(res["state"].mesh, [
                 t.numpy() for t in res["state"].model.state_dict().values()])}
+    res = train_translator(device="cpu", sequence_parallel=2, model_parallel=2, _return_state=True,
+                           **recipe_kw)
+    recipes["ring 2 model 2"] = {
+        "step_losses": res["fit_result"].step_losses, "mesh": dict(res["state"].mesh.shape),
+        "test_loss": res["test_loss"], "comms": res["fit_result"].comms,
+        "line_equal": _sp_line_equal(res["state"].mesh, [
+            t.numpy() for t in res["state"].model.state_dict().values()])}
     out["recipe"] = recipes
-    try:
-        train_translator(device="cpu", sequence_parallel=2, model_parallel=2, **recipe_kw)
-        out["seq_model"] = "no error"
-    except NotImplementedError as e:
-        out["seq_model"] = str(e)
     return out if rank == 0 else None
 
 
@@ -1403,6 +1418,101 @@ def sp_card_gang(cfg_kwargs, flax_params, batches, lr, device=None):
             "params": {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()},
             "ranks_equal": all(all(np.array_equal(a, b) for a, b in zip(e, every[0])) for e in every),
             "launches": launches}
+    return out if rank == 0 else None
+
+
+# -- the seq axis beside the model and expert axes ----------------------------------
+
+
+def _compose_fit(mesh, method, cfg_kwargs, flax_params, batches, lr, *, epochs=1,
+                 checkpointer=None, resume=False):
+    """SGD steps of ``fit(mesh=)`` under ``sequence_parallel(mesh,
+    method=)`` (``epochs`` over ``batches``), each data index on its rows:
+    the parameters gathered over
+    the model and expert axes (a Flax tree), the step losses, the comms,
+    ``assert_replicas_in_sync``'s verdict, whether every seq line holds
+    the same bits, and this rank's parameters."""
+    from machine_learning_apache_spark_tpu_torch.models.transformer import (
+        Transformer,
+        TransformerConfig,
+    )
+    from machine_learning_apache_spark_tpu_torch.ops.attention import sequence_parallel
+    from machine_learning_apache_spark_tpu_torch.parallel import assert_replicas_in_sync
+    from machine_learning_apache_spark_tpu_torch.recipes.translation import make_translation_loss
+    from machine_learning_apache_spark_tpu_torch.train.loop import fit
+    from machine_learning_apache_spark_tpu_torch.train.state import TrainState, make_optimizer
+    from machine_learning_apache_spark_tpu_torch.weights import load_flax_params
+
+    cfg = TransformerConfig(**cfg_kwargs)
+    d, ways = mesh.index("data"), mesh.axis_size("data")
+    model = load_flax_params(Transformer(cfg), flax_params)
+    with sequence_parallel(mesh, method=method):
+        res = fit(TrainState.create(model=model, tx=make_optimizer("sgd", lr)),
+                  make_translation_loss(cfg.pad_id), [_rows(b, d, ways) for b in batches],
+                  epochs=epochs, mesh=mesh, log_every=0, checkpointer=checkpointer,
+                  resume=resume)
+    try:
+        assert_replicas_in_sync(res.state, mesh=mesh)
+        in_sync = "ok"
+    except AssertionError as e:
+        in_sync = str(e)
+    mine = [t.detach().numpy().copy() for t in model.state_dict().values()]
+    return {"params": _gathered_tree(model, lambda: Transformer(cfg)),
+            "step_losses": list(res.step_losses), "comms": res.comms, "in_sync": in_sync,
+            "line_equal": _sp_line_equal(mesh, mine), "mine": mine}
+
+
+def seq_compose_eight_rank(qkv, valid, meshes, cfg_kwargs, flax_params, moe_cfg_kwargs,
+                           moe_flax_params, batches, lr, workdir):
+    """Every check of the 8-rank gang of the seq axis beside the model and
+    expert axes, in one gang start. On each of ``meshes`` (``{name:
+    (axes, method, moe)}``): one attention site (full; causal with
+    ``kv_valid``), forward and gradients, on this rank's rows and heads; 3
+    SGD steps of the (MoE, where ``moe``) Transformer's ``fit``, which on
+    the mesh with a data and a model axis checkpoints its epoch; that
+    checkpoint resumed on the same mesh for a second epoch, against 2
+    epochs in one fit, and resumed on the mesh with a seq axis of 4.
+    Rank 0's results, with every rank's attention results."""
+    from machine_learning_apache_spark_tpu_torch.parallel import make_mesh
+    from machine_learning_apache_spark_tpu_torch.train.checkpoint import (
+        CheckpointManager,
+        TopologyMismatch,
+    )
+
+    rank, _ = _rank_world()
+    made = {name: make_mesh(axes, device="cpu") for name, (axes, _, _) in meshes.items()}
+    saved = next(n for n, (axes, _, moe) in meshes.items()
+                 if axes.get("data", 1) == 2 and axes.get("model", 1) == 2 and not moe)
+    other = next(n for n, (axes, _, _) in meshes.items() if axes.get("seq") == 4)
+    mine = os.path.join(workdir, f"ckpt_r{rank}")
+    cases, fits = {}, {}
+    for name, (axes, method, moe) in meshes.items():
+        mesh = made[name]
+        for case, causal, kv in (("full", False, None), ("causal valid", True, valid)):
+            cases[f"{name} {case}"] = _sp_attention_case(mesh, method, qkv, causal, kv)
+        cfg, tree = (moe_cfg_kwargs, moe_flax_params) if moe else (cfg_kwargs, flax_params)
+        with CheckpointManager(mine) if name == saved else contextlib.nullcontext() as mgr:
+            fits[name] = _compose_fit(mesh, method, cfg, tree, batches, lr, checkpointer=mgr)
+        fits[name].pop("mine")
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, cases)
+    out = {"attention": every, "fit": fits}
+    # The saved epoch resumed on the same mesh for a second, against two
+    # epochs in one fit; then resumed on another layout.
+    method = meshes[saved][1]
+    with CheckpointManager(mine) as mgr:
+        again = _compose_fit(made[saved], method, cfg_kwargs, flax_params, batches, lr,
+                             epochs=2, checkpointer=mgr, resume=True)
+    whole = _compose_fit(made[saved], method, cfg_kwargs, flax_params, batches, lr, epochs=2)
+    out["resume"] = {"same_bits": all(np.array_equal(a, b) for a, b in zip(again["mine"], whole["mine"])),
+                     "step_losses": again["step_losses"], "whole_losses": whole["step_losses"]}
+    try:
+        with CheckpointManager(mine) as mgr:
+            _compose_fit(made[other], meshes[other][1], cfg_kwargs, flax_params, batches, lr,
+                         checkpointer=mgr, resume=True)
+        out["crossed"] = "no error"
+    except TopologyMismatch as e:
+        out["crossed"] = str(e)
     return out if rank == 0 else None
 
 
