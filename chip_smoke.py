@@ -158,7 +158,11 @@ Phases, each fatal on failure:
    rows in the other order), ``assert_replicas_in_sync`` (its divergence
    printed), each rank's flash forward, dQ and dK/dV launches (3 x its
    steps, plus the eval forward), and the merged gang report with both
-   ranks' step spans (its skew and comms reports printed). Then the CNN
+   ranks' step spans (its skew and comms reports printed), and the report
+   CLIs over that directory as a user runs them after a run:
+   ``tools/torch_telemetry_report.py`` (exit 0, every rank, its JSON the
+   in-process report) and ``tools/torch_trace_report.py --perfetto``
+   (exit 0, a process row for every rank), their seconds printed. Then the CNN
    gang again, with rank 1 raising at step 3 while rank 0 goes into that
    step's all-reduce: a ``GangFailure`` naming rank 1 and the message, no
    stray process group and a flight dump;
@@ -222,7 +226,10 @@ Phases, each fatal on failure:
    (``run_shared_gang``: each phase's work in this process up to its gang
    job, the jobs in turn in one ``Session`` -> ``Distributor`` gang over
    gloo, then each phase's gates), since a gang's start costs ~15 s on
-   the card's machine (importing torch);
+   the card's machine (importing torch). Each rank serves its HTTP plane
+   (``telemetry_http=0``, its sidecar in the gang's telemetry directory),
+   and ``tools/torch_gang_status.py`` scrapes the running gang once from
+   a thread beside it: exit 0, every rank scraped;
 7f. tensor parallelism on the model axis — ``Session`` -> ``Distributor``
    -> the 4-rank gang sharing the card over gloo, every mesh a view of
    its process group: the MT model at reference width (dropout 0, Adam,
@@ -338,12 +345,16 @@ Phases, each fatal on failure:
    requests lost, rank 0 serves through the outage, rank 1 restarts and
    serves again, the ledger balances; (c) a ``FleetAutoscaler`` on the
    router's scrape loop takes the gang 2 -> 3 under queue-depth load (16
-   closed-loop clients; the added replica must scrape healthy) and back to
-   2 by draining the coldest replica under 1 client, no request lost,
-   every decision with its inputs. Printed: each replica's start-up
+   closed-loop clients; the added replica must scrape healthy and then be
+   dispatched to: the router counts its own dispatches not yet answered
+   into each replica's load, where the JAX router reads the scraped load
+   alone and herds a burst onto one replica) and back to 2 by draining the
+   coldest replica under 1 client, no request lost, every decision with
+   its inputs. Printed: each replica's start-up
    seconds (spawn to first healthy scrape, graph capture included), the
    time to recover (kill to rank 1 serving a routed request again), the
-   added replica's start-up and the requests routed to it, requests/s and
+   added replica's start-up, the requests routed to it and their share of
+   the hot load's, requests/s and
    tokens/s through the fleet beside one engine, the skew
    (``replica_skew``), each replica's launches and peak memory, the
    decisions; no throughput gate (the replicas share one card and host);
@@ -3623,6 +3634,7 @@ def gang_slice(torch, hop, card: str) -> dict:
     log(f"    comms_report: {json.dumps(report['comms'])}")
     if step_ranks != list(range(GANG)):
         fail(f"the merged gang report holds train.step spans of ranks {step_ranks}")
+    offline_reports(tdir, report, list(range(GANG)), card)
     out["mt"] = dict(wall=wall, loss_rel=loss_rel, param_rel=max(rel.values()), key_bias_abs=noise_max,
                      divergence=mt["divergence"], ranks=mt["ranks"], skew=report["skew"],
                      comms=report["comms"])
@@ -3653,6 +3665,68 @@ def gang_slice(torch, hop, card: str) -> dict:
     if stray:
         fail("the failing gang left a stray process group")
     return out
+
+
+# -- the report CLIs over the smoke's own telemetry ---------------------------------
+
+# Wall seconds the report CLIs took: the offline reports run between 7b's
+# gates, the live gang status beside the running gang of 7f-7l.
+REPORT_CLI_SECONDS: dict[str, float] = {}
+
+
+def _report_cli(name: str, *argv, timeout: float = 120.0) -> tuple[subprocess.CompletedProcess, float]:
+    """``python tools/<name>.py *argv``, as a user runs it: the completed
+    process and its wall seconds."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve().parent / "tools" / f"{name}.py"), *map(str, argv)],
+        capture_output=True, text=True, timeout=timeout)
+    return proc, time.perf_counter() - t0
+
+
+def offline_reports(tdir: Path, report: dict, ranks: list[int], card: str) -> None:
+    """``tools/torch_telemetry_report.py`` and ``tools/torch_trace_report.py``
+    over a gang's telemetry directory after its run: each must exit 0 and
+    report every rank, and the telemetry report's JSON must be the report
+    ``aggregate.merge_gang_dir`` built in this process."""
+    rep, t_rep = _report_cli("torch_telemetry_report", tdir, "--json", tdir / "cli_report.json",
+                             "--md", tdir / "cli_report.md")
+    got = json.loads((tdir / "cli_report.json").read_text()) if rep.returncode == 0 else {}
+    trace, t_trace = _report_cli("torch_trace_report", tdir, "--perfetto", tdir / "cli_perfetto.json")
+    procs = sorted(
+        e["args"]["name"] for e in json.loads((tdir / "cli_perfetto.json").read_text())["traceEvents"]
+        if e["ph"] == "M" and e["name"] == "process_name") if trace.returncode == 0 else []
+    REPORT_CLI_SECONDS["offline reports (7b)"] = t_rep + t_trace
+    log(f"    tools/torch_telemetry_report.py over the MT gang's telemetry: exit {rep.returncode} in "
+        f"{t_rep:.2f} s, ranks {got.get('ranks')}, {got.get('event_count')} events, "
+        f"{len(got.get('phases', {}))} phases; tools/torch_trace_report.py --perfetto: exit "
+        f"{trace.returncode} in {t_trace:.2f} s, process rows {procs} [{card}]")
+    want = [f"rank {r}" for r in ranks]
+    if rep.returncode or got.get("ranks") != ranks or got != json.loads(json.dumps(report)):
+        fail(f"tools/torch_telemetry_report.py exit {rep.returncode}, ranks {got.get('ranks')} "
+             f"(want {ranks}, the in-process report): {rep.stderr[-2000:]}")
+    if trace.returncode or [p for p in procs if p.startswith("rank ")] != want:
+        fail(f"tools/torch_trace_report.py exit {trace.returncode}, process rows {procs} (want {want}): "
+             f"{trace.stderr[-2000:]}")
+
+
+def live_gang_status(tdir: Path, world: int, result: dict, wait_s: float = 240.0) -> None:
+    """Thread body beside a running gang: once every rank has published its
+    HTTP sidecar in ``tdir``, ``tools/torch_gang_status.py`` scrapes the
+    gang live, once."""
+    from machine_learning_apache_spark_tpu_torch.telemetry.http import find_port_sidecars
+
+    try:
+        t0 = time.monotonic()
+        while len(find_port_sidecars(str(tdir))) < world and time.monotonic() - t0 < wait_s:
+            time.sleep(0.2)
+        result["waited"] = time.monotonic() - t0
+        proc, took = _report_cli("torch_gang_status", tdir, "--json", tdir / "gang_status.json",
+                                 timeout=60.0)
+        rows = json.loads((tdir / "gang_status.json").read_text())["rows"] if proc.returncode == 0 else []
+        result.update(rc=proc.returncode, rows=rows, seconds=took, err=proc.stderr[-2000:])
+    except Exception as e:  # noqa: BLE001 - the gate reports it
+        result["error"] = repr(e)
 
 
 # -- phase 7c: the gang that survives a crash and reports its health ------------
@@ -6212,6 +6286,9 @@ def run_shared_gang(phases: list) -> list:
     job in turn (``shared_gang_rank``); then each phase gets rank 0's
     result and its seconds in the gang back and runs its gates. Returns
     what each phase returns."""
+    import shutil
+    import threading
+
     from machine_learning_apache_spark_tpu_torch import Session
     from machine_learning_apache_spark_tpu_torch.launcher import Distributor, kill_stray_gangs
 
@@ -6219,17 +6296,36 @@ def run_shared_gang(phases: list) -> list:
     for header, phase in phases:
         log(header)
         jobs.append(next(phase))
+    # Every rank serves its observability plane (an HTTP server on an
+    # ephemeral port, its sidecar in tdir): tools/torch_gang_status.py
+    # scrapes the running gang once from a thread beside it.
+    tdir = scratch_dir() / "shared_gang"
+    shutil.rmtree(tdir, ignore_errors=True)
+    status: dict = {}
+    watcher = threading.Thread(target=live_gang_status, args=(tdir, SHARED_GANG, status), daemon=True)
+    watcher.start()
     spark = Session.builder.appName("ParallelAxesTranslation").config(
         "spark.executor.instances", str(SHARED_GANG)).getOrCreate()
     try:
         t0 = time.perf_counter()
-        results = Distributor(num_processes=spark.conf.executor_instances, timeout=2400).run(
+        results = Distributor(num_processes=spark.conf.executor_instances, timeout=2400, telemetry_http=0,
+                              env={"MLSPARK_TELEMETRY_DIR": str(tdir)}).run(
             "chip_smoke:shared_gang_rank", jobs)
         wall = time.perf_counter() - t0
     finally:
         spark.stop()
+    watcher.join(timeout=90.0)
     if kill_stray_gangs() != 0:
         fail("the gang of phases 7f-7l left a stray process group")
+    rows = status.get("rows", [])
+    REPORT_CLI_SECONDS["live gang status (beside the gang of 7f-7l)"] = status.get("seconds", 0.0)
+    log(f"  tools/torch_gang_status.py against the running {SHARED_GANG}-rank gang, "
+        f"{status.get('waited', float('nan')):.1f} s after its start: exit {status.get('rc')} in "
+        f"{status.get('seconds', float('nan')):.2f} s, ranks {[r.get('rank') for r in rows]}, status "
+        f"{[r.get('status') for r in rows]}, phase {[r.get('phase') for r in rows]}")
+    if (status.get("rc") != 0 or [r.get("rank") for r in rows] != list(range(SHARED_GANG))
+            or any(r.get("status") not in ("ok", "degraded") for r in rows)):
+        fail(f"tools/torch_gang_status.py did not scrape every rank of the running gang: {status}")
     names = [header.split(":")[0].removeprefix("== ") for header, _ in phases]
     log(f"== {names[0]} to {names[-1]}: one {SHARED_GANG}-rank gang ran each phase's gang work in turn, "
         f"{wall:.2f} s spawn to result: " + ", ".join(
@@ -6942,8 +7038,18 @@ def fleet_slice(torch, hop, card: str, translator, prompts, single: dict) -> dic
             failed.append("an autoscaler decision lacks its inputs")
         if drained is None or not conservation["ok"]:
             failed.append(f"the ledger did not balance after the autoscale cycle: {conservation}")
+        # The router's herd (fixed in the port only): the added replica must
+        # take dispatches once it scrapes healthy. Its share is of the hot
+        # load's completed requests (the router counted them by then).
+        added_dispatched = per_replica.get(added, {}).get("dispatched", 0)
+        added_share = added_dispatched / hot["completed"] if hot.get("completed") else None
+        log(f"    the added rank {added} took {added_dispatched} dispatches in the hot load's last "
+            f"{FLEET_HOT_AFTER_S:.0f} s, a share {added_share} of its {hot.get('completed')} requests "
+            f"at {hot.get('requests_per_sec')} requests/s [{card}]")
+        if added_dispatched <= 0:
+            failed.append(f"the added rank {added} scraped healthy but got no dispatch: {per_replica}")
         out["c"] = dict(scale_up_s=up, added=added, added_startup_s=added_up, drain_s=down, victim=victim,
-                        added_dispatched=per_replica.get(added, {}).get("dispatched", 0),
+                        added_dispatched=added_dispatched, added_share=added_share,
                         hot=hot, light=light, decisions=decisions, ledger=conservation["router_ledger"])
     finally:
         router.stop()
@@ -7919,6 +8025,10 @@ def main() -> int:
     log("  fleet: " + json.dumps({k: {f: v for f, v in part.items() if f not in ("decisions", "launches")}
                                   if isinstance(part, dict) else part for k, part in fleet.items()},
                                  default=str) + f" [{card}]")
+    log("  report CLIs (tools/torch_{telemetry_report,trace_report,gang_status}.py): "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in REPORT_CLI_SECONDS.items())
+        + f"; wall added to the smoke {REPORT_CLI_SECONDS.get('offline reports (7b)', 0.0):.2f} s (the live "
+        "status runs beside the gang)")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

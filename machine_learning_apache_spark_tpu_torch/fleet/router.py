@@ -13,6 +13,16 @@ synthetic snapshots, no sockets involved:
   says already hold the prompt's prefix (least-loaded among them),
   falling back to least-loaded overall.
 
+**Load, unlike the JAX router's.** The load :class:`FleetRouter` hands
+``pick_replica`` is, per replica, the larger of its scraped load and the
+dispatches this router sent it that have not been answered yet; the pick
+and its dispatch are counted under one lock hold. A scraped load is
+stale within a scrape, so the JAX router, which reads the scraped load
+alone, sends a burst between two scrapes to one replica (ties go to the
+lowest rank), and a replica the autoscaler adds may get no request at
+all. Counting the router's own dispatches is exact and spreads the
+burst.
+
 :class:`FleetRouter` wraps the decision in the full dispatch loop:
 admission (SLO tiers + tenant quotas) → pick → POST → and *drain-around*
 on refusals. The retry taxonomy is the whole fault story:
@@ -50,6 +60,7 @@ unavailable + failed + expired. ``check_conservation`` raises otherwise.
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import json
 import queue as _pyqueue
@@ -312,6 +323,9 @@ class FleetRouter:
         self._snapshot_source = snapshot_source
         self._rr = itertools.count()
         self._lock = threading.Lock()
+        # Dispatches sent to each rank and not answered yet: what a rank
+        # owes this router between two scrapes, counted into its load.
+        self._dispatched: dict[int, int] = {}  # guarded-by: self._lock
         # Penalty box: rank -> monotonic time of last refusal. A boxed
         # rank is skipped until a scrape reports it healthy again (the
         # scrape loop is the source of recovery truth).
@@ -393,11 +407,40 @@ class FleetRouter:
             else:
                 self.affinity.forget_rank(rank)
 
-    def _usable_snapshots(self) -> dict[int, ReplicaSnapshot]:
+    def _pick(
+        self, digest, exclude: set[int],
+    ) -> tuple[dict[int, ReplicaSnapshot], int | None]:
+        """``pick_replica`` over the usable snapshots (the penalty box
+        left out), each replica's load raised to this router's dispatches
+        to it not answered yet; the picked rank's count goes up in the
+        same lock hold, so simultaneous submits see each other's picks.
+        Every pick that returns a rank is paired with one ``_attempt``,
+        which takes the count back down. Returns the snapshots the pick
+        read and the rank (None: nothing usable)."""
         snaps = self._snapshot_source()
+        candidates = self.affinity.candidates(digest)
         with self._lock:
-            down = set(self._down)
-        return {r: s for r, s in snaps.items() if r not in down}
+            usable = {
+                r: self._with_dispatched(s)
+                for r, s in snaps.items() if r not in self._down
+            }
+            rank = pick_replica(
+                usable,
+                policy=self.policy,
+                candidates=candidates,
+                exclude=exclude,
+                rr_state=self._rr,
+            )
+            if rank is not None:
+                self._dispatched[rank] = self._dispatched.get(rank, 0) + 1
+        return usable, rank
+
+    def _with_dispatched(self, snap: ReplicaSnapshot) -> ReplicaSnapshot:
+        # mlspark-lint: holds self._lock -- called in _pick's lock hold
+        owed = self._dispatched.get(snap.rank, 0)
+        if owed > snap.load:
+            return dataclasses.replace(snap, in_flight=owed)
+        return snap
 
     def _box(self, rank: int) -> None:
         with self._lock:
@@ -463,14 +506,7 @@ class FleetRouter:
                             f"deadline of {deadline:.3f}s elapsed before "
                             f"dispatch (retries={retries})"
                         )
-                    snaps = self._usable_snapshots()
-                    rank = pick_replica(
-                        snaps,
-                        policy=self.policy,
-                        candidates=self.affinity.candidates(digest),
-                        exclude=tried,
-                        rr_state=self._rr,
-                    )
+                    snaps, rank = self._pick(digest, tried)
                     if rank is None:
                         if backpressure is not None:
                             outcome = "rejected"
@@ -485,7 +521,7 @@ class FleetRouter:
                     snap = snaps[rank]
                     if self.hedge and tier in self.hedge_tiers:
                         rank, kind, status, payload = self._dispatch_hedged(
-                            snaps, rank, snap, text, remaining=remaining,
+                            rank, snap, text, remaining=remaining,
                             tier=tier, tenant=tenant, ctx=ctx,
                             digest=digest, tried=tried,
                         )
@@ -568,30 +604,35 @@ class FleetRouter:
         replica gets as ``deadline_s``, so a late retry or a hedge is
         granted only the time actually left. Runs on the submit thread
         (plain path) or a hedge worker thread (the ``use(ctx)`` wrap is
-        what keeps the worker's events on the request's trace)."""
-        self._note(rank, "dispatched")
-        # One child span id per attempt: the replica records it as
-        # remote_parent, which is how the merged view attaches each
-        # replica's spans to the right attempt.
-        attempt = _tracectx.child(ctx)
-        attempt_attrs = {"replica": rank}
-        if attempt is not None:
-            attempt_attrs["ctx_span"] = attempt.span_id
-        with _tracectx.use(ctx), _spans.span("fleet.attempt",
-                                             **attempt_attrs):
-            kind, status, payload = ReplicaClient.generate(
-                port, text,
-                deadline_s=budget, tier=tier, tenant=tenant,
-                timeout=min(self.request_timeout_s, budget + 30.0),
-                traceparent=(
-                    None if attempt is None
-                    else _tracectx.to_traceparent(attempt)
-                ),
-            )
-        return rank, kind, status, payload
+        what keeps the worker's events on the request's trace). Takes
+        back the dispatch count ``_pick`` added for ``rank``."""
+        try:
+            self._note(rank, "dispatched")
+            # One child span id per attempt: the replica records it as
+            # remote_parent, which is how the merged view attaches each
+            # replica's spans to the right attempt.
+            attempt = _tracectx.child(ctx)
+            attempt_attrs = {"replica": rank}
+            if attempt is not None:
+                attempt_attrs["ctx_span"] = attempt.span_id
+            with _tracectx.use(ctx), _spans.span("fleet.attempt",
+                                                 **attempt_attrs):
+                kind, status, payload = ReplicaClient.generate(
+                    port, text,
+                    deadline_s=budget, tier=tier, tenant=tenant,
+                    timeout=min(self.request_timeout_s, budget + 30.0),
+                    traceparent=(
+                        None if attempt is None
+                        else _tracectx.to_traceparent(attempt)
+                    ),
+                )
+            return rank, kind, status, payload
+        finally:
+            with self._lock:
+                self._dispatched[rank] -= 1
 
     def _dispatch_hedged(
-        self, snaps, rank: int, snap, text: str, *, remaining: float,
+        self, rank: int, snap, text: str, *, remaining: float,
         tier: str, tenant: str | None, ctx, digest, tried: set[int],
     ) -> tuple[int, str, int | None, dict]:
         """One dispatch round with straggler hedging: launch the primary,
@@ -638,13 +679,7 @@ class FleetRouter:
         # once. Never the same rank (exclude everything tried); a hedge
         # is issued only while the primary is in flight — a terminal
         # result never spawns one, so lost-is-lost survives.
-        h_rank = pick_replica(
-            snaps,
-            policy=self.policy,
-            candidates=self.affinity.candidates(digest),
-            exclude=set(tried) | set(outstanding),
-            rr_state=self._rr,
-        )
+        snaps, h_rank = self._pick(digest, set(tried) | set(outstanding))
         if h_rank is not None:
             tried.add(h_rank)
             self._bump("hedged")

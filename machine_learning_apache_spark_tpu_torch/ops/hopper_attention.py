@@ -981,7 +981,7 @@ def ragged_paged_attention(
         k_pages.data_ptr(), v_pages.data_ptr(),
         k_scale.data_ptr() if quant else None,
         v_scale.data_ptr() if quant else None,
-        int(quant), block_table.data_ptr(), pages_per_row,
+        1 if quant else 0, block_table.data_ptr(), pages_per_row,
         lengths.data_ptr(),
         None if cur_k is None else cur_k.data_ptr(),
         None if cur_v is None else cur_v.data_ptr(),

@@ -143,6 +143,7 @@ def _run_collective(tensor: torch.Tensor, call) -> None:
     if not tensor.is_cuda and dist.get_backend() == "nccl":
         staged = tensor.to(torch.device("cuda", torch.cuda.current_device()))
         call(staged)
+        # mlspark-lint: ok recompile-device-get -- a gang's collective; a gang's steps run eagerly (StepDispatch.group), never captured
         tensor.copy_(staged.cpu())
     else:
         call(tensor)
@@ -174,6 +175,7 @@ class TimedCollectives:
         """``wait`` (the completion of a collective issued now, or a
         blocking collective itself) timed from now to its first return;
         returns the timed wait."""
+        # mlspark-lint: ok recompile-time -- a gang's collective; a gang's steps run eagerly (StepDispatch.group), never captured
         t0 = time.perf_counter()
         with self._lock:
             if self._first[kind] is None:
@@ -185,7 +187,7 @@ class TimedCollectives:
             if done:
                 return
             done.append(True)
-            t1 = time.perf_counter()
+            t1 = time.perf_counter()  # mlspark-lint: ok recompile-time -- as t0 above
             with self._lock:
                 self.calls[kind] += 1
                 self.seconds[kind] += t1 - t0

@@ -242,7 +242,8 @@ def enabled() -> bool:
     The env read is cached — instrumented hot paths pay one global load."""
     global _ENABLED
     if _ENABLED is None:
-        _ENABLED = os.environ.get(ENV_TELEMETRY, "1").strip().lower() not in (  # mlspark-lint: ok env-direct-read -- stdlib-only module, see _env_rank
+        # mlspark-lint: ok env-direct-read recompile-env -- stdlib-only module, see _env_rank; read once a process, so a capture bakes in nothing
+        _ENABLED = os.environ.get(ENV_TELEMETRY, "1").strip().lower() not in (
             "0", "false", "off", "no",
         )
     return _ENABLED
@@ -265,7 +266,8 @@ def get_log():
             if _LOG is None:
                 try:
                     max_events = int(
-                        os.environ.get(ENV_MAX_EVENTS, _DEFAULT_MAX_EVENTS)  # mlspark-lint: ok env-direct-read -- stdlib-only module, see _env_rank
+                        # mlspark-lint: ok env-direct-read recompile-env -- stdlib-only module, see _env_rank; read once a process
+                        os.environ.get(ENV_MAX_EVENTS, _DEFAULT_MAX_EVENTS)
                     )
                 except ValueError:
                     max_events = _DEFAULT_MAX_EVENTS

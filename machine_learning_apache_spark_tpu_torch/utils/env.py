@@ -133,6 +133,19 @@ register(
     "refusing them (train/reshard.py).",
 )
 
+# session (SessionConfig fields read through ConfigBase.from_env's
+# MLSPARK_ prefix; `mlspark-submit` writes these two)
+register(
+    "MLSPARK_APP_NAME", type="str", default="mlspark-tpu", subsystem="session",
+    description="Session app name (`spark.app.name` analogue; set by "
+    "`mlspark-submit --name`).",
+)
+register(
+    "MLSPARK_EXECUTOR_INSTANCES", type="int", default=0, subsystem="session",
+    description="Requested world size (`spark.executor.instances` "
+    "analogue). 0 derives from the process group.",
+)
+
 # parallel / comms
 register(
     "MLSPARK_DP_MODE", type="str", default="replicated", subsystem="parallel",

@@ -79,9 +79,9 @@ def rank_zero_print(*args, all_ranks: bool = False, **kwargs) -> None:
 def process_rank() -> int:
     """This process's rank in a gang (``MLSPARK_PROCESS_ID``), 0 outside
     one. The port has no JAX process index to ask."""
-    # mlspark-lint: ok env-direct-read -- the registry lives in utils.env,
-    # which this module must not need just to name the rank
-    v = os.environ.get("MLSPARK_PROCESS_ID")
+    # The registry lives in utils.env, which this module must not need
+    # just to name the rank.
+    v = os.environ.get("MLSPARK_PROCESS_ID")  # mlspark-lint: ok env-direct-read -- see above
     try:
         return int(v) if v is not None else 0
     except ValueError:

@@ -642,6 +642,97 @@ def test_router_rejects_what_the_jax_one_rejects():
             fleet.FleetRouter(policy="affinity")
 
 
+class _HeldFleet:
+    """Replicas that hold every dispatch until released: a burst stays in
+    flight, and no scrape runs between its dispatches."""
+
+    def __init__(self):
+        self.calls: dict[int, int] = {}
+        self.lock = threading.Lock()
+        self.arrived = threading.Semaphore(0)
+        self.release = threading.Event()
+
+    def generate(self, port, text, **kw):
+        rank = port - 10000
+        with self.lock:
+            self.calls[rank] = self.calls.get(rank, 0) + 1
+        self.arrived.release()
+        assert self.release.wait(30.0)
+        return "ok", 200, {"text": text, "rank": rank, "tokens": 1}
+
+
+def _held_burst(fleet, router, held, n):
+    """``n`` submits on their own threads; returns them once every one
+    is held at its replica."""
+    threads = [threading.Thread(target=router.submit, args=(f"p{i}",)) for i in range(n)]
+    for t in threads:
+        t.start()
+    for _ in range(n):
+        assert held.arrived.acquire(timeout=30.0)
+    return threads
+
+
+@pytest.mark.parametrize("policy", ["affinity", "least_loaded"])
+def test_a_burst_between_scrapes_spreads_over_the_replicas(monkeypatch, policy):
+    """The router's herd, fixed in the port only: scraped loads frozen at
+    0, a burst of 8 dispatches in flight over two replicas, then 6 more
+    after a third is added. The port's router counts its own dispatches
+    not answered yet into each load, so every replica gets its share and
+    none more than ceil(total / replicas) + AFFINITY_LOAD_SLACK; the JAX
+    router, reading the scraped load alone, sends all 14 to rank 0."""
+    got = {}
+    for pkg, (fleet, router_mod, _) in PACKAGES.items():
+        held = _HeldFleet()
+        monkeypatch.setattr(router_mod.ReplicaClient, "generate", staticmethod(held.generate))
+        snaps = {r: snap(fleet, r, in_flight=0) for r in (0, 1)}
+        router = fleet.FleetRouter(snapshot_source=lambda s=snaps: dict(s), policy=policy)
+        threads = _held_burst(fleet, router, held, 8)
+        first = dict(held.calls)
+        snaps[2] = snap(fleet, 2, in_flight=0)
+        threads += _held_burst(fleet, router, held, 6)
+        held.release.set()
+        for t in threads:
+            t.join(timeout=30.0)
+        assert router.check_conservation()["completed"] == 14
+        got[pkg] = (first, dict(held.calls))
+    assert got["jax"] == ({0: 8}, {0: 14})
+    first, total = got["torch"]
+    assert set(first) == {0, 1} and max(first.values()) <= -(-8 // 2) + SLACK
+    assert set(total) == {0, 1, 2} and sum(total.values()) == 14
+    assert total[2] >= 14 // 3 and max(total.values()) <= -(-14 // 3) + SLACK
+    assert all(n == 0 for n in router._dispatched.values())
+
+
+def test_dispatch_counts_survive_32_threads(monkeypatch):
+    """The router's per-rank dispatch counts under contention: 32 submit
+    threads (more than the cores) of 20 requests each over 3 replicas,
+    with a short switch interval. A lost update would leave a count
+    above 0 after the last answer, skewing every later pick."""
+    scripted = _ScriptedFleet({})
+    monkeypatch.setattr(trouter.ReplicaClient, "generate", staticmethod(scripted.generate))
+    snaps = {r: snap(tfleet, r, in_flight=0) for r in range(3)}
+    router = tfleet.FleetRouter(snapshot_source=lambda: dict(snaps), policy="least_loaded")
+
+    def client(k):
+        for i in range(20):
+            router.submit(f"c{k}-{i}", tier="batch")
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=client, args=(k,)) for k in range(32)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60.0)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert router.check_conservation()["completed"] == 640
+    assert sum(v["dispatched"] for v in router.stats()["per_replica"].values()) == 640
+    assert router._dispatched == {0: 0, 1: 0, 2: 0}
+
+
 def test_a_burst_of_connections_is_not_dropped(tmp_path):
     """The router herds a burst onto one replica between scrapes. With
     socketserver's listen backlog of 5 (the JAX replica's) the kernel
