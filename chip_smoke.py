@@ -178,10 +178,10 @@ Phases, each fatal on failure:
    Then rank 1's newest payload cut in half and its pointer set back to
    step 12: the next run resumes step 12 on both ranks and again ends on
    the unfaulted gang's bits. The MLlib estimator (4-5-4-3, maxIter 5,
-   the libsvm sample's 60 % split) under a 2-rank gang against one
-   process on the card (atol 1e-5 after rtol 1e-4, JAX's ``TestMeshFit``
-   bound): the gang's fit wall in a fresh gang and again after it, one
-   process's, all-reduces per iteration. The live plane: a
+   the libsvm sample's 60 % split) in the same 2-rank gang, after that
+   run, against one process on the card (atol 1e-5 after rtol 1e-4,
+   JAX's ``TestMeshFit`` bound): the gang's first fit wall and again
+   after it, one process's, all-reduces per iteration. The live plane: a
    paged (fp32) and a padded engine behind the HTTP plane on an
    ephemeral port, ``/healthz`` 200 -> 503 on a launch quarantined by a
    ``decode_batch`` fault -> 200 after the next, ``/statusz``'s
@@ -358,6 +358,28 @@ Phases, each fatal on failure:
    tokens/s through the fleet beside one engine, the skew
    (``replica_skew``), each replica's launches and peak memory, the
    decisions; no throughput gate (the replicas share one card and host);
+7m. the drills — the scenario functions of ``tools/torch_fault_drill.py``
+   and ``tools/torch_ingest_bench.py`` on the card: (a)
+   ``serving_poison`` on phase 4's translator in this process (decode
+   launch 0 raises; at most 4 rows decode together): its JAX invariant
+   (0 < poisoned <= 4, the rest served, every poisoned request
+   quarantined, no loop restart, no recompile after warmup, no KV slot
+   leaked, a non-empty flight dump), and the flash forward and the ragged
+   decode launched; (b) ``straggler_hedge`` (rank 1's sticky 1.5 s wire
+   delay, hedged duplicates, the losers cancelled) then
+   ``torn_response_retry`` (rank 1's first response torn, booked lost,
+   never replayed), each on its own 2-replica fleet of
+   ``fleet_replica_rank`` at phase 4's knobs, one after the other: each
+   scenario's JAX invariant, and every replica on the card launched both
+   serving kernels in the scenario's traffic (its ``/statusz`` before and
+   after); (c) the ingest bench's smoke entry (1,200 records x 32
+   features, batch 32, width 64, the python parser, buffer 4, 2 epochs)
+   with the model and ``stream_on``'s device stage on the card: its three
+   gates (the stream's batches the sync loader's, two epochs the same, no
+   thread left) and ``stream_on``'s batches copied to the card. Printed:
+   each part's seconds, each replica's start-up seconds and launches, the
+   hedge's and the torn response's ledgers, the ingest arms' epoch
+   seconds and steady step ms;
 7l. the seq axis beside the model and expert axes — the flash forward
    with ``lse``, dQ and dK/dV against their plain versions at the shapes
    this path gives them (``LC_SHAPES``: the ring hop at [32, 4, 100, 64]
@@ -403,7 +425,8 @@ Phases, each fatal on failure:
    ids and launches; the train step at 1 and 4 steps per call, in one
    process: ms per step, steps/s, target tokens/s, peak memory, the
    device idle share of one profiled window of steps and the memory the
-   4-step program holds; the 2-rank gangs (MT at per-replica batch 16 on
+   4-step program holds; the 2-rank gangs, timed at the end of phase
+   7e's gang (MT at per-replica batch 16 on
    the fixture's vocabularies and on the published 8004, TinyVGG on
    CIFAR-10 at 32) against one process at the same global batch over 20
    steps after warm-up: ms per step, non-pad target tokens/s or
@@ -414,7 +437,9 @@ Phases, each fatal on failure:
    bound (bf16 bytes, the bf16 tensor-core rate), its plain version and
    SDPA at bf16; the MT step (1 and 4 steps per call) and the TinyVGG
    step at fp32 beside bf16: ms, tokens/s or samples/s, idle share and
-   peak memory. (The
+   peak memory. The profiler's device times at the serving and decode
+   sites are over ``PROFILE_CALLS`` calls a session (cut from 50 to pay
+   for phase 7m); each part's seconds are printed. (The
    one-shot ``Translator``'s latency, eager
    and replayed, and the memory its programs hold are taken in phase 4.)
 
@@ -511,6 +536,12 @@ TENSOR_CORE_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_a
 # The tensor-core kernels' (warps per block, splits) launch choices,
 # checked and timed beside the wrappers' picks.
 LAUNCH_CHOICES = ((1, 1), (2, 1), (4, 1), (2, 2), (4, 2))
+# Calls one profiler session times at the serving and decode sites
+# (phase 8), for the kernel, its plain version, the library call and each
+# launch choice: once 50, cut to pay for phase 7m; the device times agree
+# at both counts (PERF.md's kernel table). Below 20 calls the sessions
+# under-read (PERF.md §6).
+PROFILE_CALLS = 20
 
 
 def scratch_dir() -> Path:
@@ -1407,9 +1438,11 @@ def profile_device(torch, fn) -> list:
     return sorted((r for r in rows if r[2] > 0), key=lambda r: -r[2])
 
 
-def device_ms_per_call(torch, fn, n: int = 50) -> float | None:
-    """Device time of one call (all its kernels), from the profiler; None
-    when the profiler saw no device work."""
+def device_ms_per_call(torch, fn, n: int | None = None) -> float | None:
+    """Device time of one call (all its kernels), from the profiler over
+    ``n`` calls (default ``PROFILE_CALLS``); None when the profiler saw no
+    device work."""
+    n = PROFILE_CALLS if n is None else n
     fn()
 
     def many():
@@ -2320,11 +2353,11 @@ def time_decode_forward(torch, hop, sites: dict) -> dict:
             library_ms=cuda_time_ms(torch, work["library"], n=100, warmup=10),
             library_name="F.scaled_dot_product_attention, bool mask",
             bound_ms=bnd, bound_by=by, nbytes=nbytes, flops=flops,
-            device_ms={name: device_ms_per_call(torch, fn, n=50) for name, fn in work.items()},
+            device_ms={name: device_ms_per_call(torch, fn) for name, fn in work.items()},
             warps=hop.flash_fwd_launch_params(b, h, sq, sk, d, hop.device_sm_count(q.device))[:2],
             warps_sweep={f"{w}x{c_}": device_ms_per_call(
-                torch, lambda w=w, c_=c_: hop.flash_attention_fwd(q, k, v, kv_valid=valid, warps=w, splits=c_),
-                n=50) for w, c_ in LAUNCH_CHOICES},
+                torch, lambda w=w, c_=c_: hop.flash_attention_fwd(q, k, v, kv_valid=valid, warps=w, splits=c_))
+                for w, c_ in LAUNCH_CHOICES},
         )
     return out
 
@@ -3768,9 +3801,9 @@ def drill_mt_rank(kw: dict) -> dict:
 
 
 def mllib_gang_rank(data_path: str, layers: list, max_iter: int) -> dict:
-    """One rank of the MLlib gang: ``fit(mesh=data_parallel_mesh())`` on
-    the sample's 60 % split, twice (the first in a fresh gang, the second
-    after it). Rank 0's parameters, both fit walls, iterations and
+    """``fit(mesh=data_parallel_mesh())`` of MLlib in this gang on the
+    sample's 60 % split, twice (the first the gang's first fit, the
+    second after it). Rank 0's parameters, both fit walls, iterations and
     all-reduce count, and whether every rank ended on the same bits."""
     import torch
 
@@ -3790,6 +3823,18 @@ def mllib_gang_rank(data_path: str, layers: list, max_iter: int) -> dict:
                 evaluations=model.evaluations, allreduces=model.allreduces,
                 device=str(next(model.mlp.parameters()).device),
                 ranks_agree=all(torch.equal(gathered[0], g) for g in gathered))
+
+
+def torn_then_mllib_rank(kw: dict, data_path: str, layers: list, max_iter: int) -> dict:
+    """One rank of phase 7c's second gang: the MT run over the torn
+    checkpoint group (``drill_mt_rank``), then the MLlib fits
+    (``mllib_gang_rank``), each part's seconds on the rank's clock; one
+    gang for both spares the smoke a spawn."""
+    t0 = time.perf_counter()
+    torn = drill_mt_rank(kw)
+    t1 = time.perf_counter()
+    mllib = mllib_gang_rank(data_path, layers, max_iter)
+    return dict(torn=torn, mllib=mllib, seconds=dict(torn=t1 - t0, mllib=time.perf_counter() - t1))
 
 
 def _drill_run(label: str, directory: Path, env: dict | None = None, **kw) -> tuple[dict, float]:
@@ -3986,29 +4031,29 @@ def recovery_slice(torch, hop, translator, prompts, card: str) -> dict:
     with open(payload, "r+b") as f:
         f.truncate(payload.stat().st_size // 2)
     (r1 / ckpt.LATEST_POINTER).write_text(json.dumps({"step": older}))
+    # b and c run in one gang: the torn group's run, then the MLlib fits.
+    data = str(Path(__file__).resolve().parent / "assets" / "sample_multiclass_classification_data.txt")
+    pointed0 = ckpt.pointed_step_of(str(root / "unfaulted" / "ckpt_r0"))
     t0 = time.perf_counter()
-    torn = Distributor(num_processes=GANG, timeout=600).run(
-        "chip_smoke:drill_mt_rank", dict(GANG_MT, epochs=1, checkpoint_dir=str(root / "unfaulted")))
-    wall_torn = time.perf_counter() - t0
+    both = Distributor(num_processes=GANG, timeout=600).run(
+        "chip_smoke:torn_then_mllib_rank", dict(GANG_MT, epochs=1, checkpoint_dir=str(root / "unfaulted")),
+        data, MLLIB_GANG["layers"], MLLIB_GANG["maxIter"])
+    wall_both = time.perf_counter() - t0
     if kill_stray_gangs() != 0:
-        fail("the torn-payload gang left a stray process group")
+        fail("the torn-payload and MLlib gang left a stray process group")
+    torn, mg, wall_torn = both["torn"], both["mllib"], both["seconds"]["torn"]
     log(f"  torn payload: rank 1's step {newest} cut to half and its pointer set to {older}, rank "
-        f"0's pointer at {ckpt.pointed_step_of(str(root / 'unfaulted' / 'ckpt_r0'))} before the run; "
+        f"0's pointer at {pointed0} before the run; "
         f"the next run resumed {[(r['rank'], r['resumed'], r['final_step']) for r in torn['ranks']]} "
-        f"(rank, resumed, final step), {wall_torn:.2f} s")
+        f"(rank, resumed, final step), {wall_torn:.2f} s in rank 0 (the gang, with the MLlib fits "
+        f"after it: {wall_both:.2f} s spawn to result)")
     if any(r["resumed"] != older or r["final_step"] != steps for r in torn["ranks"]):
         fail(f"the torn-payload gang did not agree on step {older} on both ranks: {torn['ranks']}")
     _same_run("the torn-payload gang", torn, want, older)
     out["torn"] = dict(resumed=[r["resumed"] for r in torn["ranks"]], wall=wall_torn)
 
     # c. The MLlib baseline under a gang, against one process on the card.
-    data = str(Path(__file__).resolve().parent / "assets" / "sample_multiclass_classification_data.txt")
-    t0 = time.perf_counter()
-    mg = Distributor(num_processes=GANG, timeout=600).run(
-        "chip_smoke:mllib_gang_rank", data, MLLIB_GANG["layers"], MLLIB_GANG["maxIter"])
-    wall_gang = time.perf_counter() - t0
-    if kill_stray_gangs() != 0:
-        fail("the MLlib gang left a stray process group")
+    wall_gang = both["seconds"]["mllib"]
     train, _ = read_libsvm(data).random_split([0.6, 0.4], seed=1234)
     one = MultilayerPerceptronClassifier(**MLLIB_GANG).fit(train)
     worst = 0.0
@@ -4021,8 +4066,8 @@ def recovery_slice(torch, hop, translator, prompts, card: str) -> dict:
         f"{MLLIB_GANG['maxIter']}, the sample's 60 % split): fit {mg['fit_seconds']:.4f} s, "
         f"{mg['iterations']} iterations, {mg['evaluations']} loss-and-gradient evaluations, "
         f"{mg['allreduces']} all-reduces ({per_iter:.2f} per iteration); the gang's first fit "
-        f"{mg['first_fit_seconds']:.4f} s; {wall_gang:.2f} s spawn to "
-        f"result; one process on the card: fit {one.fit_seconds:.4f} s; parameters: max(|diff| - "
+        f"{mg['first_fit_seconds']:.4f} s; {wall_gang:.2f} s in rank 0 after the torn-payload "
+        f"run; one process on the card: fit {one.fit_seconds:.4f} s; parameters: max(|diff| - "
         f"{MLLIB_RTOL} x |want|) {worst:.3e} (gate {MLLIB_ATOL}); ranks agree {mg['ranks_agree']} "
         f"[{card}]")
     if worst > MLLIB_ATOL or not mg["ranks_agree"] or mg["allreduces"] != mg["evaluations"]:
@@ -4135,27 +4180,11 @@ def _step_times(torch, kind: str, mesh, rank: int, world: int, dev) -> dict:
 GANG_TIMED = ("mt", "mt8004", "cnn")
 
 
-def gang_times_rank() -> list:
-    """One rank of the timing gang: the MT and CNN steps, every rank's
-    numbers in rank order."""
-    import torch
-
-    from machine_learning_apache_spark_tpu_torch.parallel import data_parallel_mesh, process_index
-
-    mesh = data_parallel_mesh()
-    rows = [_step_times(torch, kind, mesh, process_index(), mesh.size, mesh.device)
-            for kind in GANG_TIMED]
-    return _gather(rows)
-
-
-def time_gang(torch, card: str) -> dict:
+def time_gang(torch, card: str, gang: list) -> dict:
     """Phase 8's gang numbers: the 2-rank gang's step against one process
-    at the same global batch, MT and CNN."""
-    from machine_learning_apache_spark_tpu_torch.launcher import Distributor, kill_stray_gangs
-
-    gang = Distributor(num_processes=GANG, timeout=600).run("chip_smoke:gang_times_rank")
-    if kill_stray_gangs() != 0:
-        fail("the timing gang left a stray process group")
+    at the same global batch, MT and CNN. ``gang`` is each rank's rows,
+    timed at the end of phase 7e's gang (``zero1_gang_rank``): a gang of
+    its own cost one more spawn of the smoke's time."""
     one = {kind: _step_times(torch, kind, None, 0, 1, torch.device("cuda")) for kind in GANG_TIMED}
     out = {}
     for kind in GANG_TIMED:
@@ -4344,7 +4373,8 @@ def zero1_gang_rank(root: str) -> dict:
     ``ZERO1_K`` steps per call, and a ZeRO-1 checkpoint resume (1 + 1
     epochs against 2); rank 0 holds every run against the replicated
     one (and the resume against the whole run) in its own process. Then
-    the step times. Every rank's numbers, in rank order."""
+    the step times, and phase 8's gang timings (``time_gang``). Every
+    rank's numbers, in rank order."""
     import os
 
     import torch
@@ -4388,7 +4418,13 @@ def zero1_gang_rank(root: str) -> dict:
             for k, v in states["ckpt whole moments"].items())
     del states
     times = _zero1_step_times(torch, rank)
-    return _gather(dict(rank=rank, runs=runs, gates=gates, times=times))
+    # Phase 8's gang timings, in this gang: its replicated data-parallel
+    # step (no ZeRO-1) of each of ``GANG_TIMED``.
+    from machine_learning_apache_spark_tpu_torch.parallel import data_parallel_mesh
+
+    mesh = data_parallel_mesh()
+    timing = [_step_times(torch, kind, mesh, rank, mesh.size, mesh.device) for kind in GANG_TIMED]
+    return _gather(dict(rank=rank, runs=runs, gates=gates, times=times, timing=timing))
 
 
 def zero1_slice(torch, hop, card: str) -> dict:
@@ -4419,8 +4455,8 @@ def zero1_slice(torch, hop, card: str) -> dict:
     rep, z = runs["replicated"], runs["zero1"]
     steps = z["steps"]
     log(f"  Session -> Distributor(dp_mode='zero1') -> train_translator, {GANG} ranks x batch "
-        f"{GANG_MT['batch_size']} (dropout 0): {wall:.2f} s spawn to result (13 recipe runs and "
-        f"the step times); state {z['type']} (replicated run: {rep['type']}), {steps} steps")
+        f"{GANG_MT['batch_size']} (dropout 0): {wall:.2f} s spawn to result (13 recipe runs, "
+        f"the step times and phase 8's gang timings); state {z['type']} (replicated run: {rep['type']}), {steps} steps")
     if z["type"] != "Zero1State" or rep["type"] != "TrainState":
         fail(f"the gang's recipe ran {z['type']} under dp_mode='zero1' and {rep['type']} replicated")
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(z["step_losses"], rep["step_losses"]))
@@ -7064,6 +7100,120 @@ def fleet_slice(torch, hop, card: str, translator, prompts, single: dict) -> dic
     return out
 
 
+# -- phase 7m: the drills -------------------------------------------------------------
+
+# Through the drills' own scenario functions (tools/torch_{fault_drill,
+# ingest_bench}.py): (a) ``serving_poison`` on phase 4's translator in this
+# process; (b) ``straggler_hedge`` then ``torn_response_retry``, each on a
+# 2-replica fleet of ``fleet_replica_rank`` at phase 4's knobs on the card,
+# one after the other (the hedge's timing is what it reads); (c) the ingest
+# bench's smoke entry with its device stage on the card.
+
+
+def _launch_delta(probe: dict) -> dict:
+    """Each replica's kernel launches between the scenario's two probes."""
+    before, after = probe["before"], probe["after"]
+    return {r: _delta(after[r]["launches"], before[r]["launches"]) for r in after}
+
+
+def drills_slice(torch, hop, card: str, translator, prompts) -> dict:
+    import shutil
+
+    here = Path(__file__).resolve().parent
+    for d in (here / "tools", here / "tests"):
+        if str(d) not in sys.path:
+            sys.path.insert(0, str(d))
+    import torch_fault_drill as fd
+    import torch_fleet_bench as fb
+    import torch_ingest_bench as ib
+
+    from machine_learning_apache_spark_tpu_torch.launcher import kill_stray_gangs
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()  # the replicas share the card with this process
+    root = scratch_dir() / "drills"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    failed, out, seconds = [], {}, {}
+
+    # (a) Decode launch 0 raises in phase 4's engine; only its rows fail.
+    t0 = time.perf_counter()
+    hop.reset_launches()
+    poison = fd.scenario_serving_poison(str(root / "poison"), translator=translator, texts=prompts[:12],
+                                        knobs=fd.card_poison_knobs(SERVE))
+    launches = dict(hop.LAUNCHES)
+    seconds["a"] = time.perf_counter() - t0
+    log(f"  (a) serving_poison ({poison['plan']}) on phase 4's translator in this process: "
+        + json.dumps({k: poison[k] for k in ("submitted", "served", "poisoned", "quarantined", "loop_restarts",
+                                             "recompiles_after_warmup", "kv_slots_leaked")})
+        + f", flight dump {poison['flight']['events']} events, launches "
+        f"{({k: v for k, v in launches.items() if v})}, {seconds['a']:.1f} s [{card}]")
+    if not poison["ok"]:
+        failed.append(f"serving_poison's invariant failed: {poison}")
+    for name in SERVING_KERNELS:
+        if launches[name] <= 0:
+            failed.append(f"serving_poison's engine never launched {name}")
+    out["a"] = dict(poison={k: v for k, v in poison.items() if k != "flight"}, launches=launches)
+
+    # (b) The wire faults, each on its own fleet of phase 4's engine.
+    fleet = fb.ReplicaBody("chip_smoke:fleet_replica_rank", (dict(SERVE),), None, prompts,
+                           fb.make_key_fn(translator))
+    for part, scenario in (("b hedge", fd.scenario_straggler_hedge), ("b torn", fd.scenario_torn_response_retry)):
+        t0 = time.perf_counter()
+        rec = scenario(str(root / part.replace(" ", "_")), fleet, probe=fb.replica_sections)
+        seconds[part] = time.perf_counter() - t0
+        deltas = _launch_delta(rec["probe"])
+        devices = {r: (s or {}).get("device") for r, s in rec["probe"]["after"].items()}
+        log(f"  ({part}) {rec['scenario']} ({rec['plan']}): ok {rec['ok']}, {seconds[part]:.1f} s; replica "
+            f"start-up s (spawn to first healthy scrape) "
+            + ", ".join(f"rank {r} {t:.2f}" for r, t in sorted(rec["startup_s"].items()))
+            + f"; launches in the scenario's traffic {({r: {k: v for k, v in d.items() if v} for r, d in deltas.items()})}; "
+            f"ledger {rec['ledger']}; router retries {rec.get('router_retries')}; winners "
+            f"{rec.get('winner_ranks')}; client retries {rec.get('client_retries')} [{card}]")
+        if not rec["ok"]:
+            failed.append(f"{rec['scenario']}'s invariant failed: "
+                          + json.dumps({k: v for k, v in rec.items() if k not in ("probe", "per_replica")},
+                                       default=str)[:1500])
+        if any(d is None or not d.startswith("cuda") for d in devices.values()):
+            failed.append(f"{rec['scenario']}: a replica is not on the card: {devices}")
+        for r, d in deltas.items():
+            for name in SERVING_KERNELS:
+                if d.get(name, 0) <= 0:
+                    failed.append(f"{rec['scenario']}: replica {r} never launched {name}")
+        out[part] = dict(ok=rec["ok"], ledger=rec["ledger"], startup_s=rec["startup_s"], launches=deltas,
+                         router_retries=rec.get("router_retries"), hedged=rec.get("hedged"),
+                         cancelled=rec.get("cancelled"), failures=rec.get("failures"))
+    if kill_stray_gangs() != 0:
+        failed.append("the drills' fleets left a stray process group")
+
+    # (c) The ingest bench's smoke entry, the model and the device stage
+    # on the card.
+    t0 = time.perf_counter()
+    art = ib.run(ib.SMOKE_ENTRIES, 2, 600, torch.device("cuda"), smoke=True)
+    seconds["c"] = time.perf_counter() - t0
+    entry = art["sweep"][0]
+    on = entry["stream_on"]
+    log(f"  (c) the ingest bench's smoke entry ({json.dumps({k: entry[k] for k in ('records', 'features', 'batch', 'width', 'parser', 'buffer_on', 'epochs')})}): "
+        f"gates {art['gates']}; epoch s sync {entry['sync']['epoch_s']}, stream_off "
+        f"{entry['stream_off']['epoch_s']}, stream_on {on['epoch_s']} (speed-up on/off "
+        f"{entry['speedup_on_vs_off']}, on/sync {entry['speedup_on_vs_sync']}); steady step ms "
+        f"{entry['sync']['step_p50_ms']} / {entry['stream_off']['step_p50_ms']} / {on['step_p50_ms']}; "
+        f"stream_on device {on['device']}, {on['h2d_copies']} copies; {seconds['c']:.1f} s [{card}]")
+    if not art["ok"]:
+        failed.append(f"the ingest bench's gates failed: {art['gates']}")
+    if not on["device"].startswith("cuda") or on["h2d_copies"] <= 0:
+        failed.append(f"stream_on did not copy its batches to the card: {on}")
+    out["c"] = dict(gates=art["gates"], sweep=art["sweep"], packing=art["packing"])
+
+    took = time.perf_counter() - t_phase
+    log("  phase 7m parts: " + ", ".join(f"({k}) {v:.1f} s" for k, v in seconds.items())
+        + f"; phase 7m took {took:.1f} s")
+    if failed:
+        fail("; ".join(failed))
+    out["seconds"] = took
+    return out
+
+
 # -- phase 7l: the seq axis beside the model and expert axes -------------------------
 
 LC_GANG = 4
@@ -7768,7 +7918,19 @@ def main() -> int:
         "autoscale cycle 2 -> 3 -> 2)")
     fleet = fleet_slice(torch, hop, card, translator, prompts, runs["float32"])
 
+    log("== phase 7m: the drills (tools/torch_{fault_drill,ingest_bench}.py on the card: serving_poison in "
+        "process, straggler_hedge and torn_response_retry each on a 2-replica fleet, the ingest bench's "
+        "smoke entry)")
+    drills = drills_slice(torch, hop, card, translator, prompts)
+
     log("== phase 8: times")
+    # Each part's wall: where phase 8's time goes.
+    p8, t_p8 = {}, [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        p8[name] = time.perf_counter() - t_p8[0]
+        t_p8[0] = time.perf_counter()
+
     for label, run in runs.items():
         log(f"  {label:7s} engine ({run['kv_mode']}): {len(run['outs']) / run['wall']:.2f} requests/s, "
             f"{run['tokens'] / run['wall']:.1f} generated tokens/s "
@@ -7818,13 +7980,17 @@ def main() -> int:
     if eval_decode["launches"] != eval_launches or eval_decode["recorded"] != eval_launches:
         fail(f"the profiled eval/BLEU decode launched the forward {eval_decode['launches']} times "
              f"({eval_decode['recorded']} recorded), the recipe run's {eval_launches}")
-    gang_times = time_gang(torch, card)
+    lap("serving windows and the eval decode")
+    gang_times = time_gang(torch, card, [r["timing"] for r in zero1["ranks"]])
+    lap("the 2-rank gang's timings (timed in phase 7e's gang) against one process")
     times = time_kernels(torch, hop, dev, prompt_lens)
     times |= time_kernels(torch, hop, dev, prompt_lens, dtype=bf16)
+    lap("serving sites")
     train_times = time_train_dispatch(torch, trained["state"], train_ds, card)
     train_times_bf16 = time_train_dispatch(torch, bf["one"]["state"], train_ds, card, label="bf16 ")
     cnn_times_bf16 = time_zoo_dispatch(torch, "cnn cifar10", bf["cnn"][1]["state"], card, label=" at bf16")
     bleu_times = time_bleu_decode(torch, hop, trained["state"], card)
+    lap("step dispatch and the BLEU decode")
     timed_sites = make_sites()
     timed_sites |= one_sequence_sites(torch, timed_sites["encoder self"])
     timed_sites |= pp_sites(torch, dev, src0, trg0[:, :-1])
@@ -7832,8 +7998,12 @@ def main() -> int:
     timed_sites |= sp_hop_sites(torch, dev, shapes=LC_SHAPES)
     site_times = time_training_kernels(torch, hop, timed_sites)
     site_times |= time_training_kernels(torch, hop, make_sites(bf16))
+    lap("training sites")
     decode_times = time_decode_forward(torch, hop, decode_sites(torch, dev, bleu_valid))
     decode_times_bf16 = time_decode_forward(torch, hop, decode_sites(torch, dev, bleu_valid, dtype=bf16))
+    lap("decode sites")
+    log(f"  phase 8 parts (profiler sessions of {PROFILE_CALLS} calls at the serving and decode sites): "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in p8.items()))
     for name, by_site in [*times.items(), *site_times.items(), ("flash_attention_fwd", decode_times),
                           ("flash_attention_fwd_bf16", decode_times_bf16)]:
         for site, t in by_site.items():
@@ -7905,6 +8075,9 @@ def main() -> int:
         f"{ELASTIC_GANG - 1}": [r["launches"] for rs in elastic["ranks"].values() for r in rs],
         f"fleet: {FLEET_REPLICAS} paged replicas behind the router, phase 7k (a)": list(
             fleet["a"]["launches"].values()),
+        "drills: serving_poison on phase 4's engine in process, phase 7m (a)": [drills["a"]["launches"]],
+        "drills: straggler_hedge and torn_response_retry, 2 paged replicas each, phase 7m (b)": [
+            d for part in ("b hedge", "b torn") for d in drills[part]["launches"].values()],
         "live plane: paged fp32 engine": [recovery["live"]["paged fp32"]["launches"]],
         "live plane: padded engine": [recovery["live"]["padded"]["launches"]],
         **bf["paths"],
@@ -8025,6 +8198,8 @@ def main() -> int:
     log("  fleet: " + json.dumps({k: {f: v for f, v in part.items() if f not in ("decisions", "launches")}
                                   if isinstance(part, dict) else part for k, part in fleet.items()},
                                  default=str) + f" [{card}]")
+    log("  drills: " + json.dumps({k: v for k, v in drills.items() if k != "c"}, default=str)
+        + f" [{card}]")
     log("  report CLIs (tools/torch_{telemetry_report,trace_report,gang_status}.py): "
         + ", ".join(f"{k} {v:.2f} s" for k, v in REPORT_CLI_SECONDS.items())
         + f"; wall added to the smoke {REPORT_CLI_SECONDS.get('offline reports (7b)', 0.0):.2f} s (the live "

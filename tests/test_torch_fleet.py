@@ -842,6 +842,40 @@ def test_gang_spawns_the_ports_runner_with_the_ports_platform(monkeypatch, tmp_p
     assert env["MLSPARK_FLEET_DIR"] == str(tmp_path)
 
 
+def test_a_fleet_started_without_a_platform_puts_its_replicas_on_the_card(monkeypatch, tmp_path):
+    """``torch_fleet_bench.start_fleet`` defaults to the card, as
+    ``ReplicaGang`` and ``Distributor`` do: no replica env asks for the
+    host."""
+    from machine_learning_apache_spark_tpu_torch.launcher import replica_gang
+
+    if str(TOOLS) not in sys.path:
+        sys.path.insert(0, str(TOOLS))
+    import torch_fleet_bench as fb
+
+    spawned = []
+
+    class _Popen:
+        def __init__(self, cmd, env, start_new_session):
+            spawned.append(env)
+            self.pid = 990001
+
+        def poll(self):
+            return None
+
+    monkeypatch.setattr(replica_gang.subprocess, "Popen", _Popen)
+    monkeypatch.setattr(replica_gang, "_register_gang", lambda procs: None)
+    monkeypatch.delenv("MLSPARK_PLATFORM", raising=False)
+    gang, router = fb.start_fleet(2, str(tmp_path), "os:getcwd")
+    try:
+        assert gang.platform is None
+        assert len(spawned) == 2
+        assert all(env.get("MLSPARK_PLATFORM") != "cpu" for env in spawned)
+        assert all("MLSPARK_PLATFORM" not in env for env in spawned)
+    finally:
+        gang._stop.set()  # the fake ranks have no process to signal
+        router.stop()
+
+
 def test_a_replica_never_serves_from_the_host_unasked(monkeypatch, translator_spec):
     from machine_learning_apache_spark_tpu_torch.fleet.replica import replica_device, serve_replica
 

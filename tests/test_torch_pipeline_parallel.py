@@ -29,6 +29,8 @@ listed per stage (``{data: 2, pipeline: 2}``) against SGD on the JAX
 
 from __future__ import annotations
 
+import threading
+
 import flax.linen as fnn
 import jax
 import jax.numpy as jnp
@@ -285,48 +287,71 @@ def test_two_rank_pipeline_gang_equals_the_jax_pipeline(tmp_path):
     mlp_aux = ((rng.random((24, 1)) + 0.5).astype(np.float32),
                (0.1 * rng.standard_normal((3, D))).astype(np.float32))
     lr = 0.5
-    out = Distributor(num_processes=2, platform="cpu", timeout=600, env=GANG_ENV).run(
-        "torch_launcher_workers:pp_two_rank", mlp_params, mlp_x, mlp_aux, TINY, tree, probe, batches, lr,
-        str(tmp_path), RECIPE, PROBE_TEXTS,
-    )
+    src, trg_in = probe
+
+    # The gang runs in a thread while this one computes the oracles: the
+    # JAX pipeline's, Flax's and the one-process recipe's.
+    gang: dict = {}
+
+    def run():
+        try:
+            gang["out"] = Distributor(num_processes=2, platform="cpu", timeout=600, env=GANG_ENV).run(
+                "torch_launcher_workers:pp_two_rank", mlp_params, mlp_x, mlp_aux, TINY, tree, probe, batches,
+                lr, str(tmp_path), RECIPE, PROBE_TEXTS,
+            )
+        except BaseException as e:  # noqa: BLE001 - re-raised in the main thread
+            gang["error"] = e
+
+    thread = threading.Thread(target=run)
+    thread.start()
+    try:
+        j_mlp = {m: _j_mlp(mlp_params, mlp_x, {"pipeline": 2}, m) for m in (2, 6)}
+        j_mlp_aux = _j_mlp(mlp_params, mlp_x, {"pipeline": 2}, 3, *mlp_aux)
+        j_mesh = j_make_mesh({"data": 1, "pipeline": 2}, devices=jax.devices()[:2])
+        seq = lambda p: (jm.apply({"params": p}, src, trg_in, deterministic=True) ** 2).mean()  # noqa: E731
+        j_seq_grads = _flat(jax.tree.map(np.asarray, jax.jit(jax.grad(seq))(tree)))
+        j_apply = np.asarray(jm.apply({"params": tree}, src, trg_in, deterministic=True))
+        j_pipelined = {}
+        for remat in (False, True):
+            jr = JTransformer(JConfig(**{**TINY, "remat": remat}))
+            pipelined = lambda p, jr=jr: j_pipeline_transformer_logits(jr, p, src, trg_in, j_mesh)  # noqa: E731
+            j_pipelined[remat] = (np.asarray(jax.jit(pipelined)(tree)), _flat(jax.tree.map(np.asarray, jax.jit(
+                jax.grad(lambda p, f=pipelined: (f(p) ** 2).mean()))(tree))))
+        want_fit, _ = _jax_pipeline_fit(jm, boxed, batches[:3], lr, {"data": 1, "pipeline": 2}, 2)
+        control = load_flax_params(Transformer(TransformerConfig(**TINY)), tree)
+        (control(torch.as_tensor(src), torch.as_tensor(trg_in)) ** 2).mean().backward()
+        c_grads = _grads_tree(control)
+        one = train_translator(device="cpu", _return_translator=True, _return_state=True, **RECIPE)
+        one_tokens = one["translator"](PROBE_TEXTS, max_new_tokens=8)
+    finally:
+        thread.join()
+    if "error" in gang:
+        raise gang["error"]
+    out = gang["out"]
     assert kill_stray_gangs() == 0
     assert out["mesh"] == {"data": 1, "pipeline": 2}
 
     # pipeline_apply at (S, M) = (2, 2), (2, 6): forward and gradients.
     for m in (2, 6):
-        _check_mlp([r[m] for r in out["mlp"]], *_j_mlp(mlp_params, mlp_x, {"pipeline": 2}, m), 1)
-    _check_mlp([r["aux"] for r in out["mlp"]],
-               *_j_mlp(mlp_params, mlp_x, {"pipeline": 2}, 3, *mlp_aux), 1)
+        _check_mlp([r[m] for r in out["mlp"]], *j_mlp[m], 1)
+    _check_mlp([r["aux"] for r in out["mlp"]], *j_mlp_aux, 1)
 
     # The pipelined Transformer against the JAX function and Flax's
     # sequential apply; each gradient tensor within 10x the control run's
     # difference (the port's sequential model against Flax).
-    src, trg_in = probe
-    j_mesh = j_make_mesh({"data": 1, "pipeline": 2}, devices=jax.devices()[:2])
-    seq = lambda p: (jm.apply({"params": p}, src, trg_in, deterministic=True) ** 2).mean()  # noqa: E731
-    j_seq_grads = _flat(jax.tree.map(np.asarray, jax.jit(jax.grad(seq))(tree)))
-    control = load_flax_params(Transformer(TransformerConfig(**TINY)), tree)
-    (control(torch.as_tensor(src), torch.as_tensor(trg_in)) ** 2).mean().backward()
-    c_grads = _grads_tree(control)
     for remat in (False, True):
-        jr = JTransformer(JConfig(**{**TINY, "remat": remat}))
-        pipelined = lambda p: j_pipeline_transformer_logits(jr, p, src, trg_in, j_mesh)  # noqa: E731
-        j_logits = np.asarray(jax.jit(pipelined)(tree))
+        j_logits, j_pp_grads = j_pipelined[remat]
         got = out["logits"][remat]
         np.testing.assert_allclose(got["logits"], j_logits, rtol=0, atol=1e-5)
-        np.testing.assert_allclose(
-            got["logits"], np.asarray(jm.apply({"params": tree}, src, trg_in, deterministic=True)), rtol=0, atol=1e-5)
-        j_pp_grads = _flat(jax.tree.map(np.asarray, jax.jit(jax.grad(
-            lambda p: (pipelined(p) ** 2).mean()))(tree)))
+        np.testing.assert_allclose(got["logits"], j_apply, rtol=0, atol=1e-5)
         g = _flat(got["grads"])
         for path, want in j_pp_grads.items():
             gate = max(10 * float(np.abs(c_grads[path] - j_seq_grads[path]).max()), 1e-7)
             assert float(np.abs(g[path] - want).max()) <= gate, (remat, path)
 
     # 3 SGD steps of fit(mesh=) against the JAX pipelined fit: params atol 1e-5.
-    want, _ = _jax_pipeline_fit(jm, boxed, batches[:3], lr, {"data": 1, "pipeline": 2}, 2)
     got = _flat(out["fit"]["params"])
-    for path, w in want.items():
+    for path, w in want_fit.items():
         np.testing.assert_allclose(got[path], w, rtol=0, atol=1e-5, err_msg=path)
     assert out["fit"]["ranks_equal"]
     comms = out["fit"]["comms"]
@@ -352,9 +377,8 @@ def test_two_rank_pipeline_gang_equals_the_jax_pipeline(tmp_path):
     rec = out["recipe"]
     assert rec["mesh"] == {"data": 1, "pipeline": 2} and rec["translator_is_model"]
     assert rec["comms"]["pp_steps"] == len(rec["step_losses"])
-    one = train_translator(device="cpu", _return_translator=True, _return_state=True, **RECIPE)
     np.testing.assert_allclose(rec["step_losses"], one["fit_result"].step_losses, rtol=1e-4)
-    assert one["translator"](PROBE_TEXTS, max_new_tokens=8) == rec["tokens"]
+    assert one_tokens == rec["tokens"]
 
 
 def test_four_rank_pipeline_gang_equals_the_jax_pipeline():

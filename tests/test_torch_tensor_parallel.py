@@ -293,10 +293,34 @@ def test_two_rank_tp_gang_equals_flax_and_the_jax_tp_fit(tmp_path):
                    for _ in range(3)]
     lr = 0.5
 
-    out = Distributor(num_processes=2, platform="cpu", timeout=600, env=GANG_ENV).run(
-        "torch_launcher_workers:tp_two_rank", TINY, tree, (src, trg), batches, lr,
-        mlp_layers, mlp_tree, mlp_batches, str(tmp_path), RECIPE, PROBE_TEXTS,
-    )
+    # The gang runs in a thread while this one computes the JAX oracles.
+    got: dict = {}
+
+    def run():
+        try:
+            got["out"] = Distributor(num_processes=2, platform="cpu", timeout=600, env=GANG_ENV).run(
+                "torch_launcher_workers:tp_two_rank", TINY, tree, (src, trg), batches, lr,
+                mlp_layers, mlp_tree, mlp_batches, str(tmp_path), RECIPE, PROBE_TEXTS,
+            )
+        except BaseException as e:  # noqa: BLE001 - re-raised in the main thread
+            got["error"] = e
+
+    thread = threading.Thread(target=run)
+    thread.start()
+    try:
+        j_loss_fn = j_make_translation_loss(jm, 0, train=False)
+        (j_loss, _), j_grads = jax.value_and_grad(
+            lambda p: j_loss_fn(p, (jnp.asarray(src), jnp.asarray(trg)), None), has_aux=True
+        )(tree)
+        want_mt = _jax_tp_fit(jm, boxed, j_make_translation_loss(jm, 0), batches, lr,
+                              {"data": 1, "model": 2})
+        want_mlp = _jax_tp_fit(jmlp, mlp_boxed, jloop.classification_loss(jmlp.apply), mlp_batches, lr,
+                               {"data": 1, "model": 2})
+    finally:
+        thread.join()
+    if "error" in got:
+        raise got["error"]
+    out = got["out"]
     assert kill_stray_gangs() == 0
     assert out["mesh"] == {"data": 1, "model": 2} and out["heads_per_rank"] == 2
     # 5 forward all-reduces (encoder out/down, decoder self out/cross
@@ -306,10 +330,6 @@ def test_two_rank_tp_gang_equals_flax_and_the_jax_tp_fit(tmp_path):
 
     # Gradients against Flax, each tensor held to 10x the control run's
     # difference (the unsharded port model against Flax).
-    j_loss_fn = j_make_translation_loss(jm, 0, train=False)
-    (j_loss, _), j_grads = jax.value_and_grad(
-        lambda p: j_loss_fn(p, (jnp.asarray(src), jnp.asarray(trg)), None), has_aux=True
-    )(tree)
     control = load_flax_params(Transformer(TransformerConfig(**TINY)), tree)
     c_loss, _ = make_translation_loss(0, train=False)(control, (torch.as_tensor(src), torch.as_tensor(trg)), None)
     c_loss.backward()
@@ -322,17 +342,13 @@ def test_two_rank_tp_gang_equals_flax_and_the_jax_tp_fit(tmp_path):
         assert float(np.abs(got - want).max()) <= gate, path
 
     # 3 SGD steps of fit(mesh=) against the JAX TP fit: params atol 1e-5.
-    want = _jax_tp_fit(jm, boxed, j_make_translation_loss(jm, 0), batches, lr,
-                       {"data": 1, "model": 2})
     got = _flat(out["fit"]["params"])
-    for path, w in want.items():
+    for path, w in want_mt.items():
         np.testing.assert_allclose(got[path], w, rtol=0, atol=1e-5, err_msg=path)
     assert out["fit"]["comms"]["tp_allreduce_steps"] == 3
     assert out["fit"]["comms"]["tp_allreduce_calls"] == 3 * 15
-    want = _jax_tp_fit(jmlp, mlp_boxed, jloop.classification_loss(jmlp.apply), mlp_batches, lr,
-                       {"data": 1, "model": 2})
     got = _flat(out["mlp"]["params"])
-    for path, w in want.items():
+    for path, w in want_mlp.items():
         np.testing.assert_allclose(got[path], w, rtol=0, atol=1e-5, err_msg=path)
     assert out["mlp"]["modes"] == ["column", "row", "column"]
     # {model: 2} without a data axis trains the same bits as {data: 1, model: 2}.

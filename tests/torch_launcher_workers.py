@@ -395,6 +395,58 @@ def fault_drill_train_mesh(
     return _drill_result(rank, res, world)
 
 
+def elastic_drill_train(workdir, epochs=4, checkpoint_every=1, global_batch=168, steps_per_epoch=2,
+                        device=None):
+    """The shrink drill's workload (the port of the JAX drill's worker):
+    ZeRO-1 training over the gang's ``data`` mesh, per-rank checkpoint
+    directories (``<workdir>/ckpt_r<rank>``) and ``fit(resume=True)``.
+    Elastic resume is resolved through ``MLSPARK_ELASTIC``, which
+    ``Distributor(elastic=True)`` sets, so a shrunken retry reshards the
+    survivors' checkpoint group. ``global_batch=168 = lcm(8, 7, 6)``
+    divides every world on the 8 -> 7 -> 6 path, so each world slices
+    the same global rows a step; ``dp_bucket_bytes=128`` makes several
+    ZeRO-1 buckets, so the reshard crosses bucket seams."""
+    from machine_learning_apache_spark_tpu_torch.models.mlp import MLP
+    from machine_learning_apache_spark_tpu_torch.parallel import data_parallel_mesh
+    from machine_learning_apache_spark_tpu_torch.train.checkpoint import CheckpointManager
+    from machine_learning_apache_spark_tpu_torch.train.loop import fit
+    from machine_learning_apache_spark_tpu_torch.train.losses import cross_entropy
+    from machine_learning_apache_spark_tpu_torch.train.state import (
+        TrainState,
+        make_optimizer,
+    )
+
+    rank, world = _rank_world()
+    if global_batch % world:
+        raise ValueError(f"global_batch {global_batch} must divide world {world}")
+    rng = np.random.default_rng(7)
+    n = global_batch * steps_per_epoch
+    feats = rng.normal(size=(n, 4)).astype(np.float32)
+    labels = rng.integers(0, 3, n).astype(np.int64)
+    loader = [
+        _rows((feats[s * global_batch:(s + 1) * global_batch],
+               labels[s * global_batch:(s + 1) * global_batch]), rank, world)
+        for s in range(steps_per_epoch)
+    ]
+    dev = _worker_device(device)
+    model = MLP((4, 8, 3), generator=torch.Generator().manual_seed(0)).to(dev)
+    state = TrainState.create(model=model, tx=make_optimizer("adam", 0.05))
+
+    def loss_fn(module, batch, step_rng):
+        del step_rng
+        x, y = batch
+        return cross_entropy(module(x), y), {}
+
+    with CheckpointManager(os.path.join(workdir, f"ckpt_r{rank}")) as ckpt:
+        res = fit(
+            state, loss_fn, loader, epochs=epochs, mesh=data_parallel_mesh(device=dev),
+            dp_mode="zero1", dp_bucket_bytes=128, checkpointer=ckpt,
+            checkpoint_every=checkpoint_every, resume=True, log_every=0,
+        )
+    return {"rank": rank, "world": world, "final_loss": res.final_loss,
+            "resumed_step": res.resumed_step, "epochs_run": len(res.history)}
+
+
 def mlp_recipe_two_plus_two(workdir, data_path, device=None):
     """The MLP recipe in this gang, three times: 2 epochs into
     ``<workdir>/split``, 2 more epochs resumed from there, and 4 epochs

@@ -49,6 +49,7 @@ import tempfile
 import threading
 import time
 from pathlib import Path
+from typing import Callable, NamedTuple
 
 ROOT = Path(__file__).resolve().parent.parent
 if str(ROOT) not in sys.path:
@@ -144,17 +145,30 @@ def make_key_fn(translator):
     return lambda text: prefix_digest(src_pipe.ragged([text])[0])
 
 
+class ReplicaBody(NamedTuple):
+    """What a fleet's replicas run, for the drills: the gang body
+    (``module:fn``) and its arguments, the gang's platform (None: the
+    card), the prompts the clients send and the router's affinity key."""
+
+    body: str
+    args: tuple
+    platform: str | None
+    texts: list
+    key_fn: Callable | None
+
+
 # -- the fleet ----------------------------------------------------------------
 
 
-def start_fleet(n: int, workdir: str, body: str, *args, platform: str | None = "cpu",
+def start_fleet(n: int, workdir: str, body: str, *args, platform: str | None = None,
                 policy: str = "affinity", key_fn=None, scrape_interval: float = 0.25,
                 extra_env: dict | None = None, router_kw: dict | None = None,
                 gang_kw: dict | None = None):
     """Spawn an n-replica gang running ``body(*args)`` and start a router
     over its sidecar directory; returns ``(gang, router)`` at once (the
     replicas come up on their own — see ``wait_fleet``). ``platform=None``
-    puts every replica on the card."""
+    (the default, as for ``ReplicaGang`` and ``Distributor``) puts every
+    replica on the card; ``"cpu"`` keeps them on the host."""
     from machine_learning_apache_spark_tpu_torch.fleet import FleetRouter
     from machine_learning_apache_spark_tpu_torch.launcher import ReplicaGang
 
@@ -173,14 +187,24 @@ def start_fleet(n: int, workdir: str, body: str, *args, platform: str | None = "
     return gang, router
 
 
-def wait_fleet(gang, router, n: int, timeout: float = 240.0) -> None:
-    """Block until n replicas scrape healthy; tear both down and raise if
-    they do not."""
-    if not router.wait_for_replicas(n, timeout=timeout):
-        router.stop()
-        gang.stop()
-        raise RuntimeError(f"fleet of {n} never came healthy in {gang.workdir} "
-                           f"(gang status: {gang.status()})")
+def wait_fleet(gang, router, n: int, timeout: float = 240.0) -> dict:
+    """Block until n replicas scrape healthy and return each rank's
+    seconds from this call (made right after the spawn) to the first
+    scrape that saw it healthy; tear both down and raise if they do not
+    come up."""
+    t0 = time.monotonic()
+    startup: dict = {}
+    while time.monotonic() - t0 <= timeout:
+        ready = router.wait_for_replicas(n, timeout=0.05)
+        seen = router._scrape.snapshots() if router._scrape is not None else router._snapshot_source()
+        for rank, snap in seen.items():
+            if snap.healthy:
+                startup.setdefault(rank, time.monotonic() - t0)
+        if ready:
+            return startup
+    router.stop()
+    gang.stop()
+    raise RuntimeError(f"fleet of {n} never came healthy in {gang.workdir} (gang status: {gang.status()})")
 
 
 def build_fleet(n: int, workdir: str, body: str, *args, timeout: float = 240.0, **kw):
@@ -418,6 +442,23 @@ def local_outputs(translator, knobs: dict, texts) -> list[str]:
     with translator.serve(**knobs) as eng:
         futs = [eng.submit(t) for t in texts]
         return [f.result(timeout=600) for f in futs]
+
+
+def host_body() -> ReplicaBody:
+    """Replicas of the smoke's translator (``smoke_spec``) on the host, at
+    ``SMOKE_KNOBS``."""
+    spec, texts = smoke_spec()
+    return ReplicaBody("torch_fleet_bench:replica_main", (spec, dict(SMOKE_KNOBS)), "cpu", texts,
+                       make_key_fn(build_translator(spec, "cpu")))
+
+
+def card_body(cs) -> ReplicaBody:
+    """Replicas of ``chip_smoke.py``'s serving configuration on the card:
+    the reference MT model at full width (weights from the seed) at phase
+    4's paged knobs, and its prompts."""
+    spec, texts = reference_spec(cs)
+    return ReplicaBody("torch_fleet_bench:replica_main", (spec, dict(cs.SERVE)), None, texts,
+                       make_key_fn(build_translator(spec, "cpu")))
 
 
 def run_smoke(out_path: str | None) -> int:
